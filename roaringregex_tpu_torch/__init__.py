@@ -1,0 +1,17 @@
+"""roaringregex_tpu_torch -- the PyTorch and CUDA port of roaringregex_tpu.
+
+The JAX package ``roaringregex_tpu`` is the reference. This package runs
+its batched match-stats path (``compile`` -> ``search_batch`` /
+``count_batch`` / ``grep`` / ``fullmatch_batch`` / ``fullmatch``) for
+programs of up to 32 states, on an NVIDIA H100 through hand-written CUDA
+kernels (``csrc/scan_bits.cu``) and on the CPU through their plain
+PyTorch versions. It imports torch and never jax.
+"""
+
+from .api import Match, Pattern, compile  # noqa: F401
+from .compiler.nfa import NFA, build_nfa  # noqa: F401
+from .compiler.parser import RegexSyntaxError, parse  # noqa: F401
+from .compiler.program import DeviceProgram, compile_program, from_reference  # noqa: F401
+from .engine import ScanEngine  # noqa: F401
+
+__version__ = "0.1.0"

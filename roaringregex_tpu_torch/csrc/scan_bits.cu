@@ -1,0 +1,260 @@
+// Per-record bit-set NFA scan with fused match statistics, for Hopper (sm_90a).
+//
+// Replaces two Pallas TPU kernels of the JAX package together with the XLA
+// bit-log reductions that follow them:
+//   rrx_swar_stats  <- roaringregex_tpu/ops/scan_swar.py  _swar_kernel + _swar_stats
+//                      (programs of <= 8 states, 4 records per u32 on the TPU)
+//   rrx_word_stats  <- roaringregex_tpu/ops/scan_word.py  _word_kernel + _word_stats
+//                      (programs of <= 32 states, 1 record per u32 on the TPU)
+//
+// What both compute, per record r of data[R, stride] (uint8, bytes 0..len-1
+// live), as the scanner method match_stats_b does:
+//   stream step t = 0 .. len+1; t = 0 is the BOS step, step t carries byte
+//   t-1, step len+1 is the EOS step. Per step
+//     vv = v | seed          (seed = state 0 = bit 0; every step when seeded,
+//                             steps t < 2 only when not)
+//     v' = OR_i shift(vv, delta_i) & tab[sym][i]
+//   where sym is the byte (0..255), 256 at BOS, 257 at EOS. tab[sym][i] is
+//   the target mask of every (delta_i, gate) pair whose gate holds sym, so a
+//   byte outside every gate (bytes >= 0x80 included) kills the state. The
+//   accept flag of step t is (v' & acc) != 0, except that the EOS step's
+//   flag is dropped when step len already flagged (the `$` duplicate of end
+//   == len). Flags at steps t <= lead are not counted (overlapped windows).
+//   From the flags: cnt, first step, last step, then the closed forms of
+//   _swar_stats / _word_stats: ends clip to len, -1 when none, full = some
+//   flag at step >= len, and the nullable forms (seeded and unseeded).
+//   Both TPU kernels are the same recurrence on different packings; the
+//   host turns a SwarSpec or a WordSpec into the same (delta, table) form,
+//   so one body serves both entry points.
+//
+// Design, and what bounds it on this card:
+// - One thread owns one record for its whole stream and keeps (v, cnt,
+//   first, last) in registers: no bit-log, no second pass, four [R] outputs.
+//   The TPU needed the bit-log because its grid carries state across time
+//   chunks; here a loop inside the thread takes the place of that grid axis.
+// - HBM: one byte read per scanned byte (plus 13 bytes of output per
+//   record). At 3.35 TB/s that is ~0.3 ms per GiB. The integer work per byte
+//   is the longer pole: n_delta x (shared load, shift, and, or) plus the
+//   accept test and the stats update, ~15-20 instructions per byte for a
+//   2-delta program, and each step depends on the last, so the kernel is
+//   bound by integer issue and by the latency of that chain. Many resident
+//   threads hide the latency; short batches (few records) cannot.
+// - Coalescing: records are row-major, so neighbouring threads read
+//   addresses `stride` bytes apart. Each thread reads its row 16 bytes at a
+//   time (uint4 through the read-only path) and prefetches the next 16
+//   before it steps through the current ones, so every 32-byte sector is
+//   used whole across two consecutive loads. The wrapper guarantees a
+//   16-byte aligned base and a stride that is a multiple of 16.
+// - Occupancy: 128 threads per block, one record per thread. A batch of
+//   ~39,000 windows (10 MB of 1 KiB records, windowed 4 ways) fills 306
+//   blocks, about 2.3 per SM of 132, so well under a quarter of the
+//   resident-thread capacity; 1 GiB batches fill the card. Packing several
+//   records per thread, or splitting records across threads with an
+//   automaton-state handoff, is later work.
+// - Tables: tab [259][n_delta] uint32 (rows 256/257 = BOS/EOS, 258 = dead,
+//   unused here) in shared memory, at most 63 deltas = 65 KB; above 48 KB
+//   the launcher raises the block's dynamic shared-memory limit.
+// - Unsigned arithmetic: the state is uint32_t, so >> is logical and bit 31
+//   (the word tier's 32nd state) is an ordinary bit. Shift amounts are
+//   0..31, never 32.
+// - Sentinels: first = 1 << 30 (BIG) and last = -1 until a flag is seen,
+//   exactly as the JAX reduction; lengths are clamped to [0, L] so a bad
+//   length cannot read past the row.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kSyms = 259;  // 256 bytes, BOS, EOS, dead
+constexpr int kBos = 256;
+constexpr int kEos = 257;
+constexpr int kBig = 1 << 30;
+constexpr int kThreads = 128;
+constexpr int kMaxDeltas = 63;  // deltas lie in [-31, 31]
+
+struct Scan {
+  const uint32_t* tab;  // shared [kSyms][n_d]
+  const int* sl;        // shared [n_d] left shift amounts
+  const int* sr;        // shared [n_d] right shift amounts
+  int n_d;
+  uint32_t acc;
+  bool seeded;
+  int lead;
+  uint32_t v = 0;
+  bool prev = false;
+  int cnt = 0;
+  int first = kBig;
+  int last = -1;
+
+  __device__ __forceinline__ void step(int t, int sym, bool eos) {
+    const uint32_t vv = v | ((seeded || t < 2) ? 1u : 0u);
+    const uint32_t* row = tab + sym * n_d;
+    uint32_t nxt = 0;
+    for (int i = 0; i < n_d; ++i) {
+      nxt |= ((vv << sl[i]) >> sr[i]) & row[i];
+    }
+    v = nxt;
+    const bool fl = (nxt & acc) != 0u;
+    const bool emit = fl && !(eos && prev) && t > lead;
+    prev = fl;
+    cnt += emit ? 1 : 0;
+    first = (emit && first == kBig) ? t : first;
+    last = emit ? t : last;
+  }
+
+  // 16 bytes of one uint4; `n` of them are live (16 except in the last chunk)
+  template <bool kGuard>
+  __device__ __forceinline__ void chunk(const uint4& q, int t0, int n) {
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = 4 * k + b;
+        if (!kGuard || i < n) step(t0 + i, (w[k] >> (8 * b)) & 0xFFu, false);
+      }
+    }
+  }
+};
+
+template <int kStates>
+__global__ void __launch_bounds__(kThreads)
+scan_stats_kernel(const uint8_t* __restrict__ data, long long stride, int L,
+                  const int32_t* __restrict__ lengths, int R,
+                  const uint32_t* __restrict__ tab_g,
+                  const int32_t* __restrict__ deltas_g, int n_d,
+                  uint32_t acc, int seeded, int lead, int nullable,
+                  int32_t* __restrict__ cnt_o, int32_t* __restrict__ first_o,
+                  int32_t* __restrict__ last_o, uint8_t* __restrict__ full_o) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* tab = smem;
+  int* sl = reinterpret_cast<int*>(smem + kSyms * n_d);
+  int* sr = sl + n_d;
+  for (int i = threadIdx.x; i < kSyms * n_d; i += blockDim.x) tab[i] = tab_g[i];
+  for (int i = threadIdx.x; i < n_d; i += blockDim.x) {
+    const int d = deltas_g[i];
+    sl[i] = d > 0 ? d : 0;
+    sr[i] = d < 0 ? -d : 0;
+  }
+  __syncthreads();
+
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const int len = min(max(lengths[r], 0), L);
+  const uint4* row = reinterpret_cast<const uint4*>(data + r * stride);
+
+  Scan s{tab, sl, sr, n_d, acc, seeded != 0, lead};
+  s.step(0, kBos, false);
+  const int nchunks = (len + 15) >> 4;
+  uint4 cur = nchunks > 0 ? __ldg(row) : make_uint4(0, 0, 0, 0);
+  for (int c = 0; c < nchunks; ++c) {
+    const uint4 nxt = (c + 1 < nchunks) ? __ldg(row + c + 1) : cur;
+    const int n = len - 16 * c;
+    if (n >= 16) {
+      s.chunk<false>(cur, 1 + 16 * c, 16);
+    } else {
+      s.chunk<true>(cur, 1 + 16 * c, n);
+    }
+    cur = nxt;
+  }
+  s.step(len + 1, kEos, true);
+
+  // closed forms of _swar_stats / _word_stats
+  const bool any = s.cnt > 0;
+  bool full = any && s.last >= len;
+  int cnt, first, last;
+  if (nullable) {
+    full = full || len == 0;
+    first = 0;
+    if (seeded) {
+      cnt = len + 1;
+      last = s.last < 0 ? len : min(s.last, len);
+    } else {
+      cnt = len == 0 ? 1 : 1 + s.cnt - (s.first == 0 ? 1 : 0);
+      last = max(min(s.last < 0 ? 0 : s.last, len), 0);
+    }
+  } else {
+    cnt = s.cnt;
+    first = s.first >= kBig ? -1 : min(s.first, len);
+    last = s.last < 0 ? -1 : min(s.last, len);
+  }
+  cnt_o[r] = cnt;
+  first_o[r] = first;
+  last_o[r] = last;
+  full_o[r] = full ? 1 : 0;
+}
+
+size_t smem_bytes(int n_d) {
+  return sizeof(uint32_t) * (size_t)kSyms * n_d + 2 * sizeof(int) * (size_t)n_d;
+}
+
+template <int kStates>
+int launch(const void* data, long long stride, int L, const void* lengths, int R,
+           const void* tab, const void* deltas, int n_d, unsigned acc,
+           int seeded, int lead, int nullable, void* cnt, void* first,
+           void* last, void* full, void* stream) {
+  if (n_d < 0 || n_d > kMaxDeltas || R < 0 || L < 0 || stride < L ||
+      stride % 16 != 0 || (reinterpret_cast<uintptr_t>(data) & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kStates < 32 && (acc >> kStates) != 0u) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (R == 0) return 0;
+  const size_t smem = smem_bytes(n_d);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        scan_stats_kernel<kStates>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int blocks = (R + kThreads - 1) / kThreads;
+  scan_stats_kernel<kStates><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data), stride, L,
+      static_cast<const int32_t*>(lengths), R, static_cast<const uint32_t*>(tab),
+      static_cast<const int32_t*>(deltas), n_d, acc, seeded, lead, nullable,
+      static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
+      static_cast<int32_t*>(last), static_cast<uint8_t*>(full));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kStates>
+int occupancy(int n_d, int* blocks_per_sm) {
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, scan_stats_kernel<kStates>, kThreads, smem_bytes(n_d));
+  return static_cast<int>(e);
+}
+
+}  // namespace
+
+extern "C" {
+
+int rrx_swar_stats(const void* data, long long stride, int L, const void* lengths,
+                   int R, const void* tab, const void* deltas, int n_d,
+                   unsigned acc, int seeded, int lead, int nullable, void* cnt,
+                   void* first, void* last, void* full, void* stream) {
+  return launch<8>(data, stride, L, lengths, R, tab, deltas, n_d, acc, seeded,
+                   lead, nullable, cnt, first, last, full, stream);
+}
+
+int rrx_word_stats(const void* data, long long stride, int L, const void* lengths,
+                   int R, const void* tab, const void* deltas, int n_d,
+                   unsigned acc, int seeded, int lead, int nullable, void* cnt,
+                   void* first, void* last, void* full, void* stream) {
+  return launch<32>(data, stride, L, lengths, R, tab, deltas, n_d, acc, seeded,
+                    lead, nullable, cnt, first, last, full, stream);
+}
+
+// resident blocks per SM for the given table size (theoretical occupancy)
+int rrx_occupancy(int word_tier, int n_d, int* blocks_per_sm) {
+  return word_tier ? occupancy<32>(n_d, blocks_per_sm)
+                   : occupancy<8>(n_d, blocks_per_sm);
+}
+
+int rrx_threads_per_block() { return kThreads; }
+
+const char* rrx_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,138 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+The sources under ``roaringregex_tpu_torch/csrc/`` are compiled at first
+use into one shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <build dir>/<hash>/librrx_kernels.so csrc/*.cu
+
+The output lands in ``build/kernels/`` beside the package (or in
+``$RRX_TORCH_BUILD_DIR``), keyed by a hash of the sources and the flags, so
+an edited source rebuilds and an unchanged one loads the library built
+before. A missing nvcc or a failed build raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+LIB_NAME = "librrx_kernels.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_STATS_ARGTYPES = [
+    _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
+    _P, _P, _I, ctypes.c_uint,  # tab, deltas, n_delta, acc
+    _I, _I, _I,  # seeded, lead, nullable
+    _P, _P, _P, _P,  # cnt, first, last, full
+    _P,  # stream
+]
+
+
+def _build_dir() -> Path:
+    env = os.environ.get("RRX_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "roaringregex_tpu_torch are built from source at first use"
+    )
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in _sources():
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+class BuildInfo:
+    """What the last build did: library path, seconds, nvcc's -Xptxas -v
+    report (registers, shared memory and spills per kernel)."""
+
+    path: str = ""
+    seconds: float = 0.0
+    built: bool = False
+    ptxas: str = ""
+
+
+BUILD = BuildInfo()
+
+
+def build() -> Path:
+    """Compile the sources unless a library for their hash exists; return
+    the library's path."""
+    out_dir = _build_dir() / source_hash()
+    lib = out_dir / LIB_NAME
+    BUILD.path = str(lib)
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD.seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    BUILD.ptxas = proc.stderr
+    BUILD.built = True
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name in ("rrx_swar_stats", "rrx_word_stats"):
+        fn = getattr(lib, name)
+        fn.argtypes = _STATS_ARGTYPES
+        fn.restype = _I
+    lib.rrx_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.rrx_occupancy.restype = _I
+    lib.rrx_threads_per_block.argtypes = []
+    lib.rrx_threads_per_block.restype = _I
+    lib.rrx_error_string.argtypes = [_I]
+    lib.rrx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = library().rrx_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,260 @@
+"""SWAR tier: bit-set scan of programs with at most 8 states.
+
+The port of ``roaringregex_tpu/ops/scan_swar.py``'s forward match-stats
+path. On the TPU the tier packs 4 records into each u32 lane (an 8-bit
+state set per record) and applies the 8x8 Glushkov follow matrix as a
+diagonal shift/AND/OR per byte (``_swar_kernel``), then reduces an accept
+bit-log in XLA (``_swar_stats``). The spec below is the JAX package's,
+unchanged, so that the same programs qualify; the scan itself is the CUDA
+kernel ``rrx_swar_stats`` (``csrc/scan_bits.cu``), which gives each
+record its own thread and keeps the statistics in registers, so the TPU
+packing (``_swar_pack``, ``_len_planes``, the k-major planes) has no
+counterpart here.
+
+Tall-narrow batches (few long records) split into overlapped windows
+exactly as on the TPU (``_swar_window``), so the same batches take the
+same route: every match of a bounded-horizon, anchor-free, non-nullable
+pattern fits in ``h`` bytes, so a window's first ``h`` steps only warm up
+and their flags belong to the previous window (``lead = h``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..compiler.program import DeviceProgram
+from . import scan_bits as sb
+
+RECS = 32  # records per kernel column of the TPU layout (window rule)
+BIG = sb.BIG
+
+
+class SwarSpec(NamedTuple):
+    """Static per-program plan."""
+
+    # deduped byte-set gates: (((lo, hi), ...) merged runs, bos, eos)
+    gates: Tuple[Tuple[Tuple[Tuple[int, int], ...], bool, bool], ...]
+    # per-state positioning: ((gate_index, target_state), ...)
+    gpos: Tuple[Tuple[int, int], ...]
+    # diagonal decomposition: ((delta, (gpos_index, ...)), ...)
+    diags: Tuple[Tuple[int, Tuple[int, ...]], ...]
+    accept_bits: Tuple[int, ...]
+    has_eos: bool  # some gate fires on the EOS boundary ($ patterns)
+    has_bos: bool  # some gate fires on the BOS step (^ patterns)
+
+
+def _merge_runs(runs):
+    out = []
+    for lo, hi in sorted(runs):
+        if out and lo <= out[-1][1] + 1:
+            out[-1] = (out[-1][0], max(out[-1][1], hi))
+        else:
+            out.append((lo, hi))
+    return tuple(out)
+
+
+def swar_spec(prog: DeviceProgram) -> Optional[SwarSpec]:
+    """Build the SWAR plan, or None if the program doesn't qualify
+    (s_tile != 8, or a byte class reaching past 0x7F).
+
+    A position's byte set is the union of every class whose mask contains
+    it; positions sharing the same merged byte-run set share one gate."""
+    if prog.tier == "sparse" or prog.s_tile != 8 or prog.F is None:
+        return None
+    F8 = np.asarray(prog.F[:8, :8])
+    B8 = [int(w[0]) & 0xFF for w in np.asarray(prog.Bc_words)]
+    lo, hi, cl = prog.byte_runs
+    if len(hi) and int(max(hi)) > 0x7F:
+        return None
+    runs_all = [(int(l), int(h), int(c)) for l, h, c in zip(lo, hi, cl)]
+    bos_c = prog.bos_class if B8[prog.bos_class] else -1
+    eos_c = prog.eos_class if B8[prog.eos_class] else -1
+    gate_ids = {}
+    gates = []
+    gpos = []
+    by_delta = {}
+    has_eos = has_bos = False
+    for u in range(8):
+        preds = tuple(int(s) for s in range(8) if F8[s, u])
+        if not preds:
+            continue
+        cs = {c for c, w in enumerate(B8) if (w >> u) & 1}
+        if not cs:
+            continue
+        key = (
+            _merge_runs([(l, h) for l, h, c in runs_all if c in cs]),
+            bos_c in cs,
+            eos_c in cs,
+        )
+        has_bos = has_bos or key[1]
+        has_eos = has_eos or key[2]
+        gid = gate_ids.get(key)
+        if gid is None:
+            gid = gate_ids[key] = len(gates)
+            gates.append(key)
+        pi = len(gpos)
+        gpos.append((gid, u))
+        for s in preds:
+            by_delta.setdefault(u - s, []).append(pi)
+    diags = tuple((d, tuple(pis)) for d, pis in sorted(by_delta.items()))
+    accept_bits = tuple(
+        int(s) for s in range(8) if np.asarray(prog.accept)[s]
+    )
+    return SwarSpec(
+        tuple(gates), tuple(gpos), diags, accept_bits, has_eos, has_bos
+    )
+
+
+def swar_tables(spec: SwarSpec):
+    """SwarSpec -> (deltas, tab, acc), the kernel's (delta, table) form:
+    diagonal ``d``'s positioned gate ``(gid, u)`` becomes the pair
+    ``(d, gid)`` with target bit ``u``."""
+    pairs = {}
+    for d, pis in spec.diags:
+        for pi in pis:
+            gid, u = spec.gpos[pi]
+            pairs[(d, gid)] = pairs.get((d, gid), 0) | (1 << u)
+    acc = 0
+    for s in spec.accept_bits:
+        acc |= 1 << s
+    return sb.dg_tables(spec.gates, pairs, acc)
+
+
+def swar_stats(data, lengths, tables: sb.ScanTables, *, seeded: bool,
+               lead: int = 0, nullable: bool = False):
+    """(cnt, first, last, full) [R] of ``data`` [R, L] uint8 with
+    ``lengths`` [R]. A CUDA tensor goes to the kernel ``rrx_swar_stats``
+    (and counts one launch in ``swar_stats.launches``); a CPU tensor goes
+    to the plain PyTorch version."""
+    if data.device.type == "cpu":
+        return sb.stats_plain(
+            data, lengths, tables, seeded=seeded, lead=lead, nullable=nullable
+        )
+    out = sb.launch_stats(
+        "rrx_swar_stats", data, lengths, tables,
+        seeded=seeded, lead=lead, nullable=nullable,
+    )
+    swar_stats.launches += 1
+    return out
+
+
+swar_stats.launches = 0
+
+
+class SwarScanner:
+    """Forward match statistics of an 8-state program on ``device``.
+    Constructed by the engine when ``swar_spec(prog)`` qualifies."""
+
+    def __init__(self, prog: DeviceProgram, device):
+        self.prog = prog
+        self.device = torch.device(device)
+        self.sspec = swar_spec(prog)
+        if self.sspec is None:
+            raise ValueError(f"{prog.pattern!r} does not fit the SWAR tier")
+        self.nullable = prog.nullable
+        self.tables = sb.device_tables(*swar_tables(self.sspec), self.device)
+
+    def _swar_window(self, L: int, B: int, seeded: bool):
+        """(k, w, h) split of long records into k overlapped windows, or
+        None: the JAX package's rule, unchanged (exact for bounded-horizon
+        anchor-free non-nullable patterns; the window target is
+        ``swar_window_cols`` 32-record columns)."""
+        from ..utils.config import get_config
+
+        p = self.prog
+        if not seeded or self.nullable or p.nullable or p.uses_anchor:
+            return None
+        h = p.horizon
+        if h is None or h > 64:
+            return None
+        w_min = max(128, 4 * h)
+        target = get_config().swar_window_cols
+        if not target or L < 2 * w_min:
+            return None
+        cols = -(-B // RECS)
+        if cols >= target:
+            return None
+        k = min(L // w_min, -(-target // cols))
+        if k < 2:
+            return None
+        w = -(-L // k)
+        k = -(-L // w)
+        return (k, w, h) if k >= 2 else None
+
+    def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0):
+        """(cnt, first, last, full, any), each shaped like ``len_g``."""
+        if lead and self.nullable:
+            raise NotImplementedError(
+                "windowed (lead > 0) scans of nullable programs run on the "
+                "matmul tier, which is not ported yet (see ROADMAP.md)"
+            )
+        data = torch.as_tensor(data, device=self.device)
+        len_g = torch.as_tensor(len_g, device=self.device)
+        lengths = len_g.reshape(-1).to(torch.int32)
+        B, L = lengths.numel(), data.shape[1]
+        win = self._swar_window(L, B, seeded) if not lead else None
+        if win is not None:
+            cnt, first, last, full = self._swar_call_win(data, lengths, *win)
+        else:
+            cnt, first, last, full = swar_stats(
+                data, lengths, self.tables,
+                seeded=seeded, lead=lead, nullable=self.nullable,
+            )
+        sl = lambda x: x.reshape(len_g.shape)  # noqa: E731
+        cnt = sl(cnt)
+        return cnt, sl(first), sl(last), sl(full), cnt > 0
+
+    @staticmethod
+    def windows(data, lengths, k: int, w: int, h: int):
+        """[B, L] records -> ([B * k, width] overlapped windows, [B * k]
+        window lengths, [1, k] window offsets). Window j holds bytes
+        [j*w - h, j*w + w): an h-byte head (window 0's is 0xFF-filled, a
+        dead byte for ASCII programs) and w owned bytes. Rows are padded
+        to a multiple of 16 bytes for the kernel's loads."""
+        B, L = data.shape
+        dev = data.device
+        width = -(-(w + h) // 16) * 16
+        main = F.pad(data, (0, k * w - L)).reshape(B, k, w)
+        parts = [
+            torch.cat(
+                [
+                    torch.full((B, 1, h), 0xFF, dtype=torch.uint8, device=dev),
+                    main[:, : k - 1, w - h :],
+                ],
+                dim=1,
+            ),
+            main,
+        ]
+        if width > w + h:
+            parts.append(
+                torch.zeros((B, k, width - w - h), dtype=torch.uint8, device=dev)
+            )
+        wind = torch.cat(parts, dim=2).reshape(B * k, width)
+        off = torch.arange(k, dtype=torch.int32, device=dev)[None, :] * w
+        lnw = (lengths[:, None] + h - off).clamp(0, w + h).reshape(-1)
+        return wind, lnw.to(torch.int32), off
+
+    def _swar_call_win(self, data, lengths, k: int, w: int, h: int):
+        """Windowed scan: overlapped windows scanned with lead = h, then
+        reduced per record (sum of counts, min of shifted first ends, max
+        of shifted last ends)."""
+        B = data.shape[0]
+        wind, lnw, off = self.windows(data, lengths, k, w, h)
+        cnt, first, last, _ = swar_stats(
+            wind, lnw, self.tables, seeded=True, lead=h, nullable=False
+        )
+        cnt = cnt.reshape(B, k)
+        first = first.reshape(B, k)
+        last = last.reshape(B, k)
+        cnt_rec = cnt.sum(dim=1, dtype=torch.int32)
+        fg = torch.where(first >= 0, first - h + off, BIG)
+        fmin = fg.min(dim=1).values
+        first_rec = torch.where(fmin >= BIG, -1, fmin).to(torch.int32)
+        lg = torch.where(last >= 0, last - h + off, -1)
+        last_rec = lg.max(dim=1).values.to(torch.int32)
+        # seeded 'full' = some match ends at len = the max end hits len
+        full_rec = (cnt_rec > 0) & (last_rec >= lengths)
+        return cnt_rec, first_rec, last_rec, full_rec

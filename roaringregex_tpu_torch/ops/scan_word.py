@@ -1,0 +1,148 @@
+"""u32-word tier: bit-set scan of programs with at most 32 states.
+
+The port of ``roaringregex_tpu/ops/scan_word.py``'s forward match-stats
+path. On the TPU each record owns one u32 lane, the step is a (delta,
+gate) decomposition of the follow matrix (``_word_kernel``) and an accept
+bit-log is reduced in XLA (``_word_stats``). The spec is the JAX
+package's, unchanged; the scan is the CUDA kernel ``rrx_word_stats``
+(``csrc/scan_bits.cu``), the same body as the SWAR tier's on 32-bit state
+sets. One accept channel: the multi-pattern channels of ``MultiPattern``
+are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..compiler.program import DeviceProgram
+from . import scan_bits as sb
+from .scan_swar import _merge_runs
+
+MAX_DG_OPS = 64  # (delta, gate) pairs past this: the matmul tier wins
+
+
+class WordSpec(NamedTuple):
+    """Static per-program plan."""
+
+    # deduped byte-set gates: (((lo, hi), ...) merged runs, bos, eos)
+    gates: Tuple[Tuple[Tuple[Tuple[int, int], ...], bool, bool], ...]
+    # (delta, ((gate_index, target_bitmask), ...))
+    dg: Tuple[Tuple[int, Tuple[Tuple[int, int], ...]], ...]
+    acc_masks: Tuple[int, ...]  # per accept channel: bitmask of states
+    has_eos: bool
+    has_bos: bool
+    S: int
+
+
+def word_spec(prog: DeviceProgram) -> Optional[WordSpec]:
+    """Build the u32-word plan, or None if the program doesn't qualify
+    (s_tile > 32, a byte class past 0x7F, or more than MAX_DG_OPS pairs)."""
+    if prog.tier == "sparse" or prog.F is None or prog.s_tile > 32:
+        return None
+    S = prog.s_tile
+    F = np.asarray(prog.F[:S, :S])
+    Bw = [int(w[0]) & 0xFFFFFFFF for w in np.asarray(prog.Bc_words)]
+    lo, hi, cl = prog.byte_runs
+    if len(hi) and int(max(hi)) > 0x7F:
+        return None
+    runs_all = [(int(l), int(h), int(c)) for l, h, c in zip(lo, hi, cl)]
+    bos_c = prog.bos_class if Bw[prog.bos_class] else -1
+    eos_c = prog.eos_class if Bw[prog.eos_class] else -1
+    gate_ids = {}
+    gates = []
+    pairs = {}
+    has_eos = has_bos = False
+    for u in range(S):
+        preds = [int(s) for s in range(S) if F[s, u]]
+        if not preds:
+            continue
+        cs = {c for c, w in enumerate(Bw) if (w >> u) & 1}
+        if not cs:
+            continue
+        key = (
+            _merge_runs([(l, h) for l, h, c in runs_all if c in cs]),
+            bos_c in cs,
+            eos_c in cs,
+        )
+        has_bos = has_bos or key[1]
+        has_eos = has_eos or key[2]
+        gid = gate_ids.get(key)
+        if gid is None:
+            gid = gate_ids[key] = len(gates)
+            gates.append(key)
+        for s in preds:
+            k = (u - s, gid)
+            pairs[k] = pairs.get(k, 0) | (1 << u)
+    if len(pairs) > MAX_DG_OPS:
+        return None
+    by_d = {}
+    for (d, gid), mask in sorted(pairs.items()):
+        by_d.setdefault(d, []).append((gid, mask))
+    dg = tuple((d, tuple(ps)) for d, ps in sorted(by_d.items()))
+    acc = np.asarray(prog.accept)[:S]
+    acc_masks = (sum(1 << s for s in range(S) if acc[s]),)
+    return WordSpec(tuple(gates), dg, acc_masks, has_eos, has_bos, S)
+
+
+def word_tables(spec: WordSpec):
+    """WordSpec -> (deltas, tab, acc), the kernel's (delta, table) form."""
+    pairs = {}
+    for d, ps in spec.dg:
+        for gid, mask in ps:
+            pairs[(d, gid)] = pairs.get((d, gid), 0) | mask
+    return sb.dg_tables(spec.gates, pairs, spec.acc_masks[0])
+
+
+def word_stats(data, lengths, tables: sb.ScanTables, *, seeded: bool,
+               lead: int = 0, nullable: bool = False):
+    """(cnt, first, last, full) [R] of ``data`` [R, L] uint8 with
+    ``lengths`` [R]. A CUDA tensor goes to the kernel ``rrx_word_stats``
+    (and counts one launch in ``word_stats.launches``); a CPU tensor goes
+    to the plain PyTorch version."""
+    if data.device.type == "cpu":
+        return sb.stats_plain(
+            data, lengths, tables, seeded=seeded, lead=lead, nullable=nullable
+        )
+    out = sb.launch_stats(
+        "rrx_word_stats", data, lengths, tables,
+        seeded=seeded, lead=lead, nullable=nullable,
+    )
+    word_stats.launches += 1
+    return out
+
+
+word_stats.launches = 0
+
+
+class WordScanner:
+    """Forward match statistics of a program of up to 32 states on
+    ``device``. Constructed by the engine when ``word_spec(prog)``
+    qualifies and the 8-state SWAR tier does not."""
+
+    def __init__(self, prog: DeviceProgram, device):
+        self.prog = prog
+        self.device = torch.device(device)
+        self.wspec = word_spec(prog)
+        if self.wspec is None:
+            raise ValueError(f"{prog.pattern!r} does not fit the u32-word tier")
+        self.nullable = prog.nullable
+        self.tables = sb.device_tables(*word_tables(self.wspec), self.device)
+
+    def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0):
+        """(cnt, first, last, full, any), each shaped like ``len_g``."""
+        if lead:
+            raise NotImplementedError(
+                "windowed (lead > 0) scans of the u32-word tier run on the "
+                "matmul tier, which is not ported yet (see ROADMAP.md)"
+            )
+        data = torch.as_tensor(data, device=self.device)
+        len_g = torch.as_tensor(len_g, device=self.device)
+        lengths = len_g.reshape(-1).to(torch.int32)
+        cnt, first, last, full = word_stats(
+            data, lengths, self.tables, seeded=seeded, nullable=self.nullable
+        )
+        sl = lambda x: x.reshape(len_g.shape)  # noqa: E731
+        cnt = sl(cnt)
+        return cnt, sl(first), sl(last), sl(full), cnt > 0

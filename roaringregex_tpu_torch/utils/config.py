@@ -1,0 +1,45 @@
+"""Configuration knobs the port reads, with the JAX package's ``RRX_*``
+names and defaults (``roaringregex_tpu/utils/config.py``), so one
+environment configures both packages alike."""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field, replace
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return int(v) if v else default
+
+
+@dataclass(frozen=True)
+class RrxConfig:
+    # largest state count with fully dense tables (tier cut-off)
+    dense_max: int = field(default_factory=lambda: _env_int("RRX_DENSE_MAX", 1024))
+    # SWAR / u32-word bit-set scan tiers on/off (RRX_SWAR=0: off; the port
+    # has no matmul tier yet, so such programs raise NotImplementedError)
+    swar: bool = field(
+        default_factory=lambda: os.environ.get("RRX_SWAR", "1") != "0"
+    )
+    # tall-narrow window target: split long records into overlapped
+    # windows until the batch is ~this many 32-record columns wide (exact
+    # for bounded-horizon anchor-free non-nullable patterns); 0 = never
+    swar_window_cols: int = field(
+        default_factory=lambda: _env_int("RRX_SWAR_WINDOW_COLS", 1024)
+    )
+
+    def with_(self, **kw) -> "RrxConfig":
+        return replace(self, **kw)
+
+
+_config: RrxConfig = RrxConfig()
+
+
+def get_config() -> RrxConfig:
+    return _config
+
+
+def set_config(cfg: RrxConfig) -> RrxConfig:
+    global _config
+    _config = cfg
+    return _config
