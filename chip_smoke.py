@@ -7,24 +7,37 @@ Phases, each of which fails the run (non-zero exit, no result line) when
 its check fails:
 
 1. the card's name and power limit; build the CUDA kernels from
-   roaringregex_tpu_torch/csrc with nvcc for sm_90a, with nvcc's register
-   report and the build time;
-2. kernel against plain PyTorch version on the card, for both entry points
-   (rrx_swar_stats, rrx_word_stats): the SWAR and u32-word test patterns,
-   seeded and unseeded, lead 0 and h, random batches from a numpy seed plus
-   edge records (empty, len == L, bytes >= 0x80, byte 0); integer outputs,
-   tolerance 0;
-3. the main path, with the launch counts set to 0 first: bench config 1
-   (cat|dog over 10 MB of 1024-byte records) through
+   roaringregex_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source,
+   all started together), with nvcc's register report and the build time;
+2. kernel against plain PyTorch version on the card, for all six entry
+   points, on random batches from a numpy seed plus edge records (empty,
+   len == L, bytes >= 0x80, byte 0); integer outputs, tolerance 0:
+   rrx_swar_stats and rrx_word_stats on the SWAR and u32-word test
+   patterns, seeded and unseeded, lead 0 and h; the span kernels
+   rrx_swar_reverse and rrx_swar_anchor_end (random starts with -1 and 0,
+   lazy and longest) on every SWAR test pattern, rrx_swar_lazy_spans and
+   rrx_swar_greedy_spans at cap 1, 2 and 16 (greedy overflow) on the
+   non-nullable ones;
+3. the match-stats path, with its launch counts set to 0 first: bench
+   config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
    checked against an independent numpy count of cat/dog; then
    Pattern.search_batch and fullmatch_batch for configs 2 and 3 and a
-   u32-word pattern against Python's re on 2,000 records;
-4. real size: cat|dog over 1 GiB of 1024-byte records through the engine
-   (the last main-path run; the counts are read after it), then kernel
-   and plain version timed with CUDA events (median of 7 runs of 5-20
-   back-to-back kernel calls, and of 5 plain calls, after warm-up) and
-   compared.
+   u32-word pattern against Python's re on 2,000 records; then cat|dog
+   over 1 GiB of 1024-byte records through the engine (the counts are
+   read after it);
+4. the span path, with every launch count set to 0 first: bench config 7
+   (cat|dog over the same 10 MB, lazy and greedy spans at cap 32) through
+   ScanEngine.lazy_spans / greedy_spans, every record's spans checked
+   against Python's re.finditer; then the span API on 2,000 records of
+   <= 256 B: finditer_batch (longest) against re for POSIX-safe patterns,
+   lazy finditer_batch against re with lazy quantifiers and for fixed-length
+   patterns, against the plain version for a+ and a|ab, search and match
+   against re (the counts are read after it);
+5. times with CUDA events (median of 5-7 runs after warm-up) of kernel and
+   plain version: the stats kernels at config 1 and 1 GiB, the span
+   kernels at config 7's 10 MB shape and at 1 GiB, with theoretical
+   occupancy and grid fill, each compared again with its plain version.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -51,10 +64,24 @@ WORD_PATTERNS = [
     ".[ab]x|q{2}[cd]y{2}z",
 ]
 WORD_BENCH = "(cat|dog|bird)+"
-SOURCE = "roaringregex_tpu_torch/csrc/scan_bits.cu"
+STATS_SOURCE = "roaringregex_tpu_torch/csrc/scan_bits.cu"
+SPANS_SOURCE = "roaringregex_tpu_torch/csrc/scan_spans.cu"
 REPLACES = {
     "rrx_swar_stats": "roaringregex_tpu/ops/scan_swar.py:526",
     "rrx_word_stats": "roaringregex_tpu/ops/scan_word.py:169",
+    "rrx_swar_reverse": "roaringregex_tpu/ops/scan_swar.py:627",
+    "rrx_swar_lazy_spans": "roaringregex_tpu/ops/scan_swar.py:710",
+    "rrx_swar_anchor_end": "roaringregex_tpu/ops/scan_swar.py:807",
+    "rrx_swar_greedy_spans": "roaringregex_tpu/ops/scan_swar.py:1385",
+}
+SPAN_KERNELS = ("rrx_swar_reverse", "rrx_swar_lazy_spans", "rrx_swar_anchor_end",
+                "rrx_swar_greedy_spans")
+# patterns whose Python-re greedy match is the POSIX leftmost-longest one
+# (tests/test_greedy.py), with their lazy-quantifier forms: re's match of
+# the lazy form from the leftmost start is the shortest one
+RE_SAFE = {
+    "a+": "a+?", "(ab)+": "(ab)+?", "a{2,6}": "a{2,6}?", "[a-c]+": "[a-c]+?",
+    "ab*c?": "ab*?c??", "x[0-9]*": "x[0-9]*?",
 }
 
 
@@ -120,16 +147,32 @@ def main() -> int:
         "rrx_swar_stats": (scan_swar.swar_stats, scan_swar.swar_spec, scan_swar.swar_tables, SWAR_PATTERNS),
         "rrx_word_stats": (scan_word.word_stats, scan_word.word_spec, scan_word.word_tables, WORD_PATTERNS),
     }
-    max_err = {name: 0 for name in entries}
+    span_wrappers = {
+        "rrx_swar_reverse": scan_swar.swar_reverse,
+        "rrx_swar_lazy_spans": scan_swar.swar_lazy_spans,
+        "rrx_swar_anchor_end": scan_swar.swar_anchor_end,
+        "rrx_swar_greedy_spans": scan_swar.swar_greedy_spans,
+    }
+    wrappers = {name: e[0] for name, e in entries.items()} | span_wrappers
+    max_err = {name: 0 for name in wrappers}
 
-    def compare(name, got, want, tag):
-        for label, x, y in zip(("cnt", "first", "last", "full"), got, want):
+    def compare(name, got, want, tag, labels=("cnt", "first", "last", "full")):
+        for label, x, y in zip(labels, got, want, strict=True):
+            if x.shape != y.shape:
+                fail(f"{name} {tag} {label}: shape {tuple(x.shape)} != plain {tuple(y.shape)}")
             x64, y64 = x.to(torch.int64), y.to(torch.int64)
             err = int((x64 - y64).abs().max().item()) if x.numel() else 0
             max_err[name] = max(max_err[name], err)
             if err != 0:
-                bad = torch.nonzero(x64 != y64)[:5].flatten().tolist()
-                fail(f"{name} {tag} {label}: kernel != plain at records {bad}")
+                bad = torch.nonzero(x64 != y64)[:5].tolist()
+                fail(f"{name} {tag} {label}: kernel != plain at {bad}")
+
+    def launches():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def reset_launches():
+        for w in wrappers.values():
+            w.launches = 0
 
     # -- phase 2: kernel against plain on the card ------------------------
     rng = np.random.default_rng(0)
@@ -158,14 +201,64 @@ def main() -> int:
         if wrapper.launches <= before:
             fail(f"{name}: launch count did not rise in the comparison")
     torch.cuda.synchronize()
-    print(f"phase 2: kernel == plain on the card, {n_cmp} batches, both entry points "
+    print(f"phase 2: kernel == plain on the card, {n_cmp} batches, both stats entry points "
           f"({time.perf_counter() - t0:.1f}s)")
 
-    # -- phase 3: the main path (counts from here to the end of phase 4's engine run)
+    def check_spans(tables, d, ln, tag, *, starts=None, caps=(1, 2, 16), spans=True):
+        """Every span kernel against its plain version on one batch; the
+        lazy and greedy kernels read the (checked) hit words of the reverse
+        kernel. Returns (hits, number of records greedy left over cap)."""
+        R, L = d.shape
+        hits = scan_swar.swar_reverse(d, ln, tables)
+        compare("rrx_swar_reverse", [hits], [scan_bits.reverse_plain(d, ln, tables)], tag, ("hits",))
+        if starts is None:
+            st = rng.integers(-1, L + 2, size=R).astype(np.int32)
+            st[:8], st[8:16] = 0, -1
+            starts = torch.from_numpy(st).to(dev)
+        for longest in (False, True):
+            compare("rrx_swar_anchor_end",
+                    [scan_swar.swar_anchor_end(d, ln, tables, starts, longest=longest)],
+                    [scan_bits.anchor_plain(d, ln, tables, starts, longest=longest)],
+                    f"{tag} longest={longest}", ("end",))
+        n_over = 0
+        for cap in caps if spans else ():
+            compare("rrx_swar_lazy_spans", scan_swar.swar_lazy_spans(d, ln, tables, hits, cap),
+                    scan_bits.lazy_spans_plain(d, ln, tables, hits, cap),
+                    f"{tag} cap={cap}", ("starts", "ends", "cnt"))
+            got = scan_swar.swar_greedy_spans(d, ln, tables, hits, cap)
+            compare("rrx_swar_greedy_spans", got,
+                    scan_bits.greedy_spans_plain(d, ln, tables, hits, cap),
+                    f"{tag} cap={cap}", ("starts", "ends", "cnt", "over"))
+            n_over += int(got[3].sum().item())
+        return hits, n_over
+
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = n_over = 0
+    for pattern in SWAR_PATTERNS:
+        prog = compile_program(pattern)
+        tables = scan_bits.device_tables(*scan_swar.swar_tables(scan_swar.swar_spec(prog)), dev)
+        for R, L in ((1000, 61), (1024, 64)):
+            data, lengths = edge_batch(rng, np, R, L, b"abcdefghijlogqtxyz.\x00")
+            d = torch.from_numpy(data).to(dev)
+            ln = torch.from_numpy(lengths).to(dev)
+            n_over += check_spans(tables, d, ln, f"{pattern!r} R={R} L={L}",
+                                  spans=not prog.nullable)[1]
+            n_cmp += 1
+    torch.cuda.synchronize()
+    for name in SPAN_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if n_over == 0:
+        fail("greedy overflow (over) was never exercised")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} batches x {len(SWAR_PATTERNS)} SWAR "
+          f"patterns' span kernels (reverse, anchor lazy/longest, lazy and greedy at caps 1, 2, "
+          f"16; greedy over set on {n_over} records) ({time.perf_counter() - t0:.1f}s)")
+
+    # -- phase 3: the match-stats path (counts from here to its 1 GiB run) --
     import bench
 
-    scan_swar.swar_stats.launches = 0
-    scan_word.word_stats.launches = 0
+    reset_launches()
     data, lengths = bench.make_corpus(10_000_000, 1024, seed=0)
     B0 = data.shape[0]
     G = compile_program("cat|dog").G
@@ -231,7 +324,6 @@ def main() -> int:
               f"{len(texts)} records: search {int(got_s.sum())} / fullmatch "
               f"{int(got_f.sum())} hits == re")
 
-    # -- phase 4: real size -----------------------------------------------
     R, L = 1 << 20, 1024
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -247,18 +339,89 @@ def main() -> int:
         fail("1 GiB batch should not window")
     bcnt, bfirst, bany = eng.match_stats(big, big_len, seeded=True)
     torch.cuda.synchronize()
-    launches = {
-        "rrx_swar_stats": scan_swar.swar_stats.launches,
-        "rrx_word_stats": scan_word.word_stats.launches,
-    }
-    for name, n in launches.items():
+    stats_launches = {name: launches()[name] for name in entries}
+    for name, n in stats_launches.items():
         if n <= 0:
-            fail(f"{name} was not launched on the main path")
-    print(f"main path launches: {launches}")
+            fail(f"{name} was not launched on the match-stats path")
+    print(f"match-stats path launches: {stats_launches}")
     nbytes = R * L
-    print(f"phase 4: cat|dog over {R} records x {L} B ({nbytes} bytes): "
+    print(f"phase 3: cat|dog over {R} records x {L} B ({nbytes} bytes): "
           f"matches={int(bcnt.sum().item())} records_with_match={int(bany.sum().item())}")
 
+    # -- phase 4: the span path (counts from here to the end of its API run)
+    reset_launches()
+    rx = re.compile(b"cat|dog")
+    want7 = [[m.span() for m in rx.finditer(bytes(row))] for row in data]
+    cap7 = 32
+    spans7 = {}
+    for policy in ("lazy", "greedy"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if policy == "lazy":
+            s7, e7, c7 = eng.lazy_spans(data_p, lengths_p, cap=cap7)
+            o7 = torch.zeros_like(c7, dtype=torch.bool)
+        else:
+            s7, e7, c7, o7 = eng.greedy_spans(data_p, lengths_p, cap=cap7)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        s7, e7, c7, o7 = (x.cpu().numpy()[:B0] for x in (s7, e7, c7, o7))
+        if c7.max() > cap7 or o7.any():
+            fail(f"config 7 {policy}: more spans than cap {cap7}")
+        got7 = [list(zip(s7[i, : c7[i]].tolist(), e7[i, : c7[i]].tolist())) for i in range(B0)]
+        bad = [i for i in range(B0) if got7[i] != want7[i]]
+        if bad:
+            i = bad[0]
+            fail(f"config 7 {policy}: {len(bad)} records differ from re.finditer, "
+                 f"record {i}: {got7[i][:5]} != {want7[i][:5]}")
+        spans7[policy] = got7
+        print(f"phase 4: config 7 cat|dog {policy} spans (cap {cap7}), {B0} records x 1024 B: "
+              f"{int(c7.sum())} spans, at most {int(c7.max())} per record, == re.finditer "
+              f"(first call {call_ms:.1f} ms)")
+
+    texts = sample(7, 2000, 256, b"abcx0123456789d",
+                   [b"aaaa", b"ababab", b"abc", b"x12", b"cat", b"dog", b"acb", b"a.b"])
+    n_api = 0
+    for pattern, lazy_form in RE_SAFE.items():
+        pat = rrx_compile(pattern, dev)
+        if not isinstance(pat.engine.device_scanner, scan_swar.SwarScanner):
+            fail(f"{pattern!r} should take the SWAR tier")
+        for longest, form in ((True, pattern), (False, lazy_form)):
+            rxp = re.compile(form.encode())
+            got = pat.finditer_batch(texts, longest=longest)
+            want = [[m.span() for m in rxp.finditer(t)] for t in texts]
+            if got != want:
+                i = next(i for i in range(len(texts)) if got[i] != want[i])
+                fail(f"{pattern!r} finditer_batch(longest={longest}) != re {form!r} at "
+                     f"text {i}: {got[i][:5]} != {want[i][:5]}")
+            n_api += 1
+        rxl = re.compile(lazy_form.encode())
+        for t in texts[:50]:
+            for fn, ref in ((pat.search, rxl.search), (pat.match, rxl.match)):
+                a, b = fn(t), ref(t)
+                if (a is None) != (b is None) or (a is not None and a.span() != b.span()):
+                    fail(f"{pattern!r} {fn.__name__}({t!r}) = {a and a.span()} != re "
+                         f"{lazy_form!r} {b and b.span()}")
+    for pattern in ("cat|dog", "a.b"):
+        rxp = re.compile(pattern.encode())
+        if rrx_compile(pattern, dev).finditer_batch(texts) != [
+                [m.span() for m in rxp.finditer(t)] for t in texts]:
+            fail(f"{pattern!r} lazy finditer_batch != re")
+        n_api += 1
+    for pattern in ("a+", "a|ab"):
+        if rrx_compile(pattern, dev).finditer_batch(texts) != rrx_compile(pattern, "cpu").finditer_batch(texts):
+            fail(f"{pattern!r} lazy finditer_batch on the card != the plain version")
+        n_api += 1
+    torch.cuda.synchronize()
+    span_launches = launches()
+    for name in SPAN_KERNELS:
+        if span_launches[name] <= 0:
+            fail(f"{name} was not launched on the span path")
+    print(f"phase 4: span API on {len(texts)} records of <= 264 B: {n_api} finditer_batch "
+          f"checks against re and the plain version, search/match on 50 texts x "
+          f"{len(RE_SAFE)} patterns against re")
+    print(f"span path launches: {span_launches}")
+
+    # -- phase 5: times ---------------------------------------------------
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
         """Median over ``runs`` of the CUDA-event time of ``per_run``
         back-to-back calls, divided by ``per_run``."""
@@ -281,9 +444,8 @@ def main() -> int:
 
     def occupancy(name, tables, rows):
         bps = ctypes.c_int(0)
-        word = int(name == "rrx_word_stats")
-        _build.check(lib.rrx_occupancy(word, int(tables.deltas.numel()), ctypes.byref(bps)),
-                     "rrx_occupancy")
+        _build.check(lib.rrx_occupancy(_build.KERNELS.index(name), int(tables.deltas.numel()),
+                                       ctypes.byref(bps)), "rrx_occupancy")
         tpb = lib.rrx_threads_per_block()
         blocks = -(-rows // tpb)
         resident = min(blocks, bps.value * n_sm)
@@ -293,10 +455,10 @@ def main() -> int:
                 f"resident-thread slots filled")
 
     # kernel against plain at the shapes the API batches above gave it
-    for pat, texts in api_batches:
+    for pat, texts_a in api_batches:
         sc = pat.engine.device_scanner
         name = "rrx_swar_stats" if isinstance(sc, scan_swar.SwarScanner) else "rrx_word_stats"
-        data_a, lengths_a, _, _ = pat._pack(texts)
+        data_a, lengths_a, _, _ = pat._pack(texts_a)
         d = torch.from_numpy(data_a).to(dev)
         ln = torch.from_numpy(lengths_a).to(dev)
         for seeded in (True, False):
@@ -304,7 +466,7 @@ def main() -> int:
             compare(name, entries[name][0](d, ln, sc.tables, **kw),
                     scan_bits.stats_plain(d, ln, sc.tables, **kw),
                     f"{pat.pattern!r} API batch {tuple(d.shape)}")
-    print("phase 4: kernel == plain on the phase-3 API batches, seeded and unseeded")
+    print("phase 5: kernel == plain on the phase-3 API batches, seeded and unseeded")
 
     # the config-1 headline at its own shape: the windowed batch
     sc = eng.device_scanner
@@ -319,7 +481,7 @@ def main() -> int:
     ms_k = time_ms(lambda: scan_swar.swar_stats(wind, lnw, sc.tables, **kw), warm=2, runs=7, per_run=20)
     ms_p = time_ms(lambda: scan_bits.stats_plain(wind, lnw, sc.tables, **kw), warm=1, runs=5)
     ms_e = time_ms(lambda: sc.match_stats_b(d10, l10.reshape(-1, G), seeded=True), warm=2, runs=7, per_run=20)
-    print(f"phase 4: rrx_swar_stats config 1 windows [{wind.shape[0]} x {wind.shape[1]}]: "
+    print(f"phase 5: rrx_swar_stats config 1 windows [{wind.shape[0]} x {wind.shape[1]}]: "
           f"kernel {ms_k:.3f} ms = {n10 / ms_k / 1e6:.1f} GB/s, plain {ms_p:.3f} ms = "
           f"{n10 / ms_p / 1e6:.2f} GB/s; match_stats_b end to end {ms_e:.3f} ms = "
           f"{n10 / ms_e / 1e6:.1f} GB/s [{card}]")
@@ -339,14 +501,58 @@ def main() -> int:
             fail("1 GiB engine count != direct kernel count")
         ms = time_ms(lambda: wrapper(big, big_len, tables, **kw), warm=2, runs=7, per_run=5)
         plain_ms = time_ms(lambda: scan_bits.stats_plain(big, big_len, tables, **kw), warm=1, runs=5)
-        print(f"phase 4: {name} {pattern!r} 1 GiB: kernel {ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, "
+        print(f"phase 5: {name} {pattern!r} 1 GiB: kernel {ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, "
               f"plain {plain_ms:.3f} ms = {nbytes / plain_ms / 1e6:.2f} GB/s, outputs equal "
               f"[{card}]")
         print(f"  occupancy {name} (1 GiB): {occupancy(name, tables, R)}")
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": max_err[name],
-            "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+            "name": name, "route": "cuda", "source": STATS_SOURCE, "replaces": REPLACES[name],
+            "launches": stats_launches[name], "max_abs_err": max_err[name],
+            "ms": round(ms, 4), "plain_ms": round(plain_ms, 4), "shape": "1 GiB",
+        })
+
+    # the span kernels at config 7's shape (10 MB, unwindowed) and at 1 GiB
+    tables = sc.tables
+    span_ms = {}
+    for shape, d, ln, nb, runs in (("config 7, 10 MB", d10, l10, n10, 7),
+                                   ("1 GiB", big, big_len, nbytes, 3)):
+        lazy0 = scan_swar.swar_lazy_spans(d, ln, tables, scan_swar.swar_reverse(d, ln, tables), cap7)
+        starts = lazy0[0][:, 0].contiguous()  # first lazy start per record, -1 if none
+        hits, _ = check_spans(tables, d, ln, shape, starts=starts, caps=(cap7,))
+        if shape == "1 GiB":
+            s1, e1, c1 = lazy0
+            if int(c1.max()) > cap7 or not torch.equal(c1, bcnt):
+                fail("1 GiB lazy span counts != match-end counts of cat|dog")
+        calls = {
+            "rrx_swar_reverse": (lambda: scan_swar.swar_reverse(d, ln, tables),
+                                 lambda: scan_bits.reverse_plain(d, ln, tables)),
+            "rrx_swar_lazy_spans": (lambda: scan_swar.swar_lazy_spans(d, ln, tables, hits, cap7),
+                                    lambda: scan_bits.lazy_spans_plain(d, ln, tables, hits, cap7)),
+            "rrx_swar_anchor_end": (
+                lambda: scan_swar.swar_anchor_end(d, ln, tables, starts, longest=True),
+                lambda: scan_bits.anchor_plain(d, ln, tables, starts, longest=True)),
+            "rrx_swar_greedy_spans": (lambda: scan_swar.swar_greedy_spans(d, ln, tables, hits, cap7),
+                                      lambda: scan_bits.greedy_spans_plain(d, ln, tables, hits, cap7)),
+        }
+        for name, (kern, plain) in calls.items():
+            ms = time_ms(kern, warm=2, runs=7, per_run=5)
+            plain_ms = time_ms(plain, warm=1, runs=runs)
+            span_ms[name, shape] = (ms, plain_ms)
+            print(f"phase 5: {name} cat|dog {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
+                  f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s, plain {plain_ms:.3f} ms = "
+                  f"{nb / plain_ms / 1e6:.3f} GB/s [{card}]")
+            print(f"  occupancy {name} ({shape}): {occupancy(name, tables, d.shape[0])}")
+        for policy, fn in (("lazy_spans", lambda: eng.lazy_spans(d, ln, cap=cap7)),
+                           ("greedy_spans", lambda: eng.greedy_spans(d, ln, cap=cap7))):
+            ms = time_ms(fn, warm=2, runs=7, per_run=5)
+            print(f"phase 5: ScanEngine.{policy} end to end (data on the card), {shape}: "
+                  f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s [{card}]")
+    for name in SPAN_KERNELS:
+        ms, plain_ms = span_ms[name, "config 7, 10 MB"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SPANS_SOURCE, "replaces": REPLACES[name],
+            "launches": span_launches[name], "max_abs_err": max_err[name],
+            "ms": round(ms, 4), "plain_ms": round(plain_ms, 4), "shape": "config 7, 10 MB",
         })
 
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,11 @@
 The JAX package ``roaringregex_tpu`` is the reference. This package runs
 its batched match-stats path (``compile`` -> ``search_batch`` /
 ``count_batch`` / ``grep`` / ``fullmatch_batch`` / ``fullmatch``) for
-programs of up to 32 states, on an NVIDIA H100 through hand-written CUDA
-kernels (``csrc/scan_bits.cu``) and on the CPU through their plain
-PyTorch versions. It imports torch and never jax.
+programs of up to 32 states, and span extraction (``finditer_batch``,
+``finditer``, ``findall``, ``search``, ``match``) for programs of up to 8
+states, on an NVIDIA H100 through hand-written CUDA kernels
+(``csrc/scan_bits.cu``, ``csrc/scan_spans.cu``) and on the CPU through
+their plain PyTorch versions. It imports torch and never jax.
 """
 
 from .api import Match, Pattern, compile  # noqa: F401

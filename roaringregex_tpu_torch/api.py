@@ -1,15 +1,26 @@
 """Batched matching API: ``compile(pattern, device)`` -> :class:`Pattern`.
 
-The port of ``roaringregex_tpu/api.py``'s batched match-stats entry
-points: ``search_batch``, ``count_batch`` and ``grep`` (seeded scans),
-``fullmatch_batch`` and ``fullmatch`` (unseeded). Span extraction
-(``finditer*``, ``search``, ``match``), ``MultiPattern`` and long strings
+The port of ``roaringregex_tpu/api.py``'s batched entry points:
+``search_batch``, ``count_batch`` and ``grep`` (seeded scans),
+``fullmatch_batch`` and ``fullmatch`` (unseeded), and span extraction:
+``finditer_batch`` (lazy or greedy), ``finditer``, ``findall``, ``search``
+and ``match``. Spans use the normative lazy policy (leftmost start,
+shortest end, non-overlapping, empty matches advance by one) or POSIX
+leftmost-longest with ``longest=True``.
+
+Spans run on the device in O(1) dispatches, as on the JAX package's
+pallas backend: one reverse pass, then the lazy span kernel or the greedy
+round kernel. The JAX package's other route, host rounds over
+``starts_bitmap``, serves only programs outside the SWAR and u32-word
+tiers, which the port's engine refuses at construction. Word-tier spans
+and nullable greedy spans raise ``NotImplementedError`` (their kernels,
+on the matmul tier, are not ported). ``MultiPattern`` and long strings
 are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -86,6 +97,65 @@ class Pattern:
         data, lengths, B, _ = self._pack(texts)
         cnt, _, _ = self.engine.match_stats(data, lengths, seeded=True)
         return cnt.cpu().numpy()[:B]
+
+    def finditer_batch(
+        self, texts: Sequence[TextLike], *, longest: bool = False
+    ) -> List[List[Tuple[int, int]]]:
+        """Non-overlapping spans for every record: lazy (leftmost-shortest,
+        default) or greedy (``longest=True``, leftmost-longest, POSIX)."""
+        data, lengths, B, maxlen = self._pack(texts)
+        eng = self.engine
+        if self.program.nullable and not longest:
+            # lazy spans of a nullable pattern: the empty match at every
+            # position (shortest end == start, advance by one)
+            return [[(p, p) for p in range(int(lengths[i]) + 1)] for i in range(B)]
+        eng.span_scanner("spans")  # a word-tier program raises before the counts pass
+        # Pre-size the span buffers from one counts pass: every emitted
+        # span (lazy or greedy) ends at a distinct match-end position, so
+        # n_spans <= match_stats count per record (len + 1 for a nullable
+        # program), bucketed to a power of two.
+        cnt0, _, _ = eng.match_stats(data, lengths, seeded=True)
+        mx = int(cnt0[:B].max()) if B else 0
+        cap = _pow2(min(max(mx, 1), maxlen + 1 if maxlen else 1))
+        while True:
+            if longest:
+                s_buf, e_buf, cnt, over = eng.greedy_spans(data, lengths, cap=cap)
+                need_retry = bool(over[:B].any())
+            else:
+                s_buf, e_buf, cnt = eng.lazy_spans(data, lengths, cap=cap)
+                need_retry = bool((cnt[:B] > cap).any())
+            if not need_retry or cap > maxlen:
+                break
+            cap = min(_pow2(cap * 4), maxlen + 1)  # unreachable safety net
+        s_np, e_np, c_np = (x.cpu().numpy() for x in (s_buf, e_buf, cnt))
+        return [
+            list(zip(s_np[i, : c_np[i]].tolist(), e_np[i, : c_np[i]].tolist()))
+            for i in range(B)
+        ]
+
+    def finditer(self, text: TextLike, *, longest: bool = False) -> Iterator[Match]:
+        b = _as_bytes(text)
+        for s, e in self.finditer_batch([b], longest=longest)[0]:
+            yield Match(s, e, b)
+
+    def findall(self, text: TextLike, *, longest: bool = False) -> List[bytes]:
+        return [m.group() for m in self.finditer(text, longest=longest)]
+
+    def search(self, text: TextLike) -> Optional[Match]:
+        b = _as_bytes(text)
+        spans = self.finditer_batch([b])[0]
+        return Match(*spans[0], b) if spans else None
+
+    def match(self, text: TextLike) -> Optional[Match]:
+        """Anchored-at-0 lazy prefix match."""
+        b = _as_bytes(text)
+        if self.program.nullable:
+            return Match(0, 0, b)
+        data, lengths, _, _ = self._pack([b])
+        starts = np.full(data.shape[0], -1, np.int32)
+        starts[0] = 0
+        e = int(self.engine.first_end_from(data, lengths, starts)[0])
+        return Match(0, e, b) if e >= 0 else None
 
     def grep(self, lines: Sequence[TextLike]) -> List[int]:
         """Indices of records containing a match."""

@@ -53,7 +53,9 @@
 //   automaton-state handoff, is later work.
 // - Tables: tab [259][n_delta] uint32 (rows 256/257 = BOS/EOS, 258 = dead,
 //   unused here) in shared memory, at most 63 deltas = 65 KB; above 48 KB
-//   the launcher raises the block's dynamic shared-memory limit.
+//   the launcher raises the block's dynamic shared-memory limit. The step,
+//   the table load and the row walk are scan_core.cuh's, shared with the
+//   span kernels (scan_spans.cu).
 // - Unsigned arithmetic: the state is uint32_t, so >> is logical and bit 31
 //   (the word tier's 32nd state) is an ordinary bit. Shift amounts are
 //   0..31, never 32.
@@ -63,20 +65,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "scan_core.cuh"
+
 namespace {
 
-constexpr int kSyms = 259;  // 256 bytes, BOS, EOS, dead
-constexpr int kBos = 256;
-constexpr int kEos = 257;
-constexpr int kBig = 1 << 30;
-constexpr int kThreads = 128;
-constexpr int kMaxDeltas = 63;  // deltas lie in [-31, 31]
+using namespace rrx;
 
-struct Scan {
-  const uint32_t* tab;  // shared [kSyms][n_d]
-  const int* sl;        // shared [n_d] left shift amounts
-  const int* sr;        // shared [n_d] right shift amounts
-  int n_d;
+constexpr int kBig = 1 << 30;
+
+struct Stats {
   uint32_t acc;
   bool seeded;
   int lead;
@@ -86,34 +83,14 @@ struct Scan {
   int first = kBig;
   int last = -1;
 
-  __device__ __forceinline__ void step(int t, int sym, bool eos) {
-    const uint32_t vv = v | ((seeded || t < 2) ? 1u : 0u);
-    const uint32_t* row = tab + sym * n_d;
-    uint32_t nxt = 0;
-    for (int i = 0; i < n_d; ++i) {
-      nxt |= ((vv << sl[i]) >> sr[i]) & row[i];
-    }
-    v = nxt;
-    const bool fl = (nxt & acc) != 0u;
+  __device__ __forceinline__ void step(const Tables& tb, int t, int sym, bool eos) {
+    v = tb.fwd(v | ((seeded || t < 2) ? 1u : 0u), sym);
+    const bool fl = (v & acc) != 0u;
     const bool emit = fl && !(eos && prev) && t > lead;
     prev = fl;
     cnt += emit ? 1 : 0;
     first = (emit && first == kBig) ? t : first;
     last = emit ? t : last;
-  }
-
-  // 16 bytes of one uint4; `n` of them are live (16 except in the last chunk)
-  template <bool kGuard>
-  __device__ __forceinline__ void chunk(const uint4& q, int t0, int n) {
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int i = 4 * k + b;
-        if (!kGuard || i < n) step(t0 + i, (w[k] >> (8 * b)) & 0xFFu, false);
-      }
-    }
   }
 };
 
@@ -127,37 +104,18 @@ scan_stats_kernel(const uint8_t* __restrict__ data, long long stride, int L,
                   int32_t* __restrict__ cnt_o, int32_t* __restrict__ first_o,
                   int32_t* __restrict__ last_o, uint8_t* __restrict__ full_o) {
   extern __shared__ uint32_t smem[];
-  uint32_t* tab = smem;
-  int* sl = reinterpret_cast<int*>(smem + kSyms * n_d);
-  int* sr = sl + n_d;
-  for (int i = threadIdx.x; i < kSyms * n_d; i += blockDim.x) tab[i] = tab_g[i];
-  for (int i = threadIdx.x; i < n_d; i += blockDim.x) {
-    const int d = deltas_g[i];
-    sl[i] = d > 0 ? d : 0;
-    sr[i] = d < 0 ? -d : 0;
-  }
-  __syncthreads();
+  const Tables tb = load_tables(smem, tab_g, deltas_g, n_d);
 
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const int len = min(max(lengths[r], 0), L);
   const uint4* row = reinterpret_cast<const uint4*>(data + r * stride);
 
-  Scan s{tab, sl, sr, n_d, acc, seeded != 0, lead};
-  s.step(0, kBos, false);
-  const int nchunks = (len + 15) >> 4;
-  uint4 cur = nchunks > 0 ? __ldg(row) : make_uint4(0, 0, 0, 0);
-  for (int c = 0; c < nchunks; ++c) {
-    const uint4 nxt = (c + 1 < nchunks) ? __ldg(row + c + 1) : cur;
-    const int n = len - 16 * c;
-    if (n >= 16) {
-      s.chunk<false>(cur, 1 + 16 * c, 16);
-    } else {
-      s.chunk<true>(cur, 1 + 16 * c, n);
-    }
-    cur = nxt;
-  }
-  s.step(len + 1, kEos, true);
+  Stats s{acc, seeded != 0, lead};
+  s.step(tb, 0, kBos, false);
+  walk_fwd(row, 0, len, [&](int t, int sym) { s.step(tb, t, sym, false); },
+           [] { return false; });
+  s.step(tb, len + 1, kEos, true);
 
   // closed forms of _swar_stats / _word_stats
   const bool any = s.cnt > 0;
@@ -184,30 +142,16 @@ scan_stats_kernel(const uint8_t* __restrict__ data, long long stride, int L,
   full_o[r] = full ? 1 : 0;
 }
 
-size_t smem_bytes(int n_d) {
-  return sizeof(uint32_t) * (size_t)kSyms * n_d + 2 * sizeof(int) * (size_t)n_d;
-}
-
 template <int kStates>
 int launch(const void* data, long long stride, int L, const void* lengths, int R,
            const void* tab, const void* deltas, int n_d, unsigned acc,
            int seeded, int lead, int nullable, void* cnt, void* first,
            void* last, void* full, void* stream) {
-  if (n_d < 0 || n_d > kMaxDeltas || R < 0 || L < 0 || stride < L ||
-      stride % 16 != 0 || (reinterpret_cast<uintptr_t>(data) & 15u) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (kStates < 32 && (acc >> kStates) != 0u) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (R == 0) return 0;
+  int e = check_args(data, stride, L, R, n_d, acc, kStates);
+  if (e != 0 || R == 0) return e;
   const size_t smem = smem_bytes(n_d);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        scan_stats_kernel<kStates>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  e = allow_smem(scan_stats_kernel<kStates>, smem);
+  if (e != 0) return e;
   const int blocks = (R + kThreads - 1) / kThreads;
   scan_stats_kernel<kStates><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), stride, L,
@@ -245,10 +189,14 @@ int rrx_word_stats(const void* data, long long stride, int L, const void* length
                     lead, nullable, cnt, first, last, full, stream);
 }
 
-// resident blocks per SM for the given table size (theoretical occupancy)
-int rrx_occupancy(int word_tier, int n_d, int* blocks_per_sm) {
-  return word_tier ? occupancy<32>(n_d, blocks_per_sm)
-                   : occupancy<8>(n_d, blocks_per_sm);
+// Resident blocks per SM of one kernel for the given table size (theoretical
+// occupancy). Kernel index: 0 rrx_swar_stats, 1 rrx_word_stats, then the
+// span kernels of scan_spans.cu: 2 rrx_swar_reverse, 3 rrx_swar_lazy_spans,
+// 4 rrx_swar_anchor_end, 5 rrx_swar_greedy_spans.
+int rrx_occupancy(int kernel, int n_d, int* blocks_per_sm) {
+  if (kernel == 0) return occupancy<8>(n_d, blocks_per_sm);
+  if (kernel == 1) return occupancy<32>(n_d, blocks_per_sm);
+  return spans_occupancy(kernel - 2, n_d, blocks_per_sm);
 }
 
 int rrx_threads_per_block() { return kThreads; }

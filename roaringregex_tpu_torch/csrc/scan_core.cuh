@@ -1,0 +1,158 @@
+// Shared core of the per-record bit-set scans (scan_bits.cu, scan_spans.cu).
+//
+// One program is in its (delta, table) form: tab[sym][i] is the union of
+// the target masks of the pairs at delta_i whose gate holds sym (a byte,
+// 256 = BOS, 257 = EOS; bytes >= 0x80 have zero rows). A forward step is
+//     v' = OR_i shift(v, delta_i) & tab[sym][i]
+// and the mirrored (reverse) step runs the same pairs target -> source:
+//     R' = OR_i unshift(R & tab[sym][i], delta_i)
+// with shift = << delta for delta > 0 and >> -delta for delta < 0, and
+// unshift its inverse. Both are one expression over the shift amounts
+// sl = max(delta, 0), sr = max(-delta, 0): (v << sl) >> sr forward,
+// (x >> sl) << sr reverse. The state is uint32_t, so >> is logical and
+// shift amounts are 0..31.
+//
+// Records are rows of data[R, stride] (uint8, 16-byte aligned, stride a
+// multiple of 16); stream step t = 0 is BOS, step t carries byte t-1, step
+// len+1 is EOS. The walkers below read a row 16 bytes at a time through
+// the read-only path, with the next 16 bytes prefetched, so each thread
+// uses every 32-byte sector whole across two consecutive loads.
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace rrx {
+
+constexpr int kSyms = 259;  // 256 bytes, BOS, EOS, dead
+constexpr int kBos = 256;
+constexpr int kEos = 257;
+constexpr int kThreads = 128;
+constexpr int kMaxDeltas = 63;  // deltas lie in [-31, 31]
+
+struct Tables {
+  const uint32_t* tab;  // shared [kSyms][n_d]
+  const int* sl;        // shared [n_d] left shift amounts
+  const int* sr;        // shared [n_d] right shift amounts
+  int n_d;
+
+  __device__ __forceinline__ uint32_t fwd(uint32_t vv, int sym) const {
+    const uint32_t* row = tab + sym * n_d;
+    uint32_t nxt = 0;
+    for (int i = 0; i < n_d; ++i) nxt |= ((vv << sl[i]) >> sr[i]) & row[i];
+    return nxt;
+  }
+
+  __device__ __forceinline__ uint32_t rev(uint32_t x, int sym) const {
+    const uint32_t* row = tab + sym * n_d;
+    uint32_t nxt = 0;
+    for (int i = 0; i < n_d; ++i) nxt |= ((x & row[i]) >> sl[i]) << sr[i];
+    return nxt;
+  }
+};
+
+inline size_t smem_bytes(int n_d) {
+  return sizeof(uint32_t) * (size_t)kSyms * n_d + 2 * sizeof(int) * (size_t)n_d;
+}
+
+// Copies the tables into dynamic shared memory. Every thread of the block
+// calls it (it ends in __syncthreads) before any thread returns.
+__device__ __forceinline__ Tables load_tables(uint32_t* smem, const uint32_t* __restrict__ tab_g,
+                                              const int32_t* __restrict__ deltas_g, int n_d) {
+  uint32_t* tab = smem;
+  int* sl = reinterpret_cast<int*>(smem + kSyms * n_d);
+  int* sr = sl + n_d;
+  for (int i = threadIdx.x; i < kSyms * n_d; i += blockDim.x) tab[i] = tab_g[i];
+  for (int i = threadIdx.x; i < n_d; i += blockDim.x) {
+    const int d = deltas_g[i];
+    sl[i] = d > 0 ? d : 0;
+    sr[i] = d < 0 ? -d : 0;
+  }
+  __syncthreads();
+  return Tables{tab, sl, sr, n_d};
+}
+
+__device__ __forceinline__ int byte_at(const uint4& q, int i) {
+  const uint32_t w = i < 4 ? q.x : i < 8 ? q.y : i < 12 ? q.z : q.w;
+  return (w >> (8 * (i & 3))) & 0xFFu;
+}
+
+// Forward walk over bytes b0 .. len-1 of a row: f(t, byte) for the steps
+// t = b0+1 .. len, in order. stop() is asked after every 16-byte chunk;
+// once it says true the walk ends (the caller makes sure that skipping the
+// rest changes no output).
+template <class F, class Stop>
+__device__ __forceinline__ void walk_fwd(const uint4* row, int b0, int len, F&& f, Stop&& stop) {
+  const int nchunks = (len + 15) >> 4;
+  int c = b0 >> 4;
+  if (c >= nchunks) return;
+  uint4 cur = __ldg(row + c);
+  for (; c < nchunks; ++c) {
+    const uint4 nxt = (c + 1 < nchunks) ? __ldg(row + c + 1) : cur;
+    const int lo = b0 - 16 * c;  // > 0 only in the first chunk
+    const int n = len - 16 * c;  // < 16 only in the last chunk
+    if (lo <= 0 && n >= 16) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) f(1 + 16 * c + i, byte_at(cur, i));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (i >= lo && i < n) f(1 + 16 * c + i, byte_at(cur, i));
+      }
+    }
+    if (stop()) return;
+    cur = nxt;
+  }
+}
+
+// Backward walk over bytes len-1 .. 0 of a row: f(t, byte) for the steps
+// t = len .. 1, in that order.
+template <class F>
+__device__ __forceinline__ void walk_rev(const uint4* row, int len, F&& f) {
+  int c = ((len + 15) >> 4) - 1;
+  if (c < 0) return;
+  uint4 cur = __ldg(row + c);
+  for (; c >= 0; --c) {
+    const uint4 nxt = c > 0 ? __ldg(row + c - 1) : cur;
+    const int n = len - 16 * c;
+    if (n >= 16) {
+#pragma unroll
+      for (int i = 15; i >= 0; --i) f(1 + 16 * c + i, byte_at(cur, i));
+    } else {
+#pragma unroll
+      for (int i = 15; i >= 0; --i) {
+        if (i < n) f(1 + 16 * c + i, byte_at(cur, i));
+      }
+    }
+    cur = nxt;
+  }
+}
+
+// The launchers' shared checks on what the wrapper passes: a bad table
+// size, negative shapes, a misaligned row, or accept bits past the
+// automaton's width are refused before any launch.
+inline int check_args(const void* data, long long stride, int L, int R, int n_d,
+                      unsigned acc, int states) {
+  if (n_d < 0 || n_d > kMaxDeltas || R < 0 || L < 0 || stride < L || stride % 16 != 0 ||
+      (reinterpret_cast<uintptr_t>(data) & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (states < 32 && (acc >> states) != 0u) return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// Raises a kernel's dynamic shared-memory limit when its tables need more
+// than the default 48 KB.
+template <class K>
+int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+// Resident blocks per SM of the span kernels (scan_spans.cu), by index:
+// 0 reverse, 1 lazy spans, 2 anchor end, 3 greedy spans.
+int spans_occupancy(int kernel, int n_d, int* blocks_per_sm);
+
+}  // namespace rrx

@@ -1,11 +1,14 @@
 """Scan engine: routes a compiled program to its scan tier on one device.
 
-The port of ``roaringregex_tpu/engine.py``'s batched match-stats path.
-The JAX engine picks, for a dense program, the 8-state SWAR tier when
-``swar_spec`` accepts it, else the u32-word tier when ``word_spec`` does,
-else the matmul kernels. The port has the first two; a program that
-neither accepts raises ``NotImplementedError`` (the matmul, counting,
-bitband and container tiers are queued in ROADMAP.md).
+The port of ``roaringregex_tpu/engine.py``'s batched match-stats and
+span primitives. The JAX engine picks, for a dense program, the 8-state
+SWAR tier when ``swar_spec`` accepts it, else the u32-word tier when
+``word_spec`` does, else the matmul kernels. The port has the first two; a
+program that neither accepts raises ``NotImplementedError`` (the matmul,
+counting, bitband and container tiers are queued in ROADMAP.md). Reverse
+hits, anchored rescans and spans run on the SWAR tier only: the JAX
+package runs them for word-tier programs on the matmul tier's span
+kernels, which are not ported yet, so there they raise.
 
 Engine primitives take raw byte batches: ``data`` [B, L] uint8 and
 ``lengths`` [B] int32 (numpy or torch), moved to the engine's device.
@@ -66,6 +69,51 @@ class ScanEngine:
             self._data(data), self._len_g(lengths), seeded=seeded
         )
         return cnt.reshape(-1), first.reshape(-1), anym.reshape(-1)
+
+    def span_scanner(self, what: str):
+        """The SWAR scanner, which runs ``what`` (reverse hits, anchored
+        rescans, spans); a word-tier program raises."""
+        from .ops.scan_swar import SwarScanner
+
+        if not isinstance(self._scanner, SwarScanner):
+            raise NotImplementedError(
+                f"{what} of {self.prog.pattern!r} ({self.prog.n_states} states, "
+                "u32-word tier): the JAX package runs them on the matmul tier's "
+                "reverse, anchored-rescan and span kernels, which are not ported "
+                "yet (see ROADMAP.md)"
+            )
+        return self._scanner
+
+    def reverse_hits(self, data, lengths) -> torch.Tensor:
+        """[B, L + 2] bool start-position hits (step t = start max(t-1, 0))."""
+        return self.span_scanner("reverse hits").reverse_hits_b(
+            self._data(data), self._len_g(lengths)
+        )
+
+    def first_end_from(self, data, lengths, starts, *, longest: bool = False):
+        """Anchored-rescan end per record [B] (-1 = none): smallest end (lazy
+        policy) or, with ``longest=True``, largest end (greedy leftmost-
+        longest, the POSIX policy). The JAX engine's seeded-alias and
+        prefilter rewrites apply only to multiblock and sparse programs,
+        which the port does not route yet."""
+        sc = self.span_scanner("anchored rescans")
+        starts_g = torch.as_tensor(starts, device=self.device).reshape(-1, self.prog.G)
+        first = sc.anchor_end_b(
+            self._data(data), self._len_g(lengths), starts_g, longest=longest
+        )
+        return first.reshape(-1)
+
+    def lazy_spans(self, data, lengths, *, cap: int):
+        """(starts [B, cap], ends [B, cap], count [B]): lazy spans."""
+        return self.span_scanner("lazy spans").lazy_spans_b(
+            self._data(data), self._len_g(lengths), cap=cap
+        )
+
+    def greedy_spans(self, data, lengths, *, cap: int):
+        """(starts, ends, count, overflow): greedy (leftmost-longest) spans."""
+        return self.span_scanner("greedy spans").greedy_spans_b(
+            self._data(data), self._len_g(lengths), cap=cap
+        )
 
     def fullmatch_flags(self, data, lengths) -> np.ndarray:
         """[B] bool whole-string acceptance: the ``full`` statistic of an

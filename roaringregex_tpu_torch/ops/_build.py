@@ -1,15 +1,18 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 The sources under ``roaringregex_tpu_torch/csrc/`` are compiled at first
-use into one shared library with a plain C interface:
+use into one shared library with a plain C interface: one nvcc per
+``*.cu`` source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <build dir>/<hash>/librrx_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu
 
+then one link, ``nvcc -gencode ... -shared -o librrx_kernels.so <objs>``.
 The output lands in ``build/kernels/`` beside the package (or in
-``$RRX_TORCH_BUILD_DIR``), keyed by a hash of the sources and the flags, so
-an edited source rebuilds and an unchanged one loads the library built
-before. A missing nvcc or a failed build raises: there is no fallback.
+``$RRX_TORCH_BUILD_DIR``), keyed by a hash of the sources, the headers
+they include (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged tree loads the library built before. A missing
+nvcc or a failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -26,19 +29,29 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 LIB_NAME = "librrx_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_STATS_ARGTYPES = [
+_HEAD = [
     _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
     _P, _P, _I, ctypes.c_uint,  # tab, deltas, n_delta, acc
-    _I, _I, _I,  # seeded, lead, nullable
-    _P, _P, _P, _P,  # cnt, first, last, full
-    _P,  # stream
 ]
+_STATS_TAIL = [_I, _I, _I, _P, _P, _P, _P]  # seeded, lead, nullable, cnt, first, last, full
+# every entry point: the common head, its own arguments, then the stream.
+# The order is rrx_occupancy's kernel index.
+ARGTYPES = {
+    "rrx_swar_stats": _HEAD + _STATS_TAIL + [_P],
+    "rrx_word_stats": _HEAD + _STATS_TAIL + [_P],
+    "rrx_swar_reverse": _HEAD + [_P, _P],  # hits
+    "rrx_swar_lazy_spans": _HEAD + [_P, _I, _P, _P, _P, _P],  # hits, cap, starts, ends, cnt
+    "rrx_swar_anchor_end": _HEAD + [_P, _I, _P, _P],  # starts, longest, end
+    "rrx_swar_greedy_spans": _HEAD + [_P, _I, _P, _P, _P, _P, _P],  # ... cnt, over
+}
+KERNELS = tuple(ARGTYPES)
 
 
 def _build_dir() -> Path:
@@ -67,8 +80,8 @@ def _sources():
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for s in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -96,21 +109,30 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD.seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    BUILD.ptxas = proc.stderr
-    BUILD.built = True
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        srcs = _sources()
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for c in cmds]
+        outs = [p.communicate() for p in procs]  # every compile runs to its end
+        built = os.path.join(tmp, LIB_NAME)
+        link = [nvcc, *LINK_FLAGS, "-o", built, *objs]
+        for cmd, p, (out, err) in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        BUILD.seconds = time.perf_counter() - t0
+        BUILD.ptxas = "".join(err for _, err in outs)
+        BUILD.built = True
+        os.replace(built, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 
 
@@ -118,9 +140,9 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()))
-    for name in ("rrx_swar_stats", "rrx_word_stats"):
+    for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)
-        fn.argtypes = _STATS_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = _I
     lib.rrx_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.rrx_occupancy.restype = _I

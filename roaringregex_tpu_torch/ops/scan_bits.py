@@ -1,6 +1,8 @@
 """Shared core of the SWAR and u32-word scan tiers: the (delta, table)
-form of a bit-set automaton, its plain PyTorch scan, and the launcher of
-the CUDA kernel in ``csrc/scan_bits.cu``.
+form of a bit-set automaton, the plain PyTorch versions of its scans, and
+the launchers of the CUDA kernels in ``csrc/scan_bits.cu`` (forward match
+statistics) and ``csrc/scan_spans.cu`` (reverse hits, anchored rescans,
+lazy and greedy spans).
 
 Both TPU kernels (``_swar_kernel``, ``_word_kernel``) step a record's
 state set as ``v' = OR over (delta, gate, mask) of shift(v | seed, delta)
@@ -13,8 +15,17 @@ with ``tab[sym][i]`` the union of the target masks of the pairs at
 ``delta_i`` whose gate holds ``sym`` (a byte 0..255, 256 = BOS, 257 =
 EOS, 258 = a dead step past EOS). ``scan_swar.swar_tables`` and
 ``scan_word.word_tables`` build it from their specs; the per-tier modules
-own the wrappers (and their launch counts) around :func:`stats_plain` and
-:func:`launch_stats`.
+own the wrappers (and their launch counts) around the plain versions and
+the launchers here.
+
+The mirrored automaton of the span path runs the same pairs target ->
+source and needs no table of its own:
+
+    R' = OR_i unshift(R & tab[sym][i], delta_i)
+
+(unshift is ``>> delta`` for delta > 0 and ``<< -delta`` for delta < 0).
+Its candidate-start bits travel as hit words: [W, R] int32 (uint32 bit
+patterns), W = ceil((L + 2) / 32), bit t of record r in word t // 32.
 """
 from __future__ import annotations
 
@@ -77,6 +88,99 @@ def _check_inputs(data: torch.Tensor, lengths: torch.Tensor) -> None:
         raise ValueError(f"lengths on {lengths.device}, data on {data.device}")
 
 
+def _check_rows(name: str, x: torch.Tensor, data: torch.Tensor, dtypes) -> None:
+    if x.dim() != 1 or x.numel() != data.shape[0] or x.dtype not in dtypes:
+        raise ValueError(
+            f"{name} must be [R] with R = {data.shape[0]} of {dtypes}, got "
+            f"{tuple(x.shape)} {x.dtype}"
+        )
+    if x.device != data.device:
+        raise ValueError(f"{name} on {x.device}, data on {data.device}")
+
+
+def _check_hits(hits: torch.Tensor, data: torch.Tensor) -> None:
+    R, L = data.shape
+    want = (hit_words(L), R)
+    if tuple(hits.shape) != want or hits.dtype != torch.int32 or hits.device != data.device:
+        raise ValueError(
+            f"hits must be {want} int32 on {data.device}, got {tuple(hits.shape)} "
+            f"{hits.dtype} on {hits.device}"
+        )
+
+
+def _check_cap(cap: int) -> None:
+    if cap < 1:
+        raise ValueError(f"cap must be >= 1, got {cap}")
+
+
+def hit_words(L: int) -> int:
+    """Number W of 32-step hit words per record of width L (L + 2 steps)."""
+    return -(-(L + 2) // 32)
+
+
+def hit_bits(hits: torch.Tensor, T: int) -> torch.Tensor:
+    """Hit words [W, R] -> [R, T] bool (bit t of record r)."""
+    sh = torch.arange(32, dtype=torch.int32, device=hits.device)
+    bits = (hits.T[:, :, None] >> sh) & 1  # [R, W, 32]; >> sign-fills, & 1 drops it
+    return bits.reshape(hits.shape[1], -1)[:, :T] != 0
+
+
+def _hit(hits: torch.Tensor, t: int) -> torch.Tensor:
+    """[R] bool: bit t of every record's hit words."""
+    return ((hits[t >> 5] >> (t & 31)) & 1) != 0
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 with the same bit pattern."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+class _Plain(NamedTuple):
+    """One program's tables as the plain versions use them."""
+
+    tab: torch.Tensor  # [N_SYMS, n] int64, masked to 32 bits
+    deltas: list
+    acc: int
+
+    @classmethod
+    def of(cls, tables: ScanTables, dev) -> "_Plain":
+        tab = tables.tab.to(dev).to(torch.int64) & MASK32
+        return cls(tab, [int(d) for d in tables.deltas.tolist()], tables.acc)
+
+    def fwd(self, vv: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
+        """v' = OR_i shift(vv, delta_i) & tab[sym][i]."""
+        rows = self.tab[sym]
+        nxt = torch.zeros_like(vv)
+        for i, d in enumerate(self.deltas):
+            sh = vv << d if d > 0 else (vv >> -d if d < 0 else vv)
+            nxt |= sh & rows[:, i]
+        return nxt
+
+    def rev(self, x: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
+        """R' = OR_i unshift(x & tab[sym][i], delta_i)."""
+        rows = self.tab[sym]
+        nxt = torch.zeros_like(x)
+        for i, d in enumerate(self.deltas):
+            m = x & rows[:, i]
+            nxt |= m >> d if d > 0 else (m << -d if d < 0 else m)
+        return nxt & MASK32
+
+
+def _sym(data: torch.Tensor, ln: torch.Tensor, t: int) -> torch.Tensor:
+    """[R] int64 symbol of stream step t: BOS at 0, byte t-1 while live,
+    EOS at len + 1, dead after."""
+    R, L = data.shape
+    if t == 0:
+        return torch.full((R,), SYM_BOS, dtype=torch.int64, device=data.device)
+    j = t - 1
+    byte = data[:, j].to(torch.int64) if j < L else torch.zeros_like(ln)
+    return torch.where(j < ln, byte, torch.where(ln == j, SYM_EOS, SYM_DEAD))
+
+
+def _lengths(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    return lengths.to(torch.int64).clamp(0, data.shape[1])
+
+
 def stats_plain(
     data: torch.Tensor,
     lengths: torch.Tensor,
@@ -93,9 +197,8 @@ def stats_plain(
     R, L = data.shape
     dev = data.device
     i64 = torch.int64
-    ln = lengths.to(i64).clamp(0, L)
-    tab = tables.tab.to(dev).to(i64) & MASK32  # [N_SYMS, n]
-    deltas = [int(d) for d in tables.deltas.tolist()]
+    ln = _lengths(data, lengths)
+    pt = _Plain.of(tables, dev)
     acc = tables.acc
     lead = lead if lead > 0 else -1
     v = torch.zeros(R, dtype=i64, device=dev)
@@ -104,24 +207,9 @@ def stats_plain(
     first = torch.full((R,), BIG, dtype=i64, device=dev)
     last = torch.full((R,), -1, dtype=i64, device=dev)
     for t in range(L + 2):
-        j = t - 1
-        if t == 0:
-            sym = torch.full((R,), SYM_BOS, dtype=i64, device=dev)
-            eos = torch.zeros(R, dtype=torch.bool, device=dev)
-        else:
-            byte = data[:, j].to(i64) if j < L else torch.zeros_like(ln)
-            eos = ln == j
-            sym = torch.where(
-                j < ln, byte,
-                torch.where(eos, SYM_EOS, SYM_DEAD),
-            )
-        vv = v | 1 if (seeded or t < 2) else v
-        rows = tab[sym]  # [R, n]
-        nxt = torch.zeros_like(v)
-        for i, d in enumerate(deltas):
-            sh = vv << d if d > 0 else (vv >> -d if d < 0 else vv)
-            nxt |= sh & rows[:, i]
-        v = nxt
+        sym = _sym(data, ln, t)
+        eos = sym == SYM_EOS
+        v = pt.fwd(v | 1 if (seeded or t < 2) else v, sym)
         fl = (v & acc) != 0
         emit = fl & ~(eos & prev)
         prev = fl
@@ -150,6 +238,204 @@ def stats_plain(
     return cnt_o.to(i32), first_o.to(i32), last_o.to(i32), full
 
 
+def reverse_plain(data: torch.Tensor, lengths: torch.Tensor, tables: ScanTables):
+    """Plain version of ``rrx_swar_reverse``: the mirrored automaton walked
+    from step L + 1 down to step 0, accept states joining at every step
+    (dead steps past EOS leave it empty). Hit bit t = state 0 of the set
+    after step t, i.e. a match can start at max(t - 1, 0). Returns hit
+    words [W, R] int32."""
+    _check_inputs(data, lengths)
+    R, L = data.shape
+    ln = _lengths(data, lengths)
+    pt = _Plain.of(tables, data.device)
+    rs = torch.zeros(R, dtype=torch.int64, device=data.device)
+    words = torch.zeros((hit_words(L), R), dtype=torch.int64, device=data.device)
+    for t in range(L + 1, -1, -1):
+        rs = pt.rev(rs | pt.acc, _sym(data, ln, t))
+        words[t >> 5] |= (rs & 1) << (t & 31)
+    return _as_i32(words)
+
+
+def anchor_plain(
+    data: torch.Tensor,
+    lengths: torch.Tensor,
+    tables: ScanTables,
+    starts: torch.Tensor,
+    *,
+    longest: bool,
+):
+    """Plain version of ``rrx_swar_anchor_end``: per record, the automaton
+    seeded only at ``starts`` (step start + 1, or steps <= 1 when start
+    == 0; -1 = inactive), reduced to the first (lazy) or last
+    (``longest``) accept step as an end min(step, len); -1 when none.
+    Returns end [R] int32.
+
+    Before the earliest seed step every state set is empty, and once all
+    are empty after the last seed step they stay so: the loop covers only
+    the steps in between."""
+    _check_inputs(data, lengths)
+    _check_rows("starts", starts, data, (torch.int32, torch.int64))
+    R, L = data.shape
+    dev = data.device
+    ln = _lengths(data, lengths)
+    pt = _Plain.of(tables, dev)
+    st = starts.to(torch.int64)
+    valid = st >= 0
+    first = torch.full((R,), BIG, dtype=torch.int64, device=dev)
+    last = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    if bool(valid.any()):
+        t0 = int(torch.where(st == 0, 0, st + 1)[valid].min())
+        t_seed = int((st + 1)[valid].max())
+        v = torch.zeros(R, dtype=torch.int64, device=dev)
+        for t in range(t0, L + 2):
+            gate = valid & ((st == t - 1) | ((st == 0) & (t <= 1)))
+            v = pt.fwd(v | gate.to(torch.int64), _sym(data, ln, t))
+            fl = (v & pt.acc) != 0
+            first = torch.where(fl & (first == BIG), t, first)
+            last = torch.where(fl, t, last)
+            if t >= t_seed and not bool(v.any()):
+                break
+    if longest:
+        end = torch.where(last < 0, -1, torch.minimum(last, ln))
+    else:
+        end = torch.where(first >= BIG, -1, torch.minimum(first, ln))
+    return end.to(torch.int32)
+
+
+def lazy_spans_plain(
+    data: torch.Tensor,
+    lengths: torch.Tensor,
+    tables: ScanTables,
+    hits: torch.Tensor,
+    cap: int,
+):
+    """Plain version of ``rrx_swar_lazy_spans``: one forward pass with the
+    claim/anchor/emit bookkeeping of the TPU's ``_swar_span_kernel`` over
+    the hit words of :func:`reverse_plain`. Returns (starts [R, cap],
+    ends [R, cap], -1 past the count; cnt [R], which counts past cap)."""
+    _check_inputs(data, lengths)
+    _check_hits(hits, data)
+    _check_cap(cap)
+    R, L = data.shape
+    dev = data.device
+    i64 = torch.int64
+    ln = _lengths(data, lengths)
+    pt = _Plain.of(tables, dev)
+    v = torch.zeros(R, dtype=i64, device=dev)
+    pos = torch.zeros(R, dtype=i64, device=dev)
+    cur = torch.full((R,), -1, dtype=i64, device=dev)
+    cnt = torch.zeros(R, dtype=i64, device=dev)
+    sbuf = torch.full((R, cap + 1), -1, dtype=i64, device=dev)  # column cap: overflow
+    ebuf = torch.full((R, cap + 1), -1, dtype=i64, device=dev)
+    for t in range(L + 2):
+        sp = max(t - 1, 0)
+        claim = (cur < 0) & _hit(hits, t) & (pos <= sp) & (sp <= ln)
+        cur = torch.where(claim, sp, cur)
+        gate = (cur >= 0) & ((cur == t - 1) | ((cur == 0) & (t <= 1)))
+        v = pt.fwd(v | gate.to(i64), _sym(data, ln, t))
+        e = ln.clamp(max=t)
+        done = ((v & pt.acc) != 0) & (cur >= 0) & (e >= cur)
+        slot = torch.where(done, cnt.clamp(max=cap), cap)[:, None]
+        sbuf.scatter_(1, slot, torch.where(done, cur, -1)[:, None])
+        ebuf.scatter_(1, slot, torch.where(done, e, -1)[:, None])
+        cnt += done.to(i64)
+        pos = torch.where(done, torch.maximum(e, cur + 1), pos)
+        cur = torch.where(done, -1, cur)
+        v = torch.where(done, 0, v)
+    i32 = torch.int32
+    return sbuf[:, :cap].to(i32), ebuf[:, :cap].to(i32), cnt.to(i32)
+
+
+def greedy_spans_plain(
+    data: torch.Tensor,
+    lengths: torch.Tensor,
+    tables: ScanTables,
+    hits: torch.Tensor,
+    cap: int,
+):
+    """Plain version of ``rrx_swar_greedy_spans``, in the round structure
+    of the TPU's ``_swar_greedy_call``: while some record is active and
+    fewer than ``cap`` rounds ran, each active record takes its first
+    candidate start s at or after ``pos`` from the hit words, rescans from
+    s for the longest end e (:func:`anchor_plain`), emits (s, e) if e >= s
+    and moves ``pos`` to max(e, s + 1). Returns (starts [R, cap], ends
+    [R, cap], cnt [R], over [R] bool = still active after cap rounds)."""
+    _check_inputs(data, lengths)
+    _check_hits(hits, data)
+    _check_cap(cap)
+    R, L = data.shape
+    dev = data.device
+    i64 = torch.int64
+    ln = _lengths(data, lengths)
+    hb = hit_bits(hits, L + 2)
+    cols = torch.arange(L + 2, dtype=i64, device=dev)[None, :]
+    pos = torch.zeros(R, dtype=i64, device=dev)
+    n = torch.zeros(R, dtype=i64, device=dev)
+    active = torch.ones(R, dtype=torch.bool, device=dev)
+    sbuf = torch.full((R, cap + 1), -1, dtype=i64, device=dev)
+    ebuf = torch.full((R, cap + 1), -1, dtype=i64, device=dev)
+    for _ in range(cap):
+        if not bool(active.any()):
+            break
+        thr = torch.where(pos > 0, pos + 1, 0)  # steps 0 and 1 both start at 0
+        cand = hb & (cols >= thr[:, None])
+        t = cand.to(torch.uint8).argmax(dim=1)  # first set step
+        s0 = (t - 1).clamp(min=0)
+        active = active & cand.any(dim=1) & (s0 <= ln)
+        s = torch.where(active, s0, -1)
+        e = anchor_plain(data, lengths, tables, s, longest=True).to(i64)
+        emit = active & (e >= s)
+        slot = torch.where(emit, n, cap)[:, None]
+        sbuf.scatter_(1, slot, torch.where(emit, s, -1)[:, None])
+        ebuf.scatter_(1, slot, torch.where(emit, e, -1)[:, None])
+        pos = torch.where(emit, torch.maximum(e, s + 1), pos)
+        n += emit.to(i64)
+        active = emit & (pos <= ln)
+    i32 = torch.int32
+    return sbuf[:, :cap].to(i32), ebuf[:, :cap].to(i32), n.to(i32), active
+
+
+def _launch(entry: str, data: torch.Tensor, lengths: torch.Tensor,
+            tables: ScanTables, *tail) -> None:
+    """Launch ``entry`` on the current stream of ``data``'s card. Every
+    entry point takes the same head (data, stride, L, lengths, R, tab,
+    deltas, n_delta, acc), then ``tail``: ints as they are, tensors (inputs
+    and preallocated outputs on the same card) by pointer. A refused launch
+    raises (``_build.check``)."""
+    from . import _build
+
+    _check_inputs(data, lengths)
+    dev = data.device
+    if dev.type != "cuda":
+        raise ValueError(f"{entry} runs on a CUDA tensor, got {dev}")
+    if tables.tab.device != dev or tables.deltas.device != dev:
+        raise ValueError(f"{entry}: tables on {tables.tab.device}, data on {dev}")
+    for x in tail:
+        if isinstance(x, torch.Tensor) and (x.device != dev or not x.is_contiguous()):
+            raise ValueError(f"{entry}: a {tuple(x.shape)} argument on {x.device} "
+                             f"(contiguous: {x.is_contiguous()}), data on {dev}")
+    R, L = data.shape
+    # the kernels read rows 16 bytes at a time: 16-byte aligned base and
+    # a row stride that is a multiple of 16
+    if L % 16 or data.data_ptr() % 16 or not data.is_contiguous():
+        padded = torch.zeros((R, -(-max(L, 1) // 16) * 16), dtype=torch.uint8, device=dev)
+        padded[:, :L] = data
+        data = padded
+    lengths = lengths.to(torch.int32).contiguous()
+    tab = tables.tab.contiguous()
+    deltas = tables.deltas.contiguous()
+    args = [x.data_ptr() if isinstance(x, torch.Tensor) else x for x in tail]
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, entry)(
+            data.data_ptr(), data.stride(0), L, lengths.data_ptr(), R,
+            tab.data_ptr(), deltas.data_ptr(), int(deltas.numel()), tables.acc,
+            *args, stream,
+        )
+    _build.check(code, entry)
+
+
 def launch_stats(
     entry: str,
     data: torch.Tensor,
@@ -162,37 +448,63 @@ def launch_stats(
 ):
     """Launch ``entry`` (``rrx_swar_stats`` / ``rrx_word_stats``) on the
     current stream of ``data``'s card. Returns (cnt, first, last, full)."""
-    from . import _build
-
-    _check_inputs(data, lengths)
-    dev = data.device
-    if dev.type != "cuda":
-        raise ValueError(f"{entry} runs on a CUDA tensor, got {dev}")
-    if tables.tab.device != dev or tables.deltas.device != dev:
-        raise ValueError(f"{entry}: tables on {tables.tab.device}, data on {dev}")
-    R, L = data.shape
-    # the kernel reads rows 16 bytes at a time: 16-byte aligned base and
-    # a row stride that is a multiple of 16
-    if L % 16 or data.data_ptr() % 16 or not data.is_contiguous():
-        padded = torch.zeros((R, -(-max(L, 1) // 16) * 16), dtype=torch.uint8, device=dev)
-        padded[:, :L] = data
-        data = padded
-    lengths = lengths.to(torch.int32).contiguous()
-    tab = tables.tab.contiguous()
-    deltas = tables.deltas.contiguous()
+    R, dev = data.shape[0], data.device
     cnt = torch.empty(R, dtype=torch.int32, device=dev)
     first = torch.empty(R, dtype=torch.int32, device=dev)
     last = torch.empty(R, dtype=torch.int32, device=dev)
     full = torch.empty(R, dtype=torch.uint8, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, entry)(
-            data.data_ptr(), data.stride(0), L, lengths.data_ptr(), R,
-            tab.data_ptr(), deltas.data_ptr(), int(deltas.numel()), tables.acc,
-            int(seeded), int(lead if lead > 0 else -1), int(nullable),
-            cnt.data_ptr(), first.data_ptr(), last.data_ptr(), full.data_ptr(),
-            stream,
-        )
-    _build.check(code, entry)
+    _launch(
+        entry, data, lengths, tables,
+        int(seeded), int(lead if lead > 0 else -1), int(nullable), cnt, first, last, full,
+    )
     return cnt, first, last, full.view(torch.bool)
+
+
+def launch_reverse(data: torch.Tensor, lengths: torch.Tensor, tables: ScanTables):
+    """Launch ``rrx_swar_reverse``. Returns hit words [W, R] int32."""
+    R, L = data.shape
+    hits = torch.empty((hit_words(L), R), dtype=torch.int32, device=data.device)
+    _launch("rrx_swar_reverse", data, lengths, tables, hits)
+    return hits
+
+
+def _span_buffers(R: int, cap: int, dev):
+    return (
+        torch.empty((R, cap), dtype=torch.int32, device=dev),
+        torch.empty((R, cap), dtype=torch.int32, device=dev),
+        torch.empty(R, dtype=torch.int32, device=dev),
+    )
+
+
+def launch_lazy_spans(data: torch.Tensor, lengths: torch.Tensor, tables: ScanTables,
+                      hits: torch.Tensor, cap: int):
+    """Launch ``rrx_swar_lazy_spans``. Returns (starts, ends, cnt)."""
+    _check_hits(hits, data)
+    _check_cap(cap)
+    starts, ends, cnt = _span_buffers(data.shape[0], cap, data.device)
+    _launch("rrx_swar_lazy_spans", data, lengths, tables,
+            hits.contiguous(), int(cap), starts, ends, cnt)
+    return starts, ends, cnt
+
+
+def launch_anchor_end(data: torch.Tensor, lengths: torch.Tensor, tables: ScanTables,
+                      starts: torch.Tensor, *, longest: bool):
+    """Launch ``rrx_swar_anchor_end``. Returns end [R] int32."""
+    _check_rows("starts", starts, data, (torch.int32, torch.int64))
+    end = torch.empty(data.shape[0], dtype=torch.int32, device=data.device)
+    _launch("rrx_swar_anchor_end", data, lengths, tables,
+            starts.to(torch.int32).contiguous(), int(longest), end)
+    return end
+
+
+def launch_greedy_spans(data: torch.Tensor, lengths: torch.Tensor, tables: ScanTables,
+                        hits: torch.Tensor, cap: int):
+    """Launch ``rrx_swar_greedy_spans``. Returns (starts, ends, cnt, over)."""
+    _check_hits(hits, data)
+    _check_cap(cap)
+    R = data.shape[0]
+    starts, ends, cnt = _span_buffers(R, cap, data.device)
+    over = torch.empty(R, dtype=torch.uint8, device=data.device)
+    _launch("rrx_swar_greedy_spans", data, lengths, tables,
+            hits.contiguous(), int(cap), starts, ends, cnt, over)
+    return starts, ends, cnt, over.view(torch.bool)

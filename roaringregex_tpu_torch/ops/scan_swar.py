@@ -1,7 +1,8 @@
 """SWAR tier: bit-set scan of programs with at most 8 states.
 
 The port of ``roaringregex_tpu/ops/scan_swar.py``'s forward match-stats
-path. On the TPU the tier packs 4 records into each u32 lane (an 8-bit
+path and its span path (reverse hits, anchored rescans, lazy and greedy
+spans). On the TPU the tier packs 4 records into each u32 lane (an 8-bit
 state set per record) and applies the 8x8 Glushkov follow matrix as a
 diagonal shift/AND/OR per byte (``_swar_kernel``), then reduces an accept
 bit-log in XLA (``_swar_stats``). The spec below is the JAX package's,
@@ -16,6 +17,15 @@ exactly as on the TPU (``_swar_window``), so the same batches take the
 same route: every match of a bounded-horizon, anchor-free, non-nullable
 pattern fits in ``h`` bytes, so a window's first ``h`` steps only warm up
 and their flags belong to the previous window (``lead = h``).
+
+Spans run unwindowed, as on the TPU, on four CUDA kernels
+(``csrc/scan_spans.cu``): ``rrx_swar_reverse`` (candidate starts as hit
+words), ``rrx_swar_anchor_end`` (an anchored rescan reduced to its first
+or last end), ``rrx_swar_lazy_spans`` (one pass of claim/anchor/emit that
+writes the span buffers directly) and ``rrx_swar_greedy_spans`` (the
+TPU's while_loop of longest-end rescan rounds, as a loop in each record's
+thread). The JAX package sends nullable programs' lazy and greedy spans to
+the matmul tier, which is not ported: here they raise.
 """
 from __future__ import annotations
 
@@ -144,9 +154,60 @@ def swar_stats(data, lengths, tables: sb.ScanTables, *, seeded: bool,
 swar_stats.launches = 0
 
 
+def swar_reverse(data, lengths, tables: sb.ScanTables):
+    """Hit words [W, R] int32 of the reverse scan (``rrx_swar_reverse``,
+    counted in ``swar_reverse.launches``, on a CUDA tensor; the plain
+    version on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return sb.reverse_plain(data, lengths, tables)
+    out = sb.launch_reverse(data, lengths, tables)
+    swar_reverse.launches += 1
+    return out
+
+
+def swar_lazy_spans(data, lengths, tables: sb.ScanTables, hits, cap: int):
+    """(starts [R, cap], ends [R, cap], cnt [R]) of the lazy span pass
+    (``rrx_swar_lazy_spans`` on a CUDA tensor, the plain version on a CPU
+    tensor)."""
+    if data.device.type == "cpu":
+        return sb.lazy_spans_plain(data, lengths, tables, hits, cap)
+    out = sb.launch_lazy_spans(data, lengths, tables, hits, cap)
+    swar_lazy_spans.launches += 1
+    return out
+
+
+def swar_anchor_end(data, lengths, tables: sb.ScanTables, starts, *, longest: bool):
+    """End [R] int32 of the anchored rescan from ``starts`` (-1 =
+    inactive): first end, or last with ``longest`` (``rrx_swar_anchor_end``
+    on a CUDA tensor, the plain version on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return sb.anchor_plain(data, lengths, tables, starts, longest=longest)
+    out = sb.launch_anchor_end(data, lengths, tables, starts, longest=longest)
+    swar_anchor_end.launches += 1
+    return out
+
+
+def swar_greedy_spans(data, lengths, tables: sb.ScanTables, hits, cap: int):
+    """(starts [R, cap], ends [R, cap], cnt [R], over [R] bool) of the
+    greedy rounds (``rrx_swar_greedy_spans`` on a CUDA tensor, the plain
+    version on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return sb.greedy_spans_plain(data, lengths, tables, hits, cap)
+    out = sb.launch_greedy_spans(data, lengths, tables, hits, cap)
+    swar_greedy_spans.launches += 1
+    return out
+
+
+swar_reverse.launches = 0
+swar_lazy_spans.launches = 0
+swar_anchor_end.launches = 0
+swar_greedy_spans.launches = 0
+
+
 class SwarScanner:
-    """Forward match statistics of an 8-state program on ``device``.
-    Constructed by the engine when ``swar_spec(prog)`` qualifies."""
+    """Forward match statistics and spans of an 8-state program on
+    ``device``. Constructed by the engine when ``swar_spec(prog)``
+    qualifies."""
 
     def __init__(self, prog: DeviceProgram, device):
         self.prog = prog
@@ -191,9 +252,7 @@ class SwarScanner:
                 "windowed (lead > 0) scans of nullable programs run on the "
                 "matmul tier, which is not ported yet (see ROADMAP.md)"
             )
-        data = torch.as_tensor(data, device=self.device)
-        len_g = torch.as_tensor(len_g, device=self.device)
-        lengths = len_g.reshape(-1).to(torch.int32)
+        data, len_g, lengths = self._batch(data, len_g)
         B, L = lengths.numel(), data.shape[1]
         win = self._swar_window(L, B, seeded) if not lead else None
         if win is not None:
@@ -206,6 +265,51 @@ class SwarScanner:
         sl = lambda x: x.reshape(len_g.shape)  # noqa: E731
         cnt = sl(cnt)
         return cnt, sl(first), sl(last), sl(full), cnt > 0
+
+    def _batch(self, data, len_g):
+        data = torch.as_tensor(data, device=self.device)
+        len_g = torch.as_tensor(len_g, device=self.device)
+        return data, len_g, len_g.reshape(-1).to(torch.int32)
+
+    def _no_nullable_spans(self, what: str) -> None:
+        if self.nullable:
+            raise NotImplementedError(
+                f"{what} of the nullable program {self.prog.pattern!r}: the JAX "
+                "package runs them on the matmul tier's span kernels, which are "
+                "not ported yet (see ROADMAP.md)"
+            )
+
+    def reverse_hits_b(self, data, len_g):
+        """[B, L + 2] bool candidate-start hits: step t set = a match can
+        start at max(t - 1, 0)."""
+        data, _, lengths = self._batch(data, len_g)
+        hits = swar_reverse(data, lengths, self.tables)
+        return sb.hit_bits(hits, data.shape[1] + 2)
+
+    def lazy_spans_b(self, data, len_g, *, cap: int):
+        """(starts [B, cap], ends [B, cap], cnt [B]): lazy (leftmost-
+        shortest) spans, -1 past the count; cnt counts past cap."""
+        self._no_nullable_spans("lazy spans")
+        data, _, lengths = self._batch(data, len_g)
+        hits = swar_reverse(data, lengths, self.tables)
+        return swar_lazy_spans(data, lengths, self.tables, hits, cap)
+
+    def anchor_end_b(self, data, len_g, starts_g, *, longest: bool):
+        """Anchored-rescan end per record, shaped like ``len_g``: the first
+        end from ``starts_g`` (-1 = inactive), or the last with
+        ``longest``; -1 when none."""
+        data, len_g, lengths = self._batch(data, len_g)
+        starts = torch.as_tensor(starts_g, device=self.device).reshape(-1).to(torch.int32)
+        end = swar_anchor_end(data, lengths, self.tables, starts, longest=longest)
+        return end.reshape(len_g.shape)
+
+    def greedy_spans_b(self, data, len_g, *, cap: int):
+        """(starts [B, cap], ends [B, cap], cnt [B], over [B] bool): greedy
+        (leftmost-longest, POSIX) spans; ``over`` = more spans than cap."""
+        self._no_nullable_spans("greedy spans")
+        data, _, lengths = self._batch(data, len_g)
+        hits = swar_reverse(data, lengths, self.tables)
+        return swar_greedy_spans(data, lengths, self.tables, hits, cap)
 
     @staticmethod
     def windows(data, lengths, k: int, w: int, h: int):
