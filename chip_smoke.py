@@ -9,7 +9,7 @@ its check fails:
 1. the card's name and power limit; build the CUDA kernels from
    roaringregex_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source,
    all started together), with nvcc's register report and the build time;
-2. kernel against plain PyTorch version on the card, for all six entry
+2. kernel against plain PyTorch version on the card, for all eleven entry
    points, on random batches from a numpy seed plus edge records (empty,
    len == L, bytes >= 0x80, byte 0); integer outputs, tolerance 0:
    rrx_swar_stats and rrx_word_stats on the SWAR and u32-word test
@@ -17,7 +17,9 @@ its check fails:
    rrx_swar_reverse and rrx_swar_anchor_end (random starts with -1 and 0,
    lazy and longest) on every SWAR test pattern, rrx_swar_lazy_spans and
    rrx_swar_greedy_spans at cap 1, 2 and 16 (greedy overflow) on the
-   non-nullable ones;
+   non-nullable ones; the five matmul-tier kernels on record tiles of 8 to
+   256 states (seeded, unseeded and lead stats; reverse; anchor lazy and
+   longest; lazy and greedy spans at caps 1, 2 and 16, greedy overflow);
 3. the match-stats path, with its launch counts set to 0 first: bench
    config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
@@ -34,10 +36,23 @@ its check fails:
    lazy finditer_batch against re with lazy quantifiers and for fixed-length
    patterns, against the plain version for a+ and a|ab, search and match
    against re (the counts are read after it);
-5. times with CUDA events (median of 5-7 runs after warm-up) of kernel and
-   plain version: the stats kernels at config 1 and 1 GiB, the span
-   kernels at config 7's 10 MB shape and at 1 GiB, with theoretical
-   occupancy and grid fill, each compared again with its plain version.
+5. the matmul-tier path (33..256-state programs, csrc/scan_nfa.cu), with
+   every launch count set to 0 first: a 49-state and a 211-state keyword
+   alternation over 1 GiB of 1024-byte log-text records (numpy seed,
+   keywords planted) through ScanEngine.match_stats, checked against the
+   plain version on a slice and against Python's re on 3,000 records; lazy
+   and greedy spans of both at config 7's 10 MB shape, every record against
+   re.finditer; the API (search_batch, count_batch, fullmatch_batch,
+   finditer_batch, search, match) on 2,000 records against re, u32-word
+   spans and nullable greedy spans against the plain version (the counts
+   are read after it);
+6. times with CUDA events (median of 5-7 runs after warm-up) of kernel and
+   plain version: the stats kernels at config 1 and 1 GiB, the SWAR span
+   kernels at config 7's 10 MB shape and at 1 GiB, the matmul-tier kernels
+   at 10 MB and 1 GiB (plain versions on a 16,384-record slice there), with
+   registers, theoretical occupancy, grid fill and the bound of each (bytes
+   over 3.35 TB/s, or integer operations over 16.7 T/s), each compared again
+   with its plain version.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -64,8 +79,28 @@ WORD_PATTERNS = [
     ".[ab]x|q{2}[cd]y{2}z",
 ]
 WORD_BENCH = "(cat|dog|bird)+"
+# log-triage keyword alternations (no keyword is a prefix of another, so
+# Python's re gives the lazy and the greedy spans alike)
+K7_WORDS = ["error", "warning", "critical", "fatal", "exception", "timeout", "refused"]
+K16_WORDS = ["error", "warn", "fail", "denied", "refused", "timeout", "exception", "fatal",
+             "panic", "critical", "abort", "killed", "segfault", "overflow", "corrupt",
+             "unreachable"]
+K30_WORDS = K16_WORDS + ["invalid", "missing", "expired", "forbidden", "unauthorized",
+                         "unavailable", "conflict", "deadlock", "retry", "dropped", "rejected",
+                         "throttled", "oom", "leak"]
+K7, K16, K30 = ("(" + "|".join(ws) + ")" for ws in (K7_WORDS, K16_WORDS, K30_WORDS))
+HTTP = "^(GET|POST|PUT|DELETE|HEAD|OPTIONS|PATCH) /[a-z0-9/._-]* HTTP/1\\.[01]$"
+# record tiles of 8 (nullable SWAR-size), 16 and 32 (u32-word-size), 64,
+# 128 and 256 states for the matmul-tier kernels
+NFA_PATTERNS = ["a*", "(cat|dog)*", "(a|$)*"] + WORD_PATTERNS + [
+    K7, K7 + "*", HTTP, K16, "x(ab|c){20,40}y", K30, "(a|bc){1,60}"]
+NFA_PLANTS = [b"error", b"warning timeout", b"x critical", b"GET /a/b.c HTTP/1.1",
+              b"POST / HTTP/1.0", b"xababccababcy", b"xabababababcccccccccababababcccy",
+              b"abcbcbca", b"cat", b"dogcat", b"aaaaaaaaaaaa", b"abcdcdeeefgh", b"oomleakretry",
+              b"segfaulterror", b"abcdefghij"]
 STATS_SOURCE = "roaringregex_tpu_torch/csrc/scan_bits.cu"
 SPANS_SOURCE = "roaringregex_tpu_torch/csrc/scan_spans.cu"
+NFA_SOURCE = "roaringregex_tpu_torch/csrc/scan_nfa.cu"
 REPLACES = {
     "rrx_swar_stats": "roaringregex_tpu/ops/scan_swar.py:526",
     "rrx_word_stats": "roaringregex_tpu/ops/scan_word.py:169",
@@ -73,9 +108,23 @@ REPLACES = {
     "rrx_swar_lazy_spans": "roaringregex_tpu/ops/scan_swar.py:710",
     "rrx_swar_anchor_end": "roaringregex_tpu/ops/scan_swar.py:807",
     "rrx_swar_greedy_spans": "roaringregex_tpu/ops/scan_swar.py:1385",
+    "rrx_nfa_stats": "roaringregex_tpu/ops/scan_pallas.py:1218",
+    "rrx_nfa_reverse": "roaringregex_tpu/ops/scan_pallas.py:1532",
+    "rrx_nfa_anchor_end": "roaringregex_tpu/ops/scan_pallas.py:1659",
+    "rrx_nfa_lazy_spans": "roaringregex_tpu/ops/scan_pallas.py:1740",
+    "rrx_nfa_greedy_spans": "roaringregex_tpu/ops/scan_pallas.py:3038",
 }
 SPAN_KERNELS = ("rrx_swar_reverse", "rrx_swar_lazy_spans", "rrx_swar_anchor_end",
                 "rrx_swar_greedy_spans")
+NFA_KERNELS = ("rrx_nfa_stats", "rrx_nfa_reverse", "rrx_nfa_anchor_end", "rrx_nfa_lazy_spans",
+               "rrx_nfa_greedy_spans")
+# the card's rates for the bounds: HBM 3.35 TB/s (NVIDIA's H100 SXM data
+# sheet); 32-bit integer issue 16.7 T operations/s = 132 SMs x 64 int32
+# operations per clock (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x 1.98 GHz, the clock at which the
+# data sheet's 67 TFLOP/s float32 peak is 132 x 128 FMA lanes x 2 flops
+HBM_BYTES_PER_MS = 3.35e9
+INT_OPS_PER_MS = 132 * 64 * 1.98e6
 # patterns whose Python-re greedy match is the POSIX leftmost-longest one
 # (tests/test_greedy.py), with their lazy-quantifier forms: re's match of
 # the lazy form from the leftmost start is the shortest one
@@ -114,6 +163,62 @@ def edge_batch(rng, np, R: int, L: int, alphabet: bytes):
     return data, lengths
 
 
+def nfa_batch(rng, np, R: int, L: int):
+    """An edge batch over the keyword and HTTP alphabet, with a plant
+    (keywords, request lines, repetitions) in every third record."""
+    data, lengths = edge_batch(rng, np, R, L, b"abcdefghijlogqtxyzrwnu.$ /GETHP1\x00")
+    for i in range(8, R, 3):
+        w = NFA_PLANTS[int(rng.integers(len(NFA_PLANTS)))][:L]
+        at = int(rng.integers(0, L - len(w) + 1))
+        data[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+    return data, lengths
+
+
+def log_text(np, seed: int, R: int, L: int, words):
+    """[R, L] uint8 lowercase log text (letters, one space in 7 bytes) from
+    a numpy seed, with one keyword planted in every second record."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz" + b" " * 4, np.uint8)
+    data = alphabet[rng.integers(0, alphabet.size, size=(R, L), dtype=np.uint8)]
+    rows = rng.permutation(R)[: R // 2]
+    kw = rng.integers(0, len(words), size=rows.size)
+    for k, word in enumerate(words):
+        rk = rows[kw == k]
+        cols = rng.integers(0, L - len(word) + 1, size=rk.size)
+        for j, ch in enumerate(word.encode()):
+            data[rk, cols + j] = ch
+    return data
+
+
+def key_stats(words, text: bytes):
+    """(count of distinct match ends, first end or -1) of an alternation of
+    ``words``, none a prefix of another, by Python's re: at most one word
+    starts at each position."""
+    rx = re.compile(b"(?=(" + b"|".join(w.encode() for w in words) + b"))")
+    ends = sorted({m.start() + len(m.group(1)) for m in rx.finditer(text)})
+    return len(ends), ends[0] if ends else -1
+
+
+def registers(ptxas: str):
+    """{mangled kernel name: registers} from nvcc's -Xptxas -v report."""
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = int(m.group(1))
+    return out
+
+
+def bound(read: float, written: float, ops: float):
+    """(bound_ms, bound_by): the larger of the bytes that must move over
+    the card's memory rate and the integer operations over its issue rate."""
+    b, o = (read + written) / HBM_BYTES_PER_MS, ops / INT_OPS_PER_MS
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
 def main() -> int:
     import torch
 
@@ -125,7 +230,7 @@ def main() -> int:
     from roaringregex_tpu_torch.api import compile as rrx_compile
     from roaringregex_tpu_torch.compiler.program import compile_program
     from roaringregex_tpu_torch.engine import ScanEngine
-    from roaringregex_tpu_torch.ops import _build, scan_bits, scan_swar, scan_word
+    from roaringregex_tpu_torch.ops import _build, scan_bits, scan_pallas, scan_swar, scan_word
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -142,6 +247,12 @@ def main() -> int:
     for line in _build.BUILD.ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    regs = registers(_build.BUILD.ptxas)
+
+    def regs_of(kernel: str) -> str:
+        """Registers of every instantiation of ``kernel`` (by mangled name)."""
+        got = sorted(f"{n}: {r}" for n, r in regs.items() if kernel in n)
+        return "; ".join(got) if got else "not reported (library built before this run)"
 
     entries = {
         "rrx_swar_stats": (scan_swar.swar_stats, scan_swar.swar_spec, scan_swar.swar_tables, SWAR_PATTERNS),
@@ -153,7 +264,14 @@ def main() -> int:
         "rrx_swar_anchor_end": scan_swar.swar_anchor_end,
         "rrx_swar_greedy_spans": scan_swar.swar_greedy_spans,
     }
-    wrappers = {name: e[0] for name, e in entries.items()} | span_wrappers
+    nfa_wrappers = {
+        "rrx_nfa_stats": scan_pallas.nfa_stats,
+        "rrx_nfa_reverse": scan_pallas.nfa_reverse,
+        "rrx_nfa_anchor_end": scan_pallas.nfa_anchor_end,
+        "rrx_nfa_lazy_spans": scan_pallas.nfa_lazy_spans,
+        "rrx_nfa_greedy_spans": scan_pallas.nfa_greedy_spans,
+    }
+    wrappers = {name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
     max_err = {name: 0 for name in wrappers}
 
     def compare(name, got, want, tag, labels=("cnt", "first", "last", "full")):
@@ -254,6 +372,68 @@ def main() -> int:
     print(f"phase 2: kernel == plain on the card, {n_cmp} batches x {len(SWAR_PATTERNS)} SWAR "
           f"patterns' span kernels (reverse, anchor lazy/longest, lazy and greedy at caps 1, 2, "
           f"16; greedy over set on {n_over} records) ({time.perf_counter() - t0:.1f}s)")
+
+    def check_nfa(tables, d, ln, tag, *, nullable, lead=3, starts=None, caps=(1, 2, 16)):
+        """Every matmul-tier kernel against its plain version on one batch;
+        the span kernels read the (checked) hit words of the reverse kernel.
+        Returns (hits, number of records greedy left over cap)."""
+        P = scan_pallas
+        R, L = d.shape
+        for seeded in (True, False):
+            for ld in sorted({0, lead}):
+                kw = dict(seeded=seeded, lead=ld, nullable=nullable)
+                compare("rrx_nfa_stats", P.nfa_stats(d, ln, tables, **kw),
+                        P.stats_plain(d, ln, tables, **kw), f"{tag} {kw}")
+        hits = P.nfa_reverse(d, ln, tables)
+        compare("rrx_nfa_reverse", [hits], [scan_bits.reverse_plain(d, ln, tables)], tag, ("hits",))
+        if starts is None:
+            st = rng.integers(-1, L + 2, size=R).astype(np.int32)
+            st[:8], st[8:16] = 0, -1
+            starts = torch.from_numpy(st).to(dev)
+        for longest in (False, True):
+            compare("rrx_nfa_anchor_end",
+                    [P.nfa_anchor_end(d, ln, tables, starts, longest=longest)],
+                    [scan_bits.anchor_plain(d, ln, tables, starts, longest=longest)],
+                    f"{tag} longest={longest}", ("end",))
+        n_over = 0
+        for cap in caps:
+            compare("rrx_nfa_lazy_spans", P.nfa_lazy_spans(d, ln, tables, hits, cap),
+                    scan_bits.lazy_spans_plain(d, ln, tables, hits, cap), f"{tag} cap={cap}",
+                    ("starts", "ends", "cnt"))
+            got = P.nfa_greedy_spans(d, ln, tables, hits, cap, nullable=nullable)
+            compare("rrx_nfa_greedy_spans", got,
+                    scan_bits.greedy_spans_plain(d, ln, tables, hits, cap, nullable=nullable),
+                    f"{tag} cap={cap}", ("starts", "ends", "cnt", "over"))
+            n_over += int(got[3].sum().item())
+        return hits, n_over
+
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = n_over = 0
+    tiles = set()
+    for pattern in NFA_PATTERNS:
+        prog = compile_program(pattern)
+        tables = scan_pallas.device_nfa_tables(prog, dev)
+        tiles.add(prog.s_tile)
+        for R, L in ((1000, 61), (1024, 64)):
+            data, lengths = nfa_batch(rng, np, R, L)
+            d = torch.from_numpy(data).to(dev)
+            ln = torch.from_numpy(lengths).to(dev)
+            n_over += check_nfa(tables, d, ln, f"{pattern!r} R={R} L={L}",
+                                nullable=prog.nullable, lead=prog.horizon or 3)[1]
+            n_cmp += 1
+    torch.cuda.synchronize()
+    for name in NFA_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if n_over == 0:
+        fail("matmul-tier greedy overflow (over) was never exercised")
+    if tiles != {8, 16, 32, 64, 128, 256}:
+        fail(f"matmul-tier comparisons covered record tiles {sorted(tiles)}")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} batches of {len(NFA_PATTERNS)} patterns "
+          f"(record tiles {sorted(tiles)}) through the five matmul-tier kernels (stats seeded/"
+          f"unseeded/lead, reverse, anchor lazy/longest, lazy and greedy at caps 1, 2, 16; greedy "
+          f"over set on {n_over} records) ({time.perf_counter() - t0:.1f}s)")
 
     # -- phase 3: the match-stats path (counts from here to its 1 GiB run) --
     import bench
@@ -421,7 +601,140 @@ def main() -> int:
           f"{len(RE_SAFE)} patterns against re")
     print(f"span path launches: {span_launches}")
 
-    # -- phase 5: times ---------------------------------------------------
+    # -- phase 5: the matmul-tier path (counts from here to its API run) ---
+    reset_launches()
+    keyed = {K7: K7_WORDS, K30: K30_WORDS}
+    t0 = time.perf_counter()
+    log_np = log_text(np, 8, R, L, K30_WORDS)
+    log = torch.from_numpy(log_np).to(dev)
+    log_len = torch.full((R,), L, dtype=torch.int32, device=dev)
+    print(f"phase 5: 1 GiB log text, {R} records x {L} B, one of {len(K30_WORDS)} keywords in "
+          f"every second record (numpy seed 8; built in {time.perf_counter() - t0:.1f}s)")
+    n_slice = 16_384  # plain-version slice of the 1 GiB batch
+    n_re = 3000
+    nfa_engines = {}
+    for pattern, words in keyed.items():
+        eng_k = ScanEngine(compile_program(pattern), device=dev)
+        sc_k = eng_k.device_scanner
+        if type(sc_k).__name__ != "PallasScanner":
+            fail(f"{pattern[:30]!r}... routed to {type(sc_k).__name__}")
+        nfa_engines[pattern] = eng_k
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cnt_k, first_k, any_k = eng_k.match_stats(log, log_len, seeded=True)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t1) * 1e3
+        want = scan_pallas.stats_plain(log[:n_slice], log_len[:n_slice], sc_k.nfa, seeded=True,
+                                       lead=0, nullable=False)
+        if not (torch.equal(cnt_k[:n_slice], want[0]) and torch.equal(first_k[:n_slice], want[1])):
+            fail(f"{pattern[:30]!r}... 1 GiB stats != plain on the first {n_slice} records")
+        rows = np.random.default_rng(9).choice(R, size=n_re, replace=False)
+        got = np.stack([cnt_k.cpu().numpy()[rows], first_k.cpu().numpy()[rows]], axis=1)
+        ref = np.array([key_stats(words, log_np[r].tobytes()) for r in rows])
+        if not np.array_equal(got, ref):
+            i = int(np.nonzero((got != ref).any(axis=1))[0][0])
+            fail(f"{pattern[:30]!r}... record {rows[i]}: (cnt, first) {got[i]} != re {ref[i]}")
+        if not torch.equal(any_k, cnt_k > 0):
+            fail(f"{pattern[:30]!r}... any != cnt > 0")
+        print(f"phase 5: {len(words)}-keyword alternation ({eng_k.prog.n_states} states, s_tile "
+              f"{eng_k.prog.s_tile}) over 1 GiB: matches={int(cnt_k.sum().item())} "
+              f"records_with_match={int(any_k.sum().item())}; == plain on {n_slice} records, == re "
+              f"on {n_re} (first call {call_ms:.1f} ms)")
+
+    B7 = data_p.shape[0]  # config 7's shape: 9,776 records x 1,024 B
+    log10 = log[:B7].contiguous()
+    len10 = log_len[:B7].contiguous()
+    cap_k = 32
+    for pattern, words in keyed.items():
+        rxk = re.compile(pattern.encode())
+        want_k = [[m.span() for m in rxk.finditer(log_np[i].tobytes())] for i in range(B7)]
+        for policy in ("lazy", "greedy"):
+            eng_k = nfa_engines[pattern]
+            if policy == "lazy":
+                sk, ek, ck = eng_k.lazy_spans(log10, len10, cap=cap_k)
+                ok = torch.zeros_like(ck, dtype=torch.bool)
+            else:
+                sk, ek, ck, ok = eng_k.greedy_spans(log10, len10, cap=cap_k)
+            sk, ek, ck, ok = (x.cpu().numpy() for x in (sk, ek, ck, ok))
+            if ck.max() > cap_k or ok.any():
+                fail(f"{pattern[:30]!r}... {policy}: more spans than cap {cap_k}")
+            got_k = [list(zip(sk[i, : ck[i]].tolist(), ek[i, : ck[i]].tolist())) for i in range(B7)]
+            bad = [i for i in range(B7) if got_k[i] != want_k[i]]
+            if bad:
+                i = bad[0]
+                fail(f"{pattern[:30]!r}... {policy} spans: {len(bad)} records differ from "
+                     f"re.finditer, record {i}: {got_k[i][:4]} != {want_k[i][:4]}")
+            print(f"phase 5: {len(words)}-keyword {policy} spans (cap {cap_k}), {B7} records x "
+                  f"{L} B: {int(ck.sum())} spans, at most {int(ck.max())} per record, == "
+                  f"re.finditer")
+
+    texts_k = []
+    cuts = np.random.default_rng(10).integers(0, 257, size=2000)
+    for i, row in enumerate(log_text(np, 10, 2000, 256, K30_WORDS)):
+        if i % 5 == 0:
+            t = K30_WORDS[i % len(K30_WORDS)].encode()  # whole-record keywords
+        elif i % 11 == 0:
+            t = b"POST /var/log/x_1.log HTTP/1.0" if i % 22 else b"GET / HTTP/1.1"
+        elif i % 7 == 0:
+            t = b"timeout " + row[: cuts[i]].tobytes()
+        else:
+            t = row[: cuts[i]].tobytes()
+        texts_k.append(t)
+    n_api_k = 0
+    for pattern in (K7, K30, HTTP):
+        pat = rrx_compile(pattern, dev)
+        if type(pat.engine.device_scanner).__name__ != "PallasScanner":
+            fail(f"{pattern[:30]!r}... should take the matmul tier")
+        rxk = re.compile(pattern.encode())
+        checks = {
+            "search_batch": (pat.search_batch(texts_k).tolist(),
+                             [rxk.search(t) is not None for t in texts_k]),
+            "fullmatch_batch": (pat.fullmatch_batch(texts_k).tolist(),
+                                [rxk.fullmatch(t) is not None for t in texts_k]),
+        }
+        if pattern in keyed:
+            checks["count_batch"] = (pat.count_batch(texts_k).tolist(),
+                                     [key_stats(keyed[pattern], t)[0] for t in texts_k])
+            want_sp = [[m.span() for m in rxk.finditer(t)] for t in texts_k]
+            for longest in (False, True):
+                checks[f"finditer_batch(longest={longest})"] = (
+                    pat.finditer_batch(texts_k, longest=longest), want_sp)
+        for name, (got, want) in checks.items():
+            if got != want:
+                i = next(i for i in range(len(texts_k)) if got[i] != want[i])
+                fail(f"{pattern[:30]!r}... {name} != re at text {i}: {got[i]} != {want[i]}")
+            n_api_k += 1
+        for t in texts_k[:60]:
+            for fn, refn in ((pat.search, rxk.search), (pat.match, rxk.match)):
+                a, b = fn(t), refn(t)
+                if (a is None) != (b is None) or (a is not None and a.span() != b.span()):
+                    fail(f"{pattern[:30]!r}... {fn.__name__}({t[:40]!r}) = {a and a.span()} != "
+                         f"re {b and b.span()}")
+    word_texts = sample(11, 2000, 64, b"abcdefgh",
+                        [b"abeefgh", b"cdcdeeefgh", b"ababcdeeefghabeefgh"])
+    # nullable greedy spans take one round per span, every position a start:
+    # short texts keep the plain version's rounds few
+    null_texts = [t[:48] for t in texts_k[:300]] + sample(12, 300, 40, b"catdogx",
+                                                          [b"catdog", b"dogdogcat"])
+    for pattern, longest in (("(ab|cd)+e{2,3}fgh", False), ("(ab|cd)+e{2,3}fgh", True),
+                             ("(cat|dog)*", True), (K7 + "*", True)):
+        pat = rrx_compile(pattern, dev)
+        texts_p = word_texts if "fgh" in pattern else null_texts
+        got = pat.finditer_batch(texts_p, longest=longest)
+        if got != rrx_compile(pattern, "cpu").finditer_batch(texts_p, longest=longest):
+            fail(f"{pattern[:30]!r} finditer_batch(longest={longest}) on the card != plain")
+        n_api_k += 1
+    torch.cuda.synchronize()
+    nfa_launches = launches()
+    for name in NFA_KERNELS:
+        if nfa_launches[name] <= 0:
+            fail(f"{name} was not launched on the matmul-tier path")
+    print(f"phase 5: matmul-tier API on {len(texts_k)} records of <= 264 B: {n_api_k} batch "
+          f"checks against re and the plain version (u32-word spans, nullable greedy spans), "
+          f"search/match on 60 texts x 3 patterns against re")
+    print(f"matmul-tier path launches: {nfa_launches}")
+
+    # -- phase 6: times ---------------------------------------------------
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
         """Median over ``runs`` of the CUDA-event time of ``per_run``
         back-to-back calls, divided by ``per_run``."""
@@ -442,9 +755,43 @@ def main() -> int:
     props = torch.cuda.get_device_properties(0)
     max_threads = props.max_threads_per_multi_processor
 
+    def kernel_bound(kind, ln, L, step_ops, *, cap=0, starts=None, end=None, greedy=None):
+        """(bound_ms, bound_by) of one call, from this run's inputs: bytes
+        read once and written once; integer operations = the steps the
+        function needs x a floor of operations per step (``step_ops`` for
+        the automaton step: 4 per delta of a (delta, table) form, 3 per
+        state word of a matmul-tier tile; plus the per-step bookkeeping).
+        Anchored rescans count the steps from each start to its end, greedy
+        the steps of its spans."""
+        ln = ln.to(torch.int64).clamp(0, L)
+        R = ln.numel()
+        nbytes = int(ln.sum())
+        steps = nbytes + 2 * R
+        hit_bytes = 4 * scan_bits.hit_words(L) * R
+        if kind == "stats":
+            return bound(nbytes + 4 * R, 13 * R, steps * (step_ops + 4))
+        if kind == "reverse":
+            return bound(nbytes + 4 * R, hit_bytes, steps * (step_ops + 2))
+        if kind == "lazy_spans":
+            return bound(nbytes + 4 * R + hit_bytes, 8 * R * cap + 4 * R, steps * (step_ops + 8))
+        if kind == "anchor_end":
+            st = starts.to(torch.int64)
+            live = (st >= 0) & (st <= ln)
+            span = torch.where(end >= 0, end.to(torch.int64) - st + 1, 1)
+            rescan = int(torch.where(live, span, 0).sum())
+            return bound(rescan + 8 * R, 4 * R, rescan * (step_ops + 2))
+        s_g, e_g, c_g = (x.to(torch.int64) for x in greedy[:3])
+        emitted = torch.arange(s_g.shape[1], device=s_g.device)[None, :] < c_g[:, None]
+        rescan = int(torch.where(emitted, e_g - s_g + 1, 0).sum())
+        return bound(rescan + 4 * R + hit_bytes, 8 * R * cap + 5 * R,
+                     rescan * (step_ops + 2) + hit_bytes // 4)
+
     def occupancy(name, tables, rows):
+        """Theoretical occupancy and grid fill; ``tables`` are a (delta,
+        table) form or a matmul-tier tile."""
+        size = tables.s_tile if isinstance(tables, scan_pallas.NfaTables) else tables.deltas.numel()
         bps = ctypes.c_int(0)
-        _build.check(lib.rrx_occupancy(_build.KERNELS.index(name), int(tables.deltas.numel()),
+        _build.check(lib.rrx_occupancy(_build.KERNELS.index(name), int(size),
                                        ctypes.byref(bps)), "rrx_occupancy")
         tpb = lib.rrx_threads_per_block()
         blocks = -(-rows // tpb)
@@ -466,7 +813,7 @@ def main() -> int:
             compare(name, entries[name][0](d, ln, sc.tables, **kw),
                     scan_bits.stats_plain(d, ln, sc.tables, **kw),
                     f"{pat.pattern!r} API batch {tuple(d.shape)}")
-    print("phase 5: kernel == plain on the phase-3 API batches, seeded and unseeded")
+    print("phase 6: kernel == plain on the phase-3 API batches, seeded and unseeded")
 
     # the config-1 headline at its own shape: the windowed batch
     sc = eng.device_scanner
@@ -481,7 +828,7 @@ def main() -> int:
     ms_k = time_ms(lambda: scan_swar.swar_stats(wind, lnw, sc.tables, **kw), warm=2, runs=7, per_run=20)
     ms_p = time_ms(lambda: scan_bits.stats_plain(wind, lnw, sc.tables, **kw), warm=1, runs=5)
     ms_e = time_ms(lambda: sc.match_stats_b(d10, l10.reshape(-1, G), seeded=True), warm=2, runs=7, per_run=20)
-    print(f"phase 5: rrx_swar_stats config 1 windows [{wind.shape[0]} x {wind.shape[1]}]: "
+    print(f"phase 6: rrx_swar_stats config 1 windows [{wind.shape[0]} x {wind.shape[1]}]: "
           f"kernel {ms_k:.3f} ms = {n10 / ms_k / 1e6:.1f} GB/s, plain {ms_p:.3f} ms = "
           f"{n10 / ms_p / 1e6:.2f} GB/s; match_stats_b end to end {ms_e:.3f} ms = "
           f"{n10 / ms_e / 1e6:.1f} GB/s [{card}]")
@@ -501,14 +848,17 @@ def main() -> int:
             fail("1 GiB engine count != direct kernel count")
         ms = time_ms(lambda: wrapper(big, big_len, tables, **kw), warm=2, runs=7, per_run=5)
         plain_ms = time_ms(lambda: scan_bits.stats_plain(big, big_len, tables, **kw), warm=1, runs=5)
-        print(f"phase 5: {name} {pattern!r} 1 GiB: kernel {ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, "
+        print(f"phase 6: {name} {pattern!r} 1 GiB: kernel {ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, "
               f"plain {plain_ms:.3f} ms = {nbytes / plain_ms / 1e6:.2f} GB/s, outputs equal "
               f"[{card}]")
-        print(f"  occupancy {name} (1 GiB): {occupancy(name, tables, R)}")
+        bnd = kernel_bound("stats", big_len, L, 4 * tables.deltas.numel())
+        print(f"  occupancy {name} (1 GiB): {occupancy(name, tables, R)}; registers "
+              f"{regs_of('scan_stats_kernel')}; bound {bnd[0]:.4f} ms by {bnd[1]}")
         kernels.append({
             "name": name, "route": "cuda", "source": STATS_SOURCE, "replaces": REPLACES[name],
             "launches": stats_launches[name], "max_abs_err": max_err[name],
-            "ms": round(ms, 4), "plain_ms": round(plain_ms, 4), "shape": "1 GiB",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None, "shape": f"1 GiB, {pattern}",
         })
 
     # the span kernels at config 7's shape (10 MB, unwindowed) and at 1 GiB
@@ -534,25 +884,111 @@ def main() -> int:
             "rrx_swar_greedy_spans": (lambda: scan_swar.swar_greedy_spans(d, ln, tables, hits, cap7),
                                       lambda: scan_bits.greedy_spans_plain(d, ln, tables, hits, cap7)),
         }
+        greedy0 = scan_swar.swar_greedy_spans(d, ln, tables, hits, cap7)
+        end0 = scan_swar.swar_anchor_end(d, ln, tables, starts, longest=True)
         for name, (kern, plain) in calls.items():
             ms = time_ms(kern, warm=2, runs=7, per_run=5)
             plain_ms = time_ms(plain, warm=1, runs=runs)
-            span_ms[name, shape] = (ms, plain_ms)
-            print(f"phase 5: {name} cat|dog {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
+            bnd = kernel_bound(name.split("_", 2)[2], ln, d.shape[1], 4 * tables.deltas.numel(),
+                               cap=cap7, starts=starts, end=end0, greedy=greedy0)
+            span_ms[name, shape] = (ms, plain_ms, bnd)
+            print(f"phase 6: {name} cat|dog {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
                   f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s, plain {plain_ms:.3f} ms = "
                   f"{nb / plain_ms / 1e6:.3f} GB/s [{card}]")
-            print(f"  occupancy {name} ({shape}): {occupancy(name, tables, d.shape[0])}")
+            print(f"  occupancy {name} ({shape}): {occupancy(name, tables, d.shape[0])}; "
+                  f"registers {regs_of(name[4:] + '_kernel')}; bound {bnd[0]:.4f} ms by {bnd[1]}")
         for policy, fn in (("lazy_spans", lambda: eng.lazy_spans(d, ln, cap=cap7)),
                            ("greedy_spans", lambda: eng.greedy_spans(d, ln, cap=cap7))):
             ms = time_ms(fn, warm=2, runs=7, per_run=5)
-            print(f"phase 5: ScanEngine.{policy} end to end (data on the card), {shape}: "
+            print(f"phase 6: ScanEngine.{policy} end to end (data on the card), {shape}: "
                   f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s [{card}]")
     for name in SPAN_KERNELS:
-        ms, plain_ms = span_ms[name, "config 7, 10 MB"]
+        ms, plain_ms, bnd = span_ms[name, "config 7, 10 MB"]
         kernels.append({
             "name": name, "route": "cuda", "source": SPANS_SOURCE, "replaces": REPLACES[name],
             "launches": span_launches[name], "max_abs_err": max_err[name],
-            "ms": round(ms, 4), "plain_ms": round(plain_ms, 4), "shape": "config 7, 10 MB",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None, "shape": "config 7, 10 MB, cat|dog",
+        })
+
+    # the matmul-tier kernels at config 7's 10 MB shape and at 1 GiB, on the
+    # phase-5 log text; plain versions on the whole 10 MB batch and on the
+    # first n_slice records of the 1 GiB batch (kernel outputs compared there)
+    P = scan_pallas
+    nfa_ms = {}
+    for pattern in keyed:
+        eng_k = nfa_engines[pattern]
+        tables = eng_k.device_scanner.nfa
+        step_ops = 3 * -(-tables.s_tile // 32)
+        tag = f"{eng_k.prog.n_states}-state"
+        for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
+            hits = P.nfa_reverse(d, ln, tables)
+            lazy0 = P.nfa_lazy_spans(d, ln, tables, hits, cap_k)
+            starts = lazy0[0][:, 0].contiguous()
+            greedy0 = P.nfa_greedy_spans(d, ln, tables, hits, cap_k, nullable=False)
+            end0 = P.nfa_anchor_end(d, ln, tables, starts, longest=True)
+            if shape == "10 MB":
+                check_nfa(tables, d, ln, f"{tag} 10 MB", nullable=False, lead=0, starts=starts,
+                          caps=(cap_k,))
+                pd, pl, ph, pst, n = d, ln, hits, starts, d.shape[0]
+            else:
+                n = n_slice
+                pd, pl, pst = d[:n].contiguous(), ln[:n].contiguous(), starts[:n].contiguous()
+                ph = scan_bits.reverse_plain(pd, pl, tables)
+                kw = dict(seeded=True, lead=0, nullable=False)
+                outs = {
+                    "rrx_nfa_stats": (P.nfa_stats(d, ln, tables, **kw),
+                                      P.stats_plain(pd, pl, tables, **kw)),
+                    "rrx_nfa_reverse": ([hits[:, :n]], [ph]),
+                    "rrx_nfa_anchor_end": ([end0], [scan_bits.anchor_plain(pd, pl, tables, pst, longest=True)]),
+                    "rrx_nfa_lazy_spans": (lazy0, scan_bits.lazy_spans_plain(pd, pl, tables, ph, cap_k)),
+                    "rrx_nfa_greedy_spans": (greedy0, scan_bits.greedy_spans_plain(pd, pl, tables, ph, cap_k,
+                                                                           nullable=False)),
+                }
+                for name, (got, want) in outs.items():
+                    got = [x[:, :n] if name == "rrx_nfa_reverse" else x[:n] for x in got]
+                    compare(name, got, want, f"{tag} 1 GiB, first {n} records",
+                            tuple(str(i) for i in range(len(want))))
+            calls = {
+                "rrx_nfa_stats": (lambda: P.nfa_stats(d, ln, tables, seeded=True),
+                                  lambda: P.stats_plain(pd, pl, tables, seeded=True, lead=0,
+                                                        nullable=False)),
+                "rrx_nfa_reverse": (lambda: P.nfa_reverse(d, ln, tables),
+                                    lambda: scan_bits.reverse_plain(pd, pl, tables)),
+                "rrx_nfa_anchor_end": (
+                    lambda: P.nfa_anchor_end(d, ln, tables, starts, longest=True),
+                    lambda: scan_bits.anchor_plain(pd, pl, tables, pst, longest=True)),
+                "rrx_nfa_lazy_spans": (lambda: P.nfa_lazy_spans(d, ln, tables, hits, cap_k),
+                                       lambda: scan_bits.lazy_spans_plain(pd, pl, tables, ph, cap_k)),
+                "rrx_nfa_greedy_spans": (
+                    lambda: P.nfa_greedy_spans(d, ln, tables, hits, cap_k, nullable=False),
+                    lambda: scan_bits.greedy_spans_plain(pd, pl, tables, ph, cap_k, nullable=False)),
+            }
+            nb = int(ln.to(torch.int64).sum())
+            for name, (kern, plain) in calls.items():
+                ms = time_ms(kern, warm=2, runs=7, per_run=5)
+                plain_ms = time_ms(plain, warm=1, runs=3)
+                bnd = kernel_bound(name.split("_", 2)[2], ln, d.shape[1], step_ops, cap=cap_k,
+                                   starts=starts, end=end0, greedy=greedy0)
+                nfa_ms[name, pattern, shape] = (ms, plain_ms, bnd)
+                print(f"phase 6: {name} {tag} {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
+                      f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s, plain {plain_ms:.3f} ms on {n} "
+                      f"records; bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]")
+                print(f"  occupancy {name} ({shape}): {occupancy(name, tables, d.shape[0])}; "
+                      f"registers {regs_of(name[4:] + '_kernel')}")
+            for what, fn in (("match_stats", lambda: eng_k.match_stats(d, ln, seeded=True)),
+                             ("lazy_spans", lambda: eng_k.lazy_spans(d, ln, cap=cap_k)),
+                             ("greedy_spans", lambda: eng_k.greedy_spans(d, ln, cap=cap_k))):
+                ms = time_ms(fn, warm=2, runs=7, per_run=5)
+                print(f"phase 6: ScanEngine.{what} {tag} end to end (data on the card), {shape}: "
+                      f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s [{card}]")
+    for name in NFA_KERNELS:
+        ms, plain_ms, bnd = nfa_ms[name, K30, "10 MB"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": NFA_SOURCE, "replaces": REPLACES[name],
+            "launches": nfa_launches[name], "max_abs_err": max_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None, "shape": f"config 7's 10 MB shape, {len(K30_WORDS)}-keyword log text",
         })
 
     print(json.dumps({"kernels": kernels}))

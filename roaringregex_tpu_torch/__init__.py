@@ -2,12 +2,13 @@
 
 The JAX package ``roaringregex_tpu`` is the reference. This package runs
 its batched match-stats path (``compile`` -> ``search_batch`` /
-``count_batch`` / ``grep`` / ``fullmatch_batch`` / ``fullmatch``) for
-programs of up to 32 states, and span extraction (``finditer_batch``,
-``finditer``, ``findall``, ``search``, ``match``) for programs of up to 8
-states, on an NVIDIA H100 through hand-written CUDA kernels
-(``csrc/scan_bits.cu``, ``csrc/scan_spans.cu``) and on the CPU through
-their plain PyTorch versions. It imports torch and never jax.
+``count_batch`` / ``grep`` / ``fullmatch_batch`` / ``fullmatch``) and
+span extraction (``finditer_batch``, ``finditer``, ``findall``,
+``search``, ``match``) for dense programs of up to 256 states (the SWAR,
+u32-word and matmul tiers) on an NVIDIA H100 through hand-written CUDA
+kernels (``csrc/scan_bits.cu``, ``csrc/scan_spans.cu``,
+``csrc/scan_nfa.cu``) and on the CPU through their plain PyTorch versions.
+It imports torch and never jax.
 """
 
 from .api import Match, Pattern, compile  # noqa: F401

@@ -10,12 +10,14 @@ leftmost-longest with ``longest=True``.
 
 Spans run on the device in O(1) dispatches, as on the JAX package's
 pallas backend: one reverse pass, then the lazy span kernel or the greedy
-round kernel. The JAX package's other route, host rounds over
-``starts_bitmap``, serves only programs outside the SWAR and u32-word
-tiers, which the port's engine refuses at construction. Word-tier spans
-and nullable greedy spans raise ``NotImplementedError`` (their kernels,
-on the matmul tier, are not ported). ``MultiPattern`` and long strings
-are not ported yet (ROADMAP.md).
+round kernel, on the SWAR tier's kernels or the matmul tier's (every
+other program the engine takes: u32-word and 33..256-state programs, and
+nullable greedy spans, which fall back to the empty match where no longer
+one starts). The JAX package's other route, host rounds over
+``starts_bitmap``, serves only the counting, bitband and container tiers
+and multi-pattern accept maps, which the port's engine refuses at
+construction. ``MultiPattern`` and long strings are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -109,13 +111,16 @@ class Pattern:
             # lazy spans of a nullable pattern: the empty match at every
             # position (shortest end == start, advance by one)
             return [[(p, p) for p in range(int(lengths[i]) + 1)] for i in range(B)]
-        eng.span_scanner("spans")  # a word-tier program raises before the counts pass
         # Pre-size the span buffers from one counts pass: every emitted
         # span (lazy or greedy) ends at a distinct match-end position, so
-        # n_spans <= match_stats count per record (len + 1 for a nullable
-        # program), bucketed to a power of two.
-        cnt0, _, _ = eng.match_stats(data, lengths, seeded=True)
-        mx = int(cnt0[:B].max()) if B else 0
+        # n_spans <= match_stats count per record, bucketed to a power of
+        # two. Nullable greedy: the empty-match fallback makes every
+        # position a potential span start.
+        if self.program.nullable:
+            mx = int(lengths[:B].max()) + 1 if B else 1
+        else:
+            cnt0, _, _ = eng.match_stats(data, lengths, seeded=True)
+            mx = int(cnt0[:B].max()) if B else 0
         cap = _pow2(min(max(mx, 1), maxlen + 1 if maxlen else 1))
         while True:
             if longest:

@@ -108,12 +108,12 @@ scan_stats_kernel(const uint8_t* __restrict__ data, long long stride, int L,
 
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  const int len = min(max(lengths[r], 0), L);
-  const uint4* row = reinterpret_cast<const uint4*>(data + r * stride);
+  const Row rec = record(data, stride, L, lengths, r);
+  const int len = rec.len;
 
   Stats s{acc, seeded != 0, lead};
   s.step(tb, 0, kBos, false);
-  walk_fwd(row, 0, len, [&](int t, int sym) { s.step(tb, t, sym, false); },
+  walk_fwd(rec.row, 0, len, [&](int t, int sym) { s.step(tb, t, sym, false); },
            [] { return false; });
   s.step(tb, len + 1, kEos, true);
 
@@ -189,14 +189,18 @@ int rrx_word_stats(const void* data, long long stride, int L, const void* length
                     lead, nullable, cnt, first, last, full, stream);
 }
 
-// Resident blocks per SM of one kernel for the given table size (theoretical
-// occupancy). Kernel index: 0 rrx_swar_stats, 1 rrx_word_stats, then the
-// span kernels of scan_spans.cu: 2 rrx_swar_reverse, 3 rrx_swar_lazy_spans,
-// 4 rrx_swar_anchor_end, 5 rrx_swar_greedy_spans.
-int rrx_occupancy(int kernel, int n_d, int* blocks_per_sm) {
-  if (kernel == 0) return occupancy<8>(n_d, blocks_per_sm);
-  if (kernel == 1) return occupancy<32>(n_d, blocks_per_sm);
-  return spans_occupancy(kernel - 2, n_d, blocks_per_sm);
+// Resident blocks per SM of one kernel (theoretical occupancy). Kernel
+// index: 0 rrx_swar_stats, 1 rrx_word_stats, then the span kernels of
+// scan_spans.cu: 2 rrx_swar_reverse, 3 rrx_swar_lazy_spans,
+// 4 rrx_swar_anchor_end, 5 rrx_swar_greedy_spans; for these `size` is the
+// table's delta count. Then the matmul-tier kernels of scan_nfa.cu:
+// 6 rrx_nfa_stats, 7 rrx_nfa_reverse, 8 rrx_nfa_anchor_end,
+// 9 rrx_nfa_lazy_spans, 10 rrx_nfa_greedy_spans; for these `size` is s_tile.
+int rrx_occupancy(int kernel, int size, int* blocks_per_sm) {
+  if (kernel == 0) return occupancy<8>(size, blocks_per_sm);
+  if (kernel == 1) return occupancy<32>(size, blocks_per_sm);
+  if (kernel < 6) return spans_occupancy(kernel - 2, size, blocks_per_sm);
+  return nfa_occupancy(kernel - 6, size, blocks_per_sm);
 }
 
 int rrx_threads_per_block() { return kThreads; }

@@ -1,4 +1,6 @@
-// Shared core of the per-record bit-set scans (scan_bits.cu, scan_spans.cu).
+// Shared core of the per-record bit-set scans (scan_bits.cu, scan_spans.cu,
+// scan_nfa.cu): the (delta, table) step of the SWAR and u32-word tiers, the
+// row walks, the record rows and the launchers' argument checks.
 //
 // One program is in its (delta, table) form: tab[sym][i] is the union of
 // the target masks of the pairs at delta_i whose gate holds sym (a byte,
@@ -73,6 +75,24 @@ __device__ __forceinline__ Tables load_tables(uint32_t* smem, const uint32_t* __
   return Tables{tab, sl, sr, n_d};
 }
 
+struct Row {
+  const uint4* row;
+  int len;  // clamped to [0, L]
+};
+
+__device__ __forceinline__ Row record(const uint8_t* data, long long stride, int L,
+                                      const int32_t* lengths, int r) {
+  return Row{reinterpret_cast<const uint4*>(data + r * stride), min(max(lengths[r], 0), L)};
+}
+
+// Writes -1 into span slots from .. cap-1 of one record's start/end rows.
+__device__ __forceinline__ void fill_tail(int32_t* s, int32_t* e, int from, int cap) {
+  for (int k = from; k < cap; ++k) {
+    s[k] = -1;
+    e[k] = -1;
+  }
+}
+
 __device__ __forceinline__ int byte_at(const uint4& q, int i) {
   const uint32_t w = i < 4 ? q.x : i < 8 ? q.y : i < 12 ? q.z : q.w;
   return (w >> (8 * (i & 3))) & 0xFFu;
@@ -129,17 +149,23 @@ __device__ __forceinline__ void walk_rev(const uint4* row, int len, F&& f) {
   }
 }
 
-// The launchers' shared checks on what the wrapper passes: a bad table
-// size, negative shapes, a misaligned row, or accept bits past the
-// automaton's width are refused before any launch.
-inline int check_args(const void* data, long long stride, int L, int R, int n_d,
-                      unsigned acc, int states) {
-  if (n_d < 0 || n_d > kMaxDeltas || R < 0 || L < 0 || stride < L || stride % 16 != 0 ||
+// The launchers' shared checks on what the wrapper passes: negative shapes
+// or a misaligned row (check_rows), and for the (delta, table) kernels a
+// bad table size or accept bits past the automaton's width (check_args),
+// are refused before any launch.
+inline int check_rows(const void* data, long long stride, int L, int R) {
+  if (R < 0 || L < 0 || stride < L || stride % 16 != 0 ||
       (reinterpret_cast<uintptr_t>(data) & 15u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (states < 32 && (acc >> states) != 0u) return static_cast<int>(cudaErrorInvalidValue);
   return 0;
+}
+
+inline int check_args(const void* data, long long stride, int L, int R, int n_d,
+                      unsigned acc, int states) {
+  if (n_d < 0 || n_d > kMaxDeltas) return static_cast<int>(cudaErrorInvalidValue);
+  if (states < 32 && (acc >> states) != 0u) return static_cast<int>(cudaErrorInvalidValue);
+  return check_rows(data, stride, L, R);
 }
 
 // Raises a kernel's dynamic shared-memory limit when its tables need more
@@ -154,5 +180,10 @@ int allow_smem(K kernel, size_t smem) {
 // Resident blocks per SM of the span kernels (scan_spans.cu), by index:
 // 0 reverse, 1 lazy spans, 2 anchor end, 3 greedy spans.
 int spans_occupancy(int kernel, int n_d, int* blocks_per_sm);
+
+// Resident blocks per SM of the matmul-tier kernels (scan_nfa.cu) for a
+// record tile of s_tile states, by index: 0 stats, 1 reverse, 2 anchor end,
+// 3 lazy spans, 4 greedy spans.
+int nfa_occupancy(int kernel, int s_tile, int* blocks_per_sm);
 
 }  // namespace rrx

@@ -70,16 +70,6 @@ namespace {
 
 using namespace rrx;
 
-struct Row {
-  const uint4* row;
-  int len;
-};
-
-__device__ __forceinline__ Row record(const uint8_t* data, long long stride, int L,
-                                      const int32_t* lengths, int r) {
-  return Row{reinterpret_cast<const uint4*>(data + r * stride), min(max(lengths[r], 0), L)};
-}
-
 // Anchored rescan of one record from start st: the first (lazy) or last
 // (longest) accept step as an end clipped to len, -1 when none.
 __device__ __forceinline__ int anchor_scan(const Tables& tb, uint32_t acc, const Row& rec,
@@ -103,13 +93,6 @@ __device__ __forceinline__ int anchor_scan(const Tables& tb, uint32_t acc, const
   if (st == len || !done()) step(len + 1, kEos);
   const int t = longest ? last : first;
   return t < 0 ? -1 : min(t, len);
-}
-
-__device__ __forceinline__ void fill_tail(int32_t* s, int32_t* e, int from, int cap) {
-  for (int k = from; k < cap; ++k) {
-    s[k] = -1;
-    e[k] = -1;
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -40,9 +40,13 @@ _HEAD = [
     _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
     _P, _P, _I, ctypes.c_uint,  # tab, deltas, n_delta, acc
 ]
+_NFA_HEAD = [
+    _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
+    _P, _I,  # tab, s_tile
+]
 _STATS_TAIL = [_I, _I, _I, _P, _P, _P, _P]  # seeded, lead, nullable, cnt, first, last, full
-# every entry point: the common head, its own arguments, then the stream.
-# The order is rrx_occupancy's kernel index.
+# every entry point: its head, its own arguments, then the stream. The
+# order is rrx_occupancy's kernel index.
 ARGTYPES = {
     "rrx_swar_stats": _HEAD + _STATS_TAIL + [_P],
     "rrx_word_stats": _HEAD + _STATS_TAIL + [_P],
@@ -50,6 +54,12 @@ ARGTYPES = {
     "rrx_swar_lazy_spans": _HEAD + [_P, _I, _P, _P, _P, _P],  # hits, cap, starts, ends, cnt
     "rrx_swar_anchor_end": _HEAD + [_P, _I, _P, _P],  # starts, longest, end
     "rrx_swar_greedy_spans": _HEAD + [_P, _I, _P, _P, _P, _P, _P],  # ... cnt, over
+    "rrx_nfa_stats": _NFA_HEAD + _STATS_TAIL + [_P],
+    "rrx_nfa_reverse": _NFA_HEAD + [_P, _P],  # hits
+    "rrx_nfa_anchor_end": _NFA_HEAD + [_P, _I, _P, _P],  # starts, longest, end
+    "rrx_nfa_lazy_spans": _NFA_HEAD + [_P, _I, _P, _P, _P, _P],  # hits, cap, starts, ends, cnt
+    # hits, cap, nullable, starts, ends, cnt, over
+    "rrx_nfa_greedy_spans": _NFA_HEAD + [_P, _I, _I, _P, _P, _P, _P, _P],
 }
 KERNELS = tuple(ARGTYPES)
 

@@ -26,6 +26,13 @@ source and needs no table of its own:
 (unshift is ``>> delta`` for delta > 0 and ``<< -delta`` for delta < 0).
 Its candidate-start bits travel as hit words: [W, R] int32 (uint32 bit
 patterns), W = ceil((L + 2) / 32), bit t of record r in word t // 32.
+
+The plain versions of the span path (reverse hits, anchored rescans, lazy
+and greedy spans) serve this form and the matmul tier's
+(``scan_pallas.NfaTables``) alike: each table form gives them a stepper
+(``tables.plain(device)``) with the forward step, the accept test, the
+reverse step and the start bit, and the bookkeeping around the steps is
+written once.
 """
 from __future__ import annotations
 
@@ -46,6 +53,10 @@ class ScanTables(NamedTuple):
     tab: torch.Tensor  # [N_SYMS, n_delta] int32 (uint32 bit patterns)
     deltas: torch.Tensor  # [n_delta] int32, target - source
     acc: int  # accepting-state mask
+
+    def plain(self, dev) -> "_Plain":
+        """The stepper of the plain versions on ``dev``."""
+        return _Plain.of(self, dev)
 
 
 def dg_tables(
@@ -136,7 +147,8 @@ def _as_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 class _Plain(NamedTuple):
-    """One program's tables as the plain versions use them."""
+    """One program's tables as the plain versions use them: a record's
+    state set is one int64 masked to 32 bits."""
 
     tab: torch.Tensor  # [N_SYMS, n] int64, masked to 32 bits
     deltas: list
@@ -156,14 +168,33 @@ class _Plain(NamedTuple):
             nxt |= sh & rows[:, i]
         return nxt
 
-    def rev(self, x: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
-        """R' = OR_i unshift(x & tab[sym][i], delta_i)."""
+    # the stepper of the span path's plain versions
+    def empty(self, R: int, dev) -> torch.Tensor:
+        return torch.zeros(R, dtype=torch.int64, device=dev)
+
+    def step(self, v: torch.Tensor, gate: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
+        """The forward step with the initial state added where ``gate``."""
+        return self.fwd(v | gate.to(torch.int64), sym)
+
+    def accepts(self, v: torch.Tensor) -> torch.Tensor:
+        return (v & self.acc) != 0
+
+    def cleared(self, v: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
+        return torch.where(done, 0, v)
+
+    def rev(self, r: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
+        """R' = OR_i unshift((R | acc) & tab[sym][i], delta_i)."""
         rows = self.tab[sym]
+        x = r | self.acc
         nxt = torch.zeros_like(x)
         for i, d in enumerate(self.deltas):
             m = x & rows[:, i]
             nxt |= m >> d if d > 0 else (m << -d if d < 0 else m)
         return nxt & MASK32
+
+    def start(self, r: torch.Tensor) -> torch.Tensor:
+        """[R] bool: the initial state is in R."""
+        return (r & 1) != 0
 
 
 def _sym(data: torch.Tensor, ln: torch.Tensor, t: int) -> torch.Tensor:
@@ -238,37 +269,39 @@ def stats_plain(
     return cnt_o.to(i32), first_o.to(i32), last_o.to(i32), full
 
 
-def reverse_plain(data: torch.Tensor, lengths: torch.Tensor, tables: ScanTables):
-    """Plain version of ``rrx_swar_reverse``: the mirrored automaton walked
-    from step L + 1 down to step 0, accept states joining at every step
-    (dead steps past EOS leave it empty). Hit bit t = state 0 of the set
-    after step t, i.e. a match can start at max(t - 1, 0). Returns hit
-    words [W, R] int32."""
+def reverse_plain(data: torch.Tensor, lengths: torch.Tensor, tables):
+    """Plain version of ``rrx_swar_reverse`` and ``rrx_nfa_reverse``
+    (``tables``: a ``ScanTables`` or an ``NfaTables``): the reverse step
+    walked from step L + 1 down to step 0, accept states joining at every
+    step (dead steps past EOS leave the set empty). Hit bit t = the initial
+    state is in the set after step t, i.e. a match can start at max(t - 1,
+    0). Returns hit words [W, R] int32."""
     _check_inputs(data, lengths)
     R, L = data.shape
     ln = _lengths(data, lengths)
-    pt = _Plain.of(tables, data.device)
-    rs = torch.zeros(R, dtype=torch.int64, device=data.device)
+    pt = tables.plain(data.device)
+    rs = pt.empty(R, data.device)
     words = torch.zeros((hit_words(L), R), dtype=torch.int64, device=data.device)
     for t in range(L + 1, -1, -1):
-        rs = pt.rev(rs | pt.acc, _sym(data, ln, t))
-        words[t >> 5] |= (rs & 1) << (t & 31)
+        rs = pt.rev(rs, _sym(data, ln, t))
+        words[t >> 5] |= pt.start(rs).to(torch.int64) << (t & 31)
     return _as_i32(words)
 
 
 def anchor_plain(
     data: torch.Tensor,
     lengths: torch.Tensor,
-    tables: ScanTables,
+    tables,
     starts: torch.Tensor,
     *,
     longest: bool,
 ):
-    """Plain version of ``rrx_swar_anchor_end``: per record, the automaton
-    seeded only at ``starts`` (step start + 1, or steps <= 1 when start
-    == 0; -1 = inactive), reduced to the first (lazy) or last
-    (``longest``) accept step as an end min(step, len); -1 when none.
-    Returns end [R] int32.
+    """Plain version of ``rrx_swar_anchor_end`` and ``rrx_nfa_anchor_end``
+    (the TPU's ``_anchor_end_kernel_b``): per record, the automaton seeded
+    only at ``starts`` (step start + 1, or steps <= 1 when start == 0; -1 =
+    inactive), reduced to the first (lazy) or last (``longest``) accept
+    step as an end min(step, len); -1 when none. No `$` dedup. Returns end
+    [R] int32.
 
     Before the earliest seed step every state set is empty, and once all
     are empty after the last seed step they stay so: the loop covers only
@@ -278,7 +311,7 @@ def anchor_plain(
     R, L = data.shape
     dev = data.device
     ln = _lengths(data, lengths)
-    pt = _Plain.of(tables, dev)
+    pt = tables.plain(dev)
     st = starts.to(torch.int64)
     valid = st >= 0
     first = torch.full((R,), BIG, dtype=torch.int64, device=dev)
@@ -286,11 +319,11 @@ def anchor_plain(
     if bool(valid.any()):
         t0 = int(torch.where(st == 0, 0, st + 1)[valid].min())
         t_seed = int((st + 1)[valid].max())
-        v = torch.zeros(R, dtype=torch.int64, device=dev)
+        v = pt.empty(R, dev)
         for t in range(t0, L + 2):
             gate = valid & ((st == t - 1) | ((st == 0) & (t <= 1)))
-            v = pt.fwd(v | gate.to(torch.int64), _sym(data, ln, t))
-            fl = (v & pt.acc) != 0
+            v = pt.step(v, gate, _sym(data, ln, t))
+            fl = pt.accepts(v)
             first = torch.where(fl & (first == BIG), t, first)
             last = torch.where(fl, t, last)
             if t >= t_seed and not bool(v.any()):
@@ -305,14 +338,16 @@ def anchor_plain(
 def lazy_spans_plain(
     data: torch.Tensor,
     lengths: torch.Tensor,
-    tables: ScanTables,
+    tables,
     hits: torch.Tensor,
     cap: int,
 ):
-    """Plain version of ``rrx_swar_lazy_spans``: one forward pass with the
-    claim/anchor/emit bookkeeping of the TPU's ``_swar_span_kernel`` over
-    the hit words of :func:`reverse_plain`. Returns (starts [R, cap],
-    ends [R, cap], -1 past the count; cnt [R], which counts past cap)."""
+    """Plain version of ``rrx_swar_lazy_spans`` and ``rrx_nfa_lazy_spans``:
+    one forward pass with the claim/anchor/emit bookkeeping of the TPU's
+    ``_swar_span_kernel`` / ``_span_kernel_b`` over the hit words of
+    :func:`reverse_plain`, written straight into the span buffers (the
+    TPU's compaction). Returns (starts [R, cap], ends [R, cap], -1 past the
+    count; cnt [R], which counts past cap)."""
     _check_inputs(data, lengths)
     _check_hits(hits, data)
     _check_cap(cap)
@@ -320,8 +355,8 @@ def lazy_spans_plain(
     dev = data.device
     i64 = torch.int64
     ln = _lengths(data, lengths)
-    pt = _Plain.of(tables, dev)
-    v = torch.zeros(R, dtype=i64, device=dev)
+    pt = tables.plain(dev)
+    v = pt.empty(R, dev)
     pos = torch.zeros(R, dtype=i64, device=dev)
     cur = torch.full((R,), -1, dtype=i64, device=dev)
     cnt = torch.zeros(R, dtype=i64, device=dev)
@@ -332,16 +367,16 @@ def lazy_spans_plain(
         claim = (cur < 0) & _hit(hits, t) & (pos <= sp) & (sp <= ln)
         cur = torch.where(claim, sp, cur)
         gate = (cur >= 0) & ((cur == t - 1) | ((cur == 0) & (t <= 1)))
-        v = pt.fwd(v | gate.to(i64), _sym(data, ln, t))
+        v = pt.step(v, gate, _sym(data, ln, t))
         e = ln.clamp(max=t)
-        done = ((v & pt.acc) != 0) & (cur >= 0) & (e >= cur)
+        done = pt.accepts(v) & (cur >= 0) & (e >= cur)
         slot = torch.where(done, cnt.clamp(max=cap), cap)[:, None]
         sbuf.scatter_(1, slot, torch.where(done, cur, -1)[:, None])
         ebuf.scatter_(1, slot, torch.where(done, e, -1)[:, None])
         cnt += done.to(i64)
         pos = torch.where(done, torch.maximum(e, cur + 1), pos)
         cur = torch.where(done, -1, cur)
-        v = torch.where(done, 0, v)
+        v = pt.cleared(v, done)
     i32 = torch.int32
     return sbuf[:, :cap].to(i32), ebuf[:, :cap].to(i32), cnt.to(i32)
 
@@ -349,17 +384,22 @@ def lazy_spans_plain(
 def greedy_spans_plain(
     data: torch.Tensor,
     lengths: torch.Tensor,
-    tables: ScanTables,
+    tables,
     hits: torch.Tensor,
     cap: int,
+    *,
+    nullable: bool = False,
 ):
-    """Plain version of ``rrx_swar_greedy_spans``, in the round structure
-    of the TPU's ``_swar_greedy_call``: while some record is active and
-    fewer than ``cap`` rounds ran, each active record takes its first
-    candidate start s at or after ``pos`` from the hit words, rescans from
-    s for the longest end e (:func:`anchor_plain`), emits (s, e) if e >= s
-    and moves ``pos`` to max(e, s + 1). Returns (starts [R, cap], ends
-    [R, cap], cnt [R], over [R] bool = still active after cap rounds)."""
+    """Plain version of ``rrx_swar_greedy_spans`` and
+    ``rrx_nfa_greedy_spans``, in the round structure of the TPU's
+    ``_greedy_call_b``: a starts bitmap [R, L + 1] from the hit words (hit
+    step j = start max(j - 1, 0); with ``nullable`` every position <= len
+    as well), then while some record is active and fewer than ``cap``
+    rounds ran, each active record takes its first start s >= pos, rescans
+    from s for the longest end e (:func:`anchor_plain`; with ``nullable``
+    e < s falls back to the empty match e = s), emits (s, e) if e >= s and
+    moves pos to max(e, s + 1). Returns (starts [R, cap], ends [R, cap],
+    cnt [R], over [R] bool = still active after the rounds)."""
     _check_inputs(data, lengths)
     _check_hits(hits, data)
     _check_cap(cap)
@@ -368,7 +408,10 @@ def greedy_spans_plain(
     i64 = torch.int64
     ln = _lengths(data, lengths)
     hb = hit_bits(hits, L + 2)
-    cols = torch.arange(L + 2, dtype=i64, device=dev)[None, :]
+    sbm = torch.cat([hb[:, :1] | hb[:, 1:2], hb[:, 2:]], dim=1)  # [R, L + 1]
+    cols = torch.arange(L + 1, dtype=i64, device=dev)[None, :]
+    if nullable:
+        sbm = sbm | (cols <= ln[:, None])
     pos = torch.zeros(R, dtype=i64, device=dev)
     n = torch.zeros(R, dtype=i64, device=dev)
     active = torch.ones(R, dtype=torch.bool, device=dev)
@@ -377,13 +420,13 @@ def greedy_spans_plain(
     for _ in range(cap):
         if not bool(active.any()):
             break
-        thr = torch.where(pos > 0, pos + 1, 0)  # steps 0 and 1 both start at 0
-        cand = hb & (cols >= thr[:, None])
-        t = cand.to(torch.uint8).argmax(dim=1)  # first set step
-        s0 = (t - 1).clamp(min=0)
-        active = active & cand.any(dim=1) & (s0 <= ln)
-        s = torch.where(active, s0, -1)
+        m = sbm & (cols >= pos[:, None]) & (cols <= ln[:, None]) & active[:, None]
+        has = m.any(dim=1)
+        s = torch.where(has, m.to(torch.uint8).argmax(dim=1), -1)
+        active = active & has
         e = anchor_plain(data, lengths, tables, s, longest=True).to(i64)
+        if nullable:
+            e = torch.where(e < s, s, e)  # the empty match at s
         emit = active & (e >= s)
         slot = torch.where(emit, n, cap)[:, None]
         sbuf.scatter_(1, slot, torch.where(emit, s, -1)[:, None])
@@ -395,22 +438,19 @@ def greedy_spans_plain(
     return sbuf[:, :cap].to(i32), ebuf[:, :cap].to(i32), n.to(i32), active
 
 
-def _launch(entry: str, data: torch.Tensor, lengths: torch.Tensor,
-            tables: ScanTables, *tail) -> None:
+def launch(entry: str, data: torch.Tensor, lengths: torch.Tensor, *args) -> None:
     """Launch ``entry`` on the current stream of ``data``'s card. Every
-    entry point takes the same head (data, stride, L, lengths, R, tab,
-    deltas, n_delta, acc), then ``tail``: ints as they are, tensors (inputs
-    and preallocated outputs on the same card) by pointer. A refused launch
-    raises (``_build.check``)."""
+    entry point takes the same row head (data, stride, L, lengths, R), then
+    ``args``: ints as they are, tensors (tables, inputs and preallocated
+    outputs, contiguous, on the same card) by pointer, then the stream. A
+    refused launch raises (``_build.check``)."""
     from . import _build
 
     _check_inputs(data, lengths)
     dev = data.device
     if dev.type != "cuda":
         raise ValueError(f"{entry} runs on a CUDA tensor, got {dev}")
-    if tables.tab.device != dev or tables.deltas.device != dev:
-        raise ValueError(f"{entry}: tables on {tables.tab.device}, data on {dev}")
-    for x in tail:
+    for x in args:
         if isinstance(x, torch.Tensor) and (x.device != dev or not x.is_contiguous()):
             raise ValueError(f"{entry}: a {tuple(x.shape)} argument on {x.device} "
                              f"(contiguous: {x.is_contiguous()}), data on {dev}")
@@ -422,18 +462,22 @@ def _launch(entry: str, data: torch.Tensor, lengths: torch.Tensor,
         padded[:, :L] = data
         data = padded
     lengths = lengths.to(torch.int32).contiguous()
-    tab = tables.tab.contiguous()
-    deltas = tables.deltas.contiguous()
-    args = [x.data_ptr() if isinstance(x, torch.Tensor) else x for x in tail]
+    ptrs = [x.data_ptr() if isinstance(x, torch.Tensor) else x for x in args]
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, entry)(
-            data.data_ptr(), data.stride(0), L, lengths.data_ptr(), R,
-            tab.data_ptr(), deltas.data_ptr(), int(deltas.numel()), tables.acc,
-            *args, stream,
+            data.data_ptr(), data.stride(0), L, lengths.data_ptr(), R, *ptrs, stream
         )
     _build.check(code, entry)
+
+
+def _launch(entry: str, data: torch.Tensor, lengths: torch.Tensor,
+            tables: ScanTables, *tail) -> None:
+    """:func:`launch` with the (delta, table) head: tab, deltas, n_delta,
+    acc, then ``tail``."""
+    launch(entry, data, lengths, tables.tab, tables.deltas,
+           int(tables.deltas.numel()), tables.acc, *tail)
 
 
 def launch_stats(

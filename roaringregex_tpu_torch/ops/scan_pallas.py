@@ -1,0 +1,437 @@
+"""Matmul tier: state-set scan of dense programs of up to 256 states.
+
+The port of ``roaringregex_tpu/ops/scan_pallas.py``'s byte path
+(``_add_byte_path``): match statistics, reverse start hits, anchored
+rescans, and lazy and greedy spans. Every dense program that the SWAR and
+u32-word specs reject runs here (33..256 states: the dense128 and dense256
+tiers), and so do the SWAR tier's nullable spans and nullable windowed
+scans and the u32-word tier's spans and windowed scans, as in the JAX
+package, whose ``SwarScanner`` and ``WordScanner`` subclass
+``PallasScanner``.
+
+On the TPU one step is ``y = F_bdᵀ·v (+ c0)`` in bf16 on the MXU over G
+records packed into 128 or 256 lanes, ``v = y ∘ mask(byte)``, with a
+boolean renorm once per slab. In set form the same step of one record is
+
+    y = OR of follow[s] over s in v  |  (seed gate ? follow[0] : 0)
+    v = y & mask[sym]
+
+and the reverse (candidate-start) step is
+
+    R = OR of pred[u] over u in (R | acc) & mask[sym];   hit = 0 in R
+
+with ``sym`` a byte (0..255), 256 = BOS, 257 = EOS, 258 = a dead step past
+EOS. :func:`nfa_tables` builds one record tile's rows as u32 bit words
+(``W = ceil(s_tile / 32)`` <= 8 words per row) from ``prog.F``,
+``prog.Bc_words`` and ``prog.byte_class``; the CUDA kernels
+(``csrc/scan_nfa.cu``) keep a record's state set in registers and the rows
+in shared memory, one thread per record. The TPU's packing (G records per
+lane block, the block-diagonal ``F_bd``, ``cls_spec``'s mask-by-matmul,
+the banded ``dks`` form, the bf16 counts) is a layout of this same
+function and has no counterpart here: the parity boundary is the scanner
+methods' outputs.
+
+The plain PyTorch versions hold a state set as a [R, s_tile] bool plane
+and step it with a 0/1 float32 product (exact: every sum is at most 256),
+so they need no uint32 arithmetic; the table words are unpacked through
+int64 masked to 32 bits. The match-statistics version is here; the span
+path's (reverse, anchored rescan, lazy and greedy spans) are
+``scan_bits``'s, which run on this tier's stepper (``NfaTables.plain``).
+Not ported: K-chaining (``chain_target``, off by default) and the
+multi-pattern span channels (``lazy_spans_mb``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..compiler.program import DeviceProgram
+from . import scan_bits as sb
+
+N_SYMS = sb.N_SYMS
+MAX_S_TILE = 256  # 8 state words per record in registers
+
+
+class NfaTables(NamedTuple):
+    """Device copy of one record tile's rows: [(2 S + N_SYMS + 1) * W]
+    int32 (uint32 bit patterns): follow [S][W], pred [S][W], mask
+    [N_SYMS][W], acc [W]."""
+
+    tab: torch.Tensor
+    s_tile: int
+
+    def plain(self, dev) -> "_Plain":
+        """The stepper of the plain versions on ``dev``."""
+        return _Plain.of(self, dev)
+
+
+def _words(s_tile: int) -> int:
+    return -(-s_tile // 32)
+
+
+def _pack_rows(bits: np.ndarray, W: int) -> np.ndarray:
+    """[n, S] 0/1 -> [n, W] uint32, bit s of row i in word s // 32."""
+    n, S = bits.shape
+    out = np.zeros((n, W), np.uint64)
+    for s in range(S):
+        out[:, s // 32] |= bits[:, s].astype(np.uint64) << np.uint64(s % 32)
+    return out.astype(np.uint32)
+
+
+def nfa_tables(prog: DeviceProgram) -> np.ndarray:
+    """[2 S + N_SYMS + 1, W] uint32 rows of one record tile (S = s_tile):
+    follow[s] (the states that follow s), pred[u] (the states that u
+    follows: the transpose, for the reverse pass), mask[sym] for the 259
+    symbols (bytes >= 0x80, whose class is dead, and the dead step have
+    zero rows; BOS and EOS are rows of their own, never bytes), then the
+    accept word(s). The initial state is bit 0."""
+    S = prog.s_tile
+    if prog.F is None or not 1 <= S <= MAX_S_TILE:
+        raise ValueError(f"{prog.pattern!r}: s_tile {S} ({prog.tier}) has no matmul-tier tables")
+    W = _words(S)
+    F = np.asarray(prog.F[:S, :S]) != 0
+    Bw = np.asarray(prog.Bc_words, np.uint32)  # [c_pad, W]
+    mask = np.zeros((N_SYMS, W), np.uint32)
+    mask[:256] = Bw[np.asarray(prog.byte_class)]
+    mask[0x80:256] = 0
+    mask[sb.SYM_BOS] = Bw[prog.bos_class]
+    mask[sb.SYM_EOS] = Bw[prog.eos_class]
+    acc = _pack_rows((np.asarray(prog.accept)[:S] != 0)[None, :], W)
+    return np.concatenate([_pack_rows(F, W), _pack_rows(F.T, W), mask, acc])
+
+
+def device_nfa_tables(prog: DeviceProgram, device) -> NfaTables:
+    tab = nfa_tables(prog)
+    return NfaTables(torch.from_numpy(tab.reshape(-1).view(np.int32).copy()).to(device),
+                     prog.s_tile)
+
+
+def counting_plan(prog: DeviceProgram):
+    """The JAX package's run-length plan of ``X{m,n}`` with a fixed-length
+    body (``roaringregex_tpu/ops/scan_pallas.py`` ``counting_plan``,
+    unchanged, on the port's parser): ``(m, n_or_0, branches)``, or None
+    for another shape. The engine reads it only to route as the JAX
+    engine does: such programs of one record per row go to the counting
+    tier, which is not ported yet."""
+    from ..compiler.parser import BOS, EOS, Alt, Concat, Lit, Repeat, parse
+
+    try:
+        node = parse(prog.pattern)
+    except Exception:
+        return None
+    while isinstance(node, Concat) and len(node.parts) == 1:
+        node = node.parts[0]
+    if not isinstance(node, Repeat):
+        return None
+    child = node.child
+    while isinstance(child, Concat) and len(child.parts) == 1:
+        child = child.parts[0]
+    alts = list(child.parts) if isinstance(child, Alt) else [child]
+    if not 1 <= len(alts) <= 4:
+        return None
+
+    def branch_body(b):
+        while isinstance(b, Concat) and len(b.parts) == 1:
+            b = b.parts[0]
+        parts = list(b.parts) if isinstance(b, Concat) else [b]
+        if not 1 <= len(parts) <= 8:
+            return None
+        body = []
+        for p in parts:
+            while isinstance(p, Concat) and len(p.parts) == 1:
+                p = p.parts[0]
+            if not isinstance(p, Lit):
+                return None
+            syms = p.syms
+            if BOS in syms or EOS in syms:
+                return None
+            bs = sorted(syms)
+            runs = []
+            lo = prev = bs[0]
+            for b2 in bs[1:]:
+                if b2 == prev + 1:
+                    prev = b2
+                else:
+                    runs.append((lo, prev))
+                    lo = prev = b2
+            runs.append((lo, prev))
+            body.append(tuple(runs))
+        return tuple(body)
+
+    branches = []
+    for a in alts:
+        bb = branch_body(a)
+        if bb is None:
+            return None
+        branches.append(bb)
+    k = len(branches[0])
+    if any(len(b) != k for b in branches[1:]):
+        return None  # unequal branch lengths: stride-k chain breaks
+    branches = tuple(dict.fromkeys(branches))  # dedup identical branches
+    if k == 1:
+        # single-position branches are one merged class (OR of runs)
+        branches = (tuple(r for b in branches for r in b[0]),)
+        branches = ((branches[0],),)
+    n = 0 if node.hi is None else int(node.hi)
+    return int(node.lo), n, branches
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+class _Plain(NamedTuple):
+    """One tile's rows as 0/1 planes: F [S, S] float32 (F[s, u] = u
+    follows s), P [S, S] float32 (P[u, s] = u follows s), f0 [S] bool
+    (follow[0]), M [N_SYMS, S] bool, acc [S] bool."""
+
+    F: torch.Tensor
+    P: torch.Tensor
+    f0: torch.Tensor
+    M: torch.Tensor
+    acc: torch.Tensor
+
+    @classmethod
+    def of(cls, tables: NfaTables, dev) -> "_Plain":
+        S, W = tables.s_tile, _words(tables.s_tile)
+        words = (tables.tab.to(dev).to(torch.int64) & sb.MASK32).reshape(-1, W)
+        sh = torch.arange(32, dtype=torch.int64, device=dev)
+        bits = ((words[:, :, None] >> sh) & 1).reshape(words.shape[0], 32 * W)[:, :S] != 0
+        F, P = bits[:S], bits[S : 2 * S]
+        return cls(F.to(torch.float32), P.to(torch.float32), F[0],
+                   bits[2 * S : 2 * S + N_SYMS], bits[2 * S + N_SYMS])
+
+    def empty(self, R: int, dev) -> torch.Tensor:
+        return torch.zeros((R, self.F.shape[0]), dtype=torch.bool, device=dev)
+
+    def step(self, v: torch.Tensor, gate: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
+        """v' = (OR of follow[s] over s in v | gate · follow[0]) & mask[sym]."""
+        y = (v.to(torch.float32) @ self.F) > 0
+        return (y | (gate[:, None] & self.f0)) & self.M[sym]
+
+    def accepts(self, v: torch.Tensor) -> torch.Tensor:
+        return (v & self.acc).any(dim=1)
+
+    def cleared(self, v: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
+        return v & ~done[:, None]
+
+    def rev(self, r: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
+        """R' = OR of pred[u] over u in (R | acc) & mask[sym]."""
+        m = (r | self.acc) & self.M[sym]
+        return (m.to(torch.float32) @ self.P) > 0
+
+    def start(self, r: torch.Tensor) -> torch.Tensor:
+        """[R] bool: the initial state is in R."""
+        return r[:, 0]
+
+
+def stats_plain(data, lengths, tables: NfaTables, *, seeded: bool, lead: int,
+                nullable: bool):
+    """Plain version of ``rrx_nfa_stats``, in the order of the TPU's
+    ``_match_kernel_b``: a loop over the L + 2 stream steps, vectorised over
+    records. Returns (cnt, first, last, full) [R].
+
+    Per step: the seed gate is every step when seeded, steps t < n_seed = 2
+    when not; an accept flag counts only past ``lead``; its end is e =
+    min(t, len); cnt counts flags whose e differs from the last one (the
+    `$` step's duplicate of e == len), except for a nullable seeded scan
+    whose cnt is len + 1 from the start; first keeps the first e, last the
+    latest, full is a flag at t >= len. Nullable starts: first = 0, and
+    (seeded) cnt = len + 1, last = len or (unseeded) cnt = 1, last = 0;
+    full starts as len == 0."""
+    sb._check_inputs(data, lengths)
+    R, L = data.shape
+    dev = data.device
+    i64 = torch.int64
+    ln = sb._lengths(data, lengths)
+    pt = _Plain.of(tables, dev)
+    lead = lead if lead > 0 else -1
+    v = pt.empty(R, dev)
+    if nullable:
+        cnt = ln + 1 if seeded else torch.ones_like(ln)
+        last = ln.clone() if seeded else torch.zeros_like(ln)
+        first = torch.zeros_like(ln)
+        full = ln == 0
+    else:
+        cnt = torch.zeros_like(ln)
+        first = torch.full_like(ln, -1)
+        last = torch.full_like(ln, -1)
+        full = torch.zeros_like(ln, dtype=torch.bool)
+    for t in range(L + 2):
+        gate = torch.full((R,), seeded or t < 2, dtype=torch.bool, device=dev)
+        v = pt.step(v, gate, sb._sym(data, ln, t))
+        fl = pt.accepts(v) & (t > lead)
+        e = ln.clamp(max=t)
+        if not (nullable and seeded):
+            cnt += (fl & (e != last)).to(i64)
+        first = torch.where(fl & (first < 0), e, first)
+        last = torch.where(fl, e, last)
+        full = full | (fl & (t >= ln))
+    i32 = torch.int32
+    return cnt.to(i32), first.to(i32), last.to(i32), full
+
+
+# ---------------------------------------------------------------------------
+# Counted wrappers: a CUDA tensor goes to the kernel, a CPU tensor to the
+# plain version
+# ---------------------------------------------------------------------------
+
+
+def _launch(entry: str, data, lengths, tables: NfaTables, *tail) -> None:
+    sb.launch(entry, data, lengths, tables.tab, int(tables.s_tile), *tail)
+
+
+def nfa_stats(data, lengths, tables: NfaTables, *, seeded: bool, lead: int = 0,
+              nullable: bool = False):
+    """(cnt, first, last, full) [R] (``rrx_nfa_stats``, counted in
+    ``nfa_stats.launches``, on a CUDA tensor; :func:`stats_plain` on a CPU
+    tensor)."""
+    if data.device.type == "cpu":
+        return stats_plain(data, lengths, tables, seeded=seeded, lead=lead, nullable=nullable)
+    R, dev = data.shape[0], data.device
+    outs = [torch.empty(R, dtype=torch.int32, device=dev) for _ in range(3)]
+    full = torch.empty(R, dtype=torch.uint8, device=dev)
+    _launch("rrx_nfa_stats", data, lengths, tables, int(seeded),
+            int(lead if lead > 0 else -1), int(nullable), *outs, full)
+    nfa_stats.launches += 1
+    return (*outs, full.view(torch.bool))
+
+
+def nfa_reverse(data, lengths, tables: NfaTables):
+    """Hit words [W, R] int32 (``rrx_nfa_reverse`` on a CUDA tensor,
+    ``scan_bits.reverse_plain`` on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return sb.reverse_plain(data, lengths, tables)
+    R, L = data.shape
+    hits = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
+    _launch("rrx_nfa_reverse", data, lengths, tables, hits)
+    nfa_reverse.launches += 1
+    return hits
+
+
+def nfa_anchor_end(data, lengths, tables: NfaTables, starts, *, longest: bool):
+    """End [R] int32 of the anchored rescan from ``starts`` (-1 = inactive)
+    (``rrx_nfa_anchor_end`` on a CUDA tensor, ``scan_bits.anchor_plain``
+    on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return sb.anchor_plain(data, lengths, tables, starts, longest=longest)
+    sb._check_rows("starts", starts, data, (torch.int32, torch.int64))
+    end = torch.empty(data.shape[0], dtype=torch.int32, device=data.device)
+    _launch("rrx_nfa_anchor_end", data, lengths, tables,
+            starts.to(torch.int32).contiguous(), int(longest), end)
+    nfa_anchor_end.launches += 1
+    return end
+
+
+def nfa_lazy_spans(data, lengths, tables: NfaTables, hits, cap: int):
+    """(starts [R, cap], ends [R, cap], cnt [R]) (``rrx_nfa_lazy_spans``
+    on a CUDA tensor, ``scan_bits.lazy_spans_plain`` on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return sb.lazy_spans_plain(data, lengths, tables, hits, cap)
+    sb._check_hits(hits, data)
+    sb._check_cap(cap)
+    starts, ends, cnt = sb._span_buffers(data.shape[0], cap, data.device)
+    _launch("rrx_nfa_lazy_spans", data, lengths, tables, hits.contiguous(), int(cap),
+            starts, ends, cnt)
+    nfa_lazy_spans.launches += 1
+    return starts, ends, cnt
+
+
+def nfa_greedy_spans(data, lengths, tables: NfaTables, hits, cap: int, *, nullable: bool):
+    """(starts [R, cap], ends [R, cap], cnt [R], over [R] bool)
+    (``rrx_nfa_greedy_spans`` on a CUDA tensor,
+    ``scan_bits.greedy_spans_plain`` on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return sb.greedy_spans_plain(data, lengths, tables, hits, cap, nullable=nullable)
+    sb._check_hits(hits, data)
+    sb._check_cap(cap)
+    R = data.shape[0]
+    starts, ends, cnt = sb._span_buffers(R, cap, data.device)
+    over = torch.empty(R, dtype=torch.uint8, device=data.device)
+    _launch("rrx_nfa_greedy_spans", data, lengths, tables, hits.contiguous(), int(cap),
+            int(nullable), starts, ends, cnt, over)
+    nfa_greedy_spans.launches += 1
+    return starts, ends, cnt, over.view(torch.bool)
+
+
+for _w in (nfa_stats, nfa_reverse, nfa_anchor_end, nfa_lazy_spans, nfa_greedy_spans):
+    _w.launches = 0
+
+
+class PallasScanner:
+    """Match statistics, reverse hits, anchored rescans, and lazy and
+    greedy spans of a dense program of up to 256 states on ``device``,
+    run by the CUDA kernels of ``csrc/scan_nfa.cu`` (one thread per
+    record) on a CUDA device and by their plain PyTorch versions on the
+    CPU. Named after the JAX package's scanner of the same methods and
+    outputs; ``SwarScanner`` and ``WordScanner`` subclass it as there.
+
+    Every method takes ``data`` [B, L] uint8 and ``len_g`` [B_rows, G]
+    (G is only the JAX package's packing: records are rows of ``data`` in
+    ``len_g``'s row-major order)."""
+
+    def __init__(self, prog: DeviceProgram, device):
+        self.prog = prog
+        self.device = torch.device(device)
+        self.nullable = prog.nullable
+        self.nfa = device_nfa_tables(prog, self.device)
+
+    def _batch(self, data, len_g):
+        data = torch.as_tensor(data, device=self.device)
+        len_g = torch.as_tensor(len_g, device=self.device)
+        return data, len_g, len_g.reshape(-1).to(torch.int32)
+
+    def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0):
+        """(cnt, first, last, full, any), each shaped like ``len_g``.
+        ``lead`` > 0: records are overlapped windows whose first ``lead``
+        steps only warm the state up (no flag counts there)."""
+        data, len_g, lengths = self._batch(data, len_g)
+        cnt, first, last, full = nfa_stats(
+            data, lengths, self.nfa, seeded=seeded, lead=lead, nullable=self.nullable
+        )
+        sl = lambda x: x.reshape(len_g.shape)  # noqa: E731
+        cnt = sl(cnt)
+        return cnt, sl(first), sl(last), sl(full), cnt > 0
+
+    def reverse_hits_b(self, data, len_g):
+        """[B, L + 2] bool candidate-start hits: step t set = a match can
+        start at max(t - 1, 0)."""
+        data, _, lengths = self._batch(data, len_g)
+        return sb.hit_bits(nfa_reverse(data, lengths, self.nfa), data.shape[1] + 2)
+
+    def anchor_end_b(self, data, len_g, starts_g, *, longest: bool):
+        """Anchored-rescan end per record, shaped like ``len_g``: the first
+        end from ``starts_g`` (-1 = inactive), or the last with
+        ``longest``; -1 when none."""
+        data, len_g, lengths = self._batch(data, len_g)
+        starts = torch.as_tensor(starts_g, device=self.device).reshape(-1).to(torch.int32)
+        end = nfa_anchor_end(data, lengths, self.nfa, starts, longest=longest)
+        return end.reshape(len_g.shape)
+
+    def lazy_spans_b(self, data, len_g, *, cap: int):
+        """(starts [B, cap], ends [B, cap], cnt [B]): lazy (leftmost-
+        shortest) spans, -1 past the count; cnt counts past cap. Refused
+        for a nullable program, as in the JAX package: its lazy spans are
+        the empty match at every position, which the API answers without
+        a scan."""
+        if self.nullable:
+            raise ValueError(
+                f"lazy spans of the nullable program {self.prog.pattern!r} are the empty "
+                "match at every position (Pattern.finditer_batch answers them without a scan)"
+            )
+        data, _, lengths = self._batch(data, len_g)
+        hits = nfa_reverse(data, lengths, self.nfa)
+        return nfa_lazy_spans(data, lengths, self.nfa, hits, cap)
+
+    def greedy_spans_b(self, data, len_g, *, cap: int):
+        """(starts [B, cap], ends [B, cap], cnt [B], over [B] bool): greedy
+        (leftmost-longest, POSIX) spans; ``over`` = more spans than cap. A
+        nullable program falls back to the empty match where no longer one
+        starts."""
+        data, _, lengths = self._batch(data, len_g)
+        hits = nfa_reverse(data, lengths, self.nfa)
+        return nfa_greedy_spans(data, lengths, self.nfa, hits, cap, nullable=self.nullable)
+

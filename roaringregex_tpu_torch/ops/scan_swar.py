@@ -24,8 +24,10 @@ words), ``rrx_swar_anchor_end`` (an anchored rescan reduced to its first
 or last end), ``rrx_swar_lazy_spans`` (one pass of claim/anchor/emit that
 writes the span buffers directly) and ``rrx_swar_greedy_spans`` (the
 TPU's while_loop of longest-end rescan rounds, as a loop in each record's
-thread). The JAX package sends nullable programs' lazy and greedy spans to
-the matmul tier, which is not ported: here they raise.
+thread). ``SwarScanner`` subclasses the matmul tier's ``PallasScanner``
+as in the JAX package, and sends it what the JAX package sends it:
+nullable programs' lazy and greedy spans and nullable windowed (``lead``)
+scans.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 
 from ..compiler.program import DeviceProgram
 from . import scan_bits as sb
+from .scan_pallas import PallasScanner
 
 RECS = 32  # records per kernel column of the TPU layout (window rule)
 BIG = sb.BIG
@@ -204,19 +207,19 @@ swar_anchor_end.launches = 0
 swar_greedy_spans.launches = 0
 
 
-class SwarScanner:
+class SwarScanner(PallasScanner):
     """Forward match statistics and spans of an 8-state program on
-    ``device``. Constructed by the engine when ``swar_spec(prog)``
-    qualifies."""
+    ``device``, on the SWAR kernels; what they do not cover runs on the
+    inherited matmul-tier methods. Constructed by the engine when
+    ``swar_spec(prog)`` qualifies."""
 
     def __init__(self, prog: DeviceProgram, device):
-        self.prog = prog
-        self.device = torch.device(device)
-        self.sspec = swar_spec(prog)
-        if self.sspec is None:
+        sspec = swar_spec(prog)
+        if sspec is None:
             raise ValueError(f"{prog.pattern!r} does not fit the SWAR tier")
-        self.nullable = prog.nullable
-        self.tables = sb.device_tables(*swar_tables(self.sspec), self.device)
+        super().__init__(prog, device)
+        self.sspec = sspec
+        self.tables = sb.device_tables(*swar_tables(sspec), self.device)
 
     def _swar_window(self, L: int, B: int, seeded: bool):
         """(k, w, h) split of long records into k overlapped windows, or
@@ -248,10 +251,8 @@ class SwarScanner:
     def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0):
         """(cnt, first, last, full, any), each shaped like ``len_g``."""
         if lead and self.nullable:
-            raise NotImplementedError(
-                "windowed (lead > 0) scans of nullable programs run on the "
-                "matmul tier, which is not ported yet (see ROADMAP.md)"
-            )
+            # the windowed nullable count corrections live on the matmul path
+            return super().match_stats_b(data, len_g, seeded=seeded, lead=lead)
         data, len_g, lengths = self._batch(data, len_g)
         B, L = lengths.numel(), data.shape[1]
         win = self._swar_window(L, B, seeded) if not lead else None
@@ -266,19 +267,6 @@ class SwarScanner:
         cnt = sl(cnt)
         return cnt, sl(first), sl(last), sl(full), cnt > 0
 
-    def _batch(self, data, len_g):
-        data = torch.as_tensor(data, device=self.device)
-        len_g = torch.as_tensor(len_g, device=self.device)
-        return data, len_g, len_g.reshape(-1).to(torch.int32)
-
-    def _no_nullable_spans(self, what: str) -> None:
-        if self.nullable:
-            raise NotImplementedError(
-                f"{what} of the nullable program {self.prog.pattern!r}: the JAX "
-                "package runs them on the matmul tier's span kernels, which are "
-                "not ported yet (see ROADMAP.md)"
-            )
-
     def reverse_hits_b(self, data, len_g):
         """[B, L + 2] bool candidate-start hits: step t set = a match can
         start at max(t - 1, 0)."""
@@ -289,7 +277,8 @@ class SwarScanner:
     def lazy_spans_b(self, data, len_g, *, cap: int):
         """(starts [B, cap], ends [B, cap], cnt [B]): lazy (leftmost-
         shortest) spans, -1 past the count; cnt counts past cap."""
-        self._no_nullable_spans("lazy spans")
+        if self.nullable:
+            return super().lazy_spans_b(data, len_g, cap=cap)
         data, _, lengths = self._batch(data, len_g)
         hits = swar_reverse(data, lengths, self.tables)
         return swar_lazy_spans(data, lengths, self.tables, hits, cap)
@@ -306,7 +295,8 @@ class SwarScanner:
     def greedy_spans_b(self, data, len_g, *, cap: int):
         """(starts [B, cap], ends [B, cap], cnt [B], over [B] bool): greedy
         (leftmost-longest, POSIX) spans; ``over`` = more spans than cap."""
-        self._no_nullable_spans("greedy spans")
+        if self.nullable:
+            return super().greedy_spans_b(data, len_g, cap=cap)
         data, _, lengths = self._batch(data, len_g)
         hits = swar_reverse(data, lengths, self.tables)
         return swar_greedy_spans(data, lengths, self.tables, hits, cap)

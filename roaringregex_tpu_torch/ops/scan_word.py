@@ -7,17 +7,19 @@ bit-log is reduced in XLA (``_word_stats``). The spec is the JAX
 package's, unchanged; the scan is the CUDA kernel ``rrx_word_stats``
 (``csrc/scan_bits.cu``), the same body as the SWAR tier's on 32-bit state
 sets. One accept channel: the multi-pattern channels of ``MultiPattern``
-are not ported yet.
+are not ported yet. As in the JAX package, ``WordScanner`` subclasses the
+matmul tier's ``PallasScanner``: windowed (``lead``) scans, reverse hits,
+anchored rescans and spans run on its methods.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..compiler.program import DeviceProgram
 from . import scan_bits as sb
+from .scan_pallas import PallasScanner
 from .scan_swar import _merge_runs
 
 MAX_DG_OPS = 64  # (delta, gate) pairs past this: the matmul tier wins
@@ -116,30 +118,25 @@ def word_stats(data, lengths, tables: sb.ScanTables, *, seeded: bool,
 word_stats.launches = 0
 
 
-class WordScanner:
+class WordScanner(PallasScanner):
     """Forward match statistics of a program of up to 32 states on
-    ``device``. Constructed by the engine when ``word_spec(prog)``
-    qualifies and the 8-state SWAR tier does not."""
+    ``device`` on the u32-word kernel; every other method is the matmul
+    tier's. Constructed by the engine when ``word_spec(prog)`` qualifies
+    and the 8-state SWAR tier does not."""
 
     def __init__(self, prog: DeviceProgram, device):
-        self.prog = prog
-        self.device = torch.device(device)
-        self.wspec = word_spec(prog)
-        if self.wspec is None:
+        wspec = word_spec(prog)
+        if wspec is None:
             raise ValueError(f"{prog.pattern!r} does not fit the u32-word tier")
-        self.nullable = prog.nullable
-        self.tables = sb.device_tables(*word_tables(self.wspec), self.device)
+        super().__init__(prog, device)
+        self.wspec = wspec
+        self.tables = sb.device_tables(*word_tables(wspec), self.device)
 
     def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0):
         """(cnt, first, last, full, any), each shaped like ``len_g``."""
-        if lead:
-            raise NotImplementedError(
-                "windowed (lead > 0) scans of the u32-word tier run on the "
-                "matmul tier, which is not ported yet (see ROADMAP.md)"
-            )
-        data = torch.as_tensor(data, device=self.device)
-        len_g = torch.as_tensor(len_g, device=self.device)
-        lengths = len_g.reshape(-1).to(torch.int32)
+        if lead:  # windowed scans run on the matmul tier, as in the JAX package
+            return super().match_stats_b(data, len_g, seeded=seeded, lead=lead)
+        data, len_g, lengths = self._batch(data, len_g)
         cnt, first, last, full = word_stats(
             data, lengths, self.tables, seeded=seeded, nullable=self.nullable
         )

@@ -16,8 +16,15 @@ def _env_int(name: str, default: int) -> int:
 class RrxConfig:
     # largest state count with fully dense tables (tier cut-off)
     dense_max: int = field(default_factory=lambda: _env_int("RRX_DENSE_MAX", 1024))
-    # SWAR / u32-word bit-set scan tiers on/off (RRX_SWAR=0: off; the port
-    # has no matmul tier yet, so such programs raise NotImplementedError)
+    # windowed batch scan on the matmul tier: split long records into
+    # overlapped windows until the batch is ~this many rows wide (exact for
+    # bounded-horizon anchor-free non-nullable patterns; engine
+    # _window_plan). 0 (default) = off, as in the JAX package
+    window_cols: int = field(
+        default_factory=lambda: _env_int("RRX_WINDOW_COLS", 0)
+    )
+    # SWAR / u32-word bit-set scan tiers on/off (RRX_SWAR=0: off, and their
+    # programs run on the matmul tier, as in the JAX package)
     swar: bool = field(
         default_factory=lambda: os.environ.get("RRX_SWAR", "1") != "0"
     )

@@ -1,0 +1,169 @@
+"""The port's engine and ``Pattern`` on the matmul tier (CPU, plain PyTorch
+versions) against the JAX package (Pallas interpret mode): the scanner the
+engine picks for each pattern, the programs it refuses, the ``Pattern``
+entry points on 33..256-state programs, and the engine-level window plan."""
+import functools
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import roaringregex_tpu as jax_rrx
+import roaringregex_tpu_torch as rrx
+from roaringregex_tpu.compiler.program import compile_program as jax_compile
+from roaringregex_tpu.engine import ScanEngine as JaxEngine
+from roaringregex_tpu.utils import config as jax_config
+from roaringregex_tpu_torch.utils import config as port_config
+from test_torch_pallas import HTTP, K7, K16, K30, NAMES, PATTERNS
+
+torch.set_num_threads(1)
+
+# the scanner each package's engine picks: the SWAR and u32-word tiers, the
+# matmul tier (and, for the last ones, tiers the port raises on)
+ROUTED = [p for p, _ in PATTERNS] + [
+    "cat|dog", "(ab)*c+d?", "^[a-z]{3,8}[.]log$", "(cat|dog|bird)+",
+]
+REFUSED = [
+    ("a{1,120}", "dense128, 121 states.*counting tier"),
+    ("(ab){2,60}", "dense128, 121 states.*counting tier"),
+    ("a{1,300}", "multiblock, 301 states"),
+    ("x(ab|c){400,520}y", "sparse, 1563 states"),
+]
+WORDS = [b"error", b"warning", b"critical", b"fatal", b"exception", b"timeout", b"refused",
+         b"oom", b"leak", b"deadlock", b"unauthorized"]
+
+
+def _texts(seed: int, n: int = 40, maxlen: int = 40):
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcdeiklmnorstuwx ", np.uint8)
+    out = [b"", b"error", b"timeout", b"GET /a HTTP/1.0", b"PUT /x.y HTTP/1.1", b"oomleak",
+           b"errorerror", b"warning: disk timeout", b"HEAD / HTTP/2.0"]
+    while len(out) < n:
+        t = bytearray(rng.choice(alphabet, size=int(rng.integers(0, maxlen))).tobytes())
+        for _ in range(int(rng.integers(0, 3))):
+            w = WORDS[int(rng.integers(len(WORDS)))]
+            at = int(rng.integers(0, len(t) + 1))
+            t[at:at] = w
+        out.append(bytes(t))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _both(pattern):
+    return rrx.compile(pattern, "cpu"), jax_rrx.compile(pattern, backend="pallas")
+
+
+@pytest.mark.parametrize("pattern", ROUTED, ids=lambda p: NAMES.get(p, p))
+def test_routing_identity(pattern):
+    port = rrx.compile(pattern, "cpu").engine.device_scanner
+    ref = JaxEngine(jax_compile(pattern), backend="pallas").device_scanner
+    assert type(port).__name__ == type(ref).__name__
+
+
+@pytest.mark.parametrize("pattern,why", REFUSED)
+def test_refused_tiers_raise(pattern, why):
+    ref = JaxEngine(jax_compile(pattern), backend="pallas").device_scanner
+    assert type(ref).__name__ in ("CountScanner", "BitbandScanner", "SparseScanner")
+    with pytest.raises(NotImplementedError, match=why + ".*ROADMAP"):
+        rrx.compile(pattern, "cpu")
+
+
+@pytest.mark.parametrize("pattern", [K7, K30], ids=["K7", "K30"])
+def test_pattern_entry_points_match_jax(pattern):
+    port, ref = _both(pattern)
+    assert type(port.engine.device_scanner).__name__ == "PallasScanner"
+    texts = _texts(len(pattern))
+    for name in ("count_batch", "search_batch", "fullmatch_batch"):
+        np.testing.assert_array_equal(getattr(port, name)(texts),
+                                      np.asarray(getattr(ref, name)(texts)), err_msg=name)
+    assert port.grep(texts) == ref.grep(texts)
+    rx = re.compile(pattern.encode())
+    for longest in (False, True):
+        got = port.finditer_batch(texts, longest=longest)
+        assert got == ref.finditer_batch(texts, longest=longest)
+        # no keyword is a prefix of another: re's spans are both policies'
+        assert got == [[m.span() for m in rx.finditer(t)] for t in texts]
+    singles = (b"xxerror", b"timeout", b"no match") if pattern == K7 else ()
+    for t in singles:
+        for fn in ("search", "match", "fullmatch"):
+            a, b = getattr(port, fn)(t), getattr(ref, fn)(t)
+            assert (a is None) == (b is None), (fn, t)
+            assert a is None or (a.span(), a.group()) == (b.span(), b.group()), (fn, t)
+
+
+def test_anchored_pattern_matches_jax():
+    port, ref = _both(HTTP)
+    texts = _texts(3)
+    for name in ("count_batch", "search_batch", "fullmatch_batch"):
+        np.testing.assert_array_equal(getattr(port, name)(texts),
+                                      np.asarray(getattr(ref, name)(texts)), err_msg=name)
+    rx = re.compile(HTTP.encode())
+    assert port.search_batch(texts).tolist() == [rx.search(t) is not None for t in texts]
+    for t in (b"GET /a HTTP/1.0", b"GET /a HTTP/1.0x", b"GET /A HTTP/1.0"):
+        a, b = port.match(t), ref.match(t)
+        assert (a is None) == (b is None) and (a is None or a.span() == b.span()), t
+
+
+def test_nullable_greedy_spans_match_jax():
+    port, ref = _both(K7 + "*")
+    texts = _texts(4, n=16)
+    assert port.finditer_batch(texts, longest=True) == ref.finditer_batch(texts, longest=True)
+    assert port.finditer_batch(texts) == ref.finditer_batch(texts)
+
+
+@pytest.fixture()
+def window_cfg():
+    """Engine-level windows on (window_cols=2048) and the SWAR tiers off,
+    in both packages, as tests/test_windowed.py sets the JAX package."""
+    old_j, old_p = jax_config.get_config(), port_config.get_config()
+    jax_config.set_config(old_j.with_(window_cols=2048, swar=False))
+    port_config.set_config(old_p.with_(window_cols=2048, swar=False))
+    yield
+    jax_config.set_config(old_j)
+    port_config.set_config(old_p)
+
+
+WINDOW_CASES = [
+    ("cat|dog", 300, 32), ("cat|dog", 1000, 16), ("a[bc]d", 1000, 64), ("[a-z]x{2,5}", 300, 8),
+    (K7, 1000, 4), (K16, 2000, 2), ("(a|b)*c", 1000, 16), ("^ab", 1000, 16), ("a*", 1000, 16),
+    ("cat|dog", 200, 16), ("cat|dog", 4000, 4096),
+]
+
+
+@pytest.mark.parametrize("pattern,L,B", WINDOW_CASES,
+                         ids=[f"{NAMES.get(p, p)}-{L}-{B}" for p, L, B in WINDOW_CASES])
+def test_window_plan_matches_jax(window_cfg, pattern, L, B):
+    port = rrx.compile(pattern, "cpu").engine
+    ref = JaxEngine(jax_compile(pattern), backend="pallas")
+    assert type(port.device_scanner).__name__ == type(ref.device_scanner).__name__
+    assert port._window_plan(L, B, True) == ref._window_plan(L, B, True)
+    assert port._window_plan(L, B, False) is None
+
+
+@pytest.mark.parametrize("pattern,plant", [("cat|dog", b"dog"), (K7, b"timeout")],
+                         ids=["cat|dog", "K7"])
+def test_windowed_stats_match_jax(window_cfg, pattern, plant):
+    port = rrx.compile(pattern, "cpu").engine
+    ref = JaxEngine(jax_compile(pattern), backend="pallas")
+    G = port.prog.G
+    rng = np.random.default_rng(5)
+    B, L = 2 * G, 600
+    data = rng.integers(97, 123, size=(B, L), dtype=np.uint8)
+    w = np.frombuffer(plant, np.uint8)
+    for b in range(B):
+        for pos in (0, 127, 128, 150, 299, 300, L - len(w)):
+            if rng.random() < 0.5:
+                data[b, pos : pos + len(w)] = w
+    lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
+    lengths[0], lengths[1] = L, 0
+    plan = port._window_plan(L, B, True)
+    assert plan is not None and plan[0] >= 2
+    got = port.match_stats(data, lengths, seeded=True)
+    want = ref.match_stats(data, lengths, seeded=True)
+    for x, y, name in zip(got, want, ("cnt", "first", "any")):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y), err_msg=name)
+    port_config.set_config(port_config.get_config().with_(window_cols=0))
+    flat = port.match_stats(data, lengths, seeded=True)
+    for x, y in zip(got, flat):
+        assert torch.equal(x, y)

@@ -1,7 +1,8 @@
 """The port's span entry points (CPU, plain PyTorch versions) against the
 JAX package's Pattern (Pallas interpret mode): finditer_batch lazy and
-greedy, finditer, findall, search and match, on the SWAR-tier patterns and
-texts of tests/test_device_spans.py."""
+greedy, finditer, findall, search and match, on the patterns and texts of
+tests/test_device_spans.py (SWAR tier, and the u32-word tier, whose spans
+run on the matmul tier in both packages)."""
 import functools
 
 import numpy as np
@@ -10,33 +11,30 @@ import torch
 
 import roaringregex_tpu as jax_rrx
 import roaringregex_tpu_torch as rrx
-from roaringregex_tpu_torch.ops.scan_swar import SwarScanner
 from test_device_spans import PATTERNS, _texts
 
 torch.set_num_threads(1)
 
 WORD_TIER = "(ab|cd)+e{2,3}f"
-SWAR_PATTERNS = [p for p in PATTERNS if p != WORD_TIER]
 SINGLE_TEXTS = [b"", b"xxcatdog", b"aab"]
 
 
 @functools.lru_cache(maxsize=None)
 def _both(pattern):
     port = rrx.compile(pattern, "cpu")
-    assert isinstance(port.engine.device_scanner, SwarScanner), pattern
-    return port, jax_rrx.compile(pattern, backend="pallas")
+    ref = jax_rrx.compile(pattern, backend="pallas")
+    name = type(ref.engine.device_scanner).__name__
+    assert type(port.engine.device_scanner).__name__ == name, pattern
+    return port, ref
 
 
 @pytest.mark.parametrize("longest", [False, True])
-@pytest.mark.parametrize("pattern", SWAR_PATTERNS)
+@pytest.mark.parametrize("pattern", PATTERNS)
 def test_finditer_batch_matches_jax(pattern, longest):
+    """Nullable greedy spans and every span of the u32-word-tier pattern
+    run on the matmul tier's span path in both packages."""
     port, ref = _both(pattern)
     texts = _texts()
-    if longest and port.program.nullable:
-        # the JAX package runs these on the matmul tier's span kernels
-        with pytest.raises(NotImplementedError, match="matmul tier.*ROADMAP"):
-            port.finditer_batch(texts, longest=True)
-        return
     assert port.finditer_batch(texts, longest=longest) == ref.finditer_batch(texts, longest=longest)
 
 
@@ -86,13 +84,18 @@ def test_cap_presized_no_retry(longest, monkeypatch):
 
 
 def test_word_tier_spans_raise():
-    port = rrx.compile(WORD_TIER, "cpu")
+    """A u32-word-tier program's spans and anchored match run on the matmul
+    tier's span path and equal the JAX package's."""
+    port, ref = _both(WORD_TIER)
     assert type(port.engine.device_scanner).__name__ == "WordScanner"
+    texts = [b"abee f", b"cdeef", b"ababeefcdeeef", b""]
     for longest in (False, True):
-        with pytest.raises(NotImplementedError, match="u32-word tier.*matmul.*ROADMAP"):
-            port.finditer_batch([b"abee f", b"cdeef"], longest=longest)
-    with pytest.raises(NotImplementedError, match="u32-word tier.*ROADMAP"):
-        port.match(b"abeef")
+        got = port.finditer_batch(texts, longest=longest)
+        assert got == ref.finditer_batch(texts, longest=longest), longest
+    assert got[2] == [(0, 7), (7, 13)]
+    for t in (b"abeef", b"abeefx", b"xabeef"):
+        a, b = port.match(t), ref.match(t)
+        assert (a is None) == (b is None) and (a is None or a.span() == b.span()), t
 
 
 def test_spans_on_cpu_leave_launch_counts():

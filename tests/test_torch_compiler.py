@@ -10,19 +10,30 @@ import pytest
 import torch
 
 from roaringregex_tpu.compiler.program import compile_program as jax_compile
+from roaringregex_tpu.ops import scan_pallas as jax_pallas
 from roaringregex_tpu.ops import scan_swar as jax_swar
 from roaringregex_tpu.ops import scan_word as jax_word
 from roaringregex_tpu_torch.compiler.program import compile_program, from_reference
-from roaringregex_tpu_torch.ops import scan_swar, scan_word
+from roaringregex_tpu_torch.ops import scan_bits, scan_pallas, scan_swar, scan_word
 from test_swar import PATTERNS as SWAR_PATTERNS
+from test_torch_pallas import HTTP, K7, K16, K30
 from test_word import PATTERNS as WORD_PATTERNS
 
 torch.set_num_threads(1)
 
 BENCH_PATTERNS = ["cat|dog", "[a-z]+\\.log$", "(ab)*c+d?"]
 PATTERNS = list(dict.fromkeys(SWAR_PATTERNS + WORD_PATTERNS + BENCH_PATTERNS))
+# the matmul tier's record tiles of 64, 128 and 256 states
+MATMUL = [K7, HTTP, K16, "x(ab|c){20,40}y", K30, "(a|bc){1,60}"]
 # wider programs: the port compiles them and routes them nowhere yet
 WIDE = ["a{1,300}", "a" * 200, "a{1,1100}"]
+# (pattern, has a counting plan)
+COUNTING = [
+    ("a{1,120}", True), ("(ab){2,60}", True), ("([a-c][0-9]){4,}", True),
+    ("(ab|cd){1,400}", True), ("(a|b|[x-z]){3,9}", True), ("a{2,500}", True), ("x{5}", True),
+    ("cat|dog", False), ("a{1,120}b", False), ("(a|bc){1,60}", False), ("(ab|c){2,5}", False),
+    ("(^a){2,3}", False), ("a*", True), (K7, False), ("(a|b|c|d|ef){2,4}", False),
+]
 
 ARRAYS = ["F", "Bc_words", "accept"]
 SCALARS = [
@@ -44,7 +55,7 @@ def _same_program(a, b):
         assert getattr(a, name) == getattr(b, name), name
 
 
-@pytest.mark.parametrize("pattern", PATTERNS + WIDE)
+@pytest.mark.parametrize("pattern", PATTERNS + MATMUL + WIDE)
 def test_program_fields_match_jax(pattern):
     _same_program(compile_program(pattern), jax_compile(pattern))
 
@@ -56,7 +67,9 @@ def test_specs_match_jax(pattern):
     assert scan_word.word_spec(port) == jax_word.word_spec(ref)
 
 
-@pytest.mark.parametrize("pattern", ["cat|dog", "^[a-z]{3,8}[.]log$", "(a|$)*", "a{1,1100}"])
+@pytest.mark.parametrize(
+    "pattern", ["cat|dog", "^[a-z]{3,8}[.]log$", "(a|$)*", "a{1,1100}"] + MATMUL
+)
 def test_from_reference_round_trip(pattern):
     ref = jax_compile(pattern)
     port = from_reference(ref)
@@ -67,3 +80,36 @@ def test_from_reference_round_trip(pattern):
         assert not np.shares_memory(port.F, ref.F)
     # and the port's own object round-trips through itself
     _same_program(from_reference(port), port)
+
+
+@pytest.mark.parametrize("pattern,planned", COUNTING)
+def test_counting_plan_matches_jax(pattern, planned):
+    """The port's copy of counting_plan (which only routes) gives the JAX
+    package's plan, or None, on the port's own parser."""
+    plan = scan_pallas.counting_plan(compile_program(pattern))
+    assert plan == jax_pallas.counting_plan(jax_compile(pattern))
+    assert (plan is not None) == planned
+
+
+@pytest.mark.parametrize("pattern", ["a*", "(ab|cd)+e{2,3}fgh", "a{10,20}"] + MATMUL)
+def test_nfa_tables_hold_program(pattern):
+    """nfa_tables' rows unpack to the program's follow matrix, its
+    transpose, the per-symbol class masks and the accept set."""
+    prog = from_reference(jax_compile(pattern))
+    S = prog.s_tile
+    tab = scan_pallas.nfa_tables(prog)
+    W = tab.shape[1]
+    assert W == -(-S // 32) and tab.shape[0] == 2 * S + scan_bits.N_SYMS + 1
+    bits = np.unpackbits(tab.view(np.uint8), axis=1, bitorder="little")[:, :S].astype(bool)
+    F = np.asarray(prog.F)[:S, :S] != 0
+    np.testing.assert_array_equal(bits[:S], F)
+    np.testing.assert_array_equal(bits[S : 2 * S], F.T)
+    mask = bits[2 * S : 2 * S + scan_bits.N_SYMS]
+    Bc = np.asarray(prog.Bc)[:, :S] != 0
+    for b in range(256):
+        want = Bc[prog.byte_class[b]] if b < 0x80 else np.zeros(S, bool)
+        np.testing.assert_array_equal(mask[b], want, err_msg=f"byte {b}")
+    np.testing.assert_array_equal(mask[scan_bits.SYM_BOS], Bc[prog.bos_class])
+    np.testing.assert_array_equal(mask[scan_bits.SYM_EOS], Bc[prog.eos_class])
+    assert not mask[scan_bits.SYM_DEAD].any()
+    np.testing.assert_array_equal(bits[-1], np.asarray(prog.accept)[:S] != 0)

@@ -128,12 +128,21 @@ def test_spans_overflow_parity(policy):
 
 @pytest.mark.parametrize("pattern", NULLABLE)
 def test_nullable_spans_raise(pattern):
-    _, port_sc, data, len_g = _case(pattern)
+    """A nullable program's spans run on the matmul tier in both packages:
+    greedy spans (with the empty-match fallback, over cap on long records)
+    equal the JAX scanner's; lazy spans, the empty match at every
+    position, are refused by both scanners (the API answers them without
+    a scan)."""
+    jax_sc, port_sc, data, len_g = _case(pattern)
     args = (torch.from_numpy(data), torch.from_numpy(len_g))
-    with pytest.raises(NotImplementedError, match="matmul tier.*ROADMAP"):
-        port_sc.lazy_spans_b(*args, cap=4)
-    with pytest.raises(NotImplementedError, match="matmul tier.*ROADMAP"):
-        port_sc.greedy_spans_b(*args, cap=4)
+    a = jax_sc.greedy_spans_b(jnp.asarray(data), jnp.asarray(len_g), cap=16)
+    b = port_sc.greedy_spans_b(*args, cap=16)
+    assert b[3].any()
+    _eq(a, b, pattern)
+    with pytest.raises(AssertionError):
+        jax_sc.lazy_spans_b(jnp.asarray(data), jnp.asarray(len_g), cap=16)
+    with pytest.raises(ValueError, match="empty match at every position"):
+        port_sc.lazy_spans_b(*args, cap=16)
 
 
 def test_span_wrappers_check_shapes():

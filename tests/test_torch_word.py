@@ -62,10 +62,16 @@ def test_zero_byte_class_no_bos_phantom(pattern):
 
 
 def test_word_lead_not_ported():
-    _, _, port_sc = _both("abcdefghij")
-    data = torch.zeros((8, 16), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_sc.match_stats_b(data, torch.zeros((1, 8), dtype=torch.int32), seeded=True, lead=3)
+    """Windowed (lead > 0) scans of a u32-word-tier program run on the
+    matmul tier in both packages and agree."""
+    ref, jax_sc, port_sc = _both("abcdefghij")
+    data, lengths = _batch(G=ref.G)
+    len_g = lengths.reshape(-1, ref.G)
+    a = jax_sc.match_stats_b(jnp.asarray(data), jnp.asarray(len_g), seeded=True, lead=3)
+    b = port_sc.match_stats_b(torch.from_numpy(data), torch.from_numpy(len_g), seeded=True, lead=3)
+    for name, x, y in zip(NAMES, a, b):
+        np.testing.assert_array_equal(np.asarray(x), y.numpy(), err_msg=name)
+    assert int(b[0].sum()) > 0
 
 
 @pytest.mark.parametrize("pattern", ["(cat|dog|bird)+", "a{10,20}", "x(yz|zy)*x$"])
