@@ -9,7 +9,7 @@ its check fails:
 1. the card's name and power limit; build the CUDA kernels from
    roaringregex_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source,
    all started together), with nvcc's register report and the build time;
-2. kernel against plain PyTorch version on the card, for all eleven entry
+2. kernel against plain PyTorch version on the card, for all fifteen entry
    points, on random batches from a numpy seed plus edge records (empty,
    len == L, bytes >= 0x80, byte 0); integer outputs, tolerance 0:
    rrx_swar_stats and rrx_word_stats on the SWAR and u32-word test
@@ -17,9 +17,12 @@ its check fails:
    rrx_swar_reverse and rrx_swar_anchor_end (random starts with -1 and 0,
    lazy and longest) on every SWAR test pattern, rrx_swar_lazy_spans and
    rrx_swar_greedy_spans at cap 1, 2 and 16 (greedy overflow) on the
-   non-nullable ones; the five matmul-tier kernels on record tiles of 8 to
-   256 states (seeded, unseeded and lead stats; reverse; anchor lazy and
-   longest; lazy and greedy spans at caps 1, 2 and 16, greedy overflow);
+   non-nullable ones; the six matmul-tier kernels on record tiles of 8 to
+   256 states (seeded, unseeded and lead stats; seeded and unseeded flags;
+   reverse; anchor lazy and longest; lazy and greedy spans at caps 1, 2 and
+   16, greedy overflow); the three counting-tier kernels on 16 plans (body
+   lengths k = 1..8, 1..4 branches, nullable, a{300}, a{270,}; seeded and
+   unseeded stats at lead 0 and m*k, seeded and unseeded flags, reverse);
 3. the match-stats path, with its launch counts set to 0 first: bench
    config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
@@ -46,13 +49,28 @@ its check fails:
    finditer_batch, search, match) on 2,000 records against re, u32-word
    spans and nullable greedy spans against the plain version (the counts
    are read after it);
-6. times with CUDA events (median of 5-7 runs after warm-up) of kernel and
+6. the counting tier, the bitmaps and the seeded alias, with every launch
+   count set to 0 first: bench config 4 (a{1,300}) over 10 MB of 1024-byte
+   records (make_corpus, seed 0) and over 1 GiB of random lowercase with
+   planted a-runs of 1-400 bytes, through ScanEngine.match_stats,
+   fullmatch_flags and the anchored rescan, against a numpy run-length
+   reference (all of 10 MB; 16,384 records of the 1 GiB batch, where the
+   plain version is checked too); bench config 13 ((abc|de){1,300}) over 10
+   MB and 1 GiB through its 6-state seeded alias on the SWAR tier, search
+   and first end against numpy and re on 3,000 records, fullmatch refused;
+   ends_batch and starts_batch of a SWAR, a u32-word, a matmul-tier and a
+   counting program against the sets re gives; finditer_batch of counting
+   programs in host rounds against re (greedy, and lazy against the lazy
+   quantifier); the counts are read after it;
+7. times with CUDA events (median of 5-7 runs after warm-up) of kernel and
    plain version: the stats kernels at config 1 and 1 GiB, the SWAR span
    kernels at config 7's 10 MB shape and at 1 GiB, the matmul-tier kernels
-   at 10 MB and 1 GiB (plain versions on a 16,384-record slice there), with
-   registers, theoretical occupancy, grid fill and the bound of each (bytes
-   over 3.35 TB/s, or integer operations over 16.7 T/s), each compared again
-   with its plain version.
+   (and rrx_nfa_flags) at 10 MB and 1 GiB (plain versions on a
+   16,384-record slice there), the counting kernels on config 4 at 10 MB
+   and 1 GiB, with registers, theoretical occupancy, grid fill and the bound
+   of each (bytes over 3.35 TB/s, or integer operations over 16.7 T/s), each
+   compared again with its plain version; ScanEngine.ends_bitmap end to end
+   at 10 MB and one scan_xla.first_end_from call at the API's shape.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -101,6 +119,7 @@ NFA_PLANTS = [b"error", b"warning timeout", b"x critical", b"GET /a/b.c HTTP/1.1
 STATS_SOURCE = "roaringregex_tpu_torch/csrc/scan_bits.cu"
 SPANS_SOURCE = "roaringregex_tpu_torch/csrc/scan_spans.cu"
 NFA_SOURCE = "roaringregex_tpu_torch/csrc/scan_nfa.cu"
+COUNT_SOURCE = "roaringregex_tpu_torch/csrc/scan_count.cu"
 REPLACES = {
     "rrx_swar_stats": "roaringregex_tpu/ops/scan_swar.py:526",
     "rrx_word_stats": "roaringregex_tpu/ops/scan_word.py:169",
@@ -113,11 +132,28 @@ REPLACES = {
     "rrx_nfa_anchor_end": "roaringregex_tpu/ops/scan_pallas.py:1659",
     "rrx_nfa_lazy_spans": "roaringregex_tpu/ops/scan_pallas.py:1740",
     "rrx_nfa_greedy_spans": "roaringregex_tpu/ops/scan_pallas.py:3038",
+    "rrx_nfa_flags": "roaringregex_tpu/ops/scan_pallas.py:1393",
+    "rrx_count_stats": "roaringregex_tpu/ops/scan_pallas.py:4098",
+    "rrx_count_flags": "roaringregex_tpu/ops/scan_pallas.py:4274",
+    "rrx_count_reverse": "roaringregex_tpu/ops/scan_pallas.py:4362",
 }
 SPAN_KERNELS = ("rrx_swar_reverse", "rrx_swar_lazy_spans", "rrx_swar_anchor_end",
                 "rrx_swar_greedy_spans")
 NFA_KERNELS = ("rrx_nfa_stats", "rrx_nfa_reverse", "rrx_nfa_anchor_end", "rrx_nfa_lazy_spans",
                "rrx_nfa_greedy_spans")
+COUNT_KERNELS = ("rrx_count_stats", "rrx_count_flags", "rrx_count_reverse")
+# counting plans for kernel == plain: body lengths k = 1..8, 1..4 branches,
+# nullable (m = 0), exact a{300}, unbounded a{270,}
+COUNT_PATTERNS = [
+    "a{1,300}", "a{3,280}", "[a-c]{2,400}", "a{270,}", "x{0,300}", "a{300}", "(ab|cd){1,400}",
+    "(ab|cx){2,280}", "(abc|xbc|bca){1,200}", "(ab){0,40}", "(abcd){1,60}", "(abcde){2,30}",
+    "(abcdef|bcdefa){1,20}", "(abcdefg){1,9}", "(abcdefgh|bbbbbbbb|aaaaaaaa|cccccccc){1,5}",
+    "(ab){40}",
+]
+CONFIG4, CONFIG13 = "a{1,300}", "(abc|de){1,300}"
+# counting tier step floor: class-table load, the progress shift-OR-AND,
+# the body-end test and clear, the run's add, min and select
+COUNT_STEP_OPS = 8
 # the card's rates for the bounds: HBM 3.35 TB/s (NVIDIA's H100 SXM data
 # sheet); 32-bit integer issue 16.7 T operations/s = 132 SMs x 64 int32
 # operations per clock (CUDA C++ Programming Guide, arithmetic instruction
@@ -230,7 +266,7 @@ def main() -> int:
     from roaringregex_tpu_torch.api import compile as rrx_compile
     from roaringregex_tpu_torch.compiler.program import compile_program
     from roaringregex_tpu_torch.engine import ScanEngine
-    from roaringregex_tpu_torch.ops import _build, scan_bits, scan_pallas, scan_swar, scan_word
+    from roaringregex_tpu_torch.ops import _build, scan_bits, scan_pallas, scan_swar, scan_word, scan_xla
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -270,8 +306,15 @@ def main() -> int:
         "rrx_nfa_anchor_end": scan_pallas.nfa_anchor_end,
         "rrx_nfa_lazy_spans": scan_pallas.nfa_lazy_spans,
         "rrx_nfa_greedy_spans": scan_pallas.nfa_greedy_spans,
+        "rrx_nfa_flags": scan_pallas.nfa_flags,
     }
-    wrappers = {name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
+    count_wrappers = {
+        "rrx_count_stats": scan_pallas.count_stats,
+        "rrx_count_flags": scan_pallas.count_flags,
+        "rrx_count_reverse": scan_pallas.count_reverse,
+    }
+    wrappers = ({name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
+                | count_wrappers)
     max_err = {name: 0 for name in wrappers}
 
     def compare(name, got, want, tag, labels=("cnt", "first", "last", "full")):
@@ -384,6 +427,9 @@ def main() -> int:
                 kw = dict(seeded=seeded, lead=ld, nullable=nullable)
                 compare("rrx_nfa_stats", P.nfa_stats(d, ln, tables, **kw),
                         P.stats_plain(d, ln, tables, **kw), f"{tag} {kw}")
+            compare("rrx_nfa_flags", [P.nfa_flags(d, ln, tables, seeded=seeded)],
+                    [P.flags_plain(d, ln, tables, seeded=seeded)], f"{tag} seeded={seeded}",
+                    ("flags",))
         hits = P.nfa_reverse(d, ln, tables)
         compare("rrx_nfa_reverse", [hits], [scan_bits.reverse_plain(d, ln, tables)], tag, ("hits",))
         if starts is None:
@@ -423,7 +469,7 @@ def main() -> int:
                                 nullable=prog.nullable, lead=prog.horizon or 3)[1]
             n_cmp += 1
     torch.cuda.synchronize()
-    for name in NFA_KERNELS:
+    for name in NFA_KERNELS + ("rrx_nfa_flags",):
         if launches()[name] <= before[name]:
             fail(f"{name}: launch count did not rise in the comparison")
     if n_over == 0:
@@ -431,9 +477,65 @@ def main() -> int:
     if tiles != {8, 16, 32, 64, 128, 256}:
         fail(f"matmul-tier comparisons covered record tiles {sorted(tiles)}")
     print(f"phase 2: kernel == plain on the card, {n_cmp} batches of {len(NFA_PATTERNS)} patterns "
-          f"(record tiles {sorted(tiles)}) through the five matmul-tier kernels (stats seeded/"
-          f"unseeded/lead, reverse, anchor lazy/longest, lazy and greedy at caps 1, 2, 16; greedy "
-          f"over set on {n_over} records) ({time.perf_counter() - t0:.1f}s)")
+          f"(record tiles {sorted(tiles)}) through the six matmul-tier kernels (stats seeded/"
+          f"unseeded/lead, flags seeded/unseeded, reverse, anchor lazy/longest, lazy and greedy at "
+          f"caps 1, 2, 16; greedy over set on {n_over} records) ({time.perf_counter() - t0:.1f}s)")
+
+    def counting_batch(R: int, L: int):
+        """An edge batch over a counting alphabet, with an a-run, a body
+        repetition or a run of a body byte planted in every second record."""
+        data, lengths = edge_batch(rng, np, R, L, b"abcdx0123")
+        plants = [b"a", b"ab", b"abc", b"abcd", b"bca", b"cd", b"bcdefa", b"abcdefgh", b"b"]
+        for i in range(8, R, 2):
+            w = plants[int(rng.integers(len(plants)))]
+            n = int(rng.integers(1, L // len(w) + 1))
+            run = (w * n)[:L]
+            at = int(rng.integers(0, L - len(run) + 1))
+            data[i, at : at + len(run)] = np.frombuffer(run, np.uint8)
+        return data, lengths
+
+    def check_count(ct, d, ln, tag, *, nullable, lead):
+        """The three counting kernels against their plain versions on one batch."""
+        P = scan_pallas
+        for seeded in (True, False):
+            for ld in sorted({0, lead}):
+                kw = dict(seeded=seeded, lead=ld, nullable=nullable)
+                compare("rrx_count_stats", P.count_stats(d, ln, ct, **kw),
+                        P.count_stats_plain(d, ln, ct, **kw), f"{tag} {kw}")
+            compare("rrx_count_flags", [P.count_flags(d, ln, ct, seeded=seeded)],
+                    [P.count_flags_plain(d, ln, ct, seeded=seeded)], f"{tag} seeded={seeded}",
+                    ("flags",))
+        compare("rrx_count_reverse", [P.count_reverse(d, ln, ct)],
+                [P.count_reverse_plain(d, ln, ct)], tag, ("hits",))
+
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = 0
+    shapes = set()
+    for pattern in COUNT_PATTERNS:
+        prog = compile_program(pattern)
+        plan = scan_pallas.counting_plan(prog)
+        if plan is None:
+            fail(f"{pattern!r} has no counting plan")
+        ct = scan_pallas.device_count_tables(plan, dev)
+        shapes.add((ct.k, ct.n_br))
+        for R, L in ((1000, 61), (1024, 320)):
+            data, lengths = counting_batch(R, L)
+            d = torch.from_numpy(data).to(dev)
+            ln = torch.from_numpy(lengths).to(dev)
+            check_count(ct, d, ln, f"{pattern!r} R={R} L={L}", nullable=prog.nullable,
+                        lead=ct.m * ct.k)
+            n_cmp += 1
+    torch.cuda.synchronize()
+    for name in COUNT_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if {k for k, _ in shapes} != set(range(1, 9)) or {b for _, b in shapes} != {1, 2, 3, 4}:
+        fail(f"counting comparisons covered (k, branches) {sorted(shapes)}")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} batches of {len(COUNT_PATTERNS)} counting "
+          f"plans ((k, branches) {sorted(shapes)}) through the three counting kernels (stats "
+          f"seeded/unseeded at lead 0 and m*k, flags seeded/unseeded, reverse) "
+          f"({time.perf_counter() - t0:.1f}s)")
 
     # -- phase 3: the match-stats path (counts from here to its 1 GiB run) --
     import bench
@@ -734,7 +836,191 @@ def main() -> int:
           f"search/match on 60 texts x 3 patterns against re")
     print(f"matmul-tier path launches: {nfa_launches}")
 
-    # -- phase 6: times ---------------------------------------------------
+    # -- phase 6: the counting tier, the bitmaps and the seeded alias ------
+    reset_launches()
+    t6 = time.perf_counter()
+
+    def a_runs(d: np.ndarray, ln: np.ndarray, m: int, n: int):
+        """numpy run-length reference of the seeded a{m,n}: (count of match
+        ends, first end or -1, whole record matches). A match ends after
+        byte j iff the run of a's ending at j is at least max(m, 1) long."""
+        live = (d == ord("a")) & (np.arange(d.shape[1])[None, :] < ln[:, None])
+        run = np.zeros(d.shape[0], np.int64)
+        ends = np.zeros(d.shape, bool)
+        for j in range(d.shape[1]):
+            run = np.where(live[:, j], run + 1, 0)
+            ends[:, j] = run >= max(m, 1)
+        cnt = ends.sum(axis=1)
+        first = np.where(ends.any(axis=1), ends.argmax(axis=1) + 1, -1)
+        full = (live.sum(axis=1) == ln) & (ln >= m) & ((ln <= n) if n else True)
+        return cnt, first, full
+
+    # config 4 at 10 MB: the config-1 corpus (bench.make_corpus(10_000_000,
+    # 1024, seed=0)), unwindowed
+    eng4 = ScanEngine(compile_program(CONFIG4), device=dev)
+    sc4 = eng4.device_scanner
+    if not isinstance(sc4, scan_pallas.CountScanner) or eng4.prog.tier != "multiblock":
+        fail(f"config 4 routed to {type(sc4).__name__} on {eng4.prog.tier}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cnt4, first4, any4 = (x.cpu().numpy() for x in eng4.match_stats(data, lengths, seeded=True))
+    call_ms = (time.perf_counter() - t0) * 1e3
+    want = a_runs(data, lengths, 1, 300)
+    if not (np.array_equal(cnt4, want[0]) and np.array_equal(first4, want[1])
+            and np.array_equal(any4, want[0] > 0)):
+        fail("config 4 (cnt, first, any) disagree with the numpy run-length count")
+    # fullmatch needs records no longer than n = 300: a copy of the corpus
+    # whose every fourth record is cut to 0-400 B and filled with a's
+    data_f, len_f = data.copy(), lengths.copy()
+    fr = np.arange(0, data.shape[0], 4)
+    len_f[fr] = fr % 401
+    data_f[fr] = np.where(np.arange(data.shape[1])[None, :] < len_f[fr, None], ord("a"), data_f[fr])
+    full4 = eng4.fullmatch_flags(data_f, len_f)
+    want_f = a_runs(data_f, len_f, 1, 300)[2]
+    if want_f.all() or not want_f.any():
+        fail("config 4 fullmatch batch should hold both matching and non-matching records")
+    if not np.array_equal(full4, want_f):
+        fail("config 4 fullmatch disagrees with the numpy run-length reference")
+    has_a = (data == ord("a")).any(axis=1)
+    st4 = np.where(has_a, (data == ord("a")).argmax(axis=1), -1).astype(np.int32)
+    fe4 = eng4.first_end_from(data, lengths, st4).cpu().numpy()
+    if not np.array_equal(fe4, np.where(has_a, st4 + 1, -1)):
+        fail("config 4 lazy anchored ends from the first a != start + 1")
+    print(f"phase 6: config 4 {CONFIG4} ({eng4.prog.n_states} states, {eng4.prog.tier}, "
+          f"CountScanner k={sc4.k}), {data.shape[0]} records x 1024 B: matches={int(cnt4.sum())} "
+          f"records_with_match={int(any4.sum())} fullmatch={int(full4.sum())} == numpy run-length "
+          f"count (fullmatch on a copy with {fr.size} records of 0-400 a's); lazy rescans from the "
+          f"first a == start + 1 (first call {call_ms:.1f} ms)")
+
+    # config 4 at 1 GiB: random lowercase (numpy seed 14) with an a-run of
+    # 1-400 bytes planted in every second record
+    rng4 = np.random.default_rng(14)
+    big4 = torch.from_numpy(rng4.integers(ord("a"), ord("z") + 1, size=(R, L), dtype=np.uint8)).to(dev)
+    rows4 = torch.from_numpy(rng4.permutation(R)[: R // 2]).to(dev)
+    run4 = torch.from_numpy(rng4.integers(1, 401, size=R // 2)).to(dev)
+    col4 = (torch.from_numpy(rng4.random(R // 2)).to(dev) * (L - run4 + 1)).to(torch.int64)
+    posL = torch.arange(L, device=dev)[None, :]
+    for c in range(0, R // 2, 1 << 16):
+        r_, s_, e_ = rows4[c : c + (1 << 16)], col4[c : c + (1 << 16)], (col4 + run4)[c : c + (1 << 16)]
+        big4[r_] = torch.where((posL >= s_[:, None]) & (posL < e_[:, None]), ord("a"), big4[r_])
+    # every eighth of the checked records is cut to 1-400 B of a's, so that
+    # fullmatch (n = 300) is both true and false there
+    len4 = big_len.clone()
+    fr4 = torch.arange(0, n_slice, 8, device=dev)
+    fl4 = torch.from_numpy(rng4.integers(1, 401, size=fr4.numel())).to(dev)
+    big4[fr4] = torch.where(posL < fl4[:, None], ord("a"), big4[fr4])
+    len4[fr4] = fl4.to(len4.dtype)
+    cb4, fb4, ab4 = eng4.match_stats(big4, len4, seeded=True)
+    fullb4 = eng4.fullmatch_flags(big4, len4)
+    sub4 = big4[:n_slice].cpu().numpy()
+    want = a_runs(sub4, len4[:n_slice].cpu().numpy(), 1, 300)
+    if want[2].all() or not want[2].any():
+        fail("config 4 1 GiB checked records should hold both full matches and non-matches")
+    got = [x[:n_slice].cpu().numpy() for x in (cb4, fb4)]
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and np.array_equal(fullb4[:n_slice], want[2])):
+        fail(f"config 4 1 GiB (cnt, first, full) != numpy on the first {n_slice} records")
+    plain4 = scan_pallas.count_stats_plain(big4[:n_slice], len4[:n_slice], sc4.tables, seeded=True,
+                                           lead=0, nullable=False)
+    if not (torch.equal(cb4[:n_slice], plain4[0]) and torch.equal(fb4[:n_slice], plain4[1])):
+        fail(f"config 4 1 GiB (cnt, first) != plain on the first {n_slice} records")
+    print(f"phase 6: config 4 over {R} records x {L} B with planted a-runs of 1-400 B: "
+          f"matches={int(cb4.sum().item())} records_with_match={int(ab4.sum().item())} "
+          f"fullmatch={int(fullb4[:n_slice].sum())} of the first {n_slice}; == numpy and == plain "
+          f"on the first {n_slice} records")
+
+    # config 13: 1501 states on the sparse tier, scanned through its 6-state
+    # seeded alias (the SWAR tier)
+    t0 = time.perf_counter()
+    eng13 = ScanEngine(compile_program(CONFIG13), device=dev)
+    alias13 = eng13._seeded_alias()
+    compile13_s = time.perf_counter() - t0
+    if eng13.device_scanner is not None or alias13 is None:
+        fail("config 13 should run through its seeded alias only")
+    swar0 = scan_swar.swar_stats.launches
+    cnt13, first13, any13 = (x.cpu().numpy() for x in eng13.match_stats(data, lengths, seeded=True))
+    ends13 = np.zeros(data.shape, bool)  # ends13[r, j]: abc or de ends after byte j
+    ends13[:, 1:] |= (data[:, :-1] == ord("d")) & (data[:, 1:] == ord("e"))
+    ends13[:, 2:] |= ((data[:, :-2] == ord("a")) & (data[:, 1:-1] == ord("b"))
+                      & (data[:, 2:] == ord("c")))
+    if not (np.array_equal(cnt13, ends13.sum(axis=1))
+            and np.array_equal(first13, np.where(ends13.any(axis=1), ends13.argmax(axis=1) + 1, -1))):
+        fail("config 13 (cnt, first) disagree with the numpy count of abc/de ends")
+    c13, f13, a13 = eng13.match_stats(big, big_len, seeded=True)
+    rows13 = np.random.default_rng(15).choice(R, size=3000, replace=False)
+    big_rows = big[torch.from_numpy(rows13).to(dev)].cpu().numpy()
+    rx13 = re.compile(rb"(?=(abc|de))")
+    want13 = []
+    for row in big_rows:
+        e = [m.start() + len(m.group(1)) for m in rx13.finditer(row.tobytes())]
+        want13.append((bool(e), min(e) if e else -1))
+    got13 = list(zip(a13.cpu().numpy()[rows13].tolist(), f13.cpu().numpy()[rows13].tolist()))
+    if got13 != want13:
+        fail("config 13 1 GiB (search, first end) != re on 3,000 records")
+    try:
+        rrx_compile(CONFIG13, dev).fullmatch_batch([b"abcde"])
+        fail("config 13 fullmatch_batch should raise NotImplementedError")
+    except NotImplementedError as e:
+        refused = str(e)[:60]
+    print(f"phase 6: config 13 {CONFIG13} ({eng13.prog.n_states} states, {eng13.prog.tier}; built in "
+          f"{compile13_s:.1f}s) through its {alias13.prog.n_states}-state alias on "
+          f"{type(alias13.device_scanner).__name__} ({scan_swar.swar_stats.launches - swar0} "
+          f"rrx_swar_stats launches): 10 MB matches={int(cnt13.sum())} == numpy; 1 GiB "
+          f"records_with_match={int(a13.sum().item())}, search and first end == re on 3,000 "
+          f"records; fullmatch_batch refused ({refused}...)")
+
+    # the bitmaps: ends_batch and starts_batch against every substring re
+    # fullmatches, on four tiers
+    bm_texts = sample(16, 400, 40, b"abcdgotx",
+                      [b"cat", b"dog", b"bird", b"error", b"timeout", b"aaaaa", b"catdogbird"])
+    tiers = {"cat|dog": "SwarScanner", "(cat|dog|bird)+": "WordScanner", K7: "PallasScanner",
+             CONFIG4: "CountScanner"}
+    for pattern, want_sc in tiers.items():
+        pat = rrx_compile(pattern, dev)
+        if type(pat.engine.device_scanner).__name__ != want_sc:
+            fail(f"{pattern[:30]!r} routed to {type(pat.engine.device_scanner).__name__}")
+        rxf = re.compile(pattern.encode())
+        want_e, want_s = [], []
+        for t in bm_texts:
+            pairs = [(a, b) for a in range(len(t) + 1) for b in range(a, len(t) + 1)
+                     if rxf.fullmatch(t, a, b)]
+            want_e.append(sorted({b for _, b in pairs}))
+            want_s.append(sorted({a for a, _ in pairs}))
+        if pat.ends_batch(bm_texts) != want_e or pat.starts_batch(bm_texts) != want_s:
+            fail(f"{pattern[:30]!r} ends_batch/starts_batch != re")
+    print(f"phase 6: ends_batch and starts_batch of {len(tiers)} programs (SWAR, u32-word, matmul, "
+          f"counting) on {len(bm_texts)} records of <= 50 B == the substrings re fullmatches")
+
+    # spans of counting programs: host rounds over starts_bitmap
+    span_texts = sample(17, 600, 200, b"abcdx", [b"aaaa", b"a" * 40, b"abab", b"cdcd",
+                                                 b"abcdab" * 8, b"a" * 320])
+    n_rounds = 0
+    for pattern, lazy_form in ((CONFIG4, "a{1,300}?"), ("(ab|cd){1,400}", "(ab|cd){1,400}?")):
+        pat = rrx_compile(pattern, dev)
+        for longest, form in ((True, pattern), (False, lazy_form)):
+            rxp = re.compile(form.encode())
+            got = pat.finditer_batch(span_texts, longest=longest)
+            want = [[m.span() for m in rxp.finditer(t)] for t in span_texts]
+            if got != want:
+                i = next(i for i in range(len(span_texts)) if got[i] != want[i])
+                fail(f"{pattern!r} finditer_batch(longest={longest}) != re {form!r} at text {i}: "
+                     f"{got[i][:4]} != {want[i][:4]}")
+            n_rounds = max(n_rounds, max(len(x) for x in got))
+        for t in span_texts[:40]:
+            a, b = pat.match(t), re.compile(lazy_form.encode()).match(t)
+            if (a is None) != (b is None) or (a is not None and a.span() != b.span()):
+                fail(f"{pattern!r} match({t[:30]!r}) = {a and a.span()} != re {b and b.span()}")
+    torch.cuda.synchronize()
+    count_launches = launches()
+    for name in COUNT_KERNELS + ("rrx_nfa_flags",):
+        if count_launches[name] <= 0:
+            fail(f"{name} was not launched on the counting and bitmap path")
+    print(f"phase 6: counting-program spans in host rounds (up to {n_rounds} rounds) on "
+          f"{len(span_texts)} records of <= 520 B == re (greedy) and re's lazy quantifier (lazy); "
+          f"match on 40 texts == re ({time.perf_counter() - t6:.1f}s for the phase)")
+    print(f"counting and bitmap path launches: {count_launches}")
+
+    # -- phase 7: times ---------------------------------------------------
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
         """Median over ``runs`` of the CUDA-event time of ``per_run``
         back-to-back calls, divided by ``per_run``."""
@@ -770,7 +1056,7 @@ def main() -> int:
         hit_bytes = 4 * scan_bits.hit_words(L) * R
         if kind == "stats":
             return bound(nbytes + 4 * R, 13 * R, steps * (step_ops + 4))
-        if kind == "reverse":
+        if kind in ("reverse", "flags"):
             return bound(nbytes + 4 * R, hit_bytes, steps * (step_ops + 2))
         if kind == "lazy_spans":
             return bound(nbytes + 4 * R + hit_bytes, 8 * R * cap + 4 * R, steps * (step_ops + 8))
@@ -788,8 +1074,13 @@ def main() -> int:
 
     def occupancy(name, tables, rows):
         """Theoretical occupancy and grid fill; ``tables`` are a (delta,
-        table) form or a matmul-tier tile."""
-        size = tables.s_tile if isinstance(tables, scan_pallas.NfaTables) else tables.deltas.numel()
+        table) form, a matmul-tier tile or a counting plan."""
+        if isinstance(tables, scan_pallas.NfaTables):
+            size = tables.s_tile
+        elif isinstance(tables, scan_pallas.CountTables):
+            size = tables.k
+        else:
+            size = tables.deltas.numel()
         bps = ctypes.c_int(0)
         _build.check(lib.rrx_occupancy(_build.KERNELS.index(name), int(size),
                                        ctypes.byref(bps)), "rrx_occupancy")
@@ -813,7 +1104,7 @@ def main() -> int:
             compare(name, entries[name][0](d, ln, sc.tables, **kw),
                     scan_bits.stats_plain(d, ln, sc.tables, **kw),
                     f"{pat.pattern!r} API batch {tuple(d.shape)}")
-    print("phase 6: kernel == plain on the phase-3 API batches, seeded and unseeded")
+    print("phase 7: kernel == plain on the phase-3 API batches, seeded and unseeded")
 
     # the config-1 headline at its own shape: the windowed batch
     sc = eng.device_scanner
@@ -828,7 +1119,7 @@ def main() -> int:
     ms_k = time_ms(lambda: scan_swar.swar_stats(wind, lnw, sc.tables, **kw), warm=2, runs=7, per_run=20)
     ms_p = time_ms(lambda: scan_bits.stats_plain(wind, lnw, sc.tables, **kw), warm=1, runs=5)
     ms_e = time_ms(lambda: sc.match_stats_b(d10, l10.reshape(-1, G), seeded=True), warm=2, runs=7, per_run=20)
-    print(f"phase 6: rrx_swar_stats config 1 windows [{wind.shape[0]} x {wind.shape[1]}]: "
+    print(f"phase 7: rrx_swar_stats config 1 windows [{wind.shape[0]} x {wind.shape[1]}]: "
           f"kernel {ms_k:.3f} ms = {n10 / ms_k / 1e6:.1f} GB/s, plain {ms_p:.3f} ms = "
           f"{n10 / ms_p / 1e6:.2f} GB/s; match_stats_b end to end {ms_e:.3f} ms = "
           f"{n10 / ms_e / 1e6:.1f} GB/s [{card}]")
@@ -848,7 +1139,7 @@ def main() -> int:
             fail("1 GiB engine count != direct kernel count")
         ms = time_ms(lambda: wrapper(big, big_len, tables, **kw), warm=2, runs=7, per_run=5)
         plain_ms = time_ms(lambda: scan_bits.stats_plain(big, big_len, tables, **kw), warm=1, runs=5)
-        print(f"phase 6: {name} {pattern!r} 1 GiB: kernel {ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, "
+        print(f"phase 7: {name} {pattern!r} 1 GiB: kernel {ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, "
               f"plain {plain_ms:.3f} ms = {nbytes / plain_ms / 1e6:.2f} GB/s, outputs equal "
               f"[{card}]")
         bnd = kernel_bound("stats", big_len, L, 4 * tables.deltas.numel())
@@ -892,7 +1183,7 @@ def main() -> int:
             bnd = kernel_bound(name.split("_", 2)[2], ln, d.shape[1], 4 * tables.deltas.numel(),
                                cap=cap7, starts=starts, end=end0, greedy=greedy0)
             span_ms[name, shape] = (ms, plain_ms, bnd)
-            print(f"phase 6: {name} cat|dog {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
+            print(f"phase 7: {name} cat|dog {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
                   f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s, plain {plain_ms:.3f} ms = "
                   f"{nb / plain_ms / 1e6:.3f} GB/s [{card}]")
             print(f"  occupancy {name} ({shape}): {occupancy(name, tables, d.shape[0])}; "
@@ -900,7 +1191,7 @@ def main() -> int:
         for policy, fn in (("lazy_spans", lambda: eng.lazy_spans(d, ln, cap=cap7)),
                            ("greedy_spans", lambda: eng.greedy_spans(d, ln, cap=cap7))):
             ms = time_ms(fn, warm=2, runs=7, per_run=5)
-            print(f"phase 6: ScanEngine.{policy} end to end (data on the card), {shape}: "
+            print(f"phase 7: ScanEngine.{policy} end to end (data on the card), {shape}: "
                   f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s [{card}]")
     for name in SPAN_KERNELS:
         ms, plain_ms, bnd = span_ms[name, "config 7, 10 MB"]
@@ -971,7 +1262,7 @@ def main() -> int:
                 bnd = kernel_bound(name.split("_", 2)[2], ln, d.shape[1], step_ops, cap=cap_k,
                                    starts=starts, end=end0, greedy=greedy0)
                 nfa_ms[name, pattern, shape] = (ms, plain_ms, bnd)
-                print(f"phase 6: {name} {tag} {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
+                print(f"phase 7: {name} {tag} {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
                       f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s, plain {plain_ms:.3f} ms on {n} "
                       f"records; bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]")
                 print(f"  occupancy {name} ({shape}): {occupancy(name, tables, d.shape[0])}; "
@@ -980,7 +1271,7 @@ def main() -> int:
                              ("lazy_spans", lambda: eng_k.lazy_spans(d, ln, cap=cap_k)),
                              ("greedy_spans", lambda: eng_k.greedy_spans(d, ln, cap=cap_k))):
                 ms = time_ms(fn, warm=2, runs=7, per_run=5)
-                print(f"phase 6: ScanEngine.{what} {tag} end to end (data on the card), {shape}: "
+                print(f"phase 7: ScanEngine.{what} {tag} end to end (data on the card), {shape}: "
                       f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s [{card}]")
     for name in NFA_KERNELS:
         ms, plain_ms, bnd = nfa_ms[name, K30, "10 MB"]
@@ -990,6 +1281,130 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
             "library_ms": None, "shape": f"config 7's 10 MB shape, {len(K30_WORDS)}-keyword log text",
         })
+
+    # rrx_nfa_flags on the keyword log text (K30) at 10 MB and 1 GiB
+    tables = nfa_engines[K30].device_scanner.nfa
+    step_ops = 3 * -(-tables.s_tile // 32)
+    flags_ms = {}
+    for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
+        n = d.shape[0] if shape == "10 MB" else n_slice
+        pd, pl = d[:n].contiguous(), ln[:n].contiguous()
+        got = P.nfa_flags(d, ln, tables, seeded=True)
+        compare("rrx_nfa_flags", [got[:, :n]], [P.flags_plain(pd, pl, tables, seeded=True)],
+                f"K30 {shape}, first {n} records", ("flags",))
+        ms = time_ms(lambda: P.nfa_flags(d, ln, tables, seeded=True), warm=2, runs=7, per_run=5)
+        plain_ms = time_ms(lambda: P.flags_plain(pd, pl, tables, seeded=True), warm=1, runs=3)
+        bnd = kernel_bound("flags", ln, d.shape[1], step_ops)
+        nb = int(ln.to(torch.int64).sum())
+        flags_ms[shape] = (ms, plain_ms, bnd)
+        print(f"phase 7: rrx_nfa_flags K30 {shape} [{d.shape[0]} x {d.shape[1]}]: kernel {ms:.4f} ms "
+              f"= {nb / ms / 1e6:.1f} GB/s, plain {plain_ms:.3f} ms on {n} records; bound "
+              f"{bnd[0]:.4f} ms by {bnd[1]} [{card}]")
+        print(f"  occupancy rrx_nfa_flags ({shape}): {occupancy('rrx_nfa_flags', tables, d.shape[0])}; "
+              f"registers {regs_of('nfa_flags_kernel')}")
+    ms = time_ms(lambda: nfa_engines[K30].ends_bitmap(log10, len10, L), warm=1, runs=5)
+    print(f"phase 7: ScanEngine.ends_bitmap K30 end to end (words path, bitmap to the host), 10 MB: "
+          f"{ms:.3f} ms [{card}]")
+
+    # the counting kernels on config 4 at 10 MB and 1 GiB
+    ct4 = sc4.tables
+    d10_4 = torch.from_numpy(data).to(dev)
+    l10_4 = torch.from_numpy(lengths).to(dev)
+    count_ms = {}
+    for shape, d, ln in (("10 MB", d10_4, l10_4), ("1 GiB", big4, big_len)):
+        n = d.shape[0] if shape == "10 MB" else n_slice
+        pd, pl = d[:n].contiguous(), ln[:n].contiguous()
+        kw = dict(seeded=True, lead=0, nullable=False)
+        calls = {
+            "rrx_count_stats": (lambda: P.count_stats(d, ln, ct4, **kw),
+                                lambda: P.count_stats_plain(pd, pl, ct4, **kw)),
+            "rrx_count_flags": (lambda: P.count_flags(d, ln, ct4, seeded=True),
+                                lambda: P.count_flags_plain(pd, pl, ct4, seeded=True)),
+            "rrx_count_reverse": (lambda: P.count_reverse(d, ln, ct4),
+                                  lambda: P.count_reverse_plain(pd, pl, ct4)),
+        }
+        nb = int(ln.to(torch.int64).sum())
+        for name, (kern, plain) in calls.items():
+            got, want = kern(), plain()
+            if name == "rrx_count_stats":
+                compare(name, [x[:n] for x in got], want, f"config 4 {shape}, first {n} records")
+            else:
+                compare(name, [got[:, :n]], [want], f"config 4 {shape}, first {n} records", ("words",))
+            ms = time_ms(kern, warm=2, runs=7, per_run=5)
+            plain_ms = time_ms(plain, warm=1, runs=3)
+            bnd = kernel_bound(name.split("_", 2)[2], ln, d.shape[1], COUNT_STEP_OPS)
+            count_ms[name, shape] = (ms, plain_ms, bnd)
+            print(f"phase 7: {name} config 4 {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
+                  f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s, plain {plain_ms:.3f} ms on {n} records; "
+                  f"bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]")
+            print(f"  occupancy {name} ({shape}): {occupancy(name, ct4, d.shape[0])}; registers "
+                  f"{regs_of(name[4:] + '_kernelILi1E')}")
+        for what, fn in (("match_stats", lambda: eng4.match_stats(d, ln, seeded=True)),
+                         ("ends_bitmap", lambda: eng4.ends_bitmap(d, ln, L)),
+                         ("starts_bitmap", lambda: eng4.starts_bitmap(d, ln, L))):
+            if what != "match_stats" and shape == "1 GiB":
+                continue  # the host unpacks one bool per position: 10 MB only
+            ms = time_ms(fn, warm=1, runs=5)
+            print(f"phase 7: ScanEngine.{what} config 4 end to end (data on the card; bitmaps by the "
+                  f"words path, to the host), {shape}: "
+                  f"{ms:.3f} ms [{card}]")
+    # where config 4's ends_bitmap goes at 10 MB: the clamped words on the
+    # card (kernel + word clamp), the host's fetch and unpacking of them, and
+    # in the same process the route of unpacked flags (scan_xla.ends_bitmap:
+    # [B, L + 3] bools and a scatter), which the engine no longer takes
+    lg4 = l10_4.reshape(-1, 1)
+
+    def words_on_card():
+        w, _ = sc4.flags_words_b(d10_4, lg4, seeded=True)
+        return eng4._clamp_words(w.to(torch.int64) & 0xFFFFFFFF, l10_4, False)
+
+    def unpacked_on_card():
+        fl = sc4.forward_flags_b(d10_4, lg4, seeded=True)
+        return scan_xla.ends_bitmap(fl, l10_4, L, False, seeded=True)
+
+    if not np.array_equal(eng4._fetch_words_bitmap(words_on_card(), L), unpacked_on_card().cpu().numpy()):
+        fail("config 4 ends_bitmap: the words path != scan_xla.ends_bitmap over the unpacked flags")
+    words4 = words_on_card()
+    ms_w = time_ms(words_on_card, warm=1, runs=5)
+    ms_u = time_ms(unpacked_on_card, warm=1, runs=5)
+    ms_f = time_ms(lambda: eng4._fetch_words_bitmap(words4, L), warm=1, runs=5)
+    ms_e = time_ms(lambda: eng4.ends_bitmap(d10_4, l10_4, L), warm=1, runs=5)
+    print(f"phase 7: config 4 ends_bitmap 10 MB, one process: whole call {ms_e:.3f} ms = words on the "
+          f"card {ms_w:.3f} ms + host fetch and unpacking {ms_f:.3f} ms; unpacked-flags route on the "
+          f"card (no fetch) {ms_u:.3f} ms [{card}]")
+    for shape, d, ln in (("10 MB", torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)),
+                         ("1 GiB", big, big_len)):
+        ms = time_ms(lambda: eng13.match_stats(d, ln, seeded=True), warm=1, runs=5)
+        print(f"phase 7: ScanEngine.match_stats config 13 through its alias, {shape}: {ms:.3f} ms "
+              f"[{card}]")
+
+    # one anchored rescan (scan_xla.first_end_from) at the API's shape
+    pat4 = rrx_compile(CONFIG4, dev)
+    d_api, l_api, _, _ = pat4._pack(span_texts)
+    bm_api = pat4.engine.starts_bitmap(d_api, l_api, d_api.shape[1])
+    st_api = np.where(bm_api.any(axis=1), bm_api.argmax(axis=1), -1).astype(np.int32)
+    ms = time_ms(lambda: pat4.engine.first_end_from(d_api, l_api, st_api, longest=True), warm=1, runs=5)
+    print(f"phase 7: scan_xla.first_end_from (longest) of {CONFIG4} from each record's first start, "
+          f"[{d_api.shape[0]} x {d_api.shape[1]}]: {ms:.3f} ms [{card}]")
+
+    ms, plain_ms, bnd = flags_ms["10 MB"]
+    kernels.append({
+        "name": "rrx_nfa_flags", "route": "cuda", "source": NFA_SOURCE,
+        "replaces": REPLACES["rrx_nfa_flags"], "launches": count_launches["rrx_nfa_flags"],
+        "max_abs_err": max_err["rrx_nfa_flags"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "shape": f"config 7's 10 MB shape, {len(K30_WORDS)}-keyword log text",
+    })
+    for name in COUNT_KERNELS:
+        ms, plain_ms, bnd = count_ms[name, "10 MB"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": COUNT_SOURCE, "replaces": REPLACES[name],
+            "launches": count_launches[name], "max_abs_err": max_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None, "shape": f"config 4, 10 MB, {CONFIG4}",
+        })
+    if len(kernels) != 15:
+        fail(f"the kernels line lists {len(kernels)} entry points, not 15")
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -2,13 +2,16 @@
 
 The JAX package ``roaringregex_tpu`` is the reference. This package runs
 its batched match-stats path (``compile`` -> ``search_batch`` /
-``count_batch`` / ``grep`` / ``fullmatch_batch`` / ``fullmatch``) and
-span extraction (``finditer_batch``, ``finditer``, ``findall``,
-``search``, ``match``) for dense programs of up to 256 states (the SWAR,
-u32-word and matmul tiers) on an NVIDIA H100 through hand-written CUDA
-kernels (``csrc/scan_bits.cu``, ``csrc/scan_spans.cu``,
-``csrc/scan_nfa.cu``) and on the CPU through their plain PyTorch versions.
-It imports torch and never jax.
+``count_batch`` / ``grep`` / ``fullmatch_batch`` / ``fullmatch``), match
+positions (``ends_batch``, ``starts_batch``) and span extraction
+(``finditer_batch``, ``finditer``, ``findall``, ``search``, ``match``)
+for dense programs of up to 256 states (the SWAR, u32-word and matmul
+tiers), for whole-pattern ``X{m,n}`` of a fixed-length body (the counting
+tier) and for the seeded scans of a whole-pattern ``X{m,n}`` through its
+``X{m,}`` alias, on an NVIDIA H100 through hand-written CUDA kernels
+(``csrc/scan_bits.cu``, ``csrc/scan_spans.cu``, ``csrc/scan_nfa.cu``,
+``csrc/scan_count.cu``) and on the CPU through their plain PyTorch
+versions. It imports torch and never jax.
 """
 
 from .api import Match, Pattern, compile  # noqa: F401

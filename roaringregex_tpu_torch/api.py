@@ -9,15 +9,17 @@ shortest end, non-overlapping, empty matches advance by one) or POSIX
 leftmost-longest with ``longest=True``.
 
 Spans run on the device in O(1) dispatches, as on the JAX package's
-pallas backend: one reverse pass, then the lazy span kernel or the greedy
-round kernel, on the SWAR tier's kernels or the matmul tier's (every
-other program the engine takes: u32-word and 33..256-state programs, and
-nullable greedy spans, which fall back to the empty match where no longer
-one starts). The JAX package's other route, host rounds over
-``starts_bitmap``, serves only the counting, bitband and container tiers
-and multi-pattern accept maps, which the port's engine refuses at
-construction. ``MultiPattern`` and long strings are not ported yet
-(ROADMAP.md).
+pallas backend, wherever the engine's scanner has anchored kernels: one
+reverse pass, then the lazy span kernel or the greedy round kernel, on the
+SWAR tier's kernels or the matmul tier's (every other dense program the
+engine takes: u32-word and 33..256-state programs, and nullable greedy
+spans, which fall back to the empty match where no longer one starts).
+The counting tier and the programs that run through their seeded alias
+take the JAX package's other route: host rounds over ``starts_bitmap``,
+each round one batched anchored rescan (``ScanEngine.first_end_from``).
+``ends_batch`` and ``starts_batch`` return every match end and start
+position; ``dump`` returns a text dump of the automaton. ``MultiPattern``
+and long strings are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -69,6 +71,11 @@ class Pattern:
     def pattern(self) -> str:
         return self.program.pattern
 
+    def dump(self, full: bool = False) -> str:
+        """NFA dump; ``full=True`` adds per-state per-symbol forward and
+        backward transition rows."""
+        return self.program.nfa.dump(full=full)
+
     def _pack(self, texts: Sequence[TextLike]):
         """Texts -> (data [Bp, Lp] uint8, lengths [Bp] int32, B, maxlen),
         with B and the width padded to powers of two as the JAX package
@@ -100,12 +107,29 @@ class Pattern:
         cnt, _, _ = self.engine.match_stats(data, lengths, seeded=True)
         return cnt.cpu().numpy()[:B]
 
+    def ends_batch(self, texts: Sequence[TextLike]) -> List[List[int]]:
+        """Every position at which some match ends, per record."""
+        data, lengths, B, maxlen = self._pack(texts)
+        bm = self.engine.ends_bitmap(data, lengths, maxlen)
+        return [[int(p) for p in np.nonzero(bm[i])[0] if p <= lengths[i]] for i in range(B)]
+
+    def starts_batch(self, texts: Sequence[TextLike]) -> List[List[int]]:
+        """Every position at which some match starts, per record."""
+        data, lengths, B, maxlen = self._pack(texts)
+        bm = self.engine.starts_bitmap(data, lengths, maxlen)
+        return [[int(p) for p in np.nonzero(bm[i])[0] if p <= lengths[i]] for i in range(B)]
+
     def finditer_batch(
         self, texts: Sequence[TextLike], *, longest: bool = False
     ) -> List[List[Tuple[int, int]]]:
         """Non-overlapping spans for every record: lazy (leftmost-shortest,
-        default) or greedy (``longest=True``, leftmost-longest, POSIX)."""
+        default) or greedy (``longest=True``, leftmost-longest, POSIX). On
+        the device in O(1) dispatches where the scanner has anchored
+        kernels, else in host rounds over ``starts_bitmap``."""
         data, lengths, B, maxlen = self._pack(texts)
+        sc = self.engine.device_scanner
+        if sc is None or not sc.has_anchor:
+            return self._finditer_rounds(data, lengths, B, maxlen, longest)
         eng = self.engine
         if self.program.nullable and not longest:
             # lazy spans of a nullable pattern: the empty match at every
@@ -137,6 +161,44 @@ class Pattern:
             list(zip(s_np[i, : c_np[i]].tolist(), e_np[i, : c_np[i]].tolist()))
             for i in range(B)
         ]
+
+    def _finditer_rounds(self, data, lengths, B, maxlen, longest):
+        """Host rounds: each round, every active record takes its first
+        start at or after ``pos`` from the starts bitmap, one batched
+        anchored rescan gives its end (the lazy end of a nullable pattern
+        is the start itself; a greedy nullable one falls back to it), and
+        ``pos`` moves past the span."""
+        bm = self.engine.starts_bitmap(data, lengths, maxlen)  # [Bp, maxlen + 1]
+        nullable = self.program.nullable
+        Bp = bm.shape[0]
+        spans: List[List[Tuple[int, int]]] = [[] for _ in range(Bp)]
+        pos = np.zeros(Bp, dtype=np.int64)
+        active = np.arange(Bp) < B  # padding records inactive
+        cols = np.arange(bm.shape[1])[None, :]
+        while True:
+            mask = bm & (cols >= pos[:, None]) & (cols <= lengths[:, None]) & active[:, None]
+            has = mask.any(axis=1)
+            starts = np.where(has, mask.argmax(axis=1), -1).astype(np.int32)
+            active &= has
+            if not active.any():
+                break
+            if nullable and not longest:
+                ends = starts
+            else:
+                ends = self.engine.first_end_from(data, lengths, starts, longest=longest)
+                ends = ends.cpu().numpy()
+                if nullable:
+                    ends = np.where(ends >= starts, ends, starts)
+            for i in np.nonzero(active)[0]:
+                s, e = int(starts[i]), int(ends[i])
+                if e < s:
+                    raise RuntimeError(f"{self.pattern!r}: record {i} has a start at {s} "
+                                       f"but its anchored rescan ended at {e}")
+                spans[i].append((s, e))
+                pos[i] = e if e > s else s + 1
+                if pos[i] > lengths[i]:
+                    active[i] = False
+        return spans[:B]
 
     def finditer(self, text: TextLike, *, longest: bool = False) -> Iterator[Match]:
         b = _as_bytes(text)

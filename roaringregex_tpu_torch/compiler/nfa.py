@@ -12,8 +12,8 @@ the only byte-dependent work is one mask lookup per step.
 
 Differences from the JAX package's module: ``build_nfa`` runs the
 pure-Python build only (the native C++ compiler is not ported yet; its
-output is identical), and the multi-pattern union and the text dump are
-left out with ``MultiPattern`` and ``Pattern.dump``.
+output is identical), and the multi-pattern union is left out with
+``MultiPattern``.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from typing import List, Optional, Set
 
 import numpy as np
 
-from .parser import NSYM, Alt, Concat, Empty, Lit, Node, Repeat, parse
+from .parser import BOS, EOS, NSYM, Alt, Concat, Empty, Lit, Node, Repeat, parse
 
 # Hard cap so pathological patterns fail loudly instead of allocating
 # gigabyte tables.
@@ -175,6 +175,14 @@ class NFA:
     _symtab: Optional[np.ndarray] = None
     _accept_vec: Optional[np.ndarray] = None
 
+    def get_follow_sets(self) -> List[Set[int]]:
+        """List-of-sets view (materialized on demand from the edge array)."""
+        if self.follow_sets is None:
+            e = self.edges
+            splits = np.searchsorted(e[:, 0], np.arange(1, self.n_states))
+            self.follow_sets = [set(p.tolist()) for p in np.split(e[:, 1], splits)]
+        return self.follow_sets
+
     def get_edges(self) -> np.ndarray:
         """Edge-array view (materialized on demand from the sets)."""
         if self.edges is None:
@@ -219,6 +227,85 @@ class NFA:
                 v[p] = 1
             self._accept_vec = v
         return self._accept_vec
+
+    def dump(self, full: bool = False) -> str:
+        """Human-readable NFA dump: pattern, accept set, and each state's
+        follow set and label. With ``full=True``, also the per-state
+        per-symbol forward and backward transition rows, grouped into
+        maximal symbol runs with identical targets (all-empty rows left
+        out). The JAX package's ``NFA.dump``, line for line."""
+        lines = [
+            f"pattern: {self.pattern!r}",
+            f"states: {self.n_states} (state 0 = initial)",
+            f"accept: {sorted(self.accept_set)}  nullable: {self.nullable}",
+        ]
+        fs = self.get_follow_sets()
+        for i in range(self.n_states):
+            lab = "" if i == 0 else f"  label={_fmt_syms(self.labels[i - 1])}"
+            lines.append(f"  {i}: follow={sorted(fs[i])}{lab}")
+        if not full:
+            return "\n".join(lines)
+
+        def sym_name(c: int) -> str:
+            if c == BOS:
+                return "BOS(^)"
+            if c == EOS:
+                return "EOS($)"
+            return repr(chr(c)) if 32 <= c < 127 else f"\\x{c:02x}"
+
+        def runs_of(row):
+            """row: sym -> targets; [(lo, hi, targets)] over maximal runs."""
+            out = []
+            for c in range(NSYM):
+                t = row.get(c)
+                if not t:
+                    continue
+                if out and out[-1][1] == c - 1 and out[-1][2] == t:
+                    out[-1] = (out[-1][0], c, t)
+                else:
+                    out.append((c, c, t))
+            return out
+
+        B = self.symtab  # [NSYM, S]
+        lines.append("transition rows (fwd: state -byte-> targets; "
+                     "bwd: mirrored predecessor rows):")
+        for i in range(self.n_states):
+            fwd = {}
+            for t in sorted(fs[i]):
+                for c in np.nonzero(B[:, t])[0]:
+                    fwd.setdefault(int(c), set()).add(t)
+            bwd = {}
+            if i > 0:
+                preds = [s for s in range(self.n_states) if i in fs[s]]
+                for c in np.nonzero(B[:, i])[0]:
+                    bwd[int(c)] = set(preds)
+            row_lines = []
+            for lo, hi, t in runs_of(fwd):
+                span = sym_name(lo) if lo == hi else f"{sym_name(lo)}-{sym_name(hi)}"
+                row_lines.append(f"    fwd {span} -> {sorted(t)}")
+            for lo, hi, t in runs_of(bwd):
+                span = sym_name(lo) if lo == hi else f"{sym_name(lo)}-{sym_name(hi)}"
+                row_lines.append(f"    bwd {span} -> {sorted(t)}")
+            if row_lines:
+                lines.append(f"  state {i}:")
+                lines.extend(row_lines)
+        return "\n".join(lines)
+
+
+def _fmt_syms(syms: frozenset) -> str:
+    names = []
+    for c in sorted(syms):
+        if c == BOS:
+            names.append("^")
+        elif c == EOS:
+            names.append("$")
+        elif 32 <= c < 127:
+            names.append(chr(c))
+        else:
+            names.append(f"\\x{c:02x}")
+    if len(names) > 12:
+        return f"[{''.join(names[:12])}...{len(names)} syms]"
+    return f"[{''.join(names)}]"
 
 
 def build_nfa(pattern: str) -> NFA:

@@ -195,12 +195,16 @@ int rrx_word_stats(const void* data, long long stride, int L, const void* length
 // 4 rrx_swar_anchor_end, 5 rrx_swar_greedy_spans; for these `size` is the
 // table's delta count. Then the matmul-tier kernels of scan_nfa.cu:
 // 6 rrx_nfa_stats, 7 rrx_nfa_reverse, 8 rrx_nfa_anchor_end,
-// 9 rrx_nfa_lazy_spans, 10 rrx_nfa_greedy_spans; for these `size` is s_tile.
+// 9 rrx_nfa_lazy_spans, 10 rrx_nfa_greedy_spans, 11 rrx_nfa_flags; for these
+// `size` is s_tile. Then the counting-tier kernels of scan_count.cu:
+// 12 rrx_count_stats, 13 rrx_count_flags, 14 rrx_count_reverse; for these
+// `size` is the body length k.
 int rrx_occupancy(int kernel, int size, int* blocks_per_sm) {
   if (kernel == 0) return occupancy<8>(size, blocks_per_sm);
   if (kernel == 1) return occupancy<32>(size, blocks_per_sm);
   if (kernel < 6) return spans_occupancy(kernel - 2, size, blocks_per_sm);
-  return nfa_occupancy(kernel - 6, size, blocks_per_sm);
+  if (kernel < 12) return nfa_occupancy(kernel - 6, size, blocks_per_sm);
+  return count_occupancy(kernel - 12, size, blocks_per_sm);
 }
 
 int rrx_threads_per_block() { return kThreads; }

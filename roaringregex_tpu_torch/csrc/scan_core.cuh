@@ -183,7 +183,11 @@ int spans_occupancy(int kernel, int n_d, int* blocks_per_sm);
 
 // Resident blocks per SM of the matmul-tier kernels (scan_nfa.cu) for a
 // record tile of s_tile states, by index: 0 stats, 1 reverse, 2 anchor end,
-// 3 lazy spans, 4 greedy spans.
+// 3 lazy spans, 4 greedy spans, 5 flags.
 int nfa_occupancy(int kernel, int s_tile, int* blocks_per_sm);
+
+// Resident blocks per SM of the counting-tier kernels (scan_count.cu) for a
+// body of k positions, by index: 0 stats, 1 flags, 2 reverse.
+int count_occupancy(int kernel, int k, int* blocks_per_sm);
 
 }  // namespace rrx

@@ -3,10 +3,13 @@
 // 256 states (the dense128 and dense256 tiers; also the SWAR tier's nullable
 // spans and the u32-word tier's spans and windowed scans).
 //
-// Replaces four Pallas TPU kernels of the JAX package and the XLA glue
+// Replaces six Pallas TPU kernels of the JAX package and the XLA glue
 // around them (all in roaringregex_tpu/ops/scan_pallas.py):
 //   rrx_nfa_stats        <- _match_kernel_b (via _match_call_b)
-//   rrx_nfa_reverse      <- _reverse_kernel_b (via _reverse_pl)
+//   rrx_nfa_flags        <- _flags_kernel_b (via _flags_call_b) and its
+//                           bit-packed form _flags_words_kernel_b
+//   rrx_nfa_reverse      <- _reverse_kernel_b (via _reverse_pl); its hit
+//                           words are also _reverse_words_kernel_b's output
 //   rrx_nfa_anchor_end   <- _anchor_end_kernel_b (via _anchor_pl)
 //   rrx_nfa_lazy_spans   <- _span_kernel_b (via _spans_call_b), with the
 //                           event-stream compaction after it
@@ -34,6 +37,11 @@
 //   whose cnt is len + 1; first keeps the first e, last the latest, full is
 //   a flag at t >= len. Nullable starts: first = 0, cnt = len + 1 and
 //   last = len (seeded) or cnt = 1 and last = 0 (unseeded), full = len == 0.
+// - flags: the raw accept flag of every step (seed gate as stats, no lead,
+//   no `$` dedup) as flag words [W][R] uint32 in the layout of the hit
+//   words below: 32 steps collected in a register, one coalesced store per
+//   word, words past the EOS step zero. 1 bit per step leaves the card
+//   where the TPU's _flags_kernel_b wrote an int8.
 // - reverse: hit words [W][R] uint32, W = ceil((L+2)/32), bit t of record r
 //   in word t/32 (the layout of rrx_swar_reverse, so scan_bits.hit_bits and
 //   the span kernels read both).
@@ -245,6 +253,30 @@ nfa_stats_kernel(NFA_KERNEL_HEAD, int seeded, int lead, int nullable, int32_t* _
 
 template <int W>
 __global__ void __launch_bounds__(kThreads)
+nfa_flags_kernel(NFA_KERNEL_HEAD, int seeded, uint32_t* __restrict__ flags) {
+  NFA_KERNEL_BEGIN;
+  const int Wh = (L + 2 + 31) >> 5;
+  uint32_t v[W];
+  clear(v);
+  uint32_t word = 0u;
+  auto step = [&](int t, int sym) {
+    nfa.fwd(v, seeded || t < 2, sym);
+    word |= (nfa.accepts(v) ? 1u : 0u) << (t & 31);
+    if ((t & 31) == 31) {  // walking up, bit t closes word t / 32
+      flags[(size_t)(t >> 5) * R + r] = word;
+      word = 0u;
+    }
+  };
+  step(0, kBos);
+  walk_fwd(rec.row, 0, len, step, [] { return false; });
+  step(len + 1, kEos);
+  const int w_eos = (len + 1) >> 5;
+  if (((len + 1) & 31) != 31) flags[(size_t)w_eos * R + r] = word;
+  for (int w = w_eos + 1; w < Wh; ++w) flags[(size_t)w * R + r] = 0u;
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
 nfa_reverse_kernel(NFA_KERNEL_HEAD, uint32_t* __restrict__ hits) {
   NFA_KERNEL_BEGIN;
   const int Wh = (L + 2 + 31) >> 5;
@@ -412,6 +444,8 @@ int nfa_occupancy(int kernel, int s_tile, int* blocks_per_sm) {
         return occupancy(nfa_lazy_spans_kernel<W>, s_tile, W, blocks_per_sm);
       case 4:
         return occupancy(nfa_greedy_spans_kernel<W>, s_tile, W, blocks_per_sm);
+      case 5:
+        return occupancy(nfa_flags_kernel<W>, s_tile, W, blocks_per_sm);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -438,6 +472,17 @@ int rrx_nfa_stats(RRX_NFA_HEAD, int seeded, int lead, int nullable, void* cnt, v
     return launch(nfa_stats_kernel<W>, R, s_tile, W, stream, RRX_NFA_ARGS, seeded, lead,
                   nullable, static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
                   static_cast<int32_t*>(last), static_cast<uint8_t*>(full));
+  });
+}
+
+// flags: [ceil((L+2)/32)][R] uint32, bit t = step t's accept flag
+int rrx_nfa_flags(RRX_NFA_HEAD, int seeded, void* flags, void* stream) {
+  const int bad = check_rows(data, stride, L, R);
+  if (bad != 0) return bad;
+  return by_words(s_tile, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return launch(nfa_flags_kernel<W>, R, s_tile, W, stream, RRX_NFA_ARGS, seeded,
+                  static_cast<uint32_t*>(flags));
   });
 }
 

@@ -1,14 +1,24 @@
 """Scan engine: routes a compiled program to its scan tier on one device.
 
-The port of ``roaringregex_tpu/engine.py``'s batched match-stats and
-span primitives. A dense program of up to 256 states (the dense128 and
-dense256 tiers) goes, as in the JAX engine on its pallas backend, to the
-8-state SWAR tier when ``swar_spec`` accepts it, else to the u32-word tier
-when ``word_spec`` does, else to the matmul tier (``PallasScanner``).
-Programs that the JAX engine sends elsewhere raise ``NotImplementedError``
-naming the tier: a one-record-per-row program with a counting plan (the
-counting tier), and every multiblock or sparse program (the counting,
-bitband, container and multiblock matmul tiers); ROADMAP.md queues them.
+The port of ``roaringregex_tpu/engine.py``'s batched primitives: match
+statistics, forward flags, position bitmaps, reverse hits, anchored
+rescans and spans. Routing is the JAX engine's on its pallas backend
+(``engine.py:209-228`` and after): a program of one record per row (G <=
+1) with a counting plan goes to the counting tier (``CountScanner``) on
+any tier; a dense program of up to 256 states to the 8-state SWAR tier
+when ``swar_spec`` accepts it, else to the u32-word tier when
+``word_spec`` does, else to the matmul tier (``PallasScanner``).
+
+A whole-pattern ``X{m,n}`` on the multiblock or sparse tier with no
+counting plan may have a seeded alias (:func:`seeded_alias_program`): its
+seeded primitives (match stats, forward flags, reverse hits, the lazy
+anchored rescan, both bitmaps) run on the alias's engine, as in the JAX
+package. Such a program's own tier (bitband, container or multiblock
+matmul) is not ported: its engine holds no scanner of its own, and every
+primitive that needs the original program (unseeded scans, fullmatch,
+greedy rescans, device spans) raises ``NotImplementedError`` naming the
+tier. A multiblock or sparse program with neither a counting plan nor an
+alias is refused at construction; ROADMAP.md queues those tiers.
 
 Engine primitives take raw byte batches: ``data`` [B, L] uint8 and
 ``lengths`` [B] int32 (numpy or torch), moved to the engine's device.
@@ -21,8 +31,61 @@ import torch
 import torch.nn.functional as F
 
 from .compiler.program import DeviceProgram
+from .ops import scan_bits as sb
+from .ops import scan_xla as sx
 
 DENSE_TIERS = ("dense128", "dense256")
+MASK32 = sb.MASK32
+
+
+def seeded_alias_program(prog: DeviceProgram):
+    """The program of the ``X{m,}`` alias of a whole-pattern ``X{m,n}`` on
+    the multiblock or sparse tier, or None (the JAX package's
+    ``seeded_alias_program``, unchanged, on the port's compiler).
+
+    Under seeded semantics (a match may start anywhere) the upper bound is
+    unobservable: any chain of L >= m consecutive X-matches ending (or
+    starting) at a position contains a min(L, n)-copy sub-chain ending
+    (starting) there, so the ends, starts, count, first-end and lazy-span
+    sets of ``X{m,n}`` equal those of ``X{m,}``, whose automaton has m
+    copies of X instead of n. Unseeded scans (fullmatch, greedy anchored
+    rescans) observe the bound and keep the original program."""
+    if prog.tier not in ("multiblock", "sparse"):
+        return None
+    from .ops.scan_pallas import counting_plan
+
+    if counting_plan(prog) is not None:
+        return None  # the counting tier already collapses it
+    try:
+        from .compiler.nfa import build_nfa_ast
+        from .compiler.parser import BOS, EOS, Concat, Lit, Repeat, parse
+        from .compiler.program import compile_program
+
+        node = parse(prog.pattern)
+        while isinstance(node, Concat) and len(node.parts) == 1:
+            node = node.parts[0]
+        if not (isinstance(node, Repeat) and node.hi is not None and node.lo >= 1):
+            return None
+
+        def has_anchor(nd):
+            if isinstance(nd, Lit):
+                return BOS in nd.syms or EOS in nd.syms
+            parts = getattr(nd, "parts", None) or (
+                (nd.child,) if isinstance(nd, Repeat) else ()
+            )
+            return any(has_anchor(p) for p in parts)
+
+        if has_anchor(node.child):
+            return None
+        alias_ast = Repeat(node.child, node.lo, None)
+        nfa = build_nfa_ast(alias_ast, f"<seeded-alias:{prog.pattern}>")
+        if nfa.nullable or nfa.n_states > 256:
+            return None
+        if nfa.n_states * 2 > prog.n_states:
+            return None  # not actually a blowup collapse
+        return compile_program(nfa)
+    except Exception:  # the alias is best-effort, as in the JAX package
+        return None
 
 
 class ScanEngine:
@@ -30,63 +93,112 @@ class ScanEngine:
     primitives."""
 
     def __init__(self, prog: DeviceProgram, device):
-        from .ops.scan_pallas import PallasScanner, counting_plan
+        from .ops.scan_pallas import CountScanner, PallasScanner, counting_plan
         from .ops.scan_swar import SwarScanner, swar_spec
         from .ops.scan_word import WordScanner, word_spec
         from .utils.config import get_config
 
         self.prog = prog
         self.device = torch.device(device)
+        self._scanner = None
+        self._xla_tables = None
         cfg = get_config()
-        if prog.tier not in DENSE_TIERS:
-            self._unported(
-                "the JAX package runs it on the counting, bitband, container or "
-                "multiblock matmul tiers"
-            )
-        if cfg.swar and swar_spec(prog) is not None:
+        plan = counting_plan(prog) if prog.G <= 1 else None
+        if plan is not None:
+            # run-length tier: one int per record, no follow table
+            self._scanner = CountScanner(prog, plan, self.device)
+        elif prog.tier not in DENSE_TIERS:
+            if self._seeded_alias() is None:
+                raise NotImplementedError(self._unported(
+                    "the JAX package runs it on the bitband, container or multiblock matmul "
+                    "tiers, and it has neither a counting plan nor a seeded alias"
+                ))
+        elif cfg.swar and swar_spec(prog) is not None:
             self._scanner = SwarScanner(prog, self.device)
         elif cfg.swar and word_spec(prog) is not None:
             self._scanner = WordScanner(prog, self.device)
-        elif prog.G <= 1 and counting_plan(prog) is not None:
-            self._unported("the JAX package runs it on the counting tier (CountScanner)")
         else:
             self._scanner = PallasScanner(prog, self.device)
 
-    def _unported(self, why: str):
+    def _unported(self, why: str) -> str:
         p = self.prog
-        raise NotImplementedError(
-            f"{p.pattern!r}: tier {p.tier}, {p.n_states} states ({why}); the port "
-            "has the SWAR, u32-word and matmul tiers for dense programs of up to "
-            "256 states, the counting, bitband and container tiers are still to be "
-            "ported (see ROADMAP.md)"
+        return (
+            f"{p.pattern!r}: tier {p.tier}, {p.n_states} states ({why}); the port has the "
+            "SWAR, u32-word and matmul tiers for dense programs of up to 256 states, the "
+            "counting tier and the seeded alias; the bitband, container and multiblock "
+            "matmul tiers are still to be ported (see ROADMAP.md)"
         )
+
+    def _own(self):
+        """The program's own scanner; raises for a program that runs only
+        through its seeded alias."""
+        if self._scanner is None:
+            raise NotImplementedError(self._unported(
+                "only its seeded primitives run, on its seeded alias; this primitive needs "
+                "the original program"
+            ))
+        return self._scanner
 
     @property
     def device_scanner(self):
-        """The selected kernel scanner (SwarScanner, WordScanner or
-        PallasScanner)."""
+        """The selected kernel scanner (SwarScanner, WordScanner,
+        PallasScanner or CountScanner), or None for a program that runs
+        only through its seeded alias."""
         return self._scanner
 
+    # -- seeded alias: X{m,n} == X{m,} under seeded semantics --------------
+    def _seeded_alias(self):
+        """Cached engine over ``seeded_alias_program(self.prog)``, or None."""
+        if not getattr(self, "_alias_built", False):
+            self._alias_built = True
+            aprog = seeded_alias_program(self.prog)
+            self._alias = None if aprog is None else ScanEngine(aprog, self.device)
+        return self._alias
+
+    @staticmethod
+    def _alias_call(alias, name, data, lengths, *args, **kw):
+        """Call ``alias.name``, rounding B up to the alias's packing group
+        with zero-length records (the original program has G = 1, the
+        alias a dense tier's G)."""
+        data = alias._data(data)
+        lengths = torch.as_tensor(lengths, device=alias.device)
+        G = max(1, alias.prog.G)
+        B = data.shape[0]
+        pad = -B % G
+        if pad:
+            data = F.pad(data, (0, 0, 0, pad))
+            lengths = F.pad(lengths, (0, pad))
+            args = tuple(F.pad(torch.as_tensor(a, device=alias.device), (0, pad)) for a in args)
+        out = getattr(alias, name)(data, lengths, *args, **kw)
+        if not pad:
+            return out
+        if isinstance(out, tuple):
+            return tuple(o[:B] for o in out)
+        return out[:B]
+
+    # -- batches ------------------------------------------------------------
     def _len_g(self, lengths) -> torch.Tensor:
         return torch.as_tensor(lengths, device=self.device).reshape(-1, self.prog.G)
 
     def _data(self, data) -> torch.Tensor:
         return torch.as_tensor(data, dtype=torch.uint8, device=self.device)
 
+    # -- match statistics ------------------------------------------------------
     def match_stats(self, data, lengths, *, seeded: bool):
-        """(count, first_end, any) per record, each [B]. The JAX engine's
-        seeded-alias and prefilter rewrites apply only to multiblock and
-        sparse programs, which the port does not route yet."""
+        """(count, first_end, any) per record, each [B]. Seeded scans of a
+        program with a seeded alias run on the alias."""
+        alias = self._seeded_alias()
+        if seeded and alias is not None:
+            return self._alias_call(alias, "match_stats", data, lengths, seeded=True)
         return self._match_stats_raw(data, lengths, seeded=seeded)
 
     def _match_stats_raw(self, data, lengths, *, seeded: bool):
+        sc = self._own()
         data = self._data(data)
         plan = self._window_plan(data.shape[1], data.shape[0], seeded)
         if plan is not None:
             return self._match_stats_windowed(data, lengths, *plan)
-        cnt, first, _, _, anym = self._scanner.match_stats_b(
-            data, self._len_g(lengths), seeded=seeded
-        )
+        cnt, first, _, _, anym = sc.match_stats_b(data, self._len_g(lengths), seeded=seeded)
         return cnt.reshape(-1), first.reshape(-1), anym.reshape(-1)
 
     def _window_plan(self, L: int, B: int, seeded: bool):
@@ -94,16 +206,16 @@ class ScanEngine:
         or None: the JAX engine's rule, unchanged. Exact for (cnt, first,
         any) when every match fits in ``h = prog.horizon`` bytes, the
         pattern is anchor-free and non-nullable; the SWAR tier windows
-        itself and the u32-word tier never does. Off unless
-        ``window_cols`` (``RRX_WINDOW_COLS``) is set."""
-        from .ops.scan_swar import SwarScanner
-        from .ops.scan_word import WordScanner
+        itself, the u32-word tier never does, and the counting tier has no
+        windowed mode. Off unless ``window_cols`` (``RRX_WINDOW_COLS``) is
+        set."""
+        from .ops.scan_pallas import PallasScanner
         from .utils.config import get_config
 
         p = self.prog
         if (
             not seeded
-            or isinstance(self._scanner, (SwarScanner, WordScanner))
+            or type(self._scanner) is not PallasScanner
             or p.nullable
             or p.uses_anchor
         ):
@@ -146,32 +258,129 @@ class ScanEngine:
         first_rec = torch.where(fmin >= big, -1, fmin).to(torch.int32)
         return cnt_rec, first_rec, cnt_rec > 0
 
+    # -- flags, hits and anchored rescans -------------------------------------
+    def forward_flags(self, data, lengths, *, seeded: bool) -> torch.Tensor:
+        """[B, T + 1] bool accept flags, T = L + 2 (column 0 = the
+        program's nullability, column t + 1 = step t)."""
+        alias = self._seeded_alias()
+        if seeded and alias is not None:
+            return self._alias_call(alias, "forward_flags", data, lengths, seeded=True)
+        return self._own().forward_flags_b(self._data(data), self._len_g(lengths), seeded=seeded)
+
     def reverse_hits(self, data, lengths) -> torch.Tensor:
         """[B, L + 2] bool start-position hits (step t = start max(t-1, 0))."""
-        return self._scanner.reverse_hits_b(self._data(data), self._len_g(lengths))
+        alias = self._seeded_alias()
+        if alias is not None:
+            return self._alias_call(alias, "reverse_hits", data, lengths)
+        return self._own().reverse_hits_b(self._data(data), self._len_g(lengths))
 
     def first_end_from(self, data, lengths, starts, *, longest: bool = False):
         """Anchored-rescan end per record [B] (-1 = none): smallest end (lazy
         policy) or, with ``longest=True``, largest end (greedy leftmost-
-        longest, the POSIX policy)."""
-        starts_g = torch.as_tensor(starts, device=self.device).reshape(-1, self.prog.G)
-        first = self._scanner.anchor_end_b(
-            self._data(data), self._len_g(lengths), starts_g, longest=longest
-        )
-        return first.reshape(-1)
+        longest, the POSIX policy). The lazy end of X{m,n} and of its
+        seeded alias X{m,} is the same m-copy chain; the greedy end
+        observes n and stays on the original. A scanner without anchored
+        kernels (the counting tier) answers with ``scan_xla.first_end_from``."""
+        alias = self._seeded_alias()
+        if not longest and alias is not None:
+            return self._alias_call(alias, "first_end_from", data, lengths, starts,
+                                    longest=False)
+        sc = self._own()
+        data = self._data(data)
+        if sc.has_anchor:
+            starts_g = torch.as_tensor(starts, device=self.device).reshape(-1, self.prog.G)
+            first = sc.anchor_end_b(data, self._len_g(lengths), starts_g, longest=longest)
+            return first.reshape(-1)
+        p = self.prog
+        if self._xla_tables is None:
+            self._xla_tables = sx.device_tables(p, self.device)
+        lengths = torch.as_tensor(lengths, device=self.device)
+        cls = sx.encode_stream(self._xla_tables, data, lengths, p.bos_class, p.eos_class)
+        starts = torch.as_tensor(starts, device=self.device)
+        return sx.first_end_from(self._xla_tables, cls, lengths, starts, longest=longest)
+
+    # -- spans ------------------------------------------------------------------
+    def _span_scanner(self):
+        sc = self._own()
+        if not sc.has_anchor:
+            raise NotImplementedError(
+                f"{self.prog.pattern!r}: {type(sc).__name__} has no span kernels; "
+                "Pattern.finditer_batch takes host rounds over starts_bitmap for it"
+            )
+        return sc
 
     def lazy_spans(self, data, lengths, *, cap: int):
         """(starts [B, cap], ends [B, cap], count [B]): lazy spans."""
-        return self._scanner.lazy_spans_b(self._data(data), self._len_g(lengths), cap=cap)
+        sc = self._span_scanner()
+        return sc.lazy_spans_b(self._data(data), self._len_g(lengths), cap=cap)
 
     def greedy_spans(self, data, lengths, *, cap: int):
         """(starts, ends, count, overflow): greedy (leftmost-longest) spans."""
-        return self._scanner.greedy_spans_b(self._data(data), self._len_g(lengths), cap=cap)
+        sc = self._span_scanner()
+        return sc.greedy_spans_b(self._data(data), self._len_g(lengths), cap=cap)
+
+    # -- bitmaps ----------------------------------------------------------------
+    # Every scanner writes its flags and hits as bit-packed [B, Wt] words
+    # (flags_words_b / hits_words_b): the bitmaps clamp and fold them in the
+    # word domain and one bit per position crosses to the host.
+    @staticmethod
+    def _clamp_words(words: torch.Tensor, lengths: torch.Tensor, nullable: bool) -> torch.Tensor:
+        """Word-domain position clamp on [B, Wt] position words (int64
+        holding uint32 bit patterns): keep bits t <= len, fold any bit past
+        len into bit len, and (nullable) set every position <= len:
+        ``scan_xla.ends_bitmap`` / ``starts_bitmap`` on bit-packed words."""
+        B, Wt = words.shape
+        ln = lengths.to(torch.int64)[:, None]
+        wi = torch.arange(Wt, device=words.device)[None, :] * 32
+        lo = (ln + 1 - wi).clamp(0, 32)
+        keep = torch.where(lo >= 32, MASK32, (torch.ones_like(lo) << lo.clamp(max=31)) - 1)
+        tail = ((words & ~keep & MASK32) != 0).any(dim=1)
+        out = words & keep
+        wl = torch.arange(Wt, device=words.device)[None, :] == ln // 32
+        out = out | ((wl & tail[:, None]).to(torch.int64) << (ln % 32))
+        if nullable:
+            out = out | keep
+        return out
+
+    @staticmethod
+    def _fetch_words_bitmap(words: torch.Tensor, max_len: int) -> np.ndarray:
+        """[B, Wt] position words on the device -> host bool bitmap [B,
+        max_len + 1]: one bit per position crosses to the host."""
+        w = np.ascontiguousarray(words.to(torch.int64).cpu().numpy().astype(np.uint32))
+        bits = np.unpackbits(w.view(np.uint8).reshape(w.shape[0], -1), axis=1,
+                             bitorder="little")
+        return bits[:, : max_len + 1].astype(bool)
+
+    def ends_bitmap(self, data, lengths, max_len: int) -> np.ndarray:
+        """[B, max_len + 1] bool host bitmap: some match ends at position e."""
+        alias = self._seeded_alias()
+        if alias is not None:
+            return self._alias_call(alias, "ends_bitmap", data, lengths, max_len=max_len)
+        lengths = torch.as_tensor(lengths, device=self.device)
+        w, _ = self._own().flags_words_b(self._data(data), self._len_g(lengths), seeded=True)
+        words = self._clamp_words(w.to(torch.int64) & MASK32, lengths, self.prog.nullable)
+        return self._fetch_words_bitmap(words, max_len)
+
+    def starts_bitmap(self, data, lengths, max_len: int) -> np.ndarray:
+        """[B, max_len + 1] bool host bitmap: some match starts at position s."""
+        alias = self._seeded_alias()
+        if alias is not None:
+            return self._alias_call(alias, "starts_bitmap", data, lengths, max_len=max_len)
+        lengths = torch.as_tensor(lengths, device=self.device)
+        w, _ = self._own().hits_words_b(self._data(data), self._len_g(lengths))
+        w = w.to(torch.int64) & MASK32
+        # start s = max(t - 1, 0): funnel-shift the stream down one bit
+        # (steps 0 and 1 both land on s = 0)
+        nxt = torch.cat([w[:, 1:], torch.zeros_like(w[:, :1])], dim=1)
+        sh = (w >> 1) | ((nxt << 31) & MASK32)
+        sh[:, 0] |= w[:, 0] & 1
+        words = self._clamp_words(sh, lengths, self.prog.nullable)
+        return self._fetch_words_bitmap(words, max_len)
 
     def fullmatch_flags(self, data, lengths) -> np.ndarray:
         """[B] bool whole-string acceptance: the ``full`` statistic of an
         unseeded scan."""
-        _, _, _, full, _ = self._scanner.match_stats_b(
+        _, _, _, full, _ = self._own().match_stats_b(
             self._data(data), self._len_g(lengths), seeded=False
         )
         return full.reshape(-1).cpu().numpy()

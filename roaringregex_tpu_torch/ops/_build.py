@@ -44,6 +44,10 @@ _NFA_HEAD = [
     _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
     _P, _I,  # tab, s_tile
 ]
+_COUNT_HEAD = [
+    _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
+    _P, _I, _I, _I, _I,  # tab, k, n_br, m, n
+]
 _STATS_TAIL = [_I, _I, _I, _P, _P, _P, _P]  # seeded, lead, nullable, cnt, first, last, full
 # every entry point: its head, its own arguments, then the stream. The
 # order is rrx_occupancy's kernel index.
@@ -60,6 +64,10 @@ ARGTYPES = {
     "rrx_nfa_lazy_spans": _NFA_HEAD + [_P, _I, _P, _P, _P, _P],  # hits, cap, starts, ends, cnt
     # hits, cap, nullable, starts, ends, cnt, over
     "rrx_nfa_greedy_spans": _NFA_HEAD + [_P, _I, _I, _P, _P, _P, _P, _P],
+    "rrx_nfa_flags": _NFA_HEAD + [_I, _P, _P],  # seeded, flags
+    "rrx_count_stats": _COUNT_HEAD + _STATS_TAIL + [_P],
+    "rrx_count_flags": _COUNT_HEAD + [_I, _P, _P],  # seeded, flags
+    "rrx_count_reverse": _COUNT_HEAD + [_P, _P],  # hits
 }
 KERNELS = tuple(ARGTYPES)
 

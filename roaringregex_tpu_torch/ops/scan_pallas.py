@@ -1,8 +1,10 @@
-"""Matmul tier: state-set scan of dense programs of up to 256 states.
+"""Matmul tier (dense programs of up to 256 states) and counting tier.
 
 The port of ``roaringregex_tpu/ops/scan_pallas.py``'s byte path
-(``_add_byte_path``): match statistics, reverse start hits, anchored
-rescans, and lazy and greedy spans. Every dense program that the SWAR and
+(``_add_byte_path``): match statistics, forward accept flags, reverse
+start hits, anchored rescans, and lazy and greedy spans; and of its
+``CountScanner`` (the run-length tier, at the end of this module: see
+:class:`CountScanner`). Every dense program that the SWAR and
 u32-word specs reject runs here (33..256 states: the dense128 and dense256
 tiers), and so do the SWAR tier's nullable spans and nullable windowed
 scans and the u32-word tier's spans and windowed scans, as in the JAX
@@ -25,7 +27,13 @@ EOS. :func:`nfa_tables` builds one record tile's rows as u32 bit words
 (``W = ceil(s_tile / 32)`` <= 8 words per row) from ``prog.F``,
 ``prog.Bc_words`` and ``prog.byte_class``; the CUDA kernels
 (``csrc/scan_nfa.cu``) keep a record's state set in registers and the rows
-in shared memory, one thread per record. The TPU's packing (G records per
+in shared memory, one thread per record. Forward flags travel as flag
+words in the layout of the hit words (``scan_bits``): [W, R] int32, bit t
+of record r in word t // 32; ``flags_words_b`` and ``hits_words_b`` hand
+them out transposed, as the TPU's bit-packed producers do, and their first
+L + 2 bits are ``forward_flags_b``'s and ``reverse_hits_b``'s (the TPU's
+words path, which needs a slab unroll that divides 32, always applies
+here). The TPU's packing (G records per
 lane block, the block-diagonal ``F_bd``, ``cls_spec``'s mask-by-matmul,
 the banded ``dks`` form, the bf16 counts) is a layout of this same
 function and has no counterpart here: the parity boundary is the scanner
@@ -34,8 +42,8 @@ methods' outputs.
 The plain PyTorch versions hold a state set as a [R, s_tile] bool plane
 and step it with a 0/1 float32 product (exact: every sum is at most 256),
 so they need no uint32 arithmetic; the table words are unpacked through
-int64 masked to 32 bits. The match-statistics version is here; the span
-path's (reverse, anchored rescan, lazy and greedy spans) are
+int64 masked to 32 bits. The match-statistics and flags versions are
+here; the span path's (reverse, anchored rescan, lazy and greedy spans) are
 ``scan_bits``'s, which run on this tier's stepper (``NfaTables.plain``).
 Not ported: K-chaining (``chain_target``, off by default) and the
 multi-pattern span channels (``lazy_spans_mb``).
@@ -112,9 +120,9 @@ def counting_plan(prog: DeviceProgram):
     """The JAX package's run-length plan of ``X{m,n}`` with a fixed-length
     body (``roaringregex_tpu/ops/scan_pallas.py`` ``counting_plan``,
     unchanged, on the port's parser): ``(m, n_or_0, branches)``, or None
-    for another shape. The engine reads it only to route as the JAX
-    engine does: such programs of one record per row go to the counting
-    tier, which is not ported yet."""
+    for another shape. ``branches`` holds R <= 4 branch bodies of one
+    length k <= 8, each a tuple of per-position byte-run tuples. The engine
+    sends such programs of one record per row to :class:`CountScanner`."""
     from ..compiler.parser import BOS, EOS, Alt, Concat, Lit, Repeat, parse
 
     try:
@@ -274,6 +282,26 @@ def stats_plain(data, lengths, tables: NfaTables, *, seeded: bool, lead: int,
     return cnt.to(i32), first.to(i32), last.to(i32), full
 
 
+def flags_plain(data, lengths, tables: NfaTables, *, seeded: bool):
+    """Plain version of ``rrx_nfa_flags`` (the TPU's ``_flags_kernel_b``):
+    the loop of :func:`stats_plain` with its seed gate, keeping the raw
+    accept flag of every step (no lead, no `$` dedup) as flag words [W, R]
+    int32, bit t of record r in word t // 32. Steps past EOS are dead and
+    flag nothing."""
+    sb._check_inputs(data, lengths)
+    R, L = data.shape
+    dev = data.device
+    ln = sb._lengths(data, lengths)
+    pt = tables.plain(dev)
+    v = pt.empty(R, dev)
+    words = torch.zeros((sb.hit_words(L), R), dtype=torch.int64, device=dev)
+    for t in range(L + 2):
+        gate = torch.full((R,), seeded or t < 2, dtype=torch.bool, device=dev)
+        v = pt.step(v, gate, sb._sym(data, ln, t))
+        words[t >> 5] |= pt.accepts(v).to(torch.int64) << (t & 31)
+    return sb._as_i32(words)
+
+
 # ---------------------------------------------------------------------------
 # Counted wrappers: a CUDA tensor goes to the kernel, a CPU tensor to the
 # plain version
@@ -298,6 +326,19 @@ def nfa_stats(data, lengths, tables: NfaTables, *, seeded: bool, lead: int = 0,
             int(lead if lead > 0 else -1), int(nullable), *outs, full)
     nfa_stats.launches += 1
     return (*outs, full.view(torch.bool))
+
+
+def nfa_flags(data, lengths, tables: NfaTables, *, seeded: bool):
+    """Flag words [W, R] int32 (``rrx_nfa_flags``, counted in
+    ``nfa_flags.launches``, on a CUDA tensor; :func:`flags_plain` on a CPU
+    tensor)."""
+    if data.device.type == "cpu":
+        return flags_plain(data, lengths, tables, seeded=seeded)
+    R, L = data.shape
+    words = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
+    _launch("rrx_nfa_flags", data, lengths, tables, int(seeded), words)
+    nfa_flags.launches += 1
+    return words
 
 
 def nfa_reverse(data, lengths, tables: NfaTables):
@@ -357,32 +398,61 @@ def nfa_greedy_spans(data, lengths, tables: NfaTables, hits, cap: int, *, nullab
     return starts, ends, cnt, over.view(torch.bool)
 
 
-for _w in (nfa_stats, nfa_reverse, nfa_anchor_end, nfa_lazy_spans, nfa_greedy_spans):
+for _w in (nfa_stats, nfa_flags, nfa_reverse, nfa_anchor_end, nfa_lazy_spans,
+           nfa_greedy_spans):
     _w.launches = 0
 
 
-class PallasScanner:
-    """Match statistics, reverse hits, anchored rescans, and lazy and
-    greedy spans of a dense program of up to 256 states on ``device``,
-    run by the CUDA kernels of ``csrc/scan_nfa.cu`` (one thread per
-    record) on a CUDA device and by their plain PyTorch versions on the
-    CPU. Named after the JAX package's scanner of the same methods and
-    outputs; ``SwarScanner`` and ``WordScanner`` subclass it as there.
+def _with_flag0(bits: torch.Tensor, nullable: bool) -> torch.Tensor:
+    """[B, T] step flags -> [B, T + 1] with the program's nullability as
+    column 0 (the JAX package's forward-flags layout)."""
+    flag0 = torch.full((bits.shape[0], 1), nullable, dtype=torch.bool, device=bits.device)
+    return torch.cat([flag0, bits], dim=1)
 
-    Every method takes ``data`` [B, L] uint8 and ``len_g`` [B_rows, G]
-    (G is only the JAX package's packing: records are rows of ``data`` in
-    ``len_g``'s row-major order)."""
+
+class _Scanner:
+    """What every scanner of this module shares: the program, the device,
+    and the batch unpacking. Every method takes ``data`` [B, L] uint8 and
+    ``len_g`` [B_rows, G] (G is only the JAX package's packing: records
+    are rows of ``data`` in ``len_g``'s row-major order)."""
 
     def __init__(self, prog: DeviceProgram, device):
         self.prog = prog
         self.device = torch.device(device)
         self.nullable = prog.nullable
-        self.nfa = device_nfa_tables(prog, self.device)
 
     def _batch(self, data, len_g):
         data = torch.as_tensor(data, device=self.device)
         len_g = torch.as_tensor(len_g, device=self.device)
         return data, len_g, len_g.reshape(-1).to(torch.int32)
+
+    def forward_flags_b(self, data, len_g, *, seeded: bool):
+        """[B, T + 1] bool accept flags, T = L + 2: column 0 is the
+        program's nullability, column t + 1 the flag of step t."""
+        words, T = self.flags_words_b(data, len_g, seeded=seeded)
+        return _with_flag0(sb.hit_bits(words.T, T), self.nullable)
+
+    def reverse_hits_b(self, data, len_g):
+        """[B, L + 2] bool candidate-start hits: step t set = a match can
+        start at max(t - 1, 0)."""
+        words, T = self.hits_words_b(data, len_g)
+        return sb.hit_bits(words.T, T)
+
+
+class PallasScanner(_Scanner):
+    """Match statistics, forward flags, reverse hits, anchored rescans,
+    and lazy and greedy spans of a dense program of up to 256 states on
+    ``device``, run by the CUDA kernels of ``csrc/scan_nfa.cu`` (one
+    thread per record) on a CUDA device and by their plain PyTorch
+    versions on the CPU. Named after the JAX package's scanner of the same
+    methods and outputs; ``SwarScanner`` and ``WordScanner`` subclass it
+    as there."""
+
+    has_anchor = True  # anchored-rescan and span kernels
+
+    def __init__(self, prog: DeviceProgram, device):
+        super().__init__(prog, device)
+        self.nfa = device_nfa_tables(prog, self.device)
 
     def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0):
         """(cnt, first, last, full, any), each shaped like ``len_g``.
@@ -396,11 +466,17 @@ class PallasScanner:
         cnt = sl(cnt)
         return cnt, sl(first), sl(last), sl(full), cnt > 0
 
-    def reverse_hits_b(self, data, len_g):
-        """[B, L + 2] bool candidate-start hits: step t set = a match can
-        start at max(t - 1, 0)."""
+    def flags_words_b(self, data, len_g, *, seeded: bool):
+        """([B, Wt] int32 words, T = L + 2): bit t of a record's words is
+        step t's accept flag (uint32 bit patterns; bits past T are 0)."""
         data, _, lengths = self._batch(data, len_g)
-        return sb.hit_bits(nfa_reverse(data, lengths, self.nfa), data.shape[1] + 2)
+        return nfa_flags(data, lengths, self.nfa, seeded=seeded).T, data.shape[1] + 2
+
+    def hits_words_b(self, data, len_g):
+        """([B, Wt] int32 words, T = L + 2): bit t = reverse start hit at
+        step t (a match can start at max(t - 1, 0))."""
+        data, _, lengths = self._batch(data, len_g)
+        return nfa_reverse(data, lengths, self.nfa).T, data.shape[1] + 2
 
     def anchor_end_b(self, data, len_g, starts_g, *, longest: bool):
         """Anchored-rescan end per record, shaped like ``len_g``: the first
@@ -435,3 +511,262 @@ class PallasScanner:
         hits = nfa_reverse(data, lengths, self.nfa)
         return nfa_greedy_spans(data, lengths, self.nfa, hits, cap, nullable=self.nullable)
 
+
+
+# ---------------------------------------------------------------------------
+# Counting tier: the run-length recurrence of X{m,n}
+# ---------------------------------------------------------------------------
+
+
+class CountTables(NamedTuple):
+    """Device copy of a counting plan: ``tab`` [256] int32 (uint32 bit
+    patterns), bit ``br * k + q`` of byte b set when b is in branch br's
+    position-q class; the body length k, the number of branches, m and n
+    (0 = unbounded)."""
+
+    tab: torch.Tensor
+    k: int
+    n_br: int
+    m: int
+    n: int
+
+    @property
+    def ones(self) -> int:
+        """Bit ``br * k`` of every branch: its first position."""
+        return sum(1 << (br * self.k) for br in range(self.n_br))
+
+    @property
+    def tops(self) -> int:
+        """Bit ``br * k + k - 1`` of every branch: its last position."""
+        return self.ones << (self.k - 1)
+
+    @property
+    def mm(self) -> int:
+        return max(self.m, 1)
+
+    @property
+    def cap(self) -> int:
+        return self.n or self.mm
+
+
+def count_tables(plan) -> np.ndarray:
+    """[256] uint32 class bits of a counting plan ``(m, n, branches)``."""
+    _, _, branches = plan
+    k = len(branches[0])
+    tab = np.zeros(256, np.uint32)
+    for br, body in enumerate(branches):
+        for q, runs in enumerate(body):
+            for lo, hi in runs:
+                tab[lo : hi + 1] |= np.uint32(1 << (br * k + q))
+    return tab
+
+
+def device_count_tables(plan, device) -> CountTables:
+    m, n, branches = plan
+    tab = torch.from_numpy(count_tables(plan).view(np.int32).copy()).to(device)
+    return CountTables(tab, len(branches[0]), len(branches), int(m), int(n))
+
+
+def _count_h(data, ln, tab, t: int) -> torch.Tensor:
+    """[R] int64 class bits of stream step t: the byte's bits on steps 1..len,
+    0 on BOS, EOS and past them."""
+    R, L = data.shape
+    if not 1 <= t <= L:
+        return torch.zeros(R, dtype=torch.int64, device=data.device)
+    return torch.where(t <= ln, tab[data[:, t - 1].to(torch.int64)], 0)
+
+
+def _count_fwd_plain(data, ln, ct: CountTables, *, seeded: bool):
+    """Yields (t, flag [R] bool) for the stream steps t = 0 .. L + 1: the
+    TPU's ``_count_step`` and ``_count_unseeded_fl``, vectorised over
+    records, in int64. The prefix-progress bits of every branch advance as
+    x = ((x << 1) | ones) & h; a branch's top bit is a body end (occ)."""
+    R, L = data.shape
+    dev = data.device
+    tab = ct.tab.to(dev).to(torch.int64) & sb.MASK32
+    k, mm, cap, n = ct.k, ct.mm, ct.cap, ct.n
+    x = torch.zeros(R, dtype=torch.int64, device=dev)
+    rb = [torch.zeros(R, dtype=torch.int64, device=dev)] * k  # r[t-k] .. r[t-1]
+    ab = [torch.ones(R, dtype=torch.int64, device=dev)] * k  # ap[t-k] .. ap[t-1]
+    for t in range(L + 2):
+        x = ((x << 1) | ct.ones) & _count_h(data, ln, tab, t)
+        occ = (x & ct.tops) != 0
+        x = x & ~ct.tops
+        r = torch.where(occ, (rb[0] + 1).clamp(max=cap), 0)
+        rb = rb[1:] + [r]
+        if seeded:
+            yield t, r >= mm
+            continue
+        ap = torch.ones_like(r) if t < 1 else torch.where(occ, ab[0], 0)
+        if k == 1:
+            ap = torch.where(t > ln, ab[0], ap)  # the dead tail passes through
+        ab = ab[1:] + [ap]
+        fl = (ap > 0) & (t >= mm * k) & (t <= ln)
+        if k > 1 and t % k:
+            fl = torch.zeros_like(fl)
+        if n and t > n * k:
+            fl = torch.zeros_like(fl)
+        yield t, fl
+
+
+def count_stats_plain(data, lengths, ct: CountTables, *, seeded: bool, lead: int,
+                      nullable: bool):
+    """Plain version of ``rrx_count_stats`` (the TPU's
+    ``_count_match_kernel``, per-step form): (cnt, first, last, full) [R]
+    from the flags of :func:`_count_fwd_plain`, accumulated as
+    :func:`stats_plain` accumulates the matmul tier's."""
+    sb._check_inputs(data, lengths)
+    ln = sb._lengths(data, lengths)
+    lead = lead if lead > 0 else -1
+    if nullable:
+        cnt = ln + 1 if seeded else torch.ones_like(ln)
+        last = ln.clone() if seeded else torch.zeros_like(ln)
+        first = torch.zeros_like(ln)
+        full = ln == 0
+    else:
+        cnt = torch.zeros_like(ln)
+        first = torch.full_like(ln, -1)
+        last = torch.full_like(ln, -1)
+        full = torch.zeros_like(ln, dtype=torch.bool)
+    for t, fl in _count_fwd_plain(data, ln, ct, seeded=seeded):
+        fl = fl & (t > lead)
+        e = ln.clamp(max=t)
+        if not (nullable and seeded):
+            cnt += (fl & (e != last)).to(torch.int64)
+        first = torch.where(fl & (first < 0), e, first)
+        last = torch.where(fl, e, last)
+        full = full | (fl & (t >= ln))
+    i32 = torch.int32
+    return cnt.to(i32), first.to(i32), last.to(i32), full
+
+
+def count_flags_plain(data, lengths, ct: CountTables, *, seeded: bool):
+    """Plain version of ``rrx_count_flags`` (the TPU's
+    ``_count_flags_kernel``): flag words [W, R] int32, bit t = step t's
+    flag."""
+    sb._check_inputs(data, lengths)
+    R, L = data.shape
+    ln = sb._lengths(data, lengths)
+    words = torch.zeros((sb.hit_words(L), R), dtype=torch.int64, device=data.device)
+    for t, fl in _count_fwd_plain(data, ln, ct, seeded=seeded):
+        words[t >> 5] |= fl.to(torch.int64) << (t & 31)
+    return sb._as_i32(words)
+
+
+def count_reverse_plain(data, lengths, ct: CountTables):
+    """Plain version of ``rrx_count_reverse`` (the TPU's
+    ``_count_reverse_kernel``): walking from step L + 1 down to 0, the
+    suffix-progress bits y = ((y >> 1) | tops) & h give a body copy
+    starting at t (bit 0 of a branch), r_rev[t] = occ ? min(r_rev[t + k] +
+    1, max(m, 1)) : 0, and a hit at t iff r_rev[t] >= max(m, 1). Returns hit
+    words [W, R] int32 (bit t = a match starts at max(t - 1, 0))."""
+    sb._check_inputs(data, lengths)
+    R, L = data.shape
+    dev = data.device
+    ln = sb._lengths(data, lengths)
+    tab = ct.tab.to(dev).to(torch.int64) & sb.MASK32
+    mm = ct.mm
+    y = torch.zeros(R, dtype=torch.int64, device=dev)
+    rb = [torch.zeros(R, dtype=torch.int64, device=dev)] * ct.k  # r_rev[t+1] .. r_rev[t+k]
+    words = torch.zeros((sb.hit_words(L), R), dtype=torch.int64, device=dev)
+    for t in range(L + 1, -1, -1):
+        y = ((y >> 1) | ct.tops) & _count_h(data, ln, tab, t)
+        occ = (y & ct.ones) != 0
+        y = y & ~ct.ones
+        r = torch.where(occ, (rb[-1] + 1).clamp(max=mm), 0)
+        rb = [r] + rb[:-1]
+        words[t >> 5] |= (r >= mm).to(torch.int64) << (t & 31)
+    return sb._as_i32(words)
+
+
+def _count_launch(entry: str, data, lengths, ct: CountTables, *tail) -> None:
+    sb.launch(entry, data, lengths, ct.tab, ct.k, ct.n_br, ct.m, ct.n, *tail)
+
+
+def count_stats(data, lengths, ct: CountTables, *, seeded: bool, lead: int = 0,
+                nullable: bool = False):
+    """(cnt, first, last, full) [R] (``rrx_count_stats``, counted in
+    ``count_stats.launches``, on a CUDA tensor; :func:`count_stats_plain`
+    on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return count_stats_plain(data, lengths, ct, seeded=seeded, lead=lead, nullable=nullable)
+    R, dev = data.shape[0], data.device
+    outs = [torch.empty(R, dtype=torch.int32, device=dev) for _ in range(3)]
+    full = torch.empty(R, dtype=torch.uint8, device=dev)
+    _count_launch("rrx_count_stats", data, lengths, ct, int(seeded),
+                  int(lead if lead > 0 else -1), int(nullable), *outs, full)
+    count_stats.launches += 1
+    return (*outs, full.view(torch.bool))
+
+
+def count_flags(data, lengths, ct: CountTables, *, seeded: bool):
+    """Flag words [W, R] int32 (``rrx_count_flags`` on a CUDA tensor,
+    :func:`count_flags_plain` on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return count_flags_plain(data, lengths, ct, seeded=seeded)
+    R, L = data.shape
+    words = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
+    _count_launch("rrx_count_flags", data, lengths, ct, int(seeded), words)
+    count_flags.launches += 1
+    return words
+
+
+def count_reverse(data, lengths, ct: CountTables):
+    """Hit words [W, R] int32 (``rrx_count_reverse`` on a CUDA tensor,
+    :func:`count_reverse_plain` on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return count_reverse_plain(data, lengths, ct)
+    R, L = data.shape
+    hits = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
+    _count_launch("rrx_count_reverse", data, lengths, ct, hits)
+    count_reverse.launches += 1
+    return hits
+
+
+for _w in (count_stats, count_flags, count_reverse):
+    _w.launches = 0
+
+
+class CountScanner(_Scanner):
+    """Run-length scanner for a whole-pattern ``X{m,n}`` with a
+    fixed-length body (:func:`counting_plan`): match statistics (with
+    ``lead``), forward flags and reverse hits on the CUDA kernels of
+    ``csrc/scan_count.cu``, one thread per record and one int per record
+    for the run, no follow table at all. The JAX package's scanner of the
+    same methods and outputs; its packing of 32 records per sublane row is
+    a TPU layout with no counterpart here. It has no anchored-rescan or
+    span kernels (``has_anchor = False``): the engine answers anchored
+    rescans with ``scan_xla.first_end_from`` and the API takes host rounds
+    over ``starts_bitmap`` for spans."""
+
+    has_anchor = False
+
+    def __init__(self, prog: DeviceProgram, plan, device):
+        super().__init__(prog, device)
+        self.m, self.n, self.body = plan
+        self.k = len(self.body[0])
+        self.R = len(self.body)
+        self.tables = device_count_tables(plan, self.device)
+
+    def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0):
+        """(cnt, first, last, full, any), each shaped like ``len_g``.
+        ``lead`` > 0: no flag counts at steps <= lead."""
+        data, len_g, lengths = self._batch(data, len_g)
+        cnt, first, last, full = count_stats(
+            data, lengths, self.tables, seeded=seeded, lead=lead, nullable=self.nullable
+        )
+        sl = lambda x: x.reshape(len_g.shape)  # noqa: E731
+        cnt = sl(cnt)
+        return cnt, sl(first), sl(last), sl(full), cnt > 0
+
+    def flags_words_b(self, data, len_g, *, seeded: bool):
+        """([B, Wt] int32 words, T = L + 2): bit t of a record's words is
+        step t's flag of the run-length recurrence (bits past T are 0)."""
+        data, _, lengths = self._batch(data, len_g)
+        return count_flags(data, lengths, self.tables, seeded=seeded).T, data.shape[1] + 2
+
+    def hits_words_b(self, data, len_g):
+        """([B, Wt] int32 words, T = L + 2): bit t = a match of at least
+        one body copy can start at max(t - 1, 0)."""
+        data, _, lengths = self._batch(data, len_g)
+        return count_reverse(data, lengths, self.tables).T, data.shape[1] + 2
