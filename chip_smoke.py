@@ -23,6 +23,13 @@ its check fails:
    16, greedy overflow); the three counting-tier kernels on 16 plans (body
    lengths k = 1..8, 1..4 branches, nullable, a{300}, a{270,}; seeded and
    unseeded stats at lead 0 and m*k, seeded and unseeded flags, reverse);
+   the four multi-pattern kernels (the P-channel forms of rrx_word_stats
+   and rrx_nfa_stats, rrx_nfa_reverse_mb, rrx_nfa_lazy_spans_mb) on 9
+   pattern sets (tests/test_multipattern.py's four, config 6, K7 and K16 as
+   7 and 16 patterns, 12 one-letter patterns, nullable and `$` channels),
+   with the channel bookkeeping in registers (P <= 8) and in global rows,
+   stats seeded/unseeded/nullable/lead, spans at caps 1, 2 and 16 (cap 1
+   overflows);
 3. the match-stats path, with its launch counts set to 0 first: bench
    config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
@@ -62,6 +69,16 @@ its check fails:
    counting program against the sets re gives; finditer_batch of counting
    programs in host rounds against re (greedy, and lazy against the lazy
    quantifier); the counts are read after it;
+8. (run before 7) the multi-pattern path, with every launch count set to
+   0 first: MultiPattern on bench config 6 (["cat|dog", "[0-9]{3}",
+   "err(or)?", "ab(cd)*e"], u32-word tier, P = 4) over config 1's 10 MB
+   corpus through count_batch, search_batch, grep and lazy finditer_batch,
+   and over 1 GiB of lowercase with every channel's words planted through
+   the engine and lazy_spans_mb; K7 as 7 patterns (matmul tier, P = 7)
+   over phase 5's 1 GiB log text; the counts are read after it; then
+   checked: counts, search and spans per pattern against the single-pattern
+   engines (every record), numpy (cat|dog, [0-9]{3}) and re (10 MB; K7 on
+   3,000 records);
 7. times with CUDA events (median of 5-7 runs after warm-up) of kernel and
    plain version: the stats kernels at config 1 and 1 GiB, the SWAR span
    kernels at config 7's 10 MB shape and at 1 GiB, the matmul-tier kernels
@@ -70,7 +87,10 @@ its check fails:
    and 1 GiB, with registers, theoretical occupancy, grid fill and the bound
    of each (bytes over 3.35 TB/s, or integer operations over 16.7 T/s), each
    compared again with its plain version; ScanEngine.ends_bitmap end to end
-   at 10 MB and one scan_xla.first_end_from call at the API's shape.
+   at 10 MB and one scan_xla.first_end_from call at the API's shape; the
+   four multi-pattern kernels at 10 MB and 1 GiB with registers and
+   occupancy of both bookkeeping variants, and the combined engine calls
+   against P single-pattern calls on the same data.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -136,12 +156,34 @@ REPLACES = {
     "rrx_count_stats": "roaringregex_tpu/ops/scan_pallas.py:4098",
     "rrx_count_flags": "roaringregex_tpu/ops/scan_pallas.py:4274",
     "rrx_count_reverse": "roaringregex_tpu/ops/scan_pallas.py:4362",
+    "rrx_word_stats[P]": "roaringregex_tpu/ops/scan_word.py:169",
+    "rrx_nfa_stats[P]": "roaringregex_tpu/ops/scan_pallas.py:1218",
+    "rrx_nfa_reverse_mb": "roaringregex_tpu/ops/scan_pallas.py:1827",
+    "rrx_nfa_lazy_spans_mb": "roaringregex_tpu/ops/scan_pallas.py:1889",
 }
 SPAN_KERNELS = ("rrx_swar_reverse", "rrx_swar_lazy_spans", "rrx_swar_anchor_end",
                 "rrx_swar_greedy_spans")
 NFA_KERNELS = ("rrx_nfa_stats", "rrx_nfa_reverse", "rrx_nfa_anchor_end", "rrx_nfa_lazy_spans",
                "rrx_nfa_greedy_spans")
 COUNT_KERNELS = ("rrx_count_stats", "rrx_count_flags", "rrx_count_reverse")
+# the multi-pattern path's kernels: the P-channel forms of the u32-word and
+# matmul stats kernels (counted apart from their one-channel forms) and the
+# multi-channel reverse and lazy-span kernels
+MP_KERNELS = ("rrx_word_stats[P]", "rrx_nfa_stats[P]", "rrx_nfa_reverse_mb",
+              "rrx_nfa_lazy_spans_mb")
+CONFIG6 = ["cat|dog", "[0-9]{3}", "err(or)?", "ab(cd)*e"]
+# Python re forms of config 6's lazy spans: err(or)? ends at the shortest end
+CONFIG6_LAZY_RE = ["cat|dog", "[0-9]{3}", "err(or)??", "ab(cd)*e"]
+# pattern sets for kernel == plain: tests/test_multipattern.py's four, config
+# 6, K7 as 7 patterns, K16 as 16 (matmul tier, P >= 16), 12 one-letter
+# patterns (u32-word tier, P > 8), and nullable and `$` channels
+MP_SETS = [
+    ["cat", "dog", "bird"], ["cat|dog", "[0-9]+", "(ab)*c"], ["a*", "err(or)?", "^x"],
+    ["[a-f]{3}", "z", "foo$"], CONFIG6, K7_WORDS, K16_WORDS, list("abcdefghijkl"),
+    ["a*", "x$", "^ab", "(cd)+$", "e?"],
+]
+MP_PLANTS = [b"cat", b"dog", b"error", b"err", b"123", b"4567", b"abe", b"abcdcde", b"xfoo",
+             b"ababc", b"cdcd", b"warning timeout", b"panic abort", b"xab", b"bird"]
 # counting plans for kernel == plain: body lengths k = 1..8, 1..4 branches,
 # nullable (m = 0), exact a{300}, unbounded a{270,}
 COUNT_PATTERNS = [
@@ -263,6 +305,7 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from roaringregex_tpu_torch.api import MultiPattern, Pattern
     from roaringregex_tpu_torch.api import compile as rrx_compile
     from roaringregex_tpu_torch.compiler.program import compile_program
     from roaringregex_tpu_torch.engine import ScanEngine
@@ -313,8 +356,28 @@ def main() -> int:
         "rrx_count_flags": scan_pallas.count_flags,
         "rrx_count_reverse": scan_pallas.count_reverse,
     }
+    class ChannelCount:
+        """The launch count of a stats wrapper's P-channel kernel."""
+
+        def __init__(self, wrapper):
+            self.wrapper = wrapper
+
+        @property
+        def launches(self):
+            return self.wrapper.channel_launches
+
+        @launches.setter
+        def launches(self, n):
+            self.wrapper.channel_launches = n
+
+    mp_wrappers = {
+        "rrx_word_stats[P]": ChannelCount(scan_word.word_stats),
+        "rrx_nfa_stats[P]": ChannelCount(scan_pallas.nfa_stats),
+        "rrx_nfa_reverse_mb": scan_pallas.nfa_reverse_mb,
+        "rrx_nfa_lazy_spans_mb": scan_pallas.nfa_lazy_spans_mb,
+    }
     wrappers = ({name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
-                | count_wrappers)
+                | count_wrappers | mp_wrappers)
     max_err = {name: 0 for name in wrappers}
 
     def compare(name, got, want, tag, labels=("cnt", "first", "last", "full")):
@@ -535,6 +598,74 @@ def main() -> int:
     print(f"phase 2: kernel == plain on the card, {n_cmp} batches of {len(COUNT_PATTERNS)} counting "
           f"plans ((k, branches) {sorted(shapes)}) through the three counting kernels (stats "
           f"seeded/unseeded at lead 0 and m*k, flags seeded/unseeded, reverse) "
+          f"({time.perf_counter() - t0:.1f}s)")
+
+    def mp_batch(R: int, L: int):
+        """An edge batch over the multi-pattern sets' alphabet, with a plant
+        (keywords, digit runs, abcdcde) in every second record."""
+        data, lengths = edge_batch(rng, np, R, L, b"abcdefgilnortuwxz0123 ")
+        for i in range(8, R, 2):
+            w = MP_PLANTS[int(rng.integers(len(MP_PLANTS)))][:L]
+            at = int(rng.integers(0, L - len(w) + 1))
+            data[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+        return data, lengths
+
+    def check_mp(sc, d, ln, tag, *, caps=(1, 2, 16), lead=3):
+        """The P-channel kernels of one multi-pattern scanner against their
+        plain versions on one batch; the span kernel reads the (checked)
+        hit words of the reverse kernel. Returns (hits, records over cap 1)."""
+        P = scan_pallas
+        for seeded in (True, False):
+            for nullable in (False, True):
+                kw = dict(seeded=seeded, lead=0, nullable=nullable)
+                if isinstance(sc, scan_word.WordScanner):
+                    compare("rrx_word_stats[P]", scan_word.word_stats(d, ln, sc.tables, **kw),
+                            scan_bits.stats_plain(d, ln, sc.tables, **kw), f"{tag} {kw}")
+                compare("rrx_nfa_stats[P]", P.nfa_stats(d, ln, sc.nfa, **kw),
+                        P.stats_plain(d, ln, sc.nfa, **kw), f"{tag} {kw}")
+            kw = dict(seeded=seeded, lead=lead, nullable=False)
+            compare("rrx_nfa_stats[P]", P.nfa_stats(d, ln, sc.nfa, **kw),
+                    P.stats_plain(d, ln, sc.nfa, **kw), f"{tag} {kw}")
+        hits = P.nfa_reverse_mb(d, ln, sc.nfa, sc.span)
+        compare("rrx_nfa_reverse_mb", [hits], [P.reverse_mb_plain(d, ln, sc.nfa, sc.span)], tag,
+                ("hits",))
+        n_over = 0
+        for cap in caps:
+            got = P.nfa_lazy_spans_mb(d, ln, sc.nfa, sc.span, hits, cap)
+            compare("rrx_nfa_lazy_spans_mb", got,
+                    P.lazy_spans_mb_plain(d, ln, sc.nfa, sc.span, hits, cap), f"{tag} cap={cap}",
+                    ("starts", "ends", "cnt"))
+            if cap == 1:
+                n_over += int((got[2] > 1).any(dim=1).sum().item())
+        return hits, n_over
+
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = n_over = 0
+    routes = set()
+    for pats in MP_SETS:
+        mp = MultiPattern(pats, dev)
+        sc = mp.engine.device_scanner
+        routes.add((type(sc).__name__, mp.P > scan_pallas.MB_REG_CHANNELS))
+        for R, L in ((1000, 61), (1024, 64)):
+            data, lengths = mp_batch(R, L)
+            d = torch.from_numpy(data).to(dev)
+            ln = torch.from_numpy(lengths).to(dev)
+            n_over += check_mp(sc, d, ln, f"{pats} R={R} L={L}")[1]
+            n_cmp += 1
+    torch.cuda.synchronize()
+    for name in MP_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if n_over == 0:
+        fail("the multi-channel spans never overflowed cap 1")
+    want_routes = {(t, big) for t in ("WordScanner", "PallasScanner") for big in (False, True)}
+    if routes != want_routes:
+        fail(f"multi-pattern comparisons covered (scanner, P > 8) {sorted(routes)}")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} batches of {len(MP_SETS)} pattern sets "
+          f"(u32-word and matmul tiers, channels in registers and in global rows) through the four "
+          f"P-channel kernels (word and matmul stats seeded/unseeded/nullable/lead, reverse_mb, "
+          f"lazy_spans_mb at caps 1, 2, 16; cap 1 overflowed on {n_over} records) "
           f"({time.perf_counter() - t0:.1f}s)")
 
     # -- phase 3: the match-stats path (counts from here to its 1 GiB run) --
@@ -1020,6 +1151,137 @@ def main() -> int:
           f"match on 40 texts == re ({time.perf_counter() - t6:.1f}s for the phase)")
     print(f"counting and bitmap path launches: {count_launches}")
 
+    # -- phase 8: the multi-pattern path (counts from here to its last run) -
+    reset_launches()
+    t8 = time.perf_counter()
+    mp6 = MultiPattern(CONFIG6, dev)
+    sc6 = mp6.engine.device_scanner
+    if type(sc6).__name__ != "WordScanner" or mp6.P != 4:
+        fail(f"config 6 routed to {type(sc6).__name__} with P = {mp6.P}")
+    texts6 = [bytes(row) for row in data]  # config 6: bench.make_corpus(10_000_000, 1024, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cnt6 = mp6.count_batch(texts6)
+    count_ms = (time.perf_counter() - t0) * 1e3
+    hit6, grep6 = mp6.search_batch(texts6), mp6.grep(texts6)
+    t0 = time.perf_counter()
+    spans6 = mp6.finditer_batch(texts6)
+    spans_ms = (time.perf_counter() - t0) * 1e3
+
+    # config 6 at 1 GiB: random lowercase (torch seed 6) with cat/dog, digit
+    # runs, err/error and abe/abcdcde planted (numpy seed 18), so that every
+    # channel matches in some records and not in others
+    gen6 = torch.Generator(device=dev)
+    gen6.manual_seed(6)
+    big6 = torch.randint(ord("a"), ord("z") + 1, (R, L), dtype=torch.uint8, device=dev,
+                         generator=gen6)
+    prng6 = np.random.default_rng(18)
+    for word, frac in ((b"cat", 8), (b"dog", 8), (b"123", 8), (b"4567", 16), (b"err", 16),
+                       (b"error", 16), (b"abe", 16), (b"abcdcde", 16)):
+        rows = torch.from_numpy(prng6.integers(0, R, size=R // frac)).to(dev)
+        cols = torch.from_numpy(prng6.integers(0, L - len(word) + 1, size=R // frac)).to(dev)
+        for i, ch in enumerate(word):
+            big6[rows, cols + i] = ch
+    len6 = torch.full((R,), L, dtype=torch.int32, device=dev)
+    c6, f6, a6 = (x.reshape(R, 4) for x in mp6.engine.match_stats(big6, len6, seeded=True))
+    cap6 = 1 << max(int(c6.max().item()) - 1, 0).bit_length()
+    mb6 = sc6.lazy_spans_mb(big6, len6.reshape(-1, max(mp6.program.G, 1)), cap=cap6)
+
+    # K7 as seven patterns over phase 5's 1 GiB log text (matmul tier, P = 7)
+    mp7 = MultiPattern(K7_WORDS, dev)
+    sc7 = mp7.engine.device_scanner
+    if type(sc7).__name__ != "PallasScanner" or mp7.P != 7:
+        fail(f"K7 as 7 patterns routed to {type(sc7).__name__} with P = {mp7.P}")
+    c7, f7, a7 = (x.reshape(R, 7) for x in mp7.engine.match_stats(log, log_len, seeded=True))
+    torch.cuda.synchronize()
+    mp_launches = launches()
+    for name in MP_KERNELS:
+        if mp_launches[name] <= 0:
+            fail(f"{name} was not launched on the multi-pattern path")
+    print(f"multi-pattern path launches: {mp_launches}")
+
+    # config 6 at 10 MB against the single-pattern engines, numpy and re
+    B6 = len(texts6)
+    dig = (data >= ord("0")) & (data <= ord("9"))
+    ends3 = np.zeros(data.shape, bool)
+    ends3[:, 2:] = dig[:, :-2] & dig[:, 1:-1] & dig[:, 2:]
+    if not (np.array_equal(cnt6[:, 0], want_cnt) and np.array_equal(cnt6[:, 1], ends3.sum(axis=1))):
+        fail("config 6 counts of cat|dog / [0-9]{3} != numpy")
+    if not (np.array_equal(hit6, cnt6 > 0) and np.array_equal(grep6, hit6)):
+        fail("config 6 search_batch / grep != count_batch > 0")
+    n_spans = []
+    for p, (pat, lazy_form) in enumerate(zip(CONFIG6, CONFIG6_LAZY_RE)):
+        single = Pattern(pat, dev)
+        if not (np.array_equal(single.count_batch(texts6), cnt6[:, p])
+                and np.array_equal(single.search_batch(texts6), hit6[:, p])):
+            fail(f"config 6 {pat!r}: count/search != the single-pattern engine")
+        if spans6[p] != single.finditer_batch(texts6):
+            fail(f"config 6 {pat!r}: lazy spans != the single-pattern Pattern.finditer_batch")
+        rxp = re.compile(lazy_form.encode())
+        want = [[m.span() for m in rxp.finditer(t)] for t in texts6]
+        if spans6[p] != want:
+            i = next(i for i in range(B6) if spans6[p][i] != want[i])
+            fail(f"config 6 {pat!r}: lazy spans != re {lazy_form!r} at record {i}: "
+                 f"{spans6[p][i][:4]} != {want[i][:4]}")
+        n_spans.append(sum(len(x) for x in spans6[p]))
+    print(f"phase 8: config 6 {CONFIG6} ({mp6.program.n_states} states, s_tile "
+          f"{mp6.program.s_tile}, {type(sc6).__name__}, P = 4) on {B6} records x 1024 B: matches "
+          f"{cnt6.sum(axis=0).tolist()} records_with_match {hit6.sum(axis=0).tolist()}; count, "
+          f"search and grep == the single-pattern engines and numpy (cat|dog, [0-9]{{3}}); lazy "
+          f"spans {n_spans} == Pattern.finditer_batch and re {CONFIG6_LAZY_RE} (count_batch "
+          f"{count_ms:.1f} ms, finditer_batch {spans_ms:.1f} ms, first calls with the packing)")
+
+    # config 6 at 1 GiB against the single-pattern engines (every record) and
+    # numpy (the first n_slice records)
+    has6 = (c6 > 0).any(dim=0)
+    lacks6 = (c6 == 0).any(dim=0)
+    if not (bool(has6.all()) and bool(lacks6.all())):
+        fail(f"config 6 1 GiB: every channel must match in some records and not in others "
+             f"(some {has6.tolist()}, not all {lacks6.tolist()})")
+    s_mb, e_mb, n_mb = mb6
+    if int(n_mb.max()) > cap6:
+        fail("config 6 1 GiB: lazy spans over the counts-sized cap")
+    for p, pat in enumerate(CONFIG6):
+        eng_p = ScanEngine(compile_program(pat), device=dev)
+        cp, fp, _ = eng_p.match_stats(big6, len6, seeded=True)
+        if not (torch.equal(cp, c6[:, p]) and torch.equal(fp, f6[:, p])):
+            fail(f"config 6 1 GiB {pat!r}: (cnt, first) != the single-pattern engine")
+        sp_, ep_, np_ = eng_p.lazy_spans(big6, len6, cap=cap6)
+        if not (torch.equal(sp_, s_mb[:, p]) and torch.equal(ep_, e_mb[:, p])
+                and torch.equal(np_, n_mb[:, p])):
+            fail(f"config 6 1 GiB {pat!r}: lazy spans != the single-pattern engine's")
+    sub6 = big6[:n_slice].cpu().numpy()
+    d6 = (sub6 >= ord("0")) & (sub6 <= ord("9"))
+    e6 = np.zeros(sub6.shape, bool)
+    e6[:, 2:] = d6[:, :-2] & d6[:, 1:-1] & d6[:, 2:]
+    k6 = np.zeros(sub6.shape, bool)
+    for word in (b"cat", b"dog"):
+        w = np.frombuffer(word, np.uint8)
+        k6[:, 2:] |= (sub6[:, :-2] == w[0]) & (sub6[:, 1:-1] == w[1]) & (sub6[:, 2:] == w[2])
+    got6 = c6[:n_slice].cpu().numpy()
+    if not (np.array_equal(got6[:, 0], k6.sum(axis=1)) and np.array_equal(got6[:, 1], e6.sum(axis=1))):
+        fail(f"config 6 1 GiB: cat|dog / [0-9]{{3}} counts != numpy on the first {n_slice} records")
+    print(f"phase 8: config 6 over {R} records x {L} B (planted cat/dog, digit runs, err/error, "
+          f"abe/abcdcde): matches {c6.sum(dim=0).tolist()} records_with_match "
+          f"{(c6 > 0).sum(dim=0).tolist()}; (cnt, first) and lazy spans (cap {cap6}, "
+          f"{n_mb.sum(dim=0).tolist()} spans, all 1 GiB) == the single-pattern engines on every "
+          f"record; cat|dog and [0-9]{{3}} == numpy on the first {n_slice}")
+
+    # K7 as seven patterns against the single-pattern engines and re
+    rows7 = np.random.default_rng(9).choice(R, size=n_re, replace=False)
+    c7_np, f7_np = c7.cpu().numpy(), f7.cpu().numpy()
+    for k, word in enumerate(K7_WORDS):
+        ck, fk, _ = ScanEngine(compile_program(word), device=dev).match_stats(log, log_len, seeded=True)
+        if not (torch.equal(ck, c7[:, k]) and torch.equal(fk, f7[:, k])):
+            fail(f"K7 as 7 patterns, {word!r}: (cnt, first) != the single-pattern engine")
+        ref = np.array([key_stats([word], log_np[r].tobytes()) for r in rows7])
+        if not (np.array_equal(c7_np[rows7, k], ref[:, 0]) and np.array_equal(f7_np[rows7, k], ref[:, 1])):
+            fail(f"K7 as 7 patterns, {word!r}: (cnt, first) != re on {n_re} records")
+    print(f"phase 8: K7 as 7 patterns ({mp7.program.n_states} states, s_tile {mp7.program.s_tile}, "
+          f"{type(sc7).__name__}, P = 7) over the 1 GiB log text: matches "
+          f"{c7.sum(dim=0).tolist()}; (cnt, first) == the single-pattern engines on every record "
+          f"and == re on {n_re} ({time.perf_counter() - t8:.1f}s for the phase)")
+
     # -- phase 7: times ---------------------------------------------------
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
         """Median over ``runs`` of the CUDA-event time of ``per_run``
@@ -1041,7 +1303,8 @@ def main() -> int:
     props = torch.cuda.get_device_properties(0)
     max_threads = props.max_threads_per_multi_processor
 
-    def kernel_bound(kind, ln, L, step_ops, *, cap=0, starts=None, end=None, greedy=None):
+    def kernel_bound(kind, ln, L, step_ops, *, cap=0, starts=None, end=None, greedy=None, P=1,
+                     flags=0):
         """(bound_ms, bound_by) of one call, from this run's inputs: bytes
         read once and written once; integer operations = the steps the
         function needs x a floor of operations per step (``step_ops`` for
@@ -1056,6 +1319,18 @@ def main() -> int:
         hit_bytes = 4 * scan_bits.hit_words(L) * R
         if kind == "stats":
             return bound(nbytes + 4 * R, 13 * R, steps * (step_ops + 4))
+        # P channels: the union accept test every step and, for each of this
+        # run's ``flags`` (channel, step) flags, the channel's update
+        if kind == "stats_mc":
+            return bound(nbytes + 4 * R + 4 * P, 13 * R * P, steps * (step_ops + 2) + 4 * flags)
+        # per step the reverse step, the first-position test and the hit
+        # word's bit; out: P hit-word planes
+        if kind == "reverse_mb":
+            return bound(nbytes + 4 * R, P * hit_bytes, steps * (step_ops + 3))
+        # per step and channel: its hit bit and claim test, its seed gate
+        if kind == "lazy_spans_mb":
+            return bound(nbytes + 4 * R + P * hit_bytes, (8 * cap + 4) * R * P,
+                         steps * (step_ops + 4 + 2 * P))
         if kind in ("reverse", "flags"):
             return bound(nbytes + 4 * R, hit_bytes, steps * (step_ops + 2))
         if kind == "lazy_spans":
@@ -1091,6 +1366,20 @@ def main() -> int:
                 f"({100.0 * bps.value * tpb / max_threads:.1f}%); grid {blocks} blocks of {tpb} "
                 f"-> at most {100.0 * resident * tpb / (n_sm * max_threads):.1f}% of the card's "
                 f"resident-thread slots filled")
+
+    def occupancy_channels(kind, size, P_, rows):
+        """Theoretical occupancy and grid fill of a P-channel kernel (``size``:
+        the delta count of a word-tier table, else s_tile)."""
+        idx = ("word", "nfa", "reverse_mb", "lazy_spans_mb").index(kind)
+        bps = ctypes.c_int(0)
+        _build.check(lib.rrx_occupancy_channels(idx, int(size), int(P_), ctypes.byref(bps)),
+                     "rrx_occupancy_channels")
+        tpb = lib.rrx_threads_per_block()
+        blocks = -(-rows // tpb)
+        resident = min(blocks, bps.value * n_sm)
+        return (f"theoretical {bps.value * tpb}/{max_threads} threads per SM "
+                f"({100.0 * bps.value * tpb / max_threads:.1f}%); grid {blocks} blocks -> at most "
+                f"{100.0 * resident * tpb / (n_sm * max_threads):.1f}% of the resident-thread slots")
 
     # kernel against plain at the shapes the API batches above gave it
     for pat, texts_a in api_batches:
@@ -1387,6 +1676,85 @@ def main() -> int:
     print(f"phase 7: scan_xla.first_end_from (longest) of {CONFIG4} from each record's first start, "
           f"[{d_api.shape[0]} x {d_api.shape[1]}]: {ms:.3f} ms [{card}]")
 
+    # the multi-pattern kernels: config 6 (P = 4) on the u32-word tier and its
+    # span channels at 10 MB and 1 GiB, K7 as 7 patterns (P = 7) on the
+    # matmul tier over the log text; plain versions on the whole 10 MB batch
+    # and on the first n_slice records of the 1 GiB batches
+    mp_ms = {}
+    for shape, d, ln in (("10 MB", d10, l10), ("1 GiB", big6, len6)):
+        n = d.shape[0] if shape == "10 MB" else n_slice
+        pd, pl = d[:n].contiguous(), ln[:n].contiguous()
+        kw = dict(seeded=True, lead=0, nullable=False)
+        tb6 = sc6.tables
+        got = scan_word.word_stats(d, ln, tb6, **kw)
+        compare("rrx_word_stats[P]", [x[:n] for x in got], scan_bits.stats_plain(pd, pl, tb6, **kw),
+                f"config 6 {shape}, first {n} records")
+        flags6 = int(got[0].to(torch.int64).sum())
+        hits6 = P.nfa_reverse_mb(d, ln, sc6.nfa, sc6.span)
+        ph6 = P.reverse_mb_plain(pd, pl, sc6.nfa, sc6.span)
+        compare("rrx_nfa_reverse_mb", [hits6[:, :, :n]], [ph6], f"config 6 {shape}, first {n} records",
+                ("hits",))
+        lz = P.nfa_lazy_spans_mb(d, ln, sc6.nfa, sc6.span, hits6, cap_k)
+        compare("rrx_nfa_lazy_spans_mb", [x[:n] for x in lz],
+                P.lazy_spans_mb_plain(pd, pl, sc6.nfa, sc6.span, ph6, cap_k),
+                f"config 6 {shape}, first {n} records", ("starts", "ends", "cnt"))
+        d7, l7 = (log10, len10) if shape == "10 MB" else (log, log_len)
+        n7 = d7.shape[0] if shape == "10 MB" else n_slice
+        pd7, pl7 = d7[:n7].contiguous(), l7[:n7].contiguous()
+        got7 = P.nfa_stats(d7, l7, sc7.nfa, **kw)
+        compare("rrx_nfa_stats[P]", [x[:n7] for x in got7], P.stats_plain(pd7, pl7, sc7.nfa, **kw),
+                f"K7 x 7 {shape}, first {n7} records")
+        flags7 = int(got7[0].to(torch.int64).sum())
+        W6, W7 = 4 * tb6.deltas.numel(), 3 * -(-sc7.nfa.s_tile // 32)
+        calls = {
+            "rrx_word_stats[P]": (lambda: scan_word.word_stats(d, ln, tb6, **kw),
+                                  lambda: scan_bits.stats_plain(pd, pl, tb6, **kw),
+                                  kernel_bound("stats_mc", ln, d.shape[1], W6, P=4, flags=flags6),
+                                  d.shape[0], n, ("word", tb6.deltas.numel(), 4)),
+            "rrx_nfa_stats[P]": (lambda: P.nfa_stats(d7, l7, sc7.nfa, **kw),
+                                 lambda: P.stats_plain(pd7, pl7, sc7.nfa, **kw),
+                                 kernel_bound("stats_mc", l7, d7.shape[1], W7, P=7, flags=flags7),
+                                 d7.shape[0], n7, ("nfa", sc7.nfa.s_tile, 7)),
+            "rrx_nfa_reverse_mb": (lambda: P.nfa_reverse_mb(d, ln, sc6.nfa, sc6.span),
+                                   lambda: P.reverse_mb_plain(pd, pl, sc6.nfa, sc6.span),
+                                   kernel_bound("reverse_mb", ln, d.shape[1], 3, P=4),
+                                   d.shape[0], n, ("reverse_mb", sc6.nfa.s_tile, 4)),
+            "rrx_nfa_lazy_spans_mb": (
+                lambda: P.nfa_lazy_spans_mb(d, ln, sc6.nfa, sc6.span, hits6, cap_k),
+                lambda: P.lazy_spans_mb_plain(pd, pl, sc6.nfa, sc6.span, ph6, cap_k),
+                kernel_bound("lazy_spans_mb", ln, d.shape[1], 3, P=4, cap=cap_k),
+                d.shape[0], n, ("lazy_spans_mb", sc6.nfa.s_tile, 4)),
+        }
+        for name, (kern, plain, bnd, rows_k, n_p, occ) in calls.items():
+            ms = time_ms(kern, warm=2, runs=7, per_run=5)
+            plain_ms = time_ms(plain, warm=1, runs=3)
+            mp_ms[name, shape] = (ms, plain_ms, bnd)
+            print(f"phase 7: {name} {shape} [{rows_k} x {L}]: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms on {n_p} records; bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]")
+            print(f"  occupancy {name} ({shape}, P = {occ[2]}, channels in registers): "
+                  f"{occupancy_channels(*occ, rows_k)}; at P = 16 (channels in global rows): "
+                  f"{occupancy_channels(occ[0], occ[1], 16, rows_k)}; registers (template Li8E: "
+                  f"channels in registers, Li0E: in global rows) "
+                  f"{regs_of(('word_stats_mc', 'nfa_stats_mc', 'nfa_reverse_mb', 'nfa_lazy_spans_mb')[MP_KERNELS.index(name)])}")
+        # MultiPattern's engine call against P single-pattern engine calls
+        singles6 = [ScanEngine(compile_program(pat), device=dev) for pat in CONFIG6]
+        ms_mp = time_ms(lambda: mp6.engine.match_stats(d, ln, seeded=True), warm=1, runs=5)
+        ms_1 = time_ms(lambda: [e.match_stats(d, ln, seeded=True) for e in singles6], warm=1, runs=5)
+        ms_sp = time_ms(lambda: sc6.lazy_spans_mb(d, ln.reshape(-1, max(mp6.program.G, 1)), cap=cap_k),
+                        warm=1, runs=5)
+        ms_s1 = time_ms(lambda: [e.lazy_spans(d, ln, cap=cap_k) for e in singles6], warm=1, runs=5)
+        print(f"phase 7: config 6 {shape}, data on the card: MultiPattern engine match_stats "
+              f"{ms_mp:.3f} ms vs {len(singles6)} single-pattern match_stats calls {ms_1:.3f} ms; "
+              f"lazy_spans_mb (cap {cap_k}) {ms_sp:.3f} ms vs {len(singles6)} single-pattern "
+              f"lazy_spans calls {ms_s1:.3f} ms [{card}]")
+    singles7 = [ScanEngine(compile_program(w), device=dev) for w in K7_WORDS]
+    ms_mp7 = time_ms(lambda: mp7.engine.match_stats(log, log_len, seeded=True), warm=1, runs=5)
+    ms_17 = time_ms(lambda: [e.match_stats(log, log_len, seeded=True) for e in singles7], warm=1, runs=5)
+    ms_k7 = time_ms(lambda: nfa_engines[K7].match_stats(log, log_len, seeded=True), warm=1, runs=5)
+    print(f"phase 7: K7 1 GiB log text, data on the card: MultiPattern (7 channels) engine "
+          f"match_stats {ms_mp7:.3f} ms vs 7 single-keyword match_stats calls {ms_17:.3f} ms vs one "
+          f"K7 alternation {ms_k7:.3f} ms [{card}]")
+
     ms, plain_ms, bnd = flags_ms["10 MB"]
     kernels.append({
         "name": "rrx_nfa_flags", "route": "cuda", "source": NFA_SOURCE,
@@ -1403,8 +1771,19 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
             "library_ms": None, "shape": f"config 4, 10 MB, {CONFIG4}",
         })
-    if len(kernels) != 15:
-        fail(f"the kernels line lists {len(kernels)} entry points, not 15")
+    for name in MP_KERNELS:
+        ms, plain_ms, bnd = mp_ms[name, "10 MB"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": STATS_SOURCE if name == "rrx_word_stats[P]" else NFA_SOURCE,
+            "replaces": REPLACES[name], "launches": mp_launches[name],
+            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None,
+            "shape": ("10 MB, K7 as 7 patterns" if name == "rrx_nfa_stats[P]"
+                      else "config 6, 10 MB, 4 patterns"),
+        })
+    if len(kernels) != 19:
+        fail(f"the kernels line lists {len(kernels)} kernels, not 19")
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -18,8 +18,13 @@ The counting tier and the programs that run through their seeded alias
 take the JAX package's other route: host rounds over ``starts_bitmap``,
 each round one batched anchored rescan (``ScanEngine.first_end_from``).
 ``ends_batch`` and ``starts_batch`` return every match end and start
-position; ``dump`` returns a text dump of the automaton. ``MultiPattern``
-and long strings are not ported yet (ROADMAP.md).
+position; ``dump`` returns a text dump of the automaton.
+
+``MultiPattern(patterns, device)`` scans P patterns in one pass over their
+combined automaton (the Glushkov union): per-pattern counts, search hits
+and grep from one per-channel match-stats scan, and every pattern's lazy
+spans from one channel reverse pass and one channel span pass. Long
+strings are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from .compiler.nfa import build_nfa, combine_nfas
 from .compiler.program import DeviceProgram, compile_program
 from .engine import ScanEngine
 
@@ -60,6 +66,30 @@ def _pow2(n: int, lo: int = 8) -> int:
     return x
 
 
+def _grown_cap(cap: int, maxlen: int) -> int:
+    """The next span cap after a batch overflowed ``cap``: unreachable in
+    practice (caps are pre-sized from a counts pass), never a silent
+    truncation."""
+    return min(_pow2(cap * 4), maxlen + 1)
+
+
+def _pack_texts(texts: Sequence[TextLike], G: int):
+    """Texts -> (data [Bp, Lp] uint8, lengths [Bp] int32, B, maxlen),
+    with B and the width padded to powers of two as the JAX package pads
+    them (so both packages scan the same shapes)."""
+    bs = [_as_bytes(t) for t in texts]
+    B = len(bs)
+    maxlen = max((len(b) for b in bs), default=0)
+    Bp = _pow2(B, lo=max(8, G))
+    Lp = _pow2(max(maxlen, 1), lo=16)
+    data = np.zeros((Bp, Lp), dtype=np.uint8)
+    lengths = np.zeros(Bp, dtype=np.int32)
+    for i, b in enumerate(bs):
+        data[i, : len(b)] = np.frombuffer(b, dtype=np.uint8)
+        lengths[i] = len(b)
+    return data, lengths, B, maxlen
+
+
 class Pattern:
     """A compiled pattern bound to a scan engine on one device."""
 
@@ -77,20 +107,8 @@ class Pattern:
         return self.program.nfa.dump(full=full)
 
     def _pack(self, texts: Sequence[TextLike]):
-        """Texts -> (data [Bp, Lp] uint8, lengths [Bp] int32, B, maxlen),
-        with B and the width padded to powers of two as the JAX package
-        pads them (so both packages scan the same shapes)."""
-        bs = [_as_bytes(t) for t in texts]
-        B = len(bs)
-        maxlen = max((len(b) for b in bs), default=0)
-        Bp = _pow2(B, lo=max(8, self.program.G))
-        Lp = _pow2(max(maxlen, 1), lo=16)
-        data = np.zeros((Bp, Lp), dtype=np.uint8)
-        lengths = np.zeros(Bp, dtype=np.int32)
-        for i, b in enumerate(bs):
-            data[i, : len(b)] = np.frombuffer(b, dtype=np.uint8)
-            lengths[i] = len(b)
-        return data, lengths, B, maxlen
+        """Texts -> (data [Bp, Lp] uint8, lengths [Bp] int32, B, maxlen)."""
+        return _pack_texts(texts, self.program.G)
 
     def fullmatch_batch(self, texts: Sequence[TextLike]) -> np.ndarray:
         data, lengths, B, _ = self._pack(texts)
@@ -155,7 +173,7 @@ class Pattern:
                 need_retry = bool((cnt[:B] > cap).any())
             if not need_retry or cap > maxlen:
                 break
-            cap = min(_pow2(cap * 4), maxlen + 1)  # unreachable safety net
+            cap = _grown_cap(cap, maxlen)
         s_np, e_np, c_np = (x.cpu().numpy() for x in (s_buf, e_buf, cnt))
         return [
             list(zip(s_np[i, : c_np[i]].tolist(), e_np[i, : c_np[i]].tolist()))
@@ -240,3 +258,138 @@ def compile(pattern: str, device) -> Pattern:  # noqa: A001
     """Compile a POSIX-ERE pattern for ``device`` ("cuda", "cuda:0" or
     "cpu"; the CPU runs the kernels' plain PyTorch versions)."""
     return Pattern(pattern, device)
+
+
+class MultiPattern:
+    """Several patterns compiled into ONE automaton, scanned in one pass.
+
+    The Glushkov union (``combine_nfas``) shares the start state and keeps
+    each pattern's positions disjoint, so one scan tracks per-pattern
+    accept channels: the accept map widens from [lanes, G] to [lanes, G *
+    P] and goes to the engine as its accept channels. The port of the JAX
+    package's ``MultiPattern`` on its pallas backend: the combined program
+    runs on the u32-word tier or the matmul tier; where the engine cannot
+    take it (a combined program on the multiblock or sparse tier), it
+    raises, as the engine does. Nullable patterns are scanned with the
+    kernels' nullability off and corrected on the host."""
+
+    def __init__(self, patterns: Sequence[str], device):
+        self.patterns = [str(p) for p in patterns]
+        if not self.patterns:
+            raise ValueError("no patterns")
+        self.P = P = len(self.patterns)
+        nfas = [build_nfa(p) for p in self.patterns]
+        self.nullables = np.array([n.nullable for n in nfas])
+        # disjoint position ranges in the combined automaton: pattern p
+        # owns states [off_p + 1, off_p + n_p) (combine_nfas layout)
+        self._ranges = []
+        off = 0
+        for n in nfas:
+            self._ranges.append((off + 1, off + n.n_states))
+            off += n.n_states - 1
+        combined, accepts = combine_nfas(nfas)
+        self.program: DeviceProgram = compile_program(combined)
+        prog = self.program
+        s_tile, G, lanes = prog.s_tile, max(prog.G, 1), prog.lanes
+        # channel g * P + p over the JAX package's lane packing; state 0
+        # (a nullable pattern's empty match) is in no channel
+        acc_tile = np.zeros((P, s_tile), np.uint8)
+        for p, aset in enumerate(accepts):
+            for st in aset:
+                if st > 0:
+                    acc_tile[p, st] = 1
+        A = np.zeros((lanes, G * P), np.uint8)
+        for g in range(G):
+            for p in range(P):
+                A[g * s_tile : (g + 1) * s_tile, g * P + p] = acc_tile[p]
+        self.accept_map = A
+        # per-pattern programs when every pattern fits the 8-state SWAR tile,
+        # as the JAX package builds them for its slotted SWAR scan (off by
+        # default there, not ported here: ROADMAP.md queue B row 6)
+        self.subprograms = (
+            [compile_program(n) for n in nfas]
+            if P <= 4 and all(n.n_states <= 8 for n in nfas) else None
+        )
+        self.engine = ScanEngine(prog, device, accept_map=A, channels_per_record=P,
+                                 nullable=False)
+        sc = self.engine.device_scanner
+        if sc is not None and sc.has_anchor:
+            # span channels: sgm [G * P, lanes] = follow[0] restricted to
+            # pattern p's positions, posm [lanes, P] position masks
+            F0 = np.asarray(prog.F)[0, :s_tile]
+            sgm = np.zeros((G * P, lanes), np.uint8)
+            posm = np.zeros((lanes, P), np.uint8)
+            for g in range(G):
+                o = g * s_tile
+                for p, (plo, phi) in enumerate(self._ranges):
+                    for st in range(max(plo, 1), min(phi, s_tile)):
+                        posm[o + st, p] = 1
+                        if F0[st]:
+                            sgm[g * P + p, o + st] = 1
+            sc.set_span_channels(sgm, posm, P)
+        self._spanners: Optional[List[Pattern]] = None
+
+    def _pack(self, texts: Sequence[TextLike]):
+        data, lengths, B, _ = _pack_texts(texts, self.program.G)
+        return data, lengths, B
+
+    def _counts(self, data, lengths, B: int) -> np.ndarray:
+        """[B, P] match-end counts of a packed batch, nullable channels
+        corrected on the host (an empty match ends at every position)."""
+        cnt, _, _ = self.engine.match_stats(data, lengths, seeded=True)
+        cnt = cnt.cpu().numpy().reshape(-1, self.P)[:B]
+        if self.nullables.any():
+            cnt = np.where(self.nullables[None, :], lengths[:B, None] + 1, cnt)
+        return cnt
+
+    def count_batch(self, texts: Sequence[TextLike]) -> np.ndarray:
+        """[B, P] distinct match-end counts per record per pattern."""
+        return self._counts(*self._pack(texts))
+
+    def search_batch(self, texts: Sequence[TextLike]) -> np.ndarray:
+        """[B, P] bool: record contains a match of pattern p."""
+        return self.count_batch(texts) > 0
+
+    def grep(self, texts: Sequence[TextLike]) -> np.ndarray:
+        return self.search_batch(texts)
+
+    def finditer_batch(
+        self, texts: Sequence[TextLike], *, longest: bool = False
+    ) -> List[List[List[Tuple[int, int]]]]:
+        """[P][B] non-overlapping span lists, one per pattern, under the
+        policy of ``Pattern.finditer_batch`` within each pattern. Lazy spans
+        of every pattern come from one combined scan (``lazy_spans_mb``:
+        one channel reverse pass and one channel span pass, whatever P),
+        with the cap pre-sized from the combined counts pass and raised if
+        a batch still overflows it; nullable patterns' lazy spans are the
+        closed-form empty-match set. Greedy spans run per pattern through
+        ``Pattern``, as in the JAX package."""
+        if longest:
+            if self._spanners is None:
+                self._spanners = [Pattern(p, self.engine.device) for p in self.patterns]
+            return [p.finditer_batch(texts, longest=True) for p in self._spanners]
+        sc = self.engine._own()
+        data, lengths, B = self._pack(texts)
+        G = max(self.program.G, 1)
+        len_g = lengths.reshape(-1, G)
+        live = ~self.nullables
+        out: List[List[List[Tuple[int, int]]]] = [[] for _ in range(self.P)]
+        if live.any():
+            # every span ends at a distinct match-end position
+            cnt0 = self._counts(data, lengths, B)
+            mx = int(cnt0[:, live].max()) if B else 0
+            maxlen = int(lengths[:B].max()) if B else 0
+            cap = _pow2(min(max(mx, 1), maxlen + 1 if maxlen else 1))
+            while True:
+                s_buf, e_buf, cnt = sc.lazy_spans_mb(data, len_g, cap=cap)
+                c_np = cnt.cpu().numpy()
+                if int(c_np[:B][:, live].max(initial=0)) <= cap or cap > maxlen:
+                    break
+                cap = _grown_cap(cap, maxlen)
+            s_np, e_np = s_buf.cpu().numpy(), e_buf.cpu().numpy()
+            for p in np.nonzero(live)[0]:
+                out[p] = [list(zip(s_np[i, p, : c_np[i, p]].tolist(),
+                                   e_np[i, p, : c_np[i, p]].tolist())) for i in range(B)]
+        for p in np.nonzero(self.nullables)[0]:
+            out[p] = [[(q, q) for q in range(int(lengths[i]) + 1)] for i in range(B)]
+        return out

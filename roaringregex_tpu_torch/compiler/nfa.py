@@ -12,13 +12,13 @@ the only byte-dependent work is one mask lookup per step.
 
 Differences from the JAX package's module: ``build_nfa`` runs the
 pure-Python build only (the native C++ compiler is not ported yet; its
-output is identical), and the multi-pattern union is left out with
-``MultiPattern``.
+output is identical). ``combine_nfas`` (the multi-pattern union behind
+``MultiPattern``) is the JAX package's, unchanged.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Set
+from typing import List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -336,3 +336,36 @@ def build_nfa_ast(ast, pattern: str) -> NFA:
         accept_set=accept,
         nullable=g.nullable,
     )
+
+
+def combine_nfas(nfas: List[NFA]) -> Tuple[NFA, List[Set[int]]]:
+    """Union-combine NFAs into one automaton with a shared start state and
+    disjoint position ranges: the Glushkov union, scanning P patterns in
+    one pass (multi-pattern grep). Returns the combined NFA and the
+    per-pattern accept sets in combined state ids (state 0 belongs to
+    pattern p's accept set iff pattern p is nullable)."""
+    n_states = 1 + sum(n.n_states - 1 for n in nfas)
+    labels: List[frozenset] = []
+    follow_sets: List[Set[int]] = [set()]
+    accept_all: Set[int] = set()
+    accepts: List[Set[int]] = []
+    off = 0
+    for n in nfas:
+        fs = n.get_follow_sets()
+        follow_sets[0] |= {p + off for p in fs[0]}
+        for i in range(1, n.n_states):
+            follow_sets.append({j + off for j in fs[i]})
+        labels.extend(n.labels)
+        acc = {p + off if p else 0 for p in n.accept_set}
+        accepts.append(acc)
+        accept_all |= acc
+        off += n.n_states - 1
+    combined = NFA(
+        pattern="|".join(f"({n.pattern})" for n in nfas),
+        n_states=n_states,
+        labels=labels,
+        follow_sets=follow_sets,
+        accept_set=accept_all,
+        nullable=any(n.nullable for n in nfas),
+    )
+    return combined, accepts

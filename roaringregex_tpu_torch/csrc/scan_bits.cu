@@ -5,7 +5,10 @@
 //   rrx_swar_stats  <- roaringregex_tpu/ops/scan_swar.py  _swar_kernel + _swar_stats
 //                      (programs of <= 8 states, 4 records per u32 on the TPU)
 //   rrx_word_stats  <- roaringregex_tpu/ops/scan_word.py  _word_kernel + _word_stats
-//                      (programs of <= 32 states, 1 record per u32 on the TPU)
+//                      (programs of <= 32 states, 1 record per u32 on the TPU;
+//                      with P accept channels, a multi-pattern program's
+//                      per-channel bit-logs [T/8, ROWS*P, B] and their
+//                      reduction to [R, P] statistics)
 //
 // What both compute, per record r of data[R, stride] (uint8, bytes 0..len-1
 // live), as the scanner method match_stats_b does:
@@ -62,6 +65,21 @@
 // - Sentinels: first = 1 << 30 (BIG) and last = -1 until a flag is seen,
 //   exactly as the JAX reduction; lengths are clamped to [0, L] so a bad
 //   length cannot read past the row.
+// - Accept channels (rrx_word_stats with P > 1: MultiPattern's combined
+//   automaton, one accept mask per pattern). The step is the same; each
+//   channel has its own flags, its own `$` dedup (the EOS step's flag is
+//   dropped when the channel flagged at step len: tested on the state of
+//   step len, kept for that one step) and its own (cnt, first, last), so the
+//   outputs are [R][P]. A step whose state meets no channel's mask (the
+//   union test, one AND) walks no channel; only an accepting step does. The
+//   row is walked one step per loop trip from one call site (walk_steps),
+//   which keeps nvcc's time small and costs a little per step (PERF.md).
+//   Up to kRegChannels channels keep
+//   their running stats in registers (the channel loops unroll over a fixed
+//   count); above that they live in the record's rows of the output arrays,
+//   per-thread global scratch that stays in L1. The channel masks sit in
+//   shared memory after the tables. P = 1 launches the single-channel kernel
+//   above, unchanged.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -142,6 +160,102 @@ scan_stats_kernel(const uint8_t* __restrict__ data, long long stride, int L,
   full_o[r] = full ? 1 : 0;
 }
 
+template <int kP>
+__global__ void __launch_bounds__(kThreads)
+word_stats_mc_kernel(const uint8_t* __restrict__ data, long long stride, int L,
+                     const int32_t* __restrict__ lengths, int R,
+                     const uint32_t* __restrict__ tab_g,
+                     const int32_t* __restrict__ deltas_g, int n_d, uint32_t acc_union,
+                     int P, const uint32_t* __restrict__ accs_g,
+                     int seeded, int lead, int nullable,
+                     int32_t* __restrict__ cnt_o, int32_t* __restrict__ first_o,
+                     int32_t* __restrict__ last_o, uint8_t* __restrict__ full_o) {
+  extern __shared__ uint32_t smem[];
+  const Tables tb = load_tables(smem, tab_g, deltas_g, n_d);
+  uint32_t* accs = smem + (kSyms + 2) * n_d;  // after the tables (smem_bytes(n_d))
+  for (int i = threadIdx.x; i < P; i += blockDim.x) accs[i] = accs_g[i];
+  __syncthreads();
+
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const Row rec = record(data, stride, L, lengths, r);
+  const int len = rec.len;
+  const size_t row = static_cast<size_t>(r) * P;
+  // cnt, first step, last step: registers, or the outputs' rows
+  int32_t* const rows[3] = {cnt_o + row, first_o + row, last_o + row};
+  ChanRegs<kP, 3> ch(rows);
+#pragma unroll
+  for (int p = 0; p < chan_bound<kP>(P); ++p) {
+    if (kP > 0 && p >= P) break;
+    ch.at(0, p) = 0;
+    ch.at(1, p) = kBig;
+    ch.at(2, p) = -1;
+  }
+
+  uint32_t v = 0u;
+  uint32_t vlen = 0u;  // the state of step len, for the EOS step's per-channel `$` dedup
+  walk_steps(rec.row, len, [&](int t, int sym) {
+    const bool eos = t == len + 1;
+    if (eos) vlen = v;
+    v = tb.fwd(v | ((seeded || t < 2) ? 1u : 0u), sym);
+    if (t <= lead || (v & acc_union) == 0u) return;
+#pragma unroll
+    for (int p = 0; p < chan_bound<kP>(P); ++p) {
+      if (kP > 0 && p >= P) break;
+      const uint32_t a = accs[p];
+      if ((v & a) == 0u || (eos && (vlen & a) != 0u)) continue;
+      ++ch.at(0, p);
+      ch.at(1, p) = ch.at(1, p) == kBig ? t : ch.at(1, p);
+      ch.at(2, p) = t;
+    }
+  });
+
+  // closed forms of _word_stats, per channel
+#pragma unroll
+  for (int p = 0; p < chan_bound<kP>(P); ++p) {
+    if (kP > 0 && p >= P) break;
+    const int c = ch.at(0, p), f = ch.at(1, p), l = ch.at(2, p);
+    bool full = c > 0 && l >= len;
+    int cnt, first, last;
+    if (nullable) {
+      full = full || len == 0;
+      first = 0;
+      if (seeded) {
+        cnt = len + 1;
+        last = l < 0 ? len : min(l, len);
+      } else {
+        cnt = len == 0 ? 1 : 1 + c - (f == 0 ? 1 : 0);
+        last = max(min(l < 0 ? 0 : l, len), 0);
+      }
+    } else {
+      cnt = c;
+      first = f >= kBig ? -1 : min(f, len);
+      last = l < 0 ? -1 : min(l, len);
+    }
+    cnt_o[row + p] = cnt;
+    first_o[row + p] = first;
+    last_o[row + p] = last;
+    full_o[row + p] = full ? 1 : 0;
+  }
+}
+
+template <int kP>
+int launch_mc(const void* data, long long stride, int L, const void* lengths, int R,
+              const void* tab, const void* deltas, int n_d, unsigned acc, int P,
+              const void* accs, int seeded, int lead, int nullable, void* cnt, void* first,
+              void* last, void* full, void* stream) {
+  const size_t smem = smem_bytes(n_d) + sizeof(uint32_t) * static_cast<size_t>(P);
+  int e = allow_smem(word_stats_mc_kernel<kP>, smem);
+  if (e != 0) return e;
+  const int blocks = (R + kThreads - 1) / kThreads;
+  word_stats_mc_kernel<kP><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data), stride, L, static_cast<const int32_t*>(lengths), R,
+      static_cast<const uint32_t*>(tab), static_cast<const int32_t*>(deltas), n_d, acc, P,
+      static_cast<const uint32_t*>(accs), seeded, lead, nullable, static_cast<int32_t*>(cnt),
+      static_cast<int32_t*>(first), static_cast<int32_t*>(last), static_cast<uint8_t*>(full));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kStates>
 int launch(const void* data, long long stride, int L, const void* lengths, int R,
            const void* tab, const void* deltas, int n_d, unsigned acc,
@@ -181,16 +295,31 @@ int rrx_swar_stats(const void* data, long long stride, int L, const void* length
                    lead, nullable, cnt, first, last, full, stream);
 }
 
+// P accept channels: accs [P] uint32 masks (acc = their union), outputs
+// [R][P]; P = 1 runs the single-channel kernel on acc (accs unread).
 int rrx_word_stats(const void* data, long long stride, int L, const void* lengths,
                    int R, const void* tab, const void* deltas, int n_d,
-                   unsigned acc, int seeded, int lead, int nullable, void* cnt,
-                   void* first, void* last, void* full, void* stream) {
-  return launch<32>(data, stride, L, lengths, R, tab, deltas, n_d, acc, seeded,
-                    lead, nullable, cnt, first, last, full, stream);
+                   unsigned acc, int P, const void* accs, int seeded, int lead,
+                   int nullable, void* cnt, void* first, void* last, void* full,
+                   void* stream) {
+  if (P == 1) {
+    return launch<32>(data, stride, L, lengths, R, tab, deltas, n_d, acc, seeded,
+                      lead, nullable, cnt, first, last, full, stream);
+  }
+  const int e = check_args(data, stride, L, R, n_d, acc, 32);
+  if (e != 0) return e;
+  if (P < 1 || accs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  if (P <= kRegChannels) {
+    return launch_mc<kRegChannels>(data, stride, L, lengths, R, tab, deltas, n_d, acc, P, accs,
+                                   seeded, lead, nullable, cnt, first, last, full, stream);
+  }
+  return launch_mc<0>(data, stride, L, lengths, R, tab, deltas, n_d, acc, P, accs, seeded,
+                      lead, nullable, cnt, first, last, full, stream);
 }
 
 // Resident blocks per SM of one kernel (theoretical occupancy). Kernel
-// index: 0 rrx_swar_stats, 1 rrx_word_stats, then the span kernels of
+// index: 0 rrx_swar_stats, 1 rrx_word_stats (one channel), then the span kernels of
 // scan_spans.cu: 2 rrx_swar_reverse, 3 rrx_swar_lazy_spans,
 // 4 rrx_swar_anchor_end, 5 rrx_swar_greedy_spans; for these `size` is the
 // table's delta count. Then the matmul-tier kernels of scan_nfa.cu:
@@ -205,6 +334,24 @@ int rrx_occupancy(int kernel, int size, int* blocks_per_sm) {
   if (kernel < 6) return spans_occupancy(kernel - 2, size, blocks_per_sm);
   if (kernel < 12) return nfa_occupancy(kernel - 6, size, blocks_per_sm);
   return count_occupancy(kernel - 12, size, blocks_per_sm);
+}
+
+// Resident blocks per SM of the P-channel kernels: 0 rrx_word_stats (`size`
+// = the table's delta count), then scan_nfa.cu's (`size` = s_tile):
+// 1 rrx_nfa_stats, 2 rrx_nfa_reverse_mb, 3 rrx_nfa_lazy_spans_mb.
+int rrx_occupancy_channels(int kernel, int size, int P, int* blocks_per_sm) {
+  if (kernel == 0) {
+    if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = smem_bytes(size) + sizeof(uint32_t) * static_cast<size_t>(P);
+    const cudaError_t e =
+        P <= kRegChannels
+            ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  blocks_per_sm, word_stats_mc_kernel<kRegChannels>, kThreads, smem)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  blocks_per_sm, word_stats_mc_kernel<0>, kThreads, smem);
+    return static_cast<int>(e);
+  }
+  return nfa_channels_occupancy(kernel - 1, size, P, blocks_per_sm);
 }
 
 int rrx_threads_per_block() { return kThreads; }

@@ -149,6 +149,74 @@ __device__ __forceinline__ void walk_rev(const uint4* row, int len, F&& f) {
   }
 }
 
+// Every stream step of a record in order, t = 0 .. len+1: f(t, sym) with sym
+// = kBos at 0, the byte t-1, kEos at len+1. One call site and a loop that
+// does not unroll: the multi-channel kernels, whose step body is large,
+// keep their code (and nvcc's time) small this way; the row is still read
+// 16 bytes at a time.
+template <class F>
+__device__ __forceinline__ void walk_steps(const uint4* row, int len, F&& f) {
+  uint4 q{};
+#pragma unroll 1
+  for (int t = 0; t <= len + 1; ++t) {
+    int sym = t == 0 ? kBos : kEos;
+    if (t >= 1 && t <= len) {
+      const int j = t - 1;
+      if ((j & 15) == 0) q = __ldg(row + (j >> 4));
+      sym = byte_at(q, j & 15);
+    }
+    f(t, sym);
+  }
+}
+
+// walk_steps backwards: t = len+1 .. 0.
+template <class F>
+__device__ __forceinline__ void walk_steps_rev(const uint4* row, int len, F&& f) {
+  uint4 q{};
+#pragma unroll 1
+  for (int t = len + 1; t >= 0; --t) {
+    int sym = t == 0 ? kBos : kEos;
+    if (t >= 1 && t <= len) {
+      const int j = t - 1;
+      if (t == len || (j & 15) == 15) q = __ldg(row + (j >> 4));
+      sym = byte_at(q, j & 15);
+    }
+    f(t, sym);
+  }
+}
+
+// Accept channels (multi-pattern programs): the per-(record, channel)
+// bookkeeping of the P-channel kernels stays in registers for at most
+// kRegChannels channels, else in per-thread rows of global memory.
+constexpr int kRegChannels = 8;
+
+// The loop bound of a channel loop: the fixed register count (the loop
+// unrolls and per-channel arrays stay in registers; channels p >= P are
+// skipped) or the runtime count.
+template <int kP>
+__device__ __forceinline__ int chan_bound(int P) {
+  return kP > 0 ? kP : P;
+}
+
+// kN running int values per channel of one record: registers for at most
+// kP channels (kP > 0), else (kP == 0) the given per-thread rows.
+template <int kP, int kN>
+struct ChanRegs {
+  int v_[kN][kP];
+  __device__ __forceinline__ explicit ChanRegs(int32_t* const (&)[kN]) {}
+  __device__ __forceinline__ int& at(int i, int p) { return v_[i][p]; }
+};
+
+template <int kN>
+struct ChanRegs<0, kN> {
+  int32_t* row_[kN];
+  __device__ __forceinline__ explicit ChanRegs(int32_t* const (&rows)[kN]) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) row_[i] = rows[i];
+  }
+  __device__ __forceinline__ int& at(int i, int p) { return row_[i][p]; }
+};
+
 // The launchers' shared checks on what the wrapper passes: negative shapes
 // or a misaligned row (check_rows), and for the (delta, table) kernels a
 // bad table size or accept bits past the automaton's width (check_args),
@@ -185,6 +253,10 @@ int spans_occupancy(int kernel, int n_d, int* blocks_per_sm);
 // record tile of s_tile states, by index: 0 stats, 1 reverse, 2 anchor end,
 // 3 lazy spans, 4 greedy spans, 5 flags.
 int nfa_occupancy(int kernel, int s_tile, int* blocks_per_sm);
+
+// Resident blocks per SM of the matmul tier's P-channel kernels
+// (scan_nfa.cu), by index: 0 stats, 1 reverse_mb, 2 lazy_spans_mb.
+int nfa_channels_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm);
 
 // Resident blocks per SM of the counting-tier kernels (scan_count.cu) for a
 // body of k positions, by index: 0 stats, 1 flags, 2 reverse.

@@ -16,6 +16,12 @@
 //   rrx_nfa_greedy_spans <- _greedy_call_b's while_loop of rounds, each a
 //                           first-start search and an anchored longest
 //                           rescan (_anchor_end_kernel_b)
+// and, for a multi-pattern program (MultiPattern's combined automaton, the
+// patterns' positions disjoint, one accept row per pattern):
+//   rrx_nfa_stats (P > 1)  <- _match_kernel_b with C = G*P accept channels
+//   rrx_nfa_reverse_mb     <- _reverse_kernel_mb (via _spans_call_mb)
+//   rrx_nfa_lazy_spans_mb  <- _span_kernel_mb (via _spans_call_mb), with the
+//                            per-channel compaction after it
 //
 // What they compute. The TPU steps G records packed into 128 or 256 lanes
 // as y = F_bd^T v (+ c0) in bf16 on the MXU, v = y * mask(byte), with a
@@ -79,6 +85,34 @@
 // - Anchored rescans start at their seed step and stop at the first 16-byte
 //   chunk boundary with an empty state set (or, lazy, once an end is found),
 //   so a greedy round costs the match's length, not the record's.
+//
+// Accept channels (P accept rows after the mask rows; the single-channel
+// kernels above read row 0 and run only with P = 1):
+// - stats, P > 1: per channel the bookkeeping of the stats kernel (its own
+//   `$` dedup e != last, first, full), outputs [R][P]. The union of the
+//   accept rows is tested first (W ANDs); only an accepting step walks the
+//   channels.
+// - reverse_mb: the reverse step with the union of the accept rows joining
+//   (state 0 is in no mask row, so it steps as the program's accept set
+//   does), and per channel p the hit x & sg_p != 0 of x = (R | acc) &
+//   mask[sym], taken before R is updated (sg_p = follow[0] restricted to
+//   pattern p's positions; x & follow[0] == 0 skips the channels). Hit words
+//   [P][W][R]: channel p's block is the single-channel layout.
+// - lazy_spans_mb: one forward walk in which each channel claims, seeds
+//   (sg_p: the same row serves as the TPU's c0m column), emits on its own
+//   accept row and, on an emit, clears its positions (posm_p) from the
+//   shared state, which is the TPU's kill. The accept tests of one step all
+//   read the state before that step's kills. Spans go straight into
+//   [R][P][cap] rows; cnt [R][P] counts past cap.
+// - Per (record, channel) bookkeeping (stats: cnt, first, last, full; spans:
+//   cur, pos, cnt and the current hit word): in registers for at most
+//   kRegChannels channels, the channel loops unrolled over that count; above
+//   it in per-thread rows of global memory (the outputs, or a [R][P][2]
+//   scratch from the wrapper for cur and pos), which stay in L1. P is not
+//   capped: a combined automaton of <= 256 states has P <= 255 (more with
+//   patterns that add no state).
+// - The span-channel rows [P][2][W] (sg_p, posm_p) sit in shared memory after
+//   the tile's rows: at s_tile 256 and P = 255 that is 24.7 + 8.2 + 16.3 KB.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -89,9 +123,11 @@ namespace {
 
 using namespace rrx;
 
-inline size_t nfa_smem_bytes(int S, int W) {
-  return sizeof(uint32_t) * static_cast<size_t>((2 * S + kSyms + 1) * W);
+// Shared memory of a tile with P accept rows and `extra` words after them.
+inline size_t nfa_smem_bytes(int S, int W, int P = 1, int extra = 0) {
+  return sizeof(uint32_t) * (static_cast<size_t>((2 * S + kSyms + P) * W) + extra);
 }
+
 
 template <int W>
 struct Nfa {
@@ -105,6 +141,27 @@ struct Nfa {
     uint32_t y[W];
 #pragma unroll
     for (int k = 0; k < W; ++k) y[k] = gate ? follow[k] : 0u;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      uint32_t b = v[w];
+      while (b != 0u) {
+        const uint32_t* f = follow + (32 * w + __ffs(b) - 1) * W;
+        b &= b - 1u;
+#pragma unroll
+        for (int k = 0; k < W; ++k) y[k] |= f[k];
+      }
+    }
+    const uint32_t* m = mask + sym * W;
+#pragma unroll
+    for (int k = 0; k < W; ++k) v[k] = y[k] & m[k];
+  }
+
+  // v = (OR of follow[s] over s in v | seed) & mask[sym]
+  __device__ __forceinline__ void fwd_seed(uint32_t (&v)[W], const uint32_t (&seed)[W],
+                                           int sym) const {
+    uint32_t y[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) y[k] = seed[k];
 #pragma unroll
     for (int w = 0; w < W; ++w) {
       uint32_t b = v[w];
@@ -149,6 +206,15 @@ struct Nfa {
   }
 };
 
+// a & row != 0 for a row of W words (in shared memory)
+template <int W>
+__device__ __forceinline__ bool meets(const uint32_t (&a)[W], const uint32_t* row) {
+  uint32_t x = 0u;
+#pragma unroll
+  for (int k = 0; k < W; ++k) x |= a[k] & row[k];
+  return x != 0u;
+}
+
 template <int W>
 __device__ __forceinline__ bool empty(const uint32_t (&v)[W]) {
   uint32_t a = 0u;
@@ -163,17 +229,26 @@ __device__ __forceinline__ void clear(uint32_t (&v)[W]) {
   for (int k = 0; k < W; ++k) v[k] = 0u;
 }
 
-// Copies the tile's rows into dynamic shared memory. Every thread of the
-// block calls it (it ends in __syncthreads) before any thread returns.
+// Copies the tile's rows (P accept rows) into dynamic shared memory, then
+// `n_extra` words of extra_g after them. Every thread of the block calls it
+// (it ends in __syncthreads) before any thread returns. nfa.acc is the union
+// of the accept rows.
 template <int W>
 __device__ __forceinline__ Nfa<W> load_nfa(uint32_t* smem, const uint32_t* __restrict__ tab_g,
-                                           int S) {
-  const int n = (2 * S + kSyms + 1) * W;
+                                           int S, int P = 1,
+                                           const uint32_t* __restrict__ extra_g = nullptr,
+                                           int n_extra = 0) {
+  const int n = (2 * S + kSyms + P) * W;
   for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = tab_g[i];
+  for (int i = threadIdx.x; i < n_extra; i += blockDim.x) smem[n + i] = extra_g[i];
   __syncthreads();
   Nfa<W> nfa{smem, smem + S * W, smem + 2 * S * W, {}};
 #pragma unroll
-  for (int k = 0; k < W; ++k) nfa.acc[k] = smem[(2 * S + kSyms) * W + k];
+  for (int k = 0; k < W; ++k) nfa.acc[k] = 0u;
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) nfa.acc[k] |= smem[(2 * S + kSyms + p) * W + k];
+  }
   return nfa;
 }
 
@@ -390,6 +465,251 @@ nfa_greedy_spans_kernel(NFA_KERNEL_HEAD, const uint32_t* __restrict__ hits, int 
   over_o[r] = active ? 1 : 0;
 }
 
+// Stats with P accept channels: cnt, first, last, full per channel.
+template <int W, int kP>
+__global__ void __launch_bounds__(kThreads)
+nfa_stats_mc_kernel(NFA_KERNEL_HEAD, int P, int seeded, int lead, int nullable,
+                    int32_t* __restrict__ cnt_o, int32_t* __restrict__ first_o,
+                    int32_t* __restrict__ last_o, uint8_t* __restrict__ full_o) {
+  extern __shared__ uint32_t smem[];
+  const Nfa<W> nfa = load_nfa<W>(smem, tab_g, S, P);
+  const uint32_t* accs = smem + (2 * S + kSyms) * W;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const Row rec = record(data, stride, L, lengths, r);
+  const int len = rec.len;
+  const size_t row = static_cast<size_t>(r) * P;
+  // cnt, first, last: registers, or the outputs' rows (full: its own row)
+  int32_t* const rows[3] = {cnt_o + row, first_o + row, last_o + row};
+  ChanRegs<kP, 3> ch(rows);
+  bool full_r[kP > 0 ? kP : 1];
+  const bool dedup = !(nullable && seeded);
+#pragma unroll
+  for (int p = 0; p < chan_bound<kP>(P); ++p) {
+    if (kP > 0 && p >= P) break;
+    ch.at(0, p) = nullable ? (seeded ? len + 1 : 1) : 0;
+    ch.at(1, p) = nullable ? 0 : -1;
+    ch.at(2, p) = nullable ? (seeded ? len : 0) : -1;
+    const bool f0 = nullable && len == 0;
+    if constexpr (kP > 0) {
+      full_r[p] = f0;
+    } else {
+      full_o[row + p] = f0 ? 1 : 0;
+    }
+  }
+  uint32_t v[W];
+  clear(v);
+  auto step = [&](int t, int sym) {
+    nfa.fwd(v, seeded || t < 2, sym);
+    if (t <= lead || !nfa.accepts(v)) return;
+    const int e = min(t, len);
+#pragma unroll
+    for (int p = 0; p < chan_bound<kP>(P); ++p) {
+      if (kP > 0 && p >= P) break;
+      if (!meets(v, accs + p * W)) continue;
+      int& last = ch.at(2, p);
+      ch.at(0, p) += (dedup && e != last) ? 1 : 0;
+      ch.at(1, p) = ch.at(1, p) < 0 ? e : ch.at(1, p);
+      last = e;
+      if (t >= len) {
+        if constexpr (kP > 0) {
+          full_r[p] = true;
+        } else {
+          full_o[row + p] = 1;
+        }
+      }
+    }
+  };
+  walk_steps(rec.row, len, step);
+  if constexpr (kP > 0) {
+#pragma unroll
+    for (int p = 0; p < chan_bound<kP>(P); ++p) {
+      if (p >= P) break;
+      cnt_o[row + p] = ch.at(0, p);
+      first_o[row + p] = ch.at(1, p);
+      last_o[row + p] = ch.at(2, p);
+      full_o[row + p] = full_r[p] ? 1 : 0;
+    }
+  }
+}
+
+// Hit words of the P channels of one record while the reverse walk fills
+// them: registers for at most kP channels, written when a word closes; else
+// the words themselves in global memory, zeroed when a word opens.
+template <int kP>
+struct HitWords {
+  uint32_t w_[kP];
+  __device__ __forceinline__ void open(uint32_t*, int, size_t, int P) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) w_[p] = 0u;
+    (void)P;
+  }
+  __device__ __forceinline__ void set(uint32_t*, size_t, int p, uint32_t bit) { w_[p] |= bit; }
+  __device__ __forceinline__ void close(uint32_t* hits, size_t at, size_t plane, int P) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      if (p >= P) break;
+      hits[at + p * plane] = w_[p];
+    }
+  }
+};
+
+template <>
+struct HitWords<0> {
+  __device__ __forceinline__ void open(uint32_t* hits, size_t at, size_t plane, int P) {
+    for (int p = 0; p < P; ++p) hits[at + p * plane] = 0u;
+  }
+  __device__ __forceinline__ void set(uint32_t* hits, size_t at, int p, uint32_t bit) {
+    (void)p;
+    hits[at] |= bit;
+  }
+  __device__ __forceinline__ void close(uint32_t*, size_t, size_t, int) {}
+};
+
+// span: [P][2][W] rows (sg_p, posm_p); hits: [P][Wh][R]
+template <int W, int kP>
+__global__ void __launch_bounds__(kThreads)
+nfa_reverse_mb_kernel(NFA_KERNEL_HEAD, int P, const uint32_t* __restrict__ span_g,
+                      uint32_t* __restrict__ hits) {
+  extern __shared__ uint32_t smem[];
+  const Nfa<W> nfa = load_nfa<W>(smem, tab_g, S, P, span_g, 2 * P * W);
+  const uint32_t* span = smem + (2 * S + kSyms + P) * W;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const Row rec = record(data, stride, L, lengths, r);
+  const int len = rec.len;
+  const int Wh = (L + 2 + 31) >> 5;
+  const size_t plane = static_cast<size_t>(Wh) * R;  // one channel's block
+  for (int p = 0; p < P; ++p) {
+    for (int w = ((len + 1) >> 5) + 1; w < Wh; ++w) hits[p * plane + (size_t)w * R + r] = 0u;
+  }
+  uint32_t rs[W];
+  clear(rs);
+  HitWords<kP> hw;
+  auto step = [&](int t, int sym) {
+    const size_t at = (size_t)(t >> 5) * R + r;
+    if (t == len + 1 || (t & 31) == 31) hw.open(hits, at, plane, P);
+    const uint32_t* m = nfa.mask + sym * W;
+    uint32_t x[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) x[k] = (rs[k] | nfa.acc[k]) & m[k];
+    if (meets(x, nfa.follow)) {  // follow[0]: the union of the sg rows
+      const uint32_t bit = 1u << (t & 31);
+#pragma unroll
+      for (int p = 0; p < chan_bound<kP>(P); ++p) {
+        if (kP > 0 && p >= P) break;
+        if (meets(x, span + 2 * p * W)) hw.set(hits, at + p * plane, p, bit);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k) rs[k] = 0u;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      uint32_t b = x[w];
+      while (b != 0u) {
+        const uint32_t* pr = nfa.pred + (32 * w + __ffs(b) - 1) * W;
+        b &= b - 1u;
+#pragma unroll
+        for (int k = 0; k < W; ++k) rs[k] |= pr[k];
+      }
+    }
+    if ((t & 31) == 0) hw.close(hits, at, plane, P);  // walking down, bit t closes word t / 32
+  };
+  walk_steps_rev(rec.row, len, step);
+}
+
+// span: [P][2][W] rows (sg_p, posm_p); hits: [P][Wh][R] from
+// rrx_nfa_reverse_mb; starts, ends: [R][P][cap]; cnt: [R][P]; scratch:
+// [R][P][2] (cur, pos) when P > kRegChannels
+template <int W, int kP>
+__global__ void __launch_bounds__(kThreads)
+nfa_lazy_spans_mb_kernel(NFA_KERNEL_HEAD, int P, const uint32_t* __restrict__ span_g,
+                         const uint32_t* __restrict__ hits, int cap,
+                         int32_t* __restrict__ starts_o, int32_t* __restrict__ ends_o,
+                         int32_t* __restrict__ cnt_o, int32_t* __restrict__ scratch) {
+  extern __shared__ uint32_t smem[];
+  const Nfa<W> nfa = load_nfa<W>(smem, tab_g, S, P, span_g, 2 * P * W);
+  const uint32_t* accs = smem + (2 * S + kSyms) * W;
+  const uint32_t* span = accs + P * W;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const Row rec = record(data, stride, L, lengths, r);
+  const int len = rec.len;
+  const int Wh = (L + 2 + 31) >> 5;
+  const size_t plane = static_cast<size_t>(Wh) * R;
+  const size_t row = static_cast<size_t>(r) * P;
+  // per channel: cur (-1 idle), pos, cnt
+  int32_t* const rows[3] = {kP > 0 ? nullptr : scratch + 2 * row,
+                            kP > 0 ? nullptr : scratch + 2 * row + P, cnt_o + row};
+  ChanRegs<kP, 3> ch(rows);
+  uint32_t hw_r[kP > 0 ? kP : 1];
+#pragma unroll
+  for (int p = 0; p < chan_bound<kP>(P); ++p) {
+    if (kP > 0 && p >= P) break;
+    ch.at(0, p) = -1;
+    ch.at(1, p) = 0;
+    ch.at(2, p) = 0;
+  }
+  uint32_t v[W];
+  clear(v);
+  auto step = [&](int t, int sym) {
+    const int sp = max(t - 1, 0);
+    const size_t at = (size_t)(t >> 5) * R + r;
+    uint32_t seed[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) seed[k] = 0u;
+#pragma unroll
+    for (int p = 0; p < chan_bound<kP>(P); ++p) {
+      if (kP > 0 && p >= P) break;
+      int& cur = ch.at(0, p);
+      uint32_t hw;
+      if constexpr (kP > 0) {
+        if ((t & 31) == 0) hw_r[p] = __ldg(hits + at + p * plane);
+        hw = hw_r[p];
+      } else {
+        hw = cur < 0 ? __ldg(hits + at + p * plane) : 0u;
+      }
+      if (cur < 0 && ((hw >> (t & 31)) & 1u) && ch.at(1, p) <= sp && sp <= len) cur = sp;
+      if (cur >= 0 && (cur == t - 1 || (cur == 0 && t <= 1))) {
+        const uint32_t* sg = span + 2 * p * W;
+#pragma unroll
+        for (int k = 0; k < W; ++k) seed[k] |= sg[k];
+      }
+    }
+    nfa.fwd_seed(v, seed, sym);
+    if (!nfa.accepts(v)) return;
+    const int e = min(t, len);
+    uint32_t vf[W];  // the accept tests read the state before this step's kills
+#pragma unroll
+    for (int k = 0; k < W; ++k) vf[k] = v[k];
+#pragma unroll
+    for (int p = 0; p < chan_bound<kP>(P); ++p) {
+      if (kP > 0 && p >= P) break;
+      int& cur = ch.at(0, p);
+      if (cur < 0 || e < cur || !meets(vf, accs + p * W)) continue;
+      int& n = ch.at(2, p);
+      if (n < cap) {
+        starts_o[(row + p) * cap + n] = cur;
+        ends_o[(row + p) * cap + n] = e;
+      }
+      ++n;
+      ch.at(1, p) = max(e, cur + 1);
+      cur = -1;
+      const uint32_t* pm = span + (2 * p + 1) * W;
+#pragma unroll
+      for (int k = 0; k < W; ++k) v[k] &= ~pm[k];
+    }
+  };
+  walk_steps(rec.row, len, step);
+#pragma unroll
+  for (int p = 0; p < chan_bound<kP>(P); ++p) {
+    if (kP > 0 && p >= P) break;
+    const int n = ch.at(2, p);
+    fill_tail(starts_o + (row + p) * cap, ends_o + (row + p) * cap, min(n, cap), cap);
+    if constexpr (kP > 0) cnt_o[row + p] = n;
+  }
+}
+
 // Calls f(std::integral_constant<int, W>{}) for the state-word count of a
 // record tile of s_tile states; other tiles are refused.
 template <class F>
@@ -410,6 +730,16 @@ int by_words(int s_tile, F&& f) {
 }
 
 template <class K, class... Args>
+int launch_smem(K kernel, int R, size_t smem, void* stream, Args... args) {
+  if (R == 0) return 0;
+  const int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
+  const int blocks = (R + kThreads - 1) / kThreads;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class K, class... Args>
 int launch(K kernel, int R, int S, int W, void* stream, Args... args) {
   if (R == 0) return 0;
   const size_t smem = nfa_smem_bytes(S, W);
@@ -421,14 +751,43 @@ int launch(K kernel, int R, int S, int W, void* stream, Args... args) {
 }
 
 template <class K>
-int occupancy(K kernel, int S, int W, int* blocks_per_sm) {
+int occupancy(K kernel, int S, int W, int* blocks_per_sm, int P = 1, int extra = 0) {
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, kThreads, nfa_smem_bytes(S, W)));
+      blocks_per_sm, kernel, kThreads, nfa_smem_bytes(S, W, P, extra)));
+}
+
+// Calls f(integral_constant<int, kP>) for the channel bookkeeping of P
+// channels: registers up to kRegChannels, else global rows (kP = 0).
+template <class F>
+int by_channels(int P, F&& f) {
+  if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (P <= kRegChannels) return f(std::integral_constant<int, kRegChannels>{});
+  return f(std::integral_constant<int, 0>{});
 }
 
 }  // namespace
 
 namespace rrx {
+
+int nfa_channels_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm) {
+  return by_words(s_tile, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return by_channels(P, [&](auto c) {
+      constexpr int kP = decltype(c)::value;
+      switch (kernel) {
+        case 0:
+          return occupancy(nfa_stats_mc_kernel<W, kP>, s_tile, W, blocks_per_sm, P);
+        case 1:
+          return occupancy(nfa_reverse_mb_kernel<W, kP>, s_tile, W, blocks_per_sm, P, 2 * P * W);
+        case 2:
+          return occupancy(nfa_lazy_spans_mb_kernel<W, kP>, s_tile, W, blocks_per_sm, P,
+                           2 * P * W);
+        default:
+          return static_cast<int>(cudaErrorInvalidValue);
+      }
+    });
+  });
+}
 
 int nfa_occupancy(int kernel, int s_tile, int* blocks_per_sm) {
   return by_words(s_tile, [&](auto w) {
@@ -462,16 +821,61 @@ int nfa_occupancy(int kernel, int s_tile, int* blocks_per_sm) {
 
 extern "C" {
 
-// cnt, first, last: [R] int32; full: [R] uint8; lead < 0 = no lead
-int rrx_nfa_stats(RRX_NFA_HEAD, int seeded, int lead, int nullable, void* cnt, void* first,
-                  void* last, void* full, void* stream) {
+// P accept rows in the table; cnt, first, last: [R][P] int32; full: [R][P]
+// uint8; lead < 0 = no lead. P = 1 runs the single-channel kernel.
+int rrx_nfa_stats(RRX_NFA_HEAD, int P, int seeded, int lead, int nullable, void* cnt,
+                  void* first, void* last, void* full, void* stream) {
   const int bad = check_rows(data, stride, L, R);
   if (bad != 0) return bad;
   return by_words(s_tile, [&](auto w) {
     constexpr int W = decltype(w)::value;
-    return launch(nfa_stats_kernel<W>, R, s_tile, W, stream, RRX_NFA_ARGS, seeded, lead,
-                  nullable, static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
-                  static_cast<int32_t*>(last), static_cast<uint8_t*>(full));
+    if (P == 1) {
+      return launch(nfa_stats_kernel<W>, R, s_tile, W, stream, RRX_NFA_ARGS, seeded, lead,
+                    nullable, static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
+                    static_cast<int32_t*>(last), static_cast<uint8_t*>(full));
+    }
+    return by_channels(P, [&](auto c) {
+      constexpr int kP = decltype(c)::value;
+      return launch_smem(nfa_stats_mc_kernel<W, kP>, R, nfa_smem_bytes(s_tile, W, P), stream,
+                         RRX_NFA_ARGS, P, seeded, lead, nullable, static_cast<int32_t*>(cnt),
+                         static_cast<int32_t*>(first), static_cast<int32_t*>(last),
+                         static_cast<uint8_t*>(full));
+    });
+  });
+}
+
+// P accept rows in the table; span: [P][2][W] uint32; hits: [P][ceil((L+2)/32)][R]
+int rrx_nfa_reverse_mb(RRX_NFA_HEAD, int P, const void* span, void* hits, void* stream) {
+  const int bad = check_rows(data, stride, L, R);
+  if (bad != 0) return bad;
+  return by_words(s_tile, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return by_channels(P, [&](auto c) {
+      constexpr int kP = decltype(c)::value;
+      return launch_smem(nfa_reverse_mb_kernel<W, kP>, R, nfa_smem_bytes(s_tile, W, P, 2 * P * W),
+                         stream, RRX_NFA_ARGS, P, static_cast<const uint32_t*>(span),
+                         static_cast<uint32_t*>(hits));
+    });
+  });
+}
+
+// hits from rrx_nfa_reverse_mb; starts, ends: [R][P][cap] int32; cnt: [R][P]
+// int32; scratch: [R][P][2] int32 when P > 8 (else unread)
+int rrx_nfa_lazy_spans_mb(RRX_NFA_HEAD, int P, const void* span, const void* hits, int cap,
+                          void* starts, void* ends, void* cnt, void* scratch, void* stream) {
+  const int bad = check_rows(data, stride, L, R);
+  if (bad != 0) return bad;
+  if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return by_words(s_tile, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return by_channels(P, [&](auto c) {
+      constexpr int kP = decltype(c)::value;
+      return launch_smem(nfa_lazy_spans_mb_kernel<W, kP>, R,
+                         nfa_smem_bytes(s_tile, W, P, 2 * P * W), stream, RRX_NFA_ARGS, P,
+                         static_cast<const uint32_t*>(span), static_cast<const uint32_t*>(hits),
+                         cap, static_cast<int32_t*>(starts), static_cast<int32_t*>(ends),
+                         static_cast<int32_t*>(cnt), static_cast<int32_t*>(scratch));
+    });
   });
 }
 

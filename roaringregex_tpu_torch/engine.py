@@ -9,6 +9,16 @@ any tier; a dense program of up to 256 states to the 8-state SWAR tier
 when ``swar_spec`` accepts it, else to the u32-word tier when
 ``word_spec`` does, else to the matmul tier (``PallasScanner``).
 
+With an accept map (``accept_map`` [lanes, G * P], ``channels_per_record``
+P: the multi-pattern interface of ``MultiPattern``'s combined automaton)
+there is no counting plan, no SWAR tier, no seeded alias unless P = 1 and
+no window plan: the program runs on the u32-word tier when ``word_spec``
+takes its channels, else on the matmul tier, ``match_stats`` returns [B *
+P] per statistic, and every primitive that reads one accept set raises. A
+combined program on the multiblock or sparse tier raises
+``NotImplementedError`` naming the tier (the JAX engine runs it on the
+bitband or container scanners).
+
 A whole-pattern ``X{m,n}`` on the multiblock or sparse tier with no
 counting plan may have a seeded alias (:func:`seeded_alias_program`): its
 seeded primitives (match stats, forward flags, reverse hits, the lazy
@@ -90,9 +100,14 @@ def seeded_alias_program(prog: DeviceProgram):
 
 class ScanEngine:
     """Per-program engine: holds the device tables and exposes the scan
-    primitives."""
+    primitives. ``accept_map`` ([lanes, C] 0/1, C = G *
+    ``channels_per_record``) widens the accept reduction to per-channel
+    statistics (one combined automaton, one scan); ``nullable`` overrides
+    the kernels' nullability (multi-pattern scans turn it off and correct
+    nullable channels on the host)."""
 
-    def __init__(self, prog: DeviceProgram, device):
+    def __init__(self, prog: DeviceProgram, device, *, accept_map=None,
+                 channels_per_record: int = 1, nullable=None):
         from .ops.scan_pallas import CountScanner, PallasScanner, counting_plan
         from .ops.scan_swar import SwarScanner, swar_spec
         from .ops.scan_word import WordScanner, word_spec
@@ -100,25 +115,33 @@ class ScanEngine:
 
         self.prog = prog
         self.device = torch.device(device)
+        self.P = channels_per_record
+        self._channels = accept_map is not None
         self._scanner = None
         self._xla_tables = None
         cfg = get_config()
-        plan = counting_plan(prog) if prog.G <= 1 else None
+        plan = (counting_plan(prog)
+                if accept_map is None and self.P == 1 and prog.G <= 1 else None)
         if plan is not None:
             # run-length tier: one int per record, no follow table
-            self._scanner = CountScanner(prog, plan, self.device)
+            self._scanner = CountScanner(prog, plan, self.device, nullable=nullable)
         elif prog.tier not in DENSE_TIERS:
             if self._seeded_alias() is None:
                 raise NotImplementedError(self._unported(
                     "the JAX package runs it on the bitband, container or multiblock matmul "
                     "tiers, and it has neither a counting plan nor a seeded alias"
+                    if not self._channels else
+                    f"a combined program of {self.P} accept channels, which the JAX package "
+                    "runs on the bitband or container tiers"
                 ))
-        elif cfg.swar and swar_spec(prog) is not None:
-            self._scanner = SwarScanner(prog, self.device)
-        elif cfg.swar and word_spec(prog) is not None:
-            self._scanner = WordScanner(prog, self.device)
+        elif accept_map is None and self.P == 1 and cfg.swar and swar_spec(prog) is not None:
+            self._scanner = SwarScanner(prog, self.device, nullable=nullable)
+        elif cfg.swar and word_spec(prog, accept_map, self.P) is not None:
+            self._scanner = WordScanner(prog, self.device, accept_map=accept_map, P=self.P,
+                                        nullable=nullable)
         else:
-            self._scanner = PallasScanner(prog, self.device)
+            self._scanner = PallasScanner(prog, self.device, accept_map=accept_map,
+                                          nullable=nullable)
 
     def _unported(self, why: str) -> str:
         p = self.prog
@@ -128,6 +151,16 @@ class ScanEngine:
             "counting tier and the seeded alias; the bitband, container and multiblock "
             "matmul tiers are still to be ported (see ROADMAP.md)"
         )
+
+    def _one_channel(self, what: str) -> None:
+        """Raise for a primitive that reads one accept set on an engine with
+        accept channels: it must not answer from their union."""
+        if self._channels:
+            raise ValueError(
+                f"ScanEngine.{what}: {self.prog.pattern[:60]!r} is scanned with "
+                f"{self.P} accept channels; only match_stats takes channels (and the "
+                "scanner's lazy_spans_mb)"
+            )
 
     def _own(self):
         """The program's own scanner; raises for a program that runs only
@@ -148,10 +181,11 @@ class ScanEngine:
 
     # -- seeded alias: X{m,n} == X{m,} under seeded semantics --------------
     def _seeded_alias(self):
-        """Cached engine over ``seeded_alias_program(self.prog)``, or None."""
+        """Cached engine over ``seeded_alias_program(self.prog)``, or None
+        (always None with several accept channels)."""
         if not getattr(self, "_alias_built", False):
             self._alias_built = True
-            aprog = seeded_alias_program(self.prog)
+            aprog = seeded_alias_program(self.prog) if self.P == 1 else None
             self._alias = None if aprog is None else ScanEngine(aprog, self.device)
         return self._alias
 
@@ -185,8 +219,9 @@ class ScanEngine:
 
     # -- match statistics ------------------------------------------------------
     def match_stats(self, data, lengths, *, seeded: bool):
-        """(count, first_end, any) per record, each [B]. Seeded scans of a
-        program with a seeded alias run on the alias."""
+        """(count, first_end, any) per accept channel, each flattened to
+        [B * channels_per_record] (record-major; [B] for one channel).
+        Seeded scans of a program with a seeded alias run on the alias."""
         alias = self._seeded_alias()
         if seeded and alias is not None:
             return self._alias_call(alias, "match_stats", data, lengths, seeded=True)
@@ -216,6 +251,8 @@ class ScanEngine:
         if (
             not seeded
             or type(self._scanner) is not PallasScanner
+            or self.P != 1
+            or self._scanner.nullable
             or p.nullable
             or p.uses_anchor
         ):
@@ -262,6 +299,7 @@ class ScanEngine:
     def forward_flags(self, data, lengths, *, seeded: bool) -> torch.Tensor:
         """[B, T + 1] bool accept flags, T = L + 2 (column 0 = the
         program's nullability, column t + 1 = step t)."""
+        self._one_channel("forward_flags")
         alias = self._seeded_alias()
         if seeded and alias is not None:
             return self._alias_call(alias, "forward_flags", data, lengths, seeded=True)
@@ -269,6 +307,7 @@ class ScanEngine:
 
     def reverse_hits(self, data, lengths) -> torch.Tensor:
         """[B, L + 2] bool start-position hits (step t = start max(t-1, 0))."""
+        self._one_channel("reverse_hits")
         alias = self._seeded_alias()
         if alias is not None:
             return self._alias_call(alias, "reverse_hits", data, lengths)
@@ -281,6 +320,7 @@ class ScanEngine:
         seeded alias X{m,} is the same m-copy chain; the greedy end
         observes n and stays on the original. A scanner without anchored
         kernels (the counting tier) answers with ``scan_xla.first_end_from``."""
+        self._one_channel("first_end_from")
         alias = self._seeded_alias()
         if not longest and alias is not None:
             return self._alias_call(alias, "first_end_from", data, lengths, starts,
@@ -311,11 +351,13 @@ class ScanEngine:
 
     def lazy_spans(self, data, lengths, *, cap: int):
         """(starts [B, cap], ends [B, cap], count [B]): lazy spans."""
+        self._one_channel("lazy_spans")
         sc = self._span_scanner()
         return sc.lazy_spans_b(self._data(data), self._len_g(lengths), cap=cap)
 
     def greedy_spans(self, data, lengths, *, cap: int):
         """(starts, ends, count, overflow): greedy (leftmost-longest) spans."""
+        self._one_channel("greedy_spans")
         sc = self._span_scanner()
         return sc.greedy_spans_b(self._data(data), self._len_g(lengths), cap=cap)
 
@@ -353,6 +395,7 @@ class ScanEngine:
 
     def ends_bitmap(self, data, lengths, max_len: int) -> np.ndarray:
         """[B, max_len + 1] bool host bitmap: some match ends at position e."""
+        self._one_channel("ends_bitmap")
         alias = self._seeded_alias()
         if alias is not None:
             return self._alias_call(alias, "ends_bitmap", data, lengths, max_len=max_len)
@@ -363,6 +406,7 @@ class ScanEngine:
 
     def starts_bitmap(self, data, lengths, max_len: int) -> np.ndarray:
         """[B, max_len + 1] bool host bitmap: some match starts at position s."""
+        self._one_channel("starts_bitmap")
         alias = self._seeded_alias()
         if alias is not None:
             return self._alias_call(alias, "starts_bitmap", data, lengths, max_len=max_len)
@@ -380,6 +424,7 @@ class ScanEngine:
     def fullmatch_flags(self, data, lengths) -> np.ndarray:
         """[B] bool whole-string acceptance: the ``full`` statistic of an
         unseeded scan."""
+        self._one_channel("fullmatch_flags")
         _, _, _, full, _ = self._own().match_stats_b(
             self._data(data), self._len_g(lengths), seeded=False
         )

@@ -50,15 +50,16 @@ _COUNT_HEAD = [
 ]
 _STATS_TAIL = [_I, _I, _I, _P, _P, _P, _P]  # seeded, lead, nullable, cnt, first, last, full
 # every entry point: its head, its own arguments, then the stream. The
-# order is rrx_occupancy's kernel index.
+# order of the first fifteen is rrx_occupancy's kernel index (the P-channel
+# forms have rrx_occupancy_channels).
 ARGTYPES = {
     "rrx_swar_stats": _HEAD + _STATS_TAIL + [_P],
-    "rrx_word_stats": _HEAD + _STATS_TAIL + [_P],
+    "rrx_word_stats": _HEAD + [_I, _P] + _STATS_TAIL + [_P],  # P, accs, then stats
     "rrx_swar_reverse": _HEAD + [_P, _P],  # hits
     "rrx_swar_lazy_spans": _HEAD + [_P, _I, _P, _P, _P, _P],  # hits, cap, starts, ends, cnt
     "rrx_swar_anchor_end": _HEAD + [_P, _I, _P, _P],  # starts, longest, end
     "rrx_swar_greedy_spans": _HEAD + [_P, _I, _P, _P, _P, _P, _P],  # ... cnt, over
-    "rrx_nfa_stats": _NFA_HEAD + _STATS_TAIL + [_P],
+    "rrx_nfa_stats": _NFA_HEAD + [_I] + _STATS_TAIL + [_P],  # P, then stats
     "rrx_nfa_reverse": _NFA_HEAD + [_P, _P],  # hits
     "rrx_nfa_anchor_end": _NFA_HEAD + [_P, _I, _P, _P],  # starts, longest, end
     "rrx_nfa_lazy_spans": _NFA_HEAD + [_P, _I, _P, _P, _P, _P],  # hits, cap, starts, ends, cnt
@@ -68,6 +69,9 @@ ARGTYPES = {
     "rrx_count_stats": _COUNT_HEAD + _STATS_TAIL + [_P],
     "rrx_count_flags": _COUNT_HEAD + [_I, _P, _P],  # seeded, flags
     "rrx_count_reverse": _COUNT_HEAD + [_P, _P],  # hits
+    "rrx_nfa_reverse_mb": _NFA_HEAD + [_I, _P, _P, _P],  # P, span, hits
+    # P, span, hits, cap, starts, ends, cnt, scratch
+    "rrx_nfa_lazy_spans_mb": _NFA_HEAD + [_I, _P, _P, _I, _P, _P, _P, _P, _P],
 }
 KERNELS = tuple(ARGTYPES)
 
@@ -164,6 +168,8 @@ def library() -> ctypes.CDLL:
         fn.restype = _I
     lib.rrx_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.rrx_occupancy.restype = _I
+    lib.rrx_occupancy_channels.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.rrx_occupancy_channels.restype = _I
     lib.rrx_threads_per_block.argtypes = []
     lib.rrx_threads_per_block.restype = _I
     lib.rrx_error_string.argtypes = [_I]

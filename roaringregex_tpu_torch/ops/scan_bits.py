@@ -36,7 +36,7 @@ written once.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +52,15 @@ class ScanTables(NamedTuple):
 
     tab: torch.Tensor  # [N_SYMS, n_delta] int32 (uint32 bit patterns)
     deltas: torch.Tensor  # [n_delta] int32, target - source
-    acc: int  # accepting-state mask
+    acc: int  # accepting-state mask (with channels: their union)
+    # [P] int32 per-channel accept masks (a multi-pattern program's accept
+    # channels), or None for one channel, ``acc``
+    accs: Optional[torch.Tensor] = None
+
+    @property
+    def P(self) -> int:
+        """Number of accept channels."""
+        return 1 if self.accs is None else int(self.accs.numel())
 
     def plain(self, dev) -> "_Plain":
         """The stepper of the plain versions on ``dev``."""
@@ -80,11 +88,16 @@ def dg_tables(
     return np.asarray(deltas, np.int32), tab, int(acc) & MASK32
 
 
-def device_tables(deltas: np.ndarray, tab: np.ndarray, acc: int, device) -> ScanTables:
+def device_tables(deltas: np.ndarray, tab: np.ndarray, acc: int, device,
+                  accs: Optional[Sequence[int]] = None) -> ScanTables:
+    """``accs``: per-channel accept masks (``acc`` is then their union)."""
+    if accs is not None:
+        accs = torch.from_numpy(np.asarray(accs, np.uint32).view(np.int32).copy()).to(device)
     return ScanTables(
         tab=torch.from_numpy(tab.view(np.int32).copy()).to(device),
         deltas=torch.from_numpy(deltas.astype(np.int32)).to(device),
         acc=acc,
+        accs=accs,
     )
 
 
@@ -222,26 +235,34 @@ def stats_plain(
     nullable: bool,
 ):
     """Plain PyTorch version of the kernel: a loop over the L + 2 stream
-    steps, vectorised over records, in int64 masked to 32 bits (torch on
-    the CPU lacks uint32 shifts). Returns (cnt, first, last, full) [R]."""
+    steps, vectorised over records and accept channels, in int64 masked
+    to 32 bits (torch on the CPU lacks uint32 shifts). Each channel has its
+    own flags, its own `$` dedup (the EOS step's flag is dropped when the
+    channel flagged at step len) and its own (cnt, first, last, full).
+    Returns (cnt, first, last, full), each [R, P] for tables with accept
+    channels and [R] for one channel."""
     _check_inputs(data, lengths)
     R, L = data.shape
     dev = data.device
     i64 = torch.int64
-    ln = _lengths(data, lengths)
+    ln = _lengths(data, lengths)[:, None]
     pt = _Plain.of(tables, dev)
-    acc = tables.acc
+    if tables.accs is None:
+        accm = torch.tensor([tables.acc], dtype=i64, device=dev)
+    else:
+        accm = tables.accs.to(dev).to(i64) & MASK32
+    P = accm.numel()
     lead = lead if lead > 0 else -1
     v = torch.zeros(R, dtype=i64, device=dev)
-    prev = torch.zeros(R, dtype=torch.bool, device=dev)
-    cnt = torch.zeros(R, dtype=i64, device=dev)
-    first = torch.full((R,), BIG, dtype=i64, device=dev)
-    last = torch.full((R,), -1, dtype=i64, device=dev)
+    prev = torch.zeros((R, P), dtype=torch.bool, device=dev)
+    cnt = torch.zeros((R, P), dtype=i64, device=dev)
+    first = torch.full((R, P), BIG, dtype=i64, device=dev)
+    last = torch.full((R, P), -1, dtype=i64, device=dev)
     for t in range(L + 2):
-        sym = _sym(data, ln, t)
-        eos = sym == SYM_EOS
+        sym = _sym(data, ln[:, 0], t)
+        eos = (sym == SYM_EOS)[:, None]
         v = pt.fwd(v | 1 if (seeded or t < 2) else v, sym)
-        fl = (v & acc) != 0
+        fl = (v[:, None] & accm) != 0
         emit = fl & ~(eos & prev)
         prev = fl
         if t > lead:
@@ -253,9 +274,9 @@ def stats_plain(
         # closed forms of _swar_stats / _word_stats: every position ends an
         # empty match (seeded); end 0 is pre-counted (unseeded)
         full = full | (ln == 0)
-        first_o = torch.zeros_like(ln)
+        first_o = torch.zeros_like(cnt)
         if seeded:
-            cnt_o = ln + 1
+            cnt_o = (ln + 1).expand(R, P)
             last_o = torch.where(last < 0, ln, torch.minimum(last, ln))
         else:
             step0 = (first == 0).to(i64)
@@ -266,7 +287,8 @@ def stats_plain(
         first_o = torch.where(first >= BIG, -1, torch.minimum(first, ln))
         last_o = torch.where(last < 0, -1, torch.minimum(last, ln))
     i32 = torch.int32
-    return cnt_o.to(i32), first_o.to(i32), last_o.to(i32), full
+    out = (cnt_o.to(i32), first_o.to(i32), last_o.to(i32), full)
+    return out if tables.accs is not None else tuple(x[:, 0].contiguous() for x in out)
 
 
 def reverse_plain(data: torch.Tensor, lengths: torch.Tensor, tables):
@@ -491,14 +513,23 @@ def launch_stats(
     nullable: bool,
 ):
     """Launch ``entry`` (``rrx_swar_stats`` / ``rrx_word_stats``) on the
-    current stream of ``data``'s card. Returns (cnt, first, last, full)."""
+    current stream of ``data``'s card. ``rrx_word_stats`` also takes the
+    channel count and the per-channel accept masks. Returns (cnt, first,
+    last, full), each [R, P] for tables with accept channels, else [R]."""
     R, dev = data.shape[0], data.device
-    cnt = torch.empty(R, dtype=torch.int32, device=dev)
-    first = torch.empty(R, dtype=torch.int32, device=dev)
-    last = torch.empty(R, dtype=torch.int32, device=dev)
-    full = torch.empty(R, dtype=torch.uint8, device=dev)
+    shape = (R,) if tables.accs is None else (R, tables.P)
+    cnt = torch.empty(shape, dtype=torch.int32, device=dev)
+    first = torch.empty(shape, dtype=torch.int32, device=dev)
+    last = torch.empty(shape, dtype=torch.int32, device=dev)
+    full = torch.empty(shape, dtype=torch.uint8, device=dev)
+    if entry == "rrx_word_stats":
+        chan = (tables.P, tables.accs if tables.accs is not None else 0)
+    elif tables.accs is not None:
+        raise ValueError(f"{entry} takes one accept channel, got {tables.P}")
+    else:
+        chan = ()
     _launch(
-        entry, data, lengths, tables,
+        entry, data, lengths, tables, *chan,
         int(seeded), int(lead if lead > 0 else -1), int(nullable), cnt, first, last, full,
     )
     return cnt, first, last, full.view(torch.bool)

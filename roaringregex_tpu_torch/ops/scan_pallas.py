@@ -45,8 +45,13 @@ so they need no uint32 arithmetic; the table words are unpacked through
 int64 masked to 32 bits. The match-statistics and flags versions are
 here; the span path's (reverse, anchored rescan, lazy and greedy spans) are
 ``scan_bits``'s, which run on this tier's stepper (``NfaTables.plain``).
-Not ported: K-chaining (``chain_target``, off by default) and the
-multi-pattern span channels (``lazy_spans_mb``).
+
+A multi-pattern program (``MultiPattern``'s combined automaton, the
+patterns' positions disjoint) carries P accept rows, one per pattern:
+``match_stats_b`` reduces per channel, and ``lazy_spans_mb`` runs one
+reverse pass and one span pass for all P patterns (``rrx_nfa_reverse_mb``,
+``rrx_nfa_lazy_spans_mb``). Not ported: K-chaining (``chain_target``, off
+by default).
 """
 from __future__ import annotations
 
@@ -60,15 +65,22 @@ from . import scan_bits as sb
 
 N_SYMS = sb.N_SYMS
 MAX_S_TILE = 256  # 8 state words per record in registers
+# accept channels whose per-record bookkeeping the multi-channel kernels
+# keep in registers; above it, in per-thread rows of global scratch
+MB_REG_CHANNELS = 8
 
 
 class NfaTables(NamedTuple):
-    """Device copy of one record tile's rows: [(2 S + N_SYMS + 1) * W]
+    """Device copy of one record tile's rows: [(2 S + N_SYMS + P) * W]
     int32 (uint32 bit patterns): follow [S][W], pred [S][W], mask
-    [N_SYMS][W], acc [W]."""
+    [N_SYMS][W], acc [P][W]. Without an accept map P = 1 and the acc row
+    is the program's accept set; with one (``channels``) row p is accept
+    channel p's."""
 
     tab: torch.Tensor
     s_tile: int
+    P: int = 1
+    channels: bool = False
 
     def plain(self, dev) -> "_Plain":
         """The stepper of the plain versions on ``dev``."""
@@ -88,13 +100,15 @@ def _pack_rows(bits: np.ndarray, W: int) -> np.ndarray:
     return out.astype(np.uint32)
 
 
-def nfa_tables(prog: DeviceProgram) -> np.ndarray:
-    """[2 S + N_SYMS + 1, W] uint32 rows of one record tile (S = s_tile):
+def nfa_tables(prog: DeviceProgram, accept_map=None, P: int = 1) -> np.ndarray:
+    """[2 S + N_SYMS + P, W] uint32 rows of one record tile (S = s_tile):
     follow[s] (the states that follow s), pred[u] (the states that u
     follows: the transpose, for the reverse pass), mask[sym] for the 259
     symbols (bytes >= 0x80, whose class is dead, and the dead step have
     zero rows; BOS and EOS are rows of their own, never bytes), then the
-    accept word(s). The initial state is bit 0."""
+    accept rows: the program's accept set, or with ``accept_map`` ([lanes,
+    G * P] 0/1, the first record tile's rows s < S) one row per channel.
+    The initial state is bit 0."""
     S = prog.s_tile
     if prog.F is None or not 1 <= S <= MAX_S_TILE:
         raise ValueError(f"{prog.pattern!r}: s_tile {S} ({prog.tier}) has no matmul-tier tables")
@@ -106,14 +120,32 @@ def nfa_tables(prog: DeviceProgram) -> np.ndarray:
     mask[0x80:256] = 0
     mask[sb.SYM_BOS] = Bw[prog.bos_class]
     mask[sb.SYM_EOS] = Bw[prog.eos_class]
-    acc = _pack_rows((np.asarray(prog.accept)[:S] != 0)[None, :], W)
+    if accept_map is None:
+        acc = _pack_rows((np.asarray(prog.accept)[:S] != 0)[None, :], W)
+    else:
+        acc = _pack_rows((np.asarray(accept_map)[:S, :P] != 0).T, W)
     return np.concatenate([_pack_rows(F, W), _pack_rows(F.T, W), mask, acc])
 
 
-def device_nfa_tables(prog: DeviceProgram, device) -> NfaTables:
-    tab = nfa_tables(prog)
+def device_nfa_tables(prog: DeviceProgram, device, accept_map=None, P: int = 1) -> NfaTables:
+    tab = nfa_tables(prog, accept_map, P)
     return NfaTables(torch.from_numpy(tab.reshape(-1).view(np.int32).copy()).to(device),
-                     prog.s_tile)
+                     prog.s_tile, P if accept_map is not None else 1, accept_map is not None)
+
+
+def span_channels(sgm, posm, P: int, s_tile: int) -> np.ndarray:
+    """[P, 2, W] uint32 span-channel rows of the first record tile from
+    ``MultiPattern``'s tables (``sgm`` [G * P, lanes]: follow[0] restricted
+    to pattern p's positions; ``posm`` [lanes, P]: pattern p's positions).
+    In set form one row per channel serves the TPU's ``sgm`` and ``c0m``
+    alike: both are follow[0] restricted to pattern p's positions (``c0m =
+    c0 * posm``, ``c0`` = follow[0]), the reverse pass's candidate-start
+    projection and the span pass's seed. The second row is ``posm``, the
+    kill mask of an emitted channel's threads."""
+    S, W = s_tile, _words(s_tile)
+    sg = _pack_rows(np.asarray(sgm)[:P, :S] != 0, W)
+    pm = _pack_rows(np.asarray(posm)[:S, :P].T != 0, W)
+    return np.stack([sg, pm], axis=1)
 
 
 def counting_plan(prog: DeviceProgram):
@@ -191,26 +223,34 @@ def counting_plan(prog: DeviceProgram):
 # ---------------------------------------------------------------------------
 
 
+def _bit_rows(words: torch.Tensor, S: int) -> torch.Tensor:
+    """[n, W] int64 words (uint32 bit patterns) -> [n, S] bool."""
+    sh = torch.arange(32, dtype=torch.int64, device=words.device)
+    return ((words[:, :, None] >> sh) & 1).reshape(words.shape[0], -1)[:, :S] != 0
+
+
 class _Plain(NamedTuple):
     """One tile's rows as 0/1 planes: F [S, S] float32 (F[s, u] = u
     follows s), P [S, S] float32 (P[u, s] = u follows s), f0 [S] bool
-    (follow[0]), M [N_SYMS, S] bool, acc [S] bool."""
+    (follow[0]), M [N_SYMS, S] bool, acc [S] bool (the union of the accept
+    rows), accs [P, S] bool (one row per accept channel)."""
 
     F: torch.Tensor
     P: torch.Tensor
     f0: torch.Tensor
     M: torch.Tensor
     acc: torch.Tensor
+    accs: torch.Tensor
 
     @classmethod
     def of(cls, tables: NfaTables, dev) -> "_Plain":
         S, W = tables.s_tile, _words(tables.s_tile)
         words = (tables.tab.to(dev).to(torch.int64) & sb.MASK32).reshape(-1, W)
-        sh = torch.arange(32, dtype=torch.int64, device=dev)
-        bits = ((words[:, :, None] >> sh) & 1).reshape(words.shape[0], 32 * W)[:, :S] != 0
+        bits = _bit_rows(words, S)
         F, P = bits[:S], bits[S : 2 * S]
+        accs = bits[2 * S + N_SYMS :]
         return cls(F.to(torch.float32), P.to(torch.float32), F[0],
-                   bits[2 * S : 2 * S + N_SYMS], bits[2 * S + N_SYMS])
+                   bits[2 * S : 2 * S + N_SYMS], accs.any(dim=0), accs)
 
     def empty(self, R: int, dev) -> torch.Tensor:
         return torch.zeros((R, self.F.shape[0]), dtype=torch.bool, device=dev)
@@ -240,46 +280,50 @@ def stats_plain(data, lengths, tables: NfaTables, *, seeded: bool, lead: int,
                 nullable: bool):
     """Plain version of ``rrx_nfa_stats``, in the order of the TPU's
     ``_match_kernel_b``: a loop over the L + 2 stream steps, vectorised over
-    records. Returns (cnt, first, last, full) [R].
+    records and accept channels. Returns (cnt, first, last, full), each
+    [R, P] for tables with accept channels and [R] for one channel.
 
     Per step: the seed gate is every step when seeded, steps t < n_seed = 2
-    when not; an accept flag counts only past ``lead``; its end is e =
-    min(t, len); cnt counts flags whose e differs from the last one (the
-    `$` step's duplicate of e == len), except for a nullable seeded scan
-    whose cnt is len + 1 from the start; first keeps the first e, last the
-    latest, full is a flag at t >= len. Nullable starts: first = 0, and
-    (seeded) cnt = len + 1, last = len or (unseeded) cnt = 1, last = 0;
-    full starts as len == 0."""
+    when not; a channel's accept flag counts only past ``lead``; its end is
+    e = min(t, len); cnt counts flags whose e differs from the channel's
+    last one (the `$` step's duplicate of e == len), except for a nullable
+    seeded scan whose cnt is len + 1 from the start; first keeps the first
+    e, last the latest, full is a flag at t >= len. Nullable starts: first
+    = 0, and (seeded) cnt = len + 1, last = len or (unseeded) cnt = 1, last
+    = 0; full starts as len == 0."""
     sb._check_inputs(data, lengths)
     R, L = data.shape
     dev = data.device
     i64 = torch.int64
     ln = sb._lengths(data, lengths)
     pt = _Plain.of(tables, dev)
+    accs = pt.accs.to(torch.float32).T  # [S, P]
+    lnc = ln[:, None].expand(R, accs.shape[1])
     lead = lead if lead > 0 else -1
     v = pt.empty(R, dev)
     if nullable:
-        cnt = ln + 1 if seeded else torch.ones_like(ln)
-        last = ln.clone() if seeded else torch.zeros_like(ln)
-        first = torch.zeros_like(ln)
-        full = ln == 0
+        cnt = lnc + 1 if seeded else torch.ones_like(lnc)
+        last = lnc.clone() if seeded else torch.zeros_like(lnc)
+        first = torch.zeros_like(lnc)
+        full = lnc == 0
     else:
-        cnt = torch.zeros_like(ln)
-        first = torch.full_like(ln, -1)
-        last = torch.full_like(ln, -1)
-        full = torch.zeros_like(ln, dtype=torch.bool)
+        cnt = torch.zeros_like(lnc)
+        first = torch.full_like(lnc, -1)
+        last = torch.full_like(lnc, -1)
+        full = torch.zeros_like(lnc, dtype=torch.bool)
     for t in range(L + 2):
         gate = torch.full((R,), seeded or t < 2, dtype=torch.bool, device=dev)
         v = pt.step(v, gate, sb._sym(data, ln, t))
-        fl = pt.accepts(v) & (t > lead)
-        e = ln.clamp(max=t)
+        fl = ((v.to(torch.float32) @ accs) > 0) & (t > lead)
+        e = lnc.clamp(max=t)
         if not (nullable and seeded):
-            cnt += (fl & (e != last)).to(i64)
+            cnt = cnt + (fl & (e != last)).to(i64)
         first = torch.where(fl & (first < 0), e, first)
         last = torch.where(fl, e, last)
-        full = full | (fl & (t >= ln))
+        full = full | (fl & (t >= lnc))
     i32 = torch.int32
-    return cnt.to(i32), first.to(i32), last.to(i32), full
+    out = (cnt.to(i32), first.to(i32), last.to(i32), full)
+    return out if tables.channels else tuple(x[:, 0].contiguous() for x in out)
 
 
 def flags_plain(data, lengths, tables: NfaTables, *, seeded: bool):
@@ -302,6 +346,112 @@ def flags_plain(data, lengths, tables: NfaTables, *, seeded: bool):
     return sb._as_i32(words)
 
 
+def _span_planes(span: torch.Tensor, S: int):
+    """[P, 2, W] span-channel rows -> (sg [P, S] bool, posm [P, S] bool)."""
+    P, _, W = span.shape
+    bits = _bit_rows(span.to(torch.int64).reshape(-1, W) & sb.MASK32, S).reshape(P, 2, S)
+    return bits[:, 0], bits[:, 1]
+
+
+def _check_span(tables: NfaTables, span: torch.Tensor, data: torch.Tensor) -> None:
+    want = (tables.P, 2, _words(tables.s_tile))
+    if not tables.channels or tuple(span.shape) != want or span.dtype != torch.int32:
+        raise ValueError(f"span rows must be {want} int32 for tables with accept channels, "
+                         f"got {tuple(span.shape)} {span.dtype} (channels: {tables.channels})")
+    if span.device != data.device:
+        raise ValueError(f"span rows on {span.device}, data on {data.device}")
+
+
+def _check_hits_mb(hits: torch.Tensor, data: torch.Tensor, P: int) -> None:
+    R, L = data.shape
+    want = (P, sb.hit_words(L), R)
+    if tuple(hits.shape) != want or hits.dtype != torch.int32 or hits.device != data.device:
+        raise ValueError(f"hits must be {want} int32 on {data.device}, got "
+                         f"{tuple(hits.shape)} {hits.dtype} on {hits.device}")
+
+
+def reverse_mb_plain(data, lengths, tables: NfaTables, span: torch.Tensor):
+    """Plain version of ``rrx_nfa_reverse_mb`` (the TPU's
+    ``_reverse_kernel_mb``): the reverse step of :func:`scan_bits.reverse_plain`
+    over the combined automaton, with the union of the accept rows joining
+    at every step, and per channel p the hit ``x & sg_p != 0`` of ``x =
+    (R | acc) & mask[sym]``, taken before R is updated: a match of pattern
+    p can start at max(t - 1, 0). (State 0 is in no mask row, so the union
+    of the channel rows steps as the program's accept set does.) Returns
+    hit words [P, W, R] int32: channel p's block is the single-channel
+    layout."""
+    sb._check_inputs(data, lengths)
+    _check_span(tables, span, data)
+    R, L = data.shape
+    dev = data.device
+    ln = sb._lengths(data, lengths)
+    pt = _Plain.of(tables, dev)
+    sg = _span_planes(span.to(dev), tables.s_tile)[0].to(torch.float32).T  # [S, P]
+    rs = pt.empty(R, dev)
+    words = torch.zeros((tables.P, sb.hit_words(L), R), dtype=torch.int64, device=dev)
+    for t in range(L + 1, -1, -1):
+        x = (rs | pt.acc) & pt.M[sb._sym(data, ln, t)]
+        hit = (x.to(torch.float32) @ sg) > 0  # [R, P]
+        rs = (x.to(torch.float32) @ pt.P) > 0
+        words[:, t >> 5] |= hit.T.to(torch.int64) << (t & 31)
+    return sb._as_i32(words)
+
+
+def lazy_spans_mb_plain(data, lengths, tables: NfaTables, span: torch.Tensor,
+                        hits: torch.Tensor, cap: int):
+    """Plain version of ``rrx_nfa_lazy_spans_mb`` (the TPU's
+    ``_span_kernel_mb`` and the compaction after it): one forward walk in
+    which every channel runs the claim/anchor/emit loop of
+    :func:`scan_bits.lazy_spans_plain` on its own hit words and in its own
+    (disjoint) position subspace of the combined automaton. Per step and
+    channel p: claim sp = max(t - 1, 0) when idle, hit and pos <= sp <=
+    len; seed sg_p at step cur + 1 (steps <= 1 when cur == 0); emit (cur, e
+    = min(t, len)) on p's accept row with e >= cur, then pos = max(e, cur +
+    1), cur idle, and p's positions (posm_p) are cleared from the state.
+    Nullable channels come out meaningless (state 0 is in no channel row).
+    Returns (starts [R, P, cap], ends [R, P, cap], -1 past the count; cnt
+    [R, P], which counts past cap)."""
+    sb._check_inputs(data, lengths)
+    _check_span(tables, span, data)
+    P = tables.P
+    _check_hits_mb(hits, data, P)
+    sb._check_cap(cap)
+    R, L = data.shape
+    dev = data.device
+    i64, f32 = torch.int64, torch.float32
+    ln = sb._lengths(data, lengths)
+    lnc = ln[:, None]
+    pt = _Plain.of(tables, dev)
+    sg, posm = (x.to(f32) for x in _span_planes(span.to(dev), tables.s_tile))
+    accs = pt.accs.to(f32).T  # [S, P]
+    v = pt.empty(R, dev)
+    pos = torch.zeros((R, P), dtype=i64, device=dev)
+    cur = torch.full((R, P), -1, dtype=i64, device=dev)
+    cnt = torch.zeros((R, P), dtype=i64, device=dev)
+    sbuf = torch.full((R, P, cap + 1), -1, dtype=i64, device=dev)  # column cap: overflow
+    ebuf = torch.full((R, P, cap + 1), -1, dtype=i64, device=dev)
+    for t in range(L + 2):
+        sp = max(t - 1, 0)
+        hit = ((hits[:, t >> 5, :].to(i64) >> (t & 31)) & 1).T != 0  # [R, P]
+        claim = (cur < 0) & hit & (pos <= sp) & (sp <= lnc)
+        cur = torch.where(claim, sp, cur)
+        gate = (cur >= 0) & ((cur == t - 1) | ((cur == 0) & (t <= 1)))
+        y = ((v.to(f32) @ pt.F) > 0) | ((gate.to(f32) @ sg) > 0)
+        v = y & pt.M[sb._sym(data, ln, t)]
+        fl = (v.to(f32) @ accs) > 0
+        e = lnc.clamp(max=t)
+        done = fl & (cur >= 0) & (e >= cur)
+        slot = torch.where(done, cnt.clamp(max=cap), cap)[..., None]
+        sbuf.scatter_(2, slot, torch.where(done, cur, -1)[..., None])
+        ebuf.scatter_(2, slot, torch.where(done, e, -1).expand(R, P)[..., None])
+        cnt += done.to(i64)
+        pos = torch.where(done, torch.maximum(e, cur + 1), pos)
+        cur = torch.where(done, -1, cur)
+        v = v & ~((done.to(f32) @ posm) > 0)
+    i32 = torch.int32
+    return sbuf[..., :cap].to(i32), ebuf[..., :cap].to(i32), cnt.to(i32)
+
+
 # ---------------------------------------------------------------------------
 # Counted wrappers: a CUDA tensor goes to the kernel, a CPU tensor to the
 # plain version
@@ -314,17 +464,22 @@ def _launch(entry: str, data, lengths, tables: NfaTables, *tail) -> None:
 
 def nfa_stats(data, lengths, tables: NfaTables, *, seeded: bool, lead: int = 0,
               nullable: bool = False):
-    """(cnt, first, last, full) [R] (``rrx_nfa_stats``, counted in
-    ``nfa_stats.launches``, on a CUDA tensor; :func:`stats_plain` on a CPU
-    tensor)."""
+    """(cnt, first, last, full), each [R, P] for tables with accept
+    channels, else [R] (``rrx_nfa_stats`` on a CUDA tensor, counted in
+    ``nfa_stats.launches``, or in ``nfa_stats.channel_launches`` for its
+    P-channel kernel, P > 1; :func:`stats_plain` on a CPU tensor)."""
     if data.device.type == "cpu":
         return stats_plain(data, lengths, tables, seeded=seeded, lead=lead, nullable=nullable)
     R, dev = data.shape[0], data.device
-    outs = [torch.empty(R, dtype=torch.int32, device=dev) for _ in range(3)]
-    full = torch.empty(R, dtype=torch.uint8, device=dev)
-    _launch("rrx_nfa_stats", data, lengths, tables, int(seeded),
+    shape = (R, tables.P) if tables.channels else (R,)
+    outs = [torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3)]
+    full = torch.empty(shape, dtype=torch.uint8, device=dev)
+    _launch("rrx_nfa_stats", data, lengths, tables, int(tables.P), int(seeded),
             int(lead if lead > 0 else -1), int(nullable), *outs, full)
-    nfa_stats.launches += 1
+    if tables.P > 1:
+        nfa_stats.channel_launches += 1
+    else:
+        nfa_stats.launches += 1
     return (*outs, full.view(torch.bool))
 
 
@@ -398,9 +553,49 @@ def nfa_greedy_spans(data, lengths, tables: NfaTables, hits, cap: int, *, nullab
     return starts, ends, cnt, over.view(torch.bool)
 
 
+def nfa_reverse_mb(data, lengths, tables: NfaTables, span: torch.Tensor):
+    """Hit words [P, W, R] int32 of every accept channel from one reverse
+    pass (``rrx_nfa_reverse_mb``, counted in ``nfa_reverse_mb.launches``,
+    on a CUDA tensor; :func:`reverse_mb_plain` on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return reverse_mb_plain(data, lengths, tables, span)
+    _check_span(tables, span, data)
+    R, L = data.shape
+    hits = torch.empty((tables.P, sb.hit_words(L), R), dtype=torch.int32, device=data.device)
+    _launch("rrx_nfa_reverse_mb", data, lengths, tables, int(tables.P), span.contiguous(), hits)
+    nfa_reverse_mb.launches += 1
+    return hits
+
+
+def nfa_lazy_spans_mb(data, lengths, tables: NfaTables, span: torch.Tensor, hits, cap: int):
+    """(starts [R, P, cap], ends [R, P, cap], cnt [R, P]): every channel's
+    lazy spans from one forward pass (``rrx_nfa_lazy_spans_mb``, counted in
+    ``nfa_lazy_spans_mb.launches``, on a CUDA tensor;
+    :func:`lazy_spans_mb_plain` on a CPU tensor). Above ``MB_REG_CHANNELS``
+    channels the kernel keeps each record's (cur, pos) per channel in a
+    scratch row [R, P, 2] allocated here."""
+    if data.device.type == "cpu":
+        return lazy_spans_mb_plain(data, lengths, tables, span, hits, cap)
+    _check_span(tables, span, data)
+    P = tables.P
+    _check_hits_mb(hits, data, P)
+    sb._check_cap(cap)
+    R, dev = data.shape[0], data.device
+    starts = torch.empty((R, P, cap), dtype=torch.int32, device=dev)
+    ends = torch.empty((R, P, cap), dtype=torch.int32, device=dev)
+    cnt = torch.empty((R, P), dtype=torch.int32, device=dev)
+    scratch = torch.empty((R, P, 2) if P > MB_REG_CHANNELS else (1,), dtype=torch.int32,
+                          device=dev)
+    _launch("rrx_nfa_lazy_spans_mb", data, lengths, tables, int(P), span.contiguous(),
+            hits.contiguous(), int(cap), starts, ends, cnt, scratch)
+    nfa_lazy_spans_mb.launches += 1
+    return starts, ends, cnt
+
+
 for _w in (nfa_stats, nfa_flags, nfa_reverse, nfa_anchor_end, nfa_lazy_spans,
-           nfa_greedy_spans):
+           nfa_greedy_spans, nfa_reverse_mb, nfa_lazy_spans_mb):
     _w.launches = 0
+nfa_stats.channel_launches = 0
 
 
 def _with_flag0(bits: torch.Tensor, nullable: bool) -> torch.Tensor:
@@ -412,14 +607,29 @@ def _with_flag0(bits: torch.Tensor, nullable: bool) -> torch.Tensor:
 
 class _Scanner:
     """What every scanner of this module shares: the program, the device,
-    and the batch unpacking. Every method takes ``data`` [B, L] uint8 and
-    ``len_g`` [B_rows, G] (G is only the JAX package's packing: records
-    are rows of ``data`` in ``len_g``'s row-major order)."""
+    the nullability (``nullable`` overrides the program's), the accept
+    channels (P = 1 unless an accept map is set) and the batch unpacking.
+    Every method takes ``data`` [B, L] uint8 and ``len_g`` [B_rows, G] (G
+    is only the JAX package's packing: records are rows of ``data`` in
+    ``len_g``'s row-major order)."""
 
-    def __init__(self, prog: DeviceProgram, device):
+    P = 1
+    channels = False  # an accept map gives the scan P accept channels
+
+    def __init__(self, prog: DeviceProgram, device, nullable=None):
         self.prog = prog
         self.device = torch.device(device)
-        self.nullable = prog.nullable
+        self.nullable = prog.nullable if nullable is None else bool(nullable)
+
+    def _one_channel(self, what: str) -> None:
+        """Raise for a primitive that reads one accept set when the scanner
+        has accept channels: it must not answer from their union."""
+        if self.channels:
+            raise ValueError(
+                f"{what}: this {type(self).__name__} of {self.prog.pattern!r} has {self.P} accept "
+                "channels (a multi-pattern program) and the primitive reads one accept set; only "
+                "match_stats_b and lazy_spans_mb take channels"
+            )
 
     def _batch(self, data, len_g):
         data = torch.as_tensor(data, device=self.device)
@@ -429,12 +639,14 @@ class _Scanner:
     def forward_flags_b(self, data, len_g, *, seeded: bool):
         """[B, T + 1] bool accept flags, T = L + 2: column 0 is the
         program's nullability, column t + 1 the flag of step t."""
+        self._one_channel("forward_flags_b")
         words, T = self.flags_words_b(data, len_g, seeded=seeded)
         return _with_flag0(sb.hit_bits(words.T, T), self.nullable)
 
     def reverse_hits_b(self, data, len_g):
         """[B, L + 2] bool candidate-start hits: step t set = a match can
         start at max(t - 1, 0)."""
+        self._one_channel("reverse_hits_b")
         words, T = self.hits_words_b(data, len_g)
         return sb.hit_bits(words.T, T)
 
@@ -446,35 +658,48 @@ class PallasScanner(_Scanner):
     thread per record) on a CUDA device and by their plain PyTorch
     versions on the CPU. Named after the JAX package's scanner of the same
     methods and outputs; ``SwarScanner`` and ``WordScanner`` subclass it
-    as there."""
+    as there.
+
+    ``accept_map`` ([lanes, G * P] 0/1, a multi-pattern program's accept
+    channels, as ``MultiPattern`` builds it) gives the scan P accept rows:
+    ``match_stats_b`` then returns per-channel statistics and, once
+    :meth:`set_span_channels` has run, ``lazy_spans_mb`` every channel's
+    lazy spans; the single-channel primitives raise."""
 
     has_anchor = True  # anchored-rescan and span kernels
 
-    def __init__(self, prog: DeviceProgram, device):
-        super().__init__(prog, device)
-        self.nfa = device_nfa_tables(prog, self.device)
+    def __init__(self, prog: DeviceProgram, device, accept_map=None, nullable=None):
+        super().__init__(prog, device, nullable)
+        if accept_map is not None:
+            self.channels = True
+            self.P = np.asarray(accept_map).shape[1] // max(prog.G, 1)
+        self.nfa = device_nfa_tables(prog, self.device, accept_map, self.P)
+        self.span = None  # [P, 2, W] span-channel rows (set_span_channels)
 
     def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0):
-        """(cnt, first, last, full, any), each shaped like ``len_g``.
-        ``lead`` > 0: records are overlapped windows whose first ``lead``
-        steps only warm the state up (no flag counts there)."""
+        """(cnt, first, last, full, any), each [B_rows, G * P] (``len_g``'s
+        shape for one channel): record-major, channel-minor. ``lead`` > 0:
+        records are overlapped windows whose first ``lead`` steps only warm
+        the state up (no flag counts there)."""
         data, len_g, lengths = self._batch(data, len_g)
         cnt, first, last, full = nfa_stats(
             data, lengths, self.nfa, seeded=seeded, lead=lead, nullable=self.nullable
         )
-        sl = lambda x: x.reshape(len_g.shape)  # noqa: E731
+        sl = lambda x: x.reshape(len_g.shape[0], len_g.shape[1] * self.P)  # noqa: E731
         cnt = sl(cnt)
         return cnt, sl(first), sl(last), sl(full), cnt > 0
 
     def flags_words_b(self, data, len_g, *, seeded: bool):
         """([B, Wt] int32 words, T = L + 2): bit t of a record's words is
         step t's accept flag (uint32 bit patterns; bits past T are 0)."""
+        self._one_channel("flags_words_b")
         data, _, lengths = self._batch(data, len_g)
         return nfa_flags(data, lengths, self.nfa, seeded=seeded).T, data.shape[1] + 2
 
     def hits_words_b(self, data, len_g):
         """([B, Wt] int32 words, T = L + 2): bit t = reverse start hit at
         step t (a match can start at max(t - 1, 0))."""
+        self._one_channel("hits_words_b")
         data, _, lengths = self._batch(data, len_g)
         return nfa_reverse(data, lengths, self.nfa).T, data.shape[1] + 2
 
@@ -482,6 +707,7 @@ class PallasScanner(_Scanner):
         """Anchored-rescan end per record, shaped like ``len_g``: the first
         end from ``starts_g`` (-1 = inactive), or the last with
         ``longest``; -1 when none."""
+        self._one_channel("anchor_end_b")
         data, len_g, lengths = self._batch(data, len_g)
         starts = torch.as_tensor(starts_g, device=self.device).reshape(-1).to(torch.int32)
         end = nfa_anchor_end(data, lengths, self.nfa, starts, longest=longest)
@@ -493,6 +719,7 @@ class PallasScanner(_Scanner):
         for a nullable program, as in the JAX package: its lazy spans are
         the empty match at every position, which the API answers without
         a scan."""
+        self._one_channel("lazy_spans_b")
         if self.nullable:
             raise ValueError(
                 f"lazy spans of the nullable program {self.prog.pattern!r} are the empty "
@@ -507,10 +734,35 @@ class PallasScanner(_Scanner):
         (leftmost-longest, POSIX) spans; ``over`` = more spans than cap. A
         nullable program falls back to the empty match where no longer one
         starts."""
+        self._one_channel("greedy_spans_b")
         data, _, lengths = self._batch(data, len_g)
         hits = nfa_reverse(data, lengths, self.nfa)
         return nfa_greedy_spans(data, lengths, self.nfa, hits, cap, nullable=self.nullable)
 
+    # -- multi-pattern span channels ----------------------------------------
+    def set_span_channels(self, sgm, posm, P: int) -> None:
+        """Install the per-pattern span-channel tables (``MultiPattern``):
+        ``sgm`` [G * P, lanes] first-position projections, ``posm`` [lanes,
+        P] position masks (see :func:`span_channels`). Enables
+        :meth:`lazy_spans_mb`."""
+        if not self.channels or P != self.P:
+            raise ValueError(f"span channels for {P} patterns on a scanner with "
+                             f"{self.P if self.channels else 'no'} accept channels")
+        rows = span_channels(sgm, posm, P, self.prog.s_tile)
+        self.span = torch.from_numpy(rows.view(np.int32).copy()).to(self.device)
+
+    def lazy_spans_mb(self, data, len_g, *, cap: int):
+        """Every channel's lazy spans from one combined scan: one channel
+        reverse pass and one channel span pass, two launches whatever P.
+        Returns (starts [Bn, P, cap], ends [Bn, P, cap], -1 past the count;
+        count [Bn, P], which counts past cap); nullable channels' rows are
+        meaningless (the API substitutes the closed-form empty-match
+        spans)."""
+        if self.span is None:
+            raise ValueError("lazy_spans_mb needs set_span_channels first")
+        data, _, lengths = self._batch(data, len_g)
+        hits = nfa_reverse_mb(data, lengths, self.nfa, self.span)
+        return nfa_lazy_spans_mb(data, lengths, self.nfa, self.span, hits, cap)
 
 
 # ---------------------------------------------------------------------------
@@ -741,8 +993,8 @@ class CountScanner(_Scanner):
 
     has_anchor = False
 
-    def __init__(self, prog: DeviceProgram, plan, device):
-        super().__init__(prog, device)
+    def __init__(self, prog: DeviceProgram, plan, device, nullable=None):
+        super().__init__(prog, device, nullable)
         self.m, self.n, self.body = plan
         self.k = len(self.body[0])
         self.R = len(self.body)

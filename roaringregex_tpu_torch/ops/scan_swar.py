@@ -213,11 +213,11 @@ class SwarScanner(PallasScanner):
     inherited matmul-tier methods. Constructed by the engine when
     ``swar_spec(prog)`` qualifies."""
 
-    def __init__(self, prog: DeviceProgram, device):
+    def __init__(self, prog: DeviceProgram, device, nullable=None):
         sspec = swar_spec(prog)
         if sspec is None:
             raise ValueError(f"{prog.pattern!r} does not fit the SWAR tier")
-        super().__init__(prog, device)
+        super().__init__(prog, device, nullable=nullable)
         self.sspec = sspec
         self.tables = sb.device_tables(*swar_tables(sspec), self.device)
 

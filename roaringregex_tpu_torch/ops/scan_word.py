@@ -6,10 +6,12 @@ gate) decomposition of the follow matrix (``_word_kernel``) and an accept
 bit-log is reduced in XLA (``_word_stats``). The spec is the JAX
 package's, unchanged; the scan is the CUDA kernel ``rrx_word_stats``
 (``csrc/scan_bits.cu``), the same body as the SWAR tier's on 32-bit state
-sets. One accept channel: the multi-pattern channels of ``MultiPattern``
-are not ported yet. As in the JAX package, ``WordScanner`` subclasses the
-matmul tier's ``PallasScanner``: windowed (``lead``) scans, reverse hits,
-anchored rescans and spans run on its methods.
+sets. A multi-pattern program (``MultiPattern``'s combined automaton)
+scans with P accept channels, one mask per pattern, and gets per-channel
+statistics from the same pass. As in the JAX package, ``WordScanner``
+subclasses the matmul tier's ``PallasScanner``: windowed (``lead``) scans,
+reverse hits, anchored rescans and spans (the multi-channel lazy spans
+too) run on its methods.
 """
 from __future__ import annotations
 
@@ -38,9 +40,17 @@ class WordSpec(NamedTuple):
     S: int
 
 
-def word_spec(prog: DeviceProgram) -> Optional[WordSpec]:
+def word_spec(
+    prog: DeviceProgram,
+    accept_map: Optional[np.ndarray] = None,
+    P: int = 1,
+) -> Optional[WordSpec]:
     """Build the u32-word plan, or None if the program doesn't qualify
-    (s_tile > 32, a byte class past 0x7F, or more than MAX_DG_OPS pairs)."""
+    (s_tile > 32, a byte class past 0x7F, or more than MAX_DG_OPS pairs).
+
+    ``accept_map`` ([lanes, G * P] 0/1) supplies per-channel accept masks
+    for multi-pattern programs: channel p's states are the rows s < S of
+    column p (the first record tile), as ``MultiPattern`` builds it."""
     if prog.tier == "sparse" or prog.F is None or prog.s_tile > 32:
         return None
     S = prog.s_tile
@@ -83,26 +93,36 @@ def word_spec(prog: DeviceProgram) -> Optional[WordSpec]:
     for (d, gid), mask in sorted(pairs.items()):
         by_d.setdefault(d, []).append((gid, mask))
     dg = tuple((d, tuple(ps)) for d, ps in sorted(by_d.items()))
-    acc = np.asarray(prog.accept)[:S]
-    acc_masks = (sum(1 << s for s in range(S) if acc[s]),)
+    if accept_map is not None:
+        A = np.asarray(accept_map)
+        acc_masks = tuple(sum(1 << s for s in range(S) if A[s, p]) for p in range(P))
+    else:
+        acc = np.asarray(prog.accept)[:S]
+        acc_masks = (sum(1 << s for s in range(S) if acc[s]),)
     return WordSpec(tuple(gates), dg, acc_masks, has_eos, has_bos, S)
 
 
 def word_tables(spec: WordSpec):
-    """WordSpec -> (deltas, tab, acc), the kernel's (delta, table) form."""
+    """WordSpec -> (deltas, tab, acc), the kernel's (delta, table) form;
+    ``acc`` is the union of the channels' accept masks."""
     pairs = {}
     for d, ps in spec.dg:
         for gid, mask in ps:
             pairs[(d, gid)] = pairs.get((d, gid), 0) | mask
-    return sb.dg_tables(spec.gates, pairs, spec.acc_masks[0])
+    acc = 0
+    for m in spec.acc_masks:
+        acc |= m
+    return sb.dg_tables(spec.gates, pairs, acc)
 
 
 def word_stats(data, lengths, tables: sb.ScanTables, *, seeded: bool,
                lead: int = 0, nullable: bool = False):
-    """(cnt, first, last, full) [R] of ``data`` [R, L] uint8 with
-    ``lengths`` [R]. A CUDA tensor goes to the kernel ``rrx_word_stats``
-    (and counts one launch in ``word_stats.launches``); a CPU tensor goes
-    to the plain PyTorch version."""
+    """(cnt, first, last, full) of ``data`` [R, L] uint8 with ``lengths``
+    [R], each [R, P] for tables with P accept channels, else [R]. A CUDA
+    tensor goes to the kernel ``rrx_word_stats`` (one launch counted in
+    ``word_stats.launches``, or in ``word_stats.channel_launches`` for its
+    P-channel kernel, P > 1); a CPU tensor goes to the plain PyTorch
+    version."""
     if data.device.type == "cpu":
         return sb.stats_plain(
             data, lengths, tables, seeded=seeded, lead=lead, nullable=nullable
@@ -111,35 +131,50 @@ def word_stats(data, lengths, tables: sb.ScanTables, *, seeded: bool,
         "rrx_word_stats", data, lengths, tables,
         seeded=seeded, lead=lead, nullable=nullable,
     )
-    word_stats.launches += 1
+    if tables.P > 1:
+        word_stats.channel_launches += 1
+    else:
+        word_stats.launches += 1
     return out
 
 
 word_stats.launches = 0
+word_stats.channel_launches = 0
 
 
 class WordScanner(PallasScanner):
     """Forward match statistics of a program of up to 32 states on
     ``device`` on the u32-word kernel; every other method is the matmul
-    tier's. Constructed by the engine when ``word_spec(prog)`` qualifies
-    and the 8-state SWAR tier does not."""
+    tier's. Constructed by the engine when ``word_spec(prog, accept_map,
+    P)`` qualifies and the 8-state SWAR tier does not. With an
+    ``accept_map`` ([lanes, G * P], a multi-pattern program's accept
+    channels) the statistics come per channel; ``nullable`` overrides the
+    program's nullability (``MultiPattern`` scans with it off and corrects
+    nullable channels on the host)."""
 
-    def __init__(self, prog: DeviceProgram, device):
-        wspec = word_spec(prog)
+    def __init__(self, prog: DeviceProgram, device, accept_map=None, P: int = 1,
+                 nullable=None):
+        wspec = word_spec(prog, accept_map=accept_map, P=P)
         if wspec is None:
             raise ValueError(f"{prog.pattern!r} does not fit the u32-word tier")
-        super().__init__(prog, device)
+        super().__init__(prog, device, accept_map=accept_map, nullable=nullable)
+        if self.P != P:
+            raise ValueError(f"an accept map of {self.P} channels per record, P = {P}")
         self.wspec = wspec
-        self.tables = sb.device_tables(*word_tables(wspec), self.device)
+        self.tables = sb.device_tables(
+            *word_tables(wspec), self.device,
+            accs=wspec.acc_masks if accept_map is not None else None,
+        )
 
     def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0):
-        """(cnt, first, last, full, any), each shaped like ``len_g``."""
+        """(cnt, first, last, full, any), each [B_rows, G * P] (``len_g``'s
+        shape for one channel): record-major, channel-minor."""
         if lead:  # windowed scans run on the matmul tier, as in the JAX package
             return super().match_stats_b(data, len_g, seeded=seeded, lead=lead)
         data, len_g, lengths = self._batch(data, len_g)
         cnt, first, last, full = word_stats(
             data, lengths, self.tables, seeded=seeded, nullable=self.nullable
         )
-        sl = lambda x: x.reshape(len_g.shape)  # noqa: E731
+        sl = lambda x: x.reshape(len_g.shape[0], len_g.shape[1] * self.P)  # noqa: E731
         cnt = sl(cnt)
         return cnt, sl(first), sl(last), sl(full), cnt > 0

@@ -9,10 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from roaringregex_tpu.compiler.nfa import build_nfa as jax_build_nfa
+from roaringregex_tpu.compiler.nfa import combine_nfas as jax_combine_nfas
 from roaringregex_tpu.compiler.program import compile_program as jax_compile
 from roaringregex_tpu.ops import scan_pallas as jax_pallas
 from roaringregex_tpu.ops import scan_swar as jax_swar
 from roaringregex_tpu.ops import scan_word as jax_word
+from roaringregex_tpu_torch.compiler.nfa import build_nfa, combine_nfas
 from roaringregex_tpu_torch.compiler.program import compile_program, from_reference
 from roaringregex_tpu_torch.ops import scan_bits, scan_pallas, scan_swar, scan_word
 from test_swar import PATTERNS as SWAR_PATTERNS
@@ -113,3 +116,21 @@ def test_nfa_tables_hold_program(pattern):
     np.testing.assert_array_equal(mask[scan_bits.SYM_EOS], Bc[prog.eos_class])
     assert not mask[scan_bits.SYM_DEAD].any()
     np.testing.assert_array_equal(bits[-1], np.asarray(prog.accept)[:S] != 0)
+
+
+@pytest.mark.parametrize("patterns", [
+    ["cat", "dog", "bird"], ["a*", "err(or)?", "^x"], ["[a-f]{3}", "z", "foo$"],
+    ["cat|dog", "[0-9]{3}", "err(or)?", "ab(cd)*e"], K7[1:-1].split("|"), ["", "a", "a*"],
+])
+def test_combine_nfas_matches_jax(patterns):
+    """The Glushkov union of MultiPattern: state count, follow sets, labels,
+    nullability and the per-pattern accept sets (state 0 in pattern p's
+    iff p is nullable), and the combined program the tiers read."""
+    port, port_acc = combine_nfas([build_nfa(p) for p in patterns])
+    ref, ref_acc = jax_combine_nfas([jax_build_nfa(p) for p in patterns])
+    assert port.n_states == ref.n_states and port.nullable == ref.nullable
+    assert port.get_follow_sets() == ref.get_follow_sets()
+    assert port.labels == ref.labels and port.accept_set == ref.accept_set
+    assert port_acc == ref_acc
+    assert [0 in a for a in port_acc] == [build_nfa(p).nullable for p in patterns]
+    _same_program(compile_program(port), jax_compile(ref))
