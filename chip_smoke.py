@@ -9,7 +9,7 @@ its check fails:
 1. the card's name and power limit; build the CUDA kernels from
    roaringregex_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source,
    all started together), with nvcc's register report and the build time;
-2. kernel against plain PyTorch version on the card, for all fifteen entry
+2. kernel against plain PyTorch version on the card, for all twenty-one entry
    points, on random batches from a numpy seed plus edge records (empty,
    len == L, bytes >= 0x80, byte 0); integer outputs, tolerance 0:
    rrx_swar_stats and rrx_word_stats on the SWAR and u32-word test
@@ -29,7 +29,14 @@ its check fails:
    7 and 16 patterns, 12 one-letter patterns, nullable and `$` channels),
    with the channel bookkeeping in registers (P <= 8) and in global rows,
    stats seeded/unseeded/nullable/lead, spans at caps 1, 2 and 16 (cap 1
-   overflows);
+   overflows); the four long-string window kernels (rrx_long_carry,
+   rrx_long_flags, rrx_long_count with and without the final state,
+   rrx_long_reverse) on 7 programs (W = 1, 2 and 8, `^` and `$` at the
+   string's edges, cyclic ones), strings of 0-3 bytes, 1 MiB and 4 MiB with
+   bytes 0x00, 0x80 and 0xff and plants cut by the window edges, windows
+   of 256 and 4096 bytes, seeded and unseeded, from the empty set, from
+   random entry states with random seed gates and from the summary pass's
+   basis states;
 3. the match-stats path, with its launch counts set to 0 first: bench
    config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
@@ -45,7 +52,9 @@ its check fails:
    <= 256 B: finditer_batch (longest) against re for POSIX-safe patterns,
    lazy finditer_batch against re with lazy quantifiers and for fixed-length
    patterns, against the plain version for a+ and a|ab, search and match
-   against re (the counts are read after it);
+   against re, and lazy spans of a?$, b*$ and (ab)?$ (a span ending at
+   EOS, then the empty match at len) against re (the counts are read after
+   it);
 5. the matmul-tier path (33..256-state programs, csrc/scan_nfa.cu), with
    every launch count set to 0 first: a 49-state and a 211-state keyword
    alternation over 1 GiB of 1024-byte log-text records (numpy seed,
@@ -54,8 +63,8 @@ its check fails:
    and greedy spans of both at config 7's 10 MB shape, every record against
    re.finditer; the API (search_batch, count_batch, fullmatch_batch,
    finditer_batch, search, match) on 2,000 records against re, u32-word
-   spans and nullable greedy spans against the plain version (the counts
-   are read after it);
+   spans and nullable greedy spans against the plain version, lazy spans of
+   [a-c]{0,40}$ against re (the counts are read after it);
 6. the counting tier, the bitmaps and the seeded alias, with every launch
    count set to 0 first: bench config 4 (a{1,300}) over 10 MB of 1024-byte
    records (make_corpus, seed 0) and over 1 GiB of random lowercase with
@@ -75,10 +84,24 @@ its check fails:
    corpus through count_batch, search_batch, grep and lazy finditer_batch,
    and over 1 GiB of lowercase with every channel's words planted through
    the engine and lazy_spans_mb; K7 as 7 patterns (matmul tier, P = 7)
-   over phase 5's 1 GiB log text; the counts are read after it; then
-   checked: counts, search and spans per pattern against the single-pattern
-   engines (every record), numpy (cat|dog, [0-9]{3}) and re (10 MB; K7 on
-   3,000 records);
+   over phase 5's 1 GiB log text; the `$` channels of ["a?$", "b*$",
+   "cat"] against re; the counts are read after it; then checked: counts,
+   search and spans per pattern against the single-pattern engines (every
+   record), numpy (cat|dog, [0-9]{3}) and re (10 MB; K7 on 3,000 records);
+9. (run before 7) one long string, with every launch count set to 0
+   first: Pattern.long on one 1 GiB string per config: config 8 (phase 3's
+   text as one string; SWAR and matmul windows, search, fullmatch through
+   summary + replay) against numpy; config 9 (a-runs of 1-400 B) against
+   numpy; config 12 pure ASCII and with 2,000 bytes >= 0x80 (the flags and
+   the segmented running OR) against numpy; config 14 with an 8,001-byte
+   abab run across window edges (speculative windows) and a(bb)*c with a
+   6,000-byte b-run (failed validation, summary + replay) against numpy;
+   K30 over phase 5's log text as one file (W = 8 overlapped windows)
+   against torch compares; then at 10 MB ends_bitmap and starts_bitmap
+   against re and the plain versions on the CPU, finditer_long against re
+   (lazy, greedy, and the cyclic route through the reversed program) and
+   the torch-op LongScanner's fullmatch against re.fullmatch; every
+   long-string kernel must have been launched;
 7. times with CUDA events (median of 5-7 runs after warm-up) of kernel and
    plain version: the stats kernels at config 1 and 1 GiB, the SWAR span
    kernels at config 7's 10 MB shape and at 1 GiB, the matmul-tier kernels
@@ -90,7 +113,9 @@ its check fails:
    at 10 MB and one scan_xla.first_end_from call at the API's shape; the
    four multi-pattern kernels at 10 MB and 1 GiB with registers and
    occupancy of both bookkeeping variants, and the combined engine calls
-   against P single-pattern calls on the same data.
+   against P single-pattern calls on the same data; the four long-string
+   kernels at 1 GiB in the geometry of their path (plain versions on 1
+   MiB), and each long config's count_ends end to end at 1 GiB.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -161,6 +186,28 @@ REPLACES = {
     "rrx_nfa_reverse_mb": "roaringregex_tpu/ops/scan_pallas.py:1827",
     "rrx_nfa_lazy_spans_mb": "roaringregex_tpu/ops/scan_pallas.py:1889",
 }
+LONG_SOURCE = "roaringregex_tpu_torch/csrc/scan_long.cu"
+REPLACES |= {
+    "rrx_long_carry": "roaringregex_tpu/ops/scan_pallas.py:3343",
+    "rrx_long_flags": "roaringregex_tpu/ops/scan_pallas.py:3416",
+    # with a final-state pointer also _count_v0_final_kernel_lb (:3650)
+    "rrx_long_count": "roaringregex_tpu/ops/scan_pallas.py:3550",
+    "rrx_long_reverse": "roaringregex_tpu/ops/scan_pallas.py:3488",
+}
+LONG_KERNELS = ("rrx_long_carry", "rrx_long_flags", "rrx_long_count", "rrx_long_reverse")
+# one-long-string configs (bench.py:298-346) and a speculative case that
+# fails validation ((ab)*c never does: its seeded state set depends on one
+# byte)
+CONFIG8, CONFIG9, CONFIG12, CONFIG14, SPEC_FAIL = (
+    "cat|dog", "a{1,300}", ".*(cat|dog).*", "(ab)*c", "a(bb)*c")
+# programs for the long kernels against their plain versions: W = 1, 2 and 8,
+# anchors at the string's edges, cyclic (summary basis) programs
+LONG_PATTERNS = ["cat|dog", "(ab)*c", "^ab", "ab$", SPEC_FAIL, K7, K30]
+# lazy spans that end at EOS and then the empty match at len (C1), on the
+# SWAR tier, the matmul tier and as MultiPattern channels, against re
+C1_SWAR = ("a?$", "b*$", "(ab)?$")
+C1_NFA = "[a-c]{0,40}$"
+C1_MP = ["a?$", "b*$", "cat"]
 SPAN_KERNELS = ("rrx_swar_reverse", "rrx_swar_lazy_spans", "rrx_swar_anchor_end",
                 "rrx_swar_greedy_spans")
 NFA_KERNELS = ("rrx_nfa_stats", "rrx_nfa_reverse", "rrx_nfa_anchor_end", "rrx_nfa_lazy_spans",
@@ -376,8 +423,14 @@ def main() -> int:
         "rrx_nfa_reverse_mb": scan_pallas.nfa_reverse_mb,
         "rrx_nfa_lazy_spans_mb": scan_pallas.nfa_lazy_spans_mb,
     }
+    long_wrappers = {
+        "rrx_long_carry": scan_pallas.long_carry,
+        "rrx_long_flags": scan_pallas.long_flags,
+        "rrx_long_count": scan_pallas.long_count,
+        "rrx_long_reverse": scan_pallas.long_reverse,
+    }
     wrappers = ({name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
-                | count_wrappers | mp_wrappers)
+                | count_wrappers | mp_wrappers | long_wrappers)
     max_err = {name: 0 for name in wrappers}
 
     def compare(name, got, want, tag, labels=("cnt", "first", "last", "full")):
@@ -668,6 +721,88 @@ def main() -> int:
           f"lazy_spans_mb at caps 1, 2, 16; cap 1 overflowed on {n_over} records) "
           f"({time.perf_counter() - t0:.1f}s)")
 
+    # the long-string window kernels: strings of 0-3 bytes and 1-4 MiB,
+    # windows of 256 and 4096 bytes (lead 0 and an overlap), seeded and
+    # unseeded, from the empty set, from random entry states with random
+    # seed gates, and (S <= 32: the summary pass) from the basis states
+    P_ = scan_pallas
+    t0 = time.perf_counter()
+    n_cmp = 0
+    before = {name: long_wrappers[name].launches for name in LONG_KERNELS}
+
+    def check_long(tables, d, geom, tag, v0=None, gate=None, seeds=(True, False)):
+        for seeded in seeds:
+            kw = dict(seeded=seeded)
+            compare("rrx_long_carry", [P_.long_carry(d, geom, tables, v0, gate, **kw)],
+                    [P_.long_carry_plain(d, geom, tables, v0, gate, **kw)], tag, ("vout",))
+            compare("rrx_long_count", P_.long_count(d, geom, tables, v0, gate, final=True, **kw),
+                    P_.long_count_plain(d, geom, tables, v0, gate, final=True, **kw), tag,
+                    ("cnt", "tail", "vout"))
+            compare("rrx_long_count", P_.long_count(d, geom, tables, v0, gate, **kw)[:2],
+                    P_.long_count_plain(d, geom, tables, v0, gate, **kw)[:2], tag, ("cnt", "tail"))
+            if geom.rep == 1:
+                compare("rrx_long_flags", [P_.long_flags(d, geom, tables, v0, gate, **kw)],
+                        [P_.long_flags_plain(d, geom, tables, v0, gate, **kw)], tag, ("flags",))
+        if geom.rep == 1:
+            g2 = geom._replace(T=geom.T + 9)  # a suffix overlap past the owned steps
+            compare("rrx_long_reverse", [P_.long_reverse(d, g2, tables)],
+                    [P_.long_reverse_plain(d, g2, tables)], tag, ("hits",))
+
+    long_alpha = np.frombuffer(b"abcdegortwx\x00\x80\xff", np.uint8)
+    long_plants = [b"ab", b"cat", b"dog", b"abababc", b"abbbbc", b"error", b"timeout",
+                   b"oomleak", b"segfault"]
+
+    def long_string(n):
+        arr = rng.choice(long_alpha, size=n).astype(np.uint8)
+        for k in range(n // 64):  # plants across window edges (matches the owned ranges cut)
+            w = long_plants[k % len(long_plants)]
+            at = int(rng.integers(0, n - len(w) + 1))
+            arr[at : at + len(w)] = np.frombuffer(w, np.uint8)
+        if n >= 4:  # `^` and `$` fire in the first and the last window
+            arr[:2] = arr[-2:] = np.frombuffer(b"ab", np.uint8)
+        return torch.from_numpy(arr).to(dev)
+
+    def rand_v0(nw, Wd):
+        return torch.from_numpy(rng.integers(0, 1 << 32, size=(nw, Wd), dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).to(dev)
+
+    # the plain versions take ~10 torch launches per window step, so the
+    # 4096-byte windows (4,100 steps) run on the largest string only
+    for pattern in LONG_PATTERNS:
+        prog = compile_program(pattern)
+        tables = P_.device_nfa_tables(prog, dev)
+        Wd = -(-tables.s_tile // 32)
+        for n in (0, 1, 2, 3, (1 << 20) + 7, (4 << 20) - 5):
+            d = long_string(n)
+            geoms = [(256, 0), (256, 7)] if n < (4 << 20) - 5 else [(4096, 13)]
+            for blk, lead in geoms:
+                nb = -(-(n + 2) // blk)
+                geom = P_.LongGeom(n, nb, blk, lead, blk + lead)
+                tag = f"{pattern[:24]!r} n={n} block={blk} lead={lead}"
+                if blk == 256:
+                    check_long(tables, d, geom, tag)
+                gate = torch.from_numpy(rng.random(nb) < 0.5).to(dev)
+                check_long(tables, d, geom, tag + " random v0", rand_v0(nb, Wd), gate)
+                n_cmp += 1 + (blk == 256)
+            if prog.s_tile <= 32 and n == (1 << 20) + 7:  # the summary pass's basis
+                S = prog.n_states
+                nb = -(-(n + 2) // 256)
+                basis = torch.zeros((S + 1, tables.s_tile), dtype=torch.bool, device=dev)
+                basis[torch.arange(S), torch.arange(S)] = True
+                vb = P_._state_words(basis, tables.s_tile).repeat(nb, 1)
+                gb = (torch.arange(nb * (S + 1), device=dev) % (S + 1)) == S
+                check_long(tables, d, P_.LongGeom(n, nb * (S + 1), 256, 0, 256, S + 1),
+                           f"{pattern!r} n={n} summary basis", vb, gb)
+                n_cmp += 1
+    torch.cuda.synchronize()
+    for name in LONG_KERNELS:
+        if long_wrappers[name].launches <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} string/window cases of "
+          f"{len(LONG_PATTERNS)} programs (W = 1, 2, 8) through the four long-string kernels "
+          f"(carry, count with and without the final state, flags, reverse; seeded and unseeded; "
+          f"empty, random and basis entry states) ({time.perf_counter() - t0:.1f}s)")
+
     # -- phase 3: the match-stats path (counts from here to its 1 GiB run) --
     import bench
 
@@ -824,6 +959,21 @@ def main() -> int:
         if rrx_compile(pattern, dev).finditer_batch(texts) != rrx_compile(pattern, "cpu").finditer_batch(texts):
             fail(f"{pattern!r} lazy finditer_batch on the card != the plain version")
         n_api += 1
+    # C1: a lazy span that ends at the EOS step, then the empty match at len
+    # (every match of these ends at len, so re's spans are the lazy ones)
+    c1_texts = [t[:40] for t in texts[:500]] + [b"a", b"ab", b"b", b"", b"xab"]
+    for pattern in C1_SWAR:
+        pat = rrx_compile(pattern, dev)
+        if not isinstance(pat.engine.device_scanner, scan_swar.SwarScanner):
+            fail(f"{pattern!r} should take the SWAR tier")
+        rxp = re.compile(pattern.encode())
+        got = pat.finditer_batch(c1_texts)
+        want = [[m.span() for m in rxp.finditer(t)] for t in c1_texts]
+        if got != want:
+            i = next(i for i in range(len(c1_texts)) if got[i] != want[i])
+            fail(f"C1 {pattern!r} lazy finditer_batch != re.finditer at {c1_texts[i]!r}: "
+                 f"{got[i]} != {want[i]}")
+        n_api += 1
     torch.cuda.synchronize()
     span_launches = launches()
     for name in SPAN_KERNELS:
@@ -957,6 +1107,15 @@ def main() -> int:
         if got != rrx_compile(pattern, "cpu").finditer_batch(texts_p, longest=longest):
             fail(f"{pattern[:30]!r} finditer_batch(longest={longest}) on the card != plain")
         n_api_k += 1
+    # C1 on the matmul tier: [a-c]{0,40}$ (a 42-state tile)
+    pat = rrx_compile(C1_NFA, dev)
+    if type(pat.engine.device_scanner).__name__ != "PallasScanner":
+        fail(f"{C1_NFA!r} should take the matmul tier")
+    c1_texts_k = [t[:60] for t in texts_k[:500]] + [b"abc", b"a", b"xabc", b""]
+    rxp = re.compile(C1_NFA.encode())
+    if pat.finditer_batch(c1_texts_k) != [[m.span() for m in rxp.finditer(t)] for t in c1_texts_k]:
+        fail(f"C1 {C1_NFA!r} lazy finditer_batch != re.finditer")
+    n_api_k += 1
     torch.cuda.synchronize()
     nfa_launches = launches()
     for name in NFA_KERNELS:
@@ -1193,6 +1352,14 @@ def main() -> int:
     if type(sc7).__name__ != "PallasScanner" or mp7.P != 7:
         fail(f"K7 as 7 patterns routed to {type(sc7).__name__} with P = {mp7.P}")
     c7, f7, a7 = (x.reshape(R, 7) for x in mp7.engine.match_stats(log, log_len, seeded=True))
+    # C1 per channel: `$` channels whose lazy span ends at the EOS step, then
+    # the empty match at len (rrx_nfa_lazy_spans_mb), against re
+    mpc1 = MultiPattern(C1_MP, dev)
+    c1_texts_mp = c1_texts + [b"cat", b"xcatab"]
+    for p_, (pattern, got) in enumerate(zip(C1_MP, mpc1.finditer_batch(c1_texts_mp))):
+        rxp = re.compile(pattern.encode())
+        if got != [[m.span() for m in rxp.finditer(t)] for t in c1_texts_mp]:
+            fail(f"C1 MultiPattern channel {pattern!r}: lazy spans != re.finditer")
     torch.cuda.synchronize()
     mp_launches = launches()
     for name in MP_KERNELS:
@@ -1281,6 +1448,193 @@ def main() -> int:
           f"{type(sc7).__name__}, P = 7) over the 1 GiB log text: matches "
           f"{c7.sum(dim=0).tolist()}; (cnt, first) == the single-pattern engines on every record "
           f"and == re on {n_re} ({time.perf_counter() - t8:.1f}s for the phase)")
+
+    # -- phase 9: one long string (run before 7; counts from here to its last run)
+    from roaringregex_tpu_torch.ops import longstring as LS
+    from roaringregex_tpu_torch.utils.config import get_config
+
+    reset_launches()
+    t9 = time.perf_counter()
+    NL = R * L  # 1 GiB: phase 3's and phase 5's batches are reused as one string each
+    gen9 = torch.Generator(device=dev)
+    gen9.manual_seed(9)
+    long_pats = {p_: rrx_compile(p_, dev) for p_ in (CONFIG8, CONFIG9, CONFIG12, CONFIG14,
+                                                     SPEC_FAIL, K30)}
+    want_cls = {CONFIG8: "FastLongScanner", CONFIG9: "CountLongScanner",
+                CONFIG12: "DotStarLongScanner", CONFIG14: "FastLongScanner",
+                SPEC_FAIL: "FastLongScanner", K30: "FastLongScanner"}
+    for p_, pat in long_pats.items():
+        if type(pat.long).__name__ != want_cls[p_]:
+            fail(f"{p_[:30]!r} long scanner {type(pat.long).__name__}, expected {want_cls[p_]}")
+    first_ms = {}
+
+    def e2e(name, fn, expect):
+        """One checked call of a long-string entry point, timed once."""
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        first_ms[name] = (time.perf_counter() - t0_) * 1e3
+        if got != expect:
+            fail(f"long string {name}: {got} != {expect}")
+        return got
+
+    # config 8: phase 3's 1 GiB of lowercase with planted cat/dog, as one
+    # string, against a numpy count (matches may span the old record edges)
+    s8 = big.reshape(-1)
+    a8 = s8.cpu().numpy()
+    m8 = np.zeros(NL - 2, bool)
+    for word in (b"cat", b"dog"):
+        m8 |= (a8[:-2] == word[0]) & (a8[1:-1] == word[1]) & (a8[2:] == word[2])
+    ends8 = np.flatnonzero(m8) + 3  # end positions
+    del m8
+    sc8 = long_pats[CONFIG8].long
+    e2e("config 8 count_ends (SWAR windows)", lambda: sc8.count_ends(s8), len(ends8))
+    e2e("config 8 count (matmul windows)", lambda: int(sc8._ov_impl(s8, NL, "count")), len(ends8))
+    e2e("config 8 search", lambda: sc8.search(s8), True)
+    e2e("config 8 fullmatch (summary + replay, unseeded)", lambda: sc8.fullmatch(s8), False)
+    if not sc8.fullmatch(b"dog") or sc8.fullmatch(b"dogx"):
+        fail("config 8 fullmatch of a short string")
+
+    # config 9: lowercase without 'a' and a-runs of 1-400 B; every 'a' ends a
+    # match of a{1,300}
+    s9 = torch.randint(ord("b"), ord("z") + 1, (NL,), dtype=torch.uint8, device=dev, generator=gen9)
+    starts9 = torch.randint(0, NL - 400, (NL // 4096,), device=dev, generator=gen9)
+    lens9 = torch.randint(1, 401, (NL // 4096,), device=dev, generator=gen9)
+    cover = torch.zeros(NL + 1, dtype=torch.int32, device=dev)
+    cover.index_add_(0, starts9, torch.ones_like(starts9, dtype=torch.int32))
+    cover.index_add_(0, starts9 + lens9, -torch.ones_like(starts9, dtype=torch.int32))
+    s9[torch.cumsum(cover, 0)[:NL] > 0] = ord("a")
+    del cover
+    n_a = int(np.count_nonzero(s9.cpu().numpy() == ord("a")))
+    sc9 = long_pats[CONFIG9].long
+    e2e("config 9 count_ends", lambda: sc9.count_ends(s9), n_a)
+    e2e("config 9 search", lambda: sc9.search(s9), True)
+    e2e("config 9 fullmatch", lambda: sc9.fullmatch(s9), False)
+    if not sc9.fullmatch(b"a" * 300) or sc9.fullmatch(b"a" * 301):
+        fail("config 9 fullmatch of a-runs")
+
+    # config 12: pure ASCII (n + 1 - the first cat/dog end), then with bytes
+    # >= 0x80 planted: the segmented running OR (every segment between two
+    # dead bytes counts from its first cat/dog end)
+    sc12 = long_pats[CONFIG12].long
+    e2e("config 12 count_ends (ASCII)", lambda: sc12.count_ends(s8), NL + 1 - int(ends8[0]))
+    s12 = s8.clone()
+    dead = np.sort(np.random.default_rng(12).choice(NL, size=2000, replace=False))
+    s12[torch.from_numpy(dead).to(dev)] = torch.from_numpy(
+        np.random.default_rng(13).integers(0x80, 0x100, size=dead.size).astype(np.uint8)).to(dev)
+    keep = ~np.isin(ends8 - 1, dead) & ~np.isin(ends8 - 2, dead) & ~np.isin(ends8 - 3, dead)
+    e12 = ends8[keep]
+    bounds = np.concatenate([[0], dead + 1, [NL + 1]])  # segment k: positions [lo, hi)
+    want12 = 0
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        j = np.searchsorted(e12, lo)
+        if j < e12.size and e12[j] < hi:
+            want12 += int(hi - e12[j])
+    e2e("config 12 count_ends (bytes >= 0x80: flags + running OR)",
+        lambda: sc12.count_ends(s12), want12)
+    e2e("config 12 search", lambda: sc12.search(s12), True)
+
+    # config 14 and the speculative windows: (ab)*c ends at every 'c'; a
+    # long abab run across window edges validates all the same (its seeded
+    # state set depends on one byte); a(bb)*c over [d-z] text with planted
+    # a b^k c (k even: a match) and a b-run of 6,000 fails validation and
+    # takes summary + replay
+    s14 = s8.clone()
+    run = torch.tensor(list(b"ab" * 4000 + b"c"), dtype=torch.uint8, device=dev)
+    s14[NL // 2 - 3000 : NL // 2 - 3000 + run.numel()] = run
+    n_c = int(np.count_nonzero(s14.cpu().numpy() == ord("c")))
+    sc14 = long_pats[CONFIG14].long
+    _, ok14 = sc14._spec_impl(s14, NL, "count", get_config().spec_warmup)
+    e2e("config 14 count_ends (speculative windows)", lambda: sc14.count_ends(s14), n_c)
+    e2e("config 14 search", lambda: sc14.search(s14), True)
+    e2e("config 14 fullmatch (summary + replay, unseeded)", lambda: sc14.fullmatch(s14), False)
+    sf = torch.randint(ord("d"), ord("z") + 1, (NL,), dtype=torch.uint8, device=dev, generator=gen9)
+    n_good = 0
+    n_pl = NL // 200_000 - 2  # short plants every 200,000 bytes, then the long b-run
+    for i, k in enumerate(np.random.default_rng(14).integers(0, 40, size=n_pl).tolist() + [6000]):
+        at = i * 200_000 + 17
+        sf[at] = ord("a")
+        sf[at + 1 : at + 1 + k] = ord("b")
+        sf[at + 1 + k] = ord("c")
+        n_good += k % 2 == 0
+    scf = long_pats[SPEC_FAIL].long
+    _, okf = scf._spec_impl(sf, NL, "count", get_config().spec_warmup)
+    if bool(okf):
+        fail(f"{SPEC_FAIL!r}: the 6,000-byte b-run should fail speculative validation")
+    e2e(f"{SPEC_FAIL} count_ends (summary + replay after failed validation)",
+        lambda: scf.count_ends(sf), n_good)
+
+    # K30 over phase 5's 1 GiB log text as one log file: the W = 8 overlapped
+    # windows, against a count of keyword ends made with torch compares
+    s30 = log.reshape(-1)
+    ends30 = torch.zeros(NL + 1, dtype=torch.bool, device=dev)
+    for word in K30_WORDS:
+        w = word.encode()
+        hit = torch.ones(NL - len(w) + 1, dtype=torch.bool, device=dev)
+        for j, ch in enumerate(w):
+            hit &= s30[j : NL - len(w) + 1 + j] == ch
+        ends30[len(w):] |= hit
+    n30 = int(ends30.sum())
+    del ends30, hit
+    sc30 = long_pats[K30].long
+    if sc30.overlap is None or sc30.tables.s_tile != 256:
+        fail("K30 should take the W = 8 overlapped windows")
+    e2e("K30 count_ends (W = 8 overlapped windows)", lambda: sc30.count_ends(s30), n30)
+    print(f"phase 9: one 1 GiB string per config on the card: config 8 {len(ends8)} ends, config 9 "
+          f"{n_a}, config 12 {NL + 1 - int(ends8[0])} (ASCII) and {want12} (with 2,000 bytes >= "
+          f"0x80), config 14 {n_c} (speculative verdict {bool(ok14)}), {SPEC_FAIL} {n_good} "
+          f"(verdict {bool(okf)}, summary + replay), K30 {n30}: count_ends, search and fullmatch "
+          f"== numpy / torch references; first-call times (ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in first_ms.items()))
+
+    # 10 MB: bitmaps and spans against re, the kernels against the plain
+    # versions on the CPU
+    n10m = 10_000_000
+    t10 = bytes(a8[:n10m])
+    cpu8 = rrx_compile(CONFIG8, "cpu").long
+    rx8 = re.compile(b"(?=(cat|dog))")
+    st8 = sorted({m.start() for m in rx8.finditer(t10)})
+    en8 = sorted({m.start() + 3 for m in rx8.finditer(t10)})
+    eb = sc8.ends_bitmap(t10)
+    if np.flatnonzero(eb).tolist() != en8 or not np.array_equal(eb, cpu8.ends_bitmap(t10)):
+        fail("config 8 ends_bitmap at 10 MB != re / the plain versions")
+    sb8 = sc8.starts_bitmap(t10)
+    if np.flatnonzero(sb8).tolist() != st8 or not np.array_equal(sb8, cpu8.starts_bitmap(t10)):
+        fail("config 8 starts_bitmap at 10 MB != re / the plain versions")
+    if long_pats[CONFIG8].finditer_long(t10) != [m.span() for m in re.finditer(b"cat|dog", t10)]:
+        fail("config 8 finditer_long at 10 MB != re")
+    t9b = s9[:n10m].cpu().numpy().tobytes()
+    a_pos = np.flatnonzero(np.frombuffer(t9b, np.uint8) == ord("a"))
+    if (np.flatnonzero(sc9.ends_bitmap(t9b)).tolist() != (a_pos + 1).tolist()
+            or np.flatnonzero(sc9.starts_bitmap(t9b)).tolist() != a_pos.tolist()):
+        fail("config 9 bitmaps at 10 MB != re")
+    if long_pats[CONFIG9].finditer_long(t9b, longest=True) != [
+            m.span() for m in re.finditer(b"a{1,300}", t9b)]:
+        fail("config 9 greedy finditer_long at 10 MB != re")
+    t14 = s14[NL // 2 - n10m // 2 : NL // 2 + n10m // 2].cpu().numpy().tobytes()
+    if long_pats[CONFIG14].finditer_long(t14) != [m.span() for m in re.finditer(b"(ab)*c", t14)]:
+        fail("config 14 finditer_long (cyclic route: the reversed program's ends) != re")
+    wide = "(error|warning|critical|fatal|exception|timeout|refused)+x"
+    pw = rrx_compile(wide, dev)
+    if type(pw.long).__name__ != "LongScanner":
+        fail(f"{wide!r} should take the torch-op LongScanner")
+    body = (b"errorwarningtimeoutrefused" * (n10m // 26))[: n10m - 1]
+    body = body[: len(body) - len(body) % 26]
+    for txt in (body + b"x", body + b"y", body[:-1] + b"x"):
+        want = re.fullmatch(wide.encode(), txt) is not None
+        if pw.long.fullmatch(txt) != want:
+            fail(f"LongScanner fullmatch at 10 MB != re ({want})")
+    torch.cuda.synchronize()
+    long_launches = launches()
+    for name in LONG_KERNELS:
+        if long_launches[name] <= 0:
+            fail(f"{name} was not launched on the long-string path")
+    print(f"phase 9: 10 MB: config 8 and 9 ends_bitmap / starts_bitmap == re and the plain "
+          f"versions, finditer_long == re (config 8 lazy, config 9 greedy, config 14 on the cyclic "
+          f"route), LongScanner fullmatch == re.fullmatch "
+          f"({time.perf_counter() - t9:.1f}s for the phase)")
+    print(f"long-string path launches: {long_launches}")
 
     # -- phase 7: times ---------------------------------------------------
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
@@ -1755,6 +2109,91 @@ def main() -> int:
           f"match_stats {ms_mp7:.3f} ms vs 7 single-keyword match_stats calls {ms_17:.3f} ms vs one "
           f"K7 alternation {ms_k7:.3f} ms [{card}]")
 
+    # the long-string window kernels at 1 GiB, in the geometry of the path
+    # that launched them; plain versions on a 1 MiB string in the same
+    # geometry (kernel == plain there too)
+    long_ms = {}
+    sc8_, sc14_, sc30_ = (long_pats[p_].long for p_ in (CONFIG8, CONFIG14, K30))
+    small = 1 << 20
+
+    def rev_geom(sc_, n):
+        blk = sc_._ov_block(n)
+        return P_.LongGeom(n, -(-(n + 2) // blk), blk, 0, blk + sc_.overlap)
+
+    def warm_geom(n):
+        blk, Ww = sc14_.block, get_config().spec_warmup
+        return P_.LongGeom(n, -(-(n + 2) // blk), blk, Ww, Ww)
+
+    def long_bound(kind, geom, W):
+        """Bytes: the part of the string the windows cover, once, and the
+        outputs once; operations: the windows' steps (overlaps included) x
+        (3 per state word + 4)."""
+        out = {"carry": 4 * W * geom.nw, "flags": 4 * geom.words, "count": 5 * geom.nw,
+               "reverse": 4 * geom.words}[kind]
+        read = min(geom.n, geom.nw // geom.rep * geom.T)
+        return bound(read, out, geom.nw * geom.T * (3 * W + 4))
+
+    long_calls = {  # name: (string, tables, geometry at n, call of (data, geom), plain, work)
+        "rrx_long_carry": (s14, sc14_.tables, warm_geom,
+                           lambda d, g: P_.long_carry(d, g, sc14_.tables, seeded=True),
+                           lambda d, g: P_.long_carry_plain(d, g, sc14_.tables, seeded=True),
+                           "carry", f"config 14 {CONFIG14} speculative warm-up"),
+        "rrx_long_flags": (s8, sc8_.tables, sc8_._ov_geom,
+                           lambda d, g: P_.long_flags(d, g, sc8_.tables, seeded=True),
+                           lambda d, g: P_.long_flags_plain(d, g, sc8_.tables, seeded=True),
+                           "flags", f"config 8 {CONFIG8} overlapped windows"),
+        "rrx_long_count": (s30, sc30_.tables, sc30_._ov_geom,
+                           lambda d, g: P_.long_count(d, g, sc30_.tables, seeded=True),
+                           lambda d, g: P_.long_count_plain(d, g, sc30_.tables, seeded=True),
+                           "count", "K30 (W = 8) overlapped windows"),
+        "rrx_long_reverse": (s8, sc8_.tables, lambda n: rev_geom(sc8_, n),
+                             lambda d, g: P_.long_reverse(d, g, sc8_.tables),
+                             lambda d, g: P_.long_reverse_plain(d, g, sc8_.tables),
+                             "reverse", f"config 8 {CONFIG8} reverse windows"),
+    }
+    for name, (s_, tb, geom_of, kern, plain, work, what) in long_calls.items():
+        g1, gs = geom_of(NL), geom_of(small)
+        d_small = s_[:small]
+        got, want = kern(d_small, gs), plain(d_small, gs)
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+        got, want = [x for x in got if x is not None], [x for x in want if x is not None]
+        compare(name, got, want, f"{what}, 1 MiB", tuple(f"out{i}" for i in range(len(got))))
+        ms = time_ms(lambda: kern(s_, g1), warm=1, runs=7)
+        plain_ms = time_ms(lambda: plain(d_small, gs), warm=0, runs=3)
+        W = -(-tb.s_tile // 32)
+        bnd = long_bound(work, g1, W)
+        long_ms[name] = (ms, plain_ms, bnd, what)
+        print(f"phase 7: {name} {what}, 1 GiB [{g1.nw} windows x {g1.T} steps, block {g1.block}, "
+              f"W = {W}]: kernel {ms:.3f} ms = {NL / ms / 1e6:.1f} GB/s, plain {plain_ms:.1f} ms on "
+              f"1 MiB; bound {bnd[0]:.4f} ms by {bnd[1]}; launches on the path "
+              f"{long_launches[name]} [{card}]")
+        print(f"  occupancy {name}: {occupancy(name, tb, g1.nw)}; registers "
+              f"{regs_of(name.replace('rrx_', '') + '_kernel')}")
+    # the other geometries of the path, timed once each
+    g8c = sc8_._ov_geom(NL)
+    ms_c8 = time_ms(lambda: P_.long_count(s8, g8c, sc8_.tables, seeded=True), warm=1, runs=5)
+    S14 = long_pats[CONFIG14].program.n_states
+    nb14 = -(-(NL + 2) // sc14_.block)
+    vb = sc14_._basis_words().repeat(nb14, 1)
+    gb = (torch.arange(nb14 * (S14 + 1), device=dev) % (S14 + 1)) == S14
+    g1p = P_.LongGeom(NL, nb14 * (S14 + 1), sc14_.block, 0, sc14_.block, S14 + 1)
+    ms_p1 = time_ms(lambda: P_.long_carry(s14, g1p, sc14_.tables, vb, gb, seeded=True), warm=1,
+                    runs=5)
+    print(f"phase 7: rrx_long_count config 8 (W = 1) overlapped windows 1 GiB: {ms_c8:.3f} ms; "
+          f"rrx_long_carry summary pass 1 of config 14 ({S14 + 1} pseudo-records x {nb14} blocks "
+          f"of {sc14_.block}): {ms_p1:.3f} ms [{card}]")
+    # end to end: count_ends of each config with the string on the card
+    e2e_ms = {}
+    for label, p_, s_ in (("config 8", CONFIG8, s8), ("config 9", CONFIG9, s9),
+                          ("config 12 ASCII", CONFIG12, s8), ("config 12 with bytes >= 0x80",
+                                                              CONFIG12, s12),
+                          ("config 14", CONFIG14, s14), (f"{SPEC_FAIL} (summary)", SPEC_FAIL, sf),
+                          ("K30 log file", K30, s30)):
+        sc_ = long_pats[p_].long
+        e2e_ms[label] = time_ms(lambda: sc_.count_ends(s_), warm=1, runs=5)
+    print("phase 7: long-string count_ends end to end, 1 GiB on the card (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in e2e_ms.items()) + f" [{card}]")
+
     ms, plain_ms, bnd = flags_ms["10 MB"]
     kernels.append({
         "name": "rrx_nfa_flags", "route": "cuda", "source": NFA_SOURCE,
@@ -1782,8 +2221,16 @@ def main() -> int:
             "shape": ("10 MB, K7 as 7 patterns" if name == "rrx_nfa_stats[P]"
                       else "config 6, 10 MB, 4 patterns"),
         })
-    if len(kernels) != 19:
-        fail(f"the kernels line lists {len(kernels)} kernels, not 19")
+    for name in LONG_KERNELS:
+        ms, plain_ms, bnd, what = long_ms[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": LONG_SOURCE, "replaces": REPLACES[name],
+            "launches": long_launches[name], "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "shape": f"1 GiB, {what} (plain: 1 MiB)",
+        })
+    if len(kernels) != 23:
+        fail(f"the kernels line lists {len(kernels)} kernels, not 23")
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -8,10 +8,11 @@ positions (``ends_batch``, ``starts_batch``) and span extraction
 for dense programs of up to 256 states (the SWAR, u32-word and matmul
 tiers), for whole-pattern ``X{m,n}`` of a fixed-length body (the counting
 tier) and for the seeded scans of a whole-pattern ``X{m,n}`` through its
-``X{m,}`` alias, and ``MultiPattern`` (P patterns in one combined-
-automaton pass), on an NVIDIA H100 through hand-written CUDA kernels
-(``csrc/scan_bits.cu``, ``csrc/scan_spans.cu``, ``csrc/scan_nfa.cu``,
-``csrc/scan_count.cu``) and on the CPU through their plain PyTorch
+``X{m,}`` alias, ``MultiPattern`` (P patterns in one combined-automaton
+pass) and one long string (``Pattern.long``, ``finditer_long``), on an
+NVIDIA H100 through hand-written CUDA kernels (``csrc/scan_bits.cu``,
+``csrc/scan_spans.cu``, ``csrc/scan_nfa.cu``, ``csrc/scan_count.cu``,
+``csrc/scan_long.cu``) and on the CPU through their plain PyTorch
 versions. It imports torch and never jax.
 """
 

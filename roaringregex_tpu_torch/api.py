@@ -23,8 +23,11 @@ position; ``dump`` returns a text dump of the automaton.
 ``MultiPattern(patterns, device)`` scans P patterns in one pass over their
 combined automaton (the Glushkov union): per-pattern counts, search hits
 and grep from one per-channel match-stats scan, and every pattern's lazy
-spans from one channel reverse pass and one channel span pass. Long
-strings are not ported yet (ROADMAP.md).
+spans from one channel reverse pass and one channel span pass.
+
+One long string (``Pattern.long``, ``finditer_long``, ``rev_long``): the
+string is scanned in windows on the card (``ops/longstring.py``), for
+counts, search, fullmatch, the end and start bitmaps and spans.
 """
 from __future__ import annotations
 
@@ -100,6 +103,14 @@ class Pattern:
     @property
     def pattern(self) -> str:
         return self.program.pattern
+
+    @property
+    def n_states(self) -> int:
+        return self.program.n_states
+
+    @property
+    def tier(self) -> str:
+        return self.program.tier
 
     def dump(self, full: bool = False) -> str:
         """NFA dump; ``full=True`` adds per-state per-symbol forward and
@@ -252,6 +263,171 @@ class Pattern:
         if bool(self.fullmatch_batch([b])[0]):
             return Match(0, len(b), b)
         return None
+
+    # -- one long string ------------------------------------------------------
+    @property
+    def long(self):
+        """Scanner of ONE huge string on the pattern's device
+        (``ops/longstring.py``): ``pat.long.search(blob)``, ``count_ends``,
+        ``fullmatch``, ``ends_bitmap``, ``starts_bitmap`` and ``flags``. The
+        string is bytes or a uint8 tensor (on the device already, for
+        repeated scans)."""
+        if getattr(self, "_long", None) is None:
+            from .ops.longstring import make_long_scanner
+            from .utils.config import get_config
+
+            self._long = make_long_scanner(self.program, self.engine.device,
+                                           block=get_config().long_block)
+        return self._long
+
+    @property
+    def rev_long(self):
+        """Long scanner of the REVERSED program (``parser.reverse_node``):
+        its ends in the reversed string are this pattern's starts, for any
+        pattern, cyclic ones included."""
+        if getattr(self, "_rev_long", None) is None:
+            from .compiler.nfa import build_nfa_ast
+            from .compiler.parser import parse, reverse_node
+            from .ops.longstring import make_long_scanner
+            from .utils.config import get_config
+
+            nfa = build_nfa_ast(reverse_node(parse(self.pattern)), f"<rev:{self.pattern}>")
+            self._rev_long = make_long_scanner(compile_program(nfa), self.engine.device,
+                                               block=get_config().long_block)
+        return self._rev_long
+
+    def _anchored_ends(self, arr: np.ndarray, n: int, cc: np.ndarray, width: int,
+                       longest: bool) -> np.ndarray:
+        """Anchored ends (-1 = none) of the starts ``cc`` over per-start
+        slices [start - 1, start - 1 + width) of the string (one byte of
+        left context, so an interior slice never shows a BOS; clipped at
+        the end), in one batched ``ScanEngine.first_end_from``."""
+        G = max(self.program.G, 1)
+        g0 = np.maximum(cc.astype(np.int64) - 1, 0)
+        idx = g0[:, None] + np.arange(width)[None, :]
+        sl = np.where(idx < n, arr[np.minimum(idx, n - 1)], 0).astype(np.uint8)
+        lens = np.minimum(width, n - g0).astype(np.int32)
+        starts_loc = (cc - g0).astype(np.int32)
+        K = len(cc)
+        pad = -K % G
+        if pad:
+            sl = np.pad(sl, ((0, pad), (0, 0)))
+            lens = np.pad(lens, (0, pad))
+            starts_loc = np.pad(starts_loc, (0, pad), constant_values=-1)
+        e_loc = self.engine.first_end_from(sl, lens, starts_loc, longest=longest)
+        e_loc = e_loc.cpu().numpy()[:K]
+        return np.where(e_loc >= 0, g0 + e_loc, -1)
+
+    def finditer_long(self, text: TextLike, *, longest: bool = False,
+                      chunk: int = 4096) -> List[Tuple[int, int]]:
+        """Non-overlapping spans over ONE long string, with the policies of
+        ``finditer_batch``. Bounded-horizon patterns: candidate starts from
+        one overlapped reverse pass (``long.starts_bitmap``), ends from
+        batched anchored rescans of short per-candidate slices; the
+        non-overlap sweep runs on the host over candidates, not bytes.
+        Counting-plan patterns: closed form. Cyclic patterns:
+        :meth:`_finditer_long_cyclic`."""
+        data = _as_bytes(text)
+        n = len(data)
+        if n == 0:  # the record path answers the empty string
+            return self.finditer_batch([b""], longest=longest)[0]
+        lam = self.program.horizon
+        sc = self.long
+        if not self.program.nullable and hasattr(sc, "spans"):
+            return sc.spans(data, longest=longest)
+        if lam is None or getattr(sc, "overlap", None) is None:
+            return self._finditer_long_cyclic(data, n, longest=longest, chunk=chunk)
+        nullable = self.program.nullable
+        if nullable and not longest:
+            return [(p, p) for p in range(n + 1)]
+        cand = np.nonzero(sc.starts_bitmap(data))[0]
+        if cand.size == 0:
+            return []
+        arr = np.frombuffer(data, np.uint8)
+        spans: List[Tuple[int, int]] = []
+        cursor = 0
+        for c0 in range(0, cand.size, chunk):
+            cc = cand[c0 : c0 + chunk]
+            if cc[-1] < cursor:
+                continue  # the whole chunk is claimed by an earlier match
+            ends = self._anchored_ends(arr, n, cc, lam + 2, longest)
+            if nullable:  # greedy nullable: the empty match is the fallback
+                ends = np.maximum(ends, cc)
+            for s, e in zip(cc.tolist(), ends.tolist()):
+                if s < cursor or e < 0:
+                    continue
+                spans.append((s, e))
+                cursor = e if e > s else s + 1
+                if cursor > n:
+                    break
+            if cursor > n:
+                break
+        return spans
+
+    def _finditer_long_cyclic(self, data: bytes, n: int, *, longest: bool,
+                              chunk: int) -> List[Tuple[int, int]]:
+        """finditer_long for cyclic patterns: candidate starts are the
+        reversed program's ends over the reversed string (a match starts at
+        s iff a match of rev(P) ends at n - s there); lazy ends come from
+        batched anchored rescans whose slice doubles until the first end
+        lands inside; greedy ends from one full-tail rescan per claim."""
+        nullable = self.program.nullable
+        if nullable and not longest:
+            return [(p, p) for p in range(n + 1)]
+        starts_bm = np.asarray(self.rev_long.ends_bitmap(data[::-1]))[::-1]
+        cand = np.nonzero(starts_bm)[0]
+        if cand.size == 0:
+            return []
+        arr = np.frombuffer(data, np.uint8)
+        spans: List[Tuple[int, int]] = []
+        cursor = 0
+
+        def width(w: int) -> int:  # slice widths bucket to powers of two
+            return _pow2(min(w + 1, n + 2), lo=16)
+
+        if longest:
+            ci = 0
+            while ci < cand.size and cursor <= n:
+                while ci < cand.size and cand[ci] < cursor:
+                    ci += 1
+                if ci >= cand.size:
+                    break
+                s = int(cand[ci])
+                e = int(self._anchored_ends(arr, n, np.asarray([s]), width(n - s + 1), True)[0])
+                if nullable:
+                    e = max(e, s)
+                if e < s:
+                    raise RuntimeError(f"{self.pattern!r}: a start at {s} with no end")
+                spans.append((s, e))
+                cursor = e if e > s else s + 1
+                ci += 1
+            return spans
+        for c0 in range(0, cand.size, chunk):
+            cc = cand[c0 : c0 + chunk]
+            if cc[-1] < cursor:
+                continue
+            ends = np.full(cc.size, -1, np.int64)
+            unresolved = np.arange(cc.size)
+            w = 256
+            while unresolved.size:
+                got = self._anchored_ends(arr, n, cc[unresolved], width(min(w, n + 1)), False)
+                ends[unresolved] = got
+                if w > n:
+                    if (got < 0).any():
+                        raise RuntimeError(f"{self.pattern!r}: a start with no end")
+                    break
+                unresolved = unresolved[got < 0]
+                w *= 2
+            for s, e in zip(cc.tolist(), ends.tolist()):
+                if s < cursor or e < 0:
+                    continue
+                spans.append((int(s), int(e)))
+                cursor = e if e > s else s + 1
+                if cursor > n:
+                    break
+            if cursor > n:
+                break
+        return spans
 
 
 def compile(pattern: str, device) -> Pattern:  # noqa: A001

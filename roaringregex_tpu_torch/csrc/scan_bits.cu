@@ -333,7 +333,9 @@ int rrx_occupancy(int kernel, int size, int* blocks_per_sm) {
   if (kernel == 1) return occupancy<32>(size, blocks_per_sm);
   if (kernel < 6) return spans_occupancy(kernel - 2, size, blocks_per_sm);
   if (kernel < 12) return nfa_occupancy(kernel - 6, size, blocks_per_sm);
-  return count_occupancy(kernel - 12, size, blocks_per_sm);
+  if (kernel < 15) return count_occupancy(kernel - 12, size, blocks_per_sm);
+  if (kernel >= 17 && kernel < 21) return long_occupancy(kernel - 17, size, blocks_per_sm);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Resident blocks per SM of the P-channel kernels: 0 rrx_word_stats (`size`

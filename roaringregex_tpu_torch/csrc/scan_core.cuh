@@ -218,11 +218,12 @@ struct ChanRegs<0, kN> {
 };
 
 // The launchers' shared checks on what the wrapper passes: negative shapes
-// or a misaligned row (check_rows), and for the (delta, table) kernels a
+// or a misaligned row (check_rows; rows may overlap: the long-string
+// windows are a strided view of one buffer), and for the (delta, table) kernels a
 // bad table size or accept bits past the automaton's width (check_args),
 // are refused before any launch.
 inline int check_rows(const void* data, long long stride, int L, int R) {
-  if (R < 0 || L < 0 || stride < L || stride % 16 != 0 ||
+  if (R < 0 || L < 0 || (R > 1 && stride <= 0) || stride % 16 != 0 ||
       (reinterpret_cast<uintptr_t>(data) & 15u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -261,5 +262,10 @@ int nfa_channels_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm);
 // Resident blocks per SM of the counting-tier kernels (scan_count.cu) for a
 // body of k positions, by index: 0 stats, 1 flags, 2 reverse.
 int count_occupancy(int kernel, int k, int* blocks_per_sm);
+
+// Resident blocks per SM of the long-string window kernels (scan_long.cu)
+// for a record tile of s_tile states, by index: 0 carry, 1 flags, 2 count,
+// 3 reverse.
+int long_occupancy(int kernel, int s_tile, int* blocks_per_sm);
 
 }  // namespace rrx

@@ -57,8 +57,10 @@
 // - lazy spans: claim sp = max(t-1, 0) when idle, the hit is set and
 //   pos <= sp <= len; seed at step cur+1 (steps <= 1 when cur == 0); emit
 //   (cur, e = min(t, len)) on a flag with e >= cur, then pos = max(e, cur+1)
-//   and the state is cleared. Spans go straight into [R][cap] rows (-1 past
-//   the count); cnt counts every span, also past cap.
+//   and the state is cleared; after the EOS step an idle record with
+//   pos <= len and hit bit len+1 emits the empty match (len, len). Spans go
+//   straight into [R][cap] rows (-1 past the count); cnt counts every span,
+//   also past cap.
 // - greedy spans: rounds of (first start s >= pos, from the hit words, or
 //   s = pos for a nullable program, whose every position <= len starts an
 //   empty match; e = longest anchored end from s, or s when a nullable
@@ -118,139 +120,11 @@
 #include <type_traits>
 
 #include "scan_core.cuh"
+#include "scan_nfa.cuh"
 
 namespace {
 
 using namespace rrx;
-
-// Shared memory of a tile with P accept rows and `extra` words after them.
-inline size_t nfa_smem_bytes(int S, int W, int P = 1, int extra = 0) {
-  return sizeof(uint32_t) * (static_cast<size_t>((2 * S + kSyms + P) * W) + extra);
-}
-
-
-template <int W>
-struct Nfa {
-  const uint32_t* follow;  // shared [S][W]
-  const uint32_t* pred;    // shared [S][W]
-  const uint32_t* mask;    // shared [kSyms][W]
-  uint32_t acc[W];
-
-  // v = (OR of follow[s] over s in v | gate ? follow[0] : 0) & mask[sym]
-  __device__ __forceinline__ void fwd(uint32_t (&v)[W], bool gate, int sym) const {
-    uint32_t y[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) y[k] = gate ? follow[k] : 0u;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      uint32_t b = v[w];
-      while (b != 0u) {
-        const uint32_t* f = follow + (32 * w + __ffs(b) - 1) * W;
-        b &= b - 1u;
-#pragma unroll
-        for (int k = 0; k < W; ++k) y[k] |= f[k];
-      }
-    }
-    const uint32_t* m = mask + sym * W;
-#pragma unroll
-    for (int k = 0; k < W; ++k) v[k] = y[k] & m[k];
-  }
-
-  // v = (OR of follow[s] over s in v | seed) & mask[sym]
-  __device__ __forceinline__ void fwd_seed(uint32_t (&v)[W], const uint32_t (&seed)[W],
-                                           int sym) const {
-    uint32_t y[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) y[k] = seed[k];
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      uint32_t b = v[w];
-      while (b != 0u) {
-        const uint32_t* f = follow + (32 * w + __ffs(b) - 1) * W;
-        b &= b - 1u;
-#pragma unroll
-        for (int k = 0; k < W; ++k) y[k] |= f[k];
-      }
-    }
-    const uint32_t* m = mask + sym * W;
-#pragma unroll
-    for (int k = 0; k < W; ++k) v[k] = y[k] & m[k];
-  }
-
-  // r = OR of pred[u] over u in (r | acc) & mask[sym]
-  __device__ __forceinline__ void rev(uint32_t (&r)[W], int sym) const {
-    const uint32_t* m = mask + sym * W;
-    uint32_t x[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      x[k] = (r[k] | acc[k]) & m[k];
-      r[k] = 0u;
-    }
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      uint32_t b = x[w];
-      while (b != 0u) {
-        const uint32_t* p = pred + (32 * w + __ffs(b) - 1) * W;
-        b &= b - 1u;
-#pragma unroll
-        for (int k = 0; k < W; ++k) r[k] |= p[k];
-      }
-    }
-  }
-
-  __device__ __forceinline__ bool accepts(const uint32_t (&v)[W]) const {
-    uint32_t a = 0u;
-#pragma unroll
-    for (int k = 0; k < W; ++k) a |= v[k] & acc[k];
-    return a != 0u;
-  }
-};
-
-// a & row != 0 for a row of W words (in shared memory)
-template <int W>
-__device__ __forceinline__ bool meets(const uint32_t (&a)[W], const uint32_t* row) {
-  uint32_t x = 0u;
-#pragma unroll
-  for (int k = 0; k < W; ++k) x |= a[k] & row[k];
-  return x != 0u;
-}
-
-template <int W>
-__device__ __forceinline__ bool empty(const uint32_t (&v)[W]) {
-  uint32_t a = 0u;
-#pragma unroll
-  for (int k = 0; k < W; ++k) a |= v[k];
-  return a == 0u;
-}
-
-template <int W>
-__device__ __forceinline__ void clear(uint32_t (&v)[W]) {
-#pragma unroll
-  for (int k = 0; k < W; ++k) v[k] = 0u;
-}
-
-// Copies the tile's rows (P accept rows) into dynamic shared memory, then
-// `n_extra` words of extra_g after them. Every thread of the block calls it
-// (it ends in __syncthreads) before any thread returns. nfa.acc is the union
-// of the accept rows.
-template <int W>
-__device__ __forceinline__ Nfa<W> load_nfa(uint32_t* smem, const uint32_t* __restrict__ tab_g,
-                                           int S, int P = 1,
-                                           const uint32_t* __restrict__ extra_g = nullptr,
-                                           int n_extra = 0) {
-  const int n = (2 * S + kSyms + P) * W;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = tab_g[i];
-  for (int i = threadIdx.x; i < n_extra; i += blockDim.x) smem[n + i] = extra_g[i];
-  __syncthreads();
-  Nfa<W> nfa{smem, smem + S * W, smem + 2 * S * W, {}};
-#pragma unroll
-  for (int k = 0; k < W; ++k) nfa.acc[k] = 0u;
-  for (int p = 0; p < P; ++p) {
-#pragma unroll
-    for (int k = 0; k < W; ++k) nfa.acc[k] |= smem[(2 * S + kSyms + p) * W + k];
-  }
-  return nfa;
-}
 
 // Anchored rescan of one record from start st: the first (lazy) or last
 // (longest) accept step as an end clipped to len, -1 when none.
@@ -413,6 +287,15 @@ nfa_lazy_spans_kernel(NFA_KERNEL_HEAD, const uint32_t* __restrict__ hits, int ca
   step(0, kBos);
   walk_fwd(rec.row, 0, len, step, [] { return false; });
   step(len + 1, kEos);
+  // the empty match at len, whose start hit the EOS step read while a span
+  // ending at that step still held cur (see scan_spans.cu)
+  if (cur < 0 && pos <= len && ((hw >> ((len + 1) & 31)) & 1u)) {
+    if (cnt < cap) {
+      so[cnt] = len;
+      eo[cnt] = len;
+    }
+    ++cnt;
+  }
   fill_tail(so, eo, min(cnt, cap), cap);
   cnt_o[r] = cnt;
 }
@@ -701,31 +584,24 @@ nfa_lazy_spans_mb_kernel(NFA_KERNEL_HEAD, int P, const uint32_t* __restrict__ sp
     }
   };
   walk_steps(rec.row, len, step);
+  const size_t at_eos = (size_t)((len + 1) >> 5) * R + r;
 #pragma unroll
   for (int p = 0; p < chan_bound<kP>(P); ++p) {
     if (kP > 0 && p >= P) break;
+    // the empty match at len after a span that ended at the EOS step, per
+    // channel (see nfa_lazy_spans_kernel)
+    if (ch.at(0, p) < 0 && ch.at(1, p) <= len &&
+        ((__ldg(hits + at_eos + p * plane) >> ((len + 1) & 31)) & 1u)) {
+      int& n = ch.at(2, p);
+      if (n < cap) {
+        starts_o[(row + p) * cap + n] = len;
+        ends_o[(row + p) * cap + n] = len;
+      }
+      ++n;
+    }
     const int n = ch.at(2, p);
     fill_tail(starts_o + (row + p) * cap, ends_o + (row + p) * cap, min(n, cap), cap);
     if constexpr (kP > 0) cnt_o[row + p] = n;
-  }
-}
-
-// Calls f(std::integral_constant<int, W>{}) for the state-word count of a
-// record tile of s_tile states; other tiles are refused.
-template <class F>
-int by_words(int s_tile, F&& f) {
-  if (s_tile < 1 || s_tile > 256) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((s_tile + 31) / 32) {
-    case 1:
-      return f(std::integral_constant<int, 1>{});
-    case 2:
-      return f(std::integral_constant<int, 2>{});
-    case 4:
-      return f(std::integral_constant<int, 4>{});
-    case 8:
-      return f(std::integral_constant<int, 8>{});
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

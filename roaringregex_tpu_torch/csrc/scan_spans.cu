@@ -28,7 +28,10 @@
 //   _swar_span_kernel: claim sp = max(t-1, 0) when idle, the hit is set and
 //   pos <= sp <= len; seed state 0 at step cur+1 (steps <= 1 when cur == 0);
 //   emit (cur, e = min(t, len)) when an accept flag rises with e >= cur,
-//   then pos = max(e, cur+1) and the record's state is cleared. The spans go
+//   then pos = max(e, cur+1) and the record's state is cleared. After the
+//   EOS step, an idle record with pos <= len and hit bit len+1 emits the
+//   empty match (len, len): that hit is read while a span ending at the EOS
+//   step still holds cur (the TPU kernel drops it). The spans go
 //   straight into [R][cap] start/end rows (-1 past the count) and cnt[R]
 //   counts every span, also past cap. The TPU's [T, 32 G8, B] int32 event
 //   stream and its cumsum/scatter compaction never exist here.
@@ -159,6 +162,16 @@ swar_lazy_spans_kernel(const uint8_t* __restrict__ data, long long stride, int L
   step(0, kBos);
   walk_fwd(rec.row, 0, len, step, [] { return false; });
   step(len + 1, kEos);
+  // the EOS step's start hit (bit len+1) is read while a span that ends at
+  // that step still holds cur; only the empty match starts at len, so an
+  // idle record with pos <= len emits it here
+  if (cur < 0 && pos <= len && ((hw >> ((len + 1) & 31)) & 1u)) {
+    if (cnt < cap) {
+      so[cnt] = len;
+      eo[cnt] = len;
+    }
+    ++cnt;
+  }
   fill_tail(so, eo, min(cnt, cap), cap);
   cnt_o[r] = cnt;
 }

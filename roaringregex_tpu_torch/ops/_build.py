@@ -48,10 +48,15 @@ _COUNT_HEAD = [
     _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
     _P, _I, _I, _I, _I,  # tab, k, n_br, m, n
 ]
+_LONG_HEAD = [
+    _P, ctypes.c_longlong, _I, _I, _I, _I, _I,  # data, n, nw, block, lead, T, rep
+    _P, _I,  # tab, s_tile
+]
 _STATS_TAIL = [_I, _I, _I, _P, _P, _P, _P]  # seeded, lead, nullable, cnt, first, last, full
 # every entry point: its head, its own arguments, then the stream. The
-# order of the first fifteen is rrx_occupancy's kernel index (the P-channel
-# forms have rrx_occupancy_channels).
+# order of the first fifteen and of the four long-string kernels (17-20) is
+# rrx_occupancy's kernel index (the P-channel forms have
+# rrx_occupancy_channels).
 ARGTYPES = {
     "rrx_swar_stats": _HEAD + _STATS_TAIL + [_P],
     "rrx_word_stats": _HEAD + [_I, _P] + _STATS_TAIL + [_P],  # P, accs, then stats
@@ -72,6 +77,11 @@ ARGTYPES = {
     "rrx_nfa_reverse_mb": _NFA_HEAD + [_I, _P, _P, _P],  # P, span, hits
     # P, span, hits, cap, starts, ends, cnt, scratch
     "rrx_nfa_lazy_spans_mb": _NFA_HEAD + [_I, _P, _P, _I, _P, _P, _P, _P, _P],
+    # one long string's windows: v0, gate, seeded, then each kernel's outputs
+    "rrx_long_carry": _LONG_HEAD + [_P, _P, _I, _P, _P],  # vout
+    "rrx_long_flags": _LONG_HEAD + [_P, _P, _I, _P, _P],  # flags
+    "rrx_long_count": _LONG_HEAD + [_P, _P, _I, _P, _P, _P, _P],  # cnt, tail, vout
+    "rrx_long_reverse": _LONG_HEAD + [_P, _P],  # hits
 }
 KERNELS = tuple(ARGTYPES)
 

@@ -154,6 +154,14 @@ def _hit(hits: torch.Tensor, t: int) -> torch.Tensor:
     return ((hits[t >> 5] >> (t & 31)) & 1) != 0
 
 
+def _hit_at(hits: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[R] bool: bit t[r] of record r's hit words [W, R] (0 past W)."""
+    W, R = hits.shape
+    w = t >> 5
+    word = hits.to(torch.int64).gather(0, w.clamp(max=W - 1)[None, :])[0]
+    return (w < W) & (((word >> (t & 31)) & 1) != 0)
+
+
 def _as_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2**32) -> int32 with the same bit pattern."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
@@ -368,7 +376,10 @@ def lazy_spans_plain(
     one forward pass with the claim/anchor/emit bookkeeping of the TPU's
     ``_swar_span_kernel`` / ``_span_kernel_b`` over the hit words of
     :func:`reverse_plain`, written straight into the span buffers (the
-    TPU's compaction). Returns (starts [R, cap], ends [R, cap], -1 past the
+    TPU's compaction). After the EOS step an idle record with pos <= len
+    and hit bit len + 1 emits the empty match (len, len), which the TPU
+    kernels drop (the EOS step reads that hit while a span ending there
+    still holds cur). Returns (starts [R, cap], ends [R, cap], -1 past the
     count; cnt [R], which counts past cap)."""
     _check_inputs(data, lengths)
     _check_hits(hits, data)
@@ -399,6 +410,13 @@ def lazy_spans_plain(
         pos = torch.where(done, torch.maximum(e, cur + 1), pos)
         cur = torch.where(done, -1, cur)
         v = pt.cleared(v, done)
+    # the empty match at len: the EOS step reads its start hit (bit len + 1)
+    # while a span ending at that step still holds cur
+    done = (cur < 0) & (pos <= ln) & _hit_at(hits, ln + 1)
+    slot = torch.where(done, cnt.clamp(max=cap), cap)[:, None]
+    sbuf.scatter_(1, slot, torch.where(done, ln, -1)[:, None])
+    ebuf.scatter_(1, slot, torch.where(done, ln, -1)[:, None])
+    cnt += done.to(i64)
     i32 = torch.int32
     return sbuf[:, :cap].to(i32), ebuf[:, :cap].to(i32), cnt.to(i32)
 
@@ -477,19 +495,23 @@ def launch(entry: str, data: torch.Tensor, lengths: torch.Tensor, *args) -> None
             raise ValueError(f"{entry}: a {tuple(x.shape)} argument on {x.device} "
                              f"(contiguous: {x.is_contiguous()}), data on {dev}")
     R, L = data.shape
-    # the kernels read rows 16 bytes at a time: 16-byte aligned base and
-    # a row stride that is a multiple of 16
-    if L % 16 or data.data_ptr() % 16 or not data.is_contiguous():
+    # the kernels read rows 16 bytes at a time: 16-byte aligned base, a row
+    # width and a row stride that are multiples of 16. Rows may overlap (a
+    # strided view of one buffer: the long-string windows)
+    stride = data.stride(0) if R > 1 else -(-max(L, 1) // 16) * 16
+    if (L % 16 or data.data_ptr() % 16 or data.stride(1) != 1 or stride % 16
+            or stride <= 0):
         padded = torch.zeros((R, -(-max(L, 1) // 16) * 16), dtype=torch.uint8, device=dev)
         padded[:, :L] = data
         data = padded
+        stride = data.shape[1]
     lengths = lengths.to(torch.int32).contiguous()
     ptrs = [x.data_ptr() if isinstance(x, torch.Tensor) else x for x in args]
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, entry)(
-            data.data_ptr(), data.stride(0), L, lengths.data_ptr(), R, *ptrs, stream
+            data.data_ptr(), stride, L, lengths.data_ptr(), R, *ptrs, stream
         )
     _build.check(code, entry)
 

@@ -408,7 +408,10 @@ def lazy_spans_mb_plain(data, lengths, tables: NfaTables, span: torch.Tensor,
     len; seed sg_p at step cur + 1 (steps <= 1 when cur == 0); emit (cur, e
     = min(t, len)) on p's accept row with e >= cur, then pos = max(e, cur +
     1), cur idle, and p's positions (posm_p) are cleared from the state.
-    Nullable channels come out meaningless (state 0 is in no channel row).
+    After the EOS step an idle channel with pos <= len and hit bit len + 1
+    emits the empty match (len, len), as ``scan_bits.lazy_spans_plain``
+    does. Nullable channels come out meaningless (state 0 is in no channel
+    row).
     Returns (starts [R, P, cap], ends [R, P, cap], -1 past the count; cnt
     [R, P], which counts past cap)."""
     sb._check_inputs(data, lengths)
@@ -448,6 +451,15 @@ def lazy_spans_mb_plain(data, lengths, tables: NfaTables, span: torch.Tensor,
         pos = torch.where(done, torch.maximum(e, cur + 1), pos)
         cur = torch.where(done, -1, cur)
         v = v & ~((done.to(f32) @ posm) > 0)
+    # per channel, the empty match at len after a span that ended at the EOS
+    # step (see scan_bits.lazy_spans_plain)
+    t_eos = ln + 1
+    word = hits.to(i64).gather(1, (t_eos >> 5).expand(P, R)[:, None, :])[:, 0, :]  # [P, R]
+    done = (cur < 0) & (pos <= lnc) & (((word >> (t_eos & 31)) & 1) != 0).T
+    slot = torch.where(done, cnt.clamp(max=cap), cap)[..., None]
+    sbuf.scatter_(2, slot, torch.where(done, lnc, -1)[..., None])
+    ebuf.scatter_(2, slot, torch.where(done, lnc, -1)[..., None])
+    cnt += done.to(i64)
     i32 = torch.int32
     return sbuf[..., :cap].to(i32), ebuf[..., :cap].to(i32), cnt.to(i32)
 
@@ -763,6 +775,282 @@ class PallasScanner(_Scanner):
         data, _, lengths = self._batch(data, len_g)
         hits = nfa_reverse_mb(data, lengths, self.nfa, self.span)
         return nfa_lazy_spans_mb(data, lengths, self.nfa, self.span, hits, cap)
+
+
+# ---------------------------------------------------------------------------
+# One long string: windows of a single string from entry states
+# ---------------------------------------------------------------------------
+
+
+class LongGeom(NamedTuple):
+    """Windows over one string of ``n`` bytes (``ops/longstring.py``): ``nw``
+    windows of ``T`` local steps; window w's local step t is global stream
+    step g = (w // rep) * block + t - lead (global step 0 = BOS, i + 1 =
+    byte i, n + 1 = EOS, dead outside). A window owns its local steps [lead,
+    lead + block): the flag and hit bits of owned steps land at bit g of one
+    flat bit array, and the counts sum over them. ``rep`` > 1 runs rep
+    windows over the same steps (the summary pass's basis
+    pseudo-records)."""
+
+    n: int
+    nw: int
+    block: int
+    lead: int
+    T: int
+    rep: int = 1
+
+    @property
+    def words(self) -> int:
+        """Words of the flat flag / hit bit array."""
+        return -(-self.nw // self.rep) * (self.block // 32)
+
+
+def _check_long(data: torch.Tensor, geom: LongGeom) -> None:
+    if data.dim() != 1 or data.dtype != torch.uint8 or data.numel() != geom.n:
+        raise ValueError(f"data must be [n] uint8 with n = {geom.n}, got {tuple(data.shape)} "
+                         f"{data.dtype}")
+    if geom.block < 32 or geom.block % 32 or geom.lead < 0 or geom.T < 0 or geom.rep < 1:
+        raise ValueError(f"bad window geometry {geom}")
+    if geom.n > (1 << 31) - 1:
+        raise ValueError(f"a string of {geom.n} bytes: stream offsets are int32 (at most "
+                         f"{(1 << 31) - 1} bytes)")
+
+
+def _long_steps(data: torch.Tensor, geom: LongGeom):
+    """(g [T, nw] int64 global step, sym [T, nw] int64 symbol) of every
+    window's local steps, built once for a whole walk."""
+    dev = data.device
+    w0 = torch.arange(geom.nw, dtype=torch.int64, device=dev) // geom.rep * geom.block
+    g = torch.arange(geom.T, dtype=torch.int64, device=dev)[:, None] + (w0 - geom.lead)[None, :]
+    ext = torch.cat([data, data.new_zeros(1)]).to(torch.int64)
+    byte = ext[(g - 1).clamp(0, geom.n)]
+    n = geom.n
+    sym = torch.where(g == 0, sb.SYM_BOS, torch.where(
+        (g >= 1) & (g <= n), byte, torch.where(g == n + 1, sb.SYM_EOS, sb.SYM_DEAD)))
+    return g, sym
+
+
+def _state_rows(v0, geom: LongGeom, tables: NfaTables, dev) -> torch.Tensor:
+    """[nw, W] int32 entry states (or None: empty) -> [nw, S] bool."""
+    S = tables.s_tile
+    if v0 is None:
+        return torch.zeros((geom.nw, S), dtype=torch.bool, device=dev)
+    want = (geom.nw, _words(S))
+    if tuple(v0.shape) != want:
+        raise ValueError(f"entry states must be {want}, got {tuple(v0.shape)}")
+    return _bit_rows(v0.to(dev).to(torch.int64) & sb.MASK32, S)
+
+
+def _state_words(v: torch.Tensor, S: int) -> torch.Tensor:
+    """[nw, S] bool -> [nw, W] int32 (uint32 bit patterns)."""
+    nw = v.shape[0]
+    W = _words(S)
+    vv = torch.zeros((nw, W * 32), dtype=torch.int64, device=v.device)
+    vv[:, :S] = v.to(torch.int64)
+    sh = torch.arange(32, dtype=torch.int64, device=v.device)
+    return sb._as_i32((vv.reshape(nw, W, 32) << sh).sum(dim=2))
+
+
+def _long_walk(data, geom: LongGeom, tables: NfaTables, v0, gate, seeded: bool):
+    """Yields (t, v [nw, S] bool) after each local step of every window: the
+    forward step of :func:`stats_plain` from the entry states, seeded where
+    ``gate`` (every window when None) and, unseeded, only at g < 2."""
+    dev = data.device
+    pt = tables.plain(dev)
+    v = _state_rows(v0, geom, tables, dev)
+    gw = (torch.ones(geom.nw, dtype=torch.bool, device=dev) if gate is None
+          else gate.to(dev).to(torch.bool))
+    g, sym = _long_steps(data, geom)
+    seeds = gw[None, :] & (g < 2) if not seeded else gw[None, :].expand(geom.T, geom.nw)
+    for t in range(geom.T):
+        v = pt.step(v, seeds[t], sym[t])
+        yield t, v
+
+
+def _owned_bits(flags: torch.Tensor) -> torch.Tensor:
+    """[nw, block] bool bits of the windows' owned steps -> the flat words
+    [nw * block / 32] int32 (window w's owned step j is bit w * block + j)."""
+    sh = torch.arange(32, dtype=torch.int64, device=flags.device)
+    words = (flags.to(torch.int64).reshape(-1, 32) << sh).sum(dim=1)
+    return sb._as_i32(words)
+
+
+def long_carry_plain(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *,
+                     seeded: bool):
+    """Plain version of ``rrx_long_carry`` (the TPU's ``_carry_kernel_lb``):
+    each window's final state set [nw, W] int32 after its T steps."""
+    _check_long(data, geom)
+    v = _state_rows(v0, geom, tables, data.device)
+    for _, v in _long_walk(data, geom, tables, v0, gate, seeded):
+        pass
+    return _state_words(v, tables.s_tile)
+
+
+def long_flags_plain(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *,
+                     seeded: bool):
+    """Plain version of ``rrx_long_flags`` (the TPU's
+    ``_flags_v0_kernel_lb``): the accept flags of the owned steps as the
+    flat bit array [words] int32, bit g = global step g."""
+    _check_long(data, geom)
+    if geom.T != geom.lead + geom.block or geom.rep != 1:
+        raise ValueError(f"flags windows need T = lead + block and rep 1, got {geom}")
+    dev = data.device
+    pt = tables.plain(dev)
+    fl = torch.zeros((geom.nw, geom.block), dtype=torch.bool, device=dev)
+    for t, v in _long_walk(data, geom, tables, v0, gate, seeded):
+        if t >= geom.lead:
+            fl[:, t - geom.lead] = pt.accepts(v)
+    return _owned_bits(fl)
+
+
+def long_count_plain(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *,
+                     seeded: bool, final: bool = False):
+    """Plain version of ``rrx_long_count`` (the TPU's ``_count_v0_kernel_lb``
+    and, with ``final``, ``_count_v0_final_kernel_lb``): per window, cnt
+    [nw] int32 = accept flags of owned steps with g < n, tail [nw] bool = an
+    accept flag at an owned step with g == n or n + 1, and with ``final``
+    the final state set [nw, W] int32 (else None)."""
+    _check_long(data, geom)
+    dev = data.device
+    pt = tables.plain(dev)
+    cnt = torch.zeros(geom.nw, dtype=torch.int64, device=dev)
+    tail = torch.zeros(geom.nw, dtype=torch.bool, device=dev)
+    v = _state_rows(v0, geom, tables, dev)
+    hi = min(geom.T, geom.lead + geom.block)
+    g, _ = _long_steps(data, geom)
+    body, eos_side = g < geom.n, (g == geom.n) | (g == geom.n + 1)
+    for t, v in _long_walk(data, geom, tables, v0, gate, seeded):
+        if not geom.lead <= t < hi:
+            continue
+        fl = pt.accepts(v)
+        cnt += (fl & body[t]).to(torch.int64)
+        tail |= fl & eos_side[t]
+    vout = _state_words(v, tables.s_tile) if final else None
+    return cnt.to(torch.int32), tail, vout
+
+
+def long_reverse_plain(data, geom: LongGeom, tables: NfaTables):
+    """Plain version of ``rrx_long_reverse`` (the TPU's
+    ``_reverse_kernel_lb``): each window walks its T steps down from the
+    empty set with the reverse step of :func:`scan_bits.reverse_plain`; bit
+    g of the flat hit array [words] int32 = the initial state is in the set
+    after owned step g (a match can start at max(g - 1, 0))."""
+    _check_long(data, geom)
+    if geom.T < geom.lead + geom.block or geom.rep != 1:
+        raise ValueError(f"reverse windows need T >= lead + block and rep 1, got {geom}")
+    dev = data.device
+    pt = tables.plain(dev)
+    rs = pt.empty(geom.nw, dev)
+    hit = torch.zeros((geom.nw, geom.block), dtype=torch.bool, device=dev)
+    _, sym = _long_steps(data, geom)
+    for t in range(geom.T - 1, -1, -1):
+        rs = pt.rev(rs, sym[t])
+        if geom.lead <= t < geom.lead + geom.block:
+            hit[:, t - geom.lead] = pt.start(rs)
+    return _owned_bits(hit)
+
+
+def _long_launch(entry: str, data: torch.Tensor, geom: LongGeom, tables: NfaTables,
+                 *args) -> None:
+    """Launch a long-string entry point on the current stream of ``data``'s
+    card: (data, n, nw, block, lead, T, rep, tab, s_tile), ``args``
+    (tensors by pointer, None as a null pointer, ints as they are), then the
+    stream. A refused launch raises."""
+    from . import _build
+
+    _check_long(data, geom)
+    dev = data.device
+    if dev.type != "cuda":
+        raise ValueError(f"{entry} runs on a CUDA tensor, got {dev}")
+    if not data.is_contiguous() or data.data_ptr() % 16:
+        data = data.clone()  # the kernels read 16 aligned bytes at a time
+    for x in args:
+        if isinstance(x, torch.Tensor) and (x.device != dev or not x.is_contiguous()):
+            raise ValueError(f"{entry}: a {tuple(x.shape)} argument on {x.device} "
+                             f"(contiguous: {x.is_contiguous()}), data on {dev}")
+    ptrs = [x.data_ptr() if isinstance(x, torch.Tensor) else x for x in args]
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, entry)(data.data_ptr(), geom.n, geom.nw, geom.block, geom.lead,
+                                   geom.T, geom.rep, tables.tab.data_ptr(),
+                                   int(tables.s_tile), *ptrs, stream)
+    _build.check(code, entry)
+
+
+def _long_inputs(geom: LongGeom, tables: NfaTables, v0, gate, dev):
+    if v0 is not None:
+        want = (geom.nw, _words(tables.s_tile))
+        if tuple(v0.shape) != want or v0.dtype != torch.int32:
+            raise ValueError(f"entry states must be {want} int32, got {tuple(v0.shape)} {v0.dtype}")
+    if gate is not None and (gate.dim() != 1 or gate.numel() != geom.nw):
+        raise ValueError(f"gate must be [{geom.nw}], got {tuple(gate.shape)}")
+    return (None if v0 is None else v0.contiguous(),
+            None if gate is None else gate.to(torch.uint8).contiguous())
+
+
+def long_carry(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *, seeded: bool):
+    """Final states [nw, W] int32 (``rrx_long_carry``, counted in
+    ``long_carry.launches``, on a CUDA tensor; :func:`long_carry_plain` on a
+    CPU tensor)."""
+    if data.device.type == "cpu":
+        return long_carry_plain(data, geom, tables, v0, gate, seeded=seeded)
+    v0, gate = _long_inputs(geom, tables, v0, gate, data.device)
+    vout = torch.empty((geom.nw, _words(tables.s_tile)), dtype=torch.int32, device=data.device)
+    _long_launch("rrx_long_carry", data, geom, tables, v0, gate, int(seeded), vout)
+    long_carry.launches += 1
+    return vout
+
+
+def long_flags(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *, seeded: bool):
+    """Flat flag words [words] int32 (``rrx_long_flags``, counted in
+    ``long_flags.launches``, on a CUDA tensor; :func:`long_flags_plain` on a
+    CPU tensor)."""
+    if data.device.type == "cpu":
+        return long_flags_plain(data, geom, tables, v0, gate, seeded=seeded)
+    if geom.T != geom.lead + geom.block or geom.rep != 1:
+        raise ValueError(f"flags windows need T = lead + block and rep 1, got {geom}")
+    v0, gate = _long_inputs(geom, tables, v0, gate, data.device)
+    flags = torch.empty(geom.words, dtype=torch.int32, device=data.device)
+    _long_launch("rrx_long_flags", data, geom, tables, v0, gate, int(seeded), flags)
+    long_flags.launches += 1
+    return flags
+
+
+def long_count(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *, seeded: bool,
+               final: bool = False):
+    """(cnt [nw] int32, tail [nw] bool, final states [nw, W] int32 or None)
+    (``rrx_long_count``, counted in ``long_count.launches``, on a CUDA
+    tensor; :func:`long_count_plain` on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return long_count_plain(data, geom, tables, v0, gate, seeded=seeded, final=final)
+    v0, gate = _long_inputs(geom, tables, v0, gate, data.device)
+    dev = data.device
+    cnt = torch.empty(geom.nw, dtype=torch.int32, device=dev)
+    tail = torch.empty(geom.nw, dtype=torch.uint8, device=dev)
+    vout = (torch.empty((geom.nw, _words(tables.s_tile)), dtype=torch.int32, device=dev)
+            if final else None)
+    _long_launch("rrx_long_count", data, geom, tables, v0, gate, int(seeded), cnt, tail, vout)
+    long_count.launches += 1
+    return cnt, tail.view(torch.bool), vout
+
+
+def long_reverse(data, geom: LongGeom, tables: NfaTables):
+    """Flat hit words [words] int32 (``rrx_long_reverse``, counted in
+    ``long_reverse.launches``, on a CUDA tensor; :func:`long_reverse_plain`
+    on a CPU tensor)."""
+    if data.device.type == "cpu":
+        return long_reverse_plain(data, geom, tables)
+    if geom.T < geom.lead + geom.block or geom.rep != 1:
+        raise ValueError(f"reverse windows need T >= lead + block and rep 1, got {geom}")
+    hits = torch.empty(geom.words, dtype=torch.int32, device=data.device)
+    _long_launch("rrx_long_reverse", data, geom, tables, hits)
+    long_reverse.launches += 1
+    return hits
+
+
+for _w in (long_carry, long_flags, long_count, long_reverse):
+    _w.launches = 0
 
 
 # ---------------------------------------------------------------------------

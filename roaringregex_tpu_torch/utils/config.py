@@ -35,6 +35,13 @@ class RrxConfig:
         default_factory=lambda: _env_int("RRX_SWAR_WINDOW_COLS", 1024)
     )
 
+    # one-long-string mode: window (block) length in bytes
+    long_block: int = field(default_factory=lambda: _env_int("RRX_LONG_BLOCK", 4096))
+    # speculative long-string windows for cyclic patterns: warm-up steps
+    # used to guess each window's entry state, validated exactly (exit_w ==
+    # entry_{w+1}); 0 = off, every cyclic scan takes summary + replay
+    spec_warmup: int = field(default_factory=lambda: _env_int("RRX_SPEC_WARMUP", 512))
+
     def with_(self, **kw) -> "RrxConfig":
         return replace(self, **kw)
 

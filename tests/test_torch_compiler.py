@@ -134,3 +134,31 @@ def test_combine_nfas_matches_jax(patterns):
     assert port_acc == ref_acc
     assert [0 in a for a in port_acc] == [build_nfa(p).nullable for p in patterns]
     _same_program(compile_program(port), jax_compile(ref))
+
+
+# `.*X.*` shapes of tests/test_longstring.py, and shapes the rewrite refuses
+DOTSTAR = [".*error.*", ".*(cat|dog).*", "abc.*", ".*abc", ".*a{2,40}.*", ".*(er|ro)r.*",
+           "x.*y", "cat|dog", ".*a*", "(ab)*c", ".*^a", ".*(a|$).*"]
+
+
+@pytest.mark.parametrize("pattern", DOTSTAR)
+def test_dotstar_core_matches_jax(pattern):
+    """The carried `.*X.*` rewrite builds the JAX package's core program
+    (or refuses the same shapes) and reports the same trailing `.*`."""
+    from roaringregex_tpu.ops.longstring import dotstar_core as jax_dotstar_core
+    from roaringregex_tpu_torch.ops.longstring import dotstar_core
+
+    port, ref = dotstar_core(compile_program(pattern)), jax_dotstar_core(jax_compile(pattern))
+    assert (port is None) == (ref is None), pattern
+    if port is not None:
+        assert port[1] == ref[1]
+        assert port[0].pattern == ref[0].pattern
+        _same_program(port[0], ref[0])
+
+
+@pytest.mark.parametrize("pattern", PATTERNS[:6] + MATMUL[:2] + WIDE + ["(abc|de){1,300}"])
+def test_pattern_n_states_and_tier_match_jax(pattern):
+    import roaringregex_tpu_torch as rrx
+
+    p, ref = rrx.compile(pattern, "cpu"), jax_compile(pattern)
+    assert (p.n_states, p.tier) == (ref.n_states, ref.tier)
