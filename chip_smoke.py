@@ -9,7 +9,7 @@ its check fails:
 1. the card's name and power limit; build the CUDA kernels from
    roaringregex_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source,
    all started together), with nvcc's register report and the build time;
-2. kernel against plain PyTorch version on the card, for all twenty-one entry
+2. kernel against plain PyTorch version on the card, for all twenty-six entry
    points, on random batches from a numpy seed plus edge records (empty,
    len == L, bytes >= 0x80, byte 0); integer outputs, tolerance 0:
    rrx_swar_stats and rrx_word_stats on the SWAR and u32-word test
@@ -36,7 +36,15 @@ its check fails:
    bytes 0x00, 0x80 and 0xff and plants cut by the window edges, windows
    of 256 and 4096 bytes, seeded and unseeded, from the empty set, from
    random entry states with random seed gates and from the summary pass's
-   basis states;
+   basis states; the five bitband kernels (rrx_bitband_stats, _flags,
+   _reverse, _anchor_end, _spans) on the 8 bitband programs of the tier
+   (bench config 10 and 7 multiblock and sparse chains: W = 16 to 56,
+   rank-1 columns, negative triangle gaps, `^` and `$` rows, the accept
+   OR-fold) on 256-record batches with chains planted, stats seeded,
+   unseeded and nullable, two accept channels on config 10, flags seeded
+   and unseeded, reverse, anchored rescans lazy and longest from random and
+   candidate starts (-1 and 0 included), spans lazy and longest at caps 1,
+   2 and 16 (cap 1 overflows), and records past a live count;
 3. the match-stats path, with its launch counts set to 0 first: bench
    config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
@@ -102,6 +110,19 @@ its check fails:
    (lazy, greedy, and the cyclic route through the reversed program) and
    the torch-op LongScanner's fullmatch against re.fullmatch; every
    long-string kernel must have been launched;
+10. (run before 7) the bitband path, with every launch count set to 0
+   first: bench config 10 (x(ab|c){400,520}y, 1563 states, sparse) through
+   ScanEngine.match_stats with its prefilter over 10 MB (bench.make_corpus's
+   plant rule: the B / 4 bucket) and 1 GiB of 1024-byte records, and at 10
+   MB with plants in 2% (under B / 16) and 60% of the records (past the
+   bucket: the full-batch pass), each against re and (10 MB) against the
+   unfiltered scan, with torch's sync debug mode set to raise on any host
+   sync inside the call; finditer_batch lazy and longest against
+   re.finditer, the anchored longest rescan from each first match start,
+   ends_batch and starts_batch against the plain versions and re at 10 MB;
+   then the 7 other programs of the tier at 10 MB through the Pattern API
+   (search, fullmatch and spans against re, counts against the plain
+   version); the counts are read after it;
 7. times with CUDA events (median of 5-7 runs after warm-up) of kernel and
    plain version: the stats kernels at config 1 and 1 GiB, the SWAR span
    kernels at config 7's 10 MB shape and at 1 GiB, the matmul-tier kernels
@@ -115,7 +136,12 @@ its check fails:
    occupancy of both bookkeeping variants, and the combined engine calls
    against P single-pattern calls on the same data; the four long-string
    kernels at 1 GiB in the geometry of their path (plain versions on 1
-   MiB), and each long config's count_ends end to end at 1 GiB.
+   MiB), and each long config's count_ends end to end at 1 GiB; the five
+   bitband kernels on config 10 at 10 MB and 1 GiB with every record
+   scanned (plain versions on the 10 MB batch and on 16,384 records of the
+   1 GiB one), with registers, occupancy and the bound of PERF.md section
+   2, and config 10's match_stats end to end split into the prefilter scan,
+   the kernel on the compacted bucket, the full-batch pass and the glue.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -195,6 +221,27 @@ REPLACES |= {
     "rrx_long_reverse": "roaringregex_tpu/ops/scan_pallas.py:3488",
 }
 LONG_KERNELS = ("rrx_long_carry", "rrx_long_flags", "rrx_long_count", "rrx_long_reverse")
+BITBAND_SOURCE = "roaringregex_tpu_torch/csrc/scan_bitband.cu"
+REPLACES |= {
+    "rrx_bitband_stats": "roaringregex_tpu/ops/scan_bitband.py:605",
+    "rrx_bitband_flags": "roaringregex_tpu/ops/scan_bitband.py:692",
+    "rrx_bitband_reverse": "roaringregex_tpu/ops/scan_bitband.py:806",
+    "rrx_bitband_anchor_end": "roaringregex_tpu/ops/scan_bitband.py:741",
+    # _bb_spans_call's rounds (:1156): _bb_reverse_pl (:1213) and the
+    # anchored rescans of _bitband_anchor_kernel_b
+    "rrx_bitband_spans": "roaringregex_tpu/ops/scan_bitband.py:1213",
+}
+BITBAND_KERNELS = ("rrx_bitband_stats", "rrx_bitband_flags", "rrx_bitband_reverse",
+                   "rrx_bitband_anchor_end", "rrx_bitband_spans")
+# bench config 10 (bench.py:315) and its plant, and the other programs of
+# the bitband tier: multiblock chains (one rank-1 column, gaps (-1, 4, 5),
+# BOS and EOS rows, the accept OR-fold, a band of one byte) and an
+# unbounded sparse one
+CONFIG10 = "x(ab|c){400,520}y"
+PLANT10 = b"x" + b"ab" * 200 + b"c" * 210 + b"y"
+BITBAND_MB = ["x{2,300}y", "(ab|c){100,130}", "x(ab|c){100,200}(y|z+)", "(a(ab|c){100,200}b)+",
+              "^x(ab|c){100,200}y$", "x(ab|c){100,200}", "x(ab|c){400,}y"]
+BITBAND_PATTERNS = [CONFIG10] + BITBAND_MB
 # one-long-string configs (bench.py:298-346) and a speculative case that
 # fails validation ((ab)*c never does: its seeded state set depends on one
 # byte)
@@ -356,7 +403,8 @@ def main() -> int:
     from roaringregex_tpu_torch.api import compile as rrx_compile
     from roaringregex_tpu_torch.compiler.program import compile_program
     from roaringregex_tpu_torch.engine import ScanEngine
-    from roaringregex_tpu_torch.ops import _build, scan_bits, scan_pallas, scan_swar, scan_word, scan_xla
+    from roaringregex_tpu_torch.ops import (_build, scan_bitband, scan_bits, scan_pallas, scan_swar,
+                                            scan_word, scan_xla)
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -429,8 +477,15 @@ def main() -> int:
         "rrx_long_count": scan_pallas.long_count,
         "rrx_long_reverse": scan_pallas.long_reverse,
     }
+    bitband_wrappers = {
+        "rrx_bitband_stats": scan_bitband.bitband_stats,
+        "rrx_bitband_flags": scan_bitband.bitband_flags,
+        "rrx_bitband_reverse": scan_bitband.bitband_reverse,
+        "rrx_bitband_anchor_end": scan_bitband.bitband_anchor_end,
+        "rrx_bitband_spans": scan_bitband.bitband_spans,
+    }
     wrappers = ({name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
-                | count_wrappers | mp_wrappers | long_wrappers)
+                | count_wrappers | mp_wrappers | long_wrappers | bitband_wrappers)
     max_err = {name: 0 for name in wrappers}
 
     def compare(name, got, want, tag, labels=("cnt", "first", "last", "full")):
@@ -802,6 +857,134 @@ def main() -> int:
           f"{len(LONG_PATTERNS)} programs (W = 1, 2, 8) through the four long-string kernels "
           f"(carry, count with and without the final state, flags, reverse; seeded and unseeded; "
           f"empty, random and basis entry states) ({time.perf_counter() - t0:.1f}s)")
+
+    # the bitband kernels: every program of the tier on a 256-record edge
+    # batch with a chain of its body planted in every second record (one
+    # copy too few, m, m..n, n, one too many; cut by the record's end)
+    BB = scan_bitband
+
+    def chain(pattern: str, k: int, L: int) -> bytes:
+        """k copies of the pattern's repeated body with its head and tail,
+        at most L bytes: x{k}y, a(ab|c){k}b or x(ab|c){k} + y or z."""
+        if pattern.startswith("x{"):
+            return (b"x" * k)[: L - 1] + b"y"
+        nab = int(rng.integers(0, max(0, min(k, L - k - 2)) + 1))
+        body = [b"ab"] * nab + [b"c"] * (k - nab)
+        rng.shuffle(body)
+        if pattern.startswith("(a("):
+            return b"a" + b"".join(body) + b"b"
+        return b"x" + b"".join(body) + bytes([int(rng.choice(list(b"yz")))])
+
+    def bitband_batch(pattern: str, R: int, L: int):
+        data, lengths = edge_batch(rng, np, R, L, b"xabcyz")
+        m = re.search(r"\{(\d+),(\d*)\}", pattern)
+        lo, hi = int(m.group(1)), int(m.group(2) or int(m.group(1)) + 40)
+        for i in range(8, R, 2):
+            k = int(rng.choice([lo - 1, lo, int(rng.integers(lo, hi + 1)), hi, hi + 1]))
+            w = chain(pattern, k, L)[:L]
+            at = 0 if pattern.startswith("^") else int(rng.integers(0, L - len(w) + 1))
+            data[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+            if pattern.startswith("^") and i % 4 == 0:
+                lengths[i] = len(w)  # the whole record: ^...$ can match
+            elif rng.random() < 0.7:
+                lengths[i] = max(lengths[i], at + len(w))
+        return data, lengths
+
+    def first_starts(hits, ln):
+        """[R] int32: each record's first candidate start (from the hit
+        words), -1 where it has none."""
+        hb = scan_bits.hit_bits(hits, hits.shape[0] * 32)
+        sbm = torch.cat([hb[:, :1] | hb[:, 1:2], hb[:, 2:]], dim=1)
+        cols = torch.arange(sbm.shape[1], device=dev)[None, :]
+        sbm = sbm & (cols <= ln.to(torch.int64)[:, None])
+        return torch.where(sbm.any(dim=1), sbm.to(torch.uint8).argmax(dim=1), -1).to(torch.int32)
+
+    def check_bitband(tables, d, ln, tag, caps):
+        """The five bitband kernels against their plain versions on one
+        batch; returns the records whose spans overflowed."""
+        R, L = d.shape
+        for seeded in (True, False):
+            for nullable in ((False, True) if seeded else (False,)):
+                kw = dict(seeded=seeded, nullable=nullable)
+                compare("rrx_bitband_stats", BB.bitband_stats(d, ln, tables, **kw),
+                        BB.stats_plain(d, ln, tables, **kw), f"{tag} {kw}")
+            compare("rrx_bitband_flags", [BB.bitband_flags(d, ln, tables, seeded=seeded)],
+                    [BB.flags_plain(d, ln, tables, seeded=seeded)], f"{tag} seeded={seeded}",
+                    ("flags",))
+        hits = BB.bitband_reverse(d, ln, tables)
+        compare("rrx_bitband_reverse", [hits], [scan_bits.reverse_plain(d, ln, tables)], tag,
+                ("hits",))
+        # anchored rescans from each record's first candidate start (every
+        # second record), random starts (-1 .. L) and 0
+        st = torch.from_numpy(rng.integers(-1, L + 1, size=R).astype(np.int32)).to(dev)
+        st = torch.where(torch.arange(R, device=dev) % 2 == 0, first_starts(hits, ln), st)
+        st[:3] = torch.tensor([0, -1, 0], dtype=torch.int32)
+        n_over = 0
+        for longest in (False, True):
+            compare("rrx_bitband_anchor_end",
+                    [BB.bitband_anchor_end(d, ln, tables, st, longest=longest)],
+                    [scan_bits.anchor_plain(d, ln, tables, st, longest=longest)],
+                    f"{tag} longest={longest}", ("end",))
+            for cap in caps:
+                got = BB.bitband_spans(d, ln, tables, hits, cap, longest=longest)
+                compare("rrx_bitband_spans", got,
+                        scan_bits.greedy_spans_plain(d, ln, tables, hits, cap, longest=longest),
+                        f"{tag} cap={cap} longest={longest}", ("starts", "ends", "cnt", "over"))
+                n_over += int(got[3].sum().item())
+        # live (the prefilter's passes): records at or past it return at once
+        n = R // 3
+        live = torch.tensor([n], dtype=torch.int32, device=dev)
+        got = BB.bitband_stats(d, ln, tables, seeded=True, nullable=False, live=live)
+        compare("rrx_bitband_stats", [x[:n] for x in got],
+                BB.stats_plain(d[:n], ln[:n], tables, seeded=True, nullable=False),
+                f"{tag} live={n}")
+        return n_over
+
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = n_over = 0
+    shapes = set()
+    for pattern in BITBAND_PATTERNS:
+        prog = compile_program(pattern)
+        spec = BB.bitband_spec(prog)
+        if spec is None:
+            fail(f"{pattern!r} does not decompose (bitband_spec)")
+        tables = BB.device_bitband_tables(prog, spec, dev)
+        shapes.add((spec.W, len(spec.diags), len(spec.rank1), spec.tri_gaps))
+        L = {CONFIG10: 1024, "x(ab|c){400,}y": 1024, "x{2,300}y": 320,
+             "(ab|c){100,130}": 320}.get(pattern, 512)
+        data, lengths = bitband_batch(pattern, 256, L)
+        d = torch.from_numpy(data).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        caps = (1, 2, 16) if pattern in (CONFIG10, "(a(ab|c){100,200}b)+") else (2,)
+        n_over += check_bitband(tables, d, ln, f"{pattern!r} R=256 L={L}", caps)
+        n_cmp += 1
+        if pattern == CONFIG10:
+            # two accept channels on one program: the program's accept set
+            # and every fifth state
+            acc2 = np.zeros((prog.s_pad, 2), np.uint8)
+            acc2[: prog.n_states, 0] = np.asarray(prog.accept)[: prog.n_states]
+            acc2[: prog.n_states, 1] = np.arange(prog.n_states) % 5 == 2
+            t2 = BB.device_bitband_tables(prog, spec, dev, acc2)
+            for seeded in (True, False):
+                kw = dict(seeded=seeded, nullable=False)
+                compare("rrx_bitband_stats", BB.bitband_stats(d, ln, t2, **kw),
+                        BB.stats_plain(d, ln, t2, **kw), f"{pattern!r} 2 channels {kw}")
+                compare("rrx_bitband_flags", [BB.bitband_flags(d, ln, t2, seeded=seeded)],
+                        [BB.flags_plain(d, ln, t2, seeded=seeded)],
+                        f"{pattern!r} 2 channels seeded={seeded}", ("flags",))
+    torch.cuda.synchronize()
+    for name in BITBAND_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if n_over == 0:
+        fail("bitband span overflow (over) was never exercised")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} batches of 256 records of the "
+          f"{len(BITBAND_PATTERNS)} bitband programs ((W, diagonals, rank-1, gaps) "
+          f"{sorted(shapes)}) through the five bitband kernels (stats seeded/unseeded/nullable, "
+          f"flags seeded/unseeded, two accept channels, reverse, anchor lazy/longest, spans lazy "
+          f"and longest at caps 1, 2, 16 (cap 1 overflowed on {n_over} records), live records) "
+          f"({time.perf_counter() - t0:.1f}s)")
 
     # -- phase 3: the match-stats path (counts from here to its 1 GiB run) --
     import bench
@@ -1636,6 +1819,164 @@ def main() -> int:
           f"({time.perf_counter() - t9:.1f}s for the phase)")
     print(f"long-string path launches: {long_launches}")
 
+    # -- phase 10: the bitband path (run before 7; counts from here to its last run)
+    from roaringregex_tpu_torch.utils.config import get_config, set_config
+
+    reset_launches()
+    t10 = time.perf_counter()
+    rx10 = re.compile(CONFIG10.encode())
+
+    def re_stats10(d: np.ndarray, ln: np.ndarray):
+        """(count of match ends, first end) per record by Python re: every
+        match of config 10 holds one x, at its start, so matches are unique
+        per start, never overlap, and re.finditer's ends are all of them."""
+        cnt = np.zeros(d.shape[0], np.int64)
+        first = np.full(d.shape[0], -1, np.int64)
+        for i in range(d.shape[0]):
+            ends = [m.end() for m in rx10.finditer(d[i, : ln[i]].tobytes())]
+            cnt[i] = len(ends)
+            first[i] = ends[0] if ends else -1
+        return cnt, first
+
+    def bucket(B: int) -> int:
+        """The prefilter's compaction bucket (B / 4 rows rounded up to 128)."""
+        return min(B, max(128, -(-(B // 4) // 128) * 128))
+
+    eng10 = ScanEngine(compile_program(CONFIG10), device=dev)
+    sc10, pf10 = eng10.device_scanner, eng10._prefilter()
+    if not isinstance(sc10, scan_bitband.BitbandScanner) or pf10 is None:
+        fail(f"config 10 routed to {type(sc10).__name__} with prefilter {pf10}")
+    base_cfg = get_config()
+    set_config(base_cfg.with_(sparse_prefilter=False))  # RRX_SPARSE_PREFILTER=0
+    raw10 = ScanEngine(compile_program(CONFIG10), device=dev)
+    if raw10._prefilter() is not None:
+        fail("config 10 with the prefilter off still has one")
+    set_config(base_cfg)
+
+    def run10(d_np: np.ndarray, l_np: np.ndarray, tag: str, raw: bool):
+        """Config 10's match_stats on the card (the prefilter's path, no host
+        sync allowed inside it) against re and, with ``raw``, against the
+        unfiltered scan; returns (data, lengths on the card, candidates)."""
+        d, ln = torch.from_numpy(d_np).to(dev), torch.from_numpy(l_np).to(dev)
+        _, _, pre = eng10._alias_call(pf10, "match_stats", d, ln, seeded=True)
+        n_cand = int(pre.reshape(-1)[: d.shape[0]].sum().item())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in the call raises
+        try:
+            got = eng10.match_stats(d, ln, seeded=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cnt, first, anym = (x.cpu().numpy() for x in got)
+        want = re_stats10(d_np, l_np)
+        if not (np.array_equal(cnt, want[0]) and np.array_equal(first, want[1])
+                and np.array_equal(anym, want[0] > 0)):
+            bad = np.nonzero((cnt != want[0]) | (first != want[1]))[0][:5].tolist()
+            fail(f"config 10 {tag}: (cnt, first, any) != re at records {bad}")
+        if raw:
+            for x, y in zip(got, raw10.match_stats(d, ln, seeded=True), strict=True):
+                if not torch.equal(x, y):
+                    fail(f"config 10 {tag}: the prefiltered scan != the unfiltered scan")
+        print(f"phase 10: config 10 {tag}: {d.shape[0]} records x {d.shape[1]} B, {n_cand} "
+              f"prefilter candidates, bucket {bucket(d.shape[0])} rows "
+              f"({'compacted' if n_cand <= bucket(d.shape[0]) else 'full-batch pass'}): "
+              f"matches={int(cnt.sum())} records_with_match={int(anym.sum())} == re"
+              + (" == the unfiltered scan" if raw else "") + "; no host sync in the call")
+        return d, ln, n_cand
+
+    # 10 MB: bench.make_corpus's plant rule (12.5% of the records), then
+    # densities under B / 16 and over the B / 4 bucket
+    d10_np, l10_np = bench.make_corpus(10_000_000, 1024, seed=10, plant=(PLANT10,))
+    g10, gl10, c10 = run10(d10_np, l10_np, "10 MB", raw=True)
+    B10 = g10.shape[0]
+    if not B10 // 16 <= c10 <= bucket(B10):
+        fail(f"config 10 at 10 MB: {c10} candidates do not take the B / 4 bucket")
+    for frac, seed in ((0.02, 11), (0.6, 12)):
+        dd, ll = bench.make_corpus(10_000_000, 1024, seed=seed, plant=(PLANT10,), plant_frac=frac)
+        _, _, cd = run10(dd, ll, f"10 MB, plants in {frac:.0%} of the records", raw=True)
+        if (cd < B10 // 16) != (frac < 0.1) or (cd > bucket(B10)) != (frac > 0.1):
+            fail(f"config 10 plant fraction {frac}: {cd} candidates miss the density's route")
+    # 1 GiB: the same plant rule over 1,048,576 records
+    t0 = time.perf_counter()
+    b10_np, bl10_np = bench.make_corpus(1 << 30, 1024, seed=13, plant=(PLANT10,))
+    gen10_s = time.perf_counter() - t0
+    b10, bl10, cb10 = run10(b10_np, bl10_np, f"1 GiB (corpus built in {gen10_s:.1f}s)", raw=False)
+
+    # lazy and longest spans through Pattern.finditer_batch at 10 MB, the
+    # anchored rescan from each record's first match start, and the end and
+    # start bitmaps against the plain versions (on the card) and re
+    texts10 = [d10_np[i, : l10_np[i]].tobytes() for i in range(B10)]
+    want_sp = [[m.span() for m in rx10.finditer(t)] for t in texts10]
+    pat10 = rrx_compile(CONFIG10, dev)
+    for longest in (False, True):
+        if pat10.finditer_batch(texts10, longest=longest) != want_sp:
+            fail(f"config 10 finditer_batch (longest={longest}) != re.finditer at 10 MB")
+    st10 = np.array([sp[0][0] if sp else -1 for sp in want_sp], np.int32)
+    fe10 = eng10.first_end_from(g10, gl10, st10, longest=True).cpu().numpy()
+    if not np.array_equal(fe10, [sp[0][1] if sp else -1 for sp in want_sp]):
+        fail("config 10 anchored (longest) ends from the first match start != re")
+    fw = BB.flags_plain(g10, gl10, sc10.tables, seeded=True)
+    hw = scan_bits.reverse_plain(g10, gl10, sc10.tables)
+    fb = scan_bits.hit_bits(fw, g10.shape[1] + 2).cpu().numpy()
+    hb = scan_bits.hit_bits(hw, g10.shape[1] + 2).cpu().numpy()
+    ends_p = [sorted({min(t, n) for t in np.nonzero(fb[i])[0]}) for i, n in enumerate(l10_np)]
+    starts_p = [sorted({max(t - 1, 0) for t in np.nonzero(hb[i])[0] if max(t - 1, 0) <= n})
+                for i, n in enumerate(l10_np)]
+    if pat10.ends_batch(texts10) != ends_p or ends_p != [[e for _, e in sp] for sp in want_sp]:
+        fail("config 10 ends_batch != the plain flags or re at 10 MB")
+    if pat10.starts_batch(texts10) != starts_p or starts_p != [[s for s, _ in sp] for sp in want_sp]:
+        fail("config 10 starts_batch != the plain reverse hits or re at 10 MB")
+    print(f"phase 10: config 10 at 10 MB: finditer_batch lazy and longest == re.finditer "
+          f"({sum(map(len, want_sp))} spans), first_end_from (longest) == re, ends_batch and "
+          f"starts_batch == the plain versions on the card == re")
+
+    # the multiblock programs of the tier (and x(ab|c){400,}y) at 10 MB
+    # through the Pattern API: lowercase records with a chain of the body
+    # planted in every eighth (counts of copies m-1, m, m..n, n, n+1)
+    for k, pattern in enumerate(BITBAND_MB):
+        rngm = np.random.default_rng(100 + k)
+        dm = rngm.integers(ord("a"), ord("z") + 1, size=(B10, 1024), dtype=np.uint8)
+        lm = np.full(B10, 1024, np.int32)
+        mm = re.search(r"\{(\d+),(\d*)\}", pattern)
+        lo, hi = int(mm.group(1)), int(mm.group(2) or int(mm.group(1)) + 40)
+        for i in rngm.permutation(B10)[: B10 // 8]:
+            w = chain(pattern, int(rngm.choice([lo - 1, lo, int(rngm.integers(lo, hi + 1)), hi,
+                                                hi + 1])), 1024)
+            at = 0 if pattern.startswith("^") else int(rngm.integers(0, 1024 - len(w) + 1))
+            dm[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+            if pattern.startswith("^") and i % 2:
+                lm[i] = len(w)
+        texts = [dm[i, : lm[i]].tobytes() for i in range(B10)]
+        pat = rrx_compile(pattern, dev)
+        if not isinstance(pat.engine.device_scanner, scan_bitband.BitbandScanner):
+            fail(f"{pattern!r} routed to {type(pat.engine.device_scanner).__name__}")
+        rx = re.compile(pattern.encode())
+        rxl = re.compile(pattern.replace("+", "+?").replace("}", "}?").encode())
+        if pat.search_batch(texts).tolist() != [rx.search(t) is not None for t in texts]:
+            fail(f"{pattern!r}: search_batch != re at 10 MB")
+        if pat.fullmatch_batch(texts).tolist() != [rx.fullmatch(t) is not None for t in texts]:
+            fail(f"{pattern!r}: fullmatch_batch != re at 10 MB")
+        for longest, r_ in ((False, rxl), (True, rx)):
+            if pat.finditer_batch(texts, longest=longest) != [[m.span() for m in r_.finditer(t)]
+                                                               for t in texts]:
+                fail(f"{pattern!r}: finditer_batch (longest={longest}) != re at 10 MB")
+        dmg, lmg = torch.from_numpy(dm).to(dev), torch.from_numpy(lm).to(dev)
+        cnt_p = BB.stats_plain(dmg, lmg, pat.engine.device_scanner.tables, seeded=True,
+                               nullable=False)[0][:, 0].cpu().numpy()
+        if not np.array_equal(pat.count_batch(texts), cnt_p):
+            fail(f"{pattern!r}: count_batch != the plain version at 10 MB")
+        spec = pat.engine.device_scanner.bspec
+        print(f"phase 10: {pattern!r} ({pat.n_states} states, {pat.tier}, W = {spec.W}, "
+              f"{len(spec.diags)} diagonals, rank-1 {len(spec.rank1)}, gaps {spec.tri_gaps}) at "
+              f"10 MB: search_batch, fullmatch_batch and finditer_batch lazy and longest == re, "
+              f"count_batch == plain ({int(cnt_p.sum())} match ends)")
+    torch.cuda.synchronize()
+    bitband_launches = {name: launches()[name] for name in BITBAND_KERNELS}
+    for name, n in bitband_launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the bitband path")
+    print(f"bitband path launches: {bitband_launches} "
+          f"({time.perf_counter() - t10:.1f}s for the phase)")
+
     # -- phase 7: times ---------------------------------------------------
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
         """Median over ``runs`` of the CUDA-event time of ``per_run``
@@ -2194,6 +2535,161 @@ def main() -> int:
     print("phase 7: long-string count_ends end to end, 1 GiB on the card (ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in e2e_ms.items()) + f" [{card}]")
 
+    # the bitband kernels on config 10, every record scanned (the raw scan:
+    # no prefilter), at 10 MB (plain versions on the whole batch) and at
+    # 1 GiB (plain versions on the first n_slice records), with the bound of
+    # PERF.md section 2: per step and record, Ws = ceil(n_states / 32)
+    # words, 2 operations per word per diagonal (a funnel shift and an
+    # AND-OR), 1 per word for the step's mask (one row, looked up by byte),
+    # 2 + the nonzero words of its in-edge row per rank-1 column, 6 + 2 per
+    # family per word of the triangle window, and the bookkeeping only on
+    # the nonzero words of the rows it reads: the seed OR and the accept
+    # test forward (the accept OR and the initial-state test in reverse: the
+    # same rows); a rescan ORs its seed in once, so it charges the accept
+    # test only
+    spec10, tb10 = sc10.bspec, sc10.tables
+    prog10 = eng10.prog
+    Ws = -(-prog10.n_states // 32)
+    nf10 = len(spec10.tri_gaps)
+
+    def nz_words(states):
+        return len(np.unique(np.asarray(states, dtype=np.int64) // 32))
+
+    edges10 = prog10.nfa.get_edges()
+    nz_seed = nz_words(np.flatnonzero(np.asarray(prog10.seed_row)[: prog10.n_states]))
+    nz_acc = nz_words(np.flatnonzero(np.asarray(prog10.accept)[: prog10.n_states]))
+    core10 = (2 * Ws * len(spec10.diags) + Ws
+              + sum(2 + nz_words(edges10[edges10[:, 1] == 32 * w + b, 0]) for w, b in spec10.rank1)
+              + ((6 + 2 * nf10) * (spec10.tri_win[1] - spec10.tri_win[0]) if nf10 else 0))
+    step10 = core10 + nz_seed + nz_acc  # a seeded forward step, or a reverse step
+    rescan10 = core10 + nz_acc  # a step of an anchored rescan
+    print(f"phase 7: bitband bound of config 10: Ws = {Ws} words, {len(spec10.diags)} diagonals, "
+          f"{len(spec10.rank1)} rank-1 columns, {nf10} families over "
+          f"{spec10.tri_win[1] - spec10.tri_win[0]} window words, seed {nz_seed} and accept "
+          f"{nz_acc} nonzero words: {step10} operations per scan step, {rescan10} per rescan step")
+
+    def bb_bound(kind, ln, L, *, C=1, starts=None, end=None, spans=None, cap=0, rows=None):
+        """(bound_ms, bound_by) of one bitband call from this run's inputs:
+        stats, flags and reverse scan every step of the records in ``rows``
+        (all by default); the anchored rescan the steps from each start to
+        its end (1 where it has none); the span rounds the steps of each
+        emitted span, plus the hit words."""
+        ln = ln.to(torch.int64).clamp(0, L)
+        if rows is not None:
+            ln = ln[:rows]
+        R = ln.numel()
+        nbytes = int(ln.sum())
+        steps = nbytes + 2 * R
+        hit_bytes = 4 * scan_bits.hit_words(L) * R
+        if kind == "stats":
+            return bound(nbytes + 4 * R, 13 * R * C, steps * step10)
+        if kind in ("flags", "reverse"):
+            return bound(nbytes + 4 * R, hit_bytes * C, steps * step10)
+        if kind == "anchor_end":
+            st = starts.to(torch.int64)
+            live = (st >= 0) & (st <= ln)
+            rescan = int(torch.where(live, torch.where(end >= 0, end.to(torch.int64) - st + 1, 1),
+                                     0).sum())
+            return bound(rescan + 8 * R, 4 * R, rescan * rescan10)
+        s_g, e_g, c_g = (x.to(torch.int64) for x in spans[:3])
+        emitted = torch.arange(s_g.shape[1], device=s_g.device)[None, :] < c_g[:, None]
+        rescan = int(torch.where(emitted, e_g - s_g + 1, 0).sum())
+        return bound(rescan + 4 * R + hit_bytes, 8 * R * cap + 5 * R,
+                     rescan * rescan10 + hit_bytes // 4)
+
+    bb_tpb = lib.rrx_bitband_threads_per_block()
+
+    def bb_occupancy(idx, rows):
+        bps = ctypes.c_int(0)
+        n_rows = tb10.tab_f.numel() // spec10.W if idx != 2 else tb10.tab_r.numel() // spec10.W
+        _build.check(lib.rrx_bitband_occupancy(idx, spec10.W, n_rows, ctypes.byref(bps)),
+                     "rrx_bitband_occupancy")
+        blocks = -(-rows // (bb_tpb // 32))
+        resident = min(blocks, bps.value * n_sm)
+        return (f"theoretical {bps.value * bb_tpb}/{max_threads} threads per SM "
+                f"({100.0 * bps.value * bb_tpb / max_threads:.1f}%, one warp per record); grid "
+                f"{blocks} blocks of {bb_tpb} -> at most "
+                f"{100.0 * resident * bb_tpb / (n_sm * max_threads):.1f}% of the resident-thread "
+                f"slots")
+
+    bb_ms = {}
+    cap10 = 4
+    for shape, d, ln in (("10 MB", g10, gl10), ("1 GiB", b10, bl10)):
+        n = d.shape[0] if shape == "10 MB" else n_slice
+        pd, pl = d[:n].contiguous(), ln[:n].contiguous()
+        hits = BB.bitband_reverse(d, ln, tb10)
+        st = first_starts(hits, ln)
+        ends = BB.bitband_anchor_end(d, ln, tb10, st, longest=True)
+        spans = BB.bitband_spans(d, ln, tb10, hits, cap10, longest=False)
+        kw = dict(seeded=True, nullable=False)
+        got = BB.bitband_stats(d, ln, tb10, **kw)
+        compare("rrx_bitband_stats", [x[:n] for x in got], BB.stats_plain(pd, pl, tb10, **kw),
+                f"config 10 {shape}, first {n} records")
+        compare("rrx_bitband_spans", [x[:n] for x in spans],
+                scan_bits.greedy_spans_plain(pd, pl, tb10, hits[:, :n].contiguous(), cap10,
+                                             longest=False),
+                f"config 10 {shape}, first {n} records", ("starts", "ends", "cnt", "over"))
+        calls = {
+            "rrx_bitband_stats": (lambda: BB.bitband_stats(d, ln, tb10, **kw),
+                                  lambda: BB.stats_plain(pd, pl, tb10, **kw),
+                                  bb_bound("stats", ln, L), 0),
+            "rrx_bitband_flags": (lambda: BB.bitband_flags(d, ln, tb10, seeded=True),
+                                  lambda: BB.flags_plain(pd, pl, tb10, seeded=True),
+                                  bb_bound("flags", ln, L), 1),
+            "rrx_bitband_reverse": (lambda: BB.bitband_reverse(d, ln, tb10),
+                                    lambda: scan_bits.reverse_plain(pd, pl, tb10),
+                                    bb_bound("reverse", ln, L), 2),
+            "rrx_bitband_anchor_end": (
+                lambda: BB.bitband_anchor_end(d, ln, tb10, st, longest=True),
+                lambda: scan_bits.anchor_plain(pd, pl, tb10, st[:n].contiguous(), longest=True),
+                bb_bound("anchor_end", ln, L, starts=st, end=ends), 3),
+            "rrx_bitband_spans": (
+                lambda: BB.bitband_spans(d, ln, tb10, hits, cap10, longest=False),
+                lambda: scan_bits.greedy_spans_plain(pd, pl, tb10, hits[:, :n].contiguous(), cap10,
+                                                     longest=False),
+                bb_bound("spans", ln, L, spans=spans, cap=cap10), 4),
+        }
+        for name, (kern, plain, bnd, idx) in calls.items():
+            ms = time_ms(kern, warm=1, runs=7)
+            plain_ms = time_ms(plain, warm=0, runs=1)
+            bb_ms[name, shape] = (ms, plain_ms, bnd, n)
+            print(f"phase 7: {name} config 10 {shape} [{d.shape[0]} x {L}], every record: kernel "
+                  f"{ms:.3f} ms = {d.shape[0] * L / ms / 1e6:.2f} GB/s, plain {plain_ms:.1f} ms on "
+                  f"{n} records; bound {bnd[0]:.4f} ms by {bnd[1]} ({100 * bnd[0] / ms:.1f}% of "
+                  f"it) [{card}]")
+            print(f"  occupancy {name} ({shape}): {bb_occupancy(idx, d.shape[0])}; registers "
+                  f"{regs_of(('bb_stats_kernel', 'bb_flags_kernel', 'bb_reverse_kernel', 'bb_anchor_kernel', 'bb_spans_kernel')[idx])}")
+        # config 10's match_stats end to end (data on the card), split into
+        # the prefilter scan, the kernel on the compacted bucket, the
+        # full-batch pass (its records return at once unless the candidates
+        # overflow the bucket) and the compaction glue (the rest)
+        B_ = d.shape[0]
+        e2e = time_ms(lambda: eng10.match_stats(d, ln, seeded=True), warm=1, runs=5)
+        pre_ms = time_ms(lambda: eng10._alias_call(pf10, "match_stats", d, ln, seeded=True),
+                         warm=1, runs=5)
+        _, _, pre = eng10._alias_call(pf10, "match_stats", d, ln, seeded=True)
+        pre = pre.reshape(-1)[:B_]
+        idx_c = torch.nonzero(pre).reshape(-1)[: bucket(B_)]
+        bc = bucket(B_)
+        d2 = torch.zeros((bc, L), dtype=torch.uint8, device=dev)
+        l2 = torch.zeros(bc, dtype=torch.int32, device=dev)
+        d2[: idx_c.numel()], l2[: idx_c.numel()] = d[idx_c], ln[idx_c]
+        live_c = torch.tensor([idx_c.numel()], dtype=torch.int32, device=dev)
+        live_0 = torch.zeros(1, dtype=torch.int32, device=dev)
+        k_ms = time_ms(lambda: BB.bitband_stats(d2, l2, tb10, **kw, live=live_c), warm=1, runs=5)
+        f_ms = time_ms(lambda: BB.bitband_stats(d, ln, tb10, **kw, live=live_0), warm=1, runs=5)
+        kb = bb_bound("stats", l2, L, rows=idx_c.numel())
+        pb = bound(B_ * L + 4 * B_, 13 * B_, (B_ * L + 2 * B_) * 4 * pf10.device_scanner.tables.deltas.numel())
+        bb_ms["e2e", shape] = (e2e, pre_ms, k_ms, f_ms, kb, pb, idx_c.numel())
+        print(f"phase 7: ScanEngine.match_stats config 10 end to end, {shape} ({B_} records, "
+              f"{idx_c.numel()} candidates, bucket {bc}): {e2e:.3f} ms = prefilter scan "
+              f"({pf10.prog.n_states} states, {type(pf10.device_scanner).__name__}) {pre_ms:.3f} ms "
+              f"+ rrx_bitband_stats on the bucket {k_ms:.3f} ms + the full-batch pass's launch "
+              f"(every record returns) {f_ms:.3f} ms + compaction glue "
+              f"{e2e - pre_ms - k_ms - f_ms:.3f} ms; bounds: kernel on the candidates "
+              f"{kb[0]:.4f} ms by {kb[1]}, prefilter scan {pb[0]:.4f} ms by {pb[1]}; the raw "
+              f"kernel on every record {bb_ms['rrx_bitband_stats', shape][0]:.3f} ms [{card}]")
+
     ms, plain_ms, bnd = flags_ms["10 MB"]
     kernels.append({
         "name": "rrx_nfa_flags", "route": "cuda", "source": NFA_SOURCE,
@@ -2229,8 +2725,16 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
             "shape": f"1 GiB, {what} (plain: 1 MiB)",
         })
-    if len(kernels) != 23:
-        fail(f"the kernels line lists {len(kernels)} kernels, not 23")
+    for name in BITBAND_KERNELS:
+        ms, plain_ms, bnd, n = bb_ms[name, "10 MB"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": BITBAND_SOURCE, "replaces": REPLACES[name],
+            "launches": bitband_launches[name], "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "shape": f"config 10 {CONFIG10}, 10 MB, every record (no prefilter)",
+        })
+    if len(kernels) != 28:
+        fail(f"the kernels line lists {len(kernels)} kernels, not 28")
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -13,7 +13,11 @@ pallas backend, wherever the engine's scanner has anchored kernels: one
 reverse pass, then the lazy span kernel or the greedy round kernel, on the
 SWAR tier's kernels or the matmul tier's (every other dense program the
 engine takes: u32-word and 33..256-state programs, and nullable greedy
-spans, which fall back to the empty match where no longer one starts).
+spans, which fall back to the empty match where no longer one starts), or
+on the bitband tier's (multiblock and sparse programs whose follow matrix
+decomposes, such as bench config 10, ``x(ab|c){400,520}y``: one reverse
+pass, then rounds of anchored rescans in each record's own warp, lazy or
+longest; a nullable bitband program takes the host rounds below).
 The counting tier and the programs that run through their seeded alias
 take the JAX package's other route: host rounds over ``starts_bitmap``,
 each round one batched anchored rescan (``ScanEngine.first_end_from``).
@@ -23,7 +27,9 @@ position; ``dump`` returns a text dump of the automaton.
 ``MultiPattern(patterns, device)`` scans P patterns in one pass over their
 combined automaton (the Glushkov union): per-pattern counts, search hits
 and grep from one per-channel match-stats scan, and every pattern's lazy
-spans from one channel reverse pass and one channel span pass.
+spans from one channel reverse pass and one channel span pass. A combined
+program on the multiblock or sparse tier raises (the container tier and
+the bitband tier's channel spans are not ported).
 
 One long string (``Pattern.long``, ``finditer_long``, ``rev_long``): the
 string is scanned in windows on the card (``ops/longstring.py``), for
@@ -444,9 +450,9 @@ class MultiPattern:
     accept channels: the accept map widens from [lanes, G] to [lanes, G *
     P] and goes to the engine as its accept channels. The port of the JAX
     package's ``MultiPattern`` on its pallas backend: the combined program
-    runs on the u32-word tier or the matmul tier; where the engine cannot
-    take it (a combined program on the multiblock or sparse tier), it
-    raises, as the engine does. Nullable patterns are scanned with the
+    runs on the u32-word tier or the matmul tier; a combined program on the
+    multiblock or sparse tier raises (the engine refuses the container
+    tier's, and the bitband tier has no channel spans in the port). Nullable patterns are scanned with the
     kernels' nullability off and corrected on the host."""
 
     def __init__(self, patterns: Sequence[str], device):
@@ -489,6 +495,11 @@ class MultiPattern:
         self.engine = ScanEngine(prog, device, accept_map=A, channels_per_record=P,
                                  nullable=False)
         sc = self.engine.device_scanner
+        if not hasattr(sc, "lazy_spans_mb"):
+            raise NotImplementedError(
+                f"{prog.pattern[:60]!r}: a combined program of {P} patterns on tier "
+                f"{prog.tier}, {prog.n_states} states, routed to the {type(sc).__name__}, which "
+                "has no channel spans in the port yet (see ROADMAP.md)")
         if sc is not None and sc.has_anchor:
             # span channels: sgm [G * P, lanes] = follow[0] restricted to
             # pattern p's positions, posm [lanes, P] position masks

@@ -5,13 +5,17 @@ tables (follow matrix ``F``, per-class state masks ``Bc``, ``accept``, the
 byte -> class map) are the program's parameters: the scan tiers build
 their kernel tables from them on the host. Tier selection and padding
 (``tier``, ``s_tile``, ``G``) are kept identical to the JAX package so
-that the same pattern takes the same route in both; the block-sparse
-follow layout of the ``sparse`` tier is not ported yet (no kernel here
-reads it).
+that the same pattern takes the same route in both. The multiblock and
+sparse tiers also carry the block-sparse follow layout (``fblocks``,
+``fblock_rows``, ``fblock_cols``: the follow matrix as its nonzero 128 x
+128 blocks) and its container split ``sparse_partition``, which the
+engine's multiblock routing rule reads (``_multiblock_container_wins``);
+no kernel of the port reads the blocks yet (the container tier is still
+to be ported).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,6 +48,10 @@ class DeviceProgram:
     F: Optional[np.ndarray]  # [s_pad, s_pad] uint8; None on the sparse tier
     Bc: np.ndarray  # [c_pad, s_pad] uint8
     accept: np.ndarray  # [s_pad] uint8
+    # block-sparse follow layout (multiblock and sparse tiers; None else)
+    fblocks: Optional[np.ndarray] = field(default=None)  # [nnz, BLOCK, BLOCK] uint8
+    fblock_rows: Optional[np.ndarray] = field(default=None)  # [nnz] int32
+    fblock_cols: Optional[np.ndarray] = field(default=None)  # [nnz] int32
     s_tile: int = 0
     lanes: int = 0
     G: int = 0
@@ -61,6 +69,37 @@ class DeviceProgram:
                     out[k, s // 32] |= np.uint64(1) << np.uint64(s % 32)
             self._Bc_words = out.astype(np.uint32)
         return self._Bc_words
+
+    @property
+    def seed_row(self) -> np.ndarray:
+        """[lanes] uint8: 1 at each record's initial-state lane (g * s_tile)."""
+        if getattr(self, "_seed", None) is None:
+            s = np.zeros(self.lanes, dtype=np.uint8)
+            s[:: self.s_tile] = 1
+            self._seed = s
+        return self._seed
+
+    @property
+    def sparse_partition(self):
+        """Container split of the block-sparse follow matrix: (pblocks [np,
+        128, 128] uint8, prow [np], pcol [np], U [nb, nb] uint8). All-ones
+        blocks go into the map ``U``; the partial blocks stay explicit (one
+        zero block when there is none)."""
+        if getattr(self, "_spart", None) is None:
+            nb = self.s_pad // BLOCK
+            full = self.fblocks.reshape(len(self.fblocks), -1).all(axis=1)
+            U = np.zeros((nb, nb), dtype=np.uint8)
+            U[self.fblock_rows[full], self.fblock_cols[full]] = 1
+            keep = ~full
+            pblocks = self.fblocks[keep]
+            prow = self.fblock_rows[keep]
+            pcol = self.fblock_cols[keep]
+            if len(pblocks) == 0:
+                pblocks = np.zeros((1, BLOCK, BLOCK), np.uint8)
+                prow = np.zeros(1, np.int32)
+                pcol = np.zeros(1, np.int32)
+            self._spart = (pblocks, prow, pcol, U)
+        return self._spart
 
     @property
     def pattern(self) -> str:
@@ -217,9 +256,12 @@ def compile_program(pattern_or_nfa) -> DeviceProgram:
     accept[:S] = nfa.accept_vec
 
     F = None
+    fblocks = fb_rows = fb_cols = None
     if tier != "sparse":
         F = np.zeros((s_pad, s_pad), dtype=np.uint8)
         F[:S, :S] = nfa.follow_matrix
+    if tier in ("sparse", "multiblock"):
+        fblocks, fb_rows, fb_cols = _block_sparse_follow(nfa, s_pad)
 
     return DeviceProgram(
         nfa=nfa,
@@ -232,10 +274,38 @@ def compile_program(pattern_or_nfa) -> DeviceProgram:
         F=F,
         Bc=Bc,
         accept=accept,
+        fblocks=fblocks,
+        fblock_rows=fb_rows,
+        fblock_cols=fb_cols,
         s_tile=s_tile,
         lanes=lanes,
         G=G,
     )
+
+
+def _block_sparse_follow(nfa: NFA, s_pad: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The follow matrix as its nonzero BLOCK x BLOCK blocks (fblocks [nnz,
+    BLOCK, BLOCK] uint8, rows [nnz], cols [nnz] int32, in block-row-major
+    order), built from the edge list without the dense S x S matrix; one
+    zero block for a program without edges."""
+    nb = s_pad // BLOCK
+    e = nfa.get_edges()
+    if len(e) == 0:
+        return (
+            np.zeros((1, BLOCK, BLOCK), np.uint8),
+            np.zeros(1, np.int32),
+            np.zeros(1, np.int32),
+        )
+    key = (e[:, 0] // BLOCK).astype(np.int64) * nb + e[:, 1] // BLOCK
+    order = np.argsort(key, kind="stable")
+    es, ks = e[order], key[order]
+    uniq, starts = np.unique(ks, return_index=True)
+    bounds = np.append(starts, len(es))
+    fblocks = np.zeros((len(uniq), BLOCK, BLOCK), dtype=np.uint8)
+    for n in range(len(uniq)):
+        sub = es[bounds[n] : bounds[n + 1]]
+        fblocks[n, sub[:, 0] % BLOCK, sub[:, 1] % BLOCK] = 1
+    return fblocks, (uniq // nb).astype(np.int32), (uniq % nb).astype(np.int32)
 
 
 def from_reference(obj) -> DeviceProgram:
@@ -268,6 +338,9 @@ def from_reference(obj) -> DeviceProgram:
         F=arr(obj.F, np.uint8),
         Bc=arr(obj.Bc, np.uint8),
         accept=arr(obj.accept, np.uint8),
+        fblocks=arr(getattr(obj, "fblocks", None), np.uint8),
+        fblock_rows=arr(getattr(obj, "fblock_rows", None), np.int32),
+        fblock_cols=arr(getattr(obj, "fblock_cols", None), np.int32),
         s_tile=int(obj.s_tile),
         lanes=int(obj.lanes),
         G=int(obj.G),

@@ -3,32 +3,41 @@
 The port of ``roaringregex_tpu/engine.py``'s batched primitives: match
 statistics, forward flags, position bitmaps, reverse hits, anchored
 rescans and spans. Routing is the JAX engine's on its pallas backend
-(``engine.py:209-228`` and after): a program of one record per row (G <=
-1) with a counting plan goes to the counting tier (``CountScanner``) on
-any tier; a dense program of up to 256 states to the 8-state SWAR tier
-when ``swar_spec`` accepts it, else to the u32-word tier when
-``word_spec`` does, else to the matmul tier (``PallasScanner``).
+(``engine.py:209-387``): a program of one record per row (G <= 1) with a
+counting plan goes to the counting tier (``CountScanner``) on any tier; a
+dense program of up to 256 states to the 8-state SWAR tier when
+``swar_spec`` accepts it, else to the u32-word tier when ``word_spec``
+does, else to the matmul tier (``PallasScanner``). A sparse program (over
+1024 states) whose follow matrix decomposes (``bitband_spec``) and whose
+lanes fit ``SPARSE_LANES_MAX`` goes to the bitband tier
+(``BitbandScanner``); so does a multiblock program (257..1024 states) for
+which the JAX engine prefers the container kernels to the dense matmul
+(:meth:`ScanEngine._multiblock_container_wins`) and which decomposes.
 
 With an accept map (``accept_map`` [lanes, G * P], ``channels_per_record``
 P: the multi-pattern interface of ``MultiPattern``'s combined automaton)
 there is no counting plan, no SWAR tier, no seeded alias unless P = 1 and
 no window plan: the program runs on the u32-word tier when ``word_spec``
-takes its channels, else on the matmul tier, ``match_stats`` returns [B *
-P] per statistic, and every primitive that reads one accept set raises. A
-combined program on the multiblock or sparse tier raises
-``NotImplementedError`` naming the tier (the JAX engine runs it on the
-bitband or container scanners).
+takes its channels, else on the matmul tier (or, multiblock or sparse, on
+the bitband tier as above), ``match_stats`` returns [B * P] per statistic,
+and every primitive that reads one accept set raises.
 
 A whole-pattern ``X{m,n}`` on the multiblock or sparse tier with no
 counting plan may have a seeded alias (:func:`seeded_alias_program`): its
 seeded primitives (match stats, forward flags, reverse hits, the lazy
 anchored rescan, both bitmaps) run on the alias's engine, as in the JAX
-package. Such a program's own tier (bitband, container or multiblock
-matmul) is not ported: its engine holds no scanner of its own, and every
-primitive that needs the original program (unseeded scans, fullmatch,
-greedy rescans, device spans) raises ``NotImplementedError`` naming the
-tier. A multiblock or sparse program with neither a counting plan nor an
+package. Its own scanner, where the port has one (the bitband tier),
+takes the rest; where the JAX engine runs the program on the container
+tier or the dense multiblock matmul (not ported yet), every primitive that
+needs the original program raises ``NotImplementedError`` naming the
+tier. A multiblock or sparse program that the port can neither route nor
 alias is refused at construction; ROADMAP.md queues those tiers.
+
+A sparse program on its own scanner may have a prefilter
+(:func:`relaxed_prefilter_program`): a tiny superset-language program
+scanned first, whose rejects cannot match; the heavy kernels then run on
+the compacted candidate records only (:meth:`ScanEngine._prefilter_apply`),
+decided on the device with no host sync.
 
 Engine primitives take raw byte batches: ``data`` [B, L] uint8 and
 ``lengths`` [B] int32 (numpy or torch), moved to the engine's device.
@@ -46,6 +55,10 @@ from .ops import scan_xla as sx
 
 DENSE_TIERS = ("dense128", "dense256")
 MASK32 = sb.MASK32
+# the JAX package's RRX_BANDED_MAX_DIAGS / RRX_SPARSE_PARTIAL_MAX defaults,
+# read by the multiblock routing rule (_multiblock_container_wins)
+BANDED_MAX_DIAGS = 8
+SPARSE_PARTIAL_MAX = 120
 
 
 def seeded_alias_program(prog: DeviceProgram):
@@ -98,6 +111,53 @@ def seeded_alias_program(prog: DeviceProgram):
         return None
 
 
+def relaxed_prefilter_program(prog: DeviceProgram):
+    """Tiny superset-language program that prefilters a sparse program, or
+    None (the JAX package's ``relaxed_prefilter_program``, unchanged, on
+    the port's compiler).
+
+    Replacing every bounded repeat ``X{m,n}`` with ``X{min(m,4),}`` relaxes
+    the language to a superset (a chain of m..n copies is also a chain of
+    >= min(m, 4) copies), so ``search(P') == False`` proves ``search(P) ==
+    False``, and P' collapses the n-fold position blowup to a handful of
+    states."""
+    if prog.tier != "sparse" or prog.nullable:
+        return None
+    from .utils.config import get_config
+
+    if not get_config().sparse_prefilter:
+        return None
+    try:
+        from .compiler.nfa import build_nfa_ast
+        from .compiler.parser import Alt, Concat, Repeat, parse
+        from .compiler.program import compile_program
+
+        changed = []
+
+        def relax(nd):
+            if isinstance(nd, Repeat):
+                child = relax(nd.child)
+                if nd.hi is not None and nd.hi > 1:
+                    changed.append(True)
+                    return Repeat(child, min(nd.lo, 4), None)
+                return Repeat(child, nd.lo, nd.hi)
+            if isinstance(nd, Concat):
+                return Concat(tuple(relax(p) for p in nd.parts))
+            if isinstance(nd, Alt):
+                return Alt(tuple(relax(p) for p in nd.parts))
+            return nd
+
+        ast = relax(parse(prog.pattern))
+        if not changed:
+            return None
+        nfa = build_nfa_ast(ast, f"<prefilter:{prog.pattern}>")
+        if nfa.nullable or nfa.n_states > 64:
+            return None
+        return compile_program(nfa)
+    except Exception:  # the prefilter is best-effort, as in the JAX package
+        return None
+
+
 class ScanEngine:
     """Per-program engine: holds the device tables and exposes the scan
     primitives. ``accept_map`` ([lanes, C] 0/1, C = G *
@@ -122,18 +182,20 @@ class ScanEngine:
         cfg = get_config()
         plan = (counting_plan(prog)
                 if accept_map is None and self.P == 1 and prog.G <= 1 else None)
+        self._counting = plan
         if plan is not None:
             # run-length tier: one int per record, no follow table
             self._scanner = CountScanner(prog, plan, self.device, nullable=nullable)
         elif prog.tier not in DENSE_TIERS:
-            if self._seeded_alias() is None:
+            self._scanner, why = self._big_tier(prog, accept_map, nullable)
+            if self._scanner is None and (self._channels or self._seeded_alias() is None):
                 raise NotImplementedError(self._unported(
-                    "the JAX package runs it on the bitband, container or multiblock matmul "
-                    "tiers, and it has neither a counting plan nor a seeded alias"
-                    if not self._channels else
-                    f"a combined program of {self.P} accept channels, which the JAX package "
-                    "runs on the bitband or container tiers"
+                    f"the JAX package runs it on {why}, and it has neither a counting plan nor "
+                    "a seeded alias" if not self._channels else
+                    f"a combined program of {self.P} accept channels, which the JAX package runs "
+                    f"on {why}"
                 ))
+            self._own_tier = why
         elif accept_map is None and self.P == 1 and cfg.swar and swar_spec(prog) is not None:
             self._scanner = SwarScanner(prog, self.device, nullable=nullable)
         elif cfg.swar and word_spec(prog, accept_map, self.P) is not None:
@@ -143,13 +205,59 @@ class ScanEngine:
             self._scanner = PallasScanner(prog, self.device, accept_map=accept_map,
                                           nullable=nullable)
 
+    def _big_tier(self, prog: DeviceProgram, accept_map, nullable):
+        """(BitbandScanner or None, the tier the JAX engine takes) of a
+        multiblock or sparse program without a counting plan: the JAX
+        engine's rule (``engine.py:235-328``). A sparse program takes the
+        bitband tier when ``bitband_spec`` decomposes it and its lanes fit
+        ``SPARSE_LANES_MAX``, else the container tier; a multiblock program
+        takes the container tier's place (bitband when it decomposes,
+        containers else) when :meth:`_multiblock_container_wins`, else the
+        dense multiblock matmul."""
+        from .ops.scan_bitband import SPARSE_LANES_MAX, BitbandScanner, bitband_spec
+
+        if prog.tier == "sparse":
+            spec = bitband_spec(prog)
+            if spec is not None and prog.s_pad <= SPARSE_LANES_MAX:
+                return BitbandScanner(prog, self.device, spec, accept_map=accept_map,
+                                      nullable=nullable), "the bitband tier"
+            return None, "the container tier"
+        if not self._multiblock_container_wins(prog):
+            return None, "the dense multiblock matmul tier"
+        spec = bitband_spec(prog)
+        if spec is not None:
+            return BitbandScanner(prog, self.device, spec, accept_map=accept_map,
+                                  nullable=nullable), "the bitband tier"
+        return None, "the container tier"
+
+    @staticmethod
+    def _multiblock_container_wins(prog: DeviceProgram) -> bool:
+        """True if the multiblock program's per-step container MACs (partial
+        128 x 128 blocks + accept reduce) undercut the dense lanes^2 follow
+        matmul (the JAX engine's rule, unchanged): repetition chains have
+        O(S / 128) nonzero blocks, so the dense path wastes most of the
+        MXU. A banded follow matrix (<= ``BANDED_MAX_DIAGS`` diagonals)
+        keeps the dense tier's banded form."""
+        if prog.tier != "multiblock" or prog.fblocks is None:
+            return False
+        from .ops.scan_pallas import banded_offsets
+
+        if banded_offsets(np.asarray(prog.F).T, BANDED_MAX_DIAGS):
+            return False
+        pb, _, _, U = prog.sparse_partition
+        npart = len(pb)
+        if npart > SPARSE_PARTIAL_MAX:
+            return False
+        sparse_macs = npart * 128 * 128 + int(U.sum()) * 128
+        return sparse_macs < 0.7 * prog.lanes * prog.lanes
+
     def _unported(self, why: str) -> str:
         p = self.prog
         return (
             f"{p.pattern!r}: tier {p.tier}, {p.n_states} states ({why}); the port has the "
             "SWAR, u32-word and matmul tiers for dense programs of up to 256 states, the "
-            "counting tier and the seeded alias; the bitband, container and multiblock "
-            "matmul tiers are still to be ported (see ROADMAP.md)"
+            "counting tier, the bitband tier and the seeded alias; the container tier and "
+            "the dense multiblock matmul tier are still to be ported (see ROADMAP.md)"
         )
 
     def _one_channel(self, what: str) -> None:
@@ -167,16 +275,16 @@ class ScanEngine:
         through its seeded alias."""
         if self._scanner is None:
             raise NotImplementedError(self._unported(
-                "only its seeded primitives run, on its seeded alias; this primitive needs "
-                "the original program"
+                f"the JAX package runs it on {self._own_tier}; only its seeded primitives run, "
+                "on its seeded alias, and this primitive needs the original program"
             ))
         return self._scanner
 
     @property
     def device_scanner(self):
         """The selected kernel scanner (SwarScanner, WordScanner,
-        PallasScanner or CountScanner), or None for a program that runs
-        only through its seeded alias."""
+        PallasScanner, CountScanner or BitbandScanner), or None for a
+        program that runs only through its seeded alias."""
         return self._scanner
 
     # -- seeded alias: X{m,n} == X{m,} under seeded semantics --------------
@@ -221,10 +329,19 @@ class ScanEngine:
     def match_stats(self, data, lengths, *, seeded: bool):
         """(count, first_end, any) per accept channel, each flattened to
         [B * channels_per_record] (record-major; [B] for one channel).
-        Seeded scans of a program with a seeded alias run on the alias."""
+        Seeded scans of a program with a seeded alias run on the alias;
+        seeded scans of more than 128 records of a prefiltered program run
+        on the prefilter's candidates (:meth:`_prefilter_apply`)."""
         alias = self._seeded_alias()
         if seeded and alias is not None:
             return self._alias_call(alias, "match_stats", data, lengths, seeded=True)
+        if seeded and self._use_prefilter(data):
+            def raw(d, ln, live):
+                cnt, first, _, _, anym = self._scanner.match_stats_b(
+                    d, self._len_g(ln), seeded=True, live=live)
+                return cnt.reshape(-1), first.reshape(-1), anym.reshape(-1)
+
+            return self._prefilter_apply(data, lengths, raw, fills=(0, -1, False))
         return self._match_stats_raw(data, lengths, seeded=seeded)
 
     def _match_stats_raw(self, data, lengths, *, seeded: bool):
@@ -235,6 +352,81 @@ class ScanEngine:
             return self._match_stats_windowed(data, lengths, *plan)
         cnt, first, _, _, anym = sc.match_stats_b(data, self._len_g(lengths), seeded=seeded)
         return cnt.reshape(-1), first.reshape(-1), anym.reshape(-1)
+
+    # -- the sparse tier's prefilter --------------------------------------------
+    def _prefilter(self):
+        """Lazily built engine of the prefilter program
+        (:func:`relaxed_prefilter_program`), or None: only for a
+        one-channel sparse program on its own scanner (no counting plan, no
+        seeded alias), as in the JAX engine."""
+        if not getattr(self, "_prefilter_built", False):
+            self._prefilter_built = True
+            self._prefilter_eng = None
+            if (self.P == 1 and not self._channels and self._counting is None
+                    and self._scanner is not None and self.prog.tier == "sparse"
+                    and seeded_alias_program(self.prog) is None):
+                rp = relaxed_prefilter_program(self.prog)
+                if rp is not None:
+                    self._prefilter_eng = ScanEngine(rp, self.device)
+        return self._prefilter_eng
+
+    def _use_prefilter(self, data) -> bool:
+        return data.shape[0] > 128 and self._prefilter() is not None
+
+    def _prefilter_apply(self, data, lengths, raw_fn, *, fills, extra=()):
+        """Run ``raw_fn(data2, lengths2, *extra2, live)`` on the records the
+        prefilter accepts, compacted, and scatter each output back along
+        axis 0 with its ``fills`` value (the exact result for a record the
+        superset scan rejects: it has no match). ``extra`` = ((per-record
+        array, fill of an empty slot), ...) forwarded to ``raw_fn``.
+
+        Decided on the device with no host sync. The candidates (a cumsum
+        of the prefilter's hit flags) are scattered into a bucket of the
+        JAX engine's larger size, B / 4 rounded up to 128 rows (at least
+        128); ``raw_fn`` runs on it with ``live`` = min(candidates, bucket)
+        (a [1] int32 device tensor: the kernels return at once for a slot
+        at or past it, so a sparse batch costs its candidates only, which
+        stands in for the JAX engine's smaller B / 16 bucket). ``raw_fn``
+        also runs on the whole batch with ``live`` = B when the candidates
+        overflow the bucket and 0 otherwise, and ``torch.where`` picks the
+        full result exactly then: the answers equal the JAX engine's
+        whichever bucket its ``lax.cond`` takes. A batch the bucket would
+        not shrink runs ``raw_fn`` on all records (``live`` None)."""
+        data = self._data(data)
+        dev = self.device
+        lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
+        ex = tuple(torch.as_tensor(a, device=dev) for a, _ in extra)
+        B = data.shape[0]
+        bcap = min(B, max(128, -(-(B // 4) // 128) * 128))
+        if bcap >= B:
+            return raw_fn(data, lengths, *ex, None)
+        _, _, pre = self._alias_call(self._prefilter_eng, "match_stats", data, lengths,
+                                     seeded=True)
+        pre = pre.reshape(-1)[:B]
+        pos = torch.cumsum(pre.to(torch.int64), 0) - 1
+        nhits = pos[-1] + 1
+        slot = torch.where(pre & (pos < bcap), pos, bcap)
+        rows = torch.arange(B, device=dev)
+        src = torch.zeros(bcap + 1, dtype=torch.int64, device=dev).scatter_(0, slot, rows)[:bcap]
+        valid = torch.arange(bcap, device=dev) < nhits
+        over = nhits > bcap
+        live_c = nhits.clamp(max=bcap).to(torch.int32).reshape(1)
+        live_f = torch.where(over, B, 0).to(torch.int32).reshape(1)
+        d2 = data.index_select(0, src)
+        l2 = torch.where(valid, lengths.index_select(0, src), 0)
+        ex2 = tuple(torch.where(valid, a.index_select(0, src), f) for a, (_, f) in zip(ex, extra))
+        outs_c = raw_fn(d2, l2, *ex2, live_c)
+        outs_f = raw_fn(data, lengths, *ex, live_f)
+        single = not isinstance(outs_c, tuple)
+        if single:
+            outs_c, outs_f = (outs_c,), (outs_f,)
+        dst = torch.where(valid, src, B)  # empty slots land in a spare row
+        res = []
+        for oc, of, f in zip(outs_c, outs_f, fills, strict=True):
+            base = torch.full((B + 1,) + tuple(oc.shape[1:]), f, dtype=oc.dtype, device=dev)
+            base.index_copy_(0, dst, oc)
+            res.append(torch.where(over, of, base[:B]))
+        return res[0] if single else tuple(res)
 
     def _window_plan(self, L: int, B: int, seeded: bool):
         """(k, w, h) record window split for the matmul tier's batched scan,
@@ -303,7 +495,15 @@ class ScanEngine:
         alias = self._seeded_alias()
         if seeded and alias is not None:
             return self._alias_call(alias, "forward_flags", data, lengths, seeded=True)
-        return self._own().forward_flags_b(self._data(data), self._len_g(lengths), seeded=seeded)
+        sc = self._own()
+        if self._use_prefilter(data):
+            # a record the superset scan rejects has no accept anywhere
+            return self._prefilter_apply(
+                data, lengths,
+                lambda d, ln, live: sc.forward_flags_b(d, self._len_g(ln), seeded=seeded,
+                                                       live=live),
+                fills=(False,))
+        return sc.forward_flags_b(self._data(data), self._len_g(lengths), seeded=seeded)
 
     def reverse_hits(self, data, lengths) -> torch.Tensor:
         """[B, L + 2] bool start-position hits (step t = start max(t-1, 0))."""
@@ -311,7 +511,12 @@ class ScanEngine:
         alias = self._seeded_alias()
         if alias is not None:
             return self._alias_call(alias, "reverse_hits", data, lengths)
-        return self._own().reverse_hits_b(self._data(data), self._len_g(lengths))
+        sc = self._own()
+        if self._use_prefilter(data):
+            return self._prefilter_apply(
+                data, lengths, lambda d, ln, live: sc.reverse_hits_b(d, self._len_g(ln), live=live),
+                fills=(False,))
+        return sc.reverse_hits_b(self._data(data), self._len_g(lengths))
 
     def first_end_from(self, data, lengths, starts, *, longest: bool = False):
         """Anchored-rescan end per record [B] (-1 = none): smallest end (lazy
@@ -326,11 +531,17 @@ class ScanEngine:
             return self._alias_call(alias, "first_end_from", data, lengths, starts,
                                     longest=False)
         sc = self._own()
-        data = self._data(data)
         if sc.has_anchor:
-            starts_g = torch.as_tensor(starts, device=self.device).reshape(-1, self.prog.G)
-            first = sc.anchor_end_b(data, self._len_g(lengths), starts_g, longest=longest)
-            return first.reshape(-1)
+            def raw(d, ln, st, live=None):
+                st = st.reshape(-1, self.prog.G)
+                kw = {} if live is None else {"live": live}
+                return sc.anchor_end_b(d, self._len_g(ln), st, longest=longest, **kw).reshape(-1)
+
+            if self._use_prefilter(data):
+                return self._prefilter_apply(data, lengths, raw, fills=(-1,),
+                                             extra=((starts, -1),))
+            return raw(self._data(data), lengths, torch.as_tensor(starts, device=self.device))
+        data = self._data(data)
         p = self.prog
         if self._xla_tables is None:
             self._xla_tables = sx.device_tables(p, self.device)
@@ -353,12 +564,22 @@ class ScanEngine:
         """(starts [B, cap], ends [B, cap], count [B]): lazy spans."""
         self._one_channel("lazy_spans")
         sc = self._span_scanner()
+        if self._use_prefilter(data):
+            return self._prefilter_apply(
+                data, lengths, lambda d, ln, live: sc.lazy_spans_b(d, self._len_g(ln), cap=cap,
+                                                                   live=live),
+                fills=(-1, -1, 0))
         return sc.lazy_spans_b(self._data(data), self._len_g(lengths), cap=cap)
 
     def greedy_spans(self, data, lengths, *, cap: int):
         """(starts, ends, count, overflow): greedy (leftmost-longest) spans."""
         self._one_channel("greedy_spans")
         sc = self._span_scanner()
+        if self._use_prefilter(data):
+            return self._prefilter_apply(
+                data, lengths, lambda d, ln, live: sc.greedy_spans_b(d, self._len_g(ln), cap=cap,
+                                                                     live=live),
+                fills=(-1, -1, 0, False))
         return sc.greedy_spans_b(self._data(data), self._len_g(lengths), cap=cap)
 
     # -- bitmaps ----------------------------------------------------------------
@@ -393,6 +614,19 @@ class ScanEngine:
                              bitorder="little")
         return bits[:, : max_len + 1].astype(bool)
 
+    def _words_prefiltered(self, data, lengths, words_fn):
+        """[B, Wt] int64 position words of ``words_fn(data, len_g, live)``
+        (prefiltered where the engine has a prefilter: a rejected record's
+        words are 0)."""
+        def raw(d, ln, live=None):
+            kw = {} if live is None else {"live": live}
+            w, _ = words_fn(d, self._len_g(ln), **kw)
+            return w.to(torch.int64) & MASK32
+
+        if self._use_prefilter(data):
+            return self._prefilter_apply(data, lengths, raw, fills=(0,))
+        return raw(self._data(data), lengths)
+
     def ends_bitmap(self, data, lengths, max_len: int) -> np.ndarray:
         """[B, max_len + 1] bool host bitmap: some match ends at position e."""
         self._one_channel("ends_bitmap")
@@ -400,8 +634,10 @@ class ScanEngine:
         if alias is not None:
             return self._alias_call(alias, "ends_bitmap", data, lengths, max_len=max_len)
         lengths = torch.as_tensor(lengths, device=self.device)
-        w, _ = self._own().flags_words_b(self._data(data), self._len_g(lengths), seeded=True)
-        words = self._clamp_words(w.to(torch.int64) & MASK32, lengths, self.prog.nullable)
+        sc = self._own()
+        w = self._words_prefiltered(data, lengths,
+                                    lambda d, lg, **kw: sc.flags_words_b(d, lg, seeded=True, **kw))
+        words = self._clamp_words(w, lengths, self.prog.nullable)
         return self._fetch_words_bitmap(words, max_len)
 
     def starts_bitmap(self, data, lengths, max_len: int) -> np.ndarray:
@@ -411,8 +647,7 @@ class ScanEngine:
         if alias is not None:
             return self._alias_call(alias, "starts_bitmap", data, lengths, max_len=max_len)
         lengths = torch.as_tensor(lengths, device=self.device)
-        w, _ = self._own().hits_words_b(self._data(data), self._len_g(lengths))
-        w = w.to(torch.int64) & MASK32
+        w = self._words_prefiltered(data, lengths, self._own().hits_words_b)
         # start s = max(t - 1, 0): funnel-shift the stream down one bit
         # (steps 0 and 1 both land on s = 0)
         nxt = torch.cat([w[:, 1:], torch.zeros_like(w[:, :1])], dim=1)
@@ -425,7 +660,14 @@ class ScanEngine:
         """[B] bool whole-string acceptance: the ``full`` statistic of an
         unseeded scan."""
         self._one_channel("fullmatch_flags")
-        _, _, _, full, _ = self._own().match_stats_b(
-            self._data(data), self._len_g(lengths), seeded=False
-        )
-        return full.reshape(-1).cpu().numpy()
+        sc = self._own()
+
+        def raw(d, ln, live=None):
+            kw = {} if live is None else {"live": live}
+            return sc.match_stats_b(d, self._len_g(ln), seeded=False, **kw)[3].reshape(-1)
+
+        if self._use_prefilter(data):
+            # a prefilter reject (a seeded-superset fact) rules out the
+            # whole-string match too
+            return self._prefilter_apply(data, lengths, raw, fills=(False,)).cpu().numpy()
+        return raw(self._data(data), lengths).cpu().numpy()

@@ -52,6 +52,10 @@ _LONG_HEAD = [
     _P, ctypes.c_longlong, _I, _I, _I, _I, _I,  # data, n, nw, block, lead, T, rep
     _P, _I,  # tab, s_tile
 ]
+_BB_HEAD = [
+    _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
+    _P, _P, _I, _I, _P,  # tab, meta, W, n_rows, live
+]
 _STATS_TAIL = [_I, _I, _I, _P, _P, _P, _P]  # seeded, lead, nullable, cnt, first, last, full
 # every entry point: its head, its own arguments, then the stream. The
 # order of the first fifteen and of the four long-string kernels (17-20) is
@@ -82,6 +86,13 @@ ARGTYPES = {
     "rrx_long_flags": _LONG_HEAD + [_P, _P, _I, _P, _P],  # flags
     "rrx_long_count": _LONG_HEAD + [_P, _P, _I, _P, _P, _P, _P],  # cnt, tail, vout
     "rrx_long_reverse": _LONG_HEAD + [_P, _P],  # hits
+    # the bitband tier (scan_bitband.cu): its own rrx_bitband_occupancy index
+    "rrx_bitband_stats": _BB_HEAD + [_I, _I, _I, _P, _P, _P, _P, _P],  # C, seeded, nullable, ...
+    "rrx_bitband_flags": _BB_HEAD + [_I, _I, _P, _P],  # C, seeded, words
+    "rrx_bitband_reverse": _BB_HEAD + [_P, _P],  # hits
+    "rrx_bitband_anchor_end": _BB_HEAD + [_P, _I, _P, _P],  # starts, longest, end
+    # hits, cap, longest, starts, ends, cnt, over
+    "rrx_bitband_spans": _BB_HEAD + [_P, _I, _I, _P, _P, _P, _P, _P],
 }
 KERNELS = tuple(ARGTYPES)
 
@@ -180,6 +191,10 @@ def library() -> ctypes.CDLL:
     lib.rrx_occupancy.restype = _I
     lib.rrx_occupancy_channels.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
     lib.rrx_occupancy_channels.restype = _I
+    lib.rrx_bitband_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.rrx_bitband_occupancy.restype = _I
+    lib.rrx_bitband_threads_per_block.argtypes = []
+    lib.rrx_bitband_threads_per_block.restype = _I
     lib.rrx_threads_per_block.argtypes = []
     lib.rrx_threads_per_block.restype = _I
     lib.rrx_error_string.argtypes = [_I]

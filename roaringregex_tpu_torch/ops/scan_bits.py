@@ -429,17 +429,20 @@ def greedy_spans_plain(
     cap: int,
     *,
     nullable: bool = False,
+    longest: bool = True,
 ):
-    """Plain version of ``rrx_swar_greedy_spans`` and
-    ``rrx_nfa_greedy_spans``, in the round structure of the TPU's
-    ``_greedy_call_b``: a starts bitmap [R, L + 1] from the hit words (hit
-    step j = start max(j - 1, 0); with ``nullable`` every position <= len
-    as well), then while some record is active and fewer than ``cap``
-    rounds ran, each active record takes its first start s >= pos, rescans
-    from s for the longest end e (:func:`anchor_plain`; with ``nullable``
-    e < s falls back to the empty match e = s), emits (s, e) if e >= s and
-    moves pos to max(e, s + 1). Returns (starts [R, cap], ends [R, cap],
-    cnt [R], over [R] bool = still active after the rounds)."""
+    """Plain version of ``rrx_swar_greedy_spans``,
+    ``rrx_nfa_greedy_spans`` and ``rrx_bitband_spans``, in the round
+    structure of the TPU's ``_greedy_call_b`` (and ``_bb_spans_call``): a
+    starts bitmap [R, L + 1] from the hit words (hit step j = start max(j -
+    1, 0); with ``nullable`` every position <= len as well), then while
+    some record is active and fewer than ``cap`` rounds ran, each active
+    record takes its first start s >= pos, rescans from s for the longest
+    end e (the first one with ``longest=False``: :func:`anchor_plain`; with
+    ``nullable`` e < s falls back to the empty match e = s), emits (s, e)
+    if e >= s and moves pos to max(e, s + 1). Returns (starts [R, cap],
+    ends [R, cap], cnt [R], over [R] bool = still active after the
+    rounds)."""
     _check_inputs(data, lengths)
     _check_hits(hits, data)
     _check_cap(cap)
@@ -464,7 +467,7 @@ def greedy_spans_plain(
         has = m.any(dim=1)
         s = torch.where(has, m.to(torch.uint8).argmax(dim=1), -1)
         active = active & has
-        e = anchor_plain(data, lengths, tables, s, longest=True).to(i64)
+        e = anchor_plain(data, lengths, tables, s, longest=longest).to(i64)
         if nullable:
             e = torch.where(e < s, s, e)  # the empty match at s
         emit = active & (e >= s)

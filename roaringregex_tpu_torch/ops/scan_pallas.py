@@ -218,6 +218,21 @@ def counting_plan(prog: DeviceProgram):
     return int(node.lo), n, branches
 
 
+def banded_offsets(ft: np.ndarray, max_diags: int):
+    """Nonzero diagonal offsets of a transposed follow matrix (the JAX
+    package's ``banded_offsets``, unchanged), or None if there are more
+    than ``max_diags`` (or none at all). Offset d means y[i] += ft[i, i-d]
+    * v[i-d]. The port has no banded matmul form; the engine's multiblock
+    routing rule reads this (``ScanEngine._multiblock_container_wins``)."""
+    if max_diags <= 0:
+        return None
+    ii, jj = np.nonzero(np.asarray(ft))
+    if ii.size == 0:
+        return None
+    ks = sorted(set(int(d) for d in (ii - jj)))
+    return tuple(ks) if len(ks) <= max_diags else None
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -627,6 +642,7 @@ class _Scanner:
 
     P = 1
     channels = False  # an accept map gives the scan P accept channels
+    CHANNEL_METHODS = "match_stats_b and lazy_spans_mb"
 
     def __init__(self, prog: DeviceProgram, device, nullable=None):
         self.prog = prog
@@ -640,7 +656,7 @@ class _Scanner:
             raise ValueError(
                 f"{what}: this {type(self).__name__} of {self.prog.pattern!r} has {self.P} accept "
                 "channels (a multi-pattern program) and the primitive reads one accept set; only "
-                "match_stats_b and lazy_spans_mb take channels"
+                f"{self.CHANNEL_METHODS} take channels"
             )
 
     def _batch(self, data, len_g):

@@ -35,6 +35,13 @@ class RrxConfig:
         default_factory=lambda: _env_int("RRX_SWAR_WINDOW_COLS", 1024)
     )
 
+    # prefilter of the sparse tier: a tiny superset-language scan first,
+    # the heavy kernels only on the compacted candidate records
+    # (engine.relaxed_prefilter_program)
+    sparse_prefilter: bool = field(
+        default_factory=lambda: os.environ.get("RRX_SPARSE_PREFILTER", "1") != "0"
+    )
+
     # one-long-string mode: window (block) length in bytes
     long_block: int = field(default_factory=lambda: _env_int("RRX_LONG_BLOCK", 4096))
     # speculative long-string windows for cyclic patterns: warm-up steps

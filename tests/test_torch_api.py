@@ -68,10 +68,11 @@ def test_windowed_api_route():
 
 
 def test_unported_tier_raises():
-    # a{1,300} runs on the counting tier; x{2,300}y has neither a counting
-    # plan nor a seeded alias, and its bitband tier is not ported
+    # a{1,300} runs on the counting tier and x{2,300}y on the bitband tier;
+    # a*b{1,300} has neither a counting plan nor a seeded alias, and its
+    # container tier is not ported
     with pytest.raises(NotImplementedError, match=r"multiblock, 302 states.*ROADMAP"):
-        rrx.compile("x{2,300}y", "cpu")
+        rrx.compile("a*b{1,300}", "cpu")
 
 
 def test_import_leaves_jax_out():

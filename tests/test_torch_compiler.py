@@ -17,7 +17,11 @@ from roaringregex_tpu.ops import scan_swar as jax_swar
 from roaringregex_tpu.ops import scan_word as jax_word
 from roaringregex_tpu_torch.compiler.nfa import build_nfa, combine_nfas
 from roaringregex_tpu_torch.compiler.program import compile_program, from_reference
-from roaringregex_tpu_torch.ops import scan_bits, scan_pallas, scan_swar, scan_word
+from roaringregex_tpu import engine as jax_engine
+from roaringregex_tpu.ops import scan_bitband as jax_bitband
+from roaringregex_tpu.utils.config import get_config as jax_get_config
+from roaringregex_tpu_torch import engine
+from roaringregex_tpu_torch.ops import scan_bitband, scan_bits, scan_pallas, scan_swar, scan_word
 from test_swar import PATTERNS as SWAR_PATTERNS
 from test_torch_pallas import HTTP, K7, K16, K30
 from test_word import PATTERNS as WORD_PATTERNS
@@ -162,3 +166,78 @@ def test_pattern_n_states_and_tier_match_jax(pattern):
 
     p, ref = rrx.compile(pattern, "cpu"), jax_compile(pattern)
     assert (p.n_states, p.tier) == (ref.n_states, ref.tier)
+
+
+# the multiblock and sparse programs of the bitband slice's probe table: the
+# bitband programs (config 10 first), then config 13 and three programs the
+# JAX engine runs on the container tier or the dense multiblock matmul
+BIG = ["x(ab|c){400,520}y", "x{2,300}y", "(ab|c){100,130}", "x(ab|c){100,200}(y|z+)",
+       "(a(ab|c){100,200}b)+", "^x(ab|c){100,200}y$", "x(ab|c){100,200}", "x(ab|c){400,}y",
+       "(abc|de){1,300}", "a*b{1,300}", "(ab|c){2,120}d", "x(ab|c){300,}y"]
+
+
+@pytest.mark.parametrize("pattern", BIG)
+def test_block_layout_matches_jax(pattern):
+    """The block-sparse follow layout, its container split and seed_row."""
+    port, ref = compile_program(pattern), jax_compile(pattern)
+    for name in ("fblocks", "fblock_rows", "fblock_cols", "seed_row"):
+        np.testing.assert_array_equal(getattr(port, name), getattr(ref, name), err_msg=name)
+    for x, y in zip(port.sparse_partition, ref.sparse_partition, strict=True):
+        np.testing.assert_array_equal(x, y)
+    carried = from_reference(ref)
+    for name in ("fblocks", "fblock_rows", "fblock_cols"):
+        np.testing.assert_array_equal(getattr(carried, name), getattr(ref, name), err_msg=name)
+        assert not np.shares_memory(getattr(carried, name), getattr(ref, name))
+
+
+@pytest.mark.parametrize("pattern", BIG)
+def test_bitband_builders_match_jax(pattern):
+    """bitband_spec, _tri_structure and build_bitband_tables (one accept
+    channel and two) give the JAX package's output exactly."""
+    port, ref = compile_program(pattern), jax_compile(pattern)
+    spec = scan_bitband.bitband_spec(port)
+    assert spec == jax_bitband.bitband_spec(ref)
+    if spec is None:
+        return
+    if spec.tri_gaps:
+        E, fams = scan_bitband._tri_structure(port, spec)
+        rE, rfams = jax_bitband._tri_structure(ref, spec)
+        np.testing.assert_array_equal(E, rE)
+        assert fams == rfams
+    acc = np.zeros((port.s_pad, 2), np.uint8)
+    acc[: port.n_states, 0] = np.asarray(port.accept)[: port.n_states]
+    acc[: port.n_states, 1] = np.arange(port.n_states) % 3 == 1
+    for am in (acc[:, :1], acc):
+        for x, y in zip(scan_bitband.build_bitband_tables(port, spec, am),
+                        jax_bitband.build_bitband_tables(ref, spec, am), strict=True):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_routing_constants_match_jax_defaults():
+    """The port's fixed routing limits are the JAX package's knob defaults."""
+    jc = jax_get_config()
+    assert (scan_bitband.BITBAND_MAX_DIAGS, scan_bitband.BITBAND_MAX_RANK1,
+            scan_bitband.SPARSE_LANES_MAX) == (jc.bitband_max_diags, jc.bitband_max_rank1,
+                                               jc.sparse_lanes_max)
+    assert (engine.BANDED_MAX_DIAGS, engine.SPARSE_PARTIAL_MAX) == (jc.banded_max_diags,
+                                                                    jc.sparse_partial_max)
+    assert jc.bitband
+
+
+@pytest.mark.parametrize("pattern", BIG)
+def test_routing_rules_match_jax(pattern):
+    """The multiblock routing rule (with banded_offsets) and the relaxed
+    prefilter program."""
+    port, ref = compile_program(pattern), jax_compile(pattern)
+    assert engine.ScanEngine._multiblock_container_wins(port) == \
+        jax_engine.ScanEngine._multiblock_container_wins(ref, jax_get_config())
+    if port.F is not None:
+        assert scan_pallas.banded_offsets(port.F.T, 8) == jax_pallas.banded_offsets(ref.F.T, 8)
+    rp, rr = engine.relaxed_prefilter_program(port), jax_engine.relaxed_prefilter_program(ref)
+    assert (rp is None) == (rr is None)
+    if rp is not None:
+        _same_program(rp, rr)
+        assert rp.pattern == rr.pattern
+        np.testing.assert_array_equal(rp.nfa.get_edges(), rr.nfa.get_edges())
+    if pattern == "x(ab|c){400,520}y":
+        assert rp.pattern == "<prefilter:x(ab|c){400,520}y>" and rp.n_states == 15
