@@ -9,7 +9,7 @@ its check fails:
 1. the card's name and power limit; build the CUDA kernels from
    roaringregex_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source,
    all started together), with nvcc's register report and the build time;
-2. kernel against plain PyTorch version on the card, for all twenty-six entry
+2. kernel against plain PyTorch version on the card, for all twenty-nine entry
    points, on random batches from a numpy seed plus edge records (empty,
    len == L, bytes >= 0x80, byte 0); integer outputs, tolerance 0:
    rrx_swar_stats and rrx_word_stats on the SWAR and u32-word test
@@ -44,7 +44,15 @@ its check fails:
    unseeded and nullable, two accept channels on config 10, flags seeded
    and unseeded, reverse, anchored rescans lazy and longest from random and
    candidate starts (-1 and 0 included), spans lazy and longest at caps 1,
-   2 and 16 (cap 1 overflows), and records past a live count;
+   2 and 16 (cap 1 overflows), and records past a live count; the three
+   container kernels (rrx_sparse_stats, _flags, _reverse) on the 9
+   container programs of the probe table (multiblock and sparse, config 13,
+   a program at the 120-block cap whose table takes the global form, a full
+   U block, config 10 with RRX_BITBAND=0, a nullable one, K120), a
+   hand-built partition with full blocks on and off the diagonal, and
+   MultiPattern sets of 2, 40 and 100 channels, in the shared and the global
+   table form, stats seeded, unseeded and nullable, flags seeded and
+   unseeded, reverse, and records past a live count;
 3. the match-stats path, with its launch counts set to 0 first: bench
    config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
@@ -81,7 +89,8 @@ its check fails:
    reference (all of 10 MB; 16,384 records of the 1 GiB batch, where the
    plain version is checked too); bench config 13 ((abc|de){1,300}) over 10
    MB and 1 GiB through its 6-state seeded alias on the SWAR tier, search
-   and first end against numpy and re on 3,000 records, fullmatch refused;
+   and first end against numpy and re on 3,000 records (its own container
+   tier: phase 11);
    ends_batch and starts_batch of a SWAR, a u32-word, a matmul-tier and a
    counting program against the sets re gives; finditer_batch of counting
    programs in host rounds against re (greedy, and lazy against the lazy
@@ -141,7 +150,26 @@ its check fails:
    scanned (plain versions on the 10 MB batch and on 16,384 records of the
    1 GiB one), with registers, occupancy and the bound of PERF.md section
    2, and config 10's match_stats end to end split into the prefilter scan,
-   the kernel on the compacted bucket, the full-batch pass and the glue.
+   the kernel on the compacted bucket, the full-batch pass and the glue;
+   the three container kernels on K120 at 10 MB and 1 GiB with every record
+   scanned (plain versions on the 10 MB batch and on 16,384 records of the
+   1 GiB one), registers, occupancy and the bound of PERF.md section 2 from
+   a census of the run's data, and four container shapes end to end at 10
+   MB and 1 GiB, split into prefilter, kernel and glue;
+11. (run before 7) the container path, with every launch count set to 0
+   first: K120 (K30's words and 90 more, 826 states) through
+   ScanEngine.match_stats over phase 5's log text at 10 MB and 1 GiB
+   against the plain version (10 MB; 16,384 records of 1 GiB) and re on
+   3,000 records; MultiPattern of 40 keywords (40 accept channels)
+   count_batch at 10 MB and its engine scan at 1 GiB, per-word counts
+   against re; config 13's fullmatch_batch on its make_corpus shape (every
+   fourth record cut to an abcde... chain) at 10 MB and fullmatch_flags at
+   1 GiB against re and the chain count, and its greedy finditer_batch (host
+   rounds) on 2,000 records against re; x(abc|de){1,300}y behind its
+   prefilter with a plant in 12.5% of the records at 10 MB and 1 GiB against
+   re, with torch's sync debug mode set to raise; K120's ends_batch,
+   starts_batch and lazy finditer_batch on 2,000 records against re; every
+   container kernel must have been launched.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -242,6 +270,47 @@ PLANT10 = b"x" + b"ab" * 200 + b"c" * 210 + b"y"
 BITBAND_MB = ["x{2,300}y", "(ab|c){100,130}", "x(ab|c){100,200}(y|z+)", "(a(ab|c){100,200}b)+",
               "^x(ab|c){100,200}y$", "x(ab|c){100,200}", "x(ab|c){400,}y"]
 BITBAND_PATTERNS = [CONFIG10] + BITBAND_MB
+SPARSE_SOURCE = "roaringregex_tpu_torch/csrc/scan_sparse.cu"
+REPLACES |= {
+    "rrx_sparse_stats": "roaringregex_tpu/ops/scan_pallas.py:1984",
+    "rrx_sparse_flags": "roaringregex_tpu/ops/scan_pallas.py:2083",
+    "rrx_sparse_reverse": "roaringregex_tpu/ops/scan_pallas.py:2141",
+}
+SPARSE_KERNELS = ("rrx_sparse_stats", "rrx_sparse_flags", "rrx_sparse_reverse")
+
+
+def keywords(n: int):
+    """K30's words and n - 30 more from numpy seed 8 (lowercase, 5-9
+    letters, none a prefix of another, so Python's re gives the lazy and
+    the greedy spans alike)."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    words = list(K30_WORDS)
+    while len(words) < n:
+        w = bytes(rng.integers(97, 123, size=int(rng.integers(5, 10))).astype(np.uint8)).decode()
+        if not any(a.startswith(w) or w.startswith(a) for a in words):
+            words.append(w)
+    return words
+
+
+# keyword log triage past ~35 words: K120 (826 states, multiblock) routes to
+# the container tier
+K120_WORDS = keywords(120)
+K120 = "(" + "|".join(K120_WORDS) + ")"
+CONFIG13_X = "x(abc|de){1,300}y"  # config 13 behind context: the prefilter's route
+PLANT13X = b"x" + b"abcde" * 100 + b"y"
+# the container programs of the probe table: two multiblock programs,
+# config 13 and its x...y form (78 partial blocks), (abc|de){1,360} at the
+# 120-block cap (its table does not fit a block's shared memory: the global
+# form), x[ab]{0,400}c and config 10 with RRX_BITBAND=0 (the first with a
+# full U block), a nullable program and K120
+SPARSE_PATTERNS = ["(ab|c){2,120}d", "a*b{1,300}", CONFIG13_X, "(abc|de){1,300}",
+                   "(abc|de){1,360}", "x[ab]{0,400}c", "x(ab|c){400,520}y",
+                   "(a|b)*c{0,2}(abc){0,100}", K120]
+# MultiPattern sets on the container tier: 2 channels (config 10 and cat|dog,
+# with RRX_BITBAND=0), 40 and 100 keywords
+SPARSE_SETS = [["x(ab|c){400,520}y", "cat|dog"], keywords(40), keywords(100)]
 # one-long-string configs (bench.py:298-346) and a speculative case that
 # fails validation ((ab)*c never does: its seeded state set depends on one
 # byte)
@@ -403,8 +472,9 @@ def main() -> int:
     from roaringregex_tpu_torch.api import compile as rrx_compile
     from roaringregex_tpu_torch.compiler.program import compile_program
     from roaringregex_tpu_torch.engine import ScanEngine
-    from roaringregex_tpu_torch.ops import (_build, scan_bitband, scan_bits, scan_pallas, scan_swar,
-                                            scan_word, scan_xla)
+    from roaringregex_tpu_torch.ops import (_build, scan_bitband, scan_bits, scan_pallas,
+                                            scan_sparse, scan_swar, scan_word, scan_xla)
+    from roaringregex_tpu_torch.utils.config import get_config, set_config
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -484,8 +554,14 @@ def main() -> int:
         "rrx_bitband_anchor_end": scan_bitband.bitband_anchor_end,
         "rrx_bitband_spans": scan_bitband.bitband_spans,
     }
+    sparse_wrappers = {
+        "rrx_sparse_stats": scan_sparse.sparse_stats,
+        "rrx_sparse_flags": scan_sparse.sparse_flags,
+        "rrx_sparse_reverse": scan_sparse.sparse_reverse,
+    }
     wrappers = ({name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
-                | count_wrappers | mp_wrappers | long_wrappers | bitband_wrappers)
+                | count_wrappers | mp_wrappers | long_wrappers | bitband_wrappers | sparse_wrappers)
+    base_cfg = get_config()
     max_err = {name: 0 for name in wrappers}
 
     def compare(name, got, want, tag, labels=("cnt", "first", "last", "full")):
@@ -986,6 +1062,153 @@ def main() -> int:
           f"and longest at caps 1, 2, 16 (cap 1 overflowed on {n_over} records), live records) "
           f"({time.perf_counter() - t0:.1f}s)")
 
+    # the container kernels: every container program of the probe table on
+    # a 192-record edge batch with chains of its body (or its keywords)
+    # planted, both table forms, a full (U) block, a hand-built partition,
+    # 1, 2, 40 and 100 accept channels, nullable stats and live records
+    SP = scan_sparse
+
+    def sparse_plant(pattern: str, k: int) -> bytes:
+        """One match-shaped plant of k copies of the program's body (a
+        keyword of K120)."""
+        if pattern == K120:
+            return K120_WORDS[k % len(K120_WORDS)].encode()
+        if pattern.startswith("(a|b)*"):
+            return b"ab" * (k % 5) + b"c" + b"abc" * min(k, 100)
+        if pattern.startswith("a*b"):
+            return b"a" * (k % 7) + b"b" * k
+        if pattern.startswith("x[ab]"):
+            return b"x" + bytes(rng.choice(np.frombuffer(b"ab", np.uint8), size=k)) + b"c"
+        if "ab|c" in pattern:
+            body = b"".join(rng.choice([b"ab", b"c"], size=k, p=[0.2, 0.8]))
+            return b"x" + body + b"y" if pattern.startswith("x") else body + b"d"
+        body = b"".join(rng.choice([b"abc", b"de"], size=k))
+        return b"x" + body + b"y" if pattern.startswith("x") else body
+
+    def sparse_batch(pattern: str, R: int, L: int):
+        data, lengths = edge_batch(rng, np, R, L, b"xabcdeyz")
+        m = re.search(r"\{(\d+),(\d*)\}", pattern)
+        lo, hi = (int(m.group(1)), int(m.group(2) or int(m.group(1)) + 40)) if m else (1, 40)
+        for i in range(8, R, 2):
+            k = int(rng.choice([max(lo - 1, 0), lo, int(rng.integers(lo, hi + 1)), hi, hi + 1]))
+            w = sparse_plant(pattern, k)[:L]
+            at = 0 if i % 8 == 0 else int(rng.integers(0, L - len(w) + 1))
+            data[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+            if i % 8 == 0:
+                lengths[i] = len(w)  # the whole record: an unseeded scan can match
+        return data, lengths
+
+    def check_sparse(tables, d, ln, tag, nullable, forms):
+        """The three container kernels against their plain versions (on the
+        card) in each table form; stats seeded and unseeded (and nullable),
+        flags seeded and unseeded, reverse with one channel, and live."""
+        R = d.shape[0]
+        want = {}
+        for seeded in (True, False):
+            for nl in ((False, True) if nullable else (False,)):
+                want["stats", seeded, nl] = SP.sparse_stats_plain(d, ln, tables, seeded=seeded,
+                                                                  nullable=nl)
+            want["flags", seeded] = SP.sparse_flags_plain(d, ln, tables, seeded=seeded)
+        if tables.C == 1:
+            want["reverse"] = SP.sparse_reverse_plain(d, ln, tables)
+        n = R // 3
+        live = torch.tensor([n], dtype=torch.int32, device=dev)
+        for form in forms:
+            for key, w in want.items():
+                if key[0] == "stats":
+                    got = SP.sparse_stats(d, ln, tables, seeded=key[1], nullable=key[2], form=form)
+                    compare("rrx_sparse_stats", got, w, f"{tag} {form} seeded={key[1]} "
+                            f"nullable={key[2]}")
+                elif key[0] == "flags":
+                    compare("rrx_sparse_flags", [SP.sparse_flags(d, ln, tables, seeded=key[1],
+                                                                 form=form)], [w],
+                            f"{tag} {form} seeded={key[1]}", ("flags",))
+                else:
+                    compare("rrx_sparse_reverse", [SP.sparse_reverse(d, ln, tables, form=form)], [w],
+                            f"{tag} {form}", ("hits",))
+            got = SP.sparse_stats(d, ln, tables, seeded=True, nullable=False, live=live, form=form)
+            compare("rrx_sparse_stats", [x[:n] for x in got],
+                    [x[:n] for x in want["stats", True, False]], f"{tag} {form} live={n}")
+            got = SP.sparse_flags(d, ln, tables, seeded=False, live=live, form=form)
+            compare("rrx_sparse_flags", [got[:, : n * tables.C]],
+                    [want["flags", False][:, : n * tables.C]], f"{tag} {form} live={n}", ("flags",))
+            if tables.C == 1:
+                got = SP.sparse_reverse(d, ln, tables, live=live, form=form)
+                compare("rrx_sparse_reverse", [got[:, :n]], [want["reverse"][:, :n]],
+                        f"{tag} {form} live={n}", ("hits",))
+        return int(want["stats", True, False][0].sum().item())
+
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = 0
+    seen_forms, seen_u = set(), 0
+    for pattern in SPARSE_PATTERNS:
+        prog = compile_program(pattern)
+        tables = SP.device_sparse_tables(prog, dev)
+        auto = SP.table_form(tables)
+        seen_forms.add(auto)
+        seen_u += int(prog.sparse_partition[3].sum())
+        L = 1024 if pattern == CONFIG10 else 512
+        data, lengths = sparse_batch(pattern, 192, L)
+        d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
+        forms = ("shared", "global") if auto == "shared" else ("global",)
+        ends = check_sparse(tables, d, ln, f"{pattern[:40]!r} R=192 L={L}", prog.nullable, forms)
+        n_cmp += 1
+        print(f"  {pattern[:40]!r}: {prog.n_states} states, {len(prog.sparse_partition[0])} partial "
+              f"and {int(prog.sparse_partition[3].sum())} full blocks, auto form {auto}: "
+              f"{ends} seeded match ends")
+    # a hand-built partition (on x[ab]{0,400}c's 4 x 4 blocks): random
+    # partial blocks, full blocks on and off the diagonal, a source block
+    # that feeds both
+    prog = compile_program("x[ab]{0,400}c")
+    rh = np.random.default_rng(21)
+    pbh = (rh.random((5, 128, 128)) < 0.02).astype(np.uint8)
+    prow_h, pcol_h = np.array([0, 0, 1, 2, 3], np.int32), np.array([0, 1, 1, 3, 2], np.int32)
+    U_h = np.zeros((4, 4), np.uint8)
+    U_h[0, 2] = U_h[1, 1] = U_h[3, 0] = 1
+    prog._spart = (pbh, prow_h, pcol_h, U_h)
+    tables = SP.device_sparse_tables(prog, dev)
+    data, lengths = sparse_batch("x[ab]{0,400}c", 192, 512)
+    d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
+    check_sparse(tables, d, ln, "hand-built partition", False, ("shared", "global"))
+    n_cmp += 1
+    seen_u += int(U_h.sum())
+    # accept channels: 2 (config 10 with cat|dog), 40 and 100 keywords
+    for pats in SPARSE_SETS:
+        set_config(get_config().with_(bitband=False))
+        try:
+            mp = MultiPattern(pats, dev)
+        finally:
+            set_config(base_cfg)
+        if not isinstance(mp.engine.device_scanner, SP.SparseScanner):
+            fail(f"MultiPattern of {len(pats)} routed to {type(mp.engine.device_scanner).__name__}")
+        tables = mp.engine.device_scanner.tables
+        words = [p.encode() for p in pats if "{" not in p]
+        data, lengths = edge_batch(rng, np, 192, 512, b"abcdefghijklmnoprstuwxy ")
+        for i in range(8, 192, 2):
+            for _ in range(3):
+                # config 10's channel: 420 copies of (ab|c) in 452 bytes
+                w = (words[int(rng.integers(len(words)))] if len(pats) > 2
+                     else b"x" + b"ab" * 30 + b"c" * 390 + b"y")
+                at = int(rng.integers(0, 512 - len(w) + 1))
+                data[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+        d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
+        ends = check_sparse(tables, d, ln, f"MultiPattern of {len(pats)}", False,
+                            ("shared", "global"))
+        n_cmp += 1
+        print(f"  MultiPattern of {len(pats)} ({mp.program.n_states} states, C = {tables.C}): "
+              f"{ends} seeded channel match ends")
+    torch.cuda.synchronize()
+    for name in SPARSE_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if seen_forms != {"shared", "global"} or seen_u == 0:
+        fail(f"the container programs took forms {seen_forms} and {seen_u} full blocks")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} batches of 192 records through the three "
+          f"container kernels (stats seeded/unseeded/nullable, flags seeded/unseeded, reverse, "
+          f"live records; shared and global table forms, {seen_u} full blocks, C = 1, 2, 40, 100) "
+          f"({time.perf_counter() - t0:.1f}s)")
+
     # -- phase 3: the match-stats path (counts from here to its 1 GiB run) --
     import bench
 
@@ -1402,14 +1625,15 @@ def main() -> int:
           f"fullmatch={int(fullb4[:n_slice].sum())} of the first {n_slice}; == numpy and == plain "
           f"on the first {n_slice} records")
 
-    # config 13: 1501 states on the sparse tier, scanned through its 6-state
-    # seeded alias (the SWAR tier)
+    # config 13: 1501 states on the sparse tier, its seeded scans through its
+    # 6-state seeded alias (the SWAR tier), the rest on its container tier
+    # (phase 11)
     t0 = time.perf_counter()
     eng13 = ScanEngine(compile_program(CONFIG13), device=dev)
     alias13 = eng13._seeded_alias()
     compile13_s = time.perf_counter() - t0
-    if eng13.device_scanner is not None or alias13 is None:
-        fail("config 13 should run through its seeded alias only")
+    if not isinstance(eng13.device_scanner, scan_sparse.SparseScanner) or alias13 is None:
+        fail("config 13 should run its seeded scans through its alias, the rest on containers")
     swar0 = scan_swar.swar_stats.launches
     cnt13, first13, any13 = (x.cpu().numpy() for x in eng13.match_stats(data, lengths, seeded=True))
     ends13 = np.zeros(data.shape, bool)  # ends13[r, j]: abc or de ends after byte j
@@ -1430,17 +1654,12 @@ def main() -> int:
     got13 = list(zip(a13.cpu().numpy()[rows13].tolist(), f13.cpu().numpy()[rows13].tolist()))
     if got13 != want13:
         fail("config 13 1 GiB (search, first end) != re on 3,000 records")
-    try:
-        rrx_compile(CONFIG13, dev).fullmatch_batch([b"abcde"])
-        fail("config 13 fullmatch_batch should raise NotImplementedError")
-    except NotImplementedError as e:
-        refused = str(e)[:60]
     print(f"phase 6: config 13 {CONFIG13} ({eng13.prog.n_states} states, {eng13.prog.tier}; built in "
           f"{compile13_s:.1f}s) through its {alias13.prog.n_states}-state alias on "
           f"{type(alias13.device_scanner).__name__} ({scan_swar.swar_stats.launches - swar0} "
           f"rrx_swar_stats launches): 10 MB matches={int(cnt13.sum())} == numpy; 1 GiB "
           f"records_with_match={int(a13.sum().item())}, search and first end == re on 3,000 "
-          f"records; fullmatch_batch refused ({refused}...)")
+          f"records (fullmatch and greedy spans on its container tier: phase 11)")
 
     # the bitmaps: ends_batch and starts_batch against every substring re
     # fullmatches, on four tiers
@@ -1820,8 +2039,6 @@ def main() -> int:
     print(f"long-string path launches: {long_launches}")
 
     # -- phase 10: the bitband path (run before 7; counts from here to its last run)
-    from roaringregex_tpu_torch.utils.config import get_config, set_config
-
     reset_launches()
     t10 = time.perf_counter()
     rx10 = re.compile(CONFIG10.encode())
@@ -1846,7 +2063,6 @@ def main() -> int:
     sc10, pf10 = eng10.device_scanner, eng10._prefilter()
     if not isinstance(sc10, scan_bitband.BitbandScanner) or pf10 is None:
         fail(f"config 10 routed to {type(sc10).__name__} with prefilter {pf10}")
-    base_cfg = get_config()
     set_config(base_cfg.with_(sparse_prefilter=False))  # RRX_SPARSE_PREFILTER=0
     raw10 = ScanEngine(compile_program(CONFIG10), device=dev)
     if raw10._prefilter() is not None:
@@ -1976,6 +2192,163 @@ def main() -> int:
             fail(f"{name} was not launched on the bitband path")
     print(f"bitband path launches: {bitband_launches} "
           f"({time.perf_counter() - t10:.1f}s for the phase)")
+
+    # -- phase 11: the container path (run before 7; counts from here to its last run)
+    reset_launches()
+    t11 = time.perf_counter()
+    SP = scan_sparse
+    # K120 over phase 5's log text (10 MB and 1 GiB): match_stats against the
+    # plain version (10 MB; the first n_slice records of 1 GiB) and re
+    eng120 = ScanEngine(compile_program(K120), device=dev)
+    sc120 = eng120.device_scanner
+    if not isinstance(sc120, SP.SparseScanner):
+        fail(f"K120 routed to {type(sc120).__name__}")
+    for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
+        cnt, first, anym = eng120.match_stats(d, ln, seeded=True)
+        n = d.shape[0] if shape == "10 MB" else n_slice
+        want = SP.sparse_stats_plain(d[:n], ln[:n], sc120.tables, seeded=True, nullable=False)
+        if not (torch.equal(cnt[:n], want[0][:, 0]) and torch.equal(first[:n], want[1][:, 0])
+                and torch.equal(anym, cnt > 0)):
+            fail(f"K120 {shape} match_stats != the plain version on {n} records")
+        rows = np.random.default_rng(16).choice(d.shape[0], size=n_re, replace=False)
+        got = np.stack([cnt.cpu().numpy()[rows], first.cpu().numpy()[rows]], axis=1)
+        ref = np.array([key_stats(K120_WORDS, log_np[r].tobytes()) for r in rows])
+        if not np.array_equal(got, ref):
+            fail(f"K120 {shape}: (cnt, first) != re on {n_re} records")
+        print(f"phase 11: K120 ({eng120.prog.n_states} states, {eng120.prog.tier}, "
+              f"{sc120.n_partial} partial blocks, {SP.table_form(sc120.tables)} table) over {shape} "
+              f"of log text: matches={int(cnt.sum().item())} == plain on {n} records, == re on "
+              f"{n_re}")
+    # MultiPattern of 40 keywords: count_batch at 10 MB (the API) and the
+    # engine's channel scan at 1 GiB, per-word counts against re
+    mp40 = MultiPattern(SPARSE_SETS[1], dev)
+    if not isinstance(mp40.engine.device_scanner, SP.SparseScanner):
+        fail(f"MultiPattern of 40 routed to {type(mp40.engine.device_scanner).__name__}")
+    rx40 = re.compile(b"(?=(" + b"|".join(w.encode() for w in SPARSE_SETS[1]) + b"))")
+    widx = {w.encode(): i for i, w in enumerate(SPARSE_SETS[1])}
+
+    def word_counts(rows):
+        out = np.zeros((len(rows), 40), np.int64)
+        for k, r in enumerate(rows):
+            for m in rx40.finditer(log_np[r].tobytes()):
+                out[k, widx[m.group(1)]] += 1
+        return out
+
+    texts10 = [log_np[i].tobytes() for i in range(B7)]
+    cnt40 = mp40.count_batch(texts10)
+    rows = np.random.default_rng(17).choice(B7, size=n_re, replace=False)
+    if not np.array_equal(cnt40[rows], word_counts(rows)):
+        fail("MultiPattern of 40 count_batch != re at 10 MB")
+    c40, _, _ = mp40.engine.match_stats(log, log_len, seeded=True)
+    c40 = c40.reshape(-1, 40)
+    rows = np.random.default_rng(18).choice(R, size=n_re, replace=False)
+    if not np.array_equal(c40.cpu().numpy()[rows], word_counts(rows)):
+        fail("MultiPattern of 40 engine match_stats != re at 1 GiB")
+    print(f"phase 11: MultiPattern of 40 keywords ({mp40.program.n_states} states, C = 40): "
+          f"count_batch at 10 MB ({int(cnt40.sum())} matches) and the 1 GiB channel scan "
+          f"({int(c40.sum().item())}) == re on {n_re} records each")
+    # config 13's own tier: fullmatch on its make_corpus shape with every
+    # fourth record cut to an abcde... chain (copies 2 j or 2 j + 1, in and
+    # out of 1..300), at 10 MB (the API) and 1 GiB (the engine)
+    tmpl = torch.from_numpy(np.frombuffer((b"abcde" * 205)[:1024], np.uint8).copy()).to(dev)
+
+    def chains13(d: torch.Tensor, ln: torch.Tensor, seed: int):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        rows = torch.arange(0, d.shape[0], 4, device=dev)
+        cut = torch.randint(0, 1025, (rows.numel(),), generator=g).to(dev, torch.int32)
+        d[rows] = tmpl
+        ln[rows] = cut
+        return d, ln
+
+    def full13(ln: np.ndarray, chained: np.ndarray) -> np.ndarray:
+        """Whole-record matches of the chained records: len = 5 j or 5 j + 3,
+        2 j (+ 1) copies of abc|de, 1..300 of them."""
+        copies = 2 * (ln // 5) + (ln % 5 == 3)
+        return chained & ((ln % 5 == 0) | (ln % 5 == 3)) & (copies >= 1) & (copies <= 300)
+
+    pat13 = rrx_compile(CONFIG13, dev)
+    d13_np, l13_np = bench.make_corpus(10_000_000, 1024, seed=13, plant=(b"abcde",))
+    d13, l13 = chains13(torch.from_numpy(d13_np).to(dev), torch.from_numpy(l13_np).to(dev), 1)
+    d13_np, l13_np = d13.cpu().numpy(), l13.cpu().numpy()
+    texts13 = [d13_np[i, : l13_np[i]].tobytes() for i in range(d13_np.shape[0])]
+    full_13 = pat13.fullmatch_batch(texts13)
+    rx13f = re.compile(rb"(abc|de){1,300}")
+    if full_13.tolist() != [rx13f.fullmatch(t) is not None for t in texts13]:
+        fail("config 13 fullmatch_batch != re.fullmatch at 10 MB")
+    chained = np.arange(d13_np.shape[0]) % 4 == 0
+    if not (full_13.any() and np.array_equal(full_13, full13(l13_np, chained))):
+        fail("config 13 fullmatch_batch != the chain count at 10 MB")
+    b13, bl13 = chains13(big.clone(), big_len.clone(), 2)
+    fb13 = eng13.fullmatch_flags(b13, bl13)
+    if not np.array_equal(fb13, full13(bl13.cpu().numpy(), np.arange(b13.shape[0]) % 4 == 0)):
+        fail("config 13 fullmatch_flags != the chain count at 1 GiB")
+    # greedy spans in host rounds (each round one scan_xla rescan) on 2,000
+    # records of <= 256 B against re
+    rng13 = np.random.default_rng(19)
+    alpha13 = np.frombuffer(b"abcdex", np.uint8)
+    texts_g = [bytes(rng13.choice(alpha13, size=int(rng13.integers(0, 257)))) for _ in range(2000)]
+    rx13 = re.compile(rb"(abc|de){1,300}")
+    if pat13.finditer_batch(texts_g, longest=True) != [[m.span() for m in rx13.finditer(t)]
+                                                        for t in texts_g]:
+        fail("config 13 greedy finditer_batch != re on 2,000 records")
+    print(f"phase 11: config 13 on its container tier ({eng13.device_scanner.n_partial} partial "
+          f"blocks): fullmatch_batch at 10 MB ({int(full_13.sum())} whole-record matches) == re and "
+          f"the chain count, fullmatch_flags at 1 GiB ({int(fb13.sum())}) == the chain count, "
+          f"greedy finditer_batch on 2,000 records == re")
+    # x(abc|de){1,300}y behind its prefilter, a plant in 12.5% of the
+    # records (bench.make_corpus's rule), 10 MB and 1 GiB, against re
+    eng_x = ScanEngine(compile_program(CONFIG13_X), device=dev)
+    pf_x = eng_x._prefilter()
+    if not isinstance(eng_x.device_scanner, SP.SparseScanner) or pf_x is None:
+        fail(f"{CONFIG13_X} routed to {type(eng_x.device_scanner).__name__} with prefilter {pf_x}")
+    rx_x = re.compile(CONFIG13_X.encode())
+    x_runs = {}
+    for shape, total, seed in (("10 MB", 10_000_000, 20), ("1 GiB", 1 << 30, 21)):
+        t0 = time.perf_counter()
+        dx_np, lx_np = bench.make_corpus(total, 1024, seed=seed, plant=(PLANT13X,))
+        gen_s = time.perf_counter() - t0
+        dx, lx = torch.from_numpy(dx_np).to(dev), torch.from_numpy(lx_np).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in the call raises
+        try:
+            cx, fx, ax = eng_x.match_stats(dx, lx, seeded=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        rows = (np.arange(dx_np.shape[0]) if shape == "10 MB"
+                else np.random.default_rng(22).choice(dx_np.shape[0], size=n_re, replace=False))
+        want = np.array([[len(e := [m.end() for m in rx_x.finditer(dx_np[r].tobytes())]),
+                          e[0] if e else -1] for r in rows])
+        got = np.stack([cx.cpu().numpy()[rows], fx.cpu().numpy()[rows]], axis=1)
+        if not np.array_equal(got, want):
+            fail(f"{CONFIG13_X} {shape}: (cnt, first) != re")
+        x_runs[shape] = (dx, lx)
+        print(f"phase 11: {CONFIG13_X} {shape} ({dx_np.shape[0]} records, corpus built in "
+              f"{gen_s:.1f}s): matches={int(cx.sum().item())} == re on {rows.size} records; no "
+              f"host sync in the call")
+    # the bitmaps and lazy spans of K120 (flags and reverse kernels) on the
+    # phase-5 API batch against re
+    pat120 = rrx_compile(K120, dev)
+    texts_k = [log_np[i, :256].tobytes() for i in range(2000)]
+    rxk = re.compile(K120.encode())
+    rxk_all = re.compile(b"(?=(" + K120[1:-1].encode() + b"))")  # overlapping matches too
+    spans_k = [[m.span() for m in rxk.finditer(t)] for t in texts_k]
+    every = [[(m.start(), m.start() + len(m.group(1))) for m in rxk_all.finditer(t)]
+             for t in texts_k]
+    if pat120.ends_batch(texts_k) != [sorted({e for _, e in sp}) for sp in every]:
+        fail("K120 ends_batch != re")
+    if pat120.starts_batch(texts_k) != [sorted({s for s, _ in sp}) for sp in every]:
+        fail("K120 starts_batch != re")
+    if pat120.finditer_batch(texts_k) != spans_k:
+        fail("K120 lazy finditer_batch != re")
+    torch.cuda.synchronize()
+    sparse_launches = {name: launches()[name] for name in SPARSE_KERNELS}
+    for name, n in sparse_launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the container path")
+    print(f"phase 11: K120 ends_batch, starts_batch and lazy finditer_batch == re on 2,000 "
+          f"records ({sum(map(len, spans_k))} spans)")
+    print(f"container path launches: {sparse_launches} "
+          f"({time.perf_counter() - t11:.1f}s for the phase)")
 
     # -- phase 7: times ---------------------------------------------------
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
@@ -2690,6 +3063,164 @@ def main() -> int:
               f"{kb[0]:.4f} ms by {kb[1]}, prefilter scan {pb[0]:.4f} ms by {pb[1]}; the raw "
               f"kernel on every record {bb_ms['rrx_bitband_stats', shape][0]:.3f} ms [{card}]")
 
+    # the container kernels on K120 over the phase-5 log text (every record
+    # scanned), at 10 MB and 1 GiB, plain versions on the 10 MB batch and on
+    # the first n_slice records of the 1 GiB one; bounds of PERF.md section
+    # 2 from a census of this run's data (the plain stepper on the card:
+    # live rows, live full blocks, nonzero output blocks per needed step)
+    SP = scan_sparse
+    tb120 = sc120.tables
+
+    def sparse_census(tables, d, ln, *, seeded: bool, reverse: bool) -> int:
+        """Operations of PERF.md section 2's floor for one container pass
+        over records d (steps past EOS, and past an unseeded scan's empty
+        state after step 1, are not needed)."""
+        pt = tables.plain(dev)
+        R, Lc = d.shape
+        lnv = ln.to(torch.int64).clamp(0, Lc)
+        nb = pt.M.shape[1] // 128
+        rownz = (pt.pb.sum(dim=1 if reverse else 2) > 0)  # [np, 128]
+        src = pt.pcol if reverse else pt.prow
+        Uf = pt.U.T if reverse else pt.U  # [source, output]
+        acc_w = 1 if reverse else int(
+            (torch.from_numpy(tables.accs).any(dim=0).reshape(-1, 32).any(dim=1)).sum())
+        v = pt.empty(R, dev)
+        alive = torch.ones(R, dtype=torch.bool, device=dev)
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        for t in (range(Lc + 1, -1, -1) if reverse else range(Lc + 2)):
+            sym = scan_bits._sym(d, lnv, t)
+            if reverse:
+                x = (v | pt.acc) & pt.M[sym]
+            else:
+                x = v.clone()
+                x[:, 0] |= seeded or t < 2
+            xb = x.reshape(R, nb, 128)
+            live_rows = (xb[:, src] & rownz[None]).sum(dim=(1, 2))
+            live_u = (xb.any(dim=2).to(torch.float32) @ Uf).sum(dim=1).to(torch.int64)
+            y = pt._expand(x, reverse)
+            if reverse:
+                out_blocks = xb.any(dim=2).sum(dim=1)
+            else:
+                y = y & pt.M[sym]
+                out_blocks = y.reshape(R, nb, 128).any(dim=2).sum(dim=1)
+            ops = 4 * live_rows + 4 * live_u + 4 * out_blocks + acc_w + 2
+            total += torch.where(alive & (t <= lnv + 1), ops, 0).sum()
+            v = y
+            if not seeded and not reverse and t >= 1:
+                alive &= y.any(dim=1)
+        return int(total.item())
+
+    census = {}
+
+    def sp_bound(what, tables, d, ln, *, seeded=True, scale=1.0, C=1):
+        """(bound_ms, bound_by) of one container call (``what``: stats,
+        flags or reverse): census operations (scaled from a slice by
+        ``scale``; stats and flags share one forward census) and the bytes
+        moved."""
+        R, Lc = d.shape
+        rev = what == "reverse"
+        key = (id(tables), id(d), seeded, rev)
+        if key not in census:
+            census[key] = sparse_census(tables, d, ln, seeded=seeded, reverse=rev)
+        nbytes = (int(ln.to(torch.int64).clamp(0, Lc).sum()) + 4 * R) * scale
+        out = 13 * R * C if what == "stats" else 4 * scan_bits.hit_words(Lc) * R * C
+        return bound(nbytes, out * scale, census[key] * scale)
+
+    sp_tpb = lib.rrx_sparse_threads_per_block()
+
+    def sp_occupancy(idx, tables, rows, reverse=False):
+        bps = ctypes.c_int(0)
+        tab, meta = (tables.tab_r, tables.meta_r) if reverse else (tables.tab_f, tables.meta_f)
+        glob = int(SP.table_form(tables, reverse) == "global")
+        _build.check(lib.rrx_sparse_occupancy(idx, tab.numel(), meta.numel(), tables.W, glob,
+                                              ctypes.byref(bps)), "rrx_sparse_occupancy")
+        blocks = min(-(-rows // (sp_tpb // 32)), bps.value * n_sm)
+        return (f"theoretical {bps.value * sp_tpb}/{max_threads} threads per SM "
+                f"({100.0 * bps.value * sp_tpb / max_threads:.1f}%, one warp per record, "
+                f"{SP.table_form(tables, reverse)} table); grid {blocks} blocks of {sp_tpb}")
+
+    sp_ms = {}
+    for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
+        n = d.shape[0] if shape == "10 MB" else n_slice
+        pd, pl = d[:n].contiguous(), ln[:n].contiguous()
+        scale = float(ln.to(torch.int64).sum()) / float(pl.to(torch.int64).sum())
+        kw = dict(seeded=True, nullable=False)
+        compare("rrx_sparse_stats", [x[:n] for x in SP.sparse_stats(d, ln, tb120, **kw)],
+                SP.sparse_stats_plain(pd, pl, tb120, **kw), f"K120 {shape}, first {n} records")
+        calls = {
+            "rrx_sparse_stats": (lambda: SP.sparse_stats(d, ln, tb120, **kw),
+                                 lambda: SP.sparse_stats_plain(pd, pl, tb120, **kw), "stats", 0),
+            "rrx_sparse_flags": (lambda: SP.sparse_flags(d, ln, tb120, seeded=True),
+                                 lambda: SP.sparse_flags_plain(pd, pl, tb120, seeded=True),
+                                 "flags", 1),
+            "rrx_sparse_reverse": (lambda: SP.sparse_reverse(d, ln, tb120),
+                                   lambda: SP.sparse_reverse_plain(pd, pl, tb120), "reverse", 2),
+        }
+        for name, (kern, plain, what, idx) in calls.items():
+            ms = time_ms(kern, warm=1, runs=7 if shape == "10 MB" else 3)
+            plain_ms = time_ms(plain, warm=0, runs=1)
+            bnd = sp_bound(what, tb120, pd, pl, scale=scale)
+            sp_ms[name, shape] = (ms, plain_ms, bnd, n)
+            print(f"phase 7: {name} K120 {shape} [{d.shape[0]} x {d.shape[1]}], every record: "
+                  f"kernel {ms:.3f} ms = {d.shape[0] * d.shape[1] / ms / 1e6:.2f} GB/s, plain "
+                  f"{plain_ms:.1f} ms on {n} records; bound {bnd[0]:.4f} ms by {bnd[1]} "
+                  f"({100 * bnd[0] / ms:.2f}% of it) [{card}]")
+            print(f"  occupancy {name} ({shape}): {sp_occupancy(idx, tb120, d.shape[0], idx == 2)}; "
+                  f"registers {regs_of(('sp_stats_kernel', 'sp_flags_kernel', 'sp_reverse_kernel')[idx])}")
+
+    # end to end (data on the card), split into the prefilter, the kernel
+    # and the glue: K120 match_stats, MultiPattern of 40 count (the engine's
+    # channel scan), config 13 fullmatch_flags (the bool copy to the host
+    # included) and x(abc|de){1,300}y's prefiltered match_stats
+    tables40 = mp40.engine.device_scanner.tables
+    tables13 = eng13.device_scanner.tables
+    sc_x = eng_x.device_scanner
+    e2e_sp = {}
+    for shape in ("10 MB", "1 GiB"):
+        d, ln = (log10, len10) if shape == "10 MB" else (log, log_len)
+        dd13, ll13 = (d13, l13) if shape == "10 MB" else (b13, bl13)
+        dx, lx = x_runs[shape]
+        runs = 5 if shape == "10 MB" else 3
+        rows_e = {
+            "K120 match_stats": (lambda: eng120.match_stats(d, ln, seeded=True),
+                                 lambda: SP.sparse_stats(d, ln, tb120, seeded=True, nullable=False)),
+            "MultiPattern of 40 match_stats": (
+                lambda: mp40.engine.match_stats(d, ln, seeded=True),
+                lambda: SP.sparse_stats(d, ln, tables40, seeded=True, nullable=False)),
+            "config 13 fullmatch_flags": (
+                lambda: eng13.fullmatch_flags(dd13, ll13),
+                lambda: SP.sparse_stats(dd13, ll13, tables13, seeded=False, nullable=False)),
+        }
+        for what, (e2e_fn, k_fn) in rows_e.items():
+            e2e = time_ms(e2e_fn, warm=1, runs=runs)
+            k_ms = time_ms(k_fn, warm=1, runs=runs)
+            e2e_sp[what, shape] = (e2e, k_ms)
+            print(f"phase 7: {what} end to end, {shape}: {e2e:.3f} ms = kernel {k_ms:.3f} ms + "
+                  f"glue {e2e - k_ms:.3f} ms [{card}]")
+        B_ = dx.shape[0]
+        e2e = time_ms(lambda: eng_x.match_stats(dx, lx, seeded=True), warm=1, runs=runs)
+        pre_ms = time_ms(lambda: eng_x._alias_call(pf_x, "match_stats", dx, lx, seeded=True),
+                         warm=1, runs=runs)
+        _, _, pre = eng_x._alias_call(pf_x, "match_stats", dx, lx, seeded=True)
+        bc = bucket(B_)
+        idx_c = torch.nonzero(pre.reshape(-1)[:B_]).reshape(-1)[:bc]
+        d2 = torch.zeros((bc, dx.shape[1]), dtype=torch.uint8, device=dev)
+        l2 = torch.zeros(bc, dtype=torch.int32, device=dev)
+        d2[: idx_c.numel()], l2[: idx_c.numel()] = dx[idx_c], lx[idx_c]
+        live_c = torch.tensor([idx_c.numel()], dtype=torch.int32, device=dev)
+        live_0 = torch.zeros(1, dtype=torch.int32, device=dev)
+        kw = dict(seeded=True, nullable=False)
+        k_ms = time_ms(lambda: SP.sparse_stats(d2, l2, sc_x.tables, **kw, live=live_c), warm=1,
+                       runs=runs)
+        f_ms = time_ms(lambda: SP.sparse_stats(dx, lx, sc_x.tables, **kw, live=live_0), warm=1,
+                       runs=runs)
+        e2e_sp["x prefiltered", shape] = (e2e, pre_ms, k_ms, f_ms, idx_c.numel())
+        print(f"phase 7: ScanEngine.match_stats {CONFIG13_X} end to end, {shape} ({B_} records, "
+              f"{idx_c.numel()} candidates, bucket {bc}): {e2e:.3f} ms = prefilter scan "
+              f"({pf_x.prog.n_states} states, {type(pf_x.device_scanner).__name__}) {pre_ms:.3f} ms "
+              f"+ rrx_sparse_stats on the bucket {k_ms:.3f} ms + the full-batch pass's launch "
+              f"{f_ms:.3f} ms + glue {e2e - pre_ms - k_ms - f_ms:.3f} ms [{card}]")
+
     ms, plain_ms, bnd = flags_ms["10 MB"]
     kernels.append({
         "name": "rrx_nfa_flags", "route": "cuda", "source": NFA_SOURCE,
@@ -2733,8 +3264,16 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
             "shape": f"config 10 {CONFIG10}, 10 MB, every record (no prefilter)",
         })
-    if len(kernels) != 28:
-        fail(f"the kernels line lists {len(kernels)} kernels, not 28")
+    for name in SPARSE_KERNELS:
+        ms, plain_ms, bnd, n = sp_ms[name, "10 MB"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SPARSE_SOURCE, "replaces": REPLACES[name],
+            "launches": sparse_launches[name], "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "shape": f"K120 ({len(K120_WORDS)} keywords), 10 MB of log text, every record",
+        })
+    if len(kernels) != 31:
+        fail(f"the kernels line lists {len(kernels)} kernels, not 31")
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

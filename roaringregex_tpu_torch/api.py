@@ -18,18 +18,20 @@ on the bitband tier's (multiblock and sparse programs whose follow matrix
 decomposes, such as bench config 10, ``x(ab|c){400,520}y``: one reverse
 pass, then rounds of anchored rescans in each record's own warp, lazy or
 longest; a nullable bitband program takes the host rounds below).
-The counting tier and the programs that run through their seeded alias
-take the JAX package's other route: host rounds over ``starts_bitmap``,
-each round one batched anchored rescan (``ScanEngine.first_end_from``).
+The counting and container tiers (the JAX ``SparseScanner``: keyword
+alternations past ~35 words, config 13's own tier) take the JAX package's
+other route: host rounds over ``starts_bitmap``, each round one batched
+anchored rescan (``ScanEngine.first_end_from``).
 ``ends_batch`` and ``starts_batch`` return every match end and start
 position; ``dump`` returns a text dump of the automaton.
 
 ``MultiPattern(patterns, device)`` scans P patterns in one pass over their
 combined automaton (the Glushkov union): per-pattern counts, search hits
-and grep from one per-channel match-stats scan, and every pattern's lazy
-spans from one channel reverse pass and one channel span pass. A combined
-program on the multiblock or sparse tier raises (the container tier and
-the bitband tier's channel spans are not ported).
+and grep from one per-channel match-stats scan, and, on the u32-word and
+matmul tiers, every pattern's lazy spans from one channel reverse pass and
+one channel span pass. A combined program on the bitband or container tier
+(keyword lists past ~35 words, sets past 256 states) takes its spans per
+pattern, as in the JAX package.
 
 One long string (``Pattern.long``, ``finditer_long``, ``rev_long``): the
 string is scanned in windows on the card (``ops/longstring.py``), for
@@ -450,9 +452,9 @@ class MultiPattern:
     accept channels: the accept map widens from [lanes, G] to [lanes, G *
     P] and goes to the engine as its accept channels. The port of the JAX
     package's ``MultiPattern`` on its pallas backend: the combined program
-    runs on the u32-word tier or the matmul tier; a combined program on the
-    multiblock or sparse tier raises (the engine refuses the container
-    tier's, and the bitband tier has no channel spans in the port). Nullable patterns are scanned with the
+    runs on the u32-word or matmul tier (lazy spans from one combined scan)
+    or, multiblock or sparse, on the bitband or container tier (lazy and
+    greedy spans per pattern). Nullable patterns are scanned with the
     kernels' nullability off and corrected on the host."""
 
     def __init__(self, patterns: Sequence[str], device):
@@ -495,12 +497,10 @@ class MultiPattern:
         self.engine = ScanEngine(prog, device, accept_map=A, channels_per_record=P,
                                  nullable=False)
         sc = self.engine.device_scanner
-        if not hasattr(sc, "lazy_spans_mb"):
-            raise NotImplementedError(
-                f"{prog.pattern[:60]!r}: a combined program of {P} patterns on tier "
-                f"{prog.tier}, {prog.n_states} states, routed to the {type(sc).__name__}, which "
-                "has no channel spans in the port yet (see ROADMAP.md)")
-        if sc is not None and sc.has_anchor:
+        # the u32-word and matmul tiers' channel spans; the bitband and
+        # container tiers take spans per pattern (JAX api.py:700)
+        self._combined_spans = hasattr(sc, "lazy_spans_mb")
+        if self._combined_spans:
             # span channels: sgm [G * P, lanes] = follow[0] restricted to
             # pattern p's positions, posm [lanes, P] position masks
             F0 = np.asarray(prog.F)[0, :s_tile]
@@ -549,12 +549,13 @@ class MultiPattern:
         one channel reverse pass and one channel span pass, whatever P),
         with the cap pre-sized from the combined counts pass and raised if
         a batch still overflows it; nullable patterns' lazy spans are the
-        closed-form empty-match set. Greedy spans run per pattern through
+        closed-form empty-match set. Greedy spans, and every span of a
+        program on the bitband or container tier, run per pattern through
         ``Pattern``, as in the JAX package."""
-        if longest:
+        if longest or not self._combined_spans:
             if self._spanners is None:
                 self._spanners = [Pattern(p, self.engine.device) for p in self.patterns]
-            return [p.finditer_batch(texts, longest=True) for p in self._spanners]
+            return [p.finditer_batch(texts, longest=longest) for p in self._spanners]
         sc = self.engine._own()
         data, lengths, B = self._pack(texts)
         G = max(self.program.G, 1)

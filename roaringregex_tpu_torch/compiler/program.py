@@ -9,9 +9,9 @@ that the same pattern takes the same route in both. The multiblock and
 sparse tiers also carry the block-sparse follow layout (``fblocks``,
 ``fblock_rows``, ``fblock_cols``: the follow matrix as its nonzero 128 x
 128 blocks) and its container split ``sparse_partition``, which the
-engine's multiblock routing rule reads (``_multiblock_container_wins``);
-no kernel of the port reads the blocks yet (the container tier is still
-to be ported).
+engine's multiblock routing rule reads (``_multiblock_container_wins``)
+and the container tier's tables are built from
+(``ops/scan_sparse.device_sparse_tables``).
 """
 from __future__ import annotations
 

@@ -10,28 +10,33 @@ dense program of up to 256 states to the 8-state SWAR tier when
 does, else to the matmul tier (``PallasScanner``). A sparse program (over
 1024 states) whose follow matrix decomposes (``bitband_spec``) and whose
 lanes fit ``SPARSE_LANES_MAX`` goes to the bitband tier
-(``BitbandScanner``); so does a multiblock program (257..1024 states) for
+(``BitbandScanner``), any other sparse one to the container tier
+(``SparseScanner``); so does a multiblock program (257..1024 states) for
 which the JAX engine prefers the container kernels to the dense matmul
-(:meth:`ScanEngine._multiblock_container_wins`) and which decomposes.
+(:meth:`ScanEngine._multiblock_container_wins`): the bitband tier when it
+decomposes, the container tier else. ``RRX_BITBAND=0`` (``bitband``) sends
+both to the container tier.
 
 With an accept map (``accept_map`` [lanes, G * P], ``channels_per_record``
 P: the multi-pattern interface of ``MultiPattern``'s combined automaton)
 there is no counting plan, no SWAR tier, no seeded alias unless P = 1 and
 no window plan: the program runs on the u32-word tier when ``word_spec``
 takes its channels, else on the matmul tier (or, multiblock or sparse, on
-the bitband tier as above), ``match_stats`` returns [B * P] per statistic,
-and every primitive that reads one accept set raises.
+the bitband or container tier as above), ``match_stats`` returns [B * P]
+per statistic, and every primitive that reads one accept set raises.
 
 A whole-pattern ``X{m,n}`` on the multiblock or sparse tier with no
-counting plan may have a seeded alias (:func:`seeded_alias_program`): its
-seeded primitives (match stats, forward flags, reverse hits, the lazy
-anchored rescan, both bitmaps) run on the alias's engine, as in the JAX
-package. Its own scanner, where the port has one (the bitband tier),
-takes the rest; where the JAX engine runs the program on the container
-tier or the dense multiblock matmul (not ported yet), every primitive that
-needs the original program raises ``NotImplementedError`` naming the
-tier. A multiblock or sparse program that the port can neither route nor
-alias is refused at construction; ROADMAP.md queues those tiers.
+counting plan may have a seeded alias (:func:`seeded_alias_program`,
+``RRX_ALIAS``): its seeded primitives (match stats, forward flags, reverse
+hits, the lazy anchored rescan, both bitmaps) run on the alias's engine,
+as in the JAX package, and its own scanner takes the rest. Where the JAX
+engine runs a program on the dense multiblock matmul (not ported yet),
+every primitive that needs the original program raises
+``NotImplementedError`` naming the tier; a program that the port can
+neither route nor alias is refused at construction, and so is one over the
+container kernels' caps (``SPARSE_PARTIAL_MAX`` partial blocks,
+``SPARSE_LANES_MAX`` lanes), which the JAX engine sends to its XLA
+backend. ROADMAP.md queues both.
 
 A sparse program on its own scanner may have a prefilter
 (:func:`relaxed_prefilter_program`): a tiny superset-language program
@@ -56,7 +61,7 @@ from .ops import scan_xla as sx
 DENSE_TIERS = ("dense128", "dense256")
 MASK32 = sb.MASK32
 # the JAX package's RRX_BANDED_MAX_DIAGS / RRX_SPARSE_PARTIAL_MAX defaults,
-# read by the multiblock routing rule (_multiblock_container_wins)
+# read by the routing rules (_multiblock_container_wins, _big_tier)
 BANDED_MAX_DIAGS = 8
 SPARSE_PARTIAL_MAX = 120
 
@@ -76,7 +81,10 @@ def seeded_alias_program(prog: DeviceProgram):
     if prog.tier not in ("multiblock", "sparse"):
         return None
     from .ops.scan_pallas import counting_plan
+    from .utils.config import get_config
 
+    if not get_config().seeded_alias:
+        return None
     if counting_plan(prog) is not None:
         return None  # the counting tier already collapses it
     try:
@@ -206,29 +214,34 @@ class ScanEngine:
                                           nullable=nullable)
 
     def _big_tier(self, prog: DeviceProgram, accept_map, nullable):
-        """(BitbandScanner or None, the tier the JAX engine takes) of a
-        multiblock or sparse program without a counting plan: the JAX
-        engine's rule (``engine.py:235-328``). A sparse program takes the
-        bitband tier when ``bitband_spec`` decomposes it and its lanes fit
-        ``SPARSE_LANES_MAX``, else the container tier; a multiblock program
-        takes the container tier's place (bitband when it decomposes,
-        containers else) when :meth:`_multiblock_container_wins`, else the
-        dense multiblock matmul."""
+        """(scanner or None, the tier the JAX engine takes) of a multiblock
+        or sparse program without a counting plan: the JAX engine's rule
+        (``engine.py:235-328``). A sparse program takes the bitband tier
+        when ``bitband`` is on, ``bitband_spec`` decomposes it and its lanes
+        fit ``SPARSE_LANES_MAX``, else the container tier; a multiblock
+        program takes the bitband tier (when it decomposes) or the container
+        tier when :meth:`_multiblock_container_wins`, else the dense
+        multiblock matmul (None: not ported). A container program over
+        ``SPARSE_PARTIAL_MAX`` partial blocks or ``SPARSE_LANES_MAX`` lanes
+        raises: the JAX engine runs it on its XLA backend."""
         from .ops.scan_bitband import SPARSE_LANES_MAX, BitbandScanner, bitband_spec
+        from .ops.scan_sparse import SparseScanner
+        from .utils.config import get_config
 
-        if prog.tier == "sparse":
-            spec = bitband_spec(prog)
-            if spec is not None and prog.s_pad <= SPARSE_LANES_MAX:
-                return BitbandScanner(prog, self.device, spec, accept_map=accept_map,
-                                      nullable=nullable), "the bitband tier"
-            return None, "the container tier"
-        if not self._multiblock_container_wins(prog):
+        if prog.tier != "sparse" and not self._multiblock_container_wins(prog):
             return None, "the dense multiblock matmul tier"
-        spec = bitband_spec(prog)
-        if spec is not None:
+        spec = bitband_spec(prog) if get_config().bitband else None
+        if spec is not None and prog.s_pad <= SPARSE_LANES_MAX:
             return BitbandScanner(prog, self.device, spec, accept_map=accept_map,
                                   nullable=nullable), "the bitband tier"
-        return None, "the container tier"
+        npart = len(prog.sparse_partition[0])
+        if npart > SPARSE_PARTIAL_MAX or prog.s_pad > SPARSE_LANES_MAX:
+            raise NotImplementedError(self._unported(
+                f"{npart} partial blocks and {prog.s_pad} lanes, over the container kernels' "
+                f"caps ({SPARSE_PARTIAL_MAX} partial blocks, {SPARSE_LANES_MAX} lanes), so the "
+                "JAX package runs it on its XLA backend"))
+        return SparseScanner(prog, self.device, accept_map=accept_map,
+                             nullable=nullable), "the container tier"
 
     @staticmethod
     def _multiblock_container_wins(prog: DeviceProgram) -> bool:
@@ -256,8 +269,8 @@ class ScanEngine:
         return (
             f"{p.pattern!r}: tier {p.tier}, {p.n_states} states ({why}); the port has the "
             "SWAR, u32-word and matmul tiers for dense programs of up to 256 states, the "
-            "counting tier, the bitband tier and the seeded alias; the container tier and "
-            "the dense multiblock matmul tier are still to be ported (see ROADMAP.md)"
+            "counting, bitband and container tiers and the seeded alias; the dense multiblock "
+            "matmul tier and the XLA backend are still to be ported (see ROADMAP.md)"
         )
 
     def _one_channel(self, what: str) -> None:
@@ -283,8 +296,8 @@ class ScanEngine:
     @property
     def device_scanner(self):
         """The selected kernel scanner (SwarScanner, WordScanner,
-        PallasScanner, CountScanner or BitbandScanner), or None for a
-        program that runs only through its seeded alias."""
+        PallasScanner, CountScanner, BitbandScanner or SparseScanner), or
+        None for a program that runs only through its seeded alias."""
         return self._scanner
 
     # -- seeded alias: X{m,n} == X{m,} under seeded semantics --------------
@@ -524,7 +537,9 @@ class ScanEngine:
         longest, the POSIX policy). The lazy end of X{m,n} and of its
         seeded alias X{m,} is the same m-copy chain; the greedy end
         observes n and stays on the original. A scanner without anchored
-        kernels (the counting tier) answers with ``scan_xla.first_end_from``."""
+        kernels (the counting and container tiers) answers with
+        ``scan_xla.first_end_from`` (the JAX engine's ``scan_packed`` on a
+        multiblock program computes the same function)."""
         self._one_channel("first_end_from")
         alias = self._seeded_alias()
         if not longest and alias is not None:

@@ -56,6 +56,10 @@ _BB_HEAD = [
     _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
     _P, _P, _I, _I, _P,  # tab, meta, W, n_rows, live
 ]
+_SP_HEAD = [
+    _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
+    _P, _I, _P, _I, _I, _I, _P, _P,  # tab, n_tab, meta, n_meta, W, global_tab, live, next
+]
 _STATS_TAIL = [_I, _I, _I, _P, _P, _P, _P]  # seeded, lead, nullable, cnt, first, last, full
 # every entry point: its head, its own arguments, then the stream. The
 # order of the first fifteen and of the four long-string kernels (17-20) is
@@ -93,6 +97,10 @@ ARGTYPES = {
     "rrx_bitband_anchor_end": _BB_HEAD + [_P, _I, _P, _P],  # starts, longest, end
     # hits, cap, longest, starts, ends, cnt, over
     "rrx_bitband_spans": _BB_HEAD + [_P, _I, _I, _P, _P, _P, _P, _P],
+    # the container tier (scan_sparse.cu): rrx_sparse_occupancy's index
+    "rrx_sparse_stats": _SP_HEAD + [_I, _I, _P, _P, _P, _P, _P],  # seeded, nullable, ...
+    "rrx_sparse_flags": _SP_HEAD + [_I, _P, _P],  # seeded, words
+    "rrx_sparse_reverse": _SP_HEAD + [_P, _P],  # hits
 }
 KERNELS = tuple(ARGTYPES)
 
@@ -193,6 +201,10 @@ def library() -> ctypes.CDLL:
     lib.rrx_occupancy_channels.restype = _I
     lib.rrx_bitband_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
     lib.rrx_bitband_occupancy.restype = _I
+    lib.rrx_sparse_occupancy.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.rrx_sparse_occupancy.restype = _I
+    lib.rrx_sparse_threads_per_block.argtypes = []
+    lib.rrx_sparse_threads_per_block.restype = _I
     lib.rrx_bitband_threads_per_block.argtypes = []
     lib.rrx_bitband_threads_per_block.restype = _I
     lib.rrx_threads_per_block.argtypes = []

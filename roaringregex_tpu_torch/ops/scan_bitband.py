@@ -584,7 +584,9 @@ def stats_plain(data, lengths, tables: BitbandTables, *, seeded: bool, nullable:
     """Plain version of ``rrx_bitband_stats`` (the TPU's
     ``_bitband_match_kernel_b``): a loop over the L + 2 stream steps,
     vectorised over records and accept channels. Returns (cnt, first,
-    last, full), each [R, C].
+    last, full), each [R, C]. ``tables`` gives the stepper
+    (``tables.plain(device)``: ``empty``, ``step``, ``flags``) and ``C``;
+    the container tier's tables run the same loop (``scan_sparse``).
 
     Per step: the seed ORs in at every step when seeded, at steps t < 2
     when not; a channel's flag has end e = min(t, len): cnt counts flags

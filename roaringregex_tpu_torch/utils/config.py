@@ -35,6 +35,20 @@ class RrxConfig:
         default_factory=lambda: _env_int("RRX_SWAR_WINDOW_COLS", 1024)
     )
 
+    # seeded-alias rewrite of a whole-pattern X{m,n} on the multiblock and
+    # sparse tiers (engine.seeded_alias_program: its seeded primitives run
+    # on the X{m,} alias); RRX_ALIAS=0 keeps the original program, on its
+    # own tier, for every primitive
+    seeded_alias: bool = field(
+        default_factory=lambda: os.environ.get("RRX_ALIAS", "1") != "0"
+    )
+    # the bitband tier for multiblock and sparse programs whose follow
+    # matrix decomposes (engine._big_tier); RRX_BITBAND=0 sends them to the
+    # container tier
+    bitband: bool = field(
+        default_factory=lambda: os.environ.get("RRX_BITBAND", "1") != "0"
+    )
+
     # prefilter of the sparse tier: a tiny superset-language scan first,
     # the heavy kernels only on the compacted candidate records
     # (engine.relaxed_prefilter_program)

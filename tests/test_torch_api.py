@@ -11,6 +11,8 @@ import torch
 
 import roaringregex_tpu as jax_rrx
 import roaringregex_tpu_torch as rrx
+from roaringregex_tpu.compiler.nfa import build_nfa
+from roaringregex_tpu.oracle.engine import OracleEngine
 
 torch.set_num_threads(1)
 
@@ -52,11 +54,15 @@ def test_pattern_entry_points_match_jax(pattern, scanner, maxlen):
     np.testing.assert_array_equal(port.search_batch(texts), np.asarray(ref.search_batch(texts)))
     np.testing.assert_array_equal(port.fullmatch_batch(texts), np.asarray(ref.fullmatch_batch(texts)))
     assert port.grep(texts) == ref.grep(texts)
-    for t in ["cat", "abc.log", "ababcc"]:
-        a, b = port.fullmatch(t), ref.fullmatch(t)
-        assert (a is None) == (b is None), t
-        if a is not None:
-            assert a.span() == b.span() and a.group() == b.group()
+    # the JAX Pattern's fullmatch of each single text, in one batch with
+    # ``texts`` (the shape its fullmatch_batch compiled; records are
+    # independent)
+    singles = ["cat", "abc.log", "ababcc"]
+    full = np.asarray(ref.fullmatch_batch(singles + texts))
+    for t, f in zip(singles, full):
+        a = port.fullmatch(t)
+        assert (a is None) == (not f), t
+        assert a is None or (a.span(), a.group()) == ((0, len(t)), t.encode())
 
 
 def test_windowed_api_route():
@@ -68,11 +74,21 @@ def test_windowed_api_route():
 
 
 def test_unported_tier_raises():
-    # a{1,300} runs on the counting tier and x{2,300}y on the bitband tier;
-    # a*b{1,300} has neither a counting plan nor a seeded alias, and its
-    # container tier is not ported
-    with pytest.raises(NotImplementedError, match=r"multiblock, 302 states.*ROADMAP"):
-        rrx.compile("a*b{1,300}", "cpu")
+    """a*b{1,300} has neither a counting plan nor a seeded alias: it runs on
+    the container tier (the JAX ``SparseScanner``), which answers every
+    entry point as the oracle does."""
+    pat = rrx.compile("a*b{1,300}", "cpu")
+    assert type(pat.engine.device_scanner).__name__ == "SparseScanner"
+    orc = OracleEngine(build_nfa("a*b{1,300}"))
+    texts = [b"", b"b", b"aab", b"xaabbx", b"ab" * 20, b"a" * 30, b"c" + b"b" * 310 + b"ab"]
+    ends = [sorted(orc.ends(t)) for t in texts]
+    np.testing.assert_array_equal(pat.count_batch(texts), [len(e) for e in ends])
+    np.testing.assert_array_equal(pat.search_batch(texts), [bool(e) for e in ends])
+    np.testing.assert_array_equal(pat.fullmatch_batch(texts), [orc.fullmatch(t) for t in texts])
+    assert pat.ends_batch(texts) == ends
+    for longest in (False, True):
+        assert pat.finditer_batch(texts, longest=longest) == [
+            list(orc.finditer(t, longest=longest)) for t in texts]
 
 
 def test_import_leaves_jax_out():

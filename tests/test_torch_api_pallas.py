@@ -1,8 +1,8 @@
 """The port's engine and ``Pattern`` on the matmul tier (CPU, plain PyTorch
 versions) against the JAX package (Pallas interpret mode): the scanner the
-engine picks for each pattern (the counting and bitband tiers' too), the
-programs it refuses, the ``Pattern`` entry points on 33..256-state programs, and the
-engine-level window plan."""
+engine picks for each pattern (the counting, bitband and container tiers'
+too), the programs it refuses, the ``Pattern`` entry points on 33..256-state
+programs, and the engine-level window plan."""
 import functools
 import re
 
@@ -16,25 +16,43 @@ from roaringregex_tpu.compiler.program import compile_program as jax_compile
 from roaringregex_tpu.engine import ScanEngine as JaxEngine
 from roaringregex_tpu.utils import config as jax_config
 from roaringregex_tpu_torch.utils import config as port_config
+from roaringregex_tpu.oracle.engine import OracleEngine
 from test_torch_pallas import HTTP, K7, K16, K30, NAMES, PATTERNS
 
 torch.set_num_threads(1)
 
+
+def _keywords(n: int):
+    """K30's words and n - 30 more (lowercase, 5-9 letters, none a prefix of
+    another)."""
+    rng = np.random.default_rng(40)
+    words = K30[1:-1].split("|")
+    while len(words) < n:
+        w = bytes(rng.integers(97, 123, size=int(rng.integers(5, 10))).astype(np.uint8)).decode()
+        if not any(a.startswith(w) or w.startswith(a) for a in words):
+            words.append(w)
+    return words
+
+
+K40 = "(" + "|".join(_keywords(40)) + ")"  # multiblock, 286 states: containers
+K60_PLUS = "(" + "|".join(_keywords(60)) + ")+"  # multiblock, 427 states: dense matmul
 # the scanner each package's engine picks: the SWAR and u32-word tiers, the
-# matmul tier, (then three) the counting tier, and (the last three) the
-# bitband tier: config 10 and two banded multiblock programs
+# matmul tier, (then three) the counting tier, (then three) the bitband
+# tier: config 10 and two banded multiblock programs, and (the last five)
+# the container tier: two multiblock programs, a 40-word alternation, and
+# config 13 and x(abc|de){1,300}y (sparse)
 ROUTED = [p for p, _ in PATTERNS] + [
     "cat|dog", "(ab)*c+d?", "^[a-z]{3,8}[.]log$", "(cat|dog|bird)+",
     "a{1,120}", "(ab){2,60}", "a{1,300}",
     "x(ab|c){400,520}y", "(ab|c){100,130}", "x{2,300}y",
+    "a*b{1,300}", "(ab|c){2,120}d", K40, "(abc|de){1,300}", "x(abc|de){1,300}y",
 ]
+NAMES = {**NAMES, K40: "K40", K60_PLUS: "K60+"}
 # programs with neither a counting plan nor a seeded alias, which the JAX
-# engine runs on the container tier or the dense multiblock matmul, not
-# ported yet
+# engine runs on the dense multiblock matmul, not ported yet
 REFUSED = [
-    ("a*b{1,300}", "multiblock, 302 states"),
-    ("(ab|c){2,120}d", "multiblock, 362 states"),
     ("x(ab|c){300,}y", "multiblock, 903 states"),
+    (K60_PLUS, "multiblock, 427 states"),
 ]
 WORDS = [b"error", b"warning", b"critical", b"fatal", b"exception", b"timeout", b"refused",
          b"oom", b"leak", b"deadlock", b"unauthorized"]
@@ -67,24 +85,57 @@ def test_routing_identity(pattern):
     assert type(port).__name__ == type(ref).__name__
 
 
-@pytest.mark.parametrize("pattern,why", REFUSED)
+@pytest.mark.parametrize("pattern", ["x[ab]{0,400}c", "x(ab|c){400,520}y"])
+def test_routing_identity_without_bitband(pattern):
+    """RRX_BITBAND=0 sends bitband programs to the container tier in both
+    packages."""
+    old_j, old_p = jax_config.get_config(), port_config.get_config()
+    jax_config.set_config(old_j.with_(bitband=False))
+    port_config.set_config(old_p.with_(bitband=False))
+    try:
+        port = rrx.compile(pattern, "cpu").engine.device_scanner
+        ref = JaxEngine(jax_compile(pattern), backend="pallas").device_scanner
+    finally:
+        jax_config.set_config(old_j)
+        port_config.set_config(old_p)
+    assert type(port).__name__ == type(ref).__name__ == "SparseScanner"
+
+
+@pytest.mark.parametrize("pattern,why", REFUSED, ids=lambda p: NAMES.get(p, p))
 def test_refused_tiers_raise(pattern, why):
     ref = JaxEngine(jax_compile(pattern), backend="pallas")
-    name = type(ref.device_scanner).__name__
-    assert name == "SparseScanner" or (name == "PallasScanner" and ref.prog.tier == "multiblock")
+    assert type(ref.device_scanner).__name__ == "PallasScanner" and ref.prog.tier == "multiblock"
     assert ref._seeded_alias() is None
-    with pytest.raises(NotImplementedError, match=why + ".*ROADMAP"):
+    with pytest.raises(NotImplementedError, match=why + ".*dense multiblock matmul.*ROADMAP"):
         rrx.compile(pattern, "cpu")
 
 
+@pytest.mark.parametrize("pattern", ["a*b{1,300}", "(ab|c){2,120}d"])
+def test_container_programs_answer(pattern):
+    """Two multiblock programs with neither a counting plan nor a seeded
+    alias run on the container tier: counts, search and fullmatch against
+    the oracle."""
+    pat = rrx.compile(pattern, "cpu")
+    assert type(pat.engine.device_scanner).__name__ == "SparseScanner"
+    orc = OracleEngine(jax_compile(pattern).nfa)
+    texts = [b"", b"b", b"cabd", b"xaabbd", b"ab" * 20 + b"d", b"c" * 3 + b"d" + b"b" * 4, b"abcd"]
+    ends = [sorted(orc.ends(t)) for t in texts]
+    assert sum(map(len, ends)) > 0
+    np.testing.assert_array_equal(pat.count_batch(texts), [len(e) for e in ends])
+    np.testing.assert_array_equal(pat.search_batch(texts), [bool(e) for e in ends])
+    np.testing.assert_array_equal(pat.fullmatch_batch(texts), [orc.fullmatch(t) for t in texts])
+
+
 def test_alias_program_unseeded_call_raises():
-    """Config 13 builds (its seeded scans run on its 6-state alias), but a
-    scan that needs the original program raises, naming its tier."""
+    """Config 13's seeded scans run on its 6-state alias and a scan that
+    needs the original program on its container tier: fullmatch equals
+    the oracle's."""
     pat = rrx.compile("(abc|de){1,300}", "cpu")
-    assert pat.engine.device_scanner is None
+    assert type(pat.engine.device_scanner).__name__ == "SparseScanner"
     assert pat.search_batch([b"xabcx", b"dd"]).tolist() == [True, False]
-    with pytest.raises(NotImplementedError, match="sparse, 1501 states.*ROADMAP"):
-        pat.fullmatch_batch([b"abc"])
+    orc = OracleEngine(jax_compile("(abc|de){1,300}").nfa)
+    texts = [b"abc", b"abcde", b"abcd", b"", b"de" * 300, b"de" * 301, b"xabc"]
+    assert pat.fullmatch_batch(texts).tolist() == [orc.fullmatch(t) for t in texts]
 
 
 @pytest.mark.parametrize("pattern", [K7, K30], ids=["K7", "K30"])
@@ -103,11 +154,26 @@ def test_pattern_entry_points_match_jax(pattern):
         # no keyword is a prefix of another: re's spans are both policies'
         assert got == [[m.span() for m in rx.finditer(t)] for t in texts]
     singles = (b"xxerror", b"timeout", b"no match") if pattern == K7 else ()
-    for t in singles:
-        for fn in ("search", "match", "fullmatch"):
-            a, b = getattr(port, fn)(t), getattr(ref, fn)(t)
-            assert (a is None) == (b is None), (fn, t)
-            assert a is None or (a.span(), a.group()) == (b.span(), b.group()), (fn, t)
+    if singles:
+        # the JAX Pattern's search (its first lazy span), match (the
+        # anchored end from 0) and fullmatch of each single text, run in one
+        # batch with ``texts`` so that they reuse the batch's interpret-mode
+        # compiles (records are independent)
+        batch = list(singles) + texts
+        spans = ref.finditer_batch(batch)
+        full = np.asarray(ref.fullmatch_batch(batch))
+        data, lengths, _, _ = ref._pack(batch)
+        starts = np.full(data.shape[0], -1, np.int32)
+        starts[: len(singles)] = 0
+        ends = np.asarray(ref.engine.first_end_from(data, lengths, starts))
+    for i, t in enumerate(singles):
+        want = {"search": spans[i][0] if spans[i] else None,
+                "match": (0, int(ends[i])) if ends[i] >= 0 else None,
+                "fullmatch": (0, len(t)) if full[i] else None}
+        for fn, w in want.items():
+            a = getattr(port, fn)(t)
+            assert (a is None) == (w is None), (fn, t)
+            assert a is None or (a.span(), a.group()) == (w, t[w[0] : w[1]]), (fn, t)
 
 
 def test_anchored_pattern_matches_jax():

@@ -38,18 +38,44 @@ def test_finditer_batch_matches_jax(pattern, longest):
     assert port.finditer_batch(texts, longest=longest) == ref.finditer_batch(texts, longest=longest)
 
 
+def _jax_spans(ref, texts, *, longest: bool = False):
+    """The JAX Pattern's spans of ``texts``, run in one batch with
+    ``_texts()`` so that it packs to the shape of
+    test_finditer_batch_matches_jax's batch and reuses its interpret-mode
+    compiles (records are independent: each one's spans do not depend on
+    the rest of the batch)."""
+    return ref.finditer_batch(list(texts) + _texts(), longest=longest)[: len(texts)]
+
+
+def _jax_match_ends(ref, texts):
+    """The JAX Pattern's ``match`` end of each text (-1 = none; a nullable
+    program matches the empty prefix without a scan, as ``match`` does),
+    from one ``first_end_from`` over the batch of :func:`_jax_spans`."""
+    if ref.program.nullable:
+        return [0] * len(texts)
+    data, lengths, _, _ = ref._pack(list(texts) + _texts())
+    starts = np.full(data.shape[0], -1, np.int32)
+    starts[: len(texts)] = 0
+    return np.asarray(ref.engine.first_end_from(data, lengths, starts))[: len(texts)].tolist()
+
+
 @pytest.mark.parametrize("pattern", ["cat|dog", "^a+", "a|ab", "a*"])
 def test_single_string_entry_points_match_jax(pattern):
+    """search, match, finditer and findall of single strings against the
+    JAX Pattern's answers for the same strings (``search`` is the first
+    lazy span, ``finditer`` the spans, ``match`` the anchored end from 0)."""
     port, ref = _both(pattern)
-    for t in SINGLE_TEXTS:
-        for name in ("search", "match"):
-            a, b = getattr(port, name)(t), getattr(ref, name)(t)
-            assert (a is None) == (b is None), (pattern, name, t)
-            if a is not None:
-                assert (a.span(), a.group()) == (b.span(), b.group()), (pattern, name, t)
-        want = list(ref.finditer(t))
-        assert [m.span() for m in port.finditer(t)] == [m.span() for m in want], (pattern, t)
-        assert port.findall(t) == [m.group() for m in want], (pattern, t)
+    spans = _jax_spans(ref, SINGLE_TEXTS)
+    ends = _jax_match_ends(ref, SINGLE_TEXTS)
+    for t, want, e in zip(SINGLE_TEXTS, spans, ends):
+        a = port.search(t)
+        assert (a is None) == (not want), (pattern, "search", t)
+        assert a is None or (a.span(), a.group()) == (want[0], t[want[0][0] : want[0][1]])
+        a = port.match(t)
+        assert (a is None) == (e < 0), (pattern, "match", t)
+        assert a is None or (a.span(), a.group()) == ((0, e), t[:e]), (pattern, "match", t)
+        assert [m.span() for m in port.finditer(t)] == want, (pattern, t)
+        assert port.findall(t) == [t[s:e_] for s, e_ in want], (pattern, t)
 
 
 @pytest.mark.parametrize(
@@ -63,7 +89,7 @@ def test_single_string_entry_points_match_jax(pattern):
 def test_posix_longest_alternation(pattern, text, want):
     port, ref = _both(pattern)
     got = port.finditer_batch([text], longest=True)[0]
-    assert got == want == ref.finditer_batch([text], longest=True)[0]
+    assert got == want == _jax_spans(ref, [text], longest=True)[0]
     assert [m.span() for m in port.finditer(text, longest=True)] == want
     assert port.findall(text, longest=True) == [text[s:e] for s, e in want]
 
@@ -91,11 +117,12 @@ def test_word_tier_spans_raise():
     texts = [b"abee f", b"cdeef", b"ababeefcdeeef", b""]
     for longest in (False, True):
         got = port.finditer_batch(texts, longest=longest)
-        assert got == ref.finditer_batch(texts, longest=longest), longest
+        assert got == _jax_spans(ref, texts, longest=longest), longest
     assert got[2] == [(0, 7), (7, 13)]
-    for t in (b"abeef", b"abeefx", b"xabeef"):
-        a, b = port.match(t), ref.match(t)
-        assert (a is None) == (b is None) and (a is None or a.span() == b.span()), t
+    singles = (b"abeef", b"abeefx", b"xabeef")
+    for t, e in zip(singles, _jax_match_ends(ref, singles)):
+        a = port.match(t)
+        assert (a is None) == (e < 0) and (a is None or a.span() == (0, e)), t
 
 
 def test_spans_on_cpu_leave_launch_counts():

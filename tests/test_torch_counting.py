@@ -226,17 +226,43 @@ def test_pattern_entry_points_match_jax(pattern):
     port, ref = _api(pattern)
     assert isinstance(port.engine.device_scanner, scan_pallas.CountScanner)
     texts = API_TEXTS
-    for name in ("search_batch", "count_batch", "fullmatch_batch"):
-        np.testing.assert_array_equal(getattr(port, name)(texts), np.asarray(getattr(ref, name)(texts)),
-                                      err_msg=name)
+    # the JAX Pattern's batch entry points, read from the JAX engine of the
+    # scanner tests on the texts laid out in their [33, 320] batch shape,
+    # so that the interpret-mode calls compile once per pattern (a Pattern
+    # reads the same engine calls; records are independent)
+    jeng = _case(pattern)[0]
+    data = np.zeros_like(DATA)
+    lengths = np.zeros_like(LENGTHS)
+    data[: len(texts)], lengths[: len(texts)] = _pack(texts)
+    B, maxlen = len(texts), max(map(len, texts))
+    cnt, _, anym = jeng.match_stats(data, lengths, seeded=True)
+    want = {"search_batch": np.asarray(anym)[:B], "count_batch": np.asarray(cnt)[:B],
+            "fullmatch_batch": np.asarray(jeng.fullmatch_flags(data, lengths))[:B]}
     for name in ("ends_batch", "starts_batch"):
-        assert getattr(port, name)(texts) == getattr(ref, name)(texts), name
+        bm = np.asarray(getattr(jeng, name.replace("_batch", "_bitmap"))(data, lengths, maxlen))
+        want[name] = [[int(p) for p in np.nonzero(bm[i])[0] if p <= lengths[i]] for i in range(B)]
+    for name, w in want.items():
+        got = getattr(port, name)(texts)
+        if isinstance(w, list):
+            assert got == w, name
+        else:
+            np.testing.assert_array_equal(got, w, err_msg=name)
     for longest in (False, True):
         assert port.finditer_batch(texts, longest=longest) == ref.finditer_batch(
             texts, longest=longest), longest
-    for t in texts[-7:]:
-        a, b = port.match(t), ref.match(t)
-        assert (a is None) == (b is None) and (a is None or a.span() == b.span()), t
+    # the JAX Pattern's match (the anchored lazy end from 0) of each of the
+    # last seven texts, in one batch of the texts' packed shape, so that it
+    # reuses the rounds' first_end_from compile (records are independent)
+    singles = texts[-7:]
+    data, lengths, _, _ = ref._pack(singles + texts)
+    starts = np.full(data.shape[0], -1, np.int32)
+    starts[: len(singles)] = 0
+    ends = np.asarray(ref.engine.first_end_from(data, lengths, starts))
+    for t, e in zip(singles, ends.tolist()):
+        a = port.match(t)
+        # a nullable program's match is the empty prefix, without a scan
+        want = (0, 0) if ref.program.nullable else ((0, e) if e >= 0 else None)
+        assert (a is None) == (want is None) and (a is None or a.span() == want), t
 
 
 def test_dump_matches_jax():

@@ -17,6 +17,7 @@ import roaringregex_tpu_torch as rrx
 from roaringregex_tpu.compiler.program import compile_program as jax_compile
 from roaringregex_tpu.engine import ScanEngine as JaxEngine
 from roaringregex_tpu.engine import seeded_alias_program as jax_alias_program
+from roaringregex_tpu.oracle.engine import OracleEngine
 from roaringregex_tpu_torch.compiler.program import compile_program, from_reference
 from roaringregex_tpu_torch.engine import ScanEngine, seeded_alias_program
 from roaringregex_tpu_torch.ops import scan_bits, scan_xla
@@ -122,11 +123,25 @@ def test_engine_bitmaps_parity(pattern, scanner):
 
 @pytest.mark.parametrize("pattern,scanner", PATTERNS, ids=IDS)
 def test_pattern_ends_starts_match_jax(pattern, scanner):
-    port, ref = rrx.compile(pattern, "cpu"), jax_rrx.compile(pattern, backend="pallas")
+    """ends_batch and starts_batch against the JAX Pattern's: its engine's
+    bitmaps, read as ``Pattern.ends_batch`` reads them, of the same texts
+    laid out in ``_case``'s batch shape, so that the interpret-mode words
+    calls compile once per pattern (records are independent)."""
+    jeng, _, data0, _ = _case(pattern)
+    port = rrx.compile(pattern, "cpu")
     texts = [b"", b"cat", b"dogcatxbird", b"GET / HTTP/1.0", b"errorerror timeout",
              b"bcbcabc", b"xx" * 20 + b"cat", b"a" * 40]
+    data = np.zeros_like(data0)
+    lengths = np.zeros(data0.shape[0], np.int32)
+    for i, t in enumerate(texts):
+        data[i, : len(t)] = np.frombuffer(t, np.uint8)
+        lengths[i] = len(t)
+    maxlen = max(map(len, texts))
     for name in ("ends_batch", "starts_batch"):
-        assert getattr(port, name)(texts) == getattr(ref, name)(texts), name
+        bm = np.asarray(getattr(jeng, name.replace("_batch", "_bitmap"))(data, lengths, maxlen))
+        want = [[int(p) for p in np.nonzero(bm[i])[0] if p <= lengths[i]]
+                for i in range(len(texts))]
+        assert getattr(port, name)(texts) == want, name
 
 
 # -- the seeded alias (config 13's route) -----------------------------------
@@ -136,7 +151,8 @@ def test_alias_routing_gates():
     """tests/test_seeded_alias.py::test_alias_routing_gates on the port."""
     eng = rrx.compile(CONFIG13, "cpu").engine
     al = eng._seeded_alias()
-    assert al is not None and al.prog.n_states == 6 and eng.device_scanner is None
+    assert al is not None and al.prog.n_states == 6
+    assert type(eng.device_scanner).__name__ == "SparseScanner"
     assert type(al.device_scanner).__name__ == "SwarScanner"
     ref = jax_alias_program(jax_compile(CONFIG13))
     assert (al.prog.n_states, al.prog.tier, al.prog.s_tile) == (ref.n_states, ref.tier, ref.s_tile)
@@ -188,12 +204,32 @@ def test_alias_pattern_entry_points_match_jax():
         np.testing.assert_array_equal(getattr(port, name)(texts), np.asarray(getattr(ref, name)(texts)))
     for name in ("ends_batch", "starts_batch"):
         assert getattr(port, name)(texts) == getattr(ref, name)(texts), name
-    assert port.finditer_batch(texts) == ref.finditer_batch(texts)
-    for t in texts[-4:]:
-        a, b = port.match(t), ref.match(t)
-        assert (a is None) == (b is None) and (a is None or a.span() == b.span()), t
-        a, b = port.search(t), ref.search(t)
-        assert (a is None) == (b is None) and (a is None or a.span() == b.span()), t
+    spans = ref.finditer_batch(texts)
+    assert port.finditer_batch(texts) == spans
+    # the JAX Pattern's match (the lazy anchored end from 0) and search (the
+    # first lazy span) of the last four texts, from calls on the whole
+    # batch (records are independent)
+    data, lengths, _, _ = ref._pack(texts)
+    ends = np.asarray(ref.engine.first_end_from(data, lengths, np.zeros(data.shape[0], np.int32)))
+    for i in range(len(texts) - 4, len(texts)):
+        t, e = texts[i], int(ends[i])
+        a = port.match(t)
+        assert (a is None) == (e < 0) and (a is None or a.span() == (0, e)), t
+        a = port.search(t)
+        assert (a is None) == (not spans[i]) and (a is None or a.span() == spans[i][0]), t
+
+
+@functools.lru_cache(maxsize=None)
+def _alias_oracle():
+    """The oracle of config 13, the records of ``_alias_case`` and, per
+    record, the ends of the matches that start at 0: the match ends of
+    ``^`` + config 13 (one oracle pass a record; the pattern has no anchors
+    of its own, so these are the prefixes that match whole)."""
+    _, _, _, data, lengths, _ = _alias_case()
+    orc = OracleEngine(jax_compile(CONFIG13).nfa)
+    at0 = OracleEngine(jax_compile("^" + CONFIG13).nfa)
+    recs = [bytes(data[i, : lengths[i]]) for i in range(len(lengths))]
+    return orc, recs, [sorted(at0.ends(t)) for t in recs]
 
 
 @pytest.mark.parametrize("call", [
@@ -201,19 +237,38 @@ def test_alias_pattern_entry_points_match_jax():
     "greedy_spans", "fullmatch_batch", "finditer_longest",
 ])
 def test_alias_unseeded_calls_raise(call):
-    """Every primitive that needs the original program (its bitband or
-    container tier is not ported) raises, naming the tier."""
+    """Every primitive that needs the original program runs on config 13's
+    own container tier and answers as the oracle does; the engine-level
+    span primitives raise as the JAX container scanner has no span kernels
+    (``Pattern`` takes host rounds over the starts bitmap for it)."""
     port, _, texts, data, lengths, starts = _alias_case()
     eng = port.engine
-    calls = {
-        "match_stats": lambda: eng.match_stats(data, lengths, seeded=False),
-        "forward_flags": lambda: eng.forward_flags(data, lengths, seeded=False),
-        "fullmatch_flags": lambda: eng.fullmatch_flags(data, lengths),
-        "first_end_longest": lambda: eng.first_end_from(data, lengths, starts, longest=True),
-        "lazy_spans": lambda: eng.lazy_spans(data, lengths, cap=4),
-        "greedy_spans": lambda: eng.greedy_spans(data, lengths, cap=4),
-        "fullmatch_batch": lambda: port.fullmatch_batch(texts),
-        "finditer_longest": lambda: port.finditer_batch(texts, longest=True),
-    }
-    with pytest.raises(NotImplementedError, match="sparse, 1501 states.*ROADMAP"):
-        calls[call]()
+    orc, recs, prefix = _alias_oracle()
+    if call == "match_stats":
+        cnt, first, anym = eng.match_stats(data, lengths, seeded=False)
+        assert cnt.tolist() == [len(p) for p in prefix]
+        assert first.tolist() == [p[0] if p else -1 for p in prefix]
+        assert anym.tolist() == [bool(p) for p in prefix] and any(prefix)
+    elif call == "forward_flags":
+        fl = eng.forward_flags(data, lengths, seeded=False).numpy()
+        want = np.zeros_like(fl)
+        for i, p in enumerate(prefix):
+            want[i, [e + 1 for e in p]] = True  # column t + 1 = step t ends at t
+        np.testing.assert_array_equal(fl, want)
+    elif call == "fullmatch_flags":
+        assert eng.fullmatch_flags(data, lengths).tolist() == [orc.fullmatch(t) for t in recs]
+    elif call == "first_end_longest":
+        got = eng.first_end_from(data, lengths, starts, longest=True).tolist()
+        ends = [None if s < 0 or s > len(t) else orc.last_end_from(t, s)
+                for t, s in zip(recs, starts.tolist())]
+        assert got == [-1 if e is None else e for e in ends] and max(got) > 0
+    elif call in ("lazy_spans", "greedy_spans"):
+        fn = eng.lazy_spans if call == "lazy_spans" else eng.greedy_spans
+        with pytest.raises(NotImplementedError, match="SparseScanner has no span kernels"):
+            fn(data, lengths, cap=4)
+    elif call == "fullmatch_batch":
+        full = port.fullmatch_batch(texts).tolist()
+        assert full == [orc.fullmatch(t) for t in texts] and any(full)
+    else:
+        got = port.finditer_batch(texts, longest=True)
+        assert got == [list(orc.finditer(t, longest=True)) for t in texts]

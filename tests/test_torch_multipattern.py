@@ -1,7 +1,7 @@
 """The port's ``MultiPattern`` (CPU, plain PyTorch versions) against the JAX
 package's ``MultiPattern(patterns, backend="pallas")`` (Pallas interpret
-mode): the scanner each engine picks for the combined automaton, the
-combined programs the port refuses, the per-channel scanner methods
+mode): the scanner each engine picks for the combined automaton (the
+bitband and container tiers' too), the per-channel scanner methods
 (``match_stats_b`` [B_rows, G * P], ``lazy_spans_mb``), and the entry
 points (``count_batch``, ``search_batch``, ``grep``, lazy and greedy
 ``finditer_batch``) with nullable, ``^``- and ``$``-anchored patterns and
@@ -21,6 +21,7 @@ from roaringregex_tpu.compiler.nfa import build_nfa as jax_build_nfa
 from roaringregex_tpu.compiler.nfa import combine_nfas as jax_combine
 from roaringregex_tpu.compiler.program import compile_program as jax_compile
 from roaringregex_tpu.engine import ScanEngine as JaxEngine
+from roaringregex_tpu.oracle.engine import OracleEngine
 from roaringregex_tpu_torch.ops import scan_pallas, scan_word
 from test_torch_pallas import K7
 
@@ -83,16 +84,30 @@ def test_route_of_the_bench_sets():
     assert (k7.program.n_states, k7.P) == (49, 7)
 
 
+def _oracle_counts(pats, texts):
+    """[B, P] distinct match-end counts per pattern, from the oracle."""
+    orcs = [OracleEngine(jax_build_nfa(p)) for p in pats]
+    return np.array([[len(o.ends(t)) for o in orcs] for t in texts])
+
+
 @pytest.mark.parametrize("pats,tier", [(["a{2,900}", "b{2,300}"], "sparse"),
                                        (["a{3,1200}", "b{2,4}"], "sparse")])
 def test_refused_tiers_raise(pats, tier):
-    """The JAX engine runs these combined programs on its container tier,
-    which is not ported: the port raises, naming the tier."""
+    """The JAX engine runs these combined programs on its bitband or
+    container tier, and so does the port: per-pattern counts, search and
+    grep equal the oracle's, and spans run per pattern."""
     ref = jax_rrx.MultiPattern(pats, backend="pallas")
-    assert ref.program.tier == tier
-    assert type(ref.engine.device_scanner).__name__ in ("BitbandScanner", "SparseScanner")
-    with pytest.raises(NotImplementedError, match=f"tier {tier}.*accept channels.*ROADMAP"):
-        rrx.MultiPattern(pats, "cpu")
+    port = rrx.MultiPattern(pats, "cpu")
+    assert ref.program.tier == port.program.tier == tier
+    name = type(ref.engine.device_scanner).__name__
+    assert name in ("BitbandScanner", "SparseScanner")
+    assert type(port.engine.device_scanner).__name__ == name
+    texts = [b"", b"aa", b"abbb", b"a" * 70 + b"b" * 3, b"xbbaaa", b"b" * 90]
+    want = _oracle_counts(pats, texts)
+    np.testing.assert_array_equal(port.count_batch(texts), want)
+    np.testing.assert_array_equal(port.grep(texts), want > 0)
+    assert port.finditer_batch(texts[:3]) == [rrx.compile(p, "cpu").finditer_batch(texts[:3])
+                                              for p in pats]
 
 
 def test_accept_map_has_no_counting_plan():
@@ -105,8 +120,12 @@ def test_accept_map_has_no_counting_plan():
     ref = JaxEngine(prog, backend="pallas", accept_map=A)
     assert ref._counting is None and JaxEngine(prog, backend="pallas")._counting is not None
     assert rrx.compile("a{1,300}", "cpu").engine.device_scanner is not None
-    with pytest.raises(NotImplementedError, match="tier multiblock"):
-        rrx.MultiPattern(["a{1,300}"], "cpu")
+    mp = rrx.MultiPattern(["a{1,300}"], "cpu")
+    assert mp.engine._counting is None and mp.program.tier == "multiblock"
+    ref_mp = JaxEngine(prog, backend="pallas", accept_map=A, channels_per_record=1)
+    assert type(mp.engine.device_scanner).__name__ == type(ref_mp.device_scanner).__name__
+    texts = [b"", b"a", b"ba" * 3, b"a" * 305]
+    np.testing.assert_array_equal(mp.count_batch(texts), _oracle_counts(["a{1,300}"], texts))
 
 
 @pytest.mark.parametrize("name", ["config6", "K7x7"])

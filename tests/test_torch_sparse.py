@@ -1,0 +1,357 @@
+"""The container tier: the port's ``SparseScanner`` (plain PyTorch versions,
+CPU) against the JAX package's ``SparseScanner`` (Pallas interpret mode),
+and the programs that route to it through ``Pattern`` and ``MultiPattern``
+against the oracle (``roaringregex_tpu/oracle/engine.py``), Python's
+``re`` and the JAX ``MultiPattern``.
+
+Interpret mode compiles each JAX scanner method for 2-10 s at its first
+shape, so the JAX scanner side runs on one small program, (ab|c){2,120}d
+(362 states, 6 partial blocks), and one batch: match statistics seeded and
+unseeded, forward flags, reverse hits, and the same program with two
+accept channels (``functools.lru_cache`` keeps one scanner and one batch).
+Everything else is held to the oracle and ``re``, which cost no compile:
+config 13 (with ``RRX_ALIAS`` on and off), ``x(abc|de){1,300}y`` (also
+behind its prefilter), ``a*b{1,300}``, ``(ab|c){2,120}d``, a 40-word keyword
+alternation, and, with ``RRX_BITBAND=0``, ``x[ab]{0,400}c`` (a full U
+block) and config 10, each on every ``Pattern`` entry point. Every output
+is an integer, a bool or a span: every comparison is exact. The CUDA
+kernels (``rrx_sparse_*``) are held to the same plain versions on the card
+by ``chip_smoke.py``."""
+import functools
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import roaringregex_tpu as jax_rrx
+import roaringregex_tpu_torch as rrx
+from roaringregex_tpu.compiler.program import compile_program as jax_compile
+from roaringregex_tpu.ops import scan_packed as jax_packed
+from roaringregex_tpu.ops import scan_pallas as jax_pallas
+from roaringregex_tpu.oracle.engine import OracleEngine
+from roaringregex_tpu_torch.api import _pack_texts
+from roaringregex_tpu_torch.compiler.program import compile_program, from_reference
+from roaringregex_tpu_torch.engine import ScanEngine
+from roaringregex_tpu_torch.ops import scan_bits as sb
+from roaringregex_tpu_torch.ops import scan_sparse as ss
+from roaringregex_tpu_torch.utils import config as cfg
+from test_torch_pallas import K30
+
+torch.set_num_threads(1)
+
+SMALL = "(ab|c){2,120}d"  # multiblock, 362 states, 6 partial blocks
+CONFIG13 = "(abc|de){1,300}"  # sparse, 1501 states, 78 partial blocks
+CONFIG10 = "x(ab|c){400,520}y"
+K30_WORDS = K30[1:-1].split("|")
+
+
+def _k40_words():
+    """K30's words and 10 more (lowercase, 5-9 letters, none a prefix of
+    another, so every span policy parses a match one way)."""
+    rng = np.random.default_rng(40)
+    words = list(K30_WORDS)
+    while len(words) < 40:
+        w = bytes(rng.integers(97, 123, size=int(rng.integers(5, 10))).astype(np.uint8)).decode()
+        if not any(a.startswith(w) or w.startswith(a) for a in words):
+            words.append(w)
+    return words
+
+
+K40_WORDS = _k40_words()
+K40 = "(" + "|".join(K40_WORDS) + ")"  # multiblock, 286 states
+
+
+@pytest.fixture
+def knobs():
+    """Set config knobs (``RRX_ALIAS``, ``RRX_BITBAND``) for one test and
+    restore them after it."""
+    base = cfg.get_config()
+    yield lambda **kw: cfg.set_config(base.with_(**kw))
+    cfg.set_config(base)
+
+
+def _eq(got, want, what):
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=what)
+
+
+# -- the scanner against the JAX SparseScanner ----------------------------------
+
+
+def _batch():
+    """[16, 64] records over a..e and x: chains of (ab|c) planted (at byte
+    0 in every fourth record, one of them a whole record), the empty
+    record, a full-width one and bytes 0x00, 0x80, 0xff."""
+    rng = np.random.default_rng(5)
+    data = rng.choice(np.frombuffer(b"abcdex", np.uint8), size=(16, 64)).astype(np.uint8)
+    lengths = rng.integers(0, 65, size=16).astype(np.int32)
+    for i in range(0, 16, 2):
+        body = b"".join(rng.choice([b"ab", b"c"], size=int(rng.integers(1, 20)))) + b"d"
+        at = 0 if i % 4 == 0 else int(rng.integers(0, 64 - len(body) + 1))
+        data[i, at : at + len(body)] = np.frombuffer(body, np.uint8)
+        if i == 4:
+            lengths[i] = len(body)
+    data[3, :6] = np.frombuffer(b"\x00c\x80cd\xff", np.uint8)
+    lengths[:3] = (64, 0, 64)
+    return data, lengths.reshape(-1, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _case(channels: int):
+    """(JAX SparseScanner, the port's SparseScanner, data, len_g) of SMALL
+    with one accept channel, or two: its accept state and the states that
+    read a 'c'."""
+    ref = jax_compile(SMALL)
+    amap = None
+    if channels == 2:
+        amap = np.zeros((ref.s_pad, 2), np.uint8)
+        amap[:, 0] = ref.accept
+        amap[: ref.n_states, 1] = ref.nfa.symtab[ord("c")]
+    jsc = jax_pallas.SparseScanner(ref, jax_packed.stream_tables(ref), accept_map=amap)
+    psc = ScanEngine(from_reference(ref), "cpu", accept_map=amap,
+                     channels_per_record=channels).device_scanner
+    assert type(psc) is ss.SparseScanner and psc.n_partial == 6
+    return jsc, psc, *_batch()
+
+
+@pytest.mark.parametrize("channels,seeded", [(1, True), (1, False), (2, True)])
+def test_match_stats_match_jax(channels, seeded):
+    jsc, psc, data, len_g = _case(channels)
+    want = jsc.match_stats_b(jnp.asarray(data), jnp.asarray(len_g), seeded=seeded)
+    got = psc.match_stats_b(torch.from_numpy(data), torch.from_numpy(len_g), seeded=seeded)
+    for name, x, y in zip(("cnt", "first", "last", "full", "any"), got, want, strict=True):
+        _eq(x.reshape(16, channels), np.asarray(y).reshape(16, channels), name)
+    assert int(got[0].sum()) > 0
+
+
+def test_forward_flags_match_jax():
+    jsc, psc, data, len_g = _case(1)
+    want = jsc.forward_flags_b(jnp.asarray(data), jnp.asarray(len_g), seeded=True)
+    got = psc.forward_flags_b(torch.from_numpy(data), torch.from_numpy(len_g), seeded=True)
+    _eq(got, want, "flags")
+    assert int(got[:, 1:].sum()) > 0
+
+
+@pytest.mark.parametrize("seeded", [True, False], ids=["seeded", "unseeded"])
+def test_channel_flags_equal_one_channel_scans(seeded):
+    """Two accept channels' flags, record-major and channel-minor, equal the
+    flags of two one-channel scans with each channel as the accept set."""
+    _, psc, data, len_g = _case(2)
+    got = psc.forward_flags_b(torch.from_numpy(data), torch.from_numpy(len_g), seeded=seeded)
+    prog, amap = psc.prog, psc.tables.accs.T.astype(np.uint8)
+    for c in range(2):
+        one = ScanEngine(prog, "cpu", accept_map=amap[:, c : c + 1]).device_scanner
+        want = one.forward_flags_b(torch.from_numpy(data), torch.from_numpy(len_g), seeded=seeded)
+        _eq(got[c::2], want, f"channel {c}")
+        assert int(want[:, 1:].sum()) > 0
+
+
+def test_reverse_hits_match_jax():
+    jsc, psc, data, len_g = _case(1)
+    want = jsc.reverse_hits_b(jnp.asarray(data), jnp.asarray(len_g))
+    got = psc.reverse_hits_b(torch.from_numpy(data), torch.from_numpy(len_g))
+    _eq(got, want, "reverse hits")
+    assert int(got.sum()) > 0
+
+
+def test_channels_refuse_one_accept_set_primitives():
+    _, psc, data, len_g = _case(2)
+    with pytest.raises(ValueError, match="2 accept channels"):
+        psc.hits_words_b(torch.from_numpy(data), torch.from_numpy(len_g))
+
+
+def test_full_block_and_hand_built_partition():
+    """The full U block of x[ab]{0,400}c (RRX_BITBAND=0's only route to
+    one), and a hand-built partition with a U block that the forward and
+    the reverse step cross both ways, against the same program stepped
+    through its dense follow matrix."""
+    prog = compile_program("x[ab]{0,400}c")
+    pb, prow, pcol, U = prog.sparse_partition
+    assert int(U.sum()) == 1 and len(pb) == 9
+    # a 256-state program: block (0, 1) full, block (1, 0) partial
+    S = 256
+    F = np.zeros((S, S), np.uint8)
+    F[0:128, 128:256] = 1
+    F[130, 5] = F[200, 7] = 1
+    amap = np.zeros((S, 1), np.uint8)
+    amap[7, 0] = 1
+    tables = ss.device_sparse_tables(prog, "cpu")  # a template for the layout
+    pt = tables.plain("cpu")
+    part = (np.stack([F[128:, :128]]) != 0, np.array([1]), np.array([0]),
+            np.array([[0, 1], [0, 0]], bool))
+    hand = tables._replace(part=part, masks=np.ones((tables.masks.shape[0], S), bool),
+                           accs=amap.T != 0, acc=amap[:, 0] != 0)
+    hp = hand.plain("cpu")
+    assert hp.pb.shape == (1, 128, 128) and pt.U.sum() == 1
+    v = torch.zeros((3, S), dtype=torch.bool)
+    v[0, 0] = v[1, 130] = v[2, 200] = True
+    dense = torch.from_numpy(F).to(torch.float32)
+    _eq(hp._expand(v, False), (v.to(torch.float32) @ dense) > 0, "forward")
+    _eq(hp._expand(v, True), (v.to(torch.float32) @ dense.T) > 0, "reverse")
+
+
+# -- Pattern against the oracle and re ---------------------------------------------
+
+
+def _chain(rng, pattern: str, k: int) -> bytes:
+    """A chain of k copies of the program's repeated body, with its head and
+    tail bytes where it has them."""
+    if pattern.startswith("a*b"):
+        return b"a" * int(rng.integers(0, 4)) + b"b" * k
+    if pattern.startswith("x[ab]"):
+        return b"x" + bytes(rng.choice(np.frombuffer(b"ab", np.uint8), size=k)) + b"c"
+    if "ab|c" in pattern:
+        # mostly c in long chains, so config 10's fit 512-byte records
+        body = b"".join(rng.choice([b"ab", b"c"], size=k, p=[0.1, 0.9] if k > 100 else None))
+        return (b"x" + body + b"y") if pattern.startswith("x") else body + b"d"
+    body = b"".join(rng.choice([b"abc", b"de"], size=k))
+    return b"x" + body + b"y" if pattern.startswith("x") else body
+
+
+def _texts(pattern: str, lo: int, hi: int, n: int = 10, width: int = 120):
+    """Records for ``pattern``: the empty one, a chain of lo copies, one of
+    lo - 1, random text over the pattern's bytes with chains of lo..hi
+    copies planted in every second record, and bytes 0x00, 0x80 and 0xff."""
+    rng = np.random.default_rng(len(pattern))
+    if pattern == K40:
+        out = [b"", b"error", b"xoomleakx", b"warnwarn", "".join(K40_WORDS[30:]).encode()[:width],
+               b"dead\x80lock deadlock\x00", b"unauthorizedfailed"]
+        while len(out) < n:
+            t = bytearray(rng.choice(np.frombuffer(b"abcdeiklmnorstu ", np.uint8),
+                                     size=int(rng.integers(0, 60))).tobytes())
+            for _ in range(int(rng.integers(0, 4))):
+                w = K40_WORDS[int(rng.integers(len(K40_WORDS)))].encode()
+                at = int(rng.integers(0, len(t) + 1))
+                t[at:at] = w
+            out.append(bytes(t))
+        return out
+    alpha = np.frombuffer(b"abcdexy", np.uint8)
+    out = [b"", _chain(rng, pattern, lo), _chain(rng, pattern, max(lo - 1, 0)),
+           b"\x00ab\x80c\xff" + _chain(rng, pattern, lo)]
+    while len(out) < n:
+        t = bytearray(rng.choice(alpha, size=int(rng.integers(0, width // 3))).tobytes())
+        if len(out) % 2:
+            at = int(rng.integers(0, len(t) + 1))
+            t[at:at] = _chain(rng, pattern, int(rng.integers(lo, hi + 1)))
+        out.append(bytes(t[:width]))
+    return out
+
+
+def _re_spans(pattern: str, texts, longest: bool):
+    """Python re's spans: every program here parses a match one way, so
+    re's greedy match from the leftmost start is the longest and its lazy
+    form's the shortest."""
+    lazy = pattern.replace("}", "}?")
+    rx = re.compile((pattern if longest else lazy).encode())
+    return [[m.span() for m in rx.finditer(t)] for t in texts]
+
+
+# (pattern, knobs, lo, hi, width): the chains planted, the longest record
+PROGRAMS = {
+    "config13": (CONFIG13, {}, 1, 12, 120),
+    "config13-noalias": (CONFIG13, {"seeded_alias": False}, 1, 12, 120),
+    "x(abc|de){1,300}y": ("x(abc|de){1,300}y", {}, 1, 12, 120),
+    "a*b{1,300}": ("a*b{1,300}", {}, 1, 40, 120),
+    "(ab|c){2,120}d": (SMALL, {}, 2, 30, 120),
+    "K40": (K40, {}, 0, 0, 120),
+    "x[ab]{0,400}c-nobitband": ("x[ab]{0,400}c", {"bitband": False}, 0, 60, 120),
+    "config10-nobitband": (CONFIG10, {"bitband": False}, 400, 420, 500),
+}
+
+
+@pytest.mark.parametrize("name", list(PROGRAMS))
+def test_pattern_matches_oracle_and_re(name, knobs):
+    """Counts, search, fullmatch, both bitmaps and lazy and greedy spans
+    against the oracle (spans against re too); the seeded calls of config
+    13 run on its alias unless ``RRX_ALIAS=0``, everything else on the
+    container tier."""
+    pattern, kw, lo, hi, width = PROGRAMS[name]
+    knobs(**kw)
+    pat = rrx.compile(pattern, "cpu")
+    eng = pat.engine
+    assert type(eng.device_scanner) is ss.SparseScanner, type(eng.device_scanner)
+    assert (eng._seeded_alias() is not None) == (name == "config13")
+    texts = _texts(pattern, lo, hi, n=8 if width > 200 else 10, width=width)
+    assert max(map(len, texts)) <= 512
+    orc = OracleEngine(jax_compile(pattern).nfa)
+    ends = [sorted(orc.ends(t)) for t in texts]
+    assert sum(map(len, ends)) > 0
+    _eq(pat.count_batch(texts), [len(e) for e in ends], "count_batch")
+    _eq(pat.search_batch(texts), [bool(e) for e in ends], "search_batch")
+    full = [orc.fullmatch(t) for t in texts]
+    _eq(pat.fullmatch_batch(texts), full, "fullmatch_batch")
+    assert pat.ends_batch(texts) == ends
+    assert pat.starts_batch(texts) == [sorted(orc.starts(t)) for t in texts]
+    for longest in (False, True):
+        spans = pat.finditer_batch(texts, longest=longest)
+        assert spans == [list(orc.finditer(t, longest=longest)) for t in texts], longest
+        assert spans == _re_spans(pattern, texts, longest), longest
+    t = texts[1]
+    m, f = pat.match(t), pat.fullmatch(t)
+    assert (m is None) == (orc.match(t) is None) and (m is None or m.end == orc.match(t))
+    assert (f is not None) == full[1]
+
+
+def test_prefilter_takes_the_container_kernels():
+    """x(abc|de){1,300}y has a prefilter: past 128 records its seeded scans
+    and bitmaps run the container kernels on the candidates only, and
+    equal the unfiltered scan."""
+    pattern = "x(abc|de){1,300}y"
+    eng = ScanEngine(compile_program(pattern), "cpu")
+    assert type(eng.device_scanner) is ss.SparseScanner and eng._prefilter() is not None
+    data, lengths, _, _ = _pack_texts(_texts(pattern, 1, 8, n=144, width=30), 1)
+    data, lengths = data[:144], lengths[:144]  # past 128 records: the prefilter's route
+    _, _, pre = eng._prefilter_eng.match_stats(data, lengths, seeded=True)
+    assert 0 < int(pre.sum()) < 128
+    raw = eng._match_stats_raw(data, lengths, seeded=True)
+    for x, y in zip(eng.match_stats(data, lengths, seeded=True), raw, strict=True):
+        _eq(x, y, "match_stats")
+    assert int(raw[0].sum()) > 0
+    sc = eng.device_scanner
+    words, _ = sc.hits_words_b(torch.from_numpy(data), torch.from_numpy(lengths).reshape(-1, 1))
+    want = sb.hit_bits(words.T, data.shape[1] + 2)
+    got = eng.reverse_hits(data, lengths)
+    _eq(got, want, "reverse_hits")
+
+
+# -- MultiPattern against the JAX MultiPattern --------------------------------------
+
+# (patterns, texts) of each set
+MP_SETS = {
+    "K40": (K40_WORDS, [b"", b"error", b"xoomleakx deadlock", b"unauthorized failed timeout",
+                        b"dead\x80lock retry",
+                        b"warnwarn " + b" ".join(w.encode() for w in K40_WORDS[30:34]),
+                        b" ".join(w.encode() for w in K40_WORDS[34:])]),
+    "config10+cat|dog": ([CONFIG10, "cat|dog"], [b"", b"x" + b"ab" * 50 + b"c" * 355 + b"y",
+                                                b"catdog x" + b"c" * 401 + b"y", b"dogs and cats",
+                                                b"x" + b"ab" * 10 + b"y", b"a\x80b cat"]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _mp(name):
+    pats = MP_SETS[name][0]
+    return rrx.MultiPattern(pats, "cpu"), jax_rrx.MultiPattern(pats, backend="pallas")
+
+
+@pytest.mark.parametrize("name", list(MP_SETS))
+def test_multipattern_matches_jax(name):
+    """count, search and grep equal the JAX MultiPattern's (one channel
+    scan each on the container tier); lazy and greedy finditer, per
+    pattern, equal re's spans (each pattern parses a match one way; the JAX
+    MultiPattern takes the same per-pattern route, api.py:700)."""
+    port, ref = _mp(name)
+    pats, texts = MP_SETS[name]
+    assert type(port.engine.device_scanner).__name__ == "SparseScanner"
+    assert type(ref.engine.device_scanner).__name__ == "SparseScanner"
+    assert port.P == len(pats) and port.engine.device_scanner.P == port.P
+    cnt = port.count_batch(texts)
+    _eq(cnt, ref.count_batch(texts), "count_batch")
+    assert int(cnt.sum()) > 0
+    found = ref.search_batch(texts)  # the JAX MultiPattern's grep is its search_batch
+    _eq(port.search_batch(texts), found, "search_batch")
+    _eq(port.grep(texts), found, "grep")
+    for longest in (False, True):
+        got = port.finditer_batch(texts, longest=longest)
+        assert got == [_re_spans(p, texts, longest) for p in pats], longest
