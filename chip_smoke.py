@@ -9,7 +9,7 @@ its check fails:
 1. the card's name and power limit; build the CUDA kernels from
    roaringregex_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source,
    all started together), with nvcc's register report and the build time;
-2. kernel against plain PyTorch version on the card, for all twenty-nine entry
+2. kernel against plain PyTorch version on the card, for all thirty-five entry
    points, on random batches from a numpy seed plus edge records (empty,
    len == L, bytes >= 0x80, byte 0); integer outputs, tolerance 0:
    rrx_swar_stats and rrx_word_stats on the SWAR and u32-word test
@@ -52,7 +52,16 @@ its check fails:
    hand-built partition with full blocks on and off the diagonal, and
    MultiPattern sets of 2, 40 and 100 channels, in the shared and the global
    table form, stats seeded, unseeded and nullable, flags seeded and
-   unseeded, reverse, and records past a live count;
+   unseeded, reverse, and records past a live count; the six wide
+   matmul-tier kernels (rrx_nfa_wide_stats, _flags, _reverse, _anchor_end,
+   _lazy_spans, _greedy_spans: tiles of 257..1024 states, one warp per
+   record) on 10 dense multiblock programs, one at each W = 12, 16, 20, 24,
+   28 and 32, banded and not, keyword runs and a nullable K40*, with
+   keyword runs and x(ab|c){k}y chains planted across the bounds, stats
+   seeded, unseeded and at a lead, flags, reverse, anchored lazy and
+   longest from -1, 0 and random starts, lazy and greedy spans at caps 1, 2
+   and 16 (cap 1 overflows), and P = 3 accept channels (K40+, cat|dog and
+   [0-9]{3} as one union) seeded, unseeded, nullable and at a lead;
 3. the match-stats path, with its launch counts set to 0 first: bench
    config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
@@ -169,7 +178,24 @@ its check fails:
    prefilter with a plant in 12.5% of the records at 10 MB and 1 GiB against
    re, with torch's sync debug mode set to raise; K120's ends_batch,
    starts_batch and lazy finditer_batch on 2,000 records against re; every
-   container kernel must have been launched.
+   container kernel must have been launched;
+12. (run before 7) the dense multiblock path, with every launch count set
+   to 0 first: K60+ (60 keywords as a run, 412 states, s_tile 512, W = 16)
+   over phase 5's log text and x(ab|c){300,}y (903 states, s_tile 1024, W
+   = 32) over the same text with x(ab|c){295..340}y chains planted in 12.5%
+   of the records, each at 10 MB and 1 GiB through ScanEngine.match_stats
+   against re on 3,000 records and the plain version on 16,384 (10 MB: all
+   of it); at 10 MB lazy and greedy spans against re.finditer on every
+   record, the longest anchored rescan from each first start against the
+   first greedy span, ends_bitmap and starts_bitmap against re on 3,000
+   records; MultiPattern([K40+, cat|dog, [0-9]{3}]) count_batch at 10 MB
+   against the single patterns, its lazy spans raising (rows 21-22); and
+   Pattern.long(K60) on a 1 MiB string through the torch-op LongScanner
+   against re; every wide kernel must have been launched. Phase 7 then
+   times the six wide kernels on both programs at 10 MB and 1 GiB (plain
+   versions once, on the 10 MB batch and on 16,384 records of the 1 GiB
+   one, outputs compared there), with registers, occupancy, grid fill and
+   the bound, and match_stats end to end.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -277,6 +303,19 @@ REPLACES |= {
     "rrx_sparse_reverse": "roaringregex_tpu/ops/scan_pallas.py:2141",
 }
 SPARSE_KERNELS = ("rrx_sparse_stats", "rrx_sparse_flags", "rrx_sparse_reverse")
+NFA_WIDE_SOURCE = "roaringregex_tpu_torch/csrc/scan_nfa_wide.cu"
+# the matmul-tier kernels at record tiles of 257..1024 states (one warp per
+# record), in rrx_nfa_wide_occupancy's order
+WIDE_KERNELS = ("rrx_nfa_wide_stats", "rrx_nfa_wide_reverse", "rrx_nfa_wide_anchor_end",
+                "rrx_nfa_wide_lazy_spans", "rrx_nfa_wide_greedy_spans", "rrx_nfa_wide_flags")
+REPLACES |= {
+    "rrx_nfa_wide_stats": "roaringregex_tpu/ops/scan_pallas.py:1218",
+    "rrx_nfa_wide_reverse": "roaringregex_tpu/ops/scan_pallas.py:1532",
+    "rrx_nfa_wide_anchor_end": "roaringregex_tpu/ops/scan_pallas.py:1659",
+    "rrx_nfa_wide_lazy_spans": "roaringregex_tpu/ops/scan_pallas.py:1740",
+    "rrx_nfa_wide_greedy_spans": "roaringregex_tpu/ops/scan_pallas.py:3038",
+    "rrx_nfa_wide_flags": "roaringregex_tpu/ops/scan_pallas.py:1393",
+}
 
 
 def keywords(n: int):
@@ -299,6 +338,15 @@ def keywords(n: int):
 K120_WORDS = keywords(120)
 K120 = "(" + "|".join(K120_WORDS) + ")"
 CONFIG13_X = "x(abc|de){1,300}y"  # config 13 behind context: the prefilter's route
+# the dense multiblock tier (the matmul tier at record tiles of 384..1024
+# states, W = 12..32 state words): keyword runs (K+, whose follow matrix is
+# dense), banded repetition chains, a nullable K40*; one program at each W
+K40P, K60P, K80P, K120P, K130P = ("(" + "|".join(keywords(n)) + ")+"
+                                  for n in (40, 60, 80, 120, 130))
+CHAIN300 = "x(ab|c){300,}y"
+WIDE_PATTERNS = [K40P, "x(ab|c){120,}y", K40P[:-1] + "*", K60P, K80P, "(a|bc)*d(ab|c){200,}e",
+                 "x(ab|c){250,}y", K120P, K130P, CHAIN300]
+WIDE_MP = [K40P, "cat|dog", "[0-9]{3}"]  # a dense multiblock union, P = 3
 PLANT13X = b"x" + b"abcde" * 100 + b"y"
 # the container programs of the probe table: two multiblock programs,
 # config 13 and its x...y form (78 partial blocks), (abc|de){1,360} at the
@@ -460,6 +508,12 @@ def bound(read: float, written: float, ops: float):
     return (b, "bytes") if b >= o else (o, "operations")
 
 
+def state_words(prog) -> int:
+    """The 32-bit words of a program's own states: what one step of its
+    state set must touch (a record tile's padding words are always zero)."""
+    return -(-prog.n_states // 32)
+
+
 def main() -> int:
     import torch
 
@@ -478,7 +532,6 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda}, {n_sm} SMs)")
 
@@ -521,23 +574,25 @@ def main() -> int:
         "rrx_count_flags": scan_pallas.count_flags,
         "rrx_count_reverse": scan_pallas.count_reverse,
     }
-    class ChannelCount:
-        """The launch count of a stats wrapper's P-channel kernel."""
+    class Count:
+        """One of a wrapper's launch counts: ``attr`` counts the P-channel
+        kernel of a stats wrapper (channel_launches) or a matmul-tier
+        wrapper's kernel for tiles past 256 states (wide_launches)."""
 
-        def __init__(self, wrapper):
-            self.wrapper = wrapper
+        def __init__(self, wrapper, attr):
+            self.wrapper, self.attr = wrapper, attr
 
         @property
         def launches(self):
-            return self.wrapper.channel_launches
+            return getattr(self.wrapper, self.attr)
 
         @launches.setter
         def launches(self, n):
-            self.wrapper.channel_launches = n
+            setattr(self.wrapper, self.attr, n)
 
     mp_wrappers = {
-        "rrx_word_stats[P]": ChannelCount(scan_word.word_stats),
-        "rrx_nfa_stats[P]": ChannelCount(scan_pallas.nfa_stats),
+        "rrx_word_stats[P]": Count(scan_word.word_stats, "channel_launches"),
+        "rrx_nfa_stats[P]": Count(scan_pallas.nfa_stats, "channel_launches"),
         "rrx_nfa_reverse_mb": scan_pallas.nfa_reverse_mb,
         "rrx_nfa_lazy_spans_mb": scan_pallas.nfa_lazy_spans_mb,
     }
@@ -559,8 +614,11 @@ def main() -> int:
         "rrx_sparse_flags": scan_sparse.sparse_flags,
         "rrx_sparse_reverse": scan_sparse.sparse_reverse,
     }
+    wide_wrappers = {name: Count(nfa_wrappers[name.replace("_wide", "")], "wide_launches")
+                     for name in WIDE_KERNELS}
     wrappers = ({name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
-                | count_wrappers | mp_wrappers | long_wrappers | bitband_wrappers | sparse_wrappers)
+                | count_wrappers | mp_wrappers | long_wrappers | bitband_wrappers | sparse_wrappers
+                | wide_wrappers)
     base_cfg = get_config()
     max_err = {name: 0 for name in wrappers}
 
@@ -666,35 +724,42 @@ def main() -> int:
     def check_nfa(tables, d, ln, tag, *, nullable, lead=3, starts=None, caps=(1, 2, 16)):
         """Every matmul-tier kernel against its plain version on one batch;
         the span kernels read the (checked) hit words of the reverse kernel.
-        Returns (hits, number of records greedy left over cap)."""
+        Returns (hits, number of records greedy left over cap). Tiles past
+        256 states run (and count their errors under) the wide kernels."""
         P = scan_pallas
         R, L = d.shape
+        wide = tables.s_tile > P.REG_S_TILE
+
+        def nm(name):
+            return name.replace("rrx_nfa_", "rrx_nfa_wide_") if wide else name
+
         for seeded in (True, False):
             for ld in sorted({0, lead}):
                 kw = dict(seeded=seeded, lead=ld, nullable=nullable)
-                compare("rrx_nfa_stats", P.nfa_stats(d, ln, tables, **kw),
+                compare(nm("rrx_nfa_stats"), P.nfa_stats(d, ln, tables, **kw),
                         P.stats_plain(d, ln, tables, **kw), f"{tag} {kw}")
-            compare("rrx_nfa_flags", [P.nfa_flags(d, ln, tables, seeded=seeded)],
+            compare(nm("rrx_nfa_flags"), [P.nfa_flags(d, ln, tables, seeded=seeded)],
                     [P.flags_plain(d, ln, tables, seeded=seeded)], f"{tag} seeded={seeded}",
                     ("flags",))
         hits = P.nfa_reverse(d, ln, tables)
-        compare("rrx_nfa_reverse", [hits], [scan_bits.reverse_plain(d, ln, tables)], tag, ("hits",))
+        compare(nm("rrx_nfa_reverse"), [hits], [scan_bits.reverse_plain(d, ln, tables)], tag,
+                ("hits",))
         if starts is None:
             st = rng.integers(-1, L + 2, size=R).astype(np.int32)
             st[:8], st[8:16] = 0, -1
             starts = torch.from_numpy(st).to(dev)
         for longest in (False, True):
-            compare("rrx_nfa_anchor_end",
+            compare(nm("rrx_nfa_anchor_end"),
                     [P.nfa_anchor_end(d, ln, tables, starts, longest=longest)],
                     [scan_bits.anchor_plain(d, ln, tables, starts, longest=longest)],
                     f"{tag} longest={longest}", ("end",))
         n_over = 0
         for cap in caps:
-            compare("rrx_nfa_lazy_spans", P.nfa_lazy_spans(d, ln, tables, hits, cap),
+            compare(nm("rrx_nfa_lazy_spans"), P.nfa_lazy_spans(d, ln, tables, hits, cap),
                     scan_bits.lazy_spans_plain(d, ln, tables, hits, cap), f"{tag} cap={cap}",
                     ("starts", "ends", "cnt"))
             got = P.nfa_greedy_spans(d, ln, tables, hits, cap, nullable=nullable)
-            compare("rrx_nfa_greedy_spans", got,
+            compare(nm("rrx_nfa_greedy_spans"), got,
                     scan_bits.greedy_spans_plain(d, ln, tables, hits, cap, nullable=nullable),
                     f"{tag} cap={cap}", ("starts", "ends", "cnt", "over"))
             n_over += int(got[3].sum().item())
@@ -727,6 +792,70 @@ def main() -> int:
           f"(record tiles {sorted(tiles)}) through the six matmul-tier kernels (stats seeded/"
           f"unseeded/lead, flags seeded/unseeded, reverse, anchor lazy/longest, lazy and greedy at "
           f"caps 1, 2, 16; greedy over set on {n_over} records) ({time.perf_counter() - t0:.1f}s)")
+
+    def wide_batch(R: int, L: int):
+        """An edge batch over the alphabet of the dense multiblock programs,
+        with a plant in every second record: runs of 1-3 keywords, or a
+        chain x(ab|c){k}y or abcd(ab|c){k}e with k on both sides of the
+        programs' bounds (120, 200, 250, 300), cut at L."""
+        data, lengths = edge_batch(rng, np, R, L, b"abcdefgiklmnorstuwxy \x00")
+        words = [w.encode() for w in keywords(130)]
+        for i in range(8, R, 2):
+            if i % 4 == 0:
+                w = b"".join(words[j] for j in rng.integers(0, len(words), size=int(rng.integers(1, 4))))
+            else:
+                k = int(rng.choice([118, 122, 198, 203, 248, 252, 299, 300, 321, 345]))
+                toks = b"".join(b"ab" if rng.random() < 0.3 else b"c" for _ in range(k))
+                w = (b"x" if i % 3 else b"abcd") + toks + (b"y" if i % 5 else b"e")
+            w = w[:L]
+            at = int(rng.integers(0, L - len(w) + 1))
+            data[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+        return data, lengths
+
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = n_over = 0
+    words_w = set()
+    for pattern in WIDE_PATTERNS:
+        prog = compile_program(pattern)
+        tables = scan_pallas.device_nfa_tables(prog, dev)
+        words_w.add(-(-prog.s_tile // 32))
+        for R, L in ((1000, 61), (512, 400)):
+            data, lengths = wide_batch(R, L)
+            d = torch.from_numpy(data).to(dev)
+            ln = torch.from_numpy(lengths).to(dev)
+            n_over += check_nfa(tables, d, ln, f"{pattern[:40]!r} R={R} L={L}",
+                                nullable=prog.nullable, lead=prog.horizon or 3)[1]
+            n_cmp += 1
+    # P = 3 accept channels on a dense multiblock union
+    mp_w = MultiPattern(WIDE_MP, dev)
+    tables = mp_w.engine.device_scanner.nfa
+    if tables.P != 3 or tables.s_tile <= scan_pallas.REG_S_TILE:
+        fail(f"MultiPattern {WIDE_MP[1:]} + K40+: P {tables.P}, s_tile {tables.s_tile}")
+    for R, L in ((1000, 61), (512, 400)):
+        data, lengths = wide_batch(R, L)
+        data[8::7, :7] = np.frombuffer(b"cat 123", np.uint8)
+        d = torch.from_numpy(data).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        for seeded in (True, False):
+            for ld, nullable in ((0, False), (3, False), (0, True)):
+                kw = dict(seeded=seeded, lead=ld, nullable=nullable)
+                compare("rrx_nfa_wide_stats", scan_pallas.nfa_stats(d, ln, tables, **kw),
+                        scan_pallas.stats_plain(d, ln, tables, **kw), f"P = 3 R={R} L={L} {kw}")
+        n_cmp += 1
+    torch.cuda.synchronize()
+    for name in WIDE_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if n_over == 0:
+        fail("wide greedy overflow (over) was never exercised")
+    if words_w != {12, 16, 20, 24, 28, 32}:
+        fail(f"wide comparisons covered W = {sorted(words_w)}")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} batches of {len(WIDE_PATTERNS)} dense "
+          f"multiblock programs (W = {sorted(words_w)}, banded and not, one nullable) and a P = 3 "
+          f"union through the six wide kernels (stats seeded/unseeded/lead/nullable/P = 3, flags "
+          f"seeded/unseeded, reverse, anchor lazy/longest, lazy and greedy at caps 1, 2, 16; greedy "
+          f"over set on {n_over} records) ({time.perf_counter() - t0:.1f}s)")
 
     def counting_batch(R: int, L: int):
         """An edge batch over a counting alphabet, with an a-run, a body
@@ -2350,6 +2479,165 @@ def main() -> int:
     print(f"container path launches: {sparse_launches} "
           f"({time.perf_counter() - t11:.1f}s for the phase)")
 
+    # -- phase 12: the dense multiblock path (run before 7; counts from here to its last run)
+    reset_launches()
+    t12 = time.perf_counter()
+    K60_WORDS = keywords(60)
+    rx60 = re.compile(("(" + "|".join(K60_WORDS) + ")").encode())  # K60+'s lazy spans
+    rx60p = re.compile(K60P.encode())
+    rx300 = re.compile(CHAIN300.encode())
+    eng60 = ScanEngine(compile_program(K60P), device=dev)
+    eng300 = ScanEngine(compile_program(CHAIN300), device=dev)
+    for pattern, eng_w in ((K60P, eng60), (CHAIN300, eng300)):
+        sc_w = eng_w.device_scanner
+        if type(sc_w).__name__ != "PallasScanner" or sc_w.nfa.s_tile <= scan_pallas.REG_S_TILE:
+            fail(f"{pattern[:30]!r}... routed to {type(sc_w).__name__} (s_tile "
+                 f"{eng_w.prog.s_tile})")
+
+    def chain_plants(d: torch.Tensor, seed: int) -> torch.Tensor:
+        """A copy of [R, 1024] records with an x(ab|c){k}y chain, k =
+        295..340 (near misses below 300), planted in 12.5% of the records
+        (64 chains from a numpy seed, written on the card)."""
+        g = np.random.default_rng(seed)
+        rows = g.permutation(d.shape[0])[: d.shape[0] // 8]
+        which = g.integers(0, 64, size=rows.size)
+        d = d.clone()
+        for j in range(64):
+            k = int(g.integers(295, 341))
+            ch = b"x" + b"".join(b"ab" if g.random() < 0.5 else b"c" for _ in range(k)) + b"y"
+            rj = torch.from_numpy(rows[which == j]).to(dev)
+            off = torch.from_numpy(g.integers(0, d.shape[1] - len(ch) + 1, size=rj.numel())).to(dev)
+            cols = off[:, None] + torch.arange(len(ch), device=dev)[None, :]
+            d[rj[:, None], cols] = torch.from_numpy(np.frombuffer(ch, np.uint8).copy()).to(dev)
+        return d
+
+    t1 = time.perf_counter()
+    chain10, chain1g = chain_plants(log10, 23), chain_plants(log, 24)
+    torch.cuda.synchronize()
+    print(f"phase 12: {CHAIN300} batches: phase 5's log text with a chain planted in 12.5% of the "
+          f"records, 10 MB and 1 GiB (built on the card in {time.perf_counter() - t1:.1f}s)")
+
+    def re_stats(pattern: str, text: bytes):
+        """(count of distinct match ends, first end or -1) by Python's re:
+        K60+'s ends are its keywords' ends (none is a prefix of another);
+        CHAIN300's matches neither overlap nor share an end."""
+        if pattern == K60P:
+            return key_stats(K60_WORDS, text)
+        ends = [m.end() for m in rx300.finditer(text)]
+        return len(ends), ends[0] if ends else -1
+
+    wide_runs = {}
+    for pattern, eng_w, runs in ((K60P, eng60, (("10 MB", log10, len10), ("1 GiB", log, log_len))),
+                                 (CHAIN300, eng300, (("10 MB", chain10, len10),
+                                                     ("1 GiB", chain1g, log_len)))):
+        tables = eng_w.device_scanner.nfa
+        for shape, d, ln in runs:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cnt_w, first_w, any_w = eng_w.match_stats(d, ln, seeded=True)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t1) * 1e3
+            n = min(d.shape[0], n_slice)
+            want = scan_pallas.stats_plain(d[:n], ln[:n], tables, seeded=True, lead=0,
+                                           nullable=False)
+            if not (torch.equal(cnt_w[:n], want[0]) and torch.equal(first_w[:n], want[1])
+                    and torch.equal(any_w, cnt_w > 0)):
+                fail(f"{pattern[:30]!r}... {shape} match_stats != plain on the first {n} records")
+            rows = np.random.default_rng(25).choice(d.shape[0], size=n_re, replace=False)
+            host = d[torch.from_numpy(rows).to(dev)].cpu().numpy()
+            got = np.stack([cnt_w.cpu().numpy()[rows], first_w.cpu().numpy()[rows]], axis=1)
+            ref = np.array([re_stats(pattern, host[i].tobytes()) for i in range(n_re)])
+            if not np.array_equal(got, ref):
+                i = int(np.nonzero((got != ref).any(axis=1))[0][0])
+                fail(f"{pattern[:30]!r}... {shape} record {rows[i]}: (cnt, first) {got[i]} != re "
+                     f"{ref[i]}")
+            wide_runs[pattern, shape] = (d, ln, cnt_w)
+            print(f"phase 12: {pattern[:40]!r}... ({eng_w.prog.n_states} states, s_tile "
+                  f"{eng_w.prog.s_tile}) over {shape}: matches={int(cnt_w.sum().item())} "
+                  f"records_with_match={int(any_w.sum().item())}; == plain on {n} records, == re on "
+                  f"{n_re} (first call {call_ms:.1f} ms)")
+        # spans, the anchored rescan and both bitmaps at 10 MB against re
+        d, ln, cnt_w = wide_runs[pattern, "10 MB"]
+        host = d.cpu().numpy()
+        cap_w = 1 << max(int(cnt_w.max()), 1).bit_length()
+        rx_lazy, rx_greedy = (rx60, rx60p) if pattern == K60P else (rx300, rx300)
+        lazy = eng_w.lazy_spans(d, ln, cap=cap_w)
+        greedy = eng_w.greedy_spans(d, ln, cap=cap_w)
+        if bool(greedy[3].any()) or int(lazy[2].max()) > cap_w:
+            fail(f"{pattern[:30]!r}... spans over cap {cap_w}")
+        n_sp = {}
+        for policy, (sk, ek, ck), rx in (("lazy", lazy[:3], rx_lazy),
+                                         ("greedy", greedy[:3], rx_greedy)):
+            sk, ek, ck = (x.cpu().numpy() for x in (sk, ek, ck))
+            bad = [i for i in range(d.shape[0])
+                   if list(zip(sk[i, : ck[i]].tolist(), ek[i, : ck[i]].tolist()))
+                   != [m.span() for m in rx.finditer(host[i].tobytes())]]
+            if bad:
+                fail(f"{pattern[:30]!r}... {policy} spans at 10 MB: {len(bad)} records differ from "
+                     f"re.finditer, the first {bad[0]}")
+            n_sp[policy] = int(ck.sum())
+        starts0 = lazy[0][:, 0].contiguous()
+        end0 = eng_w.first_end_from(d, ln, starts0, longest=True)
+        if not torch.equal(end0, torch.where(starts0 >= 0, greedy[1][:, 0], -1)):
+            fail(f"{pattern[:30]!r}... longest rescan from the first start != the first greedy span")
+        rows = np.random.default_rng(26).choice(d.shape[0], size=n_re, replace=False)
+        ends_bm = eng_w.ends_bitmap(d, ln, L)
+        starts_bm = eng_w.starts_bitmap(d, ln, L)
+        for i in rows:
+            text = host[i].tobytes()
+            if pattern == K60P:
+                every = [(m.start(), m.start() + len(m.group(1)))
+                         for m in re.finditer(b"(?=(" + "|".join(K60_WORDS).encode() + b"))", text)]
+            else:
+                every = [m.span() for m in rx300.finditer(text)]
+            if (np.nonzero(ends_bm[i])[0].tolist() != sorted({e for _, e in every})
+                    or np.nonzero(starts_bm[i])[0].tolist() != sorted({s_ for s_, _ in every})):
+                fail(f"{pattern[:30]!r}... ends_bitmap / starts_bitmap != re at record {i}")
+        print(f"phase 12: {pattern[:40]!r}... at 10 MB: lazy ({n_sp['lazy']}) and greedy "
+              f"({n_sp['greedy']}) spans (cap {cap_w}) == re.finditer on every record; the longest "
+              f"rescan from each first start == the first greedy span; ends_bitmap and "
+              f"starts_bitmap == re on {n_re} records")
+    # MultiPattern of K40+, cat|dog and [0-9]{3} (a dense multiblock union,
+    # P = 3) against the single patterns on 10 MB of log text, digits and
+    # cat/dog planted
+    texts_w = [log_np[i, :1000].tobytes() + (b" cat 1234" if i % 5 == 0 else b"") for i in range(B7)]
+    cnt_mp = mp_w.count_batch(texts_w)
+    for p_i, pattern in enumerate(WIDE_MP):
+        pat = rrx_compile(pattern, dev)
+        if not np.array_equal(cnt_mp[:, p_i], pat.count_batch(texts_w)):
+            fail(f"MultiPattern (dense multiblock union) count_batch != Pattern {pattern[:30]!r}")
+    try:
+        mp_w.finditer_batch(texts_w[:8])
+        fail("MultiPattern lazy spans on a dense multiblock union did not raise")
+    except NotImplementedError as e:
+        if "rows 21-22" not in str(e):
+            fail(f"MultiPattern lazy spans raised {e}")
+    # the long route: K60 (no +) on one 1 MiB string stays on the torch-op
+    # LongScanner until the wide window kernels are ported (its summary pass
+    # steps S + 1 = 413 pseudo-records a 4 KB block through a [413, 413]
+    # float32 product: ~0.14 PFLOP a MiB, so 1 MiB and not 10 MB)
+    pat_k60 = rrx_compile("(" + "|".join(K60_WORDS) + ")", dev)
+    lsc = pat_k60.long
+    if type(lsc).__name__ != "LongScanner":
+        fail(f"Pattern.long(K60) took {type(lsc).__name__}, not LongScanner")
+    blob = log_np[:1024].tobytes()
+    t1 = time.perf_counter()
+    n_long = lsc.count_ends(blob)
+    long_s = time.perf_counter() - t1
+    if n_long != key_stats(K60_WORDS, blob)[0]:
+        fail(f"Pattern.long(K60).count_ends over 1 MiB = {n_long} != re")
+    torch.cuda.synchronize()
+    wide_launches = {name: launches()[name] for name in WIDE_KERNELS}
+    for name, n in wide_launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the dense multiblock path")
+    print(f"phase 12: MultiPattern {['K40+'] + WIDE_MP[1:]} ({mp_w.program.n_states} states, s_tile "
+          f"{mp_w.program.s_tile}) count_batch at 10 MB ({cnt_mp.sum(axis=0).tolist()}) == the single "
+          f"patterns, its lazy spans raise (rows 21-22); Pattern.long(K60) on a 1 MiB string: "
+          f"LongScanner, {n_long} ends == re ({long_s:.1f}s)")
+    print(f"dense multiblock path launches: {wide_launches} "
+          f"({time.perf_counter() - t12:.1f}s for the phase)")
+
     # -- phase 7: times ---------------------------------------------------
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
         """Median over ``runs`` of the CUDA-event time of ``per_run``
@@ -2377,7 +2665,8 @@ def main() -> int:
         read once and written once; integer operations = the steps the
         function needs x a floor of operations per step (``step_ops`` for
         the automaton step: 4 per delta of a (delta, table) form, 3 per
-        state word of a matmul-tier tile; plus the per-step bookkeeping).
+        word of a matmul-tier program's states (``state_words``, not the
+        tile's); plus the per-step bookkeeping).
         Anchored rescans count the steps from each start to its end, greedy
         the steps of its spans."""
         ln = ln.to(torch.int64).clamp(0, L)
@@ -2567,7 +2856,7 @@ def main() -> int:
     for pattern in keyed:
         eng_k = nfa_engines[pattern]
         tables = eng_k.device_scanner.nfa
-        step_ops = 3 * -(-tables.s_tile // 32)
+        step_ops = 3 * state_words(eng_k.prog)
         tag = f"{eng_k.prog.n_states}-state"
         for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
             hits = P.nfa_reverse(d, ln, tables)
@@ -2641,7 +2930,7 @@ def main() -> int:
 
     # rrx_nfa_flags on the keyword log text (K30) at 10 MB and 1 GiB
     tables = nfa_engines[K30].device_scanner.nfa
-    step_ops = 3 * -(-tables.s_tile // 32)
+    step_ops = 3 * state_words(nfa_engines[K30].prog)
     flags_ms = {}
     for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
         n = d.shape[0] if shape == "10 MB" else n_slice
@@ -2773,7 +3062,7 @@ def main() -> int:
         compare("rrx_nfa_stats[P]", [x[:n7] for x in got7], P.stats_plain(pd7, pl7, sc7.nfa, **kw),
                 f"K7 x 7 {shape}, first {n7} records")
         flags7 = int(got7[0].to(torch.int64).sum())
-        W6, W7 = 4 * tb6.deltas.numel(), 3 * -(-sc7.nfa.s_tile // 32)
+        W6, W7 = 4 * tb6.deltas.numel(), 3 * state_words(mp7.engine.prog)
         calls = {
             "rrx_word_stats[P]": (lambda: scan_word.word_stats(d, ln, tb6, **kw),
                                   lambda: scan_bits.stats_plain(pd, pl, tb6, **kw),
@@ -2847,25 +3136,25 @@ def main() -> int:
         read = min(geom.n, geom.nw // geom.rep * geom.T)
         return bound(read, out, geom.nw * geom.T * (3 * W + 4))
 
-    long_calls = {  # name: (string, tables, geometry at n, call of (data, geom), plain, work)
-        "rrx_long_carry": (s14, sc14_.tables, warm_geom,
+    long_calls = {  # name: (string, scanner, geometry at n, call of (data, geom), plain, work)
+        "rrx_long_carry": (s14, sc14_, warm_geom,
                            lambda d, g: P_.long_carry(d, g, sc14_.tables, seeded=True),
                            lambda d, g: P_.long_carry_plain(d, g, sc14_.tables, seeded=True),
                            "carry", f"config 14 {CONFIG14} speculative warm-up"),
-        "rrx_long_flags": (s8, sc8_.tables, sc8_._ov_geom,
+        "rrx_long_flags": (s8, sc8_, sc8_._ov_geom,
                            lambda d, g: P_.long_flags(d, g, sc8_.tables, seeded=True),
                            lambda d, g: P_.long_flags_plain(d, g, sc8_.tables, seeded=True),
                            "flags", f"config 8 {CONFIG8} overlapped windows"),
-        "rrx_long_count": (s30, sc30_.tables, sc30_._ov_geom,
+        "rrx_long_count": (s30, sc30_, sc30_._ov_geom,
                            lambda d, g: P_.long_count(d, g, sc30_.tables, seeded=True),
                            lambda d, g: P_.long_count_plain(d, g, sc30_.tables, seeded=True),
                            "count", "K30 (W = 8) overlapped windows"),
-        "rrx_long_reverse": (s8, sc8_.tables, lambda n: rev_geom(sc8_, n),
+        "rrx_long_reverse": (s8, sc8_, lambda n: rev_geom(sc8_, n),
                              lambda d, g: P_.long_reverse(d, g, sc8_.tables),
                              lambda d, g: P_.long_reverse_plain(d, g, sc8_.tables),
                              "reverse", f"config 8 {CONFIG8} reverse windows"),
     }
-    for name, (s_, tb, geom_of, kern, plain, work, what) in long_calls.items():
+    for name, (s_, sc_, geom_of, kern, plain, work, what) in long_calls.items():
         g1, gs = geom_of(NL), geom_of(small)
         d_small = s_[:small]
         got, want = kern(d_small, gs), plain(d_small, gs)
@@ -2874,11 +3163,11 @@ def main() -> int:
         compare(name, got, want, f"{what}, 1 MiB", tuple(f"out{i}" for i in range(len(got))))
         ms = time_ms(lambda: kern(s_, g1), warm=1, runs=7)
         plain_ms = time_ms(lambda: plain(d_small, gs), warm=0, runs=3)
-        W = -(-tb.s_tile // 32)
+        tb, W = sc_.tables, state_words(sc_.prog)
         bnd = long_bound(work, g1, W)
         long_ms[name] = (ms, plain_ms, bnd, what)
         print(f"phase 7: {name} {what}, 1 GiB [{g1.nw} windows x {g1.T} steps, block {g1.block}, "
-              f"W = {W}]: kernel {ms:.3f} ms = {NL / ms / 1e6:.1f} GB/s, plain {plain_ms:.1f} ms on "
+              f"{W} state words]: kernel {ms:.3f} ms = {NL / ms / 1e6:.1f} GB/s, plain {plain_ms:.1f} ms on "
               f"1 MiB; bound {bnd[0]:.4f} ms by {bnd[1]}; launches on the path "
               f"{long_launches[name]} [{card}]")
         print(f"  occupancy {name}: {occupancy(name, tb, g1.nw)}; registers "
@@ -3221,6 +3510,96 @@ def main() -> int:
               f"+ rrx_sparse_stats on the bucket {k_ms:.3f} ms + the full-batch pass's launch "
               f"{f_ms:.3f} ms + glue {e2e - pre_ms - k_ms - f_ms:.3f} ms [{card}]")
 
+    # the six wide kernels (dense multiblock tier) on phase 12's batches:
+    # K60+ (s_tile 512, W = 16) over the log text and x(ab|c){300,}y
+    # (s_tile 1024, W = 32) with its chains, at 10 MB and 1 GiB, every record
+    # scanned; outputs against the plain version on the whole 10 MB batch and
+    # on the first n_slice records of 1 GiB, whose time is taken once
+    def timed_once(fn):
+        """(output, CUDA-event ms) of one call."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    def occupancy_wide(name, tables, rows):
+        bps = ctypes.c_int(0)
+        _build.check(lib.rrx_nfa_wide_occupancy(WIDE_KERNELS.index(name), int(tables.s_tile),
+                                                int(tables.P), ctypes.byref(bps)),
+                     "rrx_nfa_wide_occupancy")
+        tpb = lib.rrx_nfa_wide_threads_per_block()
+        blocks = min(-(-rows // (tpb // 32)), bps.value * n_sm)
+        return (f"theoretical {bps.value * tpb}/{max_threads} threads per SM "
+                f"({100.0 * bps.value * tpb / max_threads:.1f}%); persistent grid {blocks} blocks "
+                f"of {tpb // 32} warps ({100.0 * blocks / (bps.value * n_sm):.1f}% of the resident "
+                f"blocks), {rows / (blocks * tpb // 32):.1f} records per warp")
+
+    wide_ms = {}
+    for pattern, eng_w in ((K60P, eng60), (CHAIN300, eng300)):
+        tables = eng_w.device_scanner.nfa
+        step_ops = 3 * state_words(eng_w.prog)
+        tag = f"{eng_w.prog.n_states}-state {pattern[:12]}..."
+        for shape in ("10 MB", "1 GiB"):
+            d, ln, cnt_w = wide_runs[pattern, shape]
+            cap_w = 1 << max(int(cnt_w.max()), 1).bit_length()
+            hits = P.nfa_reverse(d, ln, tables)
+            lazy0 = P.nfa_lazy_spans(d, ln, tables, hits, cap_w)
+            starts = lazy0[0][:, 0].contiguous()
+            greedy0 = P.nfa_greedy_spans(d, ln, tables, hits, cap_w, nullable=False)
+            end0 = P.nfa_anchor_end(d, ln, tables, starts, longest=True)
+            n = min(d.shape[0], n_slice)
+            pd, pl, pst = d[:n].contiguous(), ln[:n].contiguous(), starts[:n].contiguous()
+            ph, ph_ms = timed_once(lambda: scan_bits.reverse_plain(pd, pl, tables))
+            kw = dict(seeded=True, lead=0, nullable=False)
+            calls = {
+                "rrx_nfa_wide_stats": (lambda: P.nfa_stats(d, ln, tables, seeded=True),
+                                       lambda: P.stats_plain(pd, pl, tables, **kw)),
+                "rrx_nfa_wide_flags": (lambda: [P.nfa_flags(d, ln, tables, seeded=True)],
+                                       lambda: [P.flags_plain(pd, pl, tables, seeded=True)]),
+                "rrx_nfa_wide_reverse": (lambda: [hits], None),
+                "rrx_nfa_wide_anchor_end": (
+                    lambda: [P.nfa_anchor_end(d, ln, tables, starts, longest=True)],
+                    lambda: [scan_bits.anchor_plain(pd, pl, tables, pst, longest=True)]),
+                "rrx_nfa_wide_lazy_spans": (
+                    lambda: P.nfa_lazy_spans(d, ln, tables, hits, cap_w),
+                    lambda: scan_bits.lazy_spans_plain(pd, pl, tables, ph, cap_w)),
+                "rrx_nfa_wide_greedy_spans": (
+                    lambda: P.nfa_greedy_spans(d, ln, tables, hits, cap_w, nullable=False),
+                    lambda: scan_bits.greedy_spans_plain(pd, pl, tables, ph, cap_w,
+                                                         nullable=False)),
+            }
+            nb = int(ln.to(torch.int64).sum())
+            for name, (kern, plain) in calls.items():
+                got = kern()
+                if plain is None:
+                    want, plain_ms = [ph], ph_ms
+                else:
+                    want, plain_ms = timed_once(plain)
+                cut = [x[:, :n] if name in ("rrx_nfa_wide_reverse", "rrx_nfa_wide_flags") else x[:n]
+                       for x in got]
+                compare(name, cut, want, f"{tag} {shape}, first {n} records",
+                        tuple(str(i) for i in range(len(want))))
+                if name == "rrx_nfa_wide_reverse":
+                    kern = lambda: P.nfa_reverse(d, ln, tables)  # noqa: E731
+                ms = time_ms(kern, warm=1, runs=3 if shape == "1 GiB" else 5)
+                part = name[len("rrx_nfa_wide_"):]
+                bnd = kernel_bound(part, ln, d.shape[1], step_ops, cap=cap_w, starts=starts,
+                                   end=end0, greedy=greedy0)
+                wide_ms[name, pattern, shape] = (ms, plain_ms, bnd)
+                print(f"phase 7: {name} {tag} {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
+                      f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s, plain {plain_ms:.3f} ms on {n} "
+                      f"records; bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]")
+                print(f"  occupancy {name} ({shape}): {occupancy_wide(name, tables, d.shape[0])}; "
+                      f"registers {regs_of('wide_' + part + '_kernel')}")
+            e2e = time_ms(lambda: eng_w.match_stats(d, ln, seeded=True), warm=1,
+                          runs=3 if shape == "1 GiB" else 5)
+            print(f"phase 7: ScanEngine.match_stats {tag} end to end (data on the card), {shape}: "
+                  f"{e2e:.4f} ms = {nb / e2e / 1e6:.1f} GB/s (rrx_nfa_wide_stats "
+                  f"{wide_ms['rrx_nfa_wide_stats', pattern, shape][0]:.4f} ms) [{card}]")
+
     ms, plain_ms, bnd = flags_ms["10 MB"]
     kernels.append({
         "name": "rrx_nfa_flags", "route": "cuda", "source": NFA_SOURCE,
@@ -3272,13 +3651,22 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
             "shape": f"K120 ({len(K120_WORDS)} keywords), 10 MB of log text, every record",
         })
-    if len(kernels) != 31:
-        fail(f"the kernels line lists {len(kernels)} kernels, not 31")
+    for name in WIDE_KERNELS:
+        ms, plain_ms, bnd = wide_ms[name, CHAIN300, "10 MB"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": NFA_WIDE_SOURCE, "replaces": REPLACES[name],
+            "launches": wide_launches[name], "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "shape": f"{CHAIN300} (s_tile 1024, W = 32), 10 MB of log text with chains planted",
+        })
+    if len(kernels) != 37:
+        fail(f"the kernels line lists {len(kernels)} kernels, not 37")
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

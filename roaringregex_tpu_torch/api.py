@@ -12,8 +12,10 @@ Spans run on the device in O(1) dispatches, as on the JAX package's
 pallas backend, wherever the engine's scanner has anchored kernels: one
 reverse pass, then the lazy span kernel or the greedy round kernel, on the
 SWAR tier's kernels or the matmul tier's (every other dense program the
-engine takes: u32-word and 33..256-state programs, and nullable greedy
-spans, which fall back to the empty match where no longer one starts), or
+engine takes: u32-word and 33..256-state programs, the dense multiblock
+ones of 257..1024 states such as ``(keywords)+`` lists of 40+ words and
+``x(ab|c){300,}y``, and nullable greedy spans, which fall back to the empty
+match where no longer one starts), or
 on the bitband tier's (multiblock and sparse programs whose follow matrix
 decomposes, such as bench config 10, ``x(ab|c){400,520}y``: one reverse
 pass, then rounds of anchored rescans in each record's own warp, lazy or
@@ -28,10 +30,12 @@ position; ``dump`` returns a text dump of the automaton.
 ``MultiPattern(patterns, device)`` scans P patterns in one pass over their
 combined automaton (the Glushkov union): per-pattern counts, search hits
 and grep from one per-channel match-stats scan, and, on the u32-word and
-matmul tiers, every pattern's lazy spans from one channel reverse pass and
-one channel span pass. A combined program on the bitband or container tier
-(keyword lists past ~35 words, sets past 256 states) takes its spans per
-pattern, as in the JAX package.
+matmul tiers up to 256 states, every pattern's lazy spans from one channel
+reverse pass and one channel span pass (on a dense multiblock union, of
+257..1024 states, those two kernels are not ported yet and the lazy spans
+raise). A combined program on the bitband or container tier (keyword lists
+past ~35 words, sets past 256 states) takes its spans per pattern, as in
+the JAX package.
 
 One long string (``Pattern.long``, ``finditer_long``, ``rev_long``): the
 string is scanned in windows on the card (``ops/longstring.py``), for
@@ -165,7 +169,7 @@ class Pattern:
         kernels, else in host rounds over ``starts_bitmap``."""
         data, lengths, B, maxlen = self._pack(texts)
         sc = self.engine.device_scanner
-        if sc is None or not sc.has_anchor:
+        if not sc.has_anchor:
             return self._finditer_rounds(data, lengths, B, maxlen, longest)
         eng = self.engine
         if self.program.nullable and not longest:
@@ -452,9 +456,11 @@ class MultiPattern:
     accept channels: the accept map widens from [lanes, G] to [lanes, G *
     P] and goes to the engine as its accept channels. The port of the JAX
     package's ``MultiPattern`` on its pallas backend: the combined program
-    runs on the u32-word or matmul tier (lazy spans from one combined scan)
-    or, multiblock or sparse, on the bitband or container tier (lazy and
-    greedy spans per pattern). Nullable patterns are scanned with the
+    runs on the u32-word or matmul tier (lazy spans from one combined scan,
+    up to 256 states; a dense multiblock union counts, searches and greps
+    but its lazy spans raise until rows 21-22 are ported) or, multiblock or
+    sparse, on the bitband or container tier (lazy and greedy spans per
+    pattern). Nullable patterns are scanned with the
     kernels' nullability off and corrected on the host."""
 
     def __init__(self, patterns: Sequence[str], device):
@@ -551,12 +557,14 @@ class MultiPattern:
         a batch still overflows it; nullable patterns' lazy spans are the
         closed-form empty-match set. Greedy spans, and every span of a
         program on the bitband or container tier, run per pattern through
-        ``Pattern``, as in the JAX package."""
+        ``Pattern``, as in the JAX package. Lazy spans of a dense multiblock
+        union (257..1024 states) raise ``NotImplementedError``: its
+        multi-channel span kernels (rows 21-22) are not ported yet."""
         if longest or not self._combined_spans:
             if self._spanners is None:
                 self._spanners = [Pattern(p, self.engine.device) for p in self.patterns]
             return [p.finditer_batch(texts, longest=longest) for p in self._spanners]
-        sc = self.engine._own()
+        sc = self.engine.device_scanner
         data, lengths, B = self._pack(texts)
         G = max(self.program.G, 1)
         len_g = lengths.reshape(-1, G)

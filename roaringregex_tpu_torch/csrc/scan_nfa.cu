@@ -1,7 +1,10 @@
 // Matmul tier on Hopper (sm_90a): match statistics, candidate starts,
 // anchored rescans, and lazy and greedy spans of dense programs of up to
 // 256 states (the dense128 and dense256 tiers; also the SWAR tier's nullable
-// spans and the u32-word tier's spans and windowed scans).
+// spans and the u32-word tier's spans and windowed scans). The same
+// functions for record tiles of 257..1024 states (the dense multiblock
+// matmul) run one warp per record in scan_nfa_wide.cu; the multi-channel
+// span kernels below have no such form yet.
 //
 // Replaces six Pallas TPU kernels of the JAX package and the XLA glue
 // around them (all in roaringregex_tpu/ops/scan_pallas.py):

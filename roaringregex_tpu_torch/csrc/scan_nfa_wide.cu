@@ -1,0 +1,635 @@
+// Dense multiblock matmul tier on Hopper (sm_90a): match statistics, forward
+// flags, candidate starts, anchored rescans, and lazy and greedy spans of
+// dense programs of 257..1024 states (record tiles of s_tile 384..1024,
+// W = s_tile/32 = 12..32 state words), one warp per record. scan_nfa.cu
+// runs the same functions for tiles of up to 256 states, one thread per
+// record.
+//
+// Replaces, at those tiles, six Pallas TPU kernels of the JAX package and the
+// XLA glue around them (all in roaringregex_tpu/ops/scan_pallas.py; rows
+// 14-20 of PERF.md's table):
+//   rrx_nfa_wide_stats        <- _match_kernel_b (via _match_call_b), with
+//                                P accept channels (C = G*P there)
+//   rrx_nfa_wide_flags        <- _flags_kernel_b (via _flags_call_b) and its
+//                                bit-packed form _flags_words_kernel_b
+//   rrx_nfa_wide_reverse      <- _reverse_kernel_b (via _reverse_pl); its hit
+//                                words are also _reverse_words_kernel_b's
+//   rrx_nfa_wide_anchor_end   <- _anchor_end_kernel_b (via _anchor_pl)
+//   rrx_nfa_wide_lazy_spans   <- _span_kernel_b (via _spans_call_b), with the
+//                                event-stream compaction after it
+//   rrx_nfa_wide_greedy_spans <- _greedy_call_b's while_loop of rounds
+// The TPU's banded diag_ks form of a multiblock program (banded_offsets,
+// _apply_ft) is a layout of the same function: the set form below serves
+// banded programs too.
+//
+// What they compute: exactly what scan_nfa.cu's kernels compute (its header
+// states the semantics: the seed gates, the `$` dedup, the nullable starts,
+// the lazy spans' empty match at len after the EOS step, the greedy rounds),
+// over the same table (scan_pallas.nfa_tables: follow [S][W], pred [S][W],
+// mask [kSyms][W], P accept rows [P][W]). In set form one forward step is
+//     v = (OR of follow[s] over s in v | seed gate ? follow[0] : 0) & mask[sym]
+// and one reverse step
+//     R = OR of pred[u] over u in (R | acc) & mask[sym];  hit = state 0 in R.
+//
+// Design, and what bounds it on this card:
+// - One warp per record: lane l < W holds state word l in one register;
+//   lanes >= W hold zero and take part in every shuffle and vote. W is a
+//   runtime argument (one instantiation per kernel keeps nvcc's time short).
+// - The step walks the live states warp-uniformly: a ballot of the lanes
+//   with a live word, then for each such word w its bits broadcast by
+//   __shfl_sync, and for each set bit s lane l ORs row[s][l] from shared
+//   memory (consecutive lanes, consecutive words: no bank conflict). Every
+//   lane sees the same set bits, so the warp does not diverge; the cost is
+//   one shared load per live state and step, plus W-independent vote and
+//   mask work. The accept test is one __any_sync.
+// - Shared memory holds only the direction a kernel needs (follow for the
+//   forward kernels, pred for the reverse one), the mask rows and the accept
+//   rows: at s_tile 1024, 128 KB + 33 KB, so one 1024-thread block per SM;
+//   the whole table (295 KB) would not fit the 227 KB a block may have. At
+//   s_tile 384 (W = 12) the block needs 31 KB, and two fit on an SM where
+//   the registers allow (32 a thread; the stats kernel takes more).
+// - Persistent blocks: no more blocks than are resident at once, each copies
+//   its rows once, and its warps take records from a counter in global
+//   memory (next, zero at launch), so that long-lived records (many live
+//   states, a greedy round per span) do not pile up on a few warps.
+// - The record's bytes are read 16 at a time, every lane the same 16-byte
+//   chunk (one broadcast load). HBM carries one byte per step and 1 bit per
+//   step of flag or hit words; a pass is bound by the step's dependent
+//   chain of shuffles, shared loads and votes, and by integer issue.
+// - Stats with P > 1 accept channels: the union of the accept rows is tested
+//   every step; on a step where it fires the warp's state goes to a buffer
+//   in shared memory and lane c tests channels c, c+32, ... and updates
+//   their statistics in the output rows ([R][P], global memory). One channel
+//   (P = 1) keeps its statistics in registers, the same on every lane.
+// - Anchored rescans start at their seed step and stop at the first step
+//   past it with an empty state set (or, lazy, once an end is found), so a
+//   greedy round costs the match's length, not the record's.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "scan_core.cuh"
+
+namespace {
+
+using namespace rrx;
+
+constexpr int kWideWarps = 32;  // records in flight per block
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMinTile = 257;
+constexpr int kMaxTile = 1024;  // 32 state words: one per lane
+constexpr size_t kSmemLimit = 232448;
+
+// Shared memory of a kernel: one direction's rows [S][W], the mask rows
+// [kSyms][W], P accept rows [P][W], and (stats with P > 1) one state buffer
+// of W words per warp.
+inline size_t wide_smem_bytes(int S, int W, int P, bool bufs) {
+  const size_t rows = static_cast<size_t>(S + kSyms + P) * W;
+  return sizeof(uint32_t) * (rows + (bufs ? static_cast<size_t>(kWideWarps) * W : 0));
+}
+
+// One record tile as a warp steps it: the rows in shared memory, and this
+// lane's word of the seed row (follow[0]) and of the union of the accept
+// rows (zero for lanes >= W).
+struct Wide {
+  const uint32_t* rows;  // [S][W]: follow, or pred for the reverse kernel
+  const uint32_t* mask;  // [kSyms][W]
+  const uint32_t* acc;   // [P][W]
+  int W;
+  int col;  // this lane's word, or 0 for a lane >= W (whose results are dropped)
+  bool on;  // lane < W
+  uint32_t seed_l;
+  uint32_t acc_l;
+
+  // This lane's word of the OR of rows[s] over the states s of the warp's
+  // set x (lane l holds word l).
+  __device__ __forceinline__ uint32_t expand(uint32_t x) const {
+    uint32_t y = 0u;
+    unsigned live = __ballot_sync(kFull, x != 0u);
+    while (live != 0u) {
+      const int w = __ffs(live) - 1;
+      live &= live - 1u;
+      uint32_t b = __shfl_sync(kFull, x, w);
+      const uint32_t* r = rows + 32 * w * W + col;
+      while (b != 0u) {
+        y |= r[(__ffs(b) - 1) * W];
+        b &= b - 1u;
+      }
+    }
+    return on ? y : 0u;
+  }
+
+  // v = (OR of follow[s] over s in v | gate ? follow[0] : 0) & mask[sym]
+  __device__ __forceinline__ uint32_t fwd(uint32_t v, bool gate, int sym) const {
+    const uint32_t y = expand(v) | (gate ? seed_l : 0u);
+    return y & mask[sym * W + col];
+  }
+
+  // R = OR of pred[u] over u in (R | acc) & mask[sym]
+  __device__ __forceinline__ uint32_t rev(uint32_t r, int sym) const {
+    return expand((r | acc_l) & mask[sym * W + col]);
+  }
+
+  __device__ __forceinline__ bool accepts(uint32_t v) const {
+    return __any_sync(kFull, (v & acc_l) != 0u);
+  }
+
+  // v & acc[c] != 0 for the state v (W words in shared memory) and accept
+  // channel c.
+  __device__ __forceinline__ bool channel_hit(const uint32_t* v, int c) const {
+    const uint32_t* a = acc + c * W;
+    uint32_t x = 0u;
+    for (int k = 0; k < W; ++k) x |= v[k] & a[k];
+    return x != 0u;
+  }
+};
+
+__device__ __forceinline__ bool empty(uint32_t v) { return !__any_sync(kFull, v != 0u); }
+
+// Copies one direction's rows (pred when `pred`, else follow), the mask rows
+// and the P accept rows of the table into shared memory. Every thread of the
+// block calls it (it ends in __syncthreads) before any thread returns.
+__device__ __forceinline__ Wide load_wide(uint32_t* smem, const uint32_t* __restrict__ tab_g,
+                                          int S, int W, int P, bool pred) {
+  const int n_rows = S * W;
+  const int n_tail = (kSyms + P) * W;
+  const uint32_t* src = tab_g + (pred ? n_rows : 0);
+  for (int i = threadIdx.x; i < n_rows; i += blockDim.x) smem[i] = __ldg(src + i);
+  const uint32_t* tail = tab_g + 2 * n_rows;
+  for (int i = threadIdx.x; i < n_tail; i += blockDim.x) smem[n_rows + i] = __ldg(tail + i);
+  __syncthreads();
+  Wide k;
+  k.rows = smem;
+  k.mask = smem + n_rows;
+  k.acc = k.mask + kSyms * W;
+  k.W = W;
+  const int lane = threadIdx.x & 31;
+  k.on = lane < W;
+  k.col = k.on ? lane : 0;
+  uint32_t a = 0u;
+  for (int p = 0; p < P; ++p) a |= k.acc[p * W + k.col];
+  k.acc_l = k.on ? a : 0u;
+  k.seed_l = k.on ? k.rows[k.col] : 0u;
+  return k;
+}
+
+// A record's stream, read in any order: step 0 is BOS, step t carries byte
+// t-1, step len+1 is EOS. The bytes are read 16 at a time (every lane the
+// same chunk), a chunk once for each run of steps inside it.
+struct Stream {
+  const uint4* row;
+  int len;
+  int qi;
+  uint4 q;
+
+  __device__ __forceinline__ int sym(int t) {
+    if (t == 0) return kBos;
+    if (t > len) return kEos;
+    const int j = t - 1;
+    if ((j >> 4) != qi) {
+      qi = j >> 4;
+      q = __ldg(row + qi);
+    }
+    return byte_at(q, j & 15);
+  }
+};
+
+__device__ __forceinline__ Stream stream_of(const uint8_t* data, long long stride, int L,
+                                            const int32_t* lengths, int r) {
+  const Row rec = record(data, stride, L, lengths, r);
+  return Stream{rec.row, rec.len, -1, make_uint4(0, 0, 0, 0)};
+}
+
+// The next unclaimed record index, the same on every lane of the warp.
+__device__ __forceinline__ int next_record(int32_t* next, int lane) {
+  int r = 0;
+  if (lane == 0) r = atomicAdd(next, 1) + static_cast<int>(gridDim.x) * kWideWarps;
+  return __shfl_sync(kFull, r, 0);
+}
+
+#define WIDE_PARAMS                                                                       \
+  const uint8_t *__restrict__ data, long long stride, int L,                              \
+      const int32_t *__restrict__ lengths, int R, const uint32_t *__restrict__ tab_g,     \
+      int S, int W
+// The records of one warp: each warp starts at its own index, then takes the
+// next unclaimed record from the launch's counter.
+#define WIDE_RECORDS                                                                      \
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;                            \
+  for (int r = static_cast<int>(blockIdx.x) * kWideWarps + warp; r < R;                   \
+       r = next_record(next, lane))
+
+// Writes -1 into span slots from .. cap-1 of one record's rows, the warp's
+// lanes in parallel.
+__device__ __forceinline__ void fill_tail_warp(int32_t* s, int32_t* e, int from, int cap,
+                                               int lane) {
+  for (int k = from + lane; k < cap; k += 32) {
+    s[k] = -1;
+    e[k] = -1;
+  }
+}
+
+// Anchored rescan of one record from start st: the first (lazy) or last
+// (longest) accept step as an end clipped to len, -1 when none.
+__device__ __forceinline__ int anchor_scan(const Wide& k, Stream& s, int st, bool longest) {
+  const int len = s.len;
+  if (st < 0 || st > len) return -1;  // seed step dead or never reached
+  uint32_t v = 0u;
+  int first = -1, last = -1;
+#pragma unroll 1
+  for (int t = st == 0 ? 0 : st + 1; t <= len + 1; ++t) {
+    v = k.fwd(v, t == st + 1 || (st == 0 && t <= 1), s.sym(t));
+    if (k.accepts(v)) {
+      first = first < 0 ? t : first;
+      last = t;
+    }
+    // past the seed step an empty state set stays empty
+    if (t > st && (empty(v) || (!longest && first >= 0))) break;
+  }
+  const int t = longest ? last : first;
+  return t < 0 ? -1 : min(t, len);
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+wide_stats_kernel(WIDE_PARAMS, int P, int seeded, int lead, int nullable,
+                  int32_t* __restrict__ cnt_o, int32_t* __restrict__ first_o,
+                  int32_t* __restrict__ last_o, uint8_t* __restrict__ full_o, int32_t* next) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Wide k = load_wide(smem, tab_g, S, W, P, false);
+  const bool dedup = !(nullable && seeded);
+  WIDE_RECORDS {
+    uint32_t* buf = smem + static_cast<size_t>(S + kSyms + P) * W + warp * W;
+    Stream s = stream_of(data, stride, L, lengths, r);
+    const int len = s.len;
+    const long long base = static_cast<long long>(r) * P;
+    // one channel: registers (the same on every lane); P > 1: the output rows
+    int cnt = nullable ? (seeded ? len + 1 : 1) : 0;
+    int first = nullable ? 0 : -1;
+    int last = nullable ? (seeded ? len : 0) : -1;
+    bool full = nullable && len == 0;
+    if (P > 1) {
+      for (int c = lane; c < P; c += 32) {
+        cnt_o[base + c] = cnt;
+        first_o[base + c] = first;
+        last_o[base + c] = last;
+        full_o[base + c] = full ? 1 : 0;
+      }
+    }
+    uint32_t v = 0u;
+#pragma unroll 1
+    for (int t = 0; t <= len + 1; ++t) {
+      v = k.fwd(v, seeded || t < 2, s.sym(t));
+      if (t > lead && k.accepts(v)) {
+        const int e = min(t, len);
+        if (P == 1) {
+          cnt += (dedup && e != last) ? 1 : 0;
+          first = first < 0 ? e : first;
+          last = e;
+          full = full || t >= len;
+        } else {
+          if (k.on) buf[lane] = v;
+          __syncwarp();
+          for (int c = lane; c < P; c += 32) {
+            if (!k.channel_hit(buf, c)) continue;
+            const long long o = base + c;
+            if (dedup && e != last_o[o]) cnt_o[o] += 1;
+            if (first_o[o] < 0) first_o[o] = e;
+            last_o[o] = e;
+            if (t >= len) full_o[o] = 1;
+          }
+          __syncwarp();
+        }
+      }
+      // unseeded: past the last seed step an empty state set accepts nothing
+      if (!seeded && t >= 1 && empty(v)) break;
+    }
+    if (P == 1 && lane == 0) {
+      cnt_o[r] = cnt;
+      first_o[r] = first;
+      last_o[r] = last;
+      full_o[r] = full ? 1 : 0;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+wide_flags_kernel(WIDE_PARAMS, int seeded, uint32_t* __restrict__ flags, int32_t* next) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Wide k = load_wide(smem, tab_g, S, W, 1, false);
+  const int Wh = (L + 2 + 31) >> 5;
+  WIDE_RECORDS {
+    Stream s = stream_of(data, stride, L, lengths, r);
+    const int len = s.len;
+    uint32_t v = 0u, word = 0u;
+#pragma unroll 1
+    for (int t = 0; t <= len + 1; ++t) {
+      v = k.fwd(v, seeded || t < 2, s.sym(t));
+      word |= (k.accepts(v) ? 1u : 0u) << (t & 31);
+      if ((t & 31) == 31) {  // walking up, bit t closes word t / 32
+        if (lane == 0) flags[static_cast<size_t>(t >> 5) * R + r] = word;
+        word = 0u;
+      }
+    }
+    const int w_eos = (len + 1) >> 5;
+    if (((len + 1) & 31) != 31 && lane == 0) flags[static_cast<size_t>(w_eos) * R + r] = word;
+    for (int w = w_eos + 1 + lane; w < Wh; w += 32) flags[static_cast<size_t>(w) * R + r] = 0u;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+wide_reverse_kernel(WIDE_PARAMS, uint32_t* __restrict__ hits, int32_t* next) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Wide k = load_wide(smem, tab_g, S, W, 1, true);
+  const int Wh = (L + 2 + 31) >> 5;
+  WIDE_RECORDS {
+    Stream s = stream_of(data, stride, L, lengths, r);
+    const int len = s.len;
+    for (int w = ((len + 1) >> 5) + 1 + lane; w < Wh; w += 32) {
+      hits[static_cast<size_t>(w) * R + r] = 0u;
+    }
+    uint32_t rs = 0u, word = 0u;
+#pragma unroll 1
+    for (int t = len + 1; t >= 0; --t) {
+      rs = k.rev(rs, s.sym(t));
+      word |= (__shfl_sync(kFull, rs, 0) & 1u) << (t & 31);
+      if ((t & 31) == 0) {  // walking down, bit t closes word t / 32
+        if (lane == 0) hits[static_cast<size_t>(t >> 5) * R + r] = word;
+        word = 0u;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+wide_anchor_end_kernel(WIDE_PARAMS, const int32_t* __restrict__ starts, int longest,
+                       int32_t* __restrict__ end_o, int32_t* next) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Wide k = load_wide(smem, tab_g, S, W, 1, false);
+  WIDE_RECORDS {
+    Stream s = stream_of(data, stride, L, lengths, r);
+    const int e = anchor_scan(k, s, starts[r], longest != 0);
+    if (lane == 0) end_o[r] = e;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+wide_lazy_spans_kernel(WIDE_PARAMS, const uint32_t* __restrict__ hits, int cap,
+                       int32_t* __restrict__ starts_o, int32_t* __restrict__ ends_o,
+                       int32_t* __restrict__ cnt_o, int32_t* next) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Wide k = load_wide(smem, tab_g, S, W, 1, false);
+  WIDE_RECORDS {
+    Stream s = stream_of(data, stride, L, lengths, r);
+    const int len = s.len;
+    int32_t* so = starts_o + static_cast<size_t>(r) * cap;
+    int32_t* eo = ends_o + static_cast<size_t>(r) * cap;
+    uint32_t v = 0u, hw = 0u;
+    int pos = 0, cur = -1, cnt = 0;
+#pragma unroll 1
+    for (int t = 0; t <= len + 1; ++t) {
+      if ((t & 31) == 0) hw = __ldg(hits + static_cast<size_t>(t >> 5) * R + r);
+      const int sp = max(t - 1, 0);
+      if (cur < 0 && ((hw >> (t & 31)) & 1u) && pos <= sp && sp <= len) cur = sp;
+      v = k.fwd(v, cur >= 0 && (cur == t - 1 || (cur == 0 && t <= 1)), s.sym(t));
+      const int e = min(t, len);
+      const bool acc = k.accepts(v);
+      if (cur >= 0 && e >= cur && acc) {
+        if (lane == 0 && cnt < cap) {
+          so[cnt] = cur;
+          eo[cnt] = e;
+        }
+        ++cnt;
+        pos = max(e, cur + 1);
+        cur = -1;
+        v = 0u;
+      }
+    }
+    // the empty match at len, whose start hit the EOS step read while a span
+    // ending at that step still held cur (see scan_spans.cu)
+    if (cur < 0 && pos <= len && ((hw >> ((len + 1) & 31)) & 1u)) {
+      if (lane == 0 && cnt < cap) {
+        so[cnt] = len;
+        eo[cnt] = len;
+      }
+      ++cnt;
+    }
+    fill_tail_warp(so, eo, min(cnt, cap), cap, lane);
+    if (lane == 0) cnt_o[r] = cnt;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+wide_greedy_spans_kernel(WIDE_PARAMS, const uint32_t* __restrict__ hits, int cap, int nullable,
+                         int32_t* __restrict__ starts_o, int32_t* __restrict__ ends_o,
+                         int32_t* __restrict__ cnt_o, uint8_t* __restrict__ over_o,
+                         int32_t* next) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Wide k = load_wide(smem, tab_g, S, W, 1, false);
+  WIDE_RECORDS {
+    Stream s = stream_of(data, stride, L, lengths, r);
+    const int len = s.len;
+    const int w_top = (len + 1) >> 5;  // hit words past it are 0
+    int32_t* so = starts_o + static_cast<size_t>(r) * cap;
+    int32_t* eo = ends_o + static_cast<size_t>(r) * cap;
+    int pos = 0, n = 0;
+    bool active = true;
+#pragma unroll 1
+    for (int round = 0; round < cap && active; ++round) {
+      int st = pos;  // nullable: every position <= len starts an empty match
+      if (!nullable) {
+        const int thr = pos > 0 ? pos + 1 : 0;  // steps 0 and 1 both start at 0
+        int t = -1;
+        for (int w = thr >> 5; w <= w_top; ++w) {
+          uint32_t hw = __ldg(hits + static_cast<size_t>(w) * R + r);
+          if (w == thr >> 5) hw &= ~0u << (thr & 31);
+          if (hw != 0u) {
+            t = 32 * w + __ffs(hw) - 1;
+            break;
+          }
+        }
+        st = t < 0 ? len + 1 : max(t - 1, 0);
+      }
+      if (st > len) {
+        active = false;
+        break;
+      }
+      int e = anchor_scan(k, s, st, true);
+      if (nullable && e < st) e = st;  // the empty match at st
+      if (e < st) {
+        active = false;
+        break;
+      }
+      if (lane == 0) {
+        so[n] = st;
+        eo[n] = e;
+      }
+      ++n;
+      pos = max(e, st + 1);
+      active = pos <= len;
+    }
+    fill_tail_warp(so, eo, n, cap, lane);
+    if (lane == 0) {
+      cnt_o[r] = n;
+      over_o[r] = active ? 1 : 0;
+    }
+  }
+}
+
+// The launchers' checks: the row layout (check_rows), a tile of 257..1024
+// states with W = ceil(s_tile/32) words, and P >= 1 accept rows.
+int check_wide(const void* data, long long stride, int L, int R, int s_tile, int P) {
+  if (s_tile < kMinTile || s_tile > kMaxTile || P < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return check_rows(data, stride, L, R);
+}
+
+inline int words_of(int s_tile) { return (s_tile + 31) / 32; }
+
+// No more blocks than fit on the card at once: each block then walks its
+// share of the records (WIDE_RECORDS) and copies its rows once.
+template <class K, class... Args>
+int launch_wide(K kernel, int R, size_t smem, void* stream, Args... args) {
+  if (R == 0) return 0;
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  e = static_cast<int>(cudaGetDevice(&dev));
+  if (e == 0) {
+    e = static_cast<int>(cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev));
+  }
+  if (e == 0) {
+    e = static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWideThreads, smem));
+  }
+  if (e != 0) return e;
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int blocks = min((R + kWideWarps - 1) / kWideWarps, n_sm * per_sm);
+  kernel<<<blocks, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class K>
+int occupancy_wide(K kernel, size_t smem, int* blocks_per_sm) {
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kWideThreads, smem));
+}
+
+}  // namespace
+
+#define RRX_WIDE_HEAD \
+  const void *data, long long stride, int L, const void *lengths, int R, const void *tab, int s_tile
+#define RRX_WIDE_ARGS                                                                    \
+  static_cast<const uint8_t*>(data), stride, L, static_cast<const int32_t*>(lengths), R, \
+      static_cast<const uint32_t*>(tab), s_tile, words_of(s_tile)
+
+extern "C" {
+
+// Every entry point: the head of scan_nfa.cu's (the rows, the table of
+// scan_pallas.nfa_tables for a tile of 257..1024 states), its own arguments
+// as there, then next: a device int32 set to 0, the record counter the
+// warps take work from, and the stream.
+//
+// P accept rows in the table; cnt, first, last: [R][P] int32; full: [R][P]
+// uint8; lead < 0 = no lead.
+int rrx_nfa_wide_stats(RRX_WIDE_HEAD, int P, int seeded, int lead, int nullable, void* cnt,
+                       void* first, void* last, void* full, void* next, void* stream) {
+  const int bad = check_wide(data, stride, L, R, s_tile, P);
+  if (bad != 0) return bad;
+  return launch_wide(wide_stats_kernel, R, wide_smem_bytes(s_tile, words_of(s_tile), P, P > 1),
+                     stream, RRX_WIDE_ARGS, P, seeded, lead, nullable,
+                     static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
+                     static_cast<int32_t*>(last), static_cast<uint8_t*>(full),
+                     static_cast<int32_t*>(next));
+}
+
+// flags: [ceil((L+2)/32)][R] uint32, bit t = step t's accept flag
+int rrx_nfa_wide_flags(RRX_WIDE_HEAD, int seeded, void* flags, void* next, void* stream) {
+  const int bad = check_wide(data, stride, L, R, s_tile, 1);
+  if (bad != 0) return bad;
+  return launch_wide(wide_flags_kernel, R, wide_smem_bytes(s_tile, words_of(s_tile), 1, false),
+                     stream, RRX_WIDE_ARGS, seeded, static_cast<uint32_t*>(flags),
+                     static_cast<int32_t*>(next));
+}
+
+// hits: [ceil((L+2)/32)][R] uint32
+int rrx_nfa_wide_reverse(RRX_WIDE_HEAD, void* hits, void* next, void* stream) {
+  const int bad = check_wide(data, stride, L, R, s_tile, 1);
+  if (bad != 0) return bad;
+  return launch_wide(wide_reverse_kernel, R, wide_smem_bytes(s_tile, words_of(s_tile), 1, false),
+                     stream, RRX_WIDE_ARGS, static_cast<uint32_t*>(hits),
+                     static_cast<int32_t*>(next));
+}
+
+// starts: [R] int32 (-1 = inactive); end: [R] int32
+int rrx_nfa_wide_anchor_end(RRX_WIDE_HEAD, const void* starts, int longest, void* end,
+                            void* next, void* stream) {
+  const int bad = check_wide(data, stride, L, R, s_tile, 1);
+  if (bad != 0) return bad;
+  return launch_wide(wide_anchor_end_kernel, R,
+                     wide_smem_bytes(s_tile, words_of(s_tile), 1, false), stream, RRX_WIDE_ARGS,
+                     static_cast<const int32_t*>(starts), longest, static_cast<int32_t*>(end),
+                     static_cast<int32_t*>(next));
+}
+
+// hits from rrx_nfa_wide_reverse; starts, ends: [R][cap] int32; cnt: [R] int32
+int rrx_nfa_wide_lazy_spans(RRX_WIDE_HEAD, const void* hits, int cap, void* starts, void* ends,
+                            void* cnt, void* next, void* stream) {
+  const int bad = check_wide(data, stride, L, R, s_tile, 1);
+  if (bad != 0) return bad;
+  if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wide(wide_lazy_spans_kernel, R,
+                     wide_smem_bytes(s_tile, words_of(s_tile), 1, false), stream, RRX_WIDE_ARGS,
+                     static_cast<const uint32_t*>(hits), cap, static_cast<int32_t*>(starts),
+                     static_cast<int32_t*>(ends), static_cast<int32_t*>(cnt),
+                     static_cast<int32_t*>(next));
+}
+
+// as rrx_nfa_wide_lazy_spans, plus nullable and over: [R] uint8
+int rrx_nfa_wide_greedy_spans(RRX_WIDE_HEAD, const void* hits, int cap, int nullable,
+                              void* starts, void* ends, void* cnt, void* over, void* next,
+                              void* stream) {
+  const int bad = check_wide(data, stride, L, R, s_tile, 1);
+  if (bad != 0) return bad;
+  if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wide(wide_greedy_spans_kernel, R,
+                     wide_smem_bytes(s_tile, words_of(s_tile), 1, false), stream, RRX_WIDE_ARGS,
+                     static_cast<const uint32_t*>(hits), cap, nullable,
+                     static_cast<int32_t*>(starts), static_cast<int32_t*>(ends),
+                     static_cast<int32_t*>(cnt), static_cast<uint8_t*>(over),
+                     static_cast<int32_t*>(next));
+}
+
+// Resident blocks per SM (theoretical occupancy) of a wide kernel for a tile
+// of s_tile states and P accept rows, by index: 0 stats, 1 reverse, 2 anchor
+// end, 3 lazy spans, 4 greedy spans, 5 flags (rrx_occupancy's order).
+int rrx_nfa_wide_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm) {
+  if (s_tile < kMinTile || s_tile > kMaxTile || P < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int W = words_of(s_tile);
+  const size_t smem = wide_smem_bytes(s_tile, W, kernel == 0 ? P : 1, kernel == 0 && P > 1);
+  switch (kernel) {
+    case 0:
+      return occupancy_wide(wide_stats_kernel, smem, blocks_per_sm);
+    case 1:
+      return occupancy_wide(wide_reverse_kernel, smem, blocks_per_sm);
+    case 2:
+      return occupancy_wide(wide_anchor_end_kernel, smem, blocks_per_sm);
+    case 3:
+      return occupancy_wide(wide_lazy_spans_kernel, smem, blocks_per_sm);
+    case 4:
+      return occupancy_wide(wide_greedy_spans_kernel, smem, blocks_per_sm);
+    case 5:
+      return occupancy_wide(wide_flags_kernel, smem, blocks_per_sm);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int rrx_nfa_wide_threads_per_block() { return kWideThreads; }
+
+}  // extern "C"

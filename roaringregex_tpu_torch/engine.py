@@ -15,7 +15,9 @@ lanes fit ``SPARSE_LANES_MAX`` goes to the bitband tier
 which the JAX engine prefers the container kernels to the dense matmul
 (:meth:`ScanEngine._multiblock_container_wins`): the bitband tier when it
 decomposes, the container tier else. ``RRX_BITBAND=0`` (``bitband``) sends
-both to the container tier.
+both to the container tier. Every other multiblock program (a banded one
+too) goes to the dense multiblock matmul: the matmul tier's
+``PallasScanner`` at its record tile of 384..1024 states.
 
 With an accept map (``accept_map`` [lanes, G * P], ``channels_per_record``
 P: the multi-pattern interface of ``MultiPattern``'s combined automaton)
@@ -29,14 +31,11 @@ A whole-pattern ``X{m,n}`` on the multiblock or sparse tier with no
 counting plan may have a seeded alias (:func:`seeded_alias_program`,
 ``RRX_ALIAS``): its seeded primitives (match stats, forward flags, reverse
 hits, the lazy anchored rescan, both bitmaps) run on the alias's engine,
-as in the JAX package, and its own scanner takes the rest. Where the JAX
-engine runs a program on the dense multiblock matmul (not ported yet),
-every primitive that needs the original program raises
-``NotImplementedError`` naming the tier; a program that the port can
-neither route nor alias is refused at construction, and so is one over the
-container kernels' caps (``SPARSE_PARTIAL_MAX`` partial blocks,
+as in the JAX package, and its own scanner takes the rest. A program over
+the container kernels' caps (``SPARSE_PARTIAL_MAX`` partial blocks,
 ``SPARSE_LANES_MAX`` lanes), which the JAX engine sends to its XLA
-backend. ROADMAP.md queues both.
+backend, is refused at construction with ``NotImplementedError``;
+ROADMAP.md queues that backend.
 
 A sparse program on its own scanner may have a prefilter
 (:func:`relaxed_prefilter_program`): a tiny superset-language program
@@ -195,15 +194,7 @@ class ScanEngine:
             # run-length tier: one int per record, no follow table
             self._scanner = CountScanner(prog, plan, self.device, nullable=nullable)
         elif prog.tier not in DENSE_TIERS:
-            self._scanner, why = self._big_tier(prog, accept_map, nullable)
-            if self._scanner is None and (self._channels or self._seeded_alias() is None):
-                raise NotImplementedError(self._unported(
-                    f"the JAX package runs it on {why}, and it has neither a counting plan nor "
-                    "a seeded alias" if not self._channels else
-                    f"a combined program of {self.P} accept channels, which the JAX package runs "
-                    f"on {why}"
-                ))
-            self._own_tier = why
+            self._scanner = self._big_tier(prog, accept_map, nullable)
         elif accept_map is None and self.P == 1 and cfg.swar and swar_spec(prog) is not None:
             self._scanner = SwarScanner(prog, self.device, nullable=nullable)
         elif cfg.swar and word_spec(prog, accept_map, self.P) is not None:
@@ -214,34 +205,35 @@ class ScanEngine:
                                           nullable=nullable)
 
     def _big_tier(self, prog: DeviceProgram, accept_map, nullable):
-        """(scanner or None, the tier the JAX engine takes) of a multiblock
-        or sparse program without a counting plan: the JAX engine's rule
-        (``engine.py:235-328``). A sparse program takes the bitband tier
-        when ``bitband`` is on, ``bitband_spec`` decomposes it and its lanes
-        fit ``SPARSE_LANES_MAX``, else the container tier; a multiblock
-        program takes the bitband tier (when it decomposes) or the container
-        tier when :meth:`_multiblock_container_wins`, else the dense
-        multiblock matmul (None: not ported). A container program over
+        """The scanner of a multiblock or sparse program without a counting
+        plan: the JAX engine's rule (``engine.py:235-387``). A sparse
+        program takes the bitband tier when ``bitband`` is on,
+        ``bitband_spec`` decomposes it and its lanes fit
+        ``SPARSE_LANES_MAX``, else the container tier; a multiblock program
+        takes the bitband tier (when it decomposes) or the container tier
+        when :meth:`_multiblock_container_wins`, else the dense multiblock
+        matmul (``PallasScanner``; a dense multiblock program matches no
+        ``swar_spec`` or ``word_spec``). A container program over
         ``SPARSE_PARTIAL_MAX`` partial blocks or ``SPARSE_LANES_MAX`` lanes
         raises: the JAX engine runs it on its XLA backend."""
         from .ops.scan_bitband import SPARSE_LANES_MAX, BitbandScanner, bitband_spec
+        from .ops.scan_pallas import PallasScanner
         from .ops.scan_sparse import SparseScanner
         from .utils.config import get_config
 
         if prog.tier != "sparse" and not self._multiblock_container_wins(prog):
-            return None, "the dense multiblock matmul tier"
+            return PallasScanner(prog, self.device, accept_map=accept_map, nullable=nullable)
         spec = bitband_spec(prog) if get_config().bitband else None
         if spec is not None and prog.s_pad <= SPARSE_LANES_MAX:
             return BitbandScanner(prog, self.device, spec, accept_map=accept_map,
-                                  nullable=nullable), "the bitband tier"
+                                  nullable=nullable)
         npart = len(prog.sparse_partition[0])
         if npart > SPARSE_PARTIAL_MAX or prog.s_pad > SPARSE_LANES_MAX:
             raise NotImplementedError(self._unported(
                 f"{npart} partial blocks and {prog.s_pad} lanes, over the container kernels' "
                 f"caps ({SPARSE_PARTIAL_MAX} partial blocks, {SPARSE_LANES_MAX} lanes), so the "
                 "JAX package runs it on its XLA backend"))
-        return SparseScanner(prog, self.device, accept_map=accept_map,
-                             nullable=nullable), "the container tier"
+        return SparseScanner(prog, self.device, accept_map=accept_map, nullable=nullable)
 
     @staticmethod
     def _multiblock_container_wins(prog: DeviceProgram) -> bool:
@@ -268,9 +260,9 @@ class ScanEngine:
         p = self.prog
         return (
             f"{p.pattern!r}: tier {p.tier}, {p.n_states} states ({why}); the port has the "
-            "SWAR, u32-word and matmul tiers for dense programs of up to 256 states, the "
-            "counting, bitband and container tiers and the seeded alias; the dense multiblock "
-            "matmul tier and the XLA backend are still to be ported (see ROADMAP.md)"
+            "SWAR, u32-word and matmul tiers for dense programs of up to 1024 states, the "
+            "counting, bitband and container tiers and the seeded alias; the XLA backend is "
+            "still to be ported (see ROADMAP.md)"
         )
 
     def _one_channel(self, what: str) -> None:
@@ -283,21 +275,10 @@ class ScanEngine:
                 "scanner's lazy_spans_mb)"
             )
 
-    def _own(self):
-        """The program's own scanner; raises for a program that runs only
-        through its seeded alias."""
-        if self._scanner is None:
-            raise NotImplementedError(self._unported(
-                f"the JAX package runs it on {self._own_tier}; only its seeded primitives run, "
-                "on its seeded alias, and this primitive needs the original program"
-            ))
-        return self._scanner
-
     @property
     def device_scanner(self):
         """The selected kernel scanner (SwarScanner, WordScanner,
-        PallasScanner, CountScanner, BitbandScanner or SparseScanner), or
-        None for a program that runs only through its seeded alias."""
+        PallasScanner, CountScanner, BitbandScanner or SparseScanner)."""
         return self._scanner
 
     # -- seeded alias: X{m,n} == X{m,} under seeded semantics --------------
@@ -358,7 +339,7 @@ class ScanEngine:
         return self._match_stats_raw(data, lengths, seeded=seeded)
 
     def _match_stats_raw(self, data, lengths, *, seeded: bool):
-        sc = self._own()
+        sc = self._scanner
         data = self._data(data)
         plan = self._window_plan(data.shape[1], data.shape[0], seeded)
         if plan is not None:
@@ -376,7 +357,7 @@ class ScanEngine:
             self._prefilter_built = True
             self._prefilter_eng = None
             if (self.P == 1 and not self._channels and self._counting is None
-                    and self._scanner is not None and self.prog.tier == "sparse"
+                    and self.prog.tier == "sparse"
                     and seeded_alias_program(self.prog) is None):
                 rp = relaxed_prefilter_program(self.prog)
                 if rp is not None:
@@ -508,7 +489,7 @@ class ScanEngine:
         alias = self._seeded_alias()
         if seeded and alias is not None:
             return self._alias_call(alias, "forward_flags", data, lengths, seeded=True)
-        sc = self._own()
+        sc = self._scanner
         if self._use_prefilter(data):
             # a record the superset scan rejects has no accept anywhere
             return self._prefilter_apply(
@@ -524,7 +505,7 @@ class ScanEngine:
         alias = self._seeded_alias()
         if alias is not None:
             return self._alias_call(alias, "reverse_hits", data, lengths)
-        sc = self._own()
+        sc = self._scanner
         if self._use_prefilter(data):
             return self._prefilter_apply(
                 data, lengths, lambda d, ln, live: sc.reverse_hits_b(d, self._len_g(ln), live=live),
@@ -545,7 +526,7 @@ class ScanEngine:
         if not longest and alias is not None:
             return self._alias_call(alias, "first_end_from", data, lengths, starts,
                                     longest=False)
-        sc = self._own()
+        sc = self._scanner
         if sc.has_anchor:
             def raw(d, ln, st, live=None):
                 st = st.reshape(-1, self.prog.G)
@@ -567,7 +548,7 @@ class ScanEngine:
 
     # -- spans ------------------------------------------------------------------
     def _span_scanner(self):
-        sc = self._own()
+        sc = self._scanner
         if not sc.has_anchor:
             raise NotImplementedError(
                 f"{self.prog.pattern!r}: {type(sc).__name__} has no span kernels; "
@@ -649,7 +630,7 @@ class ScanEngine:
         if alias is not None:
             return self._alias_call(alias, "ends_bitmap", data, lengths, max_len=max_len)
         lengths = torch.as_tensor(lengths, device=self.device)
-        sc = self._own()
+        sc = self._scanner
         w = self._words_prefiltered(data, lengths,
                                     lambda d, lg, **kw: sc.flags_words_b(d, lg, seeded=True, **kw))
         words = self._clamp_words(w, lengths, self.prog.nullable)
@@ -662,7 +643,7 @@ class ScanEngine:
         if alias is not None:
             return self._alias_call(alias, "starts_bitmap", data, lengths, max_len=max_len)
         lengths = torch.as_tensor(lengths, device=self.device)
-        w = self._words_prefiltered(data, lengths, self._own().hits_words_b)
+        w = self._words_prefiltered(data, lengths, self._scanner.hits_words_b)
         # start s = max(t - 1, 0): funnel-shift the stream down one bit
         # (steps 0 and 1 both land on s = 0)
         nxt = torch.cat([w[:, 1:], torch.zeros_like(w[:, :1])], dim=1)
@@ -675,7 +656,7 @@ class ScanEngine:
         """[B] bool whole-string acceptance: the ``full`` statistic of an
         unseeded scan."""
         self._one_channel("fullmatch_flags")
-        sc = self._own()
+        sc = self._scanner
 
         def raw(d, ln, live=None):
             kw = {} if live is None else {"live": live}

@@ -101,6 +101,18 @@ ARGTYPES = {
     "rrx_sparse_stats": _SP_HEAD + [_I, _I, _P, _P, _P, _P, _P],  # seeded, nullable, ...
     "rrx_sparse_flags": _SP_HEAD + [_I, _P, _P],  # seeded, words
     "rrx_sparse_reverse": _SP_HEAD + [_P, _P],  # hits
+    # the dense multiblock tier (scan_nfa_wide.cu, tiles of 257..1024
+    # states): scan_nfa.cu's arguments, then the record counter (next);
+    # rrx_nfa_wide_occupancy's index is rrx_occupancy's (stats, reverse,
+    # anchor end, lazy spans, greedy spans, flags)
+    "rrx_nfa_wide_stats": _NFA_HEAD + [_I] + _STATS_TAIL + [_P, _P],  # P, stats, next
+    "rrx_nfa_wide_reverse": _NFA_HEAD + [_P, _P, _P],  # hits, next
+    "rrx_nfa_wide_anchor_end": _NFA_HEAD + [_P, _I, _P, _P, _P],  # starts, longest, end, next
+    # hits, cap, starts, ends, cnt, next
+    "rrx_nfa_wide_lazy_spans": _NFA_HEAD + [_P, _I, _P, _P, _P, _P, _P],
+    # hits, cap, nullable, starts, ends, cnt, over, next
+    "rrx_nfa_wide_greedy_spans": _NFA_HEAD + [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "rrx_nfa_wide_flags": _NFA_HEAD + [_I, _P, _P, _P],  # seeded, flags, next
 }
 KERNELS = tuple(ARGTYPES)
 
@@ -207,6 +219,10 @@ def library() -> ctypes.CDLL:
     lib.rrx_sparse_threads_per_block.restype = _I
     lib.rrx_bitband_threads_per_block.argtypes = []
     lib.rrx_bitband_threads_per_block.restype = _I
+    lib.rrx_nfa_wide_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.rrx_nfa_wide_occupancy.restype = _I
+    lib.rrx_nfa_wide_threads_per_block.argtypes = []
+    lib.rrx_nfa_wide_threads_per_block.restype = _I
     lib.rrx_threads_per_block.argtypes = []
     lib.rrx_threads_per_block.restype = _I
     lib.rrx_error_string.argtypes = [_I]

@@ -307,18 +307,25 @@ class FastLongScanner:
     window kernels of ``csrc/scan_long.cu`` (see the module docstring for
     the three modes). Unseeded scans of wide tiles (s_tile > 32) go to
     :class:`LongScanner`, as in the JAX package; a wide tile without a
-    horizon raises ValueError (``make_long_scanner`` then takes
-    :class:`LongScanner`)."""
+    horizon, or a tile of more than 256 states, raises ValueError: the
+    callers test :func:`fast_long_takes` first and take :class:`LongScanner`
+    for such programs."""
 
     def __init__(self, prog: DeviceProgram, device, block: int = 4096):
         if prog.F is None:
             raise ValueError(f"{prog.pattern!r}: tier {prog.tier} has no dense follow matrix")
         if block < 32 or block % 32:
             raise ValueError(f"block must be a positive multiple of 32, got {block}")
+        if prog.s_tile > spl.REG_S_TILE:
+            # the window kernels (csrc/scan_long.cu) hold W <= 8 state words;
+            # the JAX package runs wider tiles on its window kernels too
+            # (ROADMAP.md queues rows 26-30 at W > 8)
+            raise ValueError(f"{prog.pattern!r}: s_tile {prog.s_tile} is wider than the window "
+                             f"kernels' {spl.REG_S_TILE} states")
         self.prog = prog
         self.device = torch.device(device)
         self.block = block
-        self.tables = spl.device_nfa_tables(prog, self.device)  # raises past 256 states
+        self.tables = spl.device_nfa_tables(prog, self.device)
         self.S, self.s_tile = prog.n_states, prog.s_tile
         h = prog.horizon
         self.overlap = h + 2 if (h is not None and h + 2 <= block // 8) else None
@@ -836,9 +843,9 @@ class DotStarLongScanner:
 
     def _fallback(self):
         if self._generic is None:
-            try:
+            if fast_long_takes(self.prog, self.block):
                 self._generic = FastLongScanner(self.prog, self.device, block=self.block)
-            except ValueError:
+            else:
                 self._generic = LongScanner(self.prog, self.device, block=min(self.block, 4096))
         return self._generic
 
@@ -955,7 +962,8 @@ def make_long_scanner(prog: DeviceProgram, device, block: int = 4096):
     """The long-string scanner for a program (the JAX package's choice):
     the `.*X.*` and X{m,n}-alias rewrites first, run-length windows for
     counting-plan programs, the window kernels for dense tiles of up to 32
-    states (and wider ones with a horizon), :class:`LongScanner` otherwise."""
+    states (and wider ones of up to 256 states with a horizon),
+    :class:`LongScanner` otherwise."""
     from ..engine import seeded_alias_program
 
     if not prog.nullable and prog.horizon is None:
@@ -973,13 +981,20 @@ def make_long_scanner(prog: DeviceProgram, device, block: int = 4096):
         m, _, branches = plan
         if max(m, 1) * len(branches[0]) <= 1 << 16:
             return CountLongScanner(prog, plan, device, block=block)
-    if prog.F is not None:
-        if prog.s_tile <= 32:
-            return FastLongScanner(prog, device, block=block)
-        if prog.horizon is not None:
-            blk = max(block, _round_up(8 * (prog.horizon + 2), 32))
-            try:
-                return FastLongScanner(prog, device, block=blk)
-            except ValueError:
-                pass
+    if fast_long_takes(prog, block):
+        return FastLongScanner(prog, device, block=block)
+    if prog.horizon is not None:
+        blk = max(block, _round_up(8 * (prog.horizon + 2), 32))
+        if fast_long_takes(prog, blk):
+            return FastLongScanner(prog, device, block=blk)
     return LongScanner(prog, device, block=min(block, 4096))
+
+
+def fast_long_takes(prog: DeviceProgram, block: int) -> bool:
+    """Whether :class:`FastLongScanner` runs the program in windows of
+    ``block`` bytes: a dense follow matrix, a tile the window kernels hold
+    (at most ``REG_S_TILE`` states) and, past 32 states, a horizon whose
+    overlap fits in an eighth of the window."""
+    if prog.F is None or prog.s_tile > spl.REG_S_TILE:
+        return False
+    return prog.s_tile <= 32 or (prog.horizon is not None and prog.horizon + 2 <= block // 8)

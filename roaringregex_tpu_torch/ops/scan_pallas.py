@@ -1,4 +1,4 @@
-"""Matmul tier (dense programs of up to 256 states) and counting tier.
+"""Matmul tier (dense programs of up to 1024 states) and counting tier.
 
 The port of ``roaringregex_tpu/ops/scan_pallas.py``'s byte path
 (``_add_byte_path``): match statistics, forward accept flags, reverse
@@ -9,7 +9,9 @@ u32-word specs reject runs here (33..256 states: the dense128 and dense256
 tiers), and so do the SWAR tier's nullable spans and nullable windowed
 scans and the u32-word tier's spans and windowed scans, as in the JAX
 package, whose ``SwarScanner`` and ``WordScanner`` subclass
-``PallasScanner``.
+``PallasScanner``; so does every multiblock program (257..1024 states)
+that the engine keeps on the dense multiblock matmul (banded or not: the
+TPU's ``diag_ks`` form is a layout of the same step).
 
 On the TPU one step is ``y = F_bdᵀ·v (+ c0)`` in bf16 on the MXU over G
 records packed into 128 or 256 lanes, ``v = y ∘ mask(byte)``, with a
@@ -24,10 +26,15 @@ and the reverse (candidate-start) step is
 
 with ``sym`` a byte (0..255), 256 = BOS, 257 = EOS, 258 = a dead step past
 EOS. :func:`nfa_tables` builds one record tile's rows as u32 bit words
-(``W = ceil(s_tile / 32)`` <= 8 words per row) from ``prog.F``,
-``prog.Bc_words`` and ``prog.byte_class``; the CUDA kernels
-(``csrc/scan_nfa.cu``) keep a record's state set in registers and the rows
-in shared memory, one thread per record. Forward flags travel as flag
+(``W = ceil(s_tile / 32)`` <= 32 words per row) from ``prog.F``,
+``prog.Bc_words`` and ``prog.byte_class``. For tiles of up to
+``REG_S_TILE`` = 256 states (W <= 8 words) the CUDA kernels of
+``csrc/scan_nfa.cu`` keep a record's state set in registers and the whole
+table in shared memory, one thread per record; for tiles of 257..1024
+states (W = 12..32) those of ``csrc/scan_nfa_wide.cu`` run one warp per
+record, lane l holding state word l, with one direction's rows (follow or
+pred) in shared memory. The wrappers below pick the form by ``s_tile``.
+Forward flags travel as flag
 words in the layout of the hit words (``scan_bits``): [W, R] int32, bit t
 of record r in word t // 32; ``flags_words_b`` and ``hits_words_b`` hand
 them out transposed, as the TPU's bit-packed producers do, and their first
@@ -40,7 +47,8 @@ function and has no counterpart here: the parity boundary is the scanner
 methods' outputs.
 
 The plain PyTorch versions hold a state set as a [R, s_tile] bool plane
-and step it with a 0/1 float32 product (exact: every sum is at most 256),
+and step it with a 0/1 float32 product (exact: every sum is at most 1024,
+under float32's 2^24),
 so they need no uint32 arithmetic; the table words are unpacked through
 int64 masked to 32 bits. The match-statistics and flags versions are
 here; the span path's (reverse, anchored rescan, lazy and greedy spans) are
@@ -50,8 +58,10 @@ A multi-pattern program (``MultiPattern``'s combined automaton, the
 patterns' positions disjoint) carries P accept rows, one per pattern:
 ``match_stats_b`` reduces per channel, and ``lazy_spans_mb`` runs one
 reverse pass and one span pass for all P patterns (``rrx_nfa_reverse_mb``,
-``rrx_nfa_lazy_spans_mb``). Not ported: K-chaining (``chain_target``, off
-by default).
+``rrx_nfa_lazy_spans_mb``) up to 256 states. Not ported: K-chaining
+(``chain_target``, off by default), and those two multi-channel span
+kernels past 256 states (rows 21-22 of PERF.md's table):
+:func:`nfa_reverse_mb` and :func:`nfa_lazy_spans_mb` raise there.
 """
 from __future__ import annotations
 
@@ -64,7 +74,8 @@ from ..compiler.program import DeviceProgram
 from . import scan_bits as sb
 
 N_SYMS = sb.N_SYMS
-MAX_S_TILE = 256  # 8 state words per record in registers
+MAX_S_TILE = 1024  # 32 state words: one per lane of a warp (scan_nfa_wide.cu)
+REG_S_TILE = 256  # the widest tile whose state set scan_nfa.cu keeps in 8 registers
 # accept channels whose per-record bookkeeping the multi-channel kernels
 # keep in registers; above it, in per-thread rows of global scratch
 MB_REG_CHANNELS = 8
@@ -489,83 +500,109 @@ def _launch(entry: str, data, lengths, tables: NfaTables, *tail) -> None:
     sb.launch(entry, data, lengths, tables.tab, int(tables.s_tile), *tail)
 
 
+def _run(name: str, wrapper, data, lengths, tables: NfaTables, *tail,
+         channels: bool = False) -> None:
+    """Launch ``rrx_nfa_<name>`` for a tile of up to ``REG_S_TILE`` states
+    (counted in ``wrapper.launches``, or with ``channels`` in
+    ``wrapper.channel_launches``) or ``rrx_nfa_wide_<name>`` for 257..1024
+    states (one warp per record, counted in ``wrapper.wide_launches``),
+    which also takes its record counter."""
+    if tables.s_tile > REG_S_TILE:
+        nxt = torch.zeros(1, dtype=torch.int32, device=data.device)
+        _launch(f"rrx_nfa_wide_{name}", data, lengths, tables, *tail, nxt)
+        wrapper.wide_launches += 1
+    else:
+        _launch(f"rrx_nfa_{name}", data, lengths, tables, *tail)
+        if channels:
+            wrapper.channel_launches += 1
+        else:
+            wrapper.launches += 1
+
+
+def _narrow_only(what: str, tables: NfaTables) -> None:
+    """Refuse a multi-channel span primitive on a tile of more than
+    ``REG_S_TILE`` states, on any device."""
+    if tables.s_tile > REG_S_TILE:
+        raise NotImplementedError(
+            f"{what}: a combined program of s_tile {tables.s_tile}: the multi-channel span "
+            f"kernels (rows 21-22, the TPU's _reverse_kernel_mb and _span_kernel_mb) are ported "
+            f"for tiles of up to {REG_S_TILE} states only (see ROADMAP.md)")
+
+
 def nfa_stats(data, lengths, tables: NfaTables, *, seeded: bool, lead: int = 0,
               nullable: bool = False):
     """(cnt, first, last, full), each [R, P] for tables with accept
-    channels, else [R] (``rrx_nfa_stats`` on a CUDA tensor, counted in
+    channels, else [R]. On a CUDA tensor ``rrx_nfa_stats`` (counted in
     ``nfa_stats.launches``, or in ``nfa_stats.channel_launches`` for its
-    P-channel kernel, P > 1; :func:`stats_plain` on a CPU tensor)."""
+    P-channel kernel, P > 1) or, past 256 states, ``rrx_nfa_wide_stats``
+    (any P, counted in ``nfa_stats.wide_launches``); :func:`stats_plain` on
+    a CPU tensor."""
     if data.device.type == "cpu":
         return stats_plain(data, lengths, tables, seeded=seeded, lead=lead, nullable=nullable)
     R, dev = data.shape[0], data.device
     shape = (R, tables.P) if tables.channels else (R,)
     outs = [torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3)]
     full = torch.empty(shape, dtype=torch.uint8, device=dev)
-    _launch("rrx_nfa_stats", data, lengths, tables, int(tables.P), int(seeded),
-            int(lead if lead > 0 else -1), int(nullable), *outs, full)
-    if tables.P > 1:
-        nfa_stats.channel_launches += 1
-    else:
-        nfa_stats.launches += 1
+    _run("stats", nfa_stats, data, lengths, tables, int(tables.P), int(seeded),
+         int(lead if lead > 0 else -1), int(nullable), *outs, full, channels=tables.P > 1)
     return (*outs, full.view(torch.bool))
 
 
 def nfa_flags(data, lengths, tables: NfaTables, *, seeded: bool):
-    """Flag words [W, R] int32 (``rrx_nfa_flags``, counted in
-    ``nfa_flags.launches``, on a CUDA tensor; :func:`flags_plain` on a CPU
+    """Flag words [W, R] int32 (``rrx_nfa_flags``, or past 256 states
+    ``rrx_nfa_wide_flags``, on a CUDA tensor; :func:`flags_plain` on a CPU
     tensor)."""
     if data.device.type == "cpu":
         return flags_plain(data, lengths, tables, seeded=seeded)
     R, L = data.shape
     words = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
-    _launch("rrx_nfa_flags", data, lengths, tables, int(seeded), words)
-    nfa_flags.launches += 1
+    _run("flags", nfa_flags, data, lengths, tables, int(seeded), words)
     return words
 
 
 def nfa_reverse(data, lengths, tables: NfaTables):
-    """Hit words [W, R] int32 (``rrx_nfa_reverse`` on a CUDA tensor,
+    """Hit words [W, R] int32 (``rrx_nfa_reverse``, or past 256 states
+    ``rrx_nfa_wide_reverse``, on a CUDA tensor;
     ``scan_bits.reverse_plain`` on a CPU tensor)."""
     if data.device.type == "cpu":
         return sb.reverse_plain(data, lengths, tables)
     R, L = data.shape
     hits = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
-    _launch("rrx_nfa_reverse", data, lengths, tables, hits)
-    nfa_reverse.launches += 1
+    _run("reverse", nfa_reverse, data, lengths, tables, hits)
     return hits
 
 
 def nfa_anchor_end(data, lengths, tables: NfaTables, starts, *, longest: bool):
     """End [R] int32 of the anchored rescan from ``starts`` (-1 = inactive)
-    (``rrx_nfa_anchor_end`` on a CUDA tensor, ``scan_bits.anchor_plain``
-    on a CPU tensor)."""
+    (``rrx_nfa_anchor_end``, or past 256 states ``rrx_nfa_wide_anchor_end``,
+    on a CUDA tensor; ``scan_bits.anchor_plain`` on a CPU tensor)."""
     if data.device.type == "cpu":
         return sb.anchor_plain(data, lengths, tables, starts, longest=longest)
     sb._check_rows("starts", starts, data, (torch.int32, torch.int64))
     end = torch.empty(data.shape[0], dtype=torch.int32, device=data.device)
-    _launch("rrx_nfa_anchor_end", data, lengths, tables,
-            starts.to(torch.int32).contiguous(), int(longest), end)
-    nfa_anchor_end.launches += 1
+    _run("anchor_end", nfa_anchor_end, data, lengths, tables,
+         starts.to(torch.int32).contiguous(), int(longest), end)
     return end
 
 
 def nfa_lazy_spans(data, lengths, tables: NfaTables, hits, cap: int):
-    """(starts [R, cap], ends [R, cap], cnt [R]) (``rrx_nfa_lazy_spans``
-    on a CUDA tensor, ``scan_bits.lazy_spans_plain`` on a CPU tensor)."""
+    """(starts [R, cap], ends [R, cap], cnt [R]) (``rrx_nfa_lazy_spans``,
+    or past 256 states ``rrx_nfa_wide_lazy_spans``, on a CUDA tensor;
+    ``scan_bits.lazy_spans_plain`` on a CPU tensor)."""
     if data.device.type == "cpu":
         return sb.lazy_spans_plain(data, lengths, tables, hits, cap)
     sb._check_hits(hits, data)
     sb._check_cap(cap)
     starts, ends, cnt = sb._span_buffers(data.shape[0], cap, data.device)
-    _launch("rrx_nfa_lazy_spans", data, lengths, tables, hits.contiguous(), int(cap),
-            starts, ends, cnt)
-    nfa_lazy_spans.launches += 1
+    _run("lazy_spans", nfa_lazy_spans, data, lengths, tables, hits.contiguous(), int(cap),
+         starts, ends, cnt)
     return starts, ends, cnt
 
 
 def nfa_greedy_spans(data, lengths, tables: NfaTables, hits, cap: int, *, nullable: bool):
     """(starts [R, cap], ends [R, cap], cnt [R], over [R] bool)
-    (``rrx_nfa_greedy_spans`` on a CUDA tensor,
+    (``rrx_nfa_greedy_spans``, or past 256 states
+    ``rrx_nfa_wide_greedy_spans``, on a CUDA tensor;
     ``scan_bits.greedy_spans_plain`` on a CPU tensor)."""
     if data.device.type == "cpu":
         return sb.greedy_spans_plain(data, lengths, tables, hits, cap, nullable=nullable)
@@ -574,16 +611,17 @@ def nfa_greedy_spans(data, lengths, tables: NfaTables, hits, cap: int, *, nullab
     R = data.shape[0]
     starts, ends, cnt = sb._span_buffers(R, cap, data.device)
     over = torch.empty(R, dtype=torch.uint8, device=data.device)
-    _launch("rrx_nfa_greedy_spans", data, lengths, tables, hits.contiguous(), int(cap),
-            int(nullable), starts, ends, cnt, over)
-    nfa_greedy_spans.launches += 1
+    _run("greedy_spans", nfa_greedy_spans, data, lengths, tables, hits.contiguous(), int(cap),
+         int(nullable), starts, ends, cnt, over)
     return starts, ends, cnt, over.view(torch.bool)
 
 
 def nfa_reverse_mb(data, lengths, tables: NfaTables, span: torch.Tensor):
     """Hit words [P, W, R] int32 of every accept channel from one reverse
     pass (``rrx_nfa_reverse_mb``, counted in ``nfa_reverse_mb.launches``,
-    on a CUDA tensor; :func:`reverse_mb_plain` on a CPU tensor)."""
+    on a CUDA tensor; :func:`reverse_mb_plain` on a CPU tensor). Raises
+    past 256 states (row 21, not ported yet)."""
+    _narrow_only("nfa_reverse_mb", tables)
     if data.device.type == "cpu":
         return reverse_mb_plain(data, lengths, tables, span)
     _check_span(tables, span, data)
@@ -600,7 +638,9 @@ def nfa_lazy_spans_mb(data, lengths, tables: NfaTables, span: torch.Tensor, hits
     ``nfa_lazy_spans_mb.launches``, on a CUDA tensor;
     :func:`lazy_spans_mb_plain` on a CPU tensor). Above ``MB_REG_CHANNELS``
     channels the kernel keeps each record's (cur, pos) per channel in a
-    scratch row [R, P, 2] allocated here."""
+    scratch row [R, P, 2] allocated here. Raises past 256 states (row 22,
+    not ported yet)."""
+    _narrow_only("nfa_lazy_spans_mb", tables)
     if data.device.type == "cpu":
         return lazy_spans_mb_plain(data, lengths, tables, span, hits, cap)
     _check_span(tables, span, data)
@@ -623,6 +663,8 @@ for _w in (nfa_stats, nfa_flags, nfa_reverse, nfa_anchor_end, nfa_lazy_spans,
            nfa_greedy_spans, nfa_reverse_mb, nfa_lazy_spans_mb):
     _w.launches = 0
 nfa_stats.channel_launches = 0
+for _w in (nfa_stats, nfa_flags, nfa_reverse, nfa_anchor_end, nfa_lazy_spans, nfa_greedy_spans):
+    _w.wide_launches = 0
 
 
 def _with_flag0(bits: torch.Tensor, nullable: bool) -> torch.Tensor:
@@ -681,18 +723,20 @@ class _Scanner:
 
 class PallasScanner(_Scanner):
     """Match statistics, forward flags, reverse hits, anchored rescans,
-    and lazy and greedy spans of a dense program of up to 256 states on
-    ``device``, run by the CUDA kernels of ``csrc/scan_nfa.cu`` (one
-    thread per record) on a CUDA device and by their plain PyTorch
-    versions on the CPU. Named after the JAX package's scanner of the same
-    methods and outputs; ``SwarScanner`` and ``WordScanner`` subclass it
-    as there.
+    and lazy and greedy spans of a dense program of up to 1024 states on
+    ``device``, run on a CUDA device by the kernels of ``csrc/scan_nfa.cu``
+    (tiles of up to 256 states, one thread per record) or of
+    ``csrc/scan_nfa_wide.cu`` (the dense multiblock tier, 257..1024 states,
+    one warp per record), and by their plain PyTorch versions on the CPU.
+    Named after the JAX package's scanner of the same methods and outputs;
+    ``SwarScanner`` and ``WordScanner`` subclass it as there.
 
     ``accept_map`` ([lanes, G * P] 0/1, a multi-pattern program's accept
     channels, as ``MultiPattern`` builds it) gives the scan P accept rows:
     ``match_stats_b`` then returns per-channel statistics and, once
     :meth:`set_span_channels` has run, ``lazy_spans_mb`` every channel's
-    lazy spans; the single-channel primitives raise."""
+    lazy spans (up to 256 states: past them it raises, rows 21-22 not being
+    ported yet); the single-channel primitives raise."""
 
     has_anchor = True  # anchored-rescan and span kernels
 

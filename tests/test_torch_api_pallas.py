@@ -1,8 +1,8 @@
 """The port's engine and ``Pattern`` on the matmul tier (CPU, plain PyTorch
 versions) against the JAX package (Pallas interpret mode): the scanner the
 engine picks for each pattern (the counting, bitband and container tiers'
-too), the programs it refuses, the ``Pattern`` entry points on 33..256-state
-programs, and the engine-level window plan."""
+too, and the dense multiblock matmul's), the ``Pattern`` entry points on
+33..256-state programs, and the engine-level window plan."""
 import functools
 import re
 
@@ -35,7 +35,7 @@ def _keywords(n: int):
 
 
 K40 = "(" + "|".join(_keywords(40)) + ")"  # multiblock, 286 states: containers
-K60_PLUS = "(" + "|".join(_keywords(60)) + ")+"  # multiblock, 427 states: dense matmul
+K60_PLUS = "(" + "|".join(_keywords(60)) + ")+"  # multiblock, 427 states: dense multiblock matmul
 # the scanner each package's engine picks: the SWAR and u32-word tiers, the
 # matmul tier, (then three) the counting tier, (then three) the bitband
 # tier: config 10 and two banded multiblock programs, and (the last five)
@@ -48,9 +48,10 @@ ROUTED = [p for p, _ in PATTERNS] + [
     "a*b{1,300}", "(ab|c){2,120}d", K40, "(abc|de){1,300}", "x(abc|de){1,300}y",
 ]
 NAMES = {**NAMES, K40: "K40", K60_PLUS: "K60+"}
-# programs with neither a counting plan nor a seeded alias, which the JAX
-# engine runs on the dense multiblock matmul, not ported yet
-REFUSED = [
+# programs with neither a counting plan nor a seeded alias, which both
+# engines run on the dense multiblock matmul (tests/test_torch_multiblock.py
+# holds that tier to the JAX package)
+DENSE_MB = [
     ("x(ab|c){300,}y", "multiblock, 903 states"),
     (K60_PLUS, "multiblock, 427 states"),
 ]
@@ -101,13 +102,27 @@ def test_routing_identity_without_bitband(pattern):
     assert type(port).__name__ == type(ref).__name__ == "SparseScanner"
 
 
-@pytest.mark.parametrize("pattern,why", REFUSED, ids=lambda p: NAMES.get(p, p))
+@pytest.mark.parametrize("pattern,why", DENSE_MB, ids=lambda p: NAMES.get(p, p))
 def test_refused_tiers_raise(pattern, why):
+    """The two programs the port refused before it had the dense multiblock
+    matmul (the test keeps its name): both engines take that tier
+    (``PallasScanner`` at the same record tile), and the port's counts,
+    search and fullmatch equal the oracle's."""
     ref = JaxEngine(jax_compile(pattern), backend="pallas")
     assert type(ref.device_scanner).__name__ == "PallasScanner" and ref.prog.tier == "multiblock"
     assert ref._seeded_alias() is None
-    with pytest.raises(NotImplementedError, match=why + ".*dense multiblock matmul.*ROADMAP"):
-        rrx.compile(pattern, "cpu")
+    pat = rrx.compile(pattern, "cpu")
+    assert type(pat.engine.device_scanner).__name__ == "PallasScanner"
+    assert f"{pat.tier}, {pat.n_states} states" == why
+    assert pat.program.s_tile == ref.prog.s_tile > 256
+    orc = OracleEngine(jax_compile(pattern).nfa)
+    texts = [b"", b"x" + b"c" * 300 + b"y", b"xab" + b"c" * 298 + b"y", b"timeout", b"errorwarning",
+             _keywords(60)[59].encode() * 2 + b" x"]
+    ends = [sorted(orc.ends(t)) for t in texts]
+    assert sum(map(len, ends)) > 0
+    np.testing.assert_array_equal(pat.count_batch(texts), [len(e) for e in ends])
+    np.testing.assert_array_equal(pat.search_batch(texts), [bool(e) for e in ends])
+    np.testing.assert_array_equal(pat.fullmatch_batch(texts), [orc.fullmatch(t) for t in texts])
 
 
 @pytest.mark.parametrize("pattern", ["a*b{1,300}", "(ab|c){2,120}d"])
