@@ -9,7 +9,7 @@ its check fails:
 1. the card's name and power limit; build the CUDA kernels from
    roaringregex_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source,
    all started together), with nvcc's register report and the build time;
-2. kernel against plain PyTorch version on the card, for all thirty-five entry
+2. kernel against plain PyTorch version on the card, for all forty-one entry
    points, on random batches from a numpy seed plus edge records (empty,
    len == L, bytes >= 0x80, byte 0); integer outputs, tolerance 0:
    rrx_swar_stats and rrx_word_stats on the SWAR and u32-word test
@@ -61,7 +61,18 @@ its check fails:
    seeded, unseeded and at a lead, flags, reverse, anchored lazy and
    longest from -1, 0 and random starts, lazy and greedy spans at caps 1, 2
    and 16 (cap 1 overflows), and P = 3 accept channels (K40+, cat|dog and
-   [0-9]{3} as one union) seeded, unseeded, nullable and at a lead;
+   [0-9]{3} as one union) seeded, unseeded, nullable and at a lead; the two
+   wide multi-channel span kernels (rrx_nfa_wide_reverse_mb,
+   rrx_nfa_wide_lazy_spans_mb) on that union, on K40+ with the `$`
+   channels cat$ and [0-9]?$, and on 40 channels over K40+'s tile (lanes
+   past 32 keep their bookkeeping in global rows), at caps 1, 2 and 16;
+   the four wide long-string window kernels (rrx_long_wide_carry, _flags,
+   _count with and without the final state, _reverse: one warp per window)
+   on K60 (W = 16), [a-z]{300}x (W = 12), K120 (W = 28) and
+   x(ab|c){300,340}y (W = 32), strings of 0-3 bytes and 1 MiB in windows
+   of 256 bytes (lead 0 and the overlap), 4 MiB in windows of 4096 at W =
+   16 and 32, seeded and unseeded, from the empty set and random entry
+   states with random gates, and 3 windows a block (rep 3);
 3. the match-stats path, with its launch counts set to 0 first: bench
    config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
@@ -188,14 +199,25 @@ its check fails:
    of it); at 10 MB lazy and greedy spans against re.finditer on every
    record, the longest anchored rescan from each first start against the
    first greedy span, ends_bitmap and starts_bitmap against re on 3,000
-   records; MultiPattern([K40+, cat|dog, [0-9]{3}]) count_batch at 10 MB
-   against the single patterns, its lazy spans raising (rows 21-22); and
-   Pattern.long(K60) on a 1 MiB string through the torch-op LongScanner
-   against re; every wide kernel must have been launched. Phase 7 then
-   times the six wide kernels on both programs at 10 MB and 1 GiB (plain
+   records; MultiPattern([K40+, cat|dog, [0-9]{3}]) count_batch and lazy
+   finditer_batch (one combined scan on the wide multi-channel kernels) at
+   10 MB against the single patterns and re on 3,000 records;
+   Pattern.long(K60) on the wide window kernels (FastLongScanner):
+   count_ends and search over phase 5's 1 GiB log text as one string
+   against torch compares, its bitmaps and finditer_long at 10 MB against
+   re; Pattern.long(x(ab|c){300,340}y) count_ends over the 1 GiB chain
+   batch as one string against re; K60's unseeded fullmatch on the torch-op
+   LongScanner against re; every wide kernel of the path must have been
+   launched (rrx_long_wide_carry serves only the summary and speculative
+   modes, which take narrow tiles: phase 2 holds it). Phase 7 then times
+   the six wide record kernels on both programs at 10 MB and 1 GiB (plain
    versions once, on the 10 MB batch and on 16,384 records of the 1 GiB
    one, outputs compared there), with registers, occupancy, grid fill and
-   the bound, and match_stats end to end.
+   the bound, and match_stats end to end; the two wide multi-channel span
+   kernels on the P = 3 union at 10 MB and 1 GiB the same way; and the
+   four wide window kernels at 1 GiB in K60's overlapped geometry (plain
+   versions on 1 MiB), with count_ends end to end for K60 and
+   x(ab|c){300,340}y.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -316,6 +338,22 @@ REPLACES |= {
     "rrx_nfa_wide_greedy_spans": "roaringregex_tpu/ops/scan_pallas.py:3038",
     "rrx_nfa_wide_flags": "roaringregex_tpu/ops/scan_pallas.py:1393",
 }
+# the multi-channel span kernels (scan_nfa_wide.cu) and the long-string
+# window kernels (scan_long_wide.cu, one warp per window) at tiles of
+# 257..1024 states
+LONG_WIDE_SOURCE = "roaringregex_tpu_torch/csrc/scan_long_wide.cu"
+WIDE_MB_KERNELS = ("rrx_nfa_wide_reverse_mb", "rrx_nfa_wide_lazy_spans_mb")
+LONG_WIDE_KERNELS = ("rrx_long_wide_carry", "rrx_long_wide_flags", "rrx_long_wide_count",
+                     "rrx_long_wide_reverse")
+REPLACES |= {
+    "rrx_nfa_wide_reverse_mb": "roaringregex_tpu/ops/scan_pallas.py:1827",
+    "rrx_nfa_wide_lazy_spans_mb": "roaringregex_tpu/ops/scan_pallas.py:1889",
+    "rrx_long_wide_carry": "roaringregex_tpu/ops/scan_pallas.py:3343",
+    "rrx_long_wide_flags": "roaringregex_tpu/ops/scan_pallas.py:3416",
+    # with a final-state pointer also _count_v0_final_kernel_lb (:3650)
+    "rrx_long_wide_count": "roaringregex_tpu/ops/scan_pallas.py:3550",
+    "rrx_long_wide_reverse": "roaringregex_tpu/ops/scan_pallas.py:3488",
+}
 
 
 def keywords(n: int):
@@ -347,6 +385,12 @@ CHAIN300 = "x(ab|c){300,}y"
 WIDE_PATTERNS = [K40P, "x(ab|c){120,}y", K40P[:-1] + "*", K60P, K80P, "(a|bc)*d(ab|c){200,}e",
                  "x(ab|c){250,}y", K120P, K130P, CHAIN300]
 WIDE_MP = [K40P, "cat|dog", "[0-9]{3}"]  # a dense multiblock union, P = 3
+WIDE_MP_C1 = [K40P, "cat$", "[0-9]?$"]  # `$` channels: a span at EOS, then (len, len)
+# one long string of a dense program of 257..1024 states with a horizon: the
+# window kernels of scan_long_wide.cu, W = 16, 12, 28 and 32
+K60 = "(" + "|".join(keywords(60)) + ")"
+CHAIN340 = "x(ab|c){300,340}y"
+LONG_WIDE_PATTERNS = [K60, "[a-z]{300}x", K120, CHAIN340]
 PLANT13X = b"x" + b"abcde" * 100 + b"y"
 # the container programs of the probe table: two multiblock programs,
 # config 13 and its x...y form (78 partial blocks), (abc|de){1,360} at the
@@ -548,7 +592,7 @@ def main() -> int:
 
     def regs_of(kernel: str) -> str:
         """Registers of every instantiation of ``kernel`` (by mangled name)."""
-        got = sorted(f"{n}: {r}" for n, r in regs.items() if kernel in n)
+        got = sorted(f"{n}: {r}" for n, r in regs.items() if re.search(r"\d" + kernel, n))
         return "; ".join(got) if got else "not reported (library built before this run)"
 
     entries = {
@@ -576,8 +620,9 @@ def main() -> int:
     }
     class Count:
         """One of a wrapper's launch counts: ``attr`` counts the P-channel
-        kernel of a stats wrapper (channel_launches) or a matmul-tier
-        wrapper's kernel for tiles past 256 states (wide_launches)."""
+        kernel of a stats wrapper (channel_launches) or a matmul-tier,
+        multi-channel or long-string wrapper's kernel for tiles past 256
+        states (wide_launches)."""
 
         def __init__(self, wrapper, attr):
             self.wrapper, self.attr = wrapper, attr
@@ -616,9 +661,13 @@ def main() -> int:
     }
     wide_wrappers = {name: Count(nfa_wrappers[name.replace("_wide", "")], "wide_launches")
                      for name in WIDE_KERNELS}
+    wide_mb_wrappers = {name: Count(mp_wrappers[name.replace("_wide", "")], "wide_launches")
+                        for name in WIDE_MB_KERNELS}
+    long_wide_wrappers = {name: Count(long_wrappers[name.replace("_wide", "")], "wide_launches")
+                          for name in LONG_WIDE_KERNELS}
     wrappers = ({name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
                 | count_wrappers | mp_wrappers | long_wrappers | bitband_wrappers | sparse_wrappers
-                | wide_wrappers)
+                | wide_wrappers | wide_mb_wrappers | long_wide_wrappers)
     base_cfg = get_config()
     max_err = {name: 0 for name in wrappers}
 
@@ -1062,6 +1111,131 @@ def main() -> int:
           f"{len(LONG_PATTERNS)} programs (W = 1, 2, 8) through the four long-string kernels "
           f"(carry, count with and without the final state, flags, reverse; seeded and unseeded; "
           f"empty, random and basis entry states) ({time.perf_counter() - t0:.1f}s)")
+
+    # the wide multi-channel span kernels (rows 21-22 at W > 8): the P = 3
+    # union, the union with `$` channels (a span at EOS, then the empty match
+    # at len) and a P = 40 accept map on K40+'s tile (channels past lane 31
+    # keep their bookkeeping in global rows), at caps 1, 2 and 16
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = n_over = 0
+
+    def check_mb_wide(tables, span, d, ln, tag):
+        hits = P_.nfa_reverse_mb(d, ln, tables, span)
+        compare("rrx_nfa_wide_reverse_mb", [hits], [P_.reverse_mb_plain(d, ln, tables, span)], tag,
+                ("hits",))
+        over = 0
+        for cap in (1, 2, 16):
+            got = P_.nfa_lazy_spans_mb(d, ln, tables, span, hits, cap)
+            compare("rrx_nfa_wide_lazy_spans_mb", got,
+                    P_.lazy_spans_mb_plain(d, ln, tables, span, hits, cap), f"{tag} cap={cap}",
+                    ("starts", "ends", "cnt"))
+            if cap == 1:
+                over += int((got[2] > 1).any(dim=1).sum().item())
+        return over
+
+    prog40 = compile_program(K40P)
+    S40 = prog40.s_tile
+    owner = rng.integers(0, 40, size=S40)
+    acc40 = np.zeros((S40, 40), np.uint8)
+    acc40[np.arange(S40), owner] = np.asarray(prog40.accept)[:S40] != 0
+    f0 = np.flatnonzero(np.asarray(prog40.F[0, :S40]))
+    sgm40 = np.zeros((40, S40), np.uint8)
+    sgm40[owner[f0], f0] = 1
+    posm40 = np.zeros((S40, 40), np.uint8)
+    posm40[np.arange(S40), owner] = 1
+    posm40[0] = 0
+    mb_sets = []
+    for pats in (WIDE_MP, WIDE_MP_C1):
+        sc_ = MultiPattern(pats, dev).engine.device_scanner
+        mb_sets.append((f"MultiPattern K40+ {' '.join(pats[1:])}", sc_.nfa, sc_.span))
+    span40 = P_.span_channels(sgm40, posm40, 40, S40).view(np.int32).copy()
+    mb_sets.append(("K40+'s tile, 40 channels", P_.device_nfa_tables(prog40, dev, acc40, 40),
+                    torch.from_numpy(span40).to(dev)))
+    for tag, tables, span in mb_sets:
+        if tables.s_tile <= P_.REG_S_TILE:
+            fail(f"{tag}: s_tile {tables.s_tile}, not a wide tile")
+        for R, L in ((1000, 61), (512, 400)):
+            data, lengths = wide_batch(R, L)
+            data[8::7, :7] = np.frombuffer(b"cat 123", np.uint8)
+            for i in range(9, R, 5):  # a digit or cat at the record's end: the `$` channels
+                e = int(lengths[i])
+                if e >= 3:
+                    data[i, e - 3 : e] = np.frombuffer(b"cat" if i % 2 else b" 45", np.uint8)
+            d = torch.from_numpy(data).to(dev)
+            ln = torch.from_numpy(lengths).to(dev)
+            n_over += check_mb_wide(tables, span, d, ln, f"{tag} R={R} L={L}")
+            n_cmp += 1
+    torch.cuda.synchronize()
+    for name in WIDE_MB_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if n_over == 0:
+        fail("the wide multi-channel spans never overflowed cap 1")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} batches of {len(mb_sets)} channel sets on "
+          f"wide tiles (P = 3, P = 3 with `$` channels, P = 40) through rrx_nfa_wide_reverse_mb and "
+          f"rrx_nfa_wide_lazy_spans_mb at caps 1, 2, 16 (cap 1 overflowed on {n_over} records) "
+          f"({time.perf_counter() - t0:.1f}s)")
+
+    # the wide long-string window kernels (rows 26-30 at W > 8): strings of
+    # 0-3 bytes and 1 MiB with keywords, x(ab|c){k}y chains and 300-letter
+    # runs planted, windows of 256 bytes (lead 0 and the program's overlap),
+    # seeded and unseeded, from the empty set and from random entry states
+    # with random seed gates, 3 windows a block (rep 3); 4 MiB in windows of
+    # 4096 (the overlap) at W = 16 and 32 only (the plain versions cost ~10
+    # torch launches a window step: ~6 s a program there)
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = 0
+    wide_plants = [w.encode() for w in keywords(120)] + [
+        b"x" + b"c" * 320 + b"y", b"x" + b"ab" * 150 + b"c" * 20 + b"y", b"x" + b"abc" * 110 + b"y"]
+
+    def long_string_w(n):
+        arr = rng.choice(np.frombuffer(b"abcdefgiklmnorstuwxy \x00\x80\xff", np.uint8),
+                         size=n).astype(np.uint8)
+        for k in range(n // 64):
+            w = wide_plants[k % len(wide_plants)] if k % 7 else bytes(
+                rng.integers(97, 123, size=300).astype(np.uint8)) + b"x"
+            at = int(rng.integers(0, max(n - len(w), 0) + 1))
+            arr[at : at + len(w)] = np.frombuffer(w, np.uint8)[: n - at]
+        return torch.from_numpy(arr).to(dev)
+
+    words_lw = set()
+    for pattern in LONG_WIDE_PATTERNS:
+        prog = compile_program(pattern)
+        tables = P_.device_nfa_tables(prog, dev)
+        Wd = -(-tables.s_tile // 32)
+        words_lw.add(Wd)
+        o = prog.horizon + 2
+        for n in (0, 1, 2, 3, (1 << 20) + 7) + (((4 << 20) - 5,) if Wd in (16, 32) else ()):
+            d = long_string_w(n)
+            geoms = [(256, 0), (256, o)] if n < (4 << 20) - 5 else [(4096, o)]
+            for blk, lead in geoms:
+                nb = -(-(n + 2) // blk)
+                geom = P_.LongGeom(n, nb, blk, lead, blk + lead)
+                tag = f"{pattern[:24]!r} n={n} block={blk} lead={lead}"
+                if blk == 256:
+                    check_long(tables, d, geom, tag)
+                gate = torch.from_numpy(rng.random(nb) < 0.5).to(dev)
+                check_long(tables, d, geom, tag + " random v0", rand_v0(nb, Wd), gate)
+                n_cmp += 1 + (blk == 256)
+            if n == (1 << 20) + 7:
+                nb = -(-(n + 2) // 256)
+                gate = torch.from_numpy(rng.random(3 * nb) < 0.5).to(dev)
+                check_long(tables, d, P_.LongGeom(n, 3 * nb, 256, 0, 256, 3),
+                           f"{pattern[:24]!r} n={n} rep 3", rand_v0(3 * nb, Wd), gate)
+                n_cmp += 1
+    torch.cuda.synchronize()
+    for name in LONG_WIDE_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if words_lw != {12, 16, 28, 32}:
+        fail(f"wide long comparisons covered W = {sorted(words_lw)}")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} string/window cases of "
+          f"{len(LONG_WIDE_PATTERNS)} programs (W = {sorted(words_lw)}) through the four wide "
+          f"long-string kernels (carry, count with and without the final state, flags, reverse; "
+          f"seeded and unseeded; empty and random entry states; rep 3) "
+          f"({time.perf_counter() - t0:.1f}s)")
 
     # the bitband kernels: every program of the tier on a 256-record edge
     # batch with a chain of its body planted in every second record (one
@@ -2598,43 +2772,106 @@ def main() -> int:
               f"rescan from each first start == the first greedy span; ends_bitmap and "
               f"starts_bitmap == re on {n_re} records")
     # MultiPattern of K40+, cat|dog and [0-9]{3} (a dense multiblock union,
-    # P = 3) against the single patterns on 10 MB of log text, digits and
-    # cat/dog planted
+    # P = 3) on 10 MB of log text, digits and cat/dog planted: counts, and
+    # lazy spans from one combined scan (rrx_nfa_wide_reverse_mb,
+    # rrx_nfa_wide_lazy_spans_mb), against the single patterns on every
+    # record and re on n_re records
     texts_w = [log_np[i, :1000].tobytes() + (b" cat 1234" if i % 5 == 0 else b"") for i in range(B7)]
     cnt_mp = mp_w.count_batch(texts_w)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    spans_mp = mp_w.finditer_batch(texts_w)
+    mp_spans_s = time.perf_counter() - t1
+    rx_mp = [re.compile(("(" + "|".join(keywords(40)) + ")").encode()), re.compile(b"cat|dog"),
+             re.compile(b"[0-9]{3}")]
+    rows_w = np.random.default_rng(27).choice(B7, size=n_re, replace=False)
     for p_i, pattern in enumerate(WIDE_MP):
         pat = rrx_compile(pattern, dev)
         if not np.array_equal(cnt_mp[:, p_i], pat.count_batch(texts_w)):
             fail(f"MultiPattern (dense multiblock union) count_batch != Pattern {pattern[:30]!r}")
-    try:
-        mp_w.finditer_batch(texts_w[:8])
-        fail("MultiPattern lazy spans on a dense multiblock union did not raise")
-    except NotImplementedError as e:
-        if "rows 21-22" not in str(e):
-            fail(f"MultiPattern lazy spans raised {e}")
-    # the long route: K60 (no +) on one 1 MiB string stays on the torch-op
-    # LongScanner until the wide window kernels are ported (its summary pass
-    # steps S + 1 = 413 pseudo-records a 4 KB block through a [413, 413]
-    # float32 product: ~0.14 PFLOP a MiB, so 1 MiB and not 10 MB)
-    pat_k60 = rrx_compile("(" + "|".join(K60_WORDS) + ")", dev)
-    lsc = pat_k60.long
-    if type(lsc).__name__ != "LongScanner":
-        fail(f"Pattern.long(K60) took {type(lsc).__name__}, not LongScanner")
-    blob = log_np[:1024].tobytes()
-    t1 = time.perf_counter()
-    n_long = lsc.count_ends(blob)
-    long_s = time.perf_counter() - t1
-    if n_long != key_stats(K60_WORDS, blob)[0]:
-        fail(f"Pattern.long(K60).count_ends over 1 MiB = {n_long} != re")
-    torch.cuda.synchronize()
-    wide_launches = {name: launches()[name] for name in WIDE_KERNELS}
-    for name, n in wide_launches.items():
-        if n <= 0:
-            fail(f"{name} was not launched on the dense multiblock path")
+        if spans_mp[p_i] != pat.finditer_batch(texts_w):
+            fail(f"MultiPattern (dense multiblock union) lazy spans != Pattern {pattern[:30]!r}")
+        for i in rows_w:
+            if spans_mp[p_i][i] != [m.span() for m in rx_mp[p_i].finditer(texts_w[i])]:
+                fail(f"MultiPattern lazy spans of {pattern[:30]!r} != re at record {i}")
+    n_mp_spans = [sum(map(len, s_)) for s_ in spans_mp]
     print(f"phase 12: MultiPattern {['K40+'] + WIDE_MP[1:]} ({mp_w.program.n_states} states, s_tile "
-          f"{mp_w.program.s_tile}) count_batch at 10 MB ({cnt_mp.sum(axis=0).tolist()}) == the single "
-          f"patterns, its lazy spans raise (rows 21-22); Pattern.long(K60) on a 1 MiB string: "
-          f"LongScanner, {n_long} ends == re ({long_s:.1f}s)")
+          f"{mp_w.program.s_tile}) at 10 MB: count_batch ({cnt_mp.sum(axis=0).tolist()}) and lazy "
+          f"finditer_batch ({n_mp_spans} spans, one combined scan, {mp_spans_s:.2f}s with the host "
+          f"side) == the single patterns on every record, the spans == re on {n_re} records")
+
+    # one long string on the wide window kernels: Pattern.long(K60) (412
+    # states, s_tile 512, horizon 12) over phase 5's 1 GiB log text as one
+    # string against a count of keyword ends made with torch compares, and at
+    # 10 MB its bitmaps and finditer_long against re; x(ab|c){300,340}y
+    # (s_tile 1024, horizon 682: windows of 5,472 steps) over the chain batch
+    # as one string against re; K60's unseeded fullmatch on the torch-op
+    # LongScanner, as in the JAX package
+    pat_k60 = rrx_compile(K60, dev)
+    lsc = pat_k60.long
+    if type(lsc).__name__ != "FastLongScanner" or lsc.tables.s_tile != 512:
+        fail(f"Pattern.long(K60) took {type(lsc).__name__}, not FastLongScanner at s_tile 512")
+    s60 = log.reshape(-1)
+    NLw = s60.numel()
+    ends60 = torch.zeros(NLw + 1, dtype=torch.bool, device=dev)
+    for word in K60_WORDS:
+        w = word.encode()
+        hit = torch.ones(NLw - len(w) + 1, dtype=torch.bool, device=dev)
+        for j, ch in enumerate(w):
+            hit &= s60[j : NLw - len(w) + 1 + j] == ch
+        ends60[len(w):] |= hit
+    n60 = int(ends60.sum())
+    del ends60, hit
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_long = lsc.count_ends(s60)
+    long_s = time.perf_counter() - t1
+    if n_long != n60 or not lsc.search(s60):
+        fail(f"Pattern.long(K60).count_ends over 1 GiB = {n_long} != torch compares {n60}")
+    t10w = s60[:10_000_000].cpu().numpy().tobytes()
+    every60 = [(m.start(), m.start() + len(m.group(1)))
+               for m in re.finditer(b"(?=(" + "|".join(K60_WORDS).encode() + b"))", t10w)]
+    if (np.flatnonzero(lsc.ends_bitmap(t10w)).tolist() != sorted({e for _, e in every60})
+            or np.flatnonzero(lsc.starts_bitmap(t10w)).tolist() != sorted({s_ for s_, _ in every60})):
+        fail("Pattern.long(K60) ends_bitmap / starts_bitmap at 10 MB != re")
+    if pat_k60.finditer_long(t10w) != [m.span() for m in re.finditer(K60.encode(), t10w)]:
+        fail("Pattern.long(K60) finditer_long at 10 MB != re")
+    pat_c = rrx_compile(CHAIN340, dev)
+    lsc_c = pat_c.long
+    if type(lsc_c).__name__ != "FastLongScanner" or lsc_c.tables.s_tile != 1024:
+        fail(f"Pattern.long({CHAIN340}) took {type(lsc_c).__name__}, not FastLongScanner at 1024")
+    sch = chain1g.reshape(-1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_ch = lsc_c.count_ends(sch)
+    chain_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    want_ch = sum(1 for _ in re.finditer(CHAIN340.encode(), sch.cpu().numpy().tobytes()))
+    re_s = time.perf_counter() - t1
+    if n_ch != want_ch or n_ch == 0 or not lsc_c.search(sch):
+        fail(f"Pattern.long({CHAIN340}).count_ends over 1 GiB = {n_ch} != re {want_ch}")
+    blob = log_np[:1024].tobytes()  # 1 MiB
+    t1 = time.perf_counter()
+    if lsc.fullmatch(blob) or not lsc.fullmatch(K60_WORDS[7].encode()):
+        fail("Pattern.long(K60).fullmatch != re.fullmatch")
+    full_s = time.perf_counter() - t1
+    if type(lsc._portable).__name__ != "LongScanner":
+        fail("K60's unseeded scans did not take the torch-op LongScanner")
+    print(f"phase 12: Pattern.long(K60) on the wide window kernels ({lsc._ov_geom(NLw).nw} windows "
+          f"of {lsc._ov_block(NLw)} + {lsc.overlap} steps): count_ends over 1 GiB {n_long} == "
+          f"torch compares (first call {long_s * 1e3:.1f} ms), search; at 10 MB ends_bitmap, "
+          f"starts_bitmap and finditer_long == re; {CHAIN340} count_ends over the 1 GiB chain "
+          f"string {n_ch} == re (first call {chain_s * 1e3:.1f} ms; re {re_s:.1f}s); K60 fullmatch "
+          f"on 1 MiB and one keyword through the torch-op LongScanner == re ({full_s:.1f}s)")
+    torch.cuda.synchronize()
+    wide_launches = {name: launches()[name]
+                     for name in WIDE_KERNELS + WIDE_MB_KERNELS + LONG_WIDE_KERNELS}
+    for name, n in wide_launches.items():
+        # the summary and speculative modes, which alone run a carry pass,
+        # take narrow tiles only (as in the JAX package): phase 2 holds
+        # rrx_long_wide_carry
+        if n <= 0 and name != "rrx_long_wide_carry":
+            fail(f"{name} was not launched on the dense multiblock path")
     print(f"dense multiblock path launches: {wide_launches} "
           f"({time.perf_counter() - t12:.1f}s for the phase)")
 
@@ -2680,14 +2917,16 @@ def main() -> int:
         # run's ``flags`` (channel, step) flags, the channel's update
         if kind == "stats_mc":
             return bound(nbytes + 4 * R + 4 * P, 13 * R * P, steps * (step_ops + 2) + 4 * flags)
-        # per step the reverse step, the first-position test and the hit
-        # word's bit; out: P hit-word planes
+        # per step the reverse step, the first-position (union) test and the
+        # hit word's bit; out: P hit-word planes; with ``flags`` (this run's
+        # hit bits) 4 per (channel, firing step)
         if kind == "reverse_mb":
-            return bound(nbytes + 4 * R, P * hit_bytes, steps * (step_ops + 3))
-        # per step and channel: its hit bit and claim test, its seed gate
+            return bound(nbytes + 4 * R, P * hit_bytes, steps * (step_ops + 3) + 4 * flags)
+        # per step and channel: its hit bit and claim test, its seed gate;
+        # with ``flags`` (this run's spans) 4 per (channel, emitting step)
         if kind == "lazy_spans_mb":
             return bound(nbytes + 4 * R + P * hit_bytes, (8 * cap + 4) * R * P,
-                         steps * (step_ops + 4 + 2 * P))
+                         steps * (step_ops + 4 + 2 * P) + 4 * flags)
         if kind in ("reverse", "flags"):
             return bound(nbytes + 4 * R, hit_bytes, steps * (step_ops + 2))
         if kind == "lazy_spans":
@@ -3527,15 +3766,21 @@ def main() -> int:
 
     def occupancy_wide(name, tables, rows):
         bps = ctypes.c_int(0)
-        _build.check(lib.rrx_nfa_wide_occupancy(WIDE_KERNELS.index(name), int(tables.s_tile),
-                                                int(tables.P), ctypes.byref(bps)),
-                     "rrx_nfa_wide_occupancy")
+        if name in LONG_WIDE_KERNELS:
+            _build.check(lib.rrx_long_wide_occupancy(LONG_WIDE_KERNELS.index(name),
+                                                     int(tables.s_tile), ctypes.byref(bps)),
+                         "rrx_long_wide_occupancy")
+        else:
+            _build.check(lib.rrx_nfa_wide_occupancy((WIDE_KERNELS + WIDE_MB_KERNELS).index(name),
+                                                    int(tables.s_tile), int(tables.P),
+                                                    ctypes.byref(bps)),
+                         "rrx_nfa_wide_occupancy")
         tpb = lib.rrx_nfa_wide_threads_per_block()
         blocks = min(-(-rows // (tpb // 32)), bps.value * n_sm)
         return (f"theoretical {bps.value * tpb}/{max_threads} threads per SM "
                 f"({100.0 * bps.value * tpb / max_threads:.1f}%); persistent grid {blocks} blocks "
                 f"of {tpb // 32} warps ({100.0 * blocks / (bps.value * n_sm):.1f}% of the resident "
-                f"blocks), {rows / (blocks * tpb // 32):.1f} records per warp")
+                f"blocks), {rows / (blocks * tpb // 32):.1f} records (windows) per warp")
 
     wide_ms = {}
     for pattern, eng_w in ((K60P, eng60), (CHAIN300, eng300)):
@@ -3600,6 +3845,95 @@ def main() -> int:
                   f"{e2e:.4f} ms = {nb / e2e / 1e6:.1f} GB/s (rrx_nfa_wide_stats "
                   f"{wide_ms['rrx_nfa_wide_stats', pattern, shape][0]:.4f} ms) [{card}]")
 
+    # the wide multi-channel span kernels on the P = 3 union over phase 5's
+    # log text at 10 MB and 1 GiB, every record (plain versions once, on the
+    # 10 MB batch and on the first n_slice records of 1 GiB, outputs compared
+    # there); the bound adds to the step (3 per state word of the union) the
+    # union test each step and 4 per (channel, firing step)
+    scw = mp_w.engine.device_scanner
+    tbw, spw = scw.nfa, scw.span
+    step_w = 3 * state_words(mp_w.program)
+    pop8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int64, device=dev)
+    wide_mb_ms = {}
+    for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
+        n = d.shape[0] if shape == "10 MB" else n_slice
+        pd, pl = d[:n].contiguous(), ln[:n].contiguous()
+        hits = P.nfa_reverse_mb(d, ln, tbw, spw)
+        ph, ph_ms = timed_once(lambda: P.reverse_mb_plain(pd, pl, tbw, spw))
+        compare("rrx_nfa_wide_reverse_mb", [hits[:, :, :n]], [ph],
+                f"P = 3 union {shape}, first {n} records", ("hits",))
+        cap_u = 1 << max(int(P.nfa_stats(d, ln, tbw, seeded=True)[0].max()), 1).bit_length()
+        lz = P.nfa_lazy_spans_mb(d, ln, tbw, spw, hits, cap_u)
+        want, lz_ms = timed_once(lambda: P.lazy_spans_mb_plain(pd, pl, tbw, spw, ph, cap_u))
+        compare("rrx_nfa_wide_lazy_spans_mb", [x[:n] for x in lz], want,
+                f"P = 3 union {shape}, first {n} records, cap {cap_u}", ("starts", "ends", "cnt"))
+        n_hit = int(pop8[hits.contiguous().view(torch.uint8).to(torch.int64)].sum())
+        n_emit = int(lz[2].to(torch.int64).sum())
+        calls = {
+            "rrx_nfa_wide_reverse_mb": (lambda: P.nfa_reverse_mb(d, ln, tbw, spw), ph_ms,
+                                        kernel_bound("reverse_mb", ln, d.shape[1], step_w, P=3,
+                                                     flags=n_hit)),
+            "rrx_nfa_wide_lazy_spans_mb": (
+                lambda: P.nfa_lazy_spans_mb(d, ln, tbw, spw, hits, cap_u), lz_ms,
+                kernel_bound("lazy_spans_mb", ln, d.shape[1], step_w, P=3, cap=cap_u,
+                             flags=n_emit)),
+        }
+        nb = int(ln.to(torch.int64).sum())
+        for name, (kern, plain_ms, bnd) in calls.items():
+            ms = time_ms(kern, warm=1, runs=3 if shape == "1 GiB" else 5)
+            wide_mb_ms[name, shape] = (ms, plain_ms, bnd)
+            print(f"phase 7: {name} P = 3 union (s_tile {tbw.s_tile}) {shape} [{d.shape[0]} x "
+                  f"{d.shape[1]}], {n_hit} hit bits, {n_emit} spans (cap {cap_u}): kernel "
+                  f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s, plain {plain_ms:.3f} ms on {n} "
+                  f"records; bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]")
+            print(f"  occupancy {name} ({shape}): {occupancy_wide(name, tbw, d.shape[0])}; "
+                  f"registers {regs_of(name[len('rrx_nfa_'):] + '_kernel')}")
+    del hits, lz
+
+    # the wide long-string window kernels at 1 GiB in the geometry of
+    # Pattern.long(K60) (phase 12's string; carry, off the main path, in the
+    # count geometry), plain versions on 1 MiB in the same geometry (kernel
+    # == plain there too); count_ends end to end for K60 and x(ab|c){300,340}y
+    long_wide_ms = {}
+    tb60, W60 = lsc.tables, state_words(lsc.prog)
+    long_wide_calls = {
+        "rrx_long_wide_carry": (lsc._ov_geom, lambda d, g: P_.long_carry(d, g, tb60, seeded=True),
+                                lambda d, g: P_.long_carry_plain(d, g, tb60, seeded=True), "carry"),
+        "rrx_long_wide_flags": (lsc._ov_geom, lambda d, g: P_.long_flags(d, g, tb60, seeded=True),
+                                lambda d, g: P_.long_flags_plain(d, g, tb60, seeded=True), "flags"),
+        "rrx_long_wide_count": (lsc._ov_geom, lambda d, g: P_.long_count(d, g, tb60, seeded=True),
+                                lambda d, g: P_.long_count_plain(d, g, tb60, seeded=True), "count"),
+        "rrx_long_wide_reverse": (lambda n: rev_geom(lsc, n),
+                                  lambda d, g: P_.long_reverse(d, g, tb60),
+                                  lambda d, g: P_.long_reverse_plain(d, g, tb60), "reverse"),
+    }
+    for name, (geom_of, kern, plain, work) in long_wide_calls.items():
+        g1, gs = geom_of(NLw), geom_of(small)
+        d_small = s60[:small]
+        got, want = kern(d_small, gs), plain(d_small, gs)
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+        got, want = [x for x in got if x is not None], [x for x in want if x is not None]
+        compare(name, got, want, "K60, 1 MiB", tuple(f"out{i}" for i in range(len(got))))
+        ms = time_ms(lambda: kern(s60, g1), warm=1, runs=5)
+        plain_ms = time_ms(lambda: plain(d_small, gs), warm=0, runs=3)
+        bnd = long_bound(work, g1, W60)
+        long_wide_ms[name] = (ms, plain_ms, bnd)
+        print(f"phase 7: {name} K60 overlapped windows, 1 GiB [{g1.nw} windows x {g1.T} steps, "
+              f"block {g1.block}, {W60} state words]: kernel {ms:.3f} ms = {NLw / ms / 1e6:.1f} GB/s, "
+              f"plain {plain_ms:.1f} ms on 1 MiB; bound {bnd[0]:.4f} ms by {bnd[1]}; launches on "
+              f"the path {wide_launches[name]} [{card}]")
+        print(f"  occupancy {name}: {occupancy_wide(name, tb60, g1.nw)}; registers "
+              f"{regs_of(name[len('rrx_'):] + '_kernel')}")
+    e2e_k60 = time_ms(lambda: lsc.count_ends(s60), warm=1, runs=5)
+    e2e_ch = time_ms(lambda: lsc_c.count_ends(sch), warm=1, runs=5)
+    gch = lsc_c._ov_geom(NLw)
+    ms_ch = time_ms(lambda: P_.long_count(sch, gch, lsc_c.tables, seeded=True), warm=1, runs=5)
+    print(f"phase 7: long-string count_ends end to end, 1 GiB on the card (ms): K60 {e2e_k60:.3f} "
+          f"(rrx_long_wide_count {long_wide_ms['rrx_long_wide_count'][0]:.3f}), {CHAIN340} "
+          f"{e2e_ch:.3f} (rrx_long_wide_count {ms_ch:.3f} on {gch.nw} windows x {gch.T} steps, "
+          f"bound {long_bound('count', gch, state_words(lsc_c.prog))[0]:.4f}); PR 9's torch-op "
+          f"LongScanner took ~1-2 s for K60 on 1 MiB [{card}]")
+
     ms, plain_ms, bnd = flags_ms["10 MB"]
     kernels.append({
         "name": "rrx_nfa_flags", "route": "cuda", "source": NFA_SOURCE,
@@ -3659,8 +3993,26 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
             "shape": f"{CHAIN300} (s_tile 1024, W = 32), 10 MB of log text with chains planted",
         })
-    if len(kernels) != 37:
-        fail(f"the kernels line lists {len(kernels)} kernels, not 37")
+    for name in WIDE_MB_KERNELS:
+        ms, plain_ms, bnd = wide_mb_ms[name, "10 MB"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": NFA_WIDE_SOURCE, "replaces": REPLACES[name],
+            "launches": wide_launches[name], "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "shape": f"MultiPattern {['K40+'] + WIDE_MP[1:]} (s_tile 384, P = 3), 10 MB of log text",
+        })
+    for name in LONG_WIDE_KERNELS:
+        ms, plain_ms, bnd = long_wide_ms[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": LONG_WIDE_SOURCE, "replaces": REPLACES[name],
+            "launches": wide_launches[name], "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "shape": "1 GiB, K60 (s_tile 512, W = 16) overlapped windows (plain: 1 MiB)"
+                     + ("; off the main path (the summary and speculative modes take narrow "
+                        "tiles only), held in phase 2" if name == "rrx_long_wide_carry" else ""),
+        })
+    if len(kernels) != 43:
+        fail(f"the kernels line lists {len(kernels)} kernels, not 43")
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -457,9 +457,8 @@ class MultiPattern:
     P] and goes to the engine as its accept channels. The port of the JAX
     package's ``MultiPattern`` on its pallas backend: the combined program
     runs on the u32-word or matmul tier (lazy spans from one combined scan,
-    up to 256 states; a dense multiblock union counts, searches and greps
-    but its lazy spans raise until rows 21-22 are ported) or, multiblock or
-    sparse, on the bitband or container tier (lazy and greedy spans per
+    dense multiblock unions of up to 1024 states included) or, multiblock
+    or sparse, on the bitband or container tier (lazy and greedy spans per
     pattern). Nullable patterns are scanned with the
     kernels' nullability off and corrected on the host."""
 
@@ -557,9 +556,7 @@ class MultiPattern:
         a batch still overflows it; nullable patterns' lazy spans are the
         closed-form empty-match set. Greedy spans, and every span of a
         program on the bitband or container tier, run per pattern through
-        ``Pattern``, as in the JAX package. Lazy spans of a dense multiblock
-        union (257..1024 states) raise ``NotImplementedError``: its
-        multi-channel span kernels (rows 21-22) are not ported yet."""
+        ``Pattern``, as in the JAX package."""
         if longest or not self._combined_spans:
             if self._spanners is None:
                 self._spanners = [Pattern(p, self.engine.device) for p in self.patterns]

@@ -1,5 +1,7 @@
 // One long string on Hopper (sm_90a): the matmul tier's step over windows of
-// a single string, each window from its own entry state.
+// a single string, each window from its own entry state, for record tiles
+// of up to 256 states (one thread per window). scan_long_wide.cu runs the
+// same four entry points for tiles of 257..1024 states, one warp per window.
 //
 // Replaces five Pallas TPU kernels of the JAX package (all in
 // roaringregex_tpu/ops/scan_pallas.py, called by ops/longstring.py's
@@ -11,13 +13,14 @@
 //                        (via _count_v0f_call_b)
 //   rrx_long_reverse  <- _reverse_kernel_lb (via _rev_call_b)
 //
-// Geometry. The string is data[0, n) on the card, read in place (no window
-// copy). Its global stream has step 0 = BOS, step i+1 = byte i, step n+1 =
-// EOS; steps outside [0, n+1] are dead (zero mask row). Window w of nw covers
-// T local steps; local step t is global step g = (w / rep) * block + t - lead
-// (rep > 1 gives rep windows over the same steps: the summary pass's basis
-// pseudo-records). So `^` and `$` fire only where the global stream has them
-// (the first and last window), whatever the window cut. Windows own the
+// Geometry (scan_long.cuh). The string is data[0, n) on the card, read in
+// place (no window copy). Its global stream has step 0 = BOS, step i+1 =
+// byte i, step n+1 = EOS; steps outside [0, n+1] are dead (zero mask row).
+// Window w of nw covers T local steps; local step t is global step
+// g = (w / rep) * block + t - lead (rep > 1 gives rep windows over the same
+// steps: the summary pass's basis pseudo-records). So `^` and `$` fire only
+// where the global stream has them (the first and last window), whatever
+// the window cut. Windows own the
 // local steps [lead, lead + block): the flag and hit bits of owned steps land
 // at bit g of one flat bit array (block a multiple of 32, so windows write
 // disjoint words and need no atomics), and the counts sum over them.
@@ -49,68 +52,11 @@
 
 #include "scan_core.cuh"
 #include "scan_nfa.cuh"
+#include "scan_long.cuh"
 
 namespace {
 
 using namespace rrx;
-
-// One window's view of the global stream.
-struct Window {
-  const uint8_t* data;
-  long long n;
-  long long base;  // global byte index of local step 0 (byte of step t: base + t)
-  int T;
-  int t_bos;       // local step of BOS (-1 before the window, T after it)
-  int t_eos;       // local step of EOS, clamped to [-2, T + 2]
-  int t_seed_end;  // unseeded: the seed fires at local steps < t_seed_end (g < 2)
-  uint4 q;         // the 16-byte chunk that holds the last byte read
-  long long qc;    // its chunk index, -1 before the first read
-
-  __device__ __forceinline__ int byte(long long i) {
-    const long long c = i >> 4;
-    if (c != qc) {
-      qc = c;
-      if (16 * c + 16 <= n) {
-        q = __ldg(reinterpret_cast<const uint4*>(data) + c);
-      } else {  // the string's last, partial chunk: only bytes < n exist
-        uint32_t wd[4] = {0u, 0u, 0u, 0u};
-        for (int k = 0; k < 16 && 16 * c + k < n; ++k) {
-          wd[k >> 2] |= static_cast<uint32_t>(__ldg(data + 16 * c + k)) << (8 * (k & 3));
-        }
-        q = make_uint4(wd[0], wd[1], wd[2], wd[3]);
-      }
-    }
-    return byte_at(q, static_cast<int>(i & 15));
-  }
-
-  // The symbol of local step t.
-  __device__ __forceinline__ int sym(int t) {
-    if (t < t_bos) return kDead;
-    if (t == t_bos) return kBos;
-    if (t < t_eos) return byte(base + t);
-    return t == t_eos ? kEos : kDead;
-  }
-};
-
-__device__ __forceinline__ int clamp_ll(long long x, int lo, int hi) {
-  return static_cast<int>(x < lo ? lo : (x > hi ? hi : x));
-}
-
-__device__ __forceinline__ Window window(const uint8_t* data, long long n, int block, int lead,
-                                         int T, int rep, int w) {
-  const long long g0 = static_cast<long long>(w / rep) * block - lead;  // global step of t = 0
-  Window win;
-  win.data = data;
-  win.n = n;
-  win.base = g0 - 1;
-  win.T = T;
-  win.t_bos = clamp_ll(-g0, -1, T);
-  win.t_eos = clamp_ll(n + 1 - g0, -2, T + 2);
-  win.t_seed_end = clamp_ll(2 - g0, 0, T);
-  win.q = make_uint4(0u, 0u, 0u, 0u);
-  win.qc = -1;
-  return win;
-}
 
 #define LONG_HEAD                                                                            \
   const uint8_t *__restrict__ data, long long n, int nw, int block, int lead, int T, int rep, \
@@ -222,14 +168,6 @@ long_reverse_kernel(LONG_HEAD, uint32_t* __restrict__ hits) {
       word = 0u;
     }
   }
-}
-
-int check_long(const void* data, long long n, int nw, int block, int lead, int T, int rep) {
-  if (n < 0 || nw < 0 || block < 32 || block % 32 != 0 || lead < 0 || T < 0 || rep < 1 ||
-      (reinterpret_cast<uintptr_t>(data) & 15u) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
 }
 
 template <class K, class... Args>

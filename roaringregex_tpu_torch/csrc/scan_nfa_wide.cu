@@ -5,9 +5,9 @@
 // runs the same functions for tiles of up to 256 states, one thread per
 // record.
 //
-// Replaces, at those tiles, six Pallas TPU kernels of the JAX package and the
-// XLA glue around them (all in roaringregex_tpu/ops/scan_pallas.py; rows
-// 14-20 of PERF.md's table):
+// Replaces, at those tiles, eight Pallas TPU kernels of the JAX package and
+// the XLA glue around them (all in roaringregex_tpu/ops/scan_pallas.py; rows
+// 14-22 of PERF.md's table):
 //   rrx_nfa_wide_stats        <- _match_kernel_b (via _match_call_b), with
 //                                P accept channels (C = G*P there)
 //   rrx_nfa_wide_flags        <- _flags_kernel_b (via _flags_call_b) and its
@@ -18,6 +18,11 @@
 //   rrx_nfa_wide_lazy_spans   <- _span_kernel_b (via _spans_call_b), with the
 //                                event-stream compaction after it
 //   rrx_nfa_wide_greedy_spans <- _greedy_call_b's while_loop of rounds
+//   rrx_nfa_wide_reverse_mb   <- _reverse_kernel_mb (via _spans_call_mb): the
+//                                hit words of P accept channels, one pass
+//   rrx_nfa_wide_lazy_spans_mb <- _span_kernel_mb (via _spans_call_mb), with
+//                                the compaction after it: every channel's
+//                                lazy spans from one forward pass
 // The TPU's banded diag_ks form of a multiblock program (banded_offsets,
 // _apply_ft) is a layout of the same function: the set form below serves
 // banded programs too.
@@ -61,6 +66,13 @@
 //   in shared memory and lane c tests channels c, c+32, ... and updates
 //   their statistics in the output rows ([R][P], global memory). One channel
 //   (P = 1) keeps its statistics in registers, the same on every lane.
+// - The multi-channel span kernels (MultiPattern unions): the union of the
+//   accept rows (forward) or follow[0] (reverse: the union of the channels'
+//   sg rows) is tested every step; only where it fires is the state staged
+//   in the warp's buffer for lane c to test channels c, c+32, .... Lane p
+//   keeps channel p's bookkeeping (lazy: cur, pos, count; reverse: its open
+//   hit word) in registers for p < 32, global rows past that; a step's seed
+//   is the OR of the sg rows of the channels a ballot names.
 // - Anchored rescans start at their seed step and stop at the first step
 //   past it with an empty state set (or, lazy, once an end is found), so a
 //   greedy round costs the match's length, not the record's.
@@ -68,110 +80,11 @@
 #include <cuda_runtime.h>
 
 #include "scan_core.cuh"
+#include "scan_nfa_wide.cuh"
 
 namespace {
 
 using namespace rrx;
-
-constexpr int kWideWarps = 32;  // records in flight per block
-constexpr int kWideThreads = 32 * kWideWarps;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kMinTile = 257;
-constexpr int kMaxTile = 1024;  // 32 state words: one per lane
-constexpr size_t kSmemLimit = 232448;
-
-// Shared memory of a kernel: one direction's rows [S][W], the mask rows
-// [kSyms][W], P accept rows [P][W], and (stats with P > 1) one state buffer
-// of W words per warp.
-inline size_t wide_smem_bytes(int S, int W, int P, bool bufs) {
-  const size_t rows = static_cast<size_t>(S + kSyms + P) * W;
-  return sizeof(uint32_t) * (rows + (bufs ? static_cast<size_t>(kWideWarps) * W : 0));
-}
-
-// One record tile as a warp steps it: the rows in shared memory, and this
-// lane's word of the seed row (follow[0]) and of the union of the accept
-// rows (zero for lanes >= W).
-struct Wide {
-  const uint32_t* rows;  // [S][W]: follow, or pred for the reverse kernel
-  const uint32_t* mask;  // [kSyms][W]
-  const uint32_t* acc;   // [P][W]
-  int W;
-  int col;  // this lane's word, or 0 for a lane >= W (whose results are dropped)
-  bool on;  // lane < W
-  uint32_t seed_l;
-  uint32_t acc_l;
-
-  // This lane's word of the OR of rows[s] over the states s of the warp's
-  // set x (lane l holds word l).
-  __device__ __forceinline__ uint32_t expand(uint32_t x) const {
-    uint32_t y = 0u;
-    unsigned live = __ballot_sync(kFull, x != 0u);
-    while (live != 0u) {
-      const int w = __ffs(live) - 1;
-      live &= live - 1u;
-      uint32_t b = __shfl_sync(kFull, x, w);
-      const uint32_t* r = rows + 32 * w * W + col;
-      while (b != 0u) {
-        y |= r[(__ffs(b) - 1) * W];
-        b &= b - 1u;
-      }
-    }
-    return on ? y : 0u;
-  }
-
-  // v = (OR of follow[s] over s in v | gate ? follow[0] : 0) & mask[sym]
-  __device__ __forceinline__ uint32_t fwd(uint32_t v, bool gate, int sym) const {
-    const uint32_t y = expand(v) | (gate ? seed_l : 0u);
-    return y & mask[sym * W + col];
-  }
-
-  // R = OR of pred[u] over u in (R | acc) & mask[sym]
-  __device__ __forceinline__ uint32_t rev(uint32_t r, int sym) const {
-    return expand((r | acc_l) & mask[sym * W + col]);
-  }
-
-  __device__ __forceinline__ bool accepts(uint32_t v) const {
-    return __any_sync(kFull, (v & acc_l) != 0u);
-  }
-
-  // v & acc[c] != 0 for the state v (W words in shared memory) and accept
-  // channel c.
-  __device__ __forceinline__ bool channel_hit(const uint32_t* v, int c) const {
-    const uint32_t* a = acc + c * W;
-    uint32_t x = 0u;
-    for (int k = 0; k < W; ++k) x |= v[k] & a[k];
-    return x != 0u;
-  }
-};
-
-__device__ __forceinline__ bool empty(uint32_t v) { return !__any_sync(kFull, v != 0u); }
-
-// Copies one direction's rows (pred when `pred`, else follow), the mask rows
-// and the P accept rows of the table into shared memory. Every thread of the
-// block calls it (it ends in __syncthreads) before any thread returns.
-__device__ __forceinline__ Wide load_wide(uint32_t* smem, const uint32_t* __restrict__ tab_g,
-                                          int S, int W, int P, bool pred) {
-  const int n_rows = S * W;
-  const int n_tail = (kSyms + P) * W;
-  const uint32_t* src = tab_g + (pred ? n_rows : 0);
-  for (int i = threadIdx.x; i < n_rows; i += blockDim.x) smem[i] = __ldg(src + i);
-  const uint32_t* tail = tab_g + 2 * n_rows;
-  for (int i = threadIdx.x; i < n_tail; i += blockDim.x) smem[n_rows + i] = __ldg(tail + i);
-  __syncthreads();
-  Wide k;
-  k.rows = smem;
-  k.mask = smem + n_rows;
-  k.acc = k.mask + kSyms * W;
-  k.W = W;
-  const int lane = threadIdx.x & 31;
-  k.on = lane < W;
-  k.col = k.on ? lane : 0;
-  uint32_t a = 0u;
-  for (int p = 0; p < P; ++p) a |= k.acc[p * W + k.col];
-  k.acc_l = k.on ? a : 0u;
-  k.seed_l = k.on ? k.rows[k.col] : 0u;
-  return k;
-}
 
 // A record's stream, read in any order: step 0 is BOS, step t carries byte
 // t-1, step len+1 is EOS. The bytes are read 16 at a time (every lane the
@@ -474,6 +387,237 @@ wide_greedy_spans_kernel(WIDE_PARAMS, const uint32_t* __restrict__ hits, int cap
   }
 }
 
+// The multi-channel span kernels (P accept channels of a MultiPattern
+// union, the patterns' positions disjoint). Shared memory past the accept
+// rows: the span-channel rows [P][2][W] (sg_p, posm_p; scan_pallas.
+// span_channels), then one state buffer of W words per warp.
+inline size_t wide_mb_smem_bytes(int S, int W, int P) {
+  return wide_smem_bytes(S, W, P, true) + sizeof(uint32_t) * 2 * static_cast<size_t>(P) * W;
+}
+
+// Copies the span-channel rows after the accept rows; load_wide's
+// __syncthreads, which every kernel calls next, makes them visible.
+__device__ __forceinline__ const uint32_t* load_span(uint32_t* smem,
+                                                     const uint32_t* __restrict__ span_g, int S,
+                                                     int W, int P) {
+  uint32_t* span = smem + static_cast<size_t>(S + kSyms + P) * W;
+  for (int i = threadIdx.x; i < 2 * P * W; i += blockDim.x) span[i] = __ldg(span_g + i);
+  return span;
+}
+
+// v & row != 0 for a state v of W words in shared memory.
+__device__ __forceinline__ bool meets_row(const uint32_t* v, const uint32_t* row, int W) {
+  uint32_t x = 0u;
+  for (int k = 0; k < W; ++k) x |= v[k] & row[k];
+  return x != 0u;
+}
+
+// hits: [P][Wh][R], channel p's block the single-channel layout. Walking down
+// from the EOS step, x = (R | acc) & mask[sym]; where x meets follow[0] (the
+// union of the sg rows) the warp's x goes to its buffer and lane c tests
+// channels c, c+32, ...: bit t of channel p is set when x meets sg_p. Lane p
+// < 32 keeps channel p's open hit word in a register and writes it when the
+// word closes; channels past 32 OR their bits into global memory (each word
+// zeroed when it opens). Then R = OR of pred[u] over u in x.
+__global__ void __launch_bounds__(kWideThreads)
+wide_reverse_mb_kernel(WIDE_PARAMS, int P, const uint32_t* __restrict__ span_g,
+                       uint32_t* __restrict__ hits, int32_t* next) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const uint32_t* span = load_span(smem, span_g, S, W, P);
+  const Wide k = load_wide(smem, tab_g, S, W, P, true);
+  const uint32_t f0_l = k.on ? __ldg(tab_g + k.col) : 0u;  // follow[0], word l
+  const int Wh = (L + 2 + 31) >> 5;
+  const size_t plane = static_cast<size_t>(Wh) * R;  // one channel's block
+  WIDE_RECORDS {
+    uint32_t* buf = smem + static_cast<size_t>(S + kSyms + 3 * P) * W + warp * W;
+    Stream s = stream_of(data, stride, L, lengths, r);
+    const int len = s.len;
+    for (int p = 0; p < P; ++p) {
+      for (int w = ((len + 1) >> 5) + 1 + lane; w < Wh; w += 32) {
+        hits[p * plane + static_cast<size_t>(w) * R + r] = 0u;
+      }
+    }
+    uint32_t rs = 0u, hw = 0u;
+#pragma unroll 1
+    for (int t = len + 1; t >= 0; --t) {
+      const size_t at = static_cast<size_t>(t >> 5) * R + r;
+      if (t == len + 1 || (t & 31) == 31) {  // walking down, word t / 32 opens
+        hw = 0u;
+        for (int c = lane + 32; c < P; c += 32) hits[c * plane + at] = 0u;
+      }
+      const uint32_t x = (rs | k.acc_l) & k.mask[s.sym(t) * W + k.col];
+      if (__any_sync(kFull, (x & f0_l) != 0u)) {
+        if (k.on) buf[lane] = x;
+        __syncwarp();
+        const uint32_t bit = 1u << (t & 31);
+        for (int c = lane; c < P; c += 32) {
+          if (!meets_row(buf, span + 2 * c * W, W)) continue;
+          if (c == lane) {
+            hw |= bit;
+          } else {
+            hits[c * plane + at] |= bit;
+          }
+        }
+        __syncwarp();
+      }
+      rs = k.expand(x);
+      if ((t & 31) == 0 && lane < P) hits[lane * plane + at] = hw;  // bit t closes word t / 32
+    }
+  }
+}
+
+// One channel's lazy-span bookkeeping (cur: -1 idle, else the claimed
+// start; pos: the next start allowed; n: spans so far), in the registers of
+// lane p for channel p < 32, in global rows past that (scratch [R][P][2]
+// for cur and pos, the count in cnt [R][P]).
+struct Chan {
+  int cur, pos, n;
+};
+
+__device__ __forceinline__ Chan load_chan(const int32_t* scr, const int32_t* cnt, int c) {
+  return Chan{scr[2 * c], scr[2 * c + 1], cnt[c]};
+}
+
+__device__ __forceinline__ void store_chan(int32_t* scr, int32_t* cnt, int c, const Chan& ch) {
+  scr[2 * c] = ch.cur;
+  scr[2 * c + 1] = ch.pos;
+  cnt[c] = ch.n;
+}
+
+// Claims a start for an idle channel at step t whose hit bit is set, and
+// returns whether the channel seeds step t (sg_p at step cur + 1, steps <= 1
+// when cur == 0).
+__device__ __forceinline__ bool claim(Chan& ch, uint32_t hw, int t, int len) {
+  const int sp = max(t - 1, 0);
+  if (ch.cur < 0 && ((hw >> (t & 31)) & 1u) && ch.pos <= sp && sp <= len) ch.cur = sp;
+  return ch.cur >= 0 && (ch.cur == t - 1 || (ch.cur == 0 && t <= 1));
+}
+
+// Emits (cur, e) for a claimed channel whose accept row meets the state v
+// (W words in shared memory), e >= cur; returns whether it did.
+__device__ __forceinline__ bool emit(Chan& ch, const Wide& k, const uint32_t* v, int c, int e,
+                                     int cap, int32_t* so, int32_t* eo) {
+  if (ch.cur < 0 || e < ch.cur || !k.channel_hit(v, c)) return false;
+  if (ch.n < cap) {
+    so[ch.n] = ch.cur;
+    eo[ch.n] = e;
+  }
+  ++ch.n;
+  ch.pos = max(e, ch.cur + 1);
+  ch.cur = -1;
+  return true;
+}
+
+// Lane l's word of the OR of row `which` (0: sg, 1: posm) of the channels
+// base + b for the set bits b of a warp ballot.
+__device__ __forceinline__ uint32_t or_rows(const uint32_t* span, unsigned bits, int base,
+                                            int which, const Wide& k) {
+  uint32_t y = 0u;
+  while (bits != 0u) {
+    const int c = base + __ffs(bits) - 1;
+    bits &= bits - 1u;
+    y |= span[(2 * c + which) * k.W + k.col];
+  }
+  return k.on ? y : 0u;
+}
+
+// hits: [P][Wh][R] from rrx_nfa_wide_reverse_mb; starts, ends: [R][P][cap];
+// cnt: [R][P]; scratch: [R][P][2] when P > 32. One forward walk: every
+// channel claims, seeds and emits on its own hit words and in its own
+// position subspace; the seed of a step is the OR of the sg rows of the
+// channels that seed it (a ballot over the channel lanes); on a step where
+// the union of the accept rows fires, the state before any kill goes to the
+// warp's buffer, each lane tests its channels, and every emitting channel's
+// positions (posm_p) are cleared from the state. After the EOS step an idle
+// channel with pos <= len and hit bit len + 1 emits the empty match (len,
+// len), as rrx_nfa_lazy_spans_mb does.
+__global__ void __launch_bounds__(kWideThreads)
+wide_lazy_spans_mb_kernel(WIDE_PARAMS, int P, const uint32_t* __restrict__ span_g,
+                          const uint32_t* __restrict__ hits, int cap,
+                          int32_t* __restrict__ starts_o, int32_t* __restrict__ ends_o,
+                          int32_t* __restrict__ cnt_o, int32_t* __restrict__ scratch,
+                          int32_t* next) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const uint32_t* span = load_span(smem, span_g, S, W, P);
+  const Wide k = load_wide(smem, tab_g, S, W, P, false);
+  const int Wh = (L + 2 + 31) >> 5;
+  const size_t plane = static_cast<size_t>(Wh) * R;
+  const int groups = (P + 31) >> 5;
+  WIDE_RECORDS {
+    uint32_t* buf = smem + static_cast<size_t>(S + kSyms + 3 * P) * W + warp * W;
+    Stream s = stream_of(data, stride, L, lengths, r);
+    const int len = s.len;
+    const size_t row = static_cast<size_t>(r) * P;
+    int32_t* scr = scratch + 2 * row;
+    int32_t* cnt = cnt_o + row;
+    const size_t out = row * cap;  // channel c's slots: out + c * cap
+    Chan ch{-1, 0, 0};             // channel `lane`
+    for (int c = lane + 32; c < P; c += 32) store_chan(scr, cnt, c, Chan{-1, 0, 0});
+    uint32_t hw = 0u, v = 0u;
+#pragma unroll 1
+    for (int t = 0; t <= len + 1; ++t) {
+      const size_t at = static_cast<size_t>(t >> 5) * R + r;
+      if ((t & 31) == 0 && lane < P) hw = __ldg(hits + lane * plane + at);
+      uint32_t seed = or_rows(span, __ballot_sync(kFull, lane < P && claim(ch, hw, t, len)), 0,
+                              0, k);
+      for (int g = 1; g < groups; ++g) {
+        const int c = lane + 32 * g;
+        bool sd = false;
+        if (c < P) {
+          Chan cc = load_chan(scr, cnt, c);
+          const uint32_t h = cc.cur < 0 ? __ldg(hits + c * plane + at) : 0u;
+          sd = claim(cc, h, t, len);
+          scr[2 * c] = cc.cur;
+        }
+        seed |= or_rows(span, __ballot_sync(kFull, sd), 32 * g, 0, k);
+      }
+      v = (k.expand(v) | seed) & k.mask[s.sym(t) * W + k.col];
+      if (!k.accepts(v)) continue;
+      const int e = min(t, len);
+      if (k.on) buf[lane] = v;  // the accept tests read the state before this step's kills
+      __syncwarp();
+      uint32_t kill = or_rows(
+          span,
+          __ballot_sync(kFull, lane < P && emit(ch, k, buf, lane, e, cap, starts_o + out + lane * cap,
+                                                ends_o + out + lane * cap)),
+          0, 1, k);
+      for (int g = 1; g < groups; ++g) {
+        const int c = lane + 32 * g;
+        bool em = false;
+        if (c < P) {
+          Chan cc = load_chan(scr, cnt, c);
+          em = emit(cc, k, buf, c, e, cap, starts_o + out + c * cap, ends_o + out + c * cap);
+          if (em) store_chan(scr, cnt, c, cc);
+        }
+        kill |= or_rows(span, __ballot_sync(kFull, em), 32 * g, 1, k);
+      }
+      __syncwarp();
+      v &= ~kill;
+    }
+    // per channel, the empty match at len after a span that ended at the
+    // EOS step (see rrx_nfa_lazy_spans_mb)
+    const size_t at_eos = static_cast<size_t>((len + 1) >> 5) * R + r;
+    const int b_eos = (len + 1) & 31;
+    for (int c = lane; c < P; c += 32) {
+      Chan cc = c == lane ? ch : load_chan(scr, cnt, c);
+      if (cc.cur < 0 && cc.pos <= len && ((__ldg(hits + c * plane + at_eos) >> b_eos) & 1u)) {
+        if (cc.n < cap) {
+          starts_o[out + c * cap + cc.n] = len;
+          ends_o[out + c * cap + cc.n] = len;
+        }
+        ++cc.n;
+      }
+      cnt[c] = cc.n;
+    }
+    __syncwarp();
+    for (int c = 0; c < P; ++c) {
+      fill_tail_warp(starts_o + out + c * cap, ends_o + out + c * cap, min(cnt[c], cap), cap,
+                     lane);
+    }
+    __syncwarp();
+  }
+}
+
 // The launchers' checks: the row layout (check_rows), a tile of 257..1024
 // states with W = ceil(s_tile/32) words, and P >= 1 accept rows.
 int check_wide(const void* data, long long stride, int L, int R, int s_tile, int P) {
@@ -481,41 +625,6 @@ int check_wide(const void* data, long long stride, int L, int R, int s_tile, int
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return check_rows(data, stride, L, R);
-}
-
-inline int words_of(int s_tile) { return (s_tile + 31) / 32; }
-
-// No more blocks than fit on the card at once: each block then walks its
-// share of the records (WIDE_RECORDS) and copies its rows once.
-template <class K, class... Args>
-int launch_wide(K kernel, int R, size_t smem, void* stream, Args... args) {
-  if (R == 0) return 0;
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  int e = allow_smem(kernel, smem);
-  if (e != 0) return e;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  e = static_cast<int>(cudaGetDevice(&dev));
-  if (e == 0) {
-    e = static_cast<int>(cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev));
-  }
-  if (e == 0) {
-    e = static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWideThreads, smem));
-  }
-  if (e != 0) return e;
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int blocks = min((R + kWideWarps - 1) / kWideWarps, n_sm * per_sm);
-  kernel<<<blocks, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class K>
-int occupancy_wide(K kernel, size_t smem, int* blocks_per_sm) {
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  const int e = allow_smem(kernel, smem);
-  if (e != 0) return e;
-  return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kWideThreads, smem));
 }
 
 }  // namespace
@@ -603,15 +712,45 @@ int rrx_nfa_wide_greedy_spans(RRX_WIDE_HEAD, const void* hits, int cap, int null
                      static_cast<int32_t*>(next));
 }
 
+// P accept rows in the table; span: [P][2][W] uint32 (scan_pallas.span_channels);
+// hits: [P][ceil((L+2)/32)][R] uint32
+int rrx_nfa_wide_reverse_mb(RRX_WIDE_HEAD, int P, const void* span, void* hits, void* next,
+                            void* stream) {
+  const int bad = check_wide(data, stride, L, R, s_tile, P);
+  if (bad != 0) return bad;
+  return launch_wide(wide_reverse_mb_kernel, R, wide_mb_smem_bytes(s_tile, words_of(s_tile), P),
+                     stream, RRX_WIDE_ARGS, P, static_cast<const uint32_t*>(span),
+                     static_cast<uint32_t*>(hits), static_cast<int32_t*>(next));
+}
+
+// hits from rrx_nfa_wide_reverse_mb; starts, ends: [R][P][cap] int32; cnt:
+// [R][P] int32; scratch: [R][P][2] int32 when P > 32 (else unread)
+int rrx_nfa_wide_lazy_spans_mb(RRX_WIDE_HEAD, int P, const void* span, const void* hits, int cap,
+                               void* starts, void* ends, void* cnt, void* scratch, void* next,
+                               void* stream) {
+  const int bad = check_wide(data, stride, L, R, s_tile, P);
+  if (bad != 0) return bad;
+  if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_wide(wide_lazy_spans_mb_kernel, R,
+                     wide_mb_smem_bytes(s_tile, words_of(s_tile), P), stream, RRX_WIDE_ARGS, P,
+                     static_cast<const uint32_t*>(span), static_cast<const uint32_t*>(hits), cap,
+                     static_cast<int32_t*>(starts), static_cast<int32_t*>(ends),
+                     static_cast<int32_t*>(cnt), static_cast<int32_t*>(scratch),
+                     static_cast<int32_t*>(next));
+}
+
 // Resident blocks per SM (theoretical occupancy) of a wide kernel for a tile
 // of s_tile states and P accept rows, by index: 0 stats, 1 reverse, 2 anchor
-// end, 3 lazy spans, 4 greedy spans, 5 flags (rrx_occupancy's order).
+// end, 3 lazy spans, 4 greedy spans, 5 flags (rrx_occupancy's order), then
+// the multi-channel kernels: 6 reverse_mb, 7 lazy_spans_mb.
 int rrx_nfa_wide_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm) {
   if (s_tile < kMinTile || s_tile > kMaxTile || P < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int W = words_of(s_tile);
-  const size_t smem = wide_smem_bytes(s_tile, W, kernel == 0 ? P : 1, kernel == 0 && P > 1);
+  const size_t smem = kernel >= 6 ? wide_mb_smem_bytes(s_tile, W, P)
+                                  : wide_smem_bytes(s_tile, W, kernel == 0 ? P : 1,
+                                                    kernel == 0 && P > 1);
   switch (kernel) {
     case 0:
       return occupancy_wide(wide_stats_kernel, smem, blocks_per_sm);
@@ -625,6 +764,10 @@ int rrx_nfa_wide_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm) {
       return occupancy_wide(wide_greedy_spans_kernel, smem, blocks_per_sm);
     case 5:
       return occupancy_wide(wide_flags_kernel, smem, blocks_per_sm);
+    case 6:
+      return occupancy_wide(wide_reverse_mb_kernel, smem, blocks_per_sm);
+    case 7:
+      return occupancy_wide(wide_lazy_spans_mb_kernel, smem, blocks_per_sm);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

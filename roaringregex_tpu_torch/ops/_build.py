@@ -113,6 +113,19 @@ ARGTYPES = {
     # hits, cap, nullable, starts, ends, cnt, over, next
     "rrx_nfa_wide_greedy_spans": _NFA_HEAD + [_P, _I, _I, _P, _P, _P, _P, _P, _P],
     "rrx_nfa_wide_flags": _NFA_HEAD + [_I, _P, _P, _P],  # seeded, flags, next
+    # the multi-channel span kernels at tiles of 257..1024 states: as
+    # rrx_nfa_reverse_mb / rrx_nfa_lazy_spans_mb, then next; occupancy
+    # indices 6 and 7 of rrx_nfa_wide_occupancy
+    "rrx_nfa_wide_reverse_mb": _NFA_HEAD + [_I, _P, _P, _P, _P],  # P, span, hits, next
+    # P, span, hits, cap, starts, ends, cnt, scratch, next
+    "rrx_nfa_wide_lazy_spans_mb": _NFA_HEAD + [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    # one long string's windows at tiles of 257..1024 states
+    # (scan_long_wide.cu): the arguments of the rrx_long_* kernels, in
+    # rrx_long_wide_occupancy's order
+    "rrx_long_wide_carry": _LONG_HEAD + [_P, _P, _I, _P, _P],  # vout
+    "rrx_long_wide_flags": _LONG_HEAD + [_P, _P, _I, _P, _P],  # flags
+    "rrx_long_wide_count": _LONG_HEAD + [_P, _P, _I, _P, _P, _P, _P],  # cnt, tail, vout
+    "rrx_long_wide_reverse": _LONG_HEAD + [_P, _P],  # hits
 }
 KERNELS = tuple(ARGTYPES)
 
@@ -221,6 +234,8 @@ def library() -> ctypes.CDLL:
     lib.rrx_bitband_threads_per_block.restype = _I
     lib.rrx_nfa_wide_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
     lib.rrx_nfa_wide_occupancy.restype = _I
+    lib.rrx_long_wide_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.rrx_long_wide_occupancy.restype = _I
     lib.rrx_nfa_wide_threads_per_block.argtypes = []
     lib.rrx_nfa_wide_threads_per_block.restype = _I
     lib.rrx_threads_per_block.argtypes = []

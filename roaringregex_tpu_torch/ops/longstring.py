@@ -32,13 +32,15 @@ fixed-length body, config 9 ``a{1,300}``) in overlapped run-length windows
 on the counting tier's kernels; ``DotStarLongScanner`` runs ``.*X.*``
 (config 12) as a scan of X plus a running OR; ``AliasLongScanner`` runs a
 big ``X{m,n}`` through its ``X{m,}`` seeded alias; ``LongScanner`` is the
-summary + replay scheme in torch ops (wide tiles without a horizon, and the
-fallback of the rewrites). :func:`make_long_scanner` picks one per program.
+summary + replay scheme in torch ops (wide tiles without a horizon, the
+unseeded scans of wide tiles, and the fallback of the rewrites).
+:func:`make_long_scanner` picks one per program.
 
-Window geometry is the port's own: one CUDA thread per window, windows of
-about 4 KB for a 1 GiB string (2^18 threads, the card's 132 x 2,048 thread
-slots), so nothing here follows the TPU's 128-lane column layout. Windows
-read the string in place; the SWAR and counting paths take their windows as
+Window geometry is the port's own: one CUDA thread per window (one warp
+per window past 256 states), windows of about 4 KB for a 1 GiB string
+(2^18 windows, the card's 132 x 2,048 thread slots), so nothing here
+follows the TPU's 128-lane column layout. Windows read the string in
+place; the SWAR and counting paths take their windows as
 an overlapping strided view of one padded copy of the string. Stream
 offsets are int32: a string of more than 2^31 - 1 bytes raises
 ``ValueError``. Everything runs on the caller's device: the card, or the
@@ -303,11 +305,13 @@ def _window_view(data: torch.Tensor, n: int, nw: int, blk: int, lead: int, width
 
 
 class FastLongScanner:
-    """Long-string scans of a dense program of up to 256 states on the
-    window kernels of ``csrc/scan_long.cu`` (see the module docstring for
-    the three modes). Unseeded scans of wide tiles (s_tile > 32) go to
-    :class:`LongScanner`, as in the JAX package; a wide tile without a
-    horizon, or a tile of more than 256 states, raises ValueError: the
+    """Long-string scans of a dense program of up to 1024 states on the
+    window kernels (``csrc/scan_long.cu`` up to 256 states,
+    ``csrc/scan_long_wide.cu`` past them; see the module docstring for the
+    three modes). Wide tiles (s_tile > 32) run their seeded scans in
+    overlapped windows only; their unseeded scans go to
+    :class:`LongScanner`, as in the JAX package. A wide tile without a
+    horizon, or a tile of more than 1024 states, raises ValueError: the
     callers test :func:`fast_long_takes` first and take :class:`LongScanner`
     for such programs."""
 
@@ -316,12 +320,9 @@ class FastLongScanner:
             raise ValueError(f"{prog.pattern!r}: tier {prog.tier} has no dense follow matrix")
         if block < 32 or block % 32:
             raise ValueError(f"block must be a positive multiple of 32, got {block}")
-        if prog.s_tile > spl.REG_S_TILE:
-            # the window kernels (csrc/scan_long.cu) hold W <= 8 state words;
-            # the JAX package runs wider tiles on its window kernels too
-            # (ROADMAP.md queues rows 26-30 at W > 8)
+        if prog.s_tile > spl.MAX_S_TILE:
             raise ValueError(f"{prog.pattern!r}: s_tile {prog.s_tile} is wider than the window "
-                             f"kernels' {spl.REG_S_TILE} states")
+                             f"kernels' {spl.MAX_S_TILE} states")
         self.prog = prog
         self.device = torch.device(device)
         self.block = block
@@ -344,9 +345,10 @@ class FastLongScanner:
     def _ov_block(self, n: int) -> int:
         """Window length of the overlapped paths: enough windows to fill the
         card (TARGET_WINDOWS), at least 256 bytes and 8 overlaps long (the
-        re-scan tax o / block stays small), at most ``block``."""
+        re-scan tax o / block stays small), at most ``block``; a multiple
+        of 32 (the flag words of a window are its own)."""
         blk = _round_up(-(-(n + 2) // TARGET_WINDOWS), 32)
-        return min(max(256, 8 * (self.overlap or 0), blk), self.block)
+        return min(max(256, _round_up(8 * (self.overlap or 0), 32), blk), self.block)
 
     def _ov_geom(self, n: int) -> spl.LongGeom:
         blk, o = self._ov_block(n), self.overlap
@@ -962,8 +964,8 @@ def make_long_scanner(prog: DeviceProgram, device, block: int = 4096):
     """The long-string scanner for a program (the JAX package's choice):
     the `.*X.*` and X{m,n}-alias rewrites first, run-length windows for
     counting-plan programs, the window kernels for dense tiles of up to 32
-    states (and wider ones of up to 256 states with a horizon),
-    :class:`LongScanner` otherwise."""
+    states (and wider ones of up to 1024 states with a horizon, the block
+    grown to eight overlaps), :class:`LongScanner` otherwise."""
     from ..engine import seeded_alias_program
 
     if not prog.nullable and prog.horizon is None:
@@ -993,8 +995,8 @@ def make_long_scanner(prog: DeviceProgram, device, block: int = 4096):
 def fast_long_takes(prog: DeviceProgram, block: int) -> bool:
     """Whether :class:`FastLongScanner` runs the program in windows of
     ``block`` bytes: a dense follow matrix, a tile the window kernels hold
-    (at most ``REG_S_TILE`` states) and, past 32 states, a horizon whose
-    overlap fits in an eighth of the window."""
-    if prog.F is None or prog.s_tile > spl.REG_S_TILE:
+    (at most ``MAX_S_TILE`` = 1024 states) and, past 32 states, a horizon
+    whose overlap fits in an eighth of the window."""
+    if prog.F is None or prog.s_tile > spl.MAX_S_TILE:
         return False
     return prog.s_tile <= 32 or (prog.horizon is not None and prog.horizon + 2 <= block // 8)

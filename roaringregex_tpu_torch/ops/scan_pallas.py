@@ -58,10 +58,12 @@ A multi-pattern program (``MultiPattern``'s combined automaton, the
 patterns' positions disjoint) carries P accept rows, one per pattern:
 ``match_stats_b`` reduces per channel, and ``lazy_spans_mb`` runs one
 reverse pass and one span pass for all P patterns (``rrx_nfa_reverse_mb``,
-``rrx_nfa_lazy_spans_mb``) up to 256 states. Not ported: K-chaining
-(``chain_target``, off by default), and those two multi-channel span
-kernels past 256 states (rows 21-22 of PERF.md's table):
-:func:`nfa_reverse_mb` and :func:`nfa_lazy_spans_mb` raise there.
+``rrx_nfa_lazy_spans_mb`` up to 256 states; ``rrx_nfa_wide_reverse_mb``,
+``rrx_nfa_wide_lazy_spans_mb`` at 257..1024, one warp per record, lane p
+keeping channel p's bookkeeping). The long-string window kernels (one long
+string, ``ops/longstring.py``) likewise run ``csrc/scan_long.cu`` up to 256
+states and ``csrc/scan_long_wide.cu`` (one warp per window) past them. Not
+ported: K-chaining (``chain_target``, off by default).
 """
 from __future__ import annotations
 
@@ -79,6 +81,12 @@ REG_S_TILE = 256  # the widest tile whose state set scan_nfa.cu keeps in 8 regis
 # accept channels whose per-record bookkeeping the multi-channel kernels
 # keep in registers; above it, in per-thread rows of global scratch
 MB_REG_CHANNELS = 8
+# the same for the wide multi-channel kernels: lane p of the record's warp
+# keeps channel p's
+WIDE_REG_CHANNELS = 32
+# scan_nfa_wide.cu: warps of a block, and the shared memory a block may have
+WIDE_WARPS = 32
+WIDE_SMEM_LIMIT = 232448
 
 
 class NfaTables(NamedTuple):
@@ -519,14 +527,16 @@ def _run(name: str, wrapper, data, lengths, tables: NfaTables, *tail,
             wrapper.launches += 1
 
 
-def _narrow_only(what: str, tables: NfaTables) -> None:
-    """Refuse a multi-channel span primitive on a tile of more than
-    ``REG_S_TILE`` states, on any device."""
-    if tables.s_tile > REG_S_TILE:
-        raise NotImplementedError(
-            f"{what}: a combined program of s_tile {tables.s_tile}: the multi-channel span "
-            f"kernels (rows 21-22, the TPU's _reverse_kernel_mb and _span_kernel_mb) are ported "
-            f"for tiles of up to {REG_S_TILE} states only (see ROADMAP.md)")
+def _check_wide_smem(what: str, tables: NfaTables) -> None:
+    """Refuse, past ``REG_S_TILE`` states, a multi-channel wide kernel whose
+    shared memory (one direction's rows, the mask and accept rows, the
+    span-channel rows and a state buffer per warp: ``scan_nfa_wide.cu``)
+    passes the 227 KB a block may have."""
+    S, W, P = tables.s_tile, _words(tables.s_tile), tables.P
+    need = 4 * ((S + N_SYMS + 3 * P) * W + WIDE_WARPS * W)
+    if S > REG_S_TILE and need > WIDE_SMEM_LIMIT:
+        raise ValueError(f"{what}: {P} channels on a tile of {S} states need {need} bytes of "
+                         f"shared memory a block, past the card's {WIDE_SMEM_LIMIT} (227 KB)")
 
 
 def nfa_stats(data, lengths, tables: NfaTables, *, seeded: bool, lead: int = 0,
@@ -619,43 +629,45 @@ def nfa_greedy_spans(data, lengths, tables: NfaTables, hits, cap: int, *, nullab
 def nfa_reverse_mb(data, lengths, tables: NfaTables, span: torch.Tensor):
     """Hit words [P, W, R] int32 of every accept channel from one reverse
     pass (``rrx_nfa_reverse_mb``, counted in ``nfa_reverse_mb.launches``,
-    on a CUDA tensor; :func:`reverse_mb_plain` on a CPU tensor). Raises
-    past 256 states (row 21, not ported yet)."""
-    _narrow_only("nfa_reverse_mb", tables)
+    or past 256 states ``rrx_nfa_wide_reverse_mb``, counted in
+    ``nfa_reverse_mb.wide_launches``, on a CUDA tensor;
+    :func:`reverse_mb_plain` on a CPU tensor)."""
     if data.device.type == "cpu":
         return reverse_mb_plain(data, lengths, tables, span)
     _check_span(tables, span, data)
+    _check_wide_smem("nfa_reverse_mb", tables)
     R, L = data.shape
     hits = torch.empty((tables.P, sb.hit_words(L), R), dtype=torch.int32, device=data.device)
-    _launch("rrx_nfa_reverse_mb", data, lengths, tables, int(tables.P), span.contiguous(), hits)
-    nfa_reverse_mb.launches += 1
+    _run("reverse_mb", nfa_reverse_mb, data, lengths, tables, int(tables.P), span.contiguous(),
+         hits)
     return hits
 
 
 def nfa_lazy_spans_mb(data, lengths, tables: NfaTables, span: torch.Tensor, hits, cap: int):
     """(starts [R, P, cap], ends [R, P, cap], cnt [R, P]): every channel's
     lazy spans from one forward pass (``rrx_nfa_lazy_spans_mb``, counted in
-    ``nfa_lazy_spans_mb.launches``, on a CUDA tensor;
+    ``nfa_lazy_spans_mb.launches``, or past 256 states
+    ``rrx_nfa_wide_lazy_spans_mb``, counted in
+    ``nfa_lazy_spans_mb.wide_launches``, on a CUDA tensor;
     :func:`lazy_spans_mb_plain` on a CPU tensor). Above ``MB_REG_CHANNELS``
-    channels the kernel keeps each record's (cur, pos) per channel in a
-    scratch row [R, P, 2] allocated here. Raises past 256 states (row 22,
-    not ported yet)."""
-    _narrow_only("nfa_lazy_spans_mb", tables)
+    channels (``WIDE_REG_CHANNELS`` for the wide kernel) the kernel keeps
+    each record's (cur, pos) per channel in a scratch row [R, P, 2]
+    allocated here."""
     if data.device.type == "cpu":
         return lazy_spans_mb_plain(data, lengths, tables, span, hits, cap)
     _check_span(tables, span, data)
     P = tables.P
     _check_hits_mb(hits, data, P)
     sb._check_cap(cap)
+    _check_wide_smem("nfa_lazy_spans_mb", tables)
     R, dev = data.shape[0], data.device
     starts = torch.empty((R, P, cap), dtype=torch.int32, device=dev)
     ends = torch.empty((R, P, cap), dtype=torch.int32, device=dev)
     cnt = torch.empty((R, P), dtype=torch.int32, device=dev)
-    scratch = torch.empty((R, P, 2) if P > MB_REG_CHANNELS else (1,), dtype=torch.int32,
-                          device=dev)
-    _launch("rrx_nfa_lazy_spans_mb", data, lengths, tables, int(P), span.contiguous(),
-            hits.contiguous(), int(cap), starts, ends, cnt, scratch)
-    nfa_lazy_spans_mb.launches += 1
+    in_regs = WIDE_REG_CHANNELS if tables.s_tile > REG_S_TILE else MB_REG_CHANNELS
+    scratch = torch.empty((R, P, 2) if P > in_regs else (1,), dtype=torch.int32, device=dev)
+    _run("lazy_spans_mb", nfa_lazy_spans_mb, data, lengths, tables, int(P), span.contiguous(),
+         hits.contiguous(), int(cap), starts, ends, cnt, scratch)
     return starts, ends, cnt
 
 
@@ -663,7 +675,8 @@ for _w in (nfa_stats, nfa_flags, nfa_reverse, nfa_anchor_end, nfa_lazy_spans,
            nfa_greedy_spans, nfa_reverse_mb, nfa_lazy_spans_mb):
     _w.launches = 0
 nfa_stats.channel_launches = 0
-for _w in (nfa_stats, nfa_flags, nfa_reverse, nfa_anchor_end, nfa_lazy_spans, nfa_greedy_spans):
+for _w in (nfa_stats, nfa_flags, nfa_reverse, nfa_anchor_end, nfa_lazy_spans, nfa_greedy_spans,
+           nfa_reverse_mb, nfa_lazy_spans_mb):
     _w.wide_launches = 0
 
 
@@ -735,8 +748,7 @@ class PallasScanner(_Scanner):
     channels, as ``MultiPattern`` builds it) gives the scan P accept rows:
     ``match_stats_b`` then returns per-channel statistics and, once
     :meth:`set_span_channels` has run, ``lazy_spans_mb`` every channel's
-    lazy spans (up to 256 states: past them it raises, rows 21-22 not being
-    ported yet); the single-channel primitives raise."""
+    lazy spans; the single-channel primitives raise."""
 
     has_anchor = True  # anchored-rescan and span kernels
 
@@ -1049,22 +1061,34 @@ def _long_inputs(geom: LongGeom, tables: NfaTables, v0, gate, dev):
             None if gate is None else gate.to(torch.uint8).contiguous())
 
 
+def _long_run(name: str, wrapper, data, geom: LongGeom, tables: NfaTables, *args) -> None:
+    """Launch ``rrx_long_<name>`` for a tile of up to ``REG_S_TILE`` states
+    (one thread per window, counted in ``wrapper.launches``) or
+    ``rrx_long_wide_<name>`` for 257..1024 states (one warp per window,
+    counted in ``wrapper.wide_launches``)."""
+    if tables.s_tile > REG_S_TILE:
+        _long_launch(f"rrx_long_wide_{name}", data, geom, tables, *args)
+        wrapper.wide_launches += 1
+    else:
+        _long_launch(f"rrx_long_{name}", data, geom, tables, *args)
+        wrapper.launches += 1
+
+
 def long_carry(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *, seeded: bool):
-    """Final states [nw, W] int32 (``rrx_long_carry``, counted in
-    ``long_carry.launches``, on a CUDA tensor; :func:`long_carry_plain` on a
+    """Final states [nw, W] int32 (``rrx_long_carry``, or past 256 states
+    ``rrx_long_wide_carry``, on a CUDA tensor; :func:`long_carry_plain` on a
     CPU tensor)."""
     if data.device.type == "cpu":
         return long_carry_plain(data, geom, tables, v0, gate, seeded=seeded)
     v0, gate = _long_inputs(geom, tables, v0, gate, data.device)
     vout = torch.empty((geom.nw, _words(tables.s_tile)), dtype=torch.int32, device=data.device)
-    _long_launch("rrx_long_carry", data, geom, tables, v0, gate, int(seeded), vout)
-    long_carry.launches += 1
+    _long_run("carry", long_carry, data, geom, tables, v0, gate, int(seeded), vout)
     return vout
 
 
 def long_flags(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *, seeded: bool):
-    """Flat flag words [words] int32 (``rrx_long_flags``, counted in
-    ``long_flags.launches``, on a CUDA tensor; :func:`long_flags_plain` on a
+    """Flat flag words [words] int32 (``rrx_long_flags``, or past 256 states
+    ``rrx_long_wide_flags``, on a CUDA tensor; :func:`long_flags_plain` on a
     CPU tensor)."""
     if data.device.type == "cpu":
         return long_flags_plain(data, geom, tables, v0, gate, seeded=seeded)
@@ -1072,16 +1096,15 @@ def long_flags(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *, s
         raise ValueError(f"flags windows need T = lead + block and rep 1, got {geom}")
     v0, gate = _long_inputs(geom, tables, v0, gate, data.device)
     flags = torch.empty(geom.words, dtype=torch.int32, device=data.device)
-    _long_launch("rrx_long_flags", data, geom, tables, v0, gate, int(seeded), flags)
-    long_flags.launches += 1
+    _long_run("flags", long_flags, data, geom, tables, v0, gate, int(seeded), flags)
     return flags
 
 
 def long_count(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *, seeded: bool,
                final: bool = False):
     """(cnt [nw] int32, tail [nw] bool, final states [nw, W] int32 or None)
-    (``rrx_long_count``, counted in ``long_count.launches``, on a CUDA
-    tensor; :func:`long_count_plain` on a CPU tensor)."""
+    (``rrx_long_count``, or past 256 states ``rrx_long_wide_count``, on a
+    CUDA tensor; :func:`long_count_plain` on a CPU tensor)."""
     if data.device.type == "cpu":
         return long_count_plain(data, geom, tables, v0, gate, seeded=seeded, final=final)
     v0, gate = _long_inputs(geom, tables, v0, gate, data.device)
@@ -1090,27 +1113,26 @@ def long_count(data, geom: LongGeom, tables: NfaTables, v0=None, gate=None, *, s
     tail = torch.empty(geom.nw, dtype=torch.uint8, device=dev)
     vout = (torch.empty((geom.nw, _words(tables.s_tile)), dtype=torch.int32, device=dev)
             if final else None)
-    _long_launch("rrx_long_count", data, geom, tables, v0, gate, int(seeded), cnt, tail, vout)
-    long_count.launches += 1
+    _long_run("count", long_count, data, geom, tables, v0, gate, int(seeded), cnt, tail, vout)
     return cnt, tail.view(torch.bool), vout
 
 
 def long_reverse(data, geom: LongGeom, tables: NfaTables):
-    """Flat hit words [words] int32 (``rrx_long_reverse``, counted in
-    ``long_reverse.launches``, on a CUDA tensor; :func:`long_reverse_plain`
-    on a CPU tensor)."""
+    """Flat hit words [words] int32 (``rrx_long_reverse``, or past 256
+    states ``rrx_long_wide_reverse``, on a CUDA tensor;
+    :func:`long_reverse_plain` on a CPU tensor)."""
     if data.device.type == "cpu":
         return long_reverse_plain(data, geom, tables)
     if geom.T < geom.lead + geom.block or geom.rep != 1:
         raise ValueError(f"reverse windows need T >= lead + block and rep 1, got {geom}")
     hits = torch.empty(geom.words, dtype=torch.int32, device=data.device)
-    _long_launch("rrx_long_reverse", data, geom, tables, hits)
-    long_reverse.launches += 1
+    _long_run("reverse", long_reverse, data, geom, tables, hits)
     return hits
 
 
 for _w in (long_carry, long_flags, long_count, long_reverse):
     _w.launches = 0
+    _w.wide_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,10 @@ versions on the CPU).
 - ``Pattern`` against the oracle (and ``re`` where its spans are the
   policy's) on one program at each tile and the nullable K40*.
 - ``MultiPattern`` of a dense multiblock union (P = 3) against each
-  pattern's oracle; its lazy spans raise (rows 21-22 not ported).
-- The long route: K60 (no ``+``) keeps the torch-op ``LongScanner``.
+  pattern's oracle, its lazy spans also against the JAX ``MultiPattern``
+  (8 records, one interpret-mode call) and with a ``$`` channel.
+- The long route: K60 (no ``+``) takes ``FastLongScanner`` (the wide
+  window kernels); its unseeded scans keep the torch-op ``LongScanner``.
 """
 import functools
 import re
@@ -34,7 +36,8 @@ from roaringregex_tpu.utils.config import get_config, set_config
 from roaringregex_tpu_torch.api import MultiPattern
 from roaringregex_tpu_torch.compiler.program import compile_program, from_reference
 from roaringregex_tpu_torch.ops import scan_pallas
-from roaringregex_tpu_torch.ops.longstring import LongScanner, make_long_scanner
+from roaringregex_tpu_torch.ops.longstring import (FastLongScanner, LongScanner,
+                                                      make_long_scanner)
 from test_torch_api_pallas import _keywords
 from test_torch_pallas import _args, _eq
 
@@ -264,25 +267,69 @@ def test_multipattern_union_counts_match_oracles():
     assert (cnt > 0).any(axis=0).all()
 
 
+MP_C1 = [_kw(40), "cat|dog", "[0-9]?$"]  # a `$` channel: a span at EOS, then (len, len)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mp_spans():
+    """The JAX MultiPattern's lazy spans of the union on the first 8 texts
+    (one interpret-mode combined scan under the module's slab_r=2)."""
+    from roaringregex_tpu.api import MultiPattern as JaxMultiPattern
+
+    _, texts = _mp_case()
+    return JaxMultiPattern(MP).finditer_batch(texts[:8])
+
+
 def test_multipattern_union_lazy_spans_raise():
+    """Lazy spans of a dense multiblock union (288 states, s_tile 384, P = 3)
+    from one combined scan (``lazy_spans_mb``: the wide multi-channel
+    kernels' plain versions here): the JAX MultiPattern's on 8 records, each
+    pattern's oracle on every record, and with a `$` channel the empty match
+    at len after a span that ends at EOS (C1), against the oracle."""
     mp, texts = _mp_case()
-    with pytest.raises(NotImplementedError, match="rows 21-22.*ROADMAP"):
-        mp.finditer_batch(texts)
+    assert mp._combined_spans and mp.engine.device_scanner.nfa.s_tile > scan_pallas.REG_S_TILE
+    got = mp.finditer_batch(texts)
+    assert [g[:8] for g in got] == _jax_mp_spans()
+    for p, pattern in enumerate(MP):
+        orc = OracleEngine(build_nfa(pattern))
+        assert got[p] == [list(orc.finditer(t)) for t in texts], pattern
+    assert all(any(g) for g in got)
+    mp1 = MultiPattern(MP_C1, "cpu")
+    assert (mp1._combined_spans, mp1.engine.device_scanner.nfa.s_tile) == (True, 384)
+    texts1 = [t + b" 12" for t in texts[:12]] + [b"7", b"", b"cat 9"]
+    got1 = mp1.finditer_batch(texts1)
+    for p, pattern in enumerate(MP_C1):
+        orc = OracleEngine(build_nfa(pattern))
+        assert got1[p] == [list(orc.finditer(t)) for t in texts1], pattern
+    assert (len(texts1[0]) - 1, len(texts1[0])) in got1[2][0]
+    assert (len(texts1[0]), len(texts1[0])) in got1[2][0]
 
 
 def test_long_route_keeps_torch_op_scanner():
-    """K60 (412 states, s_tile 512, horizon 12) has a horizon, but the window
-    kernels hold 256 states: its long scanner stays the torch-op one, and
-    answers as the oracle does."""
+    """K60 (412 states, s_tile 512, horizon 12) takes the window kernels
+    (FastLongScanner) for its seeded scans and answers as the oracle does;
+    its unseeded scans (fullmatch) still take the torch-op LongScanner, as
+    in the JAX package."""
     pattern = _kw(60, "")
     prog = compile_program(pattern)
     assert (prog.s_tile, prog.horizon) == (512, 12)
     sc = make_long_scanner(prog, "cpu", block=256)
-    assert type(sc) is LongScanner
+    assert type(sc) is FastLongScanner
     rng = np.random.default_rng(11)
     parts = [bytes(rng.choice(np.frombuffer(b"abcdefgilnorstu ", np.uint8), size=40))
              + WORDS[int(j)] for j in rng.integers(0, 60, size=4)]
     text = b"".join(parts)
-    want = OracleEngine(build_nfa(pattern)).ends(text)
+    orc = OracleEngine(build_nfa(pattern))
+    want = orc.ends(text)
     assert sc.count_ends(text) == len(want) and sc.search(text)
     assert np.nonzero(sc.ends_bitmap(text))[0].tolist() == sorted(want)
+    # the route's LongScanner takes 4,096-step blocks (as JAX's does): ~12 s
+    # a call here, so this one, set in its place, takes 256
+    assert sc._portable is None
+    portable = LongScanner(prog, "cpu", block=256)
+    calls = []
+    flags = portable._flags
+    portable._flags = lambda *a: calls.append(a[2]) or flags(*a)
+    sc._portable = portable
+    assert sc.fullmatch(WORDS[5]) and not sc.fullmatch(text)
+    assert calls == [False, False]  # unseeded, both through the torch-op scanner
