@@ -9,7 +9,7 @@ its check fails:
 1. the card's name and power limit; build the CUDA kernels from
    roaringregex_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source,
    all started together), with nvcc's register report and the build time;
-2. kernel against plain PyTorch version on the card, for all forty-one entry
+2. kernel against plain PyTorch version on the card, for all forty-five entry
    points, on random batches from a numpy seed plus edge records (empty,
    len == L, bytes >= 0x80, byte 0); integer outputs, tolerance 0:
    rrx_swar_stats and rrx_word_stats on the SWAR and u32-word test
@@ -72,7 +72,13 @@ its check fails:
    x(ab|c){300,340}y (W = 32), strings of 0-3 bytes and 1 MiB in windows
    of 256 bytes (lead 0 and the overlap), 4 MiB in windows of 4096 at W =
    16 and 32, seeded and unseeded, from the empty set and random entry
-   states with random gates, and 3 windows a block (rep 3);
+   states with random gates, and 3 windows a block (rep 3); the four
+   stream-fed kernels (rrx_stream_stats, _flags, _reverse, _first_end: the
+   packed backend over a mask stream) on 1 MB batches (1024 records of 1024
+   B) of 9 programs at W = 1 (nullable and anchored ones too), 2, 4, 8, 12,
+   16 and 32 and 2 MultiPattern sets (P = 3 at W = 1 and 12), stats seeded,
+   unseeded and nullable, flags seeded and unseeded, reverse, first end lazy
+   and longest from -1, 0 and random starts;
 3. the match-stats path, with its launch counts set to 0 first: bench
    config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
@@ -113,7 +119,8 @@ its check fails:
    tier: phase 11);
    ends_batch and starts_batch of a SWAR, a u32-word, a matmul-tier and a
    counting program against the sets re gives; finditer_batch of counting
-   programs in host rounds against re (greedy, and lazy against the lazy
+   programs in host rounds (each round's anchored rescan on
+   rrx_stream_first_end) against re (greedy, and lazy against the lazy
    quantifier); the counts are read after it;
 8. (run before 7) the multi-pattern path, with every launch count set to
    0 first: MultiPattern on bench config 6 (["cat|dog", "[0-9]{3}",
@@ -217,7 +224,22 @@ its check fails:
    kernels on the P = 3 union at 10 MB and 1 GiB the same way; and the
    four wide window kernels at 1 GiB in K60's overlapped geometry (plain
    versions on 1 MiB), with count_ends end to end for K60 and
-   x(ab|c){300,340}y.
+   x(ab|c){300,340}y; the four stream kernels at 10 MB on cat|dog (W = 1),
+   K30 (W = 8) and config 4 (W = 12, the rescans) and at 1 GiB on cat|dog
+   (a 4 GiB stream), with the stream's bytes as their input in the bound,
+   the stream's build time, occupancy and registers; match_stats end to end
+   on the default route, the packed and the XLA backend at 10 MB;
+13. (run before 7) the packed and XLA backends, with every launch count set
+   to 0 first: cat|dog (config 1's 10 MB) and K30 (10 MB of log text) with
+   backend="packed": match_stats, ends_bitmap and starts_bitmap equal to the
+   default route and re, finditer_batch in host rounds equal to it and re;
+   config 4's finditer_batch (lazy and greedy) at 10 MB on the default route
+   against re, its anchored rescans on rrx_stream_first_end, timed per host
+   round; the C3 programs (abc|de){1,420} and x(abc|de){1,420}y on the XLA
+   backend at 1 MB: count_batch, fullmatch_batch and lazy and greedy spans
+   against re, timed; C2: Pattern.long of x(abc|de){1,300}y and config 10 on
+   the torch-op LongScanner, count_ends of a 64 KiB string against re,
+   timed; every stream kernel must have been launched.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -354,6 +376,21 @@ REPLACES |= {
     "rrx_long_wide_count": "roaringregex_tpu/ops/scan_pallas.py:3550",
     "rrx_long_wide_reverse": "roaringregex_tpu/ops/scan_pallas.py:3488",
 }
+# the stream-fed kernels (scan_stream.cu): the packed backend's primitives
+# and the counting tier's anchored rescans over a mask stream, one thread per
+# record up to 256 states and one warp per record past them
+STREAM_SOURCE = "roaringregex_tpu_torch/csrc/scan_stream.cu"
+STREAM_KERNELS = ("rrx_stream_stats", "rrx_stream_flags", "rrx_stream_reverse",
+                  "rrx_stream_first_end")
+REPLACES |= {
+    "rrx_stream_stats": "roaringregex_tpu/ops/scan_pallas.py:75",
+    "rrx_stream_flags": "roaringregex_tpu/ops/scan_pallas.py:153",
+    "rrx_stream_reverse": "roaringregex_tpu/ops/scan_pallas.py:199",
+    "rrx_stream_first_end": "roaringregex_tpu/ops/scan_pallas.py:981",
+}
+# container programs past the container kernels' caps (153 partial blocks,
+# 2,176 lanes): the XLA backend's route, as in the JAX engine
+C3_PATTERNS = ["(abc|de){1,420}", "x(abc|de){1,420}y"]
 
 
 def keywords(n: int):
@@ -448,6 +485,12 @@ COUNT_PATTERNS = [
     "(ab){40}",
 ]
 CONFIG4, CONFIG13 = "a{1,300}", "(abc|de){1,300}"
+# programs for the stream-fed kernels against their plain versions: W = 1
+# (nullable and anchored ones too), 2, 4, 8, 12, 16 and 32, and P = 3
+# accept channels at W = 1 and 12
+STREAM_PATTERNS = ["cat|dog", "a?(cat|dog)*", "^ab?c$", K7, "x(ab|c){20,40}y", K30, CONFIG4,
+                   K60P, CHAIN300]
+STREAM_SETS = [["cat", "dog", "a{2,5}"], WIDE_MP]
 # counting tier step floor: class-table load, the progress shift-OR-AND,
 # the body-end test and clear, the run's add, min and select
 COUNT_STEP_OPS = 8
@@ -570,8 +613,9 @@ def main() -> int:
     from roaringregex_tpu_torch.api import compile as rrx_compile
     from roaringregex_tpu_torch.compiler.program import compile_program
     from roaringregex_tpu_torch.engine import ScanEngine
-    from roaringregex_tpu_torch.ops import (_build, scan_bitband, scan_bits, scan_pallas,
-                                            scan_sparse, scan_swar, scan_word, scan_xla)
+    from roaringregex_tpu_torch.ops import (_build, scan_bitband, scan_bits, scan_packed,
+                                            scan_pallas, scan_sparse, scan_swar, scan_word,
+                                            scan_xla)
     from roaringregex_tpu_torch.utils.config import get_config, set_config
 
     dev = torch.device("cuda:0")
@@ -665,9 +709,15 @@ def main() -> int:
                         for name in WIDE_MB_KERNELS}
     long_wide_wrappers = {name: Count(long_wrappers[name.replace("_wide", "")], "wide_launches")
                           for name in LONG_WIDE_KERNELS}
+    stream_wrappers = {
+        "rrx_stream_stats": scan_packed.match_stats,
+        "rrx_stream_flags": scan_packed.forward_flags,
+        "rrx_stream_reverse": scan_packed.reverse_hits,
+        "rrx_stream_first_end": scan_packed.first_end_from,
+    }
     wrappers = ({name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
                 | count_wrappers | mp_wrappers | long_wrappers | bitband_wrappers | sparse_wrappers
-                | wide_wrappers | wide_mb_wrappers | long_wide_wrappers)
+                | wide_wrappers | wide_mb_wrappers | long_wide_wrappers | stream_wrappers)
     base_cfg = get_config()
     max_err = {name: 0 for name in wrappers}
 
@@ -1510,6 +1560,85 @@ def main() -> int:
     print(f"phase 2: kernel == plain on the card, {n_cmp} batches of 192 records through the three "
           f"container kernels (stats seeded/unseeded/nullable, flags seeded/unseeded, reverse, "
           f"live records; shared and global table forms, {seen_u} full blocks, C = 1, 2, 40, 100) "
+          f"({time.perf_counter() - t0:.1f}s)")
+
+    # the four stream-fed kernels on 1 MB batches (1024 records of 1024 B):
+    # W = 1, 2, 4, 8 (one thread per record), 12, 16 and 32 (one warp per
+    # record), nullable and anchored programs, P = 3 accept channels
+    def stream_batch(R: int, L: int):
+        """wide_batch's keyword runs and chains, with NFA_PLANTS and a-runs of
+        1-400 bytes in other records."""
+        data, lengths = wide_batch(R, L)
+        for i in range(9, R, 4):
+            w = (b"a" * int(rng.integers(1, 401)) if i % 8 == 1
+                 else NFA_PLANTS[int(rng.integers(len(NFA_PLANTS)))])[:L]
+            at = int(rng.integers(0, L - len(w) + 1))
+            data[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+        return data, lengths
+
+    def check_stream(nfa, tabs, d, ln, tag, *, nullable):
+        """Each stream kernel against its plain version on one batch; returns
+        the records with a seeded match end."""
+        SP = scan_packed
+        words = SP.mask_stream_from_bytes(tabs, d, ln)
+        st = torch.from_numpy(rng.integers(-1, d.shape[1], size=d.shape[0]).astype(np.int32)).to(dev)
+        st[::5] = 0
+        for seeded in (True, False):
+            kw = dict(seeded=seeded, nullable=nullable)
+            got = SP.match_stats(nfa, words, ln, **kw)
+            compare("rrx_stream_stats", got, SP.match_stats_plain(nfa, words, ln, **kw),
+                    f"{tag} {kw}", ("cnt", "first", "any"))
+            if seeded:
+                hits = int((got[0] > 0).sum())
+            if not nfa.channels:
+                compare("rrx_stream_flags", [SP.forward_flags(nfa, words, seeded=seeded)],
+                        [SP.forward_flags_plain(nfa, words, seeded=seeded)],
+                        f"{tag} seeded={seeded}", ("flags",))
+        if nfa.channels:
+            return hits
+        compare("rrx_stream_reverse", [SP.reverse_hits(nfa, words)],
+                [SP.reverse_hits_plain(nfa, words)], tag, ("hits",))
+        for longest in (False, True):
+            compare("rrx_stream_first_end",
+                    [SP.first_end_from(nfa, words, ln, st, longest=longest)],
+                    [SP.first_end_plain(nfa, words, ln, st, longest=longest)],
+                    f"{tag} longest={longest}", ("end",))
+        return hits
+
+    t0 = time.perf_counter()
+    before = launches()
+    words_s = set()
+    n_cmp = 0
+    for pattern in STREAM_PATTERNS:
+        prog = compile_program(pattern)
+        tabs = scan_packed.packed_tables(prog, dev)
+        words_s.add(tabs["Wt"])
+        data, lengths = stream_batch(1024, 1024)
+        d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
+        hits = check_stream(tabs["nfa"], tabs, d, ln, f"{pattern[:40]!r}", nullable=prog.nullable)
+        n_cmp += 1
+        print(f"  stream kernels, {pattern[:40]!r} (s_tile {prog.s_tile}, W = {tabs['Wt']}): "
+              f"{hits} records with a seeded match end")
+    for pats in STREAM_SETS:
+        mp = MultiPattern(pats, dev)
+        tabs = scan_packed.packed_tables(mp.program, dev, mp.accept_map, len(pats))
+        data, lengths = stream_batch(1024, 1024)
+        data[8::7, :7] = np.frombuffer(b"cat 123", np.uint8)
+        d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
+        hits = check_stream(tabs["nfa"], tabs, d, ln, f"MultiPattern of {len(pats)}",
+                            nullable=False)
+        n_cmp += 1
+        print(f"  stream stats, MultiPattern of {len(pats)} (s_tile {mp.program.s_tile}, P = "
+              f"{tabs['nfa'].P}): {hits} seeded channel hits")
+    torch.cuda.synchronize()
+    for name in STREAM_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if not {1, 2, 4, 8, 12, 16, 32} <= words_s:
+        fail(f"stream comparisons covered W = {sorted(words_s)}")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} 1 MB batches through the four stream "
+          f"kernels (W = {sorted(words_s)}; stats seeded/unseeded/nullable/P = 3, flags "
+          f"seeded/unseeded, reverse, first end lazy/longest from -1, 0 and random starts) "
           f"({time.perf_counter() - t0:.1f}s)")
 
     # -- phase 3: the match-stats path (counts from here to its 1 GiB run) --
@@ -2875,6 +3004,177 @@ def main() -> int:
     print(f"dense multiblock path launches: {wide_launches} "
           f"({time.perf_counter() - t12:.1f}s for the phase)")
 
+    # -- phase 13: the packed and XLA backends (run before 7; counts from here to its last run)
+    t13 = time.perf_counter()
+    reset_launches()
+    PK = scan_packed
+    d1_np, l1_np = bench.make_corpus(10_000_000, 1024, seed=0)
+    pad13 = -d1_np.shape[0] % 16  # whole rows of cat|dog's packing group (G = 16)
+    d1_np, l1_np = np.pad(d1_np, ((0, pad13), (0, 0))), np.pad(l1_np, (0, pad13))
+    log13 = log_text(np, 13, d1_np.shape[0], 1024, K30_WORDS)
+    pk_runs = {}
+    for pattern, words_k, d_np in (("cat|dog", ["cat", "dog"], d1_np), (K30, K30_WORDS, log13)):
+        d13 = torch.from_numpy(d_np).to(dev)
+        l13 = torch.from_numpy(l1_np).to(dev)
+        p_def, p_pk = rrx_compile(pattern, dev), rrx_compile(pattern, dev, backend="packed")
+        if p_pk.engine.backend != "packed" or p_pk.engine.device_scanner is not None:
+            fail(f"{pattern[:30]!r} with backend='packed' routed to {p_pk.engine.backend}")
+        got = p_pk.engine.match_stats(d13, l13, seeded=True)
+        want = p_def.engine.match_stats(d13, l13, seeded=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"{pattern[:30]!r} packed match_stats != the default route")
+        cnt_np, first_np = got[0].cpu().numpy(), got[1].cpu().numpy()
+        texts = [d_np[i, : l1_np[i]].tobytes() for i in range(d_np.shape[0])]
+        ref = [key_stats(words_k, t) for t in texts]
+        if (cnt_np.tolist() != [c for c, _ in ref] or first_np.tolist() != [f for _, f in ref]):
+            fail(f"{pattern[:30]!r} packed match_stats != re")
+        L13 = d_np.shape[1]
+        bms = {}
+        for what in ("ends_bitmap", "starts_bitmap"):
+            bms[what] = getattr(p_pk.engine, what)(d13, l13, L13)
+            if not np.array_equal(bms[what], getattr(p_def.engine, what)(d13, l13, L13)):
+                fail(f"{pattern[:30]!r} packed {what} != the default route")
+        rx = re.compile(b"(?=(" + b"|".join(w.encode() for w in words_k) + b"))")
+        for i in range(0, d_np.shape[0], 7):
+            t = texts[i]
+            ms_ = [(m.start(), m.start() + len(m.group(1))) for m in rx.finditer(t)]
+            if (set(np.nonzero(bms["ends_bitmap"][i])[0].tolist()) != {e for _, e in ms_}
+                    or set(np.nonzero(bms["starts_bitmap"][i])[0].tolist())
+                    != {s_ for s_, _ in ms_}):
+                fail(f"{pattern[:30]!r} bitmaps != re at record {i}")
+        rxs = re.compile("|".join(words_k).encode())
+        want_sp = [[m.span() for m in rxs.finditer(t)] for t in texts]
+        f0 = PK.first_end_from.launches
+        t1 = time.perf_counter()
+        got_sp = p_pk.finditer_batch(texts)
+        pk_s = time.perf_counter() - t1
+        n_rounds = PK.first_end_from.launches - f0
+        if got_sp != want_sp or p_def.finditer_batch(texts) != want_sp:
+            fail(f"{pattern[:30]!r} packed finditer_batch != the default route and re")
+        if p_pk.finditer_batch(texts[:500], longest=True) != want_sp[:500]:
+            fail(f"{pattern[:30]!r} packed greedy finditer_batch != re")
+        pk_runs[pattern] = (d13, l13, p_def, p_pk)
+        print(f"phase 13: {pattern[:30]!r} on the packed backend, 10 MB ({d_np.shape[0]} records): "
+              f"match_stats (matches={int(cnt_np.sum())}), ends_bitmap, starts_bitmap == the "
+              f"default route ({type(p_def.engine.device_scanner).__name__}) and re; "
+              f"finditer_batch in {n_rounds} host rounds == re ({pk_s:.2f}s) [{card}]")
+
+    # config 4 (a{1,300}, the counting tier) spans at 10 MB on the default
+    # route: host rounds whose anchored rescans run rrx_stream_first_end
+    pat4 = rrx_compile(CONFIG4, dev)
+    if type(pat4.engine.device_scanner).__name__ != "CountScanner":
+        fail(f"{CONFIG4} routed to {type(pat4.engine.device_scanner).__name__}")
+    texts4 = [d1_np[i, : l1_np[i]].tobytes() for i in range(d1_np.shape[0])]
+    rounds4 = {}
+    for longest, form in ((False, "a{1,300}?"), (True, CONFIG4)):
+        want_sp = [[m.span() for m in re.compile(form.encode()).finditer(t)] for t in texts4]
+        f0 = PK.first_end_from.launches
+        t1 = time.perf_counter()
+        got_sp = pat4.finditer_batch(texts4, longest=longest)
+        secs = time.perf_counter() - t1
+        n_rounds = PK.first_end_from.launches - f0
+        if got_sp != want_sp:
+            fail(f"config 4 finditer_batch(longest={longest}) != re {form!r}")
+        if n_rounds <= 0:
+            fail("config 4's rescans did not run rrx_stream_first_end")
+        rounds4[longest] = (n_rounds, secs)
+        print(f"phase 13: config 4 {CONFIG4} finditer_batch(longest={longest}) on 10 MB "
+              f"({len(texts4)} records): {sum(map(len, got_sp))} spans == re in {n_rounds} host "
+              f"rounds on rrx_stream_first_end, {secs:.3f} s = {1e3 * secs / n_rounds:.2f} ms a "
+              f"round [{card}]")
+
+    # C3: container programs past the container kernels' caps on the XLA
+    # backend, 1 MB (1024 records of 1024 B) with chains planted
+    rng13 = np.random.default_rng(13)
+    c3_np = rng13.choice(np.frombuffer(b"abcdexyz", np.uint8), size=(1024, 1024)).astype(np.uint8)
+    c3_len = np.full(1024, 1024, np.int32)
+    for i in range(0, 1024, 8):
+        body = b"".join(rng13.choice([b"abc", b"de"], size=int(rng13.integers(1, 200))))
+        w = (b"x" + body + b"y")[:1024]
+        at = int(rng13.integers(0, 1024 - len(w) + 1))
+        c3_np[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+    c3_len[1:16:2] = 0
+    for i in range(3, 24, 4):  # whole-record chains: fullmatch holds for one pattern
+        chain = b"abcde" * int(rng13.integers(1, 100))
+        chain = chain if i < 11 else b"x" + chain + b"y"
+        c3_np[i, : len(chain)] = np.frombuffer(chain, np.uint8)
+        c3_len[i] = len(chain)
+    c3_texts = [c3_np[i, : c3_len[i]].tobytes() for i in range(1024)]
+    c3_times = {}
+    for pattern in C3_PATTERNS:
+        t1 = time.perf_counter()
+        p3 = rrx_compile(pattern, dev)
+        build_s = time.perf_counter() - t1
+        if p3.engine.backend != "xla" or p3.engine.device_scanner is not None:
+            fail(f"{pattern!r} routed to {p3.engine.backend}")
+        body = "(?:abc|de){1,420}"
+        rx_g = re.compile(pattern.replace("(abc|de){1,420}", body).encode())
+        rx_l = re.compile(pattern.replace("(abc|de){1,420}", body + "?").encode())
+        rx_c = re.compile(b"abc|de" if pattern.startswith("(") else rx_g.pattern)
+        times = {}
+        t1 = time.perf_counter()
+        cnt3 = p3.count_batch(c3_texts)
+        times["count"] = time.perf_counter() - t1
+        if cnt3.tolist() != [len(rx_c.findall(t)) for t in c3_texts]:
+            fail(f"{pattern!r} count_batch != re")
+        t1 = time.perf_counter()
+        full3 = p3.fullmatch_batch(c3_texts)
+        times["fullmatch"] = time.perf_counter() - t1
+        want_full = [rx_g.fullmatch(t) is not None for t in c3_texts]
+        if full3.tolist() != want_full or not any(want_full):
+            fail(f"{pattern!r} fullmatch_batch != re ({sum(want_full)} whole-record matches)")
+        for longest, rx in ((False, rx_l), (True, rx_g)):
+            t1 = time.perf_counter()
+            got_sp = p3.finditer_batch(c3_texts, longest=longest)
+            times[f"spans longest={longest}"] = time.perf_counter() - t1
+            if got_sp != [[m.span() for m in rx.finditer(t)] for t in c3_texts]:
+                fail(f"{pattern!r} finditer_batch(longest={longest}) != re")
+        c3_times[pattern] = times
+        print(f"phase 13: C3 {pattern!r} ({p3.n_states} states, {p3.tier}) on the XLA backend "
+              f"(compile {build_s:.2f}s), 1 MB: count ({int(cnt3.sum())} ends), fullmatch "
+              f"({int(full3.sum())}), lazy and greedy spans == re; seconds "
+              f"{ {k: round(v, 3) for k, v in times.items()} } [{card}]")
+
+    # C2: Pattern.long of sparse-tier programs that no rewrite takes, on
+    # LongScanner over the XLA tables (pass 1: S + 1 pseudo-records a block
+    # through [., S] x [S, S] float32 products), 64 KiB strings against re
+    c2_times = {}
+    for pattern in (CONFIG13_X, CONFIG10):
+        n2 = 1 << 16
+        s2 = bytearray(rng13.choice(np.frombuffer(b"abcdexyz", np.uint8), size=n2).tobytes())
+        for at in range(1000, n2 - 2000, 9000):
+            # chains of copies on both sides of the bounds (1..300, 400..520)
+            if pattern == CONFIG10:
+                k = int(rng13.integers(395, 531))
+                nab = int(rng13.integers(0, k + 1))
+                w = b"x" + b"ab" * nab + b"c" * (k - nab) + b"y"
+            else:
+                w = b"x" + b"abcde" * int(rng13.integers(50, 161)) + b"y"
+            s2[at : at + len(w)] = w
+        s2 = bytes(s2)
+        lp = rrx_compile(pattern, dev).long
+        if type(lp).__name__ != "LongScanner":
+            fail(f"Pattern.long({pattern!r}) took {type(lp).__name__}")
+        rx = re.compile(pattern.replace("(", "(?:").encode())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n_ends = lp.count_ends(s2)
+        torch.cuda.synchronize()
+        c2_times[pattern] = time.perf_counter() - t1
+        want = len(rx.findall(s2))
+        if n_ends != want or want == 0:
+            fail(f"Pattern.long({pattern!r}).count_ends over 64 KiB = {n_ends} != re {want}")
+        print(f"phase 13: C2 Pattern.long({pattern!r}) ({lp.tables['F'].shape[0]} states, "
+              f"LongScanner, block {lp.block}): count_ends over 64 KiB = {n_ends} == re in "
+              f"{c2_times[pattern]:.2f} s [{card}]")
+    torch.cuda.synchronize()
+    stream_launches = {name: launches()[name] for name in STREAM_KERNELS}
+    for name, n in stream_launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the packed backend's path")
+    print(f"packed backend and rescan path launches: {stream_launches} "
+          f"({time.perf_counter() - t13:.1f}s for the phase)")
+
     # -- phase 7: times ---------------------------------------------------
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
         """Median over ``runs`` of the CUDA-event time of ``per_run``
@@ -3263,13 +3563,15 @@ def main() -> int:
         print(f"phase 7: ScanEngine.match_stats config 13 through its alias, {shape}: {ms:.3f} ms "
               f"[{card}]")
 
-    # one anchored rescan (scan_xla.first_end_from) at the API's shape
+    # one anchored rescan (scan_packed.first_end_from on rrx_stream_first_end,
+    # the mask stream built in the call) at the API's shape
     pat4 = rrx_compile(CONFIG4, dev)
     d_api, l_api, _, _ = pat4._pack(span_texts)
     bm_api = pat4.engine.starts_bitmap(d_api, l_api, d_api.shape[1])
     st_api = np.where(bm_api.any(axis=1), bm_api.argmax(axis=1), -1).astype(np.int32)
     ms = time_ms(lambda: pat4.engine.first_end_from(d_api, l_api, st_api, longest=True), warm=1, runs=5)
-    print(f"phase 7: scan_xla.first_end_from (longest) of {CONFIG4} from each record's first start, "
+    print(f"phase 7: ScanEngine.first_end_from (longest; rrx_stream_first_end) of {CONFIG4} from "
+          f"each record's first start, "
           f"[{d_api.shape[0]} x {d_api.shape[1]}]: {ms:.3f} ms [{card}]")
 
     # the multi-pattern kernels: config 6 (P = 4) on the u32-word tier and its
@@ -3934,6 +4236,106 @@ def main() -> int:
           f"bound {long_bound('count', gch, state_words(lsc_c.prog))[0]:.4f}); PR 9's torch-op "
           f"LongScanner took ~1-2 s for K60 on 1 MiB [{card}]")
 
+    # rows 7-10: the four stream kernels, every record, at 10 MB on cat|dog
+    # (W = 1: the packed backend's batch of phase 13), K30 (W = 8) and config
+    # 4's a{1,300} (W = 12), and at 1 GiB on cat|dog (its stream is 4 GiB: 4
+    # Wt bytes a record-step; W >= 4 would pass 16 GiB); rescans from each
+    # record's first match start, longest; plain versions once (10 MB: the
+    # whole batch; 1 GiB: the first n_slice records), outputs compared there
+    def stream_bound(kind, Wt, sw, T, R, *, starts=None, end=None):
+        """(bound_ms, bound_by): the stream's 4 Wt bytes a record-step read
+        once (the kernel's input), the outputs written once; 3 operations per
+        word of the program's states a step, plus the bookkeeping (stats 4,
+        flags and reverse 2, rescans 2). Rescans count the steps from each
+        live start to its end (1 when none), as rows 19 and 37 do."""
+        if kind == "first_end":
+            st = starts.to(torch.int64)
+            span = torch.where(end >= 0, end.to(torch.int64) - st + 1, 1)
+            steps = int(torch.where(st >= 0, span, 0).sum())
+            return bound(4 * Wt * steps + 12 * R, 4 * R, steps * (3 * sw + 2))
+        if kind == "stats":
+            return bound(4 * Wt * T * R + 4 * R, 12 * R, T * R * (3 * sw + 4))
+        return bound(4 * Wt * T * R, 4 * (-(-T // 32)) * R, T * R * (3 * sw + 2))
+
+    stream_ms = {}
+    runs_s = [("cat|dog", "10 MB") + pk_runs["cat|dog"][:2], (K30, "10 MB") + pk_runs[K30][:2],
+              (CONFIG4, "10 MB") + pk_runs["cat|dog"][:2], ("cat|dog", "1 GiB", big, big_len)]
+    for pattern, shape, d, ln in runs_s:
+        prog = compile_program(pattern)
+        tabs = PK.packed_tables(prog, dev)
+        nfa = tabs["nfa"]
+        Wt, sw = tabs["Wt"], state_words(prog)
+        ms_w = time_ms(lambda: PK.mask_stream_from_bytes(tabs, d, ln), warm=1, runs=3)
+        words = PK.mask_stream_from_bytes(tabs, d, ln)
+        T, R = words.shape[:2]
+        n = R if shape == "10 MB" else n_slice
+        pw, pl = words[:, :n], ln[:n]
+        hits = PK.reverse_hits(nfa, words)
+        has = hits.any(dim=1)
+        st = torch.where(has, (hits.to(torch.int8).argmax(dim=1) - 1).clamp(min=0), -1)
+        st = st.to(torch.int32)
+        end = PK.first_end_from(nfa, words, ln, st, longest=True)
+        calls = {
+            "rrx_stream_stats": (lambda: PK.match_stats(nfa, words, ln, seeded=True, nullable=False),
+                                 lambda: PK.match_stats_plain(nfa, pw, pl, seeded=True,
+                                                              nullable=False), "stats"),
+            "rrx_stream_flags": (lambda: [PK.forward_flags(nfa, words, seeded=True)],
+                                 lambda: [PK.forward_flags_plain(nfa, pw, seeded=True)], "flags"),
+            "rrx_stream_reverse": (lambda: [PK.reverse_hits(nfa, words)],
+                                   lambda: [PK.reverse_hits_plain(nfa, pw)], "reverse"),
+            "rrx_stream_first_end": (
+                lambda: [PK.first_end_from(nfa, words, ln, st, longest=True)],
+                lambda: [PK.first_end_plain(nfa, pw, pl, st[:n], longest=True)], "first_end"),
+        }
+        for name, (kern, plain, kind) in calls.items():
+            if kind == "first_end" and pattern != CONFIG4 and shape == "10 MB":
+                continue  # the rescans' shape is config 4's
+            got = kern()
+            want, plain_ms = timed_once(plain)
+            compare(name, [x[:n] for x in got], want, f"{pattern[:20]!r} {shape}, first {n} records",
+                    tuple(str(i) for i in range(len(want))))
+            # the kernel alone: flags and hits as the words it writes
+            if kind == "flags":
+                kern = lambda: PK.flag_words(nfa, words, seeded=True)  # noqa: E731
+            elif kind == "reverse":
+                kern = lambda: PK.hit_words(nfa, words)  # noqa: E731
+            ms = time_ms(kern, warm=1, runs=3 if shape == "1 GiB" else 5)
+            bnd = stream_bound(kind, Wt, sw, T, R, starts=st, end=end)
+            stream_ms[name, pattern, shape] = (ms, plain_ms, bnd)
+            bps, tpb = ctypes.c_int(0), ctypes.c_int(0)
+            _build.check(lib.rrx_stream_occupancy(STREAM_KERNELS.index(name), int(prog.s_tile),
+                                                  ctypes.byref(bps), ctypes.byref(tpb)),
+                         "rrx_stream_occupancy")
+            form = "wide_" if prog.s_tile > scan_pallas.REG_S_TILE else ""
+            print(f"phase 7: {name} {pattern[:20]!r} (W = {Wt}) {shape} [{T} steps x {R} records, "
+                  f"stream {4 * Wt * T * R / 2**20:.0f} MiB]: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+                  f"ms on {n} records; bound {bnd[0]:.4f} ms by {bnd[1]}; stream build "
+                  f"{ms_w:.3f} ms; occupancy {bps.value * tpb.value}/{max_threads} threads per "
+                  f"SM; registers {regs_of(form + name[len('rrx_'):] + '_kernel')} [{card}]")
+        del words, hits
+
+    # the three backends end to end: match_stats (seeded) of 10 MB on the card
+    for pattern in ("cat|dog", K30):
+        d, ln, p_def, p_pk = pk_runs[pattern]
+        p_x = rrx_compile(pattern, dev, backend="xla")
+        e2e = {
+            "default": time_ms(lambda: p_def.engine.match_stats(d, ln, seeded=True), warm=1, runs=5),
+            "packed": time_ms(lambda: p_pk.engine.match_stats(d, ln, seeded=True), warm=1, runs=5),
+            "xla": time_ms(lambda: p_x.engine.match_stats(d, ln, seeded=True), warm=1, runs=3),
+        }
+        if not all(torch.equal(a, b) for a, b in zip(p_x.engine.match_stats(d, ln, seeded=True),
+                                                     p_def.engine.match_stats(d, ln, seeded=True))):
+            fail(f"{pattern[:30]!r} xla match_stats != the default route")
+        print(f"phase 7: match_stats end to end, {pattern[:30]!r} 10 MB (ms): default route "
+              f"({type(p_def.engine.device_scanner).__name__}) {e2e['default']:.3f}, packed "
+              f"(mask stream + rrx_stream_stats) {e2e['packed']:.3f}, xla (torch ops) "
+              f"{e2e['xla']:.3f} [{card}]")
+    print(f"phase 7: C3 on the XLA backend, 1 MB (s): "
+          f"{ {p: {k: round(v, 3) for k, v in t.items()} for p, t in c3_times.items()} }; C2 "
+          f"Pattern.long count_ends over 64 KiB (s): "
+          f"{ {p: round(v, 2) for p, v in c2_times.items()} }; config 4 finditer_batch host rounds "
+          f"(rounds, s): {rounds4} [{card}]")
+
     ms, plain_ms, bnd = flags_ms["10 MB"]
     kernels.append({
         "name": "rrx_nfa_flags", "route": "cuda", "source": NFA_SOURCE,
@@ -4011,8 +4413,19 @@ def main() -> int:
                      + ("; off the main path (the summary and speculative modes take narrow "
                         "tiles only), held in phase 2" if name == "rrx_long_wide_carry" else ""),
         })
-    if len(kernels) != 43:
-        fail(f"the kernels line lists {len(kernels)} kernels, not 43")
+    for name in STREAM_KERNELS:
+        pat_k = CONFIG4 if name == "rrx_stream_first_end" else "cat|dog"
+        ms, plain_ms, bnd = stream_ms[name, pat_k, "10 MB"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": STREAM_SOURCE, "replaces": REPLACES[name],
+            "launches": stream_launches[name], "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "shape": (f"config 4 {CONFIG4} (W = 12), 10 MB, longest rescans from each record's "
+                      "first start" if pat_k == CONFIG4
+                      else "cat|dog (W = 1), 10 MB (config 1's corpus), every record"),
+        })
+    if len(kernels) != 47:
+        fail(f"the kernels line lists {len(kernels)} kernels, not 47")
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

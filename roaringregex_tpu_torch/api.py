@@ -21,21 +21,28 @@ decomposes, such as bench config 10, ``x(ab|c){400,520}y``: one reverse
 pass, then rounds of anchored rescans in each record's own warp, lazy or
 longest; a nullable bitband program takes the host rounds below).
 The counting and container tiers (the JAX ``SparseScanner``: keyword
-alternations past ~35 words, config 13's own tier) take the JAX package's
-other route: host rounds over ``starts_bitmap``, each round one batched
-anchored rescan (``ScanEngine.first_end_from``).
+alternations past ~35 words, config 13's own tier), and the packed and XLA
+backends, take the JAX package's other route: host rounds over
+``starts_bitmap``, each round one batched anchored rescan
+(``ScanEngine.first_end_from``: over the mask stream, on
+``rrx_stream_first_end``, for a dense or multiblock program such as config
+4's ``a{1,300}``).
 ``ends_batch`` and ``starts_batch`` return every match end and start
 position; ``dump`` returns a text dump of the automaton.
 
 ``MultiPattern(patterns, device)`` scans P patterns in one pass over their
 combined automaton (the Glushkov union): per-pattern counts, search hits
 and grep from one per-channel match-stats scan, and, on the u32-word and
-matmul tiers up to 256 states, every pattern's lazy spans from one channel
-reverse pass and one channel span pass (on a dense multiblock union, of
-257..1024 states, those two kernels are not ported yet and the lazy spans
-raise). A combined program on the bitband or container tier (keyword lists
-past ~35 words, sets past 256 states) takes its spans per pattern, as in
-the JAX package.
+matmul tiers (dense multiblock unions of 257..1024 states included),
+every pattern's lazy spans from one channel reverse pass and one channel
+span pass. A combined program on the bitband or container tier (keyword
+lists past ~35 words, sets past 256 states), or on the packed backend,
+takes its spans per pattern, and on the XLA backend every method runs per
+pattern, as in the JAX package.
+
+``compile``, ``Pattern`` and ``MultiPattern`` take ``backend`` (None reads
+``RRX_BACKEND``; unset, the kernel route on any device): "packed" or
+"xla" select the JAX package's plain backends (``ScanEngine``).
 
 One long string (``Pattern.long``, ``finditer_long``, ``rev_long``): the
 string is scanned in windows on the card (``ops/longstring.py``), for
@@ -106,11 +113,13 @@ def _pack_texts(texts: Sequence[TextLike], G: int):
 
 
 class Pattern:
-    """A compiled pattern bound to a scan engine on one device."""
+    """A compiled pattern bound to a scan engine on one device. ``backend``
+    (None: ``RRX_BACKEND``, else the kernel route) is the engine's:
+    "pallas", "packed" or "xla" (:class:`ScanEngine`)."""
 
-    def __init__(self, pattern: str, device):
+    def __init__(self, pattern: str, device, backend: Optional[str] = None):
         self.program: DeviceProgram = compile_program(pattern)
-        self.engine = ScanEngine(self.program, device)
+        self.engine = ScanEngine(self.program, device, backend=backend)
 
     @property
     def pattern(self) -> str:
@@ -166,10 +175,11 @@ class Pattern:
         """Non-overlapping spans for every record: lazy (leftmost-shortest,
         default) or greedy (``longest=True``, leftmost-longest, POSIX). On
         the device in O(1) dispatches where the scanner has anchored
-        kernels, else in host rounds over ``starts_bitmap``."""
+        kernels, else (the counting and container tiers, the packed and XLA
+        backends) in host rounds over ``starts_bitmap``."""
         data, lengths, B, maxlen = self._pack(texts)
         sc = self.engine.device_scanner
-        if not sc.has_anchor:
+        if sc is None or not sc.has_anchor:
             return self._finditer_rounds(data, lengths, B, maxlen, longest)
         eng = self.engine
         if self.program.nullable and not longest:
@@ -442,10 +452,12 @@ class Pattern:
         return spans
 
 
-def compile(pattern: str, device) -> Pattern:  # noqa: A001
+def compile(pattern: str, device, backend: Optional[str] = None) -> Pattern:  # noqa: A001
     """Compile a POSIX-ERE pattern for ``device`` ("cuda", "cuda:0" or
-    "cpu"; the CPU runs the kernels' plain PyTorch versions)."""
-    return Pattern(pattern, device)
+    "cpu"; the CPU runs the kernels' plain PyTorch versions) on
+    ``backend`` (None: ``RRX_BACKEND``, else the kernel route; "packed" or
+    "xla": the JAX package's plain backends)."""
+    return Pattern(pattern, device, backend=backend)
 
 
 class MultiPattern:
@@ -460,12 +472,17 @@ class MultiPattern:
     dense multiblock unions of up to 1024 states included) or, multiblock
     or sparse, on the bitband or container tier (lazy and greedy spans per
     pattern). Nullable patterns are scanned with the
-    kernels' nullability off and corrected on the host."""
+    kernels' nullability off and corrected on the host. On the packed
+    backend one pass over the mask stream counts every channel and spans
+    run per pattern; on the XLA backend (one accept channel), and for a
+    sparse program with no scanner, every method runs per pattern, as in
+    the JAX package (``api.py:618-623``)."""
 
-    def __init__(self, patterns: Sequence[str], device):
+    def __init__(self, patterns: Sequence[str], device, backend: Optional[str] = None):
         self.patterns = [str(p) for p in patterns]
         if not self.patterns:
             raise ValueError("no patterns")
+        self.backend = backend
         self.P = P = len(self.patterns)
         nfas = [build_nfa(p) for p in self.patterns]
         self.nullables = np.array([n.nullable for n in nfas])
@@ -499,9 +516,15 @@ class MultiPattern:
             [compile_program(n) for n in nfas]
             if P <= 4 and all(n.n_states <= 8 for n in nfas) else None
         )
-        self.engine = ScanEngine(prog, device, accept_map=A, channels_per_record=P,
-                                 nullable=False)
+        self.engine = ScanEngine(prog, device, backend=backend, accept_map=A,
+                                 channels_per_record=P, nullable=False)
         sc = self.engine.device_scanner
+        # the per-pattern fallback of the JAX package: the unpacked XLA
+        # backend has one accept channel, and so has a sparse program
+        # without a scanner
+        self._singles: Optional[List[Pattern]] = None
+        if sc is None and (not self.engine.packed or prog.tier == "sparse"):
+            self._singles = [Pattern(p, device, backend=backend) for p in self.patterns]
         # the u32-word and matmul tiers' channel spans; the bitband and
         # container tiers take spans per pattern (JAX api.py:700)
         self._combined_spans = hasattr(sc, "lazy_spans_mb")
@@ -536,10 +559,14 @@ class MultiPattern:
 
     def count_batch(self, texts: Sequence[TextLike]) -> np.ndarray:
         """[B, P] distinct match-end counts per record per pattern."""
+        if self._singles is not None:
+            return np.stack([p.count_batch(texts) for p in self._singles], axis=1)
         return self._counts(*self._pack(texts))
 
     def search_batch(self, texts: Sequence[TextLike]) -> np.ndarray:
         """[B, P] bool: record contains a match of pattern p."""
+        if self._singles is not None:
+            return np.stack([p.search_batch(texts) for p in self._singles], axis=1)
         return self.count_batch(texts) > 0
 
     def grep(self, texts: Sequence[TextLike]) -> np.ndarray:
@@ -559,7 +586,8 @@ class MultiPattern:
         ``Pattern``, as in the JAX package."""
         if longest or not self._combined_spans:
             if self._spanners is None:
-                self._spanners = [Pattern(p, self.engine.device) for p in self.patterns]
+                self._spanners = self._singles or [
+                    Pattern(p, self.engine.device, backend=self.backend) for p in self.patterns]
             return [p.finditer_batch(texts, longest=longest) for p in self._spanners]
         sc = self.engine.device_scanner
         data, lengths, B = self._pack(texts)

@@ -1,5 +1,6 @@
-// The matmul tier's set-form step, shared by scan_nfa.cu (records) and
-// scan_long.cu (windows of one long string): one record tile of s_tile <=
+// The matmul tier's set-form step, shared by scan_nfa.cu (records),
+// scan_long.cu (windows of one long string) and scan_stream.cu (records fed
+// a mask stream, the mask row in registers): one record tile of s_tile <=
 // 256 states as W = ceil(s_tile/32) u32 words per row, the rows in shared
 // memory and the state set in W registers.
 //
@@ -35,21 +36,39 @@ struct Nfa {
   const uint32_t* mask;    // shared [kSyms][W]
   uint32_t acc[W];
 
-  // v = (OR of follow[s] over s in v | gate ? follow[0] : 0) & mask[sym]
-  __device__ __forceinline__ void fwd(uint32_t (&v)[W], bool gate, int sym) const {
-    uint32_t y[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) y[k] = gate ? follow[k] : 0u;
+  // y |= OR of rows[s] over the states s of x (rows: follow or pred)
+  __device__ __forceinline__ static void or_rows(uint32_t (&y)[W], const uint32_t (&x)[W],
+                                                 const uint32_t* rows) {
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      uint32_t b = v[w];
+      uint32_t b = x[w];
       while (b != 0u) {
-        const uint32_t* f = follow + (32 * w + __ffs(b) - 1) * W;
+        const uint32_t* f = rows + (32 * w + __ffs(b) - 1) * W;
         b &= b - 1u;
 #pragma unroll
         for (int k = 0; k < W; ++k) y[k] |= f[k];
       }
     }
+  }
+
+  // v = (OR of follow[s] over s in v | gate ? follow[0] : 0) & m, the mask
+  // row m in registers (the stream-fed kernels read it from the stream)
+  __device__ __forceinline__ void fwd_row(uint32_t (&v)[W], bool gate,
+                                          const uint32_t (&m)[W]) const {
+    uint32_t y[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) y[k] = gate ? follow[k] : 0u;
+    or_rows(y, v, follow);
+#pragma unroll
+    for (int k = 0; k < W; ++k) v[k] = y[k] & m[k];
+  }
+
+  // v = (OR of follow[s] over s in v | gate ? follow[0] : 0) & mask[sym]
+  __device__ __forceinline__ void fwd(uint32_t (&v)[W], bool gate, int sym) const {
+    uint32_t y[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) y[k] = gate ? follow[k] : 0u;
+    or_rows(y, v, follow);
     const uint32_t* m = mask + sym * W;
 #pragma unroll
     for (int k = 0; k < W; ++k) v[k] = y[k] & m[k];
@@ -61,19 +80,21 @@ struct Nfa {
     uint32_t y[W];
 #pragma unroll
     for (int k = 0; k < W; ++k) y[k] = seed[k];
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      uint32_t b = v[w];
-      while (b != 0u) {
-        const uint32_t* f = follow + (32 * w + __ffs(b) - 1) * W;
-        b &= b - 1u;
-#pragma unroll
-        for (int k = 0; k < W; ++k) y[k] |= f[k];
-      }
-    }
+    or_rows(y, v, follow);
     const uint32_t* m = mask + sym * W;
 #pragma unroll
     for (int k = 0; k < W; ++k) v[k] = y[k] & m[k];
+  }
+
+  // r = OR of pred[u] over u in (r | acc) & m, the mask row m in registers
+  __device__ __forceinline__ void rev_row(uint32_t (&r)[W], const uint32_t (&m)[W]) const {
+    uint32_t x[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      x[k] = (r[k] | acc[k]) & m[k];
+      r[k] = 0u;
+    }
+    or_rows(r, x, pred);
   }
 
   // r = OR of pred[u] over u in (r | acc) & mask[sym]
@@ -85,16 +106,7 @@ struct Nfa {
       x[k] = (r[k] | acc[k]) & m[k];
       r[k] = 0u;
     }
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      uint32_t b = x[w];
-      while (b != 0u) {
-        const uint32_t* p = pred + (32 * w + __ffs(b) - 1) * W;
-        b &= b - 1u;
-#pragma unroll
-        for (int k = 0; k < W; ++k) r[k] |= p[k];
-      }
-    }
+    or_rows(r, x, pred);
   }
 
   __device__ __forceinline__ bool accepts(const uint32_t (&v)[W]) const {

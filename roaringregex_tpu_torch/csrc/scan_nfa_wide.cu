@@ -113,24 +113,10 @@ __device__ __forceinline__ Stream stream_of(const uint8_t* data, long long strid
   return Stream{rec.row, rec.len, -1, make_uint4(0, 0, 0, 0)};
 }
 
-// The next unclaimed record index, the same on every lane of the warp.
-__device__ __forceinline__ int next_record(int32_t* next, int lane) {
-  int r = 0;
-  if (lane == 0) r = atomicAdd(next, 1) + static_cast<int>(gridDim.x) * kWideWarps;
-  return __shfl_sync(kFull, r, 0);
-}
-
 #define WIDE_PARAMS                                                                       \
   const uint8_t *__restrict__ data, long long stride, int L,                              \
       const int32_t *__restrict__ lengths, int R, const uint32_t *__restrict__ tab_g,     \
       int S, int W
-// The records of one warp: each warp starts at its own index, then takes the
-// next unclaimed record from the launch's counter.
-#define WIDE_RECORDS                                                                      \
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;                            \
-  for (int r = static_cast<int>(blockIdx.x) * kWideWarps + warp; r < R;                   \
-       r = next_record(next, lane))
-
 // Writes -1 into span slots from .. cap-1 of one record's rows, the warp's
 // lanes in parallel.
 __device__ __forceinline__ void fill_tail_warp(int32_t* s, int32_t* e, int from, int cap,

@@ -1,7 +1,8 @@
 // The warp step of the matmul tier at record tiles of 257..1024 states
 // (W = ceil(s_tile/32) = 12..32 state words), shared by scan_nfa_wide.cu
-// (one warp per record) and scan_long_wide.cu (one warp per window of one
-// long string): lane l holds state word l, lanes >= W hold zero and join
+// (one warp per record), scan_long_wide.cu (one warp per window of one
+// long string) and scan_stream.cu (one warp per record fed a mask stream,
+// each lane its word of the step's mask row): lane l holds state word l, lanes >= W hold zero and join
 // every vote; the live states are walked warp-uniformly (a ballot of the
 // live words, a __shfl_sync of each, one shared-row load and OR per live
 // state), then the mask AND; the accept test is one __any_sync. Shared
@@ -64,15 +65,25 @@ struct Wide {
     return on ? y : 0u;
   }
 
+  // v = (OR of follow[s] over s in v | gate ? follow[0] : 0) & m, m this
+  // lane's word of the step's mask row
+  __device__ __forceinline__ uint32_t fwd_word(uint32_t v, bool gate, uint32_t m) const {
+    return (expand(v) | (gate ? seed_l : 0u)) & m;
+  }
+
   // v = (OR of follow[s] over s in v | gate ? follow[0] : 0) & mask[sym]
   __device__ __forceinline__ uint32_t fwd(uint32_t v, bool gate, int sym) const {
-    const uint32_t y = expand(v) | (gate ? seed_l : 0u);
-    return y & mask[sym * W + col];
+    return fwd_word(v, gate, mask[sym * W + col]);
+  }
+
+  // R = OR of pred[u] over u in (R | acc) & m, m this lane's mask word
+  __device__ __forceinline__ uint32_t rev_word(uint32_t r, uint32_t m) const {
+    return expand((r | acc_l) & m);
   }
 
   // R = OR of pred[u] over u in (R | acc) & mask[sym]
   __device__ __forceinline__ uint32_t rev(uint32_t r, int sym) const {
-    return expand((r | acc_l) & mask[sym * W + col]);
+    return rev_word(r, mask[sym * W + col]);
   }
 
   __device__ __forceinline__ bool accepts(uint32_t v) const {
@@ -119,6 +130,20 @@ __device__ __forceinline__ Wide load_wide(uint32_t* smem, const uint32_t* __rest
 }
 
 inline int words_of(int s_tile) { return (s_tile + 31) / 32; }
+
+// The next unclaimed record index, the same on every lane of the warp.
+__device__ __forceinline__ int next_record(int32_t* next, int lane) {
+  int r = 0;
+  if (lane == 0) r = atomicAdd(next, 1) + static_cast<int>(gridDim.x) * kWideWarps;
+  return __shfl_sync(kFull, r, 0);
+}
+
+// The records of one warp: each warp starts at its own index, then takes the
+// next unclaimed record from the launch's counter.
+#define WIDE_RECORDS                                                                      \
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;                            \
+  for (int r = static_cast<int>(blockIdx.x) * kWideWarps + warp; r < R;                   \
+       r = next_record(next, lane))
 
 // No more blocks than fit on the card at once: each block then walks its
 // share of the records (WIDE_RECORDS) and copies its rows once.

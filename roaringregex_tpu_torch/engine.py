@@ -30,12 +30,34 @@ per statistic, and every primitive that reads one accept set raises.
 A whole-pattern ``X{m,n}`` on the multiblock or sparse tier with no
 counting plan may have a seeded alias (:func:`seeded_alias_program`,
 ``RRX_ALIAS``): its seeded primitives (match stats, forward flags, reverse
-hits, the lazy anchored rescan, both bitmaps) run on the alias's engine,
-as in the JAX package, and its own scanner takes the rest. A program over
-the container kernels' caps (``SPARSE_PARTIAL_MAX`` partial blocks,
-``SPARSE_LANES_MAX`` lanes), which the JAX engine sends to its XLA
-backend, is refused at construction with ``NotImplementedError``;
-ROADMAP.md queues that backend.
+hits, the lazy anchored rescan, both bitmaps) run on the alias's engine
+(on the backend the caller asked for), as in the JAX package, and its own
+route takes the rest.
+
+Backends (``backend``, else ``RRX_BACKEND``; the JAX engine's names):
+
+* ``"pallas"`` (None): the routing above, every tier on its kernels (the
+  CUDA kernels on a CUDA device, their plain versions on the CPU). A
+  scanner without anchored kernels (counting, container) answers the
+  anchored rescans of a dense or multiblock program with
+  ``scan_packed.first_end_from`` (``rrx_stream_first_end`` on the card)
+  and of a sparse one with ``scan_xla.first_end_from``
+  (``engine.py:825-842``). A container program over the container
+  kernels' caps (``SPARSE_PARTIAL_MAX`` partial blocks,
+  ``SPARSE_LANES_MAX`` lanes) logs the JAX engine's warning and takes the
+  ``"xla"`` backend, as there.
+* ``"packed"``: every primitive over the mask stream
+  (``ops/scan_packed.py``: ``rrx_stream_stats``, ``_flags``, ``_reverse``,
+  ``_first_end`` on the card), accept channels included; a sparse
+  program takes ``"xla"`` instead, as in the JAX engine.
+* ``"xla"``: every primitive in torch ops over the unpacked tables
+  (``ops/scan_xla.py``); one accept channel only (``MultiPattern`` scans
+  its patterns one by one there).
+
+Off the kernel route ``device_scanner`` is None, the bitmaps and fullmatch
+come from unpacked flags and hits, and the API takes its spans in host
+rounds. The port never picks a backend by platform: None is the kernel
+route on the CPU too.
 
 A sparse program on its own scanner may have a prefilter
 (:func:`relaxed_prefilter_program`): a tiny superset-language program
@@ -49,12 +71,15 @@ The device is always the caller's choice: nothing here picks one.
 """
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .compiler.program import DeviceProgram
 from .ops import scan_bits as sb
+from .ops import scan_packed as sp
 from .ops import scan_xla as sx
 
 DENSE_TIERS = ("dense128", "dense256")
@@ -165,15 +190,20 @@ def relaxed_prefilter_program(prog: DeviceProgram):
         return None
 
 
+BACKENDS = ("pallas", "packed", "xla")
+
+
 class ScanEngine:
     """Per-program engine: holds the device tables and exposes the scan
-    primitives. ``accept_map`` ([lanes, C] 0/1, C = G *
+    primitives. ``backend`` ("pallas" or None: the kernel route, "packed"
+    or "xla"; None reads ``RRX_BACKEND``) picks the route, as in the JAX
+    engine. ``accept_map`` ([lanes, C] 0/1, C = G *
     ``channels_per_record``) widens the accept reduction to per-channel
     statistics (one combined automaton, one scan); ``nullable`` overrides
     the kernels' nullability (multi-pattern scans turn it off and correct
     nullable channels on the host)."""
 
-    def __init__(self, prog: DeviceProgram, device, *, accept_map=None,
+    def __init__(self, prog: DeviceProgram, device, *, backend=None, accept_map=None,
                  channels_per_record: int = 1, nullable=None):
         from .ops.scan_pallas import CountScanner, PallasScanner, counting_plan
         from .ops.scan_swar import SwarScanner, swar_spec
@@ -186,7 +216,21 @@ class ScanEngine:
         self._channels = accept_map is not None
         self._scanner = None
         self._xla_tables = None
+        self._ptables = None
+        self._counting = None
         cfg = get_config()
+        self.backend_requested = backend  # None: the configured route (the alias keeps it)
+        self.backend = backend or cfg.backend or "pallas"
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS} or None, got {self.backend!r}")
+        if self.backend == "packed" and prog.tier == "sparse":
+            self.backend = "xla"  # the packed engine covers the dense and multiblock tiers
+        self._nullable = prog.nullable if nullable is None else bool(nullable)
+        if self.backend == "packed":
+            self._ptables = sp.packed_tables(prog, self.device, accept_map, self.P)
+            return
+        if self.backend == "xla":
+            return
         plan = (counting_plan(prog)
                 if accept_map is None and self.P == 1 and prog.G <= 1 else None)
         self._counting = plan
@@ -215,7 +259,8 @@ class ScanEngine:
         matmul (``PallasScanner``; a dense multiblock program matches no
         ``swar_spec`` or ``word_spec``). A container program over
         ``SPARSE_PARTIAL_MAX`` partial blocks or ``SPARSE_LANES_MAX`` lanes
-        raises: the JAX engine runs it on its XLA backend."""
+        logs the JAX engine's warning and goes to the XLA backend (None:
+        no scanner)."""
         from .ops.scan_bitband import SPARSE_LANES_MAX, BitbandScanner, bitband_spec
         from .ops.scan_pallas import PallasScanner
         from .ops.scan_sparse import SparseScanner
@@ -229,10 +274,12 @@ class ScanEngine:
                                   nullable=nullable)
         npart = len(prog.sparse_partition[0])
         if npart > SPARSE_PARTIAL_MAX or prog.s_pad > SPARSE_LANES_MAX:
-            raise NotImplementedError(self._unported(
-                f"{npart} partial blocks and {prog.s_pad} lanes, over the container kernels' "
-                f"caps ({SPARSE_PARTIAL_MAX} partial blocks, {SPARSE_LANES_MAX} lanes), so the "
-                "JAX package runs it on its XLA backend"))
+            logging.getLogger(__name__).warning(
+                "rrx: sparse automaton (%d partial blocks, %d lanes) exceeds the pallas VMEM "
+                "caps (sparse_partial_max=%d, sparse_lanes_max=%d); falling back to the XLA "
+                "backend", npart, prog.s_pad, SPARSE_PARTIAL_MAX, SPARSE_LANES_MAX)
+            self.backend = "xla"  # the container kernels' tables would not fit
+            return None
         return SparseScanner(prog, self.device, accept_map=accept_map, nullable=nullable)
 
     @staticmethod
@@ -256,15 +303,6 @@ class ScanEngine:
         sparse_macs = npart * 128 * 128 + int(U.sum()) * 128
         return sparse_macs < 0.7 * prog.lanes * prog.lanes
 
-    def _unported(self, why: str) -> str:
-        p = self.prog
-        return (
-            f"{p.pattern!r}: tier {p.tier}, {p.n_states} states ({why}); the port has the "
-            "SWAR, u32-word and matmul tiers for dense programs of up to 1024 states, the "
-            "counting, bitband and container tiers and the seeded alias; the XLA backend is "
-            "still to be ported (see ROADMAP.md)"
-        )
-
     def _one_channel(self, what: str) -> None:
         """Raise for a primitive that reads one accept set on an engine with
         accept channels: it must not answer from their union."""
@@ -278,8 +316,17 @@ class ScanEngine:
     @property
     def device_scanner(self):
         """The selected kernel scanner (SwarScanner, WordScanner,
-        PallasScanner, CountScanner, BitbandScanner or SparseScanner)."""
+        PallasScanner, CountScanner, BitbandScanner or SparseScanner), or
+        None off the kernel route (the packed and XLA backends)."""
         return self._scanner
+
+    @property
+    def packed(self) -> bool:
+        """True when the engine's primitives or anchored rescans run over
+        the mask stream (``scan_packed``): the packed backend, and the
+        kernel route of a dense or multiblock program."""
+        return self.backend == "packed" or (self.backend == "pallas"
+                                            and self.prog.tier != "sparse")
 
     # -- seeded alias: X{m,n} == X{m,} under seeded semantics --------------
     def _seeded_alias(self):
@@ -288,7 +335,8 @@ class ScanEngine:
         if not getattr(self, "_alias_built", False):
             self._alias_built = True
             aprog = seeded_alias_program(self.prog) if self.P == 1 else None
-            self._alias = None if aprog is None else ScanEngine(aprog, self.device)
+            self._alias = None if aprog is None else ScanEngine(
+                aprog, self.device, backend=self.backend_requested)
         return self._alias
 
     @staticmethod
@@ -319,6 +367,27 @@ class ScanEngine:
     def _data(self, data) -> torch.Tensor:
         return torch.as_tensor(data, dtype=torch.uint8, device=self.device)
 
+    def _lengths(self, lengths) -> torch.Tensor:
+        return torch.as_tensor(lengths, device=self.device).reshape(-1)
+
+    def _words(self, data, lengths) -> torch.Tensor:
+        """The [L + 2, B, Wt] mask stream of a batch (the packed primitives'
+        input); the kernel route builds the mask stream's tables at its
+        first anchored rescan."""
+        if self._ptables is None:
+            self._ptables = sp.packed_tables(self.prog, self.device)
+        return sp.mask_stream_from_bytes(self._ptables, self._data(data), self._lengths(lengths))
+
+    def _classes(self, data, lengths):
+        """(the unpacked tables, the [B, L + 2] class stream of a batch):
+        the XLA backend's input."""
+        if self._xla_tables is None:
+            self._xla_tables = sx.device_tables(self.prog, self.device)
+        p = self.prog
+        cls = sx.encode_stream(self._xla_tables, self._data(data), self._lengths(lengths),
+                               p.bos_class, p.eos_class)
+        return self._xla_tables, cls
+
     # -- match statistics ------------------------------------------------------
     def match_stats(self, data, lengths, *, seeded: bool):
         """(count, first_end, any) per accept channel, each flattened to
@@ -331,6 +400,8 @@ class ScanEngine:
             return self._alias_call(alias, "match_stats", data, lengths, seeded=True)
         if seeded and self._use_prefilter(data):
             def raw(d, ln, live):
+                if self._scanner is None:
+                    return self._match_stats_raw(d, ln, seeded=True)
                 cnt, first, _, _, anym = self._scanner.match_stats_b(
                     d, self._len_g(ln), seeded=True, live=live)
                 return cnt.reshape(-1), first.reshape(-1), anym.reshape(-1)
@@ -340,6 +411,18 @@ class ScanEngine:
 
     def _match_stats_raw(self, data, lengths, *, seeded: bool):
         sc = self._scanner
+        if self.backend == "packed":
+            cnt, first, anym = sp.match_stats(self._ptables["nfa"], self._words(data, lengths),
+                                              self._lengths(lengths), seeded=seeded,
+                                              nullable=self._nullable)
+            return cnt.reshape(-1), first.reshape(-1), anym.reshape(-1)
+        if self.backend == "xla":
+            if self._channels:
+                raise ValueError(f"{self.prog.pattern[:60]!r}: the XLA backend scans one accept "
+                                 "set (MultiPattern scans its patterns one by one there)")
+            tables, cls = self._classes(data, lengths)
+            return sx.match_stats(tables, cls, self._lengths(lengths), seeded=seeded,
+                                  nullable=self.prog.nullable)
         data = self._data(data)
         plan = self._window_plan(data.shape[1], data.shape[0], seeded)
         if plan is not None:
@@ -361,7 +444,8 @@ class ScanEngine:
                     and seeded_alias_program(self.prog) is None):
                 rp = relaxed_prefilter_program(self.prog)
                 if rp is not None:
-                    self._prefilter_eng = ScanEngine(rp, self.device)
+                    self._prefilter_eng = ScanEngine(rp, self.device,
+                                                     backend=self.backend_requested)
         return self._prefilter_eng
 
     def _use_prefilter(self, data) -> bool:
@@ -373,8 +457,13 @@ class ScanEngine:
         axis 0 with its ``fills`` value (the exact result for a record the
         superset scan rejects: it has no match). ``extra`` = ((per-record
         array, fill of an empty slot), ...) forwarded to ``raw_fn``.
+        Off the kernel route (no scanner: the XLA backend's match stats)
+        the bucket is chosen on the host, one read of the candidate count,
+        as the JAX engine's ``lax.cond`` chooses it, and ``raw_fn`` runs
+        once, on the bucket or on the whole batch (``live`` None).
 
-        Decided on the device with no host sync. The candidates (a cumsum
+        On the kernel route it is decided on the device with no host sync.
+        The candidates (a cumsum
         of the prefilter's hit flags) are scattered into a bucket of the
         JAX engine's larger size, B / 4 rounded up to 128 rows (at least
         128); ``raw_fn`` runs on it with ``live`` = min(candidates, bucket)
@@ -409,8 +498,11 @@ class ScanEngine:
         d2 = data.index_select(0, src)
         l2 = torch.where(valid, lengths.index_select(0, src), 0)
         ex2 = tuple(torch.where(valid, a.index_select(0, src), f) for a, (_, f) in zip(ex, extra))
-        outs_c = raw_fn(d2, l2, *ex2, live_c)
-        outs_f = raw_fn(data, lengths, *ex, live_f)
+        host = self._scanner is None
+        if host and bool(over):
+            return raw_fn(data, lengths, *ex, None)
+        outs_c = raw_fn(d2, l2, *ex2, None if host else live_c)
+        outs_f = outs_c if host else raw_fn(data, lengths, *ex, live_f)
         single = not isinstance(outs_c, tuple)
         if single:
             outs_c, outs_f = (outs_c,), (outs_f,)
@@ -419,7 +511,7 @@ class ScanEngine:
         for oc, of, f in zip(outs_c, outs_f, fills, strict=True):
             base = torch.full((B + 1,) + tuple(oc.shape[1:]), f, dtype=oc.dtype, device=dev)
             base.index_copy_(0, dst, oc)
-            res.append(torch.where(over, of, base[:B]))
+            res.append(base[:B] if host else torch.where(over, of, base[:B]))
         return res[0] if single else tuple(res)
 
     def _window_plan(self, L: int, B: int, seeded: bool):
@@ -489,6 +581,12 @@ class ScanEngine:
         alias = self._seeded_alias()
         if seeded and alias is not None:
             return self._alias_call(alias, "forward_flags", data, lengths, seeded=True)
+        if self.backend == "packed":
+            return sp.forward_flags(self._ptables["nfa"], self._words(data, lengths),
+                                    seeded=seeded)
+        if self.backend == "xla":
+            tables, cls = self._classes(data, lengths)
+            return sx.forward_flags(tables, cls, seeded=seeded)
         sc = self._scanner
         if self._use_prefilter(data):
             # a record the superset scan rejects has no accept anywhere
@@ -505,6 +603,10 @@ class ScanEngine:
         alias = self._seeded_alias()
         if alias is not None:
             return self._alias_call(alias, "reverse_hits", data, lengths)
+        if self.backend == "packed":
+            return sp.reverse_hits(self._ptables["nfa"], self._words(data, lengths))
+        if self.backend == "xla":
+            return sx.reverse_hits(*self._classes(data, lengths))
         sc = self._scanner
         if self._use_prefilter(data):
             return self._prefilter_apply(
@@ -517,17 +619,19 @@ class ScanEngine:
         policy) or, with ``longest=True``, largest end (greedy leftmost-
         longest, the POSIX policy). The lazy end of X{m,n} and of its
         seeded alias X{m,} is the same m-copy chain; the greedy end
-        observes n and stays on the original. A scanner without anchored
-        kernels (the counting and container tiers) answers with
-        ``scan_xla.first_end_from`` (the JAX engine's ``scan_packed`` on a
-        multiblock program computes the same function)."""
+        observes n and stays on the original. Without anchored kernels
+        (the counting and container tiers, and the packed and XLA
+        backends) the rescan runs over the mask stream
+        (``scan_packed.first_end_from``) for a dense or multiblock program
+        off the XLA backend, else over the unpacked tables
+        (``scan_xla.first_end_from``), as in the JAX engine."""
         self._one_channel("first_end_from")
         alias = self._seeded_alias()
         if not longest and alias is not None:
             return self._alias_call(alias, "first_end_from", data, lengths, starts,
                                     longest=False)
         sc = self._scanner
-        if sc.has_anchor:
+        if sc is not None and sc.has_anchor:
             def raw(d, ln, st, live=None):
                 st = st.reshape(-1, self.prog.G)
                 kw = {} if live is None else {"live": live}
@@ -537,21 +641,21 @@ class ScanEngine:
                 return self._prefilter_apply(data, lengths, raw, fills=(-1,),
                                              extra=((starts, -1),))
             return raw(self._data(data), lengths, torch.as_tensor(starts, device=self.device))
-        data = self._data(data)
-        p = self.prog
-        if self._xla_tables is None:
-            self._xla_tables = sx.device_tables(p, self.device)
-        lengths = torch.as_tensor(lengths, device=self.device)
-        cls = sx.encode_stream(self._xla_tables, data, lengths, p.bos_class, p.eos_class)
-        starts = torch.as_tensor(starts, device=self.device)
-        return sx.first_end_from(self._xla_tables, cls, lengths, starts, longest=longest)
+        starts = torch.as_tensor(starts, device=self.device).reshape(-1)
+        if self.backend != "xla" and self.prog.tier != "sparse":
+            words = self._words(data, lengths)
+            return sp.first_end_from(self._ptables["nfa"], words, self._lengths(lengths), starts,
+                                     longest=longest)
+        tables, cls = self._classes(data, lengths)
+        return sx.first_end_from(tables, cls, self._lengths(lengths), starts, longest=longest)
 
     # -- spans ------------------------------------------------------------------
     def _span_scanner(self):
         sc = self._scanner
-        if not sc.has_anchor:
+        if sc is None or not sc.has_anchor:
+            what = f"the {self.backend} backend" if sc is None else type(sc).__name__
             raise NotImplementedError(
-                f"{self.prog.pattern!r}: {type(sc).__name__} has no span kernels; "
+                f"{self.prog.pattern!r}: {what} has no span kernels; "
                 "Pattern.finditer_batch takes host rounds over starts_bitmap for it"
             )
         return sc
@@ -624,12 +728,18 @@ class ScanEngine:
         return raw(self._data(data), lengths)
 
     def ends_bitmap(self, data, lengths, max_len: int) -> np.ndarray:
-        """[B, max_len + 1] bool host bitmap: some match ends at position e."""
+        """[B, max_len + 1] bool host bitmap: some match ends at position e.
+        Off the kernel route: from the seeded forward flags
+        (``scan_xla.ends_bitmap``)."""
         self._one_channel("ends_bitmap")
         alias = self._seeded_alias()
         if alias is not None:
             return self._alias_call(alias, "ends_bitmap", data, lengths, max_len=max_len)
         lengths = torch.as_tensor(lengths, device=self.device)
+        if self._scanner is None:
+            flags = self.forward_flags(data, lengths, seeded=True)
+            return sx.ends_bitmap(flags, lengths, max_len, self.prog.nullable,
+                                  seeded=True).cpu().numpy()
         sc = self._scanner
         w = self._words_prefiltered(data, lengths,
                                     lambda d, lg, **kw: sc.flags_words_b(d, lg, seeded=True, **kw))
@@ -637,12 +747,17 @@ class ScanEngine:
         return self._fetch_words_bitmap(words, max_len)
 
     def starts_bitmap(self, data, lengths, max_len: int) -> np.ndarray:
-        """[B, max_len + 1] bool host bitmap: some match starts at position s."""
+        """[B, max_len + 1] bool host bitmap: some match starts at position s.
+        Off the kernel route: from the reverse hits
+        (``scan_xla.starts_bitmap``)."""
         self._one_channel("starts_bitmap")
         alias = self._seeded_alias()
         if alias is not None:
             return self._alias_call(alias, "starts_bitmap", data, lengths, max_len=max_len)
         lengths = torch.as_tensor(lengths, device=self.device)
+        if self._scanner is None:
+            hits = self.reverse_hits(data, lengths)
+            return sx.starts_bitmap(hits, lengths, max_len, self.prog.nullable).cpu().numpy()
         w = self._words_prefiltered(data, lengths, self._scanner.hits_words_b)
         # start s = max(t - 1, 0): funnel-shift the stream down one bit
         # (steps 0 and 1 both land on s = 0)
@@ -654,9 +769,17 @@ class ScanEngine:
 
     def fullmatch_flags(self, data, lengths) -> np.ndarray:
         """[B] bool whole-string acceptance: the ``full`` statistic of an
-        unseeded scan."""
+        unseeded scan; off the kernel route, an unseeded flag at an end e =
+        len whose step has consumed the whole record."""
         self._one_channel("fullmatch_flags")
         sc = self._scanner
+        if sc is None:
+            flags = self.forward_flags(data, lengths, seeded=False)
+            t = torch.arange(flags.shape[1], device=self.device)[None, :]
+            n = self._lengths(lengths).to(torch.int64)[:, None]
+            e = (t - 1).clamp(min=0).minimum(n)
+            covers = ((t - 1).clamp(min=0) >= n) | (n == 0)
+            return (flags & (e == n) & covers).any(dim=1).cpu().numpy()
 
         def raw(d, ln, live=None):
             kw = {} if live is None else {"live": live}

@@ -60,6 +60,7 @@ _SP_HEAD = [
     _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
     _P, _I, _P, _I, _I, _I, _P, _P,  # tab, n_tab, meta, n_meta, W, global_tab, live, next
 ]
+_STREAM_HEAD = [_P, _I, _I, _P, _I]  # words [T][R][W], T, R, tab, s_tile
 _STATS_TAIL = [_I, _I, _I, _P, _P, _P, _P]  # seeded, lead, nullable, cnt, first, last, full
 # every entry point: its head, its own arguments, then the stream. The
 # order of the first fifteen and of the four long-string kernels (17-20) is
@@ -126,6 +127,15 @@ ARGTYPES = {
     "rrx_long_wide_flags": _LONG_HEAD + [_P, _P, _I, _P, _P],  # flags
     "rrx_long_wide_count": _LONG_HEAD + [_P, _P, _I, _P, _P, _P, _P],  # cnt, tail, vout
     "rrx_long_wide_reverse": _LONG_HEAD + [_P, _P],  # hits
+    # the stream-fed kernels (scan_stream.cu): the mask stream's head, each
+    # kernel's arguments, then the record counter of the warp form (next);
+    # rrx_stream_occupancy's index is this order
+    # lengths, P, seeded, nullable, cnt, first, last, next
+    "rrx_stream_stats": _STREAM_HEAD + [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "rrx_stream_flags": _STREAM_HEAD + [_I, _P, _P, _P],  # seeded, flags, next
+    "rrx_stream_reverse": _STREAM_HEAD + [_P, _P, _P],  # hits, next
+    # lengths, starts, longest, end, next
+    "rrx_stream_first_end": _STREAM_HEAD + [_P, _P, _I, _P, _P, _P],
 }
 KERNELS = tuple(ARGTYPES)
 
@@ -236,6 +246,8 @@ def library() -> ctypes.CDLL:
     lib.rrx_nfa_wide_occupancy.restype = _I
     lib.rrx_long_wide_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.rrx_long_wide_occupancy.restype = _I
+    lib.rrx_stream_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rrx_stream_occupancy.restype = _I
     lib.rrx_nfa_wide_threads_per_block.argtypes = []
     lib.rrx_nfa_wide_threads_per_block.restype = _I
     lib.rrx_threads_per_block.argtypes = []

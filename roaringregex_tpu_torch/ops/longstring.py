@@ -33,7 +33,8 @@ on the counting tier's kernels; ``DotStarLongScanner`` runs ``.*X.*``
 (config 12) as a scan of X plus a running OR; ``AliasLongScanner`` runs a
 big ``X{m,n}`` through its ``X{m,}`` seeded alias; ``LongScanner`` is the
 summary + replay scheme in torch ops (wide tiles without a horizon, the
-unseeded scans of wide tiles, and the fallback of the rewrites).
+unseeded scans of wide tiles, the sparse tier's programs that no rewrite
+takes, such as config 10's, and the fallback of the rewrites).
 :func:`make_long_scanner` picks one per program.
 
 Window geometry is the port's own: one CUDA thread per window (one warp
@@ -55,6 +56,7 @@ import torch
 
 from ..compiler.program import DeviceProgram
 from . import scan_pallas as spl
+from . import scan_xla as sx
 
 MAX_LEN = (1 << 31) - 1
 # windows per pass that fill the card: 132 SMs x 2,048 resident threads
@@ -164,20 +166,12 @@ def compact_tables(prog: DeviceProgram, device) -> dict:
     own S states (not the padded tile: pass 1 steps S + 1 pseudo-records
     per block, so padding would cost in rows and width alike): F [S, S]
     float32 0/1, Bc [c_pad, S] bool, accept [S] bool and the byte -> class
-    map. Dense tiers only: a program without F raises naming its tier."""
-    if prog.F is None:
-        raise ValueError(
-            f"{prog.pattern!r}: tier {prog.tier} has no dense follow matrix; its long-string "
-            "scans need the sparse tier, which is not ported yet (ROADMAP.md)"
-        )
-    S = prog.n_states
-    dev = torch.device(device)
-    return {
-        "F": torch.from_numpy(np.asarray(prog.F[:S, :S], np.float32)).to(dev),
-        "Bc": torch.from_numpy(np.asarray(prog.Bc[:, :S]) != 0).to(dev),
-        "accept": torch.from_numpy(np.asarray(prog.accept[:S]) != 0).to(dev),
-        "byte_class": torch.from_numpy(np.asarray(prog.byte_class)).to(dev, torch.int64),
-    }
+    map. They are the XLA backend's tables (``scan_xla.device_tables``),
+    whose F comes from the NFA's follow relation on every tier, so a
+    sparse-tier program (no dense ``prog.F``: config 10's
+    ``x(ab|c){400,520}y``, ``x(abc|de){1,300}y``) takes them as the JAX
+    package's ``LongScanner`` takes ``scan_xla.device_tables``."""
+    return sx.device_tables(prog, device)
 
 
 def _step(tables: dict, v: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
@@ -232,7 +226,12 @@ def scan_long(tables: dict, data: torch.Tensor, *, block: int, seeded: bool,
                      torch.tensor([eos_class], device=dev)])
     nb = -(-(n + 2) // block)
     cls_b = torch.nn.functional.pad(cls, (0, nb * block - n - 2)).reshape(nb, block)
-    Ms, ss = block_summaries(tables, cls_b, seeded=seeded)
+    # the last block's summary feeds no entry: blocks 0 .. nb - 2 only (a
+    # zero summary stands in for the last one, whose prefix is dropped)
+    S = tables["F"].shape[0]
+    Ms, ss = block_summaries(tables, cls_b[:-1], seeded=seeded)
+    Ms = torch.cat([Ms, torch.zeros((1, S, S), dtype=torch.bool, device=dev)])
+    ss = torch.cat([ss, torch.zeros((1, S), dtype=torch.bool, device=dev)])
     ventry = prefix_entries(Ms, ss)
     return block_replay(tables, cls_b, ventry, seeded=seeded).reshape(-1)[: n + 2]
 
@@ -240,11 +239,13 @@ def scan_long(tables: dict, data: torch.Tensor, *, block: int, seeded: bool,
 class LongScanner:
     """Summary + replay of one long string in torch ops on the device: the
     JAX package's portable ``LongScanner`` (XLA there). Pass 1 steps each
-    block's S + 1 pseudo-records as [nb (S + 1), S] x [S, S] 0/1 products,
-    the prefix gives the entry states, pass 2 replays the blocks with their
-    accept flags. Serves wide tiles without a horizon and the rewrites'
-    fallback; a program without a dense follow matrix (the sparse tier)
-    raises ValueError."""
+    block's S + 1 pseudo-records as [(nb - 1) (S + 1), S] x [S, S] 0/1
+    products (the last block's summary feeds no entry), the prefix gives
+    the entry states, pass 2 replays the blocks with their accept flags.
+    Serves wide tiles without a horizon, the sparse tier's programs that no
+    rewrite takes (config 10's ``x(ab|c){400,520}y``: 1,563 states, pass 1
+    ~2 S^2 operations a byte) and the rewrites' fallback (the unseeded
+    scans of an ``X{m,n}`` alias), all over :func:`compact_tables`."""
 
     def __init__(self, prog: DeviceProgram, device, block: int = 4096):
         self.prog = prog

@@ -62,8 +62,12 @@ reverse pass and one span pass for all P patterns (``rrx_nfa_reverse_mb``,
 ``rrx_nfa_wide_lazy_spans_mb`` at 257..1024, one warp per record, lane p
 keeping channel p's bookkeeping). The long-string window kernels (one long
 string, ``ops/longstring.py``) likewise run ``csrc/scan_long.cu`` up to 256
-states and ``csrc/scan_long_wide.cu`` (one warp per window) past them. Not
-ported: K-chaining (``chain_target``, off by default).
+states and ``csrc/scan_long_wide.cu`` (one warp per window) past them. The
+scanner's stream-fed methods (``match_stats``, ``forward_flags``,
+``reverse_hits``, ``first_end_from``: the JAX ``PallasScanner``'s methods
+over a precomputed mask stream) run ``scan_packed``'s primitives on the
+same tables, on the kernels of ``csrc/scan_stream.cu``. Not ported:
+K-chaining (``chain_target``, off by default).
 """
 from __future__ import annotations
 
@@ -847,6 +851,52 @@ class PallasScanner(_Scanner):
         data, _, lengths = self._batch(data, len_g)
         hits = nfa_reverse_mb(data, lengths, self.nfa, self.span)
         return nfa_lazy_spans_mb(data, lengths, self.nfa, self.span, hits, cap)
+
+    # -- stream-fed methods: a mask stream in place of bytes ------------------
+    # ``words`` is the port's mask stream [T, B, Wt] int32
+    # (``scan_packed.mask_stream_from_bytes``); the methods run
+    # ``scan_packed``'s primitives on this scanner's tables, which launch the
+    # kernels of ``csrc/scan_stream.cu`` on a CUDA tensor (the JAX package's
+    # ``_match_kernel``, ``_flags_kernel``, ``_reverse_kernel`` and
+    # ``_first_end_kernel``) and run their plain versions on a CPU tensor.
+    def match_stats(self, words, len_g, *, seeded: bool):
+        """(cnt, first, any) from the mask stream, each shaped [B_rows, G *
+        P] like ``match_stats_b``'s (per channel with an accept map)."""
+        from . import scan_packed as sp
+
+        len_g = torch.as_tensor(len_g, device=self.device)
+        outs = sp.match_stats(self.nfa, words, len_g.reshape(-1), seeded=seeded,
+                              nullable=self.nullable)
+        return tuple(x.reshape(len_g.shape[0], -1) for x in outs)
+
+    def forward_flags(self, words, *, seeded: bool):
+        """[B, T + 1] bool accept flags of the mask stream; column 0 is the
+        program's nullability."""
+        from . import scan_packed as sp
+
+        self._one_channel("forward_flags")
+        fl = sp.forward_flags(self.nfa, words, seeded=seeded)
+        fl[:, 0] = bool(self.prog.nullable)
+        return fl
+
+    def reverse_hits(self, words):
+        """[B, T] bool: column j is set iff some match starts at max(j - 1,
+        0)."""
+        from . import scan_packed as sp
+
+        self._one_channel("reverse_hits")
+        return sp.reverse_hits(self.nfa, words)
+
+    def first_end_from(self, words, len_g, starts_g):
+        """Lazy anchored end per record from ``starts_g`` (-1 = inactive),
+        shaped like ``len_g``; -1 when none."""
+        from . import scan_packed as sp
+
+        self._one_channel("first_end_from")
+        len_g = torch.as_tensor(len_g, device=self.device)
+        end = sp.first_end_from(self.nfa, words, len_g.reshape(-1),
+                                torch.as_tensor(starts_g, device=self.device).reshape(-1))
+        return end.reshape(len_g.shape)
 
 
 # ---------------------------------------------------------------------------

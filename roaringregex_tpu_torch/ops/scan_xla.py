@@ -1,25 +1,28 @@
-"""The unpacked engine's pieces that the counting tier needs.
+"""The unpacked engine: the JAX package's portable XLA backend in torch ops.
 
-The port of the parts of ``roaringregex_tpu/ops/scan_xla.py`` that the
-counting tier's primitives read: the anchored rescan ``first_end_from``
-with the tables and stream it runs on (``device_tables``,
-``encode_stream``), and the position bitmaps built from unpacked per-step
-flags and start hits (``end_positions``, ``ends_bitmap``,
-``starts_bitmap``). The engine builds its bitmaps from every scanner's
-bit-packed words instead; these are the reference they are tested
-against.
+The port of ``roaringregex_tpu/ops/scan_xla.py``: the tables and class
+stream (``device_tables``, ``encode_stream``), the forward scan
+(``forward_flags``, ``match_stats``), the reverse scan (``reverse_hits``),
+the anchored rescan (``first_end_from``) and the position bitmaps built
+from unpacked per-step flags and start hits (``end_positions``,
+``ends_bitmap``, ``starts_bitmap``). It is the engine's ``xla`` backend
+(``ScanEngine(prog, device, backend="xla")``, and a container program past
+the container kernels' caps, which the JAX engine sends to this backend
+too), and it answers the anchored rescans of the sparse-tier programs
+whose scanner has no anchored kernels (the counting and container tiers;
+``roaringregex_tpu/engine.py:839-842``). The kernel route builds its
+bitmaps from every scanner's bit-packed words instead; these bitmaps are
+also the reference they are tested against.
 
-The JAX engine answers a counting-tier program's anchored rescans with
-``scan_packed.first_end_from`` (the lane-packed engine) on the dense and
-multiblock tiers and with ``scan_xla.first_end_from`` on the sparse tier
-(``roaringregex_tpu/engine.py:825-842``). Both compute the same function,
-so the port takes this module's for every tier; the tests hold it to both.
-It runs in torch ops on the engine's device (``torch.matmul`` of 0/1
-float32 planes, exact), as the JAX package computes it in XLA, outside any
-Pallas kernel. Stream convention: step t consumes column t of the [B, L +
-2] class stream (BOS | bytes | EOS | dead), and its end position is
-``min(t, len)``; flags column t + 1 holds step t (column 0 is the
-program's nullability).
+The JAX package computes this module in plain XLA, outside any Pallas
+kernel, so its port is torch ops on the engine's device, with no kernel of
+its own: one step of B records is a [B, S] x [S, S] product of 0/1 float32
+planes (exact: a sum is at most S, under float32's 2^24; bf16 or fp16
+inputs would round sums past 256 or 2048), thresholded and ANDed with the
+class mask, over the program's S = n_states states. Stream convention:
+step t consumes column t of the [B, L + 2] class stream (BOS | bytes | EOS
+| dead), and its end position is ``min(t, len)``; flags column t + 1 holds
+step t (column 0 is the program's nullability).
 """
 from __future__ import annotations
 
@@ -61,6 +64,100 @@ def encode_stream(tables: Tables, data: torch.Tensor, lengths: torch.Tensor,
     tail = torch.where(n == L, eos_class, dead_class)
     bos = torch.full((B, 1), bos_class, dtype=torch.int64, device=data.device)
     return torch.cat([bos, body, tail], dim=1)
+
+
+def _step(tables: Tables, v: torch.Tensor, cls_t: torch.Tensor) -> torch.Tensor:
+    """One step of B records: v' = follow(v) & Bc[cls_t], [B, S] bool."""
+    return ((v.to(torch.float32) @ tables["F"]) > 0) & tables["Bc"][cls_t]
+
+
+def _dead(v: torch.Tensor, t: int, n_seed_steps: int) -> bool:
+    """True when an unseeded scan may stop after step t: past its last seed
+    step every state set is empty, so none of them accepts again (asked
+    every 32 steps: one host read)."""
+    return t >= n_seed_steps - 1 and t % 32 == 31 and not bool(v.any())
+
+
+def forward_flags(tables: Tables, cls: torch.Tensor, *, seeded: bool,
+                  n_seed_steps: int = 2) -> torch.Tensor:
+    """[B, T + 1] bool accept flags of the [B, T] class stream: column t + 1
+    is the acceptance of the state set after step t, column 0 the initial
+    state's (the program's nullability). The initial state is seeded into
+    every step (``seeded``) or steps t < ``n_seed_steps``. An unseeded scan
+    stops once every state set is empty: the flags after it stay False."""
+    B, T = cls.shape
+    S = tables["F"].shape[0]
+    dev = cls.device
+    v = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    flags = torch.zeros((B, T + 1), dtype=torch.bool, device=dev)
+    flags[:, 0] = tables["accept"][0]
+    for t in range(T):
+        if seeded or t < n_seed_steps:
+            v[:, 0] = True
+        v = _step(tables, v, cls[:, t])
+        flags[:, t + 1] = (v & tables["accept"]).any(dim=1)
+        if not seeded and _dead(v, t, n_seed_steps):
+            break
+    return flags
+
+
+def match_stats(tables: Tables, cls: torch.Tensor, lengths: torch.Tensor, *, seeded: bool,
+                nullable: bool, n_seed_steps: int = 2):
+    """(count, first_end, any) per record, each [B], from one scan without
+    materialising the flags: count = the number of distinct end positions
+    e = min(t, len) with a match (the `$` step's repeat of e = len counts
+    once). A nullable program's empty match ends at 0 (unseeded) or at
+    every position (seeded: count = len + 1 from the start, and no step
+    adds an end)."""
+    B, T = cls.shape
+    S = tables["F"].shape[0]
+    dev = cls.device
+    ln = lengths.to(torch.int64)
+    if nullable:
+        cnt = ln + 1 if seeded else torch.ones_like(ln)
+        first = torch.zeros_like(ln)
+        last = ln.clone() if seeded else torch.zeros_like(ln)
+    else:
+        cnt = torch.zeros_like(ln)
+        first = torch.full_like(ln, -1)
+        last = torch.full_like(ln, -1)
+    v = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    for t in range(T):
+        if seeded or t < n_seed_steps:
+            v[:, 0] = True
+        v = _step(tables, v, cls[:, t])
+        flag = (v & tables["accept"]).any(dim=1)
+        e = ln.clamp(max=t)
+        if not (nullable and seeded):
+            cnt = cnt + (flag & (e != last)).to(torch.int64)
+        first = torch.where((first < 0) & flag, e, first)
+        last = torch.where(flag, e, last)
+        if not seeded and _dead(v, t, n_seed_steps):
+            break
+    cnt = cnt.to(torch.int32)
+    return cnt, first.to(torch.int32), cnt > 0
+
+
+def reverse_hits(tables: Tables, cls: torch.Tensor, *, seed_accept: bool = True) -> torch.Tensor:
+    """[B, T] bool reverse-automaton hits: column j is set iff the initial
+    state is live just before stream column j, i.e. some match starts at
+    position max(j - 1, 0). The recurrence, from the last column down:
+    R_j = pred((R_{j+1} | accept) & Bc[cls_j]), pred(x) = the states that
+    some state of x follows (x @ F^T); without ``seed_accept`` the accept
+    set does not join."""
+    B, T = cls.shape
+    S = tables["F"].shape[0]
+    dev = cls.device
+    Ft = tables["F"].T
+    r = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    hits = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    for j in range(T - 1, -1, -1):
+        if seed_accept:
+            r = r | tables["accept"]
+        masked = r & tables["Bc"][cls[:, j]]
+        r = (masked.to(torch.float32) @ Ft) > 0
+        hits[:, j] = r[:, 0]
+    return hits
 
 
 def end_positions(T_plus_1: int, lengths: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """Configuration knobs the port reads, with the JAX package's ``RRX_*``
 names and defaults (``roaringregex_tpu/utils/config.py``), so one
-environment configures both packages alike."""
+environment configures both packages alike. One default differs on
+purpose: ``backend`` None is the kernel route on every device, where the
+JAX package picks its ``packed`` backend off a TPU."""
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field, replace
+from typing import Optional
 
 
 def _env_int(name: str, default: int) -> int:
@@ -14,6 +17,16 @@ def _env_int(name: str, default: int) -> int:
 
 @dataclass(frozen=True)
 class RrxConfig:
+    # backend (RRX_BACKEND), read by ScanEngine when the caller names none:
+    # None or "pallas" = the kernel route (every tier's CUDA kernels on a
+    # CUDA device, their plain versions on the CPU), "packed" = the mask
+    # stream's primitives (ops/scan_packed.py), "xla" = the unpacked torch-op
+    # engine (ops/scan_xla.py). The JAX package picks "packed" by default
+    # off a TPU; the port never picks a backend by platform: the caller
+    # chooses "xla" or "packed" explicitly
+    backend: Optional[str] = field(
+        default_factory=lambda: os.environ.get("RRX_BACKEND") or None
+    )
     # largest state count with fully dense tables (tier cut-off)
     dense_max: int = field(default_factory=lambda: _env_int("RRX_DENSE_MAX", 1024))
     # windowed batch scan on the matmul tier: split long records into

@@ -104,8 +104,10 @@ def test_routing(case):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_counts_bitmaps_vs_oracle(case):
     """count_ends, search, fullmatch, ends_bitmap and flags against the
-    oracle's ends and fullmatch (the alias case's fullmatch and flags need
-    its own sparse tier: see test_alias_unseeded_raises)."""
+    oracle's ends and fullmatch (the alias case's fullmatch and flags run
+    its own sparse program's summary + replay in torch ops, ~2 S^2
+    operations a byte at 1,503 states: test_alias_unseeded_raises checks
+    them on short strings)."""
     _, pattern, _ = case
     _, sc = _scanner(pattern)
     orc = _oracle(pattern)
@@ -150,15 +152,56 @@ def test_cyclic_starts_raise(pattern):
         sc.starts_bitmap(b"abc")
 
 
+def _short_texts(seed: int, n: int = 4):
+    """Strings of tens of bytes over the C2 programs' letters, with chains."""
+    rng = np.random.default_rng(seed)
+    # the last fixed one crosses a 32-step block: pass 1 summarises block 0
+    out = [b"", b"abcde", b"xabcdey", b"xdey", b"abcdeabcde", b"z" * 27 + b"xabcdedeabcy" + b"x"]
+    for _ in range(n):
+        t = bytearray(rng.choice(np.frombuffer(b"abcdexyz", np.uint8), size=int(rng.integers(5, 24))))
+        chain = b"x" + b"".join(rng.choice([b"abc", b"de"], size=int(rng.integers(1, 5)))) + b"y"
+        at = int(rng.integers(0, len(t)))
+        out.append(bytes(t[:at] + chain + t[at:]))
+    return out
+
+
 def test_alias_unseeded_raises():
     """A big X{m,n} counts and searches through its seeded alias; what needs
     the original sparse-tier program (fullmatch, the reversed program of
-    finditer_long) raises ValueError naming the tier, which is not ported."""
+    finditer_long) runs LongScanner's summary + replay over the XLA
+    backend's tables, as the JAX package's does, and answers as the oracle
+    does. (The name is from before the sparse tier's long scans answered:
+    they raised ValueError.)"""
     p, sc = _scanner("(abc|de){1,300}")
-    with pytest.raises(ValueError, match="sparse"):
-        sc.fullmatch(b"abcde")
-    with pytest.raises(ValueError, match="sparse"):
-        p.finditer_long(b"abcde")
+    orc = _oracle("(abc|de){1,300}")
+    for t in _short_texts(11):
+        assert sc.fullmatch(t) == orc.fullmatch(t), t
+        for longest in (False, True):
+            assert p.finditer_long(t, longest=longest) == orc.findall(t, longest=longest), (
+                t, longest)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sparse_long():
+    """The JAX package's LongScanner of x(abc|de){1,300}y (its F from the
+    follow blocks) at a block of 32: (count_ends, fullmatch) per string."""
+    jsc = jax_make_long_scanner(jax_compile("x(abc|de){1,300}y"), block=32)
+    assert type(jsc).__name__ == "LongScanner"
+    return {t: (jsc.count_ends(t), jsc.fullmatch(t)) for t in _short_texts(12)}
+
+
+def test_sparse_long_scanner_vs_jax_and_oracle():
+    """Pattern.long of a sparse-tier program that no rewrite takes
+    (x(abc|de){1,300}y, 1,503 states): count_ends and fullmatch on strings
+    of tens of bytes against the JAX package's LongScanner and the oracle."""
+    cfg.set_config(cfg.get_config().with_(long_block=32))
+    p = rrx.compile("x(abc|de){1,300}y", "cpu")
+    sc = p.long
+    assert type(sc).__name__ == "LongScanner"
+    orc = _oracle("x(abc|de){1,300}y")
+    for t, (want_cnt, want_full) in _jax_sparse_long().items():
+        assert sc.count_ends(t) == want_cnt == len(orc.ends(t)), t
+        assert sc.fullmatch(t) == want_full == orc.fullmatch(t), t
 
 
 @pytest.mark.parametrize("pattern,re_pattern", [
