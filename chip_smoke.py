@@ -9,7 +9,7 @@ its check fails:
 1. the card's name and power limit; build the CUDA kernels from
    roaringregex_tpu_torch/csrc with nvcc for sm_90a (one nvcc per source,
    all started together), with nvcc's register report and the build time;
-2. kernel against plain PyTorch version on the card, for all forty-five entry
+2. kernel against plain PyTorch version on the card, for all fifty-one entry
    points, on random batches from a numpy seed plus edge records (empty,
    len == L, bytes >= 0x80, byte 0); integer outputs, tolerance 0:
    rrx_swar_stats and rrx_word_stats on the SWAR and u32-word test
@@ -78,7 +78,17 @@ its check fails:
    B) of 9 programs at W = 1 (nullable and anchored ones too), 2, 4, 8, 12,
    16 and 32 and 2 MultiPattern sets (P = 3 at W = 1 and 12), stats seeded,
    unseeded and nullable, flags seeded and unseeded, reverse, first end lazy
-   and longest from -1, 0 and random starts;
+   and longest from -1, 0 and random starts; the slotted multi-pattern SWAR
+   kernel (rrx_swar_multi_stats) on 5 sets of 1-4 patterns (config 6,
+   tests/test_multipattern.py's a* and x$, ^, $ and nullable members) on
+   edge batches of 61, 64 and 256 B with the sets' matches planted, seeded
+   and unseeded; the three stream-fed container kernels
+   (rrx_sparse_stream_stats, _flags, _reverse) over the mask streams of
+   K120, config 13, a nullable program, a full U block, the 120-block cap
+   and config 10 (BitbandScanner's container tables), in each table form
+   that fits (shared and global), stats seeded, unseeded and nullable, flags
+   seeded and unseeded, reverse, each also equal to the byte kernels'
+   outputs on the same records;
 3. the match-stats path, with its launch counts set to 0 first: bench
    config 1 (cat|dog over 10 MB of 1024-byte records) through
    ScanEngine.match_stats, which must take the (4, 256, 3) window split,
@@ -159,9 +169,10 @@ its check fails:
    then the 7 other programs of the tier at 10 MB through the Pattern API
    (search, fullmatch and spans against re, counts against the plain
    version); the counts are read after it;
-7. times with CUDA events (median of 5-7 runs after warm-up) of kernel and
-   plain version: the stats kernels at config 1 and 1 GiB, the SWAR span
-   kernels at config 7's 10 MB shape and at 1 GiB, the matmul-tier kernels
+7. times with CUDA events (the kernel's the median of 5-7 runs after
+   warm-up, the plain version's one run) of kernel and plain version: the
+   stats kernels at config 1 and 1 GiB, the SWAR span kernels at config
+   7's 10 MB shape and at 1 GiB, the matmul-tier kernels
    (and rrx_nfa_flags) at 10 MB and 1 GiB (plain versions on a
    16,384-record slice there), the counting kernels on config 4 at 10 MB
    and 1 GiB, with registers, theoretical occupancy, grid fill and the bound
@@ -228,7 +239,13 @@ its check fails:
    K30 (W = 8) and config 4 (W = 12, the rescans) and at 1 GiB on cat|dog
    (a 4 GiB stream), with the stream's bytes as their input in the bound,
    the stream's build time, occupancy and registers; match_stats end to end
-   on the default route, the packed and the XLA backend at 10 MB;
+   on the default route, the packed and the XLA backend at 10 MB; the three
+   stream-fed container kernels over the mask streams of K120 (10 MB and
+   128 MB, a 14 GiB stream) and config 13 (10 MB), the stream's build
+   timed apart, the bound the larger of the stream's bytes and the
+   container census, the byte kernel on the same records beside each; the
+   slotted SWAR kernel on config 6 at 10 MB and 1 GiB beside the default
+   route's rrx_word_stats[P] on the same data;
 13. (run before 7) the packed and XLA backends, with every launch count set
    to 0 first: cat|dog (config 1's 10 MB) and K30 (10 MB of log text) with
    backend="packed": match_stats, ends_bitmap and starts_bitmap equal to the
@@ -239,7 +256,18 @@ its check fails:
    backend at 1 MB: count_batch, fullmatch_batch and lazy and greedy spans
    against re, timed; C2: Pattern.long of x(abc|de){1,300}y and config 10 on
    the torch-op LongScanner, count_ends of a 64 KiB string against re,
-   timed; every stream kernel must have been launched.
+   timed; every stream kernel must have been launched;
+14. (run before 7) the slotted SWAR and the stream-fed container methods,
+   with every launch count set to 0 first: MultiPattern(config 6) with
+   RRX_SWAR_MULTI=1 (SwarMultiScanner): count_batch over config 1's 10 MB
+   against re and the u32-word tier's counts of phase 8, its engine scan of
+   phase 8's 1 GiB batch against the u32-word tier's; SparseScanner's
+   match_stats, forward_flags and reverse_hits over the mask stream of K120
+   (10 MB of log text) and of config 13 (phase 11's chain batch), and
+   BitbandScanner's over config 10's (phase 10's 10 MB batch; its container
+   tables built at the first stream call), seeded and unseeded, against the
+   byte path's methods on the same records; all four kernels must have
+   been launched.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
@@ -388,6 +416,19 @@ REPLACES |= {
     "rrx_stream_reverse": "roaringregex_tpu/ops/scan_pallas.py:199",
     "rrx_stream_first_end": "roaringregex_tpu/ops/scan_pallas.py:981",
 }
+# the slotted multi-pattern SWAR scan (scan_bits.cu, RRX_SWAR_MULTI=1) and
+# the stream-fed container kernels (scan_sparse.cu: the mask-stream methods
+# of SparseScanner and BitbandScanner)
+SWAR_MULTI_KERNELS = ("rrx_swar_multi_stats",)
+SPARSE_STREAM_KERNELS = ("rrx_sparse_stream_stats", "rrx_sparse_stream_flags",
+                         "rrx_sparse_stream_reverse")
+REPLACES |= {
+    # _run_swar_multi (:1493) launches _swar_multi_kernel (:428)
+    "rrx_swar_multi_stats": "roaringregex_tpu/ops/scan_swar.py:1500",
+    "rrx_sparse_stream_stats": "roaringregex_tpu/ops/scan_pallas.py:867",
+    "rrx_sparse_stream_flags": "roaringregex_tpu/ops/scan_pallas.py:916",
+    "rrx_sparse_stream_reverse": "roaringregex_tpu/ops/scan_pallas.py:955",
+}
 # container programs past the container kernels' caps (153 partial blocks,
 # 2,176 lanes): the XLA backend's route, as in the JAX engine
 C3_PATTERNS = ["(abc|de){1,420}", "x(abc|de){1,420}y"]
@@ -466,6 +507,16 @@ MP_KERNELS = ("rrx_word_stats[P]", "rrx_nfa_stats[P]", "rrx_nfa_reverse_mb",
 CONFIG6 = ["cat|dog", "[0-9]{3}", "err(or)?", "ab(cd)*e"]
 # Python re forms of config 6's lazy spans: err(or)? ends at the shortest end
 CONFIG6_LAZY_RE = ["cat|dog", "[0-9]{3}", "err(or)??", "ab(cd)*e"]
+# config 6's match ends by Python re, per pattern: lookaheads whose group
+# ends at every end (err(or)? ends after err and after error)
+CONFIG6_ENDS_RE = [[rb"(?=(cat|dog))"], [rb"(?=([0-9]{3}))"], [rb"(?=(err))", rb"(?=(error))"],
+                   [rb"(?=(ab(?:cd)*e))"]]
+# sets for the slotted SWAR kernel against its plain version: config 6 (and
+# tests/test_multipattern.py's first slotted set), its second (a nullable and
+# a `$` channel), and sets of 1, 2 and 3 patterns with ^, $ and nullable
+# members
+SWAR_MULTI_SETS = [CONFIG6, ["a*", "x$"], ["(ab)*c+d?"], ["^ab?c$", "(a|$)*"],
+                   ["[a-c]x{0,2}$", "(cat|dog)*", "^x"]]
 # pattern sets for kernel == plain: tests/test_multipattern.py's four, config
 # 6, K7 as 7 patterns, K16 as 16 (matmul tier, P >= 16), 12 one-letter
 # patterns (u32-word tier, P > 8), and nullable and `$` channels
@@ -485,6 +536,11 @@ COUNT_PATTERNS = [
     "(ab){40}",
 ]
 CONFIG4, CONFIG13 = "a{1,300}", "(abc|de){1,300}"
+# the stream-fed container kernels against their plain versions: K120,
+# config 13, a nullable program, a full U block and the 120-block cap (the
+# global table form); config 10 through BitbandScanner's container tables
+SPARSE_STREAM_PATTERNS = [K120, CONFIG13, "(a|b)*c{0,2}(abc){0,100}", "x[ab]{0,400}c",
+                          "(abc|de){1,360}", CONFIG10]
 # programs for the stream-fed kernels against their plain versions: W = 1
 # (nullable and anchored ones too), 2, 4, 8, 12, 16 and 32, and P = 3
 # accept channels at W = 1 and 12
@@ -715,9 +771,16 @@ def main() -> int:
         "rrx_stream_reverse": scan_packed.reverse_hits,
         "rrx_stream_first_end": scan_packed.first_end_from,
     }
+    new_wrappers = {
+        "rrx_swar_multi_stats": scan_swar.swar_multi_stats,
+        "rrx_sparse_stream_stats": scan_sparse.sparse_stream_stats,
+        "rrx_sparse_stream_flags": scan_sparse.sparse_stream_flags,
+        "rrx_sparse_stream_reverse": scan_sparse.sparse_stream_reverse,
+    }
     wrappers = ({name: e[0] for name, e in entries.items()} | span_wrappers | nfa_wrappers
                 | count_wrappers | mp_wrappers | long_wrappers | bitband_wrappers | sparse_wrappers
-                | wide_wrappers | wide_mb_wrappers | long_wide_wrappers | stream_wrappers)
+                | wide_wrappers | wide_mb_wrappers | long_wide_wrappers | stream_wrappers
+                | new_wrappers)
     base_cfg = get_config()
     max_err = {name: 0 for name in wrappers}
 
@@ -1639,6 +1702,123 @@ def main() -> int:
     print(f"phase 2: kernel == plain on the card, {n_cmp} 1 MB batches through the four stream "
           f"kernels (W = {sorted(words_s)}; stats seeded/unseeded/nullable/P = 3, flags "
           f"seeded/unseeded, reverse, first end lazy/longest from -1, 0 and random starts) "
+          f"({time.perf_counter() - t0:.1f}s)")
+
+    # the slotted multi-pattern SWAR kernel: 5 sets (P = 1..4; ^, $ and
+    # nullable members) on edge batches with the sets' matches planted (at
+    # byte 0 in every fourth record, where unseeded scans match), seeded and
+    # unseeded
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = 0
+    set_config(base_cfg.with_(swar_multi=True))  # RRX_SWAR_MULTI=1
+    try:
+        multi_scanners = [MultiPattern(pats, dev).engine.device_scanner for pats in SWAR_MULTI_SETS]
+    finally:
+        set_config(base_cfg)
+    n_ends = []
+    for pats, sc in zip(SWAR_MULTI_SETS, multi_scanners):
+        if not isinstance(sc, scan_swar.SwarMultiScanner):
+            fail(f"MultiPattern {pats} with RRX_SWAR_MULTI=1 routed to {type(sc).__name__}")
+        ends = 0
+        for R, L in ((1000, 61), (1024, 64), (4096, 256)):
+            data, lengths = edge_batch(rng, np, R, L, b"catdoger0123 abcdex$^")
+            for i in range(8, R, 2):
+                w = MP_PLANTS[int(rng.integers(len(MP_PLANTS)))][:L]
+                at = 0 if i % 4 == 0 else int(rng.integers(0, L - len(w) + 1))
+                data[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+            d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
+            for seeded in (True, False):
+                got = scan_swar.swar_multi_stats(d, ln, sc.tables, seeded=seeded)
+                compare("rrx_swar_multi_stats", got,
+                        scan_swar.swar_multi_stats_plain(d, ln, sc.tables, seeded=seeded),
+                        f"{pats} R={R} L={L} seeded={seeded}")
+                ends += int(got[0].sum())
+            n_cmp += 1
+        n_ends.append(ends)
+    torch.cuda.synchronize()
+    if launches()["rrx_swar_multi_stats"] <= before["rrx_swar_multi_stats"]:
+        fail("rrx_swar_multi_stats: launch count did not rise in the comparison")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} batches of {len(SWAR_MULTI_SETS)} slotted "
+          f"sets (P = {[len(p) for p in SWAR_MULTI_SETS]}) through rrx_swar_multi_stats, seeded "
+          f"and unseeded ({n_ends} match ends) ({time.perf_counter() - t0:.1f}s)")
+
+    # the three stream-fed container kernels: K120, config 13, a nullable
+    # program, a full U block, the 120-block cap (global form) and config 10
+    # (BitbandScanner's container tables), on edge batches with the
+    # programs' chains planted, over their mask streams; each form the table
+    # fits (shared and global), stats seeded/unseeded/nullable, flags
+    # seeded/unseeded, reverse, and each output against the byte kernels'
+    # on the same records
+    def check_sparse_stream(tables, prog, d, ln, tag, forms):
+        words = scan_packed.mask_stream_from_bytes(scan_packed.stream_tables(prog, dev), d, ln)
+        plain, byte = {}, {}
+        for seeded in (True, False):
+            for nl in ((False, True) if prog.nullable else (False,)):
+                plain["stats", seeded, nl] = SP.sparse_stream_stats_plain(
+                    tables, words, ln, seeded=seeded, nullable=nl)
+                c_, f_, _, _ = SP.sparse_stats(d, ln, tables, seeded=seeded, nullable=nl)
+                byte["stats", seeded, nl] = (c_[:, 0], f_[:, 0], c_[:, 0] > 0)
+            plain["flags", seeded] = SP.sparse_stream_flags_plain(tables, words, seeded=seeded)
+            byte["flags", seeded] = SP.sparse_flags(d, ln, tables, seeded=seeded)
+        plain["reverse"] = SP.sparse_stream_reverse_plain(tables, words)
+        byte["reverse"] = SP.sparse_reverse(d, ln, tables)
+        for form in forms:
+            for key, want in plain.items():
+                if key[0] == "stats":
+                    got = SP.sparse_stream_stats(tables, words, ln, seeded=key[1], nullable=key[2],
+                                                 form=form)
+                    name, labels = "rrx_sparse_stream_stats", ("cnt", "first", "any")
+                    kt = f"{tag} {form} seeded={key[1]} nullable={key[2]}"
+                else:
+                    got = [SP.sparse_stream_flags(tables, words, seeded=key[1], form=form)
+                           if key[0] == "flags" else SP.sparse_stream_reverse(tables, words, form=form)]
+                    want = [want]
+                    name = ("rrx_sparse_stream_flags" if key[0] == "flags"
+                            else "rrx_sparse_stream_reverse")
+                    labels = (key[0],)
+                    kt = f"{tag} {form} {key}"
+                compare(name, got, want, kt, labels)
+                for label, x, y in zip(labels, got, byte[key] if key[0] == "stats" else [byte[key]],
+                                       strict=True):
+                    if not torch.equal(x.to(torch.int64), y.to(torch.int64)):
+                        fail(f"{name} {kt} {label}: the stream-fed result != the byte path's")
+        return int(plain["stats", True, False][0].sum().item())
+
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = 0
+    seen_forms = set()
+    for pattern in SPARSE_STREAM_PATTERNS:
+        tables_prog = compile_program(pattern)
+        if pattern == CONFIG10:
+            bsc = ScanEngine(tables_prog, device=dev).device_scanner
+            if not isinstance(bsc, scan_bitband.BitbandScanner):
+                fail(f"config 10 routed to {type(bsc).__name__}")
+            tables = bsc._stream_tables()
+            R_s, L_s = 64, 1024
+        else:
+            tables = SP.device_sparse_tables(tables_prog, dev)
+            R_s, L_s = 128, 384
+        auto = SP.table_form(tables)
+        forms = ("shared", "global") if auto == "shared" else ("global",)
+        seen_forms.update(forms)
+        data, lengths = sparse_batch(pattern, R_s, L_s)
+        d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
+        ends = check_sparse_stream(tables, tables_prog, d, ln, f"{pattern[:40]!r} R={R_s} L={L_s}",
+                                   forms)
+        n_cmp += 1
+        print(f"  stream-fed container kernels, {pattern[:40]!r} ({tables_prog.n_states} states, "
+              f"W = {tables.W}, auto form {auto}): {ends} seeded match ends")
+    torch.cuda.synchronize()
+    for name in SPARSE_STREAM_KERNELS:
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the comparison")
+    if seen_forms != {"shared", "global"}:
+        fail(f"the stream-fed container comparisons took forms {seen_forms}")
+    print(f"phase 2: kernel == plain == the byte kernels on the card, {n_cmp} batches through the "
+          f"three stream-fed container kernels (stats seeded/unseeded/nullable, flags "
+          f"seeded/unseeded, reverse; shared and global table forms) "
           f"({time.perf_counter() - t0:.1f}s)")
 
     # -- phase 3: the match-stats path (counts from here to its 1 GiB run) --
@@ -3014,13 +3194,13 @@ def main() -> int:
     log13 = log_text(np, 13, d1_np.shape[0], 1024, K30_WORDS)
     pk_runs = {}
     for pattern, words_k, d_np in (("cat|dog", ["cat", "dog"], d1_np), (K30, K30_WORDS, log13)):
-        d13 = torch.from_numpy(d_np).to(dev)
-        l13 = torch.from_numpy(l1_np).to(dev)
+        d_pk = torch.from_numpy(d_np).to(dev)
+        l_pk = torch.from_numpy(l1_np).to(dev)
         p_def, p_pk = rrx_compile(pattern, dev), rrx_compile(pattern, dev, backend="packed")
         if p_pk.engine.backend != "packed" or p_pk.engine.device_scanner is not None:
             fail(f"{pattern[:30]!r} with backend='packed' routed to {p_pk.engine.backend}")
-        got = p_pk.engine.match_stats(d13, l13, seeded=True)
-        want = p_def.engine.match_stats(d13, l13, seeded=True)
+        got = p_pk.engine.match_stats(d_pk, l_pk, seeded=True)
+        want = p_def.engine.match_stats(d_pk, l_pk, seeded=True)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             fail(f"{pattern[:30]!r} packed match_stats != the default route")
         cnt_np, first_np = got[0].cpu().numpy(), got[1].cpu().numpy()
@@ -3031,8 +3211,8 @@ def main() -> int:
         L13 = d_np.shape[1]
         bms = {}
         for what in ("ends_bitmap", "starts_bitmap"):
-            bms[what] = getattr(p_pk.engine, what)(d13, l13, L13)
-            if not np.array_equal(bms[what], getattr(p_def.engine, what)(d13, l13, L13)):
+            bms[what] = getattr(p_pk.engine, what)(d_pk, l_pk, L13)
+            if not np.array_equal(bms[what], getattr(p_def.engine, what)(d_pk, l_pk, L13)):
                 fail(f"{pattern[:30]!r} packed {what} != the default route")
         rx = re.compile(b"(?=(" + b"|".join(w.encode() for w in words_k) + b"))")
         for i in range(0, d_np.shape[0], 7):
@@ -3053,7 +3233,7 @@ def main() -> int:
             fail(f"{pattern[:30]!r} packed finditer_batch != the default route and re")
         if p_pk.finditer_batch(texts[:500], longest=True) != want_sp[:500]:
             fail(f"{pattern[:30]!r} packed greedy finditer_batch != re")
-        pk_runs[pattern] = (d13, l13, p_def, p_pk)
+        pk_runs[pattern] = (d_pk, l_pk, p_def, p_pk)
         print(f"phase 13: {pattern[:30]!r} on the packed backend, 10 MB ({d_np.shape[0]} records): "
               f"match_stats (matches={int(cnt_np.sum())}), ends_bitmap, starts_bitmap == the "
               f"default route ({type(p_def.engine.device_scanner).__name__}) and re; "
@@ -3174,6 +3354,80 @@ def main() -> int:
             fail(f"{name} was not launched on the packed backend's path")
     print(f"packed backend and rescan path launches: {stream_launches} "
           f"({time.perf_counter() - t13:.1f}s for the phase)")
+
+    # -- phase 14: the slotted SWAR and the stream-fed container methods (run
+    # before 7; counts from here to its last run)
+    reset_launches()
+    t14 = time.perf_counter()
+    set_config(base_cfg.with_(swar_multi=True))  # RRX_SWAR_MULTI=1
+    try:
+        mp6s = MultiPattern(CONFIG6, dev)
+    finally:
+        set_config(base_cfg)
+    sc6s = mp6s.engine.device_scanner
+    if not isinstance(sc6s, scan_swar.SwarMultiScanner):
+        fail(f"config 6 with RRX_SWAR_MULTI=1 routed to {type(sc6s).__name__}")
+    t0 = time.perf_counter()
+    cnt6s = mp6s.count_batch(texts6)
+    count6s_ms = (time.perf_counter() - t0) * 1e3
+    rx6 = [[re.compile(x) for x in xs] for xs in CONFIG6_ENDS_RE]
+    want6s = np.array([[len({m.start() + len(m.group(1)) for rx in rxs for m in rx.finditer(t)})
+                        for rxs in rx6] for t in texts6])
+    if not np.array_equal(cnt6s, want6s):
+        bad = np.nonzero((cnt6s != want6s).any(axis=1))[0][:5].tolist()
+        fail(f"config 6 slotted count_batch != re at records {bad}")
+    if not np.array_equal(cnt6s, cnt6):
+        fail("config 6 slotted count_batch != the u32-word tier's (phase 8)")
+    c6s, f6s, _ = (x.reshape(R, 4) for x in mp6s.engine.match_stats(big6, len6, seeded=True))
+    if not (torch.equal(c6s, c6) and torch.equal(f6s, f6)):
+        fail("config 6 1 GiB slotted (cnt, first) != the u32-word tier's (phase 8)")
+    print(f"phase 14: config 6 {CONFIG6} with RRX_SWAR_MULTI=1 ({type(sc6s).__name__}, "
+          f"{sc6s.tables.deltas.numel()} deltas): count_batch on {len(texts6)} records "
+          f"({count6s_ms:.1f} ms, matches {cnt6s.sum(axis=0).tolist()}) == re and == the u32-word "
+          f"tier; the 1 GiB engine match_stats == the u32-word tier's on every record")
+
+    # the stream-fed container methods on the records of phases 10 and 11:
+    # K120 (10 MB of log text) and config 13 on its container tier
+    # (SparseScanner), config 10 (BitbandScanner, its container tables built
+    # at the first stream call), each against the byte path's methods
+    def stream_vs_bytes(sc, d, ln, tag):
+        t_s = time.perf_counter()
+        words = scan_packed.mask_stream_from_bytes(scan_packed.stream_tables(sc.prog, dev), d, ln)
+        lg = ln.reshape(-1, 1)
+        out = {}
+        for seeded in (True, False):
+            st = sc.match_stats(words, lg, seeded=seeded)
+            by = sc.match_stats_b(d, lg, seeded=seeded)
+            for label, x, y in zip(("cnt", "first", "any"), st, (by[0], by[1], by[4]), strict=True):
+                if not torch.equal(x, y):
+                    fail(f"{tag} match_stats(words, seeded={seeded}) {label} != match_stats_b")
+            out[seeded] = int(st[0].sum().item())
+            fl = sc.forward_flags(words, seeded=seeded)
+            if not torch.equal(fl, sc.forward_flags_b(d, lg, seeded=seeded)):
+                fail(f"{tag} forward_flags(words, seeded={seeded}) != forward_flags_b")
+        hits = sc.reverse_hits(words)
+        if not torch.equal(hits, sc.reverse_hits_b(d, lg)):
+            fail(f"{tag} reverse_hits(words) != reverse_hits_b")
+        torch.cuda.synchronize()
+        print(f"phase 14: {tag} ({type(sc).__name__}, W = {words.shape[2]}, stream "
+              f"{words.numel() * 4 / 2**30:.2f} GiB): match_stats seeded ({out[True]} ends) and "
+              f"unseeded ({out[False]}), forward_flags seeded and unseeded, reverse_hits "
+              f"({int(hits.sum().item())} hits) over the mask stream == the byte path's "
+              f"({time.perf_counter() - t_s:.1f}s)")
+        del words
+
+    stream_vs_bytes(sc120, log10, len10, "K120 10 MB")
+    stream_vs_bytes(eng13.device_scanner, d13, l13, "config 13 10 MB")
+    if sc10._sparse is not None:
+        fail("config 10's BitbandScanner built its container tables before a stream call")
+    stream_vs_bytes(sc10, g10, gl10, "config 10 10 MB")
+    torch.cuda.synchronize()
+    new_launches = {name: launches()[name] for name in SWAR_MULTI_KERNELS + SPARSE_STREAM_KERNELS}
+    for name, n in new_launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the slotted SWAR / stream-fed container path")
+    print(f"slotted SWAR and stream-fed container path launches: {new_launches} "
+          f"({time.perf_counter() - t14:.1f}s for the phase)")
 
     # -- phase 7: times ---------------------------------------------------
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
@@ -3302,7 +3556,7 @@ def main() -> int:
     compare("rrx_swar_stats", got, scan_bits.stats_plain(wind, lnw, sc.tables, **kw), "10 MB windows")
     n10 = int(lengths.sum())
     ms_k = time_ms(lambda: scan_swar.swar_stats(wind, lnw, sc.tables, **kw), warm=2, runs=7, per_run=20)
-    ms_p = time_ms(lambda: scan_bits.stats_plain(wind, lnw, sc.tables, **kw), warm=1, runs=5)
+    ms_p = time_ms(lambda: scan_bits.stats_plain(wind, lnw, sc.tables, **kw), warm=0, runs=1)
     ms_e = time_ms(lambda: sc.match_stats_b(d10, l10.reshape(-1, G), seeded=True), warm=2, runs=7, per_run=20)
     print(f"phase 7: rrx_swar_stats config 1 windows [{wind.shape[0]} x {wind.shape[1]}]: "
           f"kernel {ms_k:.3f} ms = {n10 / ms_k / 1e6:.1f} GB/s, plain {ms_p:.3f} ms = "
@@ -3323,7 +3577,7 @@ def main() -> int:
         if name == "rrx_swar_stats" and not torch.equal(got[0], bcnt):
             fail("1 GiB engine count != direct kernel count")
         ms = time_ms(lambda: wrapper(big, big_len, tables, **kw), warm=2, runs=7, per_run=5)
-        plain_ms = time_ms(lambda: scan_bits.stats_plain(big, big_len, tables, **kw), warm=1, runs=5)
+        plain_ms = time_ms(lambda: scan_bits.stats_plain(big, big_len, tables, **kw), warm=0, runs=1)
         print(f"phase 7: {name} {pattern!r} 1 GiB: kernel {ms:.3f} ms = {nbytes / ms / 1e6:.1f} GB/s, "
               f"plain {plain_ms:.3f} ms = {nbytes / plain_ms / 1e6:.2f} GB/s, outputs equal "
               f"[{card}]")
@@ -3364,7 +3618,7 @@ def main() -> int:
         end0 = scan_swar.swar_anchor_end(d, ln, tables, starts, longest=True)
         for name, (kern, plain) in calls.items():
             ms = time_ms(kern, warm=2, runs=7, per_run=5)
-            plain_ms = time_ms(plain, warm=1, runs=runs)
+            plain_ms = time_ms(plain, warm=0, runs=1)
             bnd = kernel_bound(name.split("_", 2)[2], ln, d.shape[1], 4 * tables.deltas.numel(),
                                cap=cap7, starts=starts, end=end0, greedy=greedy0)
             span_ms[name, shape] = (ms, plain_ms, bnd)
@@ -3443,7 +3697,7 @@ def main() -> int:
             nb = int(ln.to(torch.int64).sum())
             for name, (kern, plain) in calls.items():
                 ms = time_ms(kern, warm=2, runs=7, per_run=5)
-                plain_ms = time_ms(plain, warm=1, runs=3)
+                plain_ms = time_ms(plain, warm=0, runs=1)
                 bnd = kernel_bound(name.split("_", 2)[2], ln, d.shape[1], step_ops, cap=cap_k,
                                    starts=starts, end=end0, greedy=greedy0)
                 nfa_ms[name, pattern, shape] = (ms, plain_ms, bnd)
@@ -3478,7 +3732,7 @@ def main() -> int:
         compare("rrx_nfa_flags", [got[:, :n]], [P.flags_plain(pd, pl, tables, seeded=True)],
                 f"K30 {shape}, first {n} records", ("flags",))
         ms = time_ms(lambda: P.nfa_flags(d, ln, tables, seeded=True), warm=2, runs=7, per_run=5)
-        plain_ms = time_ms(lambda: P.flags_plain(pd, pl, tables, seeded=True), warm=1, runs=3)
+        plain_ms = time_ms(lambda: P.flags_plain(pd, pl, tables, seeded=True), warm=0, runs=1)
         bnd = kernel_bound("flags", ln, d.shape[1], step_ops)
         nb = int(ln.to(torch.int64).sum())
         flags_ms[shape] = (ms, plain_ms, bnd)
@@ -3516,7 +3770,7 @@ def main() -> int:
             else:
                 compare(name, [got[:, :n]], [want], f"config 4 {shape}, first {n} records", ("words",))
             ms = time_ms(kern, warm=2, runs=7, per_run=5)
-            plain_ms = time_ms(plain, warm=1, runs=3)
+            plain_ms = time_ms(plain, warm=0, runs=1)
             bnd = kernel_bound(name.split("_", 2)[2], ln, d.shape[1], COUNT_STEP_OPS)
             count_ms[name, shape] = (ms, plain_ms, bnd)
             print(f"phase 7: {name} config 4 {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
@@ -3625,7 +3879,7 @@ def main() -> int:
         }
         for name, (kern, plain, bnd, rows_k, n_p, occ) in calls.items():
             ms = time_ms(kern, warm=2, runs=7, per_run=5)
-            plain_ms = time_ms(plain, warm=1, runs=3)
+            plain_ms = time_ms(plain, warm=0, runs=1)
             mp_ms[name, shape] = (ms, plain_ms, bnd)
             print(f"phase 7: {name} {shape} [{rows_k} x {L}]: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.3f} ms on {n_p} records; bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]")
@@ -3703,7 +3957,7 @@ def main() -> int:
         got, want = [x for x in got if x is not None], [x for x in want if x is not None]
         compare(name, got, want, f"{what}, 1 MiB", tuple(f"out{i}" for i in range(len(got))))
         ms = time_ms(lambda: kern(s_, g1), warm=1, runs=7)
-        plain_ms = time_ms(lambda: plain(d_small, gs), warm=0, runs=3)
+        plain_ms = time_ms(lambda: plain(d_small, gs), warm=0, runs=1)
         tb, W = sc_.tables, state_words(sc_.prog)
         bnd = long_bound(work, g1, W)
         long_ms[name] = (ms, plain_ms, bnd, what)
@@ -3970,9 +4224,11 @@ def main() -> int:
                 f"{SP.table_form(tables, reverse)} table); grid {blocks} blocks of {sp_tpb}")
 
     sp_ms = {}
+    sp_slices = {}  # the census slices (their census is cached by tensor id)
     for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
         n = d.shape[0] if shape == "10 MB" else n_slice
         pd, pl = d[:n].contiguous(), ln[:n].contiguous()
+        sp_slices[shape] = (pd, pl)
         scale = float(ln.to(torch.int64).sum()) / float(pl.to(torch.int64).sum())
         kw = dict(seeded=True, nullable=False)
         compare("rrx_sparse_stats", [x[:n] for x in SP.sparse_stats(d, ln, tb120, **kw)],
@@ -4050,6 +4306,105 @@ def main() -> int:
               f"({pf_x.prog.n_states} states, {type(pf_x.device_scanner).__name__}) {pre_ms:.3f} ms "
               f"+ rrx_sparse_stats on the bucket {k_ms:.3f} ms + the full-batch pass's launch "
               f"{f_ms:.3f} ms + glue {e2e - pre_ms - k_ms - f_ms:.3f} ms [{card}]")
+
+    # the stream-fed container kernels over the mask stream of K120 (10 MB
+    # of log text and 128 MB, a 14 GiB stream) and of config 13 (its 10 MB
+    # chain batch of phase 11), the stream's build timed apart; the bound is
+    # the larger of the stream's bytes over the card's memory rate and the
+    # container census of the same records (the byte kernels' operations);
+    # beside each, the byte kernel (rows 23-25) on the same records
+    sps_ms = {}
+    runs_sps = (("K120", "10 MB", tb120, sc120.prog, log10, len10),
+                ("config 13", "10 MB", tables13, eng13.prog, d13, l13),
+                ("K120", "128 MB", tb120, sc120.prog, log[: 1 << 17], log_len[: 1 << 17]))
+    for tag, shape, tabs_c, prog_c, d, ln in runs_sps:
+        stabs = scan_packed.stream_tables(prog_c, dev)
+        ms_w = time_ms(lambda: scan_packed.mask_stream_from_bytes(stabs, d, ln), warm=1, runs=3)
+        words = scan_packed.mask_stream_from_bytes(stabs, d, ln)
+        T, R_w, W_w = words.shape
+        n = min(d.shape[0], 1024)
+        pw, pd, pl = words[:, :n].contiguous(), d[:n].contiguous(), ln[:n].contiguous()
+        # the census (cached with the byte kernels' bounds): K120's 10 MB batch
+        # and the first n_slice records of the 1 GiB one (the 128 MB batch's
+        # first records), config 13's batch
+        if tag == "K120":
+            cd, cl = sp_slices["1 GiB" if shape == "128 MB" else "10 MB"]
+        else:
+            cd, cl = d, ln
+        scale = float(ln.to(torch.int64).sum()) / float(cl.to(torch.int64).sum())
+        runs = 7 if shape == "10 MB" else 3
+        calls = {
+            "rrx_sparse_stream_stats": (
+                lambda: SP.sparse_stream_stats(tabs_c, words, ln, seeded=True, nullable=False),
+                lambda: SP.sparse_stream_stats_plain(tabs_c, pw, pl, seeded=True, nullable=False),
+                lambda: SP.sparse_stats(d, ln, tabs_c, seeded=True, nullable=False),
+                "stats", 3, 8 * R_w),
+            "rrx_sparse_stream_flags": (
+                lambda: SP.sparse_stream_flags(tabs_c, words, seeded=True),
+                lambda: SP.sparse_stream_flags_plain(tabs_c, pw, seeded=True),
+                lambda: SP.sparse_flags(d, ln, tabs_c, seeded=True), "flags", 4,
+                4 * -(-T // 32) * R_w),
+            "rrx_sparse_stream_reverse": (
+                lambda: SP.sparse_stream_reverse(tabs_c, words),
+                lambda: SP.sparse_stream_reverse_plain(tabs_c, pw),
+                lambda: SP.sparse_reverse(d, ln, tabs_c), "reverse", 5, 4 * -(-T // 32) * R_w),
+        }
+        for name, (kern, plain, byte, what, idx, out_b) in calls.items():
+            got, want = kern(), plain()
+            got = [x[:n] for x in got] if what == "stats" else [got[:, :n]]
+            compare(name, got, want if what == "stats" else [want], f"{tag} {shape}, first {n}",
+                    ("cnt", "first", "any") if what == "stats" else (what,))
+            ms = time_ms(kern, warm=1, runs=runs)
+            plain_ms = time_ms(plain, warm=0, runs=1)
+            byte_ms = time_ms(byte, warm=1, runs=runs)
+            key = (id(tabs_c), id(cd), True, what == "reverse")
+            if key not in census:
+                census[key] = sparse_census(tabs_c, cd, cl, seeded=True, reverse=what == "reverse")
+            bnd = bound(4.0 * T * R_w * W_w + 4 * R_w, out_b, census[key] * scale)
+            sps_ms[name, tag, shape] = (ms, plain_ms, bnd, byte_ms, ms_w)
+            print(f"phase 7: {name} {tag} {shape} [{T} steps x {R_w} records x W = {W_w}, stream "
+                  f"{4 * T * R_w * W_w / 2**30:.2f} GiB]: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
+                  f"on {n} records; bound {bnd[0]:.4f} ms by {bnd[1]} ({100 * bnd[0] / ms:.2f}% of "
+                  f"it); the byte kernel on the same records {byte_ms:.3f} ms; stream build "
+                  f"{ms_w:.3f} ms [{card}]")
+            print(f"  occupancy {name} ({tag} {shape}): "
+                  f"{sp_occupancy(idx, tabs_c, R_w, what == 'reverse')}; registers "
+                  f"{regs_of(('sp_stream_stats_kernel', 'sp_stream_flags_kernel', 'sp_stream_reverse_kernel')[idx - 3])}")
+        del words, pw
+
+    # the slotted SWAR kernel on config 6 at 10 MB (phase 3's corpus) and
+    # 1 GiB (phase 8's), plain version on the whole 10 MB batch and the first
+    # n_slice records of 1 GiB; beside it the default route's P-channel
+    # u32-word kernel (row 2) on the same data
+    swm_ms = {}
+    tbs = sc6s.tables
+    n_d6 = tbs.deltas.numel()
+    for shape, d, ln in (("10 MB", d10, l10), ("1 GiB", big6, len6)):
+        n = d.shape[0] if shape == "10 MB" else n_slice
+        pd, pl = d[:n].contiguous(), ln[:n].contiguous()
+        got = scan_swar.swar_multi_stats(d, ln, tbs, seeded=True)
+        compare("rrx_swar_multi_stats", [x[:n] for x in got],
+                scan_swar.swar_multi_stats_plain(pd, pl, tbs, seeded=True),
+                f"config 6 {shape}, first {n} records")
+        flags_s = int(got[0].to(torch.int64).sum())
+        bnd = kernel_bound("stats_mc", ln, d.shape[1], 4 * n_d6, P=4, flags=flags_s)
+        ms = time_ms(lambda: scan_swar.swar_multi_stats(d, ln, tbs, seeded=True), warm=2, runs=7,
+                     per_run=5)
+        plain_ms = time_ms(lambda: scan_swar.swar_multi_stats_plain(pd, pl, tbs, seeded=True),
+                           warm=0, runs=1)
+        word_ms = time_ms(lambda: scan_word.word_stats(d, ln, sc6.tables, seeded=True, lead=0,
+                                                       nullable=False), warm=2, runs=7, per_run=5)
+        swm_ms[shape] = (ms, plain_ms, bnd, word_ms)
+        bps = ctypes.c_int(0)
+        _build.check(lib.rrx_occupancy(21, int(n_d6), ctypes.byref(bps)), "rrx_occupancy")
+        tpb = lib.rrx_threads_per_block()
+        print(f"phase 7: rrx_swar_multi_stats config 6 {shape} [{d.shape[0]} x {d.shape[1]}], "
+              f"{n_d6} slotted deltas: kernel {ms:.4f} ms = {d.numel() / ms / 1e6:.1f} GB/s, plain "
+              f"{plain_ms:.3f} ms on {n} records; bound {bnd[0]:.4f} ms by {bnd[1]} "
+              f"({100 * bnd[0] / ms:.2f}% of it); the default route's rrx_word_stats[P] on the same "
+              f"data {word_ms:.4f} ms; occupancy {bps.value * tpb}/{max_threads} threads per SM, "
+              f"grid {-(-d.shape[0] // tpb)} blocks of {tpb}; registers "
+              f"{regs_of('swar_multi_stats_kernel')} [{card}]")
 
     # the six wide kernels (dense multiblock tier) on phase 12's batches:
     # K60+ (s_tile 512, W = 16) over the log text and x(ab|c){300,}y
@@ -4217,7 +4572,7 @@ def main() -> int:
         got, want = [x for x in got if x is not None], [x for x in want if x is not None]
         compare(name, got, want, "K60, 1 MiB", tuple(f"out{i}" for i in range(len(got))))
         ms = time_ms(lambda: kern(s60, g1), warm=1, runs=5)
-        plain_ms = time_ms(lambda: plain(d_small, gs), warm=0, runs=3)
+        plain_ms = time_ms(lambda: plain(d_small, gs), warm=0, runs=1)
         bnd = long_bound(work, g1, W60)
         long_wide_ms[name] = (ms, plain_ms, bnd)
         print(f"phase 7: {name} K60 overlapped windows, 1 GiB [{g1.nw} windows x {g1.T} steps, "
@@ -4424,8 +4779,27 @@ def main() -> int:
                       "first start" if pat_k == CONFIG4
                       else "cat|dog (W = 1), 10 MB (config 1's corpus), every record"),
         })
-    if len(kernels) != 47:
-        fail(f"the kernels line lists {len(kernels)} kernels, not 47")
+    ms, plain_ms, bnd, word_ms = swm_ms["10 MB"]
+    kernels.append({
+        "name": "rrx_swar_multi_stats", "route": "cuda", "source": STATS_SOURCE,
+        "replaces": REPLACES["rrx_swar_multi_stats"],
+        "launches": new_launches["rrx_swar_multi_stats"],
+        "max_abs_err": max_err["rrx_swar_multi_stats"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "shape": f"config 6, 10 MB, 4 patterns, RRX_SWAR_MULTI=1 (rrx_word_stats[P] on the same "
+                 f"data: {word_ms:.4f} ms)",
+    })
+    for name in SPARSE_STREAM_KERNELS:
+        ms, plain_ms, bnd, byte_ms, ms_w = sps_ms[name, "K120", "10 MB"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SPARSE_SOURCE, "replaces": REPLACES[name],
+            "launches": new_launches[name], "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "shape": f"K120 mask stream of 10 MB of log text (plain: 1024 records; stream build "
+                     f"{ms_w:.3f} ms, the byte kernel {byte_ms:.3f} ms)",
+        })
+    if len(kernels) != 51:
+        fail(f"the kernels line lists {len(kernels)} kernels, not 51")
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -469,10 +469,12 @@ class MultiPattern:
     P] and goes to the engine as its accept channels. The port of the JAX
     package's ``MultiPattern`` on its pallas backend: the combined program
     runs on the u32-word or matmul tier (lazy spans from one combined scan,
-    dense multiblock unions of up to 1024 states included) or, multiblock
-    or sparse, on the bitband or container tier (lazy and greedy spans per
-    pattern). Nullable patterns are scanned with the
-    kernels' nullability off and corrected on the host. On the packed
+    dense multiblock unions of up to 1024 states included; with
+    ``RRX_SWAR_MULTI=1`` up to 4 patterns of at most 8 states count on the
+    slotted SWAR scan) or, multiblock or sparse, on the bitband or
+    container tier (lazy and greedy spans per pattern). Nullable patterns
+    are scanned with the kernels' nullability off and corrected on the
+    host. On the packed
     backend one pass over the mask stream counts every channel and spans
     run per pattern; on the XLA backend (one accept channel), and for a
     sparse program with no scanner, every method runs per pattern, as in
@@ -509,15 +511,17 @@ class MultiPattern:
             for p in range(P):
                 A[g * s_tile : (g + 1) * s_tile, g * P + p] = acc_tile[p]
         self.accept_map = A
-        # per-pattern programs when every pattern fits the 8-state SWAR tile,
-        # as the JAX package builds them for its slotted SWAR scan (off by
-        # default there, not ported here: ROADMAP.md queue B row 6)
+        # per-pattern programs when every pattern fits the 8-state SWAR tile:
+        # with swar_multi on (RRX_SWAR_MULTI=1, off by default, as in the JAX
+        # package) the engine runs the combined grep scan slotted, 4 tiny
+        # sub-automata per u32 (SwarMultiScanner)
         self.subprograms = (
             [compile_program(n) for n in nfas]
             if P <= 4 and all(n.n_states <= 8 for n in nfas) else None
         )
         self.engine = ScanEngine(prog, device, backend=backend, accept_map=A,
-                                 channels_per_record=P, nullable=False)
+                                 channels_per_record=P, nullable=False,
+                                 subprograms=self.subprograms)
         sc = self.engine.device_scanner
         # the per-pattern fallback of the JAX package: the unpacked XLA
         # backend has one accept channel, and so has a sparse program

@@ -9,6 +9,10 @@
 //                      with P accept channels, a multi-pattern program's
 //                      per-channel bit-logs [T/8, ROWS*P, B] and their
 //                      reduction to [R, P] statistics)
+//   rrx_swar_multi_stats <- roaringregex_tpu/ops/scan_swar.py _swar_multi_kernel
+//                      (via SwarScanner._run_swar_multi :1493) + _swar_stats
+//                      per byte lane, nullable=False (a MultiPattern of up to
+//                      4 patterns of <= 8 states, RRX_SWAR_MULTI=1)
 //
 // What both compute, per record r of data[R, stride] (uint8, bytes 0..len-1
 // live), as the scanner method match_stats_b does:
@@ -80,6 +84,20 @@
 //   per-thread global scratch that stays in L1. The channel masks sit in
 //   shared memory after the tables. P = 1 launches the single-channel kernel
 //   above, unchanged.
+// - Slots (rrx_swar_multi_stats). The TPU packed 4 records x 4 patterns
+//   into each u32 lane: a record's byte replicated across a quad of lanes,
+//   pattern k's 8-bit set in byte lane k, the gate masks restricted per
+//   slot. Here one thread keeps one record's four slots in one u32: the
+//   host's slotted (delta, table) form (scan_swar.swar_multi_tables) puts
+//   pattern k's target bits in byte lane k, and no shift moves a bit of one
+//   slot to a target bit of another (SwarMultiSpec's argument), so the step
+//   is the same shift/AND/OR as above; the seed is state 0 of every slot.
+//   Each slot's flag, `$` carry and (cnt, first, last) live in registers
+//   (4 x 3 ints, loops unrolled over the 4 slots); a step whose state meets
+//   no slot's accept bits (one AND with their union) touches none of them.
+//   Bound: as rrx_swar_stats, integer issue per byte (n_delta slotted pairs
+//   plus the per-slot bookkeeping on accepting steps), one byte read per
+//   scanned byte for all P patterns.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -276,6 +294,76 @@ int launch(const void* data, long long stride, int L, const void* lengths, int R
   return static_cast<int>(cudaGetLastError());
 }
 
+// The slotted multi-pattern scan: up to 4 patterns of at most 8 states, one
+// byte lane ("slot") of the u32 state each. The seed is state 0 of every
+// slot; slot k's flag is (v & accs[k]) != 0, with its own `$` dedup (prev:
+// bit k = slot k flagged at the step before) and its own (cnt, first step,
+// last step) in registers; the outputs are the non-nullable closed forms,
+// [R][P].
+constexpr uint32_t kSlotSeed = 0x01010101u;
+
+__global__ void __launch_bounds__(kThreads)
+swar_multi_stats_kernel(const uint8_t* __restrict__ data, long long stride, int L,
+                        const int32_t* __restrict__ lengths, int R,
+                        const uint32_t* __restrict__ tab_g,
+                        const int32_t* __restrict__ deltas_g, int n_d, uint32_t acc_union,
+                        int P, const uint32_t* __restrict__ accs_g, int seeded,
+                        int32_t* __restrict__ cnt_o, int32_t* __restrict__ first_o,
+                        int32_t* __restrict__ last_o, uint8_t* __restrict__ full_o) {
+  extern __shared__ uint32_t smem[];
+  const Tables tb = load_tables(smem, tab_g, deltas_g, n_d);
+
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const Row rec = record(data, stride, L, lengths, r);
+  const int len = rec.len;
+  uint32_t acc[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] = k < P ? __ldg(accs_g + k) : 0u;
+
+  uint32_t v = 0u;
+  uint32_t prev = 0u;
+  int cnt[4], first[4], last[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    cnt[k] = 0;
+    first[k] = kBig;
+    last[k] = -1;
+  }
+  auto step = [&](int t, int sym, bool eos) {
+    v = tb.fwd(v | ((seeded || t < 2) ? kSlotSeed : 0u), sym);
+    if ((v & acc_union) == 0u) {
+      prev = 0u;
+      return;
+    }
+    uint32_t fl = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool f = (v & acc[k]) != 0u;
+      fl |= f ? 1u << k : 0u;
+      const bool emit = f && !(eos && ((prev >> k) & 1u) != 0u);
+      cnt[k] += emit ? 1 : 0;
+      first[k] = (emit && first[k] == kBig) ? t : first[k];
+      last[k] = emit ? t : last[k];
+    }
+    prev = fl;
+  };
+  step(0, kBos, false);
+  walk_fwd(rec.row, 0, len, [&](int t, int sym) { step(t, sym, false); },
+           [] { return false; });
+  step(len + 1, kEos, true);
+
+  const size_t row = static_cast<size_t>(r) * P;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (k >= P) break;
+    cnt_o[row + k] = cnt[k];
+    first_o[row + k] = first[k] >= kBig ? -1 : min(first[k], len);
+    last_o[row + k] = last[k] < 0 ? -1 : min(last[k], len);
+    full_o[row + k] = (cnt[k] > 0 && last[k] >= len) ? 1 : 0;
+  }
+}
+
 template <int kStates>
 int occupancy(int n_d, int* blocks_per_sm) {
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -318,6 +406,31 @@ int rrx_word_stats(const void* data, long long stride, int L, const void* length
                       lead, nullable, cnt, first, last, full, stream);
 }
 
+// The slotted multi-pattern SWAR scan: P (1..4) slots, accs [P] uint32 slot
+// accept masks on the card (slot k's within byte lane k; acc = their
+// union), outputs [R][P].
+int rrx_swar_multi_stats(const void* data, long long stride, int L, const void* lengths,
+                         int R, const void* tab, const void* deltas, int n_d, unsigned acc,
+                         int P, const void* accs, int seeded, void* cnt, void* first,
+                         void* last, void* full, void* stream) {
+  int e = check_args(data, stride, L, R, n_d, acc, 32);
+  if (e != 0) return e;
+  if (P < 1 || P > 4 || accs == nullptr || (P < 4 && (acc >> (8 * P)) != 0u)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (R == 0) return 0;
+  const size_t smem = smem_bytes(n_d);
+  e = allow_smem(swar_multi_stats_kernel, smem);
+  if (e != 0) return e;
+  const int blocks = (R + kThreads - 1) / kThreads;
+  swar_multi_stats_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(data), stride, L, static_cast<const int32_t*>(lengths), R,
+      static_cast<const uint32_t*>(tab), static_cast<const int32_t*>(deltas), n_d, acc, P,
+      static_cast<const uint32_t*>(accs), seeded, static_cast<int32_t*>(cnt),
+      static_cast<int32_t*>(first), static_cast<int32_t*>(last), static_cast<uint8_t*>(full));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Resident blocks per SM of one kernel (theoretical occupancy). Kernel
 // index: 0 rrx_swar_stats, 1 rrx_word_stats (one channel), then the span kernels of
 // scan_spans.cu: 2 rrx_swar_reverse, 3 rrx_swar_lazy_spans,
@@ -327,7 +440,9 @@ int rrx_word_stats(const void* data, long long stride, int L, const void* length
 // 9 rrx_nfa_lazy_spans, 10 rrx_nfa_greedy_spans, 11 rrx_nfa_flags; for these
 // `size` is s_tile. Then the counting-tier kernels of scan_count.cu:
 // 12 rrx_count_stats, 13 rrx_count_flags, 14 rrx_count_reverse; for these
-// `size` is the body length k.
+// `size` is the body length k. 17-20: the long-string window kernels of
+// scan_long.cu (`size` = s_tile); 21: rrx_swar_multi_stats (`size` = the
+// table's delta count).
 int rrx_occupancy(int kernel, int size, int* blocks_per_sm) {
   if (kernel == 0) return occupancy<8>(size, blocks_per_sm);
   if (kernel == 1) return occupancy<32>(size, blocks_per_sm);
@@ -335,6 +450,11 @@ int rrx_occupancy(int kernel, int size, int* blocks_per_sm) {
   if (kernel < 12) return nfa_occupancy(kernel - 6, size, blocks_per_sm);
   if (kernel < 15) return count_occupancy(kernel - 12, size, blocks_per_sm);
   if (kernel >= 17 && kernel < 21) return long_occupancy(kernel - 17, size, blocks_per_sm);
+  if (kernel == 21) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, swar_multi_stats_kernel, kThreads, smem_bytes(size));
+    return static_cast<int>(e);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -2,11 +2,16 @@
 // candidate starts of multiblock and sparse programs whose follow matrix is
 // kept as 128 x 128 blocks (ops/scan_sparse.py, device_sparse_tables).
 //
-// Replaces the three Pallas TPU call sites of the JAX package's
-// roaringregex_tpu/ops/scan_pallas.py container byte path:
+// Replaces the six Pallas TPU call sites of the JAX package's container
+// kernels, all in roaringregex_tpu/ops/scan_pallas.py. The byte path:
 //   rrx_sparse_stats   <- _sparse_match_kernel_b   (via _match_call_b :3136)
 //   rrx_sparse_flags   <- _sparse_flags_kernel_b   (via _flags_call_b :3194)
 //   rrx_sparse_reverse <- _sparse_reverse_kernel_b (via _reverse_call_b :3243)
+// and the stream-fed methods of SparseScanner (inherited by BitbandScanner),
+// whose symbol masks come from a mask stream instead of bytes:
+//   rrx_sparse_stream_stats   <- _sparse_match_kernel   (via _match_call :849)
+//   rrx_sparse_stream_flags   <- _sparse_flags_kernel   (via _flags_call :900)
+//   rrx_sparse_stream_reverse <- _sparse_reverse_kernel (via _reverse_call :941)
 //
 // What they compute. A record's state set is W = lanes / 32 uint32 words
 // (bit s % 32 of word s / 32 = state s), nb = lanes / 128 blocks of 4 words.
@@ -67,6 +72,17 @@
 //   bound by integer and shared-memory issue; HBM carries one input byte per
 //   step (all lanes read the same 16-byte chunk) and 1 bit per step of flag
 //   or hit words.
+// - The stream-fed kernels run the same step with the mask of output block o
+//   read from the record's stream row (words[t][r][4o .. 4o+3], one 16-byte
+//   load that every lane of the warp shares) where the byte kernels look up
+//   the symbol's row; an output block whose stream mask is zero costs that
+//   load and nothing else. They walk every step t < T of the stream as the
+//   JAX kernels do (the rows past a record's EOS are zero, so those steps
+//   only seed and clear), with the unseeded stop above, and take one accept
+//   channel (the JAX kernels read one accept row; a scanner with channels
+//   raises before it gets here). Their input is 4 W bytes a record-step
+//   instead of one byte, so HBM carries 4 W times the byte kernels' input:
+//   104-192 bytes per input byte at W = 26-48.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -158,20 +174,23 @@ __device__ __forceinline__ uint32_t* warp_buf(uint32_t* smem, int n_meta, int W,
 
 // One expansion of src into dst (both [nb] 16-byte blocks of one warp's
 // buffers). Forward (kFwd): the seed ORs state 0 into source block 0 when
-// gate, and each output block is masked by the symbol's row (mrow < 0: no
-// row, all zero), skipping an output block whose mask is zero; the union
-// accept row's test comes back in acc_hit. Reverse: no mask (src is
-// already masked). Returns whether any state of dst is live (forward) or
-// state 0 is (reverse). Lane 0 writes dst; the caller syncs the warp.
-template <bool kGlobal, bool kFwd>
+// gate, and each output block is masked by the step's mask row mrow ([nb]
+// 16-byte words; null: no row, all zero), skipping an output block whose
+// mask is zero; the union accept row's test comes back in acc_hit. The row
+// is the table's (a symbol's row: shared or global with the table) or,
+// kStream, the record's row of the mask stream in global memory. Reverse:
+// no mask (src is already masked). Returns whether any state of dst is live
+// (forward) or state 0 is (reverse). Lane 0 writes dst; the caller syncs
+// the warp.
+template <bool kGlobal, bool kFwd, bool kStream = false>
 __device__ __forceinline__ bool expand(const Sp& sp, const uint4* src, uint4* dst, bool gate,
-                                       int mrow, bool& acc_hit, int lane) {
+                                       const uint4* mrow, bool& acc_hit, int lane) {
   bool live = false;
   acc_hit = false;
   const int* ptr = sp.meta + kMetaPtr;
   for (int o = 0; o < sp.nb; ++o) {
     uint4 m = make_uint4(kFull, kFull, kFull, kFull);
-    if (kFwd) m = mrow >= 0 ? ld<kGlobal>(sp.mask + mrow * sp.nb + o) : make_uint4(0, 0, 0, 0);
+    if (kFwd) m = mrow != nullptr ? ld<kGlobal || kStream>(mrow + o) : make_uint4(0, 0, 0, 0);
     uint4 y = make_uint4(0, 0, 0, 0);
     if (nz(m)) {
       uint4 a = make_uint4(0, 0, 0, 0);
@@ -220,6 +239,12 @@ __device__ __forceinline__ bool expand(const Sp& sp, const uint4* src, uint4* ds
     }
   }
   return live;
+}
+
+// The mask row of a symbol (null: a symbol in no run, a zero mask).
+__device__ __forceinline__ const uint4* sym_row(const Sp& sp, int sym) {
+  const int mr = sp.meta[kMetaSyms + sym];
+  return mr >= 0 ? sp.mask + mr * sp.nb : nullptr;
 }
 
 // Channel c's accept test on the warp's state buffer v.
@@ -312,7 +337,7 @@ __global__ void __launch_bounds__(kSpThreads)
     walk_fwd_until(rec.row, len, [&](int t, int sym) {
       const bool gate = seeded || t < 2;
       bool hit;
-      const bool alive = expand<kGlobal, true>(sp, va, vb, gate, sp.meta[kMetaSyms + sym], hit,
+      const bool alive = expand<kGlobal, true>(sp, va, vb, gate, sym_row(sp, sym), hit,
                                                lane);
       __syncwarp();
       if (hit) {
@@ -351,7 +376,7 @@ __global__ void __launch_bounds__(kSpThreads)
     walk_fwd_until(rec.row, len, [&](int t, int sym) {
       const bool gate = seeded || t < 2;
       bool hit;
-      const bool alive = expand<kGlobal, true>(sp, va, vb, gate, sp.meta[kMetaSyms + sym], hit,
+      const bool alive = expand<kGlobal, true>(sp, va, vb, gate, sym_row(sp, sym), hit,
                                                lane);
       __syncwarp();
       if (hit) {
@@ -395,7 +420,7 @@ __global__ void __launch_bounds__(kSpThreads)
       }
       __syncwarp();
       bool unused;
-      const bool h = expand<kGlobal, false>(sp, vb, va, false, -1, unused, lane);
+      const bool h = expand<kGlobal, false>(sp, vb, va, false, nullptr, unused, lane);
       __syncwarp();
       word |= (h ? 1u : 0u) << (t & 31);
       if ((t & 31) == 0) {
@@ -403,6 +428,130 @@ __global__ void __launch_bounds__(kSpThreads)
         word = 0;
       }
     });
+  }
+}
+
+// ---- the stream-fed kernels: the mask of step t is the record's row of the
+// mask stream words[t][r][0 .. W) (16-byte words, nb of them), every step
+// t < T of the stream is run (the stream's rows past a record's EOS are
+// zero), and an unseeded scan stops at its first empty state past step 1.
+// One accept channel: the forward table's union row.
+#define RRX_SPS_PARAMS                                                                 \
+  const uint4 *words, int T, int R, const uint32_t *tab_g, const int32_t *meta_g,     \
+      int n_meta, int32_t *next
+
+// Record r's stream row at step t.
+__device__ __forceinline__ const uint4* stream_row(const uint4* words, int R, int nb, int r,
+                                                   int t) {
+  return words + (static_cast<size_t>(t) * R + r) * nb;
+}
+
+template <bool kGlobal>
+__global__ void __launch_bounds__(kSpThreads)
+    sp_stream_stats_kernel(RRX_SPS_PARAMS, const int32_t* lengths, int seeded, int nullable,
+                           int32_t* cnt_o, int32_t* first_o) {
+  const int32_t* const live = nullptr;
+  RRX_SP_SETUP
+  const bool dedup = !(nullable && seeded);
+  RRX_SP_RECORDS {
+    uint4 *va = buf_a, *vb = buf_b;
+    for (int i = lane; i < sp.nb; i += 32) va[i] = make_uint4(0, 0, 0, 0);
+    __syncwarp();
+    const int len = lengths[r];
+    int cnt = nullable ? (seeded ? len + 1 : 1) : 0;
+    int first = nullable ? 0 : -1;
+    int last = nullable ? (seeded ? len : 0) : -1;
+#pragma unroll 1
+    for (int t = 0; t < T; ++t) {
+      bool hit;
+      const bool alive = expand<kGlobal, true, true>(
+          sp, va, vb, seeded || t < 2, stream_row(words, R, sp.nb, r, t), hit, lane);
+      __syncwarp();
+      if (hit) {
+        const int e = min(t, len);
+        cnt += (dedup && e != last) ? 1 : 0;
+        first = first < 0 ? e : first;
+        last = e;
+      }
+      uint4* tmp = va;
+      va = vb;
+      vb = tmp;
+      // unseeded: past the last seed step an empty state set accepts nothing
+      if (!seeded && t >= 1 && !alive) break;
+    }
+    if (lane == 0) {
+      cnt_o[r] = cnt;
+      first_o[r] = first;
+    }
+  }
+}
+
+template <bool kGlobal>
+__global__ void __launch_bounds__(kSpThreads)
+    sp_stream_flags_kernel(RRX_SPS_PARAMS, int seeded, uint32_t* flags) {
+  const int32_t* const live = nullptr;
+  RRX_SP_SETUP
+  const int Wt = (T + 31) >> 5;
+  RRX_SP_RECORDS {
+    uint4 *va = buf_a, *vb = buf_b;
+    for (int i = lane; i < sp.nb; i += 32) va[i] = make_uint4(0, 0, 0, 0);
+    __syncwarp();
+    uint32_t word = 0u;
+#pragma unroll 1
+    for (int t = 0; t < T; ++t) {
+      bool hit;
+      const bool alive = expand<kGlobal, true, true>(
+          sp, va, vb, seeded || t < 2, stream_row(words, R, sp.nb, r, t), hit, lane);
+      __syncwarp();
+      word |= (hit ? 1u : 0u) << (t & 31);
+      const bool closes = (t & 31) == 31 || t == T - 1;  // walking up, bit t closes word t/32
+      if (closes) {
+        if (lane == 0) flags[static_cast<size_t>(t >> 5) * R + r] = word;
+        word = 0u;
+      }
+      uint4* tmp = va;
+      va = vb;
+      vb = tmp;
+      if (!seeded && t >= 1 && !alive) {
+        // the rest of the flags are zero: this word, then the words after it
+        if (!closes && lane == 0) flags[static_cast<size_t>(t >> 5) * R + r] = word;
+        for (int i = (t >> 5) + 1 + lane; i < Wt; i += 32) {
+          flags[static_cast<size_t>(i) * R + r] = 0u;
+        }
+        break;
+      }
+    }
+  }
+}
+
+template <bool kGlobal>
+__global__ void __launch_bounds__(kSpThreads)
+    sp_stream_reverse_kernel(RRX_SPS_PARAMS, uint32_t* hits) {
+  const int32_t* const live = nullptr;
+  RRX_SP_SETUP
+  RRX_SP_RECORDS {
+    uint4 *va = buf_a, *vb = buf_b;
+    for (int i = lane; i < sp.nb; i += 32) va[i] = make_uint4(0, 0, 0, 0);
+    __syncwarp();
+    uint32_t word = 0u;
+#pragma unroll 1
+    for (int t = T - 1; t >= 0; --t) {
+      // vb = (R | acc) & m_t, then R = expand(vb) into va
+      const uint4* m = stream_row(words, R, sp.nb, r, t);
+      for (int o = lane; o < sp.nb; o += 32) {
+        const uint4 a = ld<kGlobal>(sp.acc + o), v = va[o];
+        vb[o] = and4(make_uint4(v.x | a.x, v.y | a.y, v.z | a.z, v.w | a.w), __ldg(m + o));
+      }
+      __syncwarp();
+      bool unused;
+      const bool h = expand<kGlobal, false>(sp, vb, va, false, nullptr, unused, lane);
+      __syncwarp();
+      word |= (h ? 1u : 0u) << (t & 31);
+      if ((t & 31) == 0) {  // walking down, bit t closes word t/32
+        if (lane == 0) hits[static_cast<size_t>(t >> 5) * R + r] = word;
+        word = 0u;
+      }
+    }
   }
 }
 
@@ -416,6 +565,16 @@ int check_sp(const void* data, long long stride, int L, int R, int n_tab, int n_
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return check_rows(data, stride, L, R);
+}
+
+// The stream-fed launchers' checks: the stream's shape and alignment (16-byte
+// rows: W a multiple of 4) and the tables' (check_sp without the rows).
+int check_sp_stream(const void* words, int T, int R, int n_tab, int n_meta, int W) {
+  if (T < 0 || R < 0 || (reinterpret_cast<uintptr_t>(words) & 15u) != 0 ||
+      (words == nullptr && static_cast<long long>(T) * R > 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return check_sp(nullptr, 16, 0, 0, n_tab, n_meta, W);
 }
 
 // One block per kWarps records, but no more blocks than fit on the card at
@@ -509,9 +668,59 @@ int rrx_sparse_reverse(RRX_SP_HEAD, void* hits, void* stream) {
   return global_tab ? args(sp_reverse_kernel<true>) : args(sp_reverse_kernel<false>);
 }
 
+// The stream-fed container kernels. Every entry point: the mask stream
+// words [T][R][W] uint32 (16-byte aligned; ops/scan_packed
+// .mask_stream_from_bytes on the program's stream tables), then the table of
+// its direction, its meta and W, the form and next as above (no live), its
+// own arguments and the stream. One accept channel (the wrapper refuses
+// tables of more).
+#define RRX_SPS_HEAD                                                                     \
+  const void *words, int T, int R, const void *tab, int n_tab, const void *meta,         \
+      int n_meta, int W, int global_tab, void *next
+#define RRX_SPS_ARGS                                                                     \
+  static_cast<const uint4*>(words), T, R, static_cast<const uint32_t*>(tab),              \
+      static_cast<const int32_t*>(meta), n_meta, static_cast<int32_t*>(next)
+
+// lengths: [R] int32; cnt, first: [R] int32
+int rrx_sparse_stream_stats(RRX_SPS_HEAD, const void* lengths, int seeded, int nullable,
+                            void* cnt, void* first, void* stream) {
+  const int bad = check_sp_stream(words, T, R, n_tab, n_meta, W);
+  if (bad != 0) return bad;
+  const size_t smem = sparse_smem_bytes(n_tab, n_meta, W, global_tab != 0);
+  auto args = [&](auto k) {
+    return launch_sp(k, R, smem, stream, RRX_SPS_ARGS, static_cast<const int32_t*>(lengths),
+                     seeded, nullable, static_cast<int32_t*>(cnt), static_cast<int32_t*>(first));
+  };
+  return global_tab ? args(sp_stream_stats_kernel<true>) : args(sp_stream_stats_kernel<false>);
+}
+
+// flags: [ceil(T/32)][R] uint32, bit t = step t's accept flag
+int rrx_sparse_stream_flags(RRX_SPS_HEAD, int seeded, void* flags, void* stream) {
+  const int bad = check_sp_stream(words, T, R, n_tab, n_meta, W);
+  if (bad != 0) return bad;
+  const size_t smem = sparse_smem_bytes(n_tab, n_meta, W, global_tab != 0);
+  auto args = [&](auto k) {
+    return launch_sp(k, R, smem, stream, RRX_SPS_ARGS, seeded, static_cast<uint32_t*>(flags));
+  };
+  return global_tab ? args(sp_stream_flags_kernel<true>) : args(sp_stream_flags_kernel<false>);
+}
+
+// tab: the reverse table; hits: [ceil(T/32)][R] uint32, bit t = state 0 is in
+// R after step t
+int rrx_sparse_stream_reverse(RRX_SPS_HEAD, void* hits, void* stream) {
+  const int bad = check_sp_stream(words, T, R, n_tab, n_meta, W);
+  if (bad != 0) return bad;
+  const size_t smem = sparse_smem_bytes(n_tab, n_meta, W, global_tab != 0);
+  auto args = [&](auto k) {
+    return launch_sp(k, R, smem, stream, RRX_SPS_ARGS, static_cast<uint32_t*>(hits));
+  };
+  return global_tab ? args(sp_stream_reverse_kernel<true>)
+                    : args(sp_stream_reverse_kernel<false>);
+}
+
 // Resident blocks per SM (theoretical occupancy) of a container kernel for
 // a table of n_tab words, a meta of n_meta and W state words: 0 stats,
-// 1 flags, 2 reverse.
+// 1 flags, 2 reverse; the stream-fed ones 3 stats, 4 flags, 5 reverse.
 int rrx_sparse_occupancy(int kernel, int n_tab, int n_meta, int W, int global_tab,
                          int* blocks_per_sm) {
   const size_t smem = sparse_smem_bytes(n_tab, n_meta, W, global_tab != 0);
@@ -528,6 +737,18 @@ int rrx_sparse_occupancy(int kernel, int n_tab, int n_meta, int W, int global_ta
       return occupancy_sp(sp_reverse_kernel<false>, smem, blocks_per_sm);
     case 5:
       return occupancy_sp(sp_reverse_kernel<true>, smem, blocks_per_sm);
+    case 6:
+      return occupancy_sp(sp_stream_stats_kernel<false>, smem, blocks_per_sm);
+    case 7:
+      return occupancy_sp(sp_stream_stats_kernel<true>, smem, blocks_per_sm);
+    case 8:
+      return occupancy_sp(sp_stream_flags_kernel<false>, smem, blocks_per_sm);
+    case 9:
+      return occupancy_sp(sp_stream_flags_kernel<true>, smem, blocks_per_sm);
+    case 10:
+      return occupancy_sp(sp_stream_reverse_kernel<false>, smem, blocks_per_sm);
+    case 11:
+      return occupancy_sp(sp_stream_reverse_kernel<true>, smem, blocks_per_sm);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

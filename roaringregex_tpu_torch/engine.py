@@ -22,8 +22,11 @@ too) goes to the dense multiblock matmul: the matmul tier's
 With an accept map (``accept_map`` [lanes, G * P], ``channels_per_record``
 P: the multi-pattern interface of ``MultiPattern``'s combined automaton)
 there is no counting plan, no SWAR tier, no seeded alias unless P = 1 and
-no window plan: the program runs on the u32-word tier when ``word_spec``
-takes its channels, else on the matmul tier (or, multiblock or sparse, on
+no window plan: with ``swar_multi`` on (``RRX_SWAR_MULTI=1``) and
+``subprograms`` (one program per pattern) that ``swar_multi_spec`` takes,
+the program runs on the slotted SWAR scan (``SwarMultiScanner``, up to 4
+patterns of at most 8 states, as in the JAX engine), else on the u32-word
+tier when ``word_spec`` takes its channels, else on the matmul tier (or, multiblock or sparse, on
 the bitband or container tier as above), ``match_stats`` returns [B * P]
 per statistic, and every primitive that reads one accept set raises.
 
@@ -201,12 +204,14 @@ class ScanEngine:
     ``channels_per_record``) widens the accept reduction to per-channel
     statistics (one combined automaton, one scan); ``nullable`` overrides
     the kernels' nullability (multi-pattern scans turn it off and correct
-    nullable channels on the host)."""
+    nullable channels on the host); ``subprograms`` (one program per
+    pattern, ``MultiPattern``'s) enable the slotted SWAR scan when
+    ``swar_multi`` is on."""
 
     def __init__(self, prog: DeviceProgram, device, *, backend=None, accept_map=None,
-                 channels_per_record: int = 1, nullable=None):
+                 channels_per_record: int = 1, nullable=None, subprograms=None):
         from .ops.scan_pallas import CountScanner, PallasScanner, counting_plan
-        from .ops.scan_swar import SwarScanner, swar_spec
+        from .ops.scan_swar import SwarMultiScanner, SwarScanner, swar_multi_spec, swar_spec
         from .ops.scan_word import WordScanner, word_spec
         from .utils.config import get_config
 
@@ -241,6 +246,12 @@ class ScanEngine:
             self._scanner = self._big_tier(prog, accept_map, nullable)
         elif accept_map is None and self.P == 1 and cfg.swar and swar_spec(prog) is not None:
             self._scanner = SwarScanner(prog, self.device, nullable=nullable)
+        elif (cfg.swar and cfg.swar_multi and accept_map is not None and subprograms
+              and self.P == len(subprograms)
+              and (mspec := swar_multi_spec(subprograms)) is not None):
+            # 4 patterns per u32, a byte lane each (JAX engine.py:339-360)
+            self._scanner = SwarMultiScanner(prog, self.device, mspec, self.P, accept_map,
+                                             nullable=nullable)
         elif cfg.swar and word_spec(prog, accept_map, self.P) is not None:
             self._scanner = WordScanner(prog, self.device, accept_map=accept_map, P=self.P,
                                         nullable=nullable)

@@ -61,6 +61,8 @@ _SP_HEAD = [
     _P, _I, _P, _I, _I, _I, _P, _P,  # tab, n_tab, meta, n_meta, W, global_tab, live, next
 ]
 _STREAM_HEAD = [_P, _I, _I, _P, _I]  # words [T][R][W], T, R, tab, s_tile
+# words [T][R][W], T, R, tab, n_tab, meta, n_meta, W, global_tab, next
+_SP_STREAM_HEAD = [_P, _I, _I, _P, _I, _P, _I, _I, _I, _P]
 _STATS_TAIL = [_I, _I, _I, _P, _P, _P, _P]  # seeded, lead, nullable, cnt, first, last, full
 # every entry point: its head, its own arguments, then the stream. The
 # order of the first fifteen and of the four long-string kernels (17-20) is
@@ -136,6 +138,16 @@ ARGTYPES = {
     "rrx_stream_reverse": _STREAM_HEAD + [_P, _P, _P],  # hits, next
     # lengths, starts, longest, end, next
     "rrx_stream_first_end": _STREAM_HEAD + [_P, _P, _I, _P, _P, _P],
+    # the slotted multi-pattern SWAR scan (scan_bits.cu): P slots, their
+    # accept masks [P], seeded, cnt, first, last, full
+    "rrx_swar_multi_stats": _HEAD + [_I, _P, _I, _P, _P, _P, _P, _P],
+    # the stream-fed container kernels (scan_sparse.cu): words [T][R][W], T,
+    # then the container head without the rows (R, tab, n_tab, meta, n_meta,
+    # W, global_tab, next), each kernel's arguments and the stream
+    # lengths, seeded, nullable, cnt, first
+    "rrx_sparse_stream_stats": _SP_STREAM_HEAD + [_P, _I, _I, _P, _P, _P],
+    "rrx_sparse_stream_flags": _SP_STREAM_HEAD + [_I, _P, _P],  # seeded, flags
+    "rrx_sparse_stream_reverse": _SP_STREAM_HEAD + [_P, _P],  # hits
 }
 KERNELS = tuple(ARGTYPES)
 

@@ -765,7 +765,14 @@ class BitbandScanner(_Scanner):
     results and the primitives that read one accept set raise.
     ``has_anchor`` (one channel, not nullable) enables the anchored rescans
     and the span rounds, as in the JAX scanner. There is no window plan
-    (``byte_window_ok`` is False: the JAX ``SparseScanner``'s)."""
+    (``byte_window_ok`` is False: the JAX ``SparseScanner``'s).
+
+    The stream-fed methods ``match_stats``, ``forward_flags`` and
+    ``reverse_hits`` (a mask stream in place of bytes) run on the container
+    kernels, as the JAX ``BitbandScanner`` inherits them from its
+    ``SparseScanner``: ``scan_sparse.StreamMethods``'s, on the program's
+    container tables, built at the first stream call (the byte route pays
+    nothing for them)."""
 
     byte_window_ok = False
     CHANNEL_METHODS = "match_stats_b and forward_flags_b"
@@ -780,6 +787,7 @@ class BitbandScanner(_Scanner):
         self.acc_static = self.tables.acc_static
         self._anchor_acc_static = self.tables.anchor_static
         self.has_anchor = self.tables.C == 1 and not self.nullable
+        self._sparse = None  # the container tables of the stream-fed methods
 
     def _anchored(self, what: str) -> None:
         self._one_channel(what)
@@ -851,3 +859,31 @@ class BitbandScanner(_Scanner):
         ``over`` = still going after cap rounds."""
         self._anchored("greedy_spans_b")
         return self._spans(data, len_g, cap, True, live)
+
+    # -- stream-fed methods: the container kernels (scan_sparse.StreamMethods)
+    def _stream_tables(self):
+        if self._sparse is None:
+            from .scan_sparse import device_sparse_tables
+
+            self._sparse = device_sparse_tables(self.prog, self.device)
+        return self._sparse
+
+    def match_stats(self, words, len_g, *, seeded: bool):
+        """(cnt, first, any) of the mask stream, each shaped like ``len_g``."""
+        from .scan_sparse import StreamMethods
+
+        return StreamMethods.match_stats(self, words, len_g, seeded=seeded)
+
+    def forward_flags(self, words, *, seeded: bool):
+        """[B, T + 1] bool accept flags of the mask stream; column 0 is the
+        program's nullability."""
+        from .scan_sparse import StreamMethods
+
+        return StreamMethods.forward_flags(self, words, seeded=seeded)
+
+    def reverse_hits(self, words):
+        """[B, T] bool: column j is set iff some match starts at max(j - 1,
+        0)."""
+        from .scan_sparse import StreamMethods
+
+        return StreamMethods.reverse_hits(self, words)

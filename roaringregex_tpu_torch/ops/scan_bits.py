@@ -241,14 +241,16 @@ def stats_plain(
     seeded: bool,
     lead: int,
     nullable: bool,
+    seed: int = 1,
 ):
     """Plain PyTorch version of the kernel: a loop over the L + 2 stream
     steps, vectorised over records and accept channels, in int64 masked
     to 32 bits (torch on the CPU lacks uint32 shifts). Each channel has its
     own flags, its own `$` dedup (the EOS step's flag is dropped when the
     channel flagged at step len) and its own (cnt, first, last, full).
-    Returns (cnt, first, last, full), each [R, P] for tables with accept
-    channels and [R] for one channel."""
+    ``seed``: the initial states ORed in (state 0; the slotted SWAR scan's
+    state 0 of every slot). Returns (cnt, first, last, full), each [R, P]
+    for tables with accept channels and [R] for one channel."""
     _check_inputs(data, lengths)
     R, L = data.shape
     dev = data.device
@@ -269,7 +271,7 @@ def stats_plain(
     for t in range(L + 2):
         sym = _sym(data, ln[:, 0], t)
         eos = (sym == SYM_EOS)[:, None]
-        v = pt.fwd(v | 1 if (seeded or t < 2) else v, sym)
+        v = pt.fwd(v | seed if (seeded or t < 2) else v, sym)
         fl = (v[:, None] & accm) != 0
         emit = fl & ~(eos & prev)
         prev = fl
@@ -557,6 +559,23 @@ def launch_stats(
         entry, data, lengths, tables, *chan,
         int(seeded), int(lead if lead > 0 else -1), int(nullable), cnt, first, last, full,
     )
+    return cnt, first, last, full.view(torch.bool)
+
+
+def launch_swar_multi(data: torch.Tensor, lengths: torch.Tensor, tables: ScanTables, *,
+                      seeded: bool):
+    """Launch ``rrx_swar_multi_stats`` on slotted tables (one accept mask
+    per slot, ``tables.accs`` [P], P <= 4). Returns (cnt, first, last,
+    full), each [R, P]."""
+    if tables.accs is None or not 1 <= tables.P <= 4:
+        raise ValueError(f"rrx_swar_multi_stats takes 1 to 4 slot accept masks, got "
+                         f"{None if tables.accs is None else tables.P}")
+    R, dev = data.shape[0], data.device
+    shape = (R, tables.P)
+    cnt, first, last = (torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3))
+    full = torch.empty(shape, dtype=torch.uint8, device=dev)
+    _launch("rrx_swar_multi_stats", data, lengths, tables, tables.P, tables.accs, int(seeded),
+            cnt, first, last, full)
     return cnt, first, last, full.view(torch.bool)
 
 

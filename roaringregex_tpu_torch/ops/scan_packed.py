@@ -11,7 +11,9 @@ backend (``ScanEngine(prog, device, backend="packed")``) and its anchored
 rescans of the dense and multiblock programs whose scanner has no anchored
 kernels (the counting tier's config 4, ``a{1,300}``; the container tier's
 multiblock programs), as in the JAX engine (``engine.py:825-835``). The
-stream-fed methods of ``scan_pallas.PallasScanner`` run on the same four.
+stream-fed methods of ``scan_pallas.PallasScanner`` run on the same four;
+those of ``scan_sparse.SparseScanner`` and ``scan_bitband.BitbandScanner``
+take the same stream on the container kernels (``scan_sparse``).
 
 Layout. The JAX package packs G records of ``s_tile`` lanes into one
 128- or 256-lane MXU row (``words[t, row, w]``); that is a TPU layout. The
@@ -56,8 +58,10 @@ def _i32(x: np.ndarray) -> torch.Tensor:
 
 
 def stream_tables(prog: DeviceProgram, device) -> Tables:
-    """The byte -> mask translation of any dense or multiblock program on
-    ``device``: the byte runs of its class map (``run_lo``, ``run_hi``,
+    """The byte -> mask translation of any program on ``device`` (dense,
+    multiblock or sparse: the container and bitband scanners' stream-fed
+    methods take a sparse program's stream, Wt = s_pad / 32): the byte runs
+    of its class map (``run_lo``, ``run_hi``,
     ``run_cls`` [R] int64), the BOS and EOS mask words [Wt], the class
     masks ``Bc_words`` [c_pad, Wt] and ``byte_words`` [256, Wt], every
     byte's mask (zero for bytes >= 0x80, whose class is dead); mask words

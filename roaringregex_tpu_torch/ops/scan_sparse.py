@@ -3,8 +3,11 @@ and sparse programs whose follow matrix does not decompose into bitband
 diagonals.
 
 The port of ``roaringregex_tpu/ops/scan_pallas.py``'s ``SparseScanner``
-(``scan_pallas.py:775-845``, its byte path ``_add_sparse_byte_path``
-:3125-3289). The follow matrix F of ``lanes`` states (a multiple of 128) is
+(``scan_pallas.py:775-845``): its byte path (``_add_sparse_byte_path``
+:3125-3289) and its stream-fed methods (``_match_call`` :849,
+``_flags_call`` :900, ``_reverse_call`` :941: ``match_stats``,
+``forward_flags`` and ``reverse_hits`` over a mask stream, which the JAX
+``BitbandScanner`` inherits; here :class:`StreamMethods`). The follow matrix F of ``lanes`` states (a multiple of 128) is
 split into 128 x 128 blocks by ``prog.sparse_partition``: the all-ones
 blocks go into the map U [nb, nb] (nb = lanes / 128), the other nonzero
 blocks stay explicit as partial blocks ``pb`` [np, 128, 128] at (prow,
@@ -30,8 +33,14 @@ methods' outputs. The CUDA kernels (``csrc/scan_sparse.cu``) run one warp
 per record with the state in shared memory; the plain PyTorch versions
 here step [R, lanes] bool planes through the blocks of
 ``sparse_partition`` (0/1 float32 products, exact: every sum is at most
-128). Each wrapper runs its plain version for a CPU tensor only and
-launches its kernel (counted in ``.launches``) for a CUDA tensor.
+128). The stream-fed kernels (``rrx_sparse_stream_stats``, ``_flags``,
+``_reverse``) run the same step with the mask of step t read from the
+record's row of the mask stream (``scan_packed.mask_stream_from_bytes``,
+[T, B, W] int32, W = lanes / 32) instead of the symbol's row, over every
+step of the stream, with one accept set: a scanner with accept channels
+raises in all three (the JAX kernels read one accept row, channel 0's).
+Each wrapper runs its plain version for a CPU tensor only and launches its
+kernel (counted in ``.launches``) for a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -213,9 +222,13 @@ class _Plain(NamedTuple):
 
     def step(self, v: torch.Tensor, gate: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
         """v' = Fᵀ·(v | gate · seed) & mask[sym] (the seed is state 0)."""
+        return self.step_mask(v, gate, self.M[sym])
+
+    def step_mask(self, v: torch.Tensor, gate: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """v' = Fᵀ·(v | gate · seed) & mask, with ``mask`` [R, lanes] bool."""
         v = v.clone()
         v[:, 0] |= gate
-        return self._expand(v, False) & self.M[sym]
+        return self._expand(v, False) & mask
 
     def flags(self, v: torch.Tensor) -> torch.Tensor:
         """[R, C] bool: a state of accept channel c is live."""
@@ -223,7 +236,11 @@ class _Plain(NamedTuple):
 
     def rev(self, r: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
         """R' = F·((R | acc) & mask[sym])."""
-        return self._expand((r | self.acc) & self.M[sym], True)
+        return self.rev_mask(r, self.M[sym])
+
+    def rev_mask(self, r: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """R' = F·((R | acc) & mask), with ``mask`` [R, lanes] bool."""
+        return self._expand((r | self.acc) & mask, True)
 
     def start(self, r: torch.Tensor) -> torch.Tensor:
         """[R] bool: state 0 is in R."""
@@ -252,6 +269,90 @@ def sparse_reverse_plain(data, lengths, tables: SparseTables):
     ``_sparse_reverse_kernel_b``): ``scan_bits.reverse_plain`` on the
     container stepper, hit words [Wt, R] int32."""
     return sb.reverse_plain(data, lengths, tables)
+
+
+# The stream-fed plain versions: the JAX package's _sparse_match_kernel,
+# _sparse_flags_kernel and _sparse_reverse_kernel, one record a row, over
+# every step of a mask stream words [T, B, W] int32 (bit s of word s // 32:
+# state s may take the step's symbol; ``scan_packed.mask_stream_from_bytes``
+# on the program's ``stream_tables``), with one accept set: the channels'
+# union (the wrappers refuse more than one channel).
+
+
+def _stream_masks(tables: SparseTables, words: torch.Tensor, t: int) -> torch.Tensor:
+    from .scan_packed import unpack_bits
+
+    return unpack_bits(words[t], tables.masks.shape[1])
+
+
+def sparse_stream_stats_plain(tables: SparseTables, words: torch.Tensor, lengths, *,
+                              seeded: bool, nullable: bool):
+    """Plain version of ``rrx_sparse_stream_stats``: the seed (state 0)
+    ORs in at every step when seeded, at steps t < 2 when not; a step whose
+    state meets the accept set has end e = min(t, len): cnt counts the e
+    that differ from the last one (not for a nullable seeded scan), first
+    keeps the first e; nullable starts cnt = len + 1 (seeded) or 1, first
+    = 0, last = len (seeded) or 0. Returns (cnt, first, any), each [B]."""
+    _check_stream(words, tables)
+    T, B, _ = words.shape
+    dev = words.device
+    pt = tables.plain(dev)
+    acc = pt.accs.any(dim=0)
+    ln = torch.as_tensor(lengths, device=dev).reshape(-1).to(torch.int64)
+    v = pt.empty(B, dev)
+    if nullable:
+        cnt = ln + 1 if seeded else torch.ones_like(ln)
+        first = torch.zeros_like(ln)
+        last = ln.clone() if seeded else torch.zeros_like(ln)
+    else:
+        cnt = torch.zeros_like(ln)
+        first = torch.full_like(ln, -1)
+        last = torch.full_like(ln, -1)
+    for t in range(T):
+        gate = torch.full((B,), seeded or t < 2, dtype=torch.bool, device=dev)
+        v = pt.step_mask(v, gate, _stream_masks(tables, words, t))
+        fl = (v & acc).any(dim=1)
+        e = ln.clamp(max=t)
+        if not (nullable and seeded):
+            cnt = cnt + (fl & (e != last)).to(torch.int64)
+        first = torch.where((first < 0) & fl, e, first)
+        last = torch.where(fl, e, last)
+    cnt = cnt.to(torch.int32)
+    return cnt, first.to(torch.int32), cnt > 0
+
+
+def sparse_stream_flags_plain(tables: SparseTables, words: torch.Tensor, *, seeded: bool):
+    """Plain version of ``rrx_sparse_stream_flags``: the loop of
+    :func:`sparse_stream_stats_plain` keeping every step's accept flag as
+    flag words [ceil(T / 32), B] int32, bit t of record b in word t // 32."""
+    _check_stream(words, tables)
+    T, B, _ = words.shape
+    dev = words.device
+    pt = tables.plain(dev)
+    acc = pt.accs.any(dim=0)
+    v = pt.empty(B, dev)
+    fw = torch.zeros((-(-T // 32), B), dtype=torch.int64, device=dev)
+    for t in range(T):
+        gate = torch.full((B,), seeded or t < 2, dtype=torch.bool, device=dev)
+        v = pt.step_mask(v, gate, _stream_masks(tables, words, t))
+        fw[t >> 5] |= (v & acc).any(dim=1).to(torch.int64) << (t & 31)
+    return sb._as_i32(fw)
+
+
+def sparse_stream_reverse_plain(tables: SparseTables, words: torch.Tensor):
+    """Plain version of ``rrx_sparse_stream_reverse``: from step T - 1 down
+    to 0, R = F·((R | acc) & m_t); hit words [ceil(T / 32), B] int32, bit
+    t = state 0 is in R after step t (a match can start at max(t - 1, 0))."""
+    _check_stream(words, tables)
+    T, B, _ = words.shape
+    dev = words.device
+    pt = tables.plain(dev)
+    r = pt.empty(B, dev)
+    hw = torch.zeros((-(-T // 32), B), dtype=torch.int64, device=dev)
+    for t in range(T - 1, -1, -1):
+        r = pt.rev_mask(r, _stream_masks(tables, words, t))
+        hw[t >> 5] |= pt.start(r).to(torch.int64) << (t & 31)
+    return sb._as_i32(hw)
 
 
 # ---------------------------------------------------------------------------
@@ -337,8 +438,140 @@ def sparse_reverse(data, lengths, tables: SparseTables, live=None, form=None):
     return hits
 
 
-for _w in (sparse_stats, sparse_flags, sparse_reverse):
+def _check_stream(words: torch.Tensor, tables: SparseTables) -> None:
+    if words.dim() != 3 or words.shape[2] != tables.W or words.dtype != torch.int32:
+        raise ValueError(f"a mask stream of {32 * tables.W} lanes is [T, B, {tables.W}] int32, "
+                         f"got {tuple(words.shape)} {words.dtype}")
+    if tables.C != 1:
+        raise ValueError(f"the stream-fed container kernels read one accept set, the tables "
+                         f"have {tables.C} channels")
+
+
+def _launch_stream(entry: str, words: torch.Tensor, tables: SparseTables, reverse: bool, form,
+                   *tail) -> None:
+    """Launch ``entry`` on the current stream of ``words``' card: (words, T,
+    R), the container head of one direction (table, meta, W, the table's
+    form: ``form`` or :func:`table_form`), the record counter, then
+    ``tail`` (tensors by pointer, ints as they are). A refused launch
+    raises."""
+    from . import _build
+
+    dev = words.device
+    if dev.type != "cuda":
+        raise ValueError(f"{entry} runs on a CUDA tensor, got {dev}")
+    words = words.contiguous()
+    if words.data_ptr() % 16:
+        raise ValueError(f"{entry}: the mask stream must be 16-byte aligned")
+    form = form or table_form(tables, reverse)
+    if form not in ("shared", "global"):
+        raise ValueError(f"form must be 'shared' or 'global', got {form!r}")
+    tab, meta = (tables.tab_r, tables.meta_r) if reverse else (tables.tab_f, tables.meta_f)
+    for x in tail:
+        if isinstance(x, torch.Tensor) and (x.device != dev or not x.is_contiguous()):
+            raise ValueError(f"{entry}: a {tuple(x.shape)} argument on {x.device} "
+                             f"(contiguous: {x.is_contiguous()}), words on {dev}")
+    T, R, _ = words.shape
+    next_rec = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptrs = [x.data_ptr() if isinstance(x, torch.Tensor) else x for x in tail]
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, entry)(words.data_ptr(), T, R, tab.data_ptr(), int(tab.numel()),
+                                   meta.data_ptr(), int(meta.numel()), tables.W,
+                                   int(form == "global"), next_rec.data_ptr(), *ptrs, stream)
+    _build.check(code, entry)
+
+
+def sparse_stream_stats(tables: SparseTables, words: torch.Tensor, lengths, *, seeded: bool,
+                        nullable: bool, form=None):
+    """(cnt, first, any), each [B], of the mask stream ``words`` [T, B, W]
+    (``rrx_sparse_stream_stats`` on a CUDA tensor, counted in
+    ``sparse_stream_stats.launches``; :func:`sparse_stream_stats_plain` on a
+    CPU tensor). ``form``: as :func:`sparse_stats`."""
+    _check_stream(words, tables)
+    if words.device.type == "cpu":
+        return sparse_stream_stats_plain(tables, words, lengths, seeded=seeded,
+                                         nullable=nullable)
+    _, R, _ = words.shape
+    dev = words.device
+    ln = torch.as_tensor(lengths, device=dev).reshape(-1).to(torch.int32).contiguous()
+    if ln.numel() != R:
+        raise ValueError(f"lengths must hold one value per record ({R}), got {ln.numel()}")
+    cnt, first = (torch.empty(R, dtype=torch.int32, device=dev) for _ in range(2))
+    _launch_stream("rrx_sparse_stream_stats", words, tables, False, form, ln, int(seeded),
+                   int(nullable), cnt, first)
+    sparse_stream_stats.launches += 1
+    return cnt, first, cnt > 0
+
+
+def sparse_stream_flags(tables: SparseTables, words: torch.Tensor, *, seeded: bool, form=None):
+    """Flag words [ceil(T / 32), B] int32 of the mask stream
+    (``rrx_sparse_stream_flags`` on a CUDA tensor, counted;
+    :func:`sparse_stream_flags_plain` on a CPU tensor)."""
+    _check_stream(words, tables)
+    if words.device.type == "cpu":
+        return sparse_stream_flags_plain(tables, words, seeded=seeded)
+    T, R, _ = words.shape
+    fw = torch.empty((-(-T // 32), R), dtype=torch.int32, device=words.device)
+    _launch_stream("rrx_sparse_stream_flags", words, tables, False, form, int(seeded), fw)
+    sparse_stream_flags.launches += 1
+    return fw
+
+
+def sparse_stream_reverse(tables: SparseTables, words: torch.Tensor, form=None):
+    """Hit words [ceil(T / 32), B] int32 of the mask stream
+    (``rrx_sparse_stream_reverse`` on a CUDA tensor, counted;
+    :func:`sparse_stream_reverse_plain` on a CPU tensor)."""
+    _check_stream(words, tables)
+    if words.device.type == "cpu":
+        return sparse_stream_reverse_plain(tables, words)
+    T, R, _ = words.shape
+    hw = torch.empty((-(-T // 32), R), dtype=torch.int32, device=words.device)
+    _launch_stream("rrx_sparse_stream_reverse", words, tables, True, form, hw)
+    sparse_stream_reverse.launches += 1
+    return hw
+
+
+for _w in (sparse_stats, sparse_flags, sparse_reverse, sparse_stream_stats, sparse_stream_flags,
+           sparse_stream_reverse):
     _w.launches = 0
+
+
+class StreamMethods:
+    """The stream-fed methods of the container-table scanners (the JAX
+    ``SparseScanner``'s, which its ``BitbandScanner`` inherits): match
+    statistics, forward flags and reverse hits of a mask stream ``words``
+    [T, B, W] int32 (``scan_packed.mask_stream_from_bytes`` on
+    ``scan_packed.stream_tables(prog)``), T = L + 2 for a batch of width L,
+    on the container kernels ``rrx_sparse_stream_*`` (their plain versions
+    on the CPU). A scanner with accept channels raises in all three: the
+    JAX kernels read one accept row, which would answer channel 0 only.
+    ``_stream_tables()`` gives the container tables."""
+
+    def _stream_tables(self) -> SparseTables:
+        raise NotImplementedError
+
+    def match_stats(self, words, len_g, *, seeded: bool):
+        """(cnt, first, any) of the mask stream, each shaped [B_rows, G]
+        like ``len_g`` (G = 1 on this tier)."""
+        self._one_channel("match_stats")
+        len_g = torch.as_tensor(len_g, device=self.device)
+        outs = sparse_stream_stats(self._stream_tables(), words, len_g.reshape(-1), seeded=seeded,
+                                   nullable=self.nullable)
+        return tuple(x.reshape(len_g.shape[0], -1) for x in outs)
+
+    def forward_flags(self, words, *, seeded: bool):
+        """[B, T + 1] bool accept flags of the mask stream; column 0 is the
+        program's nullability."""
+        self._one_channel("forward_flags")
+        fw = sparse_stream_flags(self._stream_tables(), words, seeded=seeded)
+        return _with_flag0(sb.hit_bits(fw, words.shape[0]), bool(self.prog.nullable))
+
+    def reverse_hits(self, words):
+        """[B, T] bool: column j is set iff some match starts at max(j - 1,
+        0)."""
+        self._one_channel("reverse_hits")
+        return sb.hit_bits(sparse_stream_reverse(self._stream_tables(), words), words.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +579,7 @@ for _w in (sparse_stats, sparse_flags, sparse_reverse):
 # ---------------------------------------------------------------------------
 
 
-class SparseScanner(_Scanner):
+class SparseScanner(StreamMethods, _Scanner):
     """Match statistics, forward flags and reverse hits of a multiblock or
     sparse program on the container tier, on ``device``: the CUDA kernels
     of ``csrc/scan_sparse.cu`` on a CUDA device, their plain PyTorch
@@ -361,7 +594,9 @@ class SparseScanner(_Scanner):
     ``Pattern`` takes spans in host rounds) and no window plan. Every
     method takes the prefilter's ``live`` (see ``_launch``; the plain
     versions ignore it). The kernels write flag and hit words, so
-    ``flags_words_b`` and ``hits_words_b`` serve the bitmaps directly."""
+    ``flags_words_b`` and ``hits_words_b`` serve the bitmaps directly.
+    ``match_stats``, ``forward_flags`` and ``reverse_hits`` take a mask
+    stream instead of bytes (:class:`StreamMethods`)."""
 
     has_anchor = False
     CHANNEL_METHODS = "match_stats_b and forward_flags_b"
@@ -375,6 +610,9 @@ class SparseScanner(_Scanner):
     @property
     def n_partial(self) -> int:
         return len(self.tables.part[1])
+
+    def _stream_tables(self) -> SparseTables:
+        return self.tables
 
     def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0, live=None):
         """(cnt, first, last, full, any), each [B, C] (C = 1 without an

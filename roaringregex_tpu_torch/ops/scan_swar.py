@@ -18,6 +18,14 @@ same route: every match of a bounded-horizon, anchor-free, non-nullable
 pattern fits in ``h`` bytes, so a window's first ``h`` steps only warm up
 and their flags belong to the previous window (``lead = h``).
 
+With ``RRX_SWAR_MULTI=1`` a ``MultiPattern`` of up to 4 patterns of at
+most 8 states runs its combined grep scan slotted (``SwarMultiScanner``):
+``swar_multi_spec`` (the JAX package's, unchanged) merges the patterns'
+plans, each owning one byte lane of the u32 state, and
+``rrx_swar_multi_stats`` (``csrc/scan_bits.cu``) steps the four slots of a
+record in one thread with per-slot statistics (the JAX
+``_swar_multi_kernel`` plus ``_swar_stats`` per byte lane).
+
 Spans run unwindowed, as on the TPU, on four CUDA kernels
 (``csrc/scan_spans.cu``): ``rrx_swar_reverse`` (candidate starts as hit
 words), ``rrx_swar_anchor_end`` (an anchored rescan reduced to its first
@@ -121,6 +129,61 @@ def swar_spec(prog: DeviceProgram) -> Optional[SwarSpec]:
     )
 
 
+class SwarMultiSpec(NamedTuple):
+    """Static multi-pattern plan: up to 4 patterns share one u32, one
+    8-bit sub-automaton per byte lane ("slot"). Slot-restricted target
+    masks keep the sub-automata independent: a diagonal-d group only
+    targets bits u >= d of its slot (u <= 7 + d for d < 0), while any bit
+    that a shift carries across a slot boundary lands at u < d (u > 7 + d)
+    of the next slot, so no step moves a state from one slot to another."""
+
+    gates: Tuple  # deduped across slots: ((runs, bos, eos), ...)
+    gpos: Tuple[Tuple[int, int, int], ...]  # (gate_index, bit u, slot)
+    diags: Tuple[Tuple[int, Tuple[int, ...]], ...]
+    accepts: Tuple[Tuple[int, int], ...]  # (slot, accept bit)
+    has_eos: bool
+    has_bos: bool
+
+
+def swar_multi_spec(subprogs) -> Optional[SwarMultiSpec]:
+    """Merge per-pattern SWAR plans into one slotted plan, or None when
+    any pattern disqualifies (> 8 states, non-ASCII) or P > 4 (the JAX
+    package's ``swar_multi_spec``, unchanged, so that the same sets
+    qualify)."""
+    if not subprogs or len(subprogs) > 4:
+        return None
+    specs = [swar_spec(p) for p in subprogs]
+    if any(s is None for s in specs):
+        return None
+    gate_ids: dict = {}
+    gates: list = []
+    gpos: list = []
+    by_delta: dict = {}
+    accepts: list = []
+    has_eos = has_bos = False
+    for k, sp in enumerate(specs):
+        gid_map = {}
+        for gi, key in enumerate(sp.gates):
+            gid = gate_ids.get(key)
+            if gid is None:
+                gid = gate_ids[key] = len(gates)
+                gates.append(key)
+            gid_map[gi] = gid
+        pi_map = {}
+        for pi, (gi, u) in enumerate(sp.gpos):
+            pi_map[pi] = len(gpos)
+            gpos.append((gid_map[gi], u, k))
+        for d, pis in sp.diags:
+            by_delta.setdefault(d, []).extend(pi_map[pi] for pi in pis)
+        accepts.extend((k, s) for s in sp.accept_bits)
+        has_eos = has_eos or sp.has_eos
+        has_bos = has_bos or sp.has_bos
+    diags = tuple((d, tuple(pis)) for d, pis in sorted(by_delta.items()))
+    return SwarMultiSpec(
+        tuple(gates), tuple(gpos), diags, tuple(accepts), has_eos, has_bos
+    )
+
+
 def swar_tables(spec: SwarSpec):
     """SwarSpec -> (deltas, tab, acc), the kernel's (delta, table) form:
     diagonal ``d``'s positioned gate ``(gid, u)`` becomes the pair
@@ -134,6 +197,54 @@ def swar_tables(spec: SwarSpec):
     for s in spec.accept_bits:
         acc |= 1 << s
     return sb.dg_tables(spec.gates, pairs, acc)
+
+
+def swar_multi_tables(spec: SwarMultiSpec, P: int):
+    """SwarMultiSpec -> (deltas, tab, acc, accs): the (delta, table) form
+    of the slotted automaton, slot k owning byte lane k (bits 8k .. 8k +
+    7): the diagonal-``d`` positioned gate ``(gid, u, slot)`` adds target
+    bit ``8 * slot + u`` to the pair ``(d, gid)``; ``accs`` [P] holds each
+    slot's accept bits (``acc`` their union)."""
+    pairs = {}
+    for d, pis in spec.diags:
+        for pi in pis:
+            gid, u, slot = spec.gpos[pi]
+            pairs[(d, gid)] = pairs.get((d, gid), 0) | (1 << (8 * slot + u))
+    accs = [0] * P
+    for slot, s in spec.accepts:
+        accs[slot] |= 1 << (8 * slot + s)
+    acc = 0
+    for a in accs:
+        acc |= a
+    return (*sb.dg_tables(spec.gates, pairs, acc), accs)
+
+
+SEED_SLOTS = 0x01010101  # state 0 of every slot
+
+
+def swar_multi_stats_plain(data, lengths, tables: sb.ScanTables, *, seeded: bool):
+    """Plain version of ``rrx_swar_multi_stats``: the slotted step of
+    :func:`scan_bits.stats_plain` (int64 masked to 32 bits) seeded with
+    state 0 of every slot, one accept channel per slot, non-nullable
+    closed forms (the JAX package's ``_swar_stats(nullable=False)`` per byte
+    lane). Returns (cnt, first, last, full), each [R, P]."""
+    return sb.stats_plain(data, lengths, tables, seeded=seeded, lead=0, nullable=False,
+                          seed=SEED_SLOTS)
+
+
+def swar_multi_stats(data, lengths, tables: sb.ScanTables, *, seeded: bool):
+    """(cnt, first, last, full), each [R, P], of the slotted scan of
+    ``data`` [R, L] uint8 with ``lengths`` [R]: ``rrx_swar_multi_stats`` on
+    a CUDA tensor (counted in ``swar_multi_stats.launches``),
+    :func:`swar_multi_stats_plain` on a CPU tensor."""
+    if data.device.type == "cpu":
+        return swar_multi_stats_plain(data, lengths, tables, seeded=seeded)
+    out = sb.launch_swar_multi(data, lengths, tables, seeded=seeded)
+    swar_multi_stats.launches += 1
+    return out
+
+
+swar_multi_stats.launches = 0
 
 
 def swar_stats(data, lengths, tables: sb.ScanTables, *, seeded: bool,
@@ -352,3 +463,36 @@ class SwarScanner(PallasScanner):
         # seeded 'full' = some match ends at len = the max end hits len
         full_rec = (cnt_rec > 0) & (last_rec >= lengths)
         return cnt_rec, first_rec, last_rec, full_rec
+
+
+class SwarMultiScanner(PallasScanner):
+    """Multi-pattern SWAR scanner: up to 4 patterns of at most 8 states,
+    one u32 byte lane each (:class:`SwarMultiSpec`), whose combined grep
+    scan (``match_stats_b``) runs on ``rrx_swar_multi_stats``. Everything
+    else (windowed ``lead`` scans, flags, reverse hits, anchored rescans,
+    ``lazy_spans_mb``) is the matmul tier's with the accept map, as in the
+    JAX package; the primitives that read one accept set raise. The
+    slotted statistics are non-nullable, as the JAX package's: the API
+    corrects nullable channels on the host. Constructed by the engine
+    when ``swar_multi`` is on and ``swar_multi_spec`` takes the patterns'
+    subprograms."""
+
+    def __init__(self, prog: DeviceProgram, device, mspec: SwarMultiSpec, P: int,
+                 accept_map, nullable=None):
+        super().__init__(prog, device, accept_map=accept_map, nullable=nullable)
+        if self.P != P or P > 4:
+            raise ValueError(f"an accept map of {self.P} channels per record, P = {P} (at most 4)")
+        self.mspec = mspec
+        deltas, tab, acc, accs = swar_multi_tables(mspec, P)
+        self.tables = sb.device_tables(deltas, tab, acc, self.device, accs=accs)
+
+    def match_stats_b(self, data, len_g, *, seeded: bool, lead: int = 0):
+        """(cnt, first, last, full, any), each [B_rows, G * P]: record-major,
+        channel-minor."""
+        if lead:  # windowed scans run on the matmul tier's P-channel kernel
+            return super().match_stats_b(data, len_g, seeded=seeded, lead=lead)
+        data, len_g, lengths = self._batch(data, len_g)
+        cnt, first, last, full = swar_multi_stats(data, lengths, self.tables, seeded=seeded)
+        sl = lambda x: x.reshape(len_g.shape[0], len_g.shape[1] * self.P)  # noqa: E731
+        cnt = sl(cnt)
+        return cnt, sl(first), sl(last), sl(full), cnt > 0

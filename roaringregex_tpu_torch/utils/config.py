@@ -47,6 +47,13 @@ class RrxConfig:
     swar_window_cols: int = field(
         default_factory=lambda: _env_int("RRX_SWAR_WINDOW_COLS", 1024)
     )
+    # slotted multi-pattern SWAR (ops/scan_swar.SwarMultiScanner: up to 4
+    # patterns of at most 8 states in one u32, a byte lane each) for a
+    # MultiPattern whose patterns all fit; off by default, as in the JAX
+    # package (RRX_SWAR_MULTI=1 turns it on)
+    swar_multi: bool = field(
+        default_factory=lambda: os.environ.get("RRX_SWAR_MULTI", "0") == "1"
+    )
 
     # seeded-alias rewrite of a whole-pattern X{m,n} on the multiblock and
     # sparse tiers (engine.seeded_alias_program: its seeded primitives run

@@ -10,7 +10,10 @@ each pattern keeps one JAX scanner and one batch (``functools.lru_cache``)
 and the JAX side runs on three patterns: bench config 10 (all five entry
 points, lazy and greedy spans), a rank-1 column and a negative triangle
 gap (match statistics; their reverse passes are held to Python re, and
-their ``Pattern`` entry points to the oracle and re). Config 10's batch has ``Pattern``'s packed
+their ``Pattern`` entry points to the oracle and re); the stream-fed
+methods (the container kernels' plain versions over a mask stream, rows
+11-13) run on x{2,300}y and the nullable x{0,300}y? against the JAX
+scanner's and the byte path, on records of at most 40 bytes. Config 10's batch has ``Pattern``'s packed
 shape, so the JAX ``Pattern`` calls reuse the scanner's compiles. Every
 output is an integer or a bool: every comparison is exact. The CUDA
 kernels (``rrx_bitband_*``) are held to the same plain versions on the
@@ -18,6 +21,7 @@ card by ``chip_smoke.py``."""
 import functools
 import re
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,11 +29,13 @@ import torch
 import roaringregex_tpu as jax_rrx
 import roaringregex_tpu_torch as rrx
 from roaringregex_tpu.compiler.program import compile_program as jax_compile
+from roaringregex_tpu.ops import scan_packed as jax_packed
 from roaringregex_tpu.oracle.engine import OracleEngine
 from roaringregex_tpu_torch.api import _pack_texts
 from roaringregex_tpu_torch.compiler.program import compile_program, from_reference
 from roaringregex_tpu_torch.engine import ScanEngine
 from roaringregex_tpu_torch.ops import scan_bitband as bb
+from roaringregex_tpu_torch.ops import scan_packed as sp
 from roaringregex_tpu_torch.utils import config as cfg
 
 torch.set_num_threads(1)
@@ -303,6 +309,79 @@ def test_accept_channels_and_nullable_stats():
     _eq(first[:4, 0], [0, 0, 0, 0], "nullable first")
     _, _, _, full = bb.stats_plain(dn, lnn, tn, seeded=False, nullable=True)
     _eq(full[:4, 0], [orc.fullmatch(t) for t in texts], "nullable fullmatch")
+
+
+# -- the stream-fed methods on the container kernels (rows 11-13) -------------
+SHORT = "x{2,300}y"  # multiblock, 302 states: matches of a few bytes
+NULL_BB = "x{0,300}y?"  # multiblock, nullable
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_case(pattern: str):
+    """(JAX BitbandScanner, the port's, data, len_g, the JAX mask stream,
+    the port's) on 16 records of at most 40 bytes (the JAX container step
+    costs ~13 ms a step in interpret mode). SHORT reuses ``_case``'s
+    scanners."""
+    if pattern == SHORT:
+        jsc, psc = _case(SHORT)[:2]
+    else:
+        ref = jax_rrx.compile(pattern, backend="pallas")
+        jsc = ref.engine.device_scanner
+        psc = ScanEngine(from_reference(ref.program), "cpu").device_scanner
+    assert type(jsc).__name__ == type(psc).__name__ == "BitbandScanner"
+    texts = [b"", b"xxy", b"xy", b"x" * 30 + b"y", b"axxxyxxy", b"xxxx", b"x\x80xy\x00xxy"]
+    texts += [t[:40] for t in _texts(SHORT, 9, 40, 12)]
+    data, lengths = _pack(texts)
+    len_g = lengths.reshape(-1, 1)
+    jref = jsc.prog
+    jw = jax_packed.mask_stream_from_bytes(
+        jax_packed.stream_tables(jref), jnp.asarray(data), jnp.asarray(len_g),
+        s_tile=jref.s_tile, G=jref.G, n_runs=len(jref.byte_runs[0]))
+    pw = sp.mask_stream_from_bytes(sp.stream_tables(psc.prog, "cpu"), torch.from_numpy(data),
+                                   torch.from_numpy(lengths))
+    _eq(pw, np.asarray(jw).view(np.int32), "mask stream")
+    return jsc, psc, data, len_g, jw, pw
+
+
+@pytest.mark.parametrize("pattern,seeded", [(SHORT, True), (SHORT, False), (NULL_BB, True),
+                                            (NULL_BB, False)])
+def test_stream_methods_match_jax(pattern, seeded):
+    """match_stats and forward_flags over the stream (reverse_hits once per
+    program) equal the JAX BitbandScanner's (its SparseScanner's container
+    kernels) and the port's own byte path on the same records; the
+    container tables are built at the first stream call."""
+    jsc, psc, data, len_g, jw, pw = _stream_case(pattern)
+    assert psc.nullable == (pattern == NULL_BB)
+    d, lg = torch.from_numpy(data), torch.from_numpy(len_g)
+    stats = psc.match_stats(pw, lg, seeded=seeded)
+    assert psc._sparse is not None
+    byte = psc.match_stats_b(d, lg, seeded=seeded)
+    want = jsc.match_stats(jw, jnp.asarray(len_g), seeded=seeded)
+    for name, x, y, z in zip(("cnt", "first", "any"), stats, want, (byte[0], byte[1], byte[4]),
+                             strict=True):
+        _eq(x, y, name)
+        _eq(x, z, f"{name} against the byte path")
+    assert int(stats[0].sum()) > 0
+    flags = psc.forward_flags(pw, seeded=seeded)
+    _eq(flags, jsc.forward_flags(jw, seeded=seeded), "flags")
+    _eq(flags, psc.forward_flags_b(d, lg, seeded=seeded), "flags against the byte path")
+    if seeded:
+        hits = psc.reverse_hits(pw)
+        _eq(hits, jsc.reverse_hits(jw), "hits")
+        _eq(hits, psc.reverse_hits_b(d, lg), "hits against the byte path")
+
+
+def test_stream_methods_refuse_channels():
+    prog = compile_program(SHORT)
+    amap = np.stack([np.asarray(prog.accept), np.asarray(prog.accept)], axis=1)
+    psc = ScanEngine(prog, "cpu", accept_map=amap, channels_per_record=2).device_scanner
+    assert type(psc).__name__ == "BitbandScanner"
+    _, _, data, len_g, _, pw = _stream_case(SHORT)
+    for call in (lambda: psc.match_stats(pw, torch.from_numpy(len_g), seeded=True),
+                 lambda: psc.forward_flags(pw, seeded=True), lambda: psc.reverse_hits(pw)):
+        with pytest.raises(ValueError, match="2 accept channels"):
+            call()
+    assert psc._sparse is None
 
 
 # -- the prefilter ------------------------------------------------------------

@@ -8,7 +8,11 @@ Interpret mode compiles each JAX scanner method for 2-10 s at its first
 shape, so the JAX scanner side runs on one small program, (ab|c){2,120}d
 (362 states, 6 partial blocks), and one batch: match statistics seeded and
 unseeded, forward flags, reverse hits, and the same program with two
-accept channels (``functools.lru_cache`` keeps one scanner and one batch).
+accept channels (``functools.lru_cache`` keeps one scanner and one batch);
+the stream-fed methods (``match_stats``, ``forward_flags``,
+``reverse_hits`` over a mask stream, rows 11-13) on that program and on a
+nullable one, (ab|c){0,120}, against the JAX scanner's on the JAX stream
+(which the port's equals word for word) and the port's own byte path.
 Everything else is held to the oracle and ``re``, which cost no compile:
 config 13 (with ``RRX_ALIAS`` on and off), ``x(abc|de){1,300}y`` (also
 behind its prefilter), ``a*b{1,300}``, ``(ab|c){2,120}d``, a 40-word keyword
@@ -35,6 +39,7 @@ from roaringregex_tpu_torch.api import _pack_texts
 from roaringregex_tpu_torch.compiler.program import compile_program, from_reference
 from roaringregex_tpu_torch.engine import ScanEngine
 from roaringregex_tpu_torch.ops import scan_bits as sb
+from roaringregex_tpu_torch.ops import scan_packed as sp
 from roaringregex_tpu_torch.ops import scan_sparse as ss
 from roaringregex_tpu_torch.utils import config as cfg
 from test_torch_pallas import K30
@@ -189,6 +194,112 @@ def test_full_block_and_hand_built_partition():
     dense = torch.from_numpy(F).to(torch.float32)
     _eq(hp._expand(v, False), (v.to(torch.float32) @ dense) > 0, "forward")
     _eq(hp._expand(v, True), (v.to(torch.float32) @ dense.T) > 0, "reverse")
+
+
+# -- the stream-fed methods (rows 11-13) against the JAX SparseScanner's ------------
+
+NULLABLE = "(ab|c){0,120}"  # multiblock, 361 states, 6 partial blocks, nullable
+
+
+def _streams(jref, prog, data, len_g):
+    """(the JAX mask stream, the port's) of one batch."""
+    jw = jax_packed.mask_stream_from_bytes(
+        jax_packed.stream_tables(jref), jnp.asarray(data), jnp.asarray(len_g),
+        s_tile=jref.s_tile, G=jref.G, n_runs=len(jref.byte_runs[0]))
+    pw = sp.mask_stream_from_bytes(sp.stream_tables(prog, "cpu"), torch.from_numpy(data),
+                                   torch.from_numpy(len_g).reshape(-1))
+    return jw, pw
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_case(pattern: str):
+    """(JAX SparseScanner, the port's, data, len_g, the JAX stream, the
+    port's stream) of SMALL or the nullable program on ``_batch``."""
+    if pattern == SMALL:
+        jsc, psc, data, len_g = _case(1)
+        ref = jsc.prog
+    else:
+        ref = jax_compile(pattern)
+        jsc = jax_pallas.SparseScanner(ref, jax_packed.stream_tables(ref))
+        psc = ss.SparseScanner(from_reference(ref), "cpu")
+        data, len_g = _batch()
+    return (jsc, psc, data, len_g, *_streams(ref, psc.prog, data, len_g))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_stream(pattern: str, what: str, seeded: bool = True):
+    jsc, _, _, len_g, jw, _ = _stream_case(pattern)
+    if what == "stats":
+        return tuple(np.asarray(x) for x in jsc.match_stats(jw, jnp.asarray(len_g), seeded=seeded))
+    if what == "flags":
+        return np.asarray(jsc.forward_flags(jw, seeded=seeded))
+    return np.asarray(jsc.reverse_hits(jw))
+
+
+@pytest.mark.parametrize("pattern", [SMALL, CONFIG13])
+def test_mask_stream_matches_jax(pattern):
+    """The port's mask stream of a container program ([L + 2, B, W], W =
+    s_pad / 32) equals the JAX one word for word."""
+    ref = jax_compile(pattern)
+    data, len_g = _batch()
+    jw, pw = _streams(ref, from_reference(ref), data, len_g)
+    assert tuple(pw.shape) == (66, 16, ref.s_pad // 32)
+    _eq(pw, np.asarray(jw).view(np.int32), "mask stream")
+
+
+@pytest.mark.parametrize("pattern,seeded", [(SMALL, True), (SMALL, False), (NULLABLE, True),
+                                            (NULLABLE, False)])
+def test_stream_match_stats_match_jax(pattern, seeded):
+    """match_stats over the stream equals the JAX scanner's over its own,
+    and the byte path's (cnt, first, any) on the same records."""
+    _, psc, data, len_g, _, pw = _stream_case(pattern)
+    assert psc.nullable == (pattern == NULLABLE)
+    got = psc.match_stats(pw, torch.from_numpy(len_g), seeded=seeded)
+    for name, x, y in zip(("cnt", "first", "any"), got, _jax_stream(pattern, "stats", seeded),
+                          strict=True):
+        assert tuple(x.shape) == (16, 1)
+        _eq(x, y, name)
+    byte = psc.match_stats_b(torch.from_numpy(data), torch.from_numpy(len_g), seeded=seeded)
+    for name, x, y in zip(("cnt", "first", "any"), got, (byte[0], byte[1], byte[4]), strict=True):
+        _eq(x, y, f"{name} against the byte path")
+    assert int(got[0].sum()) > 0
+
+
+@pytest.mark.parametrize("pattern,seeded", [(SMALL, True), (SMALL, False), (NULLABLE, True)])
+def test_stream_forward_flags_match_jax(pattern, seeded):
+    _, psc, data, len_g, _, pw = _stream_case(pattern)
+    got = psc.forward_flags(pw, seeded=seeded)
+    assert tuple(got.shape) == (16, 67)
+    _eq(got, _jax_stream(pattern, "flags", seeded), "flags")
+    _eq(got, psc.forward_flags_b(torch.from_numpy(data), torch.from_numpy(len_g), seeded=seeded),
+        "flags against the byte path")
+    assert int(got[:, 1:].sum()) > 0
+
+
+@pytest.mark.parametrize("pattern", [SMALL, NULLABLE])
+def test_stream_reverse_hits_match_jax(pattern):
+    _, psc, data, len_g, _, pw = _stream_case(pattern)
+    got = psc.reverse_hits(pw)
+    assert tuple(got.shape) == (16, 66)
+    _eq(got, _jax_stream(pattern, "reverse"), "hits")
+    _eq(got, psc.reverse_hits_b(torch.from_numpy(data), torch.from_numpy(len_g)),
+        "hits against the byte path")
+    assert int(got.sum()) > 0
+
+
+def test_stream_methods_refuse_channels():
+    """A channel scanner raises in all three stream-fed methods: the JAX
+    kernels read one accept row (channel 0's), the port refuses."""
+    _, psc, data, len_g = _case(2)
+    pw = sp.mask_stream_from_bytes(sp.stream_tables(psc.prog, "cpu"), torch.from_numpy(data),
+                                   torch.from_numpy(len_g).reshape(-1))
+    for call in (lambda: psc.match_stats(pw, torch.from_numpy(len_g), seeded=True),
+                 lambda: psc.forward_flags(pw, seeded=True), lambda: psc.reverse_hits(pw)):
+        with pytest.raises(ValueError, match="2 accept channels"):
+            call()
+    with pytest.raises(ValueError, match="one accept set"):
+        ss.sparse_stream_stats_plain(psc.tables, pw, torch.from_numpy(len_g), seeded=True,
+                                     nullable=False)
 
 
 # -- Pattern against the oracle and re ---------------------------------------------
