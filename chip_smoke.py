@@ -48,11 +48,15 @@ its check fails:
    container kernels (rrx_sparse_stats, _flags, _reverse) on the 9
    container programs of the probe table (multiblock and sparse, config 13,
    a program at the 120-block cap whose table takes the global form, a full
-   U block, config 10 with RRX_BITBAND=0, a nullable one, K120), a
-   hand-built partition with full blocks on and off the diagonal, and
-   MultiPattern sets of 2, 40 and 100 channels, in the shared and the global
-   table form, stats seeded, unseeded and nullable, flags seeded and
-   unseeded, reverse, and records past a live count; the six wide
+   U block, config 10 with RRX_BITBAND=0, a nullable one, K120) and two
+   past the engine's caps ((abc|de){1,420} and {1,800}: 3 and 4 state
+   words a lane of the forward step), a hand-built partition with full
+   blocks on and off the diagonal (with one accept channel, and with one
+   per block), and MultiPattern sets of 2, 40 and 100 channels, in the
+   shared and the global table form, stats seeded, unseeded and nullable,
+   flags seeded and unseeded, reverse, records past a live count, and
+   seeded stats with the forward step's block-parallel form everywhere and
+   its walk everywhere (walk_max -1 and 128); the six wide
    matmul-tier kernels (rrx_nfa_wide_stats, _flags, _reverse, _anchor_end,
    _lazy_spans, _greedy_spans: tiles of 257..1024 states, one warp per
    record) on 10 dense multiblock programs, one at each W = 12, 16, 20, 24,
@@ -193,7 +197,12 @@ its check fails:
    scanned (plain versions on the 10 MB batch and on 16,384 records of the
    1 GiB one), registers, occupancy and the bound of PERF.md section 2 from
    a census of the run's data, and four container shapes end to end at 10
-   MB and 1 GiB, split into prefilter, kernel and glue;
+   MB and 1 GiB, split into prefilter, kernel and glue; the forward step of
+   rrx_sparse_stats and _flags on K120's 10 MB of log text, config 13's
+   chain batch and x[ab]{0,400}c's chain records: the sweep of walk_max
+   that fixed ops/scan_sparse.WALK_MAX, then time, census bound, scheduler
+   cycles a record-step, occupancy and registers beside the old step
+   (rrx_sparse_stream_stats and _flags on the same records' mask stream);
 11. (run before 7) the container path, with every launch count set to 0
    first: K120 (K30's words and 90 more, 826 states) through
    ScanEngine.match_stats over phase 5's log text at 10 MB and 1 GiB
@@ -478,6 +487,14 @@ PLANT13X = b"x" + b"abcde" * 100 + b"y"
 SPARSE_PATTERNS = ["(ab|c){2,120}d", "a*b{1,300}", CONFIG13_X, "(abc|de){1,300}",
                    "(abc|de){1,360}", "x[ab]{0,400}c", "x(ab|c){400,520}y",
                    "(a|b)*c{0,2}(abc){0,100}", K120]
+# programs past the engine's container caps that the container kernels
+# still take (3 and 4 state words a lane of the forward step; global form)
+SPARSE_WIDE = ["(abc|de){1,420}", "(abc|de){1,800}"]
+# chain records with dense blocks of live states for the forward step's
+# times, and the walk_max values of its sweep
+XAB = "x[ab]{0,400}c"
+WALK_SWEEP = (-1, 0, 1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 128)
+CLOCK_GHZ = 1.98  # the H100 SXM's boost clock
 # MultiPattern sets on the container tier: 2 channels (config 10 and cat|dog,
 # with RRX_BITBAND=0), 40 and 100 keywords
 SPARSE_SETS = [["x(ab|c){400,520}y", "cat|dog"], keywords(40), keywords(100)]
@@ -1516,8 +1533,11 @@ def main() -> int:
 
     def check_sparse(tables, d, ln, tag, nullable, forms):
         """The three container kernels against their plain versions (on the
-        card) in each table form; stats seeded and unseeded (and nullable),
-        flags seeded and unseeded, reverse with one channel, and live."""
+        card) in each table form that fits their kind (SP.table_form);
+        stats seeded and unseeded (and nullable), flags seeded and
+        unseeded, reverse with one channel, and live; seeded stats also
+        with every source block in the block-parallel form and with every
+        live state walked (walk_max -1 and 128)."""
         R = d.shape[0]
         want = {}
         for seeded in (True, False):
@@ -1529,7 +1549,9 @@ def main() -> int:
             want["reverse"] = SP.sparse_reverse_plain(d, ln, tables)
         n = R // 3
         live = torch.tensor([n], dtype=torch.int32, device=dev)
-        for form in forms:
+        walk_forms = [f for f in forms if f == "global" or SP.table_form(tables) == "shared"]
+        rev_forms = [f for f in forms if f == "global" or SP.table_form(tables, "reverse") == "shared"]
+        for form in walk_forms:
             for key, w in want.items():
                 if key[0] == "stats":
                     got = SP.sparse_stats(d, ln, tables, seeded=key[1], nullable=key[2], form=form)
@@ -1539,16 +1561,21 @@ def main() -> int:
                     compare("rrx_sparse_flags", [SP.sparse_flags(d, ln, tables, seeded=key[1],
                                                                  form=form)], [w],
                             f"{tag} {form} seeded={key[1]}", ("flags",))
-                else:
-                    compare("rrx_sparse_reverse", [SP.sparse_reverse(d, ln, tables, form=form)], [w],
-                            f"{tag} {form}", ("hits",))
+            for wm in (-1, 128):
+                got = SP.sparse_stats(d, ln, tables, seeded=True, nullable=False, form=form,
+                                      walk_max=wm)
+                compare("rrx_sparse_stats", got, want["stats", True, False],
+                        f"{tag} {form} walk_max={wm}")
             got = SP.sparse_stats(d, ln, tables, seeded=True, nullable=False, live=live, form=form)
             compare("rrx_sparse_stats", [x[:n] for x in got],
                     [x[:n] for x in want["stats", True, False]], f"{tag} {form} live={n}")
             got = SP.sparse_flags(d, ln, tables, seeded=False, live=live, form=form)
             compare("rrx_sparse_flags", [got[:, : n * tables.C]],
                     [want["flags", False][:, : n * tables.C]], f"{tag} {form} live={n}", ("flags",))
-            if tables.C == 1:
+        if tables.C == 1:
+            for form in rev_forms:
+                compare("rrx_sparse_reverse", [SP.sparse_reverse(d, ln, tables, form=form)],
+                        [want["reverse"]], f"{tag} {form}", ("hits",))
                 got = SP.sparse_reverse(d, ln, tables, live=live, form=form)
                 compare("rrx_sparse_reverse", [got[:, :n]], [want["reverse"][:, :n]],
                         f"{tag} {form} live={n}", ("hits",))
@@ -1558,21 +1585,26 @@ def main() -> int:
     before = launches()
     n_cmp = 0
     seen_forms, seen_u = set(), 0
-    for pattern in SPARSE_PATTERNS:
+    seen_nj = set()
+    for pattern in SPARSE_PATTERNS + SPARSE_WIDE:
         prog = compile_program(pattern)
         tables = SP.device_sparse_tables(prog, dev)
         auto = SP.table_form(tables)
         seen_forms.add(auto)
+        seen_nj.add(-(-tables.W // 32))
         seen_u += int(prog.sparse_partition[3].sum())
         L = 1024 if pattern == CONFIG10 else 512
         data, lengths = sparse_batch(pattern, 192, L)
         d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
-        forms = ("shared", "global") if auto == "shared" else ("global",)
+        forms = ("shared", "global") if SP.table_form(tables, "reverse") == "shared" else ("global",)
         ends = check_sparse(tables, d, ln, f"{pattern[:40]!r} R=192 L={L}", prog.nullable, forms)
         n_cmp += 1
-        print(f"  {pattern[:40]!r}: {prog.n_states} states, {len(prog.sparse_partition[0])} partial "
-              f"and {int(prog.sparse_partition[3].sum())} full blocks, auto form {auto}: "
+        print(f"  {pattern[:40]!r}: {prog.n_states} states, W = {tables.W}, "
+              f"{len(prog.sparse_partition[0])} partial and {int(prog.sparse_partition[3].sum())} "
+              f"full blocks, auto form {auto} (reverse {SP.table_form(tables, 'reverse')}): "
               f"{ends} seeded match ends")
+    if seen_nj != {1, 2, 3, 4}:
+        fail(f"the container programs took {sorted(seen_nj)} state words a lane, not 1-4")
     # a hand-built partition (on x[ab]{0,400}c's 4 x 4 blocks): random
     # partial blocks, full blocks on and off the diagonal, a source block
     # that feeds both
@@ -1587,7 +1619,13 @@ def main() -> int:
     data, lengths = sparse_batch("x[ab]{0,400}c", 192, 512)
     d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
     check_sparse(tables, d, ln, "hand-built partition", False, ("shared", "global"))
-    n_cmp += 1
+    # the same with one accept channel per block (a random tenth of its
+    # states), so that every block's states reach an output
+    amap_h = (rh.random((512, 4)) < 0.1) & (np.arange(512)[:, None] // 128 == np.arange(4))
+    tables = SP.device_sparse_tables(prog, dev, accept_map=amap_h.astype(np.uint8))
+    check_sparse(tables, d, ln, "hand-built partition, a channel per block", False,
+                 ("shared", "global"))
+    n_cmp += 2
     seen_u += int(U_h.sum())
     # accept channels: 2 (config 10 with cat|dog), 40 and 100 keywords
     for pats in SPARSE_SETS:
@@ -1622,7 +1660,8 @@ def main() -> int:
         fail(f"the container programs took forms {seen_forms} and {seen_u} full blocks")
     print(f"phase 2: kernel == plain on the card, {n_cmp} batches of 192 records through the three "
           f"container kernels (stats seeded/unseeded/nullable, flags seeded/unseeded, reverse, "
-          f"live records; shared and global table forms, {seen_u} full blocks, C = 1, 2, 40, 100) "
+          f"live records; shared and global table forms, {seen_u} full blocks, C = 1, 2, 4, 40, "
+          f"100; the forward step at 1-4 state words a lane, walk_max -1, {SP.WALK_MAX} and 128) "
           f"({time.perf_counter() - t0:.1f}s)")
 
     # the four stream-fed kernels on 1 MB batches (1024 records of 1024 B):
@@ -4212,16 +4251,29 @@ def main() -> int:
 
     sp_tpb = lib.rrx_sparse_threads_per_block()
 
-    def sp_occupancy(idx, tables, rows, reverse=False):
+    def sp_occupancy(idx, tables, rows):
+        """Theoretical occupancy and grid of container kernel ``idx``
+        (rrx_sparse_occupancy's index) on ``tables``, in its automatic form."""
         bps = ctypes.c_int(0)
-        tab, meta = (tables.tab_r, tables.meta_r) if reverse else (tables.tab_f, tables.meta_f)
-        glob = int(SP.table_form(tables, reverse) == "global")
-        _build.check(lib.rrx_sparse_occupancy(idx, tab.numel(), meta.numel(), tables.W, glob,
-                                              ctypes.byref(bps)), "rrx_sparse_occupancy")
+        kind = ("walk", "walk", "reverse", "stream", "stream", "reverse")[idx]
+        tab, meta = (tables.tab_r, tables.meta_r) if kind == "reverse" else (tables.tab_f,
+                                                                            tables.meta_f)
+        form = SP.table_form(tables, kind)
+        _build.check(lib.rrx_sparse_occupancy(idx, tab.numel(), meta.numel(), tables.walk_f.numel(),
+                                              tables.W, int(form == "global"), ctypes.byref(bps)),
+                     "rrx_sparse_occupancy")
         blocks = min(-(-rows // (sp_tpb // 32)), bps.value * n_sm)
         return (f"theoretical {bps.value * sp_tpb}/{max_threads} threads per SM "
                 f"({100.0 * bps.value * sp_tpb / max_threads:.1f}%, one warp per record, "
-                f"{SP.table_form(tables, reverse)} table); grid {blocks} blocks of {sp_tpb}")
+                f"{form} table, {SP.smem_bytes(tables, kind, form == 'global')} bytes of shared "
+                f"memory a block); grid {blocks} blocks of {sp_tpb}")
+
+    def sched_cycles(ms, ln, L):
+        """Warp-scheduler cycles a record-step: the time x the clock
+        (CLOCK_GHZ) x 4 schedulers an SM / the record-steps (len + 2 a
+        record: every step of a seeded scan)."""
+        steps = int((ln.to(torch.int64).clamp(0, L) + 2).sum())
+        return ms * 1e6 * CLOCK_GHZ * 4 * n_sm / steps
 
     sp_ms = {}
     sp_slices = {}  # the census slices (their census is cached by tensor id)
@@ -4248,10 +4300,11 @@ def main() -> int:
             bnd = sp_bound(what, tb120, pd, pl, scale=scale)
             sp_ms[name, shape] = (ms, plain_ms, bnd, n)
             print(f"phase 7: {name} K120 {shape} [{d.shape[0]} x {d.shape[1]}], every record: "
-                  f"kernel {ms:.3f} ms = {d.shape[0] * d.shape[1] / ms / 1e6:.2f} GB/s, plain "
+                  f"kernel {ms:.3f} ms = {d.shape[0] * d.shape[1] / ms / 1e6:.2f} GB/s, "
+                  f"{sched_cycles(ms, ln, d.shape[1]):.1f} scheduler cycles a record-step, plain "
                   f"{plain_ms:.1f} ms on {n} records; bound {bnd[0]:.4f} ms by {bnd[1]} "
                   f"({100 * bnd[0] / ms:.2f}% of it) [{card}]")
-            print(f"  occupancy {name} ({shape}): {sp_occupancy(idx, tb120, d.shape[0], idx == 2)}; "
+            print(f"  occupancy {name} ({shape}): {sp_occupancy(idx, tb120, d.shape[0])}; "
                   f"registers {regs_of(('sp_stats_kernel', 'sp_flags_kernel', 'sp_reverse_kernel')[idx])}")
 
     # end to end (data on the card), split into the prefilter, the kernel
@@ -4313,9 +4366,20 @@ def main() -> int:
     # the larger of the stream's bytes over the card's memory rate and the
     # container census of the same records (the byte kernels' operations);
     # beside each, the byte kernel (rows 23-25) on the same records
+    # x[ab]{0,400}c's chain records (10 MB): [ab] runs with an x every ~256
+    # bytes on average, so that a source block holds up to 128 live states
+    prog_xab = compile_program(XAB)
+    tables_xab = SP.device_sparse_tables(prog_xab, dev)
+    gx = torch.Generator(device="cpu").manual_seed(23)
+    ux = torch.rand((B7, 1024), generator=gx).to(dev)
+    d_xab = torch.where(ux < 1 / 256, ord("x"), torch.where(ux < 1 / 128, ord("c"),
+                        torch.where(ux < 0.5 + 1 / 256, ord("a"), ord("b")))).to(torch.uint8)
+    l_xab = torch.full((B7,), 1024, dtype=torch.int32, device=dev)
+    del ux
     sps_ms = {}
     runs_sps = (("K120", "10 MB", tb120, sc120.prog, log10, len10),
                 ("config 13", "10 MB", tables13, eng13.prog, d13, l13),
+                (XAB, "10 MB", tables_xab, prog_xab, d_xab, l_xab),
                 ("K120", "128 MB", tb120, sc120.prog, log[: 1 << 17], log_len[: 1 << 17]))
     for tag, shape, tabs_c, prog_c, d, ln in runs_sps:
         stabs = scan_packed.stream_tables(prog_c, dev)
@@ -4368,9 +4432,62 @@ def main() -> int:
                   f"it); the byte kernel on the same records {byte_ms:.3f} ms; stream build "
                   f"{ms_w:.3f} ms [{card}]")
             print(f"  occupancy {name} ({tag} {shape}): "
-                  f"{sp_occupancy(idx, tabs_c, R_w, what == 'reverse')}; registers "
+                  f"{sp_occupancy(idx, tabs_c, R_w)}; registers "
                   f"{regs_of(('sp_stream_stats_kernel', 'sp_stream_flags_kernel', 'sp_stream_reverse_kernel')[idx - 3])}")
         del words, pw
+
+    # the forward step of rrx_sparse_stats and _flags on three kinds of
+    # records: K120's log text (a few live states a step), config 13's chain
+    # batch and x[ab]{0,400}c's chain records (dense blocks): first the
+    # sweep of walk_max (the live states up to which a source block is
+    # walked state by state; -1: the block-parallel form everywhere, 128:
+    # the walk everywhere) that set SP.WALK_MAX, then at WALK_MAX the time,
+    # census bound, scheduler cycles a record-step, occupancy and registers,
+    # beside the old step on the same records (rrx_sparse_stream_stats over
+    # their mask stream, above)
+    walk_runs = (("K120", tb120, log10, len10), ("config 13", tables13, d13, l13),
+                 (XAB, tables_xab, d_xab, l_xab))
+    sweep = {}
+    for tag, tabs_c, d, ln in walk_runs:
+        kw = dict(seeded=True, nullable=False)
+        n = 256
+        compare("rrx_sparse_stats", [x[:n] for x in SP.sparse_stats(d, ln, tabs_c, **kw)],
+                SP.sparse_stats_plain(d[:n], ln[:n], tabs_c, **kw), f"{tag} 10 MB, first {n}")
+        compare("rrx_sparse_flags", [SP.sparse_flags(d, ln, tabs_c, seeded=True)[:, :n]],
+                [SP.sparse_flags_plain(d[:n], ln[:n], tabs_c, seeded=True)],
+                f"{tag} 10 MB, first {n}", ("flags",))
+        sweep[tag] = {wm: time_ms(lambda: SP.sparse_stats(d, ln, tabs_c, **kw, walk_max=wm),
+                                  warm=1, runs=3) for wm in WALK_SWEEP}
+        best = min(sweep[tag], key=sweep[tag].get)
+        print(f"phase 7: walk_max sweep, rrx_sparse_stats {tag} 10 MB [{d.shape[0]} x {d.shape[1]}] "
+              f"(ms): { {wm: round(t, 4) for wm, t in sweep[tag].items()} }; fastest {best}, "
+              f"WALK_MAX = {SP.WALK_MAX} at {sweep[tag][SP.WALK_MAX] / sweep[tag][best]:.3f}x it "
+              f"[{card}]")
+    worst = {wm: max(sweep[t][wm] / min(sweep[t].values()) for t in sweep) for wm in WALK_SWEEP}
+    print(f"phase 7: walk_max sweep, the slowest of the three batches against its fastest: "
+          f"{ {wm: round(x, 3) for wm, x in worst.items()} }; the least {min(worst, key=worst.get)}"
+          f", WALK_MAX = {SP.WALK_MAX} [{card}]")
+    walk_rows = {}
+    for tag, tabs_c, d, ln in walk_runs:
+        L = d.shape[1]
+        for name, what, idx, fn in (
+                ("rrx_sparse_stats", "stats", 0,
+                 lambda: SP.sparse_stats(d, ln, tabs_c, seeded=True, nullable=False)),
+                ("rrx_sparse_flags", "flags", 1,
+                 lambda: SP.sparse_flags(d, ln, tabs_c, seeded=True))):
+            ms = time_ms(fn, warm=1, runs=7)
+            # K120's census: the one of its 10 MB rows above (the same records)
+            cd, cl = sp_slices["10 MB"] if tag == "K120" else (d, ln)
+            bnd = sp_bound(what, tabs_c, cd, cl)
+            old_ms = sps_ms[name.replace("sparse_", "sparse_stream_"), tag, "10 MB"][0]
+            walk_rows[name, tag] = (ms, bnd, old_ms)
+            print(f"phase 7: {name} {tag} 10 MB [{d.shape[0]} x {L}], the new step: {ms:.3f} ms, "
+                  f"{sched_cycles(ms, ln, L):.1f} scheduler cycles a record-step; census bound "
+                  f"{bnd[0]:.4f} ms by {bnd[1]} ({100 * bnd[0] / ms:.2f}% of it); the old step "
+                  f"(rrx_sparse_stream_{what} on the same records' stream) {old_ms:.3f} ms, "
+                  f"{sched_cycles(old_ms, ln, L):.1f} cycles ({old_ms / ms:.2f}x) [{card}]")
+            print(f"  occupancy {name} ({tag}): {sp_occupancy(idx, tabs_c, d.shape[0])}; registers "
+                  f"{regs_of(('sp_stats_kernel', 'sp_flags_kernel')[idx])}")
 
     # the slotted SWAR kernel on config 6 at 10 MB (phase 3's corpus) and
     # 1 GiB (phase 8's), plain version on the whole 10 MB batch and the first
@@ -4740,7 +4857,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SPARSE_SOURCE, "replaces": REPLACES[name],
             "launches": sparse_launches[name], "max_abs_err": max_err[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-            "shape": f"K120 ({len(K120_WORDS)} keywords), 10 MB of log text, every record",
+            "shape": f"K120 ({len(K120_WORDS)} keywords), 10 MB of log text, every record"
+                     + ("" if name == "rrx_sparse_reverse" else f", walk_max {SP.WALK_MAX}"),
         })
     for name in WIDE_KERNELS:
         ms, plain_ms, bnd = wide_ms[name, CHAIN300, "10 MB"]

@@ -45,35 +45,62 @@
 // Design, and what bounds it on this card:
 // - One warp per record, 16 warps per block, and no more blocks than are
 //   resident at once: each block copies the table once and its warps take
-//   records from a counter in global memory until none is left. The
-//   record's state lives in two buffers of W words in shared memory (the
-//   current and the next state), so every lane reads any source block with
-//   one broadcast 16-byte load. For a live source block, lane l takes bit l
-//   of each of its four words and ORs the partial block's row of that bit
-//   (one 16-byte load) into its own 4-word sum; __reduce_or_sync joins the
-//   lanes' sums once per output block. A source block with no live bit,
-//   and (forward) an output block whose mask words are zero for the step's
-//   symbol, cost one uniform test each and nothing else: the work follows
-//   the live states.
+//   records from a counter in global memory until none is left.
+// - rrx_sparse_stats and _flags (step_regs) keep the record's state in
+//   registers: lane l holds state words l + 32 j (j < ceil(W / 32) <= 4;
+//   lanes past W hold zero and join every vote), so block 8 j + g sits in
+//   lanes 4 g .. 4 g + 3 of slot j. The seed row (the expansion of state 0,
+//   live at every step of a seeded scan) is ORed in from registers. Each
+//   source block with a live state (a ballot of the lanes' words) takes one
+//   of two forms by its live count, a warp-uniform popcount:
+//   - at most walk_max live states (ops/scan_sparse.WALK_MAX, fixed by
+//     chip_smoke.py's sweep on log text and chain records): each live
+//     state's own list of nonzero partial rows (built on the host from
+//     prog.sparse_partition), each row one 4-byte load and OR by the four
+//     lanes that own its output block: ~6 warp instructions a live state
+//     and ~8 a live row;
+//   - more: the block-parallel form (lane l takes bit l of the block's four
+//     words, shuffled from their lanes, and ORs the 16-byte rows of its
+//     bits; __reduce_or_sync per partial block), ~35 instructions a partial
+//     block whatever its live count: the cheaper form for the chains of a
+//     counter, which keep tens to 128 states of a block live.
+//   A live source block also sets U's full output blocks. Rows of an output
+//   block that the step's mask zeroes are skipped, and a symbol whose mask
+//   is zero clears the state without a walk. The mask, the union accept test
+//   (one __any_sync) and the liveness test run per lane; only on a step where
+//   the union fires does the warp write its state into its buffer of W words
+//   in shared memory for the per-channel tests. The step is bound by
+//   instruction issue and follows the live states: K120's log text keeps ~5
+//   live (the seed included) in ~3.5 of 7 source blocks, ~150 instructions
+//   a step; the memory carries one input byte a step.
+// - Not tensor cores: a step is a bit-vector times a bit-matrix per record.
+//   An int8 wgmma over 64 records in lockstep would do lanes^2 multiply-adds
+//   a record-step (826^2 for K120) to obtain what ~5 row ORs give, and
+//   records of different lengths would wait for each other.
+// - rrx_sparse_reverse and the stream-fed kernels still run expand: the
+//   state in two buffers of W words in shared memory (the current and the
+//   next), every entry of every output block visited (a source block with
+//   no live bit costs a uniform test), for a live one each lane's 4 bits
+//   tested, 4 predicated 16-byte row loads and 16 ORs, 4 __reduce_or_sync
+//   an output block and a __syncwarp a step: ~35 instructions an entry
+//   whatever the live count (~1,250 scheduler cycles a K120 step).
 // - The table (the partial blocks, 2 KB each, the mask rows and the accept
-//   rows) is copied into shared memory when it fits beside the meta and the
-//   state buffers (227 KB a block; config 13's 78 blocks are 156 KB), else
+//   rows) and, for the walk kernels, the walk tables are copied into shared
+//   memory when they fit beside the meta and the state buffers (227 KB a
+//   block; config 13's 78 blocks are 156 KB, its walk tables 26 KB), else
 //   read from global memory through L1 / L2 (the cap of 120 partial blocks
 //   is 240 KB). The launcher takes the form from the wrapper
-//   (ops/scan_sparse.table_form) and refuses a shared form that does not fit.
-// - The accept test runs on the channels' union row, folded into the
-//   expansion; only on a step where it fires does each lane test its
-//   channels (c = lane, lane + 32, ...) and update their statistics or flag
-//   words in global memory, so the per-channel bookkeeping of a 100-pattern
-//   MultiPattern costs nothing on the many steps without a match.
+//   (ops/scan_sparse.table_form, per kind of kernel) and refuses a shared
+//   form that does not fit.
+// - The accept test runs on the channels' union row; only on a step where
+//   it fires does each lane test its channels (c = lane, lane + 32, ...) and
+//   update their statistics or flag words in global memory, so the
+//   per-channel bookkeeping of a 100-pattern MultiPattern costs nothing on
+//   the many steps without a match.
 // - An unseeded scan (fullmatch) whose state is empty after step 1 can
 //   accept nothing later: the walk stops there.
-// - A step is a chain of shared loads, ORs and warp reductions, so a pass is
-//   bound by integer and shared-memory issue; HBM carries one input byte per
-//   step (all lanes read the same 16-byte chunk) and 1 bit per step of flag
-//   or hit words.
-// - The stream-fed kernels run the same step with the mask of output block o
-//   read from the record's stream row (words[t][r][4o .. 4o+3], one 16-byte
+// - The stream-fed kernels run expand with the mask of output block o read
+//   from the record's stream row (words[t][r][4o .. 4o+3], one 16-byte
 //   load that every lane of the warp shares) where the byte kernels look up
 //   the symbol's row; an output block whose stream mask is zero costs that
 //   load and nothing else. They walk every step t < T of the stream as the
@@ -107,7 +134,8 @@ constexpr size_t kSmemLimit = 232448;
 
 // One direction's tables as a kernel reads them: tab is shared memory in
 // the shared form and global memory in the global form; meta is always in
-// shared memory.
+// shared memory. The forward walk tables (rrx_sparse_stats and _flags only,
+// null elsewhere) live where the table does.
 struct Sp {
   const uint4* blk;   // [n_part][128] rows
   const uint4* mask;  // [n_mask][nb]
@@ -115,6 +143,17 @@ struct Sp {
   const int* meta;
   const int2* ent;  // [n_ent] (source block, partial block or -1)
   int nb, W, C;
+  // walk: [W seed words | nb full masks | n_mask block masks | nb + 1
+  // source-block offsets | n_part source-block entries | lanes + 1 state
+  // offsets | the state entries], padded to a multiple of 4 words
+  // (ops/scan_sparse._walk)
+  const uint32_t* seed;   // [W] the expansion of {state 0}
+  const uint32_t* full;   // [nb] bit o: U maps source block s onto output block o
+  const uint32_t* mblk;   // [n_mask] bit o: mask row r is nonzero in output block o
+  const int* sptr;        // [nb + 1] each source block's partial blocks in sent
+  const int* sent;        // [n_part] partial block << 5 | its output block
+  const int* ptr;         // [lanes + 1] each state's nonzero partial rows in rent
+  const int* rent;        // row (partial block * 128 + state's row) << 5 | output block
 };
 
 inline size_t sparse_smem_bytes(int n_tab, int n_meta, int W, bool global_tab) {
@@ -122,8 +161,17 @@ inline size_t sparse_smem_bytes(int n_tab, int n_meta, int W, bool global_tab) {
          (static_cast<size_t>(n_meta) + 2 * kWarps * W + (global_tab ? 0 : n_tab));
 }
 
-template <bool kGlobal>
-__device__ __forceinline__ uint4 ld(const uint4* p) {
+// rrx_sparse_stats and _flags: the meta, one channel buffer of W words per
+// warp and, in the shared form, the walk tables and the table.
+inline size_t walk_smem_bytes(int n_tab, int n_meta, int n_walk, int W, bool global_tab) {
+  return sizeof(uint32_t) * (static_cast<size_t>(n_meta) + kWarps * W +
+                             (global_tab ? 0 : static_cast<size_t>(n_walk) + n_tab));
+}
+
+// A load from the table or the walk tables: through the read-only path in
+// the global form, from shared memory in the shared form.
+template <bool kGlobal, class T>
+__device__ __forceinline__ T ld(const T* p) {
   if (kGlobal) return __ldg(p);
   return *p;
 }
@@ -134,21 +182,29 @@ __device__ __forceinline__ uint4 and4(const uint4& a, const uint4& b) {
   return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
 }
 
-// Copies the meta (and, in the shared form, the table) into shared memory.
-// Every thread of a block that holds a record calls it (it ends in
+// Copies the meta (and, in the shared form, the walk tables and the table)
+// into shared memory after the meta and bufs state buffers of W words per
+// warp. Every thread of a block that holds a record calls it (it ends in
 // __syncthreads) before any thread returns.
 template <bool kGlobal>
 __device__ __forceinline__ Sp load_sp(uint32_t* smem, const uint32_t* __restrict__ tab_g,
-                                      const int32_t* __restrict__ meta_g, int n_meta) {
+                                      const int32_t* __restrict__ meta_g, int n_meta, int bufs,
+                                      const int32_t* __restrict__ walk_g = nullptr,
+                                      int n_walk = 0) {
   int* meta = reinterpret_cast<int*>(smem);
   for (int i = threadIdx.x; i < n_meta; i += blockDim.x) meta[i] = meta_g[i];
   const int nb = meta_g[0], n_part = meta_g[1], n_mask = meta_g[3], C = meta_g[4];
   const int W = meta_g[5], n_acc = meta_g[6];
-  // the table, in 16-byte words, after the meta and the state buffers
+  // the walk tables, then the table, in 16-byte words, after the meta and
+  // the state buffers
   const int n_tab4 = n_part * (kBlockWords / 4) + (n_mask + n_acc) * nb;
   const uint4* tab = reinterpret_cast<const uint4*>(tab_g);
+  const uint32_t* walk = reinterpret_cast<const uint32_t*>(walk_g);
   if (!kGlobal) {
-    uint4* t = reinterpret_cast<uint4*>(smem + n_meta + 2 * kWarps * W);
+    uint32_t* w = smem + n_meta + bufs * kWarps * W;
+    for (int i = threadIdx.x; i < n_walk; i += blockDim.x) w[i] = __ldg(walk + i);
+    if (walk != nullptr) walk = w;
+    uint4* t = reinterpret_cast<uint4*>(w + n_walk);
     for (int i = threadIdx.x; i < n_tab4; i += blockDim.x) t[i] = __ldg(tab + i);
     tab = t;
   }
@@ -162,27 +218,35 @@ __device__ __forceinline__ Sp load_sp(uint32_t* smem, const uint32_t* __restrict
   sp.nb = nb;
   sp.W = W;
   sp.C = C;
+  if (walk != nullptr) {
+    sp.seed = walk;
+    sp.full = walk + W;
+    sp.mblk = sp.full + nb;
+    sp.sptr = reinterpret_cast<const int*>(sp.mblk + n_mask);
+    sp.sent = sp.sptr + nb + 1;
+    sp.ptr = sp.sent + n_part;
+    sp.rent = sp.ptr + 32 * W + 1;
+  }
   return sp;
 }
 
-// The warp's two state buffers (16-byte aligned: n_meta and W are
-// multiples of 4).
+// The warp's two state buffers of the expand kernels (16-byte aligned:
+// n_meta and W are multiples of 4).
 __device__ __forceinline__ uint32_t* warp_buf(uint32_t* smem, int n_meta, int W, int warp,
                                               int which) {
   return smem + n_meta + (2 * warp + which) * W;
 }
 
 // One expansion of src into dst (both [nb] 16-byte blocks of one warp's
-// buffers). Forward (kFwd): the seed ORs state 0 into source block 0 when
-// gate, and each output block is masked by the step's mask row mrow ([nb]
-// 16-byte words; null: no row, all zero), skipping an output block whose
-// mask is zero; the union accept row's test comes back in acc_hit. The row
-// is the table's (a symbol's row: shared or global with the table) or,
-// kStream, the record's row of the mask stream in global memory. Reverse:
-// no mask (src is already masked). Returns whether any state of dst is live
-// (forward) or state 0 is (reverse). Lane 0 writes dst; the caller syncs
-// the warp.
-template <bool kGlobal, bool kFwd, bool kStream = false>
+// buffers), the step of the reverse and the stream-fed kernels. Forward
+// (kFwd, the stream-fed kernels): the seed ORs state 0 into source block 0
+// when gate, and each output block is masked by the record's row of the
+// mask stream mrow ([nb] 16-byte words in global memory), skipping an
+// output block whose mask is zero; the union accept row's test comes back
+// in acc_hit. Reverse: no mask (src is already masked). Returns whether any
+// state of dst is live (forward) or state 0 is (reverse). Lane 0 writes
+// dst; the caller syncs the warp.
+template <bool kGlobal, bool kFwd>
 __device__ __forceinline__ bool expand(const Sp& sp, const uint4* src, uint4* dst, bool gate,
                                        const uint4* mrow, bool& acc_hit, int lane) {
   bool live = false;
@@ -190,7 +254,7 @@ __device__ __forceinline__ bool expand(const Sp& sp, const uint4* src, uint4* ds
   const int* ptr = sp.meta + kMetaPtr;
   for (int o = 0; o < sp.nb; ++o) {
     uint4 m = make_uint4(kFull, kFull, kFull, kFull);
-    if (kFwd) m = mrow != nullptr ? ld<kGlobal || kStream>(mrow + o) : make_uint4(0, 0, 0, 0);
+    if (kFwd) m = __ldg(mrow + o);
     uint4 y = make_uint4(0, 0, 0, 0);
     if (nz(m)) {
       uint4 a = make_uint4(0, 0, 0, 0);
@@ -241,12 +305,6 @@ __device__ __forceinline__ bool expand(const Sp& sp, const uint4* src, uint4* ds
   return live;
 }
 
-// The mask row of a symbol (null: a symbol in no run, a zero mask).
-__device__ __forceinline__ const uint4* sym_row(const Sp& sp, int sym) {
-  const int mr = sp.meta[kMetaSyms + sym];
-  return mr >= 0 ? sp.mask + mr * sp.nb : nullptr;
-}
-
 // Channel c's accept test on the warp's state buffer v.
 template <bool kGlobal>
 __device__ __forceinline__ bool channel_hit(const Sp& sp, const uint4* v, int c) {
@@ -268,7 +326,7 @@ __device__ __forceinline__ bool channel_hit(const Sp& sp, const uint4* v, int c)
   /* come before load_sp's barrier */                                                  \
   const int n_rec = live != nullptr ? min(R, *live) : R;                               \
   if (static_cast<int>(blockIdx.x) * kWarps >= n_rec) return;                          \
-  const Sp sp = load_sp<kGlobal>(smem, tab_g, meta_g, n_meta);                         \
+  const Sp sp = load_sp<kGlobal>(smem, tab_g, meta_g, n_meta, 2);                      \
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;                          \
   uint4* const buf_a = reinterpret_cast<uint4*>(warp_buf(smem, n_meta, sp.W, warp, 0)); \
   uint4* const buf_b = reinterpret_cast<uint4*>(warp_buf(smem, n_meta, sp.W, warp, 1));
@@ -317,15 +375,175 @@ __device__ __forceinline__ void walk_fwd_until(const uint4* row, int len, F&& f)
   }
 }
 
-template <bool kGlobal>
+// ---- the forward step of rrx_sparse_stats and rrx_sparse_flags: the
+// record's state in registers, lane l holding state words l + 32 j in v[j]
+// (j < NJ = ceil(W / 32); zero past W). Word w is word w % 4 of block w / 4,
+// so block 8 j + g lives in lanes 4 g .. 4 g + 3 of slot j.
+
+// y[jj] |= x for a slot index known only at run time (NJ is at most 4).
+template <int NJ>
+__device__ __forceinline__ void or_slot(uint32_t (&y)[NJ], int jj, uint32_t x) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (j == jj) y[j] |= x;
+  }
+}
+
+// One forward step: v = expand(v | gate * {state 0}) & mask[sym]. The seed
+// row (seed, this lane's words of the expansion of {state 0}) stands for the
+// gate, so state 0 enters the walk only when it is live itself. Per source
+// block with a live state (a ballot over the lanes' words): with at most
+// walk_max live states, each live state's nonzero partial rows (sp.ptr /
+// sp.rent) are ORed in by the lanes that own their output words, one 4-byte
+// load each; with more, the block-parallel form (lane l takes bit l of the
+// block's four words, 16-byte row loads, __reduce_or_sync per partial
+// block) as in expand. A live source block also sets U's full output blocks.
+// Rows and partial blocks whose output block is zero under the step's mask
+// are skipped; a symbol with a zero mask clears the state at once. Returns
+// whether a state is live; hit: the union accept row meets v.
+template <int NJ, bool kGlobal>
+__device__ __forceinline__ bool step_regs(const Sp& sp, uint32_t (&v)[NJ],
+                                          const uint32_t (&seed)[NJ],
+                                          const uint32_t (&acc)[NJ], bool gate, int sym,
+                                          int walk_max, int lane, bool& hit) {
+  const int mr = sp.meta[kMetaSyms + sym];
+  const uint32_t mb = mr >= 0 ? ld<kGlobal>(sp.mblk + mr) : 0u;
+  hit = false;
+  if (mb == 0u) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) v[j] = 0u;
+    return false;
+  }
+  const int grp = lane >> 2, sub = lane & 3;
+  const uint32_t* blk32 = reinterpret_cast<const uint32_t*>(sp.blk);
+  uint32_t y[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) y[j] = gate ? seed[j] : 0u;
+  uint32_t full = 0u;  // output blocks set whole by U
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const uint32_t x = v[j];
+    unsigned lw = __ballot_sync(kFull, x != 0u);  // the live words of slot j
+    if (lw == 0u) continue;
+    int pc = __popc(x);  // live states of this lane's block
+    pc += __shfl_xor_sync(kFull, pc, 1);
+    pc += __shfl_xor_sync(kFull, pc, 2);
+    const unsigned dense = __ballot_sync(kFull, pc > walk_max);
+    while (lw != 0u) {
+      const int src = __ffs(lw) - 1;
+      const int s = 8 * j + (src >> 2);  // its source block
+      full |= ld<kGlobal>(sp.full + s);
+      if ((dense >> src) & 1u) {
+        // the block-parallel form, once for the block's four words
+        const int q = src & ~3;
+        lw &= ~(0xFu << q);
+        const uint32_t x0 = __shfl_sync(kFull, x, q), x1 = __shfl_sync(kFull, x, q + 1);
+        const uint32_t x2 = __shfl_sync(kFull, x, q + 2), x3 = __shfl_sync(kFull, x, q + 3);
+        const int e1 = ld<kGlobal>(sp.sptr + s + 1);
+        for (int e = ld<kGlobal>(sp.sptr + s); e < e1; ++e) {
+          const int en = ld<kGlobal>(sp.sent + e);
+          const int o = en & 31;
+          if (((mb >> o) & 1u) == 0u) continue;
+          const uint4* rows = sp.blk + (en >> 5) * 128 + lane;
+          uint4 a = make_uint4(0, 0, 0, 0);
+          if ((x0 >> lane) & 1u) {
+            const uint4 r = ld<kGlobal>(rows);
+            a.x |= r.x; a.y |= r.y; a.z |= r.z; a.w |= r.w;
+          }
+          if ((x1 >> lane) & 1u) {
+            const uint4 r = ld<kGlobal>(rows + 32);
+            a.x |= r.x; a.y |= r.y; a.z |= r.z; a.w |= r.w;
+          }
+          if ((x2 >> lane) & 1u) {
+            const uint4 r = ld<kGlobal>(rows + 64);
+            a.x |= r.x; a.y |= r.y; a.z |= r.z; a.w |= r.w;
+          }
+          if ((x3 >> lane) & 1u) {
+            const uint4 r = ld<kGlobal>(rows + 96);
+            a.x |= r.x; a.y |= r.y; a.z |= r.z; a.w |= r.w;
+          }
+          const uint32_t r0 = __reduce_or_sync(kFull, a.x), r1 = __reduce_or_sync(kFull, a.y);
+          const uint32_t r2 = __reduce_or_sync(kFull, a.z), r3 = __reduce_or_sync(kFull, a.w);
+          if ((o & 7) == grp) or_slot(y, o >> 3, sub == 0 ? r0 : sub == 1 ? r1 : sub == 2 ? r2 : r3);
+        }
+      } else {
+        // the live-state walk over this word's bits
+        lw &= lw - 1u;
+        uint32_t b = __shfl_sync(kFull, x, src);
+        const int base = 32 * (32 * j + src);
+        while (b != 0u) {
+          const int st = base + __ffs(b) - 1;
+          b &= b - 1u;
+          const int e1 = ld<kGlobal>(sp.ptr + st + 1);
+          for (int e = ld<kGlobal>(sp.ptr + st); e < e1; ++e) {
+            const int en = ld<kGlobal>(sp.rent + e);
+            const int o = en & 31;
+            if (((mb >> o) & 1u) != 0u && (o & 7) == grp) {
+              or_slot(y, o >> 3, ld<kGlobal>(blk32 + (en >> 5) * 4 + sub));
+            }
+          }
+        }
+      }
+    }
+  }
+  const uint32_t* mask32 = reinterpret_cast<const uint32_t*>(sp.mask) + mr * sp.W;
+  bool live = false, acc_hit = false;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int w = lane + 32 * j;
+    const uint32_t m = w < sp.W ? ld<kGlobal>(mask32 + w) : 0u;
+    const uint32_t z = (((full >> (8 * j + grp)) & 1u) != 0u ? kFull : y[j]) & m;
+    v[j] = z;
+    live = live || z != 0u;
+    acc_hit = acc_hit || (z & acc[j]) != 0u;
+  }
+  hit = __any_sync(kFull, acc_hit);
+  return __any_sync(kFull, live);
+}
+
+// This lane's words of the seed row and of the union accept row.
+template <int NJ, bool kGlobal>
+__device__ __forceinline__ void lane_rows(const Sp& sp, int lane, uint32_t (&seed)[NJ],
+                                          uint32_t (&acc)[NJ]) {
+  const uint32_t* acc32 = reinterpret_cast<const uint32_t*>(sp.acc);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int w = lane + 32 * j;
+    seed[j] = w < sp.W ? ld<kGlobal>(sp.seed + w) : 0u;
+    acc[j] = w < sp.W ? ld<kGlobal>(acc32 + w) : 0u;
+  }
+}
+
+// Writes the state into the warp's channel buffer (W words) for the
+// per-channel accept tests; the caller syncs the warp.
+template <int NJ>
+__device__ __forceinline__ void spill(const uint32_t (&v)[NJ], uint32_t* buf, int W, int lane) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (lane + 32 * j < W) buf[lane + 32 * j] = v[j];
+  }
+}
+
+#define RRX_SPW_PARAMS                                                                 \
+  RRX_SP_PARAMS, const int32_t *walk_g, int n_walk, int walk_max
+#define RRX_SPW_SETUP                                                                  \
+  extern __shared__ __align__(16) uint32_t smem[];                                     \
+  const int n_rec = live != nullptr ? min(R, *live) : R;                               \
+  if (static_cast<int>(blockIdx.x) * kWarps >= n_rec) return;                          \
+  const Sp sp = load_sp<kGlobal>(smem, tab_g, meta_g, n_meta, 1, walk_g, n_walk);      \
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;                          \
+  uint32_t* const buf = smem + n_meta + warp * sp.W;                                   \
+  uint32_t seed[NJ], acc[NJ];                                                          \
+  lane_rows<NJ, kGlobal>(sp, lane, seed, acc);
+
+template <int NJ, bool kGlobal>
 __global__ void __launch_bounds__(kSpThreads)
-    sp_stats_kernel(RRX_SP_PARAMS, int seeded, int nullable, int32_t* cnt_o, int32_t* first_o,
+    sp_stats_kernel(RRX_SPW_PARAMS, int seeded, int nullable, int32_t* cnt_o, int32_t* first_o,
                     int32_t* last_o, uint8_t* full_o) {
-  RRX_SP_SETUP
+  RRX_SPW_SETUP
   const int C = sp.C;
   RRX_SP_RECORDS {
-    uint4 *va = buf_a, *vb = buf_b;
-    const Row rec = begin_record(data, stride, L, lengths, r, va, sp.nb, lane);
+    const Row rec = record(data, stride, L, lengths, r);
     const int len = rec.len;
     const long long base = static_cast<long long>(r) * C;
     for (int c = lane; c < C; c += 32) {
@@ -334,60 +552,65 @@ __global__ void __launch_bounds__(kSpThreads)
       last_o[base + c] = nullable ? (seeded ? len : 0) : -1;
       full_o[base + c] = static_cast<uint8_t>(nullable && len == 0);
     }
+    uint32_t v[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) v[j] = 0u;
     walk_fwd_until(rec.row, len, [&](int t, int sym) {
-      const bool gate = seeded || t < 2;
       bool hit;
-      const bool alive = expand<kGlobal, true>(sp, va, vb, gate, sym_row(sp, sym), hit,
-                                               lane);
-      __syncwarp();
+      const bool alive = step_regs<NJ, kGlobal>(sp, v, seed, acc, seeded || t < 2, sym,
+                                                walk_max, lane, hit);
       if (hit) {
+        if (C > 1) {
+          spill(v, buf, sp.W, lane);
+          __syncwarp();
+        }
         const int e = min(t, len);
         for (int c = lane; c < C; c += 32) {
-          if (C > 1 && !channel_hit<kGlobal>(sp, vb, c)) continue;
+          if (C > 1 && !channel_hit<kGlobal>(sp, reinterpret_cast<const uint4*>(buf), c)) continue;
           const long long o = base + c;
           if (!(nullable && seeded) && e != last_o[o]) cnt_o[o] += 1;
           if (first_o[o] < 0) first_o[o] = e;
           last_o[o] = e;
           if (t >= len) full_o[o] = 1;
         }
+        if (C > 1) __syncwarp();
       }
-      uint4* tmp = va;
-      va = vb;
-      vb = tmp;
       return seeded || t < 1 || alive;
     });
   }
 }
 
-template <bool kGlobal>
+template <int NJ, bool kGlobal>
 __global__ void __launch_bounds__(kSpThreads)
-    sp_flags_kernel(RRX_SP_PARAMS, int seeded, uint32_t* words) {
-  RRX_SP_SETUP
+    sp_flags_kernel(RRX_SPW_PARAMS, int seeded, uint32_t* words) {
+  RRX_SPW_SETUP
   const int C = sp.C;
   const int Wt = (L + 2 + 31) >> 5;
   const long long cols = static_cast<long long>(R) * C;
   RRX_SP_RECORDS {
-    uint4 *va = buf_a, *vb = buf_b;
-    const Row rec = begin_record(data, stride, L, lengths, r, va, sp.nb, lane);
+    const Row rec = record(data, stride, L, lengths, r);
     const int len = rec.len;
     const long long base = static_cast<long long>(r) * C;
     for (int i = lane; i < Wt * C; i += 32) words[(i / C) * cols + base + i % C] = 0u;
     __syncwarp();
+    uint32_t v[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) v[j] = 0u;
     walk_fwd_until(rec.row, len, [&](int t, int sym) {
-      const bool gate = seeded || t < 2;
       bool hit;
-      const bool alive = expand<kGlobal, true>(sp, va, vb, gate, sym_row(sp, sym), hit,
-                                               lane);
-      __syncwarp();
+      const bool alive = step_regs<NJ, kGlobal>(sp, v, seed, acc, seeded || t < 2, sym,
+                                                walk_max, lane, hit);
       if (hit) {
+        if (C > 1) {
+          spill(v, buf, sp.W, lane);
+          __syncwarp();
+        }
         for (int c = lane; c < C; c += 32) {
-          if (C > 1 && !channel_hit<kGlobal>(sp, vb, c)) continue;
+          if (C > 1 && !channel_hit<kGlobal>(sp, reinterpret_cast<const uint4*>(buf), c)) continue;
           words[(t >> 5) * cols + base + c] |= 1u << (t & 31);
         }
+        if (C > 1) __syncwarp();
       }
-      uint4* tmp = va;
-      va = vb;
-      vb = tmp;
       return seeded || t < 1 || alive;
     });
   }
@@ -464,7 +687,7 @@ __global__ void __launch_bounds__(kSpThreads)
 #pragma unroll 1
     for (int t = 0; t < T; ++t) {
       bool hit;
-      const bool alive = expand<kGlobal, true, true>(
+      const bool alive = expand<kGlobal, true>(
           sp, va, vb, seeded || t < 2, stream_row(words, R, sp.nb, r, t), hit, lane);
       __syncwarp();
       if (hit) {
@@ -500,7 +723,7 @@ __global__ void __launch_bounds__(kSpThreads)
 #pragma unroll 1
     for (int t = 0; t < T; ++t) {
       bool hit;
-      const bool alive = expand<kGlobal, true, true>(
+      const bool alive = expand<kGlobal, true>(
           sp, va, vb, seeded || t < 2, stream_row(words, R, sp.nb, r, t), hit, lane);
       __syncwarp();
       word |= (hit ? 1u : 0u) << (t & 31);
@@ -567,6 +790,15 @@ int check_sp(const void* data, long long stride, int L, int R, int n_tab, int n_
   return check_rows(data, stride, L, R);
 }
 
+// rrx_sparse_stats' and _flags' checks: check_sp's and the walk tables'
+// length (a multiple of 4 words, keeping the table's shared copy 16-byte
+// aligned).
+int check_walk(const void* data, long long stride, int L, int R, int n_tab, int n_meta,
+               int n_walk, int W) {
+  if (n_walk < W + 32 * W + 1 || (n_walk & 3) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return check_sp(data, stride, L, R, n_tab, n_meta, W);
+}
+
 // The stream-fed launchers' checks: the stream's shape and alignment (16-byte
 // rows: W a multiple of 4) and the tables' (check_sp without the rows).
 int check_sp_stream(const void* words, int T, int R, int n_tab, int n_meta, int W) {
@@ -601,6 +833,27 @@ int launch_sp(K kernel, int R, size_t smem, void* stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// rrx_sparse_stats' and _flags' kernel for W state words (NJ = ceil(W / 32)
+// registers a lane) and the table's form.
+using StatsKernel = decltype(&sp_stats_kernel<1, false>);
+using FlagsKernel = decltype(&sp_flags_kernel<1, false>);
+
+StatsKernel stats_kernel(int W, bool global_tab) {
+  static const StatsKernel ks[4][2] = {{sp_stats_kernel<1, false>, sp_stats_kernel<1, true>},
+                                       {sp_stats_kernel<2, false>, sp_stats_kernel<2, true>},
+                                       {sp_stats_kernel<3, false>, sp_stats_kernel<3, true>},
+                                       {sp_stats_kernel<4, false>, sp_stats_kernel<4, true>}};
+  return ks[(W + 31) / 32 - 1][global_tab ? 1 : 0];
+}
+
+FlagsKernel flags_kernel(int W, bool global_tab) {
+  static const FlagsKernel ks[4][2] = {{sp_flags_kernel<1, false>, sp_flags_kernel<1, true>},
+                                       {sp_flags_kernel<2, false>, sp_flags_kernel<2, true>},
+                                       {sp_flags_kernel<3, false>, sp_flags_kernel<3, true>},
+                                       {sp_flags_kernel<4, false>, sp_flags_kernel<4, true>}};
+  return ks[(W + 31) / 32 - 1][global_tab ? 1 : 0];
+}
+
 template <class K>
 int occupancy_sp(K kernel, size_t smem, int* blocks_per_sm) {
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
@@ -631,30 +884,34 @@ extern "C" {
 // unwritten (the prefilter's compacted and full passes), and next: a
 // device int32 set to 0, the record counter the warps take work from.
 //
+// rrx_sparse_stats and rrx_sparse_flags also take the forward walk tables
+// (walk [n_walk] int32, a multiple of 4 words: ops/scan_sparse
+// .SparseTables.walk_f) and walk_max, the live-state count up to which a
+// source block is walked state by state (ops/scan_sparse.WALK_MAX).
+//
 // tab: the forward table (ops/scan_sparse.SparseTables.tab_f); cnt, first,
 // last: [R][C] int32; full: [R][C] uint8
-int rrx_sparse_stats(RRX_SP_HEAD, int seeded, int nullable, void* cnt,
-                     void* first, void* last, void* full, void* stream) {
-  const int bad = check_sp(data, stride, L, R, n_tab, n_meta, W);
+int rrx_sparse_stats(RRX_SP_HEAD, const void* walk, int n_walk, int walk_max, int seeded,
+                     int nullable, void* cnt, void* first, void* last, void* full,
+                     void* stream) {
+  const int bad = check_walk(data, stride, L, R, n_tab, n_meta, n_walk, W);
   if (bad != 0) return bad;
-  const size_t smem = sparse_smem_bytes(n_tab, n_meta, W, global_tab != 0);
-  auto args = [&](auto k) {
-    return launch_sp(k, R, smem, stream, RRX_SP_ARGS, seeded, nullable,
-                     static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
-                     static_cast<int32_t*>(last), static_cast<uint8_t*>(full));
-  };
-  return global_tab ? args(sp_stats_kernel<true>) : args(sp_stats_kernel<false>);
+  const size_t smem = walk_smem_bytes(n_tab, n_meta, n_walk, W, global_tab != 0);
+  return launch_sp(stats_kernel(W, global_tab != 0), R, smem, stream, RRX_SP_ARGS,
+                   static_cast<const int32_t*>(walk), n_walk, walk_max, seeded, nullable,
+                   static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
+                   static_cast<int32_t*>(last), static_cast<uint8_t*>(full));
 }
 
 // words: [ceil((L+2)/32)][R*C] uint32
-int rrx_sparse_flags(RRX_SP_HEAD, int seeded, void* words, void* stream) {
-  const int bad = check_sp(data, stride, L, R, n_tab, n_meta, W);
+int rrx_sparse_flags(RRX_SP_HEAD, const void* walk, int n_walk, int walk_max, int seeded,
+                     void* words, void* stream) {
+  const int bad = check_walk(data, stride, L, R, n_tab, n_meta, n_walk, W);
   if (bad != 0) return bad;
-  const size_t smem = sparse_smem_bytes(n_tab, n_meta, W, global_tab != 0);
-  auto args = [&](auto k) {
-    return launch_sp(k, R, smem, stream, RRX_SP_ARGS, seeded, static_cast<uint32_t*>(words));
-  };
-  return global_tab ? args(sp_flags_kernel<true>) : args(sp_flags_kernel<false>);
+  const size_t smem = walk_smem_bytes(n_tab, n_meta, n_walk, W, global_tab != 0);
+  return launch_sp(flags_kernel(W, global_tab != 0), R, smem, stream, RRX_SP_ARGS,
+                   static_cast<const int32_t*>(walk), n_walk, walk_max, seeded,
+                   static_cast<uint32_t*>(words));
 }
 
 // tab: the reverse table (SparseTables.tab_r); hits: [ceil((L+2)/32)][R]
@@ -719,20 +976,22 @@ int rrx_sparse_stream_reverse(RRX_SPS_HEAD, void* hits, void* stream) {
 }
 
 // Resident blocks per SM (theoretical occupancy) of a container kernel for
-// a table of n_tab words, a meta of n_meta and W state words: 0 stats,
-// 1 flags, 2 reverse; the stream-fed ones 3 stats, 4 flags, 5 reverse.
-int rrx_sparse_occupancy(int kernel, int n_tab, int n_meta, int W, int global_tab,
+// a table of n_tab words, a meta of n_meta, walk tables of n_walk (stats and
+// flags only) and W state words: 0 stats, 1 flags, 2 reverse; the
+// stream-fed ones 3 stats, 4 flags, 5 reverse.
+int rrx_sparse_occupancy(int kernel, int n_tab, int n_meta, int n_walk, int W, int global_tab,
                          int* blocks_per_sm) {
-  const size_t smem = sparse_smem_bytes(n_tab, n_meta, W, global_tab != 0);
-  switch (kernel * 2 + (global_tab ? 1 : 0)) {
+  if (W < 4 || W > 4 * kMaxBlocks) return static_cast<int>(cudaErrorInvalidValue);
+  const bool g = global_tab != 0;
+  const size_t smem = sparse_smem_bytes(n_tab, n_meta, W, g);
+  const size_t smem_w = walk_smem_bytes(n_tab, n_meta, n_walk, W, g);
+  switch (kernel * 2 + (g ? 1 : 0)) {
     case 0:
-      return occupancy_sp(sp_stats_kernel<false>, smem, blocks_per_sm);
     case 1:
-      return occupancy_sp(sp_stats_kernel<true>, smem, blocks_per_sm);
+      return occupancy_sp(stats_kernel(W, g), smem_w, blocks_per_sm);
     case 2:
-      return occupancy_sp(sp_flags_kernel<false>, smem, blocks_per_sm);
     case 3:
-      return occupancy_sp(sp_flags_kernel<true>, smem, blocks_per_sm);
+      return occupancy_sp(flags_kernel(W, g), smem_w, blocks_per_sm);
     case 4:
       return occupancy_sp(sp_reverse_kernel<false>, smem, blocks_per_sm);
     case 5:

@@ -101,8 +101,9 @@ ARGTYPES = {
     # hits, cap, longest, starts, ends, cnt, over
     "rrx_bitband_spans": _BB_HEAD + [_P, _I, _I, _P, _P, _P, _P, _P],
     # the container tier (scan_sparse.cu): rrx_sparse_occupancy's index
-    "rrx_sparse_stats": _SP_HEAD + [_I, _I, _P, _P, _P, _P, _P],  # seeded, nullable, ...
-    "rrx_sparse_flags": _SP_HEAD + [_I, _P, _P],  # seeded, words
+    # walk, n_walk, walk_max, seeded, nullable, cnt, first, last, full
+    "rrx_sparse_stats": _SP_HEAD + [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "rrx_sparse_flags": _SP_HEAD + [_P, _I, _I, _I, _P, _P],  # walk, n_walk, walk_max, seeded, words
     "rrx_sparse_reverse": _SP_HEAD + [_P, _P],  # hits
     # the dense multiblock tier (scan_nfa_wide.cu, tiles of 257..1024
     # states): scan_nfa.cu's arguments, then the record counter (next);
@@ -248,7 +249,7 @@ def library() -> ctypes.CDLL:
     lib.rrx_occupancy_channels.restype = _I
     lib.rrx_bitband_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
     lib.rrx_bitband_occupancy.restype = _I
-    lib.rrx_sparse_occupancy.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.rrx_sparse_occupancy.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.rrx_sparse_occupancy.restype = _I
     lib.rrx_sparse_threads_per_block.argtypes = []
     lib.rrx_sparse_threads_per_block.restype = _I

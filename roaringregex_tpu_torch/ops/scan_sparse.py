@@ -30,7 +30,10 @@ over the partial blocks, ``cls_spec``'s mask-by-matmul for stats and
 grid) are a layout of this function and have no counterpart here: one mask
 table serves all three kernels, and the parity boundary is the scanner
 methods' outputs. The CUDA kernels (``csrc/scan_sparse.cu``) run one warp
-per record with the state in shared memory; the plain PyTorch versions
+per record: ``rrx_sparse_stats`` and ``_flags`` with the state in
+registers, walking the live states of sparse source blocks through
+per-state row lists (:func:`_walk`), the others with the state in shared
+memory; the plain PyTorch versions
 here step [R, lanes] bool planes through the blocks of
 ``sparse_partition`` (0/1 float32 products, exact: every sum is at most
 128). The stream-fed kernels (``rrx_sparse_stream_stats``, ``_flags``,
@@ -60,6 +63,10 @@ MAX_LANES = 4096  # 32 blocks: the kernels' out_ptr row
 # the shared memory a block may use
 WARPS = 16
 SMEM_LIMIT = 232448
+# rrx_sparse_stats and _flags walk a source block state by state when it
+# holds at most this many live states, else run the block-parallel form
+# (csrc/scan_sparse.cu, step_regs; chip_smoke.py phase 7's sweep)
+WALK_MAX = 4
 # meta: [nb, n_part, n_ent, n_mask, C, W, n_acc, 0 | 259 symbol rows | nb +
 # 1 entry offsets per output block | (source block, partial block or -1 for
 # a full one) per entry], padded to a multiple of 4 words
@@ -80,14 +87,17 @@ class SparseTables(NamedTuple):
     the channels' union, then the C channels; reverse: the program's accept
     set). ``meta_f`` / ``meta_r``: the header, the symbol -> mask row map
     and, per output block, its entries (source block, partial block or -1
-    for a full U block), the full ones first. ``part`` is
-    ``prog.sparse_partition`` and ``masks`` / ``accs`` / ``acc`` the rows
-    as bool planes: the plain versions expand from those."""
+    for a full U block), the full ones first. ``walk_f``: the forward
+    walk tables of ``rrx_sparse_stats`` and ``_flags`` (:func:`_walk`).
+    ``part`` is ``prog.sparse_partition`` and ``masks`` / ``accs`` /
+    ``acc`` the rows as bool planes: the plain versions expand from
+    those."""
 
     tab_f: torch.Tensor
     tab_r: torch.Tensor
     meta_f: torch.Tensor
     meta_r: torch.Tensor
+    walk_f: torch.Tensor
     W: int
     C: int
     part: tuple
@@ -125,6 +135,37 @@ def _meta(nb: int, part_src, part_out, U_src_out, sym_row, n_mask: int, C: int,
     meta[META_PTR : META_PTR + nb + 1] = ptr
     meta[META_ENT : META_ENT + 2 * len(ents)] = np.asarray(ents, np.int32).reshape(-1)
     return meta
+
+
+def _walk(nb: int, W: int, pbits: np.ndarray, prow, pcol, Ub: np.ndarray,
+          masks: np.ndarray) -> np.ndarray:
+    """The forward walk tables of ``rrx_sparse_stats`` and ``_flags``
+    (``csrc/scan_sparse.cu``, Sp), uint32, padded to a multiple of 4 words:
+    the seed row (the expansion of {state 0}: F's row 0 and the output
+    blocks of source block 0's full U blocks) as W words; per source block
+    s the bit mask of the output blocks that U sets whole; per mask row the
+    bit mask of its nonzero output blocks; per source block its partial
+    blocks (k << 5 | output block), by offsets; per state its nonzero
+    partial rows ((k * 128 + row) << 5 | output block), by offsets."""
+    lanes = 32 * W
+    bits = np.int64(1) << np.arange(nb, dtype=np.int64)  # bit o of a block mask
+    seed = np.zeros(lanes, bool)
+    for k in np.nonzero(prow == 0)[0]:
+        seed[BLOCK * pcol[k] : BLOCK * (pcol[k] + 1)] |= pbits[k, 0]
+    for o in np.nonzero(Ub[0])[0]:
+        seed[BLOCK * o : BLOCK * (o + 1)] = True
+    full = Ub.astype(np.int64) @ bits
+    mblk = masks.reshape(len(masks), nb, BLOCK).any(axis=2).astype(np.int64) @ bits
+    by_src = np.argsort(prow, kind="stable")
+    sptr = np.concatenate([[0], np.cumsum(np.bincount(prow, minlength=nb))])
+    sent = (by_src << 5) | pcol[by_src]
+    ks, rows = np.nonzero(pbits.any(axis=2))  # the nonzero partial rows
+    st = BLOCK * prow[ks] + rows  # their source states
+    by_st = np.argsort(st, kind="stable")
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(st, minlength=lanes))])
+    rent = (((BLOCK * ks + rows) << 5) | pcol[ks])[by_st]
+    walk = np.concatenate([_pack_rows(seed).astype(np.int64), full, mblk, sptr, sent, ptr, rent])
+    return np.pad(walk, (0, -len(walk) % 4)).astype(np.uint32)
 
 
 def device_sparse_tables(prog: DeviceProgram, device, accept_map=None) -> SparseTables:
@@ -166,8 +207,9 @@ def device_sparse_tables(prog: DeviceProgram, device, accept_map=None) -> Sparse
         return torch.from_numpy(a.view(np.int32)).to(device)
 
     masks = np.unpackbits(mask_w.view(np.uint8), axis=1, bitorder="little").astype(bool)
-    return SparseTables(dev_i32(tab_f), dev_i32(tab_r), dev_i32(meta_f), dev_i32(meta_r), W, C,
-                        (pbits, prow, pcol, Ub), sym_row, masks, accs, acc)
+    walk_f = _walk(nb, W, pbits, prow, pcol, Ub, masks)
+    return SparseTables(dev_i32(tab_f), dev_i32(tab_r), dev_i32(meta_f), dev_i32(meta_r),
+                        dev_i32(walk_f), W, C, (pbits, prow, pcol, Ub), sym_row, masks, accs, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -360,36 +402,51 @@ def sparse_stream_reverse_plain(tables: SparseTables, words: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def smem_bytes(tab: torch.Tensor, meta: torch.Tensor, W: int, global_tab: bool) -> int:
-    """Shared memory of one block of the container kernels: the meta
-    header, each warp's two state buffers and, in the shared form, the
-    table (``csrc/scan_sparse.cu``, sparse_smem_bytes)."""
-    words = meta.numel() + 2 * WARPS * W + (0 if global_tab else tab.numel())
+# the container kernels by their step and table direction: "walk"
+# (rrx_sparse_stats, _flags), "stream" (rrx_sparse_stream_stats, _flags)
+# and "reverse" (rrx_sparse_reverse, rrx_sparse_stream_reverse)
+KINDS = ("walk", "stream", "reverse")
+
+
+def smem_bytes(tables: SparseTables, kind: str, global_tab: bool) -> int:
+    """Shared memory of one block of the container kernels of ``kind``
+    (``csrc/scan_sparse.cu``): the meta header, then for the walk kernels
+    one channel buffer of W words per warp and, in the shared form, the walk
+    tables and the table (walk_smem_bytes); for the expand kernels each
+    warp's two state buffers and, in the shared form, the table
+    (sparse_smem_bytes)."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    tab, meta = (tables.tab_r, tables.meta_r) if kind == "reverse" else (tables.tab_f, tables.meta_f)
+    if kind == "walk":
+        words = meta.numel() + WARPS * tables.W + (
+            0 if global_tab else tables.walk_f.numel() + tab.numel())
+    else:
+        words = meta.numel() + 2 * WARPS * tables.W + (0 if global_tab else tab.numel())
     return 4 * words
 
 
-def table_form(tables: SparseTables, reverse: bool = False) -> str:
-    """The table's form for one direction: "shared" when it fits a block's
-    shared memory beside the meta and the state buffers, else "global"
-    (read through L1 / L2)."""
-    tab, meta = (tables.tab_r, tables.meta_r) if reverse else (tables.tab_f, tables.meta_f)
-    return "shared" if smem_bytes(tab, meta, tables.W, False) <= SMEM_LIMIT else "global"
+def table_form(tables: SparseTables, kind: str = "walk") -> str:
+    """The table's form for the kernels of ``kind``: "shared" when it fits
+    a block's shared memory beside what else the block holds there
+    (:func:`smem_bytes`), else "global" (read through L1 / L2)."""
+    return "shared" if smem_bytes(tables, kind, False) <= SMEM_LIMIT else "global"
 
 
-def _launch(entry: str, data, lengths, tables: SparseTables, reverse: bool, live, form,
+def _launch(entry: str, data, lengths, tables: SparseTables, kind: str, live, form,
             *tail) -> None:
     """Launch ``entry`` with the container head (table, meta, the table's
     form) and ``live``: None, or a [1] int32 tensor on the card, the record
     count past which every record returns at once, its outputs unwritten
     (the prefilter's compacted and full passes:
     ``ScanEngine._prefilter_apply``). ``form``: "shared", "global" or None
-    (:func:`table_form`)."""
+    (:func:`table_form` of ``kind``)."""
     if live is not None and (live.dtype != torch.int32 or live.numel() != 1):
         raise ValueError(f"live must be a [1] int32 tensor, got {tuple(live.shape)} {live.dtype}")
-    form = form or table_form(tables, reverse)
+    form = form or table_form(tables, kind)
     if form not in ("shared", "global"):
         raise ValueError(f"form must be 'shared' or 'global', got {form!r}")
-    tab, meta = (tables.tab_r, tables.meta_r) if reverse else (tables.tab_f, tables.meta_f)
+    tab, meta = (tables.tab_r, tables.meta_r) if kind == "reverse" else (tables.tab_f, tables.meta_f)
     # the record counter the kernel's warps take work from
     next_rec = torch.zeros(1, dtype=torch.int32, device=data.device)
     sb.launch(entry, data, lengths, tab, int(tab.numel()), meta, int(meta.numel()), tables.W,
@@ -397,31 +454,36 @@ def _launch(entry: str, data, lengths, tables: SparseTables, reverse: bool, live
 
 
 def sparse_stats(data, lengths, tables: SparseTables, *, seeded: bool, nullable: bool,
-                 live=None, form=None):
+                 live=None, form=None, walk_max: int = WALK_MAX):
     """(cnt, first, last, full), each [R, C] (``rrx_sparse_stats`` on a
     CUDA tensor, counted in ``sparse_stats.launches``;
     :func:`sparse_stats_plain` on a CPU tensor). ``form`` forces the
     table's form ("shared" or "global"; None: :func:`table_form`), so that
-    ``chip_smoke.py`` holds both to the plain versions on every program."""
+    ``chip_smoke.py`` holds both to the plain versions on every program;
+    ``walk_max`` sets the step's choice between its two forms (its sweep
+    there; the outputs do not depend on it)."""
     if data.device.type == "cpu":
         return sparse_stats_plain(data, lengths, tables, seeded=seeded, nullable=nullable)
     R, dev = data.shape[0], data.device
     outs = [torch.empty((R, tables.C), dtype=torch.int32, device=dev) for _ in range(3)]
     full = torch.empty((R, tables.C), dtype=torch.uint8, device=dev)
-    _launch("rrx_sparse_stats", data, lengths, tables, False, live, form, int(seeded),
-            int(nullable), *outs, full)
+    _launch("rrx_sparse_stats", data, lengths, tables, "walk", live, form, tables.walk_f,
+            int(tables.walk_f.numel()), int(walk_max), int(seeded), int(nullable), *outs, full)
     sparse_stats.launches += 1
     return (*outs, full.view(torch.bool))
 
 
-def sparse_flags(data, lengths, tables: SparseTables, *, seeded: bool, live=None, form=None):
+def sparse_flags(data, lengths, tables: SparseTables, *, seeded: bool, live=None, form=None,
+                 walk_max: int = WALK_MAX):
     """Flag words [Wt, R * C] int32 (``rrx_sparse_flags`` on a CUDA tensor,
-    counted; :func:`sparse_flags_plain` on a CPU tensor)."""
+    counted; :func:`sparse_flags_plain` on a CPU tensor). ``form`` and
+    ``walk_max``: as :func:`sparse_stats`."""
     if data.device.type == "cpu":
         return sparse_flags_plain(data, lengths, tables, seeded=seeded)
     R, L = data.shape
     words = torch.empty((sb.hit_words(L), R * tables.C), dtype=torch.int32, device=data.device)
-    _launch("rrx_sparse_flags", data, lengths, tables, False, live, form, int(seeded), words)
+    _launch("rrx_sparse_flags", data, lengths, tables, "walk", live, form, tables.walk_f,
+            int(tables.walk_f.numel()), int(walk_max), int(seeded), words)
     sparse_flags.launches += 1
     return words
 
@@ -433,7 +495,7 @@ def sparse_reverse(data, lengths, tables: SparseTables, live=None, form=None):
         return sparse_reverse_plain(data, lengths, tables)
     R, L = data.shape
     hits = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
-    _launch("rrx_sparse_reverse", data, lengths, tables, True, live, form, hits)
+    _launch("rrx_sparse_reverse", data, lengths, tables, "reverse", live, form, hits)
     sparse_reverse.launches += 1
     return hits
 
@@ -462,7 +524,7 @@ def _launch_stream(entry: str, words: torch.Tensor, tables: SparseTables, revers
     words = words.contiguous()
     if words.data_ptr() % 16:
         raise ValueError(f"{entry}: the mask stream must be 16-byte aligned")
-    form = form or table_form(tables, reverse)
+    form = form or table_form(tables, "reverse" if reverse else "stream")
     if form not in ("shared", "global"):
         raise ValueError(f"form must be 'shared' or 'global', got {form!r}")
     tab, meta = (tables.tab_r, tables.meta_r) if reverse else (tables.tab_f, tables.meta_f)

@@ -196,6 +196,138 @@ def test_full_block_and_hand_built_partition():
     _eq(hp._expand(v, True), (v.to(torch.float32) @ dense.T) > 0, "reverse")
 
 
+# -- the forward walk tables of rrx_sparse_stats and _flags ---------------------------
+
+
+def _hand_built_program():
+    """x[ab]{0,400}c's 4 x 4 blocks with a hand-built partition: random
+    partial blocks, full U blocks on and off the diagonal, source block 0
+    feeding a full block (so the seed row holds one), and a source block
+    that feeds both a partial and a full block."""
+    prog = compile_program("x[ab]{0,400}c")
+    rh = np.random.default_rng(21)
+    pb = (rh.random((5, 128, 128)) < 0.02).astype(np.uint8)
+    prow, pcol = np.array([0, 0, 1, 2, 3], np.int32), np.array([0, 1, 1, 3, 2], np.int32)
+    U = np.zeros((4, 4), np.uint8)
+    U[0, 2] = U[1, 1] = U[3, 0] = 1
+    prog._spart = (pb, prow, pcol, U)
+    return prog
+
+
+def _walk_offsets(nb: int, W: int, n_part: int, n_mask: int) -> dict:
+    """Where each part of the walk tables starts (``scan_sparse._walk``):
+    the seed row, the full masks, the block masks, the source-block offsets
+    and entries, the state offsets and entries."""
+    out, at = {}, 0
+    for name, n in (("seed", W), ("full", nb), ("mblk", n_mask), ("sptr", nb + 1),
+                    ("sent", n_part), ("ptr", 32 * W + 1), ("rent", 0)):
+        out[name] = at
+        at += n
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_case(name: str) -> ss.SparseTables:
+    if name == "hand-built":
+        return ss.device_sparse_tables(_hand_built_program(), "cpu")
+    if name == "3 channels":
+        prog = compile_program(K40)
+        amap = np.zeros((prog.s_pad, 3), np.uint8)
+        amap[:, 0] = prog.accept[: prog.s_pad]
+        amap[: prog.n_states : 7, 1] = 1
+        amap[: prog.n_states, 2] = np.asarray(prog.nfa.symtab[ord("e")])[: prog.n_states]
+        return ss.device_sparse_tables(prog, "cpu", accept_map=amap)
+    return ss.device_sparse_tables(compile_program({"K40": K40, "CONFIG13": CONFIG13}[name]), "cpu")
+
+
+def _walk_step(tables: ss.SparseTables, v: np.ndarray, gate: bool, sym: int, walk_max: int):
+    """One forward step as csrc/scan_sparse.cu's step_regs takes it, in
+    numpy, from the walk tables and the forward table's words: the seed row
+    when gated; per source block with live states, its partial blocks'
+    rows under the live bits (more than ``walk_max`` live) or each live
+    state's own nonzero rows (the rest), rows of output blocks that the
+    mask zeroes skipped; U's full output blocks; the mask. Returns the new
+    [lanes] bool state and the union accept test."""
+    W = tables.W
+    nb, n_part, n_mask = W // 4, len(tables.part[1]), len(tables.masks)
+    off = _walk_offsets(nb, W, n_part, n_mask)
+    wk = tables.walk_f.numpy().view(np.uint32)
+    tab = tables.tab_f.numpy().view(np.uint32)
+    words = ss._pack_rows(v)
+    mr = int(tables.sym_row[sym])
+    mb = int(wk[off["mblk"] + mr]) if mr >= 0 else 0
+    if mb == 0:
+        return np.zeros_like(v), False
+    y = wk[off["seed"] : off["seed"] + W].copy() if gate else np.zeros(W, np.uint32)
+    full = 0
+    for s in range(nb):
+        live = np.nonzero(v[128 * s : 128 * (s + 1)])[0]
+        if live.size == 0:
+            continue
+        full |= int(wk[off["full"] + s])
+        if live.size > walk_max:
+            for e in range(wk[off["sptr"] + s], wk[off["sptr"] + s + 1]):
+                k, o = int(wk[off["sent"] + e]) >> 5, int(wk[off["sent"] + e]) & 31
+                if (mb >> o) & 1:
+                    rows = tab[512 * k : 512 * (k + 1)].reshape(128, 4)
+                    y[4 * o : 4 * o + 4] |= np.bitwise_or.reduce(rows[live], axis=0)
+        else:
+            for i in live:
+                st = 128 * s + i
+                for e in range(wk[off["ptr"] + st], wk[off["ptr"] + st + 1]):
+                    row, o = int(wk[off["rent"] + e]) >> 5, int(wk[off["rent"] + e]) & 31
+                    if (mb >> o) & 1:
+                        y[4 * o : 4 * o + 4] |= tab[4 * row : 4 * row + 4]
+    for o in range(nb):
+        if (full >> o) & 1:
+            y[4 * o : 4 * o + 4] = 0xFFFFFFFF
+    at = 512 * n_part + mr * W
+    y &= tab[at : at + W]
+    acc = tab[512 * n_part + n_mask * W :][:W]  # the channels' union row
+    return np.unpackbits(y.view(np.uint8), bitorder="little").astype(bool), bool((y & acc).any())
+
+
+@pytest.mark.parametrize("walk_max", [-1, 4, 128], ids=["blocks", "mixed", "walk"])
+@pytest.mark.parametrize("name", ["K40", "CONFIG13", "hand-built", "3 channels"])
+def test_walk_tables_step_like_plain(name, walk_max):
+    """The new forward step's tables, walked in numpy as the kernel walks
+    them (every source block in the block-parallel form, each in the form
+    its live count picks, or every live state walked), give ``_Plain.step``
+    on random state sets (sparse, dense, whole blocks, the empty set) and
+    symbols (bytes in no run among them), gated and not, and the union
+    accept test gives its flags."""
+    tables = _walk_case(name)
+    pt = tables.plain("cpu")
+    lanes = 32 * tables.W
+    n_real = int(np.asarray(tables.masks).any(axis=0).nonzero()[0].max()) + 1
+    rng = np.random.default_rng(13)
+    R = 24
+    v = np.zeros((R, lanes), bool)
+    for r in range(1, R):
+        dens = [0.003, 0.03, 0.3, 0.8][r % 4]
+        v[r, :n_real] = rng.random(n_real) < dens
+        if r % 3 == 0:  # whole blocks dead
+            for blk in rng.choice(lanes // 128, size=lanes // 256, replace=False):
+                v[r, 128 * blk : 128 * (blk + 1)] = False
+    v[1, :] = False
+    v[1, 0] = True  # state 0 live by itself, and with the seed
+    gate = rng.random(R) < 0.5
+    gate[:2] = True
+    # mostly symbols with a mask row, some without
+    syms = np.where(rng.random(R) < 0.8, rng.choice(np.nonzero(tables.sym_row >= 0)[0], size=R),
+                    rng.integers(0, sb.N_SYMS, size=R))
+    syms[:4] = (sb.SYM_BOS, sb.SYM_EOS, ord("e"), 0x80)
+    want = pt.step(torch.from_numpy(v), torch.from_numpy(gate), torch.from_numpy(syms)).numpy()
+    flags = pt.flags(torch.from_numpy(want)).numpy()
+    n_live = 0
+    for r in range(R):
+        got, hit = _walk_step(tables, v[r], bool(gate[r]), int(syms[r]), walk_max)
+        _eq(got, want[r], f"record {r}")
+        assert hit == bool(flags[r].any()), f"record {r}: the union accept test"
+        n_live += int(got.any())
+    assert n_live >= R // 4
+
+
 # -- the stream-fed methods (rows 11-13) against the JAX SparseScanner's ------------
 
 NULLABLE = "(ab|c){0,120}"  # multiblock, 361 states, 6 partial blocks, nullable
