@@ -76,8 +76,13 @@ its check fails:
    x(ab|c){300,340}y (W = 32), strings of 0-3 bytes and 1 MiB in windows
    of 256 bytes (lead 0 and the overlap), 4 MiB in windows of 4096 at W =
    16 and 32, seeded and unseeded, from the empty set and random entry
-   states with random gates, and 3 windows a block (rep 3); the four
-   stream-fed kernels (rrx_stream_stats, _flags, _reverse, _first_end: the
+   states with random gates, and 3 windows a block (rep 3); the band step
+   of _count and _reverse again on those four programs with every edge
+   walked (max_diags=0) and at 32 lanes a window (the default at W <= 16
+   is two windows a warp), and on hand-built tiles at W = 12, 16 and 32
+   with diagonals planted at -70..64 (with random residual edges, or the
+   seed row alone), each in every form, odd window counts included; the
+   four stream-fed kernels (rrx_stream_stats, _flags, _reverse, _first_end: the
    packed backend over a mask stream) on 1 MB batches (1024 records of 1024
    B) of 9 programs at W = 1 (nullable and anchored ones too), 2, 4, 8, 12,
    16 and 32 and 2 MultiPattern sets (P = 3 at W = 1 and 12), stats seeded,
@@ -244,8 +249,13 @@ its check fails:
    kernels on the P = 3 union at 10 MB and 1 GiB the same way; and the
    four wide window kernels at 1 GiB in K60's overlapped geometry (plain
    versions on 1 MiB), with count_ends end to end for K60 and
-   x(ab|c){300,340}y; the four stream kernels at 10 MB on cat|dog (W = 1),
-   K30 (W = 8) and config 4 (W = 12, the rescans) and at 1 GiB on cat|dog
+   x(ab|c){300,340}y, and the band A/B: count and reverse on K60's windows
+   and count on the chain's, with the default split, at 32 lanes a window
+   and with max_diags=0, beside rrx_long_wide_flags (the Wide step) on the
+   same windows, in scheduler cycles a window-step, with registers, spills
+   (a band kernel that spills fails) and occupancy; the four stream
+   kernels at 10 MB on cat|dog (W = 1), K30 (W = 8) and config 4 (W = 12,
+   the rescans) and at 1 GiB on cat|dog
    (a 4 GiB stream), with the stream's bytes as their input in the bound,
    the stream's build time, occupancy and registers; match_stats end to end
    on the default route, the packed and the XLA backend at 10 MB; the three
@@ -639,6 +649,39 @@ def log_text(np, seed: int, R: int, L: int, words):
     return data
 
 
+# diagonals planted in the hand-built tiles of the band step's comparisons
+BAND_PLANTED = (-70, -33, -1, 0, 1, 31, 32, 64)
+
+
+def band_planted(S: int, residual: bool, rng, dev):
+    """A hand-built tile of S states for the band step: each diagonal of
+    BAND_PLANTED with 60% of its edges, random residual edges (or the seed
+    row alone), random mask rows (bytes >= 0x80 zero), a random accept row;
+    its tables with the diagonals kept whatever the residual."""
+    import numpy as np
+    import torch
+
+    from roaringregex_tpu_torch.ops import scan_pallas as P_
+
+    W = -(-S // 32)
+    F = np.zeros((S, S), bool)
+    for d in BAND_PLANTED:
+        src = np.arange(max(0, -d), min(S, S - d))
+        keep = src[rng.random(src.size) < 0.6]
+        F[keep, keep + d] = True
+    if residual:
+        F |= rng.random((S, S)) < 0.004
+    else:
+        F[0] = rng.random(S) < 0.2
+    mbits = rng.random((P_.N_SYMS, S)) < 0.7
+    mbits[0x80:256] = False
+    acc = P_._pack_rows((rng.random(S) < 0.05)[None, :], W)
+    tab = np.concatenate([P_._pack_rows(F, W), P_._pack_rows(F.T, W), P_._pack_rows(mbits, W),
+                          acc])
+    tables = P_.NfaTables(torch.from_numpy(tab.reshape(-1).view(np.int32).copy()).to(dev), S)
+    return P_.with_band(tables, P_.BANDED_MAX_DIAGS, rows=tab)
+
+
 def key_stats(words, text: bytes):
     """(count of distinct match ends, first end or -1) of an alternation of
     ``words``, none a prefix of another, by Python's re: at most one word
@@ -658,6 +701,20 @@ def registers(ptxas: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out[name] = int(m.group(1))
+    return out
+
+
+def spills(ptxas: str):
+    """{mangled kernel name: spill store + load bytes} from nvcc's -Xptxas -v
+    report."""
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = int(m.group(1)) + int(m.group(2))
     return out
 
 
@@ -706,6 +763,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
     regs = registers(_build.BUILD.ptxas)
+    spilled = spills(_build.BUILD.ptxas)
 
     def regs_of(kernel: str) -> str:
         """Registers of every instantiation of ``kernel`` (by mangled name)."""
@@ -1365,6 +1423,91 @@ def main() -> int:
           f"{len(LONG_WIDE_PATTERNS)} programs (W = {sorted(words_lw)}) through the four wide "
           f"long-string kernels (carry, count with and without the final state, flags, reverse; "
           f"seeded and unseeded; empty and random entry states; rep 3) "
+          f"({time.perf_counter() - t0:.1f}s)")
+
+    # the band step of rrx_long_wide_count and _reverse (every comparison
+    # above ran its default split): the four programs again with every edge
+    # walked (max_diags=0) and, at W <= 16, at 32 lanes a window; hand-built
+    # tiles at W = 12, 16 and 32 with diagonals planted at -70..64 (random
+    # residual edges, or the seed row alone), each split both ways and at
+    # both lane counts; 1 MiB strings in windows of 256, an odd window count
+    # (two windows a warp leave one half idle), rep 3, random entry states
+    t0 = time.perf_counter()
+    before = launches()
+    n_cmp = 0
+
+    def check_band(tables, d, geom, tag, v0=None, gate=None):
+        nonlocal n_cmp
+        for seeded in (True, False):
+            kw = dict(seeded=seeded)
+            for final in (True, False):
+                got = P_.long_count(d, geom, tables, v0, gate, final=final, **kw)
+                want = P_.long_count_plain(d, geom, tables, v0, gate, final=final, **kw)
+                compare("rrx_long_count", [x for x in got if x is not None],
+                        [x for x in want if x is not None], f"{tag} final={final}",
+                        ("cnt", "tail", "vout")[: 2 + final])
+                n_cmp += 1
+        if geom.rep == 1:
+            g2 = geom._replace(T=geom.T + 9)
+            compare("rrx_long_reverse", [P_.long_reverse(d, g2, tables)],
+                    [P_.long_reverse_plain(d, g2, tables)], tag, ("hits",))
+            n_cmp += 1
+
+    def band_forms(tables):
+        """The tables' own split, then each other split, the diagonals kept
+        (max_diags=8) or every edge walked (max_diags=0), then 32 lanes a
+        window at W <= 16."""
+        forms = [("default", tables)]
+        for md in (P_.BANDED_MAX_DIAGS, 0):
+            tb = P_.with_band(tables, md)
+            if tb.diags != tables.diags:
+                forms.append((f"max_diags={md}", tb))
+        if tables.band_lanes == 16:
+            forms.append(("32 lanes", tables._replace(band_lanes=32)))
+        return forms
+
+    def band_strings(tables, tag, o):
+        Wd = -(-tables.s_tile // 32)
+        for n in (3, (1 << 20) + 7):
+            d = long_string_w(n)
+            nb = -(-(n + 2) // 256)
+            check_band(tables, d, P_.LongGeom(n, nb, 256, 0, 256), f"{tag} n={n}")
+            nw = nb | 1  # an odd window count, from random entry states
+            gate = torch.from_numpy(rng.random(nw) < 0.5).to(dev)
+            check_band(tables, d, P_.LongGeom(n, nw, 256, o, 256 + o),
+                       f"{tag} n={n} nw={nw} lead={o} random v0", rand_v0(nw, Wd), gate)
+        gate = torch.from_numpy(rng.random(3 * nb) < 0.5).to(dev)
+        check_band(tables, d, P_.LongGeom(n, 3 * nb, 256, 0, 256, 3), f"{tag} n={n} rep 3",
+                   rand_v0(3 * nb, Wd), gate)
+
+    band_seen = set()
+    for pattern in LONG_WIDE_PATTERNS:
+        prog = compile_program(pattern)
+        for form, tables in band_forms(P_.device_nfa_tables(prog, dev))[1:]:
+            band_strings(tables, f"{pattern[:24]!r} {form}", prog.horizon + 2)
+            band_seen.add((-(-tables.s_tile // 32), form, tables.band_lanes))
+    for S, residual in ((384, True), (512, True), (1024, True), (384, False), (512, False),
+                        (1024, False)):
+        tables = band_planted(S, residual, rng, dev)
+        if tables.diags != BAND_PLANTED:
+            fail(f"hand-built tile of {S} states kept the diagonals {tables.diags}")
+        for form, tb in band_forms(tables):
+            tag = f"hand-built S={S} {'residual' if residual else 'seed row only'} {form}"
+            band_strings(tb, tag, 13)
+            band_seen.add((-(-S // 32), form, tb.band_lanes))
+    torch.cuda.synchronize()
+    for name in ("rrx_long_wide_count", "rrx_long_wide_reverse"):
+        if launches()[name] <= before[name]:
+            fail(f"{name}: launch count did not rise in the band comparisons")
+    if {(12, "default", 16), (16, "32 lanes", 32), (32, "max_diags=0", 32),
+            (32, "max_diags=8", 32)} - band_seen:
+        fail(f"band comparisons covered only {sorted(band_seen)}")
+    print(f"phase 2: kernel == plain on the card, {n_cmp} band-step cases (rrx_long_wide_count "
+          f"with and without the final state, rrx_long_wide_reverse) of {len(LONG_WIDE_PATTERNS)} "
+          f"programs with the other split (diagonals kept, or every edge walked) and at 32 lanes a "
+          f"window, and hand-built "
+          f"tiles at W = 12, 16, 32 with diagonals at {BAND_PLANTED} (random residual edges, or "
+          f"the seed row alone), each form; odd window counts, rep 3, random entry states "
           f"({time.perf_counter() - t0:.1f}s)")
 
     # the bitband kernels: every program of the tier on a 256-record edge
@@ -4538,11 +4681,13 @@ def main() -> int:
         b.synchronize()
         return out, a.elapsed_time(b)
 
-    def occupancy_wide(name, tables, rows):
+    def occupancy_wide(name, tables, rows, index=None):
+        """``index``: rrx_long_wide_occupancy's kernel index (4 and 5: count
+        and reverse at 32 lanes a window), else the name's."""
         bps = ctypes.c_int(0)
         if name in LONG_WIDE_KERNELS:
-            _build.check(lib.rrx_long_wide_occupancy(LONG_WIDE_KERNELS.index(name),
-                                                     int(tables.s_tile), ctypes.byref(bps)),
+            idx = LONG_WIDE_KERNELS.index(name) if index is None else index
+            _build.check(lib.rrx_long_wide_occupancy(idx, int(tables.s_tile), ctypes.byref(bps)),
                          "rrx_long_wide_occupancy")
         else:
             _build.check(lib.rrx_nfa_wide_occupancy((WIDE_KERNELS + WIDE_MB_KERNELS).index(name),
@@ -4696,8 +4841,11 @@ def main() -> int:
               f"block {g1.block}, {W60} state words]: kernel {ms:.3f} ms = {NLw / ms / 1e6:.1f} GB/s, "
               f"plain {plain_ms:.1f} ms on 1 MiB; bound {bnd[0]:.4f} ms by {bnd[1]}; launches on "
               f"the path {wide_launches[name]} [{card}]")
-        print(f"  occupancy {name}: {occupancy_wide(name, tb60, g1.nw)}; registers "
-              f"{regs_of(name[len('rrx_'):] + '_kernel')}")
+        band = name in ("rrx_long_wide_count", "rrx_long_wide_reverse")
+        units = -(-g1.nw // (32 // tb60.band_lanes)) if band else g1.nw
+        kname = name.replace("wide", "band") if band else name
+        print(f"  occupancy {name}: {occupancy_wide(name, tb60, units)}; registers "
+              f"{regs_of(kname[len('rrx_'):] + '_kernel')}")
     e2e_k60 = time_ms(lambda: lsc.count_ends(s60), warm=1, runs=5)
     e2e_ch = time_ms(lambda: lsc_c.count_ends(sch), warm=1, runs=5)
     gch = lsc_c._ov_geom(NLw)
@@ -4707,6 +4855,63 @@ def main() -> int:
           f"{e2e_ch:.3f} (rrx_long_wide_count {ms_ch:.3f} on {gch.nw} windows x {gch.T} steps, "
           f"bound {long_bound('count', gch, state_words(lsc_c.prog))[0]:.4f}); PR 9's torch-op "
           f"LongScanner took ~1-2 s for K60 on 1 MiB [{card}]")
+
+    # the band step (count and reverse) against the Wide step on the same
+    # windows at 1 GiB: K60's windows (W = 16) with the default split (the
+    # diagonal +1, no residual) at 16 lanes a window (two windows a warp),
+    # at 32 lanes, and with every edge walked (max_diags=0), beside
+    # rrx_long_wide_flags (the Wide step: its time above, the count
+    # windows); x(ab|c){300,340}y's count windows (W = 32), its default
+    # (every edge walked: 35% of the edges on its four diagonals) beside
+    # the diagonals kept (max_diags=8), and x(ab|c){300,310}y (89%: kept)
+    # on the same windows both ways; and the count of K60(ed|ing)? (75% on
+    # +1, kept; the residual from the keywords' ends is walked only where
+    # one is live) on K60's windows both ways. Scheduler cycles
+    # a window-step = ms x 1.98 GHz x 4 warp schedulers an SM / (windows x
+    # steps); registers and spills from ptxas
+    n_sched = 4 * n_sm
+
+    def cycles(ms, g):
+        return ms * CLOCK_GHZ * 1e6 * n_sched / (g.nw * g.T)
+
+    g60c, g60r = lsc._ov_geom(NLw), rev_geom(lsc, NLw)
+    tbc = lsc_c.tables
+    band_ab = {("K60", "flags (Wide step)", "-"): (long_wide_ms["rrx_long_wide_flags"][0], g60c)}
+    band_ab[CHAIN340, "flags (Wide step)", "-"] = (
+        time_ms(lambda: P_.long_flags(sch, gch, tbc, seeded=True), warm=1, runs=5), gch)
+    tbp = P_.device_nfa_tables(compile_program(K60 + "(ed|ing)?"), dev)
+    tb310 = P_.device_nfa_tables(compile_program("x(ab|c){300,310}y"), dev)
+    for label, tbl, s_, gc, gr in (("K60", tb60, s60, g60c, g60r), (CHAIN340, tbc, sch, gch, None),
+                                   ("K60(ed|ing)?", tbp, s60, g60c, None),
+                                   ("x(ab|c){300,310}y", tb310, sch, gch, None)):
+        for form, tb in band_forms(tbl):
+            band_ab[label, "count", form] = (
+                time_ms(lambda: P_.long_count(s_, gc, tb, seeded=True), warm=1, runs=5), gc)
+            if gr is not None:
+                band_ab[label, "reverse", form] = (
+                    time_ms(lambda: P_.long_reverse(s_, gr, tb), warm=1, runs=5), gr)
+    for (label, what, form), (ms, g) in band_ab.items():
+        print(f"phase 7: band A/B {label} {what} {form}: {ms:.3f} ms, "
+              f"{cycles(ms, g):.1f} scheduler cycles a window-step ({g.nw} windows x {g.T} steps) "
+              f"[{card}]")
+    for label in ("K60", CHAIN340, "K60(ed|ing)?", "x(ab|c){300,310}y"):  # with_band's rule against the other split
+        forms = {f: ms for (lb, what, f), (ms, _) in band_ab.items()
+                 if lb == label and what == "count" and f.startswith(("default", "max_diags"))}
+        other = min(ms for f, ms in forms.items() if f != "default")
+        kept = "diagonals kept" if "max_diags=0" in forms else "every edge walked"
+        print(f"phase 7: band rule {label}: default split ({kept}) count "
+              f"{forms['default']:.3f} ms, the other split {other:.3f} ms: the default is "
+              f"{'faster' if forms['default'] < other else 'SLOWER'} [{card}]")
+    band_spill = {}
+    for kern in ("long_band_count_kernel", "long_band_reverse_kernel", "long_wide_flags_kernel"):
+        band_spill[kern] = {n: b for n, b in spilled.items() if re.search(r"\d" + kern, n)}
+        print(f"phase 7: {kern}: registers {regs_of(kern)}; spill bytes "
+              f"{band_spill[kern] or 'not reported'}")
+        if kern.startswith("long_band") and any(band_spill[kern].values()):
+            fail(f"{kern} spills: {band_spill[kern]}")
+    for name, idx in (("rrx_long_wide_count", 4), ("rrx_long_wide_reverse", 5)):
+        print(f"  occupancy {name} at 32 lanes a window: "
+              f"{occupancy_wide(name, tb60, g60c.nw, idx)}")
 
     # rows 7-10: the four stream kernels, every record, at 10 MB on cat|dog
     # (W = 1: the packed backend's batch of phase 13), K30 (W = 8) and config
@@ -4884,7 +5089,9 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
             "shape": "1 GiB, K60 (s_tile 512, W = 16) overlapped windows (plain: 1 MiB)"
                      + ("; off the main path (the summary and speculative modes take narrow "
-                        "tiles only), held in phase 2" if name == "rrx_long_wide_carry" else ""),
+                        "tiles only), held in phase 2" if name == "rrx_long_wide_carry" else "")
+                     + (f"; band step, diagonals {tb60.diags}, {tb60.band_lanes} lanes a window"
+                        if name in ("rrx_long_wide_count", "rrx_long_wide_reverse") else ""),
         })
     for name in STREAM_KERNELS:
         pat_k = CONFIG4 if name == "rrx_stream_first_end" else "cat|dog"

@@ -1,15 +1,17 @@
-// The warp step of the matmul tier at record tiles of 257..1024 states
-// (W = ceil(s_tile/32) = 12..32 state words), shared by scan_nfa_wide.cu
-// (one warp per record), scan_long_wide.cu (one warp per window of one
-// long string) and scan_stream.cu (one warp per record fed a mask stream,
-// each lane its word of the step's mask row): lane l holds state word l, lanes >= W hold zero and join
-// every vote; the live states are walked warp-uniformly (a ballot of the
-// live words, a __shfl_sync of each, one shared-row load and OR per live
-// state), then the mask AND; the accept test is one __any_sync. Shared
-// memory holds one direction's rows (follow or pred), the mask rows and the
-// accept rows of the table of scan_pallas.nfa_tables. The launchers run
-// persistent blocks of kWideWarps warps (no more blocks than are resident
-// at once).
+// The warp steps of the matmul tier at record tiles of 257..1024 states
+// (W = ceil(s_tile/32) = 12..32 state words). Wide is shared by
+// scan_nfa_wide.cu (one warp per record), scan_long_wide.cu's carry and flags
+// (one warp per window of one long string) and scan_stream.cu (one warp per
+// record fed a mask stream, each lane its word of the step's mask row): lane
+// l holds state word l, lanes >= W hold zero and join every vote; the live
+// states are walked warp-uniformly (a ballot of the live words, a
+// __shfl_sync of each, one shared-row load and OR per live state), then the
+// mask AND; the accept test is one __any_sync. Shared memory holds one
+// direction's rows (follow or pred), the mask rows and the accept rows of
+// the table of scan_pallas.nfa_tables. Band (below) is the step of
+// scan_long_wide.cu's count and reverse: the diagonals of the follow matrix
+// as lane shifts, only the other edges walked. The launchers run persistent
+// blocks of kWideWarps warps (no more blocks than are resident at once).
 #pragma once
 
 #include <cstdint>
@@ -126,6 +128,206 @@ __device__ __forceinline__ Wide load_wide(uint32_t* smem, const uint32_t* __rest
   for (int p = 0; p < P; ++p) a |= k.acc[p * W + k.col];
   k.acc_l = k.on ? a : 0u;
   k.seed_l = k.on ? k.rows[k.col] : 0u;
+  return k;
+}
+
+// The band step (scan_long_wide.cu's count and reverse). The tile's follow
+// matrix is split (scan_pallas.band_split) into at most kMaxDiags kept
+// diagonals, edges s -> s + d for the s of a source mask D_d, and a residual.
+// A diagonal is a shift of the whole state set: a warp moves its words d / 32
+// lanes with two shuffles and d % 32 bits with a funnel shift, whatever the
+// number of live states. The seed row follow[0] is applied whole (forward:
+// when the seed fires or state 0 is live; reverse: state 0 precedes the live
+// states of follow[0], one vote). Only the rest of the residual is walked, as
+// Wide walks every live state, and not at all when it is empty: keyword lists
+// and runs put every edge but the seed row's on d = +1.
+constexpr int kMaxDiags = 8;  // scan_pallas.BANDED_MAX_DIAGS
+
+// The kept diagonals as one kernel moves them, passed by value (warp-uniform,
+// read from the parameter bank): slots k < n_up shift the state words up
+// (toward higher states), slots k >= kMaxDiags - n_dn down, by q[k] lanes and
+// r[k] bits, then keep the states of row[k] of the band table: the
+// diagonal's destinations (forward) or sources (reverse). Two loops of fixed
+// trip count, each ending at its first empty slot, keep the masks in
+// registers and branch on no direction; the diagonals of one word (q = 0,
+// every offset of a keyword list or a short repetition) share one shuffle.
+struct Diags {
+  int n_up;
+  int n_dn;
+  int q[kMaxDiags];
+  int r[kMaxDiags];
+  int row[kMaxDiags];
+};
+
+// One window as G lanes of a warp step it (G = 32, or 16: two windows a warp,
+// one a half): lane j of the group holds state word j (zero for j >= W, which
+// join every shuffle and vote). The residual rows without row 0 (follow, or
+// pred for the reverse), the mask rows and the accept row are in shared
+// memory; this lane's word of each diagonal's mask, of the full seed row
+// follow[0], of the accept row and of the states with a residual row to walk
+// in registers.
+template <int G>
+struct Band {
+  const uint32_t* rows;  // [S][W]: residual follow, or residual pred
+  const uint32_t* mask;  // [kSyms][W]
+  int W;
+  int j;     // this lane's word in its group
+  int half;  // its group: 0, or 1 for lanes 16..31 at G = 16
+  int col;   // j, or 0 for j >= W (whose results are dropped)
+  bool on;   // j < W
+  uint32_t on_m;  // on ? ~0 : 0
+  bool walk;    // some residual edge leaves a state s >= 1
+  bool enter0;  // some edge enters state 0 (else it is live only in v0)
+  uint32_t seed_l;
+  uint32_t acc_l;
+  uint32_t res_l;
+  uint32_t dm[kMaxDiags];
+
+  // The group's state set moved up by 32 q + r states: word j takes words j
+  // - q and j - q - 1, zero below the group (a shuffle returns the lane's own
+  // word there; q + 1 = 32 wraps to a shuffle by 0).
+  __device__ __forceinline__ uint32_t up(uint32_t x, int q, int r) const {
+    uint32_t a = __shfl_up_sync(kFull, x, q, G);
+    uint32_t b = __shfl_up_sync(kFull, x, q + 1, G);
+    a = j >= q ? a : 0u;
+    b = j > q ? b : 0u;
+    return __funnelshift_l(b, a, r);  // r = 0: a
+  }
+
+  // Moved down by 32 q + r states: word j takes words j + q and j + q + 1.
+  __device__ __forceinline__ uint32_t down(uint32_t x, int q, int r) const {
+    uint32_t a = __shfl_down_sync(kFull, x, q, G);
+    uint32_t b = __shfl_down_sync(kFull, x, q + 1, G);
+    a = j + q < G ? a : 0u;
+    b = j + q + 1 < G ? b : 0u;
+    return __funnelshift_r(a, b, r);  // r = 0: a
+  }
+
+  // OR over the kept diagonals of x's shift, masked by the slot's row
+  __device__ __forceinline__ uint32_t diagonals(const Diags& dg, uint32_t x) const {
+    uint32_t y = 0u;
+    if (dg.n_up > 0) {
+      uint32_t b1 = __shfl_up_sync(kFull, x, 1, G);  // word j - 1
+      b1 = j >= 1 ? b1 : 0u;
+#pragma unroll
+      for (int k = 0; k < kMaxDiags; ++k) {
+        if (k >= dg.n_up) break;
+        if (dg.q[k] == 0) {
+          y |= __funnelshift_l(b1, x, dg.r[k]) & dm[k];
+        } else {
+          y |= up(x, dg.q[k], dg.r[k]) & dm[k];
+        }
+      }
+    }
+    if (dg.n_dn > 0) {
+      uint32_t b1 = __shfl_down_sync(kFull, x, 1, G);  // word j + 1
+      b1 = j + 1 < G ? b1 : 0u;
+#pragma unroll
+      for (int k = kMaxDiags - 1; k >= 0; --k) {
+        if (k < kMaxDiags - dg.n_dn) break;
+        if (dg.q[k] == 0) {
+          y |= __funnelshift_r(x, b1, dg.r[k]) & dm[k];
+        } else {
+          y |= down(x, dg.q[k], dg.r[k]) & dm[k];
+        }
+      }
+    }
+    return y;
+  }
+
+  // This lane's word of the OR of the residual rows of the states of x (this
+  // lane's word of its group's set), walked warp-uniformly over the live
+  // words of both groups: a lane takes a row only for its own group.
+  __device__ __forceinline__ uint32_t walk_rows(uint32_t x) const {
+    uint32_t y = 0u;
+    unsigned live = __ballot_sync(kFull, x != 0u);
+    while (live != 0u) {
+      const int w = __ffs(live) - 1;
+      live &= live - 1u;
+      uint32_t b = __shfl_sync(kFull, x, w);
+      const uint32_t* r = rows + 32 * (w % G) * W + col;
+      const uint32_t keep = w / G == half ? ~0u : 0u;
+      while (b != 0u) {
+        y |= r[(__ffs(b) - 1) * W] & keep;
+        b &= b - 1u;
+      }
+    }
+    return y;
+  }
+
+  // state 0 is in the group's set (bit 0 of its first word)
+  __device__ __forceinline__ bool has0(uint32_t v) const {
+    return (__shfl_sync(kFull, v, 0, G) & 1u) != 0u;
+  }
+
+  // v = (OR of follow[s] over s in v | seed ? follow[0] : 0) & mask[sym],
+  // seed set where the seed fires or state 0 is in v: v shifted by each
+  // offset onto the diagonal's destinations, the residual (rows s >= 1) walked
+  __device__ __forceinline__ uint32_t fwd(const Diags& dg, uint32_t v, bool seed, int sym) const {
+    const uint32_t m = mask[sym * W + col] & on_m;
+    uint32_t y = (seed ? seed_l : 0u) | diagonals(dg, v);
+    if (walk) y |= walk_rows(v & res_l);
+    return y & m;
+  }
+
+  // R = OR of pred[u] over u in x = (R | acc) & mask[sym]: x shifted back by
+  // each offset onto the diagonal's sources, the residual pred rows walked,
+  // and state 0 (s0, the group's start bit) iff x meets follow[0]
+  __device__ __forceinline__ uint32_t rev(const Diags& dg, uint32_t r, int sym, bool& s0) const {
+    const uint32_t x = (r | acc_l) & mask[sym * W + col];  // r and acc_l are 0 past W
+    s0 = meets(x, seed_l);
+    uint32_t y = diagonals(dg, x);
+    if (walk) y |= walk_rows(x & res_l);
+    return (y | (j == 0 && s0 ? 1u : 0u)) & on_m;
+  }
+
+  // x meets the row a (this lane's word of each), in this lane's group
+  __device__ __forceinline__ bool meets(uint32_t x, uint32_t a) const {
+    const unsigned b = __ballot_sync(kFull, (x & a) != 0u);
+    return (G == 32 ? b : (b >> (16 * half)) & 0xFFFFu) != 0u;
+  }
+
+  // v meets the accept row, in this lane's group
+  __device__ __forceinline__ bool accepts(uint32_t v) const { return meets(v, acc_l); }
+};
+
+// Copies the residual rows of one direction (pred when `pred`) of the band
+// table band_g (scan_pallas.band_table) and the mask and accept rows of the
+// tile's table tab_g (one accept row) into shared memory, at load_wide's
+// layout and size. Every thread of the block calls it (it ends in a vote)
+// before any thread returns.
+template <int G>
+__device__ __forceinline__ Band<G> load_band(uint32_t* smem, const uint32_t* __restrict__ tab_g,
+                                             const uint32_t* __restrict__ band_g,
+                                             const Diags& dg, int S, int W, bool pred) {
+  const int n_rows = S * W;
+  const int n_tail = (kSyms + 1) * W;
+  const uint32_t* res = band_g + (2 * kMaxDiags + 3) * W + (pred ? n_rows : 0);
+  for (int i = threadIdx.x; i < n_rows; i += blockDim.x) smem[i] = __ldg(res + i);
+  const uint32_t* tail = tab_g + 2 * n_rows;
+  for (int i = threadIdx.x; i < n_tail; i += blockDim.x) smem[n_rows + i] = __ldg(tail + i);
+  __syncthreads();
+  Band<G> k;
+  k.rows = smem;
+  k.mask = smem + n_rows;
+  k.W = W;
+  const int lane = threadIdx.x & 31;
+  k.j = lane % G;
+  k.half = lane / G;
+  k.on = k.j < W;
+  k.on_m = k.on ? ~0u : 0u;
+  k.col = k.on ? k.j : 0;
+  k.acc_l = k.on ? k.mask[kSyms * W + k.col] : 0u;
+  k.seed_l = k.on ? __ldg(tab_g + k.col) : 0u;
+  k.res_l = k.on ? __ldg(band_g + (2 * kMaxDiags + (pred ? 1 : 0)) * W + k.col) : 0u;
+  k.walk = __any_sync(kFull, k.res_l != 0u);
+  k.enter0 = (__ldg(band_g + (2 * kMaxDiags + 2) * W) & 1u) != 0u;
+  const uint32_t* dmask = band_g + (pred ? 0 : kMaxDiags * W);  // sources, or destinations
+#pragma unroll
+  for (int i = 0; i < kMaxDiags; ++i) {
+    const bool kept = i < dg.n_up || i >= kMaxDiags - dg.n_dn;
+    k.dm[i] = k.on && kept ? __ldg(dmask + dg.row[i] * W + k.col) : 0u;
+  }
   return k;
 }
 

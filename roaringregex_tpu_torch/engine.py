@@ -84,12 +84,13 @@ from .compiler.program import DeviceProgram
 from .ops import scan_bits as sb
 from .ops import scan_packed as sp
 from .ops import scan_xla as sx
+from .ops.scan_pallas import BANDED_MAX_DIAGS
 
 DENSE_TIERS = ("dense128", "dense256")
 MASK32 = sb.MASK32
-# the JAX package's RRX_BANDED_MAX_DIAGS / RRX_SPARSE_PARTIAL_MAX defaults,
-# read by the routing rules (_multiblock_container_wins, _big_tier)
-BANDED_MAX_DIAGS = 8
+# the JAX package's RRX_BANDED_MAX_DIAGS (scan_pallas.BANDED_MAX_DIAGS) and
+# RRX_SPARSE_PARTIAL_MAX defaults, read by the routing rules
+# (_multiblock_container_wins, _big_tier)
 SPARSE_PARTIAL_MAX = 120
 
 

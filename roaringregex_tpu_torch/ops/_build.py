@@ -60,6 +60,7 @@ _SP_HEAD = [
     _P, ctypes.c_longlong, _I, _P, _I,  # data, stride, L, lengths, R
     _P, _I, _P, _I, _I, _I, _P, _P,  # tab, n_tab, meta, n_meta, W, global_tab, live, next
 ]
+_BAND = [_P, _I, _P, _I]  # band, nd, offsets, lanes
 _STREAM_HEAD = [_P, _I, _I, _P, _I]  # words [T][R][W], T, R, tab, s_tile
 # words [T][R][W], T, R, tab, n_tab, meta, n_meta, W, global_tab, next
 _SP_STREAM_HEAD = [_P, _I, _I, _P, _I, _P, _I, _I, _I, _P]
@@ -128,8 +129,11 @@ ARGTYPES = {
     # rrx_long_wide_occupancy's order
     "rrx_long_wide_carry": _LONG_HEAD + [_P, _P, _I, _P, _P],  # vout
     "rrx_long_wide_flags": _LONG_HEAD + [_P, _P, _I, _P, _P],  # flags
-    "rrx_long_wide_count": _LONG_HEAD + [_P, _P, _I, _P, _P, _P, _P],  # cnt, tail, vout
-    "rrx_long_wide_reverse": _LONG_HEAD + [_P, _P],  # hits
+    # count and reverse (the band step) then take the band table, the number
+    # of its offsets, the offsets (a host int array) and the lanes a window
+    # cnt, tail, vout
+    "rrx_long_wide_count": _LONG_HEAD + [_P, _P, _I, _P, _P, _P] + _BAND + [_P],
+    "rrx_long_wide_reverse": _LONG_HEAD + [_P] + _BAND + [_P],  # hits
     # the stream-fed kernels (scan_stream.cu): the mask stream's head, each
     # kernel's arguments, then the record counter of the warp form (next);
     # rrx_stream_occupancy's index is this order

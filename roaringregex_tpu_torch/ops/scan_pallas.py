@@ -11,7 +11,9 @@ scans and the u32-word tier's spans and windowed scans, as in the JAX
 package, whose ``SwarScanner`` and ``WordScanner`` subclass
 ``PallasScanner``; so does every multiblock program (257..1024 states)
 that the engine keeps on the dense multiblock matmul (banded or not: the
-TPU's ``diag_ks`` form is a layout of the same step).
+TPU's ``diag_ks`` form is a layout of the same step; the wide window
+kernels' count and reverse take its diagonals as lane shifts,
+:func:`band_split`).
 
 On the TPU one step is ``y = F_bdᵀ·v (+ c0)`` in bf16 on the MXU over G
 records packed into 128 or 256 lanes, ``v = y ∘ mask(byte)``, with a
@@ -43,8 +45,9 @@ words path, which needs a slab unroll that divides 32, always applies
 here). The TPU's packing (G records per
 lane block, the block-diagonal ``F_bd``, ``cls_spec``'s mask-by-matmul,
 the banded ``dks`` form, the bf16 counts) is a layout of this same
-function and has no counterpart here: the parity boundary is the scanner
-methods' outputs.
+function: the parity boundary is the scanner methods' outputs. Only the
+diagonals have a counterpart here, in the band split of the wide window
+kernels (:func:`band_split`).
 
 The plain PyTorch versions hold a state set as a [R, s_tile] bool plane
 and step it with a 0/1 float32 product (exact: every sum is at most 1024,
@@ -71,6 +74,7 @@ K-chaining (``chain_target``, off by default).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -91,6 +95,10 @@ WIDE_REG_CHANNELS = 32
 # scan_nfa_wide.cu: warps of a block, and the shared memory a block may have
 WIDE_WARPS = 32
 WIDE_SMEM_LIMIT = 232448
+# the JAX package's default of ``banded_max_diags`` (RRX_BANDED_MAX_DIAGS):
+# the most diagonals a band split keeps (the wide window kernels hold each
+# in a register), also read by the engine's multiblock routing rule
+BANDED_MAX_DIAGS = 8
 
 
 class NfaTables(NamedTuple):
@@ -104,6 +112,13 @@ class NfaTables(NamedTuple):
     s_tile: int
     P: int = 1
     channels: bool = False
+    # past REG_S_TILE states, set by :func:`with_band`: the band split of
+    # the follow rows for the wide window kernels' count and reverse
+    # (:func:`band_table`), its offsets, and the lanes of a warp that step
+    # one window (16 where W <= 16: two windows a warp)
+    band: torch.Tensor | None = None
+    diags: tuple = ()
+    band_lanes: int = 32
 
     def plain(self, dev) -> "_Plain":
         """The stepper of the plain versions on ``dev``."""
@@ -121,6 +136,12 @@ def _pack_rows(bits: np.ndarray, W: int) -> np.ndarray:
     for s in range(S):
         out[:, s // 32] |= bits[:, s].astype(np.uint64) << np.uint64(s % 32)
     return out.astype(np.uint32)
+
+
+def _unpack_rows(rows: np.ndarray, S: int) -> np.ndarray:
+    """[n, W] uint32 -> [n, S] bool: the inverse of :func:`_pack_rows`."""
+    bits = (rows[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.reshape(rows.shape[0], -1)[:, :S] != 0
 
 
 def nfa_tables(prog: DeviceProgram, accept_map=None, P: int = 1) -> np.ndarray:
@@ -151,9 +172,12 @@ def nfa_tables(prog: DeviceProgram, accept_map=None, P: int = 1) -> np.ndarray:
 
 
 def device_nfa_tables(prog: DeviceProgram, device, accept_map=None, P: int = 1) -> NfaTables:
+    """The tile's rows on ``device`` and, past ``REG_S_TILE`` states, the
+    band split of its follow rows (:func:`with_band`)."""
     tab = nfa_tables(prog, accept_map, P)
-    return NfaTables(torch.from_numpy(tab.reshape(-1).view(np.int32).copy()).to(device),
-                     prog.s_tile, P if accept_map is not None else 1, accept_map is not None)
+    tables = NfaTables(torch.from_numpy(tab.reshape(-1).view(np.int32).copy()).to(device),
+                       prog.s_tile, P if accept_map is not None else 1, accept_map is not None)
+    return with_band(tables, rows=tab) if prog.s_tile > REG_S_TILE else tables
 
 
 def span_channels(sgm, posm, P: int, s_tile: int) -> np.ndarray:
@@ -245,8 +269,9 @@ def banded_offsets(ft: np.ndarray, max_diags: int):
     """Nonzero diagonal offsets of a transposed follow matrix (the JAX
     package's ``banded_offsets``, unchanged), or None if there are more
     than ``max_diags`` (or none at all). Offset d means y[i] += ft[i, i-d]
-    * v[i-d]. The port has no banded matmul form; the engine's multiblock
-    routing rule reads this (``ScanEngine._multiblock_container_wins``)."""
+    * v[i-d]. The engine's multiblock routing rule reads this
+    (``ScanEngine._multiblock_container_wins``); the port's own diagonal
+    form is :func:`band_split`'s."""
     if max_diags <= 0:
         return None
     ii, jj = np.nonzero(np.asarray(ft))
@@ -254,6 +279,105 @@ def banded_offsets(ft: np.ndarray, max_diags: int):
         return None
     ks = sorted(set(int(d) for d in (ii - jj)))
     return tuple(ks) if len(ks) <= max_diags else None
+
+
+class BandSplit(NamedTuple):
+    """A follow matrix split into diagonals and a residual: every edge s ->
+    s + d lies on exactly one kept diagonal d or in the residual rows."""
+
+    offsets: tuple  # the kept offsets d = dst - src, ascending
+    diags: np.ndarray  # [nd, W] uint32: bit s of row k set iff s -> s + offsets[k]
+    follow: np.ndarray  # [S, W] uint32: the residual follow rows
+    pred: np.ndarray  # [S, W] uint32: their transpose (the residual pred rows)
+
+
+def band_split(F: np.ndarray, max_diags: int = BANDED_MAX_DIAGS) -> BandSplit:
+    """The band split of one tile's [S, S] follow matrix (F[s, u]: u
+    follows s), ``bitband_spec``'s diagonal rule (``scan_bitband.py``): the
+    offsets d = u - s that carry at least max(8, n // 8) edges, row 0 (the
+    seed row) counted like any other, the most populated first, at most
+    ``max_diags`` (0: every edge in the residual); n is the program's
+    states, 1 + the highest state an edge touches. The diagonals become
+    lane shifts of the state words in the wide window kernels, the rest is
+    walked (``csrc/scan_nfa_wide.cuh`` ``Band``); the TPU's banded form
+    (``banded_offsets``) keeps every diagonal or none."""
+    F = np.asarray(F) != 0
+    S = F.shape[0]
+    W = _words(S)
+    src, dst = np.nonzero(F)
+    d_all = dst - src
+    offsets: tuple = ()
+    if src.size and max_diags > 0:
+        n = int(max(src.max(), dst.max())) + 1
+        offs, cnt = np.unique(d_all, return_counts=True)
+        keep = cnt >= max(8, n // 8)
+        order = sorted(zip(-cnt[keep], offs[keep]))[:max_diags]
+        offsets = tuple(sorted(int(d) for _, d in order))
+    on = np.isin(d_all, offsets)
+    diags = np.zeros((len(offsets), S), bool)
+    for k, d in enumerate(offsets):
+        diags[k, src[on & (d_all == d)]] = True
+    R = np.zeros((S, S), bool)
+    R[src[~on], dst[~on]] = True
+    return BandSplit(offsets, _pack_rows(diags, W), _pack_rows(R, W), _pack_rows(R.T, W))
+
+
+def band_table(split: BandSplit) -> np.ndarray:
+    """[(2 BANDED_MAX_DIAGS + 3) W + 2 S W] uint32, the device layout the band
+    kernels read (``scan_long_wide.cu``): the diagonals' source masks and
+    their destination masks (the sources moved by the offset), each
+    BANDED_MAX_DIAGS rows, zero past nd; the states s >= 1 with a nonzero
+    residual follow row, the states with a residual in-edge from some s >=
+    1 (one row each); a flag row (word 0, bit 0: an edge enters state 0);
+    then the residual follow rows [S][W] without row 0 and their transpose
+    [S][W]. The kernels apply the seed row (follow[0]) whole: forward when
+    the seed fires or state 0 is live, reverse as state 0's pred test
+    (state 0 precedes u iff u is in follow[0]), so row 0's residual is
+    never walked."""
+    S, W = split.follow.shape
+    nd = len(split.offsets)
+    if nd > BANDED_MAX_DIAGS:
+        raise ValueError(f"{nd} diagonals: the band kernels hold at most {BANDED_MAX_DIAGS}")
+    dm = np.zeros((2, BANDED_MAX_DIAGS, S), bool)
+    for k, d in enumerate(split.offsets):
+        src = np.flatnonzero(_unpack_rows(split.diags[k:k + 1], S)[0])
+        dm[0, k, src] = dm[1, k, src + d] = True
+    res = _unpack_rows(split.follow, S)
+    enter0 = bool(res[:, 0].any()) or any(
+        d <= 0 and (int(words[-d // 32]) >> (-d % 32)) & 1
+        for d, words in zip(split.offsets, split.diags))
+    res[0] = False
+    live = _pack_rows(np.stack([res.any(axis=1), res.any(axis=0)]), W)
+    flags = np.zeros((1, W), np.uint32)
+    flags[0, 0] = int(enter0)
+    return np.concatenate([_pack_rows(dm.reshape(-1, S), W), live, flags, _pack_rows(res, W),
+                           _pack_rows(res.T, W)]).reshape(-1)
+
+
+def with_band(tables: NfaTables, max_diags: int | None = None, *, rows=None) -> NfaTables:
+    """``tables`` with the band split of its follow rows on their device
+    (``rows``: the host rows of ``nfa_tables``, else read back from the
+    device), for the wide window kernels' count and reverse (tiles past
+    ``REG_S_TILE`` states). A tile of at most 16 state words runs two
+    windows a warp, one on each half.
+
+    ``max_diags`` None: the diagonals of ``band_split`` are kept where they
+    carry at least half the edges outside the seed row (keyword lists and
+    runs carry all, an optional suffix after them most); otherwise every
+    edge is walked. Where the residual holds most edges, the walk runs
+    anyway and the diagonals' shifts come on top of it, not in its place
+    (x(ab|c){300,340}y: 35% on four diagonals, its count slower with them
+    than with every edge walked; K60 with an optional suffix, 75% on one,
+    3x faster with it; ``PERF.md``). An int forces that split."""
+    S, W = tables.s_tile, _words(tables.s_tile)
+    if rows is None:
+        rows = tables.tab.cpu().numpy().view(np.uint32).reshape(-1, W)
+    F = _unpack_rows(np.asarray(rows, np.uint32)[:S], S)
+    split = band_split(F, BANDED_MAX_DIAGS if max_diags is None else max_diags)
+    if max_diags is None and 2 * int(_unpack_rows(split.follow[1:], S).sum()) > int(F[1:].sum()):
+        split = band_split(F, 0)
+    band = torch.from_numpy(band_table(split).view(np.int32).copy()).to(tables.tab.device)
+    return tables._replace(band=band, diags=split.offsets, band_lanes=16 if W <= 16 else 32)
 
 
 # ---------------------------------------------------------------------------
@@ -1114,9 +1238,16 @@ def _long_inputs(geom: LongGeom, tables: NfaTables, v0, gate, dev):
 def _long_run(name: str, wrapper, data, geom: LongGeom, tables: NfaTables, *args) -> None:
     """Launch ``rrx_long_<name>`` for a tile of up to ``REG_S_TILE`` states
     (one thread per window, counted in ``wrapper.launches``) or
-    ``rrx_long_wide_<name>`` for 257..1024 states (one warp per window,
-    counted in ``wrapper.wide_launches``)."""
+    ``rrx_long_wide_<name>`` for 257..1024 states (one warp per window, or
+    two at 16 lanes a window, counted in ``wrapper.wide_launches``); count
+    and reverse there take the tables' band split."""
     if tables.s_tile > REG_S_TILE:
+        if name in ("count", "reverse"):
+            if tables.band is None:
+                raise ValueError(f"rrx_long_wide_{name}: tables of {tables.s_tile} states "
+                                 "without a band split (with_band)")
+            offs = (ctypes.c_int * BANDED_MAX_DIAGS)(*tables.diags)
+            args += (tables.band, len(tables.diags), offs, int(tables.band_lanes))
         _long_launch(f"rrx_long_wide_{name}", data, geom, tables, *args)
         wrapper.wide_launches += 1
     else:

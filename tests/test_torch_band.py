@@ -1,0 +1,352 @@
+"""The band split of a wide tile (``scan_pallas.band_split``) and the band
+step that the wide window kernels' count and reverse run on it
+(``csrc/scan_nfa_wide.cuh`` ``Band``), numpy and torch only, on the CPU.
+
+- The split is an exact partition of the follow matrix: every edge lies on
+  one kept diagonal or in the residual rows, no bit at or past S is set,
+  for the long-string programs of 257..1024 states and for random tables
+  with diagonals planted at offsets -70 .. 64; K60 keeps (1,), the chain
+  x(ab|c){300,340}y (1, 2, 3, 4), and at most ``BANDED_MAX_DIAGS``.
+- A word-level model of the kernel's step (lanes of 32, or halves of 16
+  holding two windows; shuffles that return the lane's own word out of
+  range, then zero fill; funnel shifts; the residual rows walked), computed
+  from the split and the table the kernels read (``band_table``), equals
+  the plain stepper's forward and reverse step (``NfaTables.plain``) on
+  random state sets.
+
+Every comparison is exact.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from roaringregex_tpu_torch.compiler.program import compile_program
+from roaringregex_tpu_torch.ops import scan_pallas as spl
+from test_torch_api_pallas import _keywords
+
+
+def _kw(n: int, plus: str = "") -> str:
+    return "(" + "|".join(_keywords(n)) + ")" + plus
+
+
+PROGRAMS = {
+    "K60": _kw(60), "K120": _kw(120), "run": "[a-z]{300}x", "chain": "x(ab|c){300,340}y",
+    "K60+": _kw(60, "+"), "chain+": "x(ab|c){300,}y",
+}
+PLANTED = (-70, -33, -1, 0, 1, 31, 32, 64)
+M32 = np.uint64(0xFFFFFFFF)
+
+
+@functools.lru_cache(maxsize=None)
+def _prog_tables(name: str):
+    prog = compile_program(PROGRAMS[name])
+    assert prog.s_tile > spl.REG_S_TILE
+    return prog, spl.device_nfa_tables(prog, "cpu")
+
+
+def _follow(tables: spl.NfaTables) -> np.ndarray:
+    S, W = tables.s_tile, spl._words(tables.s_tile)
+    rows = tables.tab.numpy().view(np.uint32).reshape(-1, W)
+    return spl._unpack_rows(rows[:S], S)
+
+
+@functools.lru_cache(maxsize=None)
+def _random_tables(S: int, seed: int, residual: bool = True) -> spl.NfaTables:
+    """A hand-built tile: diagonals planted at PLANTED (each edge kept with
+    probability 0.6), random residual edges (or the seed row only), random
+    mask rows (bytes >= 0x80 zero) and a random accept row."""
+    rng = np.random.default_rng(seed)
+    W = spl._words(S)
+    F = np.zeros((S, S), bool)
+    for d in PLANTED:
+        src = np.arange(max(0, -d), min(S, S - d))
+        keep = src[rng.random(src.size) < 0.6]
+        F[keep, keep + d] = True
+    if residual:
+        F |= rng.random((S, S)) < 0.004
+    else:
+        F[0] = rng.random(S) < 0.2
+    mbits = rng.random((spl.N_SYMS, S)) < 0.7
+    mbits[0x80:256] = False
+    acc = spl._pack_rows((rng.random(S) < 0.05)[None, :], W)
+    tab = np.concatenate([spl._pack_rows(F, W), spl._pack_rows(F.T, W),
+                          spl._pack_rows(mbits, W), acc])
+    t = spl.NfaTables(torch.from_numpy(tab.reshape(-1).view(np.int32).copy()), S)
+    return spl.with_band(t, spl.BANDED_MAX_DIAGS, rows=tab)
+
+
+def _assert_partition(F: np.ndarray, split: spl.BandSplit):
+    S, W = F.shape[0], spl._words(F.shape[0])
+    parts = []
+    for d, words in zip(split.offsets, split.diags):
+        src = spl._unpack_rows(words[None, :], S)[0]
+        part = np.zeros_like(F)
+        s = np.flatnonzero(src)
+        assert ((s + d >= 0) & (s + d < S)).all(), f"diagonal {d} has a source past the tile"
+        part[s, s + d] = True
+        parts.append(part)
+    res = spl._unpack_rows(split.follow, S)
+    parts.append(res)
+    assert (spl._unpack_rows(split.pred, S) == res.T).all()
+    total = np.sum(parts, axis=0)
+    assert total.max() <= 1, "an edge lies in two parts"
+    assert ((total == 1) == F).all(), "the parts' union is not the follow matrix"
+    for rows in [split.diags, split.follow, split.pred]:
+        if S % 32 and len(rows):
+            assert (rows[:, W - 1] >> np.uint32(S % 32) == 0).all(), "a bit at or past S"
+
+
+@pytest.mark.parametrize("name", list(PROGRAMS))
+def test_band_split_partitions_programs(name):
+    prog, tables = _prog_tables(name)
+    F = _follow(tables)
+    split = spl.band_split(F)
+    _assert_partition(F, split)
+    assert len(split.offsets) <= spl.BANDED_MAX_DIAGS
+    want = {"K60": (1,), "K120": (1,), "run": (1,), "chain": (1, 2, 3, 4), "K60+": (1,),
+            "chain+": (1, 2, 3, 4)}[name]
+    assert split.offsets == want
+    assert tables.band_lanes == (16 if spl._words(prog.s_tile) <= 16 else 32)
+    # keyword lists and runs: only the seed row is left; the tables keep
+    # the diagonals where they carry at least half the edges outside the
+    # seed row, else walk every edge
+    bare = name in ("K60", "K120", "run")
+    res = spl._unpack_rows(split.follow, prog.s_tile)[1:]
+    assert res.any() != bare
+    assert (2 * res.sum() <= F[1:].sum()) == (name not in ("chain", "K60+"))
+    assert tables.diags == (() if name in ("chain", "K60+") else split.offsets)
+    empty = spl.band_split(F, 0)
+    assert empty.offsets == () and (spl._unpack_rows(empty.follow, prog.s_tile) == F).all()
+
+
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "seed-row-only"])
+@pytest.mark.parametrize("S", [384, 512, 1024])
+def test_band_split_partitions_planted(S, residual):
+    tables = _random_tables(S, S, residual)
+    F = _follow(tables)
+    split = spl.band_split(F)
+    _assert_partition(F, split)
+    assert split.offsets == PLANTED  # 8 planted, each far above the threshold
+    W, K = spl._words(S), spl.BANDED_MAX_DIAGS
+    assert tables.band[(2 * K + 2) * W].item() == 1  # state 1 -> state 0 on d = -1
+    for md in (0, 3):
+        part = spl.band_split(F, md)
+        _assert_partition(F, part)
+        assert len(part.offsets) == md
+
+
+def test_band_split_keeps_the_most_populated():
+    """Twelve diagonals over the threshold: the cap keeps the eight with
+    the most edges, returned in ascending order; one below the threshold is
+    left to the residual."""
+    S = 512
+    F = np.zeros((S, S), bool)
+    offs = (-200, -90, -40, -5, -2, 3, 7, 11, 50, 120, 250, 300)
+    fill = dict(zip(offs, (100, 90, 300, 80, 250, 200, 70, 150, 60, 180, 120, 110)))
+    for d, n in fill.items():
+        src = np.arange(max(0, -d), min(S, S - d))[:n]
+        F[src, src + d] = True
+    F[np.arange(40), np.arange(40) + 400] = True  # 40 edges at +400: under 511 // 8
+    split = spl.band_split(F)
+    _assert_partition(F, split)
+    top = sorted(sorted(fill, key=lambda d: -fill[d])[:8])
+    assert split.offsets == tuple(top)
+    assert len(split.offsets) == spl.BANDED_MAX_DIAGS
+
+
+def test_band_table_layout():
+    """band_table: the diagonal rows (zero past nd), the states with a
+    residual row to walk in each direction, the flag of an edge into state
+    0, then both residual matrices without the seed row; the tables of a
+    narrow tile carry none."""
+    tables = spl.with_band(_prog_tables("chain")[1], spl.BANDED_MAX_DIAGS)
+    S, W = tables.s_tile, spl._words(tables.s_tile)
+    split = spl.band_split(_follow(tables))
+    flat = tables.band.numpy().view(np.uint32)
+    K = spl.BANDED_MAX_DIAGS
+    assert flat.size == (2 * K + 3) * W + 2 * S * W
+    dm = flat[: 2 * K * W].reshape(2, K, W)
+    nd = len(split.offsets)
+    assert (dm[0, :nd] == split.diags).all() and not dm[:, nd:].any()
+    for k, d in enumerate(split.offsets):  # the destinations: the sources moved by d
+        src = spl._unpack_rows(dm[0, k:k + 1], S)[0]
+        assert (spl._unpack_rows(dm[1, k:k + 1], S)[0] == np.roll(src, d)).all()
+    live = flat[2 * K * W:(2 * K + 2) * W].reshape(2, W)
+    enter0 = flat[(2 * K + 2) * W:(2 * K + 3) * W]
+    res = flat[(2 * K + 3) * W:].reshape(2, S, W)
+    want = spl._unpack_rows(split.follow, S)
+    want[0] = False  # the seed row is applied whole, never walked
+    assert (spl._unpack_rows(res[0], S) == want).all()
+    assert (spl._unpack_rows(res[1], S) == want.T).all()
+    assert (spl._unpack_rows(live, S) == np.stack([want.any(1), want.any(0)])).all()
+    assert enter0[0] == int(_follow(tables)[:, 0].any()) and not enter0[1:].any()
+    narrow = spl.device_nfa_tables(compile_program(_kw(20)), "cpu")
+    assert narrow.s_tile <= spl.REG_S_TILE and narrow.band is None and narrow.diags == ()
+
+
+# ---------------------------------------------------------------------------
+# A word-level model of the band step
+# ---------------------------------------------------------------------------
+
+
+def _shfl(xs, lane, src_fn, G):
+    """The hardware's shuffle: a 5-bit lane operand within a group of G
+    lanes; a source out of the group gives the lane's own word."""
+    seg = lane & ~(G - 1)
+    j = src_fn(lane, seg)
+    return xs[j] if j is not None else xs[lane]
+
+
+def _up_by(d):
+    return lambda ln, sg: ln - (d & 31) if ln - (d & 31) >= sg else None
+
+
+def _down_by(d, G):
+    return lambda ln, sg: ln + (d & 31) if ln + (d & 31) <= sg + G - 1 else None
+
+
+def _up(xs, q, r, G):
+    """Band::up: the group's words moved up by 32 q + r states."""
+    out = np.zeros(32, np.uint64)
+    for lane in range(32):
+        j = lane % G
+        a = _shfl(xs, lane, _up_by(q), G) if j >= q else np.uint64(0)
+        b = _shfl(xs, lane, _up_by(q + 1), G) if j > q else np.uint64(0)
+        out[lane] = ((a << np.uint64(r)) | (b >> np.uint64(32 - r))) & M32 if r else a
+    return out
+
+
+def _down(xs, q, r, G):
+    """Band::down: moved down by 32 q + r states."""
+    out = np.zeros(32, np.uint64)
+    for lane in range(32):
+        j = lane % G
+        down_by = functools.partial(_down_by, G=G)
+        a = _shfl(xs, lane, down_by(q), G) if j + q < G else np.uint64(0)
+        b = _shfl(xs, lane, down_by(q + 1), G) if j + q + 1 < G else np.uint64(0)
+        out[lane] = ((a >> np.uint64(r)) | (b << np.uint64(32 - r))) & M32 if r else a
+    return out
+
+
+def _diags(offsets, reverse: bool):
+    """band_diags of scan_long_wide.cu: (row, q, r, up) per kept diagonal,
+    the ups first."""
+    out = []
+    for want_up in (True, False):
+        for row, d in enumerate(offsets):
+            e = -d if reverse else d
+            if (e >= 0) == want_up:
+                out.append((row, abs(e) >> 5, abs(e) & 31, want_up))
+    return out
+
+
+class _Model:
+    """One warp of the band step on the tables' band table: G lanes a
+    window, 32 // G windows."""
+
+    def __init__(self, tables: spl.NfaTables, G: int):
+        S, W = tables.s_tile, spl._words(tables.s_tile)
+        self.S, self.W, self.G = S, W, G
+        flat = tables.band.numpy().view(np.uint32).astype(np.uint64)
+        K = spl.BANDED_MAX_DIAGS
+        self.dm = flat[: 2 * K * W].reshape(2, K, W)  # sources, destinations
+        self.res = flat[2 * K * W:(2 * K + 2) * W].reshape(2, W)
+        self.rows = flat[(2 * K + 3) * W:].reshape(2, S, W)
+        tab = tables.tab.numpy().view(np.uint32).astype(np.uint64).reshape(-1, W)
+        self.seed, self.mask = tab[0], tab[2 * S:2 * S + spl.N_SYMS]
+        self.acc = tab[2 * S + spl.N_SYMS]
+        self.offsets = tables.diags
+
+    def lanes(self, words):
+        """[32 // G, W] words -> the warp's 32 lane words."""
+        xs = np.zeros(32, np.uint64)
+        for h, wd in enumerate(words):
+            xs[h * self.G:h * self.G + self.W] = wd
+        return xs
+
+    def words(self, xs):
+        return np.stack([xs[h * self.G:h * self.G + self.W] for h in range(32 // self.G)])
+
+    def walk(self, xs, pred):
+        y = np.zeros(32, np.uint64)
+        for lane in range(32):
+            j, h = lane % self.G, lane // self.G
+            if j >= self.W:
+                continue
+            x = self.words(xs)[h]
+            for s in np.flatnonzero(spl._unpack_rows(x[None, :].astype(np.uint32), self.S)[0]):
+                y[lane] |= self.rows[int(pred), s, j]
+        return y
+
+    def per_lane(self, row):
+        return self.lanes([row] * (32 // self.G))
+
+    def fwd(self, v, gates, syms):
+        """The seed row where the seed fires or state 0 is live, the
+        diagonals, the residual rows s >= 1 walked."""
+        xs = self.lanes(v)
+        seed = [g or bool(wd[0] & np.uint64(1)) for g, wd in zip(gates, v)]
+        y = self.lanes([self.seed if f else np.zeros(self.W, np.uint64) for f in seed])
+        for row, q, r, up in _diags(self.offsets, False):  # shifted, then the destinations
+            y |= (_up(xs, q, r, self.G) if up else _down(xs, q, r, self.G)) \
+                & self.per_lane(self.dm[1, row])
+        y |= self.walk(xs & self.per_lane(self.res[0]), False)
+        return self.words(y & self.lanes([self.mask[s] for s in syms]))
+
+    def rev(self, r_words, syms):
+        """The diagonals shifted back, the residual pred rows walked, state
+        0 iff x meets the seed row."""
+        xw = (r_words | self.acc) & np.stack([self.mask[s] for s in syms])
+        xs = self.lanes(xw)
+        y = self.walk(xs & self.per_lane(self.res[1]), True)
+        for row, q, r, up in _diags(self.offsets, True):
+            y |= (_up(xs, q, r, self.G) if up else _down(xs, q, r, self.G)) \
+                & self.per_lane(self.dm[0, row])
+        out = self.words(y)
+        for h, x in enumerate(xw):
+            out[h, 0] |= np.uint64(bool((x & self.seed).any()))
+        return out
+
+
+def _bits(words, S):
+    return torch.from_numpy(spl._unpack_rows(np.asarray(words, np.uint32), S))
+
+
+# (program or None, planted tile, state words): lanes of 32 for all, halves
+# of 16 (two windows a warp) where W <= 16
+TILES = [("K60", None, 16), ("run", None, 12), ("chain", None, 32), ("K60+", None, 16),
+         ("chain+", None, 32), (None, 384, 12), (None, 512, 16), (None, 1024, 32)]
+CASES = [(name, S, G) for name, S, W in TILES for G in (32, 16) if G == 32 or W <= 16]
+
+
+@pytest.mark.parametrize("keep", [True, False], ids=["diagonals", "walk-all"])
+@pytest.mark.parametrize("name,S,G", CASES,
+                         ids=[f"{c[0] or f'planted{c[1]}'}-G{c[2]}" for c in CASES])
+def test_band_step_model_matches_plain(name, S, G, keep):
+    """Each tile with its diagonals kept, and with every edge walked (the
+    default of a program with a residual outside the seed row)."""
+    tables = _prog_tables(name)[1] if name else _random_tables(S, S)
+    tables = spl.with_band(tables, spl.BANDED_MAX_DIAGS if keep else 0)
+    S, W = tables.s_tile, spl._words(tables.s_tile)
+    assert G == 32 or W <= 16
+    rng = np.random.default_rng(S + G)
+    model = _Model(tables, G)
+    pt = tables.plain("cpu")
+    nwin = 32 // G
+    for trial in range(4):
+        dens = (0.02, 0.3, 0.0, 0.6)[trial]
+        v = spl._pack_rows(rng.random((nwin, S)) < dens, W).astype(np.uint64)
+        if trial == 2:
+            v[:, 0] |= np.uint64(1)  # state 0 live: its own (residual) row
+        syms = [int(s) for s in rng.integers(0, spl.N_SYMS, size=nwin)]
+        syms[0] = int(rng.choice([spl.sb.SYM_BOS, spl.sb.SYM_EOS, ord("a"), ord("x")]))
+        gates = [bool(g) for g in rng.random(nwin) < 0.5]
+        sym_t = torch.tensor(syms)
+        got = model.fwd(v, gates, syms)
+        want = pt.step(_bits(v, S), torch.tensor(gates), sym_t)
+        assert torch.equal(_bits(got, S), want), f"forward, trial {trial}"
+        got_r = model.rev(v, syms)
+        want_r = pt.rev(_bits(v, S), sym_t)
+        assert torch.equal(_bits(got_r, S), want_r), f"reverse, trial {trial}"
