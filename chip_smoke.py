@@ -44,7 +44,13 @@ its check fails:
    unseeded and nullable, two accept channels on config 10, flags seeded
    and unseeded, reverse, anchored rescans lazy and longest from random and
    candidate starts (-1 and 0 included), spans lazy and longest at caps 1,
-   2 and 16 (cap 1 overflows), and records past a live count; the three
+   2 and 16 (cap 1 overflows), and records past a live count; the register
+   step of rrx_bitband_stats also on NW = 3 and 4 (x(ab|c){700,800}y,
+   x(ab|c){1000,1300}y), two specs with every edge on a diagonal (offsets
+   -2..4 and -300, -298), hand-built tables whose top lane holds state
+   words (W = 32, 96 and 128, diagonals of both signs past 32 NW states, rank-1
+   columns, gaps of both signs) and 32 accept channels on config 10,
+   seeded, unseeded, nullable and live; the three
    container kernels (rrx_sparse_stats, _flags, _reverse) on the 9
    container programs of the probe table (multiblock and sparse, config 13,
    a program at the 120-block cap whose table takes the global form, a full
@@ -77,7 +83,7 @@ its check fails:
    of 256 bytes (lead 0 and the overlap), 4 MiB in windows of 4096 at W =
    16 and 32, seeded and unseeded, from the empty set and random entry
    states with random gates, and 3 windows a block (rep 3); the band step
-   of _count and _reverse again on those four programs with every edge
+   of _flags, _count and _reverse again on those four programs with every edge
    walked (max_diags=0) and at 32 lanes a window (the default at W <= 16
    is two windows a warp), and on hand-built tiles at W = 12, 16 and 32
    with diagonals planted at -70..64 (with random residual edges, or the
@@ -195,9 +201,12 @@ its check fails:
    MiB), and each long config's count_ends end to end at 1 GiB; the five
    bitband kernels on config 10 at 10 MB and 1 GiB with every record
    scanned (plain versions on the 10 MB batch and on 16,384 records of the
-   1 GiB one), with registers, occupancy and the bound of PERF.md section
-   2, and config 10's match_stats end to end split into the prefilter scan,
-   the kernel on the compacted bucket, the full-batch pass and the glue;
+   1 GiB one), with registers, spills, occupancy, scheduler cycles a
+   record-step and the bound of PERF.md section 2 (rrx_bitband_stats on
+   the register step beside rrx_bitband_flags on the shared-buffer step),
+   and config 10's match_stats end to end split into the prefilter scan,
+   the kernel on the compacted bucket (its cycles and grid fill), the
+   full-batch pass and the glue;
    the three container kernels on K120 at 10 MB and 1 GiB with every record
    scanned (plain versions on the 10 MB batch and on 16,384 records of the
    1 GiB one), registers, occupancy and the bound of PERF.md section 2 from
@@ -249,11 +258,12 @@ its check fails:
    kernels on the P = 3 union at 10 MB and 1 GiB the same way; and the
    four wide window kernels at 1 GiB in K60's overlapped geometry (plain
    versions on 1 MiB), with count_ends end to end for K60 and
-   x(ab|c){300,340}y, and the band A/B: count and reverse on K60's windows
-   and count on the chain's, with the default split, at 32 lanes a window
-   and with max_diags=0, beside rrx_long_wide_flags (the Wide step) on the
-   same windows, in scheduler cycles a window-step, with registers, spills
-   (a band kernel that spills fails) and occupancy; the four stream
+   x(ab|c){300,340}y, FastLongScanner.flags end to end for both, and the
+   band A/B: flags, count and reverse on K60's windows and flags and count
+   on the chain's, with the default split, at 32 lanes a window and with
+   max_diags=0, beside rrx_long_wide_carry (the Wide step) on the same
+   windows, in scheduler cycles a window-step, with registers, spills (a
+   band kernel that spills fails) and occupancy; the four stream
    kernels at 10 MB on cat|dog (W = 1), K30 (W = 8) and config 4 (W = 12,
    the rescans) and at 1 GiB on cat|dog
    (a 4 GiB stream), with the stream's bytes as their input in the bound,
@@ -680,6 +690,49 @@ def band_planted(S: int, residual: bool, rng, dev):
                           acc])
     tables = P_.NfaTables(torch.from_numpy(tab.reshape(-1).view(np.int32).copy()).to(dev), S)
     return P_.with_band(tables, P_.BANDED_MAX_DIAGS, rows=tab)
+
+
+# hand-built bitband tables for the register step of rrx_bitband_stats whose
+# top lane holds state words (W = 32 NW): diagonals of both signs, near and
+# past 32 NW states, rank-1 columns (as state indices), triangle gaps of both
+# signs on the window [8, W)
+BB_PLANTED = {32: ((-70, -33, -1, 0, 1, 31, 32, 64, 100), (5, 1000), (-3, 5, 40)),
+              96: ((-200, -97, -1, 0, 1, 5, 31, 33, 64, 95, 96, 97, 300), (6, 3000), (-20, 3, 33)),
+              128: ((-300, -129, -1, 1, 127, 128, 129, 500), (7, 4000), (-40, 2, 5))}
+BB_PLANTED_ALPHABET = b"abcdef0123456789xyzq"
+
+
+def bitband_planted(W: int, rng, dev):
+    """Random bitband tables of W words under BB_PLANTED[W]: mask rows at
+    half density, rank-1 rows at 5%, the exit and family rows at 30% and
+    zero outside the triangle's window (as the tier's tables are), one
+    accept row at 5%; byte runs 0-9, a-f and x-z."""
+    import numpy as np
+    import torch
+
+    from roaringregex_tpu_torch.ops import scan_bitband as BB
+
+    diags, cols, gaps = BB_PLANTED[W]
+    runs = ((48, 57), (97, 102), (120, 122))
+    spec = BB.BitbandSpec(W=W, diags=diags, rank1=tuple((c // 32, c % 32) for c in cols),
+                          tri_gaps=gaps, tri_win=(8, W), runs=runs, bos_nz=True, eos_nz=True)
+
+    def rows(n, dens, window=False):
+        bits = (rng.random((n, W, 32)) < dens).astype(np.uint64)
+        r = (bits << np.arange(32, dtype=np.uint64)).sum(axis=2, dtype=np.uint64)
+        if window:
+            r[:, :8] = 0
+        return r.astype(np.uint32)
+
+    tab = np.concatenate([rows(3 + len(runs), 0.5), rows(len(diags), 0.5), rows(len(cols), 0.05),
+                          rows(1 + len(gaps), 0.3, True), rows(2, 0.05)])
+    t = torch.from_numpy(tab.reshape(-1).view(np.int32).copy()).to(dev)
+
+    class Named:
+        pattern = f"hand-built W = {W}"
+
+    meta = torch.from_numpy(BB.bitband_meta(spec, Named, 1)).to(dev)
+    return BB.BitbandTables(t, t.clone(), meta, spec, 1, None, None)
 
 
 def key_stats(words, text: bytes):
@@ -1227,16 +1280,20 @@ def main() -> int:
     n_cmp = 0
     before = {name: long_wrappers[name].launches for name in LONG_KERNELS}
 
-    def check_long(tables, d, geom, tag, v0=None, gate=None, seeds=(True, False)):
-        for seeded in seeds:
+    # the plain count with the final state is the walk's cnt and tail (the
+    # same with and without it) and its last state set (long_carry_plain's
+    # result: both end on _long_walk's last step), so one plain walk is the
+    # reference of the carry and of both counts
+    def check_long(tables, d, geom, tag, v0=None, gate=None):
+        for seeded in (True, False):
             kw = dict(seeded=seeded)
+            want = P_.long_count_plain(d, geom, tables, v0, gate, final=True, **kw)
             compare("rrx_long_carry", [P_.long_carry(d, geom, tables, v0, gate, **kw)],
-                    [P_.long_carry_plain(d, geom, tables, v0, gate, **kw)], tag, ("vout",))
+                    [want[2]], tag, ("vout",))
             compare("rrx_long_count", P_.long_count(d, geom, tables, v0, gate, final=True, **kw),
-                    P_.long_count_plain(d, geom, tables, v0, gate, final=True, **kw), tag,
-                    ("cnt", "tail", "vout"))
+                    want, tag, ("cnt", "tail", "vout"))
             compare("rrx_long_count", P_.long_count(d, geom, tables, v0, gate, **kw)[:2],
-                    P_.long_count_plain(d, geom, tables, v0, gate, **kw)[:2], tag, ("cnt", "tail"))
+                    want[:2], tag, ("cnt", "tail"))
             if geom.rep == 1:
                 compare("rrx_long_flags", [P_.long_flags(d, geom, tables, v0, gate, **kw)],
                         [P_.long_flags_plain(d, geom, tables, v0, gate, **kw)], tag, ("flags",))
@@ -1298,7 +1355,8 @@ def main() -> int:
     print(f"phase 2: kernel == plain on the card, {n_cmp} string/window cases of "
           f"{len(LONG_PATTERNS)} programs (W = 1, 2, 8) through the four long-string kernels "
           f"(carry, count with and without the final state, flags, reverse; seeded and unseeded; "
-          f"empty, random and basis entry states) ({time.perf_counter() - t0:.1f}s)")
+          f"empty, random and basis entry states) "
+          f"({time.perf_counter() - t0:.1f}s)")
 
     # the wide multi-channel span kernels (rows 21-22 at W > 8): the P = 3
     # union, the union with `$` channels (a span at EOS, then the empty match
@@ -1425,8 +1483,8 @@ def main() -> int:
           f"seeded and unseeded; empty and random entry states; rep 3) "
           f"({time.perf_counter() - t0:.1f}s)")
 
-    # the band step of rrx_long_wide_count and _reverse (every comparison
-    # above ran its default split): the four programs again with every edge
+    # the band step of rrx_long_wide_flags, _count and _reverse (every
+    # comparison above ran its default split): the four programs again with every edge
     # walked (max_diags=0) and, at W <= 16, at 32 lanes a window; hand-built
     # tiles at W = 12, 16 and 32 with diagonals planted at -70..64 (random
     # residual edges, or the seed row alone), each split both ways and at
@@ -1440,14 +1498,20 @@ def main() -> int:
         nonlocal n_cmp
         for seeded in (True, False):
             kw = dict(seeded=seeded)
-            for final in (True, False):
+            want = P_.long_count_plain(d, geom, tables, v0, gate, final=True, **kw)
+            for final in (True, False):  # one plain walk: cnt and tail are the same
                 got = P_.long_count(d, geom, tables, v0, gate, final=final, **kw)
-                want = P_.long_count_plain(d, geom, tables, v0, gate, final=final, **kw)
                 compare("rrx_long_count", [x for x in got if x is not None],
-                        [x for x in want if x is not None], f"{tag} final={final}",
+                        list(want[: 2 + final]), f"{tag} final={final}",
                         ("cnt", "tail", "vout")[: 2 + final])
                 n_cmp += 1
         if geom.rep == 1:
+            for seeded in (True, False):  # the flags windows: T = lead + block
+                compare("rrx_long_flags",
+                        [P_.long_flags(d, geom, tables, v0, gate, seeded=seeded)],
+                        [P_.long_flags_plain(d, geom, tables, v0, gate, seeded=seeded)],
+                        f"{tag} seeded={seeded}", ("flags",))
+                n_cmp += 1
             g2 = geom._replace(T=geom.T + 9)
             compare("rrx_long_reverse", [P_.long_reverse(d, g2, tables)],
                     [P_.long_reverse_plain(d, g2, tables)], tag, ("hits",))
@@ -1496,14 +1560,15 @@ def main() -> int:
             band_strings(tb, tag, 13)
             band_seen.add((-(-S // 32), form, tb.band_lanes))
     torch.cuda.synchronize()
-    for name in ("rrx_long_wide_count", "rrx_long_wide_reverse"):
+    for name in ("rrx_long_wide_flags", "rrx_long_wide_count", "rrx_long_wide_reverse"):
         if launches()[name] <= before[name]:
             fail(f"{name}: launch count did not rise in the band comparisons")
     if {(12, "default", 16), (16, "32 lanes", 32), (32, "max_diags=0", 32),
             (32, "max_diags=8", 32)} - band_seen:
         fail(f"band comparisons covered only {sorted(band_seen)}")
-    print(f"phase 2: kernel == plain on the card, {n_cmp} band-step cases (rrx_long_wide_count "
-          f"with and without the final state, rrx_long_wide_reverse) of {len(LONG_WIDE_PATTERNS)} "
+    print(f"phase 2: kernel == plain on the card, {n_cmp} band-step cases (rrx_long_wide_flags "
+          f"seeded and unseeded, rrx_long_wide_count with and without the final state, "
+          f"rrx_long_wide_reverse) of {len(LONG_WIDE_PATTERNS)} "
           f"programs with the other split (diagonals kept, or every edge walked) and at 32 lanes a "
           f"window, and hand-built "
           f"tiles at W = 12, 16, 32 with diagonals at {BAND_PLANTED} (random residual edges, or "
@@ -1625,6 +1690,72 @@ def main() -> int:
                 compare("rrx_bitband_flags", [BB.bitband_flags(d, ln, t2, seeded=seeded)],
                         [BB.flags_plain(d, ln, t2, seeded=seeded)],
                         f"{pattern!r} 2 channels seeded={seeded}", ("flags",))
+    # the register step of rrx_bitband_stats on the specs that the programs
+    # above leave out: NW = 3 and 4, every edge on a diagonal (offsets -2..4;
+    # -300 and -298, 9 lanes away), hand-built tables whose top lane holds
+    # state words (NW = 1, 3 and 4), and 32 accept channels on config 10
+    def check_bb_stats(tables, d, ln, tag):
+        for seeded in (True, False):
+            for nullable in (False, True):
+                kw = dict(seeded=seeded, nullable=nullable)
+                compare("rrx_bitband_stats", BB.bitband_stats(d, ln, tables, **kw),
+                        BB.stats_plain(d, ln, tables, **kw), f"{tag} {kw}")
+        n = d.shape[0] // 3
+        live = torch.tensor([n], dtype=torch.int32, device=dev)
+        got = BB.bitband_stats(d, ln, tables, seeded=True, nullable=False, live=live)
+        compare("rrx_bitband_stats", [x[:n] for x in got],
+                BB.stats_plain(d[:n], ln[:n], tables, seeded=True, nullable=False),
+                f"{tag} live={n}")
+        shapes.add((tables.spec.W, len(tables.spec.diags), len(tables.spec.rank1),
+                    tables.spec.tri_gaps))
+
+    def all_diagonal(prog):
+        spec = BB.bitband_spec(prog)
+        e = prog.nfa.get_edges()
+        offs = tuple(sorted(set((e[:, 1].astype(np.int64) - e[:, 0].astype(np.int64)).tolist())))
+        return spec._replace(diags=offs, rank1=(), tri_gaps=(), tri_win=(0, spec.W))
+
+    n_regs = len(shapes)
+    for pattern in ("x(ab|c){700,800}y", "x(ab|c){1000,1300}y"):
+        # records shorter than a match: accept channels on every fifth
+        # state and on a random tenth show the whole state set
+        prog = compile_program(pattern)
+        acc3 = np.zeros((prog.s_pad, 3), np.uint8)
+        acc3[: prog.n_states, 0] = np.asarray(prog.accept)[: prog.n_states]
+        acc3[: prog.n_states, 1] = np.arange(prog.n_states) % 5 == 2
+        acc3[: prog.n_states, 2] = rng.random(prog.n_states) < 0.1
+        tables = BB.device_bitband_tables(prog, BB.bitband_spec(prog), dev, acc3)
+        data, lengths = bitband_batch(pattern, 128, 512)
+        check_bb_stats(tables, torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev),
+                       f"{pattern!r} R=128 L=512, 3 channels")
+    for pattern, body in (("x(ab|c){400,}y", None), ("((ab|c){100}d)+", b"d")):
+        prog = compile_program(pattern)
+        tables = BB.device_bitband_tables(prog, all_diagonal(prog), dev)
+        if body is None:
+            data, lengths = bitband_batch(pattern, 128, 1024)
+        else:  # runs of 100 copies of (ab|c) and a d, one in three corrupted
+            data, lengths = edge_batch(rng, np, 128, 1024, b"abcd")
+            for i in range(8, 128):
+                runs_ = b"".join(b"".join(rng.choice([b"ab", b"c"], size=100 - (k % 3 == 2)))
+                                 + b"d" for k in range(int(rng.integers(1, 6))))[:1024]
+                data[i, : len(runs_)] = np.frombuffer(runs_, np.uint8)
+        check_bb_stats(tables, torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev),
+                       f"{pattern!r} every edge on a diagonal {tables.spec.diags}")
+    for W in BB_PLANTED:
+        tables = bitband_planted(W, rng, dev)
+        data, lengths = edge_batch(rng, np, 128, 512, BB_PLANTED_ALPHABET)
+        check_bb_stats(tables, torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev),
+                       f"hand-built W={W}")
+    prog = compile_program(CONFIG10)
+    acc32 = (rng.random((prog.s_pad, 32)) < 0.02).astype(np.uint8)
+    acc32[prog.n_states:] = 0
+    acc32[: prog.n_states, 0] = np.asarray(prog.accept)[: prog.n_states]
+    t32 = BB.device_bitband_tables(prog, BB.bitband_spec(prog), dev, acc32)
+    data, lengths = bitband_batch(CONFIG10, 128, 1024)
+    check_bb_stats(t32, torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev),
+                   "config 10, 32 accept channels")
+    if {16, 24, 32, 40, 56, 80, 96, 128} - {w for w, *_ in shapes}:
+        fail(f"bitband stats comparisons covered only W in {sorted(w for w, *_ in shapes)}")
     torch.cuda.synchronize()
     for name in BITBAND_KERNELS:
         if launches()[name] <= before[name]:
@@ -1635,7 +1766,10 @@ def main() -> int:
           f"{len(BITBAND_PATTERNS)} bitband programs ((W, diagonals, rank-1, gaps) "
           f"{sorted(shapes)}) through the five bitband kernels (stats seeded/unseeded/nullable, "
           f"flags seeded/unseeded, two accept channels, reverse, anchor lazy/longest, spans lazy "
-          f"and longest at caps 1, 2, 16 (cap 1 overflowed on {n_over} records), live records) "
+          f"and longest at caps 1, 2, 16 (cap 1 overflowed on {n_over} records), live records); "
+          f"rrx_bitband_stats (the register step) also on {len(shapes) - n_regs} more specs "
+          f"(NW = 3 and 4, every edge on a diagonal, hand-built at W = 32, 96 and 128) and 32 accept "
+          f"channels, seeded/unseeded x nullable and live "
           f"({time.perf_counter() - t0:.1f}s)")
 
     # the container kernels: every container program of the probe table on
@@ -4251,6 +4385,15 @@ def main() -> int:
                 f"{100.0 * resident * bb_tpb / (n_sm * max_threads):.1f}% of the resident-thread "
                 f"slots")
 
+    def bb_cycles(ms, ln):
+        """Warp-scheduler cycles a record-step: the time x the clock x 4
+        schedulers an SM / the record-steps (len + 2 a record)."""
+        return ms * 1e6 * CLOCK_GHZ * 4 * n_sm / int((ln.to(torch.int64).clamp(0, L) + 2).sum())
+
+    for kern in ("bb_stats_kernel", "bb_flags_kernel"):  # the register step; the old step
+        bb_spill = {n: b for n, b in spilled.items() if re.search(r"\d" + kern, n)}
+        print(f"phase 7: {kern}: registers {regs_of(kern)}; spill bytes "
+              f"{bb_spill or 'not reported'}")
     bb_ms = {}
     cap10 = 4
     for shape, d, ln in (("10 MB", g10, gl10), ("1 GiB", b10, bl10)):
@@ -4295,7 +4438,7 @@ def main() -> int:
             print(f"phase 7: {name} config 10 {shape} [{d.shape[0]} x {L}], every record: kernel "
                   f"{ms:.3f} ms = {d.shape[0] * L / ms / 1e6:.2f} GB/s, plain {plain_ms:.1f} ms on "
                   f"{n} records; bound {bnd[0]:.4f} ms by {bnd[1]} ({100 * bnd[0] / ms:.1f}% of "
-                  f"it) [{card}]")
+                  f"it); {bb_cycles(ms, ln):.1f} scheduler cycles a record-step [{card}]")
             print(f"  occupancy {name} ({shape}): {bb_occupancy(idx, d.shape[0])}; registers "
                   f"{regs_of(('bb_stats_kernel', 'bb_flags_kernel', 'bb_reverse_kernel', 'bb_anchor_kernel', 'bb_spans_kernel')[idx])}")
         # config 10's match_stats end to end (data on the card), split into
@@ -4318,6 +4461,9 @@ def main() -> int:
         k_ms = time_ms(lambda: BB.bitband_stats(d2, l2, tb10, **kw, live=live_c), warm=1, runs=5)
         f_ms = time_ms(lambda: BB.bitband_stats(d, ln, tb10, **kw, live=live_0), warm=1, runs=5)
         kb = bb_bound("stats", l2, L, rows=idx_c.numel())
+        print(f"  rrx_bitband_stats on the bucket ({shape}, {idx_c.numel()} candidates): "
+              f"{bb_cycles(k_ms, l2[: idx_c.numel()]):.1f} scheduler cycles a record-step; "
+              f"occupancy {bb_occupancy(0, idx_c.numel())} [{card}]")
         pb = bound(B_ * L + 4 * B_, 13 * B_, (B_ * L + 2 * B_) * 4 * pf10.device_scanner.tables.deltas.numel())
         bb_ms["e2e", shape] = (e2e, pre_ms, k_ms, f_ms, kb, pb, idx_c.numel())
         print(f"phase 7: ScanEngine.match_stats config 10 end to end, {shape} ({B_} records, "
@@ -4841,7 +4987,7 @@ def main() -> int:
               f"block {g1.block}, {W60} state words]: kernel {ms:.3f} ms = {NLw / ms / 1e6:.1f} GB/s, "
               f"plain {plain_ms:.1f} ms on 1 MiB; bound {bnd[0]:.4f} ms by {bnd[1]}; launches on "
               f"the path {wide_launches[name]} [{card}]")
-        band = name in ("rrx_long_wide_count", "rrx_long_wide_reverse")
+        band = name != "rrx_long_wide_carry"
         units = -(-g1.nw // (32 // tb60.band_lanes)) if band else g1.nw
         kname = name.replace("wide", "band") if band else name
         print(f"  occupancy {name}: {occupancy_wide(name, tb60, units)}; registers "
@@ -4855,13 +5001,23 @@ def main() -> int:
           f"{e2e_ch:.3f} (rrx_long_wide_count {ms_ch:.3f} on {gch.nw} windows x {gch.T} steps, "
           f"bound {long_bound('count', gch, state_words(lsc_c.prog))[0]:.4f}); PR 9's torch-op "
           f"LongScanner took ~1-2 s for K60 on 1 MiB [{card}]")
+    # FastLongScanner.flags (the path of ends_bitmap and of search past the
+    # count) end to end: rrx_long_wide_flags on the band step, then the flag
+    # words unpacked to [n + 2] bools on the card
+    fl_k60 = time_ms(lambda: lsc.flags(s60), warm=1, runs=5)
+    fl_ch = time_ms(lambda: lsc_c.flags(sch), warm=1, runs=5)
+    flk_ch = time_ms(lambda: P_.long_flags(sch, gch, lsc_c.tables, seeded=True), warm=1, runs=5)
+    print(f"phase 7: long-string flags end to end, 1 GiB on the card (ms): K60 {fl_k60:.3f} "
+          f"(rrx_long_wide_flags {long_wide_ms['rrx_long_wide_flags'][0]:.3f}), {CHAIN340} "
+          f"{fl_ch:.3f} (rrx_long_wide_flags {flk_ch:.3f}, its count {ms_ch:.3f}) [{card}]")
 
-    # the band step (count and reverse) against the Wide step on the same
-    # windows at 1 GiB: K60's windows (W = 16) with the default split (the
-    # diagonal +1, no residual) at 16 lanes a window (two windows a warp),
-    # at 32 lanes, and with every edge walked (max_diags=0), beside
-    # rrx_long_wide_flags (the Wide step: its time above, the count
-    # windows); x(ab|c){300,340}y's count windows (W = 32), its default
+    # the band step (flags, count and reverse) against the Wide step on the
+    # same windows at 1 GiB: K60's windows (W = 16) with the default split
+    # (the diagonal +1, no residual) at 16 lanes a window (two windows a
+    # warp), at 32 lanes, and with every edge walked (max_diags=0), beside
+    # rrx_long_wide_carry (the Wide step, whose walk flags ran before: its
+    # time above, the count windows); x(ab|c){300,340}y's count windows
+    # (W = 32, flags on the same windows, and the carry), its default
     # (every edge walked: 35% of the edges on its four diagonals) beside
     # the diagonals kept (max_diags=8), and x(ab|c){300,310}y (89%: kept)
     # on the same windows both ways; and the count of K60(ed|ing)? (75% on
@@ -4876,9 +5032,11 @@ def main() -> int:
 
     g60c, g60r = lsc._ov_geom(NLw), rev_geom(lsc, NLw)
     tbc = lsc_c.tables
-    band_ab = {("K60", "flags (Wide step)", "-"): (long_wide_ms["rrx_long_wide_flags"][0], g60c)}
-    band_ab[CHAIN340, "flags (Wide step)", "-"] = (
-        time_ms(lambda: P_.long_flags(sch, gch, tbc, seeded=True), warm=1, runs=5), gch)
+    band_ab = {("K60", "carry (Wide step)", "-"): (long_wide_ms["rrx_long_wide_carry"][0], g60c),
+               ("K60", "flags", "default"): (long_wide_ms["rrx_long_wide_flags"][0], g60c),
+               (CHAIN340, "flags", "default"): (flk_ch, gch)}
+    band_ab[CHAIN340, "carry (Wide step)", "-"] = (
+        time_ms(lambda: P_.long_carry(sch, gch, tbc, seeded=True), warm=1, runs=3), gch)
     tbp = P_.device_nfa_tables(compile_program(K60 + "(ed|ing)?"), dev)
     tb310 = P_.device_nfa_tables(compile_program("x(ab|c){300,310}y"), dev)
     for label, tbl, s_, gc, gr in (("K60", tb60, s60, g60c, g60r), (CHAIN340, tbc, sch, gch, None),
@@ -4903,7 +5061,8 @@ def main() -> int:
               f"{forms['default']:.3f} ms, the other split {other:.3f} ms: the default is "
               f"{'faster' if forms['default'] < other else 'SLOWER'} [{card}]")
     band_spill = {}
-    for kern in ("long_band_count_kernel", "long_band_reverse_kernel", "long_wide_flags_kernel"):
+    for kern in ("long_band_flags_kernel", "long_band_count_kernel", "long_band_reverse_kernel",
+                 "long_wide_carry_kernel"):
         band_spill[kern] = {n: b for n, b in spilled.items() if re.search(r"\d" + kern, n)}
         print(f"phase 7: {kern}: registers {regs_of(kern)}; spill bytes "
               f"{band_spill[kern] or 'not reported'}")
@@ -5091,7 +5250,7 @@ def main() -> int:
                      + ("; off the main path (the summary and speculative modes take narrow "
                         "tiles only), held in phase 2" if name == "rrx_long_wide_carry" else "")
                      + (f"; band step, diagonals {tb60.diags}, {tb60.band_lanes} lanes a window"
-                        if name in ("rrx_long_wide_count", "rrx_long_wide_reverse") else ""),
+                        if name != "rrx_long_wide_carry" else ""),
         })
     for name in STREAM_KERNELS:
         pat_k = CONFIG4 if name == "rrx_stream_first_end" else "cat|dog"

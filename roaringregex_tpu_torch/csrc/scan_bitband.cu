@@ -55,15 +55,21 @@
 //   into [R][cap] rows, -1 past cnt (cnt <= cap).
 //
 // Design, and what bounds it on this card:
-// - One warp per record. Lane l owns state words l, l+32, l+64, l+96; the
-//   kernels are templated on the words per lane, NW = ceil(W/32) <= 4, and
-//   pad every row to Wp = 32 NW words (zeros past W), so no lane tests its
-//   words against W. A cross-word shift needs words owned by other lanes,
-//   so each warp keeps its state words in a buffer of shared memory (and a
-//   second one for the triangle's prefix or suffix), Wp words between
-//   Wp + 1 zero words on each side: a shift by d states reads v[w + A] and
-//   v[w + A + 1] (A = floor(-d / 32)) with no bounds test and joins them
-//   with one funnel shift; the diagonals of one A share those two loads.
+// - One warp per record. The kernels are templated on the words per lane,
+//   NW = ceil(W/32) <= 4, and pad every row to Wp = 32 NW words (zeros past
+//   W), so no lane tests its words against W.
+// - stats runs the register step (RegStep, below): lane l holds the
+//   contiguous words l NW .. l NW + NW - 1, the diagonals' masks, the seed,
+//   exit and accept rows sit in registers, a shift is lane shuffles and a
+//   funnel shift, and no state goes through shared memory.
+// - flags, reverse, anchor end and spans run the shared-buffer step
+//   (expand): lane l owns state words l, l+32, l+64, l+96. A cross-word
+//   shift needs words owned by other lanes, so each warp keeps its state
+//   words in a buffer of shared memory (and a second one for the
+//   triangle's prefix or suffix), Wp words between Wp + 1 zero words on
+//   each side: a shift by d states reads v[w + A] and v[w + A + 1] (A =
+//   floor(-d / 32)) with no bounds test and joins them with one funnel
+//   shift; the diagonals of one A share those two loads.
 // - Rank-1 columns reduce with __any_sync; the triangle's prefix-OR is an
 //   in-word smear ((x | -x) << 1 forward; the set bits below the highest one
 //   in reverse) plus the carry from lower (higher) words, a __ballot_sync
@@ -74,11 +80,13 @@
 //   channel; lane c keeps channel c's bookkeeping (C <= 32).
 // - A step is a dependent chain of shared loads, funnel shifts, ANDs, ORs
 //   and warp votes (config 10: 16 diagonals, 2 triangle families over
-//   W = 56 words), so a pass is bound by integer and shared-memory issue.
-//   HBM carries one input byte per step (all lanes read the same 16-byte
-//   chunk) and 1 bit per step of flag or hit words.
-// - The walks are rolled loops (one copy of the step body per kernel),
-//   which keeps nvcc's time small.
+//   W = 56 words), so a pass is bound by integer and shared-memory issue
+//   (the register step: integer issue). HBM carries one input byte per step
+//   (all lanes read the same 16-byte chunk) and 1 bit per step of flag or
+//   hit words.
+// - The walks are rolled loops (one copy of the step body per kernel; the
+//   stats kernel's walk_chunks three: BOS, the byte loop, EOS), which keeps
+//   nvcc's time small.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -128,20 +136,22 @@ struct BB {
 // each side, so every shifted read lands inside them.
 __host__ __device__ constexpr int bb_buf_words(int Wp) { return 3 * Wp + 2; }
 
-inline size_t bb_smem_bytes(int W, int n_rows) {
+// The shared memory of a kernel: the tables, the meta header, the shifts
+// and, with `bufs` (every kernel but stats), each warp's two state buffers.
+inline size_t bb_smem_bytes(int W, int n_rows, bool bufs) {
   const int Wp = 32 * ((W + 31) / 32);
   return sizeof(uint32_t) * (static_cast<size_t>(n_rows) * Wp + kMetaLen + 2 * (kMaxDiags + kMaxFam)
-                             + 2 * kWarps * bb_buf_words(Wp));
+                             + (bufs ? 2 * kWarps * bb_buf_words(Wp) : 0));
 }
 
 // Copies the tables into shared memory, computes the shifts of the
-// diagonals and families (their sign flipped on the reverse pass) and
-// zeroes the state buffers. Every thread of a block that holds a record
-// calls it (it ends in __syncthreads) before any thread returns.
+// diagonals and families (their sign flipped on the reverse pass) and, with
+// `bufs`, zeroes the state buffers. Every thread of a block that holds a
+// record calls it (it ends in __syncthreads) before any thread returns.
 template <int NW>
 __device__ __forceinline__ BB load_bb(uint32_t* smem, const uint32_t* __restrict__ tab_g,
                                       const int32_t* __restrict__ meta_g, int W, int n_rows,
-                                      bool rev) {
+                                      bool rev, bool bufs = true) {
   constexpr int Wp = 32 * NW;
   uint32_t* tab = smem;
   int* meta = reinterpret_cast<int*>(smem + n_rows * Wp);
@@ -160,8 +170,9 @@ __device__ __forceinline__ BB load_bb(uint32_t* smem, const uint32_t* __restrict
     A[j] = (-d) >> 5;  // arithmetic shift: floor division
     A[n + j] = (-d) & 31;
   }
-  uint32_t* bufs = reinterpret_cast<uint32_t*>(shifts + 2 * (kMaxDiags + kMaxFam));
-  for (int i = threadIdx.x; i < 2 * kWarps * bb_buf_words(Wp); i += blockDim.x) bufs[i] = 0u;
+  uint32_t* buf = reinterpret_cast<uint32_t*>(shifts + 2 * (kMaxDiags + kMaxFam));
+  const int n_buf = bufs ? 2 * kWarps * bb_buf_words(Wp) : 0;
+  for (int i = threadIdx.x; i < n_buf; i += blockDim.x) buf[i] = 0u;
   __syncthreads();
   BB bb;
   bb.tab = tab;
@@ -442,11 +453,339 @@ __device__ int first_start(const int32_t* hits, int R, int r, int pos, int len, 
   const Row rec = record(data, stride, L, lengths, r);                                  \
   const int len = rec.len;
 
+// ---------------------------------------------------------------------------
+// The stats kernel's forward step (RegStep): the record's state in
+// registers, no shared state buffer, no __syncwarp
+//
+// Lane l holds the NW contiguous words l NW .. l NW + NW - 1 (the other
+// kernels' lane l holds the strided words l + 32 k). A shift by d states
+// sets word w to funnel_r(x[w + A], x[w + A + 1], s) (A = floor(-d / 32), s
+// = -d mod 32). With contiguous words, the words of a shift by A = -1 or
+// -2 (d in [1, 64]: every diagonal of config 10, offsets 1..40 at NW = 2)
+// or A = 0 (d in [-31, 0]) lie in the lane's own words and the previous
+// (or next) lane's: one shuffle a word, fetched once a step and shared by
+// every shift of that class, whose words are then a fixed choice among
+// them. With strided words a shift by one word already crosses from lane
+// 31 into the next word of lane 0 (two shuffles and a select a word for
+// each word offset). The table rows in shared memory keep their layout
+// (word w at w); a lane reads its NW words with one vector load (NW = 2, 4).
+//
+// Per step: the symbol's mask row is looked up and loaded first (its two
+// dependent shared loads overlap the shifts); v | gate * seed (the seed row
+// in registers); the diagonals of the classes A = -1 (from register slot 0
+// up) and A = -2 (from slot KD - 1 down) one funnel shift and one AND-OR a
+// word each, with their masks in registers (KD = kRegMaskWords / NW slots:
+// config 10's 16 diagonals at NW = 2 take all 16, 32 registers); any other
+// diagonal (another class, or past the slots) by shuffles of its own with
+// its mask from shared memory (no barrier: the tables do not change); the
+// rank-1 columns one __any_sync each; the triangle's exclusive prefix-OR
+// in-word with one __ballot_sync carry, its families shifted as the
+// diagonals (the classes A = -1 and A = 0 from the prefix's neighbour
+// words); the accept test with C = 1 one vote on the accept row in
+// registers. A step branches on no slot's shift: the shuffles of a class
+// run at the top of the step, since a shuffle inside a branch on a runtime
+// value costs a divergence check (BRA.DIV) and, where its lane is computed,
+// a dozen more instructions (PERF.md: a step that fetched each slot's
+// words under such a branch ran slower than the shared-buffer step). The
+// bytes come off 16-byte chunks in registers, the next chunk loaded one
+// chunk ahead (walk_chunks, scan_core.cuh).
+constexpr int kRegMaskWords = 32;  // diagonal mask words a lane keeps in registers
+constexpr int kRegSlots = 32;      // kRegMaskWords / NW at NW = 1
+
+// The register step's plan, built by the launcher from the spec's sorted
+// offsets (host arrays) and passed by value (warp-uniform, read from the
+// parameter bank): the first n1r diagonals of class A = -1 (rows row1 on)
+// sit in register slots 0 .. n1r - 1 with bit shifts s1, the first n2r of
+// A = -2 (rows row2 on) in slots KD - 1 down with s2; n_rest diagonals are
+// stepped apart (the rest of the two classes and every other offset). The
+// triangle's families of A = 0 (gaps in [-31, 0]) are rows [frow0, frow0 +
+// nf0) with shifts sf0, those of A = -1 rows [frow1, frow1 + nf1) with
+// sf1, nf_rest others.
+struct RegPlan {
+  int n1r, row1, n2r, row2, n_rest;
+  int s1[kRegSlots];
+  int s2[kRegSlots];
+  int nf0, frow0, nf1, frow1, nf_rest;
+  int sf0[kMaxFam];
+  int sf1[kMaxFam];
+};
+
+__device__ __forceinline__ int floor_div(int x, int m) {
+  return x >= 0 ? x / m : -((-x + m - 1) / m);
+}
+
+// x laundered through an empty asm in the step: a comparison with it is
+// then made in the step, not hoisted out of the step loop as one live
+// predicate per unrolled slot.
+template <class T>
+__device__ __forceinline__ T opaque(T x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// This lane's NW words of a padded table row.
+template <int NW>
+__device__ __forceinline__ void lane_words(const uint32_t* row, int lane, uint32_t (&x)[NW]) {
+  const uint32_t* p = row + lane * NW;
+  if constexpr (NW == 2) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    x[0] = q.x;
+    x[1] = q.y;
+  } else if constexpr (NW == 4) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) x[k] = p[k];
+  }
+}
+
+// The words of lane lane - by (by < 0: lane + |by|), zero past the warp's
+// ends. by is a compile-time constant, so every lane joins the shuffle.
+template <int NW, int by>
+__device__ __forceinline__ void lane_shift(const uint32_t (&x)[NW], int lane, uint32_t (&y)[NW]) {
+  const bool in = by > 0 ? lane >= by : lane < 32 + by;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const uint32_t t =
+        by > 0 ? __shfl_up_sync(kFull, x[k], by) : __shfl_down_sync(kFull, x[k], -by);
+    y[k] = in ? t : 0u;
+  }
+}
+
+// The NW + 1 words from word A of the lane's words x on, A a compile-time
+// -2 .. 0: from [pv2 (lane - 2), pv (lane - 1), x, nx (lane + 1)].
+template <int NW, int A>
+__device__ __forceinline__ void window(const uint32_t (&pv2)[NW], const uint32_t (&pv)[NW],
+                                       const uint32_t (&x)[NW], const uint32_t (&nx)[NW],
+                                       uint32_t (&p)[NW + 1]) {
+#pragma unroll
+  for (int j = 0; j <= NW; ++j) {
+    const int m = 2 * NW + A + j;
+    p[j] = m < NW ? pv2[m < NW ? m : 0]
+                  : m < 2 * NW ? pv[m < 2 * NW ? m - NW : 0]
+                               : m < 3 * NW ? x[m < 3 * NW ? m - 2 * NW : 0] : nx[m - 3 * NW];
+  }
+}
+
+// y |= funnel_r(p[k], p[k + 1], s) & mask[k] for this lane's words.
+template <int NW>
+__device__ __forceinline__ void shift_or(uint32_t (&y)[NW], const uint32_t (&p)[NW + 1], int s,
+                                         const uint32_t (&mask)[NW]) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) y[k] |= __funnelshift_r(p[k], p[k + 1], s) & mask[k];
+}
+
+// y |= x shifted by A words and s bits, & mask: any A, by shuffles of the
+// lanes lane + a and lane + a + 1 (a = floor(A / NW)) and a pick of the
+// words from o = A - a NW on. The rare path (a diagonal outside the
+// register classes).
+template <int NW>
+__device__ __forceinline__ void shift_any(uint32_t (&y)[NW], const uint32_t (&x)[NW], int A, int s,
+                                          const uint32_t (&mask)[NW], int lane) {
+  const int a = floor_div(A, NW), o = A - a * NW;
+  const int s0 = lane + a;
+  const bool in0 = s0 >= 0 && s0 < 32, in1 = s0 >= -1 && s0 < 31;
+  uint32_t c[2 * NW], p[NW + 1];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const uint32_t lo = __shfl_sync(kFull, x[k], s0 & 31);
+    const uint32_t hi = __shfl_sync(kFull, x[k], (s0 + 1) & 31);
+    c[k] = in0 ? lo : 0u;
+    c[NW + k] = in1 ? hi : 0u;
+  }
+#pragma unroll
+  for (int oo = 0; oo < NW; ++oo) {
+    if (o == oo) {
+#pragma unroll
+      for (int j = 0; j <= NW; ++j) p[j] = c[oo + j];
+    }
+  }
+  shift_or<NW>(y, p, s, mask);
+}
+
+// step_fwd on registers: v = expand(v | gate * seed) & mask[sym] over the
+// same tables, with no shared state buffer and no warp barrier.
+template <int NW>
+struct RegStep {
+  static constexpr int KD = kRegMaskWords / NW;  // diagonal slots with their masks in registers
+  static constexpr int Wp = 32 * NW;
+  int lane;
+  uint32_t dm[KD][NW];  // the diagonals' destination masks
+  uint32_t seed[NW], acc[NW], exits[NW], win[NW];  // win: the triangle's words
+
+  __device__ __forceinline__ void init(const BB& b, const RegPlan& pl, int ln) {
+    lane = ln;
+#pragma unroll
+    for (int j = 0; j < KD; ++j) {
+      const int row = j < pl.n1r ? pl.row1 + j : (j >= KD - pl.n2r ? pl.row2 + KD - 1 - j : -1);
+      if (row >= 0) {
+        lane_words<NW>(b.row(b.r_diag + row), lane, dm[j]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < NW; ++k) dm[j][k] = 0u;
+      }
+    }
+    lane_words<NW>(b.row(2), lane, seed);
+    lane_words<NW>(b.row(b.r_acc), lane, acc);
+    lane_words<NW>(b.row(b.r_tri), lane, exits);  // a row past the accept rows when nf = 0
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      const int w = lane * NW + k;
+      win[k] = w >= b.lo && w < b.hi ? kFull : 0u;
+      if (b.nf == 0) exits[k] = 0u;
+    }
+  }
+
+  __device__ __forceinline__ void step(const BB& b, const RegPlan& pl, uint32_t (&v)[NW],
+                                       bool gate, int sym) const {
+    const int mr = b.meta[kMetaSyms + sym];
+    uint32_t m[NW];
+    lane_words<NW>(b.row(max(mr, 0)), lane, m);
+    const uint32_t live = mr >= 0 ? kFull : 0u;
+    uint32_t u[NW], y0[NW], y1[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      u[k] = v[k] | (gate ? seed[k] : 0u);
+      y0[k] = 0u;
+      y1[k] = 0u;
+    }
+    // the diagonals of A = -1 and A = -2, two OR chains
+    uint32_t pv[NW], pv2[NW], p[NW + 1];
+    lane_shift<NW, 1>(u, lane, pv);
+    if constexpr (NW == 1) {
+      lane_shift<NW, 2>(u, lane, pv2);
+    } else {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) pv2[k] = 0u;  // A = -2 lies in pv and u
+    }
+    window<NW, -1>(pv2, pv, u, u, p);
+    const int n1r = opaque(pl.n1r);
+#pragma unroll
+    for (int j = 0; j < KD; ++j) {
+      if (j >= n1r) break;
+      shift_or<NW>((j & 1) ? y1 : y0, p, pl.s1[j], dm[j]);
+    }
+    window<NW, -2>(pv2, pv, u, u, p);
+    const int n2r = opaque(pl.n2r);
+#pragma unroll
+    for (int j = 0; j < KD; ++j) {
+      if (j >= n2r) break;
+      shift_or<NW>((j & 1) ? y0 : y1, p, pl.s2[j], dm[KD - 1 - j]);
+    }
+    // every other diagonal: its shift and mask from shared memory
+    if (opaque(pl.n_rest) > 0) {
+      for (int i = 0; i < b.nd; ++i) {
+        if ((i >= pl.row1 && i < pl.row1 + pl.n1r) || (i >= pl.row2 && i < pl.row2 + pl.n2r)) {
+          continue;
+        }
+        uint32_t mk[NW];
+        lane_words<NW>(b.row(b.r_diag + i), lane, mk);
+        shift_any<NW>(y0, u, b.dA[i], b.dS[i], mk, lane);
+      }
+    }
+    // rank-1 columns: column col's bit = any source of its row in u
+    for (int i = 0; i < b.n1; ++i) {
+      const int col = b.meta[kMetaRank1 + i];
+      uint32_t rm[NW];
+      lane_words<NW>(b.row(b.r_rank1 + i), lane, rm);
+      uint32_t t = 0u;
+#pragma unroll
+      for (int k = 0; k < NW; ++k) t |= u[k] & rm[k];
+      if (__any_sync(kFull, t != 0u)) {
+#pragma unroll
+        for (int k = 0; k < NW; ++k) {
+          if (lane * NW + k == (col >> 5)) y0[k] |= 1u << (col & 31);
+        }
+      }
+    }
+    // the triangle: P = exclusive prefix-OR of u & E inside the window
+    // [lo, hi) (zero outside it); target p gets any exit q < p - g
+    if (b.nf > 0) {
+      uint32_t x[NW], pre[NW];
+      bool any = false;
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        x[k] = u[k] & exits[k];
+        any = any || x[k] != 0u;
+      }
+      bool below = (__ballot_sync(kFull, any) & ((1u << lane) - 1u)) != 0u;
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        pre[k] = (((x[k] | (0u - x[k])) << 1) | (below ? kFull : 0u)) & win[k];
+        below = below || x[k] != 0u;
+      }
+      uint32_t ppv[NW], pnx[NW], tg[NW];
+      lane_shift<NW, 1>(pre, lane, ppv);
+      lane_shift<NW, -1>(pre, lane, pnx);
+      const uint32_t* trows = b.row(b.r_tri + 1);
+      window<NW, 0>(ppv, ppv, pre, pnx, p);  // gaps in [-31, 0]
+      const int nf0 = opaque(pl.nf0);
+#pragma unroll
+      for (int f = 0; f < kMaxFam; ++f) {
+        if (f >= nf0) break;
+        lane_words<NW>(trows + (pl.frow0 + f) * Wp, lane, tg);
+        shift_or<NW>(y1, p, pl.sf0[f], tg);
+      }
+      window<NW, -1>(ppv, ppv, pre, pnx, p);  // gaps in [1, 32]
+      const int nf1 = opaque(pl.nf1);
+#pragma unroll
+      for (int f = 0; f < kMaxFam; ++f) {
+        if (f >= nf1) break;
+        lane_words<NW>(trows + (pl.frow1 + f) * Wp, lane, tg);
+        shift_or<NW>((f & 1) ? y0 : y1, p, pl.sf1[f], tg);
+      }
+      if (opaque(pl.nf_rest) > 0) {
+        for (int f = 0; f < b.nf; ++f) {
+          if ((f >= pl.frow0 && f < pl.frow0 + pl.nf0) ||
+              (f >= pl.frow1 && f < pl.frow1 + pl.nf1)) {
+            continue;
+          }
+          lane_words<NW>(trows + f * Wp, lane, tg);
+          shift_any<NW>(y1, pre, b.fA[f], b.fS[f], tg, lane);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NW; ++k) v[k] = (y0[k] | y1[k]) & m[k] & live;
+  }
+
+  // v meets the accept row of channel c (the same on every lane)
+  __device__ __forceinline__ bool accepts(const BB& b, const uint32_t (&v)[NW], int c) const {
+    uint32_t a[NW];
+    if (c == 0) {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) a[k] = acc[k];
+    } else {
+      lane_words<NW>(b.row(b.r_acc + c), lane, a);
+    }
+    uint32_t t = 0u;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) t |= v[k] & a[k];
+    return __any_sync(kFull, t != 0u) != 0;
+  }
+};
+
 template <int NW>
 __global__ void __launch_bounds__(kBbThreads)
     bb_stats_kernel(RRX_BB_PARAMS, int C, int seeded, int nullable, int32_t* cnt_o,
-                    int32_t* first_o, int32_t* last_o, uint8_t* full_o) {
-  RRX_BB_SETUP(false)
+                    int32_t* first_o, int32_t* last_o, uint8_t* full_o, const RegPlan plan) {
+  extern __shared__ uint32_t smem[];
+  // a block wholly past R or live skips the table load (uniform across the
+  // block, so before load_bb's barrier)
+  const int r0 = static_cast<int>(blockIdx.x) * kWarps;
+  if (r0 >= R || (live != nullptr && r0 >= *live)) return;
+  const BB bb = load_bb<NW>(smem, tab_g, meta_g, W, n_rows, false, false);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = r0 + warp;
+  if (r >= R || (live != nullptr && r >= *live)) return;
+  const Row rec = record(data, stride, L, lengths, r);
+  const int len = rec.len;
+  RegStep<NW> st;
+  st.init(bb, plan, lane);
   int cnt, first, last, full;
   if (nullable) {
     cnt = seeded ? len + 1 : 1;
@@ -462,12 +801,17 @@ __global__ void __launch_bounds__(kBbThreads)
   uint32_t v[NW];
 #pragma unroll
   for (int k = 0; k < NW; ++k) v[k] = 0;
-  walk_steps(rec.row, len, [&](int t, int sym) {
-    step_fwd<NW>(bb, vs, ps, v, seeded || t < 2, sym, lane);
-    bool fl = false;
-    for (int c = 0; c < C; ++c) {
-      const bool a = any_row<NW>(bb, v, bb.r_acc + c, lane);
-      if (c == lane) fl = a;
+  walk_chunks(rec.row, len, [&](int t, int sym) {
+    st.step(bb, plan, v, seeded || t < 2, sym);
+    bool fl;
+    if (C == 1) {
+      fl = st.accepts(bb, v, 0);
+    } else {
+      fl = false;
+      for (int c = 0; c < C; ++c) {
+        const bool a = st.accepts(bb, v, c);
+        if (c == lane) fl = a;
+      }
     }
     const int e = min(t, len);
     if (!(nullable && seeded)) cnt += (fl && e != last) ? 1 : 0;
@@ -610,10 +954,58 @@ int check_bb(const void* data, long long stride, int L, int R, int W, int n_rows
   return check_rows(data, stride, L, R);
 }
 
+// The register step's plan (RegPlan) of nd diagonal offsets and nf triangle
+// gaps (host arrays, ascending: the spec's diags and tri_gaps, the meta
+// header's) at NW words a lane.
+int reg_plan(int NW, int nd, const int* diags, int nf, const int* gaps, RegPlan* pl) {
+  if (nd < 0 || nd > kMaxDiags || nf < 0 || nf > kMaxFam || (nd > 0 && diags == nullptr) ||
+      (nf > 0 && gaps == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int i = 0; i < nd + nf; ++i) {
+    const bool diag = i < nd;
+    const int* x = diag ? diags : gaps;
+    const int j = diag ? i : i - nd;
+    if (x[j] <= -32 * kMaxWords || x[j] >= 32 * kMaxWords || (j > 0 && x[j - 1] >= x[j])) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  *pl = RegPlan{};
+  const int KD = kRegMaskWords / NW;
+  int b1 = 0;  // the rows of each class: [b1, b2) d in [1, 32], [b2, b3) d in [33, 64]
+  while (b1 < nd && diags[b1] < 1) ++b1;
+  int b2 = b1;
+  while (b2 < nd && diags[b2] <= 32) ++b2;
+  int b3 = b2;
+  while (b3 < nd && diags[b3] <= 64) ++b3;
+  pl->row1 = b1;
+  pl->n1r = min(b2 - b1, KD);
+  pl->row2 = b2;
+  pl->n2r = min(b3 - b2, KD - pl->n1r);
+  pl->n_rest = nd - pl->n1r - pl->n2r;
+  for (int j = 0; j < pl->n1r; ++j) pl->s1[j] = (-diags[b1 + j]) & 31;
+  for (int j = 0; j < pl->n2r; ++j) pl->s2[j] = (-diags[b2 + j]) & 31;
+  int c0 = 0;  // the families: [c0, c1) g in [-31, 0], [c1, c2) g in [1, 32]
+  while (c0 < nf && gaps[c0] < -31) ++c0;
+  int c1 = c0;
+  while (c1 < nf && gaps[c1] <= 0) ++c1;
+  int c2 = c1;
+  while (c2 < nf && gaps[c2] <= 32) ++c2;
+  pl->frow0 = c0;
+  pl->nf0 = c1 - c0;
+  pl->frow1 = c1;
+  pl->nf1 = c2 - c1;
+  pl->nf_rest = nf - pl->nf0 - pl->nf1;
+  for (int f = 0; f < pl->nf0; ++f) pl->sf0[f] = (-gaps[c0 + f]) & 31;
+  for (int f = 0; f < pl->nf1; ++f) pl->sf1[f] = (-gaps[c1 + f]) & 31;
+  return 0;
+}
+
+// `bufs`: the kernel's warps have state buffers (every kernel but stats).
 template <class K, class... Args>
-int launch_bb(K kernel, int R, int W, int n_rows, void* stream, Args... args) {
+int launch_bb(K kernel, int R, int W, int n_rows, bool bufs, void* stream, Args... args) {
   if (R == 0) return 0;
-  const size_t smem = bb_smem_bytes(W, n_rows);
+  const size_t smem = bb_smem_bytes(W, n_rows, bufs);
   const int e = allow_smem(kernel, smem);
   if (e != 0) return e;
   const int blocks = (R + kWarps - 1) / kWarps;
@@ -622,8 +1014,8 @@ int launch_bb(K kernel, int R, int W, int n_rows, void* stream, Args... args) {
 }
 
 template <class K>
-int occupancy_bb(K kernel, int W, int n_rows, int* blocks_per_sm) {
-  const size_t smem = bb_smem_bytes(W, n_rows);
+int occupancy_bb(K kernel, int W, int n_rows, bool bufs, int* blocks_per_sm) {
+  const size_t smem = bb_smem_bytes(W, n_rows, bufs);
   const int e = allow_smem(kernel, smem);
   if (e != 0) return e;
   return static_cast<int>(
@@ -648,17 +1040,23 @@ extern "C" {
 // outputs unwritten (the prefilter's compacted and full passes).
 //
 // tab: the forward table [n_rows][W] (ops/scan_bitband.BitbandTables.tab_f);
-// cnt, first, last: [R][C] int32; full: [R][C] uint8
+// cnt, first, last: [R][C] int32; full: [R][C] uint8; then the nd diagonal
+// offsets and nf triangle gaps of the table's spec (host int arrays, as in
+// meta) for the register step's plan
 int rrx_bitband_stats(RRX_BB_HEAD, int C, int seeded, int nullable, void* cnt, void* first,
-                      void* last, void* full, void* stream) {
-  const int bad = check_bb(data, stride, L, R, W, n_rows, C);
+                      void* last, void* full, int nd, const int* diags, int nf, const int* gaps,
+                      void* stream) {
+  int bad = check_bb(data, stride, L, R, W, n_rows, C);
+  if (bad == 0 && C < 1) bad = static_cast<int>(cudaErrorInvalidValue);
   if (bad != 0) return bad;
-  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
-    return launch_bb(bb_stats_kernel<NW>, R, W, n_rows, stream, RRX_BB_ARGS, C, seeded,
+    RegPlan plan;
+    const int e = reg_plan(NW, nd, diags, nf, gaps, &plan);
+    if (e != 0) return e;
+    return launch_bb(bb_stats_kernel<NW>, R, W, n_rows, false, stream, RRX_BB_ARGS, C, seeded,
                      nullable, static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
-                     static_cast<int32_t*>(last), static_cast<uint8_t*>(full));
+                     static_cast<int32_t*>(last), static_cast<uint8_t*>(full), plan);
   });
 }
 
@@ -669,7 +1067,7 @@ int rrx_bitband_flags(RRX_BB_HEAD, int C, int seeded, void* words, void* stream)
   if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
-    return launch_bb(bb_flags_kernel<NW>, R, W, n_rows, stream, RRX_BB_ARGS, C, seeded,
+    return launch_bb(bb_flags_kernel<NW>, R, W, n_rows, true, stream, RRX_BB_ARGS, C, seeded,
                      static_cast<uint32_t*>(words));
   });
 }
@@ -680,7 +1078,7 @@ int rrx_bitband_reverse(RRX_BB_HEAD, void* hits, void* stream) {
   if (bad != 0) return bad;
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
-    return launch_bb(bb_reverse_kernel<NW>, R, W, n_rows, stream, RRX_BB_ARGS,
+    return launch_bb(bb_reverse_kernel<NW>, R, W, n_rows, true, stream, RRX_BB_ARGS,
                      static_cast<uint32_t*>(hits));
   });
 }
@@ -692,7 +1090,7 @@ int rrx_bitband_anchor_end(RRX_BB_HEAD, const void* starts, int longest, void* e
   if (bad != 0) return bad;
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
-    return launch_bb(bb_anchor_kernel<NW>, R, W, n_rows, stream, RRX_BB_ARGS,
+    return launch_bb(bb_anchor_kernel<NW>, R, W, n_rows, true, stream, RRX_BB_ARGS,
                      static_cast<const int32_t*>(starts), longest, static_cast<int32_t*>(end));
   });
 }
@@ -706,7 +1104,7 @@ int rrx_bitband_spans(RRX_BB_HEAD, const void* hits, int cap, int longest, void*
   if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
-    return launch_bb(bb_spans_kernel<NW>, R, W, n_rows, stream, RRX_BB_ARGS,
+    return launch_bb(bb_spans_kernel<NW>, R, W, n_rows, true, stream, RRX_BB_ARGS,
                      static_cast<const int32_t*>(hits), cap, longest,
                      static_cast<int32_t*>(starts), static_cast<int32_t*>(ends),
                      static_cast<int32_t*>(cnt), static_cast<uint8_t*>(over));
@@ -721,15 +1119,15 @@ int rrx_bitband_occupancy(int kernel, int W, int n_rows, int* blocks_per_sm) {
     constexpr int NW = decltype(nw)::value;
     switch (kernel) {
       case 0:
-        return occupancy_bb(bb_stats_kernel<NW>, W, n_rows, blocks_per_sm);
+        return occupancy_bb(bb_stats_kernel<NW>, W, n_rows, false, blocks_per_sm);
       case 1:
-        return occupancy_bb(bb_flags_kernel<NW>, W, n_rows, blocks_per_sm);
+        return occupancy_bb(bb_flags_kernel<NW>, W, n_rows, true, blocks_per_sm);
       case 2:
-        return occupancy_bb(bb_reverse_kernel<NW>, W, n_rows, blocks_per_sm);
+        return occupancy_bb(bb_reverse_kernel<NW>, W, n_rows, true, blocks_per_sm);
       case 3:
-        return occupancy_bb(bb_anchor_kernel<NW>, W, n_rows, blocks_per_sm);
+        return occupancy_bb(bb_anchor_kernel<NW>, W, n_rows, true, blocks_per_sm);
       case 4:
-        return occupancy_bb(bb_spans_kernel<NW>, W, n_rows, blocks_per_sm);
+        return occupancy_bb(bb_spans_kernel<NW>, W, n_rows, true, blocks_per_sm);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -169,6 +169,40 @@ __device__ __forceinline__ void walk_steps(const uint4* row, int len, F&& f) {
   }
 }
 
+// f(t0 + b, byte b of q) for b = 0 .. n - 1: each byte taken off the bottom
+// of the 16-byte chunk in registers (a rolled loop: the callers' steps are
+// long).
+template <class F>
+__device__ __forceinline__ void chunk_up(uint4 q, int t0, int n, F&& f) {
+#pragma unroll 1
+  for (int b = 0; b < n; ++b) {
+    const int sym = static_cast<int>(q.x & 0xFFu);
+    q.x = __funnelshift_r(q.x, q.y, 8);
+    q.y = __funnelshift_r(q.y, q.z, 8);
+    q.z = __funnelshift_r(q.z, q.w, 8);
+    q.w >>= 8;
+    f(t0 + b, sym);
+  }
+}
+
+// walk_steps with the next chunk's load issued a chunk ahead (the last
+// chunk is loaded again at the end: no read past the row), each chunk's
+// bytes through chunk_up: three copies of the step (BOS, the bytes, EOS)
+// where walk_steps has one.
+template <class F>
+__device__ __forceinline__ void walk_chunks(const uint4* row, int len, F&& f) {
+  f(0, kBos);
+  const int nc = (len + 15) >> 4;
+  uint4 nq = nc > 0 ? __ldg(row) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll 1
+  for (int c = 0; c < nc; ++c) {
+    const uint4 q = nq;
+    nq = __ldg(row + min(c + 1, nc - 1));
+    chunk_up(q, 1 + 16 * c, min(16, len - 16 * c), f);
+  }
+  f(len + 1, kEos);
+}
+
 // walk_steps backwards: t = len+1 .. 0.
 template <class F>
 __device__ __forceinline__ void walk_steps_rev(const uint4* row, int len, F&& f) {

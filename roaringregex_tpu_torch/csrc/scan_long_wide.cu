@@ -21,13 +21,15 @@
 // them; owned steps [lead, lead + block), block a multiple of 32, their
 // flag and hit bits at bit g of one flat bit array) and the same arguments.
 //
-// Design: carry and flags run one warp per window on the Wide step of
-// scan_nfa_wide.cuh (lane l holds state word l; one direction's rows, the
-// mask rows and the accept row in shared memory), whose cost follows the
-// live states: each is a serial chain of __ffs, an address and a dependent
-// shared load through the warp (PERF.md: cycles a window-step).
-// Count and reverse, the path of Pattern.long's count_ends, search, starts
-// bitmap and finditer_long, run the Band step instead: the follow matrix's
+// Design: carry (off the default path: only the summary and speculative
+// modes carry, and they take narrow tiles) runs one warp per window on the
+// Wide step of scan_nfa_wide.cuh (lane l holds state word l; one
+// direction's rows, the mask rows and the accept row in shared memory),
+// whose cost follows the live states: each is a serial chain of __ffs, an
+// address and a dependent shared load through the warp (PERF.md: cycles a
+// window-step). Flags, count and reverse, the path of Pattern.long's
+// count_ends, search, both bitmaps and finditer_long, run the Band step
+// instead: the follow matrix's
 // kept diagonals (scan_pallas.band_split: all of a keyword list's edges but
 // the seed row's are on d = +1) move the whole state set by lane shuffles
 // and a funnel shift, a few instructions a diagonal whatever is live; only
@@ -104,29 +106,6 @@ long_wide_carry_kernel(LONG_WIDE_HEAD, const uint32_t* __restrict__ v0,
   }
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-long_wide_flags_kernel(LONG_WIDE_HEAD, const uint32_t* __restrict__ v0,
-                       const uint8_t* __restrict__ gate, int seeded,
-                       uint32_t* __restrict__ flags) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const Wide k = load_wide(smem, tab_g, S, W, 1, false);
-  const int hi = min(T, lead + block);
-  LONG_WIDE_WINDOWS {
-    Window win = window(data, n, block, lead, T, rep, w);
-    uint32_t* out = flags + static_cast<size_t>(w / rep) * (block >> 5);  // bit g of the array
-    uint32_t word = 0u;
-    walk_window(k, win, S, v0, gate, seeded, w, [&](int t, uint32_t v) {
-      if (t < lead || t >= hi) return;
-      const int j = t - lead;
-      word |= (k.accepts(v) ? 1u : 0u) << (j & 31);
-      if ((j & 31) == 31 || t == hi - 1) {
-        if (lane == 0) out[j >> 5] = word;
-        word = 0u;
-      }
-    });
-  }
-}
-
 // The windows of one warp on the band step: G = 32 lanes a window, or G =
 // 16 and two windows a warp (window 2 p + half). A half past the last window
 // steps window nw - 1 with its group and writes nothing (act false).
@@ -170,17 +149,9 @@ __device__ __forceinline__ void steps_up(Window& win, F&& f) {
   uint4 nq = c0 < c1 ? chunk_at(win, c0) : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll 1
   for (; t < c1; t += 16) {
-    uint4 q = nq;
+    const uint4 q = nq;
     nq = chunk_at(win, min(t + 16, c1 - 16));
-#pragma unroll 1
-    for (int b = 0; b < 16; ++b) {
-      const int sym = static_cast<int>(q.x & 0xFFu);
-      q.x = __funnelshift_r(q.x, q.y, 8);
-      q.y = __funnelshift_r(q.y, q.z, 8);
-      q.z = __funnelshift_r(q.z, q.w, 8);
-      q.w >>= 8;
-      f(t + b, sym);
-    }
+    chunk_up(q, t, 16, f);
   }
 #pragma unroll 1
   for (; t < win.T; ++t) f(t, win.sym(t));
@@ -269,6 +240,35 @@ long_band_count_kernel(LONG_WIDE_HEAD, const uint32_t* __restrict__ v0,
       tail_o[w] = tail ? 1 : 0;
     }
     if (vout != nullptr && k.on) vout[static_cast<size_t>(w) * W + k.j] = v;
+  }
+}
+
+// Lane 0 of the window's lane group writes each owned 32-step flag word
+// when it closes: the owned step j = t - lead's flag is shifted in at the
+// top, so after the word's 32 steps it sits at bit j & 31 (T = lead +
+// block, a multiple of 32: every step from lead on is owned, and the last
+// closes the last word).
+template <int G>
+__global__ void __launch_bounds__(kWideThreads)
+long_band_flags_kernel(LONG_WIDE_HEAD, const uint32_t* __restrict__ v0,
+                       const uint8_t* __restrict__ gate, int seeded,
+                       uint32_t* __restrict__ flags, const uint32_t* __restrict__ band_g,
+                       const Diags dg) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Band<G> k = load_band<G>(smem, tab_g, band_g, dg, S, W, false);
+  BAND_WINDOWS(G) {
+    const int w0 = p * (32 / G) + k.half;
+    const bool act = w0 < nw;
+    const int w = act ? w0 : nw - 1;
+    Window win = window(data, n, block, lead, T, rep, w);
+    uint32_t* out = flags + static_cast<size_t>(w / rep) * (block >> 5);  // bit g of the array
+    uint32_t word = 0u;
+    walk_band(k, dg, win, S, v0, gate, seeded, w, [&](int t, uint32_t vv) {
+      if (t < lead) return;  // the same t on every lane: accepts is a vote
+      word = __funnelshift_r(word, k.accepts(vv) ? 1u : 0u, 1);
+      const int j = t - lead;
+      if ((j & 31) == 31 && act && k.j == 0) out[j >> 5] = word;
+    });
   }
 }
 
@@ -368,22 +368,32 @@ int rrx_long_wide_carry(RRX_LONG_HEAD, const void* v0, const void* gate, int see
                      static_cast<const uint8_t*>(gate), seeded, static_cast<uint32_t*>(vout));
 }
 
+// The band kernels (flags, count and reverse) also take the tile's band
+// table (scan_pallas.band_table), its nd offsets (a host array) and the
+// lanes a window: 32, or 16 (two windows a warp; W <= 16).
+//
 // flags: flat bit array over the windows' owned steps, bit g of word g / 32
 // (nw / rep * block / 32 words)
 int rrx_long_wide_flags(RRX_LONG_HEAD, const void* v0, const void* gate, int seeded, void* flags,
-                        void* stream) {
-  const int bad = check_long_wide(data, n, nw, block, lead, T, rep, s_tile);
+                        const void* band, int nd, const int* offsets, int lanes, void* stream) {
+  Diags dg;
+  int bad = check_long_band(data, n, nw, block, lead, T, rep, s_tile, band, lanes);
+  if (bad == 0 && T != lead + block) bad = static_cast<int>(cudaErrorInvalidValue);
+  if (bad == 0) bad = band_diags(nd, offsets, false, s_tile, &dg);
   if (bad != 0) return bad;
-  if (T != lead + block) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_wide(long_wide_flags_kernel, nw, long_wide_smem(s_tile), stream,
-                     RRX_LONG_WIDE_ARGS, static_cast<const uint32_t*>(v0),
-                     static_cast<const uint8_t*>(gate), seeded, static_cast<uint32_t*>(flags));
+  const auto* b = static_cast<const uint32_t*>(band);
+  const auto* v = static_cast<const uint32_t*>(v0);
+  const auto* g = static_cast<const uint8_t*>(gate);
+  auto* f = static_cast<uint32_t*>(flags);
+  const size_t smem = long_wide_smem(s_tile);
+  if (lanes == 16) {
+    return launch_wide(long_band_flags_kernel<16>, (nw + 1) / 2, smem, stream,
+                       RRX_LONG_WIDE_ARGS, v, g, seeded, f, b, dg);
+  }
+  return launch_wide(long_band_flags_kernel<32>, nw, smem, stream, RRX_LONG_WIDE_ARGS, v, g,
+                     seeded, f, b, dg);
 }
 
-// The band kernels (count and reverse) also take the tile's band table
-// (scan_pallas.band_table), its nd offsets (a host array) and the lanes a
-// window: 32, or 16 (two windows a warp; W <= 16).
-//
 // cnt: [nw] int32; tail: [nw] uint8; vout: [nw][W] uint32 or null
 int rrx_long_wide_count(RRX_LONG_HEAD, const void* v0, const void* gate, int seeded, void* cnt,
                         void* tail, void* vout, const void* band, int nd, const int* offsets,
@@ -428,8 +438,9 @@ int rrx_long_wide_reverse(RRX_LONG_HEAD, void* hits, const void* band, int nd,
 
 // Resident blocks per SM (theoretical occupancy) of a wide window kernel for
 // a tile of s_tile states, by index: 0 carry, 1 flags, 2 count, 3 reverse
-// (rrx_occupancy's order for the long kernels; count and reverse at 16
-// lanes a window for W <= 16), 4 count and 5 reverse at 32 lanes a window.
+// (rrx_occupancy's order for the long kernels; flags, count and reverse at
+// 16 lanes a window for W <= 16), 4 count and 5 reverse at 32 lanes a
+// window.
 int rrx_long_wide_occupancy(int kernel, int s_tile, int* blocks_per_sm) {
   if (s_tile < kMinTile || s_tile > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = long_wide_smem(s_tile);
@@ -438,7 +449,8 @@ int rrx_long_wide_occupancy(int kernel, int s_tile, int* blocks_per_sm) {
     case 0:
       return occupancy_wide(long_wide_carry_kernel, smem, blocks_per_sm);
     case 1:
-      return occupancy_wide(long_wide_flags_kernel, smem, blocks_per_sm);
+      return halves ? occupancy_wide(long_band_flags_kernel<16>, smem, blocks_per_sm)
+                    : occupancy_wide(long_band_flags_kernel<32>, smem, blocks_per_sm);
     case 2:
       return halves ? occupancy_wide(long_band_count_kernel<16>, smem, blocks_per_sm)
                     : occupancy_wide(long_band_count_kernel<32>, smem, blocks_per_sm);

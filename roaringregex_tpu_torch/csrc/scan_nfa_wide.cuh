@@ -1,7 +1,7 @@
 // The warp steps of the matmul tier at record tiles of 257..1024 states
 // (W = ceil(s_tile/32) = 12..32 state words). Wide is shared by
-// scan_nfa_wide.cu (one warp per record), scan_long_wide.cu's carry and flags
-// (one warp per window of one long string) and scan_stream.cu (one warp per
+// scan_nfa_wide.cu (one warp per record), scan_long_wide.cu's carry (one
+// warp per window of one long string) and scan_stream.cu (one warp per
 // record fed a mask stream, each lane its word of the step's mask row): lane
 // l holds state word l, lanes >= W hold zero and join every vote; the live
 // states are walked warp-uniformly (a ballot of the live words, a
@@ -9,8 +9,8 @@
 // mask AND; the accept test is one __any_sync. Shared memory holds one
 // direction's rows (follow or pred), the mask rows and the accept rows of
 // the table of scan_pallas.nfa_tables. Band (below) is the step of
-// scan_long_wide.cu's count and reverse: the diagonals of the follow matrix
-// as lane shifts, only the other edges walked. The launchers run persistent
+// scan_long_wide.cu's flags, count and reverse: the diagonals of the follow
+// matrix as lane shifts, only the other edges walked. The launchers run persistent
 // blocks of kWideWarps warps (no more blocks than are resident at once).
 #pragma once
 
@@ -131,8 +131,8 @@ __device__ __forceinline__ Wide load_wide(uint32_t* smem, const uint32_t* __rest
   return k;
 }
 
-// The band step (scan_long_wide.cu's count and reverse). The tile's follow
-// matrix is split (scan_pallas.band_split) into at most kMaxDiags kept
+// The band step (scan_long_wide.cu's flags, count and reverse). The tile's
+// follow matrix is split (scan_pallas.band_split) into at most kMaxDiags kept
 // diagonals, edges s -> s + d for the s of a source mask D_d, and a residual.
 // A diagonal is a shift of the whole state set: a warp moves its words d / 32
 // lanes with two shuffles and d % 32 bits with a funnel shift, whatever the

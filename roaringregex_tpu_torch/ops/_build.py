@@ -95,7 +95,9 @@ ARGTYPES = {
     "rrx_long_count": _LONG_HEAD + [_P, _P, _I, _P, _P, _P, _P],  # cnt, tail, vout
     "rrx_long_reverse": _LONG_HEAD + [_P, _P],  # hits
     # the bitband tier (scan_bitband.cu): its own rrx_bitband_occupancy index
-    "rrx_bitband_stats": _BB_HEAD + [_I, _I, _I, _P, _P, _P, _P, _P],  # C, seeded, nullable, ...
+    # C, seeded, nullable, cnt, first, last, full, then the spec's diagonal
+    # offsets and triangle gaps (counts and host int arrays)
+    "rrx_bitband_stats": _BB_HEAD + [_I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
     "rrx_bitband_flags": _BB_HEAD + [_I, _I, _P, _P],  # C, seeded, words
     "rrx_bitband_reverse": _BB_HEAD + [_P, _P],  # hits
     "rrx_bitband_anchor_end": _BB_HEAD + [_P, _I, _P, _P],  # starts, longest, end
@@ -128,9 +130,10 @@ ARGTYPES = {
     # (scan_long_wide.cu): the arguments of the rrx_long_* kernels, in
     # rrx_long_wide_occupancy's order
     "rrx_long_wide_carry": _LONG_HEAD + [_P, _P, _I, _P, _P],  # vout
-    "rrx_long_wide_flags": _LONG_HEAD + [_P, _P, _I, _P, _P],  # flags
-    # count and reverse (the band step) then take the band table, the number
-    # of its offsets, the offsets (a host int array) and the lanes a window
+    # flags, count and reverse (the band step) then take the band table, the
+    # number of its offsets, the offsets (a host int array) and the lanes a
+    # window
+    "rrx_long_wide_flags": _LONG_HEAD + [_P, _P, _I, _P] + _BAND + [_P],  # flags
     # cnt, tail, vout
     "rrx_long_wide_count": _LONG_HEAD + [_P, _P, _I, _P, _P, _P] + _BAND + [_P],
     "rrx_long_wide_reverse": _LONG_HEAD + [_P] + _BAND + [_P],  # hits

@@ -35,6 +35,7 @@ CUDA tensor.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -674,8 +675,11 @@ def bitband_stats(data, lengths, tables: BitbandTables, *, seeded: bool, nullabl
     R, dev = data.shape[0], data.device
     outs = [torch.empty((R, tables.C), dtype=torch.int32, device=dev) for _ in range(3)]
     full = torch.empty((R, tables.C), dtype=torch.uint8, device=dev)
+    diags, gaps = tables.spec.diags, tables.spec.tri_gaps
     _launch("rrx_bitband_stats", data, lengths, tables, tables.tab_f, live, int(tables.C),
-            int(seeded), int(nullable), *outs, full)
+            int(seeded), int(nullable), *outs, full, len(diags),
+            (ctypes.c_int * MAX_DIAGS)(*diags), len(gaps),
+            (ctypes.c_int * MAX_TRI_FAMILIES)(*gaps))
     bitband_stats.launches += 1
     return (*outs, full.view(torch.bool))
 

@@ -12,7 +12,7 @@ package, whose ``SwarScanner`` and ``WordScanner`` subclass
 ``PallasScanner``; so does every multiblock program (257..1024 states)
 that the engine keeps on the dense multiblock matmul (banded or not: the
 TPU's ``diag_ks`` form is a layout of the same step; the wide window
-kernels' count and reverse take its diagonals as lane shifts,
+kernels' flags, count and reverse take its diagonals as lane shifts,
 :func:`band_split`).
 
 On the TPU one step is ``y = F_bdᵀ·v (+ c0)`` in bf16 on the MXU over G
@@ -113,7 +113,7 @@ class NfaTables(NamedTuple):
     P: int = 1
     channels: bool = False
     # past REG_S_TILE states, set by :func:`with_band`: the band split of
-    # the follow rows for the wide window kernels' count and reverse
+    # the follow rows for the wide window kernels' flags, count and reverse
     # (:func:`band_table`), its offsets, and the lanes of a warp that step
     # one window (16 where W <= 16: two windows a warp)
     band: torch.Tensor | None = None
@@ -357,7 +357,7 @@ def band_table(split: BandSplit) -> np.ndarray:
 def with_band(tables: NfaTables, max_diags: int | None = None, *, rows=None) -> NfaTables:
     """``tables`` with the band split of its follow rows on their device
     (``rows``: the host rows of ``nfa_tables``, else read back from the
-    device), for the wide window kernels' count and reverse (tiles past
+    device), for the wide window kernels' flags, count and reverse (tiles past
     ``REG_S_TILE`` states). A tile of at most 16 state words runs two
     windows a warp, one on each half.
 
@@ -1239,10 +1239,10 @@ def _long_run(name: str, wrapper, data, geom: LongGeom, tables: NfaTables, *args
     """Launch ``rrx_long_<name>`` for a tile of up to ``REG_S_TILE`` states
     (one thread per window, counted in ``wrapper.launches``) or
     ``rrx_long_wide_<name>`` for 257..1024 states (one warp per window, or
-    two at 16 lanes a window, counted in ``wrapper.wide_launches``); count
-    and reverse there take the tables' band split."""
+    two at 16 lanes a window, counted in ``wrapper.wide_launches``); flags,
+    count and reverse there take the tables' band split."""
     if tables.s_tile > REG_S_TILE:
-        if name in ("count", "reverse"):
+        if name != "carry":
             if tables.band is None:
                 raise ValueError(f"rrx_long_wide_{name}: tables of {tables.s_tile} states "
                                  "without a band split (with_band)")

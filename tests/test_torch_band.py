@@ -1,5 +1,5 @@
 """The band split of a wide tile (``scan_pallas.band_split``) and the band
-step that the wide window kernels' count and reverse run on it
+step that the wide window kernels' flags, count and reverse run on it
 (``csrc/scan_nfa_wide.cuh`` ``Band``), numpy and torch only, on the CPU.
 
 - The split is an exact partition of the follow matrix: every edge lies on
@@ -13,6 +13,9 @@ step that the wide window kernels' count and reverse run on it
   from the split and the table the kernels read (``band_table``), equals
   the plain stepper's forward and reverse step (``NfaTables.plain``) on
   random state sets.
+- ``_long_run`` hands the wide flags, count and reverse kernels the band
+  table, its offsets and the lanes a window (carry none), and refuses
+  tables without a band split.
 
 Every comparison is exact.
 """
@@ -350,3 +353,42 @@ def test_band_step_model_matches_plain(name, S, G, keep):
         got_r = model.rev(v, syms)
         want_r = pt.rev(_bits(v, S), sym_t)
         assert torch.equal(_bits(got_r, S), want_r), f"reverse, trial {trial}"
+
+
+# ---------------------------------------------------------------------------
+# What the wide window wrappers hand the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["flags", "count", "reverse", "carry"])
+def test_long_run_passes_the_band(name, monkeypatch):
+    """At a wide tile ``_long_run`` hands rrx_long_wide_flags, _count and
+    _reverse the band table, its offset count, the offsets (a host int
+    array of BANDED_MAX_DIAGS) and the lanes a window after their own
+    arguments, and carry (the Wide step) none; without a band split the
+    three raise, as the kernels take no other form."""
+    calls = []
+    monkeypatch.setattr(spl, "_long_launch", lambda entry, *a: calls.append((entry, a)))
+    tables = _prog_tables("K60")[1]  # W = 16: two windows a warp
+    geom = spl.LongGeom(300, 2, 256, 0, 256)
+    data = torch.zeros(300, dtype=torch.uint8)
+    own = ("tail", "args")  # stand-ins for the kernel's own arguments
+    wrapper = getattr(spl, f"long_{name}")
+    before = wrapper.wide_launches
+    spl._long_run(name, wrapper, data, geom, tables, *own)
+    assert wrapper.wide_launches == before + 1
+    (entry, args), = calls
+    assert entry == f"rrx_long_wide_{name}"
+    assert args[:2] == (data, geom) and args[2] is tables and args[3:5] == own
+    if name == "carry":
+        assert args[5:] == ()
+        return
+    band, nd, offs, lanes = args[5:]
+    assert band is tables.band and nd == len(tables.diags) == 1
+    assert list(offs) == [1] + [0] * (spl.BANDED_MAX_DIAGS - 1) and lanes == 16
+    wide32 = tables._replace(band_lanes=32)
+    spl._long_run(name, wrapper, data, geom, wide32, *own)
+    assert calls[-1][1][-1] == 32
+    with pytest.raises(ValueError, match="without a band split"):
+        spl._long_run(name, wrapper, data, geom, tables._replace(band=None), *own)
+    assert wrapper.wide_launches == before + 2
