@@ -44,13 +44,16 @@ its check fails:
    unseeded and nullable, two accept channels on config 10, flags seeded
    and unseeded, reverse, anchored rescans lazy and longest from random and
    candidate starts (-1 and 0 included), spans lazy and longest at caps 1,
-   2 and 16 (cap 1 overflows), and records past a live count; the register
-   step of rrx_bitband_stats also on NW = 3 and 4 (x(ab|c){700,800}y,
+   2 and 16 (cap 1 overflows), and records past a live count (stats and
+   reverse); the register steps of rrx_bitband_stats and
+   rrx_bitband_reverse also on NW = 3 and 4 (x(ab|c){700,800}y,
    x(ab|c){1000,1300}y), two specs with every edge on a diagonal (offsets
    -2..4 and -300, -298), hand-built tables whose top lane holds state
    words (W = 32, 96 and 128, diagonals of both signs past 32 NW states, rank-1
    columns, gaps of both signs) and 32 accept channels on config 10,
-   seeded, unseeded, nullable and live; the three
+   seeded, unseeded, nullable and live, and the reverse on config 10's
+   records whose reverse state stays live on every step and records where
+   it is empty on most (the step skipped); the three
    container kernels (rrx_sparse_stats, _flags, _reverse) on the 9
    container programs of the probe table (multiblock and sparse, config 13,
    a program at the 120-block cap whose table takes the global form, a full
@@ -60,9 +63,10 @@ its check fails:
    blocks on and off the diagonal (with one accept channel, and with one
    per block), and MultiPattern sets of 2, 40 and 100 channels, in the
    shared and the global table form, stats seeded, unseeded and nullable,
-   flags seeded and unseeded, reverse, records past a live count, and
-   seeded stats with the forward step's block-parallel form everywhere and
-   its walk everywhere (walk_max -1 and 128); the six wide
+   flags seeded and unseeded, reverse (on the program's accept set, the
+   channel sets too), records past a live count, and seeded stats and
+   reverse with the register steps' block-parallel form everywhere and
+   their walk everywhere (walk_max -1 and 128); the six wide
    matmul-tier kernels (rrx_nfa_wide_stats, _flags, _reverse, _anchor_end,
    _lazy_spans, _greedy_spans: tiles of 257..1024 states, one warp per
    record) on 10 dense multiblock programs, one at each W = 12, 16, 20, 24,
@@ -189,7 +193,9 @@ its check fails:
    stats kernels at config 1 and 1 GiB, the SWAR span kernels at config
    7's 10 MB shape and at 1 GiB, the matmul-tier kernels
    (and rrx_nfa_flags) at 10 MB and 1 GiB (plain versions on a
-   16,384-record slice there), the counting kernels on config 4 at 10 MB
+   4,096-record slice there: phase 7's 1 GiB plain runs and comparisons
+   take the first 4,096 records, the path phases' 16,384), the counting
+   kernels on config 4 at 10 MB
    and 1 GiB, with registers, theoretical occupancy, grid fill and the bound
    of each (bytes over 3.35 TB/s, or integer operations over 16.7 T/s), each
    compared again with its plain version; ScanEngine.ends_bitmap end to end
@@ -200,23 +206,32 @@ its check fails:
    kernels at 1 GiB in the geometry of their path (plain versions on 1
    MiB), and each long config's count_ends end to end at 1 GiB; the five
    bitband kernels on config 10 at 10 MB and 1 GiB with every record
-   scanned (plain versions on the 10 MB batch and on 16,384 records of the
+   scanned (plain versions on the 10 MB batch and on 4,096 records of the
    1 GiB one), with registers, spills, occupancy, scheduler cycles a
-   record-step and the bound of PERF.md section 2 (rrx_bitband_stats on
-   the register step beside rrx_bitband_flags on the shared-buffer step),
-   and config 10's match_stats end to end split into the prefilter scan,
-   the kernel on the compacted bucket (its cycles and grid fill), the
-   full-batch pass and the glue;
+   record-step and the bound of PERF.md section 2 (rrx_bitband_stats and
+   rrx_bitband_reverse on the register steps beside rrx_bitband_flags on
+   the shared-buffer step; the reverse's bound from reverse_busy's census
+   of the steps that run its band step), and config 10's match_stats end
+   to end split into the prefilter scan, the kernel on the compacted
+   bucket (its cycles and grid fill), the full-batch pass and the glue;
+   rrx_bitband_reverse on the bucket, on 10 MB whose every step runs the
+   band step and 10 MB whose every step skips it, and config 10's
+   ScanEngine.starts_bitmap and Pattern.finditer_batch end to end at 10
+   MB;
    the three container kernels on K120 at 10 MB and 1 GiB with every record
-   scanned (plain versions on the 10 MB batch and on 16,384 records of the
+   scanned (plain versions on the 10 MB batch and on 4,096 records of the
    1 GiB one), registers, occupancy and the bound of PERF.md section 2 from
    a census of the run's data, and four container shapes end to end at 10
-   MB and 1 GiB, split into prefilter, kernel and glue; the forward step of
-   rrx_sparse_stats and _flags on K120's 10 MB of log text, config 13's
-   chain batch and x[ab]{0,400}c's chain records: the sweep of walk_max
-   that fixed ops/scan_sparse.WALK_MAX, then time, census bound, scheduler
-   cycles a record-step, occupancy and registers beside the old step
-   (rrx_sparse_stream_stats and _flags on the same records' mask stream);
+   MB and 1 GiB, split into prefilter, kernel and glue (rrx_sparse_reverse
+   on x(abc|de){1,300}y's bucket beside them), K120's
+   ScanEngine.starts_bitmap and Pattern.finditer_batch end to end at 10
+   MB; the register steps of rrx_sparse_stats, _flags and _reverse on
+   K120's 10 MB of log text, config 13's chain batch and x[ab]{0,400}c's
+   chain records: the sweeps of walk_max (forward and reverse) that fixed
+   ops/scan_sparse.WALK_MAX, then time, census bound, scheduler cycles a
+   record-step, occupancy and registers beside the old step
+   (rrx_sparse_stream_stats, _flags and _reverse on the same records' mask
+   stream);
 11. (run before 7) the container path, with every launch count set to 0
    first: K120 (K30's words and 90 more, 826 states) through
    ScanEngine.match_stats over phase 5's log text at 10 MB and 1 GiB
@@ -252,7 +267,7 @@ its check fails:
    launched (rrx_long_wide_carry serves only the summary and speculative
    modes, which take narrow tiles: phase 2 holds it). Phase 7 then times
    the six wide record kernels on both programs at 10 MB and 1 GiB (plain
-   versions once, on the 10 MB batch and on 16,384 records of the 1 GiB
+   versions once, on the 10 MB batch and on 4,096 records of the 1 GiB
    one, outputs compared there), with registers, occupancy, grid fill and
    the bound, and match_stats end to end; the two wide multi-channel span
    kernels on the P = 3 union at 10 MB and 1 GiB the same way; and the
@@ -298,7 +313,7 @@ its check fails:
    byte path's methods on the same records; all four kernels must have
    been launched.
 
-Prints the kernels' JSON line, the card line, and last
+Prints the run's seconds, the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs torch built for CUDA, numpy and nvcc;
 imports nothing of JAX.
 """
@@ -732,7 +747,30 @@ def bitband_planted(W: int, rng, dev):
         pattern = f"hand-built W = {W}"
 
     meta = torch.from_numpy(BB.bitband_meta(spec, Named, 1)).to(dev)
-    return BB.BitbandTables(t, t.clone(), meta, spec, 1, None, None)
+    return BB.with_e_rows(BB.BitbandTables(t, t.clone(), meta, spec, 1, None, None))
+
+
+def reverse_busy(tables, d, ln) -> tuple:
+    """(busy, steps) of rrx_bitband_reverse's register step over records d
+    [R, L] with lengths ln: of the record-steps from each record's step len
+    + 1 down to 0, those whose u = R & mask[sym] is non-empty, which run the
+    band step (the others skip to the symbol's E row), by the plain stepper
+    on d's device. The bound of PERF.md section 2 counts the reverse's
+    operations on the busy steps only."""
+    import torch
+
+    from roaringregex_tpu_torch.ops import scan_bits
+
+    pt = tables.plain(d.device)
+    R, L = d.shape
+    lnv = ln.to(torch.int64).clamp(0, L)
+    r = pt.empty(R, d.device)
+    busy = torch.zeros((), dtype=torch.int64, device=d.device)
+    for t in range(L + 1, -1, -1):
+        sym = scan_bits._sym(d, lnv, t)
+        busy += (((r & pt.mask(sym)) != 0).any(dim=1) & (t <= lnv + 1)).sum()
+        r = pt.rev(r, sym)
+    return int(busy.item()), int((lnv + 2).sum().item())
 
 
 def key_stats(words, text: bytes):
@@ -790,6 +828,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    t_run = time.perf_counter()
     import numpy as np
 
     from roaringregex_tpu_torch.api import MultiPattern, Pattern
@@ -1629,8 +1668,8 @@ def main() -> int:
                     [BB.flags_plain(d, ln, tables, seeded=seeded)], f"{tag} seeded={seeded}",
                     ("flags",))
         hits = BB.bitband_reverse(d, ln, tables)
-        compare("rrx_bitband_reverse", [hits], [scan_bits.reverse_plain(d, ln, tables)], tag,
-                ("hits",))
+        want_rev = scan_bits.reverse_plain(d, ln, tables)
+        compare("rrx_bitband_reverse", [hits], [want_rev], tag, ("hits",))
         # anchored rescans from each record's first candidate start (every
         # second record), random starts (-1 .. L) and 0
         st = torch.from_numpy(rng.integers(-1, L + 1, size=R).astype(np.int32)).to(dev)
@@ -1655,6 +1694,8 @@ def main() -> int:
         compare("rrx_bitband_stats", [x[:n] for x in got],
                 BB.stats_plain(d[:n], ln[:n], tables, seeded=True, nullable=False),
                 f"{tag} live={n}")
+        compare("rrx_bitband_reverse", [BB.bitband_reverse(d, ln, tables, live)[:, :n]],
+                [want_rev[:, :n]], f"{tag} live={n}", ("hits",))
         return n_over
 
     t0 = time.perf_counter()
@@ -1690,10 +1731,11 @@ def main() -> int:
                 compare("rrx_bitband_flags", [BB.bitband_flags(d, ln, t2, seeded=seeded)],
                         [BB.flags_plain(d, ln, t2, seeded=seeded)],
                         f"{pattern!r} 2 channels seeded={seeded}", ("flags",))
-    # the register step of rrx_bitband_stats on the specs that the programs
-    # above leave out: NW = 3 and 4, every edge on a diagonal (offsets -2..4;
-    # -300 and -298, 9 lanes away), hand-built tables whose top lane holds
-    # state words (NW = 1, 3 and 4), and 32 accept channels on config 10
+    # the register steps of rrx_bitband_stats and rrx_bitband_reverse on the
+    # specs that the programs above leave out: NW = 3 and 4, every edge on a
+    # diagonal (offsets -2..4; -300 and -298, 9 lanes away), hand-built tables
+    # whose top lane holds state words (NW = 1, 3 and 4), and 32 accept
+    # channels on config 10 (the reverse on the accept set)
     def check_bb_stats(tables, d, ln, tag):
         for seeded in (True, False):
             for nullable in (False, True):
@@ -1706,6 +1748,10 @@ def main() -> int:
         compare("rrx_bitband_stats", [x[:n] for x in got],
                 BB.stats_plain(d[:n], ln[:n], tables, seeded=True, nullable=False),
                 f"{tag} live={n}")
+        want = scan_bits.reverse_plain(d, ln, tables)
+        compare("rrx_bitband_reverse", [BB.bitband_reverse(d, ln, tables)], [want], tag, ("hits",))
+        compare("rrx_bitband_reverse", [BB.bitband_reverse(d, ln, tables, live)[:, :n]],
+                [want[:, :n]], f"{tag} live={n}", ("hits",))
         shapes.add((tables.spec.W, len(tables.spec.diags), len(tables.spec.rank1),
                     tables.spec.tri_gaps))
 
@@ -1754,6 +1800,23 @@ def main() -> int:
     data, lengths = bitband_batch(CONFIG10, 128, 1024)
     check_bb_stats(t32, torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev),
                    "config 10, 32 accept channels")
+    # the reverse step's two regimes on config 10: records whose reverse
+    # state stays live throughout (runs of 300 c's each closed by a y, every
+    # step continues a partial match) and records where it is empty on most
+    # steps (lowercase without y: u = R & mask empty, the step skipped)
+    tb_rev = BB.device_bitband_tables(prog, BB.bitband_spec(prog), dev)
+    busy_d = np.frombuffer((b"c" * 300 + b"y") * 4, np.uint8)[:1024]
+    data = np.tile(busy_d, (128, 1)).copy()
+    data[64:] = rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxz", np.uint8), size=(64, 1024))
+    lengths = rng.integers(900, 1025, size=128).astype(np.int32)
+    lengths[:64] = rng.choice([301, 602, 903], size=64)  # each ends in its last y
+    d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
+    busy = [reverse_busy(tb_rev, d[a:b], ln[a:b]) for a, b in ((0, 64), (64, 128))]
+    if not (busy[0][0] > 0.9 * busy[0][1] and busy[1][0] < 0.1 * busy[1][1]):
+        fail(f"config 10's live and empty reverse batches: busy steps {busy}")
+    compare("rrx_bitband_reverse", [BB.bitband_reverse(d, ln, tb_rev)],
+            [scan_bits.reverse_plain(d, ln, tb_rev)],
+            f"config 10, live / empty reverse state (busy steps {busy})", ("hits",))
     if {16, 24, 32, 40, 56, 80, 96, 128} - {w for w, *_ in shapes}:
         fail(f"bitband stats comparisons covered only W in {sorted(w for w, *_ in shapes)}")
     torch.cuda.synchronize()
@@ -1767,9 +1830,10 @@ def main() -> int:
           f"{sorted(shapes)}) through the five bitband kernels (stats seeded/unseeded/nullable, "
           f"flags seeded/unseeded, two accept channels, reverse, anchor lazy/longest, spans lazy "
           f"and longest at caps 1, 2, 16 (cap 1 overflowed on {n_over} records), live records); "
-          f"rrx_bitband_stats (the register step) also on {len(shapes) - n_regs} more specs "
-          f"(NW = 3 and 4, every edge on a diagonal, hand-built at W = 32, 96 and 128) and 32 accept "
-          f"channels, seeded/unseeded x nullable and live "
+          f"rrx_bitband_stats and _reverse (the register steps) also on {len(shapes) - n_regs} more "
+          f"specs (NW = 3 and 4, every edge on a diagonal, hand-built at W = 32, 96 and 128) and 32 "
+          f"accept channels, seeded/unseeded x nullable and live; the reverse on records whose "
+          f"state stays live and where it is empty "
           f"({time.perf_counter() - t0:.1f}s)")
 
     # the container kernels: every container program of the probe table on
@@ -1812,9 +1876,10 @@ def main() -> int:
         """The three container kernels against their plain versions (on the
         card) in each table form that fits their kind (SP.table_form);
         stats seeded and unseeded (and nullable), flags seeded and
-        unseeded, reverse with one channel, and live; seeded stats also
-        with every source block in the block-parallel form and with every
-        live state walked (walk_max -1 and 128)."""
+        unseeded, reverse (on the program's accept set, whatever the
+        channels), and live; seeded stats and reverse also with every
+        source block in the block-parallel form and with every live state
+        walked (walk_max -1 and 128)."""
         R = d.shape[0]
         want = {}
         for seeded in (True, False):
@@ -1822,12 +1887,11 @@ def main() -> int:
                 want["stats", seeded, nl] = SP.sparse_stats_plain(d, ln, tables, seeded=seeded,
                                                                   nullable=nl)
             want["flags", seeded] = SP.sparse_flags_plain(d, ln, tables, seeded=seeded)
-        if tables.C == 1:
-            want["reverse"] = SP.sparse_reverse_plain(d, ln, tables)
+        want_rev = SP.sparse_reverse_plain(d, ln, tables)
         n = R // 3
         live = torch.tensor([n], dtype=torch.int32, device=dev)
         walk_forms = [f for f in forms if f == "global" or SP.table_form(tables) == "shared"]
-        rev_forms = [f for f in forms if f == "global" or SP.table_form(tables, "reverse") == "shared"]
+        rev_forms = [f for f in forms if f == "global" or SP.table_form(tables, "walk_r") == "shared"]
         for form in walk_forms:
             for key, w in want.items():
                 if key[0] == "stats":
@@ -1849,13 +1913,14 @@ def main() -> int:
             got = SP.sparse_flags(d, ln, tables, seeded=False, live=live, form=form)
             compare("rrx_sparse_flags", [got[:, : n * tables.C]],
                     [want["flags", False][:, : n * tables.C]], f"{tag} {form} live={n}", ("flags",))
-        if tables.C == 1:
-            for form in rev_forms:
-                compare("rrx_sparse_reverse", [SP.sparse_reverse(d, ln, tables, form=form)],
-                        [want["reverse"]], f"{tag} {form}", ("hits",))
-                got = SP.sparse_reverse(d, ln, tables, live=live, form=form)
-                compare("rrx_sparse_reverse", [got[:, :n]], [want["reverse"][:, :n]],
-                        f"{tag} {form} live={n}", ("hits",))
+        for form in rev_forms:
+            for wm in (-1, SP.WALK_MAX, 128):
+                compare("rrx_sparse_reverse", [SP.sparse_reverse(d, ln, tables, form=form,
+                                                                 walk_max=wm)],
+                        [want_rev], f"{tag} {form} walk_max={wm}", ("hits",))
+            got = SP.sparse_reverse(d, ln, tables, live=live, form=form)
+            compare("rrx_sparse_reverse", [got[:, :n]], [want_rev[:, :n]],
+                    f"{tag} {form} live={n}", ("hits",))
         return int(want["stats", True, False][0].sum().item())
 
     t0 = time.perf_counter()
@@ -1873,12 +1938,12 @@ def main() -> int:
         L = 1024 if pattern == CONFIG10 else 512
         data, lengths = sparse_batch(pattern, 192, L)
         d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
-        forms = ("shared", "global") if SP.table_form(tables, "reverse") == "shared" else ("global",)
+        forms = ("shared", "global") if SP.table_form(tables, "walk_r") == "shared" else ("global",)
         ends = check_sparse(tables, d, ln, f"{pattern[:40]!r} R=192 L={L}", prog.nullable, forms)
         n_cmp += 1
         print(f"  {pattern[:40]!r}: {prog.n_states} states, W = {tables.W}, "
               f"{len(prog.sparse_partition[0])} partial and {int(prog.sparse_partition[3].sum())} "
-              f"full blocks, auto form {auto} (reverse {SP.table_form(tables, 'reverse')}): "
+              f"full blocks, auto form {auto} (reverse {SP.table_form(tables, 'walk_r')}): "
               f"{ends} seeded match ends")
     if seen_nj != {1, 2, 3, 4}:
         fail(f"the container programs took {sorted(seen_nj)} state words a lane, not 1-4")
@@ -1938,7 +2003,8 @@ def main() -> int:
     print(f"phase 2: kernel == plain on the card, {n_cmp} batches of 192 records through the three "
           f"container kernels (stats seeded/unseeded/nullable, flags seeded/unseeded, reverse, "
           f"live records; shared and global table forms, {seen_u} full blocks, C = 1, 2, 4, 40, "
-          f"100; the forward step at 1-4 state words a lane, walk_max -1, {SP.WALK_MAX} and 128) "
+          f"100 (reverse on the accept set); both register steps at 1-4 state words a lane, "
+          f"walk_max -1, {SP.WALK_MAX} and 128) "
           f"({time.perf_counter() - t0:.1f}s)")
 
     # the four stream-fed kernels on 1 MB batches (1024 records of 1024 B):
@@ -3746,6 +3812,18 @@ def main() -> int:
           f"({time.perf_counter() - t14:.1f}s for the phase)")
 
     # -- phase 7: times ---------------------------------------------------
+    # the plain versions' slice of a 1 GiB batch in phase 7: their one timed
+    # run there and the kernels' outputs compared on it (the path phases
+    # compare on n_slice records)
+    n_slice7 = 4_096
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        """Print the seconds phase 7 spent since the last lap."""
+        now = time.perf_counter()
+        print(f"phase 7: {what} took {now - t_lap[0]:.1f}s")
+        t_lap[0] = now
+
     def time_ms(fn, warm: int, runs: int, per_run: int = 1) -> float:
         """Median over ``runs`` of the CUDA-event time of ``per_run``
         back-to-back calls, divided by ``per_run``."""
@@ -3762,6 +3840,16 @@ def main() -> int:
             b.synchronize()
             ts.append(a.elapsed_time(b) / per_run)
         return float(np.median(ts))
+
+    def timed_once(fn):
+        """(output, CUDA-event ms) of one call."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
 
     props = torch.cuda.get_device_properties(0)
     max_threads = props.max_threads_per_multi_processor
@@ -3907,6 +3995,8 @@ def main() -> int:
             "library_ms": None, "shape": f"1 GiB, {pattern}",
         })
 
+    lap("the stats kernels")
+
     # the span kernels at config 7's shape (10 MB, unwindowed) and at 1 GiB
     tables = sc.tables
     span_ms = {}
@@ -3957,9 +4047,11 @@ def main() -> int:
             "library_ms": None, "shape": "config 7, 10 MB, cat|dog",
         })
 
+    lap("the SWAR span kernels")
+
     # the matmul-tier kernels at config 7's 10 MB shape and at 1 GiB, on the
     # phase-5 log text; plain versions on the whole 10 MB batch and on the
-    # first n_slice records of the 1 GiB batch (kernel outputs compared there)
+    # first n_slice7 records of the 1 GiB batch (kernel outputs compared there)
     P = scan_pallas
     nfa_ms = {}
     for pattern in keyed:
@@ -3978,7 +4070,7 @@ def main() -> int:
                           caps=(cap_k,))
                 pd, pl, ph, pst, n = d, ln, hits, starts, d.shape[0]
             else:
-                n = n_slice
+                n = n_slice7
                 pd, pl, pst = d[:n].contiguous(), ln[:n].contiguous(), starts[:n].contiguous()
                 ph = scan_bits.reverse_plain(pd, pl, tables)
                 kw = dict(seeded=True, lead=0, nullable=False)
@@ -4042,7 +4134,7 @@ def main() -> int:
     step_ops = 3 * state_words(nfa_engines[K30].prog)
     flags_ms = {}
     for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
-        n = d.shape[0] if shape == "10 MB" else n_slice
+        n = d.shape[0] if shape == "10 MB" else n_slice7
         pd, pl = d[:n].contiguous(), ln[:n].contiguous()
         got = P.nfa_flags(d, ln, tables, seeded=True)
         compare("rrx_nfa_flags", [got[:, :n]], [P.flags_plain(pd, pl, tables, seeded=True)],
@@ -4061,13 +4153,15 @@ def main() -> int:
     print(f"phase 7: ScanEngine.ends_bitmap K30 end to end (words path, bitmap to the host), 10 MB: "
           f"{ms:.3f} ms [{card}]")
 
+    lap("the matmul-tier kernels")
+
     # the counting kernels on config 4 at 10 MB and 1 GiB
     ct4 = sc4.tables
     d10_4 = torch.from_numpy(data).to(dev)
     l10_4 = torch.from_numpy(lengths).to(dev)
     count_ms = {}
     for shape, d, ln in (("10 MB", d10_4, l10_4), ("1 GiB", big4, big_len)):
-        n = d.shape[0] if shape == "10 MB" else n_slice
+        n = d.shape[0] if shape == "10 MB" else n_slice7
         pd, pl = d[:n].contiguous(), ln[:n].contiguous()
         kw = dict(seeded=True, lead=0, nullable=False)
         calls = {
@@ -4144,13 +4238,15 @@ def main() -> int:
           f"each record's first start, "
           f"[{d_api.shape[0]} x {d_api.shape[1]}]: {ms:.3f} ms [{card}]")
 
+    lap("the counting kernels and the bitmaps")
+
     # the multi-pattern kernels: config 6 (P = 4) on the u32-word tier and its
     # span channels at 10 MB and 1 GiB, K7 as 7 patterns (P = 7) on the
     # matmul tier over the log text; plain versions on the whole 10 MB batch
-    # and on the first n_slice records of the 1 GiB batches
+    # and on the first n_slice7 records of the 1 GiB batches
     mp_ms = {}
     for shape, d, ln in (("10 MB", d10, l10), ("1 GiB", big6, len6)):
-        n = d.shape[0] if shape == "10 MB" else n_slice
+        n = d.shape[0] if shape == "10 MB" else n_slice7
         pd, pl = d[:n].contiguous(), ln[:n].contiguous()
         kw = dict(seeded=True, lead=0, nullable=False)
         tb6 = sc6.tables
@@ -4167,7 +4263,7 @@ def main() -> int:
                 P.lazy_spans_mb_plain(pd, pl, sc6.nfa, sc6.span, ph6, cap_k),
                 f"config 6 {shape}, first {n} records", ("starts", "ends", "cnt"))
         d7, l7 = (log10, len10) if shape == "10 MB" else (log, log_len)
-        n7 = d7.shape[0] if shape == "10 MB" else n_slice
+        n7 = d7.shape[0] if shape == "10 MB" else n_slice7
         pd7, pl7 = d7[:n7].contiguous(), l7[:n7].contiguous()
         got7 = P.nfa_stats(d7, l7, sc7.nfa, **kw)
         compare("rrx_nfa_stats[P]", [x[:n7] for x in got7], P.stats_plain(pd7, pl7, sc7.nfa, **kw),
@@ -4222,6 +4318,8 @@ def main() -> int:
     print(f"phase 7: K7 1 GiB log text, data on the card: MultiPattern (7 channels) engine "
           f"match_stats {ms_mp7:.3f} ms vs 7 single-keyword match_stats calls {ms_17:.3f} ms vs one "
           f"K7 alternation {ms_k7:.3f} ms [{card}]")
+
+    lap("the multi-pattern kernels")
 
     # the long-string window kernels at 1 GiB, in the geometry of the path
     # that launched them; plain versions on a 1 MiB string in the same
@@ -4308,9 +4406,11 @@ def main() -> int:
     print("phase 7: long-string count_ends end to end, 1 GiB on the card (ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in e2e_ms.items()) + f" [{card}]")
 
+    lap("the long-string kernels")
+
     # the bitband kernels on config 10, every record scanned (the raw scan:
     # no prefilter), at 10 MB (plain versions on the whole batch) and at
-    # 1 GiB (plain versions on the first n_slice records), with the bound of
+    # 1 GiB (plain versions on the first n_slice7 records), with the bound of
     # PERF.md section 2: per step and record, Ws = ceil(n_states / 32)
     # words, 2 operations per word per diagonal (a funnel shift and an
     # AND-OR), 1 per word for the step's mask (one row, looked up by byte),
@@ -4334,19 +4434,28 @@ def main() -> int:
     core10 = (2 * Ws * len(spec10.diags) + Ws
               + sum(2 + nz_words(edges10[edges10[:, 1] == 32 * w + b, 0]) for w, b in spec10.rank1)
               + ((6 + 2 * nf10) * (spec10.tri_win[1] - spec10.tri_win[0]) if nf10 else 0))
-    step10 = core10 + nz_seed + nz_acc  # a seeded forward step, or a reverse step
+    step10 = core10 + nz_seed + nz_acc  # a seeded forward step
     rescan10 = core10 + nz_acc  # a step of an anchored rescan
+    # the reverse register step: on a step whose u = R & mask is non-empty
+    # the band step, the E row's OR and the vote on the initial-state row;
+    # on a skipped step the row load and the vote
+    skip10 = 1 + nz_seed
+    busy10 = core10 + skip10
     print(f"phase 7: bitband bound of config 10: Ws = {Ws} words, {len(spec10.diags)} diagonals, "
           f"{len(spec10.rank1)} rank-1 columns, {nf10} families over "
           f"{spec10.tri_win[1] - spec10.tri_win[0]} window words, seed {nz_seed} and accept "
-          f"{nz_acc} nonzero words: {step10} operations per scan step, {rescan10} per rescan step")
+          f"{nz_acc} nonzero words: {step10} operations per scan step, {rescan10} per rescan step, "
+          f"{busy10} per reverse step that runs the band step and {skip10} per skipped one")
 
-    def bb_bound(kind, ln, L, *, C=1, starts=None, end=None, spans=None, cap=0, rows=None):
+    def bb_bound(kind, ln, L, *, C=1, starts=None, end=None, spans=None, cap=0, rows=None,
+                 busy=None):
         """(bound_ms, bound_by) of one bitband call from this run's inputs:
         stats, flags and reverse scan every step of the records in ``rows``
-        (all by default); the anchored rescan the steps from each start to
-        its end (1 where it has none); the span rounds the steps of each
-        emitted span, plus the hit words."""
+        (all by default), the reverse with ``busy`` (reverse_busy's (busy
+        steps, steps), scaled to these records) steps that run the band
+        step and the rest skipped; the anchored rescan the steps from each
+        start to its end (1 where it has none); the span rounds the steps of
+        each emitted span, plus the hit words."""
         ln = ln.to(torch.int64).clamp(0, L)
         if rows is not None:
             ln = ln[:rows]
@@ -4356,8 +4465,11 @@ def main() -> int:
         hit_bytes = 4 * scan_bits.hit_words(L) * R
         if kind == "stats":
             return bound(nbytes + 4 * R, 13 * R * C, steps * step10)
-        if kind in ("flags", "reverse"):
+        if kind == "flags":
             return bound(nbytes + 4 * R, hit_bytes * C, steps * step10)
+        if kind == "reverse":
+            n_busy = round(steps * busy[0] / busy[1])
+            return bound(nbytes + 4 * R, hit_bytes, n_busy * busy10 + (steps - n_busy) * skip10)
         if kind == "anchor_end":
             st = starts.to(torch.int64)
             live = (st >= 0) & (st <= ln)
@@ -4390,27 +4502,25 @@ def main() -> int:
         schedulers an SM / the record-steps (len + 2 a record)."""
         return ms * 1e6 * CLOCK_GHZ * 4 * n_sm / int((ln.to(torch.int64).clamp(0, L) + 2).sum())
 
-    for kern in ("bb_stats_kernel", "bb_flags_kernel"):  # the register step; the old step
+    # the register steps; the old step
+    for kern in ("bb_stats_kernel", "bb_reverse_kernel", "bb_flags_kernel"):
         bb_spill = {n: b for n, b in spilled.items() if re.search(r"\d" + kern, n)}
         print(f"phase 7: {kern}: registers {regs_of(kern)}; spill bytes "
               f"{bb_spill or 'not reported'}")
     bb_ms = {}
     cap10 = 4
     for shape, d, ln in (("10 MB", g10, gl10), ("1 GiB", b10, bl10)):
-        n = d.shape[0] if shape == "10 MB" else n_slice
+        n = d.shape[0] if shape == "10 MB" else n_slice7
         pd, pl = d[:n].contiguous(), ln[:n].contiguous()
+        busy_rev = reverse_busy(tb10, pd, pl)  # the census of the reverse's bound
+        print(f"phase 7: config 10 {shape}, first {n} records: the reverse register step runs the "
+              f"band step on {busy_rev[0]} of {busy_rev[1]} record-steps "
+              f"({100 * busy_rev[0] / busy_rev[1]:.2f}%) and skips the rest")
         hits = BB.bitband_reverse(d, ln, tb10)
         st = first_starts(hits, ln)
         ends = BB.bitband_anchor_end(d, ln, tb10, st, longest=True)
         spans = BB.bitband_spans(d, ln, tb10, hits, cap10, longest=False)
         kw = dict(seeded=True, nullable=False)
-        got = BB.bitband_stats(d, ln, tb10, **kw)
-        compare("rrx_bitband_stats", [x[:n] for x in got], BB.stats_plain(pd, pl, tb10, **kw),
-                f"config 10 {shape}, first {n} records")
-        compare("rrx_bitband_spans", [x[:n] for x in spans],
-                scan_bits.greedy_spans_plain(pd, pl, tb10, hits[:, :n].contiguous(), cap10,
-                                             longest=False),
-                f"config 10 {shape}, first {n} records", ("starts", "ends", "cnt", "over"))
         calls = {
             "rrx_bitband_stats": (lambda: BB.bitband_stats(d, ln, tb10, **kw),
                                   lambda: BB.stats_plain(pd, pl, tb10, **kw),
@@ -4420,7 +4530,7 @@ def main() -> int:
                                   bb_bound("flags", ln, L), 1),
             "rrx_bitband_reverse": (lambda: BB.bitband_reverse(d, ln, tb10),
                                     lambda: scan_bits.reverse_plain(pd, pl, tb10),
-                                    bb_bound("reverse", ln, L), 2),
+                                    bb_bound("reverse", ln, L, busy=busy_rev), 2),
             "rrx_bitband_anchor_end": (
                 lambda: BB.bitband_anchor_end(d, ln, tb10, st, longest=True),
                 lambda: scan_bits.anchor_plain(pd, pl, tb10, st[:n].contiguous(), longest=True),
@@ -4432,8 +4542,19 @@ def main() -> int:
                 bb_bound("spans", ln, L, spans=spans, cap=cap10), 4),
         }
         for name, (kern, plain, bnd, idx) in calls.items():
+            # the plain version's one timed run on the first n records is the
+            # reference of the kernel's outputs there
+            want, plain_ms = timed_once(plain)
+            got = kern()
+            if name in ("rrx_bitband_flags", "rrx_bitband_reverse"):
+                got, want = [got[:, :n]], [want]
+            elif name == "rrx_bitband_anchor_end":
+                got, want = [got[:n]], [want]
+            else:
+                got = [x[:n] for x in got]
+            compare(name, got, want, f"config 10 {shape}, first {n} records",
+                    tuple(str(i) for i in range(len(want))))
             ms = time_ms(kern, warm=1, runs=7)
-            plain_ms = time_ms(plain, warm=0, runs=1)
             bb_ms[name, shape] = (ms, plain_ms, bnd, n)
             print(f"phase 7: {name} config 10 {shape} [{d.shape[0]} x {L}], every record: kernel "
                   f"{ms:.3f} ms = {d.shape[0] * L / ms / 1e6:.2f} GB/s, plain {plain_ms:.1f} ms on "
@@ -4461,6 +4582,20 @@ def main() -> int:
         k_ms = time_ms(lambda: BB.bitband_stats(d2, l2, tb10, **kw, live=live_c), warm=1, runs=5)
         f_ms = time_ms(lambda: BB.bitband_stats(d, ln, tb10, **kw, live=live_0), warm=1, runs=5)
         kb = bb_bound("stats", l2, L, rows=idx_c.numel())
+        # rrx_bitband_reverse on the bucket (the first pass of its spans and
+        # starts), its hits against the plain version
+        n_c = idx_c.numel()
+        compare("rrx_bitband_reverse", [BB.bitband_reverse(d2, l2, tb10, live_c)[:, :n_c]],
+                [scan_bits.reverse_plain(d2[:n_c], l2[:n_c], tb10)], f"config 10 {shape} bucket",
+                ("hits",))
+        busy_c = reverse_busy(tb10, d2[:n_c], l2[:n_c])
+        r_ms = time_ms(lambda: BB.bitband_reverse(d2, l2, tb10, live_c), warm=1, runs=5)
+        rb = bb_bound("reverse", l2, L, rows=n_c, busy=busy_c)
+        bb_ms["rev bucket", shape] = (r_ms, rb, n_c, busy_c)
+        print(f"  rrx_bitband_reverse on the bucket ({shape}, {n_c} candidates, band step on "
+              f"{100 * busy_c[0] / busy_c[1]:.1f}% of the record-steps): {r_ms:.3f} ms, "
+              f"{bb_cycles(r_ms, l2[:n_c]):.1f} scheduler cycles a record-step; bound "
+              f"{rb[0]:.4f} ms by {rb[1]} ({100 * rb[0] / r_ms:.1f}% of it) [{card}]")
         print(f"  rrx_bitband_stats on the bucket ({shape}, {idx_c.numel()} candidates): "
               f"{bb_cycles(k_ms, l2[: idx_c.numel()]):.1f} scheduler cycles a record-step; "
               f"occupancy {bb_occupancy(0, idx_c.numel())} [{card}]")
@@ -4475,9 +4610,46 @@ def main() -> int:
               f"{kb[0]:.4f} ms by {kb[1]}, prefilter scan {pb[0]:.4f} ms by {pb[1]}; the raw "
               f"kernel on every record {bb_ms['rrx_bitband_stats', shape][0]:.3f} ms [{card}]")
 
+    # the reverse register step's two regimes at 10 MB: every step running
+    # the band step (runs of 300 c's each closed by a y, records ending in
+    # their last y) and every step skipped (lowercase without y); then the
+    # reverse's user paths end to end at 10 MB: ScanEngine.starts_bitmap
+    # (the hit words, unpacked to one bit a position) and
+    # Pattern.finditer_batch (the reverse, then the span rounds, with the
+    # host's packing)
+    B_r = g10.shape[0]
+    regimes = {
+        "every step busy": (torch.from_numpy(np.frombuffer((b"c" * 300 + b"y") * 4, np.uint8)[:L]
+                                             .copy()).to(dev).expand(B_r, L).contiguous(),
+                            torch.full((B_r,), 903, dtype=torch.int32, device=dev)),
+        "every step skipped": (g10.clone(), gl10),
+    }
+    regimes["every step skipped"][0][regimes["every step skipped"][0] == ord("y")] = ord("z")
+    for what, (dr, lr) in regimes.items():
+        busy_r = reverse_busy(tb10, dr[:1024], lr[:1024])
+        compare("rrx_bitband_reverse", [BB.bitband_reverse(dr[:1024], lr[:1024], tb10)],
+                [scan_bits.reverse_plain(dr[:1024], lr[:1024], tb10)], f"config 10, {what}",
+                ("hits",))
+        r_ms = time_ms(lambda: BB.bitband_reverse(dr, lr, tb10), warm=1, runs=5)
+        bb_ms["rev regime", what] = (r_ms, bb_cycles(r_ms, lr), busy_r)
+        print(f"phase 7: rrx_bitband_reverse config 10 10 MB, {what} (band step on "
+              f"{100 * busy_r[0] / busy_r[1]:.1f}% of the first 1,024 records' steps): "
+              f"{r_ms:.3f} ms, {bb_cycles(r_ms, lr):.1f} scheduler cycles a record-step [{card}]")
+    del regimes
+    texts_r = [d10_np[i, : l10_np[i]].tobytes() for i in range(B_r)]
+    for what, fn, runs in (("ScanEngine.starts_bitmap", lambda: eng10.starts_bitmap(g10, gl10, L), 3),
+                           ("Pattern.finditer_batch (lazy)", lambda: pat10.finditer_batch(texts_r), 1)):
+        e_ms = time_ms(fn, warm=1, runs=runs)
+        bb_ms["rev e2e", what] = e_ms
+        print(f"phase 7: {what} config 10 end to end, 10 MB ({B_r} records): {e_ms:.3f} ms "
+              f"(rrx_bitband_reverse on every record {bb_ms['rrx_bitband_reverse', '10 MB'][0]:.3f} "
+              f"ms) [{card}]")
+
+    lap("the bitband kernels")
+
     # the container kernels on K120 over the phase-5 log text (every record
     # scanned), at 10 MB and 1 GiB, plain versions on the 10 MB batch and on
-    # the first n_slice records of the 1 GiB one; bounds of PERF.md section
+    # the first n_slice7 records of the 1 GiB one; bounds of PERF.md section
     # 2 from a census of this run's data (the plain stepper on the card:
     # live rows, live full blocks, nonzero output blocks per needed step)
     SP = scan_sparse
@@ -4486,7 +4658,10 @@ def main() -> int:
     def sparse_census(tables, d, ln, *, seeded: bool, reverse: bool) -> int:
         """Operations of PERF.md section 2's floor for one container pass
         over records d (steps past EOS, and past an unseeded scan's empty
-        state after step 1, are not needed)."""
+        state after step 1, are not needed). The reverse walks u = R &
+        mask[sym] and ORs in the symbol's E row (the accept set's
+        expansion): its census counts u's live work and E's nonzero
+        words."""
         pt = tables.plain(dev)
         R, Lc = d.shape
         lnv = ln.to(torch.int64).clamp(0, Lc)
@@ -4496,26 +4671,33 @@ def main() -> int:
         Uf = pt.U.T if reverse else pt.U  # [source, output]
         acc_w = 1 if reverse else int(
             (torch.from_numpy(tables.accs).any(dim=0).reshape(-1, 32).any(dim=1)).sum())
+        if reverse:  # the nonzero words of each symbol's E row
+            n_mask = len(tables.masks)
+            e_rows = tables.walk_r[: n_mask * tables.W].reshape(n_mask, tables.W)
+            e_nz = torch.zeros(scan_bits.N_SYMS, dtype=torch.int64, device=dev)
+            has = torch.from_numpy(tables.sym_row >= 0).to(dev)
+            e_nz[has] = (e_rows != 0).sum(dim=1).to(torch.int64)[
+                torch.from_numpy(tables.sym_row[tables.sym_row >= 0]).to(dev)]
         v = pt.empty(R, dev)
         alive = torch.ones(R, dtype=torch.bool, device=dev)
         total = torch.zeros((), dtype=torch.int64, device=dev)
         for t in (range(Lc + 1, -1, -1) if reverse else range(Lc + 2)):
             sym = scan_bits._sym(d, lnv, t)
             if reverse:
-                x = (v | pt.acc) & pt.M[sym]
+                x = v & pt.M[sym]
             else:
                 x = v.clone()
                 x[:, 0] |= seeded or t < 2
             xb = x.reshape(R, nb, 128)
             live_rows = (xb[:, src] & rownz[None]).sum(dim=(1, 2))
             live_u = (xb.any(dim=2).to(torch.float32) @ Uf).sum(dim=1).to(torch.int64)
-            y = pt._expand(x, reverse)
             if reverse:
-                out_blocks = xb.any(dim=2).sum(dim=1)
+                y = pt.rev(v, sym)
+                out_blocks = e_nz[sym]
             else:
-                y = y & pt.M[sym]
-                out_blocks = y.reshape(R, nb, 128).any(dim=2).sum(dim=1)
-            ops = 4 * live_rows + 4 * live_u + 4 * out_blocks + acc_w + 2
+                y = pt._expand(x, reverse) & pt.M[sym]
+                out_blocks = 4 * y.reshape(R, nb, 128).any(dim=2).sum(dim=1)
+            ops = 4 * live_rows + 4 * live_u + out_blocks + acc_w + 2
             total += torch.where(alive & (t <= lnv + 1), ops, 0).sum()
             v = y
             if not seeded and not reverse and t >= 1:
@@ -4544,12 +4726,12 @@ def main() -> int:
         """Theoretical occupancy and grid of container kernel ``idx``
         (rrx_sparse_occupancy's index) on ``tables``, in its automatic form."""
         bps = ctypes.c_int(0)
-        kind = ("walk", "walk", "reverse", "stream", "stream", "reverse")[idx]
-        tab, meta = (tables.tab_r, tables.meta_r) if kind == "reverse" else (tables.tab_f,
-                                                                            tables.meta_f)
+        kind = ("walk", "walk", "walk_r", "stream", "stream", "stream_r")[idx]
+        tab, meta, walk = SP._direction(tables, kind)
         form = SP.table_form(tables, kind)
-        _build.check(lib.rrx_sparse_occupancy(idx, tab.numel(), meta.numel(), tables.walk_f.numel(),
-                                              tables.W, int(form == "global"), ctypes.byref(bps)),
+        _build.check(lib.rrx_sparse_occupancy(idx, tab.numel(), meta.numel(),
+                                              0 if walk is None else walk.numel(), tables.W,
+                                              int(form == "global"), ctypes.byref(bps)),
                      "rrx_sparse_occupancy")
         blocks = min(-(-rows // (sp_tpb // 32)), bps.value * n_sm)
         return (f"theoretical {bps.value * sp_tpb}/{max_threads} threads per SM "
@@ -4567,13 +4749,11 @@ def main() -> int:
     sp_ms = {}
     sp_slices = {}  # the census slices (their census is cached by tensor id)
     for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
-        n = d.shape[0] if shape == "10 MB" else n_slice
+        n = d.shape[0] if shape == "10 MB" else n_slice7
         pd, pl = d[:n].contiguous(), ln[:n].contiguous()
         sp_slices[shape] = (pd, pl)
         scale = float(ln.to(torch.int64).sum()) / float(pl.to(torch.int64).sum())
         kw = dict(seeded=True, nullable=False)
-        compare("rrx_sparse_stats", [x[:n] for x in SP.sparse_stats(d, ln, tb120, **kw)],
-                SP.sparse_stats_plain(pd, pl, tb120, **kw), f"K120 {shape}, first {n} records")
         calls = {
             "rrx_sparse_stats": (lambda: SP.sparse_stats(d, ln, tb120, **kw),
                                  lambda: SP.sparse_stats_plain(pd, pl, tb120, **kw), "stats", 0),
@@ -4584,8 +4764,17 @@ def main() -> int:
                                    lambda: SP.sparse_reverse_plain(pd, pl, tb120), "reverse", 2),
         }
         for name, (kern, plain, what, idx) in calls.items():
+            # the plain version's one timed run on the first n records is the
+            # reference of the kernel's outputs there
+            want, plain_ms = timed_once(plain)
+            got = kern()
+            if what == "stats":
+                got = [x[:n] for x in got]
+            else:
+                got, want = [got[:, :n]], [want]
+            compare(name, got, want, f"K120 {shape}, first {n} records",
+                    tuple(str(i) for i in range(len(want))))
             ms = time_ms(kern, warm=1, runs=7 if shape == "10 MB" else 3)
-            plain_ms = time_ms(plain, warm=0, runs=1)
             bnd = sp_bound(what, tb120, pd, pl, scale=scale)
             sp_ms[name, shape] = (ms, plain_ms, bnd, n)
             print(f"phase 7: {name} K120 {shape} [{d.shape[0]} x {d.shape[1]}], every record: "
@@ -4643,11 +4832,40 @@ def main() -> int:
         f_ms = time_ms(lambda: SP.sparse_stats(dx, lx, sc_x.tables, **kw, live=live_0), warm=1,
                        runs=runs)
         e2e_sp["x prefiltered", shape] = (e2e, pre_ms, k_ms, f_ms, idx_c.numel())
+        # rrx_sparse_reverse on the same bucket (the first pass of the
+        # program's spans and starts), its hits against the plain version
+        n_c = idx_c.numel()
+        compare("rrx_sparse_reverse", [SP.sparse_reverse(d2, l2, sc_x.tables, live_c)[:, :n_c]],
+                [SP.sparse_reverse_plain(d2[:n_c], l2[:n_c], sc_x.tables)],
+                f"{CONFIG13_X} {shape} bucket", ("hits",))
+        r_ms = time_ms(lambda: SP.sparse_reverse(d2, l2, sc_x.tables, live_c), warm=1, runs=runs)
+        e2e_sp["x bucket reverse", shape] = (r_ms, k_ms, n_c)
+        print(f"phase 7: rrx_sparse_reverse on {CONFIG13_X}'s bucket ({shape}, {n_c} candidates): "
+              f"{r_ms:.3f} ms, {sched_cycles(r_ms, l2[:n_c], dx.shape[1]):.1f} scheduler cycles a "
+              f"record-step (rrx_sparse_stats on it {k_ms:.3f} ms) [{card}]")
         print(f"phase 7: ScanEngine.match_stats {CONFIG13_X} end to end, {shape} ({B_} records, "
               f"{idx_c.numel()} candidates, bucket {bc}): {e2e:.3f} ms = prefilter scan "
               f"({pf_x.prog.n_states} states, {type(pf_x.device_scanner).__name__}) {pre_ms:.3f} ms "
               f"+ rrx_sparse_stats on the bucket {k_ms:.3f} ms + the full-batch pass's launch "
               f"{f_ms:.3f} ms + glue {e2e - pre_ms - k_ms - f_ms:.3f} ms [{card}]")
+
+    # the reverse's user paths of K120 end to end at 10 MB:
+    # ScanEngine.starts_bitmap (the hit words, unpacked to one bit a
+    # position) and Pattern.finditer_batch (lazy: the reverse, then the
+    # span rescans, with the host's packing)
+    texts_k120 = [row[:n].tobytes() for row, n in zip(log10.cpu().numpy(), len10.cpu().numpy())]
+    for what, fn, runs in (("ScanEngine.starts_bitmap",
+                            lambda: eng120.starts_bitmap(log10, len10, log10.shape[1]), 3),
+                           ("Pattern.finditer_batch (lazy)",
+                            lambda: pat120.finditer_batch(texts_k120), 1)):
+        e_ms = time_ms(fn, warm=1, runs=runs)
+        e2e_sp["K120 rev e2e", what] = e_ms
+        print(f"phase 7: {what} K120 end to end, 10 MB ({log10.shape[0]} records): {e_ms:.3f} ms "
+              f"(rrx_sparse_reverse on every record {sp_ms['rrx_sparse_reverse', '10 MB'][0]:.3f} "
+              f"ms) [{card}]")
+    del texts_k120
+
+    lap("the container kernels")
 
     # the stream-fed container kernels over the mask stream of K120 (10 MB
     # of log text and 128 MB, a 14 GiB stream) and of config 13 (its 10 MB
@@ -4678,7 +4896,7 @@ def main() -> int:
         n = min(d.shape[0], 1024)
         pw, pd, pl = words[:, :n].contiguous(), d[:n].contiguous(), ln[:n].contiguous()
         # the census (cached with the byte kernels' bounds): K120's 10 MB batch
-        # and the first n_slice records of the 1 GiB one (the 128 MB batch's
+        # and the first n_slice7 records of the 1 GiB one (the 128 MB batch's
         # first records), config 13's batch
         if tag == "K120":
             cd, cl = sp_slices["1 GiB" if shape == "128 MB" else "10 MB"]
@@ -4725,6 +4943,8 @@ def main() -> int:
                   f"{regs_of(('sp_stream_stats_kernel', 'sp_stream_flags_kernel', 'sp_stream_reverse_kernel')[idx - 3])}")
         del words, pw
 
+    lap("the stream-fed container kernels")
+
     # the forward step of rrx_sparse_stats and _flags on three kinds of
     # records: K120's log text (a few live states a step), config 13's chain
     # batch and x[ab]{0,400}c's chain records (dense blocks): first the
@@ -4745,17 +4965,25 @@ def main() -> int:
         compare("rrx_sparse_flags", [SP.sparse_flags(d, ln, tabs_c, seeded=True)[:, :n]],
                 [SP.sparse_flags_plain(d[:n], ln[:n], tabs_c, seeded=True)],
                 f"{tag} 10 MB, first {n}", ("flags",))
-        sweep[tag] = {wm: time_ms(lambda: SP.sparse_stats(d, ln, tabs_c, **kw, walk_max=wm),
-                                  warm=1, runs=3) for wm in WALK_SWEEP}
-        best = min(sweep[tag], key=sweep[tag].get)
-        print(f"phase 7: walk_max sweep, rrx_sparse_stats {tag} 10 MB [{d.shape[0]} x {d.shape[1]}] "
-              f"(ms): { {wm: round(t, 4) for wm, t in sweep[tag].items()} }; fastest {best}, "
-              f"WALK_MAX = {SP.WALK_MAX} at {sweep[tag][SP.WALK_MAX] / sweep[tag][best]:.3f}x it "
-              f"[{card}]")
-    worst = {wm: max(sweep[t][wm] / min(sweep[t].values()) for t in sweep) for wm in WALK_SWEEP}
-    print(f"phase 7: walk_max sweep, the slowest of the three batches against its fastest: "
-          f"{ {wm: round(x, 3) for wm, x in worst.items()} }; the least {min(worst, key=worst.get)}"
-          f", WALK_MAX = {SP.WALK_MAX} [{card}]")
+        compare("rrx_sparse_reverse", [SP.sparse_reverse(d, ln, tabs_c)[:, :n]],
+                [SP.sparse_reverse_plain(d[:n], ln[:n], tabs_c)], f"{tag} 10 MB, first {n}",
+                ("hits",))
+        for name, fn in (("rrx_sparse_stats", lambda wm: SP.sparse_stats(d, ln, tabs_c, **kw,
+                                                                         walk_max=wm)),
+                         ("rrx_sparse_reverse", lambda wm: SP.sparse_reverse(d, ln, tabs_c,
+                                                                             walk_max=wm))):
+            sw = sweep[name, tag] = {wm: time_ms(lambda: fn(wm), warm=1, runs=3)
+                                     for wm in WALK_SWEEP}
+            best = min(sw, key=sw.get)
+            print(f"phase 7: walk_max sweep, {name} {tag} 10 MB [{d.shape[0]} x {d.shape[1]}] "
+                  f"(ms): { {wm: round(t, 4) for wm, t in sw.items()} }; fastest {best}, WALK_MAX = "
+                  f"{SP.WALK_MAX} at {sw[SP.WALK_MAX] / sw[best]:.3f}x it [{card}]")
+    for name in ("rrx_sparse_stats", "rrx_sparse_reverse"):
+        worst = {wm: max(sweep[name, t][wm] / min(sweep[name, t].values()) for t, *_ in walk_runs)
+                 for wm in WALK_SWEEP}
+        print(f"phase 7: walk_max sweep, {name}, the slowest of the three batches against its "
+              f"fastest: { {wm: round(x, 3) for wm, x in worst.items()} }; the least "
+              f"{min(worst, key=worst.get)}, WALK_MAX = {SP.WALK_MAX} [{card}]")
     walk_rows = {}
     for tag, tabs_c, d, ln in walk_runs:
         L = d.shape[1]
@@ -4763,7 +4991,8 @@ def main() -> int:
                 ("rrx_sparse_stats", "stats", 0,
                  lambda: SP.sparse_stats(d, ln, tabs_c, seeded=True, nullable=False)),
                 ("rrx_sparse_flags", "flags", 1,
-                 lambda: SP.sparse_flags(d, ln, tabs_c, seeded=True))):
+                 lambda: SP.sparse_flags(d, ln, tabs_c, seeded=True)),
+                ("rrx_sparse_reverse", "reverse", 2, lambda: SP.sparse_reverse(d, ln, tabs_c))):
             ms = time_ms(fn, warm=1, runs=7)
             # K120's census: the one of its 10 MB rows above (the same records)
             cd, cl = sp_slices["10 MB"] if tag == "K120" else (d, ln)
@@ -4776,17 +5005,19 @@ def main() -> int:
                   f"(rrx_sparse_stream_{what} on the same records' stream) {old_ms:.3f} ms, "
                   f"{sched_cycles(old_ms, ln, L):.1f} cycles ({old_ms / ms:.2f}x) [{card}]")
             print(f"  occupancy {name} ({tag}): {sp_occupancy(idx, tabs_c, d.shape[0])}; registers "
-                  f"{regs_of(('sp_stats_kernel', 'sp_flags_kernel')[idx])}")
+                  f"{regs_of(('sp_stats_kernel', 'sp_flags_kernel', 'sp_reverse_kernel')[idx])}")
+
+    lap("the container register steps and sweeps")
 
     # the slotted SWAR kernel on config 6 at 10 MB (phase 3's corpus) and
     # 1 GiB (phase 8's), plain version on the whole 10 MB batch and the first
-    # n_slice records of 1 GiB; beside it the default route's P-channel
+    # n_slice7 records of 1 GiB; beside it the default route's P-channel
     # u32-word kernel (row 2) on the same data
     swm_ms = {}
     tbs = sc6s.tables
     n_d6 = tbs.deltas.numel()
     for shape, d, ln in (("10 MB", d10, l10), ("1 GiB", big6, len6)):
-        n = d.shape[0] if shape == "10 MB" else n_slice
+        n = d.shape[0] if shape == "10 MB" else n_slice7
         pd, pl = d[:n].contiguous(), ln[:n].contiguous()
         got = scan_swar.swar_multi_stats(d, ln, tbs, seeded=True)
         compare("rrx_swar_multi_stats", [x[:n] for x in got],
@@ -4812,21 +5043,13 @@ def main() -> int:
               f"grid {-(-d.shape[0] // tpb)} blocks of {tpb}; registers "
               f"{regs_of('swar_multi_stats_kernel')} [{card}]")
 
+    lap("the slotted SWAR kernel")
+
     # the six wide kernels (dense multiblock tier) on phase 12's batches:
     # K60+ (s_tile 512, W = 16) over the log text and x(ab|c){300,}y
     # (s_tile 1024, W = 32) with its chains, at 10 MB and 1 GiB, every record
     # scanned; outputs against the plain version on the whole 10 MB batch and
-    # on the first n_slice records of 1 GiB, whose time is taken once
-    def timed_once(fn):
-        """(output, CUDA-event ms) of one call."""
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn()
-        b.record()
-        b.synchronize()
-        return out, a.elapsed_time(b)
-
+    # on the first n_slice7 records of 1 GiB, whose time is taken once
     def occupancy_wide(name, tables, rows, index=None):
         """``index``: rrx_long_wide_occupancy's kernel index (4 and 5: count
         and reverse at 32 lanes a window), else the name's."""
@@ -4860,7 +5083,7 @@ def main() -> int:
             starts = lazy0[0][:, 0].contiguous()
             greedy0 = P.nfa_greedy_spans(d, ln, tables, hits, cap_w, nullable=False)
             end0 = P.nfa_anchor_end(d, ln, tables, starts, longest=True)
-            n = min(d.shape[0], n_slice)
+            n = min(d.shape[0], n_slice7)
             pd, pl, pst = d[:n].contiguous(), ln[:n].contiguous(), starts[:n].contiguous()
             ph, ph_ms = timed_once(lambda: scan_bits.reverse_plain(pd, pl, tables))
             kw = dict(seeded=True, lead=0, nullable=False)
@@ -4910,9 +5133,11 @@ def main() -> int:
                   f"{e2e:.4f} ms = {nb / e2e / 1e6:.1f} GB/s (rrx_nfa_wide_stats "
                   f"{wide_ms['rrx_nfa_wide_stats', pattern, shape][0]:.4f} ms) [{card}]")
 
+    lap("the wide record kernels")
+
     # the wide multi-channel span kernels on the P = 3 union over phase 5's
     # log text at 10 MB and 1 GiB, every record (plain versions once, on the
-    # 10 MB batch and on the first n_slice records of 1 GiB, outputs compared
+    # 10 MB batch and on the first n_slice7 records of 1 GiB, outputs compared
     # there); the bound adds to the step (3 per state word of the union) the
     # union test each step and 4 per (channel, firing step)
     scw = mp_w.engine.device_scanner
@@ -4921,7 +5146,7 @@ def main() -> int:
     pop8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int64, device=dev)
     wide_mb_ms = {}
     for shape, d, ln in (("10 MB", log10, len10), ("1 GiB", log, log_len)):
-        n = d.shape[0] if shape == "10 MB" else n_slice
+        n = d.shape[0] if shape == "10 MB" else n_slice7
         pd, pl = d[:n].contiguous(), ln[:n].contiguous()
         hits = P.nfa_reverse_mb(d, ln, tbw, spw)
         ph, ph_ms = timed_once(lambda: P.reverse_mb_plain(pd, pl, tbw, spw))
@@ -4954,6 +5179,8 @@ def main() -> int:
             print(f"  occupancy {name} ({shape}): {occupancy_wide(name, tbw, d.shape[0])}; "
                   f"registers {regs_of(name[len('rrx_nfa_'):] + '_kernel')}")
     del hits, lz
+
+    lap("the wide multi-channel span kernels")
 
     # the wide long-string window kernels at 1 GiB in the geometry of
     # Pattern.long(K60) (phase 12's string; carry, off the main path, in the
@@ -5010,6 +5237,8 @@ def main() -> int:
     print(f"phase 7: long-string flags end to end, 1 GiB on the card (ms): K60 {fl_k60:.3f} "
           f"(rrx_long_wide_flags {long_wide_ms['rrx_long_wide_flags'][0]:.3f}), {CHAIN340} "
           f"{fl_ch:.3f} (rrx_long_wide_flags {flk_ch:.3f}, its count {ms_ch:.3f}) [{card}]")
+
+    lap("the wide long-string kernels")
 
     # the band step (flags, count and reverse) against the Wide step on the
     # same windows at 1 GiB: K60's windows (W = 16) with the default split
@@ -5077,7 +5306,7 @@ def main() -> int:
     # 4's a{1,300} (W = 12), and at 1 GiB on cat|dog (its stream is 4 GiB: 4
     # Wt bytes a record-step; W >= 4 would pass 16 GiB); rescans from each
     # record's first match start, longest; plain versions once (10 MB: the
-    # whole batch; 1 GiB: the first n_slice records), outputs compared there
+    # whole batch; 1 GiB: the first n_slice7 records), outputs compared there
     def stream_bound(kind, Wt, sw, T, R, *, starts=None, end=None):
         """(bound_ms, bound_by): the stream's 4 Wt bytes a record-step read
         once (the kernel's input), the outputs written once; 3 operations per
@@ -5104,7 +5333,7 @@ def main() -> int:
         ms_w = time_ms(lambda: PK.mask_stream_from_bytes(tabs, d, ln), warm=1, runs=3)
         words = PK.mask_stream_from_bytes(tabs, d, ln)
         T, R = words.shape[:2]
-        n = R if shape == "10 MB" else n_slice
+        n = R if shape == "10 MB" else n_slice7
         pw, pl = words[:, :n], ln[:n]
         hits = PK.reverse_hits(nfa, words)
         has = hits.any(dim=1)
@@ -5149,6 +5378,8 @@ def main() -> int:
                   f"{ms_w:.3f} ms; occupancy {bps.value * tpb.value}/{max_threads} threads per "
                   f"SM; registers {regs_of(form + name[len('rrx_'):] + '_kernel')} [{card}]")
         del words, hits
+
+    lap("the band step against the Wide step")
 
     # the three backends end to end: match_stats (seeded) of 10 MB on the card
     for pattern in ("cat|dog", K30):
@@ -5221,8 +5452,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SPARSE_SOURCE, "replaces": REPLACES[name],
             "launches": sparse_launches[name], "max_abs_err": max_err[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-            "shape": f"K120 ({len(K120_WORDS)} keywords), 10 MB of log text, every record"
-                     + ("" if name == "rrx_sparse_reverse" else f", walk_max {SP.WALK_MAX}"),
+            "shape": f"K120 ({len(K120_WORDS)} keywords), 10 MB of log text, every record, "
+                     f"walk_max {SP.WALK_MAX}",
         })
     for name in WIDE_KERNELS:
         ms, plain_ms, bnd = wide_ms[name, CHAIN300, "10 MB"]
@@ -5284,6 +5515,8 @@ def main() -> int:
         })
     if len(kernels) != 51:
         fail(f"the kernels line lists {len(kernels)} kernels, not 51")
+    lap("the backends and the rest of phase 7")
+    print(f"chip_smoke.py: {time.perf_counter() - t_run:.1f}s from the card check to the result")
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

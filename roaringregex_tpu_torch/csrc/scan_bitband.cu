@@ -58,22 +58,27 @@
 // - One warp per record. The kernels are templated on the words per lane,
 //   NW = ceil(W/32) <= 4, and pad every row to Wp = 32 NW words (zeros past
 //   W), so no lane tests its words against W.
-// - stats runs the register step (RegStep, below): lane l holds the
-//   contiguous words l NW .. l NW + NW - 1, the diagonals' masks, the seed,
-//   exit and accept rows sit in registers, a shift is lane shuffles and a
-//   funnel shift, and no state goes through shared memory.
-// - flags, reverse, anchor end and spans run the shared-buffer step
-//   (expand): lane l owns state words l, l+32, l+64, l+96. A cross-word
+// - stats runs the forward register step (RegStep, below) and reverse its
+//   mirror (RevStep): lane l holds the contiguous words l NW .. l NW + NW -
+//   1, the diagonals' masks, the seed (initial-state), exit and accept rows
+//   sit in registers, a shift is lane shuffles and a funnel shift, and no
+//   state goes through shared memory. The reverse step adds the accept set
+//   through one precomputed row per mask row, E[row] = expand_rev(acc &
+//   mask[row]), and skips the band step when R & mask[sym] is empty (config
+//   10's reverse state is empty on most steps of a record without a match).
+// - flags, anchor end and spans run the shared-buffer step (expand):
+//   lane l owns state words l, l+32, l+64, l+96. A cross-word
 //   shift needs words owned by other lanes, so each warp keeps its state
 //   words in a buffer of shared memory (and a second one for the
 //   triangle's prefix or suffix), Wp words between Wp + 1 zero words on
 //   each side: a shift by d states reads v[w + A] and v[w + A + 1] (A =
 //   floor(-d / 32)) with no bounds test and joins them with one funnel
 //   shift; the diagonals of one A share those two loads.
-// - Rank-1 columns reduce with __any_sync; the triangle's prefix-OR is an
-//   in-word smear ((x | -x) << 1 forward; the set bits below the highest one
-//   in reverse) plus the carry from lower (higher) words, a __ballot_sync
-//   over the words' any-bits.
+// - Forward rank-1 columns reduce with __any_sync; reverse ones read their
+//   column's bit by one shuffle. The triangle's prefix-OR is an in-word
+//   smear ((x | -x) << 1 forward; the set bits below the highest one for the
+//   reverse's suffix-OR) plus the carry from lower (higher) words, a
+//   __ballot_sync over the words' any-bits.
 // - The tables (every mask row, the meta header, the shifts) live in
 //   shared memory, n_rows * Wp words and the header per block; config 10's
 //   29 rows x 64 words are 7.4 KB. The accept flags are one __any_sync per
@@ -223,12 +228,11 @@ __device__ __forceinline__ void publish(uint32_t* buf, const uint32_t (&v)[NW], 
   __syncwarp();
 }
 
-// y = F^T v (rev: y = F v) from the tables of bb (forward or reverse; the
-// shifts in bb carry the direction).
+// y = F^T v from the forward tables of bb (the shared-buffer step of
+// flags, anchor end and spans).
 template <int NW>
 __device__ __forceinline__ void expand(const BB& bb, uint32_t* vs, uint32_t* ps,
-                                       const uint32_t (&v)[NW], uint32_t (&y)[NW], int lane,
-                                       bool rev) {
+                                       const uint32_t (&v)[NW], uint32_t (&y)[NW], int lane) {
   publish<NW>(vs, v, lane);
 #pragma unroll
   for (int k = 0; k < NW; ++k) y[k] = 0;
@@ -253,14 +257,7 @@ __device__ __forceinline__ void expand(const BB& bb, uint32_t* vs, uint32_t* ps,
   }
   for (int i = 0; i < bb.n1; ++i) {
     const int c = bb.meta[kMetaRank1 + i];
-    const uint32_t* rm = bb.row(bb.r_rank1 + i);
-    if (rev) {
-      // every source in the row sees column c's bit
-      if ((vs[c >> 5] >> (c & 31)) & 1u) {
-#pragma unroll
-        for (int k = 0; k < NW; ++k) y[k] |= rm[lane + 32 * k];
-      }
-    } else if (any_row<NW>(bb, v, bb.r_rank1 + i, lane)) {
+    if (any_row<NW>(bb, v, bb.r_rank1 + i, lane)) {
       // column c's bit = any source of the row in v
 #pragma unroll
       for (int k = 0; k < NW; ++k) {
@@ -270,70 +267,36 @@ __device__ __forceinline__ void expand(const BB& bb, uint32_t* vs, uint32_t* ps,
   }
   if (bb.nf == 0) return;
   // the triangle: E and the families' rows are zero outside the window
-  // [lo, hi), and so is what the prefix (suffix) publishes, which is the
-  // TPU's zero fill at the window's edges
+  // [lo, hi), and so is what the prefix publishes, which is the TPU's zero
+  // fill at the window's edges. P = exclusive prefix-OR of v & E; target p
+  // gets any exit q < p - g
   const int lo = bb.lo, hi = bb.hi;
   const uint32_t* E = bb.row(bb.r_tri);
   uint32_t x[NW], s[NW];
   unsigned bal[NW];
-  if (!rev) {
-    // P = exclusive prefix-OR of v & E; target p gets any exit q < p - g
 #pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      x[k] = v[k] & E[lane + 32 * k];
-      bal[k] = __ballot_sync(kFull, x[k] != 0u);
-    }
-    bool lower = false;
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      const int w = lane + 32 * k;
-      const bool below = lower || (bal[k] & ((1u << lane) - 1u)) != 0u;
-      s[k] = (w >= lo && w < hi) ? ((x[k] | (0u - x[k])) << 1) | (below ? kFull : 0u) : 0u;
-      lower = lower || bal[k] != 0u;
-    }
-    publish<NW>(ps, s, lane);
-    for (int f = 0; f < bb.nf; ++f) {
-      const int A = bb.fA[f], sh = bb.fS[f];
-      const uint32_t* T = bb.row(bb.r_tri + 1 + f);
-#pragma unroll
-      for (int k = 0; k < NW; ++k) {
-        const int w = lane + 32 * k;
-        y[k] |= T[w] & __funnelshift_r(ps[w + A], ps[w + A + 1], sh);
-      }
-    }
-    return;
+  for (int k = 0; k < NW; ++k) {
+    x[k] = v[k] & E[lane + 32 * k];
+    bal[k] = __ballot_sync(kFull, x[k] != 0u);
   }
-  // reverse: per family, S = exclusive suffix-OR of v & T_g; exit q gets
-  // any target p > q + g
-  uint32_t acc[NW];
+  bool lower = false;
 #pragma unroll
-  for (int k = 0; k < NW; ++k) acc[k] = 0;
+  for (int k = 0; k < NW; ++k) {
+    const int w = lane + 32 * k;
+    const bool below = lower || (bal[k] & ((1u << lane) - 1u)) != 0u;
+    s[k] = (w >= lo && w < hi) ? ((x[k] | (0u - x[k])) << 1) | (below ? kFull : 0u) : 0u;
+    lower = lower || bal[k] != 0u;
+  }
+  publish<NW>(ps, s, lane);
   for (int f = 0; f < bb.nf; ++f) {
+    const int A = bb.fA[f], sh = bb.fS[f];
     const uint32_t* T = bb.row(bb.r_tri + 1 + f);
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
-      x[k] = v[k] & T[lane + 32 * k];
-      bal[k] = __ballot_sync(kFull, x[k] != 0u);
-    }
-    bool upper = false;
-#pragma unroll
-    for (int k = NW - 1; k >= 0; --k) {
       const int w = lane + 32 * k;
-      const bool above = upper || (bal[k] & ~((2u << lane) - 1u)) != 0u;
-      const uint32_t in_word = x[k] ? (kFull >> __clz(x[k])) >> 1 : 0u;
-      s[k] = (w >= lo && w < hi) ? in_word | (above ? kFull : 0u) : 0u;
-      upper = upper || bal[k] != 0u;
-    }
-    publish<NW>(ps, s, lane);
-    const int A = bb.fA[f], sh = bb.fS[f];
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      const int w = lane + 32 * k;
-      acc[k] |= __funnelshift_r(ps[w + A], ps[w + A + 1], sh);
+      y[k] |= T[w] & __funnelshift_r(ps[w + A], ps[w + A + 1], sh);
     }
   }
-#pragma unroll
-  for (int k = 0; k < NW; ++k) y[k] |= E[lane + 32 * k] & acc[k];
 }
 
 // v = expand(v | gate * seed) & mask[sym]
@@ -346,25 +309,10 @@ __device__ __forceinline__ void step_fwd(const BB& bb, uint32_t* vs, uint32_t* p
     for (int k = 0; k < NW; ++k) v[k] |= seed[lane + 32 * k];
   }
   uint32_t y[NW];
-  expand<NW>(bb, vs, ps, v, y, lane, false);
+  expand<NW>(bb, vs, ps, v, y, lane);
   const int r = bb.meta[kMetaSyms + sym];
 #pragma unroll
   for (int k = 0; k < NW; ++k) v[k] = r >= 0 ? y[k] & bb.row(r)[lane + 32 * k] : 0u;
-}
-
-// R = expand_rev((R | acc) & mask[sym]) on the reverse tables
-template <int NW>
-__device__ __forceinline__ void step_rev(const BB& bb, uint32_t* vs, uint32_t* ps, uint32_t (&R)[NW],
-                                         int sym, int lane) {
-  const uint32_t* acc = bb.row(bb.r_acc);
-  const int r = bb.meta[kMetaSyms + sym];
-  uint32_t m[NW];
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    const int w = lane + 32 * k;
-    m[k] = r >= 0 ? (R[k] | acc[w]) & bb.row(r)[w] : 0u;
-  }
-  expand<NW>(bb, vs, ps, m, R, lane, true);
 }
 
 // The anchored rescan of one record from start st: the first (lazy) or
@@ -438,13 +386,13 @@ __device__ int first_start(const int32_t* hits, int R, int r, int pos, int len, 
 #define RRX_BB_PARAMS                                                                   \
   const uint8_t *data, long long stride, int L, const int32_t *lengths, int R,          \
       const uint32_t *tab_g, const int32_t *meta_g, int W, int n_rows, const int32_t *live
-#define RRX_BB_SETUP(REV)                                                               \
+#define RRX_BB_SETUP                                                                    \
   extern __shared__ uint32_t smem[];                                                    \
   /* a block wholly past R or live skips the table load: the test is */                \
   /* uniform across the block, so it may come before load_bb's barrier */               \
   const int r0 = static_cast<int>(blockIdx.x) * kWarps;                                 \
   if (r0 >= R || (live != nullptr && r0 >= *live)) return;                              \
-  const BB bb = load_bb<NW>(smem, tab_g, meta_g, W, n_rows, REV);                       \
+  const BB bb = load_bb<NW>(smem, tab_g, meta_g, W, n_rows, false);                     \
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;                           \
   const int r = r0 + warp;                                                              \
   if (r >= R || (live != nullptr && r >= *live)) return;                                \
@@ -492,15 +440,17 @@ __device__ int first_start(const int32_t* hits, int R, int r, int pos, int len, 
 constexpr int kRegMaskWords = 32;  // diagonal mask words a lane keeps in registers
 constexpr int kRegSlots = 32;      // kRegMaskWords / NW at NW = 1
 
-// The register step's plan, built by the launcher from the spec's sorted
+// The register steps' plan, built by the launcher from the spec's sorted
 // offsets (host arrays) and passed by value (warp-uniform, read from the
-// parameter bank): the first n1r diagonals of class A = -1 (rows row1 on)
-// sit in register slots 0 .. n1r - 1 with bit shifts s1, the first n2r of
-// A = -2 (rows row2 on) in slots KD - 1 down with s2; n_rest diagonals are
-// stepped apart (the rest of the two classes and every other offset). The
-// triangle's families of A = 0 (gaps in [-31, 0]) are rows [frow0, frow0 +
-// nf0) with shifts sf0, those of A = -1 rows [frow1, frow1 + nf1) with
-// sf1, nf_rest others.
+// parameter bank): the first n1r diagonals of class 1 (word offset A = -1
+// forward, d in [1, 32]; A = 0 reverse, d in [0, 31]; rows row1 on) sit in
+// register slots 0 .. n1r - 1 with bit shifts s1, the first n2r of class 2
+// (A = -2 forward, d in [33, 64]; A = 1 reverse, d in [32, 63]; rows row2
+// on) in slots KD - 1 down with s2; n_rest diagonals are stepped apart (the
+// rest of the two classes and every other offset). The triangle's families
+// of A = 0 (gaps in [-31, 0] forward, [0, 31] reverse) are rows [frow0,
+// frow0 + nf0) with shifts sf0, those of A = -1 ([1, 32] forward, [-32, -1]
+// reverse) rows [frow1, frow1 + nf1) with sf1, nf_rest others (reg_plan).
 struct RegPlan {
   int n1r, row1, n2r, row2, n_rest;
   int s1[kRegSlots];
@@ -510,7 +460,7 @@ struct RegPlan {
   int sf1[kMaxFam];
 };
 
-__device__ __forceinline__ int floor_div(int x, int m) {
+__host__ __device__ __forceinline__ int floor_div(int x, int m) {
   return x >= 0 ? x / m : -((-x + m - 1) / m);
 }
 
@@ -557,17 +507,20 @@ __device__ __forceinline__ void lane_shift(const uint32_t (&x)[NW], int lane, ui
 }
 
 // The NW + 1 words from word A of the lane's words x on, A a compile-time
-// -2 .. 0: from [pv2 (lane - 2), pv (lane - 1), x, nx (lane + 1)].
+// -2 .. 1: from [pv2 (lane - 2), pv (lane - 1), x, nx (lane + 1), nx2
+// (lane + 2)]; the neighbours' words that A does not reach are not read.
 template <int NW, int A>
 __device__ __forceinline__ void window(const uint32_t (&pv2)[NW], const uint32_t (&pv)[NW],
                                        const uint32_t (&x)[NW], const uint32_t (&nx)[NW],
-                                       uint32_t (&p)[NW + 1]) {
+                                       const uint32_t (&nx2)[NW], uint32_t (&p)[NW + 1]) {
 #pragma unroll
   for (int j = 0; j <= NW; ++j) {
     const int m = 2 * NW + A + j;
-    p[j] = m < NW ? pv2[m < NW ? m : 0]
-                  : m < 2 * NW ? pv[m < 2 * NW ? m - NW : 0]
-                               : m < 3 * NW ? x[m < 3 * NW ? m - 2 * NW : 0] : nx[m - 3 * NW];
+    p[j] = m < NW       ? pv2[m < NW ? m : 0]
+           : m < 2 * NW ? pv[m < 2 * NW ? m - NW : 0]
+           : m < 3 * NW ? x[m < 3 * NW ? m - 2 * NW : 0]
+           : m < 4 * NW ? nx[m < 4 * NW ? m - 3 * NW : 0]
+                        : nx2[m < 5 * NW ? m - 4 * NW : 0];
   }
 }
 
@@ -607,6 +560,20 @@ __device__ __forceinline__ void shift_any(uint32_t (&y)[NW], const uint32_t (&x)
   shift_or<NW>(y, p, s, mask);
 }
 
+// The triangle's exit row (zero without a triangle) and its word window,
+// as both register steps keep them in registers.
+template <int NW>
+__device__ __forceinline__ void tri_rows(const BB& b, int lane, uint32_t (&exits)[NW],
+                                         uint32_t (&win)[NW]) {
+  lane_words<NW>(b.row(b.r_tri), lane, exits);  // a row past the accept rows when nf = 0
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    const int w = lane * NW + k;
+    win[k] = w >= b.lo && w < b.hi ? kFull : 0u;
+    if (b.nf == 0) exits[k] = 0u;
+  }
+}
+
 // step_fwd on registers: v = expand(v | gate * seed) & mask[sym] over the
 // same tables, with no shared state buffer and no warp barrier.
 template <int NW>
@@ -629,15 +596,9 @@ struct RegStep {
         for (int k = 0; k < NW; ++k) dm[j][k] = 0u;
       }
     }
+    tri_rows<NW>(b, lane, exits, win);
     lane_words<NW>(b.row(2), lane, seed);
     lane_words<NW>(b.row(b.r_acc), lane, acc);
-    lane_words<NW>(b.row(b.r_tri), lane, exits);  // a row past the accept rows when nf = 0
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      const int w = lane * NW + k;
-      win[k] = w >= b.lo && w < b.hi ? kFull : 0u;
-      if (b.nf == 0) exits[k] = 0u;
-    }
   }
 
   __device__ __forceinline__ void step(const BB& b, const RegPlan& pl, uint32_t (&v)[NW],
@@ -662,14 +623,14 @@ struct RegStep {
 #pragma unroll
       for (int k = 0; k < NW; ++k) pv2[k] = 0u;  // A = -2 lies in pv and u
     }
-    window<NW, -1>(pv2, pv, u, u, p);
+    window<NW, -1>(pv2, pv, u, u, u, p);
     const int n1r = opaque(pl.n1r);
 #pragma unroll
     for (int j = 0; j < KD; ++j) {
       if (j >= n1r) break;
       shift_or<NW>((j & 1) ? y1 : y0, p, pl.s1[j], dm[j]);
     }
-    window<NW, -2>(pv2, pv, u, u, p);
+    window<NW, -2>(pv2, pv, u, u, u, p);
     const int n2r = opaque(pl.n2r);
 #pragma unroll
     for (int j = 0; j < KD; ++j) {
@@ -722,7 +683,7 @@ struct RegStep {
       lane_shift<NW, 1>(pre, lane, ppv);
       lane_shift<NW, -1>(pre, lane, pnx);
       const uint32_t* trows = b.row(b.r_tri + 1);
-      window<NW, 0>(ppv, ppv, pre, pnx, p);  // gaps in [-31, 0]
+      window<NW, 0>(ppv, ppv, pre, pnx, pnx, p);  // gaps in [-31, 0]
       const int nf0 = opaque(pl.nf0);
 #pragma unroll
       for (int f = 0; f < kMaxFam; ++f) {
@@ -730,7 +691,7 @@ struct RegStep {
         lane_words<NW>(trows + (pl.frow0 + f) * Wp, lane, tg);
         shift_or<NW>(y1, p, pl.sf0[f], tg);
       }
-      window<NW, -1>(ppv, ppv, pre, pnx, p);  // gaps in [1, 32]
+      window<NW, -1>(ppv, ppv, pre, pnx, pnx, p);  // gaps in [1, 32]
       const int nf1 = opaque(pl.nf1);
 #pragma unroll
       for (int f = 0; f < kMaxFam; ++f) {
@@ -765,6 +726,192 @@ struct RegStep {
     uint32_t t = 0u;
 #pragma unroll
     for (int k = 0; k < NW; ++k) t |= v[k] & a[k];
+    return __any_sync(kFull, t != 0u) != 0;
+  }
+};
+
+// S = the exclusive suffix-OR of x inside the triangle's window (x is zero
+// outside it): bit p of S is any bit q > p of x. Each word's smear (the bits
+// below its highest one) and one __ballot_sync carry from the higher lanes;
+// lane l holds the contiguous words l NW .. l NW + NW - 1.
+template <int NW>
+__device__ __forceinline__ void suffix_excl(const uint32_t (&x)[NW], const uint32_t (&win)[NW],
+                                            int lane, uint32_t (&s)[NW]) {
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) any = any || x[k] != 0u;
+  bool above = (__ballot_sync(kFull, any) & ~((2u << lane) - 1u)) != 0u;
+#pragma unroll
+  for (int k = NW - 1; k >= 0; --k) {
+    const uint32_t in_word = x[k] != 0u ? (kFull >> __clz(x[k])) >> 1 : 0u;
+    s[k] = (in_word | (above ? kFull : 0u)) & win[k];
+    above = above || x[k] != 0u;
+  }
+}
+
+// The reverse step of rrx_bitband_reverse on registers, RegStep's mirror
+// over the reverse tables (load_bb with rev: the shifts negated, the
+// diagonals' masks source-indexed): R = expand_rev((R | acc) & mask[sym])
+// taken as expand_rev(u) | E[row] with u = R & mask[sym], the expansion
+// distributing over OR, and E[row] = expand_rev(acc & mask[row]) the table's
+// extra row per mask row (ops/scan_bitband.with_e_rows). The plan is
+// reg_plan's with rev: the diagonals of A = 0 (d in [0, 31]) and A = 1 (d in
+// [32, 63]) from the lane's own words and the next lane's (and the one
+// after at NW = 1), each slot's mask read from shared memory on the steps
+// that run the band step (the registers RegStep gives its masks buy the
+// reverse more resident warps, and its skipped steps outnumber the
+// others); the families of A = 0 (g in [0, 31]) and A = -1 (g in [-32,
+// -1]).
+//
+// A step whose u is empty on every lane (one __any_sync: the state holds no
+// live partial match that the symbol continues) is R = E[row] and skips
+// the band step (config 10's reverse state is E of its last symbol's row
+// on most steps of a record: only a y met backwards starts a partial
+// match). Otherwise the diagonals take one funnel shift and one AND-OR a
+// word each; rank-1 column c: bit c
+// of u from the one lane that holds it (a shuffle from a warp-uniform
+// lane), and if set the column's row ORed in; the triangle per family: the
+// exclusive suffix-OR of u & T_g (suffix_excl), shifted by -g and ANDed
+// with the exit row.
+template <int NW>
+struct RevStep {
+  static constexpr int KD = kRegMaskWords / NW;  // the plan's slots, as RegStep's
+  static constexpr int Wp = 32 * NW;
+  int lane, r_e;
+  uint32_t init_row[NW], exits[NW], win[NW];
+
+  __device__ __forceinline__ void init(const BB& b, const RegPlan& pl, int ln) {
+    lane = ln;
+    tri_rows<NW>(b, lane, exits, win);
+    lane_words<NW>(b.row(b.r_acc + 1), lane, init_row);
+    r_e = b.r_acc + 2;  // the E rows, after the accept seed and the initial-state rows
+  }
+
+  __device__ __forceinline__ void step(const BB& b, const RegPlan& pl, uint32_t (&R)[NW],
+                                       int sym) const {
+    const int mr = b.meta[kMetaSyms + sym];
+    uint32_t m[NW], e[NW];
+    lane_words<NW>(b.row(max(mr, 0)), lane, m);
+    lane_words<NW>(b.row(r_e + max(mr, 0)), lane, e);
+    const uint32_t live = mr >= 0 ? kFull : 0u;  // a symbol with no mask row empties R
+    uint32_t u[NW];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      u[k] = R[k] & m[k] & live;
+      any = any || u[k] != 0u;
+      R[k] = e[k] & live;
+    }
+    if (!__any_sync(kFull, any)) return;
+    uint32_t y0[NW], y1[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      y0[k] = 0u;
+      y1[k] = 0u;
+    }
+    // the diagonals of A = 0 and A = 1, two OR chains
+    uint32_t nx[NW], nx2[NW], p[NW + 1];
+    lane_shift<NW, -1>(u, lane, nx);
+    if constexpr (NW == 1) {
+      lane_shift<NW, -2>(u, lane, nx2);
+    } else {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) nx2[k] = 0u;  // A = 1 lies in u and nx
+    }
+    window<NW, 0>(u, u, u, nx, nx2, p);
+    uint32_t mk[NW];
+    const int n1r = opaque(pl.n1r);
+#pragma unroll
+    for (int j = 0; j < KD; ++j) {
+      if (j >= n1r) break;
+      lane_words<NW>(b.row(b.r_diag + pl.row1 + j), lane, mk);
+      shift_or<NW>((j & 1) ? y1 : y0, p, pl.s1[j], mk);
+    }
+    window<NW, 1>(u, u, u, nx, nx2, p);
+    const int n2r = opaque(pl.n2r);
+#pragma unroll
+    for (int j = 0; j < KD; ++j) {
+      if (j >= n2r) break;
+      lane_words<NW>(b.row(b.r_diag + pl.row2 + j), lane, mk);
+      shift_or<NW>((j & 1) ? y0 : y1, p, pl.s2[j], mk);
+    }
+    // every other diagonal: its shift and mask from shared memory
+    if (opaque(pl.n_rest) > 0) {
+      for (int i = 0; i < b.nd; ++i) {
+        if ((i >= pl.row1 && i < pl.row1 + pl.n1r) || (i >= pl.row2 && i < pl.row2 + pl.n2r)) {
+          continue;
+        }
+        lane_words<NW>(b.row(b.r_diag + i), lane, mk);
+        shift_any<NW>(y0, u, b.dA[i], b.dS[i], mk, lane);
+      }
+    }
+    // rank-1 columns: every source in column col's row sees its bit
+    for (int i = 0; i < b.n1; ++i) {
+      const int col = b.meta[kMetaRank1 + i];
+      const int wi = col >> 5;
+      uint32_t pick = 0u;
+#pragma unroll
+      for (int k = 0; k < NW; ++k) pick = k == wi % NW ? u[k] : pick;
+      const uint32_t w = __shfl_sync(kFull, pick, wi / NW);
+      if ((w >> (col & 31)) & 1u) {
+        uint32_t rm[NW];
+        lane_words<NW>(b.row(b.r_rank1 + i), lane, rm);
+#pragma unroll
+        for (int k = 0; k < NW; ++k) y1[k] |= rm[k];
+      }
+    }
+    // the triangle: per family, S = exclusive suffix-OR of u & T_g; exit q
+    // gets any target p > q + g
+    if (b.nf > 0) {
+      const uint32_t* trows = b.row(b.r_tri + 1);
+      uint32_t tg[NW], x[NW], sfx[NW], nb[NW];
+      const int nf0 = opaque(pl.nf0);
+#pragma unroll
+      for (int f = 0; f < kMaxFam; ++f) {  // gaps in [0, 31]: S's own and next lane's words
+        if (f >= nf0) break;
+        lane_words<NW>(trows + (pl.frow0 + f) * Wp, lane, tg);
+#pragma unroll
+        for (int k = 0; k < NW; ++k) x[k] = u[k] & tg[k];
+        suffix_excl<NW>(x, win, lane, sfx);
+        lane_shift<NW, -1>(sfx, lane, nb);
+        window<NW, 0>(sfx, sfx, sfx, nb, nb, p);
+        shift_or<NW>((f & 1) ? y1 : y0, p, pl.sf0[f], exits);
+      }
+      const int nf1 = opaque(pl.nf1);
+#pragma unroll
+      for (int f = 0; f < kMaxFam; ++f) {  // gaps in [-32, -1]: the previous lane's words
+        if (f >= nf1) break;
+        lane_words<NW>(trows + (pl.frow1 + f) * Wp, lane, tg);
+#pragma unroll
+        for (int k = 0; k < NW; ++k) x[k] = u[k] & tg[k];
+        suffix_excl<NW>(x, win, lane, sfx);
+        lane_shift<NW, 1>(sfx, lane, nb);
+        window<NW, -1>(nb, nb, sfx, sfx, sfx, p);
+        shift_or<NW>((f & 1) ? y0 : y1, p, pl.sf1[f], exits);
+      }
+      if (opaque(pl.nf_rest) > 0) {
+        for (int f = 0; f < b.nf; ++f) {
+          if ((f >= pl.frow0 && f < pl.frow0 + pl.nf0) ||
+              (f >= pl.frow1 && f < pl.frow1 + pl.nf1)) {
+            continue;
+          }
+          lane_words<NW>(trows + f * Wp, lane, tg);
+#pragma unroll
+          for (int k = 0; k < NW; ++k) x[k] = u[k] & tg[k];
+          suffix_excl<NW>(x, win, lane, sfx);
+          shift_any<NW>(y1, sfx, b.fA[f], b.fS[f], exits, lane);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NW; ++k) R[k] |= y0[k] | y1[k];
+  }
+
+  // an initial state is in R (the same on every lane)
+  __device__ __forceinline__ bool starts(const uint32_t (&R)[NW]) const {
+    uint32_t t = 0u;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) t |= R[k] & init_row[k];
     return __any_sync(kFull, t != 0u) != 0;
   }
 };
@@ -831,7 +978,7 @@ __global__ void __launch_bounds__(kBbThreads)
 template <int NW>
 __global__ void __launch_bounds__(kBbThreads)
     bb_flags_kernel(RRX_BB_PARAMS, int C, int seeded, uint32_t* words) {
-  RRX_BB_SETUP(false)
+  RRX_BB_SETUP
   const int Wt = (L + 2 + 31) >> 5;
   const long long cols = static_cast<long long>(R) * C;
   const long long col = static_cast<long long>(r) * C + lane;
@@ -860,33 +1007,53 @@ __global__ void __launch_bounds__(kBbThreads)
   }
 }
 
+// The reverse kernel's blocks stay resident and each warp takes its next
+// record from the launch's counter (next, zero at launch) when it is done:
+// a record whose reverse state stays live runs the band step on every step
+// and takes several times as long as one whose steps are skipped, and a
+// block of one record per warp would hold its slot until its slowest
+// record ends.
 template <int NW>
 __global__ void __launch_bounds__(kBbThreads)
-    bb_reverse_kernel(RRX_BB_PARAMS, uint32_t* hits) {
-  RRX_BB_SETUP(true)
+    bb_reverse_kernel(RRX_BB_PARAMS, uint32_t* hits, int32_t* next, const RegPlan plan) {
+  extern __shared__ uint32_t smem[];
+  // the records below live (all R without it); a block with none skips the
+  // table load (uniform across the block, so before load_bb's barrier)
+  const int n_rec = live != nullptr ? min(R, *live) : R;
+  if (static_cast<int>(blockIdx.x) * kWarps >= n_rec) return;
+  const BB bb = load_bb<NW>(smem, tab_g, meta_g, W, n_rows, true, false);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int Wt = (L + 2 + 31) >> 5;
-  for (int i = ((len + 1) >> 5) + 1 + lane; i < Wt; i += 32) {
-    hits[static_cast<long long>(i) * R + r] = 0u;
-  }
-  const int k_init = bb.r_acc + 1;
-  uint32_t Rv[NW];
-#pragma unroll
-  for (int k = 0; k < NW; ++k) Rv[k] = 0;
-  uint32_t word = 0;
-  walk_steps_rev(rec.row, len, [&](int t, int sym) {
-    step_rev<NW>(bb, vs, ps, Rv, sym, lane);
-    word |= (any_row<NW>(bb, Rv, k_init, lane) ? 1u : 0u) << (t & 31);
-    if ((t & 31) == 0) {
-      if (lane == 0) hits[static_cast<long long>(t >> 5) * R + r] = word;
-      word = 0;
+  RevStep<NW> st;
+  st.init(bb, plan, lane);
+  for (int r = static_cast<int>(blockIdx.x) * kWarps + warp; r < n_rec;) {
+    const Row rec = record(data, stride, L, lengths, r);
+    const int len = rec.len;
+    for (int i = ((len + 1) >> 5) + 1 + lane; i < Wt; i += 32) {
+      hits[static_cast<long long>(i) * R + r] = 0u;
     }
-  });
+    uint32_t Rv[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) Rv[k] = 0;
+    uint32_t word = 0;
+    walk_chunks_rev(rec.row, len, [&](int t, int sym) {
+      st.step(bb, plan, Rv, sym);
+      word |= (st.starts(Rv) ? 1u : 0u) << (t & 31);
+      if ((t & 31) == 0) {
+        if (lane == 0) hits[static_cast<long long>(t >> 5) * R + r] = word;
+        word = 0;
+      }
+    });
+    int nr = 0;
+    if (lane == 0) nr = atomicAdd(next, 1) + static_cast<int>(gridDim.x) * kWarps;
+    r = __shfl_sync(kFull, nr, 0);
+  }
 }
 
 template <int NW>
 __global__ void __launch_bounds__(kBbThreads)
     bb_anchor_kernel(RRX_BB_PARAMS, const int32_t* starts, int longest, int32_t* end) {
-  RRX_BB_SETUP(false)
+  RRX_BB_SETUP
   const int e = anchor_end<NW>(bb, vs, ps, rec.row, len, starts[r], longest != 0, lane);
   if (lane == 0) end[r] = e;
 }
@@ -895,7 +1062,7 @@ template <int NW>
 __global__ void __launch_bounds__(kBbThreads)
     bb_spans_kernel(RRX_BB_PARAMS, const int32_t* hits, int cap, int longest, int32_t* starts,
                     int32_t* ends, int32_t* cnt, uint8_t* over) {
-  RRX_BB_SETUP(false)
+  RRX_BB_SETUP
   int32_t* srow = starts + static_cast<long long>(r) * cap;
   int32_t* erow = ends + static_cast<long long>(r) * cap;
   int pos = 0, n = 0;
@@ -954,10 +1121,25 @@ int check_bb(const void* data, long long stride, int L, int R, int W, int n_rows
   return check_rows(data, stride, L, R);
 }
 
-// The register step's plan (RegPlan) of nd diagonal offsets and nf triangle
+// The first row and the count of the ascending offsets x[0 .. n) whose
+// shift (by sg * x states) has word offset A = floor(-sg * x / 32) == a: a
+// contiguous run, since the offsets ascend.
+void plan_class(const int* x, int n, int sg, int a, int* first, int* count) {
+  int i = 0;
+  while (i < n && floor_div(-sg * x[i], 32) != a) ++i;
+  int j = i;
+  while (j < n && floor_div(-sg * x[j], 32) == a) ++j;
+  *first = i;
+  *count = j - i;
+}
+
+// The register steps' plan (RegPlan) of nd diagonal offsets and nf triangle
 // gaps (host arrays, ascending: the spec's diags and tri_gaps, the meta
-// header's) at NW words a lane.
-int reg_plan(int NW, int nd, const int* diags, int nf, const int* gaps, RegPlan* pl) {
+// header's) at NW words a lane, forward (RegStep: the shift by d) or rev
+// (RevStep: the shift by -d). The diagonal classes are the word offsets A
+// = -1 and -2 forward (d in [1, 32] and [33, 64]) and A = 0 and 1 reverse
+// (d in [0, 31] and [32, 63]); the families' are A = 0 and -1 both ways.
+int reg_plan(int NW, int nd, const int* diags, int nf, const int* gaps, bool rev, RegPlan* pl) {
   if (nd < 0 || nd > kMaxDiags || nf < 0 || nf > kMaxFam || (nd > 0 && diags == nullptr) ||
       (nf > 0 && gaps == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -972,43 +1154,48 @@ int reg_plan(int NW, int nd, const int* diags, int nf, const int* gaps, RegPlan*
   }
   *pl = RegPlan{};
   const int KD = kRegMaskWords / NW;
-  int b1 = 0;  // the rows of each class: [b1, b2) d in [1, 32], [b2, b3) d in [33, 64]
-  while (b1 < nd && diags[b1] < 1) ++b1;
-  int b2 = b1;
-  while (b2 < nd && diags[b2] <= 32) ++b2;
-  int b3 = b2;
-  while (b3 < nd && diags[b3] <= 64) ++b3;
-  pl->row1 = b1;
-  pl->n1r = min(b2 - b1, KD);
-  pl->row2 = b2;
-  pl->n2r = min(b3 - b2, KD - pl->n1r);
+  const int sg = rev ? -1 : 1;
+  int n1, n2;
+  plan_class(diags, nd, sg, rev ? 0 : -1, &pl->row1, &n1);
+  plan_class(diags, nd, sg, rev ? 1 : -2, &pl->row2, &n2);
+  pl->n1r = min(n1, KD);
+  pl->n2r = min(n2, KD - pl->n1r);
   pl->n_rest = nd - pl->n1r - pl->n2r;
-  for (int j = 0; j < pl->n1r; ++j) pl->s1[j] = (-diags[b1 + j]) & 31;
-  for (int j = 0; j < pl->n2r; ++j) pl->s2[j] = (-diags[b2 + j]) & 31;
-  int c0 = 0;  // the families: [c0, c1) g in [-31, 0], [c1, c2) g in [1, 32]
-  while (c0 < nf && gaps[c0] < -31) ++c0;
-  int c1 = c0;
-  while (c1 < nf && gaps[c1] <= 0) ++c1;
-  int c2 = c1;
-  while (c2 < nf && gaps[c2] <= 32) ++c2;
-  pl->frow0 = c0;
-  pl->nf0 = c1 - c0;
-  pl->frow1 = c1;
-  pl->nf1 = c2 - c1;
+  for (int j = 0; j < pl->n1r; ++j) pl->s1[j] = (-sg * diags[pl->row1 + j]) & 31;
+  for (int j = 0; j < pl->n2r; ++j) pl->s2[j] = (-sg * diags[pl->row2 + j]) & 31;
+  plan_class(gaps, nf, sg, 0, &pl->frow0, &pl->nf0);
+  plan_class(gaps, nf, sg, -1, &pl->frow1, &pl->nf1);
   pl->nf_rest = nf - pl->nf0 - pl->nf1;
-  for (int f = 0; f < pl->nf0; ++f) pl->sf0[f] = (-gaps[c0 + f]) & 31;
-  for (int f = 0; f < pl->nf1; ++f) pl->sf1[f] = (-gaps[c1 + f]) & 31;
+  for (int f = 0; f < pl->nf0; ++f) pl->sf0[f] = (-sg * gaps[pl->frow0 + f]) & 31;
+  for (int f = 0; f < pl->nf1; ++f) pl->sf1[f] = (-sg * gaps[pl->frow1 + f]) & 31;
   return 0;
 }
 
-// `bufs`: the kernel's warps have state buffers (every kernel but stats).
+// `bufs`: the kernel's warps have state buffers (every kernel but stats and
+// reverse). One block per kWarps records or, `resident` (the reverse, whose
+// warps take records from a counter), no more blocks than fit on the card at
+// once.
 template <class K, class... Args>
-int launch_bb(K kernel, int R, int W, int n_rows, bool bufs, void* stream, Args... args) {
+int launch_bb(K kernel, int R, int W, int n_rows, bool bufs, bool resident, void* stream,
+              Args... args) {
   if (R == 0) return 0;
   const size_t smem = bb_smem_bytes(W, n_rows, bufs);
-  const int e = allow_smem(kernel, smem);
+  int e = allow_smem(kernel, smem);
   if (e != 0) return e;
-  const int blocks = (R + kWarps - 1) / kWarps;
+  int blocks = (R + kWarps - 1) / kWarps;
+  if (resident) {
+    int dev = 0, n_sm = 0, per_sm = 0;
+    e = static_cast<int>(cudaGetDevice(&dev));
+    if (e == 0) {
+      e = static_cast<int>(cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev));
+    }
+    if (e == 0) {
+      e = static_cast<int>(
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBbThreads, smem));
+    }
+    if (e != 0) return e;
+    blocks = min(blocks, max(1, n_sm * per_sm));
+  }
   kernel<<<blocks, kBbThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1052,10 +1239,10 @@ int rrx_bitband_stats(RRX_BB_HEAD, int C, int seeded, int nullable, void* cnt, v
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
     RegPlan plan;
-    const int e = reg_plan(NW, nd, diags, nf, gaps, &plan);
+    const int e = reg_plan(NW, nd, diags, nf, gaps, false, &plan);
     if (e != 0) return e;
-    return launch_bb(bb_stats_kernel<NW>, R, W, n_rows, false, stream, RRX_BB_ARGS, C, seeded,
-                     nullable, static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
+    return launch_bb(bb_stats_kernel<NW>, R, W, n_rows, false, false, stream, RRX_BB_ARGS, C,
+                     seeded, nullable, static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
                      static_cast<int32_t*>(last), static_cast<uint8_t*>(full), plan);
   });
 }
@@ -1067,19 +1254,25 @@ int rrx_bitband_flags(RRX_BB_HEAD, int C, int seeded, void* words, void* stream)
   if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
-    return launch_bb(bb_flags_kernel<NW>, R, W, n_rows, true, stream, RRX_BB_ARGS, C, seeded,
+    return launch_bb(bb_flags_kernel<NW>, R, W, n_rows, true, false, stream, RRX_BB_ARGS, C, seeded,
                      static_cast<uint32_t*>(words));
   });
 }
 
-// tab: the reverse table (BitbandTables.tab_r); hits: [ceil((L+2)/32)][R]
-int rrx_bitband_reverse(RRX_BB_HEAD, void* hits, void* stream) {
+// tab: the reverse table with its E rows (BitbandTables.tab_r); hits:
+// [ceil((L+2)/32)][R]; next: a device int32 set to 0, the record counter
+// the warps take work from; then the spec's offsets and gaps as for stats
+int rrx_bitband_reverse(RRX_BB_HEAD, void* hits, void* next, int nd, const int* diags, int nf,
+                        const int* gaps, void* stream) {
   const int bad = check_bb(data, stride, L, R, W, n_rows, 0);
   if (bad != 0) return bad;
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
-    return launch_bb(bb_reverse_kernel<NW>, R, W, n_rows, true, stream, RRX_BB_ARGS,
-                     static_cast<uint32_t*>(hits));
+    RegPlan plan;
+    const int e = reg_plan(NW, nd, diags, nf, gaps, true, &plan);
+    if (e != 0) return e;
+    return launch_bb(bb_reverse_kernel<NW>, R, W, n_rows, false, true, stream, RRX_BB_ARGS,
+                     static_cast<uint32_t*>(hits), static_cast<int32_t*>(next), plan);
   });
 }
 
@@ -1090,7 +1283,7 @@ int rrx_bitband_anchor_end(RRX_BB_HEAD, const void* starts, int longest, void* e
   if (bad != 0) return bad;
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
-    return launch_bb(bb_anchor_kernel<NW>, R, W, n_rows, true, stream, RRX_BB_ARGS,
+    return launch_bb(bb_anchor_kernel<NW>, R, W, n_rows, true, false, stream, RRX_BB_ARGS,
                      static_cast<const int32_t*>(starts), longest, static_cast<int32_t*>(end));
   });
 }
@@ -1104,7 +1297,7 @@ int rrx_bitband_spans(RRX_BB_HEAD, const void* hits, int cap, int longest, void*
   if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
-    return launch_bb(bb_spans_kernel<NW>, R, W, n_rows, true, stream, RRX_BB_ARGS,
+    return launch_bb(bb_spans_kernel<NW>, R, W, n_rows, true, false, stream, RRX_BB_ARGS,
                      static_cast<const int32_t*>(hits), cap, longest,
                      static_cast<int32_t*>(starts), static_cast<int32_t*>(ends),
                      static_cast<int32_t*>(cnt), static_cast<uint8_t*>(over));
@@ -1123,7 +1316,7 @@ int rrx_bitband_occupancy(int kernel, int W, int n_rows, int* blocks_per_sm) {
       case 1:
         return occupancy_bb(bb_flags_kernel<NW>, W, n_rows, true, blocks_per_sm);
       case 2:
-        return occupancy_bb(bb_reverse_kernel<NW>, W, n_rows, true, blocks_per_sm);
+        return occupancy_bb(bb_reverse_kernel<NW>, W, n_rows, false, blocks_per_sm);
       case 3:
         return occupancy_bb(bb_anchor_kernel<NW>, W, n_rows, true, blocks_per_sm);
       case 4:

@@ -203,6 +203,45 @@ __device__ __forceinline__ void walk_chunks(const uint4* row, int len, F&& f) {
   f(len + 1, kEos);
 }
 
+// walk_steps backwards, t = len+1 .. 0, one call site of f: an outer loop
+// over segments (the EOS step, the record's 16-byte chunks from the last,
+// the BOS step) and an inner one over a segment's steps. Each chunk is
+// loaded a chunk ahead (chunk c - 1 is asked for when chunk c is taken
+// up, so its latency hides behind 16 steps) and its bytes are taken off the
+// top of the chunk in registers: the last chunk is first shifted up until
+// byte len-1 is its top byte, then each step takes the top byte and shifts
+// the chunk up by 8 bits. No step tests for a chunk's end.
+template <class F>
+__device__ __forceinline__ void walk_chunks_rev(const uint4* row, int len, F&& f) {
+  auto up8 = [](uint4& x) {
+    x.w = __funnelshift_l(x.z, x.w, 8);
+    x.z = __funnelshift_l(x.y, x.z, 8);
+    x.y = __funnelshift_l(x.x, x.y, 8);
+    x.x <<= 8;
+  };
+  const int nc = (len + 15) >> 4;  // the record's chunks
+  uint4 nq = nc > 0 ? __ldg(row + nc - 1) : make_uint4(0u, 0u, 0u, 0u);
+  int t = len + 1;
+#pragma unroll 1
+  for (int c = nc; c >= -1; --c) {  // c = nc: the EOS step; c = -1: the BOS step
+    uint4 q = nq;
+    int n = 1, fixed = c < 0 ? kBos : kEos;
+    if (c >= 0 && c < nc) {
+      n = min(16, len - 16 * c);
+      fixed = -1;
+      nq = __ldg(row + max(c - 1, 0));
+#pragma unroll 1
+      for (int k = n; k < 16; ++k) up8(q);  // byte n-1 of the chunk to its top
+    }
+#pragma unroll 1
+    for (int b = 0; b < n; ++b, --t) {
+      const int sym = fixed >= 0 ? fixed : static_cast<int>(q.w >> 24);
+      up8(q);
+      f(t, sym);
+    }
+  }
+}
+
 // walk_steps backwards: t = len+1 .. 0.
 template <class F>
 __device__ __forceinline__ void walk_steps_rev(const uint4* row, int len, F&& f) {

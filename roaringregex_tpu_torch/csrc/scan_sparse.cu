@@ -46,13 +46,16 @@
 // - One warp per record, 16 warps per block, and no more blocks than are
 //   resident at once: each block copies the table once and its warps take
 //   records from a counter in global memory until none is left.
-// - rrx_sparse_stats and _flags (step_regs) keep the record's state in
-//   registers: lane l holds state words l + 32 j (j < ceil(W / 32) <= 4;
+// - rrx_sparse_stats and _flags (step_regs) and rrx_sparse_reverse
+//   (step_rev_regs) keep the record's state in registers: lane l holds
+//   state words l + 32 j (j < ceil(W / 32) <= 4;
 //   lanes past W hold zero and join every vote), so block 8 j + g sits in
-//   lanes 4 g .. 4 g + 3 of slot j. The seed row (the expansion of state 0,
-//   live at every step of a seeded scan) is ORed in from registers. Each
-//   source block with a live state (a ballot of the lanes' words) takes one
-//   of two forms by its live count, a warp-uniform popcount:
+//   lanes 4 g .. 4 g + 3 of slot j. The forward seed row (the expansion of
+//   state 0, live at every step of a seeded scan) is ORed in from
+//   registers. In both directions (walk_live, over the walk tables of the
+//   direction: the reverse ones are F transposed) each source block with a
+//   live state (a ballot of the lanes' words) takes one of two forms by its
+//   live count, a warp-uniform popcount:
 //   - at most walk_max live states (ops/scan_sparse.WALK_MAX, fixed by
 //     chip_smoke.py's sweep on log text and chain records): each live
 //     state's own list of nonzero partial rows (built on the host from
@@ -73,17 +76,27 @@
 //   instruction issue and follows the live states: K120's log text keeps ~5
 //   live (the seed included) in ~3.5 of 7 source blocks, ~150 instructions
 //   a step; the memory carries one input byte a step.
+// - The reverse step R = expand((R | acc) & mask[sym]) is taken as
+//   expand(R & mask[sym]) | E[row]: the expansion distributes over OR, and
+//   E[row] = expand(acc & mask[row]) is one row per mask row built on the
+//   host (the reverse walk tables' head; K120: 28 rows of 28 words). The
+//   accept set, live at every step, then costs one row load and OR a step
+//   instead of a walk of every accepting state, and the walk visits only the live
+//   partial matches of R & mask[sym]. The hit (state 0 in R) is bit 0 of
+//   lane 0's first word: no vote; lane 0 stores the hit word every 32 steps.
 // - Not tensor cores: a step is a bit-vector times a bit-matrix per record.
 //   An int8 wgmma over 64 records in lockstep would do lanes^2 multiply-adds
 //   a record-step (826^2 for K120) to obtain what ~5 row ORs give, and
 //   records of different lengths would wait for each other.
-// - rrx_sparse_reverse and the stream-fed kernels still run expand: the
-//   state in two buffers of W words in shared memory (the current and the
-//   next), every entry of every output block visited (a source block with
-//   no live bit costs a uniform test), for a live one each lane's 4 bits
-//   tested, 4 predicated 16-byte row loads and 16 ORs, 4 __reduce_or_sync
-//   an output block and a __syncwarp a step: ~35 instructions an entry
-//   whatever the live count (~1,250 scheduler cycles a K120 step).
+// - Only the stream-fed kernels (rows 11-13 of PERF.md's table) still run
+//   expand: the state in two buffers of W words in shared memory (the
+//   current and the next), every entry of every output block visited (a
+//   source block with no live bit costs a uniform test), for a live one
+//   each lane's 4 bits tested, 4 predicated 16-byte row loads and 16 ORs, 4
+//   __reduce_or_sync an output block and a __syncwarp a step: ~35
+//   instructions an entry whatever the live count (~1,250 scheduler cycles
+//   a K120 step, measured on rrx_sparse_reverse before it took the register
+//   step).
 // - The table (the partial blocks, 2 KB each, the mask rows and the accept
 //   rows) and, for the walk kernels, the walk tables are copied into shared
 //   memory when they fit beside the meta and the state buffers (227 KB a
@@ -134,8 +147,9 @@ constexpr size_t kSmemLimit = 232448;
 
 // One direction's tables as a kernel reads them: tab is shared memory in
 // the shared form and global memory in the global form; meta is always in
-// shared memory. The forward walk tables (rrx_sparse_stats and _flags only,
-// null elsewhere) live where the table does.
+// shared memory. The walk tables (rrx_sparse_stats and _flags: the forward
+// ones; rrx_sparse_reverse: the reverse ones; null in the stream-fed
+// kernels) live where the table does.
 struct Sp {
   const uint4* blk;   // [n_part][128] rows
   const uint4* mask;  // [n_mask][nb]
@@ -143,11 +157,12 @@ struct Sp {
   const int* meta;
   const int2* ent;  // [n_ent] (source block, partial block or -1)
   int nb, W, C;
-  // walk: [W seed words | nb full masks | n_mask block masks | nb + 1
-  // source-block offsets | n_part source-block entries | lanes + 1 state
-  // offsets | the state entries], padded to a multiple of 4 words
-  // (ops/scan_sparse._walk)
-  const uint32_t* seed;   // [W] the expansion of {state 0}
+  // walk: [the head rows, W words each | nb full masks | n_mask block
+  // masks | nb + 1 source-block offsets | n_part source-block entries |
+  // lanes + 1 state offsets | the state entries], padded to a multiple of 4
+  // words (ops/scan_sparse._walk)
+  const uint32_t* seed;   // forward: [W] the expansion of {state 0}; reverse:
+                          // [n_mask][W] E, the expansion of acc & mask[row]
   const uint32_t* full;   // [nb] bit o: U maps source block s onto output block o
   const uint32_t* mblk;   // [n_mask] bit o: mask row r is nonzero in output block o
   const int* sptr;        // [nb + 1] each source block's partial blocks in sent
@@ -161,10 +176,12 @@ inline size_t sparse_smem_bytes(int n_tab, int n_meta, int W, bool global_tab) {
          (static_cast<size_t>(n_meta) + 2 * kWarps * W + (global_tab ? 0 : n_tab));
 }
 
-// rrx_sparse_stats and _flags: the meta, one channel buffer of W words per
-// warp and, in the shared form, the walk tables and the table.
-inline size_t walk_smem_bytes(int n_tab, int n_meta, int n_walk, int W, bool global_tab) {
-  return sizeof(uint32_t) * (static_cast<size_t>(n_meta) + kWarps * W +
+// The walk kernels: the meta, bufs channel buffers of W words per warp
+// (rrx_sparse_stats and _flags one, rrx_sparse_reverse none) and, in the
+// shared form, the walk tables and the table.
+inline size_t walk_smem_bytes(int n_tab, int n_meta, int n_walk, int W, bool global_tab,
+                              int bufs) {
+  return sizeof(uint32_t) * (static_cast<size_t>(n_meta) + bufs * kWarps * W +
                              (global_tab ? 0 : static_cast<size_t>(n_walk) + n_tab));
 }
 
@@ -184,13 +201,14 @@ __device__ __forceinline__ uint4 and4(const uint4& a, const uint4& b) {
 
 // Copies the meta (and, in the shared form, the walk tables and the table)
 // into shared memory after the meta and bufs state buffers of W words per
-// warp. Every thread of a block that holds a record calls it (it ends in
-// __syncthreads) before any thread returns.
+// warp. The walk tables' head is one row (forward) or, rev_walk, one row
+// per mask row (reverse). Every thread of a block that holds a record calls
+// it (it ends in __syncthreads) before any thread returns.
 template <bool kGlobal>
 __device__ __forceinline__ Sp load_sp(uint32_t* smem, const uint32_t* __restrict__ tab_g,
                                       const int32_t* __restrict__ meta_g, int n_meta, int bufs,
                                       const int32_t* __restrict__ walk_g = nullptr,
-                                      int n_walk = 0) {
+                                      int n_walk = 0, bool rev_walk = false) {
   int* meta = reinterpret_cast<int*>(smem);
   for (int i = threadIdx.x; i < n_meta; i += blockDim.x) meta[i] = meta_g[i];
   const int nb = meta_g[0], n_part = meta_g[1], n_mask = meta_g[3], C = meta_g[4];
@@ -220,7 +238,7 @@ __device__ __forceinline__ Sp load_sp(uint32_t* smem, const uint32_t* __restrict
   sp.C = C;
   if (walk != nullptr) {
     sp.seed = walk;
-    sp.full = walk + W;
+    sp.full = walk + (rev_walk ? n_mask : 1) * W;
     sp.mblk = sp.full + nb;
     sp.sptr = reinterpret_cast<const int*>(sp.mblk + n_mask);
     sp.sent = sp.sptr + nb + 1;
@@ -230,7 +248,7 @@ __device__ __forceinline__ Sp load_sp(uint32_t* smem, const uint32_t* __restrict
   return sp;
 }
 
-// The warp's two state buffers of the expand kernels (16-byte aligned:
+// The warp's two state buffers of the stream-fed kernels (16-byte aligned:
 // n_meta and W are multiples of 4).
 __device__ __forceinline__ uint32_t* warp_buf(uint32_t* smem, int n_meta, int W, int warp,
                                               int which) {
@@ -238,12 +256,13 @@ __device__ __forceinline__ uint32_t* warp_buf(uint32_t* smem, int n_meta, int W,
 }
 
 // One expansion of src into dst (both [nb] 16-byte blocks of one warp's
-// buffers), the step of the reverse and the stream-fed kernels. Forward
-// (kFwd, the stream-fed kernels): the seed ORs state 0 into source block 0
+// buffers), the step of the stream-fed kernels. Forward (kFwd,
+// rrx_sparse_stream_stats and _flags): the seed ORs state 0 into source block 0
 // when gate, and each output block is masked by the record's row of the
 // mask stream mrow ([nb] 16-byte words in global memory), skipping an
 // output block whose mask is zero; the union accept row's test comes back
-// in acc_hit. Reverse: no mask (src is already masked). Returns whether any
+// in acc_hit. Reverse (rrx_sparse_stream_reverse): no mask (src is already
+// masked). Returns whether any
 // state of dst is live (forward) or state 0 is (reverse). Lane 0 writes
 // dst; the caller syncs the warp.
 template <bool kGlobal, bool kFwd>
@@ -348,16 +367,6 @@ __device__ __forceinline__ int next_record(int32_t* next, int lane) {
   return __shfl_sync(kFull, r, 0);
 }
 
-// The start of one record: its row and length, and its state buffer
-// cleared.
-__device__ __forceinline__ Row begin_record(const uint8_t* data, long long stride, int L,
-                                            const int32_t* lengths, int r, uint4* va, int nb,
-                                            int lane) {
-  for (int i = lane; i < nb; i += 32) va[i] = make_uint4(0, 0, 0, 0);
-  __syncwarp();
-  return record(data, stride, L, lengths, r);
-}
-
 // The forward walk t = 0 .. len+1 (sym = BOS, the bytes, EOS): f(t, sym)
 // returns false to stop (the rest of the steps change no output).
 template <class F>
@@ -375,7 +384,7 @@ __device__ __forceinline__ void walk_fwd_until(const uint4* row, int len, F&& f)
   }
 }
 
-// ---- the forward step of rrx_sparse_stats and rrx_sparse_flags: the
+// ---- the register steps of rrx_sparse_stats, _flags and _reverse: the
 // record's state in registers, lane l holding state words l + 32 j in v[j]
 // (j < NJ = ceil(W / 32); zero past W). Word w is word w % 4 of block w / 4,
 // so block 8 j + g lives in lanes 4 g .. 4 g + 3 of slot j.
@@ -389,43 +398,28 @@ __device__ __forceinline__ void or_slot(uint32_t (&y)[NJ], int jj, uint32_t x) {
   }
 }
 
-// One forward step: v = expand(v | gate * {state 0}) & mask[sym]. The seed
-// row (seed, this lane's words of the expansion of {state 0}) stands for the
-// gate, so state 0 enters the walk only when it is live itself. Per source
-// block with a live state (a ballot over the lanes' words): with at most
-// walk_max live states, each live state's nonzero partial rows (sp.ptr /
-// sp.rent) are ORed in by the lanes that own their output words, one 4-byte
-// load each; with more, the block-parallel form (lane l takes bit l of the
-// block's four words, 16-byte row loads, __reduce_or_sync per partial
-// block) as in expand. A live source block also sets U's full output blocks.
-// Rows and partial blocks whose output block is zero under the step's mask
-// are skipped; a symbol with a zero mask clears the state at once. Returns
-// whether a state is live; hit: the union accept row meets v.
+// The expansion of x over one direction's walk tables, shared by both
+// steps: per source block with a live state (a ballot over the lanes'
+// words), with at most walk_max live states each live state's nonzero
+// partial rows (sp.ptr / sp.rent) are ORed into y by the lanes that own
+// their output words, one 4-byte load each; with more, the block-parallel
+// form (lane l takes bit l of the block's four words, 16-byte row loads,
+// __reduce_or_sync per partial block) as in expand. Rows and partial blocks
+// whose output block is not in ob are skipped. Returns the output blocks
+// that U sets whole (those of the live source blocks).
 template <int NJ, bool kGlobal>
-__device__ __forceinline__ bool step_regs(const Sp& sp, uint32_t (&v)[NJ],
-                                          const uint32_t (&seed)[NJ],
-                                          const uint32_t (&acc)[NJ], bool gate, int sym,
-                                          int walk_max, int lane, bool& hit) {
-  const int mr = sp.meta[kMetaSyms + sym];
-  const uint32_t mb = mr >= 0 ? ld<kGlobal>(sp.mblk + mr) : 0u;
-  hit = false;
-  if (mb == 0u) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) v[j] = 0u;
-    return false;
-  }
+__device__ __forceinline__ uint32_t walk_live(const Sp& sp, const uint32_t (&x)[NJ],
+                                              uint32_t (&y)[NJ], uint32_t ob, int walk_max,
+                                              int lane) {
   const int grp = lane >> 2, sub = lane & 3;
   const uint32_t* blk32 = reinterpret_cast<const uint32_t*>(sp.blk);
-  uint32_t y[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) y[j] = gate ? seed[j] : 0u;
   uint32_t full = 0u;  // output blocks set whole by U
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
-    const uint32_t x = v[j];
-    unsigned lw = __ballot_sync(kFull, x != 0u);  // the live words of slot j
+    const uint32_t xj = x[j];
+    unsigned lw = __ballot_sync(kFull, xj != 0u);  // the live words of slot j
     if (lw == 0u) continue;
-    int pc = __popc(x);  // live states of this lane's block
+    int pc = __popc(xj);  // live states of this lane's block
     pc += __shfl_xor_sync(kFull, pc, 1);
     pc += __shfl_xor_sync(kFull, pc, 2);
     const unsigned dense = __ballot_sync(kFull, pc > walk_max);
@@ -437,13 +431,13 @@ __device__ __forceinline__ bool step_regs(const Sp& sp, uint32_t (&v)[NJ],
         // the block-parallel form, once for the block's four words
         const int q = src & ~3;
         lw &= ~(0xFu << q);
-        const uint32_t x0 = __shfl_sync(kFull, x, q), x1 = __shfl_sync(kFull, x, q + 1);
-        const uint32_t x2 = __shfl_sync(kFull, x, q + 2), x3 = __shfl_sync(kFull, x, q + 3);
+        const uint32_t x0 = __shfl_sync(kFull, xj, q), x1 = __shfl_sync(kFull, xj, q + 1);
+        const uint32_t x2 = __shfl_sync(kFull, xj, q + 2), x3 = __shfl_sync(kFull, xj, q + 3);
         const int e1 = ld<kGlobal>(sp.sptr + s + 1);
         for (int e = ld<kGlobal>(sp.sptr + s); e < e1; ++e) {
           const int en = ld<kGlobal>(sp.sent + e);
           const int o = en & 31;
-          if (((mb >> o) & 1u) == 0u) continue;
+          if (((ob >> o) & 1u) == 0u) continue;
           const uint4* rows = sp.blk + (en >> 5) * 128 + lane;
           uint4 a = make_uint4(0, 0, 0, 0);
           if ((x0 >> lane) & 1u) {
@@ -469,7 +463,7 @@ __device__ __forceinline__ bool step_regs(const Sp& sp, uint32_t (&v)[NJ],
       } else {
         // the live-state walk over this word's bits
         lw &= lw - 1u;
-        uint32_t b = __shfl_sync(kFull, x, src);
+        uint32_t b = __shfl_sync(kFull, xj, src);
         const int base = 32 * (32 * j + src);
         while (b != 0u) {
           const int st = base + __ffs(b) - 1;
@@ -478,7 +472,7 @@ __device__ __forceinline__ bool step_regs(const Sp& sp, uint32_t (&v)[NJ],
           for (int e = ld<kGlobal>(sp.ptr + st); e < e1; ++e) {
             const int en = ld<kGlobal>(sp.rent + e);
             const int o = en & 31;
-            if (((mb >> o) & 1u) != 0u && (o & 7) == grp) {
+            if (((ob >> o) & 1u) != 0u && (o & 7) == grp) {
               or_slot(y, o >> 3, ld<kGlobal>(blk32 + (en >> 5) * 4 + sub));
             }
           }
@@ -486,6 +480,33 @@ __device__ __forceinline__ bool step_regs(const Sp& sp, uint32_t (&v)[NJ],
       }
     }
   }
+  return full;
+}
+
+// One forward step: v = expand(v | gate * {state 0}) & mask[sym]. The seed
+// row (seed, this lane's words of the expansion of {state 0}) stands for the
+// gate, so state 0 enters the walk only when it is live itself; walk_live
+// expands v, skipping the output blocks that the step's mask zeroes, and a
+// symbol with a zero mask clears the state at once. Returns whether a state
+// is live; hit: the union accept row meets v.
+template <int NJ, bool kGlobal>
+__device__ __forceinline__ bool step_regs(const Sp& sp, uint32_t (&v)[NJ],
+                                          const uint32_t (&seed)[NJ],
+                                          const uint32_t (&acc)[NJ], bool gate, int sym,
+                                          int walk_max, int lane, bool& hit) {
+  const int mr = sp.meta[kMetaSyms + sym];
+  const uint32_t mb = mr >= 0 ? ld<kGlobal>(sp.mblk + mr) : 0u;
+  hit = false;
+  if (mb == 0u) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) v[j] = 0u;
+    return false;
+  }
+  const int grp = lane >> 2;
+  uint32_t y[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) y[j] = gate ? seed[j] : 0u;
+  const uint32_t full = walk_live<NJ, kGlobal>(sp, v, y, mb, walk_max, lane);
   const uint32_t* mask32 = reinterpret_cast<const uint32_t*>(sp.mask) + mr * sp.W;
   bool live = false, acc_hit = false;
 #pragma unroll
@@ -499,6 +520,38 @@ __device__ __forceinline__ bool step_regs(const Sp& sp, uint32_t (&v)[NJ],
   }
   hit = __any_sync(kFull, acc_hit);
   return __any_sync(kFull, live);
+}
+
+// One reverse step on the reverse walk tables (F transposed): R =
+// expand((R | acc) & mask[sym]) = expand(R & mask[sym]) | E[row], the
+// expansion distributing over OR, with E[row] = expand(acc & mask[row]) one
+// precomputed row per mask row (the walk tables' head, sp.seed). walk_live
+// expands only u = R & mask[sym], the live partial matches; a symbol with a
+// zero mask (whose E row is zero too) clears the state at once. The step's
+// hit (state 0 is in R) is bit 0 of lane 0's slot 0.
+template <int NJ, bool kGlobal>
+__device__ __forceinline__ void step_rev_regs(const Sp& sp, uint32_t (&R)[NJ], int sym,
+                                              int walk_max, int lane) {
+  const int mr = sp.meta[kMetaSyms + sym];
+  const uint32_t mb = mr >= 0 ? ld<kGlobal>(sp.mblk + mr) : 0u;
+  if (mb == 0u) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) R[j] = 0u;
+    return;
+  }
+  const uint32_t* mask32 = reinterpret_cast<const uint32_t*>(sp.mask) + mr * sp.W;
+  const uint32_t* e32 = sp.seed + mr * sp.W;
+  uint32_t u[NJ], y[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int w = lane + 32 * j;
+    u[j] = w < sp.W ? R[j] & ld<kGlobal>(mask32 + w) : 0u;
+    y[j] = w < sp.W ? ld<kGlobal>(e32 + w) : 0u;
+  }
+  const uint32_t full = walk_live<NJ, kGlobal>(sp, u, y, kFull, walk_max, lane);
+  const int grp = lane >> 2;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) R[j] = ((full >> (8 * j + grp)) & 1u) != 0u ? kFull : y[j];
 }
 
 // This lane's words of the seed row and of the union accept row.
@@ -616,36 +669,28 @@ __global__ void __launch_bounds__(kSpThreads)
   }
 }
 
-template <bool kGlobal>
+template <int NJ, bool kGlobal>
 __global__ void __launch_bounds__(kSpThreads)
-    sp_reverse_kernel(RRX_SP_PARAMS, uint32_t* hits) {
-  RRX_SP_SETUP
+    sp_reverse_kernel(RRX_SPW_PARAMS, uint32_t* hits) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int n_rec = live != nullptr ? min(R, *live) : R;
+  if (static_cast<int>(blockIdx.x) * kWarps >= n_rec) return;
+  const Sp sp = load_sp<kGlobal>(smem, tab_g, meta_g, n_meta, 0, walk_g, n_walk, true);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int Wt = (L + 2 + 31) >> 5;
   RRX_SP_RECORDS {
-    uint4 *va = buf_a, *vb = buf_b;
-    const Row rec = begin_record(data, stride, L, lengths, r, va, sp.nb, lane);
+    const Row rec = record(data, stride, L, lengths, r);
     const int len = rec.len;
     for (int i = ((len + 1) >> 5) + 1 + lane; i < Wt; i += 32) {
       hits[static_cast<long long>(i) * R + r] = 0u;
     }
-    uint32_t word = 0;
-    walk_steps_rev(rec.row, len, [&](int t, int sym) {
-      // vb = (R | acc) & mask[sym], then R = expand(vb) into va
-      const int mr = sp.meta[kMetaSyms + sym];
-      for (int o = lane; o < sp.nb; o += 32) {
-        uint4 x = make_uint4(0, 0, 0, 0);
-        if (mr >= 0) {
-          const uint4 a = ld<kGlobal>(sp.acc + o), v = va[o];
-          x = and4(make_uint4(v.x | a.x, v.y | a.y, v.z | a.z, v.w | a.w),
-                   ld<kGlobal>(sp.mask + mr * sp.nb + o));
-        }
-        vb[o] = x;
-      }
-      __syncwarp();
-      bool unused;
-      const bool h = expand<kGlobal, false>(sp, vb, va, false, nullptr, unused, lane);
-      __syncwarp();
-      word |= (h ? 1u : 0u) << (t & 31);
+    uint32_t v[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) v[j] = 0u;
+    uint32_t word = 0;  // lane 0's is the record's
+    walk_chunks_rev(rec.row, len, [&](int t, int sym) {
+      step_rev_regs<NJ, kGlobal>(sp, v, sym, walk_max, lane);
+      word |= (v[0] & 1u) << (t & 31);
       if ((t & 31) == 0) {
         if (lane == 0) hits[static_cast<long long>(t >> 5) * R + r] = word;
         word = 0;
@@ -790,9 +835,8 @@ int check_sp(const void* data, long long stride, int L, int R, int n_tab, int n_
   return check_rows(data, stride, L, R);
 }
 
-// rrx_sparse_stats' and _flags' checks: check_sp's and the walk tables'
-// length (a multiple of 4 words, keeping the table's shared copy 16-byte
-// aligned).
+// The walk kernels' checks: check_sp's and the walk tables' length (a
+// multiple of 4 words, keeping the table's shared copy 16-byte aligned).
 int check_walk(const void* data, long long stride, int L, int R, int n_tab, int n_meta,
                int n_walk, int W) {
   if (n_walk < W + 32 * W + 1 || (n_walk & 3) != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -833,10 +877,11 @@ int launch_sp(K kernel, int R, size_t smem, void* stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// rrx_sparse_stats' and _flags' kernel for W state words (NJ = ceil(W / 32)
-// registers a lane) and the table's form.
+// The walk kernels for W state words (NJ = ceil(W / 32) registers a lane)
+// and the table's form.
 using StatsKernel = decltype(&sp_stats_kernel<1, false>);
 using FlagsKernel = decltype(&sp_flags_kernel<1, false>);
+using ReverseKernel = decltype(&sp_reverse_kernel<1, false>);
 
 StatsKernel stats_kernel(int W, bool global_tab) {
   static const StatsKernel ks[4][2] = {{sp_stats_kernel<1, false>, sp_stats_kernel<1, true>},
@@ -851,6 +896,15 @@ FlagsKernel flags_kernel(int W, bool global_tab) {
                                        {sp_flags_kernel<2, false>, sp_flags_kernel<2, true>},
                                        {sp_flags_kernel<3, false>, sp_flags_kernel<3, true>},
                                        {sp_flags_kernel<4, false>, sp_flags_kernel<4, true>}};
+  return ks[(W + 31) / 32 - 1][global_tab ? 1 : 0];
+}
+
+ReverseKernel reverse_kernel(int W, bool global_tab) {
+  static const ReverseKernel ks[4][2] = {
+      {sp_reverse_kernel<1, false>, sp_reverse_kernel<1, true>},
+      {sp_reverse_kernel<2, false>, sp_reverse_kernel<2, true>},
+      {sp_reverse_kernel<3, false>, sp_reverse_kernel<3, true>},
+      {sp_reverse_kernel<4, false>, sp_reverse_kernel<4, true>}};
   return ks[(W + 31) / 32 - 1][global_tab ? 1 : 0];
 }
 
@@ -884,10 +938,11 @@ extern "C" {
 // unwritten (the prefilter's compacted and full passes), and next: a
 // device int32 set to 0, the record counter the warps take work from.
 //
-// rrx_sparse_stats and rrx_sparse_flags also take the forward walk tables
-// (walk [n_walk] int32, a multiple of 4 words: ops/scan_sparse
-// .SparseTables.walk_f) and walk_max, the live-state count up to which a
-// source block is walked state by state (ops/scan_sparse.WALK_MAX).
+// Then the walk tables of the kernel's direction (walk [n_walk] int32, a
+// multiple of 4 words: ops/scan_sparse.SparseTables.walk_f for
+// rrx_sparse_stats and rrx_sparse_flags, .walk_r for rrx_sparse_reverse)
+// and walk_max, the live-state count up to which a source block is walked
+// state by state (ops/scan_sparse.WALK_MAX).
 //
 // tab: the forward table (ops/scan_sparse.SparseTables.tab_f); cnt, first,
 // last: [R][C] int32; full: [R][C] uint8
@@ -896,7 +951,7 @@ int rrx_sparse_stats(RRX_SP_HEAD, const void* walk, int n_walk, int walk_max, in
                      void* stream) {
   const int bad = check_walk(data, stride, L, R, n_tab, n_meta, n_walk, W);
   if (bad != 0) return bad;
-  const size_t smem = walk_smem_bytes(n_tab, n_meta, n_walk, W, global_tab != 0);
+  const size_t smem = walk_smem_bytes(n_tab, n_meta, n_walk, W, global_tab != 0, 1);
   return launch_sp(stats_kernel(W, global_tab != 0), R, smem, stream, RRX_SP_ARGS,
                    static_cast<const int32_t*>(walk), n_walk, walk_max, seeded, nullable,
                    static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
@@ -908,21 +963,21 @@ int rrx_sparse_flags(RRX_SP_HEAD, const void* walk, int n_walk, int walk_max, in
                      void* words, void* stream) {
   const int bad = check_walk(data, stride, L, R, n_tab, n_meta, n_walk, W);
   if (bad != 0) return bad;
-  const size_t smem = walk_smem_bytes(n_tab, n_meta, n_walk, W, global_tab != 0);
+  const size_t smem = walk_smem_bytes(n_tab, n_meta, n_walk, W, global_tab != 0, 1);
   return launch_sp(flags_kernel(W, global_tab != 0), R, smem, stream, RRX_SP_ARGS,
                    static_cast<const int32_t*>(walk), n_walk, walk_max, seeded,
                    static_cast<uint32_t*>(words));
 }
 
 // tab: the reverse table (SparseTables.tab_r); hits: [ceil((L+2)/32)][R]
-int rrx_sparse_reverse(RRX_SP_HEAD, void* hits, void* stream) {
-  const int bad = check_sp(data, stride, L, R, n_tab, n_meta, W);
+int rrx_sparse_reverse(RRX_SP_HEAD, const void* walk, int n_walk, int walk_max, void* hits,
+                       void* stream) {
+  const int bad = check_walk(data, stride, L, R, n_tab, n_meta, n_walk, W);
   if (bad != 0) return bad;
-  const size_t smem = sparse_smem_bytes(n_tab, n_meta, W, global_tab != 0);
-  auto args = [&](auto k) {
-    return launch_sp(k, R, smem, stream, RRX_SP_ARGS, static_cast<uint32_t*>(hits));
-  };
-  return global_tab ? args(sp_reverse_kernel<true>) : args(sp_reverse_kernel<false>);
+  const size_t smem = walk_smem_bytes(n_tab, n_meta, n_walk, W, global_tab != 0, 0);
+  return launch_sp(reverse_kernel(W, global_tab != 0), R, smem, stream, RRX_SP_ARGS,
+                   static_cast<const int32_t*>(walk), n_walk, walk_max,
+                   static_cast<uint32_t*>(hits));
 }
 
 // The stream-fed container kernels. Every entry point: the mask stream
@@ -976,15 +1031,16 @@ int rrx_sparse_stream_reverse(RRX_SPS_HEAD, void* hits, void* stream) {
 }
 
 // Resident blocks per SM (theoretical occupancy) of a container kernel for
-// a table of n_tab words, a meta of n_meta, walk tables of n_walk (stats and
-// flags only) and W state words: 0 stats, 1 flags, 2 reverse; the
-// stream-fed ones 3 stats, 4 flags, 5 reverse.
+// a table of n_tab words, a meta of n_meta, walk tables of n_walk (the walk
+// kernels only: the forward ones for stats and flags, the reverse ones for
+// reverse) and W state words: 0 stats, 1 flags, 2 reverse; the stream-fed
+// ones 3 stats, 4 flags, 5 reverse.
 int rrx_sparse_occupancy(int kernel, int n_tab, int n_meta, int n_walk, int W, int global_tab,
                          int* blocks_per_sm) {
   if (W < 4 || W > 4 * kMaxBlocks) return static_cast<int>(cudaErrorInvalidValue);
   const bool g = global_tab != 0;
   const size_t smem = sparse_smem_bytes(n_tab, n_meta, W, g);
-  const size_t smem_w = walk_smem_bytes(n_tab, n_meta, n_walk, W, g);
+  const size_t smem_w = walk_smem_bytes(n_tab, n_meta, n_walk, W, g, 1);
   switch (kernel * 2 + (g ? 1 : 0)) {
     case 0:
     case 1:
@@ -993,9 +1049,9 @@ int rrx_sparse_occupancy(int kernel, int n_tab, int n_meta, int n_walk, int W, i
     case 3:
       return occupancy_sp(flags_kernel(W, g), smem_w, blocks_per_sm);
     case 4:
-      return occupancy_sp(sp_reverse_kernel<false>, smem, blocks_per_sm);
     case 5:
-      return occupancy_sp(sp_reverse_kernel<true>, smem, blocks_per_sm);
+      return occupancy_sp(reverse_kernel(W, g), walk_smem_bytes(n_tab, n_meta, n_walk, W, g, 0),
+                          blocks_per_sm);
     case 6:
       return occupancy_sp(sp_stream_stats_kernel<false>, smem, blocks_per_sm);
     case 7:

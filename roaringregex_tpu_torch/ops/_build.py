@@ -99,7 +99,9 @@ ARGTYPES = {
     # offsets and triangle gaps (counts and host int arrays)
     "rrx_bitband_stats": _BB_HEAD + [_I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
     "rrx_bitband_flags": _BB_HEAD + [_I, _I, _P, _P],  # C, seeded, words
-    "rrx_bitband_reverse": _BB_HEAD + [_P, _P],  # hits
+    # hits, next (the record counter), then the spec's offsets and gaps as
+    # for stats
+    "rrx_bitband_reverse": _BB_HEAD + [_P, _P, _I, _P, _I, _P, _P],
     "rrx_bitband_anchor_end": _BB_HEAD + [_P, _I, _P, _P],  # starts, longest, end
     # hits, cap, longest, starts, ends, cnt, over
     "rrx_bitband_spans": _BB_HEAD + [_P, _I, _I, _P, _P, _P, _P, _P],
@@ -107,7 +109,7 @@ ARGTYPES = {
     # walk, n_walk, walk_max, seeded, nullable, cnt, first, last, full
     "rrx_sparse_stats": _SP_HEAD + [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "rrx_sparse_flags": _SP_HEAD + [_P, _I, _I, _I, _P, _P],  # walk, n_walk, walk_max, seeded, words
-    "rrx_sparse_reverse": _SP_HEAD + [_P, _P],  # hits
+    "rrx_sparse_reverse": _SP_HEAD + [_P, _I, _I, _P, _P],  # walk, n_walk, walk_max, hits
     # the dense multiblock tier (scan_nfa_wide.cu, tiles of 257..1024
     # states): scan_nfa.cu's arguments, then the record counter (next);
     # rrx_nfa_wide_occupancy's index is rrx_occupancy's (stats, reverse,

@@ -296,7 +296,9 @@ def _static_words(words: np.ndarray):
 class BitbandTables(NamedTuple):
     """Device copy of one program's bitband tables: ``tab_f`` [(K_f + 1) *
     W] int32 (uint32 bit patterns; the JAX forward table, then the anchored
-    rescan's accept row), ``tab_r`` [K_r * W] int32 (the reverse table),
+    rescan's accept row), ``tab_r`` [(K_r + 3 + n_runs) * W] int32 (the JAX
+    reverse table, then the E rows of ``rrx_bitband_reverse``'s register
+    step: :func:`with_e_rows`),
     ``meta`` [META_LEN] int32 (the counts n_runs, n_diags, n_rank1, n_fam,
     tri_lo, tri_hi, C; the diagonal offsets, rank-1 columns as state
     indices and gaps; and the row of each of the 259 symbols: 3 + run for a
@@ -366,11 +368,37 @@ def device_bitband_tables(prog: DeviceProgram, spec: BitbandSpec, device,
     anchor_row = paw if anchor_static is not None else tf[_acc_off(spec) * W :][:W, 0]
     tab_f = np.concatenate([tf[:, 0], anchor_row])
 
-    def dev_i32(a):
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy()).to(device)
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy())
 
-    return BitbandTables(dev_i32(tab_f), dev_i32(tr[:, 0]), dev_i32(bitband_meta(spec, prog, C)),
-                         spec, C, acc_static, anchor_static)
+    tables = with_e_rows(BitbandTables(i32(tab_f), i32(tr[:, 0]), i32(bitband_meta(spec, prog, C)),
+                                       spec, C, acc_static, anchor_static))
+    return tables._replace(tab_f=tables.tab_f.to(device), tab_r=tables.tab_r.to(device),
+                           meta=tables.meta.to(device))
+
+
+def _rev_rows(spec: BitbandSpec) -> int:
+    """Rows of the JAX reverse table: the header, runs, reverse diagonals,
+    rank-1 and triangle rows, then the accept seed and the initial-state
+    mask."""
+    return _acc_off(spec) + 2
+
+
+def with_e_rows(tables: BitbandTables) -> BitbandTables:
+    """``tables`` with the E rows of ``rrx_bitband_reverse``'s register step
+    after its reverse table's ``_rev_rows`` rows: one per header row r < 3 +
+    n_runs (BOS, EOS, the seed row's slot, the runs), E[r] = expand_rev(acc
+    & row r), computed by the plain stepper, and zero for the seed row (no
+    symbol maps to it). The reverse step expand_rev((R | acc) & mask[sym])
+    is then expand_rev(R & mask[sym]) | E[row], the expansion distributing
+    over OR, and a step whose R & mask[sym] is empty leaves R = E[row]."""
+    sp = tables.spec
+    base = tables.tab_r[: _rev_rows(sp) * sp.W]
+    pt = tables._replace(tab_r=base).plain("cpu")
+    x = pt.tr[_acc_off(sp)] & pt.tr[: 3 + len(sp.runs)]
+    x[2] = 0
+    E = sb._as_i32(pt.expand(x, True)).reshape(-1).to(base.device)
+    return tables._replace(tab_r=torch.cat([base, E]))
 
 
 # ---------------------------------------------------------------------------
@@ -675,11 +703,8 @@ def bitband_stats(data, lengths, tables: BitbandTables, *, seeded: bool, nullabl
     R, dev = data.shape[0], data.device
     outs = [torch.empty((R, tables.C), dtype=torch.int32, device=dev) for _ in range(3)]
     full = torch.empty((R, tables.C), dtype=torch.uint8, device=dev)
-    diags, gaps = tables.spec.diags, tables.spec.tri_gaps
     _launch("rrx_bitband_stats", data, lengths, tables, tables.tab_f, live, int(tables.C),
-            int(seeded), int(nullable), *outs, full, len(diags),
-            (ctypes.c_int * MAX_DIAGS)(*diags), len(gaps),
-            (ctypes.c_int * MAX_TRI_FAMILIES)(*gaps))
+            int(seeded), int(nullable), *outs, full, *_plan_args(tables.spec))
     bitband_stats.launches += 1
     return (*outs, full.view(torch.bool))
 
@@ -697,15 +722,31 @@ def bitband_flags(data, lengths, tables: BitbandTables, *, seeded: bool, live=No
     return words
 
 
+def _plan_args(spec: BitbandSpec) -> tuple:
+    """The register steps' plan arguments: the spec's diagonal offsets and
+    triangle gaps as counts and host int arrays of MAX_DIAGS and
+    MAX_TRI_FAMILIES (the launcher's reg_plan takes them)."""
+    return (len(spec.diags), (ctypes.c_int * MAX_DIAGS)(*spec.diags), len(spec.tri_gaps),
+            (ctypes.c_int * MAX_TRI_FAMILIES)(*spec.tri_gaps))
+
+
 def bitband_reverse(data, lengths, tables: BitbandTables, live=None):
     """Hit words [Wt, R] int32 (``rrx_bitband_reverse`` on a CUDA tensor,
     counted; ``scan_bits.reverse_plain`` on the bitband stepper for a CPU
-    tensor)."""
+    tensor). The kernel reads the E rows after the reverse table
+    (:func:`with_e_rows`) and the spec's offsets and gaps."""
     if data.device.type == "cpu":
         return sb.reverse_plain(data, lengths, tables)
+    sp = tables.spec
+    if tables.tab_r.numel() != (_rev_rows(sp) + 3 + len(sp.runs)) * sp.W:
+        raise ValueError("rrx_bitband_reverse reads the E rows after the reverse table: "
+                         "build the tables with device_bitband_tables or with_e_rows")
     R, L = data.shape
     hits = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
-    _launch("rrx_bitband_reverse", data, lengths, tables, tables.tab_r, live, hits)
+    # the record counter the kernel's warps take work from
+    next_rec = torch.zeros(1, dtype=torch.int32, device=data.device)
+    _launch("rrx_bitband_reverse", data, lengths, tables, tables.tab_r, live, hits, next_rec,
+            *_plan_args(sp))
     bitband_reverse.launches += 1
     return hits
 

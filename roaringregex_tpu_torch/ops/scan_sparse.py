@@ -30,10 +30,12 @@ over the partial blocks, ``cls_spec``'s mask-by-matmul for stats and
 grid) are a layout of this function and have no counterpart here: one mask
 table serves all three kernels, and the parity boundary is the scanner
 methods' outputs. The CUDA kernels (``csrc/scan_sparse.cu``) run one warp
-per record: ``rrx_sparse_stats`` and ``_flags`` with the state in
-registers, walking the live states of sparse source blocks through
-per-state row lists (:func:`_walk`), the others with the state in shared
-memory; the plain PyTorch versions
+per record: ``rrx_sparse_stats``, ``_flags`` and ``_reverse`` with the
+state in registers, walking the live states of sparse source blocks
+through per-state row lists (:func:`_walk`; the reverse over F transposed,
+with the accept set's expansion ORed in from one precomputed row per mask
+row), the stream-fed ones with the state in shared memory; the plain
+PyTorch versions
 here step [R, lanes] bool planes through the blocks of
 ``sparse_partition`` (0/1 float32 products, exact: every sum is at most
 128). The stream-fed kernels (``rrx_sparse_stream_stats``, ``_flags``,
@@ -63,9 +65,9 @@ MAX_LANES = 4096  # 32 blocks: the kernels' out_ptr row
 # the shared memory a block may use
 WARPS = 16
 SMEM_LIMIT = 232448
-# rrx_sparse_stats and _flags walk a source block state by state when it
-# holds at most this many live states, else run the block-parallel form
-# (csrc/scan_sparse.cu, step_regs; chip_smoke.py phase 7's sweep)
+# rrx_sparse_stats, _flags and _reverse walk a source block state by state
+# when it holds at most this many live states, else run the block-parallel
+# form (csrc/scan_sparse.cu, walk_live; chip_smoke.py phase 7's sweeps)
 WALK_MAX = 4
 # meta: [nb, n_part, n_ent, n_mask, C, W, n_acc, 0 | 259 symbol rows | nb +
 # 1 entry offsets per output block | (source block, partial block or -1 for
@@ -88,7 +90,10 @@ class SparseTables(NamedTuple):
     set). ``meta_f`` / ``meta_r``: the header, the symbol -> mask row map
     and, per output block, its entries (source block, partial block or -1
     for a full U block), the full ones first. ``walk_f``: the forward
-    walk tables of ``rrx_sparse_stats`` and ``_flags`` (:func:`_walk`).
+    walk tables of ``rrx_sparse_stats`` and ``_flags``; ``walk_r``: the
+    reverse walk tables of ``rrx_sparse_reverse``, over F transposed, whose
+    head is one row per mask row, E[row] = F·(acc & mask[row])
+    (:func:`_walk`).
     ``part`` is ``prog.sparse_partition`` and ``masks`` / ``accs`` /
     ``acc`` the rows as bool planes: the plain versions expand from
     those."""
@@ -98,6 +103,7 @@ class SparseTables(NamedTuple):
     meta_f: torch.Tensor
     meta_r: torch.Tensor
     walk_f: torch.Tensor
+    walk_r: torch.Tensor
     W: int
     C: int
     part: tuple
@@ -137,23 +143,36 @@ def _meta(nb: int, part_src, part_out, U_src_out, sym_row, n_mask: int, C: int,
     return meta
 
 
+def _expand_np(x: np.ndarray, pbits: np.ndarray, prow, pcol, Ub: np.ndarray) -> np.ndarray:
+    """[n, lanes] bool: each row of ``x`` expanded through a partition
+    (partial block k from source block prow[k] to output block pcol[k],
+    ``pbits[k]`` indexed (source, output); the full blocks ``Ub`` indexed
+    (source, output)): the forward step's expansion of the partition of F,
+    the reverse step's of F transposed."""
+    n, lanes = x.shape
+    xb = x.reshape(n, lanes // BLOCK, BLOCK)
+    y = np.zeros_like(xb)
+    for k in range(len(prow)):
+        y[:, pcol[k]] |= (xb[:, prow[k]].astype(np.int64) @ pbits[k].astype(np.int64)) > 0
+    y |= ((xb.any(axis=2).astype(np.int64) @ Ub.astype(np.int64)) > 0)[:, :, None]
+    return y.reshape(n, lanes)
+
+
 def _walk(nb: int, W: int, pbits: np.ndarray, prow, pcol, Ub: np.ndarray,
-          masks: np.ndarray) -> np.ndarray:
-    """The forward walk tables of ``rrx_sparse_stats`` and ``_flags``
-    (``csrc/scan_sparse.cu``, Sp), uint32, padded to a multiple of 4 words:
-    the seed row (the expansion of {state 0}: F's row 0 and the output
-    blocks of source block 0's full U blocks) as W words; per source block
-    s the bit mask of the output blocks that U sets whole; per mask row the
-    bit mask of its nonzero output blocks; per source block its partial
-    blocks (k << 5 | output block), by offsets; per state its nonzero
-    partial rows ((k * 128 + row) << 5 | output block), by offsets."""
+          masks: np.ndarray, head: np.ndarray) -> np.ndarray:
+    """The walk tables of one direction (``csrc/scan_sparse.cu``, Sp), over
+    a partition given as :func:`_expand_np` takes it (the reverse tables:
+    F transposed, ``pbits.transpose(0, 2, 1)`` with ``prow`` and ``pcol``
+    swapped and ``Ub.T``), uint32, padded to a multiple of 4 words: the
+    ``head`` rows ([n_head, lanes] bool: the forward seed row, the
+    expansion of {state 0}; the reverse E rows, one per mask row) as W
+    words each; per source block s the bit mask of the output blocks that
+    U sets whole; per mask row the bit mask of its nonzero output blocks;
+    per source block its partial blocks (k << 5 | output block), by
+    offsets; per state its nonzero partial rows ((k * 128 + row) << 5 |
+    output block), by offsets."""
     lanes = 32 * W
     bits = np.int64(1) << np.arange(nb, dtype=np.int64)  # bit o of a block mask
-    seed = np.zeros(lanes, bool)
-    for k in np.nonzero(prow == 0)[0]:
-        seed[BLOCK * pcol[k] : BLOCK * (pcol[k] + 1)] |= pbits[k, 0]
-    for o in np.nonzero(Ub[0])[0]:
-        seed[BLOCK * o : BLOCK * (o + 1)] = True
     full = Ub.astype(np.int64) @ bits
     mblk = masks.reshape(len(masks), nb, BLOCK).any(axis=2).astype(np.int64) @ bits
     by_src = np.argsort(prow, kind="stable")
@@ -164,7 +183,8 @@ def _walk(nb: int, W: int, pbits: np.ndarray, prow, pcol, Ub: np.ndarray,
     by_st = np.argsort(st, kind="stable")
     ptr = np.concatenate([[0], np.cumsum(np.bincount(st, minlength=lanes))])
     rent = (((BLOCK * ks + rows) << 5) | pcol[ks])[by_st]
-    walk = np.concatenate([_pack_rows(seed).astype(np.int64), full, mblk, sptr, sent, ptr, rent])
+    walk = np.concatenate([_pack_rows(head).reshape(-1).astype(np.int64), full, mblk, sptr, sent,
+                           ptr, rent])
     return np.pad(walk, (0, -len(walk) % 4)).astype(np.uint32)
 
 
@@ -207,9 +227,16 @@ def device_sparse_tables(prog: DeviceProgram, device, accept_map=None) -> Sparse
         return torch.from_numpy(a.view(np.int32)).to(device)
 
     masks = np.unpackbits(mask_w.view(np.uint8), axis=1, bitorder="little").astype(bool)
-    walk_f = _walk(nb, W, pbits, prow, pcol, Ub, masks)
+    state0 = np.zeros((1, lanes), bool)
+    state0[0, 0] = True
+    walk_f = _walk(nb, W, pbits, prow, pcol, Ub, masks, _expand_np(state0, pbits, prow, pcol, Ub))
+    # the reverse step R' = F·(R & mask) | E[row]: F·((R | acc) & mask),
+    # since the expansion distributes over OR
+    rev = (pbits.transpose(0, 2, 1), pcol, prow, Ub.T)
+    walk_r = _walk(nb, W, *rev, masks, _expand_np(acc[None] & masks, *rev))
     return SparseTables(dev_i32(tab_f), dev_i32(tab_r), dev_i32(meta_f), dev_i32(meta_r),
-                        dev_i32(walk_f), W, C, (pbits, prow, pcol, Ub), sym_row, masks, accs, acc)
+                        dev_i32(walk_f), dev_i32(walk_r), W, C, (pbits, prow, pcol, Ub), sym_row,
+                        masks, accs, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -403,24 +430,33 @@ def sparse_stream_reverse_plain(tables: SparseTables, words: torch.Tensor):
 
 
 # the container kernels by their step and table direction: "walk"
-# (rrx_sparse_stats, _flags), "stream" (rrx_sparse_stream_stats, _flags)
-# and "reverse" (rrx_sparse_reverse, rrx_sparse_stream_reverse)
-KINDS = ("walk", "stream", "reverse")
+# (rrx_sparse_stats, _flags), "walk_r" (rrx_sparse_reverse), "stream"
+# (rrx_sparse_stream_stats, _flags) and "stream_r"
+# (rrx_sparse_stream_reverse)
+KINDS = ("walk", "walk_r", "stream", "stream_r")
+
+
+def _direction(tables: SparseTables, kind: str):
+    """(table, meta, walk tables or None) of the kernels of ``kind``."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    walk = {"walk": tables.walk_f, "walk_r": tables.walk_r}.get(kind)
+    if kind.endswith("_r"):
+        return tables.tab_r, tables.meta_r, walk
+    return tables.tab_f, tables.meta_f, walk
 
 
 def smem_bytes(tables: SparseTables, kind: str, global_tab: bool) -> int:
     """Shared memory of one block of the container kernels of ``kind``
     (``csrc/scan_sparse.cu``): the meta header, then for the walk kernels
-    one channel buffer of W words per warp and, in the shared form, the walk
-    tables and the table (walk_smem_bytes); for the expand kernels each
-    warp's two state buffers and, in the shared form, the table
-    (sparse_smem_bytes)."""
-    if kind not in KINDS:
-        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
-    tab, meta = (tables.tab_r, tables.meta_r) if kind == "reverse" else (tables.tab_f, tables.meta_f)
-    if kind == "walk":
-        words = meta.numel() + WARPS * tables.W + (
-            0 if global_tab else tables.walk_f.numel() + tab.numel())
+    one channel buffer of W words per warp (the forward ones only) and, in
+    the shared form, the walk tables and the table (walk_smem_bytes); for
+    the stream-fed kernels each warp's two state buffers and, in the shared
+    form, the table (sparse_smem_bytes)."""
+    tab, meta, walk = _direction(tables, kind)
+    if walk is not None:
+        words = meta.numel() + (WARPS * tables.W if kind == "walk" else 0) + (
+            0 if global_tab else walk.numel() + tab.numel())
     else:
         words = meta.numel() + 2 * WARPS * tables.W + (0 if global_tab else tab.numel())
     return 4 * words
@@ -435,22 +471,23 @@ def table_form(tables: SparseTables, kind: str = "walk") -> str:
 
 def _launch(entry: str, data, lengths, tables: SparseTables, kind: str, live, form,
             *tail) -> None:
-    """Launch ``entry`` with the container head (table, meta, the table's
-    form) and ``live``: None, or a [1] int32 tensor on the card, the record
-    count past which every record returns at once, its outputs unwritten
-    (the prefilter's compacted and full passes:
-    ``ScanEngine._prefilter_apply``). ``form``: "shared", "global" or None
-    (:func:`table_form` of ``kind``)."""
+    """Launch the walk kernel ``entry`` (``kind`` "walk" or "walk_r") with
+    the container head of its direction (table, meta, the table's form),
+    ``live``: None, or a [1] int32 tensor on the card, the record count past
+    which every record returns at once, its outputs unwritten (the
+    prefilter's compacted and full passes: ``ScanEngine._prefilter_apply``),
+    the record counter and the walk tables, then ``tail``. ``form``:
+    "shared", "global" or None (:func:`table_form` of ``kind``)."""
     if live is not None and (live.dtype != torch.int32 or live.numel() != 1):
         raise ValueError(f"live must be a [1] int32 tensor, got {tuple(live.shape)} {live.dtype}")
     form = form or table_form(tables, kind)
     if form not in ("shared", "global"):
         raise ValueError(f"form must be 'shared' or 'global', got {form!r}")
-    tab, meta = (tables.tab_r, tables.meta_r) if kind == "reverse" else (tables.tab_f, tables.meta_f)
+    tab, meta, walk = _direction(tables, kind)
     # the record counter the kernel's warps take work from
     next_rec = torch.zeros(1, dtype=torch.int32, device=data.device)
     sb.launch(entry, data, lengths, tab, int(tab.numel()), meta, int(meta.numel()), tables.W,
-              int(form == "global"), live, next_rec, *tail)
+              int(form == "global"), live, next_rec, walk, int(walk.numel()), *tail)
 
 
 def sparse_stats(data, lengths, tables: SparseTables, *, seeded: bool, nullable: bool,
@@ -467,8 +504,8 @@ def sparse_stats(data, lengths, tables: SparseTables, *, seeded: bool, nullable:
     R, dev = data.shape[0], data.device
     outs = [torch.empty((R, tables.C), dtype=torch.int32, device=dev) for _ in range(3)]
     full = torch.empty((R, tables.C), dtype=torch.uint8, device=dev)
-    _launch("rrx_sparse_stats", data, lengths, tables, "walk", live, form, tables.walk_f,
-            int(tables.walk_f.numel()), int(walk_max), int(seeded), int(nullable), *outs, full)
+    _launch("rrx_sparse_stats", data, lengths, tables, "walk", live, form, int(walk_max),
+            int(seeded), int(nullable), *outs, full)
     sparse_stats.launches += 1
     return (*outs, full.view(torch.bool))
 
@@ -482,20 +519,22 @@ def sparse_flags(data, lengths, tables: SparseTables, *, seeded: bool, live=None
         return sparse_flags_plain(data, lengths, tables, seeded=seeded)
     R, L = data.shape
     words = torch.empty((sb.hit_words(L), R * tables.C), dtype=torch.int32, device=data.device)
-    _launch("rrx_sparse_flags", data, lengths, tables, "walk", live, form, tables.walk_f,
-            int(tables.walk_f.numel()), int(walk_max), int(seeded), words)
+    _launch("rrx_sparse_flags", data, lengths, tables, "walk", live, form, int(walk_max),
+            int(seeded), words)
     sparse_flags.launches += 1
     return words
 
 
-def sparse_reverse(data, lengths, tables: SparseTables, live=None, form=None):
+def sparse_reverse(data, lengths, tables: SparseTables, live=None, form=None,
+                   walk_max: int = WALK_MAX):
     """Hit words [Wt, R] int32 (``rrx_sparse_reverse`` on a CUDA tensor,
-    counted; :func:`sparse_reverse_plain` on a CPU tensor)."""
+    counted; :func:`sparse_reverse_plain` on a CPU tensor). ``form`` and
+    ``walk_max``: as :func:`sparse_stats`, on the reverse walk tables."""
     if data.device.type == "cpu":
         return sparse_reverse_plain(data, lengths, tables)
     R, L = data.shape
     hits = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
-    _launch("rrx_sparse_reverse", data, lengths, tables, "reverse", live, form, hits)
+    _launch("rrx_sparse_reverse", data, lengths, tables, "walk_r", live, form, int(walk_max), hits)
     sparse_reverse.launches += 1
     return hits
 
@@ -524,10 +563,10 @@ def _launch_stream(entry: str, words: torch.Tensor, tables: SparseTables, revers
     words = words.contiguous()
     if words.data_ptr() % 16:
         raise ValueError(f"{entry}: the mask stream must be 16-byte aligned")
-    form = form or table_form(tables, "reverse" if reverse else "stream")
+    form = form or table_form(tables, "stream_r" if reverse else "stream")
     if form not in ("shared", "global"):
         raise ValueError(f"form must be 'shared' or 'global', got {form!r}")
-    tab, meta = (tables.tab_r, tables.meta_r) if reverse else (tables.tab_f, tables.meta_f)
+    tab, meta, _ = _direction(tables, "stream_r" if reverse else "stream")
     for x in tail:
         if isinstance(x, torch.Tensor) and (x.device != dev or not x.is_contiguous()):
             raise ValueError(f"{entry}: a {tuple(x.shape)} argument on {x.device} "

@@ -1,5 +1,6 @@
-"""The register step of ``rrx_bitband_stats`` (``csrc/scan_bitband.cu``
-``RegStep``), numpy and torch only, on the CPU.
+"""The register steps of ``rrx_bitband_stats`` and ``rrx_bitband_reverse``
+(``csrc/scan_bitband.cu`` ``RegStep`` and ``RevStep``), numpy and torch
+only, on the CPU.
 
 A word-level model of the kernel's forward step, one warp of 32 lanes per
 record with lane l holding the contiguous state words l NW .. l NW + NW - 1:
@@ -17,8 +18,19 @@ the register slots overflow), two specs with every edge on a diagonal
 (offsets -2..4 and -300, -298) and three hand-built tables whose lane 31
 holds state words (NW = 1, 3 and 4). The wrapper hands the kernel the spec's
 offsets and gaps, which the launcher's plan is built from.
+
+The reverse step's model mirrors it over the reverse tables: the plan
+with the shifts negated (the diagonals of A = 0 and A = 1, the families of
+A = 0 and A = -1), u = R & mask, the skip to the symbol's E row when u is
+empty, the band step on u, rank-1 columns by their bit, each family's
+suffix-OR with its ballot carry, then the E row ORed in. It equals the plain
+reverse step on random state sets and, over whole records walked from
+step len + 1 down to 0, ``scan_bits.reverse_plain``'s hit words, on the
+same specs, with the band step both run and skipped; the E rows equal the
+plain reverse step of the empty state.
 """
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -53,22 +65,26 @@ def _classes(offs, bounds):
     return out
 
 
-def reg_plan(nw: int, diags, gaps):
-    """The launcher's ``reg_plan``: the diagonals of A = -1 (d in [1, 32])
-    and A = -2 ([33, 64]) as (row, bit shift) in register slots (KD =
-    kRegMaskWords / NW, A = -1 first), the families of A = 0 (g in [-31,
-    0]) and A = -1 ([1, 32]), and the rows of everything else."""
+def reg_plan(nw: int, diags, gaps, rev: bool = False):
+    """The launcher's ``reg_plan``: forward, the diagonals of A = -1 (d in
+    [1, 32]) and A = -2 ([33, 64]) as (row, bit shift) in register slots
+    (KD = kRegMaskWords / NW, the first class first), the families of A = 0
+    (g in [-31, 0]) and A = -1 ([1, 32]), and the rows of everything else;
+    ``rev`` (the shift by -d): the diagonals of A = 0 (d in [0, 31]) and A
+    = 1 ([32, 63]), the families of A = 0 (g in [0, 31]) and A = -1 ([-32,
+    -1])."""
     kd = 32 // nw
-    (row1, n1), (row2, n2) = _classes(diags, [(1, 32), (33, 64)])
+    sg = -1 if rev else 1
+    (row1, n1), (row2, n2) = _classes(diags, [(0, 31), (32, 63)] if rev else [(1, 32), (33, 64)])
     n1r = min(n1, kd)
     n2r = min(n2, kd - n1r)
-    up1 = [(row1 + j, (-diags[row1 + j]) & 31) for j in range(n1r)]
-    up2 = [(row2 + j, (-diags[row2 + j]) & 31) for j in range(n2r)]
+    up1 = [(row1 + j, (-sg * diags[row1 + j]) & 31) for j in range(n1r)]
+    up2 = [(row2 + j, (-sg * diags[row2 + j]) & 31) for j in range(n2r)]
     taken = {r for r, _ in up1 + up2}
     rest = [i for i in range(len(diags)) if i not in taken]
-    (f0, nf0), (f1, nf1) = _classes(gaps, [(-31, 0), (1, 32)])
-    fam0 = [(f0 + f, (-gaps[f0 + f]) & 31) for f in range(nf0)]
-    fam1 = [(f1 + f, (-gaps[f1 + f]) & 31) for f in range(nf1)]
+    (f0, nf0), (f1, nf1) = _classes(gaps, [(0, 31), (-32, -1)] if rev else [(-31, 0), (1, 32)])
+    fam0 = [(f0 + f, (-sg * gaps[f0 + f]) & 31) for f in range(nf0)]
+    fam1 = [(f1 + f, (-sg * gaps[f1 + f]) & 31) for f in range(nf1)]
     ftaken = {r for r, _ in fam0 + fam1}
     return up1, up2, rest, fam0, fam1, [f for f in range(len(gaps)) if f not in ftaken]
 
@@ -107,7 +123,7 @@ def _hand_tables(name: str) -> bb.BitbandTables:
         pattern = name
 
     meta = torch.from_numpy(bb.bitband_meta(spec, _Named, 1))
-    return bb.BitbandTables(tab_i, tab_i.clone(), meta, spec, 1, None, None)
+    return bb.with_e_rows(bb.BitbandTables(tab_i, tab_i.clone(), meta, spec, 1, None, None))
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,9 +148,14 @@ class _Warp:
         sp = tables.spec
         self.W, self.nw = sp.W, -(-sp.W // 32)
         self.Wp = 32 * self.nw
-        rows = tables.tab_f.numpy().view(np.uint32).astype(np.uint64).reshape(-1, sp.W)
-        self.rows = np.zeros((rows.shape[0], self.Wp), np.uint64)
-        self.rows[:, : sp.W] = rows  # padded to 32 NW words, as in shared memory
+
+        def padded(tab):  # to 32 NW words a row, as in shared memory
+            rows = tab.numpy().view(np.uint32).astype(np.uint64).reshape(-1, sp.W)
+            out = np.zeros((rows.shape[0], self.Wp), np.uint64)
+            out[:, : sp.W] = rows
+            return out
+
+        self.rows, self.rrows = padded(tables.tab_f), padded(tables.tab_r)
         meta = tables.meta.numpy()
         self.sym_row = meta[bb.META_SYMS:]
         self.nd, self.n1, self.nf = int(meta[1]), int(meta[2]), int(meta[3])
@@ -145,6 +166,8 @@ class _Warp:
         self.r_tri = self.r_rank1 + self.n1
         self.diags, self.gaps = sp.diags, sp.tri_gaps
         self.plan = reg_plan(self.nw, sp.diags, sp.tri_gaps)
+        self.rplan = reg_plan(self.nw, sp.diags, sp.tri_gaps, rev=True)
+        self.r_acc = self.r_tri + (1 + self.nf if self.nf else 0)  # the reverse accept seed row
         w = np.arange(self.Wp).reshape(32, self.nw)
         self.win = np.where((w >= self.lo) & (w < self.hi), M32, np.uint64(0))
 
@@ -160,12 +183,13 @@ class _Warp:
         inside = ((src >= 0) & (src < 32))[None, :, None]
         return np.where(inside, x[:, src & 31], np.uint64(0)).astype(np.uint64)
 
-    def window(self, x, A, nx=True):
+    def window(self, x, A):
         """[R, 32, NW + 1]: the words from word A of each lane's words on,
-        A in -2 .. 0, from [lane - 2, lane - 1, lane, lane + 1]'s words."""
+        A in -2 .. 1, from [lane - 2, lane - 1, lane, lane + 1, lane + 2]'s
+        words."""
         lane = np.arange(32)
         cat = np.concatenate([self.shuffle(x, lane - 2), self.shuffle(x, lane - 1), x,
-                              self.shuffle(x, lane + 1)], axis=2)
+                              self.shuffle(x, lane + 1), self.shuffle(x, lane + 2)], axis=2)
         m = 2 * self.nw + A
         return cat[:, :, m: m + self.nw + 1]
 
@@ -221,6 +245,62 @@ class _Warp:
                 g = self.gaps[f]
                 y |= self.funnel(self.window_any(pre, (-g) // 32), (-g) & 31, tmask(f))
         return y & m
+
+    def suffix(self, x):
+        """The exclusive suffix-OR of x [R, 32, NW] inside the triangle's
+        window: each word's bits below its highest one, and all ones below
+        a nonzero word of the lane's higher words or of a higher lane (the
+        ballot of the lanes' any-bits)."""
+        bal = (x != 0).any(axis=2)  # [R, 32]
+        above = (np.cumsum(bal[:, ::-1], axis=1)[:, ::-1] - bal) > 0  # a higher lane's
+        s = np.zeros_like(x)
+        for k in range(self.nw - 1, -1, -1):
+            a = x[:, :, k].copy()
+            for sh in (1, 2, 4, 8, 16):
+                a |= a >> np.uint64(sh)
+            s[:, :, k] = ((a >> np.uint64(1)) | np.where(above, M32, np.uint64(0))) & self.win[:, k]
+            above = above | (x[:, :, k] != 0)
+        return s
+
+    def rev_step(self, R, sym):
+        """R [R, 32, NW], sym [R] -> the next reverse state and whether the
+        step ran the band step (u nonzero on some lane) per record."""
+        mr = self.sym_row[sym]
+        row = np.maximum(mr, 0)
+        live = (mr >= 0)[:, None, None]
+        lanes = lambda x: x.reshape(-1, 32, self.nw)  # noqa: E731
+        u = np.where(live, R & lanes(self.rrows[row]), np.uint64(0))
+        e = np.where(live, lanes(self.rrows[self.r_acc + 2 + row]), np.uint64(0))
+        busy = (u != 0).any(axis=(1, 2))  # the __any_sync of the skip
+        if not busy.any():
+            return e, busy
+        y = np.zeros_like(u)
+        up1, up2, rest, fam0, fam1, frest = self.rplan
+        dmask = lambda i: self.lanes(self.rrows[self.r_diag + i])  # noqa: E731
+        for A, slots in ((0, up1), (1, up2)):
+            p = self.window(u, A)
+            for r, s in slots:
+                y |= self.funnel(p, s, dmask(r))
+        for r in rest:
+            d = self.diags[r]
+            y |= self.funnel(self.window_any(u, d // 32), d & 31, dmask(r))
+        for i, col in enumerate(self.cols):
+            bit = ((u[:, (col >> 5) // self.nw, (col >> 5) % self.nw] >> np.uint64(col & 31)) & 1) != 0
+            y |= np.where(bit[:, None, None], self.lanes(self.rrows[self.r_rank1 + i]), np.uint64(0))
+        if self.nf:
+            exits = self.lanes(self.rrows[self.r_tri])
+            tmask = lambda f: self.lanes(self.rrows[self.r_tri + 1 + f])  # noqa: E731
+            for A, fams in ((0, fam0), (-1, fam1)):
+                for f, s in fams:
+                    y |= self.funnel(self.window(self.suffix(u & tmask(f)), A), s, exits)
+            for f in frest:
+                g = self.gaps[f]
+                y |= self.funnel(self.window_any(self.suffix(u & tmask(f)), g // 32), g & 31, exits)
+        return e | np.where(busy[:, None, None], y, np.uint64(0)), busy
+
+    def starts(self, R):
+        """[R] bool: the vote of R & the initial-state row."""
+        return (R & self.lanes(self.rrows[self.r_acc + 1])).any(axis=(1, 2))
 
 
 @pytest.mark.parametrize("name", list(PROGRAMS) + list(HAND))
@@ -293,4 +373,135 @@ def test_stats_wrapper_passes_the_shifts(monkeypatch):
     sp = tables.spec
     assert nd == len(sp.diags) == 16 and list(diags)[:nd] == list(sp.diags)
     assert len(diags) == MAX_DIAGS and not any(list(diags)[nd:])
+    assert nf == 3 and list(gaps) == [-1, 4, 5, 0, 0, 0] and len(gaps) == MAX_FAM
+
+
+def _rev_batch(name: str, prog):
+    """[4, L] records over the program's bytes, a chain of its body planted
+    in three: a whole match where one takes at most 530 bytes (the NW = 3
+    and 4 programs get 300 copies, a partial match), for the hand-built
+    tables the runs' bytes."""
+    rng = np.random.default_rng(len(name) + 5)
+    if prog is None:
+        data = rng.choice(np.frombuffer(b"059abfxyz", np.uint8), size=(4, 64)).astype(np.uint8)
+        return data, np.array([64, 0, 40, 63], np.int32)
+    pattern = PROGRAMS[name][0]
+    lo = int(re.search(r"\{(\d+)", pattern).group(1))
+    lo = lo if lo <= 520 else 300
+    chain = b"x" + b"c" * lo + b"y" if pattern.startswith("x") else (
+        b"a" + b"ab" * lo + b"b" if pattern.startswith("(a(") else (b"c" * 100 + b"d") * 2)
+    L = len(chain) + 24
+    data = rng.choice(np.frombuffer(b"abcxyzd", np.uint8), size=(4, L)).astype(np.uint8)
+    for r in range(1, 4):
+        at = (0, 5, 24)[r - 1]
+        data[r, at : at + len(chain)] = np.frombuffer(chain, np.uint8)
+    return data, np.array([L, len(chain), L, L - 3], np.int32)
+
+
+@pytest.mark.parametrize("name", list(PROGRAMS) + list(HAND))
+def test_rev_step_model_matches_plain(name):
+    """The reverse register step: on random state sets at densities 0 ..
+    0.9 (the empty set skips to the E row) and symbols over every row, the
+    plain reverse step; over whole records from step len + 1 down to 0,
+    ``scan_bits.reverse_plain``'s hit words, with the band step both run
+    and skipped."""
+    prog, tables = _tables(name)
+    sp = tables.spec
+    warp, pt = _Warp(tables), tables.plain("cpu")
+    nw = warp.nw
+    rng = np.random.default_rng(len(name) + 1)
+    R = 24
+    live_bits = np.zeros(warp.Wp * 32, bool)
+    live_bits[: 32 * sp.W if prog is None else prog.n_states] = True
+    for dens in (0.0, 0.01, 0.05, 0.3, 0.9):
+        words = _pack((rng.random((R, warp.Wp * 32)) < dens) & live_bits)
+        sym = rng.choice([sb.SYM_BOS, sb.SYM_EOS, sb.SYM_DEAD, 0x80, 0x41, *b"xabcyzd"], size=R)
+        got, _ = warp.rev_step(words.reshape(R, 32, nw), sym)
+        want = pt.rev(torch.from_numpy(words[:, : sp.W].astype(np.int64)),
+                      torch.from_numpy(sym.astype(np.int64)))
+        np.testing.assert_array_equal(got.reshape(R, -1)[:, : sp.W].astype(np.int64),
+                                      want.numpy(), err_msg=f"{name} density {dens}")
+    data, lengths = _rev_batch(name, prog)
+    d, ln = torch.from_numpy(data), torch.from_numpy(lengths)
+    Rr, L = data.shape
+    state = np.zeros((Rr, 32, nw), np.uint64)
+    hits = np.zeros((sb.hit_words(L), Rr), np.int64)
+    n_busy = n_steps = 0
+    for t in range(L + 1, -1, -1):
+        state, busy = warp.rev_step(state, sb._sym(d, ln.to(torch.int64), t).numpy())
+        hits[t >> 5] |= warp.starts(state).astype(np.int64) << (t & 31)
+        n_busy += int(busy.sum())
+        n_steps += Rr
+    want = sb.reverse_plain(d, ln, tables).numpy()
+    np.testing.assert_array_equal(sb._as_i32(torch.from_numpy(hits)).numpy(), want,
+                                  err_msg=f"{name} hit words")
+    assert 0 < n_busy < n_steps
+    if name not in ("nw3", "nw4"):
+        assert np.count_nonzero(want) > 0
+
+
+@pytest.mark.parametrize("name", ["config10", "rank1", "neg-gap", "hand-nw3"])
+def test_e_rows_are_the_accept_sets_expansion(name):
+    """The E rows after the reverse table, one per header row, are the
+    plain reverse step of the empty state under each symbol's mask row
+    (zero for a symbol with none), and the wrapper checks they are
+    there."""
+    _, tables = _tables(name)
+    sp, pt = tables.spec, tables.plain("cpu")
+    n_hdr = 3 + len(sp.runs)
+    r_e = bb._rev_rows(sp)
+    assert pt.tr.shape[0] == r_e + n_hdr and not pt.tr[r_e + 2].any()
+    syms = torch.arange(sb.N_SYMS)
+    rows = pt.sym_row[syms]
+    got = torch.where((rows >= 0)[:, None], pt.tr[r_e + rows.clamp(min=0)], 0)
+    np.testing.assert_array_equal(got.numpy(), pt.rev(pt.empty(sb.N_SYMS, "cpu"), syms).numpy())
+    data = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="E rows"):
+        bb.bitband_reverse(data, torch.zeros(4, dtype=torch.int32, device="meta"),
+                           tables._replace(tab_r=tables.tab_r[: r_e * sp.W]))
+
+
+def test_rev_plan_of_config10():
+    """Config 10's reverse plan at NW = 2: the shifts by -d put its offsets
+    in [1, 31] in class A = 0 (13 slots) and 34, 37 and 40 in A = 1, with
+    bit shifts d mod 32; its gaps 4 and 5 are families of A = 0 (shift g).
+    At NW = 4 the 8 slots hold the first 8 offsets, the rest apart. The
+    negative gap of x(ab|c){100,200}(y|z+) (-1) falls in A = -1, bit shift
+    31."""
+    _, tables = _tables("config10")
+    sp = tables.spec
+    up1, up2, rest, fam0, fam1, frest = reg_plan(2, sp.diags, sp.tri_gaps, rev=True)
+    assert [sp.diags[r] for r, _ in up1] == [1, 2, 3, 4, 7, 10, 13, 16, 19, 22, 25, 28, 31]
+    assert [sp.diags[r] for r, _ in up2] == [34, 37, 40]
+    assert [s for _, s in up1 + up2] == [d & 31 for d in sp.diags]
+    assert rest == [] and fam1 == [] and frest == [] and fam0 == [(0, 4), (1, 5)]
+    up1, up2, rest, *_ = reg_plan(4, sp.diags, sp.tri_gaps, rev=True)
+    assert len(up1) == 8 and up2 == [] and rest == list(range(8, 16))
+    _, neg = _tables("neg-gap")
+    *_, fam0, fam1, frest = reg_plan(1, neg.spec.diags, neg.spec.tri_gaps, rev=True)
+    assert neg.spec.tri_gaps == (-1, 4, 5)
+    assert fam1 == [(0, 31)] and fam0 == [(1, 4), (2, 5)] and frest == []
+
+
+def test_reverse_wrapper_passes_the_shifts(monkeypatch):
+    """``bitband_reverse`` on a non-CPU tensor launches rrx_bitband_reverse
+    with the reverse table and its E rows, then the hit words, a zeroed
+    record counter and the spec's offsets and gaps (as stats takes them),
+    and counts the launch."""
+    calls = []
+    monkeypatch.setattr(sb, "launch", lambda entry, *a: calls.append((entry, a)))
+    _, tables = _tables("neg-gap")
+    data = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
+    lengths = torch.zeros(4, dtype=torch.int32, device="meta")
+    before = bb.bitband_reverse.launches
+    hits = bb.bitband_reverse(data, lengths, tables)
+    assert bb.bitband_reverse.launches == before + 1 and tuple(hits.shape) == (2, 4)
+    (entry, args), = calls
+    assert entry == "rrx_bitband_reverse"
+    tab, meta, W, n_rows, live, out, next_rec, nd, diags, nf, gaps = args[2:]
+    sp = tables.spec
+    assert tab is tables.tab_r and meta is tables.meta and W == sp.W and live is None
+    assert next_rec.dtype == torch.int32 and next_rec.shape == (1,)
+    assert n_rows == bb._rev_rows(sp) + 3 + len(sp.runs) and out is hits
+    assert nd == len(sp.diags) and list(diags)[:nd] == list(sp.diags) and len(diags) == MAX_DIAGS
     assert nf == 3 and list(gaps) == [-1, 4, 5, 0, 0, 0] and len(gaps) == MAX_FAM

@@ -214,12 +214,13 @@ def _hand_built_program():
     return prog
 
 
-def _walk_offsets(nb: int, W: int, n_part: int, n_mask: int) -> dict:
+def _walk_offsets(nb: int, W: int, n_part: int, n_mask: int, n_head: int = 1) -> dict:
     """Where each part of the walk tables starts (``scan_sparse._walk``):
-    the seed row, the full masks, the block masks, the source-block offsets
-    and entries, the state offsets and entries."""
+    the head rows (the forward seed row; the reverse E rows, one per mask
+    row), the full masks, the block masks, the source-block offsets and
+    entries, the state offsets and entries."""
     out, at = {}, 0
-    for name, n in (("seed", W), ("full", nb), ("mblk", n_mask), ("sptr", nb + 1),
+    for name, n in (("seed", n_head * W), ("full", nb), ("mblk", n_mask), ("sptr", nb + 1),
                     ("sent", n_part), ("ptr", 32 * W + 1), ("rent", 0)):
         out[name] = at
         at += n
@@ -259,16 +260,32 @@ def _walk_step(tables: ss.SparseTables, v: np.ndarray, gate: bool, sym: int, wal
     if mb == 0:
         return np.zeros_like(v), False
     y = wk[off["seed"] : off["seed"] + W].copy() if gate else np.zeros(W, np.uint32)
+    _walk_live(wk, tab, off, nb, v, y, mb, walk_max)
+    at = 512 * n_part + mr * W
+    y &= tab[at : at + W]
+    acc = tab[512 * n_part + n_mask * W :][:W]  # the channels' union row
+    return np.unpackbits(y.view(np.uint8), bitorder="little").astype(bool), bool((y & acc).any())
+
+
+def _walk_live(wk, tab, off: dict, nb: int, x: np.ndarray, y: np.ndarray, ob: int,
+               walk_max: int) -> None:
+    """The kernel's ``walk_live`` in numpy, shared by both directions' steps:
+    ORs into the words ``y`` the expansion of the [lanes] bool state ``x``
+    from the walk tables ``wk`` and the table words ``tab``: per source
+    block with live states, its partial blocks' rows under the live bits
+    (more than ``walk_max`` live) or each live state's own nonzero rows (the
+    rest), rows of output blocks outside the bit mask ``ob`` skipped; then
+    U's full output blocks."""
     full = 0
     for s in range(nb):
-        live = np.nonzero(v[128 * s : 128 * (s + 1)])[0]
+        live = np.nonzero(x[128 * s : 128 * (s + 1)])[0]
         if live.size == 0:
             continue
         full |= int(wk[off["full"] + s])
         if live.size > walk_max:
             for e in range(wk[off["sptr"] + s], wk[off["sptr"] + s + 1]):
                 k, o = int(wk[off["sent"] + e]) >> 5, int(wk[off["sent"] + e]) & 31
-                if (mb >> o) & 1:
+                if (ob >> o) & 1:
                     rows = tab[512 * k : 512 * (k + 1)].reshape(128, 4)
                     y[4 * o : 4 * o + 4] |= np.bitwise_or.reduce(rows[live], axis=0)
         else:
@@ -276,15 +293,11 @@ def _walk_step(tables: ss.SparseTables, v: np.ndarray, gate: bool, sym: int, wal
                 st = 128 * s + i
                 for e in range(wk[off["ptr"] + st], wk[off["ptr"] + st + 1]):
                     row, o = int(wk[off["rent"] + e]) >> 5, int(wk[off["rent"] + e]) & 31
-                    if (mb >> o) & 1:
+                    if (ob >> o) & 1:
                         y[4 * o : 4 * o + 4] |= tab[4 * row : 4 * row + 4]
     for o in range(nb):
         if (full >> o) & 1:
             y[4 * o : 4 * o + 4] = 0xFFFFFFFF
-    at = 512 * n_part + mr * W
-    y &= tab[at : at + W]
-    acc = tab[512 * n_part + n_mask * W :][:W]  # the channels' union row
-    return np.unpackbits(y.view(np.uint8), bitorder="little").astype(bool), bool((y & acc).any())
 
 
 @pytest.mark.parametrize("walk_max", [-1, 4, 128], ids=["blocks", "mixed", "walk"])
@@ -326,6 +339,125 @@ def test_walk_tables_step_like_plain(name, walk_max):
         assert hit == bool(flags[r].any()), f"record {r}: the union accept test"
         n_live += int(got.any())
     assert n_live >= R // 4
+
+
+# -- the reverse walk tables of rrx_sparse_reverse ---------------------------------
+
+
+def _walk_rev_step(tables: ss.SparseTables, v: np.ndarray, sym: int, walk_max: int) -> np.ndarray:
+    """One reverse step as csrc/scan_sparse.cu's step_rev_regs takes it, in
+    numpy, from the reverse walk tables and the reverse table's words: u =
+    v & mask[sym] expanded through F transposed (``_walk_live``, no output
+    block skipped) onto the symbol's E row; a symbol with a zero mask clears
+    the state. Returns the new [lanes] bool state."""
+    W = tables.W
+    nb, n_part, n_mask = W // 4, len(tables.part[1]), len(tables.masks)
+    off = _walk_offsets(nb, W, n_part, n_mask, n_head=n_mask)
+    wk = tables.walk_r.numpy().view(np.uint32)
+    tab = tables.tab_r.numpy().view(np.uint32)
+    mr = int(tables.sym_row[sym])
+    if mr < 0 or wk[off["mblk"] + mr] == 0:
+        return np.zeros_like(v)
+    at = 512 * n_part + mr * W
+    u = ss._pack_rows(v) & tab[at : at + W]
+    y = wk[off["seed"] + mr * W : off["seed"] + (mr + 1) * W].copy()
+    _walk_live(wk, tab, off, nb, np.unpackbits(u.view(np.uint8), bitorder="little").astype(bool),
+               y, (1 << nb) - 1, walk_max)
+    return np.unpackbits(y.view(np.uint8), bitorder="little").astype(bool)
+
+
+def _reverse_batch(name: str):
+    """[6, 40] records with matches of the program planted (keywords of
+    K40, chains of the others, random bytes of the hand-built program's
+    alphabet), byte 0x80 and the empty record among them."""
+    rng = np.random.default_rng(17)
+    alphabet = b"abcdex" if name != "K40" else b"abcdeilnorstw"
+    data = rng.choice(np.frombuffer(alphabet, np.uint8), size=(6, 40)).astype(np.uint8)
+    lengths = np.array([40, 0, 33, 40, 21, 40], np.int32)
+    plants = {"K40": [w.encode() for w in K40_WORDS[:4]],
+              "CONFIG13": [b"abcdeabc", b"deabcde", b"abcabcdede", b"de"],
+              "full block": [b"xababbac", b"xc", b"xbbbbbbbbbbbbc", b"xaaac"],
+              "hand-built": [b"xabc", b"cxc", b"ab", b"xxxx"]}[name]
+    for i, w in enumerate(plants):
+        at = int(rng.integers(0, 40 - len(w) + 1))
+        data[2 + i, at : at + len(w)] = np.frombuffer(w, np.uint8)
+    data[5, 3] = 0x80
+    return data, lengths
+
+
+REVERSE_CASES = {"K40": K40, "CONFIG13": CONFIG13, "full block": "x[ab]{0,400}c"}
+
+
+@functools.lru_cache(maxsize=None)
+def _reverse_tables(name: str) -> ss.SparseTables:
+    if name == "hand-built":
+        return _walk_case("hand-built")
+    return ss.device_sparse_tables(compile_program(REVERSE_CASES[name]), "cpu")
+
+
+@pytest.mark.parametrize("walk_max", [-1, 4, 128], ids=["blocks", "mixed", "walk"])
+@pytest.mark.parametrize("name", ["K40", "CONFIG13", "full block", "hand-built"])
+def test_reverse_walk_tables_scan_like_plain(name, walk_max):
+    """The reverse step walked in numpy over ``walk_r`` as the kernel walks
+    it (every source block in the block-parallel form, each in the form its
+    live count picks, or every live state walked), from step len + 1 down
+    to 0 of each record with the E rows in place of the accept set, gives
+    ``sparse_reverse_plain``'s hit words exactly."""
+    tables = _reverse_tables(name)
+    if name == "full block":
+        assert int(tables.part[3].sum()) == 1
+    data, lengths = _reverse_batch(name)
+    R, L = data.shape
+    got = np.zeros((sb.hit_words(L), R), np.uint32)
+    for r in range(R):
+        n = int(lengths[r])
+        v = np.zeros(32 * tables.W, bool)
+        for t in range(n + 1, -1, -1):
+            sym = sb.SYM_BOS if t == 0 else sb.SYM_EOS if t == n + 1 else int(data[r, t - 1])
+            v = _walk_rev_step(tables, v, sym, walk_max)
+            got[t >> 5, r] |= np.uint32(int(v[0]) << (t & 31))
+    want = ss.sparse_reverse_plain(torch.from_numpy(data), torch.from_numpy(lengths), tables)
+    _eq(got.view(np.int32), want, f"{name} walk_max={walk_max}")
+    assert int(np.count_nonzero(got)) > 0
+
+
+@pytest.mark.parametrize("name", ["K40", "CONFIG13", "full block", "hand-built"])
+def test_reverse_e_rows_are_the_accept_sets_expansion(name):
+    """Each E row of the reverse walk tables (one per mask row) equals the
+    plain stepper's reverse step of the empty state under that row's mask:
+    F·(acc & mask[row])."""
+    tables = _reverse_tables(name)
+    W, n_mask = tables.W, len(tables.masks)
+    E = tables.walk_r.numpy().view(np.uint32)[: n_mask * W].reshape(n_mask, W)
+    pt = tables.plain("cpu")
+    want = pt.rev_mask(pt.empty(n_mask, "cpu"), torch.from_numpy(tables.masks))
+    _eq(np.unpackbits(E.view(np.uint8), axis=1, bitorder="little").astype(bool), want, name)
+    assert int(np.count_nonzero(E)) > 0
+
+
+def test_reverse_wrapper_passes_the_walk_tables(monkeypatch):
+    """``sparse_reverse`` on a non-CPU tensor launches rrx_sparse_reverse
+    with the reverse table and meta, the reverse walk tables, their length
+    and walk_max, sized its shared memory as a walk kernel without channel
+    buffers, and counts the launch; the meta device stands in for the
+    card."""
+    calls = []
+    monkeypatch.setattr(sb, "launch", lambda entry, *a: calls.append((entry, a)))
+    tables = _reverse_tables("K40")
+    data = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
+    lengths = torch.zeros(4, dtype=torch.int32, device="meta")
+    before = ss.sparse_reverse.launches
+    hits = ss.sparse_reverse(data, lengths, tables, walk_max=7)
+    assert ss.sparse_reverse.launches == before + 1 and tuple(hits.shape) == (2, 4)
+    (entry, args), = calls
+    assert entry == "rrx_sparse_reverse"
+    tab, n_tab, meta, n_meta, W, glob, live, _next, walk, n_walk, walk_max, out = args[2:]
+    assert tab is tables.tab_r and meta is tables.meta_r and walk is tables.walk_r
+    assert (n_tab, n_meta, n_walk, W) == (tab.numel(), meta.numel(), walk.numel(), tables.W)
+    assert glob == 0 and live is None and walk_max == 7 and out is hits
+    assert ss.smem_bytes(tables, "walk_r", False) == 4 * (
+        meta.numel() + walk.numel() + tab.numel())
+    assert ss.table_form(tables, "walk_r") == "shared"
 
 
 # -- the stream-fed methods (rows 11-13) against the JAX SparseScanner's ------------
