@@ -44,9 +44,9 @@ its check fails:
    unseeded and nullable, two accept channels on config 10, flags seeded
    and unseeded, reverse, anchored rescans lazy and longest from random and
    candidate starts (-1 and 0 included), spans lazy and longest at caps 1,
-   2 and 16 (cap 1 overflows), and records past a live count (stats and
-   reverse); the register steps of rrx_bitband_stats and
-   rrx_bitband_reverse also on NW = 3 and 4 (x(ab|c){700,800}y,
+   2 and 16 (cap 1 overflows), and records past a live count (stats, flags
+   and reverse); the register steps of rrx_bitband_stats, _flags and
+   _reverse also on NW = 3 and 4 (x(ab|c){700,800}y,
    x(ab|c){1000,1300}y), two specs with every edge on a diagonal (offsets
    -2..4 and -300, -298), hand-built tables whose top lane holds state
    words (W = 32, 96 and 128, diagonals of both signs past 32 NW states, rank-1
@@ -75,7 +75,12 @@ its check fails:
    seeded, unseeded and at a lead, flags, reverse, anchored lazy and
    longest from -1, 0 and random starts, lazy and greedy spans at caps 1, 2
    and 16 (cap 1 overflows), and P = 3 accept channels (K40+, cat|dog and
-   [0-9]{3} as one union) seeded, unseeded, nullable and at a lead; the two
+   [0-9]{3} as one union) seeded, unseeded, nullable and at a lead; the
+   reverse (the band step) also in the other band split of each program,
+   on records of every length around the 16-byte chunks and the hit words
+   (0 included) of x(ab|c){300,}y and K60+, and on hand-built tiles at W =
+   12, 16 and 32 with diagonals planted (random residual edges, or the seed row
+   alone), both splits; the two
    wide multi-channel span kernels (rrx_nfa_wide_reverse_mb,
    rrx_nfa_wide_lazy_spans_mb) on that union, on K40+ with the `$`
    channels cat$ and [0-9]?$, and on 40 channels over K40+'s tile (lanes
@@ -208,16 +213,17 @@ its check fails:
    bitband kernels on config 10 at 10 MB and 1 GiB with every record
    scanned (plain versions on the 10 MB batch and on 4,096 records of the
    1 GiB one), with registers, spills, occupancy, scheduler cycles a
-   record-step and the bound of PERF.md section 2 (rrx_bitband_stats and
-   rrx_bitband_reverse on the register steps beside rrx_bitband_flags on
-   the shared-buffer step; the reverse's bound from reverse_busy's census
-   of the steps that run its band step), and config 10's match_stats end
+   record-step and the bound of PERF.md section 2 (rrx_bitband_stats,
+   _flags and _reverse on the register steps beside _anchor_end and
+   _spans on the shared-buffer step; the reverse's bound from
+   reverse_busy's census of the steps that run its band step), and config
+   10's match_stats end
    to end split into the prefilter scan, the kernel on the compacted
    bucket (its cycles and grid fill), the full-batch pass and the glue;
    rrx_bitband_reverse on the bucket, on 10 MB whose every step runs the
    band step and 10 MB whose every step skips it, and config 10's
-   ScanEngine.starts_bitmap and Pattern.finditer_batch end to end at 10
-   MB;
+   ScanEngine.ends_bitmap, starts_bitmap and Pattern.finditer_batch end to
+   end at 10 MB;
    the three container kernels on K120 at 10 MB and 1 GiB with every record
    scanned (plain versions on the 10 MB batch and on 4,096 records of the
    1 GiB one), registers, occupancy and the bound of PERF.md section 2 from
@@ -269,7 +275,11 @@ its check fails:
    the six wide record kernels on both programs at 10 MB and 1 GiB (plain
    versions once, on the 10 MB batch and on 4,096 records of the 1 GiB
    one, outputs compared there), with registers, occupancy, grid fill and
-   the bound, and match_stats end to end; the two wide multi-channel span
+   the bound, and match_stats end to end; the reverse (the band step) also
+   in the other split, in scheduler cycles a record-step with its spills,
+   beside rrx_stream_reverse (the Wide walk) on the same 10 MB records,
+   and x(ab|c){300,}y's starts_bitmap and lazy finditer_batch end to end
+   at 10 MB; the two wide multi-channel span
    kernels on the P = 3 union at 10 MB and 1 GiB the same way; and the
    four wide window kernels at 1 GiB in K60's overlapped geometry (plain
    versions on 1 MiB), with count_ends end to end for K60 and
@@ -678,11 +688,12 @@ def log_text(np, seed: int, R: int, L: int, words):
 BAND_PLANTED = (-70, -33, -1, 0, 1, 31, 32, 64)
 
 
-def band_planted(S: int, residual: bool, rng, dev):
+def band_planted(S: int, residual: bool, rng, dev, dead: bool = True):
     """A hand-built tile of S states for the band step: each diagonal of
     BAND_PLANTED with 60% of its edges, random residual edges (or the seed
-    row alone), random mask rows (bytes >= 0x80 zero), a random accept row;
-    its tables with the diagonals kept whatever the residual."""
+    row alone), random mask rows (bytes >= 0x80 zero, and the dead step's
+    unless ``dead``: the record reverse needs it zero), a random accept
+    row; its tables with the diagonals kept whatever the residual."""
     import numpy as np
     import torch
 
@@ -700,6 +711,8 @@ def band_planted(S: int, residual: bool, rng, dev):
         F[0] = rng.random(S) < 0.2
     mbits = rng.random((P_.N_SYMS, S)) < 0.7
     mbits[0x80:256] = False
+    if not dead:  # the dead step's row is zero, as nfa_tables builds it
+        mbits[P_.sb.SYM_DEAD] = False
     acc = P_._pack_rows((rng.random(S) < 0.05)[None, :], W)
     tab = np.concatenate([P_._pack_rows(F, W), P_._pack_rows(F.T, W), P_._pack_rows(mbits, W),
                           acc])
@@ -1141,10 +1154,29 @@ def main() -> int:
             data[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
         return data, lengths
 
+    def other_split(tables):
+        """The tables with the record reverse's other band split: every edge
+        walked where its default keeps diagonals, else the diagonals kept
+        (max_diags=8)."""
+        return scan_pallas.with_band(tables,
+                                     0 if tables.rev_diags else scan_pallas.BANDED_MAX_DIAGS)
+
+    def check_wide_reverse(tables, d, ln, tag):
+        """rrx_nfa_wide_reverse (the band step) in both splits against the
+        plain reverse; returns the splits' diagonal counts."""
+        want = scan_bits.reverse_plain(d, ln, tables)
+        splits = set()
+        for tb in (tables, other_split(tables)):
+            compare("rrx_nfa_wide_reverse", [scan_pallas.nfa_reverse(d, ln, tb)], [want],
+                    f"{tag} diagonals {tb.rev_diags}", ("hits",))
+            splits.add(len(tb.rev_diags))
+        return splits
+
     t0 = time.perf_counter()
     before = launches()
     n_cmp = n_over = 0
     words_w = set()
+    rev_splits = set()
     for pattern in WIDE_PATTERNS:
         prog = compile_program(pattern)
         tables = scan_pallas.device_nfa_tables(prog, dev)
@@ -1155,7 +1187,34 @@ def main() -> int:
             ln = torch.from_numpy(lengths).to(dev)
             n_over += check_nfa(tables, d, ln, f"{pattern[:40]!r} R={R} L={L}",
                                 nullable=prog.nullable, lead=prog.horizon or 3)[1]
+            if L == 400:  # the reverse's other band split
+                rev_splits |= check_wide_reverse(tables, d, ln, f"{pattern[:40]!r} R={R} L={L}")
             n_cmp += 1
+    # the reverse's band step on records of every length around the 16-byte
+    # chunks and the 32-step hit words (0 included), on the chain and K60+,
+    # and on hand-built tiles with diagonals planted at BAND_PLANTED (random
+    # residual edges, or the seed row alone), both splits each
+    edge_len = np.array([0, 1, 2, 14, 15, 16, 17, 18, 30, 31, 32, 33, 34, 47, 48, 49, 62, 63, 64,
+                         65, 95, 96, 97, 127, 128, 129, 255, 256, 257, 318, 319, 320], np.int32)
+    for pattern in (CHAIN300, K60P):
+        tables = scan_pallas.device_nfa_tables(compile_program(pattern), dev)
+        data, _ = wide_batch(512, 320)
+        lengths = np.resize(edge_len, 512)
+        rev_splits |= check_wide_reverse(tables, torch.from_numpy(data).to(dev),
+                                         torch.from_numpy(lengths).to(dev),
+                                         f"{pattern[:40]!r} lengths at the chunk edges")
+        n_cmp += 1
+    for S, residual in ((384, True), (512, True), (1024, True), (384, False), (1024, False)):
+        tables = band_planted(S, residual, rng, dev, dead=False)
+        data, lengths = wide_batch(256, 200)
+        lengths[: edge_len.size] = np.minimum(edge_len, 200)
+        form = "residual" if residual else "seed row"
+        rev_splits |= check_wide_reverse(tables, torch.from_numpy(data).to(dev),
+                                         torch.from_numpy(lengths).to(dev),
+                                         f"hand-built S={S} {form}")
+        n_cmp += 1
+    if not {0, 1, 4, len(BAND_PLANTED)} <= rev_splits:
+        fail(f"rrx_nfa_wide_reverse comparisons covered only {sorted(rev_splits)} diagonals")
     # P = 3 accept channels on a dense multiblock union
     mp_w = MultiPattern(WIDE_MP, dev)
     tables = mp_w.engine.device_scanner.nfa
@@ -1184,7 +1243,9 @@ def main() -> int:
           f"multiblock programs (W = {sorted(words_w)}, banded and not, one nullable) and a P = 3 "
           f"union through the six wide kernels (stats seeded/unseeded/lead/nullable/P = 3, flags "
           f"seeded/unseeded, reverse, anchor lazy/longest, lazy and greedy at caps 1, 2, 16; greedy "
-          f"over set on {n_over} records) ({time.perf_counter() - t0:.1f}s)")
+          f"over set on {n_over} records); the reverse's band step in both splits (diagonal counts "
+          f"{sorted(rev_splits)}), on records of length 0 and at the chunk edges, and on "
+          f"hand-built tiles ({time.perf_counter() - t0:.1f}s)")
 
     def counting_batch(R: int, L: int):
         """An edge batch over a counting alphabet, with an a-run, a body
@@ -1659,14 +1720,16 @@ def main() -> int:
         """The five bitband kernels against their plain versions on one
         batch; returns the records whose spans overflowed."""
         R, L = d.shape
+        want_fl, want_st = {}, {}
         for seeded in (True, False):
             for nullable in ((False, True) if seeded else (False,)):
                 kw = dict(seeded=seeded, nullable=nullable)
+                want_st[seeded, nullable] = BB.stats_plain(d, ln, tables, **kw)
                 compare("rrx_bitband_stats", BB.bitband_stats(d, ln, tables, **kw),
-                        BB.stats_plain(d, ln, tables, **kw), f"{tag} {kw}")
+                        want_st[seeded, nullable], f"{tag} {kw}")
+            want_fl[seeded] = BB.flags_plain(d, ln, tables, seeded=seeded)
             compare("rrx_bitband_flags", [BB.bitband_flags(d, ln, tables, seeded=seeded)],
-                    [BB.flags_plain(d, ln, tables, seeded=seeded)], f"{tag} seeded={seeded}",
-                    ("flags",))
+                    [want_fl[seeded]], f"{tag} seeded={seeded}", ("flags",))
         hits = BB.bitband_reverse(d, ln, tables)
         want_rev = scan_bits.reverse_plain(d, ln, tables)
         compare("rrx_bitband_reverse", [hits], [want_rev], tag, ("hits",))
@@ -1687,15 +1750,20 @@ def main() -> int:
                         scan_bits.greedy_spans_plain(d, ln, tables, hits, cap, longest=longest),
                         f"{tag} cap={cap} longest={longest}", ("starts", "ends", "cnt", "over"))
                 n_over += int(got[3].sum().item())
-        # live (the prefilter's passes): records at or past it return at once
+        # live (the prefilter's passes): records at or past it return at
+        # once; records are independent, so the plain versions' first n
+        # records are the reference
         n = R // 3
         live = torch.tensor([n], dtype=torch.int32, device=dev)
         got = BB.bitband_stats(d, ln, tables, seeded=True, nullable=False, live=live)
         compare("rrx_bitband_stats", [x[:n] for x in got],
-                BB.stats_plain(d[:n], ln[:n], tables, seeded=True, nullable=False),
-                f"{tag} live={n}")
+                [x[:n] for x in want_st[True, False]], f"{tag} live={n}")
         compare("rrx_bitband_reverse", [BB.bitband_reverse(d, ln, tables, live)[:, :n]],
                 [want_rev[:, :n]], f"{tag} live={n}", ("hits",))
+        cols = n * tables.C
+        compare("rrx_bitband_flags",
+                [BB.bitband_flags(d, ln, tables, seeded=True, live=live)[:, :cols]],
+                [want_fl[True][:, :cols]], f"{tag} live={n}", ("flags",))
         return n_over
 
     t0 = time.perf_counter()
@@ -1737,17 +1805,29 @@ def main() -> int:
     # whose top lane holds state words (NW = 1, 3 and 4), and 32 accept
     # channels on config 10 (the reverse on the accept set)
     def check_bb_stats(tables, d, ln, tag):
+        want = {}
         for seeded in (True, False):
             for nullable in (False, True):
                 kw = dict(seeded=seeded, nullable=nullable)
+                want[seeded, nullable] = BB.stats_plain(d, ln, tables, **kw)
                 compare("rrx_bitband_stats", BB.bitband_stats(d, ln, tables, **kw),
-                        BB.stats_plain(d, ln, tables, **kw), f"{tag} {kw}")
+                        want[seeded, nullable], f"{tag} {kw}")
         n = d.shape[0] // 3
         live = torch.tensor([n], dtype=torch.int32, device=dev)
         got = BB.bitband_stats(d, ln, tables, seeded=True, nullable=False, live=live)
-        compare("rrx_bitband_stats", [x[:n] for x in got],
-                BB.stats_plain(d[:n], ln[:n], tables, seeded=True, nullable=False),
+        compare("rrx_bitband_stats", [x[:n] for x in got], [x[:n] for x in want[True, False]],
                 f"{tag} live={n}")
+        # the flags on the same register step, seeded and unseeded, and the
+        # seeded ones' live slice
+        want_f = {}
+        for seeded in (True, False):
+            want_f[seeded] = BB.flags_plain(d, ln, tables, seeded=seeded)
+            compare("rrx_bitband_flags", [BB.bitband_flags(d, ln, tables, seeded=seeded)],
+                    [want_f[seeded]], f"{tag} seeded={seeded}", ("flags",))
+        cols = n * tables.C
+        compare("rrx_bitband_flags",
+                [BB.bitband_flags(d, ln, tables, seeded=True, live=live)[:, :cols]],
+                [want_f[True][:, :cols]], f"{tag} live={n}", ("flags",))
         want = scan_bits.reverse_plain(d, ln, tables)
         compare("rrx_bitband_reverse", [BB.bitband_reverse(d, ln, tables)], [want], tag, ("hits",))
         compare("rrx_bitband_reverse", [BB.bitband_reverse(d, ln, tables, live)[:, :n]],
@@ -1830,9 +1910,10 @@ def main() -> int:
           f"{sorted(shapes)}) through the five bitband kernels (stats seeded/unseeded/nullable, "
           f"flags seeded/unseeded, two accept channels, reverse, anchor lazy/longest, spans lazy "
           f"and longest at caps 1, 2, 16 (cap 1 overflowed on {n_over} records), live records); "
-          f"rrx_bitband_stats and _reverse (the register steps) also on {len(shapes) - n_regs} more "
-          f"specs (NW = 3 and 4, every edge on a diagonal, hand-built at W = 32, 96 and 128) and 32 "
-          f"accept channels, seeded/unseeded x nullable and live; the reverse on records whose "
+          f"rrx_bitband_stats, _flags and _reverse (the register steps) also on "
+          f"{len(shapes) - n_regs} more specs (NW = 3 and 4, every edge on a diagonal, hand-built "
+          f"at W = 32, 96 and 128) and 32 accept channels, stats seeded/unseeded x nullable, flags "
+          f"seeded/unseeded, and live; the reverse on records whose "
           f"state stays live and where it is empty "
           f"({time.perf_counter() - t0:.1f}s)")
 
@@ -4137,10 +4218,11 @@ def main() -> int:
         n = d.shape[0] if shape == "10 MB" else n_slice7
         pd, pl = d[:n].contiguous(), ln[:n].contiguous()
         got = P.nfa_flags(d, ln, tables, seeded=True)
-        compare("rrx_nfa_flags", [got[:, :n]], [P.flags_plain(pd, pl, tables, seeded=True)],
-                f"K30 {shape}, first {n} records", ("flags",))
+        # the plain version's one timed run is also the reference
+        want, plain_ms = timed_once(lambda: P.flags_plain(pd, pl, tables, seeded=True))
+        compare("rrx_nfa_flags", [got[:, :n]], [want], f"K30 {shape}, first {n} records",
+                ("flags",))
         ms = time_ms(lambda: P.nfa_flags(d, ln, tables, seeded=True), warm=2, runs=7, per_run=5)
-        plain_ms = time_ms(lambda: P.flags_plain(pd, pl, tables, seeded=True), warm=0, runs=1)
         bnd = kernel_bound("flags", ln, d.shape[1], step_ops)
         nb = int(ln.to(torch.int64).sum())
         flags_ms[shape] = (ms, plain_ms, bnd)
@@ -4174,13 +4256,12 @@ def main() -> int:
         }
         nb = int(ln.to(torch.int64).sum())
         for name, (kern, plain) in calls.items():
-            got, want = kern(), plain()
+            got, (want, plain_ms) = kern(), timed_once(plain)  # the timed plain run is the reference
             if name == "rrx_count_stats":
                 compare(name, [x[:n] for x in got], want, f"config 4 {shape}, first {n} records")
             else:
                 compare(name, [got[:, :n]], [want], f"config 4 {shape}, first {n} records", ("words",))
             ms = time_ms(kern, warm=2, runs=7, per_run=5)
-            plain_ms = time_ms(plain, warm=0, runs=1)
             bnd = kernel_bound(name.split("_", 2)[2], ln, d.shape[1], COUNT_STEP_OPS)
             count_ms[name, shape] = (ms, plain_ms, bnd)
             print(f"phase 7: {name} config 4 {shape} [{d.shape[0]} x {d.shape[1]}]: kernel "
@@ -4637,13 +4718,17 @@ def main() -> int:
               f"{r_ms:.3f} ms, {bb_cycles(r_ms, lr):.1f} scheduler cycles a record-step [{card}]")
     del regimes
     texts_r = [d10_np[i, : l10_np[i]].tobytes() for i in range(B_r)]
-    for what, fn, runs in (("ScanEngine.starts_bitmap", lambda: eng10.starts_bitmap(g10, gl10, L), 3),
-                           ("Pattern.finditer_batch (lazy)", lambda: pat10.finditer_batch(texts_r), 1)):
+    for what, fn, runs, kern in (
+            ("ScanEngine.ends_bitmap", lambda: eng10.ends_bitmap(g10, gl10, L), 3,
+             "rrx_bitband_flags"),
+            ("ScanEngine.starts_bitmap", lambda: eng10.starts_bitmap(g10, gl10, L), 3,
+             "rrx_bitband_reverse"),
+            ("Pattern.finditer_batch (lazy)", lambda: pat10.finditer_batch(texts_r), 1,
+             "rrx_bitband_reverse")):
         e_ms = time_ms(fn, warm=1, runs=runs)
         bb_ms["rev e2e", what] = e_ms
         print(f"phase 7: {what} config 10 end to end, 10 MB ({B_r} records): {e_ms:.3f} ms "
-              f"(rrx_bitband_reverse on every record {bb_ms['rrx_bitband_reverse', '10 MB'][0]:.3f} "
-              f"ms) [{card}]")
+              f"({kern} on every record {bb_ms[kern, '10 MB'][0]:.3f} ms) [{card}]")
 
     lap("the bitband kernels")
 
@@ -4921,12 +5006,11 @@ def main() -> int:
                 lambda: SP.sparse_reverse(d, ln, tabs_c), "reverse", 5, 4 * -(-T // 32) * R_w),
         }
         for name, (kern, plain, byte, what, idx, out_b) in calls.items():
-            got, want = kern(), plain()
+            got, (want, plain_ms) = kern(), timed_once(plain)  # the timed plain run is the reference
             got = [x[:n] for x in got] if what == "stats" else [got[:, :n]]
             compare(name, got, want if what == "stats" else [want], f"{tag} {shape}, first {n}",
                     ("cnt", "first", "any") if what == "stats" else (what,))
             ms = time_ms(kern, warm=1, runs=runs)
-            plain_ms = time_ms(plain, warm=0, runs=1)
             byte_ms = time_ms(byte, warm=1, runs=runs)
             key = (id(tabs_c), id(cd), True, what == "reverse")
             if key not in census:
@@ -5020,15 +5104,15 @@ def main() -> int:
         n = d.shape[0] if shape == "10 MB" else n_slice7
         pd, pl = d[:n].contiguous(), ln[:n].contiguous()
         got = scan_swar.swar_multi_stats(d, ln, tbs, seeded=True)
-        compare("rrx_swar_multi_stats", [x[:n] for x in got],
-                scan_swar.swar_multi_stats_plain(pd, pl, tbs, seeded=True),
+        # the plain version's one timed run is also the reference
+        want, plain_ms = timed_once(lambda: scan_swar.swar_multi_stats_plain(pd, pl, tbs,
+                                                                             seeded=True))
+        compare("rrx_swar_multi_stats", [x[:n] for x in got], want,
                 f"config 6 {shape}, first {n} records")
         flags_s = int(got[0].to(torch.int64).sum())
         bnd = kernel_bound("stats_mc", ln, d.shape[1], 4 * n_d6, P=4, flags=flags_s)
         ms = time_ms(lambda: scan_swar.swar_multi_stats(d, ln, tbs, seeded=True), warm=2, runs=7,
                      per_run=5)
-        plain_ms = time_ms(lambda: scan_swar.swar_multi_stats_plain(pd, pl, tbs, seeded=True),
-                           warm=0, runs=1)
         word_ms = time_ms(lambda: scan_word.word_stats(d, ln, sc6.tables, seeded=True, lead=0,
                                                        nullable=False), warm=2, runs=7, per_run=5)
         swm_ms[shape] = (ms, plain_ms, bnd, word_ms)
@@ -5127,11 +5211,66 @@ def main() -> int:
                       f"records; bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]")
                 print(f"  occupancy {name} ({shape}): {occupancy_wide(name, tables, d.shape[0])}; "
                       f"registers {regs_of('wide_' + part + '_kernel')}")
+            # the reverse's band step: scheduler cycles a record-step (the
+            # time x 1.98 GHz x 528 warp schedulers / the record-steps), the
+            # other split on the same records (the run fails if the default,
+            # the diagonals kept, is the slower one) and, at 10 MB, the Wide walk
+            # on the same records: rrx_stream_reverse over their mask stream
+            # (built apart), its hit words against the band step's
+            steps_w = int((ln.to(torch.int64).clamp(0, d.shape[1]) + 2).sum())
+
+            def cyc(ms_):
+                return ms_ * 1e6 * CLOCK_GHZ * 4 * n_sm / steps_w
+
+            rev_ms = wide_ms["rrx_nfa_wide_reverse", pattern, shape][0]
+            tb_o = other_split(tables)
+            compare("rrx_nfa_wide_reverse", [P.nfa_reverse(d, ln, tb_o)[:, :n]], [ph],
+                    f"{tag} {shape} diagonals {tb_o.rev_diags}, first {n} records", ("hits",))
+            o_ms = time_ms(lambda: P.nfa_reverse(d, ln, tb_o), warm=1,
+                           runs=3 if shape == "1 GiB" else 5)
+            wide_ms["rev split", pattern, shape] = (rev_ms, cyc(rev_ms), o_ms, cyc(o_ms))
+            line = (f"phase 7: rrx_nfa_wide_reverse {tag} {shape}, the band step: diagonals "
+                    f"{tables.rev_diags} (the default) {rev_ms:.4f} ms = {cyc(rev_ms):.1f} "
+                    f"scheduler cycles a record-step, diagonals {tb_o.rev_diags} {o_ms:.4f} ms = "
+                    f"{cyc(o_ms):.1f}")
+            if rev_ms > o_ms:
+                fail(f"rrx_nfa_wide_reverse {tag} {shape}: the default split {tables.rev_diags} "
+                     f"({rev_ms:.4f} ms) is slower than {tb_o.rev_diags} ({o_ms:.4f} ms)")
+            if shape == "10 MB":
+                tabs = PK.packed_tables(eng_w.prog, dev)
+                words = PK.mask_stream_from_bytes(tabs, d, ln)
+                if not torch.equal(PK.hit_words(tabs["nfa"], words), hits):
+                    fail(f"{tag}: rrx_stream_reverse's hit words != rrx_nfa_wide_reverse's")
+                s_ms = time_ms(lambda: PK.hit_words(tabs["nfa"], words), warm=1, runs=5)
+                wide_ms["rev stream", pattern] = (s_ms, cyc(s_ms))
+                line += (f"; the Wide walk on the same records (rrx_stream_reverse) {s_ms:.4f} ms "
+                         f"= {cyc(s_ms):.1f}, the same hit words")
+                del words
+            rev_spill = {k_: b for k_, b in spilled.items()
+                         if re.search(r"\dwide_reverse_kernel", k_)}
+            print(f"{line}; spill bytes {rev_spill or 'not reported'} [{card}]")
             e2e = time_ms(lambda: eng_w.match_stats(d, ln, seeded=True), warm=1,
                           runs=3 if shape == "1 GiB" else 5)
             print(f"phase 7: ScanEngine.match_stats {tag} end to end (data on the card), {shape}: "
                   f"{e2e:.4f} ms = {nb / e2e / 1e6:.1f} GB/s (rrx_nfa_wide_stats "
                   f"{wide_ms['rrx_nfa_wide_stats', pattern, shape][0]:.4f} ms) [{card}]")
+    # the reverse's user paths on x(ab|c){300,}y end to end at 10 MB:
+    # ScanEngine.starts_bitmap (the hit words unpacked to one bit a position)
+    # and Pattern.finditer_batch (the reverse, then the lazy span kernel)
+    d, ln, _ = wide_runs[CHAIN300, "10 MB"]
+    host, lnh = d.cpu().numpy(), ln.cpu().numpy()
+    texts_c = [host[i, : lnh[i]].tobytes() for i in range(d.shape[0])]
+    pat300 = rrx_compile(CHAIN300, dev)
+    for what, fn, runs in (("ScanEngine.starts_bitmap",
+                            lambda: eng300.starts_bitmap(d, ln, d.shape[1]), 3),
+                           ("Pattern.finditer_batch (lazy)", lambda: pat300.finditer_batch(texts_c),
+                            1)):
+        e_ms = time_ms(fn, warm=1, runs=runs)
+        wide_ms["rev e2e", what] = e_ms
+        print(f"phase 7: {what} {CHAIN300} end to end, 10 MB ({d.shape[0]} records): {e_ms:.3f} ms "
+              f"(rrx_nfa_wide_reverse on every record "
+              f"{wide_ms['rrx_nfa_wide_reverse', CHAIN300, '10 MB'][0]:.4f} ms) [{card}]")
+    del host, texts_c
 
     lap("the wide record kernels")
 

@@ -58,16 +58,16 @@
 // - One warp per record. The kernels are templated on the words per lane,
 //   NW = ceil(W/32) <= 4, and pad every row to Wp = 32 NW words (zeros past
 //   W), so no lane tests its words against W.
-// - stats runs the forward register step (RegStep, below) and reverse its
-//   mirror (RevStep): lane l holds the contiguous words l NW .. l NW + NW -
+// - stats and flags run the forward register step (RegStep, below) and
+//   reverse its mirror (RevStep): lane l holds the contiguous words l NW .. l NW + NW -
 //   1, the diagonals' masks, the seed (initial-state), exit and accept rows
 //   sit in registers, a shift is lane shuffles and a funnel shift, and no
 //   state goes through shared memory. The reverse step adds the accept set
 //   through one precomputed row per mask row, E[row] = expand_rev(acc &
 //   mask[row]), and skips the band step when R & mask[sym] is empty (config
 //   10's reverse state is empty on most steps of a record without a match).
-// - flags, anchor end and spans run the shared-buffer step (expand):
-//   lane l owns state words l, l+32, l+64, l+96. A cross-word
+// - anchor end and spans run the shared-buffer step (expand): lane l
+//   owns state words l, l+32, l+64, l+96. A cross-word
 //   shift needs words owned by other lanes, so each warp keeps its state
 //   words in a buffer of shared memory (and a second one for the
 //   triangle's prefix or suffix), Wp words between Wp + 1 zero words on
@@ -90,8 +90,9 @@
 //   (all lanes read the same 16-byte chunk) and 1 bit per step of flag or
 //   hit words.
 // - The walks are rolled loops (one copy of the step body per kernel; the
-//   stats kernel's walk_chunks three: BOS, the byte loop, EOS), which keeps
-//   nvcc's time small.
+//   stats and flags kernels' walk_chunks three: BOS, the byte loop, EOS),
+//   which keeps nvcc's time small. The flags kernel keeps the open flag
+//   word in a register and stores it when its 32 steps are done.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -142,7 +143,7 @@ struct BB {
 __host__ __device__ constexpr int bb_buf_words(int Wp) { return 3 * Wp + 2; }
 
 // The shared memory of a kernel: the tables, the meta header, the shifts
-// and, with `bufs` (every kernel but stats), each warp's two state buffers.
+// and, with `bufs` (anchor end and spans), each warp's two state buffers.
 inline size_t bb_smem_bytes(int W, int n_rows, bool bufs) {
   const int Wp = 32 * ((W + 31) / 32);
   return sizeof(uint32_t) * (static_cast<size_t>(n_rows) * Wp + kMetaLen + 2 * (kMaxDiags + kMaxFam)
@@ -229,7 +230,7 @@ __device__ __forceinline__ void publish(uint32_t* buf, const uint32_t (&v)[NW], 
 }
 
 // y = F^T v from the forward tables of bb (the shared-buffer step of
-// flags, anchor end and spans).
+// anchor end and spans).
 template <int NW>
 __device__ __forceinline__ void expand(const BB& bb, uint32_t* vs, uint32_t* ps,
                                        const uint32_t (&v)[NW], uint32_t (&y)[NW], int lane) {
@@ -386,27 +387,33 @@ __device__ int first_start(const int32_t* hits, int R, int r, int pos, int len, 
 #define RRX_BB_PARAMS                                                                   \
   const uint8_t *data, long long stride, int L, const int32_t *lengths, int R,          \
       const uint32_t *tab_g, const int32_t *meta_g, int W, int n_rows, const int32_t *live
-#define RRX_BB_SETUP                                                                    \
+// The head of a kernel of one record a warp (record r, its row rec and
+// len) over the forward tables, with (bufs) or without the warps' state
+// buffers.
+#define RRX_BB_RECORD(bufs)                                                             \
   extern __shared__ uint32_t smem[];                                                    \
   /* a block wholly past R or live skips the table load: the test is */                \
   /* uniform across the block, so it may come before load_bb's barrier */               \
   const int r0 = static_cast<int>(blockIdx.x) * kWarps;                                 \
   if (r0 >= R || (live != nullptr && r0 >= *live)) return;                              \
-  const BB bb = load_bb<NW>(smem, tab_g, meta_g, W, n_rows, false);                     \
+  const BB bb = load_bb<NW>(smem, tab_g, meta_g, W, n_rows, false, bufs);               \
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;                           \
   const int r = r0 + warp;                                                              \
   if (r >= R || (live != nullptr && r >= *live)) return;                                \
-  uint32_t* vs = warp_buf<NW>(smem, n_rows, warp, 0);                                   \
-  uint32_t* ps = warp_buf<NW>(smem, n_rows, warp, 1);                                   \
   const Row rec = record(data, stride, L, lengths, r);                                  \
   const int len = rec.len;
+// ... and the shared-buffer step's two buffers (anchor end, spans)
+#define RRX_BB_SETUP                                                                    \
+  RRX_BB_RECORD(true)                                                                   \
+  uint32_t* vs = warp_buf<NW>(smem, n_rows, warp, 0);                                   \
+  uint32_t* ps = warp_buf<NW>(smem, n_rows, warp, 1);
 
 // ---------------------------------------------------------------------------
-// The stats kernel's forward step (RegStep): the record's state in
-// registers, no shared state buffer, no __syncwarp
+// The stats and flags kernels' forward step (RegStep): the record's state
+// in registers, no shared state buffer, no __syncwarp
 //
-// Lane l holds the NW contiguous words l NW .. l NW + NW - 1 (the other
-// kernels' lane l holds the strided words l + 32 k). A shift by d states
+// Lane l holds the NW contiguous words l NW .. l NW + NW - 1 (the
+// shared-buffer kernels' lane l holds the strided words l + 32 k). A shift by d states
 // sets word w to funnel_r(x[w + A], x[w + A + 1], s) (A = floor(-d / 32), s
 // = -d mod 32). With contiguous words, the words of a shift by A = -1 or
 // -2 (d in [1, 64]: every diagonal of config 10, offsets 1..40 at NW = 2)
@@ -920,17 +927,7 @@ template <int NW>
 __global__ void __launch_bounds__(kBbThreads)
     bb_stats_kernel(RRX_BB_PARAMS, int C, int seeded, int nullable, int32_t* cnt_o,
                     int32_t* first_o, int32_t* last_o, uint8_t* full_o, const RegPlan plan) {
-  extern __shared__ uint32_t smem[];
-  // a block wholly past R or live skips the table load (uniform across the
-  // block, so before load_bb's barrier)
-  const int r0 = static_cast<int>(blockIdx.x) * kWarps;
-  if (r0 >= R || (live != nullptr && r0 >= *live)) return;
-  const BB bb = load_bb<NW>(smem, tab_g, meta_g, W, n_rows, false, false);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = r0 + warp;
-  if (r >= R || (live != nullptr && r >= *live)) return;
-  const Row rec = record(data, stride, L, lengths, r);
-  const int len = rec.len;
+  RRX_BB_RECORD(false)
   RegStep<NW> st;
   st.init(bb, plan, lane);
   int cnt, first, last, full;
@@ -975,35 +972,45 @@ __global__ void __launch_bounds__(kBbThreads)
   }
 }
 
+// The flag words on the stats kernel's step: bit t & 31 of the open word
+// is step t's flag, and the word is stored when it closes (walking up, bit
+// 31); lane c keeps channel c's word (lane 0 the only channel's), and after
+// the EOS step the open word and the zero words past it are stored.
 template <int NW>
 __global__ void __launch_bounds__(kBbThreads)
-    bb_flags_kernel(RRX_BB_PARAMS, int C, int seeded, uint32_t* words) {
-  RRX_BB_SETUP
+    bb_flags_kernel(RRX_BB_PARAMS, int C, int seeded, uint32_t* words, const RegPlan plan) {
+  RRX_BB_RECORD(false)
   const int Wt = (L + 2 + 31) >> 5;
   const long long cols = static_cast<long long>(R) * C;
-  const long long col = static_cast<long long>(r) * C + lane;
+  uint32_t* out = words + static_cast<long long>(r) * C + lane;  // word i at out[i * cols]
+  RegStep<NW> st;
+  st.init(bb, plan, lane);
   uint32_t v[NW];
 #pragma unroll
   for (int k = 0; k < NW; ++k) v[k] = 0;
   uint32_t word = 0;
-  int wi = 0;
-  walk_steps(rec.row, len, [&](int t, int sym) {
-    step_fwd<NW>(bb, vs, ps, v, seeded || t < 2, sym, lane);
-    bool fl = false;
-    for (int c = 0; c < C; ++c) {
-      const bool a = any_row<NW>(bb, v, bb.r_acc + c, lane);
-      if (c == lane) fl = a;
-    }
-    if ((t >> 5) != wi) {
-      if (lane < C) words[wi * cols + col] = word;
-      word = 0;
-      wi = t >> 5;
+  walk_chunks(rec.row, len, [&](int t, int sym) {
+    st.step(bb, plan, v, seeded || t < 2, sym);
+    bool fl;
+    if (C == 1) {
+      fl = st.accepts(bb, v, 0);
+    } else {
+      fl = false;
+      for (int c = 0; c < C; ++c) {
+        const bool a = st.accepts(bb, v, c);
+        if (c == lane) fl = a;
+      }
     }
     word |= (fl ? 1u : 0u) << (t & 31);
+    if ((t & 31) == 31) {  // walking up, bit t closes word t / 32
+      if (lane < C) out[(t >> 5) * cols] = word;
+      word = 0;
+    }
   });
   if (lane < C) {
-    words[wi * cols + col] = word;
-    for (int i = wi + 1; i < Wt; ++i) words[i * cols + col] = 0u;
+    const int w_eos = (len + 1) >> 5;
+    if (((len + 1) & 31) != 31) out[w_eos * cols] = word;
+    for (int i = w_eos + 1; i < Wt; ++i) out[i * cols] = 0u;
   }
 }
 
@@ -1171,10 +1178,9 @@ int reg_plan(int NW, int nd, const int* diags, int nf, const int* gaps, bool rev
   return 0;
 }
 
-// `bufs`: the kernel's warps have state buffers (every kernel but stats and
-// reverse). One block per kWarps records or, `resident` (the reverse, whose
-// warps take records from a counter), no more blocks than fit on the card at
-// once.
+// `bufs`: the kernel's warps have state buffers (anchor end and spans). One
+// block per kWarps records or, `resident` (the reverse, whose warps take
+// records from a counter), no more blocks than fit on the card at once.
 template <class K, class... Args>
 int launch_bb(K kernel, int R, int W, int n_rows, bool bufs, bool resident, void* stream,
               Args... args) {
@@ -1247,15 +1253,20 @@ int rrx_bitband_stats(RRX_BB_HEAD, int C, int seeded, int nullable, void* cnt, v
   });
 }
 
-// words: [ceil((L+2)/32)][R*C] uint32
-int rrx_bitband_flags(RRX_BB_HEAD, int C, int seeded, void* words, void* stream) {
-  const int bad = check_bb(data, stride, L, R, W, n_rows, C);
+// words: [ceil((L+2)/32)][R*C] uint32; then the spec's offsets and gaps
+// as for stats
+int rrx_bitband_flags(RRX_BB_HEAD, int C, int seeded, void* words, int nd, const int* diags,
+                      int nf, const int* gaps, void* stream) {
+  int bad = check_bb(data, stride, L, R, W, n_rows, C);
+  if (bad == 0 && C < 1) bad = static_cast<int>(cudaErrorInvalidValue);
   if (bad != 0) return bad;
-  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
   return by_lane_words(W, [&](auto nw) {
     constexpr int NW = decltype(nw)::value;
-    return launch_bb(bb_flags_kernel<NW>, R, W, n_rows, true, false, stream, RRX_BB_ARGS, C, seeded,
-                     static_cast<uint32_t*>(words));
+    RegPlan plan;
+    const int e = reg_plan(NW, nd, diags, nf, gaps, false, &plan);
+    if (e != 0) return e;
+    return launch_bb(bb_flags_kernel<NW>, R, W, n_rows, false, false, stream, RRX_BB_ARGS, C,
+                     seeded, static_cast<uint32_t*>(words), plan);
   });
 }
 
@@ -1314,7 +1325,7 @@ int rrx_bitband_occupancy(int kernel, int W, int n_rows, int* blocks_per_sm) {
       case 0:
         return occupancy_bb(bb_stats_kernel<NW>, W, n_rows, false, blocks_per_sm);
       case 1:
-        return occupancy_bb(bb_flags_kernel<NW>, W, n_rows, true, blocks_per_sm);
+        return occupancy_bb(bb_flags_kernel<NW>, W, n_rows, false, blocks_per_sm);
       case 2:
         return occupancy_bb(bb_reverse_kernel<NW>, W, n_rows, false, blocks_per_sm);
       case 3:

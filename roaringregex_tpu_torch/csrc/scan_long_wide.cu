@@ -300,28 +300,6 @@ long_band_reverse_kernel(LONG_WIDE_HEAD, uint32_t* __restrict__ hits,
   }
 }
 
-// The diagonals of a band table for a kernel's direction: offsets[k] = d
-// (the forward edges s -> s + d of band row k), |d| < s_tile. The forward
-// step moves sources up by d, the reverse step destinations down by d; ups
-// fill the slots from 0, downs from kMaxDiags - 1.
-int band_diags(int nd, const int* offsets, bool reverse, int s_tile, Diags* dg) {
-  if (nd < 0 || nd > kMaxDiags || (nd > 0 && offsets == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  *dg = Diags{};
-  for (int i = 0; i < nd; ++i) {
-    const int d = offsets[i];
-    if (d <= -s_tile || d >= s_tile) return static_cast<int>(cudaErrorInvalidValue);
-    const int e = reverse ? -d : d;
-    const int k = e >= 0 ? dg->n_up++ : kMaxDiags - 1 - dg->n_dn++;
-    const int a = e < 0 ? -e : e;
-    dg->q[k] = a >> 5;
-    dg->r[k] = a & 31;
-    dg->row[k] = i;
-  }
-  return 0;
-}
-
 // The launchers' checks: the window geometry (check_long) and a tile of
 // 257..1024 states.
 int check_long_wide(const void* data, long long n, int nw, int block, int lead, int T, int rep,

@@ -40,27 +40,41 @@
 // - One warp per record: lane l < W holds state word l in one register;
 //   lanes >= W hold zero and take part in every shuffle and vote. W is a
 //   runtime argument (one instantiation per kernel keeps nvcc's time short).
-// - The step walks the live states warp-uniformly: a ballot of the lanes
-//   with a live word, then for each such word w its bits broadcast by
-//   __shfl_sync, and for each set bit s lane l ORs row[s][l] from shared
-//   memory (consecutive lanes, consecutive words: no bank conflict). Every
-//   lane sees the same set bits, so the warp does not diverge; the cost is
-//   one shared load per live state and step, plus W-independent vote and
-//   mask work. The accept test is one __any_sync.
+// - The forward kernels' step (Wide) walks the live states warp-uniformly:
+//   a ballot of the lanes with a live word, then for each such word w its
+//   bits broadcast by __shfl_sync, and for each set bit s lane l ORs
+//   row[s][l] from shared memory (consecutive lanes, consecutive words: no
+//   bank conflict). Every lane sees the same set bits, so the warp does not
+//   diverge; the cost is one shared load per live state and step, plus
+//   W-independent vote and mask work. The accept test is one __any_sync.
+// - The reverse kernel runs the band step (Band, scan_nfa_wide.cuh) on the
+//   tile's band split (scan_pallas.with_band): each kept diagonal moves the
+//   whole state set by two lane shuffles and a funnel shift whatever is
+//   live, the seed row is one vote (state 0 precedes the live states of
+//   follow[0]: the step's hit bit), and only the residual's live states are
+//   walked as above (every edge where the split keeps no diagonal). A
+//   planted chain keeps hundreds of states live, which the walk pays for
+//   one by one and the diagonals do not. Its bytes come off a 16-byte chunk
+//   in registers, the next chunk loaded one ahead (walk_chunks_rev). It
+//   takes 48 registers, so one 1024-thread block an SM at every tile (the
+//   Wide walk's 25 fit two at W <= 16; capped at 32 it spills and runs
+//   slower: PERF.md).
 // - Shared memory holds only the direction a kernel needs (follow for the
-//   forward kernels, pred for the reverse one), the mask rows and the accept
-//   rows: at s_tile 1024, 128 KB + 33 KB, so one 1024-thread block per SM;
-//   the whole table (295 KB) would not fit the 227 KB a block may have. At
-//   s_tile 384 (W = 12) the block needs 31 KB, and two fit on an SM where
-//   the registers allow (32 a thread; the stats kernel takes more).
+//   forward kernels, the residual pred rows for the reverse one), the mask
+//   rows and the accept rows: at s_tile 1024, 128 KB + 33 KB, so one
+//   1024-thread block per SM; the whole table (295 KB) would not fit the
+//   227 KB a block may have. At s_tile 384 (W = 12) the block needs 31 KB,
+//   and two fit on an SM where the registers allow (32 a thread; the stats
+//   kernel takes more).
 // - Persistent blocks: no more blocks than are resident at once, each copies
 //   its rows once, and its warps take records from a counter in global
 //   memory (next, zero at launch), so that long-lived records (many live
 //   states, a greedy round per span) do not pile up on a few warps.
-// - The record's bytes are read 16 at a time, every lane the same 16-byte
-//   chunk (one broadcast load). HBM carries one byte per step and 1 bit per
-//   step of flag or hit words; a pass is bound by the step's dependent
-//   chain of shuffles, shared loads and votes, and by integer issue.
+// - The forward kernels read the record's bytes 16 at a time, every lane
+//   the same 16-byte chunk (one broadcast load). HBM carries one byte per
+//   step and 1 bit per step of flag or hit words; a pass is bound by the
+//   step's dependent chain of shuffles, shared loads and votes, and by
+//   integer issue.
 // - Stats with P > 1 accept channels: the union of the accept rows is tested
 //   every step; on a step where it fires the warp's state goes to a buffer
 //   in shared memory and lane c tests channels c, c+32, ... and updates
@@ -234,27 +248,32 @@ wide_flags_kernel(WIDE_PARAMS, int seeded, uint32_t* __restrict__ flags, int32_t
   }
 }
 
+// The band step over records: Band<32>'s diagonals and residual walk on
+// the tile's band table (scan_pallas.band_table, pred direction), the bytes
+// walked down by walk_chunks_rev. The hit bit of step t is s0, state 0
+// preceding a live state of follow[0] (state 0 of the step's result).
 __global__ void __launch_bounds__(kWideThreads)
-wide_reverse_kernel(WIDE_PARAMS, uint32_t* __restrict__ hits, int32_t* next) {
+wide_reverse_kernel(WIDE_PARAMS, uint32_t* __restrict__ hits, const uint32_t* __restrict__ band_g,
+                    const Diags dg, int32_t* next) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const Wide k = load_wide(smem, tab_g, S, W, 1, true);
+  const Band<32> k = load_band<32>(smem, tab_g, band_g, dg, S, W, true);
   const int Wh = (L + 2 + 31) >> 5;
   WIDE_RECORDS {
-    Stream s = stream_of(data, stride, L, lengths, r);
-    const int len = s.len;
+    const Row rec = record(data, stride, L, lengths, r);
+    const int len = rec.len;
     for (int w = ((len + 1) >> 5) + 1 + lane; w < Wh; w += 32) {
       hits[static_cast<size_t>(w) * R + r] = 0u;
     }
     uint32_t rs = 0u, word = 0u;
-#pragma unroll 1
-    for (int t = len + 1; t >= 0; --t) {
-      rs = k.rev(rs, s.sym(t));
-      word |= (__shfl_sync(kFull, rs, 0) & 1u) << (t & 31);
+    walk_chunks_rev(rec.row, len, [&](int t, int sym) {
+      bool s0;
+      rs = k.rev(dg, rs, sym, s0);
+      word |= (s0 ? 1u : 0u) << (t & 31);
       if ((t & 31) == 0) {  // walking down, bit t closes word t / 32
         if (lane == 0) hits[static_cast<size_t>(t >> 5) * R + r] = word;
         word = 0u;
       }
-    }
+    });
   }
 }
 
@@ -650,13 +669,19 @@ int rrx_nfa_wide_flags(RRX_WIDE_HEAD, int seeded, void* flags, void* next, void*
                      static_cast<int32_t*>(next));
 }
 
-// hits: [ceil((L+2)/32)][R] uint32
-int rrx_nfa_wide_reverse(RRX_WIDE_HEAD, void* hits, void* next, void* stream) {
-  const int bad = check_wide(data, stride, L, R, s_tile, 1);
+// hits: [ceil((L+2)/32)][R] uint32; then the tile's band table
+// (scan_pallas.band_table), the number of its offsets and the offsets (a
+// host int array), as rrx_long_wide_reverse takes them
+int rrx_nfa_wide_reverse(RRX_WIDE_HEAD, void* hits, const void* band, int nd, const int* offsets,
+                         void* next, void* stream) {
+  Diags dg;
+  int bad = check_wide(data, stride, L, R, s_tile, 1);
+  if (bad == 0 && band == nullptr) bad = static_cast<int>(cudaErrorInvalidValue);
+  if (bad == 0) bad = band_diags(nd, offsets, true, s_tile, &dg);
   if (bad != 0) return bad;
   return launch_wide(wide_reverse_kernel, R, wide_smem_bytes(s_tile, words_of(s_tile), 1, false),
                      stream, RRX_WIDE_ARGS, static_cast<uint32_t*>(hits),
-                     static_cast<int32_t*>(next));
+                     static_cast<const uint32_t*>(band), dg, static_cast<int32_t*>(next));
 }
 
 // starts: [R] int32 (-1 = inactive); end: [R] int32
@@ -726,9 +751,10 @@ int rrx_nfa_wide_lazy_spans_mb(RRX_WIDE_HEAD, int P, const void* span, const voi
 }
 
 // Resident blocks per SM (theoretical occupancy) of a wide kernel for a tile
-// of s_tile states and P accept rows, by index: 0 stats, 1 reverse, 2 anchor
-// end, 3 lazy spans, 4 greedy spans, 5 flags (rrx_occupancy's order), then
-// the multi-channel kernels: 6 reverse_mb, 7 lazy_spans_mb.
+// of s_tile states and P accept rows, by index: 0 stats, 1 reverse (the
+// band step), 2 anchor end, 3 lazy spans, 4 greedy spans, 5 flags
+// (rrx_occupancy's order), then the multi-channel kernels: 6 reverse_mb, 7
+// lazy_spans_mb.
 int rrx_nfa_wide_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm) {
   if (s_tile < kMinTile || s_tile > kMaxTile || P < 1) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,17 +1,18 @@
 // The warp steps of the matmul tier at record tiles of 257..1024 states
 // (W = ceil(s_tile/32) = 12..32 state words). Wide is shared by
-// scan_nfa_wide.cu (one warp per record), scan_long_wide.cu's carry (one
-// warp per window of one long string) and scan_stream.cu (one warp per
-// record fed a mask stream, each lane its word of the step's mask row): lane
-// l holds state word l, lanes >= W hold zero and join every vote; the live
-// states are walked warp-uniformly (a ballot of the live words, a
-// __shfl_sync of each, one shared-row load and OR per live state), then the
-// mask AND; the accept test is one __any_sync. Shared memory holds one
-// direction's rows (follow or pred), the mask rows and the accept rows of
-// the table of scan_pallas.nfa_tables. Band (below) is the step of
-// scan_long_wide.cu's flags, count and reverse: the diagonals of the follow
-// matrix as lane shifts, only the other edges walked. The launchers run persistent
-// blocks of kWideWarps warps (no more blocks than are resident at once).
+// scan_nfa_wide.cu's forward kernels (one warp per record),
+// scan_long_wide.cu's carry (one warp per window of one long string) and
+// scan_stream.cu (one warp per record fed a mask stream, each lane its word
+// of the step's mask row): lane l holds state word l, lanes >= W hold zero
+// and join every vote; the live states are walked warp-uniformly (a ballot
+// of the live words, a __shfl_sync of each, one shared-row load and OR per
+// live state), then the mask AND; the accept test is one __any_sync. Shared
+// memory holds one direction's rows (follow or pred), the mask rows and the
+// accept rows of the table of scan_pallas.nfa_tables. Band (below) is the
+// step of scan_long_wide.cu's flags, count and reverse and of
+// scan_nfa_wide.cu's reverse: the diagonals of the follow matrix as lane
+// shifts, only the other edges walked. The launchers run persistent blocks
+// of kWideWarps warps (no more blocks than are resident at once).
 #pragma once
 
 #include <cstdint>
@@ -83,11 +84,6 @@ struct Wide {
     return expand((r | acc_l) & m);
   }
 
-  // R = OR of pred[u] over u in (R | acc) & mask[sym]
-  __device__ __forceinline__ uint32_t rev(uint32_t r, int sym) const {
-    return rev_word(r, mask[sym * W + col]);
-  }
-
   __device__ __forceinline__ bool accepts(uint32_t v) const {
     return __any_sync(kFull, (v & acc_l) != 0u);
   }
@@ -131,7 +127,8 @@ __device__ __forceinline__ Wide load_wide(uint32_t* smem, const uint32_t* __rest
   return k;
 }
 
-// The band step (scan_long_wide.cu's flags, count and reverse). The tile's
+// The band step (scan_long_wide.cu's flags, count and reverse, and
+// scan_nfa_wide.cu's reverse over records). The tile's
 // follow matrix is split (scan_pallas.band_split) into at most kMaxDiags kept
 // diagonals, edges s -> s + d for the s of a source mask D_d, and a residual.
 // A diagonal is a shift of the whole state set: a warp moves its words d / 32
@@ -329,6 +326,28 @@ __device__ __forceinline__ Band<G> load_band(uint32_t* smem, const uint32_t* __r
     k.dm[i] = k.on && kept ? __ldg(dmask + dg.row[i] * W + k.col) : 0u;
   }
   return k;
+}
+
+// The diagonals of a band table for a kernel's direction: offsets[k] = d
+// (the forward edges s -> s + d of band row k), |d| < s_tile. The forward
+// step moves sources up by d, the reverse step destinations down by d; ups
+// fill the slots from 0, downs from kMaxDiags - 1.
+inline int band_diags(int nd, const int* offsets, bool reverse, int s_tile, Diags* dg) {
+  if (nd < 0 || nd > kMaxDiags || (nd > 0 && offsets == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *dg = Diags{};
+  for (int i = 0; i < nd; ++i) {
+    const int d = offsets[i];
+    if (d <= -s_tile || d >= s_tile) return static_cast<int>(cudaErrorInvalidValue);
+    const int e = reverse ? -d : d;
+    const int k = e >= 0 ? dg->n_up++ : kMaxDiags - 1 - dg->n_dn++;
+    const int a = e < 0 ? -e : e;
+    dg->q[k] = a >> 5;
+    dg->r[k] = a & 31;
+    dg->row[k] = i;
+  }
+  return 0;
 }
 
 inline int words_of(int s_tile) { return (s_tile + 31) / 32; }

@@ -98,7 +98,8 @@ ARGTYPES = {
     # C, seeded, nullable, cnt, first, last, full, then the spec's diagonal
     # offsets and triangle gaps (counts and host int arrays)
     "rrx_bitband_stats": _BB_HEAD + [_I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
-    "rrx_bitband_flags": _BB_HEAD + [_I, _I, _P, _P],  # C, seeded, words
+    # C, seeded, words, then the spec's offsets and gaps as for stats
+    "rrx_bitband_flags": _BB_HEAD + [_I, _I, _P, _I, _P, _I, _P, _P],
     # hits, next (the record counter), then the spec's offsets and gaps as
     # for stats
     "rrx_bitband_reverse": _BB_HEAD + [_P, _P, _I, _P, _I, _P, _P],
@@ -115,7 +116,9 @@ ARGTYPES = {
     # rrx_nfa_wide_occupancy's index is rrx_occupancy's (stats, reverse,
     # anchor end, lazy spans, greedy spans, flags)
     "rrx_nfa_wide_stats": _NFA_HEAD + [_I] + _STATS_TAIL + [_P, _P],  # P, stats, next
-    "rrx_nfa_wide_reverse": _NFA_HEAD + [_P, _P, _P],  # hits, next
+    # hits, then the band table, its offset count and the offsets (the band
+    # step), next
+    "rrx_nfa_wide_reverse": _NFA_HEAD + [_P, _P, _I, _P, _P, _P],
     "rrx_nfa_wide_anchor_end": _NFA_HEAD + [_P, _I, _P, _P, _P],  # starts, longest, end, next
     # hits, cap, starts, ends, cnt, next
     "rrx_nfa_wide_lazy_spans": _NFA_HEAD + [_P, _I, _P, _P, _P, _P, _P],

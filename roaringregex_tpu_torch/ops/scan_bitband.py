@@ -711,13 +711,15 @@ def bitband_stats(data, lengths, tables: BitbandTables, *, seeded: bool, nullabl
 
 def bitband_flags(data, lengths, tables: BitbandTables, *, seeded: bool, live=None):
     """Flag words [Wt, R * C] int32 (``rrx_bitband_flags`` on a CUDA
-    tensor, counted; :func:`flags_plain` on a CPU tensor)."""
+    tensor, counted; :func:`flags_plain` on a CPU tensor). The kernel runs
+    the stats kernel's register step and takes the spec's offsets and gaps
+    as it does."""
     if data.device.type == "cpu":
         return flags_plain(data, lengths, tables, seeded=seeded)
     R, L = data.shape
     words = torch.empty((sb.hit_words(L), R * tables.C), dtype=torch.int32, device=data.device)
     _launch("rrx_bitband_flags", data, lengths, tables, tables.tab_f, live, int(tables.C),
-            int(seeded), words)
+            int(seeded), words, *_plan_args(tables.spec))
     bitband_flags.launches += 1
     return words
 

@@ -12,8 +12,8 @@ package, whose ``SwarScanner`` and ``WordScanner`` subclass
 ``PallasScanner``; so does every multiblock program (257..1024 states)
 that the engine keeps on the dense multiblock matmul (banded or not: the
 TPU's ``diag_ks`` form is a layout of the same step; the wide window
-kernels' flags, count and reverse take its diagonals as lane shifts,
-:func:`band_split`).
+kernels' flags, count and reverse and the wide record reverse take its
+diagonals as lane shifts, :func:`band_split`).
 
 On the TPU one step is ``y = F_bdᵀ·v (+ c0)`` in bf16 on the MXU over G
 records packed into 128 or 256 lanes, ``v = y ∘ mask(byte)``, with a
@@ -47,7 +47,7 @@ lane block, the block-diagonal ``F_bd``, ``cls_spec``'s mask-by-matmul,
 the banded ``dks`` form, the bf16 counts) is a layout of this same
 function: the parity boundary is the scanner methods' outputs. Only the
 diagonals have a counterpart here, in the band split of the wide window
-kernels (:func:`band_split`).
+kernels and the wide record reverse (:func:`band_split`).
 
 The plain PyTorch versions hold a state set as a [R, s_tile] bool plane
 and step it with a 0/1 float32 product (exact: every sum is at most 1024,
@@ -115,10 +115,14 @@ class NfaTables(NamedTuple):
     # past REG_S_TILE states, set by :func:`with_band`: the band split of
     # the follow rows for the wide window kernels' flags, count and reverse
     # (:func:`band_table`), its offsets, and the lanes of a warp that step
-    # one window (16 where W <= 16: two windows a warp)
+    # one window (16 where W <= 16: two windows a warp); then the wide
+    # record reverse's split and its offsets (one record a warp; None where
+    # the dead step's mask row is not zero)
     band: torch.Tensor | None = None
     diags: tuple = ()
     band_lanes: int = 32
+    rev_band: torch.Tensor | None = None
+    rev_diags: tuple = ()
 
     def plain(self, dev) -> "_Plain":
         """The stepper of the plain versions on ``dev``."""
@@ -355,29 +359,47 @@ def band_table(split: BandSplit) -> np.ndarray:
 
 
 def with_band(tables: NfaTables, max_diags: int | None = None, *, rows=None) -> NfaTables:
-    """``tables`` with the band split of its follow rows on their device
+    """``tables`` with the band splits of its follow rows on their device
     (``rows``: the host rows of ``nfa_tables``, else read back from the
-    device), for the wide window kernels' flags, count and reverse (tiles past
-    ``REG_S_TILE`` states). A tile of at most 16 state words runs two
-    windows a warp, one on each half.
+    device), for the wide window kernels' flags, count and reverse and the
+    wide record kernels' reverse (tiles past ``REG_S_TILE`` states). A tile
+    of at most 16 state words runs two windows a warp, one on each half
+    (records: one a warp).
 
-    ``max_diags`` None: the diagonals of ``band_split`` are kept where they
-    carry at least half the edges outside the seed row (keyword lists and
-    runs carry all, an optional suffix after them most); otherwise every
-    edge is walked. Where the residual holds most edges, the walk runs
-    anyway and the diagonals' shifts come on top of it, not in its place
-    (x(ab|c){300,340}y: 35% on four diagonals, its count slower with them
-    than with every edge walked; K60 with an optional suffix, 75% on one,
-    3x faster with it; ``PERF.md``). An int forces that split."""
+    ``max_diags`` None: the window kernels keep the diagonals of
+    ``band_split`` where they carry at least half the edges outside the
+    seed row (keyword lists and runs carry all, an optional suffix after
+    them most); otherwise they walk every edge. Where the residual holds
+    most edges, the walk runs anyway and the diagonals' shifts come on top
+    of it, not in its place (x(ab|c){300,340}y: 35% on four diagonals, its
+    count slower with them than with every edge walked; K60 with an
+    optional suffix, 75% on one, 3x faster with it; ``PERF.md``). The
+    record reverse keeps every diagonal ``band_split`` finds (K60+, 10% of
+    its edges on one, 1.6x faster with it; ``PERF.md``). An int forces
+    that split on both.
+
+    The record reverse ends each record at its EOS step, where the plain
+    reverse walks on over the dead steps past it: its split is left None
+    unless the dead step's mask row is zero (as ``nfa_tables`` builds it),
+    and ``nfa_reverse`` refuses such tables."""
     S, W = tables.s_tile, _words(tables.s_tile)
     if rows is None:
         rows = tables.tab.cpu().numpy().view(np.uint32).reshape(-1, W)
-    F = _unpack_rows(np.asarray(rows, np.uint32)[:S], S)
-    split = band_split(F, BANDED_MAX_DIAGS if max_diags is None else max_diags)
+    rows = np.asarray(rows, np.uint32)
+    F = _unpack_rows(rows[:S], S)
+    rev = split = band_split(F, BANDED_MAX_DIAGS if max_diags is None else max_diags)
     if max_diags is None and 2 * int(_unpack_rows(split.follow[1:], S).sum()) > int(F[1:].sum()):
         split = band_split(F, 0)
-    band = torch.from_numpy(band_table(split).view(np.int32).copy()).to(tables.tab.device)
-    return tables._replace(band=band, diags=split.offsets, band_lanes=16 if W <= 16 else 32)
+
+    def on_device(sp: BandSplit) -> torch.Tensor:
+        return torch.from_numpy(band_table(sp).view(np.int32).copy()).to(tables.tab.device)
+
+    band = on_device(split)
+    rev_band = None
+    if not rows[2 * S + sb.SYM_DEAD].any():
+        rev_band = band if rev is split else on_device(rev)
+    return tables._replace(band=band, diags=split.offsets, band_lanes=16 if W <= 16 else 32,
+                           rev_band=rev_band, rev_diags=rev.offsets)
 
 
 # ---------------------------------------------------------------------------
@@ -636,14 +658,27 @@ def _launch(entry: str, data, lengths, tables: NfaTables, *tail) -> None:
     sb.launch(entry, data, lengths, tables.tab, int(tables.s_tile), *tail)
 
 
+def _band_tail(entry: str, band, diags: tuple, S: int, note: str = "") -> tuple:
+    """(band table, offset count, offsets as a host int array of
+    BANDED_MAX_DIAGS) for a band-step launch; refuses tables without the
+    split."""
+    if band is None:
+        raise ValueError(f"{entry}: tables of {S} states without a band split (with_band{note})")
+    return band, len(diags), (ctypes.c_int * BANDED_MAX_DIAGS)(*diags)
+
+
 def _run(name: str, wrapper, data, lengths, tables: NfaTables, *tail,
-         channels: bool = False) -> None:
+         channels: bool = False, band: bool = False) -> None:
     """Launch ``rrx_nfa_<name>`` for a tile of up to ``REG_S_TILE`` states
     (counted in ``wrapper.launches``, or with ``channels`` in
     ``wrapper.channel_launches``) or ``rrx_nfa_wide_<name>`` for 257..1024
     states (one warp per record, counted in ``wrapper.wide_launches``),
-    which also takes its record counter."""
+    which also takes its record counter and, with ``band`` (the band step),
+    the tables' record-reverse band split before it."""
     if tables.s_tile > REG_S_TILE:
+        if band:
+            tail += _band_tail(f"rrx_nfa_wide_{name}", tables.rev_band, tables.rev_diags,
+                               tables.s_tile, "; none where the dead step's mask row is not zero")
         nxt = torch.zeros(1, dtype=torch.int32, device=data.device)
         _launch(f"rrx_nfa_wide_{name}", data, lengths, tables, *tail, nxt)
         wrapper.wide_launches += 1
@@ -700,13 +735,14 @@ def nfa_flags(data, lengths, tables: NfaTables, *, seeded: bool):
 
 def nfa_reverse(data, lengths, tables: NfaTables):
     """Hit words [W, R] int32 (``rrx_nfa_reverse``, or past 256 states
-    ``rrx_nfa_wide_reverse``, on a CUDA tensor;
+    ``rrx_nfa_wide_reverse`` on the tables' record-reverse band split
+    (``rev_band``, ``rev_diags``), on a CUDA tensor;
     ``scan_bits.reverse_plain`` on a CPU tensor)."""
     if data.device.type == "cpu":
         return sb.reverse_plain(data, lengths, tables)
     R, L = data.shape
     hits = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
-    _run("reverse", nfa_reverse, data, lengths, tables, hits)
+    _run("reverse", nfa_reverse, data, lengths, tables, hits, band=True)
     return hits
 
 
@@ -1243,11 +1279,8 @@ def _long_run(name: str, wrapper, data, geom: LongGeom, tables: NfaTables, *args
     count and reverse there take the tables' band split."""
     if tables.s_tile > REG_S_TILE:
         if name != "carry":
-            if tables.band is None:
-                raise ValueError(f"rrx_long_wide_{name}: tables of {tables.s_tile} states "
-                                 "without a band split (with_band)")
-            offs = (ctypes.c_int * BANDED_MAX_DIAGS)(*tables.diags)
-            args += (tables.band, len(tables.diags), offs, int(tables.band_lanes))
+            args += (*_band_tail(f"rrx_long_wide_{name}", tables.band, tables.diags,
+                                 tables.s_tile), int(tables.band_lanes))
         _long_launch(f"rrx_long_wide_{name}", data, geom, tables, *args)
         wrapper.wide_launches += 1
     else:

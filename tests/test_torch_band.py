@@ -1,6 +1,7 @@
 """The band split of a wide tile (``scan_pallas.band_split``) and the band
-step that the wide window kernels' flags, count and reverse run on it
-(``csrc/scan_nfa_wide.cuh`` ``Band``), numpy and torch only, on the CPU.
+step that the wide window kernels' flags, count and reverse and the wide
+record reverse run on it (``csrc/scan_nfa_wide.cuh`` ``Band``), numpy and
+torch only, on the CPU.
 
 - The split is an exact partition of the follow matrix: every edge lies on
   one kept diagonal or in the residual rows, no bit at or past S is set,
@@ -16,6 +17,15 @@ step that the wide window kernels' flags, count and reverse run on it
 - ``_long_run`` hands the wide flags, count and reverse kernels the band
   table, its offsets and the lanes a window (carry none), and refuses
   tables without a band split.
+- The record reverse on the band step (``rrx_nfa_wide_reverse``): a
+  record-level model (one record a warp of 32 lanes, the bytes walked down
+  by a model of ``walk_chunks_rev``, the hit bit the seed row's vote, each
+  hit word stored when it closes and the words past the record's EOS step
+  zeroed) equals ``scan_bits.reverse_plain`` on x(ab|c){300,}y, K60+ and
+  planted tiles with a residual, each with its diagonals kept and with
+  every edge walked, on records of length 0, at the 16-byte chunk edges
+  and full. ``nfa_reverse`` hands the kernel the band table and its
+  offsets past 256 states and refuses tables without a band split.
 
 Every comparison is exact.
 """
@@ -56,10 +66,12 @@ def _follow(tables: spl.NfaTables) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _random_tables(S: int, seed: int, residual: bool = True) -> spl.NfaTables:
+def _random_tables(S: int, seed: int, residual: bool = True,
+                   dead: bool = True) -> spl.NfaTables:
     """A hand-built tile: diagonals planted at PLANTED (each edge kept with
     probability 0.6), random residual edges (or the seed row only), random
-    mask rows (bytes >= 0x80 zero) and a random accept row."""
+    mask rows (bytes >= 0x80 zero, and the dead step's unless ``dead``) and
+    a random accept row."""
     rng = np.random.default_rng(seed)
     W = spl._words(S)
     F = np.zeros((S, S), bool)
@@ -73,6 +85,8 @@ def _random_tables(S: int, seed: int, residual: bool = True) -> spl.NfaTables:
         F[0] = rng.random(S) < 0.2
     mbits = rng.random((spl.N_SYMS, S)) < 0.7
     mbits[0x80:256] = False
+    if not dead:  # the dead step's row is zero, as nfa_tables builds it
+        mbits[spl.sb.SYM_DEAD] = False
     acc = spl._pack_rows((rng.random(S) < 0.05)[None, :], W)
     tab = np.concatenate([spl._pack_rows(F, W), spl._pack_rows(F.T, W),
                           spl._pack_rows(mbits, W), acc])
@@ -120,6 +134,9 @@ def test_band_split_partitions_programs(name):
     assert res.any() != bare
     assert (2 * res.sum() <= F[1:].sum()) == (name not in ("chain", "K60+"))
     assert tables.diags == (() if name in ("chain", "K60+") else split.offsets)
+    # the record reverse keeps the diagonals whatever the residual
+    assert tables.rev_diags == split.offsets
+    assert tables.rev_band is tables.band or name in ("chain", "K60+")
     empty = spl.band_split(F, 0)
     assert empty.offsets == () and (spl._unpack_rows(empty.follow, prog.s_tile) == F).all()
 
@@ -273,15 +290,14 @@ class _Model:
         return np.stack([xs[h * self.G:h * self.G + self.W] for h in range(32 // self.G)])
 
     def walk(self, xs, pred):
-        y = np.zeros(32, np.uint64)
-        for lane in range(32):
-            j, h = lane % self.G, lane // self.G
-            if j >= self.W:
-                continue
-            x = self.words(xs)[h]
-            for s in np.flatnonzero(spl._unpack_rows(x[None, :].astype(np.uint32), self.S)[0]):
-                y[lane] |= self.rows[int(pred), s, j]
-        return y
+        """Lane j of each window ORs word j of the residual row of every
+        live state of its window's set."""
+        out = []
+        for x in self.words(xs):
+            live = np.flatnonzero(spl._unpack_rows(x[None, :].astype(np.uint32), self.S)[0])
+            out.append(np.bitwise_or.reduce(self.rows[int(pred), live], axis=0) if live.size
+                       else np.zeros(self.W, np.uint64))
+        return self.lanes(out)
 
     def per_lane(self, row):
         return self.lanes([row] * (32 // self.G))
@@ -392,3 +408,193 @@ def test_long_run_passes_the_band(name, monkeypatch):
     with pytest.raises(ValueError, match="without a band split"):
         spl._long_run(name, wrapper, data, geom, tables._replace(band=None), *own)
     assert wrapper.wide_launches == before + 2
+
+
+# ---------------------------------------------------------------------------
+# The record reverse on the band step (rrx_nfa_wide_reverse)
+# ---------------------------------------------------------------------------
+
+
+def _walk_chunks_rev(row: np.ndarray, n: int):
+    """``walk_chunks_rev`` of ``csrc/scan_core.cuh`` on one record of n
+    bytes (its row padded to 16-byte chunks): (t, sym) from the EOS step t
+    = n + 1 down to the BOS step t = 0. A chunk is one 128-bit word (byte 0
+    lowest), loaded one chunk ahead; the last one is shifted up until byte
+    n - 1 is its top byte, then each step takes the top byte and shifts the
+    chunk up by 8 bits."""
+    mask = (1 << 128) - 1
+    chunk = lambda c: int.from_bytes(row[16 * c:16 * c + 16].tobytes(), "little")  # noqa: E731
+    nc = (n + 15) >> 4
+    nq = chunk(nc - 1) if nc > 0 else 0
+    t = n + 1
+    for c in range(nc, -2, -1):
+        q, k, fixed = nq, 1, spl.sb.SYM_BOS if c < 0 else spl.sb.SYM_EOS
+        if 0 <= c < nc:
+            k, fixed = min(16, n - 16 * c), -1
+            nq = chunk(max(c - 1, 0))
+            q = (q << (8 * (16 - k))) & mask
+        for _ in range(k):
+            yield t, fixed if fixed >= 0 else q >> 120
+            q = (q << 8) & mask
+            t -= 1
+
+
+def _reverse_records(tables: spl.NfaTables, data: np.ndarray, lengths: np.ndarray):
+    """``wide_reverse_kernel`` on the model: one record a warp (32 lanes),
+    its bytes walked down by ``walk_chunks_rev``, per step R = the band
+    step's reverse (``Band::rev``) and the hit bit s0 = x meets follow[0]
+    (x = (R | acc) & mask[sym]), which is also state 0 of the new R; lane 0
+    stores each hit word when bit 0 closes it, and the words past (len +
+    1) / 32 are zeroed. The hit words start as garbage (``torch.empty``).
+    The band table is the record reverse's (``rev_band``)."""
+    model = _Model(tables._replace(band=tables.rev_band, diags=tables.rev_diags), 32)
+    R, L = data.shape
+    Wt = spl.sb.hit_words(L)
+    hits = np.random.default_rng(1).integers(0, 1 << 32, size=(Wt, R), dtype=np.uint64)
+    row = np.zeros(((L + 15) // 16) * 16, np.uint8)
+    for r in range(R):
+        n = int(min(max(lengths[r], 0), L))
+        hits[((n + 1) >> 5) + 1:, r] = 0
+        row[:L] = data[r]
+        rs, word = np.zeros((1, model.W), np.uint64), 0
+        for t, sym in _walk_chunks_rev(row, n):
+            x = (rs[0] | model.acc) & model.mask[sym]
+            s0 = bool((x & model.seed).any())
+            rs = model.rev(rs, [sym])
+            assert bool(rs[0, 0] & np.uint64(1)) == s0, "state 0 of R is not the hit bit"
+            word |= int(s0) << (t & 31)
+            if t & 31 == 0:
+                hits[t >> 5, r] = word
+                word = 0
+    return spl.sb._as_i32(torch.from_numpy(hits.astype(np.int64)))
+
+
+# record lengths: empty, the chunk edges, and a full row (L a multiple of 16)
+EDGE_LENGTHS = (0, 1, 15, 16, 17, 31, 32, 33, 47, 48)
+
+
+def _reverse_batch(name, S: int):
+    """Records over the program's bytes (every byte below 0x80 for a planted
+    tile) at EDGE_LENGTHS and full rows, with its matches planted: chains
+    x(ab|c){k}y of 300-303 tokens, runs of K60's keywords."""
+    rng = np.random.default_rng(S + len(name or ""))
+    if name == "chain+":
+        L = 352
+        data = rng.choice(np.frombuffer(b"xabcy", np.uint8), size=(14, L)).astype(np.uint8)
+        for r, at in ((10, 0), (11, 9), (12, 30)):
+            body = b"".join(rng.choice([b"ab", b"c"], size=300 + at // 10, p=[0.05, 0.95]))
+            w = (b"x" + body + b"y")[: L - at]
+            data[r, at:at + len(w)] = np.frombuffer(w, np.uint8)
+        lengths = np.array(EDGE_LENGTHS + (L, 330, L - 5, L), np.int32)
+        lengths[12] = min(L, 30 + 2 + len(body))
+        return data, lengths
+    L = 64
+    if name == "K60+":
+        words = [w.encode() for w in _keywords(60)]
+        data = rng.choice(np.frombuffer(b"abcdefgilmnorstuwx ", np.uint8), size=(14, L))
+        for r in range(2, 14, 2):
+            w = b"".join(words[int(i)] for i in rng.integers(0, 60, size=3))[: L - 4]
+            data[r, 3:3 + len(w)] = np.frombuffer(w, np.uint8)
+    else:
+        data = rng.integers(0, 0x80, size=(14, L))
+        data[5, 2] = 0xC3  # a byte >= 0x80 (no mask row: the state dies)
+    lengths = np.array(EDGE_LENGTHS + (L, L - 1, 40, L), np.int32)
+    return data.astype(np.uint8), lengths
+
+
+# (program or planted tile of S states): the default split, then the other
+RECORD_TILES = [("chain+", None), ("K60+", None), (None, 384), (None, 1024)]
+
+
+@pytest.mark.parametrize("keep", [True, False], ids=["diagonals", "walk-all"])
+@pytest.mark.parametrize("name,S", RECORD_TILES,
+                         ids=[n or f"planted{S}" for n, S in RECORD_TILES])
+def test_record_reverse_model_matches_plain(name, S, keep):
+    """The record reverse on the band step (one record a warp, the bytes by
+    ``walk_chunks_rev``, hit words with a zeroed tail) equals
+    ``scan_bits.reverse_plain`` on x(ab|c){300,}y (four diagonals), K60+
+    (one) and planted tiles with a residual (and a zero dead-step row),
+    with the diagonals kept (the record reverse's default) and every edge
+    walked; records of length 0, at the chunk edges and full."""
+    tables = _prog_tables(name)[1] if name else _random_tables(S, S, dead=False)
+    tables = spl.with_band(tables, spl.BANDED_MAX_DIAGS if keep else 0)
+    data, lengths = _reverse_batch(name, tables.s_tile)
+    got = _reverse_records(tables, data, lengths)
+    want = spl.sb.reverse_plain(torch.from_numpy(data), torch.from_numpy(lengths), tables)
+    assert torch.equal(got, want)
+    assert want.any(), "no hit bit: the batch shows nothing"
+    if name is None:
+        assert len(tables.rev_diags) == (len(PLANTED) if keep else 0)
+
+
+def test_walk_chunks_rev_order():
+    """The reverse walker's steps: len + 1 (EOS) down to 0 (BOS), byte t - 1
+    at step t, for every length 0..50 of a 64-byte row."""
+    row = np.arange(64, dtype=np.uint8) + 100
+    for n in range(51):
+        steps = list(_walk_chunks_rev(row, n))
+        want = [(n + 1, spl.sb.SYM_EOS)] + [(t, int(row[t - 1])) for t in range(n, 0, -1)] + [
+            (0, spl.sb.SYM_BOS)]
+        assert steps == want, n
+
+
+@pytest.mark.parametrize("name", ["chain+", "K60+", "narrow"])
+def test_nfa_reverse_passes_the_band(name, monkeypatch):
+    """Past 256 states ``nfa_reverse`` launches rrx_nfa_wide_reverse with
+    the hit words, the record reverse's band table (its diagonals kept even
+    where the window kernels walk every edge: K60+), its offset count and
+    the offsets (a host int array of BANDED_MAX_DIAGS), then the zeroed
+    record counter, and counts the launch; it refuses tables without that
+    split. A narrow
+    tile launches rrx_nfa_reverse with the hit words alone. The meta device
+    stands in for the card."""
+    calls = []
+    monkeypatch.setattr(spl, "_launch", lambda entry, *a: calls.append((entry, a)))
+    tables = (spl.device_nfa_tables(compile_program(_kw(20)), "cpu") if name == "narrow"
+              else _prog_tables(name)[1])
+    data = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
+    lengths = torch.zeros(4, dtype=torch.int32, device="meta")
+    wide = tables.s_tile > spl.REG_S_TILE
+    counter = "wide_launches" if wide else "launches"
+    before = getattr(spl.nfa_reverse, counter)
+    hits = spl.nfa_reverse(data, lengths, tables)
+    assert getattr(spl.nfa_reverse, counter) == before + 1
+    assert tuple(hits.shape) == (spl.sb.hit_words(32), 4) and hits.dtype == torch.int32
+    (entry, args), = calls
+    assert args[:3] == (data, lengths, tables) and args[3] is hits
+    if not wide:
+        assert entry == "rrx_nfa_reverse" and len(args) == 4
+        return
+    assert entry == "rrx_nfa_wide_reverse"
+    band, nd, offs, nxt = args[4:]
+    assert band is tables.rev_band and nd == len(tables.rev_diags)
+    assert tables.rev_diags == {"chain+": (1, 2, 3, 4), "K60+": (1,)}[name]
+    assert len(offs) == spl.BANDED_MAX_DIAGS and list(offs)[:nd] == list(tables.rev_diags)
+    assert not any(list(offs)[nd:])
+    assert nxt.dtype == torch.int32 and tuple(nxt.shape) == (1,)
+    with pytest.raises(ValueError, match="without a band split"):
+        spl.nfa_reverse(data, lengths, tables._replace(rev_band=None))
+    assert spl.nfa_reverse.wide_launches == before + 1
+
+
+@pytest.mark.parametrize("max_diags", [None, 0, spl.BANDED_MAX_DIAGS])
+def test_record_reverse_needs_a_zero_dead_row(max_diags, monkeypatch):
+    """The record reverse stops at each record's EOS step, where the plain
+    reverse walks on over the dead steps: ``with_band`` builds its split
+    only where the dead step's mask row is zero, and ``nfa_reverse``
+    refuses the tables otherwise, launching nothing; the window kernels'
+    split is built either way."""
+    calls = []
+    monkeypatch.setattr(spl, "_launch", lambda entry, *a: calls.append(entry))
+    data = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
+    lengths = torch.zeros(4, dtype=torch.int32, device="meta")
+    for dead in (True, False):
+        tables = spl.with_band(_random_tables(384, 7, dead=dead), max_diags)
+        assert tables.band is not None
+        assert (tables.rev_band is None) == dead
+        if dead:
+            with pytest.raises(ValueError, match="dead step's mask row"):
+                spl.nfa_reverse(data, lengths, tables)
+        else:
+            spl.nfa_reverse(data, lengths, tables)
+    assert calls == ["rrx_nfa_wide_reverse"]

@@ -1,6 +1,6 @@
-"""The register steps of ``rrx_bitband_stats`` and ``rrx_bitband_reverse``
-(``csrc/scan_bitband.cu`` ``RegStep`` and ``RevStep``), numpy and torch
-only, on the CPU.
+"""The register steps of ``rrx_bitband_stats``, ``rrx_bitband_flags`` and
+``rrx_bitband_reverse`` (``csrc/scan_bitband.cu`` ``RegStep`` and
+``RevStep``), numpy and torch only, on the CPU.
 
 A word-level model of the kernel's forward step, one warp of 32 lanes per
 record with lane l holding the contiguous state words l NW .. l NW + NW - 1:
@@ -28,6 +28,12 @@ reverse step on random state sets and, over whole records walked from
 step len + 1 down to 0, ``scan_bits.reverse_plain``'s hit words, on the
 same specs, with the band step both run and skipped; the E rows equal the
 plain reverse step of the empty state.
+
+The flags kernel runs the forward model over whole records: each
+channel's vote a step, its open word stored when bit 31 closes it, the
+open word and zero words after the EOS step. It equals ``flags_plain`` on
+config 10 with one and with three accept channels, seeded and unseeded;
+the wrapper hands the kernel the spec's offsets and gaps as stats's does.
 """
 import functools
 import re
@@ -505,3 +511,97 @@ def test_reverse_wrapper_passes_the_shifts(monkeypatch):
     assert n_rows == bb._rev_rows(sp) + 3 + len(sp.runs) and out is hits
     assert nd == len(sp.diags) and list(diags)[:nd] == list(sp.diags) and len(diags) == MAX_DIAGS
     assert nf == 3 and list(gaps) == [-1, 4, 5, 0, 0, 0] and len(gaps) == MAX_FAM
+
+
+def test_flags_wrapper_passes_the_shifts(monkeypatch):
+    """``bitband_flags`` on a non-CPU tensor launches rrx_bitband_flags
+    (the stats kernel's register step) with the channel count, the seed
+    gate and the flag words, then the spec's diagonal offsets and triangle
+    gaps as stats takes them, and counts the launch."""
+    calls = []
+    monkeypatch.setattr(sb, "launch", lambda entry, *a: calls.append((entry, a)))
+    _, tables = _tables("neg-gap")
+    data = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
+    lengths = torch.zeros(4, dtype=torch.int32, device="meta")
+    live = torch.zeros(1, dtype=torch.int32, device="meta")
+    before = bb.bitband_flags.launches
+    words = bb.bitband_flags(data, lengths, tables, seeded=False, live=live)
+    assert bb.bitband_flags.launches == before + 1
+    assert tuple(words.shape) == (sb.hit_words(32), 4 * tables.C) and words.dtype == torch.int32
+    (entry, args), = calls
+    assert entry == "rrx_bitband_flags"
+    tab, meta, W, n_rows, lv, C, seeded, out, nd, diags, nf, gaps = args[2:]
+    sp = tables.spec
+    assert tab is tables.tab_f and meta is tables.meta and W == sp.W and lv is live
+    assert n_rows == tables.tab_f.numel() // sp.W and C == tables.C and seeded == 0
+    assert out is words
+    assert nd == len(sp.diags) == 16 and list(diags)[:nd] == list(sp.diags)
+    assert len(diags) == MAX_DIAGS and not any(list(diags)[nd:])
+    assert nf == 3 and list(gaps) == [-1, 4, 5, 0, 0, 0] and len(gaps) == MAX_FAM
+
+
+def _flag_records(warp: _Warp, C: int, data: np.ndarray, lengths: np.ndarray, seeded: bool):
+    """``bb_flags_kernel`` on the register step's model: every record walked
+    from the BOS step to its EOS step, the seed gated at every step
+    (seeded) or at steps < 2, channel c's flag the vote of the state on
+    accept row c; lane c keeps channel c's open word and stores it when bit
+    31 closes it, then after the EOS step the open word and zero words to
+    the end. The flag words start as garbage (``torch.empty``)."""
+    R, L = data.shape
+    Wt = sb.hit_words(L)
+    words = np.random.default_rng(2).integers(0, 1 << 32, size=(Wt, R * C), dtype=np.uint64)
+    d, ln = torch.from_numpy(data), torch.from_numpy(lengths).to(torch.int64)
+    lnc = np.clip(lengths, 0, L)
+    v = np.zeros((R, 32, warp.nw), np.uint64)
+    open_w = np.zeros((R, C), np.uint64)
+    accs = [warp.lanes(warp.rows[warp.r_acc + c]) for c in range(C)]
+    for t in range(L + 2):
+        on = t <= lnc + 1  # the records whose walk has step t
+        v = warp.step(v, np.full(R, seeded or t < 2), sb._sym(d, ln, t).numpy())
+        for c in range(C):
+            fl = (v & accs[c]).any(axis=(1, 2))
+            open_w[:, c] |= np.where(on & fl, np.uint64(1) << np.uint64(t & 31), np.uint64(0))
+        if t & 31 == 31:
+            for r in np.flatnonzero(on):
+                words[t >> 5, r * C:(r + 1) * C] = open_w[r]
+            open_w[on] = 0
+    for r in range(R):
+        w_eos = (int(lnc[r]) + 1) >> 5
+        if (int(lnc[r]) + 1) & 31 != 31:
+            words[w_eos, r * C:(r + 1) * C] = open_w[r]
+        words[w_eos + 1:, r * C:(r + 1) * C] = 0
+    return sb._as_i32(torch.from_numpy(words.astype(np.int64)))
+
+
+@pytest.mark.parametrize("channels", [1, 3], ids=["config10", "config10-3-channels"])
+def test_flags_model_matches_plain(channels):
+    """The flag words of the register step (``bb_flags_kernel``) equal
+    ``flags_plain`` on config 10 with its accept set and with three
+    accept channels (its accept set, every fifth state and a random tenth),
+    seeded and unseeded, on records of length 0, at the word edges (30-33,
+    63-65) and full, chains of its body planted (a match, one copy too few
+    and one too many)."""
+    prog, tables = _tables("config10")
+    if channels > 1:
+        acc = np.zeros((prog.s_pad, 3), np.uint8)
+        n = prog.n_states
+        acc[:n, 0] = np.asarray(prog.accept)[:n]
+        acc[:n, 1] = np.arange(n) % 5 == 2
+        acc[:n, 2] = np.random.default_rng(3).random(n) < 0.1
+        tables = bb.device_bitband_tables(prog, tables.spec, "cpu", acc)
+    assert tables.C == channels
+    rng = np.random.default_rng(channels)
+    L = 560
+    data = rng.choice(np.frombuffer(b"xabcyz", np.uint8), size=(12, L)).astype(np.uint8)
+    for r, k in ((8, 400), (9, 399), (10, 521), (11, 460)):
+        body = b"".join(rng.choice([b"ab", b"c"], size=k, p=[0.1, 0.9]))
+        w = (b"x" + body + b"y")[:L]
+        data[r, :len(w)] = np.frombuffer(w, np.uint8)
+    lengths = np.array([0, 30, 31, 32, 33, 63, 64, 65, L, L, L, L - 7], np.int32)
+    warp = _Warp(tables)
+    d, ln = torch.from_numpy(data), torch.from_numpy(lengths)
+    for seeded in (True, False):
+        got = _flag_records(warp, channels, data, lengths, seeded)
+        want = bb.flags_plain(d, ln, tables, seeded=seeded)
+        assert torch.equal(got, want), f"seeded={seeded}"
+        assert want.any()
