@@ -77,11 +77,13 @@ its check fails:
    and 16 (cap 1 overflows), and P = 3 accept channels (K40+, cat|dog and
    [0-9]{3} as one union) seeded, unseeded, nullable and at a lead; the
    reverse (the band step) also in the other band split of each program,
-   on records of every length around the 16-byte chunks and the hit words
-   (0 included) of x(ab|c){300,}y and K60+, and on hand-built tiles at W =
-   12, 16 and 32 with diagonals planted (random residual edges, or the seed row
-   alone), both splits; the two
-   wide multi-channel span kernels (rrx_nfa_wide_reverse_mb,
+   the reverse and the flags (the band step, seeded and unseeded, two
+   records a warp at W <= 16 and also at 32 lanes a record) on odd counts
+   of records of every length around the 16-byte chunks and the flag and
+   hit words (0 included) of x(ab|c){300,}y and K60+, and on hand-built
+   tiles at W = 12, 16 and 32 with diagonals planted (random residual
+   edges, or the seed row alone), both splits; the two
+   wide multi-channel span kernels (rrx_nfa_wide_reverse_mb, both splits,
    rrx_nfa_wide_lazy_spans_mb) on that union, on K40+ with the `$`
    channels cat$ and [0-9]?$, and on 40 channels over K40+'s tile (lanes
    past 32 keep their bookkeeping in global rows), at caps 1, 2 and 16;
@@ -275,12 +277,17 @@ its check fails:
    the six wide record kernels on both programs at 10 MB and 1 GiB (plain
    versions once, on the 10 MB batch and on 4,096 records of the 1 GiB
    one, outputs compared there), with registers, occupancy, grid fill and
-   the bound, and match_stats end to end; the reverse (the band step) also
-   in the other split, in scheduler cycles a record-step with its spills,
-   beside rrx_stream_reverse (the Wide walk) on the same 10 MB records,
-   and x(ab|c){300,}y's starts_bitmap and lazy finditer_batch end to end
-   at 10 MB; the two wide multi-channel span
-   kernels on the P = 3 union at 10 MB and 1 GiB the same way; and the
+   the bound, and match_stats end to end; the reverse and the flags (the
+   band step) also in the other split (the run fails if the default is
+   the slower; the flags' at 1 GiB), the flags of K60+ also at 32 lanes a
+   record, in scheduler
+   cycles a record-step with their spills, beside rrx_stream_reverse and
+   rrx_stream_flags (the Wide walk) on the same 10 MB records, and
+   x(ab|c){300,}y's starts_bitmap and lazy finditer_batch and both
+   programs' ends_bitmap end to end at 10 MB; the two wide multi-channel
+   span kernels on the P = 3 union at 10 MB and 1 GiB the same way, with
+   cycles and spills, the reverse's other split and the union's lazy
+   MultiPattern.finditer_batch end to end at 10 MB; and the
    four wide window kernels at 1 GiB in K60's overlapped geometry (plain
    versions on 1 MiB), with count_ends end to end for K60 and
    x(ab|c){300,340}y, FastLongScanner.flags end to end for both, and the
@@ -1154,23 +1161,39 @@ def main() -> int:
             data[i, at : at + len(w)] = np.frombuffer(w, np.uint8)
         return data, lengths
 
-    def other_split(tables):
-        """The tables with the record reverse's other band split: every edge
-        walked where its default keeps diagonals, else the diagonals kept
-        (max_diags=8)."""
-        return scan_pallas.with_band(tables,
-                                     0 if tables.rev_diags else scan_pallas.BANDED_MAX_DIAGS)
+    def other_split(tables, diags):
+        """The tables with a record kernel's other band split (``diags``:
+        its default's offsets, ``rec_diags`` for the reverses, ``fwd_diags``
+        for the flags): every edge walked where the default keeps
+        diagonals, else the diagonals kept (max_diags=8)."""
+        return scan_pallas.with_band(tables, 0 if diags else scan_pallas.BANDED_MAX_DIAGS)
 
     def check_wide_reverse(tables, d, ln, tag):
         """rrx_nfa_wide_reverse (the band step) in both splits against the
         plain reverse; returns the splits' diagonal counts."""
         want = scan_bits.reverse_plain(d, ln, tables)
         splits = set()
-        for tb in (tables, other_split(tables)):
+        for tb in (tables, other_split(tables, tables.rec_diags)):
             compare("rrx_nfa_wide_reverse", [scan_pallas.nfa_reverse(d, ln, tb)], [want],
-                    f"{tag} diagonals {tb.rev_diags}", ("hits",))
-            splits.add(len(tb.rev_diags))
+                    f"{tag} diagonals {tb.rec_diags}", ("hits",))
+            splits.add(len(tb.rec_diags))
         return splits
+
+    def check_wide_flags(tables, d, ln, tag):
+        """rrx_nfa_wide_flags (the band step) seeded and unseeded in both
+        splits and, where W <= 16, at 32 lanes a record as well as two
+        records a warp, against flags_plain; returns the (diagonal count,
+        lanes) pairs run."""
+        forms = set()
+        for seeded in (True, False):
+            want = scan_pallas.flags_plain(d, ln, tables, seeded=seeded)
+            for tb in (tables, other_split(tables, tables.fwd_diags)):
+                for tl in ((tb, tb._replace(band_lanes=32)) if tb.band_lanes == 16 else (tb,)):
+                    compare("rrx_nfa_wide_flags", [scan_pallas.nfa_flags(d, ln, tl, seeded=seeded)],
+                            [want], f"{tag} seeded={seeded} diagonals {tl.fwd_diags} "
+                            f"{tl.band_lanes} lanes a record", ("flags",))
+                    forms.add((len(tl.fwd_diags), tl.band_lanes))
+        return forms
 
     t0 = time.perf_counter()
     before = launches()
@@ -1190,31 +1213,38 @@ def main() -> int:
             if L == 400:  # the reverse's other band split
                 rev_splits |= check_wide_reverse(tables, d, ln, f"{pattern[:40]!r} R={R} L={L}")
             n_cmp += 1
-    # the reverse's band step on records of every length around the 16-byte
-    # chunks and the 32-step hit words (0 included), on the chain and K60+,
-    # and on hand-built tiles with diagonals planted at BAND_PLANTED (random
-    # residual edges, or the seed row alone), both splits each
+    # the reverse's and the flags' band step on an odd count of records of
+    # every length around the 16-byte chunks and the 32-step flag and hit
+    # words (0 included), shuffled so that the two records of a warp differ,
+    # on the chain and K60+, and on hand-built tiles with diagonals planted at
+    # BAND_PLANTED (random residual edges, or the seed row alone), both
+    # splits each, the flags at both lane counts where W <= 16
     edge_len = np.array([0, 1, 2, 14, 15, 16, 17, 18, 30, 31, 32, 33, 34, 47, 48, 49, 62, 63, 64,
                          65, 95, 96, 97, 127, 128, 129, 255, 256, 257, 318, 319, 320], np.int32)
+    flag_forms = set()
     for pattern in (CHAIN300, K60P):
         tables = scan_pallas.device_nfa_tables(compile_program(pattern), dev)
-        data, _ = wide_batch(512, 320)
-        lengths = np.resize(edge_len, 512)
-        rev_splits |= check_wide_reverse(tables, torch.from_numpy(data).to(dev),
-                                         torch.from_numpy(lengths).to(dev),
-                                         f"{pattern[:40]!r} lengths at the chunk edges")
+        data, _ = wide_batch(511, 320)
+        lengths = rng.permutation(np.resize(edge_len, 511)).astype(np.int32)
+        d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
+        tag = f"{pattern[:40]!r} R=511, lengths at the chunk edges"
+        rev_splits |= check_wide_reverse(tables, d, ln, tag)
+        flag_forms |= check_wide_flags(tables, d, ln, tag)
         n_cmp += 1
     for S, residual in ((384, True), (512, True), (1024, True), (384, False), (1024, False)):
         tables = band_planted(S, residual, rng, dev, dead=False)
-        data, lengths = wide_batch(256, 200)
+        data, lengths = wide_batch(255, 200)
         lengths[: edge_len.size] = np.minimum(edge_len, 200)
+        lengths = rng.permutation(lengths).astype(np.int32)
         form = "residual" if residual else "seed row"
-        rev_splits |= check_wide_reverse(tables, torch.from_numpy(data).to(dev),
-                                         torch.from_numpy(lengths).to(dev),
-                                         f"hand-built S={S} {form}")
+        d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
+        rev_splits |= check_wide_reverse(tables, d, ln, f"hand-built S={S} {form}")
+        flag_forms |= check_wide_flags(tables, d, ln, f"hand-built S={S} {form} R=255")
         n_cmp += 1
     if not {0, 1, 4, len(BAND_PLANTED)} <= rev_splits:
         fail(f"rrx_nfa_wide_reverse comparisons covered only {sorted(rev_splits)} diagonals")
+    if not {(0, 16), (1, 16), (0, 32), (1, 32), (4, 32), (len(BAND_PLANTED), 16)} <= flag_forms:
+        fail(f"rrx_nfa_wide_flags comparisons covered only {sorted(flag_forms)}")
     # P = 3 accept channels on a dense multiblock union
     mp_w = MultiPattern(WIDE_MP, dev)
     tables = mp_w.engine.device_scanner.nfa
@@ -1243,9 +1273,10 @@ def main() -> int:
           f"multiblock programs (W = {sorted(words_w)}, banded and not, one nullable) and a P = 3 "
           f"union through the six wide kernels (stats seeded/unseeded/lead/nullable/P = 3, flags "
           f"seeded/unseeded, reverse, anchor lazy/longest, lazy and greedy at caps 1, 2, 16; greedy "
-          f"over set on {n_over} records); the reverse's band step in both splits (diagonal counts "
-          f"{sorted(rev_splits)}), on records of length 0 and at the chunk edges, and on "
-          f"hand-built tiles ({time.perf_counter() - t0:.1f}s)")
+          f"over set on {n_over} records); the reverse's and the flags' band step in both splits "
+          f"(diagonal counts {sorted(rev_splits)}; flags (diagonals, lanes a record) "
+          f"{sorted(flag_forms)}), on odd counts of records of length 0 and at the chunk edges, "
+          f"and on hand-built tiles ({time.perf_counter() - t0:.1f}s)")
 
     def counting_batch(R: int, L: int):
         """An edge batch over a counting alphabet, with an a-run, a body
@@ -1470,6 +1501,9 @@ def main() -> int:
         hits = P_.nfa_reverse_mb(d, ln, tables, span)
         compare("rrx_nfa_wide_reverse_mb", [hits], [P_.reverse_mb_plain(d, ln, tables, span)], tag,
                 ("hits",))
+        tb_o = other_split(tables, tables.rec_diags)  # the other split, the same hit words
+        compare("rrx_nfa_wide_reverse_mb", [P_.nfa_reverse_mb(d, ln, tb_o, span)], [hits],
+                f"{tag} diagonals {tb_o.rec_diags}", ("hits",))
         over = 0
         for cap in (1, 2, 16):
             got = P_.nfa_lazy_spans_mb(d, ln, tables, span, hits, cap)
@@ -5136,17 +5170,22 @@ def main() -> int:
     # on the first n_slice7 records of 1 GiB, whose time is taken once
     def occupancy_wide(name, tables, rows, index=None):
         """``index``: rrx_long_wide_occupancy's kernel index (4 and 5: count
-        and reverse at 32 lanes a window), else the name's."""
+        and reverse at 32 lanes a window) or rrx_nfa_wide_occupancy's (8:
+        flags at 32 lanes a record), else the name's. Two windows or
+        records a warp at 16 lanes each (W <= 16) halve the warps' work
+        units."""
         bps = ctypes.c_int(0)
         if name in LONG_WIDE_KERNELS:
             idx = LONG_WIDE_KERNELS.index(name) if index is None else index
             _build.check(lib.rrx_long_wide_occupancy(idx, int(tables.s_tile), ctypes.byref(bps)),
                          "rrx_long_wide_occupancy")
         else:
-            _build.check(lib.rrx_nfa_wide_occupancy((WIDE_KERNELS + WIDE_MB_KERNELS).index(name),
-                                                    int(tables.s_tile), int(tables.P),
+            idx = (WIDE_KERNELS + WIDE_MB_KERNELS).index(name) if index is None else index
+            _build.check(lib.rrx_nfa_wide_occupancy(idx, int(tables.s_tile), int(tables.P),
                                                     ctypes.byref(bps)),
                          "rrx_nfa_wide_occupancy")
+            if name == "rrx_nfa_wide_flags" and idx == 5 and tables.band_lanes == 16:
+                rows = -(-rows // 2)
         tpb = lib.rrx_nfa_wide_threads_per_block()
         blocks = min(-(-rows // (tpb // 32)), bps.value * n_sm)
         return (f"theoretical {bps.value * tpb}/{max_threads} threads per SM "
@@ -5223,19 +5262,19 @@ def main() -> int:
                 return ms_ * 1e6 * CLOCK_GHZ * 4 * n_sm / steps_w
 
             rev_ms = wide_ms["rrx_nfa_wide_reverse", pattern, shape][0]
-            tb_o = other_split(tables)
+            tb_o = other_split(tables, tables.rec_diags)
             compare("rrx_nfa_wide_reverse", [P.nfa_reverse(d, ln, tb_o)[:, :n]], [ph],
-                    f"{tag} {shape} diagonals {tb_o.rev_diags}, first {n} records", ("hits",))
+                    f"{tag} {shape} diagonals {tb_o.rec_diags}, first {n} records", ("hits",))
             o_ms = time_ms(lambda: P.nfa_reverse(d, ln, tb_o), warm=1,
                            runs=3 if shape == "1 GiB" else 5)
             wide_ms["rev split", pattern, shape] = (rev_ms, cyc(rev_ms), o_ms, cyc(o_ms))
             line = (f"phase 7: rrx_nfa_wide_reverse {tag} {shape}, the band step: diagonals "
-                    f"{tables.rev_diags} (the default) {rev_ms:.4f} ms = {cyc(rev_ms):.1f} "
-                    f"scheduler cycles a record-step, diagonals {tb_o.rev_diags} {o_ms:.4f} ms = "
+                    f"{tables.rec_diags} (the default) {rev_ms:.4f} ms = {cyc(rev_ms):.1f} "
+                    f"scheduler cycles a record-step, diagonals {tb_o.rec_diags} {o_ms:.4f} ms = "
                     f"{cyc(o_ms):.1f}")
             if rev_ms > o_ms:
-                fail(f"rrx_nfa_wide_reverse {tag} {shape}: the default split {tables.rev_diags} "
-                     f"({rev_ms:.4f} ms) is slower than {tb_o.rev_diags} ({o_ms:.4f} ms)")
+                fail(f"rrx_nfa_wide_reverse {tag} {shape}: the default split {tables.rec_diags} "
+                     f"({rev_ms:.4f} ms) is slower than {tb_o.rec_diags} ({o_ms:.4f} ms)")
             if shape == "10 MB":
                 tabs = PK.packed_tables(eng_w.prog, dev)
                 words = PK.mask_stream_from_bytes(tabs, d, ln)
@@ -5249,6 +5288,50 @@ def main() -> int:
             rev_spill = {k_: b for k_, b in spilled.items()
                          if re.search(r"\dwide_reverse_kernel", k_)}
             print(f"{line}; spill bytes {rev_spill or 'not reported'} [{card}]")
+            # the flags' band step the same way: cycles a record-step, the
+            # other split and (K60+, W = 16) 32 lanes a record on the same
+            # records, each against the default's flag words, at 10 MB the
+            # Wide walk on the same records (rrx_stream_flags). The run fails
+            # if the default split is the slower one at 1 GiB: at 10 MB a warp
+            # takes ~2 records, and on the chain batch (a planted chain in one
+            # record of 8) the order in which warps draw the heavy records
+            # moved the same split's time by 20% between two runs, past the
+            # splits' difference (1.5% at 128 MB)
+            fl_ms = wide_ms["rrx_nfa_wide_flags", pattern, shape][0]
+            fl_want = P.nfa_flags(d, ln, tables, seeded=True)
+            line = (f"phase 7: rrx_nfa_wide_flags {tag} {shape}, the band step: diagonals "
+                    f"{tables.fwd_diags} at {tables.band_lanes} lanes a record (the default) "
+                    f"{fl_ms:.4f} ms = {cyc(fl_ms):.1f} scheduler cycles a record-step")
+            forms = [("other split", other_split(tables, tables.fwd_diags))]
+            if tables.band_lanes == 16:
+                forms.append(("32 lanes", tables._replace(band_lanes=32)))
+            for what, tb_f in forms:
+                compare("rrx_nfa_wide_flags", [P.nfa_flags(d, ln, tb_f, seeded=True)], [fl_want],
+                        f"{tag} {shape} {what}", ("flags",))
+                f_ms = time_ms(lambda: P.nfa_flags(d, ln, tb_f, seeded=True), warm=1,
+                               runs=3 if shape == "1 GiB" else 5)
+                wide_ms["flags " + what, pattern, shape] = (f_ms, cyc(f_ms))
+                line += (f", diagonals {tb_f.fwd_diags} at {tb_f.band_lanes} lanes {f_ms:.4f} ms = "
+                         f"{cyc(f_ms):.1f}")
+                if what == "other split" and shape == "1 GiB" and fl_ms > f_ms:
+                    fail(f"rrx_nfa_wide_flags {tag} {shape}: the default split {tables.fwd_diags} "
+                         f"({fl_ms:.4f} ms) is slower than {tb_f.fwd_diags} ({f_ms:.4f} ms)")
+            if shape == "10 MB":
+                words = PK.mask_stream_from_bytes(tabs, d, ln)
+                if not torch.equal(PK.flag_words(tabs["nfa"], words, seeded=True), fl_want):
+                    fail(f"{tag}: rrx_stream_flags's flag words != rrx_nfa_wide_flags's")
+                s_ms = time_ms(lambda: PK.flag_words(tabs["nfa"], words, seeded=True), warm=1,
+                               runs=5)
+                wide_ms["flags stream", pattern] = (s_ms, cyc(s_ms))
+                line += (f"; the Wide walk on the same records (rrx_stream_flags) {s_ms:.4f} ms = "
+                         f"{cyc(s_ms):.1f}, the same flag words")
+                del words
+            fl_spill = {k_: b for k_, b in spilled.items()
+                        if re.search(r"\dwide_flags_kernel", k_)}
+            occ32 = occupancy_wide("rrx_nfa_wide_flags", tables, d.shape[0], 8)
+            print(f"{line}; occupancy at 32 lanes a record: {occ32}; spill bytes "
+                  f"{fl_spill or 'not reported'} [{card}]")
+            del fl_want
             e2e = time_ms(lambda: eng_w.match_stats(d, ln, seeded=True), warm=1,
                           runs=3 if shape == "1 GiB" else 5)
             print(f"phase 7: ScanEngine.match_stats {tag} end to end (data on the card), {shape}: "
@@ -5271,6 +5354,15 @@ def main() -> int:
               f"(rrx_nfa_wide_reverse on every record "
               f"{wide_ms['rrx_nfa_wide_reverse', CHAIN300, '10 MB'][0]:.4f} ms) [{card}]")
     del host, texts_c
+    # the flags' user path end to end at 10 MB: ScanEngine.ends_bitmap (the
+    # flag words unpacked to one bit a position) of K60+ and the chain
+    for pattern, eng_w in ((K60P, eng60), (CHAIN300, eng300)):
+        d, ln, _ = wide_runs[pattern, "10 MB"]
+        e_ms = time_ms(lambda: eng_w.ends_bitmap(d, ln, d.shape[1]), warm=1, runs=3)
+        wide_ms["flags e2e", pattern] = e_ms
+        print(f"phase 7: ScanEngine.ends_bitmap {pattern[:20]!r}... end to end, 10 MB "
+              f"({d.shape[0]} records): {e_ms:.3f} ms (rrx_nfa_wide_flags on every record "
+              f"{wide_ms['rrx_nfa_wide_flags', pattern, '10 MB'][0]:.4f} ms) [{card}]")
 
     lap("the wide record kernels")
 
@@ -5308,15 +5400,39 @@ def main() -> int:
                              flags=n_emit)),
         }
         nb = int(ln.to(torch.int64).sum())
+        steps_u = int((ln.to(torch.int64).clamp(0, d.shape[1]) + 2).sum())
         for name, (kern, plain_ms, bnd) in calls.items():
             ms = time_ms(kern, warm=1, runs=3 if shape == "1 GiB" else 5)
             wide_mb_ms[name, shape] = (ms, plain_ms, bnd)
+            kern_name = name[len("rrx_nfa_"):] + "_kernel"
+            spill = {k_: b for k_, b in spilled.items() if re.search(r"\d" + kern_name, k_)}
             print(f"phase 7: {name} P = 3 union (s_tile {tbw.s_tile}) {shape} [{d.shape[0]} x "
                   f"{d.shape[1]}], {n_hit} hit bits, {n_emit} spans (cap {cap_u}): kernel "
-                  f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s, plain {plain_ms:.3f} ms on {n} "
-                  f"records; bound {bnd[0]:.4f} ms by {bnd[1]} [{card}]")
+                  f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s = "
+                  f"{ms * 1e6 * CLOCK_GHZ * 4 * n_sm / steps_u:.1f} scheduler cycles a "
+                  f"record-step, plain {plain_ms:.3f} ms on {n} records; bound {bnd[0]:.4f} ms by "
+                  f"{bnd[1]} [{card}]")
             print(f"  occupancy {name} ({shape}): {occupancy_wide(name, tbw, d.shape[0])}; "
-                  f"registers {regs_of(name[len('rrx_nfa_'):] + '_kernel')}")
+                  f"registers {regs_of(kern_name)}; spill bytes {spill or 'not reported'}")
+        if shape == "10 MB":  # the band step's other split, the same hit words
+            tb_o = other_split(tbw, tbw.rec_diags)
+            compare("rrx_nfa_wide_reverse_mb", [P.nfa_reverse_mb(d, ln, tb_o, spw)], [hits],
+                    f"P = 3 union {shape} diagonals {tb_o.rec_diags}", ("hits",))
+            o_ms = time_ms(lambda: P.nfa_reverse_mb(d, ln, tb_o, spw), warm=1, runs=5)
+            wide_mb_ms["other split", shape] = o_ms
+            print(f"phase 7: rrx_nfa_wide_reverse_mb P = 3 union {shape}, diagonals "
+                  f"{tb_o.rec_diags}: {o_ms:.4f} ms (the default {tbw.rec_diags}: "
+                  f"{wide_mb_ms['rrx_nfa_wide_reverse_mb', shape][0]:.4f} ms) [{card}]")
+            # lazy spans of the union end to end (MultiPattern.finditer_batch:
+            # the reverse_mb pass, then the span pass and the host's lists)
+            host, lnh = d.cpu().numpy(), ln.cpu().numpy()
+            texts_u = [host[i, : lnh[i]].tobytes() for i in range(d.shape[0])]
+            e_ms = time_ms(lambda: mp_w.finditer_batch(texts_u), warm=1, runs=1)
+            wide_mb_ms["e2e"] = e_ms
+            print(f"phase 7: MultiPattern.finditer_batch (lazy) of the P = 3 union end to end, "
+                  f"{shape} ({d.shape[0]} records): {e_ms:.3f} ms (rrx_nfa_wide_reverse_mb "
+                  f"{wide_mb_ms['rrx_nfa_wide_reverse_mb', shape][0]:.4f} ms) [{card}]")
+            del host, texts_u
     del hits, lz
 
     lap("the wide multi-channel span kernels")

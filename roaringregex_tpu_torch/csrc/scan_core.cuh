@@ -30,6 +30,7 @@ namespace rrx {
 constexpr int kSyms = 259;  // 256 bytes, BOS, EOS, dead
 constexpr int kBos = 256;
 constexpr int kEos = 257;
+constexpr int kDead = 258;  // a step past EOS or before BOS (its mask row: zero)
 constexpr int kThreads = 128;
 constexpr int kMaxDeltas = 63;  // deltas lie in [-31, 31]
 
@@ -201,6 +202,30 @@ __device__ __forceinline__ void walk_chunks(const uint4* row, int len, F&& f) {
     chunk_up(q, 1 + 16 * c, min(16, len - 16 * c), f);
   }
   f(len + 1, kEos);
+}
+
+// walk_chunks for two records at once, one a half of a warp (the wide
+// record kernels' two records a warp), walked up to the longer one so that
+// the loop is warp-uniform: f(t, sym) for t = 0 .. len_max + 1, sym this
+// half's own symbol: kBos at 0, byte t-1 for t <= len, kEos at len+1 and
+// kDead past it. Each half reads its own record's chunks, the next loaded a
+// chunk ahead (once its record is done, its last chunk again: no read past
+// its row).
+template <class F>
+__device__ __forceinline__ void walk_chunks_pair(const uint4* row, int len, int len_max, F&& f) {
+  f(0, kBos);
+  const int nc = (len_max + 15) >> 4;  // the longer record's chunks
+  const int own = (len + 15) >> 4;     // this half's
+  uint4 nq = own > 0 ? __ldg(row) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll 1
+  for (int c = 0; c < nc; ++c) {
+    const uint4 q = nq;
+    if (own > 0) nq = __ldg(row + min(c + 1, own - 1));
+    chunk_up(q, 1 + 16 * c, min(16, len_max - 16 * c), [&](int t, int sym) {
+      f(t, t <= len ? sym : (t == len + 1 ? kEos : kDead));
+    });
+  }
+  f(len_max + 1, len_max == len ? kEos : kDead);
 }
 
 // walk_steps backwards, t = len+1 .. 0, one call site of f: an outer loop

@@ -311,10 +311,8 @@ int check_long_wide(const void* data, long long n, int nw, int block, int lead, 
 // ... and a band table, with 16 lanes a window only for W <= 16
 int check_long_band(const void* data, long long n, int nw, int block, int lead, int T, int rep,
                     int s_tile, const void* band, int lanes) {
-  if (band == nullptr || !(lanes == 32 || (lanes == 16 && words_of(s_tile) <= 16))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return check_long_wide(data, n, nw, block, lead, T, rep, s_tile);
+  const int bad = check_band(band, lanes, s_tile);
+  return bad != 0 ? bad : check_long_wide(data, n, nw, block, lead, T, rep, s_tile);
 }
 
 inline size_t long_wide_smem(int s_tile) {

@@ -21,8 +21,6 @@
 
 namespace rrx {
 
-constexpr int kDead = 258;  // mask row of a step past EOS or before BOS: zero
-
 // Shared memory of a tile with P accept rows and `extra` words after them.
 inline size_t nfa_smem_bytes(int S, int W, int P = 1, int extra = 0) {
   return sizeof(uint32_t) * (static_cast<size_t>((2 * S + kSyms + P) * W) + extra);

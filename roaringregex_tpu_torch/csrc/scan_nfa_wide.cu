@@ -40,41 +40,49 @@
 // - One warp per record: lane l < W holds state word l in one register;
 //   lanes >= W hold zero and take part in every shuffle and vote. W is a
 //   runtime argument (one instantiation per kernel keeps nvcc's time short).
-// - The forward kernels' step (Wide) walks the live states warp-uniformly:
-//   a ballot of the lanes with a live word, then for each such word w its
-//   bits broadcast by __shfl_sync, and for each set bit s lane l ORs
-//   row[s][l] from shared memory (consecutive lanes, consecutive words: no
-//   bank conflict). Every lane sees the same set bits, so the warp does not
-//   diverge; the cost is one shared load per live state and step, plus
-//   W-independent vote and mask work. The accept test is one __any_sync.
-// - The reverse kernel runs the band step (Band, scan_nfa_wide.cuh) on the
-//   tile's band split (scan_pallas.with_band): each kept diagonal moves the
+// - The stats, anchor end and span kernels' step (Wide) walks the live
+//   states warp-uniformly: a ballot of the lanes with a live word, then for
+//   each such word w its bits broadcast by __shfl_sync, and for each set bit
+//   s lane l ORs row[s][l] from shared memory (consecutive lanes,
+//   consecutive words: no bank conflict). Every lane sees the same set bits,
+//   so the warp does not diverge; the cost is one shared load per live state
+//   and step, plus W-independent vote and mask work. The accept test is one
+//   __any_sync.
+// - Flags, reverse and reverse_mb run the band step (Band,
+//   scan_nfa_wide.cuh) on the record kernels' band splits (scan_pallas.
+//   with_band: the reverses keep every diagonal band_split finds, the flags
+//   one diagonal, else walk every edge): each kept diagonal moves the
 //   whole state set by two lane shuffles and a funnel shift whatever is
-//   live, the seed row is one vote (state 0 precedes the live states of
-//   follow[0]: the step's hit bit), and only the residual's live states are
-//   walked as above (every edge where the split keeps no diagonal). A
-//   planted chain keeps hundreds of states live, which the walk pays for
-//   one by one and the diagonals do not. Its bytes come off a 16-byte chunk
-//   in registers, the next chunk loaded one ahead (walk_chunks_rev). It
-//   takes 48 registers, so one 1024-thread block an SM at every tile (the
-//   Wide walk's 25 fit two at W <= 16; capped at 32 it spills and runs
-//   slower: PERF.md).
+//   live, the seed row is applied whole (forward: where the seed fires or
+//   state 0 is live; reverse: one vote, state 0 preceding the live states of
+//   follow[0], the step's hit bit), and only the residual's live states are
+//   walked as above. A planted chain keeps hundreds of states live in the
+//   reverse, which the walk pays for one by one and the diagonals do not
+//   (going forward it keeps one thread, walked); a keyword list
+//   with a `+` keeps only its word ends in the residual. Their bytes come off
+//   a 16-byte chunk in registers, the next chunk loaded one ahead
+//   (walk_chunks_pair up, walk_chunks_rev down). Flags at W <= 16 run two
+//   records a warp (G = 16 lanes each: the Wide walk's lanes 16-31 would hold
+//   zero words), walking to the longer record with each half's own EOS and
+//   dead steps after it, and skip the step to the seed row alone where the
+//   warp holds no live state (one vote: a chain's state set is empty on
+//   most steps). The band step takes ~48-64 registers, so one 1024-thread
+//   block an SM at every tile (the Wide walk's 32 fit two at W <= 16;
+//   PERF.md).
 // - Shared memory holds only the direction a kernel needs (follow for the
-//   forward kernels, the residual pred rows for the reverse one), the mask
-//   rows and the accept rows: at s_tile 1024, 128 KB + 33 KB, so one
-//   1024-thread block per SM; the whole table (295 KB) would not fit the
-//   227 KB a block may have. At s_tile 384 (W = 12) the block needs 31 KB,
-//   and two fit on an SM where the registers allow (32 a thread; the stats
-//   kernel takes more).
+//   Wide forward kernels, the residual follow or pred rows for the band
+//   step), the mask rows and the accept rows: at s_tile 1024, 128 KB + 33 KB,
+//   so one 1024-thread block per SM; the whole table (295 KB) would not fit
+//   the 227 KB a block may have. At s_tile 384 (W = 12) the block needs 31
+//   KB, and two fit on an SM where the registers allow (32 a thread).
 // - Persistent blocks: no more blocks than are resident at once, each copies
-//   its rows once, and its warps take records from a counter in global
-//   memory (next, zero at launch), so that long-lived records (many live
-//   states, a greedy round per span) do not pile up on a few warps.
-// - The forward kernels read the record's bytes 16 at a time, every lane
-//   the same 16-byte chunk (one broadcast load). HBM carries one byte per
-//   step and 1 bit per step of flag or hit words; a pass is bound by the
-//   step's dependent chain of shuffles, shared loads and votes, and by
-//   integer issue.
+//   its rows once, and its warps take records (or pairs) from a counter in
+//   global memory (next, zero at launch), so that long-lived records (many
+//   live states, a greedy round per span) do not pile up on a few warps.
+// - Every lane of a record's lanes reads the same 16-byte chunk (one
+//   broadcast load). HBM carries one byte per step and 1 bit per step of
+//   flag or hit words; a pass is bound by the step's dependent chain of
+//   shuffles, shared loads and votes, and by integer issue.
 // - Stats with P > 1 accept channels: the union of the accept rows is tested
 //   every step; on a step where it fires the warp's state goes to a buffer
 //   in shared memory and lane c tests channels c, c+32, ... and updates
@@ -82,7 +90,8 @@
 //   (P = 1) keeps its statistics in registers, the same on every lane.
 // - The multi-channel span kernels (MultiPattern unions): the union of the
 //   accept rows (forward) or follow[0] (reverse: the union of the channels'
-//   sg rows) is tested every step; only where it fires is the state staged
+//   sg rows, the band step's s0 vote) is tested every step; only where it
+//   fires is the state staged
 //   in the warp's buffer for lane c to test channels c, c+32, .... Lane p
 //   keeps channel p's bookkeeping (lazy: cur, pos, count; reverse: its open
 //   hit word) in registers for p < 32, global rows past that; a step's seed
@@ -100,9 +109,10 @@ namespace {
 
 using namespace rrx;
 
-// A record's stream, read in any order: step 0 is BOS, step t carries byte
-// t-1, step len+1 is EOS. The bytes are read 16 at a time (every lane the
-// same chunk), a chunk once for each run of steps inside it.
+// A record's stream for the Wide kernels (stats, anchor end, lazy and greedy
+// spans, lazy_spans_mb), read in any order: step 0 is BOS, step t carries
+// byte t-1, step len+1 is EOS. The bytes are read 16 at a time (every lane
+// the same chunk), a chunk once for each run of steps inside it.
 struct Stream {
   const uint4* row;
   int len;
@@ -224,27 +234,59 @@ wide_stats_kernel(WIDE_PARAMS, int P, int seeded, int lead, int nullable,
   }
 }
 
+// The records of one warp on the band step: G = 32 lanes a record, or G = 16
+// and two records a warp (records 2 u and 2 u + 1, one a half), u taken from
+// the launch's counter. A half past the last record steps record R - 1 with
+// its group and writes nothing (act false).
+#define BAND_RECORDS(G)                                                                  \
+  const int lane = threadIdx.x & 31;                                                     \
+  for (int u = static_cast<int>(blockIdx.x) * kWideWarps + (threadIdx.x >> 5);           \
+       u * (32 / (G)) < R; u = next_record(next, lane))
+
+// Forward flags on the band step (the record flags' band table, follow
+// direction), G lanes a record. Both halves walk to the longer record
+// (walk_chunks_pair); a half takes its own EOS step and dead steps after it
+// and sets no flag bit past its EOS step, so the dead step's mask row does
+// not matter. Where no
+// lane of the warp holds a live state, the step is the seed row alone (no
+// shifts, no walk). Lane 0 of the half writes each flag word when bit 31
+// closes it, up to the EOS word, which it writes after the walk if the walk
+// ended before it closed; the words past it are zeroed.
+template <int G>
 __global__ void __launch_bounds__(kWideThreads)
-wide_flags_kernel(WIDE_PARAMS, int seeded, uint32_t* __restrict__ flags, int32_t* next) {
+wide_flags_kernel(WIDE_PARAMS, int seeded, uint32_t* __restrict__ flags,
+                  const uint32_t* __restrict__ band_g, const Diags dg, int32_t* next) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const Wide k = load_wide(smem, tab_g, S, W, 1, false);
+  const Band<G> k = load_band<G>(smem, tab_g, band_g, dg, S, W, false);
   const int Wh = (L + 2 + 31) >> 5;
-  WIDE_RECORDS {
-    Stream s = stream_of(data, stride, L, lengths, r);
-    const int len = s.len;
+  BAND_RECORDS(G) {
+    const int r0 = u * (32 / G) + k.half;
+    const bool act = r0 < R;
+    const int r = act ? r0 : R - 1;
+    const Row rec = record(data, stride, L, lengths, r);
+    const int len = rec.len, eos = len + 1;
+    const int len_max = G == 32 ? len : max(len, __shfl_xor_sync(kFull, len, 16));
+    if (act) {
+      for (int w = (eos >> 5) + 1 + k.j; w < Wh; w += G) flags[static_cast<size_t>(w) * R + r] = 0u;
+    }
     uint32_t v = 0u, word = 0u;
-#pragma unroll 1
-    for (int t = 0; t <= len + 1; ++t) {
-      v = k.fwd(v, seeded || t < 2, s.sym(t));
-      word |= (k.accepts(v) ? 1u : 0u) << (t & 31);
+    walk_chunks_pair(rec.row, len, len_max, [&](int t, int sym) {
+      const bool gate = seeded || t < 2;
+      if (__any_sync(kFull, v != 0u)) {
+        v = k.fwd(dg, v, gate || (k.enter0 && k.has0(v)), sym);
+      } else {
+        v = (gate ? k.seed_l : 0u) & k.mask[sym * W + k.col] & k.on_m;
+      }
+      const bool hit = k.accepts(v);  // every lane votes
+      if (t <= eos) word |= (hit ? 1u : 0u) << (t & 31);
       if ((t & 31) == 31) {  // walking up, bit t closes word t / 32
-        if (lane == 0) flags[static_cast<size_t>(t >> 5) * R + r] = word;
+        if (act && k.j == 0 && t - 31 <= eos) flags[static_cast<size_t>(t >> 5) * R + r] = word;
         word = 0u;
       }
+    });
+    if (act && k.j == 0 && (eos | 31) > len_max + 1) {
+      flags[static_cast<size_t>(eos >> 5) * R + r] = word;
     }
-    const int w_eos = (len + 1) >> 5;
-    if (((len + 1) & 31) != 31 && lane == 0) flags[static_cast<size_t>(w_eos) * R + r] = word;
-    for (int w = w_eos + 1 + lane; w < Wh; w += 32) flags[static_cast<size_t>(w) * R + r] = 0u;
   }
 }
 
@@ -400,8 +442,8 @@ inline size_t wide_mb_smem_bytes(int S, int W, int P) {
   return wide_smem_bytes(S, W, P, true) + sizeof(uint32_t) * 2 * static_cast<size_t>(P) * W;
 }
 
-// Copies the span-channel rows after the accept rows; load_wide's
-// __syncthreads, which every kernel calls next, makes them visible.
+// Copies the span-channel rows after the accept rows; the __syncthreads of
+// load_wide or load_band, which every kernel calls next, makes them visible.
 __device__ __forceinline__ const uint32_t* load_span(uint32_t* smem,
                                                      const uint32_t* __restrict__ span_g, int S,
                                                      int W, int P) {
@@ -417,41 +459,44 @@ __device__ __forceinline__ bool meets_row(const uint32_t* v, const uint32_t* row
   return x != 0u;
 }
 
-// hits: [P][Wh][R], channel p's block the single-channel layout. Walking down
-// from the EOS step, x = (R | acc) & mask[sym]; where x meets follow[0] (the
-// union of the sg rows) the warp's x goes to its buffer and lane c tests
-// channels c, c+32, ...: bit t of channel p is set when x meets sg_p. Lane p
-// < 32 keeps channel p's open hit word in a register and writes it when the
-// word closes; channels past 32 OR their bits into global memory (each word
-// zeroed when it opens). Then R = OR of pred[u] over u in x.
+// hits: [P][Wh][R], channel p's block the single-channel layout. The band
+// step of wide_reverse_kernel (Band<32> on the tile's band table, pred
+// direction, P accept rows: acc_l their union), the bytes walked down by
+// walk_chunks_rev: x = (R | acc) & mask[sym]; where x meets follow[0] (the
+// union of the sg rows: the step's s0 vote) the warp's x goes to its buffer
+// and lane c tests channels c, c+32, ...: bit t of channel p is set when x
+// meets sg_p. Lane p < 32 keeps channel p's open hit word in a register and
+// writes it when the word closes; channels past 32 OR their bits into global
+// memory (each word zeroed when it opens). Then R = the band step on x.
 __global__ void __launch_bounds__(kWideThreads)
 wide_reverse_mb_kernel(WIDE_PARAMS, int P, const uint32_t* __restrict__ span_g,
-                       uint32_t* __restrict__ hits, int32_t* next) {
+                       uint32_t* __restrict__ hits, const uint32_t* __restrict__ band_g,
+                       const Diags dg, int32_t* next) {
   extern __shared__ __align__(16) uint32_t smem[];
   const uint32_t* span = load_span(smem, span_g, S, W, P);
-  const Wide k = load_wide(smem, tab_g, S, W, P, true);
-  const uint32_t f0_l = k.on ? __ldg(tab_g + k.col) : 0u;  // follow[0], word l
+  const Band<32> k = load_band<32>(smem, tab_g, band_g, dg, S, W, true, P);
   const int Wh = (L + 2 + 31) >> 5;
   const size_t plane = static_cast<size_t>(Wh) * R;  // one channel's block
   WIDE_RECORDS {
     uint32_t* buf = smem + static_cast<size_t>(S + kSyms + 3 * P) * W + warp * W;
-    Stream s = stream_of(data, stride, L, lengths, r);
-    const int len = s.len;
+    const Row rec = record(data, stride, L, lengths, r);
+    const int len = rec.len;
     for (int p = 0; p < P; ++p) {
       for (int w = ((len + 1) >> 5) + 1 + lane; w < Wh; w += 32) {
         hits[p * plane + static_cast<size_t>(w) * R + r] = 0u;
       }
     }
     uint32_t rs = 0u, hw = 0u;
-#pragma unroll 1
-    for (int t = len + 1; t >= 0; --t) {
+    walk_chunks_rev(rec.row, len, [&](int t, int sym) {
       const size_t at = static_cast<size_t>(t >> 5) * R + r;
       if (t == len + 1 || (t & 31) == 31) {  // walking down, word t / 32 opens
         hw = 0u;
         for (int c = lane + 32; c < P; c += 32) hits[c * plane + at] = 0u;
       }
-      const uint32_t x = (rs | k.acc_l) & k.mask[s.sym(t) * W + k.col];
-      if (__any_sync(kFull, (x & f0_l) != 0u)) {
+      const uint32_t x = k.rev_in(rs, sym);
+      bool s0;
+      rs = k.rev_step(dg, x, s0);
+      if (s0) {
         if (k.on) buf[lane] = x;
         __syncwarp();
         const uint32_t bit = 1u << (t & 31);
@@ -465,9 +510,8 @@ wide_reverse_mb_kernel(WIDE_PARAMS, int P, const uint32_t* __restrict__ span_g,
         }
         __syncwarp();
       }
-      rs = k.expand(x);
       if ((t & 31) == 0 && lane < P) hits[lane * plane + at] = hw;  // bit t closes word t / 32
-    }
+    });
   }
 }
 
@@ -660,13 +704,25 @@ int rrx_nfa_wide_stats(RRX_WIDE_HEAD, int P, int seeded, int lead, int nullable,
                      static_cast<int32_t*>(next));
 }
 
-// flags: [ceil((L+2)/32)][R] uint32, bit t = step t's accept flag
-int rrx_nfa_wide_flags(RRX_WIDE_HEAD, int seeded, void* flags, void* next, void* stream) {
-  const int bad = check_wide(data, stride, L, R, s_tile, 1);
+// flags: [ceil((L+2)/32)][R] uint32, bit t = step t's accept flag; then the
+// tile's band table, its offsets (as rrx_nfa_wide_reverse takes them) and the
+// lanes a record: 32, or 16 (two records a warp; W <= 16)
+int rrx_nfa_wide_flags(RRX_WIDE_HEAD, int seeded, void* flags, const void* band, int nd,
+                       const int* offsets, int lanes, void* next, void* stream) {
+  Diags dg;
+  int bad = check_wide(data, stride, L, R, s_tile, 1);
+  if (bad == 0) bad = check_band(band, lanes, s_tile);
+  if (bad == 0) bad = band_diags(nd, offsets, false, s_tile, &dg);
   if (bad != 0) return bad;
-  return launch_wide(wide_flags_kernel, R, wide_smem_bytes(s_tile, words_of(s_tile), 1, false),
-                     stream, RRX_WIDE_ARGS, seeded, static_cast<uint32_t*>(flags),
-                     static_cast<int32_t*>(next));
+  const size_t smem = wide_smem_bytes(s_tile, words_of(s_tile), 1, false);
+  auto* f = static_cast<uint32_t*>(flags);
+  const auto* b = static_cast<const uint32_t*>(band);
+  auto* nx = static_cast<int32_t*>(next);
+  if (lanes == 16) {
+    return launch_wide(wide_flags_kernel<16>, (R + 1) / 2, smem, stream, RRX_WIDE_ARGS, seeded, f,
+                       b, dg, nx);
+  }
+  return launch_wide(wide_flags_kernel<32>, R, smem, stream, RRX_WIDE_ARGS, seeded, f, b, dg, nx);
 }
 
 // hits: [ceil((L+2)/32)][R] uint32; then the tile's band table
@@ -676,7 +732,7 @@ int rrx_nfa_wide_reverse(RRX_WIDE_HEAD, void* hits, const void* band, int nd, co
                          void* next, void* stream) {
   Diags dg;
   int bad = check_wide(data, stride, L, R, s_tile, 1);
-  if (bad == 0 && band == nullptr) bad = static_cast<int>(cudaErrorInvalidValue);
+  if (bad == 0) bad = check_band(band, 32, s_tile);
   if (bad == 0) bad = band_diags(nd, offsets, true, s_tile, &dg);
   if (bad != 0) return bad;
   return launch_wide(wide_reverse_kernel, R, wide_smem_bytes(s_tile, words_of(s_tile), 1, false),
@@ -724,14 +780,19 @@ int rrx_nfa_wide_greedy_spans(RRX_WIDE_HEAD, const void* hits, int cap, int null
 }
 
 // P accept rows in the table; span: [P][2][W] uint32 (scan_pallas.span_channels);
-// hits: [P][ceil((L+2)/32)][R] uint32
-int rrx_nfa_wide_reverse_mb(RRX_WIDE_HEAD, int P, const void* span, void* hits, void* next,
-                            void* stream) {
-  const int bad = check_wide(data, stride, L, R, s_tile, P);
+// hits: [P][ceil((L+2)/32)][R] uint32; then the tile's band table and its
+// offsets, as rrx_nfa_wide_reverse takes them
+int rrx_nfa_wide_reverse_mb(RRX_WIDE_HEAD, int P, const void* span, void* hits, const void* band,
+                            int nd, const int* offsets, void* next, void* stream) {
+  Diags dg;
+  int bad = check_wide(data, stride, L, R, s_tile, P);
+  if (bad == 0) bad = check_band(band, 32, s_tile);
+  if (bad == 0) bad = band_diags(nd, offsets, true, s_tile, &dg);
   if (bad != 0) return bad;
   return launch_wide(wide_reverse_mb_kernel, R, wide_mb_smem_bytes(s_tile, words_of(s_tile), P),
                      stream, RRX_WIDE_ARGS, P, static_cast<const uint32_t*>(span),
-                     static_cast<uint32_t*>(hits), static_cast<int32_t*>(next));
+                     static_cast<uint32_t*>(hits), static_cast<const uint32_t*>(band), dg,
+                     static_cast<int32_t*>(next));
 }
 
 // hits from rrx_nfa_wide_reverse_mb; starts, ends: [R][P][cap] int32; cnt:
@@ -752,17 +813,18 @@ int rrx_nfa_wide_lazy_spans_mb(RRX_WIDE_HEAD, int P, const void* span, const voi
 
 // Resident blocks per SM (theoretical occupancy) of a wide kernel for a tile
 // of s_tile states and P accept rows, by index: 0 stats, 1 reverse (the
-// band step), 2 anchor end, 3 lazy spans, 4 greedy spans, 5 flags
-// (rrx_occupancy's order), then the multi-channel kernels: 6 reverse_mb, 7
-// lazy_spans_mb.
+// band step), 2 anchor end, 3 lazy spans, 4 greedy spans, 5 flags (the band
+// step, two records a warp for W <= 16) (rrx_occupancy's order), then the
+// multi-channel kernels: 6 reverse_mb (the band step), 7 lazy_spans_mb; 8
+// flags at 32 lanes a record.
 int rrx_nfa_wide_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm) {
   if (s_tile < kMinTile || s_tile > kMaxTile || P < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int W = words_of(s_tile);
-  const size_t smem = kernel >= 6 ? wide_mb_smem_bytes(s_tile, W, P)
-                                  : wide_smem_bytes(s_tile, W, kernel == 0 ? P : 1,
-                                                    kernel == 0 && P > 1);
+  const size_t smem = kernel == 6 || kernel == 7
+                           ? wide_mb_smem_bytes(s_tile, W, P)
+                           : wide_smem_bytes(s_tile, W, kernel == 0 ? P : 1, kernel == 0 && P > 1);
   switch (kernel) {
     case 0:
       return occupancy_wide(wide_stats_kernel, smem, blocks_per_sm);
@@ -775,11 +837,14 @@ int rrx_nfa_wide_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm) {
     case 4:
       return occupancy_wide(wide_greedy_spans_kernel, smem, blocks_per_sm);
     case 5:
-      return occupancy_wide(wide_flags_kernel, smem, blocks_per_sm);
+      return W <= 16 ? occupancy_wide(wide_flags_kernel<16>, smem, blocks_per_sm)
+                     : occupancy_wide(wide_flags_kernel<32>, smem, blocks_per_sm);
     case 6:
       return occupancy_wide(wide_reverse_mb_kernel, smem, blocks_per_sm);
     case 7:
       return occupancy_wide(wide_lazy_spans_mb_kernel, smem, blocks_per_sm);
+    case 8:
+      return occupancy_wide(wide_flags_kernel<32>, smem, blocks_per_sm);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

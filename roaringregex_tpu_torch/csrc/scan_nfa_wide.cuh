@@ -1,16 +1,17 @@
 // The warp steps of the matmul tier at record tiles of 257..1024 states
-// (W = ceil(s_tile/32) = 12..32 state words). Wide is shared by
-// scan_nfa_wide.cu's forward kernels (one warp per record),
-// scan_long_wide.cu's carry (one warp per window of one long string) and
-// scan_stream.cu (one warp per record fed a mask stream, each lane its word
-// of the step's mask row): lane l holds state word l, lanes >= W hold zero
-// and join every vote; the live states are walked warp-uniformly (a ballot
-// of the live words, a __shfl_sync of each, one shared-row load and OR per
-// live state), then the mask AND; the accept test is one __any_sync. Shared
-// memory holds one direction's rows (follow or pred), the mask rows and the
-// accept rows of the table of scan_pallas.nfa_tables. Band (below) is the
-// step of scan_long_wide.cu's flags, count and reverse and of
-// scan_nfa_wide.cu's reverse: the diagonals of the follow matrix as lane
+// (W = ceil(s_tile/32) = 12..32 state words). Wide is the step of
+// scan_nfa_wide.cu's stats, anchor end, lazy and greedy spans and
+// lazy_spans_mb kernels (one warp per record), of scan_long_wide.cu's carry
+// (one warp per window of one long string) and of scan_stream.cu (one warp
+// per record fed a mask stream, each lane its word of the step's mask row):
+// lane l holds state word l, lanes >= W hold zero and join every vote; the
+// live states are walked warp-uniformly (a ballot of the live words, a
+// __shfl_sync of each, one shared-row load and OR per live state), then the
+// mask AND; the accept test is one __any_sync. Shared memory holds one
+// direction's rows (follow or pred), the mask rows and the accept rows of
+// the table of scan_pallas.nfa_tables. Band (below) is the step of
+// scan_long_wide.cu's flags, count and reverse and of scan_nfa_wide.cu's
+// flags, reverse and reverse_mb: the diagonals of the follow matrix as lane
 // shifts, only the other edges walked. The launchers run persistent blocks
 // of kWideWarps warps (no more blocks than are resident at once).
 #pragma once
@@ -128,7 +129,7 @@ __device__ __forceinline__ Wide load_wide(uint32_t* smem, const uint32_t* __rest
 }
 
 // The band step (scan_long_wide.cu's flags, count and reverse, and
-// scan_nfa_wide.cu's reverse over records). The tile's
+// scan_nfa_wide.cu's flags, reverse and reverse_mb over records). The tile's
 // follow matrix is split (scan_pallas.band_split) into at most kMaxDiags kept
 // diagonals, edges s -> s + d for the s of a source mask D_d, and a residual.
 // A diagonal is a shift of the whole state set: a warp moves its words d / 32
@@ -156,13 +157,13 @@ struct Diags {
   int row[kMaxDiags];
 };
 
-// One window as G lanes of a warp step it (G = 32, or 16: two windows a warp,
-// one a half): lane j of the group holds state word j (zero for j >= W, which
-// join every shuffle and vote). The residual rows without row 0 (follow, or
-// pred for the reverse), the mask rows and the accept row are in shared
-// memory; this lane's word of each diagonal's mask, of the full seed row
-// follow[0], of the accept row and of the states with a residual row to walk
-// in registers.
+// One window or record as G lanes of a warp step it (G = 32, or 16: two a
+// warp, one a half): lane j of the group holds state word j (zero for j >=
+// W, which join every shuffle and vote). The residual rows without row 0
+// (follow, or pred for the reverse), the mask rows and the accept rows are in
+// shared memory; this lane's word of each diagonal's mask, of the full seed
+// row follow[0], of the union of the accept rows and of the states with a
+// residual row to walk in registers.
 template <int G>
 struct Band {
   const uint32_t* rows;  // [S][W]: residual follow, or residual pred
@@ -267,15 +268,25 @@ struct Band {
     return y & m;
   }
 
-  // R = OR of pred[u] over u in x = (R | acc) & mask[sym]: x shifted back by
-  // each offset onto the diagonal's sources, the residual pred rows walked,
-  // and state 0 (s0, the group's start bit) iff x meets follow[0]
-  __device__ __forceinline__ uint32_t rev(const Diags& dg, uint32_t r, int sym, bool& s0) const {
-    const uint32_t x = (r | acc_l) & mask[sym * W + col];  // r and acc_l are 0 past W
+  // The reverse step's input x = (R | acc) & mask[sym] (r and acc_l are 0
+  // past W)
+  __device__ __forceinline__ uint32_t rev_in(uint32_t r, int sym) const {
+    return (r | acc_l) & mask[sym * W + col];
+  }
+
+  // R = OR of pred[u] over u in x: x shifted back by each offset onto the
+  // diagonal's sources, the residual pred rows walked, and state 0 (s0, the
+  // group's start bit) iff x meets follow[0]
+  __device__ __forceinline__ uint32_t rev_step(const Diags& dg, uint32_t x, bool& s0) const {
     s0 = meets(x, seed_l);
     uint32_t y = diagonals(dg, x);
     if (walk) y |= walk_rows(x & res_l);
     return (y | (j == 0 && s0 ? 1u : 0u)) & on_m;
+  }
+
+  // R = OR of pred[u] over u in (R | acc) & mask[sym], s0 as rev_step's
+  __device__ __forceinline__ uint32_t rev(const Diags& dg, uint32_t r, int sym, bool& s0) const {
+    return rev_step(dg, rev_in(r, sym), s0);
   }
 
   // x meets the row a (this lane's word of each), in this lane's group
@@ -284,21 +295,23 @@ struct Band {
     return (G == 32 ? b : (b >> (16 * half)) & 0xFFFFu) != 0u;
   }
 
-  // v meets the accept row, in this lane's group
+  // v meets the accept rows, in this lane's group
   __device__ __forceinline__ bool accepts(uint32_t v) const { return meets(v, acc_l); }
 };
 
 // Copies the residual rows of one direction (pred when `pred`) of the band
-// table band_g (scan_pallas.band_table) and the mask and accept rows of the
-// tile's table tab_g (one accept row) into shared memory, at load_wide's
-// layout and size. Every thread of the block calls it (it ends in a vote)
-// before any thread returns.
+// table band_g (scan_pallas.band_table) and the mask rows and P accept rows
+// of the tile's table tab_g into shared memory, at load_wide's layout and
+// size (the span-channel rows and warp buffers of the multi-channel kernels
+// go after the accept rows). Every thread of the block calls it (it ends in a
+// vote) before any thread returns.
 template <int G>
 __device__ __forceinline__ Band<G> load_band(uint32_t* smem, const uint32_t* __restrict__ tab_g,
                                              const uint32_t* __restrict__ band_g,
-                                             const Diags& dg, int S, int W, bool pred) {
+                                             const Diags& dg, int S, int W, bool pred,
+                                             int P = 1) {
   const int n_rows = S * W;
-  const int n_tail = (kSyms + 1) * W;
+  const int n_tail = (kSyms + P) * W;
   const uint32_t* res = band_g + (2 * kMaxDiags + 3) * W + (pred ? n_rows : 0);
   for (int i = threadIdx.x; i < n_rows; i += blockDim.x) smem[i] = __ldg(res + i);
   const uint32_t* tail = tab_g + 2 * n_rows;
@@ -314,7 +327,9 @@ __device__ __forceinline__ Band<G> load_band(uint32_t* smem, const uint32_t* __r
   k.on = k.j < W;
   k.on_m = k.on ? ~0u : 0u;
   k.col = k.on ? k.j : 0;
-  k.acc_l = k.on ? k.mask[kSyms * W + k.col] : 0u;
+  uint32_t a = 0u;
+  for (int p = 0; p < P; ++p) a |= k.mask[(kSyms + p) * W + k.col];
+  k.acc_l = k.on ? a : 0u;
   k.seed_l = k.on ? __ldg(tab_g + k.col) : 0u;
   k.res_l = k.on ? __ldg(band_g + (2 * kMaxDiags + (pred ? 1 : 0)) * W + k.col) : 0u;
   k.walk = __any_sync(kFull, k.res_l != 0u);
@@ -351,6 +366,15 @@ inline int band_diags(int nd, const int* offsets, bool reverse, int s_tile, Diag
 }
 
 inline int words_of(int s_tile) { return (s_tile + 31) / 32; }
+
+// A band kernel's launcher check: a band table, and 16 lanes a window or
+// record (two a warp) only for W <= 16.
+inline int check_band(const void* band, int lanes, int s_tile) {
+  if (band == nullptr || !(lanes == 32 || (lanes == 16 && words_of(s_tile) <= 16))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
 
 // The next unclaimed record index, the same on every lane of the warp.
 __device__ __forceinline__ int next_record(int32_t* next, int lane) {

@@ -124,11 +124,14 @@ ARGTYPES = {
     "rrx_nfa_wide_lazy_spans": _NFA_HEAD + [_P, _I, _P, _P, _P, _P, _P],
     # hits, cap, nullable, starts, ends, cnt, over, next
     "rrx_nfa_wide_greedy_spans": _NFA_HEAD + [_P, _I, _I, _P, _P, _P, _P, _P, _P],
-    "rrx_nfa_wide_flags": _NFA_HEAD + [_I, _P, _P, _P],  # seeded, flags, next
+    # seeded, flags, then the band table, its offsets and the lanes a record
+    # (the band step), next; occupancy index 5 at the tile's lanes, 8 at 32
+    "rrx_nfa_wide_flags": _NFA_HEAD + [_I, _P] + _BAND + [_P, _P],
     # the multi-channel span kernels at tiles of 257..1024 states: as
     # rrx_nfa_reverse_mb / rrx_nfa_lazy_spans_mb, then next; occupancy
     # indices 6 and 7 of rrx_nfa_wide_occupancy
-    "rrx_nfa_wide_reverse_mb": _NFA_HEAD + [_I, _P, _P, _P, _P],  # P, span, hits, next
+    # P, span, hits, then the band table and its offsets (the band step), next
+    "rrx_nfa_wide_reverse_mb": _NFA_HEAD + [_I, _P, _P] + _BAND[:3] + [_P, _P],
     # P, span, hits, cap, starts, ends, cnt, scratch, next
     "rrx_nfa_wide_lazy_spans_mb": _NFA_HEAD + [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     # one long string's windows at tiles of 257..1024 states

@@ -12,8 +12,9 @@ package, whose ``SwarScanner`` and ``WordScanner`` subclass
 ``PallasScanner``; so does every multiblock program (257..1024 states)
 that the engine keeps on the dense multiblock matmul (banded or not: the
 TPU's ``diag_ks`` form is a layout of the same step; the wide window
-kernels' flags, count and reverse and the wide record reverse take its
-diagonals as lane shifts, :func:`band_split`).
+kernels' flags, count and reverse and the wide record kernels' flags,
+reverse and reverse_mb take its diagonals as lane shifts,
+:func:`band_split`).
 
 On the TPU one step is ``y = F_bdᵀ·v (+ c0)`` in bf16 on the MXU over G
 records packed into 128 or 256 lanes, ``v = y ∘ mask(byte)``, with a
@@ -47,7 +48,7 @@ lane block, the block-diagonal ``F_bd``, ``cls_spec``'s mask-by-matmul,
 the banded ``dks`` form, the bf16 counts) is a layout of this same
 function: the parity boundary is the scanner methods' outputs. Only the
 diagonals have a counterpart here, in the band split of the wide window
-kernels and the wide record reverse (:func:`band_split`).
+and record kernels (:func:`band_split`).
 
 The plain PyTorch versions hold a state set as a [R, s_tile] bool plane
 and step it with a 0/1 float32 product (exact: every sum is at most 1024,
@@ -115,14 +116,19 @@ class NfaTables(NamedTuple):
     # past REG_S_TILE states, set by :func:`with_band`: the band split of
     # the follow rows for the wide window kernels' flags, count and reverse
     # (:func:`band_table`), its offsets, and the lanes of a warp that step
-    # one window (16 where W <= 16: two windows a warp); then the wide
-    # record reverse's split and its offsets (one record a warp; None where
-    # the dead step's mask row is not zero)
+    # one window or record (16 where W <= 16: two a warp); then the wide
+    # record reverses' split (reverse and reverse_mb) and its offsets, the
+    # record flags' split and its offsets, and whether the dead step's mask
+    # row is not zero (the record reverses, which end each record at its
+    # EOS step, refuse such tables)
     band: torch.Tensor | None = None
     diags: tuple = ()
     band_lanes: int = 32
-    rev_band: torch.Tensor | None = None
-    rev_diags: tuple = ()
+    rec_band: torch.Tensor | None = None
+    rec_diags: tuple = ()
+    fwd_band: torch.Tensor | None = None
+    fwd_diags: tuple = ()
+    dead_row: bool = False
 
     def plain(self, dev) -> "_Plain":
         """The stepper of the plain versions on ``dev``."""
@@ -362,9 +368,10 @@ def with_band(tables: NfaTables, max_diags: int | None = None, *, rows=None) -> 
     """``tables`` with the band splits of its follow rows on their device
     (``rows``: the host rows of ``nfa_tables``, else read back from the
     device), for the wide window kernels' flags, count and reverse and the
-    wide record kernels' reverse (tiles past ``REG_S_TILE`` states). A tile
-    of at most 16 state words runs two windows a warp, one on each half
-    (records: one a warp).
+    wide record kernels' flags, reverse and reverse_mb (tiles past
+    ``REG_S_TILE`` states). A tile of at most 16 state words runs two
+    windows a warp, one on each half, and so do the record flags (the
+    record reverses: one record a warp).
 
     ``max_diags`` None: the window kernels keep the diagonals of
     ``band_split`` where they carry at least half the edges outside the
@@ -374,32 +381,45 @@ def with_band(tables: NfaTables, max_diags: int | None = None, *, rows=None) -> 
     of it, not in its place (x(ab|c){300,340}y: 35% on four diagonals, its
     count slower with them than with every edge walked; K60 with an
     optional suffix, 75% on one, 3x faster with it; ``PERF.md``). The
-    record reverse keeps every diagonal ``band_split`` finds (K60+, 10% of
-    its edges on one, 1.6x faster with it; ``PERF.md``). An int forces
-    that split on both.
+    record reverses keep every diagonal ``band_split`` finds (the record
+    reverse of K60+, 10% of its edges on one, 1.6x faster with it;
+    ``PERF.md``). The record flags keep it where it is one diagonal
+    (keyword lists, runs: K60+'s flags 2.1x faster with it) and walk every
+    edge where it is several (the copies of a counted repetition: the
+    forward set of x(ab|c){300,}y is one thread through them, which is
+    cheaper to walk than four diagonals are to shift; ``PERF.md``). An int
+    forces that split on all three.
 
     The record reverse ends each record at its EOS step, where the plain
-    reverse walks on over the dead steps past it: its split is left None
-    unless the dead step's mask row is zero (as ``nfa_tables`` builds it),
-    and ``nfa_reverse`` refuses such tables."""
+    reverse walks on over the dead steps past it: ``dead_row`` records
+    whether the dead step's mask row is not zero (``nfa_tables`` builds it
+    zero), and ``nfa_reverse`` refuses such tables. The record flags need
+    no zero row: they set no flag bit past a record's EOS step."""
     S, W = tables.s_tile, _words(tables.s_tile)
     if rows is None:
         rows = tables.tab.cpu().numpy().view(np.uint32).reshape(-1, W)
     rows = np.asarray(rows, np.uint32)
     F = _unpack_rows(rows[:S], S)
-    rev = split = band_split(F, BANDED_MAX_DIAGS if max_diags is None else max_diags)
-    if max_diags is None and 2 * int(_unpack_rows(split.follow[1:], S).sum()) > int(F[1:].sum()):
-        split = band_split(F, 0)
+    rec = split = fwd = band_split(F, BANDED_MAX_DIAGS if max_diags is None else max_diags)
+    if max_diags is None:
+        walk_all = band_split(F, 0)
+        if 2 * int(_unpack_rows(split.follow[1:], S).sum()) > int(F[1:].sum()):
+            split = walk_all
+        if len(rec.offsets) > 1:
+            fwd = walk_all
+    tabs: dict = {}  # a split is fixed by its offsets: one device table each
 
     def on_device(sp: BandSplit) -> torch.Tensor:
-        return torch.from_numpy(band_table(sp).view(np.int32).copy()).to(tables.tab.device)
+        if sp.offsets not in tabs:
+            tabs[sp.offsets] = torch.from_numpy(
+                band_table(sp).view(np.int32).copy()).to(tables.tab.device)
+        return tabs[sp.offsets]
 
-    band = on_device(split)
-    rev_band = None
-    if not rows[2 * S + sb.SYM_DEAD].any():
-        rev_band = band if rev is split else on_device(rev)
-    return tables._replace(band=band, diags=split.offsets, band_lanes=16 if W <= 16 else 32,
-                           rev_band=rev_band, rev_diags=rev.offsets)
+    return tables._replace(band=on_device(split), diags=split.offsets,
+                           band_lanes=16 if W <= 16 else 32, rec_band=on_device(rec),
+                           rec_diags=rec.offsets, fwd_band=on_device(fwd),
+                           fwd_diags=fwd.offsets,
+                           dead_row=bool(rows[2 * S + sb.SYM_DEAD].any()))
 
 
 # ---------------------------------------------------------------------------
@@ -658,27 +678,40 @@ def _launch(entry: str, data, lengths, tables: NfaTables, *tail) -> None:
     sb.launch(entry, data, lengths, tables.tab, int(tables.s_tile), *tail)
 
 
-def _band_tail(entry: str, band, diags: tuple, S: int, note: str = "") -> tuple:
+def _band_tail(entry: str, band, diags: tuple, S: int) -> tuple:
     """(band table, offset count, offsets as a host int array of
     BANDED_MAX_DIAGS) for a band-step launch; refuses tables without the
     split."""
     if band is None:
-        raise ValueError(f"{entry}: tables of {S} states without a band split (with_band{note})")
+        raise ValueError(f"{entry}: tables of {S} states without a band split (with_band)")
     return band, len(diags), (ctypes.c_int * BANDED_MAX_DIAGS)(*diags)
 
 
+def _check_dead_row(entry: str, tables: NfaTables) -> None:
+    """Refuse, past ``REG_S_TILE`` states, tables whose dead step's mask row
+    is not zero for a record reverse: its kernel ends each record at its
+    EOS step, where the plain version walks on over the dead steps."""
+    if tables.s_tile > REG_S_TILE and tables.dead_row:
+        raise ValueError(f"{entry}: tables of {tables.s_tile} states whose dead step's mask row "
+                         "is not zero (the kernel ends each record at its EOS step)")
+
+
 def _run(name: str, wrapper, data, lengths, tables: NfaTables, *tail,
-         channels: bool = False, band: bool = False) -> None:
+         channels: bool = False, band: str = "") -> None:
     """Launch ``rrx_nfa_<name>`` for a tile of up to ``REG_S_TILE`` states
     (counted in ``wrapper.launches``, or with ``channels`` in
     ``wrapper.channel_launches``) or ``rrx_nfa_wide_<name>`` for 257..1024
     states (one warp per record, counted in ``wrapper.wide_launches``),
-    which also takes its record counter and, with ``band`` (the band step),
-    the tables' record-reverse band split before it."""
+    which also takes its record counter and, on the band step, a band split
+    before it: with ``band="rec"`` the record reverses' (``rec_band``), with
+    ``band="fwd"`` the record flags' (``fwd_band``) and the lanes a
+    record."""
     if tables.s_tile > REG_S_TILE:
         if band:
-            tail += _band_tail(f"rrx_nfa_wide_{name}", tables.rev_band, tables.rev_diags,
-                               tables.s_tile, "; none where the dead step's mask row is not zero")
+            tail += _band_tail(f"rrx_nfa_wide_{name}", getattr(tables, f"{band}_band"),
+                               getattr(tables, f"{band}_diags"), tables.s_tile)
+        if band == "fwd":
+            tail += (int(tables.band_lanes),)
         nxt = torch.zeros(1, dtype=torch.int32, device=data.device)
         _launch(f"rrx_nfa_wide_{name}", data, lengths, tables, *tail, nxt)
         wrapper.wide_launches += 1
@@ -723,26 +756,30 @@ def nfa_stats(data, lengths, tables: NfaTables, *, seeded: bool, lead: int = 0,
 
 def nfa_flags(data, lengths, tables: NfaTables, *, seeded: bool):
     """Flag words [W, R] int32 (``rrx_nfa_flags``, or past 256 states
-    ``rrx_nfa_wide_flags``, on a CUDA tensor; :func:`flags_plain` on a CPU
-    tensor)."""
+    ``rrx_nfa_wide_flags`` on the tables' record flags' band split
+    (``fwd_band``, ``fwd_diags``) at ``band_lanes`` lanes a record, on a
+    CUDA tensor; :func:`flags_plain` on a CPU tensor)."""
     if data.device.type == "cpu":
         return flags_plain(data, lengths, tables, seeded=seeded)
     R, L = data.shape
     words = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
-    _run("flags", nfa_flags, data, lengths, tables, int(seeded), words)
+    _run("flags", nfa_flags, data, lengths, tables, int(seeded), words, band="fwd")
     return words
 
 
 def nfa_reverse(data, lengths, tables: NfaTables):
     """Hit words [W, R] int32 (``rrx_nfa_reverse``, or past 256 states
-    ``rrx_nfa_wide_reverse`` on the tables' record-reverse band split
-    (``rev_band``, ``rev_diags``), on a CUDA tensor;
-    ``scan_bits.reverse_plain`` on a CPU tensor)."""
+    ``rrx_nfa_wide_reverse`` on the tables' record reverses' band split
+    (``rec_band``, ``rec_diags``), on a CUDA tensor;
+    ``scan_bits.reverse_plain`` on a CPU tensor). Past 256 states it
+    refuses tables whose dead step's mask row is not zero
+    (``dead_row``)."""
     if data.device.type == "cpu":
         return sb.reverse_plain(data, lengths, tables)
+    _check_dead_row("rrx_nfa_wide_reverse", tables)
     R, L = data.shape
     hits = torch.empty((sb.hit_words(L), R), dtype=torch.int32, device=data.device)
-    _run("reverse", nfa_reverse, data, lengths, tables, hits, band=True)
+    _run("reverse", nfa_reverse, data, lengths, tables, hits, band="rec")
     return hits
 
 
@@ -793,17 +830,20 @@ def nfa_greedy_spans(data, lengths, tables: NfaTables, hits, cap: int, *, nullab
 def nfa_reverse_mb(data, lengths, tables: NfaTables, span: torch.Tensor):
     """Hit words [P, W, R] int32 of every accept channel from one reverse
     pass (``rrx_nfa_reverse_mb``, counted in ``nfa_reverse_mb.launches``,
-    or past 256 states ``rrx_nfa_wide_reverse_mb``, counted in
-    ``nfa_reverse_mb.wide_launches``, on a CUDA tensor;
-    :func:`reverse_mb_plain` on a CPU tensor)."""
+    or past 256 states ``rrx_nfa_wide_reverse_mb`` on the tables' record
+    reverses' band split, counted in ``nfa_reverse_mb.wide_launches``, on
+    a CUDA tensor; :func:`reverse_mb_plain` on a CPU tensor). Past 256
+    states it refuses tables whose dead step's mask row is not zero
+    (``dead_row``)."""
     if data.device.type == "cpu":
         return reverse_mb_plain(data, lengths, tables, span)
     _check_span(tables, span, data)
     _check_wide_smem("nfa_reverse_mb", tables)
+    _check_dead_row("rrx_nfa_wide_reverse_mb", tables)
     R, L = data.shape
     hits = torch.empty((tables.P, sb.hit_words(L), R), dtype=torch.int32, device=data.device)
     _run("reverse_mb", nfa_reverse_mb, data, lengths, tables, int(tables.P), span.contiguous(),
-         hits)
+         hits, band="rec")
     return hits
 
 

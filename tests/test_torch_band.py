@@ -26,6 +26,23 @@ torch only, on the CPU.
   every edge walked, on records of length 0, at the 16-byte chunk edges
   and full. ``nfa_reverse`` hands the kernel the band table and its
   offsets past 256 states and refuses tables without a band split.
+- The record flags on the band step (``rrx_nfa_wide_flags``, on its own
+  split: one diagonal kept, else every edge walked): a
+  record-level model (G = 32 lanes a record, or G = 16 and two records a
+  warp walked to the longer one by a model of ``walk_chunks_pair``, each
+  half with its own EOS step and dead steps after it; the step skipped to
+  the seed row alone where the warp holds no live state; each flag word
+  stored when it closes, the EOS word after the walk where the walk ended
+  first, the words past it zeroed; an odd R's last half writing nothing)
+  equals ``flags_plain``, seeded and unseeded, on K60+, x(ab|c){300,}y and
+  planted tiles, in both splits, on pairs of unequal lengths (0, the chunk
+  edges, full). The multi-channel reverse on the band step
+  (``rrx_nfa_wide_reverse_mb``): a model (the union's s0 vote, the
+  channels tested only where it fires, lane p's open hit word for p < 32,
+  global words past that) equals ``reverse_mb_plain`` on the P = 3 union
+  of K40+, cat|dog and [0-9]{3}, its `$` form and 40 channels on K40+'s
+  tile. ``nfa_flags`` and ``nfa_reverse_mb`` hand the kernels the record
+  split, its offsets and (flags) the lanes a record past 256 states.
 
 Every comparison is exact.
 """
@@ -134,9 +151,13 @@ def test_band_split_partitions_programs(name):
     assert res.any() != bare
     assert (2 * res.sum() <= F[1:].sum()) == (name not in ("chain", "K60+"))
     assert tables.diags == (() if name in ("chain", "K60+") else split.offsets)
-    # the record reverse keeps the diagonals whatever the residual
-    assert tables.rev_diags == split.offsets
-    assert tables.rev_band is tables.band or name in ("chain", "K60+")
+    # the record reverses keep the diagonals whatever the residual; the
+    # record flags keep one diagonal and walk every edge past one
+    assert tables.rec_diags == split.offsets
+    assert tables.rec_band is tables.band or name in ("chain", "K60+")
+    assert tables.fwd_diags == (split.offsets if len(split.offsets) == 1 else ())
+    assert tables.fwd_band is (tables.rec_band if len(split.offsets) == 1 else
+                               tables.band if name == "chain" else tables.fwd_band)
     empty = spl.band_split(F, 0)
     assert empty.offsets == () and (spl._unpack_rows(empty.follow, prog.s_tile) == F).all()
 
@@ -211,43 +232,33 @@ def test_band_table_layout():
 # ---------------------------------------------------------------------------
 
 
-def _shfl(xs, lane, src_fn, G):
-    """The hardware's shuffle: a 5-bit lane operand within a group of G
-    lanes; a source out of the group gives the lane's own word."""
-    seg = lane & ~(G - 1)
-    j = src_fn(lane, seg)
-    return xs[j] if j is not None else xs[lane]
+LANES = np.arange(32)
 
 
-def _up_by(d):
-    return lambda ln, sg: ln - (d & 31) if ln - (d & 31) >= sg else None
-
-
-def _down_by(d, G):
-    return lambda ln, sg: ln + (d & 31) if ln + (d & 31) <= sg + G - 1 else None
+def _shfl(xs, src, G):
+    """The hardware's shuffle of the warp's words ``xs`` from lane ``src``
+    (per lane, a 5-bit lane operand within its group of G lanes): a source
+    out of the group gives the lane's own word."""
+    seg = LANES & ~(G - 1)
+    ok = (src >= seg) & (src <= seg + G - 1)
+    return np.where(ok, xs[np.where(ok, src, LANES)], xs)
 
 
 def _up(xs, q, r, G):
-    """Band::up: the group's words moved up by 32 q + r states."""
-    out = np.zeros(32, np.uint64)
-    for lane in range(32):
-        j = lane % G
-        a = _shfl(xs, lane, _up_by(q), G) if j >= q else np.uint64(0)
-        b = _shfl(xs, lane, _up_by(q + 1), G) if j > q else np.uint64(0)
-        out[lane] = ((a << np.uint64(r)) | (b >> np.uint64(32 - r))) & M32 if r else a
-    return out
+    """Band::up: the group's words moved up by 32 q + r states (shuffles
+    up by q and by q + 1, a 5-bit operand: 32 wraps to 0)."""
+    j = LANES % G
+    a = np.where(j >= q, _shfl(xs, LANES - (q & 31), G), np.uint64(0))
+    b = np.where(j > q, _shfl(xs, LANES - ((q + 1) & 31), G), np.uint64(0))
+    return ((a << np.uint64(r)) | (b >> np.uint64(32 - r))) & M32 if r else a
 
 
 def _down(xs, q, r, G):
     """Band::down: moved down by 32 q + r states."""
-    out = np.zeros(32, np.uint64)
-    for lane in range(32):
-        j = lane % G
-        down_by = functools.partial(_down_by, G=G)
-        a = _shfl(xs, lane, down_by(q), G) if j + q < G else np.uint64(0)
-        b = _shfl(xs, lane, down_by(q + 1), G) if j + q + 1 < G else np.uint64(0)
-        out[lane] = ((a >> np.uint64(r)) | (b << np.uint64(32 - r))) & M32 if r else a
-    return out
+    j = LANES % G
+    a = np.where(j + q < G, _shfl(xs, LANES + (q & 31), G), np.uint64(0))
+    b = np.where(j + q + 1 < G, _shfl(xs, LANES + ((q + 1) & 31), G), np.uint64(0))
+    return ((a >> np.uint64(r)) | (b << np.uint64(32 - r))) & M32 if r else a
 
 
 def _diags(offsets, reverse: bool):
@@ -276,8 +287,9 @@ class _Model:
         self.rows = flat[(2 * K + 3) * W:].reshape(2, S, W)
         tab = tables.tab.numpy().view(np.uint32).astype(np.uint64).reshape(-1, W)
         self.seed, self.mask = tab[0], tab[2 * S:2 * S + spl.N_SYMS]
-        self.acc = tab[2 * S + spl.N_SYMS]
+        self.acc = np.bitwise_or.reduce(tab[2 * S + spl.N_SYMS:], axis=0)  # the P rows' union
         self.offsets = tables.diags
+        self.enter0 = bool(flat[(2 * K + 2) * W] & np.uint64(1))
 
     def lanes(self, words):
         """[32 // G, W] words -> the warp's 32 lane words."""
@@ -305,8 +317,13 @@ class _Model:
     def fwd(self, v, gates, syms):
         """The seed row where the seed fires or state 0 is live, the
         diagonals, the residual rows s >= 1 walked."""
+        return self.fwd_seeded(v, [g or bool(wd[0] & np.uint64(1)) for g, wd in zip(gates, v)],
+                               syms)
+
+    def fwd_seeded(self, v, seed, syms):
+        """``fwd`` with the seed row applied to the windows where ``seed``
+        is set (``Band::fwd``'s seed argument)."""
         xs = self.lanes(v)
-        seed = [g or bool(wd[0] & np.uint64(1)) for g, wd in zip(gates, v)]
         y = self.lanes([self.seed if f else np.zeros(self.W, np.uint64) for f in seed])
         for row, q, r, up in _diags(self.offsets, False):  # shifted, then the destinations
             y |= (_up(xs, q, r, self.G) if up else _down(xs, q, r, self.G)) \
@@ -446,8 +463,8 @@ def _reverse_records(tables: spl.NfaTables, data: np.ndarray, lengths: np.ndarra
     (x = (R | acc) & mask[sym]), which is also state 0 of the new R; lane 0
     stores each hit word when bit 0 closes it, and the words past (len +
     1) / 32 are zeroed. The hit words start as garbage (``torch.empty``).
-    The band table is the record reverse's (``rev_band``)."""
-    model = _Model(tables._replace(band=tables.rev_band, diags=tables.rev_diags), 32)
+    The band table is the record reverse's (``rec_band``)."""
+    model = _Model(tables._replace(band=tables.rec_band, diags=tables.rec_diags), 32)
     R, L = data.shape
     Wt = spl.sb.hit_words(L)
     hits = np.random.default_rng(1).integers(0, 1 << 32, size=(Wt, R), dtype=np.uint64)
@@ -524,7 +541,7 @@ def test_record_reverse_model_matches_plain(name, S, keep):
     assert torch.equal(got, want)
     assert want.any(), "no hit bit: the batch shows nothing"
     if name is None:
-        assert len(tables.rev_diags) == (len(PLANTED) if keep else 0)
+        assert len(tables.rec_diags) == (len(PLANTED) if keep else 0)
 
 
 def test_walk_chunks_rev_order():
@@ -567,34 +584,396 @@ def test_nfa_reverse_passes_the_band(name, monkeypatch):
         return
     assert entry == "rrx_nfa_wide_reverse"
     band, nd, offs, nxt = args[4:]
-    assert band is tables.rev_band and nd == len(tables.rev_diags)
-    assert tables.rev_diags == {"chain+": (1, 2, 3, 4), "K60+": (1,)}[name]
-    assert len(offs) == spl.BANDED_MAX_DIAGS and list(offs)[:nd] == list(tables.rev_diags)
+    assert band is tables.rec_band and nd == len(tables.rec_diags)
+    assert tables.rec_diags == {"chain+": (1, 2, 3, 4), "K60+": (1,)}[name]
+    assert len(offs) == spl.BANDED_MAX_DIAGS and list(offs)[:nd] == list(tables.rec_diags)
     assert not any(list(offs)[nd:])
     assert nxt.dtype == torch.int32 and tuple(nxt.shape) == (1,)
     with pytest.raises(ValueError, match="without a band split"):
-        spl.nfa_reverse(data, lengths, tables._replace(rev_band=None))
+        spl.nfa_reverse(data, lengths, tables._replace(rec_band=None))
     assert spl.nfa_reverse.wide_launches == before + 1
 
 
 @pytest.mark.parametrize("max_diags", [None, 0, spl.BANDED_MAX_DIAGS])
 def test_record_reverse_needs_a_zero_dead_row(max_diags, monkeypatch):
     """The record reverse stops at each record's EOS step, where the plain
-    reverse walks on over the dead steps: ``with_band`` builds its split
-    only where the dead step's mask row is zero, and ``nfa_reverse``
-    refuses the tables otherwise, launching nothing; the window kernels'
-    split is built either way."""
+    reverse walks on over the dead steps: ``with_band`` marks tables whose
+    dead step's mask row is not zero (``dead_row``), and ``nfa_reverse``
+    refuses them, launching nothing; the window kernels' split and the
+    record kernels' split (which the forward flags read too) are built
+    either way."""
     calls = []
     monkeypatch.setattr(spl, "_launch", lambda entry, *a: calls.append(entry))
     data = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
     lengths = torch.zeros(4, dtype=torch.int32, device="meta")
     for dead in (True, False):
         tables = spl.with_band(_random_tables(384, 7, dead=dead), max_diags)
-        assert tables.band is not None
-        assert (tables.rev_band is None) == dead
+        assert tables.band is not None and tables.rec_band is not None
+        assert tables.dead_row == dead
         if dead:
             with pytest.raises(ValueError, match="dead step's mask row"):
                 spl.nfa_reverse(data, lengths, tables)
         else:
             spl.nfa_reverse(data, lengths, tables)
     assert calls == ["rrx_nfa_wide_reverse"]
+
+
+# ---------------------------------------------------------------------------
+# The record flags and the multi-channel reverse on the band step
+# (rrx_nfa_wide_flags, rrx_nfa_wide_reverse_mb)
+# ---------------------------------------------------------------------------
+
+
+def _walk_chunks_pair(row: np.ndarray, n: int, n_max: int):
+    """``walk_chunks_pair`` of ``csrc/scan_core.cuh`` for one half: (t, sym)
+    for t = 0 .. n_max + 1, sym the half's own symbol (BOS at 0, byte t - 1
+    for t <= n, EOS at n + 1, the dead step past it). The half's chunks are
+    loaded one ahead (its last one again once its record is done) and each
+    step takes the bottom byte of the chunk and shifts it down by 8 bits."""
+    chunk = lambda c: int.from_bytes(row[16 * c:16 * c + 16].tobytes(), "little")  # noqa: E731
+    own = (n + 15) >> 4
+    nq = chunk(0) if own > 0 else 0
+    yield 0, spl.sb.SYM_BOS
+    for c in range((n_max + 15) >> 4):
+        q = nq
+        if own > 0:
+            nq = chunk(min(c + 1, own - 1))
+        for b in range(min(16, n_max - 16 * c)):
+            t = 1 + 16 * c + b
+            byte = q & 0xFF
+            q >>= 8
+            yield t, byte if t <= n else (spl.sb.SYM_EOS if t == n + 1 else spl.sb.SYM_DEAD)
+    yield n_max + 1, spl.sb.SYM_EOS if n_max == n else spl.sb.SYM_DEAD
+
+
+def _flags_records(tables: spl.NfaTables, data: np.ndarray, lengths: np.ndarray, G: int,
+                   seeded: bool):
+    """``wide_flags_kernel<G>`` on the model: 32 // G records a warp from
+    the record band split (``rec_band``), both walked to the longer one,
+    each with its own EOS and dead steps; where no window holds a live
+    state the step is the seed row alone (the record flags' split,
+    ``fwd_band``); a flag bit only up to the
+    record's EOS step; each word stored when bit 31 closes it (up to the
+    EOS word), the EOS word after the walk where the walk ended first; the
+    words past the EOS word zeroed. A half past the last record steps
+    record R - 1 and writes nothing. The flag words start as garbage.
+    Returns (flags, steps skipped, steps taken)."""
+    model = _Model(tables._replace(band=tables.fwd_band, diags=tables.fwd_diags), G)
+    R, L = data.shape
+    Wt = spl.sb.hit_words(L)
+    flags = np.random.default_rng(2).integers(0, 1 << 32, size=(Wt, R), dtype=np.uint64)
+    rows = np.zeros((R, ((L + 15) // 16) * 16), np.uint8)
+    rows[:, :L] = data
+    npair = 32 // G
+    skipped = taken = 0
+    for u in range(-(-R // npair)):
+        rs = [u * npair + h for h in range(npair)]
+        act = [r < R for r in rs]
+        rs = [r if a else R - 1 for r, a in zip(rs, act)]
+        ns = [int(min(max(lengths[r], 0), L)) for r in rs]
+        n_max = max(ns)
+        eos = [n + 1 for n in ns]
+        for h, r in enumerate(rs):
+            if act[h]:
+                flags[(eos[h] >> 5) + 1:, r] = 0
+        walks = [list(_walk_chunks_pair(rows[r], n, n_max)) for r, n in zip(rs, ns)]
+        v = np.zeros((npair, model.W), np.uint64)
+        word = [0] * npair
+        for i in range(n_max + 2):
+            t = walks[0][i][0]
+            assert all(w[i][0] == t for w in walks)
+            syms = [w[i][1] for w in walks]
+            gate = seeded or t < 2
+            if v.any():
+                seed = [gate or (model.enter0 and bool(wd[0] & np.uint64(1))) for wd in v]
+                v = model.fwd_seeded(v, seed, syms)
+                taken += 1
+            else:
+                v = np.stack([(model.seed if gate else np.zeros(model.W, np.uint64))
+                              & model.mask[sym] for sym in syms])
+                skipped += 1
+            for h in range(npair):
+                if t <= eos[h]:
+                    word[h] |= int(bool((v[h] & model.acc).any())) << (t & 31)
+            if t & 31 == 31:
+                for h, r in enumerate(rs):
+                    if act[h] and t - 31 <= eos[h]:
+                        flags[t >> 5, r] = word[h]
+                    word[h] = 0
+        for h, r in enumerate(rs):
+            if act[h] and (eos[h] | 31) > n_max + 1:
+                flags[eos[h] >> 5, r] = word[h]
+    return spl.sb._as_i32(torch.from_numpy(flags.astype(np.int64))), skipped, taken
+
+
+def _pair_batch(name, S: int):
+    """``_reverse_batch``'s records, an odd count, two of them with an EOS
+    step at bit 31 of a word (lengths 30 and 62), paired shortest with
+    longest so that the two records of a warp differ: 0 beside a full row,
+    31 (its EOS word closing after its EOS step) beside 62."""
+    data, lengths = _reverse_batch(None if name == "cycle" else name, S)
+    lengths[1:3] = (30, 62)
+    order = np.argsort(lengths, kind="stable")
+    order = np.delete(order, np.flatnonzero(~np.isin(lengths[order], (0, 30, 31, 62, 64)))[0])
+    lo, hi = order[: len(order) // 2], order[len(order) // 2:][::-1]
+    order = np.stack([lo, hi[: lo.size]], axis=1).reshape(-1)  # the shortest beside the longest
+    order = np.append(order, hi[lo.size:])
+    return data[order], lengths[order]
+
+
+@functools.lru_cache(maxsize=None)
+def _cycle_tables() -> spl.NfaTables:
+    """A hand-built tile of 384 states whose unseeded scan lives on state 0:
+    the seed row {1, 150}, runs 1 -> 2 -> ... -> 300 and 150 -> ... (d =
+    +1, kept), 10 -> 0 (a residual edge into state 0), the accept state
+    160 reached only through the seed row's residual edge 0 -> 150; every
+    byte below 0x80, BOS and EOS allow every state, the dead step none.
+    Without the seed row applied for a live state 0, the flags after the
+    first cycle differ."""
+    S, W = 384, spl._words(384)
+    F = np.zeros((S, S), bool)
+    F[np.arange(1, 300), np.arange(2, 301)] = True
+    F[0, [1, 150]] = True
+    F[10, 0] = True
+    mbits = np.zeros((spl.N_SYMS, S), bool)
+    mbits[:0x80] = mbits[spl.sb.SYM_BOS] = mbits[spl.sb.SYM_EOS] = True
+    acc = np.zeros((1, S), bool)
+    acc[0, 160] = True
+    tab = np.concatenate([spl._pack_rows(F, W), spl._pack_rows(F.T, W),
+                          spl._pack_rows(mbits, W), spl._pack_rows(acc, W)])
+    t = spl.NfaTables(torch.from_numpy(tab.reshape(-1).view(np.int32).copy()), S)
+    return spl.with_band(t, rows=tab)
+
+
+def _flag_tables(name, S: int, residual: bool) -> spl.NfaTables:
+    if name == "cycle":
+        return _cycle_tables()
+    return _prog_tables(name)[1] if name else _random_tables(S, S, residual, dead=False)
+
+
+# (program, planted tile of S states with residual edges or the seed row
+# alone, or the cycle through state 0)
+FLAG_TILES = [(n, S, True) for n, S in RECORD_TILES] + [(None, 512, False), ("cycle", 384, True)]
+FLAG_CASES = [(name, S, res, G) for name, S, res in FLAG_TILES for G in (32, 16)
+              if G == 32 or name != "chain+" and S != 1024]
+
+
+@pytest.mark.parametrize("keep", [True, False], ids=["diagonals", "walk-all"])
+@pytest.mark.parametrize("name,S,residual,G", FLAG_CASES,
+                         ids=[f"{n or f'planted{S}' + ('' if r else '-seed-row')}-G{G}"
+                              for n, S, r, G in FLAG_CASES])
+def test_record_flags_model_matches_plain(name, S, residual, G, keep):
+    """The record flags on the band step, seeded and unseeded, equal
+    ``flags_plain`` on x(ab|c){300,}y (four diagonals: many skipped steps),
+    K60+ (one), planted tiles with a residual or with the seed row alone,
+    and a tile whose unseeded scan cycles through state 0 (the seed row
+    applied for a live state 0, ``Band::has0``), with the diagonals kept
+    and every edge walked (K60+'s and the chain's defaults), at 32 lanes a
+    record and, where W <= 16, two records a warp; an odd count of records
+    of length 0, at the chunk edges and full, shuffled into unequal pairs."""
+    tables = spl.with_band(_flag_tables(name, S, residual), spl.BANDED_MAX_DIAGS if keep else 0)
+    data, lengths = _pair_batch(name, tables.s_tile)
+    assert len(lengths) % 2 == 1 and {0, 30, 62} <= set(lengths.tolist())
+    assert lengths.max() == data.shape[1]
+    lt, dt = torch.from_numpy(lengths), torch.from_numpy(data)
+    for seeded in (True, False):
+        got, skipped, taken = _flags_records(tables, data, lengths, G, seeded)
+        want = spl.flags_plain(dt, lt, tables, seeded=seeded)
+        assert torch.equal(got, want), f"seeded={seeded}"
+        assert taken > 0 and (skipped > 0 or seeded)
+        assert want.any() or not seeded, "no flag bit: the batch shows nothing"
+
+
+def test_walk_chunks_pair_order():
+    """The pair walker: t = 0 .. n_max + 1 for every half, byte t - 1 at
+    step t <= n, EOS at n + 1 and the dead step past it, for n = 0..50 of a
+    64-byte row against a partner of 0..50 bytes."""
+    row = np.arange(64, dtype=np.uint8) + 100
+    for n in range(51):
+        for n_max in range(n, 51, 7):
+            steps = list(_walk_chunks_pair(row, n, n_max))
+            want = [(0, spl.sb.SYM_BOS)] + [(t, int(row[t - 1])) for t in range(1, n + 1)] + [
+                (n + 1, spl.sb.SYM_EOS)] + [(t, spl.sb.SYM_DEAD) for t in range(n + 2, n_max + 2)]
+            assert steps == want, (n, n_max)
+
+
+@functools.lru_cache(maxsize=None)
+def _channel_tables(which: str):
+    """(tables, span rows [P, 2, W] int32) of a wide multi-channel tile: the
+    P = 3 union of K40+, cat|dog and [0-9]{3} (``MultiPattern``), its `$`
+    form (K40+, cat$, [0-9]?$), or 40 channels on K40+'s tile (each state
+    owned by a random channel, the seed row's states split among them)."""
+    from roaringregex_tpu_torch.api import MultiPattern
+
+    k40 = _kw(40, "+")
+    if which != "40":
+        pats = [k40, "cat|dog", "[0-9]{3}"] if which == "P3" else [k40, "cat$", "[0-9]?$"]
+        sc = MultiPattern(pats, "cpu").engine.device_scanner
+        return sc.nfa, sc.span
+    prog = compile_program(k40)
+    S = prog.s_tile
+    rng = np.random.default_rng(40)
+    owner = rng.integers(0, 40, size=S)
+    acc = np.zeros((S, 40), np.uint8)
+    acc[np.arange(S), owner] = np.asarray(prog.accept)[:S] != 0
+    f0 = np.flatnonzero(np.asarray(prog.F[0, :S]))
+    sgm = np.zeros((40, S), np.uint8)
+    sgm[owner[f0], f0] = 1
+    posm = np.zeros((S, 40), np.uint8)
+    posm[np.arange(S), owner] = 1
+    posm[0] = 0
+    span = spl.span_channels(sgm, posm, 40, S).view(np.int32).copy()
+    return spl.device_nfa_tables(prog, "cpu", acc, 40), torch.from_numpy(span)
+
+
+def _reverse_mb_records(tables: spl.NfaTables, span: torch.Tensor, data: np.ndarray,
+                        lengths: np.ndarray):
+    """``wide_reverse_mb_kernel`` on the model: one record a warp, the
+    bytes by ``walk_chunks_rev``, R = the band step on x = (R | acc) &
+    mask[sym] (acc the union of the P accept rows); where x meets follow[0]
+    (s0) each channel c tests x against its sg row: lane c < 32 keeps its
+    open hit word and stores it when bit 0 closes it, channels past 32 OR
+    their bits into the words, each zeroed when it opens; the words past
+    the EOS word zeroed. The hit words start as garbage."""
+    model = _Model(tables._replace(band=tables.rec_band, diags=tables.rec_diags), 32)
+    P = tables.P
+    sg = span.numpy().view(np.uint32).astype(np.uint64)[:, 0]  # [P, W]
+    R, L = data.shape
+    Wt = spl.sb.hit_words(L)
+    hits = np.random.default_rng(3).integers(0, 1 << 32, size=(P, Wt, R), dtype=np.uint64)
+    row = np.zeros(((L + 15) // 16) * 16, np.uint8)
+    fired = 0
+    for r in range(R):
+        n = int(min(max(lengths[r], 0), L))
+        hits[:, ((n + 1) >> 5) + 1:, r] = 0
+        row[:L] = data[r]
+        rs = np.zeros((1, model.W), np.uint64)
+        hw = [0] * min(P, 32)
+        for t, sym in _walk_chunks_rev(row, n):
+            if t == n + 1 or t & 31 == 31:  # walking down, word t / 32 opens
+                hw = [0] * min(P, 32)
+                hits[32:, t >> 5, r] = 0
+            x = (rs[0] | model.acc) & model.mask[sym]
+            rs = model.rev(rs, [sym])
+            if (x & model.seed).any():
+                fired += 1
+                for c in range(P):
+                    if (x & sg[c]).any():
+                        if c < 32:
+                            hw[c] |= 1 << (t & 31)
+                        else:
+                            hits[c, t >> 5, r] |= np.uint64(1 << (t & 31))
+            if t & 31 == 0:
+                hits[:32, t >> 5, r] = hw
+    assert fired > 0
+    return spl.sb._as_i32(torch.from_numpy(hits.astype(np.int64)))
+
+
+def _channel_batch(L: int = 80):
+    """Records of length 0, at the chunk edges and full over K40+'s words,
+    cat, dog, digits and spaces, a word, a number or cat at some records'
+    ends (the `$` channels)."""
+    rng = np.random.default_rng(7)
+    words = [w.encode() for w in _keywords(40)] + [b"cat", b"dog", b"123", b"45"]
+    R = 15
+    data = rng.choice(np.frombuffer(b"abcdefgilmnorstu 0123456789", np.uint8), size=(R, L))
+    for r in range(R):
+        w = b" ".join(words[int(i)] for i in rng.integers(0, len(words), size=4))[:L]
+        at = int(rng.integers(0, L - len(w) + 1))
+        data[r, at:at + len(w)] = np.frombuffer(w, np.uint8)
+    lengths = np.array(EDGE_LENGTHS + (L, L - 1, 64, 70, L), np.int32)
+    for r in range(2, R, 3):
+        e = int(lengths[r])
+        if e >= 3:
+            data[r, e - 3:e] = np.frombuffer(b"cat" if r % 2 else b" 45", np.uint8)
+    return data.astype(np.uint8), lengths
+
+
+@pytest.mark.parametrize("keep", [True, False], ids=["diagonals", "walk-all"])
+@pytest.mark.parametrize("which", ["P3", "P3$", "40"])
+def test_record_reverse_mb_model_matches_plain(which, keep):
+    """The multi-channel reverse on the band step equals
+    ``reverse_mb_plain`` on the P = 3 union, its `$` channels and 40
+    channels on K40+'s tile (8 past lane 31), with its diagonal kept (the
+    default) and every edge walked."""
+    tables, span = _channel_tables(which)
+    assert tables.s_tile > spl.REG_S_TILE and tables.rec_diags == (1,) and not tables.dead_row
+    tables = spl.with_band(tables, spl.BANDED_MAX_DIAGS if keep else 0)
+    data, lengths = _channel_batch()
+    got = _reverse_mb_records(tables, span, data, lengths)
+    want = spl.reverse_mb_plain(torch.from_numpy(data), torch.from_numpy(lengths), tables, span)
+    assert torch.equal(got, want)
+    hit = [bool(want[c].any()) for c in range(tables.P)]
+    assert all(hit) if tables.P == 3 else any(hit[32:]), f"channels with a hit: {hit}"
+
+
+@pytest.mark.parametrize("name", ["chain+", "K60+", "narrow"])
+def test_nfa_flags_passes_the_band(name, monkeypatch):
+    """Past 256 states ``nfa_flags`` launches rrx_nfa_wide_flags with its
+    seed flag and flag words, the record flags' band split (K60+'s one
+    diagonal; every edge walked for the chain), its offset count, the
+    offsets (a host int array of BANDED_MAX_DIAGS) and the lanes a record
+    (16 where W <= 16), then the zeroed record counter, and counts the
+    launch; it refuses tables without that split. A narrow tile launches
+    rrx_nfa_flags with the seed flag and the flag words alone. The meta
+    device stands in for the card."""
+    calls = []
+    monkeypatch.setattr(spl, "_launch", lambda entry, *a: calls.append((entry, a)))
+    tables = (spl.device_nfa_tables(compile_program(_kw(20)), "cpu") if name == "narrow"
+              else _prog_tables(name)[1])
+    data = torch.zeros((5, 32), dtype=torch.uint8, device="meta")
+    lengths = torch.zeros(5, dtype=torch.int32, device="meta")
+    wide = tables.s_tile > spl.REG_S_TILE
+    counter = "wide_launches" if wide else "launches"
+    before = getattr(spl.nfa_flags, counter)
+    words = spl.nfa_flags(data, lengths, tables, seeded=False)
+    assert getattr(spl.nfa_flags, counter) == before + 1
+    assert tuple(words.shape) == (spl.sb.hit_words(32), 5) and words.dtype == torch.int32
+    (entry, args), = calls
+    assert args[:3] == (data, lengths, tables) and args[3] == 0 and args[4] is words
+    if not wide:
+        assert entry == "rrx_nfa_flags" and len(args) == 5
+        return
+    assert entry == "rrx_nfa_wide_flags"
+    band, nd, offs, lanes, nxt = args[5:]
+    assert band is tables.fwd_band and nd == len(tables.fwd_diags)
+    assert tables.fwd_diags == {"chain+": (), "K60+": (1,)}[name]
+    assert list(offs) == list(tables.fwd_diags) + [0] * (spl.BANDED_MAX_DIAGS - nd)
+    assert lanes == {"chain+": 32, "K60+": 16}[name] == tables.band_lanes
+    assert nxt.dtype == torch.int32 and tuple(nxt.shape) == (1,)
+    spl.nfa_flags(data, lengths, tables._replace(band_lanes=32), seeded=True)
+    assert calls[-1][1][3] == 1 and calls[-1][1][8] == 32
+    with pytest.raises(ValueError, match="without a band split"):
+        spl.nfa_flags(data, lengths, tables._replace(fwd_band=None), seeded=True)
+    assert spl.nfa_flags.wide_launches == before + 2
+
+
+@pytest.mark.parametrize("which", ["P3", "40"])
+def test_nfa_reverse_mb_passes_the_band(which, monkeypatch):
+    """Past 256 states ``nfa_reverse_mb`` launches rrx_nfa_wide_reverse_mb
+    with P, the span rows and the hit words, the record band split, its
+    offset count and the offsets, then the zeroed record counter, and
+    counts the launch; it refuses tables without that split and tables
+    whose dead step's mask row is not zero, launching nothing."""
+    calls = []
+    monkeypatch.setattr(spl, "_launch", lambda entry, *a: calls.append((entry, a)))
+    tables, span = _channel_tables(which)
+    data = torch.zeros((3, 40), dtype=torch.uint8, device="meta")
+    lengths = torch.zeros(3, dtype=torch.int32, device="meta")
+    span_m = torch.zeros(tuple(span.shape), dtype=torch.int32, device="meta")
+    before = spl.nfa_reverse_mb.wide_launches
+    hits = spl.nfa_reverse_mb(data, lengths, tables, span_m)
+    assert spl.nfa_reverse_mb.wide_launches == before + 1
+    assert tuple(hits.shape) == (tables.P, spl.sb.hit_words(40), 3)
+    (entry, args), = calls
+    assert entry == "rrx_nfa_wide_reverse_mb"
+    assert args[:3] == (data, lengths, tables) and args[3] == tables.P and args[5] is hits
+    band, nd, offs, nxt = args[6:]
+    assert band is tables.rec_band and nd == len(tables.rec_diags) == 1
+    assert list(offs) == [1] + [0] * (spl.BANDED_MAX_DIAGS - 1)
+    assert nxt.dtype == torch.int32 and tuple(nxt.shape) == (1,)
+    with pytest.raises(ValueError, match="without a band split"):
+        spl.nfa_reverse_mb(data, lengths, tables._replace(rec_band=None), span_m)
+    with pytest.raises(ValueError, match="dead step's mask row"):
+        spl.nfa_reverse_mb(data, lengths, tables._replace(dead_row=True), span_m)
+    assert len(calls) == 1 and spl.nfa_reverse_mb.wide_launches == before + 1
