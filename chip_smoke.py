@@ -229,9 +229,10 @@ its check fails:
    the three container kernels on K120 at 10 MB and 1 GiB with every record
    scanned (plain versions on the 10 MB batch and on 4,096 records of the
    1 GiB one), registers, occupancy and the bound of PERF.md section 2 from
-   a census of the run's data, and four container shapes end to end at 10
-   MB and 1 GiB, split into prefilter, kernel and glue (rrx_sparse_reverse
-   on x(abc|de){1,300}y's bucket beside them), K120's
+   a census of the run's data (the 1 GiB times with 3 runs), and four
+   container shapes end to end at 10 MB, split into prefilter, kernel and
+   glue (rrx_sparse_reverse on x(abc|de){1,300}y's bucket beside them; at 1
+   GiB that bucket's reverse only against its plain version), K120's
    ScanEngine.starts_bitmap and Pattern.finditer_batch end to end at 10
    MB; the register steps of rrx_sparse_stats, _flags and _reverse on
    K120's 10 MB of log text, config 13's chain batch and x[ab]{0,400}c's
@@ -277,33 +278,33 @@ its check fails:
    the six wide record kernels on both programs at 10 MB and 1 GiB (plain
    versions once, on the 10 MB batch and on 4,096 records of the 1 GiB
    one, outputs compared there), with registers, occupancy, grid fill and
-   the bound, and match_stats end to end; the reverse and the flags (the
-   band step) also in the other split (the run fails if the default is
-   the slower; the flags' at 1 GiB), the flags of K60+ also at 32 lanes a
-   record, in scheduler
-   cycles a record-step with their spills, beside rrx_stream_reverse and
-   rrx_stream_flags (the Wide walk) on the same 10 MB records, and
+   the bound, and match_stats end to end; the reverse, the flags and the
+   stats (the band step) also in the other split (the run fails if the
+   default is the slower; the flags' and the stats' at 1 GiB; the
+   reverse's other split timed at 10 MB only), the flags (at 10 MB) and
+   the stats of K60+ also at 32 lanes a record, in scheduler cycles a
+   record-step with their spills, beside rrx_stream_reverse,
+   rrx_stream_flags and rrx_stream_stats (the Wide walk) on the same 10 MB
+   records, and
    x(ab|c){300,}y's starts_bitmap and lazy finditer_batch and both
    programs' ends_bitmap end to end at 10 MB; the two wide multi-channel
-   span kernels on the P = 3 union at 10 MB and 1 GiB the same way, with
-   cycles and spills, the reverse's other split and the union's lazy
+   span kernels and the union's stats on the P = 3 union at 10 MB and 1
+   GiB the same way, with cycles and spills, the reverse's other split,
+   rrx_stream_stats on the same records and the union's lazy
    MultiPattern.finditer_batch end to end at 10 MB; and the
    four wide window kernels at 1 GiB in K60's overlapped geometry (plain
    versions on 1 MiB), with count_ends end to end for K60 and
    x(ab|c){300,340}y, FastLongScanner.flags end to end for both, and the
-   band A/B: flags, count and reverse on K60's windows and flags and count
-   on the chain's, with the default split, at 32 lanes a window and with
-   max_diags=0, beside rrx_long_wide_carry (the Wide step) on the same
-   windows, in scheduler cycles a window-step, with registers, spills (a
-   band kernel that spills fails) and occupancy; the four stream
+   band step's registers, spills (a band kernel that spills fails) and
+   occupancy (its A/B timings are PERF.md's); the four stream
    kernels at 10 MB on cat|dog (W = 1), K30 (W = 8) and config 4 (W = 12,
    the rescans) and at 1 GiB on cat|dog
    (a 4 GiB stream), with the stream's bytes as their input in the bound,
    the stream's build time, occupancy and registers; match_stats end to end
    on the default route, the packed and the XLA backend at 10 MB; the three
    stream-fed container kernels over the mask streams of K120 (10 MB and
-   128 MB, a 14 GiB stream) and config 13 (10 MB), the stream's build
-   timed apart, the bound the larger of the stream's bytes and the
+   128 MB, a 14 GiB stream, compared only) and config 13 (10 MB), the
+   stream's build timed apart, the bound the larger of the stream's bytes and the
    container census, the byte kernel on the same records beside each; the
    slotted SWAR kernel on config 6 at 10 MB and 1 GiB beside the default
    route's rrx_word_stats[P] on the same data;
@@ -1195,6 +1196,36 @@ def main() -> int:
                     forms.add((len(tl.fwd_diags), tl.band_lanes))
         return forms
 
+    STATS_FORMS = ((0, False), (3, False), (0, True), (3, True))  # (lead, nullable)
+
+    def check_wide_stats(tables, d, ln, tag):
+        """rrx_nfa_wide_stats (the band step) seeded and unseeded, with lead
+        0 and 3, nullable and not, in both splits and, for one channel where
+        W <= 16, at 32 lanes a record as well as two records a warp, exactly
+        against stats_plain; returns the (diagonal count, lanes, seeded,
+        lead, nullable) forms run."""
+        forms = set()
+        for seeded in (True, False):
+            for ld, nullable in STATS_FORMS:
+                kw = dict(seeded=seeded, lead=ld, nullable=nullable)
+                want = scan_pallas.stats_plain(d, ln, tables, **kw)
+                for tb in (tables, other_split(tables, tables.fwd_diags)):
+                    two = tb.band_lanes == 16 and tb.P == 1
+                    for tl in ((tb, tb._replace(band_lanes=32)) if two else (tb,)):
+                        lanes = 32 if tl.P > 1 else tl.band_lanes
+                        compare("rrx_nfa_wide_stats", scan_pallas.nfa_stats(d, ln, tl, **kw),
+                                want, f"{tag} {kw} diagonals {tl.fwd_diags} {lanes} lanes a "
+                                f"record")
+                        forms.add((len(tl.fwd_diags), lanes, seeded, ld, nullable))
+        return forms
+
+    def stats_forms_missing(forms, want_splits):
+        """The (diagonal count, lanes) pairs of ``want_splits`` that did not
+        run every seeded / lead / nullable form."""
+        return sorted((nd, lanes) for nd, lanes in want_splits
+                      if any((nd, lanes, sd, ld, nl) not in forms
+                             for sd in (True, False) for ld, nl in STATS_FORMS))
+
     t0 = time.perf_counter()
     before = launches()
     n_cmp = n_over = 0
@@ -1222,6 +1253,7 @@ def main() -> int:
     edge_len = np.array([0, 1, 2, 14, 15, 16, 17, 18, 30, 31, 32, 33, 34, 47, 48, 49, 62, 63, 64,
                          65, 95, 96, 97, 127, 128, 129, 255, 256, 257, 318, 319, 320], np.int32)
     flag_forms = set()
+    stats_forms = set()
     for pattern in (CHAIN300, K60P):
         tables = scan_pallas.device_nfa_tables(compile_program(pattern), dev)
         data, _ = wide_batch(511, 320)
@@ -1230,6 +1262,7 @@ def main() -> int:
         tag = f"{pattern[:40]!r} R=511, lengths at the chunk edges"
         rev_splits |= check_wide_reverse(tables, d, ln, tag)
         flag_forms |= check_wide_flags(tables, d, ln, tag)
+        stats_forms |= check_wide_stats(tables, d, ln, tag)
         n_cmp += 1
     for S, residual in ((384, True), (512, True), (1024, True), (384, False), (1024, False)):
         tables = band_planted(S, residual, rng, dev, dead=False)
@@ -1240,27 +1273,32 @@ def main() -> int:
         d, ln = torch.from_numpy(data).to(dev), torch.from_numpy(lengths).to(dev)
         rev_splits |= check_wide_reverse(tables, d, ln, f"hand-built S={S} {form}")
         flag_forms |= check_wide_flags(tables, d, ln, f"hand-built S={S} {form} R=255")
+        stats_forms |= check_wide_stats(tables, d, ln, f"hand-built S={S} {form} R=255")
         n_cmp += 1
     if not {0, 1, 4, len(BAND_PLANTED)} <= rev_splits:
         fail(f"rrx_nfa_wide_reverse comparisons covered only {sorted(rev_splits)} diagonals")
     if not {(0, 16), (1, 16), (0, 32), (1, 32), (4, 32), (len(BAND_PLANTED), 16)} <= flag_forms:
         fail(f"rrx_nfa_wide_flags comparisons covered only {sorted(flag_forms)}")
+    missing = stats_forms_missing(stats_forms, ((0, 16), (1, 16), (0, 32), (1, 32), (4, 32),
+                                                (len(BAND_PLANTED), 16)))
+    if missing:
+        fail(f"rrx_nfa_wide_stats: (diagonals, lanes) {missing} missed a seeded/lead/nullable form")
     # P = 3 accept channels on a dense multiblock union
     mp_w = MultiPattern(WIDE_MP, dev)
     tables = mp_w.engine.device_scanner.nfa
     if tables.P != 3 or tables.s_tile <= scan_pallas.REG_S_TILE:
         fail(f"MultiPattern {WIDE_MP[1:]} + K40+: P {tables.P}, s_tile {tables.s_tile}")
+    mp_forms = set()
     for R, L in ((1000, 61), (512, 400)):
         data, lengths = wide_batch(R, L)
         data[8::7, :7] = np.frombuffer(b"cat 123", np.uint8)
         d = torch.from_numpy(data).to(dev)
         ln = torch.from_numpy(lengths).to(dev)
-        for seeded in (True, False):
-            for ld, nullable in ((0, False), (3, False), (0, True)):
-                kw = dict(seeded=seeded, lead=ld, nullable=nullable)
-                compare("rrx_nfa_wide_stats", scan_pallas.nfa_stats(d, ln, tables, **kw),
-                        scan_pallas.stats_plain(d, ln, tables, **kw), f"P = 3 R={R} L={L} {kw}")
+        mp_forms |= check_wide_stats(tables, d, ln, f"P = 3 R={R} L={L}")
         n_cmp += 1
+    missing = stats_forms_missing(mp_forms, ((len(tables.fwd_diags), 32), (0, 32)))
+    if missing:
+        fail(f"rrx_nfa_wide_stats P = 3: (diagonals, lanes) {missing} missed a form")
     torch.cuda.synchronize()
     for name in WIDE_KERNELS:
         if launches()[name] <= before[name]:
@@ -1273,10 +1311,12 @@ def main() -> int:
           f"multiblock programs (W = {sorted(words_w)}, banded and not, one nullable) and a P = 3 "
           f"union through the six wide kernels (stats seeded/unseeded/lead/nullable/P = 3, flags "
           f"seeded/unseeded, reverse, anchor lazy/longest, lazy and greedy at caps 1, 2, 16; greedy "
-          f"over set on {n_over} records); the reverse's and the flags' band step in both splits "
-          f"(diagonal counts {sorted(rev_splits)}; flags (diagonals, lanes a record) "
-          f"{sorted(flag_forms)}), on odd counts of records of length 0 and at the chunk edges, "
-          f"and on hand-built tiles ({time.perf_counter() - t0:.1f}s)")
+          f"over set on {n_over} records); the reverse's, the flags' and the stats' band step "
+          f"in both splits (diagonal counts {sorted(rev_splits)}; flags (diagonals, lanes a "
+          f"record) {sorted(flag_forms)}; stats {sorted({f[:2] for f in stats_forms})} x seeded "
+          f"and not x lead 0 / 3 x nullable and not, P = 3 in both splits), on odd counts of "
+          f"records of length 0 and at the chunk edges, and on hand-built tiles "
+          f"({time.perf_counter() - t0:.1f}s)")
 
     def counting_batch(R: int, L: int):
         """An edge batch over a counting alphabet, with an a-run, a body
@@ -1505,14 +1545,19 @@ def main() -> int:
         compare("rrx_nfa_wide_reverse_mb", [P_.nfa_reverse_mb(d, ln, tb_o, span)], [hits],
                 f"{tag} diagonals {tb_o.rec_diags}", ("hits",))
         over = 0
+        tb_f = other_split(tables, tables.fwd_diags)  # the lazy spans' other split
         for cap in (1, 2, 16):
-            got = P_.nfa_lazy_spans_mb(d, ln, tables, span, hits, cap)
-            compare("rrx_nfa_wide_lazy_spans_mb", got,
-                    P_.lazy_spans_mb_plain(d, ln, tables, span, hits, cap), f"{tag} cap={cap}",
-                    ("starts", "ends", "cnt"))
+            want = P_.lazy_spans_mb_plain(d, ln, tables, span, hits, cap)
+            for tb in (tables, tb_f):
+                got = P_.nfa_lazy_spans_mb(d, ln, tb, span, hits, cap)
+                compare("rrx_nfa_wide_lazy_spans_mb", got, want,
+                        f"{tag} cap={cap} diagonals {tb.fwd_diags}", ("starts", "ends", "cnt"))
+                splits_mb.add(len(tb.fwd_diags))
             if cap == 1:
                 over += int((got[2] > 1).any(dim=1).sum().item())
         return over
+
+    splits_mb = set()
 
     prog40 = compile_program(K40P)
     S40 = prog40.s_tile
@@ -1552,9 +1597,12 @@ def main() -> int:
             fail(f"{name}: launch count did not rise in the comparison")
     if n_over == 0:
         fail("the wide multi-channel spans never overflowed cap 1")
+    if not {0, 1} <= splits_mb:
+        fail(f"rrx_nfa_wide_lazy_spans_mb ran only the splits of {sorted(splits_mb)} diagonals")
     print(f"phase 2: kernel == plain on the card, {n_cmp} batches of {len(mb_sets)} channel sets on "
           f"wide tiles (P = 3, P = 3 with `$` channels, P = 40) through rrx_nfa_wide_reverse_mb and "
-          f"rrx_nfa_wide_lazy_spans_mb at caps 1, 2, 16 (cap 1 overflowed on {n_over} records) "
+          f"rrx_nfa_wide_lazy_spans_mb at caps 1, 2, 16, both in both splits (cap 1 overflowed "
+          f"on {n_over} records) "
           f"({time.perf_counter() - t0:.1f}s)")
 
     # the wide long-string window kernels (rows 26-30 at W > 8): strings of
@@ -4180,6 +4228,7 @@ def main() -> int:
             starts = lazy0[0][:, 0].contiguous()
             greedy0 = P.nfa_greedy_spans(d, ln, tables, hits, cap_k, nullable=False)
             end0 = P.nfa_anchor_end(d, ln, tables, starts, longest=True)
+            plain_t = {}  # 1 GiB: the compared plain run's time is the plain time
             if shape == "10 MB":
                 check_nfa(tables, d, ln, f"{tag} 10 MB", nullable=False, lead=0, starts=starts,
                           caps=(cap_k,))
@@ -4187,18 +4236,21 @@ def main() -> int:
             else:
                 n = n_slice7
                 pd, pl, pst = d[:n].contiguous(), ln[:n].contiguous(), starts[:n].contiguous()
-                ph = scan_bits.reverse_plain(pd, pl, tables)
+                ph, plain_t["rrx_nfa_reverse"] = timed_once(
+                    lambda: scan_bits.reverse_plain(pd, pl, tables))
                 kw = dict(seeded=True, lead=0, nullable=False)
                 outs = {
                     "rrx_nfa_stats": (P.nfa_stats(d, ln, tables, **kw),
-                                      P.stats_plain(pd, pl, tables, **kw)),
-                    "rrx_nfa_reverse": ([hits[:, :n]], [ph]),
-                    "rrx_nfa_anchor_end": ([end0], [scan_bits.anchor_plain(pd, pl, tables, pst, longest=True)]),
-                    "rrx_nfa_lazy_spans": (lazy0, scan_bits.lazy_spans_plain(pd, pl, tables, ph, cap_k)),
-                    "rrx_nfa_greedy_spans": (greedy0, scan_bits.greedy_spans_plain(pd, pl, tables, ph, cap_k,
-                                                                           nullable=False)),
+                                      lambda: P.stats_plain(pd, pl, tables, **kw)),
+                    "rrx_nfa_reverse": ([hits[:, :n]], lambda: [ph]),
+                    "rrx_nfa_anchor_end": ([end0], lambda: [scan_bits.anchor_plain(pd, pl, tables, pst, longest=True)]),
+                    "rrx_nfa_lazy_spans": (lazy0, lambda: scan_bits.lazy_spans_plain(pd, pl, tables, ph, cap_k)),
+                    "rrx_nfa_greedy_spans": (greedy0, lambda: scan_bits.greedy_spans_plain(
+                        pd, pl, tables, ph, cap_k, nullable=False)),
                 }
-                for name, (got, want) in outs.items():
+                for name, (got, plain_fn) in outs.items():
+                    want, ms_p = timed_once(plain_fn)
+                    plain_t.setdefault(name, ms_p)
                     got = [x[:, :n] if name == "rrx_nfa_reverse" else x[:n] for x in got]
                     compare(name, got, want, f"{tag} 1 GiB, first {n} records",
                             tuple(str(i) for i in range(len(want))))
@@ -4220,7 +4272,7 @@ def main() -> int:
             nb = int(ln.to(torch.int64).sum())
             for name, (kern, plain) in calls.items():
                 ms = time_ms(kern, warm=2, runs=7, per_run=5)
-                plain_ms = time_ms(plain, warm=0, runs=1)
+                plain_ms = plain_t[name] if name in plain_t else time_ms(plain, warm=0, runs=1)
                 bnd = kernel_bound(name.split("_", 2)[2], ln, d.shape[1], step_ops, cap=cap_k,
                                    starts=starts, end=end0, greedy=greedy0)
                 nfa_ms[name, pattern, shape] = (ms, plain_ms, bnd)
@@ -4669,7 +4721,7 @@ def main() -> int:
                 got = [x[:n] for x in got]
             compare(name, got, want, f"config 10 {shape}, first {n} records",
                     tuple(str(i) for i in range(len(want))))
-            ms = time_ms(kern, warm=1, runs=7)
+            ms = time_ms(kern, warm=1, runs=7 if shape == "10 MB" else 3)
             bb_ms[name, shape] = (ms, plain_ms, bnd, n)
             print(f"phase 7: {name} config 10 {shape} [{d.shape[0]} x {L}], every record: kernel "
                   f"{ms:.3f} ms = {d.shape[0] * L / ms / 1e6:.2f} GB/s, plain {plain_ms:.1f} ms on "
@@ -4907,7 +4959,9 @@ def main() -> int:
     # end to end (data on the card), split into the prefilter, the kernel
     # and the glue: K120 match_stats, MultiPattern of 40 count (the engine's
     # channel scan), config 13 fullmatch_flags (the bool copy to the host
-    # included) and x(abc|de){1,300}y's prefiltered match_stats
+    # included) and x(abc|de){1,300}y's prefiltered match_stats, at 10 MB;
+    # at 1 GiB only the bucket's reverse against its plain version (the 1 GiB
+    # end-to-end times are PERF.md's, and moved with no kernel since)
     tables40 = mp40.engine.device_scanner.tables
     tables13 = eng13.device_scanner.tables
     sc_x = eng_x.device_scanner
@@ -4916,7 +4970,8 @@ def main() -> int:
         d, ln = (log10, len10) if shape == "10 MB" else (log, log_len)
         dd13, ll13 = (d13, l13) if shape == "10 MB" else (b13, bl13)
         dx, lx = x_runs[shape]
-        runs = 5 if shape == "10 MB" else 3
+        runs = 5
+        timed = shape == "10 MB"
         rows_e = {
             "K120 match_stats": (lambda: eng120.match_stats(d, ln, seeded=True),
                                  lambda: SP.sparse_stats(d, ln, tb120, seeded=True, nullable=False)),
@@ -4927,16 +4982,13 @@ def main() -> int:
                 lambda: eng13.fullmatch_flags(dd13, ll13),
                 lambda: SP.sparse_stats(dd13, ll13, tables13, seeded=False, nullable=False)),
         }
-        for what, (e2e_fn, k_fn) in rows_e.items():
+        for what, (e2e_fn, k_fn) in rows_e.items() if timed else ():
             e2e = time_ms(e2e_fn, warm=1, runs=runs)
             k_ms = time_ms(k_fn, warm=1, runs=runs)
             e2e_sp[what, shape] = (e2e, k_ms)
             print(f"phase 7: {what} end to end, {shape}: {e2e:.3f} ms = kernel {k_ms:.3f} ms + "
                   f"glue {e2e - k_ms:.3f} ms [{card}]")
         B_ = dx.shape[0]
-        e2e = time_ms(lambda: eng_x.match_stats(dx, lx, seeded=True), warm=1, runs=runs)
-        pre_ms = time_ms(lambda: eng_x._alias_call(pf_x, "match_stats", dx, lx, seeded=True),
-                         warm=1, runs=runs)
         _, _, pre = eng_x._alias_call(pf_x, "match_stats", dx, lx, seeded=True)
         bc = bucket(B_)
         idx_c = torch.nonzero(pre.reshape(-1)[:B_]).reshape(-1)[:bc]
@@ -4946,17 +4998,22 @@ def main() -> int:
         live_c = torch.tensor([idx_c.numel()], dtype=torch.int32, device=dev)
         live_0 = torch.zeros(1, dtype=torch.int32, device=dev)
         kw = dict(seeded=True, nullable=False)
-        k_ms = time_ms(lambda: SP.sparse_stats(d2, l2, sc_x.tables, **kw, live=live_c), warm=1,
-                       runs=runs)
-        f_ms = time_ms(lambda: SP.sparse_stats(dx, lx, sc_x.tables, **kw, live=live_0), warm=1,
-                       runs=runs)
-        e2e_sp["x prefiltered", shape] = (e2e, pre_ms, k_ms, f_ms, idx_c.numel())
         # rrx_sparse_reverse on the same bucket (the first pass of the
         # program's spans and starts), its hits against the plain version
         n_c = idx_c.numel()
         compare("rrx_sparse_reverse", [SP.sparse_reverse(d2, l2, sc_x.tables, live_c)[:, :n_c]],
                 [SP.sparse_reverse_plain(d2[:n_c], l2[:n_c], sc_x.tables)],
                 f"{CONFIG13_X} {shape} bucket", ("hits",))
+        if not timed:
+            continue
+        e2e = time_ms(lambda: eng_x.match_stats(dx, lx, seeded=True), warm=1, runs=runs)
+        pre_ms = time_ms(lambda: eng_x._alias_call(pf_x, "match_stats", dx, lx, seeded=True),
+                         warm=1, runs=runs)
+        k_ms = time_ms(lambda: SP.sparse_stats(d2, l2, sc_x.tables, **kw, live=live_c), warm=1,
+                       runs=runs)
+        f_ms = time_ms(lambda: SP.sparse_stats(dx, lx, sc_x.tables, **kw, live=live_0), warm=1,
+                       runs=runs)
+        e2e_sp["x prefiltered", shape] = (e2e, pre_ms, k_ms, f_ms, idx_c.numel())
         r_ms = time_ms(lambda: SP.sparse_reverse(d2, l2, sc_x.tables, live_c), warm=1, runs=runs)
         e2e_sp["x bucket reverse", shape] = (r_ms, k_ms, n_c)
         print(f"phase 7: rrx_sparse_reverse on {CONFIG13_X}'s bucket ({shape}, {n_c} candidates): "
@@ -5009,7 +5066,9 @@ def main() -> int:
                 ("K120", "128 MB", tb120, sc120.prog, log[: 1 << 17], log_len[: 1 << 17]))
     for tag, shape, tabs_c, prog_c, d, ln in runs_sps:
         stabs = scan_packed.stream_tables(prog_c, dev)
-        ms_w = time_ms(lambda: scan_packed.mask_stream_from_bytes(stabs, d, ln), warm=1, runs=3)
+        timed = shape == "10 MB"  # 128 MB: compared only (PERF.md holds its times)
+        ms_w = (time_ms(lambda: scan_packed.mask_stream_from_bytes(stabs, d, ln), warm=1, runs=3)
+                if timed else None)
         words = scan_packed.mask_stream_from_bytes(stabs, d, ln)
         T, R_w, W_w = words.shape
         n = min(d.shape[0], 1024)
@@ -5044,6 +5103,8 @@ def main() -> int:
             got = [x[:n] for x in got] if what == "stats" else [got[:, :n]]
             compare(name, got, want if what == "stats" else [want], f"{tag} {shape}, first {n}",
                     ("cnt", "first", "any") if what == "stats" else (what,))
+            if not timed:
+                continue
             ms = time_ms(kern, warm=1, runs=runs)
             byte_ms = time_ms(byte, warm=1, runs=runs)
             key = (id(tabs_c), id(cd), True, what == "reverse")
@@ -5170,10 +5231,10 @@ def main() -> int:
     # on the first n_slice7 records of 1 GiB, whose time is taken once
     def occupancy_wide(name, tables, rows, index=None):
         """``index``: rrx_long_wide_occupancy's kernel index (4 and 5: count
-        and reverse at 32 lanes a window) or rrx_nfa_wide_occupancy's (8:
-        flags at 32 lanes a record), else the name's. Two windows or
-        records a warp at 16 lanes each (W <= 16) halve the warps' work
-        units."""
+        and reverse at 32 lanes a window) or rrx_nfa_wide_occupancy's (8
+        and 9: flags and stats at 32 lanes a record), else the name's. Two
+        windows or records a warp at 16 lanes each (W <= 16) halve the
+        warps' work units."""
         bps = ctypes.c_int(0)
         if name in LONG_WIDE_KERNELS:
             idx = LONG_WIDE_KERNELS.index(name) if index is None else index
@@ -5184,7 +5245,8 @@ def main() -> int:
             _build.check(lib.rrx_nfa_wide_occupancy(idx, int(tables.s_tile), int(tables.P),
                                                     ctypes.byref(bps)),
                          "rrx_nfa_wide_occupancy")
-            if name == "rrx_nfa_wide_flags" and idx == 5 and tables.band_lanes == 16:
+            if tables.band_lanes == 16 and ((name == "rrx_nfa_wide_flags" and idx == 5) or (
+                    name == "rrx_nfa_wide_stats" and idx == 0 and tables.P == 1)):
                 rows = -(-rows // 2)
         tpb = lib.rrx_nfa_wide_threads_per_block()
         blocks = min(-(-rows // (tpb // 32)), bps.value * n_sm)
@@ -5265,16 +5327,17 @@ def main() -> int:
             tb_o = other_split(tables, tables.rec_diags)
             compare("rrx_nfa_wide_reverse", [P.nfa_reverse(d, ln, tb_o)[:, :n]], [ph],
                     f"{tag} {shape} diagonals {tb_o.rec_diags}, first {n} records", ("hits",))
-            o_ms = time_ms(lambda: P.nfa_reverse(d, ln, tb_o), warm=1,
-                           runs=3 if shape == "1 GiB" else 5)
-            wide_ms["rev split", pattern, shape] = (rev_ms, cyc(rev_ms), o_ms, cyc(o_ms))
             line = (f"phase 7: rrx_nfa_wide_reverse {tag} {shape}, the band step: diagonals "
                     f"{tables.rec_diags} (the default) {rev_ms:.4f} ms = {cyc(rev_ms):.1f} "
-                    f"scheduler cycles a record-step, diagonals {tb_o.rec_diags} {o_ms:.4f} ms = "
-                    f"{cyc(o_ms):.1f}")
-            if rev_ms > o_ms:
-                fail(f"rrx_nfa_wide_reverse {tag} {shape}: the default split {tables.rec_diags} "
-                     f"({rev_ms:.4f} ms) is slower than {tb_o.rec_diags} ({o_ms:.4f} ms)")
+                    f"scheduler cycles a record-step")
+            if shape == "10 MB":  # the other split's 1 GiB time is PERF.md's
+                o_ms = time_ms(lambda: P.nfa_reverse(d, ln, tb_o), warm=1, runs=5)
+                wide_ms["rev split", pattern, shape] = (rev_ms, cyc(rev_ms), o_ms, cyc(o_ms))
+                line += f", diagonals {tb_o.rec_diags} {o_ms:.4f} ms = {cyc(o_ms):.1f}"
+                if rev_ms > o_ms:
+                    fail(f"rrx_nfa_wide_reverse {tag} {shape}: the default split "
+                         f"{tables.rec_diags} ({rev_ms:.4f} ms) is slower than {tb_o.rec_diags} "
+                         f"({o_ms:.4f} ms)")
             if shape == "10 MB":
                 tabs = PK.packed_tables(eng_w.prog, dev)
                 words = PK.mask_stream_from_bytes(tabs, d, ln)
@@ -5308,6 +5371,8 @@ def main() -> int:
             for what, tb_f in forms:
                 compare("rrx_nfa_wide_flags", [P.nfa_flags(d, ln, tb_f, seeded=True)], [fl_want],
                         f"{tag} {shape} {what}", ("flags",))
+                if what == "32 lanes" and shape == "1 GiB":
+                    continue  # its 1 GiB time is PERF.md's
                 f_ms = time_ms(lambda: P.nfa_flags(d, ln, tb_f, seeded=True), warm=1,
                                runs=3 if shape == "1 GiB" else 5)
                 wide_ms["flags " + what, pattern, shape] = (f_ms, cyc(f_ms))
@@ -5332,6 +5397,49 @@ def main() -> int:
             print(f"{line}; occupancy at 32 lanes a record: {occ32}; spill bytes "
                   f"{fl_spill or 'not reported'} [{card}]")
             del fl_want
+            # the stats' band step (the flags' step, walk and skip, with the
+            # statistics in registers) the same way: cycles a record-step,
+            # the other split and (K60+) 32 lanes a record on the same
+            # records, each held to the default's statistics, and at 10 MB
+            # the Wide walk on the same records (rrx_stream_stats over their
+            # mask stream: the same cnt and first); the run fails if the
+            # default split is the slower one at 1 GiB
+            st_ms = wide_ms["rrx_nfa_wide_stats", pattern, shape][0]
+            st_want = P.nfa_stats(d, ln, tables, seeded=True)
+            line = (f"phase 7: rrx_nfa_wide_stats {tag} {shape}, the band step: diagonals "
+                    f"{tables.fwd_diags} at {tables.band_lanes} lanes a record (the default) "
+                    f"{st_ms:.4f} ms = {cyc(st_ms):.1f} scheduler cycles a record-step")
+            forms = [("other split", other_split(tables, tables.fwd_diags))]
+            if tables.band_lanes == 16:
+                forms.append(("32 lanes", tables._replace(band_lanes=32)))
+            for what, tb_s in forms:
+                compare("rrx_nfa_wide_stats", P.nfa_stats(d, ln, tb_s, seeded=True), st_want,
+                        f"{tag} {shape} {what}")
+                s_ms = time_ms(lambda: P.nfa_stats(d, ln, tb_s, seeded=True), warm=1,
+                               runs=3 if shape == "1 GiB" else 5)
+                wide_ms["stats " + what, pattern, shape] = (s_ms, cyc(s_ms))
+                line += (f", diagonals {tb_s.fwd_diags} at {tb_s.band_lanes} lanes {s_ms:.4f} ms = "
+                         f"{cyc(s_ms):.1f}")
+                if what == "other split" and shape == "1 GiB" and st_ms > s_ms:
+                    fail(f"rrx_nfa_wide_stats {tag} {shape}: the default split {tables.fwd_diags} "
+                         f"({st_ms:.4f} ms) is slower than {tb_s.fwd_diags} ({s_ms:.4f} ms)")
+            if shape == "10 MB":
+                words = PK.mask_stream_from_bytes(tabs, d, ln)
+                got_s = PK.match_stats(tabs["nfa"], words, ln, seeded=True, nullable=False)
+                if not (torch.equal(got_s[0], st_want[0]) and torch.equal(got_s[1], st_want[1])):
+                    fail(f"{tag}: rrx_stream_stats's (cnt, first) != rrx_nfa_wide_stats's")
+                s_ms = time_ms(lambda: PK.match_stats(tabs["nfa"], words, ln, seeded=True,
+                                                      nullable=False), warm=1, runs=5)
+                wide_ms["stats stream", pattern] = (s_ms, cyc(s_ms))
+                line += (f"; the Wide walk on the same records (rrx_stream_stats) {s_ms:.4f} ms = "
+                         f"{cyc(s_ms):.1f}, the same cnt and first")
+                del words
+            st_spill = {k_: b for k_, b in spilled.items()
+                        if re.search(r"\dwide_stats_kernel", k_)}
+            occ32 = occupancy_wide("rrx_nfa_wide_stats", tables, d.shape[0], 9)
+            print(f"{line}; occupancy at 32 lanes a record: {occ32}; spill bytes "
+                  f"{st_spill or 'not reported'} [{card}]")
+            del st_want
             e2e = time_ms(lambda: eng_w.match_stats(d, ln, seeded=True), warm=1,
                           runs=3 if shape == "1 GiB" else 5)
             print(f"phase 7: ScanEngine.match_stats {tag} end to end (data on the card), {shape}: "
@@ -5390,6 +5498,16 @@ def main() -> int:
                 f"P = 3 union {shape}, first {n} records, cap {cap_u}", ("starts", "ends", "cnt"))
         n_hit = int(pop8[hits.contiguous().view(torch.uint8).to(torch.int64)].sum())
         n_emit = int(lz[2].to(torch.int64).sum())
+        # the union's stats (32 lanes a record, the channels tested where the
+        # union fires), held to the plain version on the slice; the bound
+        # counts this run's distinct channel ends as its (channel, step) flags
+        st_u = P.nfa_stats(d, ln, tbw, seeded=True)
+        want, st_ms = timed_once(lambda: P.stats_plain(pd, pl, tbw, seeded=True, lead=0,
+                                                       nullable=False))
+        compare("rrx_nfa_wide_stats", [x[:n] for x in st_u], want,
+                f"P = 3 union {shape}, first {n} records")
+        n_ends = int(st_u[0].to(torch.int64).sum())
+        bnd_s = kernel_bound("stats_mc", ln, d.shape[1], step_w, P=3, flags=n_ends)
         calls = {
             "rrx_nfa_wide_reverse_mb": (lambda: P.nfa_reverse_mb(d, ln, tbw, spw), ph_ms,
                                         kernel_bound("reverse_mb", ln, d.shape[1], step_w, P=3,
@@ -5414,6 +5532,32 @@ def main() -> int:
                   f"{bnd[1]} [{card}]")
             print(f"  occupancy {name} ({shape}): {occupancy_wide(name, tbw, d.shape[0])}; "
                   f"registers {regs_of(kern_name)}; spill bytes {spill or 'not reported'}")
+        ms = time_ms(lambda: P.nfa_stats(d, ln, tbw, seeded=True), warm=1,
+                     runs=3 if shape == "1 GiB" else 5)
+        wide_mb_ms["stats", shape] = (ms, st_ms, bnd_s)
+        st_spill = {k_: b for k_, b in spilled.items() if re.search(r"\dwide_stats_kernel", k_)}
+        line = (f"phase 7: rrx_nfa_wide_stats P = 3 union (s_tile {tbw.s_tile}, 32 lanes a "
+                f"record) {shape} [{d.shape[0]} x {d.shape[1]}], {n_ends} channel ends: kernel "
+                f"{ms:.4f} ms = {nb / ms / 1e6:.1f} GB/s = "
+                f"{ms * 1e6 * CLOCK_GHZ * 4 * n_sm / steps_u:.1f} scheduler cycles a record-step, "
+                f"plain {st_ms:.3f} ms on {n} records; bound {bnd_s[0]:.4f} ms by {bnd_s[1]}")
+        if shape == "10 MB":  # the Wide walk on the same records: the same cnt and first
+            tabs_u = PK.stream_tables(mp_w.program, dev)
+            words = PK.mask_stream_from_bytes(tabs_u, d, ln)
+            got_s = PK.match_stats(tbw, words, ln, seeded=True, nullable=False)
+            if not (torch.equal(got_s[0], st_u[0]) and torch.equal(got_s[1], st_u[1])):
+                fail("P = 3 union: rrx_stream_stats's (cnt, first) != rrx_nfa_wide_stats's")
+            s_ms = time_ms(lambda: PK.match_stats(tbw, words, ln, seeded=True, nullable=False),
+                           warm=1, runs=5)
+            wide_mb_ms["stats stream", shape] = s_ms
+            line += (f"; the Wide walk on the same records (rrx_stream_stats) {s_ms:.4f} ms = "
+                     f"{s_ms * 1e6 * CLOCK_GHZ * 4 * n_sm / steps_u:.1f}, the same cnt and first")
+            del words
+        print(f"{line} [{card}]")
+        print(f"  occupancy rrx_nfa_wide_stats P = 3 ({shape}): "
+              f"{occupancy_wide('rrx_nfa_wide_stats', tbw, d.shape[0])}; registers "
+              f"{regs_of('wide_stats_kernel')}; spill bytes {st_spill or 'not reported'}")
+        del st_u
         if shape == "10 MB":  # the band step's other split, the same hit words
             tb_o = other_split(tbw, tbw.rec_diags)
             compare("rrx_nfa_wide_reverse_mb", [P.nfa_reverse_mb(d, ln, tb_o, spw)], [hits],
@@ -5495,55 +5639,10 @@ def main() -> int:
 
     lap("the wide long-string kernels")
 
-    # the band step (flags, count and reverse) against the Wide step on the
-    # same windows at 1 GiB: K60's windows (W = 16) with the default split
-    # (the diagonal +1, no residual) at 16 lanes a window (two windows a
-    # warp), at 32 lanes, and with every edge walked (max_diags=0), beside
-    # rrx_long_wide_carry (the Wide step, whose walk flags ran before: its
-    # time above, the count windows); x(ab|c){300,340}y's count windows
-    # (W = 32, flags on the same windows, and the carry), its default
-    # (every edge walked: 35% of the edges on its four diagonals) beside
-    # the diagonals kept (max_diags=8), and x(ab|c){300,310}y (89%: kept)
-    # on the same windows both ways; and the count of K60(ed|ing)? (75% on
-    # +1, kept; the residual from the keywords' ends is walked only where
-    # one is live) on K60's windows both ways. Scheduler cycles
-    # a window-step = ms x 1.98 GHz x 4 warp schedulers an SM / (windows x
-    # steps); registers and spills from ptxas
-    n_sched = 4 * n_sm
-
-    def cycles(ms, g):
-        return ms * CLOCK_GHZ * 1e6 * n_sched / (g.nw * g.T)
-
-    g60c, g60r = lsc._ov_geom(NLw), rev_geom(lsc, NLw)
-    tbc = lsc_c.tables
-    band_ab = {("K60", "carry (Wide step)", "-"): (long_wide_ms["rrx_long_wide_carry"][0], g60c),
-               ("K60", "flags", "default"): (long_wide_ms["rrx_long_wide_flags"][0], g60c),
-               (CHAIN340, "flags", "default"): (flk_ch, gch)}
-    band_ab[CHAIN340, "carry (Wide step)", "-"] = (
-        time_ms(lambda: P_.long_carry(sch, gch, tbc, seeded=True), warm=1, runs=3), gch)
-    tbp = P_.device_nfa_tables(compile_program(K60 + "(ed|ing)?"), dev)
-    tb310 = P_.device_nfa_tables(compile_program("x(ab|c){300,310}y"), dev)
-    for label, tbl, s_, gc, gr in (("K60", tb60, s60, g60c, g60r), (CHAIN340, tbc, sch, gch, None),
-                                   ("K60(ed|ing)?", tbp, s60, g60c, None),
-                                   ("x(ab|c){300,310}y", tb310, sch, gch, None)):
-        for form, tb in band_forms(tbl):
-            band_ab[label, "count", form] = (
-                time_ms(lambda: P_.long_count(s_, gc, tb, seeded=True), warm=1, runs=5), gc)
-            if gr is not None:
-                band_ab[label, "reverse", form] = (
-                    time_ms(lambda: P_.long_reverse(s_, gr, tb), warm=1, runs=5), gr)
-    for (label, what, form), (ms, g) in band_ab.items():
-        print(f"phase 7: band A/B {label} {what} {form}: {ms:.3f} ms, "
-              f"{cycles(ms, g):.1f} scheduler cycles a window-step ({g.nw} windows x {g.T} steps) "
-              f"[{card}]")
-    for label in ("K60", CHAIN340, "K60(ed|ing)?", "x(ab|c){300,310}y"):  # with_band's rule against the other split
-        forms = {f: ms for (lb, what, f), (ms, _) in band_ab.items()
-                 if lb == label and what == "count" and f.startswith(("default", "max_diags"))}
-        other = min(ms for f, ms in forms.items() if f != "default")
-        kept = "diagonals kept" if "max_diags=0" in forms else "every edge walked"
-        print(f"phase 7: band rule {label}: default split ({kept}) count "
-              f"{forms['default']:.3f} ms, the other split {other:.3f} ms: the default is "
-              f"{'faster' if forms['default'] < other else 'SLOWER'} [{card}]")
+    # the band step's registers and spills (the run fails if a band kernel
+    # spills) and its occupancy at 32 lanes a window; its A/B timings against
+    # the Wide step and across splits are PERF.md's and moved with
+    # no kernel since
     band_spill = {}
     for kern in ("long_band_flags_kernel", "long_band_count_kernel", "long_band_reverse_kernel",
                  "long_wide_carry_kernel"):
@@ -5554,7 +5653,7 @@ def main() -> int:
             fail(f"{kern} spills: {band_spill[kern]}")
     for name, idx in (("rrx_long_wide_count", 4), ("rrx_long_wide_reverse", 5)):
         print(f"  occupancy {name} at 32 lanes a window: "
-              f"{occupancy_wide(name, tb60, g60c.nw, idx)}")
+              f"{occupancy_wide(name, tb60, lsc._ov_geom(NLw).nw, idx)}")
 
     # rows 7-10: the four stream kernels, every record, at 10 MB on cat|dog
     # (W = 1: the packed backend's batch of phase 13), K30 (W = 8) and config
@@ -5634,7 +5733,7 @@ def main() -> int:
                   f"SM; registers {regs_of(form + name[len('rrx_'):] + '_kernel')} [{card}]")
         del words, hits
 
-    lap("the band step against the Wide step")
+    lap("the band step's registers and the stream kernels")
 
     # the three backends end to end: match_stats (seeded) of 10 MB on the card
     for pattern in ("cat|dog", K30):

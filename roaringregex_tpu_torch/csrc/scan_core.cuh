@@ -170,11 +170,18 @@ __device__ __forceinline__ void walk_steps(const uint4* row, int len, F&& f) {
   }
 }
 
+// The stop of a walk that runs to its end: the default of chunk_up and
+// walk_chunks_pair, which then take no test.
+struct NoStop {
+  __device__ __forceinline__ constexpr bool operator()(int) const { return false; }
+};
+
 // f(t0 + b, byte b of q) for b = 0 .. n - 1: each byte taken off the bottom
 // of the 16-byte chunk in registers (a rolled loop: the callers' steps are
-// long).
-template <class F>
-__device__ __forceinline__ void chunk_up(uint4 q, int t0, int n, F&& f) {
+// long). stop(t) is asked after each step t; once it says true no step
+// follows and chunk_up returns true.
+template <class F, class Stop = NoStop>
+__device__ __forceinline__ bool chunk_up(uint4 q, int t0, int n, F&& f, Stop&& stop = Stop{}) {
 #pragma unroll 1
   for (int b = 0; b < n; ++b) {
     const int sym = static_cast<int>(q.x & 0xFFu);
@@ -183,7 +190,9 @@ __device__ __forceinline__ void chunk_up(uint4 q, int t0, int n, F&& f) {
     q.z = __funnelshift_r(q.z, q.w, 8);
     q.w >>= 8;
     f(t0 + b, sym);
+    if (stop(t0 + b)) return true;
   }
+  return false;
 }
 
 // walk_steps with the next chunk's load issued a chunk ahead (the last
@@ -210,10 +219,14 @@ __device__ __forceinline__ void walk_chunks(const uint4* row, int len, F&& f) {
 // half's own symbol: kBos at 0, byte t-1 for t <= len, kEos at len+1 and
 // kDead past it. Each half reads its own record's chunks, the next loaded a
 // chunk ahead (once its record is done, its last chunk again: no read past
-// its row).
-template <class F>
-__device__ __forceinline__ void walk_chunks_pair(const uint4* row, int len, int len_max, F&& f) {
+// its row). stop(t), warp-uniform, is asked after each step t but the last
+// (as walk_fwd's stop, the caller makes sure that skipping the rest changes
+// no output); the default asks nothing.
+template <class F, class Stop = NoStop>
+__device__ __forceinline__ void walk_chunks_pair(const uint4* row, int len, int len_max, F&& f,
+                                                 Stop&& stop = Stop{}) {
   f(0, kBos);
+  if (stop(0)) return;
   const int nc = (len_max + 15) >> 4;  // the longer record's chunks
   const int own = (len + 15) >> 4;     // this half's
   uint4 nq = own > 0 ? __ldg(row) : make_uint4(0u, 0u, 0u, 0u);
@@ -221,9 +234,12 @@ __device__ __forceinline__ void walk_chunks_pair(const uint4* row, int len, int 
   for (int c = 0; c < nc; ++c) {
     const uint4 q = nq;
     if (own > 0) nq = __ldg(row + min(c + 1, own - 1));
-    chunk_up(q, 1 + 16 * c, min(16, len_max - 16 * c), [&](int t, int sym) {
-      f(t, t <= len ? sym : (t == len + 1 ? kEos : kDead));
-    });
+    if (chunk_up(
+            q, 1 + 16 * c, min(16, len_max - 16 * c),
+            [&](int t, int sym) { f(t, t <= len ? sym : (t == len + 1 ? kEos : kDead)); },
+            stop)) {
+      return;
+    }
   }
   f(len_max + 1, len_max == len ? kEos : kDead);
 }

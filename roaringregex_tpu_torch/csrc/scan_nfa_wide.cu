@@ -40,18 +40,20 @@
 // - One warp per record: lane l < W holds state word l in one register;
 //   lanes >= W hold zero and take part in every shuffle and vote. W is a
 //   runtime argument (one instantiation per kernel keeps nvcc's time short).
-// - The stats, anchor end and span kernels' step (Wide) walks the live
-//   states warp-uniformly: a ballot of the lanes with a live word, then for
-//   each such word w its bits broadcast by __shfl_sync, and for each set bit
-//   s lane l ORs row[s][l] from shared memory (consecutive lanes,
-//   consecutive words: no bank conflict). Every lane sees the same set bits,
-//   so the warp does not diverge; the cost is one shared load per live state
-//   and step, plus W-independent vote and mask work. The accept test is one
-//   __any_sync.
-// - Flags, reverse and reverse_mb run the band step (Band,
-//   scan_nfa_wide.cuh) on the record kernels' band splits (scan_pallas.
-//   with_band: the reverses keep every diagonal band_split finds, the flags
-//   one diagonal, else walk every edge): each kept diagonal moves the
+// - The anchor end and the lazy and greedy span kernels' step (Wide, the
+//   only kernels of this file still on it) walks the live states
+//   warp-uniformly: a ballot of the lanes with a live word, then for each
+//   such word w its bits broadcast by __shfl_sync, and for each set bit s
+//   lane l ORs row[s][l] from shared memory (consecutive lanes, consecutive
+//   words: no bank conflict). Every lane sees the same set bits, so the
+//   warp does not diverge; the cost is one shared load per live state and
+//   step, plus W-independent vote and mask work. The accept test is one
+//   __any_sync. Their bytes come one step at a time through Stream::sym.
+// - Stats, flags, reverse, reverse_mb and lazy_spans_mb run the band step
+//   (Band, scan_nfa_wide.cuh) on the record kernels' band splits
+//   (scan_pallas.with_band: the reverses keep every diagonal band_split
+//   finds; stats, flags and lazy_spans_mb read the record flags' split, one
+//   diagonal kept, else every edge walked): each kept diagonal moves the
 //   whole state set by two lane shuffles and a funnel shift whatever is
 //   live, the seed row is applied whole (forward: where the seed fires or
 //   state 0 is live; reverse: one vote, state 0 preceding the live states of
@@ -61,14 +63,15 @@
 //   (going forward it keeps one thread, walked); a keyword list
 //   with a `+` keeps only its word ends in the residual. Their bytes come off
 //   a 16-byte chunk in registers, the next chunk loaded one ahead
-//   (walk_chunks_pair up, walk_chunks_rev down). Flags at W <= 16 run two
-//   records a warp (G = 16 lanes each: the Wide walk's lanes 16-31 would hold
-//   zero words), walking to the longer record with each half's own EOS and
-//   dead steps after it, and skip the step to the seed row alone where the
-//   warp holds no live state (one vote: a chain's state set is empty on
-//   most steps). The band step takes ~48-64 registers, so one 1024-thread
-//   block an SM at every tile (the Wide walk's 32 fit two at W <= 16;
-//   PERF.md).
+//   (walk_chunks_pair and walk_chunks up, walk_chunks_rev down). Stats (one
+//   channel) and flags at W <= 16 run two records a warp (G = 16 lanes each:
+//   the Wide walk's lanes 16-31 would hold zero words), walking to the
+//   longer record with each half's own EOS and dead steps after it; the
+//   forward kernels skip the step to the seed alone where the warp holds no
+//   live state (one vote: a chain's state set is empty on most steps, a
+//   lazy span's from its end to the next claimed start). The band step takes
+//   ~48-64 registers, so one 1024-thread block an SM at every tile (the Wide
+//   walk's 32 fit two at W <= 16; PERF.md).
 // - Shared memory holds only the direction a kernel needs (follow for the
 //   Wide forward kernels, the residual follow or pred rows for the band
 //   step), the mask rows and the accept rows: at s_tile 1024, 128 KB + 33 KB,
@@ -83,11 +86,12 @@
 //   broadcast load). HBM carries one byte per step and 1 bit per step of
 //   flag or hit words; a pass is bound by the step's dependent chain of
 //   shuffles, shared loads and votes, and by integer issue.
-// - Stats with P > 1 accept channels: the union of the accept rows is tested
-//   every step; on a step where it fires the warp's state goes to a buffer
-//   in shared memory and lane c tests channels c, c+32, ... and updates
-//   their statistics in the output rows ([R][P], global memory). One channel
-//   (P = 1) keeps its statistics in registers, the same on every lane.
+// - Stats with P > 1 accept channels (32 lanes a record): the union of the
+//   accept rows is tested every step; on a step where it fires the warp's
+//   state goes to a buffer in shared memory and lane c tests channels c,
+//   c+32, ... and updates their statistics in the output rows ([R][P],
+//   global memory). One channel (P = 1) keeps its statistics in registers,
+//   the same on every lane of the record's half.
 // - The multi-channel span kernels (MultiPattern unions): the union of the
 //   accept rows (forward) or follow[0] (reverse: the union of the channels'
 //   sg rows, the band step's s0 vote) is tested every step; only where it
@@ -109,10 +113,10 @@ namespace {
 
 using namespace rrx;
 
-// A record's stream for the Wide kernels (stats, anchor end, lazy and greedy
-// spans, lazy_spans_mb), read in any order: step 0 is BOS, step t carries
-// byte t-1, step len+1 is EOS. The bytes are read 16 at a time (every lane
-// the same chunk), a chunk once for each run of steps inside it.
+// A record's stream for the Wide kernels (anchor end, lazy and greedy spans),
+// read in any order: step 0 is BOS, step t carries byte t-1, step len+1 is
+// EOS. The bytes are read 16 at a time (every lane the same chunk), a chunk
+// once for each run of steps inside it.
 struct Stream {
   const uint4* row;
   int len;
@@ -172,68 +176,6 @@ __device__ __forceinline__ int anchor_scan(const Wide& k, Stream& s, int st, boo
   return t < 0 ? -1 : min(t, len);
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-wide_stats_kernel(WIDE_PARAMS, int P, int seeded, int lead, int nullable,
-                  int32_t* __restrict__ cnt_o, int32_t* __restrict__ first_o,
-                  int32_t* __restrict__ last_o, uint8_t* __restrict__ full_o, int32_t* next) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const Wide k = load_wide(smem, tab_g, S, W, P, false);
-  const bool dedup = !(nullable && seeded);
-  WIDE_RECORDS {
-    uint32_t* buf = smem + static_cast<size_t>(S + kSyms + P) * W + warp * W;
-    Stream s = stream_of(data, stride, L, lengths, r);
-    const int len = s.len;
-    const long long base = static_cast<long long>(r) * P;
-    // one channel: registers (the same on every lane); P > 1: the output rows
-    int cnt = nullable ? (seeded ? len + 1 : 1) : 0;
-    int first = nullable ? 0 : -1;
-    int last = nullable ? (seeded ? len : 0) : -1;
-    bool full = nullable && len == 0;
-    if (P > 1) {
-      for (int c = lane; c < P; c += 32) {
-        cnt_o[base + c] = cnt;
-        first_o[base + c] = first;
-        last_o[base + c] = last;
-        full_o[base + c] = full ? 1 : 0;
-      }
-    }
-    uint32_t v = 0u;
-#pragma unroll 1
-    for (int t = 0; t <= len + 1; ++t) {
-      v = k.fwd(v, seeded || t < 2, s.sym(t));
-      if (t > lead && k.accepts(v)) {
-        const int e = min(t, len);
-        if (P == 1) {
-          cnt += (dedup && e != last) ? 1 : 0;
-          first = first < 0 ? e : first;
-          last = e;
-          full = full || t >= len;
-        } else {
-          if (k.on) buf[lane] = v;
-          __syncwarp();
-          for (int c = lane; c < P; c += 32) {
-            if (!k.channel_hit(buf, c)) continue;
-            const long long o = base + c;
-            if (dedup && e != last_o[o]) cnt_o[o] += 1;
-            if (first_o[o] < 0) first_o[o] = e;
-            last_o[o] = e;
-            if (t >= len) full_o[o] = 1;
-          }
-          __syncwarp();
-        }
-      }
-      // unseeded: past the last seed step an empty state set accepts nothing
-      if (!seeded && t >= 1 && empty(v)) break;
-    }
-    if (P == 1 && lane == 0) {
-      cnt_o[r] = cnt;
-      first_o[r] = first;
-      last_o[r] = last;
-      full_o[r] = full ? 1 : 0;
-    }
-  }
-}
-
 // The records of one warp on the band step: G = 32 lanes a record, or G = 16
 // and two records a warp (records 2 u and 2 u + 1, one a half), u taken from
 // the launch's counter. A half past the last record steps record R - 1 with
@@ -242,6 +184,96 @@ wide_stats_kernel(WIDE_PARAMS, int P, int seeded, int lead, int nullable,
   const int lane = threadIdx.x & 31;                                                     \
   for (int u = static_cast<int>(blockIdx.x) * kWideWarps + (threadIdx.x >> 5);           \
        u * (32 / (G)) < R; u = next_record(next, lane))
+
+// Match statistics on the band step (the record flags' band table, follow
+// direction, P accept rows: acc_l their union), G lanes a record: the flags
+// kernel's step, walk and skip. Each half keeps its record's cnt, first,
+// last and full in registers (P = 1, the same on each lane of the half;
+// lane j = 0 writes them after the walk); an accept counts at lead < t <=
+// len + 1 of the half's own record, so the dead steps past its EOS step
+// count nothing, and its state is cleared after every step from its EOS
+// step on, so that a finished record keeps neither the skip nor the stop
+// waiting (nor steps on the dead step's mask row). An unseeded scan stops
+// once t >= 1 and no lane of the warp holds a live state: past the last
+// seed step an empty set accepts nothing. P > 1 runs G = 32 only: on a
+// step where the union fires the warp's state goes to its buffer and lane
+// c tests channels c, c+32, ... and updates their rows ([R][P], global
+// memory).
+template <int G>
+__global__ void __launch_bounds__(kWideThreads)
+wide_stats_kernel(WIDE_PARAMS, int P, int seeded, int lead, int nullable,
+                  int32_t* __restrict__ cnt_o, int32_t* __restrict__ first_o,
+                  int32_t* __restrict__ last_o, uint8_t* __restrict__ full_o,
+                  const uint32_t* __restrict__ band_g, const Diags dg, int32_t* next) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Band<G> k = load_band<G>(smem, tab_g, band_g, dg, S, W, false, P);
+  const bool dedup = !(nullable && seeded);
+  const bool chans = G == 32 && P > 1;
+  const uint32_t* acc = k.mask + kSyms * W;  // the P accept rows
+  uint32_t* buf = smem + static_cast<size_t>(S + kSyms + P) * W + (threadIdx.x >> 5) * W;
+  BAND_RECORDS(G) {
+    const int r0 = u * (32 / G) + k.half;
+    const bool act = r0 < R;
+    const int r = act ? r0 : R - 1;
+    const Row rec = record(data, stride, L, lengths, r);
+    const int len = rec.len, eos = len + 1;
+    const int len_max = G == 32 ? len : max(len, __shfl_xor_sync(kFull, len, 16));
+    const long long base = static_cast<long long>(r) * P;
+    int cnt = nullable ? (seeded ? len + 1 : 1) : 0;
+    int first = nullable ? 0 : -1;
+    int last = nullable ? (seeded ? len : 0) : -1;
+    bool full = nullable && len == 0;
+    if (chans) {
+      for (int c = lane; c < P; c += 32) {
+        cnt_o[base + c] = cnt;
+        first_o[base + c] = first;
+        last_o[base + c] = last;
+        full_o[base + c] = full ? 1 : 0;
+      }
+    }
+    uint32_t v = 0u;
+    walk_chunks_pair(
+        rec.row, len, len_max,
+        [&](int t, int sym) {
+          const bool gate = seeded || t < 2;
+          if (__any_sync(kFull, v != 0u)) {
+            v = k.fwd(dg, v, gate || (k.enter0 && k.has0(v)), sym);
+          } else {
+            v = k.seed_only(gate ? k.seed_l : 0u, sym);
+          }
+          // every lane votes; the condition is warp-uniform at G = 32
+          if (k.accepts(v) && t > lead && t <= eos) {
+            const int e = min(t, len);
+            if (!chans) {
+              cnt += (dedup && e != last) ? 1 : 0;
+              first = first < 0 ? e : first;
+              last = e;
+              full = full || t >= len;
+            } else {
+              if (k.on) buf[lane] = v;
+              __syncwarp();
+              for (int c = lane; c < P; c += 32) {
+                if (!meets_row(buf, acc + c * W, W)) continue;
+                const long long o = base + c;
+                if (dedup && e != last_o[o]) cnt_o[o] += 1;
+                if (first_o[o] < 0) first_o[o] = e;
+                last_o[o] = e;
+                if (t >= len) full_o[o] = 1;
+              }
+              __syncwarp();
+            }
+          }
+          v = t >= eos ? 0u : v;
+        },
+        [&](int t) { return !seeded && t >= 1 && !__any_sync(kFull, v != 0u); });
+    if (!chans && act && k.j == 0) {
+      cnt_o[r] = cnt;
+      first_o[r] = first;
+      last_o[r] = last;
+      full_o[r] = full ? 1 : 0;
+    }
+  }
+}
 
 // Forward flags on the band step (the record flags' band table, follow
 // direction), G lanes a record. Both halves walk to the longer record
@@ -275,7 +307,7 @@ wide_flags_kernel(WIDE_PARAMS, int seeded, uint32_t* __restrict__ flags,
       if (__any_sync(kFull, v != 0u)) {
         v = k.fwd(dg, v, gate || (k.enter0 && k.has0(v)), sym);
       } else {
-        v = (gate ? k.seed_l : 0u) & k.mask[sym * W + k.col] & k.on_m;
+        v = k.seed_only(gate ? k.seed_l : 0u, sym);
       }
       const bool hit = k.accepts(v);  // every lane votes
       if (t <= eos) word |= (hit ? 1u : 0u) << (t & 31);
@@ -452,13 +484,6 @@ __device__ __forceinline__ const uint32_t* load_span(uint32_t* smem,
   return span;
 }
 
-// v & row != 0 for a state v of W words in shared memory.
-__device__ __forceinline__ bool meets_row(const uint32_t* v, const uint32_t* row, int W) {
-  uint32_t x = 0u;
-  for (int k = 0; k < W; ++k) x |= v[k] & row[k];
-  return x != 0u;
-}
-
 // hits: [P][Wh][R], channel p's block the single-channel layout. The band
 // step of wide_reverse_kernel (Band<32> on the tile's band table, pred
 // direction, P accept rows: acc_l their union), the bytes walked down by
@@ -542,11 +567,12 @@ __device__ __forceinline__ bool claim(Chan& ch, uint32_t hw, int t, int len) {
   return ch.cur >= 0 && (ch.cur == t - 1 || (ch.cur == 0 && t <= 1));
 }
 
-// Emits (cur, e) for a claimed channel whose accept row meets the state v
-// (W words in shared memory), e >= cur; returns whether it did.
-__device__ __forceinline__ bool emit(Chan& ch, const Wide& k, const uint32_t* v, int c, int e,
-                                     int cap, int32_t* so, int32_t* eo) {
-  if (ch.cur < 0 || e < ch.cur || !k.channel_hit(v, c)) return false;
+// Emits (cur, e) for a claimed channel c whose accept row (of the rows acc
+// [P][W]) meets the state v (W words in shared memory), e >= cur; returns
+// whether it did.
+__device__ __forceinline__ bool emit(Chan& ch, const uint32_t* acc, int W, const uint32_t* v,
+                                     int c, int e, int cap, int32_t* so, int32_t* eo) {
+  if (ch.cur < 0 || e < ch.cur || !meets_row(v, acc + c * W, W)) return false;
   if (ch.n < cap) {
     so[ch.n] = ch.cur;
     eo[ch.n] = e;
@@ -560,7 +586,7 @@ __device__ __forceinline__ bool emit(Chan& ch, const Wide& k, const uint32_t* v,
 // Lane l's word of the OR of row `which` (0: sg, 1: posm) of the channels
 // base + b for the set bits b of a warp ballot.
 __device__ __forceinline__ uint32_t or_rows(const uint32_t* span, unsigned bits, int base,
-                                            int which, const Wide& k) {
+                                            int which, const Band<32>& k) {
   uint32_t y = 0u;
   while (bits != 0u) {
     const int c = base + __ffs(bits) - 1;
@@ -571,31 +597,38 @@ __device__ __forceinline__ uint32_t or_rows(const uint32_t* span, unsigned bits,
 }
 
 // hits: [P][Wh][R] from rrx_nfa_wide_reverse_mb; starts, ends: [R][P][cap];
-// cnt: [R][P]; scratch: [R][P][2] when P > 32. One forward walk: every
-// channel claims, seeds and emits on its own hit words and in its own
-// position subspace; the seed of a step is the OR of the sg rows of the
-// channels that seed it (a ballot over the channel lanes); on a step where
-// the union of the accept rows fires, the state before any kill goes to the
-// warp's buffer, each lane tests its channels, and every emitting channel's
-// positions (posm_p) are cleared from the state. After the EOS step an idle
-// channel with pos <= len and hit bit len + 1 emits the empty match (len,
-// len), as rrx_nfa_lazy_spans_mb does.
+// cnt: [R][P]; scratch: [R][P][2] when P > 32. One forward walk on the band
+// step (Band<32> on the record flags' band table, P accept rows: acc_l their
+// union), the bytes by walk_chunks: every channel claims, seeds and emits on
+// its own hit words and in its own position subspace; the seed of a step is
+// the OR of the sg rows of the channels that seed it (a ballot over the
+// channel lanes), which the band step takes as its seed word. Where no lane
+// holds a live state the step is that seed alone, masked (no shifts, no
+// walk), and where no channel seeds either the state stays empty and the
+// accept vote is skipped: going forward a lazy span's set lives only from a
+// claimed start to its first end. On a step where the union of the accept
+// rows fires, the state before any kill goes to the warp's buffer, each
+// lane tests its channels, and every emitting channel's positions (posm_p)
+// are cleared from the state. After the EOS step an idle channel with pos
+// <= len and hit bit len + 1 emits the empty match (len, len), as
+// rrx_nfa_lazy_spans_mb does.
 __global__ void __launch_bounds__(kWideThreads)
 wide_lazy_spans_mb_kernel(WIDE_PARAMS, int P, const uint32_t* __restrict__ span_g,
                           const uint32_t* __restrict__ hits, int cap,
                           int32_t* __restrict__ starts_o, int32_t* __restrict__ ends_o,
                           int32_t* __restrict__ cnt_o, int32_t* __restrict__ scratch,
-                          int32_t* next) {
+                          const uint32_t* __restrict__ band_g, const Diags dg, int32_t* next) {
   extern __shared__ __align__(16) uint32_t smem[];
   const uint32_t* span = load_span(smem, span_g, S, W, P);
-  const Wide k = load_wide(smem, tab_g, S, W, P, false);
+  const Band<32> k = load_band<32>(smem, tab_g, band_g, dg, S, W, false, P);
+  const uint32_t* acc = k.mask + kSyms * W;  // the P accept rows
   const int Wh = (L + 2 + 31) >> 5;
   const size_t plane = static_cast<size_t>(Wh) * R;
   const int groups = (P + 31) >> 5;
   WIDE_RECORDS {
     uint32_t* buf = smem + static_cast<size_t>(S + kSyms + 3 * P) * W + warp * W;
-    Stream s = stream_of(data, stride, L, lengths, r);
-    const int len = s.len;
+    const Row rec = record(data, stride, L, lengths, r);
+    const int len = rec.len;
     const size_t row = static_cast<size_t>(r) * P;
     int32_t* scr = scratch + 2 * row;
     int32_t* cnt = cnt_o + row;
@@ -603,12 +636,12 @@ wide_lazy_spans_mb_kernel(WIDE_PARAMS, int P, const uint32_t* __restrict__ span_
     Chan ch{-1, 0, 0};             // channel `lane`
     for (int c = lane + 32; c < P; c += 32) store_chan(scr, cnt, c, Chan{-1, 0, 0});
     uint32_t hw = 0u, v = 0u;
-#pragma unroll 1
-    for (int t = 0; t <= len + 1; ++t) {
+    walk_chunks(rec.row, len, [&](int t, int sym) {
       const size_t at = static_cast<size_t>(t >> 5) * R + r;
       if ((t & 31) == 0 && lane < P) hw = __ldg(hits + lane * plane + at);
-      uint32_t seed = or_rows(span, __ballot_sync(kFull, lane < P && claim(ch, hw, t, len)), 0,
-                              0, k);
+      unsigned bits = __ballot_sync(kFull, lane < P && claim(ch, hw, t, len));
+      bool seeding = bits != 0u;
+      uint32_t seed = or_rows(span, bits, 0, 0, k);
       for (int g = 1; g < groups; ++g) {
         const int c = lane + 32 * g;
         bool sd = false;
@@ -618,31 +651,39 @@ wide_lazy_spans_mb_kernel(WIDE_PARAMS, int P, const uint32_t* __restrict__ span_
           sd = claim(cc, h, t, len);
           scr[2 * c] = cc.cur;
         }
-        seed |= or_rows(span, __ballot_sync(kFull, sd), 32 * g, 0, k);
+        bits = __ballot_sync(kFull, sd);
+        seeding = seeding || bits != 0u;
+        seed |= or_rows(span, bits, 32 * g, 0, k);
       }
-      v = (k.expand(v) | seed) & k.mask[s.sym(t) * W + k.col];
-      if (!k.accepts(v)) continue;
+      if (__any_sync(kFull, v != 0u)) {
+        v = k.fwd_word(dg, v, seed | (k.enter0 && k.has0(v) ? k.seed_l : 0u), sym);
+      } else if (seeding) {
+        v = k.seed_only(seed, sym);
+      } else {
+        return;  // v stays empty
+      }
+      if (!k.accepts(v)) return;
       const int e = min(t, len);
       if (k.on) buf[lane] = v;  // the accept tests read the state before this step's kills
       __syncwarp();
-      uint32_t kill = or_rows(
-          span,
-          __ballot_sync(kFull, lane < P && emit(ch, k, buf, lane, e, cap, starts_o + out + lane * cap,
-                                                ends_o + out + lane * cap)),
-          0, 1, k);
+      uint32_t kill = or_rows(span,
+                              __ballot_sync(kFull, lane < P && emit(ch, acc, W, buf, lane, e, cap,
+                                                                    starts_o + out + lane * cap,
+                                                                    ends_o + out + lane * cap)),
+                              0, 1, k);
       for (int g = 1; g < groups; ++g) {
         const int c = lane + 32 * g;
         bool em = false;
         if (c < P) {
           Chan cc = load_chan(scr, cnt, c);
-          em = emit(cc, k, buf, c, e, cap, starts_o + out + c * cap, ends_o + out + c * cap);
+          em = emit(cc, acc, W, buf, c, e, cap, starts_o + out + c * cap, ends_o + out + c * cap);
           if (em) store_chan(scr, cnt, c, cc);
         }
         kill |= or_rows(span, __ballot_sync(kFull, em), 32 * g, 1, k);
       }
       __syncwarp();
       v &= ~kill;
-    }
+    });
     // per channel, the empty match at len after a span that ended at the
     // EOS step (see rrx_nfa_lazy_spans_mb)
     const size_t at_eos = static_cast<size_t>((len + 1) >> 5) * R + r;
@@ -692,16 +733,31 @@ extern "C" {
 // warps take work from, and the stream.
 //
 // P accept rows in the table; cnt, first, last: [R][P] int32; full: [R][P]
-// uint8; lead < 0 = no lead.
+// uint8; lead < 0 = no lead; then the record flags' band table, its offsets
+// (as rrx_nfa_wide_flags takes them) and the lanes a record: 32, or 16 (two
+// records a warp; W <= 16 and P = 1)
 int rrx_nfa_wide_stats(RRX_WIDE_HEAD, int P, int seeded, int lead, int nullable, void* cnt,
-                       void* first, void* last, void* full, void* next, void* stream) {
-  const int bad = check_wide(data, stride, L, R, s_tile, P);
+                       void* first, void* last, void* full, const void* band, int nd,
+                       const int* offsets, int lanes, void* next, void* stream) {
+  Diags dg;
+  int bad = check_wide(data, stride, L, R, s_tile, P);
+  if (bad == 0) bad = check_band(band, lanes, s_tile);
+  if (bad == 0 && lanes == 16 && P > 1) bad = static_cast<int>(cudaErrorInvalidValue);
+  if (bad == 0) bad = band_diags(nd, offsets, false, s_tile, &dg);
   if (bad != 0) return bad;
-  return launch_wide(wide_stats_kernel, R, wide_smem_bytes(s_tile, words_of(s_tile), P, P > 1),
-                     stream, RRX_WIDE_ARGS, P, seeded, lead, nullable,
-                     static_cast<int32_t*>(cnt), static_cast<int32_t*>(first),
-                     static_cast<int32_t*>(last), static_cast<uint8_t*>(full),
-                     static_cast<int32_t*>(next));
+  const size_t smem = wide_smem_bytes(s_tile, words_of(s_tile), P, P > 1);
+  auto* c = static_cast<int32_t*>(cnt);
+  auto* f = static_cast<int32_t*>(first);
+  auto* l = static_cast<int32_t*>(last);
+  auto* u = static_cast<uint8_t*>(full);
+  const auto* b = static_cast<const uint32_t*>(band);
+  auto* nx = static_cast<int32_t*>(next);
+  if (lanes == 16) {
+    return launch_wide(wide_stats_kernel<16>, (R + 1) / 2, smem, stream, RRX_WIDE_ARGS, P, seeded,
+                       lead, nullable, c, f, l, u, b, dg, nx);
+  }
+  return launch_wide(wide_stats_kernel<32>, R, smem, stream, RRX_WIDE_ARGS, P, seeded, lead,
+                     nullable, c, f, l, u, b, dg, nx);
 }
 
 // flags: [ceil((L+2)/32)][R] uint32, bit t = step t's accept flag; then the
@@ -796,38 +852,47 @@ int rrx_nfa_wide_reverse_mb(RRX_WIDE_HEAD, int P, const void* span, void* hits, 
 }
 
 // hits from rrx_nfa_wide_reverse_mb; starts, ends: [R][P][cap] int32; cnt:
-// [R][P] int32; scratch: [R][P][2] int32 when P > 32 (else unread)
+// [R][P] int32; scratch: [R][P][2] int32 when P > 32 (else unread); then the
+// record flags' band table, its offsets (as rrx_nfa_wide_flags takes them)
+// and the lanes a record (32)
 int rrx_nfa_wide_lazy_spans_mb(RRX_WIDE_HEAD, int P, const void* span, const void* hits, int cap,
-                               void* starts, void* ends, void* cnt, void* scratch, void* next,
-                               void* stream) {
-  const int bad = check_wide(data, stride, L, R, s_tile, P);
+                               void* starts, void* ends, void* cnt, void* scratch,
+                               const void* band, int nd, const int* offsets, int lanes,
+                               void* next, void* stream) {
+  Diags dg;
+  int bad = check_wide(data, stride, L, R, s_tile, P);
+  if (bad == 0) bad = check_band(band, 32, s_tile);
+  if (bad == 0 && (cap < 1 || lanes != 32)) bad = static_cast<int>(cudaErrorInvalidValue);
+  if (bad == 0) bad = band_diags(nd, offsets, false, s_tile, &dg);
   if (bad != 0) return bad;
-  if (cap < 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_wide(wide_lazy_spans_mb_kernel, R,
                      wide_mb_smem_bytes(s_tile, words_of(s_tile), P), stream, RRX_WIDE_ARGS, P,
                      static_cast<const uint32_t*>(span), static_cast<const uint32_t*>(hits), cap,
                      static_cast<int32_t*>(starts), static_cast<int32_t*>(ends),
                      static_cast<int32_t*>(cnt), static_cast<int32_t*>(scratch),
-                     static_cast<int32_t*>(next));
+                     static_cast<const uint32_t*>(band), dg, static_cast<int32_t*>(next));
 }
 
 // Resident blocks per SM (theoretical occupancy) of a wide kernel for a tile
-// of s_tile states and P accept rows, by index: 0 stats, 1 reverse (the
-// band step), 2 anchor end, 3 lazy spans, 4 greedy spans, 5 flags (the band
-// step, two records a warp for W <= 16) (rrx_occupancy's order), then the
-// multi-channel kernels: 6 reverse_mb (the band step), 7 lazy_spans_mb; 8
-// flags at 32 lanes a record.
+// of s_tile states and P accept rows, by index: 0 stats (the band step, two
+// records a warp for W <= 16 and P = 1), 1 reverse (the band step), 2 anchor
+// end, 3 lazy spans, 4 greedy spans, 5 flags (the band step, two records a
+// warp for W <= 16) (rrx_occupancy's order), then the multi-channel kernels:
+// 6 reverse_mb, 7 lazy_spans_mb (both the band step); 8 flags and 9 stats at
+// 32 lanes a record.
 int rrx_nfa_wide_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm) {
   if (s_tile < kMinTile || s_tile > kMaxTile || P < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int W = words_of(s_tile);
+  const bool stats = kernel == 0 || kernel == 9;
   const size_t smem = kernel == 6 || kernel == 7
-                           ? wide_mb_smem_bytes(s_tile, W, P)
-                           : wide_smem_bytes(s_tile, W, kernel == 0 ? P : 1, kernel == 0 && P > 1);
+                          ? wide_mb_smem_bytes(s_tile, W, P)
+                          : wide_smem_bytes(s_tile, W, stats ? P : 1, stats && P > 1);
   switch (kernel) {
     case 0:
-      return occupancy_wide(wide_stats_kernel, smem, blocks_per_sm);
+      return W <= 16 && P == 1 ? occupancy_wide(wide_stats_kernel<16>, smem, blocks_per_sm)
+                               : occupancy_wide(wide_stats_kernel<32>, smem, blocks_per_sm);
     case 1:
       return occupancy_wide(wide_reverse_kernel, smem, blocks_per_sm);
     case 2:
@@ -845,6 +910,8 @@ int rrx_nfa_wide_occupancy(int kernel, int s_tile, int P, int* blocks_per_sm) {
       return occupancy_wide(wide_lazy_spans_mb_kernel, smem, blocks_per_sm);
     case 8:
       return occupancy_wide(wide_flags_kernel<32>, smem, blocks_per_sm);
+    case 9:
+      return occupancy_wide(wide_stats_kernel<32>, smem, blocks_per_sm);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,17 +1,17 @@
 // The warp steps of the matmul tier at record tiles of 257..1024 states
-// (W = ceil(s_tile/32) = 12..32 state words). Wide is the step of
-// scan_nfa_wide.cu's stats, anchor end, lazy and greedy spans and
-// lazy_spans_mb kernels (one warp per record), of scan_long_wide.cu's carry
-// (one warp per window of one long string) and of scan_stream.cu (one warp
-// per record fed a mask stream, each lane its word of the step's mask row):
-// lane l holds state word l, lanes >= W hold zero and join every vote; the
-// live states are walked warp-uniformly (a ballot of the live words, a
-// __shfl_sync of each, one shared-row load and OR per live state), then the
-// mask AND; the accept test is one __any_sync. Shared memory holds one
-// direction's rows (follow or pred), the mask rows and the accept rows of
-// the table of scan_pallas.nfa_tables. Band (below) is the step of
-// scan_long_wide.cu's flags, count and reverse and of scan_nfa_wide.cu's
-// flags, reverse and reverse_mb: the diagonals of the follow matrix as lane
+// (W = ceil(s_tile/32) = 12..32 state words). Wide is the step of the
+// kernels still on it: scan_nfa_wide.cu's anchor end, lazy and greedy spans
+// (one warp per record), scan_long_wide.cu's carry (one warp per window of
+// one long string) and scan_stream.cu (one warp per record fed a mask
+// stream, each lane its word of the step's mask row): lane l holds state
+// word l, lanes >= W hold zero and join every vote; the live states are
+// walked warp-uniformly (a ballot of the live words, a __shfl_sync of each,
+// one shared-row load and OR per live state), then the mask AND; the accept
+// test is one __any_sync. Shared memory holds one direction's rows (follow
+// or pred), the mask rows and the accept rows of the table of
+// scan_pallas.nfa_tables. Band (below) is the step of scan_long_wide.cu's
+// flags, count and reverse and of scan_nfa_wide.cu's stats, flags, reverse,
+// reverse_mb and lazy_spans_mb: the diagonals of the follow matrix as lane
 // shifts, only the other edges walked. The launchers run persistent blocks
 // of kWideWarps warps (no more blocks than are resident at once).
 #pragma once
@@ -38,9 +38,10 @@ inline size_t wide_smem_bytes(int S, int W, int P, bool bufs) {
   return sizeof(uint32_t) * (rows + (bufs ? static_cast<size_t>(kWideWarps) * W : 0));
 }
 
-// One record tile as a warp steps it: the rows in shared memory, and this
-// lane's word of the seed row (follow[0]) and of the union of the accept
-// rows (zero for lanes >= W).
+// One record tile as a warp steps it on the Wide walk (anchor end, lazy and
+// greedy spans, the long carry and scan_stream.cu's kernels): the rows in
+// shared memory, and this lane's word of the seed row (follow[0]) and of
+// the union of the accept rows (zero for lanes >= W).
 struct Wide {
   const uint32_t* rows;  // [S][W]: follow, or pred for the reverse kernel
   const uint32_t* mask;  // [kSyms][W]
@@ -91,13 +92,21 @@ struct Wide {
 
   // v & acc[c] != 0 for the state v (W words in shared memory) and accept
   // channel c.
-  __device__ __forceinline__ bool channel_hit(const uint32_t* v, int c) const {
-    const uint32_t* a = acc + c * W;
-    uint32_t x = 0u;
-    for (int k = 0; k < W; ++k) x |= v[k] & a[k];
-    return x != 0u;
-  }
+  __device__ __forceinline__ bool channel_hit(const uint32_t* v, int c) const;
 };
+
+// v & row != 0 for a state v of W words in shared memory and a row of W
+// words (an accept channel's row: Wide::channel_hit and the band-step
+// kernels' channel tests; a span channel's sg row).
+__device__ __forceinline__ bool meets_row(const uint32_t* v, const uint32_t* row, int W) {
+  uint32_t x = 0u;
+  for (int k = 0; k < W; ++k) x |= v[k] & row[k];
+  return x != 0u;
+}
+
+__device__ __forceinline__ bool Wide::channel_hit(const uint32_t* v, int c) const {
+  return meets_row(v, acc + c * W, W);
+}
 
 __device__ __forceinline__ bool empty(uint32_t v) { return !__any_sync(kFull, v != 0u); }
 
@@ -129,7 +138,8 @@ __device__ __forceinline__ Wide load_wide(uint32_t* smem, const uint32_t* __rest
 }
 
 // The band step (scan_long_wide.cu's flags, count and reverse, and
-// scan_nfa_wide.cu's flags, reverse and reverse_mb over records). The tile's
+// scan_nfa_wide.cu's stats, flags, reverse, reverse_mb and lazy_spans_mb
+// over records). The tile's
 // follow matrix is split (scan_pallas.band_split) into at most kMaxDiags kept
 // diagonals, edges s -> s + d for the s of a source mask D_d, and a residual.
 // A diagonal is a shift of the whole state set: a warp moves its words d / 32
@@ -258,14 +268,28 @@ struct Band {
     return (__shfl_sync(kFull, v, 0, G) & 1u) != 0u;
   }
 
-  // v = (OR of follow[s] over s in v | seed ? follow[0] : 0) & mask[sym],
-  // seed set where the seed fires or state 0 is in v: v shifted by each
-  // offset onto the diagonal's destinations, the residual (rows s >= 1) walked
-  __device__ __forceinline__ uint32_t fwd(const Diags& dg, uint32_t v, bool seed, int sym) const {
+  // v = (sw | OR of follow[s] over s in v, s >= 1) & mask[sym], sw this
+  // lane's word of the step's seed (zero past W): v shifted by each offset
+  // onto the diagonal's destinations, the residual (rows s >= 1) walked. The
+  // caller puts follow[0] into sw where state 0 is in v (enter0 and has0).
+  __device__ __forceinline__ uint32_t fwd_word(const Diags& dg, uint32_t v, uint32_t sw,
+                                               int sym) const {
     const uint32_t m = mask[sym * W + col] & on_m;
-    uint32_t y = (seed ? seed_l : 0u) | diagonals(dg, v);
+    uint32_t y = sw | diagonals(dg, v);
     if (walk) y |= walk_rows(v & res_l);
     return y & m;
+  }
+
+  // v = (OR of follow[s] over s in v | seed ? follow[0] : 0) & mask[sym],
+  // seed set where the seed fires or state 0 is in v
+  __device__ __forceinline__ uint32_t fwd(const Diags& dg, uint32_t v, bool seed, int sym) const {
+    return fwd_word(dg, v, seed ? seed_l : 0u, sym);
+  }
+
+  // The step where no lane of the warp holds a live state: the seed word
+  // alone (zero past W), masked
+  __device__ __forceinline__ uint32_t seed_only(uint32_t sw, int sym) const {
+    return sw & mask[sym * W + col] & on_m;
   }
 
   // The reverse step's input x = (R | acc) & mask[sym] (r and acc_l are 0

@@ -115,7 +115,9 @@ ARGTYPES = {
     # states): scan_nfa.cu's arguments, then the record counter (next);
     # rrx_nfa_wide_occupancy's index is rrx_occupancy's (stats, reverse,
     # anchor end, lazy spans, greedy spans, flags)
-    "rrx_nfa_wide_stats": _NFA_HEAD + [_I] + _STATS_TAIL + [_P, _P],  # P, stats, next
+    # P, stats, then the band table, its offsets and the lanes a record (the
+    # band step), next; occupancy index 0 at the tile's lanes, 9 at 32
+    "rrx_nfa_wide_stats": _NFA_HEAD + [_I] + _STATS_TAIL + _BAND + [_P, _P],
     # hits, then the band table, its offset count and the offsets (the band
     # step), next
     "rrx_nfa_wide_reverse": _NFA_HEAD + [_P, _P, _I, _P, _P, _P],
@@ -132,8 +134,10 @@ ARGTYPES = {
     # indices 6 and 7 of rrx_nfa_wide_occupancy
     # P, span, hits, then the band table and its offsets (the band step), next
     "rrx_nfa_wide_reverse_mb": _NFA_HEAD + [_I, _P, _P] + _BAND[:3] + [_P, _P],
-    # P, span, hits, cap, starts, ends, cnt, scratch, next
-    "rrx_nfa_wide_lazy_spans_mb": _NFA_HEAD + [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    # P, span, hits, cap, starts, ends, cnt, scratch, then the band table,
+    # its offsets and the lanes a record (32), next
+    "rrx_nfa_wide_lazy_spans_mb": _NFA_HEAD + [_I, _P, _P, _I, _P, _P, _P, _P] + _BAND
+    + [_P, _P],
     # one long string's windows at tiles of 257..1024 states
     # (scan_long_wide.cu): the arguments of the rrx_long_* kernels, in
     # rrx_long_wide_occupancy's order

@@ -368,10 +368,11 @@ def with_band(tables: NfaTables, max_diags: int | None = None, *, rows=None) -> 
     """``tables`` with the band splits of its follow rows on their device
     (``rows``: the host rows of ``nfa_tables``, else read back from the
     device), for the wide window kernels' flags, count and reverse and the
-    wide record kernels' flags, reverse and reverse_mb (tiles past
-    ``REG_S_TILE`` states). A tile of at most 16 state words runs two
-    windows a warp, one on each half, and so do the record flags (the
-    record reverses: one record a warp).
+    wide record kernels' stats, flags, reverse, reverse_mb and
+    lazy_spans_mb (tiles past ``REG_S_TILE`` states). A tile of at most 16
+    state words runs two windows a warp, one on each half, and so do the
+    record flags and the one-channel record stats (the record reverses and
+    the multi-channel kernels: one record a warp).
 
     ``max_diags`` None: the window kernels keep the diagonals of
     ``band_split`` where they carry at least half the edges outside the
@@ -387,8 +388,9 @@ def with_band(tables: NfaTables, max_diags: int | None = None, *, rows=None) -> 
     (keyword lists, runs: K60+'s flags 2.1x faster with it) and walk every
     edge where it is several (the copies of a counted repetition: the
     forward set of x(ab|c){300,}y is one thread through them, which is
-    cheaper to walk than four diagonals are to shift; ``PERF.md``). An int
-    forces that split on all three.
+    cheaper to walk than four diagonals are to shift; ``PERF.md``); the
+    record stats and lazy_spans_mb, which step forward as the flags do,
+    read the flags' split. An int forces that split on all three.
 
     The record reverse ends each record at its EOS step, where the plain
     reverse walks on over the dead steps past it: ``dead_row`` records
@@ -697,21 +699,21 @@ def _check_dead_row(entry: str, tables: NfaTables) -> None:
 
 
 def _run(name: str, wrapper, data, lengths, tables: NfaTables, *tail,
-         channels: bool = False, band: str = "") -> None:
+         channels: bool = False, band: str = "", lanes: int = 0) -> None:
     """Launch ``rrx_nfa_<name>`` for a tile of up to ``REG_S_TILE`` states
     (counted in ``wrapper.launches``, or with ``channels`` in
     ``wrapper.channel_launches``) or ``rrx_nfa_wide_<name>`` for 257..1024
     states (one warp per record, counted in ``wrapper.wide_launches``),
     which also takes its record counter and, on the band step, a band split
     before it: with ``band="rec"`` the record reverses' (``rec_band``), with
-    ``band="fwd"`` the record flags' (``fwd_band``) and the lanes a
-    record."""
+    ``band="fwd"`` the record flags' (``fwd_band``) and the lanes a record
+    (``lanes``, else the tables' ``band_lanes``)."""
     if tables.s_tile > REG_S_TILE:
         if band:
             tail += _band_tail(f"rrx_nfa_wide_{name}", getattr(tables, f"{band}_band"),
                                getattr(tables, f"{band}_diags"), tables.s_tile)
         if band == "fwd":
-            tail += (int(tables.band_lanes),)
+            tail += (int(lanes or tables.band_lanes),)
         nxt = torch.zeros(1, dtype=torch.int32, device=data.device)
         _launch(f"rrx_nfa_wide_{name}", data, lengths, tables, *tail, nxt)
         wrapper.wide_launches += 1
@@ -741,8 +743,10 @@ def nfa_stats(data, lengths, tables: NfaTables, *, seeded: bool, lead: int = 0,
     channels, else [R]. On a CUDA tensor ``rrx_nfa_stats`` (counted in
     ``nfa_stats.launches``, or in ``nfa_stats.channel_launches`` for its
     P-channel kernel, P > 1) or, past 256 states, ``rrx_nfa_wide_stats``
-    (any P, counted in ``nfa_stats.wide_launches``); :func:`stats_plain` on
-    a CPU tensor."""
+    (any P, counted in ``nfa_stats.wide_launches``) on the tables' record
+    flags' band split (``fwd_band``, ``fwd_diags``) at ``band_lanes`` lanes
+    a record for one channel, 32 for P > 1; :func:`stats_plain` on a CPU
+    tensor. Past 256 states it refuses tables without that split."""
     if data.device.type == "cpu":
         return stats_plain(data, lengths, tables, seeded=seeded, lead=lead, nullable=nullable)
     R, dev = data.shape[0], data.device
@@ -750,7 +754,8 @@ def nfa_stats(data, lengths, tables: NfaTables, *, seeded: bool, lead: int = 0,
     outs = [torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3)]
     full = torch.empty(shape, dtype=torch.uint8, device=dev)
     _run("stats", nfa_stats, data, lengths, tables, int(tables.P), int(seeded),
-         int(lead if lead > 0 else -1), int(nullable), *outs, full, channels=tables.P > 1)
+         int(lead if lead > 0 else -1), int(nullable), *outs, full, channels=tables.P > 1,
+         band="fwd", lanes=32 if tables.P > 1 else 0)
     return (*outs, full.view(torch.bool))
 
 
@@ -851,12 +856,13 @@ def nfa_lazy_spans_mb(data, lengths, tables: NfaTables, span: torch.Tensor, hits
     """(starts [R, P, cap], ends [R, P, cap], cnt [R, P]): every channel's
     lazy spans from one forward pass (``rrx_nfa_lazy_spans_mb``, counted in
     ``nfa_lazy_spans_mb.launches``, or past 256 states
-    ``rrx_nfa_wide_lazy_spans_mb``, counted in
-    ``nfa_lazy_spans_mb.wide_launches``, on a CUDA tensor;
-    :func:`lazy_spans_mb_plain` on a CPU tensor). Above ``MB_REG_CHANNELS``
-    channels (``WIDE_REG_CHANNELS`` for the wide kernel) the kernel keeps
-    each record's (cur, pos) per channel in a scratch row [R, P, 2]
-    allocated here."""
+    ``rrx_nfa_wide_lazy_spans_mb`` on the tables' record flags' band split
+    at 32 lanes a record, counted in ``nfa_lazy_spans_mb.wide_launches``,
+    on a CUDA tensor; :func:`lazy_spans_mb_plain` on a CPU tensor). Above
+    ``MB_REG_CHANNELS`` channels (``WIDE_REG_CHANNELS`` for the wide
+    kernel) the kernel keeps each record's (cur, pos) per channel in a
+    scratch row [R, P, 2] allocated here. Past 256 states it refuses tables
+    without the split."""
     if data.device.type == "cpu":
         return lazy_spans_mb_plain(data, lengths, tables, span, hits, cap)
     _check_span(tables, span, data)
@@ -871,7 +877,7 @@ def nfa_lazy_spans_mb(data, lengths, tables: NfaTables, span: torch.Tensor, hits
     in_regs = WIDE_REG_CHANNELS if tables.s_tile > REG_S_TILE else MB_REG_CHANNELS
     scratch = torch.empty((R, P, 2) if P > in_regs else (1,), dtype=torch.int32, device=dev)
     _run("lazy_spans_mb", nfa_lazy_spans_mb, data, lengths, tables, int(P), span.contiguous(),
-         hits.contiguous(), int(cap), starts, ends, cnt, scratch)
+         hits.contiguous(), int(cap), starts, ends, cnt, scratch, band="fwd", lanes=32)
     return starts, ends, cnt
 
 

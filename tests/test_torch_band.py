@@ -1,7 +1,7 @@
 """The band split of a wide tile (``scan_pallas.band_split``) and the band
 step that the wide window kernels' flags, count and reverse and the wide
-record reverse run on it (``csrc/scan_nfa_wide.cuh`` ``Band``), numpy and
-torch only, on the CPU.
+record kernels (stats, flags, reverse, reverse_mb, lazy_spans_mb) run on it
+(``csrc/scan_nfa_wide.cuh`` ``Band``), numpy and torch only, on the CPU.
 
 - The split is an exact partition of the follow matrix: every edge lies on
   one kept diagonal or in the residual rows, no bit at or past S is set,
@@ -43,6 +43,21 @@ torch only, on the CPU.
   of K40+, cat|dog and [0-9]{3}, its `$` form and 40 channels on K40+'s
   tile. ``nfa_flags`` and ``nfa_reverse_mb`` hand the kernels the record
   split, its offsets and (flags) the lanes a record past 256 states.
+- The record stats on the band step (``rrx_nfa_wide_stats``: the flags'
+  split, walker, step and skip): a record-level model (the statistics of
+  each half in registers, an accept counted only up to the half's own EOS
+  step and its state cleared from there, the unseeded stop once the warp
+  holds no live state) equals ``stats_plain`` seeded and unseeded, with
+  lead 0 and 3, nullable and not, on the flags' tiles and pairs, in both
+  splits and at both lane counts; with P channels (32 lanes a record, the
+  channels tested where the union fires) on the P = 3 union, its `$` form
+  and 40 channels. The multi-channel lazy spans on the band step
+  (``rrx_nfa_wide_lazy_spans_mb``: the channels' seed words into the
+  step, the step skipped while the state is empty and no channel seeds)
+  equal ``lazy_spans_mb_plain`` on the same three channel sets at caps 1,
+  2 and 16, in both splits. ``nfa_stats`` and ``nfa_lazy_spans_mb`` hand
+  the kernels the record flags' split, its offsets and the lanes a record
+  (32 for P > 1) past 256 states, and refuse tables without it.
 
 Every comparison is exact.
 """
@@ -323,8 +338,14 @@ class _Model:
     def fwd_seeded(self, v, seed, syms):
         """``fwd`` with the seed row applied to the windows where ``seed``
         is set (``Band::fwd``'s seed argument)."""
+        return self.fwd_word(v, [self.seed if f else np.zeros(self.W, np.uint64) for f in seed],
+                             syms)
+
+    def fwd_word(self, v, seed_words, syms):
+        """The step with a seed word per window (``Band::fwd_word``): the
+        seed words, the diagonals, the residual rows s >= 1 walked."""
         xs = self.lanes(v)
-        y = self.lanes([self.seed if f else np.zeros(self.W, np.uint64) for f in seed])
+        y = self.lanes(seed_words)
         for row, q, r, up in _diags(self.offsets, False):  # shifted, then the destinations
             y |= (_up(xs, q, r, self.G) if up else _down(xs, q, r, self.G)) \
                 & self.per_lane(self.dm[1, row])
@@ -977,3 +998,351 @@ def test_nfa_reverse_mb_passes_the_band(which, monkeypatch):
     with pytest.raises(ValueError, match="dead step's mask row"):
         spl.nfa_reverse_mb(data, lengths, tables._replace(dead_row=True), span_m)
     assert len(calls) == 1 and spl.nfa_reverse_mb.wide_launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The record stats and the multi-channel lazy spans on the band step
+# (rrx_nfa_wide_stats, rrx_nfa_wide_lazy_spans_mb)
+# ---------------------------------------------------------------------------
+
+
+def _acc_rows(tables: spl.NfaTables) -> np.ndarray:
+    """[P, W] the tile's accept rows."""
+    W = spl._words(tables.s_tile)
+    tab = tables.tab.numpy().view(np.uint32).astype(np.uint64).reshape(-1, W)
+    return tab[2 * tables.s_tile + spl.N_SYMS:]
+
+
+def _stats_walk(tables: spl.NfaTables, data: np.ndarray, lengths: np.ndarray, G: int,
+                seeded: bool):
+    """The walk of ``wide_stats_kernel<G>`` on the model: 32 // G records a
+    warp on the record flags' split, both walked to the longer one by
+    ``walk_chunks_pair``; the step skipped to the seed row alone where no
+    window holds a live state; a window's state cleared after every step
+    from its EOS step on; an unseeded walk stopped after a step t >= 1
+    (not the last) where no window holds a live state. Per record and
+    accept channel, the (t, e = min(t, len)) of every step t <= len + 1
+    whose state meets the channel's accept row, in order (P > 1: the union
+    fires first, then each channel is tested); its statistics are a fold
+    over them (:func:`_stats_fold`). A half past the last record steps
+    record R - 1 and keeps nothing. Returns (hits [R][P] lists, steps
+    skipped, steps taken, walks stopped early)."""
+    model = _Model(tables._replace(band=tables.fwd_band, diags=tables.fwd_diags), G)
+    accs = _acc_rows(tables)
+    R, L = data.shape
+    rows = np.zeros((R, ((L + 15) // 16) * 16), np.uint8)
+    rows[:, :L] = data
+    npair = 32 // G
+    hits = [[[] for _ in range(len(accs))] for _ in range(R)]
+    skipped = taken = stopped = 0
+    for u in range(-(-R // npair)):
+        rs = [u * npair + h for h in range(npair)]
+        act = [r < R for r in rs]
+        rs = [r if a else R - 1 for r, a in zip(rs, act)]
+        ns = [int(min(max(lengths[r], 0), L)) for r in rs]
+        n_max = max(ns)
+        walks = [list(_walk_chunks_pair(rows[r], n, n_max)) for r, n in zip(rs, ns)]
+        v = np.zeros((npair, model.W), np.uint64)
+        for i in range(n_max + 2):
+            t = walks[0][i][0]
+            syms = [w[i][1] for w in walks]
+            gate = seeded or t < 2
+            if v.any():
+                seed = [gate or (model.enter0 and bool(wd[0] & np.uint64(1))) for wd in v]
+                v = model.fwd_seeded(v, seed, syms)
+                taken += 1
+            else:
+                v = np.stack([(model.seed if gate else np.zeros(model.W, np.uint64))
+                              & model.mask[sym] for sym in syms])
+                skipped += 1
+            for h, r in enumerate(rs):
+                if t <= ns[h] + 1 and (v[h] & model.acc).any() and act[h]:
+                    for c, a in enumerate(accs):
+                        if (v[h] & a).any():
+                            hits[r][c].append((t, min(t, ns[h])))
+                if t >= ns[h] + 1:
+                    v[h] = 0
+            if i < n_max + 1 and not seeded and t >= 1 and not v.any():
+                stopped += 1
+                break
+    return hits, skipped, taken, stopped
+
+
+def _stats_fold(hits, lengths, L: int, *, seeded: bool, lead: int, nullable: bool, channels):
+    """The kernel's statistics from ``_stats_walk``'s hits: an accept counts
+    at t > lead; cnt counts ends that differ from the last one (none for a
+    nullable seeded scan, whose cnt is len + 1 from the start), first keeps
+    the first end, last the latest, full an accept at t >= len; the
+    nullable starts as ``stats_plain`` states them."""
+    lead = lead if lead > 0 else -1
+    R, P = len(hits), len(hits[0])
+    out = np.zeros((4, R, P), np.int64)
+    for r in range(R):
+        n = int(min(max(lengths[r], 0), L))
+        for c in range(P):
+            cnt = (n + 1 if seeded else 1) if nullable else 0
+            first = 0 if nullable else -1
+            last = (n if seeded else 0) if nullable else -1
+            full = nullable and n == 0
+            for t, e in hits[r][c]:
+                if t <= lead:
+                    continue
+                cnt += int(not (nullable and seeded) and e != last)
+                first = e if first < 0 else first
+                last = e
+                full = full or t >= n
+            out[:, r, c] = (cnt, first, last, full)
+    got = [torch.from_numpy(x).to(torch.int32) for x in out[:3]] + [torch.from_numpy(out[3] != 0)]
+    return tuple(got) if channels else tuple(x[:, 0].contiguous() for x in got)
+
+
+# (seeded, lead, nullable): lead 0 and 3, nullable and not, the `$` dedup
+# off only in a nullable seeded scan
+STATS_FORMS = [(True, 0, False), (True, 3, True), (False, 3, False), (False, 0, True)]
+
+
+@pytest.mark.parametrize("keep", [True, False], ids=["diagonals", "walk-all"])
+@pytest.mark.parametrize("name,S,residual,G", FLAG_CASES,
+                         ids=[f"{n or f'planted{S}' + ('' if r else '-seed-row')}-G{G}"
+                              for n, S, r, G in FLAG_CASES])
+def test_record_stats_model_matches_plain(name, S, residual, G, keep):
+    """The record stats on the band step (the flags' walker, step and skip;
+    the statistics of each half in registers; an accept counted only up to
+    the half's own EOS step, its state cleared from there; the unseeded
+    stop once the warp holds no live state) equal ``stats_plain``, seeded
+    and unseeded, with lead 0 and 3, nullable and not, on x(ab|c){300,}y,
+    K60+, planted tiles with a residual or the seed row alone and the tile
+    that cycles through state 0, in both splits, at 32 lanes a record and,
+    where W <= 16, two records a warp; an odd count of records of length
+    0, at the chunk edges and full, in unequal pairs."""
+    tables = spl.with_band(_flag_tables(name, S, residual), spl.BANDED_MAX_DIAGS if keep else 0)
+    data, lengths = _pair_batch(name, tables.s_tile)
+    lt, dt = torch.from_numpy(lengths), torch.from_numpy(data)
+    for seeded in (True, False):
+        hits, skipped, taken, stopped = _stats_walk(tables, data, lengths, G, seeded)
+        assert taken > 0 and (skipped > 0 or seeded)
+        # a planted tile's random masks keep an unseeded set alive
+        assert seeded or stopped > 0 or name not in ("K60+", "chain+"), "no early stop"
+        for sd, lead, nullable in STATS_FORMS:
+            if sd != seeded:
+                continue
+            kw = dict(seeded=seeded, lead=lead, nullable=nullable)
+            got = _stats_fold(hits, lengths, data.shape[1], channels=False, **kw)
+            want = spl.stats_plain(dt, lt, tables, **kw)
+            for x, y, what in zip(got, want, ("cnt", "first", "last", "full")):
+                assert torch.equal(x, y), f"{kw} {what}"
+        if seeded:
+            assert any(h for rec in hits for h in rec), "no accept: the batch shows nothing"
+
+
+@pytest.mark.parametrize("which", ["P3", "P3$", "40"])
+def test_record_stats_channels_model_matches_plain(which):
+    """P accept channels at 32 lanes a record: the union gates the warp's
+    buffer, each channel tested on the state; equal to ``stats_plain`` on
+    the P = 3 union, its `$` form and 40 channels, in both splits."""
+    base, _ = _channel_tables(which)
+    data, lengths = _channel_batch()
+    lt, dt = torch.from_numpy(lengths), torch.from_numpy(data)
+    for keep in (True, False):
+        tables = spl.with_band(base, spl.BANDED_MAX_DIAGS if keep else 0)
+        for seeded in (True, False):
+            hits = _stats_walk(tables, data, lengths, 32, seeded)[0]
+            for sd, lead, nullable in STATS_FORMS:
+                if sd != seeded:
+                    continue
+                kw = dict(seeded=seeded, lead=lead, nullable=nullable)
+                got = _stats_fold(hits, lengths, data.shape[1], channels=True, **kw)
+                want = spl.stats_plain(dt, lt, tables, **kw)
+                for x, y, what in zip(got, want, ("cnt", "first", "last", "full")):
+                    assert torch.equal(x, y), f"keep={keep} {kw} {what}"
+        assert any(h for rec in hits for h in rec)
+
+
+def _lazy_mb_records(tables: spl.NfaTables, span: torch.Tensor, hits: torch.Tensor,
+                     data: np.ndarray, lengths: np.ndarray):
+    """``wide_lazy_spans_mb_kernel`` on the model: one record a warp on the
+    record flags' split, the bytes by ``walk_chunks`` (the pair walker of
+    one record); per step each idle channel claims sp = max(t - 1, 0) on
+    its hit bit, the seed word is the OR of the sg rows of the channels
+    that seed the step (cur == t - 1, or cur == 0 and t <= 1) and follow[0]
+    where state 0 is live; where the state is empty the step is the seed
+    word alone, and where no channel seeds either it is skipped; where the
+    union of the accept rows fires, each claimed channel whose accept row
+    meets the state emits (cur, min(t, len)) if that is >= cur and clears
+    its positions (posm) from the state; after the walk an idle channel
+    with pos <= len and hit bit len + 1 emits (len, len). Returns (spans
+    [R][P] lists, steps skipped, steps with an empty state and a seed)."""
+    model = _Model(tables._replace(band=tables.fwd_band, diags=tables.fwd_diags), 32)
+    accs = _acc_rows(tables)
+    sp_rows = span.numpy().view(np.uint32).astype(np.uint64)  # [P, 2, W]
+    hw = hits.numpy().view(np.uint32)
+    P = tables.P
+    R, L = data.shape
+    row = np.zeros(((L + 15) // 16) * 16, np.uint8)
+    out = [[[] for _ in range(P)] for _ in range(R)]
+    skipped = seeded_only = 0
+    zero = np.zeros(model.W, np.uint64)
+    for r in range(R):
+        n = int(min(max(lengths[r], 0), L))
+        row[:L] = data[r]
+        cur, pos = [-1] * P, [0] * P
+        v = np.zeros((1, model.W), np.uint64)
+        for t, sym in _walk_chunks_pair(row, n, n):
+            sp = max(t - 1, 0)
+            seed = zero.copy()
+            seeding = False
+            for c in range(P):
+                if cur[c] < 0 and (hw[c, t >> 5, r] >> (t & 31)) & 1 and pos[c] <= sp <= n:
+                    cur[c] = sp
+                if cur[c] >= 0 and (cur[c] == t - 1 or (cur[c] == 0 and t <= 1)):
+                    seed |= sp_rows[c, 0]
+                    seeding = True
+            if v.any():
+                if model.enter0 and v[0, 0] & np.uint64(1):
+                    seed |= model.seed
+                v = model.fwd_word(v, [seed], [sym])
+            elif seeding:
+                v = (seed & model.mask[sym])[None, :]
+                seeded_only += 1
+            else:
+                skipped += 1
+                continue
+            if not (v[0] & model.acc).any():
+                continue
+            e = min(t, n)
+            kill = zero.copy()
+            for c in range(P):
+                if cur[c] >= 0 and e >= cur[c] and (v[0] & accs[c]).any():
+                    out[r][c].append((cur[c], e))
+                    pos[c] = max(e, cur[c] + 1)
+                    cur[c] = -1
+                    kill |= sp_rows[c, 1]
+            v = v & ~kill
+        for c in range(P):
+            if cur[c] < 0 and pos[c] <= n and (hw[c, (n + 1) >> 5, r] >> ((n + 1) & 31)) & 1:
+                out[r][c].append((n, n))
+    return out, skipped, seeded_only
+
+
+def _spans_at_cap(spans, cap: int):
+    """(starts [R, P, cap], ends [R, P, cap], -1 past the count; cnt [R, P])
+    of per-record, per-channel span lists."""
+    R, P = len(spans), len(spans[0])
+    st = np.full((R, P, cap), -1, np.int32)
+    en = np.full((R, P, cap), -1, np.int32)
+    cnt = np.zeros((R, P), np.int32)
+    for r in range(R):
+        for c in range(P):
+            for k, (a, b) in enumerate(spans[r][c][:cap]):
+                st[r, c, k], en[r, c, k] = a, b
+            cnt[r, c] = len(spans[r][c])
+    return torch.from_numpy(st), torch.from_numpy(en), torch.from_numpy(cnt)
+
+
+@pytest.mark.parametrize("keep", [True, False], ids=["diagonals", "walk-all"])
+@pytest.mark.parametrize("which", ["P3", "P3$", "40"])
+def test_record_lazy_spans_mb_model_matches_plain(which, keep):
+    """The multi-channel lazy spans on the band step (the channels' seed
+    words into ``Band::fwd_word``, the step skipped while the state is
+    empty and no channel seeds) equal ``lazy_spans_mb_plain`` on the P = 3
+    union, its `$` channels (the empty match after a span ending at the
+    EOS step) and 40 channels (8 past lane 31), at caps 1, 2 and 16, in
+    both splits; most steps of a record skip."""
+    base, span = _channel_tables(which)
+    tables = spl.with_band(base, spl.BANDED_MAX_DIAGS if keep else 0)
+    assert tables.fwd_diags == ((1,) if keep else ())
+    data, lengths = _channel_batch()
+    lt, dt = torch.from_numpy(lengths), torch.from_numpy(data)
+    hits = spl.reverse_mb_plain(dt, lt, tables, span)
+    spans, skipped, seeded_only = _lazy_mb_records(tables, span, hits, data, lengths)
+    steps = int((np.minimum(lengths, data.shape[1]) + 2).sum())
+    assert seeded_only > 0 and 2 * skipped > steps, (skipped, steps)
+    overflow = False
+    for cap in (1, 2, 16):
+        got = _spans_at_cap(spans, cap)
+        want = spl.lazy_spans_mb_plain(dt, lt, tables, span, hits, cap)
+        for x, y, what in zip(got, want, ("starts", "ends", "cnt")):
+            assert torch.equal(x, y), f"cap={cap} {what}"
+        overflow |= bool((want[2] > cap).any())
+    assert (want[2] > 0).any() and (overflow or which == "40")
+
+
+@pytest.mark.parametrize("name", ["chain+", "K60+", "P3", "narrow"])
+def test_nfa_stats_passes_the_band(name, monkeypatch):
+    """Past 256 states ``nfa_stats`` launches rrx_nfa_wide_stats with P,
+    the seed flag, the lead (-1 for none), the nullable flag and the four
+    outputs, then the record flags' band split (K60+'s one diagonal; every
+    edge walked for the chain), its offset count, the offsets (a host int
+    array of BANDED_MAX_DIAGS) and the lanes a record (16 where W <= 16
+    and P = 1, else 32: the P = 3 union at W = 12 runs 32), then the
+    zeroed record counter, and counts the launch; it refuses tables
+    without that split. A narrow tile launches rrx_nfa_stats with its own
+    arguments alone. The meta device stands in for the card."""
+    calls = []
+    monkeypatch.setattr(spl, "_launch", lambda entry, *a: calls.append((entry, a)))
+    if name == "P3":
+        tables = _channel_tables("P3")[0]
+    elif name == "narrow":
+        tables = spl.device_nfa_tables(compile_program(_kw(20)), "cpu")
+    else:
+        tables = _prog_tables(name)[1]
+    data = torch.zeros((5, 32), dtype=torch.uint8, device="meta")
+    lengths = torch.zeros(5, dtype=torch.int32, device="meta")
+    wide = tables.s_tile > spl.REG_S_TILE
+    counter = "wide_launches" if wide else "launches"
+    before = getattr(spl.nfa_stats, counter)
+    out = spl.nfa_stats(data, lengths, tables, seeded=False, lead=3, nullable=True)
+    assert getattr(spl.nfa_stats, counter) == before + 1
+    assert tuple(out[0].shape) == ((5, tables.P) if tables.channels else (5,))
+    (entry, args), = calls
+    assert args[:3] == (data, lengths, tables) and args[3:7] == (tables.P, 0, 3, 1)
+    assert all(a is b for a, b in zip(args[7:10], out[:3]))
+    if not wide:
+        assert entry == "rrx_nfa_stats" and len(args) == 11
+        return
+    assert entry == "rrx_nfa_wide_stats"
+    band, nd, offs, lanes, nxt = args[11:]
+    assert band is tables.fwd_band and nd == len(tables.fwd_diags)
+    assert tables.fwd_diags == {"chain+": (), "K60+": (1,), "P3": (1,)}[name]
+    assert list(offs) == list(tables.fwd_diags) + [0] * (spl.BANDED_MAX_DIAGS - nd)
+    assert tables.band_lanes == {"chain+": 32, "K60+": 16, "P3": 16}[name]
+    assert lanes == {"chain+": 32, "K60+": 16, "P3": 32}[name]
+    assert nxt.dtype == torch.int32 and tuple(nxt.shape) == (1,)
+    spl.nfa_stats(data, lengths, tables, seeded=True)
+    assert calls[-1][1][4:6] == (1, -1) and calls[-1][1][14] == lanes
+    with pytest.raises(ValueError, match="without a band split"):
+        spl.nfa_stats(data, lengths, tables._replace(fwd_band=None), seeded=True)
+    assert spl.nfa_stats.wide_launches == before + 2
+
+
+@pytest.mark.parametrize("which", ["P3", "40"])
+def test_nfa_lazy_spans_mb_passes_the_band(which, monkeypatch):
+    """Past 256 states ``nfa_lazy_spans_mb`` launches
+    rrx_nfa_wide_lazy_spans_mb with P, the span rows, the hit words, the
+    cap, the outputs and the scratch rows ([R, P, 2] past 32 channels),
+    then the record flags' band split, its offset count, the offsets and
+    32 lanes a record, then the zeroed record counter, and counts the
+    launch; it refuses tables without that split, launching nothing."""
+    calls = []
+    monkeypatch.setattr(spl, "_launch", lambda entry, *a: calls.append((entry, a)))
+    tables, span = _channel_tables(which)
+    data = torch.zeros((3, 40), dtype=torch.uint8, device="meta")
+    lengths = torch.zeros(3, dtype=torch.int32, device="meta")
+    span_m = torch.zeros(tuple(span.shape), dtype=torch.int32, device="meta")
+    hits = torch.zeros((tables.P, spl.sb.hit_words(40), 3), dtype=torch.int32, device="meta")
+    before = spl.nfa_lazy_spans_mb.wide_launches
+    starts, ends, cnt = spl.nfa_lazy_spans_mb(data, lengths, tables, span_m, hits, 4)
+    assert spl.nfa_lazy_spans_mb.wide_launches == before + 1
+    assert tuple(starts.shape) == (3, tables.P, 4) and tuple(cnt.shape) == (3, tables.P)
+    (entry, args), = calls
+    assert entry == "rrx_nfa_wide_lazy_spans_mb"
+    assert args[:3] == (data, lengths, tables) and args[3] == tables.P and args[6] == 4
+    assert args[7] is starts and args[8] is ends and args[9] is cnt
+    assert tuple(args[10].shape) == ((3, 40, 2) if tables.P > 32 else (1,))
+    band, nd, offs, lanes, nxt = args[11:]
+    assert band is tables.fwd_band and nd == len(tables.fwd_diags) == 1
+    assert list(offs) == [1] + [0] * (spl.BANDED_MAX_DIAGS - 1) and lanes == 32
+    assert nxt.dtype == torch.int32 and tuple(nxt.shape) == (1,)
+    with pytest.raises(ValueError, match="without a band split"):
+        spl.nfa_lazy_spans_mb(data, lengths, tables._replace(fwd_band=None), span_m, hits, 4)
+    assert len(calls) == 1 and spl.nfa_lazy_spans_mb.wide_launches == before + 1
